@@ -1,0 +1,5 @@
+"""PyTorch and CUDA port of aaclip_tpu: the adapted ViT-L/14-336 inference
+path and the fused anomaly map, with hand-written Hopper kernels.
+
+Imports torch, never jax and nothing of aaclip_tpu.
+"""

@@ -1,0 +1,132 @@
+"""Anomaly maps per second of the port's inference path on one card
+(adapted ViT-L/14-336 forward at 518 px + fused anomaly map), random
+weights from a fixed seed.
+
+    python -m aaclip_tpu_torch.bench [--batch_size 32] [--precision bf16]
+
+Prints ONE JSON line in the format of the repo's ``bench.py``:
+  {"metric": ..., "value": N, "unit": ..., "vs_baseline": N}
+The unit names the card and its power limit. Timed with CUDA events
+around ``--steps`` predict calls after ``--warmup`` calls. Needs a card:
+without one it raises and prints nothing.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+# The reference publishes no throughput; bench.py's constant is an analytic
+# estimate of the reference PyTorch pipeline on an A100 (derivation in
+# docs/PERFORMANCE.md, "Reference baseline derivation"). Kept so the two
+# benches report the same ratio.
+REFERENCE_BASELINE_MAPS_PER_SEC = 40.0
+
+
+def profile_calls(fn, calls: int) -> None:
+    """Trace ``calls`` calls of ``fn`` and print, to stderr, the device
+    time by op and the share of the traced wall time the card was busy."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.key_averages()
+    # device time is the kernels' own rows, as the table's total counts it
+    # (the aten rows repeat their kernels' time)
+    busy_us = sum(e.self_device_time_total for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.is_user_annotation)
+    print(events.table(sort_by="self_device_time_total", row_limit=25),
+          file=sys.stderr)
+    print(f"profile: {calls} calls, device busy {busy_us / 1e3:.2f} ms of "
+          f"{wall_us / 1e3:.2f} ms traced wall time "
+          f"({busy_us / wall_us:.3f})", file=sys.stderr)
+
+
+def main(argv=None) -> None:
+    from aaclip_tpu_torch.core.config import PRECISION_CHOICES
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--model_name", default="ViT-L-14-336")
+    parser.add_argument("--img_size", type=int, default=518)
+    parser.add_argument("--batch_size", type=int, default=32)
+    parser.add_argument("--precision", default="bf16",
+                        choices=PRECISION_CHOICES,
+                        help="fp32_high and int8 are not ported yet")
+    parser.add_argument("--steps", type=int, default=10)
+    parser.add_argument("--warmup", type=int, default=3)
+    parser.add_argument("--profile", action="store_true",
+                        help="after the timed loop, trace two more calls "
+                             "with torch.profiler and print device time by "
+                             "op to stderr")
+    args = parser.parse_args(argv)
+
+    import torch
+
+    from aaclip_tpu_torch.core.config import (AdapterConfig, DtypePolicy,
+                                              get_config)
+    from aaclip_tpu_torch.core.params import (init_image_adapter,
+                                              init_vision_params)
+    from aaclip_tpu_torch.device import card_line, resolve_device
+    from aaclip_tpu_torch.eval.predict import make_predict_fn
+    from aaclip_tpu_torch.ops.similarity import fused_postproc_matrix
+
+    dev = resolve_device(None)
+    policy = DtypePolicy.from_name(args.precision)
+    cfg = get_config(args.model_name, args.img_size)
+    acfg = AdapterConfig() if args.model_name != "tiny-test" else \
+        AdapterConfig(levels=(1, 2), image_adapt_until=1)
+    vit = init_vision_params(cfg, seed=0, device=dev)
+    adapter = init_image_adapter(cfg, acfg, seed=1, device=dev)
+    uint8_inputs = args.precision == "bf16"
+    predict = make_predict_fn(vit, cfg, acfg, policy=policy,
+                              uint8_inputs=uint8_inputs, device=dev)
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    shape = (args.batch_size, 3, args.img_size, args.img_size)
+    if uint8_inputs:
+        images = torch.randint(0, 256, shape, generator=gen, device=dev,
+                               dtype=torch.uint8)
+    else:
+        images = torch.randn(shape, generator=gen, device=dev)
+    anchors = torch.randn(cfg.embed_dim, 2, generator=gen, device=dev)
+    anchors = anchors / anchors.norm(dim=0, keepdim=True)
+    M = torch.from_numpy(fused_postproc_matrix(
+        cfg.vision.grid, args.img_size, "Industrial")).to(dev)
+
+    for _ in range(args.warmup):
+        predict(adapter, images, anchors, M)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(args.steps):
+        predict(adapter, images, anchors, M)
+    end.record()
+    torch.cuda.synchronize()
+    maps_per_sec = args.batch_size * args.steps / (start.elapsed_time(end)
+                                                   / 1e3)
+    if args.profile:
+        profile_calls(lambda: predict(adapter, images, anchors, M), 2)
+    print(json.dumps({
+        "metric": "anomaly_maps_per_sec_per_chip",
+        "value": round(maps_per_sec, 2),
+        "unit": f"maps/s/chip ({args.model_name} @ {args.img_size}px, "
+                f"adapted fwd + fused map, {args.precision}, "
+                f"batch {args.batch_size}, "
+                f"{card_line()})",
+        "vs_baseline": round(maps_per_sec / REFERENCE_BASELINE_MAPS_PER_SEC,
+                             3),
+    }))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,189 @@
+"""Model architecture configuration and dtype policy.
+
+The production architecture is OpenAI CLIP ViT-L/14-336 evaluated at
+img_size 518; ``tiny-test`` is a 2-layer, 64-wide model for the CPU tests.
+The JSON files under ``model_configs/`` are this package's own copy of the
+registry (the reference's schema: ``embed_dim`` + ``vision_cfg`` +
+``text_cfg``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import glob
+import json
+import os
+from typing import Tuple
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class VisionConfig:
+    image_size: int = 518          # run-time resolution
+    patch_size: int = 14
+    width: int = 1024
+    layers: int = 24
+    heads: int = 16
+    mlp_ratio: float = 4.0
+
+    @property
+    def grid(self) -> int:
+        return self.image_size // self.patch_size
+
+    @property
+    def num_patches(self) -> int:
+        return self.grid * self.grid
+
+    @property
+    def seq_len(self) -> int:
+        return self.num_patches + 1  # + CLS
+
+    @property
+    def head_dim(self) -> int:
+        return self.width // self.heads
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPConfig:
+    """Model config (the image side; the text tower is not ported yet).
+    ``quick_gelu`` False means exact-erf GELU, the reference's default for
+    the ViT-L model."""
+
+    vision: VisionConfig = dataclasses.field(default_factory=VisionConfig)
+    embed_dim: int = 768
+    quick_gelu: bool = False
+
+    def with_image_size(self, image_size: int) -> "CLIPConfig":
+        if image_size % self.vision.patch_size:
+            raise ValueError(
+                f"img_size {image_size} is not a multiple of the "
+                f"{self.vision.patch_size}px patch size")
+        return dataclasses.replace(
+            self,
+            vision=dataclasses.replace(self.vision, image_size=image_size))
+
+
+@dataclasses.dataclass(frozen=True)
+class AdapterConfig:
+    """Image adapter hyper-parameters: blend weight, how many blocks get an
+    adapter, the tapped depths, and whether the seg/det projections end in
+    a LeakyReLU."""
+
+    image_adapt_weight: float = 0.1
+    image_adapt_until: int = 6
+    levels: Tuple[int, ...] = (6, 12, 18, 24)
+    proj_relu: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class DtypePolicy:
+    """Precision policy.
+
+    Parameters are stored in fp32. ``compute_dtype`` is what matmul inputs
+    are cast to (products always accumulate in fp32; fp32 products are
+    true fp32, TF32 off) and the residual stream's dtype. ``fast_act``
+    selects the tanh GELU. LayerNorm statistics and softmax always run in
+    fp32.
+    """
+
+    compute_dtype: torch.dtype = torch.float32
+    fast_act: bool = False
+
+    @classmethod
+    def fp32(cls) -> "DtypePolicy":
+        """Parity path: true fp32 matmuls (no TF32), erf GELU."""
+        return cls(torch.float32, False)
+
+    @classmethod
+    def bf16(cls) -> "DtypePolicy":
+        """Fast path: bf16 matmul inputs with fp32 accumulation, tanh GELU,
+        bf16 residual stream."""
+        return cls(torch.bfloat16, True)
+
+    @classmethod
+    def fp32_high(cls) -> "DtypePolicy":
+        raise NotImplementedError(
+            "fp32_high (3-pass bf16 matmuls, bf16-staged prefix blocks and "
+            "the prefix attention) is not ported yet: ROADMAP A7, 'fp32_high "
+            "and its 3-pass kernel mode'")
+
+    @classmethod
+    def int8(cls) -> "DtypePolicy":
+        raise NotImplementedError(
+            "int8 inference is not ported yet: ROADMAP A12, 'int8, mesh and "
+            "serving'")
+
+    @classmethod
+    def from_name(cls, name: str) -> "DtypePolicy":
+        """CLI --precision string -> policy."""
+        try:
+            factory = {"fp32": cls.fp32, "fp32_high": cls.fp32_high,
+                       "bf16": cls.bf16, "int8": cls.int8}[name]
+        except KeyError:
+            raise ValueError(f"unknown precision {name!r}") from None
+        return factory()
+
+
+PRECISION_CHOICES = ("fp32", "fp32_high", "bf16", "int8")
+
+VIT_L_14_336 = CLIPConfig()
+
+# 2-layer, 64-wide tower, 70-px images (5x5 grid).
+TINY_TEST = CLIPConfig(
+    vision=VisionConfig(image_size=70, patch_size=14, width=64, layers=2,
+                        heads=4),
+    embed_dim=32,
+)
+
+MODEL_CONFIGS = {
+    "ViT-L-14-336": VIT_L_14_336,
+    "tiny-test": TINY_TEST,
+}
+
+
+def config_from_json(payload: dict) -> CLIPConfig:
+    """CLIPConfig from the reference's JSON schema (its ``text_cfg`` is not
+    read until the text tower is ported)."""
+    v = payload["vision_cfg"]
+    return CLIPConfig(
+        vision=VisionConfig(
+            image_size=v["image_size"], patch_size=v["patch_size"],
+            width=v["width"], layers=v["layers"],
+            heads=v["width"] // v.get("head_width", 64),
+            mlp_ratio=v.get("mlp_ratio", 4.0)),
+        embed_dim=payload["embed_dim"],
+        quick_gelu=payload.get("quick_gelu", False),
+    )
+
+
+def _scan_json_configs() -> None:
+    """Add model_configs/*.json to MODEL_CONFIGS; the built-in entries
+    above win over a JSON file of the same name."""
+    here = os.path.join(os.path.dirname(__file__), "model_configs")
+    for path in sorted(glob.glob(os.path.join(here, "*.json"))):
+        name = os.path.splitext(os.path.basename(path))[0]
+        if name in MODEL_CONFIGS:
+            continue
+        try:
+            with open(path) as f:
+                MODEL_CONFIGS[name] = config_from_json(json.load(f))
+        except (OSError, ValueError, KeyError) as e:
+            raise RuntimeError(
+                f"could not load model config {path!r}: {e}") from e
+
+
+_scan_json_configs()
+
+
+def get_config(model_name: str, img_size: int | None = None) -> CLIPConfig:
+    """Look up a named architecture, optionally overriding the run-time
+    image size."""
+    name = model_name.replace("/", "-")
+    if name not in MODEL_CONFIGS:
+        raise KeyError(f"Model config for {name} not found; available: "
+                       f"{sorted(MODEL_CONFIGS)}")
+    cfg = MODEL_CONFIGS[name]
+    if img_size is not None and img_size != cfg.vision.image_size:
+        cfg = cfg.with_image_size(img_size)
+    return cfg

@@ -1,0 +1,86 @@
+"""Build the hand-written CUDA kernels with nvcc and load them with ctypes.
+
+Each library is compiled from ``csrc/`` on first use into ``_build/``,
+keyed by a hash of the sources and flags, so an edited source rebuilds and
+an unchanged one loads at once. A missing ``nvcc`` or a failed compile
+raises: there is no fallback path.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+
+def find_nvcc() -> str:
+    """Path of nvcc: on PATH, else under the CUDA home torch discovers."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and os.access(os.path.join(CUDA_HOME, "bin", "nvcc"),
+                               os.X_OK):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found (neither on PATH nor under the CUDA "
+                       "home); the port's kernels cannot be built")
+
+
+def _sources(name: str) -> list[Path]:
+    headers = sorted(CSRC.glob("*.cuh"))
+    return [CSRC / f"{name}.cu", *headers]
+
+
+def library_path(name: str) -> Path:
+    """Where the library built from the current sources lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources(name):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(name: str) -> tuple[Path, str]:
+    """Compile ``csrc/<name>.cu`` unless the hashed library exists.
+
+    Returns the library's path and nvcc's report (ptxas registers, shared
+    memory and spills; empty when the library was already built)."""
+    out = library_path(name)
+    if out.exists():
+        return out, ""
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+            capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed to build {name}:\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)  # atomic: a concurrent build loads either copy
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out, proc.stdout + proc.stderr
+
+
+@functools.cache
+def load(name: str) -> ctypes.CDLL:
+    """Build if needed and load; the caller declares its entry points'
+    argument types."""
+    path, _ = build(name)
+    return ctypes.CDLL(str(path))

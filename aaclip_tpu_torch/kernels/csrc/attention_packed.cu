@@ -1,0 +1,327 @@
+// Packed-QKV softmax attention for Hopper (sm_90a), plain C interface.
+//
+// Replaces aaclip_tpu/ops/flash_attention.py::attention_packed
+// (_packed_kernel, standard mode): non-causal attention read straight out
+// of the packed projection qkv [B, S, sections*D] (bias already added),
+// keys at or past `valid_len` masked, softmax division deferred to the
+// output, written token-major to out [B, S, D].
+//
+// What bounds it on an H100: per image and launch at ViT-L/518 (S 1370,
+// 16 heads x 64) the work is 4*16*1370^2*64 = 7.69 GFLOP against 11.2 MB
+// moved (3072*1370*2 B read, 1024*1370*2 B written), about 690 FLOP per
+// byte, far above the card's ~295 bf16 FLOP per byte of HBM: it is bound
+// by the tensor cores, not by memory.
+//
+// Design. The TPU kernel holds a head's whole K and V row in VMEM; at
+// S 1408 in bf16 that is ~360 KB, more than a block's 227 KB of shared
+// memory. Here one block owns (64 query rows, one head, one image) and
+// walks the keys in tiles of 64 staged in shared memory, with an online
+// softmax (running max and sum in fp32) and one division at the end. Q, K
+// and V are read in place through the row stride and three section
+// offsets, so the V-V mode (all three on the value section) needs no new
+// kernel. The ragged tail is masked by bounds: rows >= S are zero-filled
+// on load and never stored, keys >= valid_len get -inf, and key tiles
+// wholly past valid_len are skipped.
+//
+// bf16: Q.K^T and P.V run on the tensor cores through mma.sync m16n8k16
+// with fp32 accumulation; P is rounded to bf16 before P.V as the TPU
+// kernel does, the row sum is taken over the fp32 P. Each of the 4 warps
+// owns 16 query rows; scores, P and the output stay in registers.
+// fp32 (the parity policy): fp32 FMA throughout, no TF32; one thread per
+// query row.
+// Both are templated on the head dim (64 for ViT-L/B, 16 for tiny-test).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kBlockM = 64;  // query rows per block
+constexpr int kBlockN = 64;  // keys per shared-memory tile (bf16)
+constexpr int kBlockNF = 32; // keys per shared-memory tile (fp32)
+
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
+                                               const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
+                                              __nv_bfloat16 hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Copy a [kRows, HD] tile starting at row `row0` from global memory (row
+// stride `ld` elements) into shared memory (row stride SLD), 16 bytes per
+// thread and step; rows >= S are zero-filled.
+template <typename T, int HD, int SLD, int kRows>
+__device__ __forceinline__ void load_tile(T* smem, const T* src, int64_t ld,
+                                          int row0, int S) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kPerRow = HD / kVec;
+  for (int i = threadIdx.x; i < kRows * kPerRow; i += blockDim.x) {
+    const int r = i / kPerRow;
+    const int c = (i % kPerRow) * kVec;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < S)
+      v = *reinterpret_cast<const uint4*>(src + (int64_t)(row0 + r) * ld + c);
+    *reinterpret_cast<uint4*>(smem + r * SLD + c) = v;
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(128)
+attn_bf16_kernel(const __nv_bfloat16* __restrict__ qkv,
+                 __nv_bfloat16* __restrict__ out, int S, int valid_len,
+                 int64_t ld, int q_off, int k_off, int v_off, int64_t out_ld,
+                 float scale) {
+  static_assert(HD % 16 == 0, "head dim must be a multiple of 16");
+  constexpr int SLD = HD + 8;       // padded row: conflict-free fragments
+  constexpr int KS = HD / 16;       // k-steps of Q.K^T over the head dim
+  constexpr int ND = HD / 8;        // n-tiles of P.V over the head dim
+  constexpr int NT = kBlockN / 8;   // n-tiles of Q.K^T over the keys
+  constexpr int KK = kBlockN / 16;  // k-steps of P.V over the keys
+  __shared__ __align__(16) __nv_bfloat16 sQ[kBlockM * SLD];
+  __shared__ __align__(16) __nv_bfloat16 sK[kBlockN * SLD];
+  __shared__ __align__(16) __nv_bfloat16 sV[kBlockN * SLD];
+
+  const int q0 = blockIdx.x * kBlockM;
+  const int hoff = blockIdx.y * HD;
+  const __nv_bfloat16* base = qkv + (int64_t)blockIdx.z * S * ld;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;  // fragment row group
+  const int t = lane & 3;   // thread in group
+
+  load_tile<__nv_bfloat16, HD, SLD, kBlockM>(sQ, base + q_off + hoff, ld, q0,
+                                             S);
+  __syncthreads();
+  uint32_t qf[KS][4];
+  const int r0 = warp * 16 + g;
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    qf[ks][0] = ld32(sQ + r0 * SLD + ks * 16 + t * 2);
+    qf[ks][1] = ld32(sQ + (r0 + 8) * SLD + ks * 16 + t * 2);
+    qf[ks][2] = ld32(sQ + r0 * SLD + ks * 16 + 8 + t * 2);
+    qf[ks][3] = ld32(sQ + (r0 + 8) * SLD + ks * 16 + 8 + t * 2);
+  }
+
+  float o[ND][4];
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd)
+    o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};  // running max of rows g, g + 8
+  float l[2] = {0.f, 0.f};              // this thread's share of the sums
+
+  const int n_tiles = (valid_len + kBlockN - 1) / kBlockN;
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * kBlockN;
+    __syncthreads();  // the previous tile is fully consumed
+    load_tile<__nv_bfloat16, HD, SLD, kBlockN>(sK, base + k_off + hoff, ld,
+                                               k0, S);
+    load_tile<__nv_bfloat16, HD, SLD, kBlockN>(sV, base + v_off + hoff, ld,
+                                               k0, S);
+    __syncthreads();
+
+    float s[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        const __nv_bfloat16* kp = sK + (nt * 8 + g) * SLD + ks * 16 + t * 2;
+        mma_bf16_16816(s[nt], qf[ks], ld32(kp), ld32(kp + 8));
+      }
+    }
+
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int col = k0 + nt * 8 + t * 2 + (i & 1);
+        const float v = col < valid_len ? s[nt][i] * scale : -INFINITY;
+        s[nt][i] = v;
+        mx[i >> 1] = fmaxf(mx[i >> 1], v);
+      }
+    }
+    float mref[2], alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      mref[r] = mx[r] == -INFINITY ? 0.f : mx[r];
+      alpha[r] = __expf(m[r] - mref[r]);
+      m[r] = mx[r];
+      l[r] *= alpha[r];
+    }
+
+    uint32_t pf[KK][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const float p0 = __expf(s[nt][0] - mref[0]);
+      const float p1 = __expf(s[nt][1] - mref[0]);
+      const float p2 = __expf(s[nt][2] - mref[1]);
+      const float p3 = __expf(s[nt][3] - mref[1]);
+      l[0] += p0 + p1;
+      l[1] += p2 + p3;
+      // two adjacent score n-tiles form one A fragment of P.V
+      pf[nt >> 1][(nt & 1) * 2 + 0] = pack_f32(p0, p1);
+      pf[nt >> 1][(nt & 1) * 2 + 1] = pack_f32(p2, p3);
+    }
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd) {
+      o[nd][0] *= alpha[0];
+      o[nd][1] *= alpha[0];
+      o[nd][2] *= alpha[1];
+      o[nd][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk) {
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd) {
+        const __nv_bfloat16* vp = sV + (kk * 16 + t * 2) * SLD + nd * 8 + g;
+        const uint32_t b0 = pack_bf16(vp[0], vp[SLD]);
+        const uint32_t b1 = pack_bf16(vp[8 * SLD], vp[9 * SLD]);
+        mma_bf16_16816(o[nd], pf[kk], b0, b1);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  const int row_a = q0 + r0;
+  const int row_b = row_a + 8;
+  __nv_bfloat16* ob = out + (int64_t)blockIdx.z * S * out_ld + hoff + t * 2;
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd) {
+    if (row_a < S)
+      *reinterpret_cast<uint32_t*>(ob + (int64_t)row_a * out_ld + nd * 8) =
+          pack_f32(o[nd][0] / l[0], o[nd][1] / l[0]);
+    if (row_b < S)
+      *reinterpret_cast<uint32_t*>(ob + (int64_t)row_b * out_ld + nd * 8) =
+          pack_f32(o[nd][2] / l[1], o[nd][3] / l[1]);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kBlockM)
+attn_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out,
+                int S, int valid_len, int64_t ld, int q_off, int k_off,
+                int v_off, int64_t out_ld, float scale) {
+  static_assert(HD % 4 == 0, "head dim must be a multiple of 4");
+  __shared__ __align__(16) float sK[kBlockNF * HD];
+  __shared__ __align__(16) float sV[kBlockNF * HD];
+
+  const int row = blockIdx.x * kBlockM + threadIdx.x;
+  const int hoff = blockIdx.y * HD;
+  const float* base = qkv + (int64_t)blockIdx.z * S * ld;
+
+  float q[HD];
+#pragma unroll
+  for (int d = 0; d < HD; ++d)
+    q[d] = row < S ? base[(int64_t)row * ld + q_off + hoff + d] : 0.f;
+  float o[HD];
+#pragma unroll
+  for (int d = 0; d < HD; ++d) o[d] = 0.f;
+  float m = -INFINITY, l = 0.f;
+
+  for (int k0 = 0; k0 < valid_len; k0 += kBlockNF) {
+    __syncthreads();
+    load_tile<float, HD, HD, kBlockNF>(sK, base + k_off + hoff, ld, k0, S);
+    load_tile<float, HD, HD, kBlockNF>(sV, base + v_off + hoff, ld, k0, S);
+    __syncthreads();
+    float s[kBlockNF];
+    float mx = m;
+#pragma unroll
+    for (int j = 0; j < kBlockNF; ++j) {
+      float acc = 0.f;
+#pragma unroll
+      for (int d = 0; d < HD; ++d) acc = fmaf(q[d], sK[j * HD + d], acc);
+      s[j] = k0 + j < valid_len ? acc * scale : -INFINITY;
+      mx = fmaxf(mx, s[j]);
+    }
+    const float mref = mx == -INFINITY ? 0.f : mx;
+    const float alpha = expf(m - mref);
+    m = mx;
+    l *= alpha;
+#pragma unroll
+    for (int d = 0; d < HD; ++d) o[d] *= alpha;
+#pragma unroll
+    for (int j = 0; j < kBlockNF; ++j) {
+      const float p = expf(s[j] - mref);
+      l += p;
+#pragma unroll
+      for (int d = 0; d < HD; ++d) o[d] = fmaf(p, sV[j * HD + d], o[d]);
+    }
+  }
+  if (row < S) {
+    float* orow = out + (int64_t)blockIdx.z * S * out_ld +
+                  (int64_t)row * out_ld + hoff;
+#pragma unroll
+    for (int d = 0; d < HD; ++d) orow[d] = o[d] / l;
+  }
+}
+
+template <int HD>
+void launch(bool bf16, dim3 grid, cudaStream_t stream, const void* qkv,
+            void* out, int S, int valid_len, int64_t ld, int q_off,
+            int k_off, int v_off, int64_t out_ld, float scale) {
+  if (bf16)
+    attn_bf16_kernel<HD><<<grid, 128, 0, stream>>>(
+        static_cast<const __nv_bfloat16*>(qkv),
+        static_cast<__nv_bfloat16*>(out), S, valid_len, ld, q_off, k_off,
+        v_off, out_ld, scale);
+  else
+    attn_f32_kernel<HD><<<grid, kBlockM, 0, stream>>>(
+        static_cast<const float*>(qkv), static_cast<float*>(out), S,
+        valid_len, ld, q_off, k_off, v_off, out_ld, scale);
+}
+
+}  // namespace
+
+// qkv: [batch, seq, ld] elements, out: [batch, seq, out_ld]; the q/k/v
+// sections of head h start at column {q,k,v}_off + h * head_dim. Returns
+// the CUDA error of the launch (0 on success); cudaErrorInvalidValue for a
+// head dim with no instantiation.
+extern "C" int aaclip_attention_packed(const void* qkv, void* out, int bf16,
+                                       int head_dim, int batch, int seq,
+                                       int valid_len, int heads,
+                                       long long ld, int q_off, int k_off,
+                                       int v_off, long long out_ld,
+                                       float scale, void* stream) {
+  const dim3 grid((seq + kBlockM - 1) / kBlockM, heads, batch);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 16:
+      launch<16>(bf16 != 0, grid, st, qkv, out, seq, valid_len, ld, q_off,
+                 k_off, v_off, out_ld, scale);
+      break;
+    case 64:
+      launch<64>(bf16 != 0, grid, st, qkv, out, seq, valid_len, ld, q_off,
+                 k_off, v_off, out_ld, scale);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,196 @@
+"""Transformer primitives of the vision tower, as functions on tensors,
+and the ``nn.Module`` containers that hold a block's weights.
+
+Linear weights use torch's ``[out_features, in_features]`` layout (the JAX
+package stores ``[in, out]``; ``core/params.py::params_from_jax``
+transposes). Numerics follow the JAX package:
+ * LayerNorm eps 1e-5, biased variance, fp32 statistics;
+ * erf GELU on the fp32 parity policy, tanh GELU on the bf16 fast path;
+ * every matmul accumulates in fp32 and returns fp32 (``matmul_f32``);
+   biases are added in fp32 before any cast back to the compute dtype;
+ * pre-LN residual blocks with packed-QKV multi-head attention.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from aaclip_tpu_torch.core.config import DtypePolicy
+
+_LN_EPS = 1e-5
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor,
+               bias: torch.Tensor) -> torch.Tensor:
+    """LayerNorm over the last axis with fp32 statistics; returns x's
+    dtype."""
+    x32 = x.float()
+    mean = x32.mean(-1, keepdim=True)
+    var = (x32 - mean).square().mean(-1, keepdim=True)
+    y = (x32 - mean) * torch.rsqrt(var + _LN_EPS)
+    return (y * weight.float() + bias.float()).to(x.dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact (erf) GELU."""
+    return F.gelu(x)
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """tanh-approximate GELU (fast path)."""
+    return F.gelu(x, approximate="tanh")
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(1.702 * x)
+
+
+def config_act(cfg, policy: DtypePolicy):
+    """QuickGELU for a ``quick_gelu`` config in both precisions; otherwise
+    erf GELU (fp32) or tanh GELU (bf16) by policy."""
+    if getattr(cfg, "quick_gelu", False):
+        return quick_gelu
+    return gelu_tanh if policy.fast_act else gelu
+
+
+def leaky_relu(x: torch.Tensor, negative_slope: float = 0.01) -> torch.Tensor:
+    return torch.where(x >= 0, x, negative_slope * x)
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` accumulated in fp32 and returned in fp32, for operands of
+    one dtype (fp32 or bf16); ``b`` is 2-D or batched like ``a``.
+
+    The JAX package's bf16 products return fp32 (``preferred_element_type``)
+    and add the bias before any cast, while a torch bf16 ``matmul`` rounds
+    its output to bf16. On the card, ``torch.mm``/``torch.bmm`` with
+    ``out_dtype=torch.float32`` keep the fp32 result. The CPU build has no
+    such kernel, so there the bf16-rounded operands are multiplied in fp32,
+    which gives the same products (a bf16 x bf16 product is exact in fp32)
+    summed in another order."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return torch.matmul(a, b)
+    if a.device.type != "cuda":
+        return torch.matmul(a.float(), b.float())
+    if b.dim() == 2:
+        y = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+        return y.reshape(*a.shape[:-1], b.shape[-1])
+    y = torch.bmm(a.reshape(-1, *a.shape[-2:]), b.reshape(-1, *b.shape[-2:]),
+                  out_dtype=torch.float32)
+    return y.reshape(*a.shape[:-1], b.shape[-1])
+
+
+def linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
+           policy: DtypePolicy = DtypePolicy()) -> torch.Tensor:
+    """``x @ weight.T (+ bias)`` in the policy's compute dtype with fp32
+    accumulation; returns fp32."""
+    cd = policy.compute_dtype
+    y = matmul_f32(x.to(cd), weight.to(cd).t())
+    if bias is not None:
+        y = y + bias.float()
+    return y
+
+
+class PackedAttention(nn.Module):
+    """Weights of a multi-head self-attention with one packed QKV
+    projection (the OpenAI CLIP layout: ``in_proj_weight`` [3D, D])."""
+
+    def __init__(self, width: int):
+        super().__init__()
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * width, width))
+        self.in_proj_bias = nn.Parameter(torch.empty(3 * width))
+        self.out_proj = nn.Linear(width, width)
+
+
+class Mlp(nn.Module):
+    def __init__(self, width: int, hidden: int):
+        super().__init__()
+        self.c_fc = nn.Linear(width, hidden)
+        self.c_proj = nn.Linear(hidden, width)
+
+
+class ResidualBlock(nn.Module):
+    """Weights of a pre-LN residual attention block (``residual_block``)."""
+
+    def __init__(self, width: int, mlp_ratio: float = 4.0):
+        super().__init__()
+        self.ln_1 = nn.LayerNorm(width, eps=_LN_EPS)
+        self.attn = PackedAttention(width)
+        self.ln_2 = nn.LayerNorm(width, eps=_LN_EPS)
+        self.mlp = Mlp(width, int(width * mlp_ratio))
+
+
+def attention(x: torch.Tensor, p: PackedAttention, num_heads: int, *,
+              policy: DtypePolicy = DtypePolicy()) -> torch.Tensor:
+    """Plain multi-head self-attention with a packed QKV projection: the
+    JAX package's XLA path (normalized softmax, probabilities cast to the
+    compute dtype before P.V). A CPU reference only: the forward runs the
+    packed-attention hook (``residual_block``), and a tensor on any other
+    device is refused."""
+    if x.device.type != "cpu":
+        raise ValueError(f"layers.attention is the CPU reference; on "
+                         f"{x.device} use ops.attention.make_attn_fn")
+    B, L, D = x.shape
+    hd = D // num_heads
+    cd = policy.compute_dtype
+    qkv = linear(x, p.in_proj_weight, p.in_proj_bias, policy)
+    qkv = qkv.reshape(B, L, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
+    q, k, v = qkv[0], qkv[1], qkv[2]
+    scores = matmul_f32(q.to(cd), k.to(cd).transpose(-1, -2)) * hd ** -0.5
+    probs = torch.softmax(scores, dim=-1)
+    out = matmul_f32(probs.to(cd), v.to(cd))
+    out = out.transpose(1, 2).reshape(B, L, D)
+    out = linear(out, p.out_proj.weight, p.out_proj.bias, policy)
+    return out.to(x.dtype)
+
+
+def mlp(x: torch.Tensor, p: Mlp, act,
+        policy: DtypePolicy = DtypePolicy()) -> torch.Tensor:
+    h = act(linear(x, p.c_fc.weight, p.c_fc.bias, policy))
+    return linear(h, p.c_proj.weight, p.c_proj.bias, policy).to(x.dtype)
+
+
+def residual_block(x: torch.Tensor, blk: ResidualBlock, num_heads: int, *,
+                   act=gelu, policy: DtypePolicy = DtypePolicy(),
+                   attn_fn=None) -> torch.Tensor:
+    """Pre-LN residual block. ``attn_fn(x_normed, blk.attn)`` returns the
+    projected attention output; it defaults to the packed-attention kernel
+    hook ``ops.attention.make_attn_fn(num_heads, policy)``, which runs the
+    kernel on the card and its plain version on the CPU."""
+    if attn_fn is None:
+        # imported here: ops.attention imports this module's ``linear``
+        from aaclip_tpu_torch.ops.attention import make_attn_fn
+
+        attn_fn = make_attn_fn(num_heads, policy)
+    h = layer_norm(x, blk.ln_1.weight, blk.ln_1.bias)
+    x = x + attn_fn(h, blk.attn)
+    h = layer_norm(x, blk.ln_2.weight, blk.ln_2.bias)
+    return x + mlp(h, blk.mlp, act, policy)
+
+
+def norm_matched_blend(x: torch.Tensor, adapted: torch.Tensor,
+                       weight: float) -> torch.Tensor:
+    """Rescale the adapter output to the residual stream's per-token norm,
+    then convex-blend. The norms are ``sqrt(sum(v * v))`` in the stream's
+    dtype, as the JAX package takes them; ``a_norm`` is clamped at 1e-12
+    so an all-zero adapter output cannot turn the stream into NaN. The two
+    coefficients are rounded to the stream's dtype before the blend, as
+    JAX rounds a Python float that meets a bf16 array (0.9 -> 0.8984375)."""
+    x_norm = (x * x).sum(-1, keepdim=True).sqrt()
+    a_norm = (adapted * adapted).sum(-1, keepdim=True).sqrt().clamp_min(1e-12)
+    matched = adapted * (x_norm / a_norm)
+    w, one_minus_w = (float(torch.tensor(c, dtype=x.dtype))
+                      for c in (weight, 1.0 - weight))
+    return w * matched + one_minus_w * x
+
+
+def simple_adapter(x: torch.Tensor, weight: torch.Tensor,
+                   policy: DtypePolicy = DtypePolicy()) -> torch.Tensor:
+    """Bias-free Linear + LeakyReLU, in x's dtype."""
+    return leaky_relu(linear(x, weight, None, policy)).to(x.dtype)
+
+
+def l2_normalize(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    return x / (x * x).sum(dim, keepdim=True).sqrt()

@@ -1,0 +1,136 @@
+"""Vision transformer tower (ViT-L/14) and the adapted image forward.
+
+``VisionTransformer`` holds the frozen CLIP weights (an ``nn.ModuleList``
+of ``ResidualBlock``s); ``ImageAdapter`` holds the trainable adapters:
+one bias-free linear per adapted block, one seg projection per tapped
+level and the det projection. ``adapted_forward`` runs the trunk with
+norm-matched adapter blends after the first ``image_adapt_until`` blocks
+and taps the residual stream at the requested depths, then ln_post, the
+seg/det projections and L2 normalisation on their fp32 output.
+
+The patch embedding is a reshape and one matmul (ops/preprocess.py).
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from aaclip_tpu_torch.core.config import (AdapterConfig, CLIPConfig,
+                                          DtypePolicy, VisionConfig)
+from aaclip_tpu_torch.models import layers as L
+from aaclip_tpu_torch.ops.preprocess import patchify
+
+
+class VisionTransformer(nn.Module):
+    """CLIP image tower weights up to ln_post (the CLS projection ``proj``
+    comes with ``encode_image``, ROADMAP A6). ``conv1`` is the patch
+    embedding as a linear layer over (c, ky, kx)-flattened patches."""
+
+    def __init__(self, v: VisionConfig):
+        super().__init__()
+        patch_dim = 3 * v.patch_size * v.patch_size
+        self.conv1 = nn.Linear(patch_dim, v.width, bias=False)
+        self.class_embedding = nn.Parameter(torch.empty(v.width))
+        self.positional_embedding = nn.Parameter(
+            torch.empty(v.seq_len, v.width))
+        self.ln_pre = nn.LayerNorm(v.width, eps=L._LN_EPS)
+        self.blocks = nn.ModuleList(
+            L.ResidualBlock(v.width, v.mlp_ratio)
+            for _ in range(v.layers))
+        self.ln_post = nn.LayerNorm(v.width, eps=L._LN_EPS)
+
+
+class ImageAdapter(nn.Module):
+    """Trainable image-side adapters (all linears bias-free)."""
+
+    def __init__(self, cfg: CLIPConfig, acfg: AdapterConfig):
+        super().__init__()
+        vw, ed = cfg.vision.width, cfg.embed_dim
+        self.layer_adapters = nn.ModuleList(
+            nn.Linear(vw, vw, bias=False)
+            for _ in range(acfg.image_adapt_until))
+        self.seg_proj = nn.ModuleList(
+            nn.Linear(vw, ed, bias=False) for _ in acfg.levels)
+        self.det_proj = nn.Linear(vw, ed, bias=False)
+
+
+def embed(vit: VisionTransformer, cfg: CLIPConfig, images: torch.Tensor,
+          policy: DtypePolicy = DtypePolicy(),
+          patch_embed_fn=None) -> torch.Tensor:
+    """Patchify, prepend CLS, add positional embeddings, ln_pre. The
+    residual stream is carried in the policy's compute dtype."""
+    if patch_embed_fn is not None:
+        x = patch_embed_fn(images)
+    else:
+        x = patchify(images, vit.conv1.weight.t(), cfg.vision.patch_size,
+                     policy.compute_dtype)
+    x = x.to(policy.compute_dtype)
+    cls = vit.class_embedding.to(x.dtype).expand(x.shape[0], 1, -1)
+    x = torch.cat([cls, x], dim=1)
+    x = x + vit.positional_embedding.to(x.dtype)
+    return L.layer_norm(x, vit.ln_pre.weight, vit.ln_pre.bias)
+
+
+def trunk_taps(vit: VisionTransformer, cfg: CLIPConfig, images: torch.Tensor,
+               out_layers: Sequence[int], *, adapters: ImageAdapter | None,
+               adapt_weight: float, act, policy: DtypePolicy, attn_fn=None,
+               patch_embed_fn=None) -> List[torch.Tensor]:
+    """Residual stream after each 1-indexed depth in ``out_layers``. Block
+    i (0-indexed) is followed by a norm-matched blend with adapter i while
+    adapters remain; blocks past the deepest tap are not run. ``attn_fn``
+    None means the packed-attention kernel hook (``L.residual_block``)."""
+    v = cfg.vision
+    n_adapt = len(adapters.layer_adapters) if adapters is not None else 0
+    if n_adapt > v.layers:
+        raise ValueError(
+            f"{n_adapt} adapters exceed the {v.layers}-layer tower; set "
+            f"image_adapt_until to match the model config")
+    bad = [l for l in out_layers if not 0 < l <= v.layers]
+    if bad:
+        raise ValueError(
+            f"tap depths {bad} out of range for a {v.layers}-layer tower")
+    x = embed(vit, cfg, images, policy, patch_embed_fn)
+    taps = {}
+    for i, blk in enumerate(vit.blocks[:max(out_layers, default=0)]):
+        x = L.residual_block(x, blk, v.heads, act=act, policy=policy,
+                             attn_fn=attn_fn)
+        if i < n_adapt:
+            a = L.simple_adapter(x, adapters.layer_adapters[i].weight, policy)
+            x = L.norm_matched_blend(x, a, adapt_weight)
+        taps[i + 1] = x
+    return [taps[l] for l in out_layers]
+
+
+def adapted_forward(vit: VisionTransformer, adapter: ImageAdapter,
+                    cfg: CLIPConfig, images: torch.Tensor, *,
+                    image_adapt_weight: float = 0.1,
+                    levels: Sequence[int] = (6, 12, 18, 24),
+                    proj_relu: bool = False,
+                    policy: DtypePolicy = DtypePolicy(), act=None,
+                    attn_fn=None, patch_embed_fn=None
+                    ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """AdaptedCLIP image forward: ``(seg_tokens, det_token)``, a list of
+    L2-normalised per-level patch embeddings [B, num_patches, embed_dim]
+    (fp32) and the pooled detection embedding [B, embed_dim] (fp32)."""
+    if act is None:
+        act = L.config_act(cfg, policy)
+    taps = trunk_taps(vit, cfg, images, levels, adapters=adapter,
+                      adapt_weight=image_adapt_weight, act=act, policy=policy,
+                      attn_fn=attn_fn, patch_embed_fn=patch_embed_fn)
+    tokens = [L.layer_norm(t[:, 1:, :], vit.ln_post.weight, vit.ln_post.bias)
+              for t in taps]
+
+    def proj_norm(t, lin):
+        # bf16 matmul, L2-normalised on the fp32 output so the unit vectors
+        # feeding the 100x similarity scores stay precise
+        y = L.linear(t, lin.weight, None, policy)
+        if proj_relu:
+            y = L.leaky_relu(y)
+        return L.l2_normalize(y)
+
+    seg = [proj_norm(t, adapter.seg_proj[i]) for i, t in enumerate(tokens)]
+    det = proj_norm(tokens[-1], adapter.det_proj).mean(dim=1)
+    return seg, det

@@ -1,0 +1,70 @@
+"""The anomaly-map tail of the inference path, in fp32.
+
+Per level ``scores = 100 * patch_feats @ anchors`` [B, L, 2]; the test-time
+map is the sum over levels of ``(abnormal + 1 - normal) / 2``, blurred and
+upsampled. Blur and upsample are linear and identical across levels, so
+they fold into ONE matrix ``M = Upsample @ Blur`` [img, grid] applied once
+to the level-summed grid map:
+
+    sum_l U B q_l B^T U^T  ==  M (sum_l q_l) M^T
+
+The image score is ``(det . anchors[:, 1] + 1) / 2``. Every product here is
+fp32 (the caller keeps TF32 off on the card).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from aaclip_tpu_torch.ops.blur import DOMAIN_BLUR, gaussian_blur_matrix
+from aaclip_tpu_torch.ops.resize import bilinear_matrix
+
+
+def level_scores(seg_tokens: torch.Tensor,
+                 anchors: torch.Tensor) -> torch.Tensor:
+    """``100 * feats @ anchors`` for stacked levels.
+
+    seg_tokens: [n_levels, B, L, C]; anchors: [B, C, 2] or [C, 2]
+    -> [n_levels, B, L, 2]
+    """
+    feats = seg_tokens.float()
+    if anchors.dim() == 2:
+        return 100.0 * torch.matmul(feats, anchors.float())
+    return 100.0 * torch.einsum("nblc,bck->nblk", feats, anchors.float())
+
+
+@functools.lru_cache(maxsize=16)
+def fused_postproc_matrix(grid: int, img_size: int, domain: str) -> np.ndarray:
+    """M = bilinear_upsample(align_corners=True) @ gaussian_blur(reflect),
+    [img_size, grid]."""
+    k, s = DOMAIN_BLUR[domain]
+    B = gaussian_blur_matrix(grid, k, s)
+    U = bilinear_matrix(grid, img_size, align_corners=True)
+    return (U @ B).astype(np.float32)
+
+
+def apply_postproc_matrix(q: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
+    """[B, g, g] grid maps -> [B, I, I] pixel maps: ``M q Mᵀ`` in fp32."""
+    M = M.float()
+    return torch.matmul(torch.matmul(M, q.float()), M.t())
+
+
+def collapse_level_scores(scores: torch.Tensor) -> torch.Tensor:
+    """[n_levels, B, L, 2] -> [B, L]: the sum over levels of
+    ``(abnormal + 1 - normal) / 2``; the ``+ n/2`` constant folds out of
+    the per-level ``+1``s because the rows of M sum to one."""
+    n_levels = scores.shape[0]
+    return (scores[..., 1] - scores[..., 0]).sum(0) * 0.5 + n_levels * 0.5
+
+
+def image_score(det: torch.Tensor, anchors: torch.Tensor) -> torch.Tensor:
+    """``(det . abnormal_anchor + 1) / 2`` per image, fp32."""
+    det = det.float()
+    if anchors.dim() == 2:
+        s = det @ anchors[:, 1].float()
+    else:
+        s = (det * anchors[:, :, 1].float()).sum(-1)
+    return (s + 1.0) / 2.0

@@ -1,0 +1,160 @@
+"""The port's packed attention (aaclip_tpu_torch/ops/attention.py) against
+the JAX package's, on the CPU, where the wrapper runs its plain version:
+
+* ``attention_packed_plain`` vs the Pallas ``attention_packed`` in
+  interpret mode (hd 64, 2 heads, S 250, q_blk 64, fp32 and bf16);
+* the ``attn_fn`` hook and the plain XLA-path attention vs
+  ``layers.attention`` at tiny-test's head dim 16.
+
+The CUDA kernel itself is checked against the plain version on the card
+by chip_smoke.py; here only the wrapper's routing and checks are.
+
+fp32 bar: atol 1e-5, rtol 1e-5 (same arithmetic, another summation
+order). bf16 bar: both sides round P and the output to bf16 at the same
+points, so they agree to one bf16 ulp of the output (2^-8 relative).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from aaclip_tpu.core.config import DtypePolicy as JPolicy
+from aaclip_tpu.models import layers as JL
+from aaclip_tpu.ops.flash_attention import attention_packed as j_attention
+from aaclip_tpu_torch.core.config import DtypePolicy
+from aaclip_tpu_torch.core.params import params_from_jax
+from aaclip_tpu_torch.device import resolve_device
+from aaclip_tpu_torch.kernels import build
+from aaclip_tpu_torch.models import layers as L
+from aaclip_tpu_torch.ops.attention import (attention_packed,
+                                            attention_packed_plain,
+                                            make_attn_fn)
+from tests.test_torch_layers import perturbed_clip_tree
+
+DTYPES = {"fp32": (jnp.float32, torch.float32),
+          "bf16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def packed_qkv(B, S, heads, hd, seed=0):
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((B, S, 3 * heads * hd)).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("valid_len", [250, 201])
+def test_plain_matches_pallas_interpret(dtype, valid_len):
+    jd, td = DTYPES[dtype]
+    qkv = packed_qkv(2, 250, 2, 64)
+    want = j_attention(jnp.asarray(qkv, jd), 2, valid_len, q_blk=64,
+                       precision="highest" if dtype == "fp32" else None,
+                       interpret=True)
+    got = attention_packed_plain(torch.from_numpy(qkv).to(td), 2, valid_len)
+    assert got.shape == (2, 250, 128) and got.dtype == td
+    want = np.asarray(want, np.float32)
+    if dtype == "fp32":
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+    else:
+        np.testing.assert_allclose(got.float().numpy(), want, atol=1e-3,
+                                   rtol=2 ** -8)
+
+
+def test_wrapper_runs_plain_on_cpu_and_counts_no_launch():
+    qkv = torch.from_numpy(packed_qkv(2, 33, 4, 16, seed=1))
+    before = attention_packed.launches
+    torch.testing.assert_close(attention_packed(qkv, 4, 33),
+                               attention_packed_plain(qkv, 4, 33),
+                               atol=0, rtol=0)
+    assert attention_packed.launches == before
+
+
+def test_wrapper_refuses_other_devices_and_bad_shapes():
+    with pytest.raises(ValueError, match="unsupported device"):
+        attention_packed(torch.empty(1, 8, 48, device="meta"), 1, 8)
+    with pytest.raises(ValueError, match="does not split"):
+        attention_packed(torch.zeros(1, 8, 50), 2, 8)
+
+
+def test_residual_block_defaults_to_the_kernel_wrapper():
+    """Off the CPU the block's default attention is the kernel wrapper,
+    which refuses a device it has no kernel for rather than running the
+    plain version; the plain XLA-path attention refuses any non-CPU
+    tensor."""
+    from aaclip_tpu_torch.core.config import get_config
+
+    cfg = get_config("tiny-test")
+    blk = params_from_jax(perturbed_clip_tree("tiny-test"), cfg,
+                          device="cpu").blocks[0].to("meta")
+    x = torch.empty(2, 26, 64, device="meta")
+    with pytest.raises(ValueError, match="attention_packed: unsupported"):
+        L.residual_block(x, blk, 4)
+    with pytest.raises(ValueError, match="CPU reference"):
+        L.attention(x, blk.attn, 4)
+
+
+def test_no_card_means_raise_not_cpu():
+    assert resolve_device("cpu") == torch.device("cpu")
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device(None)
+
+
+def test_build_raises_without_nvcc(monkeypatch):
+    monkeypatch.setattr(build.shutil, "which", lambda name: None)
+    import torch.utils.cpp_extension as ext
+
+    monkeypatch.setattr(ext, "CUDA_HOME", None)
+    monkeypatch.setattr(build, "library_path",
+                        lambda name: build.BUILD_DIR / "absent.so")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build("attention_packed")
+
+
+def test_kernel_entry_point_matches_the_c_signature():
+    """The ctypes argument list has one entry per parameter of the C
+    entry point in attention_packed.cu."""
+    import re
+
+    src = (build.CSRC / "attention_packed.cu").read_text()
+    sig = re.search(r'extern "C" int aaclip_attention_packed\(([^)]*)\)',
+                    src).group(1)
+    n_params = len(sig.split(","))
+    code = (build.CSRC.parent.parent / "ops" / "attention.py").read_text()
+    argtypes = re.search(r"fn\.argtypes = \[([^\]]*)\]", code).group(1)
+    assert len(argtypes.split(",")) == n_params == 15
+
+
+def test_library_path_is_keyed_by_the_sources():
+    p = build.library_path("attention_packed")
+    assert p.parent == build.BUILD_DIR and p == build.library_path(
+        "attention_packed")
+    assert p.name.startswith("libattention_packed-")
+
+
+@pytest.mark.parametrize("policy", ["fp32", "bf16"])
+def test_attn_fn_and_plain_attention_match_jax(policy):
+    """tiny-test block 0 (4 heads x 16): the kernel hook (plain version on
+    the CPU) and the XLA-path port both against JAX ``layers.attention``."""
+    from aaclip_tpu_torch.core.config import get_config
+
+    cfg = get_config("tiny-test")
+    jpol, tpol = {"fp32": (JPolicy.fp32(), DtypePolicy.fp32()),
+                  "bf16": (JPolicy.bf16(), DtypePolicy.bf16())}[policy]
+    visual = perturbed_clip_tree("tiny-test", seed=5)
+    vit = params_from_jax(visual, cfg, device="cpu")
+    jp = {k: np.asarray(v[0]) for k, v in visual["blocks"]["attn"].items()}
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((2, 26, 64)).astype(np.float32)
+    want = np.asarray(JL.attention(jnp.asarray(x), jp, 4, policy=jpol))
+    xt = torch.from_numpy(x)
+    hooked = make_attn_fn(4, tpol)(xt, vit.blocks[0].attn)
+    plain = L.attention(xt, vit.blocks[0].attn, 4, policy=tpol)
+    for got in (hooked, plain):
+        if policy == "fp32":
+            np.testing.assert_allclose(got.numpy(), want, atol=1e-5,
+                                       rtol=1e-5)
+        else:
+            # deferred vs direct softmax division, qkv rounded to bf16 on
+            # the hook path: agreement to a few bf16 ulps of the inputs
+            np.testing.assert_allclose(got.numpy(), want, atol=2e-2)

@@ -1,0 +1,66 @@
+"""The port imports neither JAX nor the JAX package: its predict runs in a
+fresh interpreter without either entering ``sys.modules``, and no source
+file of the port (or chip_smoke.py, which runs where JAX is absent) names
+them in an import."""
+
+import json
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(?:jax|jaxlib|aaclip_tpu)\b"
+                       r"(?!_torch)", re.MULTILINE)
+
+PROBE = """
+import json, sys
+import numpy as np, torch
+from aaclip_tpu_torch.core.config import AdapterConfig, DtypePolicy, get_config
+from aaclip_tpu_torch.core.params import init_image_adapter, init_vision_params
+from aaclip_tpu_torch.eval.predict import make_predict_fn
+from aaclip_tpu_torch.ops.similarity import fused_postproc_matrix
+import aaclip_tpu_torch.bench, aaclip_tpu_torch.entry
+cfg = get_config("tiny-test")
+acfg = AdapterConfig(levels=(1, 2), image_adapt_until=1)
+vit = init_vision_params(cfg, device="cpu")
+ad = init_image_adapter(cfg, acfg, device="cpu")
+p = make_predict_fn(vit, cfg, acfg, policy=DtypePolicy.bf16(),
+                    uint8_inputs=True, device="cpu")
+x = torch.zeros(2, 3, 70, 70, dtype=torch.uint8)
+a = torch.nn.functional.normalize(torch.ones(32, 2), dim=0)
+M = torch.from_numpy(fused_postproc_matrix(5, 70, "Industrial"))
+pix, score = p(ad, x, a, M)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "aaclip_tpu"))
+print(json.dumps({"bad": bad, "shape": list(pix.shape),
+                  "finite": bool(torch.isfinite(pix).all())}))
+"""
+
+
+def test_predict_runs_without_jax_in_a_fresh_interpreter():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run([sys.executable, "-c", PROBE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result == {"bad": [], "shape": [2, 70, 70], "finite": True}
+
+
+def test_sources_do_not_import_jax_or_the_jax_package():
+    files = sorted((REPO / "aaclip_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 10
+    offenders = {str(f.relative_to(REPO)): FORBIDDEN.findall(f.read_text())
+                 for f in files}
+    assert not {f: m for f, m in offenders.items() if m}
+
+
+def test_forbidden_pattern_catches_what_it_should():
+    assert FORBIDDEN.search("import jax.numpy as jnp")
+    assert FORBIDDEN.search("    from aaclip_tpu.ops import blur")
+    assert FORBIDDEN.search("import aaclip_tpu")
+    assert not FORBIDDEN.search("from aaclip_tpu_torch.ops import blur")
+    assert not FORBIDDEN.search("import jaxtyping")
