@@ -1,14 +1,17 @@
-"""Anomaly maps per second of the port's inference path on one card
-(adapted ViT-L/14-336 forward at 518 px + fused anomaly map), random
-weights from a fixed seed.
+"""Throughput of the port on one card, random weights from a fixed seed:
+anomaly maps per second of the inference path (adapted ViT-L/14-336
+forward at 518 px + fused anomaly map), or images per second of the
+stage-2 training step.
 
     python -m aaclip_tpu_torch.bench [--batch_size 32] [--precision bf16]
+    python -m aaclip_tpu_torch.bench --mode train [--batch_size 8] \
+        [--remat full|off]
 
 Prints ONE JSON line in the format of the repo's ``bench.py``:
   {"metric": ..., "value": N, "unit": ..., "vs_baseline": N}
 The unit names the card and its power limit. Timed with CUDA events
-around ``--steps`` predict calls after ``--warmup`` calls. Needs a card:
-without one it raises and prints nothing.
+around ``--steps`` calls after ``--warmup`` calls. Needs a card: without
+one it raises and prints nothing.
 """
 
 from __future__ import annotations
@@ -18,11 +21,21 @@ import json
 import sys
 import time
 
+from aaclip_tpu_torch.device import card_line
+
 # The reference publishes no throughput; bench.py's constant is an analytic
 # estimate of the reference PyTorch pipeline on an A100 (derivation in
 # docs/PERFORMANCE.md, "Reference baseline derivation"). Kept so the two
 # benches report the same ratio.
 REFERENCE_BASELINE_MAPS_PER_SEC = 40.0
+REFERENCE_BASELINE_STAGE2_IMG_PER_SEC = 10.0
+
+# kernel-name fragments of the profile's device rows, by class
+_PROFILE_CLASSES = (
+    ("attention forward kernel", ("attn_bf16_kernel", "attn_f32_kernel")),
+    ("attention backward kernel", ("attn_bwd_",)),
+    ("GEMM (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass")),
+)
 
 
 def profile_calls(fn, calls: int) -> None:
@@ -42,23 +55,94 @@ def profile_calls(fn, calls: int) -> None:
     events = prof.key_averages()
     # device time is the kernels' own rows, as the table's total counts it
     # (the aten rows repeat their kernels' time)
-    busy_us = sum(e.self_device_time_total for e in events
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and not e.is_user_annotation)
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]
+    busy_us = sum(e.self_device_time_total for e in kernels)
     print(events.table(sort_by="self_device_time_total", row_limit=25),
           file=sys.stderr)
     print(f"profile: {calls} calls, device busy {busy_us / 1e3:.2f} ms of "
           f"{wall_us / 1e3:.2f} ms traced wall time "
           f"({busy_us / wall_us:.3f})", file=sys.stderr)
+    by_class = {}
+    for e in kernels:
+        cls = next((c for c, keys in _PROFILE_CLASSES
+                    if any(k in e.key for k in keys)),
+                   "other (elementwise, reductions, copies)")
+        by_class[cls] = by_class.get(cls, 0.0) + e.self_device_time_total
+    for cls, us in sorted(by_class.items(), key=lambda kv: -kv[1]):
+        print(f"profile: {cls}: {us / 1e3 / calls:.2f} ms per call "
+              f"({us / busy_us:.3f} of device time)", file=sys.stderr)
+
+
+def bench_train(args, cfg, acfg, policy, vit, adapter, dev):
+    """Stage-2 update steps per second, as images/s: the JAX package's
+    ``bench_train`` batch (random float images, mask > 0.9, random labels
+    and classes, a random 2-class table of unit anchors)."""
+    import torch
+
+    from aaclip_tpu_torch.train.optim import make_image_optimizer
+    from aaclip_tpu_torch.train.steps import make_stage2_step
+
+    B, img = args.batch_size, args.img_size
+    gen = torch.Generator(device=dev).manual_seed(0)
+    images = torch.randn(B, 3, img, img, generator=gen, device=dev)
+    mask = (torch.rand(B, img, img, generator=gen, device=dev) > 0.9).float()
+    label = torch.randint(0, 2, (B,), generator=gen, device=dev)
+    cidx = torch.randint(0, 2, (B,), generator=gen, device=dev)
+    valid = torch.ones(B, device=dev)
+    table = torch.randn(2, cfg.embed_dim, 2, generator=gen, device=dev)
+    table = table / table.norm(dim=1, keepdim=True)
+    step = make_stage2_step(vit, cfg, acfg,
+                            make_image_optimizer(adapter.parameters()), table,
+                            policy=policy, remat=args.remat == "full",
+                            device=dev)
+
+    def call():
+        return step(adapter, images, mask, label, cidx, valid)
+
+    imgs_per_sec = timed(call, args) * B
+    if args.profile:
+        profile_calls(call, 2)
+    print(json.dumps({
+        "metric": "stage2_train_images_per_sec_per_chip",
+        "value": round(imgs_per_sec, 2),
+        "unit": f"img/s/chip ({args.model_name} @ {img}px stage-2 update, "
+                f"{args.precision}, batch {B}, remat {args.remat}, "
+                f"{card_line()})",
+        "vs_baseline": round(
+            imgs_per_sec / REFERENCE_BASELINE_STAGE2_IMG_PER_SEC, 3),
+    }))
+
+
+def timed(call, args) -> float:
+    """Calls per second of ``call`` over ``args.steps`` calls after
+    ``args.warmup``, between CUDA events."""
+    import torch
+
+    for _ in range(args.warmup):
+        call()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(args.steps):
+        call()
+    end.record()
+    torch.cuda.synchronize()
+    return args.steps / (start.elapsed_time(end) / 1e3)
 
 
 def main(argv=None) -> None:
     from aaclip_tpu_torch.core.config import PRECISION_CHOICES
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--mode", default="infer", choices=("infer", "train"),
+                        help="infer = anomaly maps/s (default); train = "
+                             "stage-2 update steps, as images/s")
     parser.add_argument("--model_name", default="ViT-L-14-336")
     parser.add_argument("--img_size", type=int, default=518)
-    parser.add_argument("--batch_size", type=int, default=32)
+    parser.add_argument("--batch_size", type=int, default=None,
+                        help="default 32 (infer) or 8 (train)")
     parser.add_argument("--precision", default="bf16",
                         choices=PRECISION_CHOICES,
                         help="fp32_high and int8 are not ported yet")
@@ -68,7 +152,12 @@ def main(argv=None) -> None:
                         help="after the timed loop, trace two more calls "
                              "with torch.profiler and print device time by "
                              "op to stderr")
+    parser.add_argument("--remat", default="full", choices=("full", "off"),
+                        help="train mode: checkpoint each block (default "
+                             "full, as the JAX package's bench)")
     args = parser.parse_args(argv)
+    if args.batch_size is None:
+        args.batch_size = 8 if args.mode == "train" else 32
 
     import torch
 
@@ -76,7 +165,7 @@ def main(argv=None) -> None:
                                               get_config)
     from aaclip_tpu_torch.core.params import (init_image_adapter,
                                               init_vision_params)
-    from aaclip_tpu_torch.device import card_line, resolve_device
+    from aaclip_tpu_torch.device import resolve_device
     from aaclip_tpu_torch.eval.predict import make_predict_fn
     from aaclip_tpu_torch.ops.similarity import fused_postproc_matrix
 
@@ -87,6 +176,8 @@ def main(argv=None) -> None:
         AdapterConfig(levels=(1, 2), image_adapt_until=1)
     vit = init_vision_params(cfg, seed=0, device=dev)
     adapter = init_image_adapter(cfg, acfg, seed=1, device=dev)
+    if args.mode == "train":
+        return bench_train(args, cfg, acfg, policy, vit, adapter, dev)
     uint8_inputs = args.precision == "bf16"
     predict = make_predict_fn(vit, cfg, acfg, policy=policy,
                               uint8_inputs=uint8_inputs, device=dev)
@@ -103,17 +194,8 @@ def main(argv=None) -> None:
     M = torch.from_numpy(fused_postproc_matrix(
         cfg.vision.grid, args.img_size, "Industrial")).to(dev)
 
-    for _ in range(args.warmup):
-        predict(adapter, images, anchors, M)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(args.steps):
-        predict(adapter, images, anchors, M)
-    end.record()
-    torch.cuda.synchronize()
-    maps_per_sec = args.batch_size * args.steps / (start.elapsed_time(end)
-                                                   / 1e3)
+    maps_per_sec = timed(lambda: predict(adapter, images, anchors, M),
+                         args) * args.batch_size
     if args.profile:
         profile_calls(lambda: predict(adapter, images, anchors, M), 2)
     print(json.dumps({

@@ -140,6 +140,21 @@ def adapter_from_jax(tree: dict, cfg: CLIPConfig, acfg: AdapterConfig, *,
     return adapter
 
 
+def adapter_to_jax(adapter: ImageAdapter) -> dict:
+    """The inverse of ``adapter_from_jax``: the JAX package's
+    ``adapters["image"]`` tree of fp32 numpy arrays (``[in, out]`` linear
+    weights, the layer adapters stacked on a leading axis)."""
+    def w(lin):
+        return lin.weight.detach().float().cpu().numpy().T.copy()
+
+    return {
+        "layer_adapters": {"w": np.stack([w(l)
+                                          for l in adapter.layer_adapters])},
+        "seg_proj": [{"w": w(l)} for l in adapter.seg_proj],
+        "det_proj": {"w": w(adapter.det_proj)},
+    }
+
+
 def cast_matmul_weights(vit: VisionTransformer,
                         policy: DtypePolicy) -> VisionTransformer:
     """A copy of ``vit`` with its weights pre-cast to the compute dtype

@@ -1,9 +1,10 @@
 """Build the hand-written CUDA kernels with nvcc and load them with ctypes.
 
-Each library is compiled from ``csrc/`` on first use into ``_build/``,
-keyed by a hash of the sources and flags, so an edited source rebuilds and
-an unchanged one loads at once. A missing ``nvcc`` or a failed compile
-raises: there is no fallback path.
+Each library is compiled from ``csrc/<name>.cu`` (and the shared
+``csrc/*.cuh`` headers) on first use into ``_build/``, keyed by a hash of
+the sources and flags, so an edited source rebuilds and an unchanged one
+loads at once. ``build_all`` starts one nvcc per source, all together. A
+missing ``nvcc`` or a failed compile raises: there is no fallback path.
 """
 
 from __future__ import annotations
@@ -15,10 +16,12 @@ import os
 import shutil
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
+KERNELS = ("attention_packed", "attention_packed_bwd")  # csrc/<name>.cu
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -76,6 +79,13 @@ def build(name: str) -> tuple[Path, str]:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out, proc.stdout + proc.stderr
+
+
+def build_all(names=KERNELS) -> dict[str, tuple[Path, str]]:
+    """``build`` for every name at once, one nvcc process each; returns
+    ``{name: (library path, nvcc report)}`` and raises if any failed."""
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(build, names)))
 
 
 @functools.cache

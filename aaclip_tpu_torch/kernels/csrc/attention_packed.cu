@@ -30,65 +30,29 @@
 // fp32 (the parity policy): fp32 FMA throughout, no TF32; one thread per
 // query row.
 // Both are templated on the head dim (64 for ViT-L/B, 16 for tiny-test).
+//
+// Training (attention_packed_bwd.cu) needs each row's logsumexp: with a
+// non-null `lse` [B, H, S] fp32 the kernel also writes m + log(l), the
+// final running max plus the log of the row sum (both in the scaled-score
+// domain). The inference path passes null and stores nothing more.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "mma_common.cuh"
 
 namespace {
+
+using namespace aaclip;
 
 constexpr int kBlockM = 64;  // query rows per block
 constexpr int kBlockN = 64;  // keys per shared-memory tile (bf16)
 constexpr int kBlockNF = 32; // keys per shared-memory tile (fp32)
 
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
-                                               const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Copy a [kRows, HD] tile starting at row `row0` from global memory (row
-// stride `ld` elements) into shared memory (row stride SLD), 16 bytes per
-// thread and step; rows >= S are zero-filled.
-template <typename T, int HD, int SLD, int kRows>
-__device__ __forceinline__ void load_tile(T* smem, const T* src, int64_t ld,
-                                          int row0, int S) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kPerRow = HD / kVec;
-  for (int i = threadIdx.x; i < kRows * kPerRow; i += blockDim.x) {
-    const int r = i / kPerRow;
-    const int c = (i % kPerRow) * kVec;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < S)
-      v = *reinterpret_cast<const uint4*>(src + (int64_t)(row0 + r) * ld + c);
-    *reinterpret_cast<uint4*>(smem + r * SLD + c) = v;
-  }
-}
-
 template <int HD>
 __global__ void __launch_bounds__(128)
 attn_bf16_kernel(const __nv_bfloat16* __restrict__ qkv,
-                 __nv_bfloat16* __restrict__ out, int S, int valid_len,
+                 __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                 int S, int valid_len,
                  int64_t ld, int q_off, int k_off, int v_off, int64_t out_ld,
                  float scale) {
   static_assert(HD % 16 == 0, "head dim must be a multiple of 16");
@@ -114,13 +78,7 @@ attn_bf16_kernel(const __nv_bfloat16* __restrict__ qkv,
   __syncthreads();
   uint32_t qf[KS][4];
   const int r0 = warp * 16 + g;
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    qf[ks][0] = ld32(sQ + r0 * SLD + ks * 16 + t * 2);
-    qf[ks][1] = ld32(sQ + (r0 + 8) * SLD + ks * 16 + t * 2);
-    qf[ks][2] = ld32(sQ + r0 * SLD + ks * 16 + 8 + t * 2);
-    qf[ks][3] = ld32(sQ + (r0 + 8) * SLD + ks * 16 + 8 + t * 2);
-  }
+  load_a_frags<KS, SLD>(qf, sQ, r0, t);
 
   float o[ND][4];
 #pragma unroll
@@ -221,13 +179,19 @@ attn_bf16_kernel(const __nv_bfloat16* __restrict__ qkv,
       *reinterpret_cast<uint32_t*>(ob + (int64_t)row_b * out_ld + nd * 8) =
           pack_f32(o[nd][2] / l[1], o[nd][3] / l[1]);
   }
+  if (lse != nullptr && t == 0) {
+    float* lrow = lse + ((int64_t)blockIdx.z * gridDim.y + blockIdx.y) * S;
+    if (row_a < S) lrow[row_a] = m[0] + logf(l[0]);
+    if (row_b < S) lrow[row_b] = m[1] + logf(l[1]);
+  }
 }
 
 template <int HD>
 __global__ void __launch_bounds__(kBlockM)
 attn_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out,
-                int S, int valid_len, int64_t ld, int q_off, int k_off,
-                int v_off, int64_t out_ld, float scale) {
+                float* __restrict__ lse, int S, int valid_len, int64_t ld,
+                int q_off, int k_off, int v_off, int64_t out_ld,
+                float scale) {
   static_assert(HD % 4 == 0, "head dim must be a multiple of 4");
   __shared__ __align__(16) float sK[kBlockNF * HD];
   __shared__ __align__(16) float sV[kBlockNF * HD];
@@ -279,31 +243,36 @@ attn_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out,
                   (int64_t)row * out_ld + hoff;
 #pragma unroll
     for (int d = 0; d < HD; ++d) orow[d] = o[d] / l;
+    if (lse != nullptr)
+      lse[((int64_t)blockIdx.z * gridDim.y + blockIdx.y) * S + row] =
+          m + logf(l);
   }
 }
 
 template <int HD>
 void launch(bool bf16, dim3 grid, cudaStream_t stream, const void* qkv,
-            void* out, int S, int valid_len, int64_t ld, int q_off,
-            int k_off, int v_off, int64_t out_ld, float scale) {
+            void* out, float* lse, int S, int valid_len, int64_t ld,
+            int q_off, int k_off, int v_off, int64_t out_ld, float scale) {
   if (bf16)
     attn_bf16_kernel<HD><<<grid, 128, 0, stream>>>(
         static_cast<const __nv_bfloat16*>(qkv),
-        static_cast<__nv_bfloat16*>(out), S, valid_len, ld, q_off, k_off,
+        static_cast<__nv_bfloat16*>(out), lse, S, valid_len, ld, q_off, k_off,
         v_off, out_ld, scale);
   else
     attn_f32_kernel<HD><<<grid, kBlockM, 0, stream>>>(
-        static_cast<const float*>(qkv), static_cast<float*>(out), S,
+        static_cast<const float*>(qkv), static_cast<float*>(out), lse, S,
         valid_len, ld, q_off, k_off, v_off, out_ld, scale);
 }
 
 }  // namespace
 
 // qkv: [batch, seq, ld] elements, out: [batch, seq, out_ld]; the q/k/v
-// sections of head h start at column {q,k,v}_off + h * head_dim. Returns
+// sections of head h start at column {q,k,v}_off + h * head_dim. lse:
+// [batch, heads, seq] fp32, or null to skip it. Returns
 // the CUDA error of the launch (0 on success); cudaErrorInvalidValue for a
 // head dim with no instantiation.
-extern "C" int aaclip_attention_packed(const void* qkv, void* out, int bf16,
+extern "C" int aaclip_attention_packed(const void* qkv, void* out,
+                                       float* lse, int bf16,
                                        int head_dim, int batch, int seq,
                                        int valid_len, int heads,
                                        long long ld, int q_off, int k_off,
@@ -313,12 +282,12 @@ extern "C" int aaclip_attention_packed(const void* qkv, void* out, int bf16,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 16:
-      launch<16>(bf16 != 0, grid, st, qkv, out, seq, valid_len, ld, q_off,
-                 k_off, v_off, out_ld, scale);
+      launch<16>(bf16 != 0, grid, st, qkv, out, lse, seq, valid_len, ld,
+                 q_off, k_off, v_off, out_ld, scale);
       break;
     case 64:
-      launch<64>(bf16 != 0, grid, st, qkv, out, seq, valid_len, ld, q_off,
-                 k_off, v_off, out_ld, scale);
+      launch<64>(bf16 != 0, grid, st, qkv, out, lse, seq, valid_len, ld,
+                 q_off, k_off, v_off, out_ld, scale);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -59,6 +59,56 @@ def leaky_relu(x: torch.Tensor, negative_slope: float = 0.01) -> torch.Tensor:
     return torch.where(x >= 0, x, negative_slope * x)
 
 
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """cuBLAS ``a @ b`` with fp32 output for same-dtype operands; ``b`` is
+    2-D or batched like ``a``."""
+    if b.dim() == 2:
+        y = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+        return y.reshape(*a.shape[:-1], b.shape[-1])
+    y = torch.bmm(a.reshape(-1, *a.shape[-2:]), b.reshape(-1, *b.shape[-2:]),
+                  out_dtype=torch.float32)
+    return y.reshape(*a.shape[:-1], b.shape[-1])
+
+
+class _MatmulF32(torch.autograd.Function):
+    """``_mm_f32`` with a backward: ``torch.mm(..., out_dtype=)`` has no
+    derivative of its own.
+
+    JAX's transpose of a bf16 ``dot(..., preferred_element_type=f32)``
+    (read off ``jax.vjp`` of ``layers.linear``) multiplies the fp32
+    cotangent with the bf16 operand in fp32 and rounds each gradient to its
+    operand's dtype. Here the backward products stay bf16 GEMMs on cuBLAS
+    with fp32 output, so the cotangent is rounded to bf16 first, where JAX
+    keeps it fp32; the gradients are then rounded to the operands' dtype as
+    in JAX. That extra rounding of the cotangent (2^-8 relative) is the
+    port's one departure on the card; the on-card step check holds it."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        # each gradient needs only the other operand: a frozen weight's
+        # product keeps no activation alive
+        need_a, need_b = ctx.needs_input_grad
+        ctx.save_for_backward(a if need_b else None, b if need_a else None)
+        ctx.dtype, ctx.b_2d = a.dtype, b.dim() == 2
+        return _mm_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, grad):
+        a, b = ctx.saved_tensors
+        da = db = None
+        g = grad.to(ctx.dtype)
+        if ctx.needs_input_grad[0]:
+            da = _mm_f32(g, b.transpose(-1, -2)).to(ctx.dtype)
+        if ctx.needs_input_grad[1]:
+            if ctx.b_2d:
+                db = _mm_f32(a.reshape(-1, a.shape[-1]).t(),
+                             g.reshape(-1, g.shape[-1]))
+            else:
+                db = _mm_f32(a.transpose(-1, -2), g)
+            db = db.to(ctx.dtype)
+        return da, db
+
+
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` accumulated in fp32 and returned in fp32, for operands of
     one dtype (fp32 or bf16); ``b`` is 2-D or batched like ``a``.
@@ -66,20 +116,17 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     The JAX package's bf16 products return fp32 (``preferred_element_type``)
     and add the bias before any cast, while a torch bf16 ``matmul`` rounds
     its output to bf16. On the card, ``torch.mm``/``torch.bmm`` with
-    ``out_dtype=torch.float32`` keep the fp32 result. The CPU build has no
-    such kernel, so there the bf16-rounded operands are multiplied in fp32,
-    which gives the same products (a bf16 x bf16 product is exact in fp32)
-    summed in another order."""
+    ``out_dtype=torch.float32`` keep the fp32 result (``_MatmulF32`` gives
+    them a backward). The CPU build has no such kernel, so there the
+    bf16-rounded operands are multiplied in fp32, which gives the same
+    products (a bf16 x bf16 product is exact in fp32) summed in another
+    order, and autograd's backward matches JAX's transpose: the fp32
+    cotangent times the bf16 operand, rounded to bf16."""
     if a.dtype == torch.float32 and b.dtype == torch.float32:
         return torch.matmul(a, b)
     if a.device.type != "cuda":
         return torch.matmul(a.float(), b.float())
-    if b.dim() == 2:
-        y = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
-        return y.reshape(*a.shape[:-1], b.shape[-1])
-    y = torch.bmm(a.reshape(-1, *a.shape[-2:]), b.reshape(-1, *b.shape[-2:]),
-                  out_dtype=torch.float32)
-    return y.reshape(*a.shape[:-1], b.shape[-1])
+    return _MatmulF32.apply(a, b)
 
 
 def linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,

@@ -17,6 +17,7 @@ from typing import List, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from aaclip_tpu_torch.core.config import (AdapterConfig, CLIPConfig,
                                           DtypePolicy, VisionConfig)
@@ -77,11 +78,24 @@ def embed(vit: VisionTransformer, cfg: CLIPConfig, images: torch.Tensor,
 def trunk_taps(vit: VisionTransformer, cfg: CLIPConfig, images: torch.Tensor,
                out_layers: Sequence[int], *, adapters: ImageAdapter | None,
                adapt_weight: float, act, policy: DtypePolicy, attn_fn=None,
-               patch_embed_fn=None) -> List[torch.Tensor]:
+               patch_embed_fn=None,
+               remat: bool | str = False) -> List[torch.Tensor]:
     """Residual stream after each 1-indexed depth in ``out_layers``. Block
     i (0-indexed) is followed by a norm-matched blend with adapter i while
     adapters remain; blocks past the deepest tap are not run. ``attn_fn``
-    None means the packed-attention kernel hook (``L.residual_block``)."""
+    None means the packed-attention kernel hook (``L.residual_block``).
+
+    ``remat=True`` runs each block (with its adapter blend) under
+    ``torch.utils.checkpoint``, as the JAX package wraps each block in
+    ``jax.checkpoint``: the backward recomputes the block instead of
+    keeping its activations. A block whose input carries no gradient (the
+    first; the trunk is frozen) is run plainly: it has nothing to
+    recompute for the backward, and its output is kept anyway as the next
+    block's saved input."""
+    if remat == "selective":
+        raise NotImplementedError(
+            "selective remat (saving the named per-block tensors) is not "
+            "ported yet: ROADMAP A13, 'selective remat'")
     v = cfg.vision
     n_adapt = len(adapters.layer_adapters) if adapters is not None else 0
     if n_adapt > v.layers:
@@ -93,13 +107,21 @@ def trunk_taps(vit: VisionTransformer, cfg: CLIPConfig, images: torch.Tensor,
         raise ValueError(
             f"tap depths {bad} out of range for a {v.layers}-layer tower")
     x = embed(vit, cfg, images, policy, patch_embed_fn)
-    taps = {}
-    for i, blk in enumerate(vit.blocks[:max(out_layers, default=0)]):
-        x = L.residual_block(x, blk, v.heads, act=act, policy=policy,
-                             attn_fn=attn_fn)
+
+    def block(x, i):
+        x = L.residual_block(x, vit.blocks[i], v.heads, act=act,
+                             policy=policy, attn_fn=attn_fn)
         if i < n_adapt:
             a = L.simple_adapter(x, adapters.layer_adapters[i].weight, policy)
             x = L.norm_matched_blend(x, a, adapt_weight)
+        return x
+
+    taps = {}
+    for i in range(max(out_layers, default=0)):
+        if remat and x.requires_grad:
+            x = checkpoint(block, x, i, use_reentrant=False)
+        else:
+            x = block(x, i)
         taps[i + 1] = x
     return [taps[l] for l in out_layers]
 
@@ -110,16 +132,19 @@ def adapted_forward(vit: VisionTransformer, adapter: ImageAdapter,
                     levels: Sequence[int] = (6, 12, 18, 24),
                     proj_relu: bool = False,
                     policy: DtypePolicy = DtypePolicy(), act=None,
-                    attn_fn=None, patch_embed_fn=None
+                    attn_fn=None, patch_embed_fn=None,
+                    remat: bool | str = False
                     ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """AdaptedCLIP image forward: ``(seg_tokens, det_token)``, a list of
     L2-normalised per-level patch embeddings [B, num_patches, embed_dim]
-    (fp32) and the pooled detection embedding [B, embed_dim] (fp32)."""
+    (fp32) and the pooled detection embedding [B, embed_dim] (fp32).
+    ``remat`` as in ``trunk_taps``."""
     if act is None:
         act = L.config_act(cfg, policy)
     taps = trunk_taps(vit, cfg, images, levels, adapters=adapter,
                       adapt_weight=image_adapt_weight, act=act, policy=policy,
-                      attn_fn=attn_fn, patch_embed_fn=patch_embed_fn)
+                      attn_fn=attn_fn, patch_embed_fn=patch_embed_fn,
+                      remat=remat)
     tokens = [L.layer_norm(t[:, 1:, :], vit.ln_post.weight, vit.ln_post.bias)
               for t in taps]
 

@@ -1,15 +1,17 @@
-"""Packed-QKV attention: the wrapper around the hand-written CUDA kernel
-(``kernels/csrc/attention_packed.cu``), its plain PyTorch version, and the
-``attn_fn`` hook that puts it into the residual blocks.
+"""Packed-QKV attention: the wrappers around the hand-written CUDA
+kernels (``kernels/csrc/attention_packed.cu`` forward,
+``kernels/csrc/attention_packed_bwd.cu`` backward), their plain PyTorch
+versions, the differentiable form, and the ``attn_fn`` hook that puts
+them into the residual blocks.
 
-It replaces ``aaclip_tpu/ops/flash_attention.py::attention_packed``
-(standard mode): softmax attention read straight out of the packed
-projection ``qkv [B, S, 3*D]`` (bias already added), keys at or past
-``valid_len`` masked, written token-major ``[B, S, D]`` for the
-out-projection.
+They replace ``aaclip_tpu/ops/flash_attention.py``'s ``attention_packed``
+(standard mode) and ``attention_packed_diff``: softmax attention read
+straight out of the packed projection ``qkv [B, S, 3*D]`` (bias already
+added), keys at or past ``valid_len`` masked, written token-major
+``[B, S, D]`` for the out-projection, and its backward into ``d(qkv)``.
 
-``attention_packed`` runs the plain version only for tensors on the CPU
-(the tests). On a CUDA tensor it launches the kernel or raises.
+The wrappers run the plain versions only for tensors on the CPU (the
+tests). On a CUDA tensor they launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -58,6 +60,62 @@ def attention_packed_plain(qkv: torch.Tensor, num_heads: int,
     return o.transpose(1, 2).reshape(B, S, dm).to(qkv.dtype)
 
 
+def attention_packed_bwd_plain(qkv: torch.Tensor, d_out: torch.Tensor,
+                               num_heads: int,
+                               valid_len: int) -> torch.Tensor:
+    """``d(qkv)`` [B, S, 3*D] in qkv's dtype, step by step as
+    ``_packed_bwd_kernel`` computes it: dO cast to the input dtype; fp32
+    scores, mask, max-subtract, exp and normalise to P in fp32;
+    dV = round(P)^T dO and dP = dO V^T in fp32; dsum = rowsum(dP * P);
+    dS = P * (dP - dsum) * scale rounded to the input dtype; dQ = dS K cast
+    to the input dtype; dK = dS^T Q. Every product accumulates in fp32 (the
+    rounded operands are exact in fp32) and dK, dV are cast at the end.
+    Materialises several [B, H, S, S] fp32 tensors."""
+    B, S, dm, hd, scale, offs = _split(qkv, num_heads)
+    dt = qkv.dtype
+
+    def heads(t):
+        return t.reshape(B, S, num_heads, hd).transpose(1, 2).float()
+
+    q, k, v = (heads(qkv[..., off:off + dm]) for off in offs)
+    do = heads(d_out.to(dt))
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    if valid_len < S:
+        s[..., valid_len:] = float("-inf")
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    p = e / e.sum(-1, keepdim=True)
+    dv = torch.matmul(p.to(dt).float().transpose(-1, -2), do)
+    dp = torch.matmul(do, v.transpose(-1, -2))
+    dsum = (dp * p).sum(-1, keepdim=True)
+    ds = (p * (dp - dsum) * scale).to(dt).float()
+    dq = torch.matmul(ds, k)
+    dk = torch.matmul(ds.transpose(-1, -2), q)
+    return torch.cat([g.to(dt).transpose(1, 2).reshape(B, S, dm)
+                      for g in (dq, dk, dv)], dim=-1)
+
+
+def _check_cuda(name: str, qkv: torch.Tensor, num_heads: int,
+                valid_len: int):
+    """The kernels' preconditions on a packed projection; returns
+    ``_split(qkv, num_heads)``."""
+    if qkv.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {qkv.device}")
+    split = _split(qkv, num_heads)
+    B, S, _, hd, _, _ = split
+    if qkv.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name}: dtype {qkv.dtype} is not bf16 or fp32")
+    if not qkv.is_contiguous() or qkv.data_ptr() % 16:
+        raise ValueError(f"{name}: qkv must be contiguous and 16-byte "
+                         f"aligned")
+    if hd not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {hd} has no kernel "
+                         f"instantiation (have {KERNEL_HEAD_DIMS})")
+    if B < 1 or not 1 <= valid_len <= S:
+        raise ValueError(f"{name}: need batch >= 1 and 1 <= valid_len <= S,"
+                         f" got B={B}, valid_len={valid_len}, S={S}")
+    return split
+
+
 @functools.cache
 def _kernel():
     """The C entry point of ``csrc/attention_packed.cu``, built on first
@@ -68,64 +126,177 @@ def _kernel():
 
     fn = load("attention_packed").aaclip_attention_packed
     i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
-    # qkv, out, bf16, head_dim, batch, seq, valid_len, heads, ld,
+    # qkv, out, lse, bf16, head_dim, batch, seq, valid_len, heads, ld,
     # q_off, k_off, v_off, out_ld, scale, stream
-    fn.argtypes = [p, p, i, i, i, i, i, i, ll, i, i, i, ll, ctypes.c_float, p]
+    fn.argtypes = [p, p, p, i, i, i, i, i, i, ll, i, i, i, ll,
+                   ctypes.c_float, p]
     fn.restype = i
     return fn
 
 
-def attention_packed(qkv: torch.Tensor, num_heads: int,
-                     valid_len: int) -> torch.Tensor:
+@functools.cache
+def _bwd_kernel():
+    """The C entry point of ``csrc/attention_packed_bwd.cu``, built on
+    first use, with its argument types declared."""
+    import ctypes
+
+    from aaclip_tpu_torch.kernels.build import load
+
+    fn = load("attention_packed_bwd").aaclip_attention_packed_bwd
+    i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+    # qkv, d_out, lse, dsum, d_qkv, bf16, head_dim, batch, seq, valid_len,
+    # heads, ld, q_off, k_off, v_off, do_ld, scale, stream
+    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, ll, i, i, i, ll,
+                   ctypes.c_float, p]
+    fn.restype = i
+    return fn
+
+
+def attention_packed(qkv: torch.Tensor, num_heads: int, valid_len: int, *,
+                     return_lse: bool = False):
     """Attention over the packed projection ``qkv`` [B, S, 3*D] -> [B, S, D].
 
     CPU tensors take ``attention_packed_plain``. CUDA tensors must be
     contiguous bf16 or fp32 with a head dim in ``KERNEL_HEAD_DIMS``; the
     kernel is launched on the current stream and
-    ``attention_packed.launches`` counts each launch."""
-    if qkv.device.type == "cpu":
+    ``attention_packed.launches`` counts each launch. ``return_lse=True``
+    (CUDA only) also returns each row's logsumexp [B, H, S] fp32, which
+    the backward kernel reads."""
+    if qkv.device.type == "cpu" and not return_lse:
         return attention_packed_plain(qkv, num_heads, valid_len)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"attention_packed: unsupported device {qkv.device}")
-    B, S, dm, hd, scale, (q_off, k_off, v_off) = _split(qkv, num_heads)
-    if qkv.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"attention_packed: dtype {qkv.dtype} is not bf16 "
-                        f"or fp32")
-    if not qkv.is_contiguous() or qkv.data_ptr() % 16:
-        raise ValueError("attention_packed: qkv must be contiguous and "
-                         "16-byte aligned")
-    if hd not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"attention_packed: head dim {hd} has no kernel "
-                         f"instantiation (have {KERNEL_HEAD_DIMS})")
-    if B < 1 or not 1 <= valid_len <= S:
-        raise ValueError(f"attention_packed: need batch >= 1 and "
-                         f"1 <= valid_len <= S, got B={B}, "
-                         f"valid_len={valid_len}, S={S}")
+    B, S, dm, hd, scale, (q_off, k_off, v_off) = _check_cuda(
+        "attention_packed", qkv, num_heads, valid_len)
     launch = _kernel()
     out = torch.empty(B, S, dm, dtype=qkv.dtype, device=qkv.device)
+    lse = (torch.empty(B, num_heads, S, dtype=torch.float32,
+                       device=qkv.device) if return_lse else None)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = launch(
-            qkv.data_ptr(), out.data_ptr(), int(qkv.dtype == torch.bfloat16),
-            hd, B, S, valid_len, num_heads, 3 * dm, q_off, k_off, v_off, dm,
-            scale, stream)
+            qkv.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if return_lse else None,
+            int(qkv.dtype == torch.bfloat16), hd, B, S, valid_len, num_heads,
+            3 * dm, q_off, k_off, v_off, dm, scale, stream)
     if rc != 0:
         raise RuntimeError(f"attention_packed kernel launch failed: CUDA "
                            f"error {rc}")
     attention_packed.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 attention_packed.launches = 0
 
 
+def attention_packed_bwd(qkv: torch.Tensor, d_out: torch.Tensor,
+                         lse: torch.Tensor | None, num_heads: int,
+                         valid_len: int) -> torch.Tensor:
+    """``d(qkv)`` [B, S, 3*D] from the packed projection, the output
+    cotangent ``d_out`` [B, S, D] and the forward's ``lse`` [B, H, S].
+
+    CPU tensors take ``attention_packed_bwd_plain`` (``lse`` unused). On
+    CUDA tensors the backward kernel is launched on the current stream and
+    ``attention_packed_bwd.launches`` counts each call (one call launches
+    the kernel's two passes)."""
+    if qkv.device.type == "cpu":
+        return attention_packed_bwd_plain(qkv, d_out, num_heads, valid_len)
+    B, S, dm, hd, scale, (q_off, k_off, v_off) = _check_cuda(
+        "attention_packed_bwd", qkv, num_heads, valid_len)
+    d_out = d_out.to(qkv.dtype).contiguous()
+    if d_out.shape != (B, S, dm) or d_out.device != qkv.device:
+        raise ValueError(f"attention_packed_bwd: d_out {tuple(d_out.shape)} "
+                         f"on {d_out.device} does not match qkv")
+    if (lse is None or lse.shape != (B, num_heads, S)
+            or lse.dtype != torch.float32 or not lse.is_contiguous()
+            or lse.device != qkv.device):
+        raise ValueError("attention_packed_bwd: lse must be the forward "
+                         "kernel's contiguous fp32 [B, H, S] logsumexp")
+    launch = _bwd_kernel()
+    d_qkv = torch.empty_like(qkv)
+    dsum = torch.empty_like(lse)
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = launch(
+            qkv.data_ptr(), d_out.data_ptr(), lse.data_ptr(),
+            dsum.data_ptr(), d_qkv.data_ptr(),
+            int(qkv.dtype == torch.bfloat16), hd, B, S, valid_len, num_heads,
+            3 * dm, q_off, k_off, v_off, dm, scale, stream)
+    if rc != 0:
+        raise RuntimeError(f"attention_packed_bwd kernel launch failed: "
+                           f"CUDA error {rc}")
+    attention_packed_bwd.launches += 1
+    return d_qkv
+
+
+attention_packed_bwd.launches = 0
+
+
+class _PackedAttention(torch.autograd.Function):
+    """Packed attention with a backward into ``qkv``. ``plain=False``: the
+    kernels on CUDA tensors (the forward saves qkv and its logsumexp), the
+    plain versions on CPU tensors. ``plain=True``: the plain versions on
+    any device (the on-card comparison)."""
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads, valid_len, plain):
+        lse = None
+        if plain or qkv.device.type == "cpu":
+            out = attention_packed_plain(qkv, num_heads, valid_len)
+        else:
+            out, lse = attention_packed(qkv, num_heads, valid_len,
+                                        return_lse=True)
+        ctx.save_for_backward(qkv, lse)
+        ctx.args = (num_heads, valid_len, plain)
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        qkv, lse = ctx.saved_tensors
+        num_heads, valid_len, plain = ctx.args
+        if plain:
+            d_qkv = attention_packed_bwd_plain(qkv, d_out, num_heads,
+                                               valid_len)
+        else:
+            d_qkv = attention_packed_bwd(qkv, d_out, lse, num_heads,
+                                         valid_len)
+        return d_qkv, None, None, None
+
+
+def attention_packed_diff(qkv: torch.Tensor, num_heads: int,
+                          valid_len: int) -> torch.Tensor:
+    """Differentiable ``attention_packed``: forward and backward kernels
+    on CUDA tensors, the plain versions on CPU tensors."""
+    return _PackedAttention.apply(qkv, num_heads, valid_len, False)
+
+
+def attention_packed_diff_plain(qkv: torch.Tensor, num_heads: int,
+                                valid_len: int) -> torch.Tensor:
+    """``attention_packed_diff`` with the plain forward and backward on any
+    device: the reference the kernels are held against on the card."""
+    return _PackedAttention.apply(qkv, num_heads, valid_len, True)
+
+
 def make_attn_fn(num_heads: int, policy: DtypePolicy = DtypePolicy(), *,
-                 attention=attention_packed):
+                 vv: bool = False, differentiable: bool = False,
+                 attention=None):
     """``attn_fn`` for ``models/layers.residual_block``: QKV projection in
     the compute dtype (fp32 accumulation, bias in fp32, then cast),
-    ``attention`` on the packed result, out-projection. ``attention``
-    defaults to the kernel wrapper; ``attention_packed_plain`` gives the
-    same predictor with the plain version (the on-card comparison)."""
+    ``attention`` on the packed result, out-projection.
+
+    ``attention`` defaults to the forward kernel wrapper, or with
+    ``differentiable=True`` (training steps) to ``attention_packed_diff``;
+    ``attention_packed_plain`` / ``attention_packed_diff_plain`` give the
+    same function with the plain versions (the on-card comparison)."""
+    if vv and differentiable:
+        # as in the JAX package: stage-1 surgery features are grad-free
+        raise ValueError("the V-V attention has no differentiable variant: "
+                         "stage-1 feature extraction is gradient-free")
+    if vv:
+        raise NotImplementedError(
+            "V-V attention (the stage-1 surgery tower) is not ported yet: "
+            "ROADMAP A10, 'stage 1 and the V-V kernel form'")
+    if attention is None:
+        attention = attention_packed_diff if differentiable else \
+            attention_packed
     cd = policy.compute_dtype
 
     def attn_fn(x: torch.Tensor, p) -> torch.Tensor:

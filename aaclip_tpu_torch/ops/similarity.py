@@ -10,6 +10,11 @@ to the level-summed grid map:
 
 The image score is ``(det . anchors[:, 1] + 1) / 2``. Every product here is
 fp32 (the caller keeps TF32 off on the card).
+
+Training upsamples instead the per-level logit difference
+``d = abnormal - normal`` with the align-corners bilinear matrix U,
+``U d Uᵀ``; the reference's softmax over the two channels is then
+``(sigmoid(-d), sigmoid(d))``.
 """
 
 from __future__ import annotations
@@ -68,3 +73,23 @@ def image_score(det: torch.Tensor, anchors: torch.Tensor) -> torch.Tensor:
     else:
         s = (det * anchors[:, :, 1].float()).sum(-1)
     return (s + 1.0) / 2.0
+
+
+def train_similarity_logit(level_score: torch.Tensor,
+                           img_size: int) -> torch.Tensor:
+    """[B, L, 2] scores of one level -> [B, img, img] upsampled
+    (align_corners=True) logit difference ``abnormal - normal``, fp32."""
+    B, L, _ = level_score.shape
+    grid = int(round(L ** 0.5))
+    d = (level_score[..., 1] - level_score[..., 0]).reshape(B, grid, grid)
+    U = torch.from_numpy(bilinear_matrix(grid, img_size,
+                                         align_corners=True)).to(d.device)
+    return apply_postproc_matrix(d, U)
+
+
+def train_similarity_probs(level_score: torch.Tensor,
+                           img_size: int) -> torch.Tensor:
+    """The reference-layout [B, 2, img, img] softmax probability maps of
+    the training forward: ``(1 - sigmoid(d), sigmoid(d))``."""
+    p1 = torch.sigmoid(train_similarity_logit(level_score, img_size))
+    return torch.stack([1.0 - p1, p1], dim=1)

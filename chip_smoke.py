@@ -4,26 +4,43 @@
 
 Needs one CUDA card and nvcc. Phases, each of which fails the run:
  1. the card's name and power limit (nvidia-smi);
- 2. build every kernel of the inference path from the sources in
-    ``aaclip_tpu_torch/kernels/csrc`` and print nvcc's report;
+ 2. build every kernel from the sources in ``aaclip_tpu_torch/kernels/
+    csrc``, one nvcc per source started together, and print nvcc's
+    register and spill report for every instantiation;
  3. hold each kernel against its plain PyTorch version on the card, at the
-    main path's shapes, at ragged sequence lengths and at head dim 16;
- 4. run the main path (ViT-L-14-336 @ 518 px, random weights from a seed)
+    main paths' shapes, at ragged sequence lengths and at head dim 16, in
+    bf16 and fp32: the forward attention, its logsumexp output against
+    ``torch.logsumexp`` of the plain scores, the backward kernel's dq, dk
+    and dv, and the bf16 ``matmul_f32`` gradients against fp64;
+ 4. the inference path (ViT-L-14-336 @ 518 px, random weights from a seed)
     through ``make_predict_fn``: bf16 with uint8 inputs at batch 8 and fp32
     at batch 2, each against the same predictor with the plain attention,
     counting kernel launches; bf16 against fp32 on the same images (printed,
     the scale of bf16's own rounding); and tiny-test on the card against
     the CPU;
- 5. time the kernel, its plain version and torch's SDPA at the main path's
-    attention shape, and the whole predict in maps/s with the kernel and
-    with the plain attention, with CUDA events.
-Then it prints the kernel table as one JSON line, the card line, and the
-result line ``{"ok": true, "device": {...}}`` last. Exits non-zero without
-a result when there is no card.
+ 5. the stage-2 training step (the same model, bf16) through
+    ``make_stage2_step``: at batch 2 with remat, the kernel step against the
+    plain-attention step from the same adapter (loss and every adapter
+    gradient), counting 47 forward and 23 backward launches; five kernel
+    steps at batch 8 without remat, counting 24 forward and 23 backward
+    launches per step, losses finite, peak device memory printed;
+    tiny-test fp32 steps on the card against the CPU;
+ 6. time, with CUDA events: the forward kernel, its plain version and
+    torch's SDPA at the predict's attention shape, and the predict in
+    maps/s with the kernel and with the plain attention; the backward
+    kernel, its plain version and the backward of SDPA at the training
+    step's shape, and the step in images/s at batch 8.
+Then it prints the kernel table as one JSON line (``launches`` counts the
+wrapper's calls on the main path and ``ms`` is per call;
+``kernels_per_call`` is 2 for the backward, whose call runs a dQ and a
+dK/dV kernel), the card line, and the result line ``{"ok": true,
+"device": {...}}`` last. Exits non-zero without a result when there is no
+card.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import sys
 import time
@@ -35,6 +52,22 @@ BF16_MAX_ABS, BF16_MEAN_ABS = 2e-2, 2e-3
 # fp32 kernel vs plain: both fp32 end to end; only the summation order and
 # the online rescaling differ, ~1e-6 relative.
 FP32_MAX_ABS = 1e-4
+# logsumexp, fp32 in both: __expf's approximation and another summation
+# order move the row sum by ~1e-6 relative, lse (~10) by ~1e-5.
+LSE_MAX_ABS = 1e-4
+# backward kernel vs plain, relative to each gradient's max |value|. bf16:
+# both round P for dV, dS, and the outputs to bf16 at the same points, but
+# P = exp(s - lse) and e / sum(e) differ by fp32 ulps, so a rounding may
+# flip by one bf16 ulp (2^-8) and the output by one ulp of its binade:
+# max 2^-6 of the max (two top-binade ulps, with room for the flipped
+# terms' sums), mean 2^-10. fp32: the same arithmetic in another order
+# over ~1370-term sums, ~1e-6 relative: max 2e-5 of the max.
+BWD_BF16_MAX_REL, BWD_BF16_MEAN_REL = 2 ** -6, 2 ** -10
+BWD_FP32_MAX_REL = 2e-5
+# bf16 matmul_f32 gradients against fp64 of the same bf16 operands: the
+# card rounds the cotangent to bf16 and then each gradient to bf16, two
+# roundings of 2^-8 relative each: 2^-6 of the gradient's max.
+MM_GRAD_MAX_REL = 2 ** -6
 # predict, bf16: the attention rounding above moves each of 24 blocks'
 # bf16 residual stream by a few ulps; the map may move by a fraction of a
 # percent of its span and the scores by well under 5e-3.
@@ -44,9 +77,21 @@ PIX_SPAN_FRAC_BF16, SCORE_ATOL_BF16 = 1e-2, 5e-3
 PIX_ATOL_FP32, PIX_RTOL_FP32, SCORE_ATOL_FP32 = 1e-3, 1e-4, 1e-4
 # tiny-test, card (kernel, cuBLAS fp32) vs CPU (plain), fp32 parity policy.
 TINY_ATOL, TINY_RTOL = 1e-4, 1e-5
+# stage-2 step, bf16 ViT-L, kernel vs plain attention from one adapter:
+# the forward and backward kernels each differ from their plain versions
+# by about one bf16 ulp per block (phase 3), carried through 24 bf16
+# blocks both ways. Read on an NVIDIA H100 80GB HBM3, 700 W: loss 2.8e-5
+# relative, every adapter gradient's cosine >= 0.99995 and norm within
+# 3.9e-3. Bars about 10x above: loss 5e-4 relative, cosine >= 0.9995
+# (1 - cos ten times the reading's), norm within 2e-2.
+STEP_LOSS_RTOL, STEP_GRAD_COS, STEP_GRAD_NORM_RTOL = 5e-4, 0.9995, 2e-2
+# tiny-test stage-2 step, fp32, card vs CPU: the same fp32 math through
+# kernels and cuBLAS in another summation order.
+TINY_STEP_LOSS_RTOL, TINY_STEP_GRAD_REL = 1e-5, 1e-4
 
 H100_BF16_FLOPS = 989e12   # dense tensor-core peak, NVIDIA data sheet (SXM)
 H100_BYTES_PER_S = 3.35e12  # HBM3
+TRAIN_BATCH = 8
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -65,6 +110,18 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def expect(cond: bool, what: str) -> None:
+    """Fail the run (an assert would vanish under python -O)."""
+    if not cond:
+        raise AssertionError(what)
+
+
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """The least time the card could take, in ms, and what bounds it."""
+    return max((flops / H100_BF16_FLOPS * 1e3, "operations"),
+               (nbytes / H100_BYTES_PER_S * 1e3, "bytes"))
+
+
 def random_qkv(B, S, H, hd, dtype, gen):
     import torch
 
@@ -72,41 +129,59 @@ def random_qkv(B, S, H, hd, dtype, gen):
     return x.to(dtype)
 
 
+# (B, S, heads, head dim, valid_len)
+KERNEL_CASES = [
+    (2, 1370, 16, 64, 1370),   # ViT-L/518
+    (8, 1370, 16, 64, 1370),   # ViT-L/518 at the predict and train batch
+    (2, 77, 16, 64, 77),       # ragged: one partial tile
+    (2, 257, 16, 64, 257),     # ragged: 4 full tiles + 1 row
+    (2, 257, 16, 64, 200),     # keys past valid_len masked
+    (3, 26, 4, 16, 26),        # tiny-test geometry, head dim 16
+    (2, 257, 2, 16, 257),      # head dim 16, ragged
+]
+DTYPES = ("bf16", "fp32")
+
+
+def torch_dtype(name: str):
+    import torch
+
+    return {"bf16": torch.bfloat16, "fp32": torch.float32}[name]
+
+
 def check_kernel(dtype_name: str) -> float:
-    """Kernel vs plain on the card; returns the largest max |delta| at the
-    main path's shape."""
+    """Forward kernel vs plain, and its logsumexp vs ``torch.logsumexp``
+    of the plain scores, on the card; returns the largest max |delta| of
+    the output at the main path's shape."""
     import torch
 
     from aaclip_tpu_torch.ops.attention import (attention_packed,
                                                 attention_packed_plain)
 
-    dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[dtype_name]
+    dtype = torch_dtype(dtype_name)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    cases = [  # (B, S, heads, head dim, valid_len)
-        (2, 1370, 16, 64, 1370),   # ViT-L/518
-        (8, 1370, 16, 64, 1370),   # ViT-L/518 at the predict batch
-        (2, 77, 16, 64, 77),       # ragged: one partial tile
-        (2, 257, 16, 64, 257),     # ragged: 4 full tiles + 1 row
-        (2, 257, 16, 64, 200),     # keys past valid_len masked
-        (3, 26, 4, 16, 26),        # tiny-test geometry, head dim 16
-        (2, 257, 2, 16, 257),      # head dim 16, ragged
-    ]
-    if dtype_name == "bf16":  # the timed predict's shape (phase 5)
+    cases = list(KERNEL_CASES)
+    if dtype_name == "bf16":  # the timed predict's shape (phase 6)
         cases.append((32, 1370, 16, 64, 1370))
     worst_main = 0.0
     for B, S, H, hd, valid in cases:
         qkv = random_qkv(B, S, H, hd, dtype, gen)
         got = attention_packed(qkv, H, valid)
         want = attention_packed_plain(qkv, H, valid)
+        out2, lse = attention_packed(qkv, H, valid, return_lse=True)
         torch.cuda.synchronize()
         d = (got.float() - want.float()).abs()
         mx, mean = d.max().item(), d.mean().item()
         finite = bool(torch.isfinite(got).all())
-        del got, want, d, qkv
+        same = torch.equal(got, out2)
+        lse_err = lse_vs_logsumexp(qkv, H, valid, lse)
+        del got, want, d, out2, lse, qkv
         print(f"kernel {dtype_name} B={B} S={S} H={H} hd={hd} "
               f"valid={valid}: max|d|={mx:.3e} mean|d|={mean:.3e} "
-              f"finite={finite}")
+              f"finite={finite}; lse max|d|={lse_err:.3e}, out with lse "
+              f"identical={same}")
         expect(finite, "kernel output not finite")
+        expect(same, "the lse output changed the forward's output")
+        expect(lse_err <= LSE_MAX_ABS, f"lse off: {lse_err}")
         if dtype_name == "bf16":
             expect(mx <= BF16_MAX_ABS and mean <= BF16_MEAN_ABS,
                    f"bf16 kernel off: max {mx}, mean {mean}")
@@ -117,10 +192,102 @@ def check_kernel(dtype_name: str) -> float:
     return worst_main
 
 
-def expect(cond: bool, what: str) -> None:
-    """Fail the run (an assert would vanish under python -O)."""
-    if not cond:
-        raise AssertionError(what)
+def lse_vs_logsumexp(qkv, H, valid, lse) -> float:
+    """max |lse - logsumexp(scaled, masked fp32 scores)| over heads in
+    chunks of images (the plain scores are [B, H, S, S] fp32)."""
+    import torch
+
+    B, S, width = qkv.shape
+    hd = width // 3 // H
+    worst = 0.0
+    for b in range(B):
+        q, k = (qkv[b, :, off:off + H * hd].reshape(S, H, hd)
+                .transpose(0, 1).float() for off in (0, H * hd))
+        s = torch.matmul(q, k.transpose(-1, -2)) * hd ** -0.5
+        want = torch.logsumexp(s[..., :valid], dim=-1)
+        worst = max(worst, (lse[b] - want).abs().max().item())
+    return worst
+
+
+def check_bwd_kernel(dtype_name: str) -> float:
+    """Backward kernel vs ``attention_packed_bwd_plain`` on the card,
+    dq/dk/dv separately, relative to each gradient's max |value|; returns
+    the largest max |delta| at the training step's shape."""
+    import torch
+
+    from aaclip_tpu_torch.ops.attention import (attention_packed,
+                                                attention_packed_bwd,
+                                                attention_packed_bwd_plain)
+
+    dtype = torch_dtype(dtype_name)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    worst_main = 0.0
+    for B, S, H, hd, valid in KERNEL_CASES:
+        qkv = random_qkv(B, S, H, hd, dtype, gen)
+        d_out = torch.randn(B, S, H * hd, generator=gen,
+                            device="cuda").to(dtype)
+        _, lse = attention_packed(qkv, H, valid, return_lse=True)
+        got = attention_packed_bwd(qkv, d_out, lse, H, valid)
+        want = attention_packed_bwd_plain(qkv, d_out, H, valid)
+        torch.cuda.synchronize()
+        expect(got.dtype == dtype and got.shape == qkv.shape,
+               f"d(qkv) {got.dtype} {tuple(got.shape)}")
+        expect(bool(torch.isfinite(got).all()), "d(qkv) not finite")
+        parts = []
+        dm = H * hd
+        for i, name in enumerate(("dq", "dk", "dv")):
+            g = got[..., i * dm:(i + 1) * dm].float()
+            w = want[..., i * dm:(i + 1) * dm].float()
+            scale = w.abs().max().item()
+            d = (g - w).abs()
+            mx, mean = d.max().item(), d.mean().item()
+            parts.append(f"{name} max|d|={mx:.3e} ({mx / scale:.2e} of "
+                         f"max {scale:.3e}) mean|d|={mean:.3e}")
+            if dtype_name == "bf16":
+                expect(mx <= BWD_BF16_MAX_REL * scale
+                       and mean <= BWD_BF16_MEAN_REL * scale,
+                       f"bf16 backward {name} off: max {mx}, mean {mean}, "
+                       f"scale {scale}")
+            else:
+                expect(mx <= BWD_FP32_MAX_REL * scale,
+                       f"fp32 backward {name} off: max {mx}, scale {scale}")
+            if S == 1370 and B == TRAIN_BATCH:
+                worst_main = max(worst_main, mx)
+        if valid < S:  # keys past valid_len get no gradient
+            tail = got[:, valid:, dm:].float().abs().max().item()
+            expect(tail == 0.0, f"dk/dv past valid_len: {tail}")
+        del qkv, d_out, lse, got, want
+        print(f"backward {dtype_name} B={B} S={S} H={H} hd={hd} "
+              f"valid={valid}: " + "; ".join(parts))
+    return worst_main
+
+
+def check_matmul_f32_grad() -> None:
+    """bf16 ``matmul_f32`` gradients on the card against fp64 products of
+    the same bf16 operands and cotangent, at the trunk's fc shape."""
+    import torch
+
+    from aaclip_tpu_torch.models.layers import matmul_f32
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    a = torch.randn(2 * 1370, 1024, generator=gen, device="cuda")
+    w = torch.randn(1024, 4096, generator=gen, device="cuda") * 0.03
+    a = a.to(torch.bfloat16).requires_grad_()
+    w = w.to(torch.bfloat16).requires_grad_()
+    g = torch.randn(2 * 1370, 4096, generator=gen, device="cuda")
+    y = matmul_f32(a, w)
+    expect(y.dtype == torch.float32, f"matmul_f32 output {y.dtype}")
+    da, dw = torch.autograd.grad(y, (a, w), g)
+    expect(da.dtype == dw.dtype == torch.bfloat16,
+           f"gradient dtypes {da.dtype}, {dw.dtype}")
+    want_a = g.double() @ w.double().t()
+    want_w = a.double().t() @ g.double()
+    for name, got, want in (("da", da, want_a), ("dw", dw, want_w)):
+        scale = want.abs().max().item()
+        err = (got.double() - want).abs().max().item()
+        print(f"matmul_f32 bf16 backward {name}: max|d|={err:.3e} "
+              f"({err / scale:.2e} of max {scale:.3e})")
+        expect(err <= MM_GRAD_MAX_REL * scale, f"matmul_f32 {name} off")
 
 
 def run_predict(predict, adapter, images, anchors, M):
@@ -134,59 +301,27 @@ def run_predict(predict, adapter, images, anchors, M):
     return pix, score, attention_packed.launches
 
 
-def main() -> int:
+def phase_predict(vit, adapter, cfg, acfg, anchors, M, card, gen):
+    """Phases 4 and 6a: the inference path and its timings; returns
+    (forward launches per predict, forward ms, plain ms, SDPA ms).
+
+    ``gen`` draws the images and the timed qkv in the order slice 1's
+    script drew them after the anchors, so its readings repeat."""
+    import numpy as np
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
-        return 1
-    import numpy as np
-
-    from aaclip_tpu_torch.core.config import (AdapterConfig, DtypePolicy,
-                                              get_config)
+    from aaclip_tpu_torch.core.config import DtypePolicy, get_config
     from aaclip_tpu_torch.core.params import (init_image_adapter,
                                               init_vision_params)
-    from aaclip_tpu_torch.device import card_line
     from aaclip_tpu_torch.eval.predict import make_predict_fn
-    from aaclip_tpu_torch.kernels.build import build
     from aaclip_tpu_torch.ops.attention import (attention_packed,
                                                 attention_packed_plain,
                                                 make_attn_fn)
     from aaclip_tpu_torch.ops.preprocess import CLIP_MEAN, CLIP_STD
     from aaclip_tpu_torch.ops.similarity import fused_postproc_matrix
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    card = card_line()
-    print(f"card: {card}; torch {torch.__version__}, CUDA "
-          f"{torch.version.cuda}, python {sys.version.split()[0]}")
-
-    # -- 2. build
-    t0 = time.perf_counter()
-    path, log = build("attention_packed")
-    print(f"built {path.name} in {time.perf_counter() - t0:.1f} s")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print("  nvcc:", line.strip())
-
-    # -- 3. kernel vs plain
-    err_bf16 = check_kernel("bf16")
-    err_fp32 = check_kernel("fp32")
-
-    # -- 4. main path
-    cfg = get_config("ViT-L-14-336", img_size=518)
-    acfg = AdapterConfig()
-    heads = cfg.vision.heads
-    vit = init_vision_params(cfg, seed=0)
-    adapter = init_image_adapter(cfg, acfg, seed=1)
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    anchors = torch.randn(cfg.embed_dim, 2, generator=gen, device="cuda")
-    anchors = anchors / anchors.norm(dim=0, keepdim=True)
-    M = torch.from_numpy(fused_postproc_matrix(cfg.vision.grid, 518,
-                                               "Industrial")).cuda()
-    img = cfg.vision.image_size
-    n_layers = cfg.vision.layers
-
+    heads, img, n_layers = cfg.vision.heads, cfg.vision.image_size, \
+        cfg.vision.layers
     bf16 = DtypePolicy.bf16()
     predict_k = make_predict_fn(vit, cfg, acfg, policy=bf16,
                                 uint8_inputs=True)
@@ -246,10 +381,10 @@ def main() -> int:
                                rtol=PIX_RTOL_FP32)
     torch.testing.assert_close(score_k, score_p, atol=SCORE_ATOL_FP32,
                                rtol=0)
-    del predict_k32, predict_p32
+    del predict_k32, predict_p32, pix_k, pix_p
 
     tiny = get_config("tiny-test")
-    tacfg = AdapterConfig(levels=(1, 2), image_adapt_until=1)
+    tacfg = tiny_acfg()
     outs = []
     for dev in ("cuda", "cpu"):
         tvit = init_vision_params(tiny, seed=0, device="cpu").to(dev)
@@ -267,7 +402,7 @@ def main() -> int:
         torch.testing.assert_close(got, want, atol=TINY_ATOL, rtol=TINY_RTOL)
     print("predict tiny-test fp32: card (kernel, hd 16) matches the CPU")
 
-    # -- 5. timings at the main path's shapes
+    # timings at the predict's attention shape
     B, S, hd = 32, cfg.vision.seq_len, cfg.vision.head_dim
     qkv = random_qkv(B, S, heads, hd, torch.bfloat16, gen)
     ms_kernel = cuda_ms(lambda: attention_packed(qkv, heads, S), 20)
@@ -276,10 +411,8 @@ def main() -> int:
     ms_sdpa = cuda_ms(
         lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v), 20)
     flops = 4 * B * heads * S * S * hd
-    nbytes = B * S * (3 + 1) * heads * hd * qkv.element_size()
-    t_ops = flops / H100_BF16_FLOPS * 1e3
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    bound_ms, bound_by = max((t_ops, "operations"), (t_bytes, "bytes"))
+    bound_ms, bound_by = bound(flops, B * S * (3 + 1) * heads * hd *
+                               qkv.element_size())
     for name, ms in (("kernel", ms_kernel), ("plain", ms_plain),
                      ("sdpa", ms_sdpa)):
         print(f"time attention {name} [{B},{S},{3 * heads * hd}] bf16: "
@@ -294,19 +427,287 @@ def main() -> int:
     for name, ms in (("kernel", ms_pred), ("plain", ms_pred_p)):
         print(f"time predict bf16 B=32 ViT-L/518 ({name} attention): "
               f"{ms:.2f} ms/call, {32 / ms * 1e3:.2f} maps/s on {card}")
+    return main_launches, ms_kernel, ms_plain, ms_sdpa, bound_ms, bound_by
 
+
+def tiny_acfg():
+    from aaclip_tpu_torch.core.config import AdapterConfig
+
+    return AdapterConfig(levels=(1, 2), image_adapt_until=1)
+
+
+def train_batch(B, img, gen):
+    """Random float images, mask > 0.9, random labels and classes, all
+    valid: the JAX package's stage-2 bench batch, made on the card."""
+    import torch
+
+    images = torch.randn(B, 3, img, img, generator=gen, device="cuda")
+    mask = (torch.rand(B, img, img, generator=gen, device="cuda")
+            > 0.9).float()
+    label = torch.randint(0, 2, (B,), generator=gen, device="cuda")
+    cidx = torch.randint(0, 2, (B,), generator=gen, device="cuda")
+    return images, mask, label, cidx, torch.ones(B, device="cuda")
+
+
+def unit_table(embed_dim, gen, device="cuda"):
+    """A random 2-class table of unit anchors [2, D, 2]."""
+    import torch
+
+    t = torch.randn(2, embed_dim, 2, generator=gen, device=device)
+    return t / t.norm(dim=1, keepdim=True)
+
+
+def train_step_once(vit, cfg, acfg, adapter, batch, table, *, policy,
+                    attn_fn=None, remat, device=None):
+    """One stage-2 step from a copy of ``adapter``; returns (loss, {name:
+    grad}, forward launches, backward launches, the updated copy)."""
+    import torch
+
+    from aaclip_tpu_torch.ops.attention import (attention_packed,
+                                                attention_packed_bwd)
+    from aaclip_tpu_torch.train.optim import make_image_optimizer
+    from aaclip_tpu_torch.train.steps import make_stage2_step
+
+    ad = copy.deepcopy(adapter)
+    opt, sched = make_image_optimizer(ad.parameters())
+    step = make_stage2_step(vit, cfg, acfg, (opt, sched), table,
+                            policy=policy, attn_fn=attn_fn, remat=remat,
+                            device=device)
+    attention_packed.launches = attention_packed_bwd.launches = 0
+    loss = step(ad, *batch)
+    if loss.is_cuda:
+        torch.cuda.synchronize()
+    fwd, bwd = attention_packed.launches, attention_packed_bwd.launches
+    grads = {n: p.grad.detach().clone() for n, p in ad.named_parameters()}
+    return loss.item(), grads, fwd, bwd, (ad, opt, sched, step)
+
+
+def phase_train(vit, adapter, cfg, acfg, card):
+    """Phases 5 and 6b: the stage-2 step; returns the forward and backward
+    launches per step without remat."""
+    import numpy as np
+    import torch
+
+    from aaclip_tpu_torch.core.config import DtypePolicy, get_config
+    from aaclip_tpu_torch.core.params import (init_image_adapter,
+                                              init_vision_params)
+    from aaclip_tpu_torch.ops.attention import (attention_packed_diff_plain,
+                                                make_attn_fn)
+
+    n_layers, img = cfg.vision.layers, cfg.vision.image_size
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    table = unit_table(cfg.embed_dim, gen)
+    bf16 = DtypePolicy.bf16()
+    batch2 = train_batch(2, img, gen)
+    loss_k, g_k, fwd_r, bwd_r, _ = train_step_once(
+        vit, cfg, acfg, adapter, batch2, table, policy=bf16, remat=True)
+    plain = make_attn_fn(cfg.vision.heads, bf16,
+                         attention=attention_packed_diff_plain)
+    loss_p, g_p, fwd_p, bwd_p, _ = train_step_once(
+        vit, cfg, acfg, adapter, batch2, table, policy=bf16, attn_fn=plain,
+        remat=True)
+    print(f"train bf16 B=2 remat: kernel launches forward {fwd_r}, backward "
+          f"{bwd_r}; plain step launches {fwd_p}, {bwd_p}; loss kernel "
+          f"{loss_k:.6f} plain {loss_p:.6f} (rel "
+          f"{abs(loss_k - loss_p) / abs(loss_p):.3e})")
+    expect(fwd_r == 2 * n_layers - 1 and bwd_r == n_layers - 1,
+           f"remat step launches {fwd_r}, {bwd_r}")
+    expect(fwd_p == bwd_p == 0, "the plain step launched a kernel")
+    expect(np.isfinite(loss_k), "kernel step loss not finite")
+    expect(abs(loss_k - loss_p) <= STEP_LOSS_RTOL * abs(loss_p),
+           f"step loss off: {loss_k} vs {loss_p}")
+    worst_cos, worst_norm = 1.0, 0.0
+    for name, gk in g_k.items():
+        gp = g_p[name]
+        cos = torch.nn.functional.cosine_similarity(
+            gk.flatten().double(), gp.flatten().double(), dim=0).item()
+        norm = abs(gk.norm().item() / gp.norm().item() - 1.0)
+        worst_cos, worst_norm = min(worst_cos, cos), max(worst_norm, norm)
+        expect(cos >= STEP_GRAD_COS and norm <= STEP_GRAD_NORM_RTOL,
+               f"gradient of {name} off: cosine {cos}, norm {norm}")
+    print(f"train bf16 B=2 kernel vs plain gradients over {len(g_k)} "
+          f"adapter leaves: min cosine {worst_cos:.6f}, max |norm ratio - 1| "
+          f"{worst_norm:.3e}")
+    del g_k, g_p, batch2
+
+    batch8 = train_batch(TRAIN_BATCH, img, gen)
+    torch.cuda.reset_peak_memory_stats()
+    loss0, _, fwd, bwd, (ad, opt, sched, step) = train_step_once(
+        vit, cfg, acfg, adapter, batch8, table, policy=bf16, remat=False)
+    losses = [loss0] + [step(ad, *batch8).item() for _ in range(4)]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"train bf16 B={TRAIN_BATCH} no remat: launches forward {fwd}, "
+          f"backward {bwd} per step; losses over 5 steps "
+          + ", ".join(f"{l:.6f}" for l in losses)
+          + f"; peak device memory {peak:.2f} GiB")
+    expect(fwd == n_layers and bwd == n_layers - 1,
+           f"step launches {fwd}, {bwd}")
+    expect(all(np.isfinite(losses)), "a training loss is not finite")
+    ms_step = cuda_ms(lambda: step(ad, *batch8), 5, warmup=1)
+    print(f"time train step bf16 B={TRAIN_BATCH} ViT-L/518 no remat: "
+          f"{ms_step:.2f} ms/step, {TRAIN_BATCH / ms_step * 1e3:.2f} "
+          f"images/s on {card}")
+    del ad, opt, sched, step, batch8
+
+    tiny = get_config("tiny-test")
+    tacfg = tiny_acfg()
+    runs = []
+    for dev in ("cuda", "cpu"):
+        tvit = init_vision_params(tiny, seed=0, device="cpu").to(dev)
+        tad = init_image_adapter(tiny, tacfg, seed=1, device="cpu").to(dev)
+        rng = np.random.default_rng(6)
+        batch = (torch.from_numpy(rng.standard_normal((4, 3, 70, 70))
+                                  .astype(np.float32)),
+                 torch.from_numpy((rng.random((4, 70, 70)) > 0.8)
+                                  .astype(np.float32)),
+                 torch.tensor([0, 1, 0, 1]), torch.tensor([0, 1, 1, 0]),
+                 torch.tensor([1.0, 1.0, 1.0, 0.0]))
+        ttable = unit_table(tiny.embed_dim, torch.Generator().manual_seed(7),
+                            device="cpu")
+        loss, grads, *_ = train_step_once(
+            tvit, tiny, tacfg, tad, batch, ttable,
+            policy=DtypePolicy.fp32(), remat=False, device=dev)
+        runs.append((loss, {n: g.cpu() for n, g in grads.items()}))
+    (loss_c, g_c), (loss_h, g_h) = runs
+    expect(abs(loss_c - loss_h) <= TINY_STEP_LOSS_RTOL * abs(loss_h),
+           f"tiny step loss card {loss_c} vs CPU {loss_h}")
+    for name, gc in g_c.items():
+        err = (gc - g_h[name]).abs().max().item()
+        expect(err <= TINY_STEP_GRAD_REL * g_h[name].abs().max().item(),
+               f"tiny step gradient {name} off by {err}")
+    print(f"train tiny-test fp32: card (kernels, hd 16) matches the CPU "
+          f"(loss {loss_c:.6f} vs {loss_h:.6f})")
+    return fwd, bwd
+
+
+def time_bwd(cfg, card):
+    """Phase 6c: the backward kernel, its plain version and SDPA's
+    backward at the training step's attention shape."""
+    import torch
+
+    from aaclip_tpu_torch.ops.attention import (attention_packed,
+                                                attention_packed_bwd,
+                                                attention_packed_bwd_plain)
+
+    B, S, H, hd = TRAIN_BATCH, cfg.vision.seq_len, cfg.vision.heads, \
+        cfg.vision.head_dim
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    qkv = random_qkv(B, S, H, hd, torch.bfloat16, gen)
+    d_out = torch.randn(B, S, H * hd, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+    _, lse = attention_packed(qkv, H, S, return_lse=True)
+    ms_kernel = cuda_ms(lambda: attention_packed_bwd(qkv, d_out, lse, H, S),
+                        10)
+    ms_plain = cuda_ms(lambda: attention_packed_bwd_plain(qkv, d_out, H, S),
+                       3)
+    q, k, v = (t.detach().requires_grad_() for t in
+               qkv.view(B, S, 3, H, hd).permute(2, 0, 3, 1, 4).unbind(0))
+    out = torch.nn.functional.scaled_dot_product_attention(q, k, v)
+    g = d_out.view(B, S, H, hd).transpose(1, 2)
+    ms_sdpa = cuda_ms(lambda: torch.autograd.grad(out, (q, k, v), g,
+                                                  retain_graph=True), 10)
+    # the TPU kernel's five S^2*hd products; each input read once, each
+    # output written once
+    flops = 10 * B * H * S * S * hd
+    nbytes = (2 * qkv.numel() + d_out.numel()) * qkv.element_size() + \
+        lse.numel() * 4
+    bound_ms, bound_by = bound(flops, nbytes)
+    for name, ms in (("kernel", ms_kernel), ("plain", ms_plain),
+                     ("sdpa backward", ms_sdpa)):
+        print(f"time attention backward {name} [{B},{S},{3 * H * hd}] bf16: "
+              f"{ms:.4f} ms/call ({flops / ms / 1e9:.1f} TFLOP/s of the "
+              f"TPU kernel's work; bound {bound_ms:.4f} ms by {bound_by}) "
+              f"on {card}")
+    return ms_kernel, ms_plain, ms_sdpa, bound_ms, bound_by
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 1
+
+    from aaclip_tpu_torch.core.config import AdapterConfig, get_config
+    from aaclip_tpu_torch.core.params import (init_image_adapter,
+                                              init_vision_params)
+    from aaclip_tpu_torch.device import card_line
+    from aaclip_tpu_torch.kernels.build import KERNELS, build_all
+    from aaclip_tpu_torch.ops.similarity import fused_postproc_matrix
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    print(f"card: {card}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}, python {sys.version.split()[0]}")
+
+    # -- 2. build
+    t0 = time.perf_counter()
+    built = build_all()
+    print(f"built {', '.join(p.name for p, _ in built.values())} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for name in KERNELS:
+        for line in built[name][1].splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"  nvcc {name}:", line.strip())
+
+    # -- 3. kernels vs plain
+    print(f"[{time.perf_counter() - t0:.0f} s] kernels vs plain")
+    err_fwd = max(check_kernel(d) for d in DTYPES)
+    err_bwd = max(check_bwd_kernel(d) for d in DTYPES)
+    check_matmul_f32_grad()
+
+    cfg = get_config("ViT-L-14-336", img_size=518)
+    acfg = AdapterConfig()
+    vit = init_vision_params(cfg, seed=0)
+    adapter = init_image_adapter(cfg, acfg, seed=1)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    anchors = torch.randn(cfg.embed_dim, 2, generator=gen, device="cuda")
+    anchors = anchors / anchors.norm(dim=0, keepdim=True)
+    M = torch.from_numpy(fused_postproc_matrix(cfg.vision.grid, 518,
+                                               "Industrial")).cuda()
+
+    # -- 4, 6a. inference path
+    print(f"[{time.perf_counter() - t0:.0f} s] inference path")
+    (fwd_launches, ms_fwd, ms_fwd_plain, ms_sdpa, fwd_bound,
+     fwd_bound_by) = phase_predict(vit, adapter, cfg, acfg, anchors, M, card,
+                                   gen)
+    # -- 5, 6b. stage-2 training step
+    print(f"[{time.perf_counter() - t0:.0f} s] stage-2 step")
+    train_fwd, train_bwd = phase_train(vit, adapter, cfg, acfg, card)
+    expect(train_fwd == fwd_launches, "forward launches differ by path")
+    # -- 6c. backward timings
+    print(f"[{time.perf_counter() - t0:.0f} s] backward timings")
+    ms_bwd, ms_bwd_plain, ms_sdpa_bwd, bwd_bound, bwd_bound_by = time_bwd(
+        cfg, card)
+
+    print(f"[{time.perf_counter() - t0:.0f} s] done")
     print(json.dumps({"kernels": [{
         "name": "attention_packed",
         "route": "cuda",
         "source": "aaclip_tpu_torch/kernels/csrc/attention_packed.cu",
         "replaces": "aaclip_tpu/ops/flash_attention.py:190",
-        "launches": main_launches,
-        "max_abs_err": max(err_bf16, err_fp32),
-        "ms": ms_kernel,
-        "plain_ms": ms_plain,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
+        "launches": fwd_launches,
+        "kernels_per_call": 1,
+        "max_abs_err": err_fwd,
+        "ms": ms_fwd,
+        "plain_ms": ms_fwd_plain,
+        "bound_ms": fwd_bound,
+        "bound_by": fwd_bound_by,
         "library_ms": ms_sdpa,
+    }, {
+        "name": "attention_packed_bwd",
+        "route": "cuda",
+        "source": "aaclip_tpu_torch/kernels/csrc/attention_packed_bwd.cu",
+        "replaces": "aaclip_tpu/ops/flash_attention.py:302",
+        "launches": train_bwd,
+        "kernels_per_call": 2,
+        "max_abs_err": err_bwd,
+        "ms": ms_bwd,
+        "plain_ms": ms_bwd_plain,
+        "bound_ms": bwd_bound,
+        "bound_by": bwd_bound_by,
+        "library_ms": ms_sdpa_bwd,
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -122,7 +122,7 @@ def test_kernel_entry_point_matches_the_c_signature():
     n_params = len(sig.split(","))
     code = (build.CSRC.parent.parent / "ops" / "attention.py").read_text()
     argtypes = re.search(r"fn\.argtypes = \[([^\]]*)\]", code).group(1)
-    assert len(argtypes.split(",")) == n_params == 15
+    assert len(argtypes.split(",")) == n_params == 16
 
 
 def test_library_path_is_keyed_by_the_sources():

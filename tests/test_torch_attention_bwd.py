@@ -1,0 +1,182 @@
+"""The port's attention backward (aaclip_tpu_torch/ops/attention.py)
+against the JAX package's, on the CPU, where the wrappers run their plain
+versions:
+
+* ``attention_packed_bwd_plain`` vs ``jax.vjp`` of the Pallas
+  ``attention_packed_diff`` in interpret mode (2 images, 2 heads x 64,
+  S 250, q_blk 64, valid_len 250 and 201, fp32 and bf16);
+* the autograd Function's CPU backward is the plain backward, exactly;
+* the differentiable ``attn_fn`` hook's gradients vs ``jax.vjp`` of the
+  JAX hook at tiny-test's head dim 16;
+* the wrappers' routing and refusals.
+
+The CUDA kernel itself is checked against the plain version on the card
+by chip_smoke.py.
+
+fp32 bar (``precision="highest"`` on the JAX side): atol 1e-5, rtol 1e-5,
+the same arithmetic in another summation order. bf16 bar: both round dO,
+P (for dV), dS and the outputs to bf16 at the same points, so they agree
+to one bf16 ulp of each gradient's max (2^-8 relative).
+"""
+
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from aaclip_tpu.core.config import DtypePolicy as JPolicy
+from aaclip_tpu.ops.flash_attention import attention_packed_diff as j_diff
+from aaclip_tpu.ops.flash_attention import make_attn_fn as j_make_attn_fn
+from aaclip_tpu_torch.core.config import DtypePolicy, get_config
+from aaclip_tpu_torch.core.params import params_from_jax
+from aaclip_tpu_torch.kernels import build
+from aaclip_tpu_torch.ops.attention import (attention_packed,
+                                            attention_packed_bwd,
+                                            attention_packed_bwd_plain,
+                                            attention_packed_diff,
+                                            attention_packed_diff_plain,
+                                            make_attn_fn)
+from tests.test_torch_attention import DTYPES, packed_qkv
+from tests.test_torch_layers import perturbed_clip_tree
+
+
+def jax_vjp(qkv, d_out, heads, valid_len, jd, precision):
+    _, vjp = jax.vjp(
+        lambda x: j_diff(x, heads, valid_len, 64, precision, True),
+        jnp.asarray(qkv, jd))
+    return np.asarray(vjp(jnp.asarray(d_out, jd))[0], np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("valid_len", [250, 201])
+def test_plain_bwd_matches_pallas_interpret(dtype, valid_len):
+    jd, td = DTYPES[dtype]
+    qkv = packed_qkv(2, 250, 2, 64, seed=3)
+    d_out = np.random.default_rng(4).standard_normal(
+        (2, 250, 128)).astype(np.float32)
+    want = jax_vjp(qkv, d_out, 2, valid_len, jd,
+                   "highest" if dtype == "fp32" else None)
+    got = attention_packed_bwd_plain(torch.from_numpy(qkv).to(td),
+                                     torch.from_numpy(d_out).to(td), 2,
+                                     valid_len)
+    assert got.shape == (2, 250, 384) and got.dtype == td
+    got = got.float().numpy()
+    if valid_len < 250:  # masked keys get no gradient, on both sides
+        assert not got[:, valid_len:, 128:].any()
+    if dtype == "fp32":
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    else:
+        for i in range(3):  # dq, dk, dv
+            sl = slice(i * 128, (i + 1) * 128)
+            ulp = 2 ** -8 * np.abs(want[..., sl]).max()
+            np.testing.assert_allclose(got[..., sl], want[..., sl], atol=ulp,
+                                       rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_function_cpu_backward_is_the_plain_backward(dtype):
+    td = DTYPES[dtype][1]
+    qkv = torch.from_numpy(packed_qkv(2, 37, 2, 16, seed=5)).to(td)
+    d_out = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (2, 37, 32)).astype(np.float32)).to(td)
+    want = attention_packed_bwd_plain(qkv, d_out, 2, 30)
+    before = (attention_packed.launches, attention_packed_bwd.launches)
+    for fn in (attention_packed_diff, attention_packed_diff_plain):
+        x = qkv.clone().requires_grad_()
+        out = fn(x, 2, 30)
+        torch.testing.assert_close(
+            out, attention_packed(qkv, 2, 30), atol=0, rtol=0)
+        out.backward(d_out)
+        torch.testing.assert_close(x.grad, want, atol=0, rtol=0)
+    assert torch.equal(attention_packed_bwd(qkv, d_out, None, 2, 30), want)
+    assert (attention_packed.launches,
+            attention_packed_bwd.launches) == before
+
+
+@pytest.mark.parametrize("policy", ["fp32", "bf16"])
+def test_differentiable_attn_fn_matches_jax(policy):
+    """tiny-test block 0 (4 heads x 16): the differentiable hook's
+    gradients (input and in-projection weight) against jax.vjp of the JAX
+    hook with the Pallas custom VJP in interpret mode."""
+    cfg = get_config("tiny-test")
+    jpol, tpol = {"fp32": (JPolicy.fp32(), DtypePolicy.fp32()),
+                  "bf16": (JPolicy.bf16(), DtypePolicy.bf16())}[policy]
+    visual = perturbed_clip_tree("tiny-test", seed=7)
+    vit = params_from_jax(visual, cfg, device="cpu")
+    jp = {k: jnp.asarray(v[0]) for k, v in visual["blocks"]["attn"].items()}
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((2, 26, 64)).astype(np.float32)
+    g = rng.standard_normal((2, 26, 64)).astype(np.float32)
+    j_fn = j_make_attn_fn(4, jpol, differentiable=True, interpret=True)
+    _, vjp = jax.vjp(lambda x, w: j_fn(x, {**jp, "w_qkv": w}),
+                     jnp.asarray(x), jp["w_qkv"])
+    jdx, jdw = (np.asarray(t, np.float32) for t in vjp(jnp.asarray(g)))
+
+    attn = vit.blocks[0].attn
+    attn.in_proj_weight.requires_grad_(True)
+    xt = torch.from_numpy(x).requires_grad_()
+    make_attn_fn(4, tpol, differentiable=True)(xt, attn).backward(
+        torch.from_numpy(g))
+    tdx, tdw = xt.grad.numpy(), attn.in_proj_weight.grad.numpy().T
+    if policy == "fp32":
+        np.testing.assert_allclose(tdx, jdx, atol=1e-5, rtol=1e-5)
+        np.testing.assert_allclose(tdw, jdw, atol=1e-5, rtol=1e-5)
+    else:
+        # bf16 operands rounded at the same points on both sides: a few
+        # ulps of each gradient's max after two rounded products
+        for got, want in ((tdx, jdx), (tdw, jdw)):
+            np.testing.assert_allclose(got, want, rtol=0,
+                                       atol=2 ** -6 * np.abs(want).max())
+
+
+def test_vv_has_no_differentiable_variant():
+    with pytest.raises(ValueError, match="no differentiable variant"):
+        make_attn_fn(4, vv=True, differentiable=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        make_attn_fn(4, vv=True)
+
+
+def test_hook_picks_the_differentiable_wrapper():
+    """The hook's attention is the differentiable kernel path for
+    training and the forward-only wrapper otherwise; an explicit
+    ``attention`` wins."""
+    def closure_attention(fn):
+        cells = dict(zip(fn.__code__.co_freevars, fn.__closure__))
+        return cells["attention"].cell_contents
+
+    assert closure_attention(make_attn_fn(4)) is attention_packed
+    assert closure_attention(
+        make_attn_fn(4, differentiable=True)) is attention_packed_diff
+    assert closure_attention(make_attn_fn(
+        4, differentiable=True,
+        attention=attention_packed_diff_plain)) is attention_packed_diff_plain
+
+
+def test_bwd_wrapper_refuses_other_devices_and_bad_lse():
+    with pytest.raises(ValueError, match="unsupported device"):
+        attention_packed_bwd(torch.empty(1, 8, 48, device="meta"),
+                             torch.empty(1, 8, 16, device="meta"), None, 1, 8)
+    with pytest.raises(ValueError, match="unsupported device"):
+        attention_packed(torch.zeros(1, 8, 48), 1, 8, return_lse=True)
+
+
+def test_bwd_entry_point_matches_the_c_signature():
+    """The ctypes argument list has one entry per parameter of the C
+    entry point in attention_packed_bwd.cu."""
+    src = (build.CSRC / "attention_packed_bwd.cu").read_text()
+    sig = re.search(r'extern "C" int aaclip_attention_packed_bwd\(([^)]*)\)',
+                    src).group(1)
+    code = (build.CSRC.parent.parent / "ops" / "attention.py").read_text()
+    bwd = code[code.index("def _bwd_kernel"):]
+    argtypes = re.search(r"fn\.argtypes = \[([^\]]*)\]", bwd).group(1)
+    assert len(argtypes.split(",")) == len(sig.split(",")) == 18
+
+
+def test_every_kernel_source_is_built():
+    assert set(build.KERNELS) == {p.stem for p in build.CSRC.glob("*.cu")}
+    p = build.library_path("attention_packed_bwd")
+    assert p.name.startswith("libattention_packed_bwd-")
+    assert p != build.library_path("attention_packed")

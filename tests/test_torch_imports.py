@@ -1,7 +1,8 @@
-"""The port imports neither JAX nor the JAX package: its predict runs in a
-fresh interpreter without either entering ``sys.modules``, and no source
-file of the port (or chip_smoke.py, which runs where JAX is absent) names
-them in an import."""
+"""The port imports neither JAX nor the JAX package: its predict and its
+stage-2 training step (the path of ``bench --mode train``) run in a fresh
+interpreter without either entering ``sys.modules``, and no source file of
+the port (or chip_smoke.py, which runs where JAX is absent) names them in
+an import."""
 
 import json
 import os
@@ -21,6 +22,8 @@ from aaclip_tpu_torch.core.config import AdapterConfig, DtypePolicy, get_config
 from aaclip_tpu_torch.core.params import init_image_adapter, init_vision_params
 from aaclip_tpu_torch.eval.predict import make_predict_fn
 from aaclip_tpu_torch.ops.similarity import fused_postproc_matrix
+from aaclip_tpu_torch.train.optim import make_image_optimizer
+from aaclip_tpu_torch.train.steps import make_stage2_step
 import aaclip_tpu_torch.bench, aaclip_tpu_torch.entry
 cfg = get_config("tiny-test")
 acfg = AdapterConfig(levels=(1, 2), image_adapt_until=1)
@@ -32,10 +35,16 @@ x = torch.zeros(2, 3, 70, 70, dtype=torch.uint8)
 a = torch.nn.functional.normalize(torch.ones(32, 2), dim=0)
 M = torch.from_numpy(fused_postproc_matrix(5, 70, "Industrial"))
 pix, score = p(ad, x, a, M)
+step = make_stage2_step(vit, cfg, acfg, make_image_optimizer(ad.parameters()),
+                        torch.stack([a, a]), policy=DtypePolicy.bf16(),
+                        remat=False, device="cpu")
+loss = step(ad, x.float(), torch.zeros(2, 70, 70), torch.tensor([0, 1]),
+            torch.tensor([0, 1]), torch.ones(2))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "aaclip_tpu"))
 print(json.dumps({"bad": bad, "shape": list(pix.shape),
-                  "finite": bool(torch.isfinite(pix).all())}))
+                  "finite": bool(torch.isfinite(pix).all()
+                                 and torch.isfinite(loss))}))
 """
 
 
@@ -53,6 +62,8 @@ def test_sources_do_not_import_jax_or_the_jax_package():
     files = sorted((REPO / "aaclip_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10
+    assert {"steps.py", "optim.py"} <= {f.name for f in files
+                                        if f.parent.name == "train"}
     offenders = {str(f.relative_to(REPO)): FORBIDDEN.findall(f.read_text())
                  for f in files}
     assert not {f: m for f, m in offenders.items() if m}
