@@ -1,11 +1,14 @@
 """Throughput of the port on one card, random weights from a fixed seed:
 anomaly maps per second of the inference path (adapted ViT-L/14-336
 forward at 518 px + fused anomaly map), or images per second of the
-stage-2 training step.
+stage-2 training step, or of the stage-1 iteration (surgery features +
+text-adapter update).
 
     python -m aaclip_tpu_torch.bench [--batch_size 32] [--precision bf16]
     python -m aaclip_tpu_torch.bench --mode train [--batch_size 8] \
         [--remat full|off]
+    python -m aaclip_tpu_torch.bench --mode train_stage1 [--batch_size 16] \
+        [--vv_mode batch|spatial] [--feature_chunk N] [--remat full|off]
 
 Prints ONE JSON line in the format of the repo's ``bench.py``:
   {"metric": ..., "value": N, "unit": ..., "vs_baseline": N}
@@ -29,10 +32,12 @@ from aaclip_tpu_torch.device import card_line
 # benches report the same ratio.
 REFERENCE_BASELINE_MAPS_PER_SEC = 40.0
 REFERENCE_BASELINE_STAGE2_IMG_PER_SEC = 10.0
+REFERENCE_BASELINE_STAGE1_IMG_PER_SEC = 20.0
 
 # kernel-name fragments of the profile's device rows, by class
 _PROFILE_CLASSES = (
-    ("attention forward kernel", ("attn_bf16_kernel", "attn_f32_kernel")),
+    ("attention forward kernel (standard and V-V)",
+     ("attn_bf16_kernel", "attn_f32_kernel")),
     ("attention backward kernel", ("attn_bwd_",)),
     ("GEMM (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass")),
 )
@@ -115,6 +120,63 @@ def bench_train(args, cfg, acfg, policy, vit, adapter, dev):
     }))
 
 
+def bench_train_stage1(args, cfg, acfg, policy, vit, dev):
+    """Stage-1 iterations per second, as images/s: surgery features of the
+    batch, then one text-adapter update over every prompt sentence. The
+    JAX package's ``bench_train_stage1`` batch: normal images and a mask >
+    0.9 from numpy seed 0, random classes among the first 12 VisA classes
+    (2 MVTec classes for tiny-test)."""
+    import numpy as np
+    import torch
+
+    from aaclip_tpu_torch.core.params import (init_text_adapter,
+                                              init_text_params)
+    from aaclip_tpu_torch.text.anchors import dataset_prompt_tokens
+    from aaclip_tpu_torch.train.optim import make_text_optimizer
+    from aaclip_tpu_torch.train.steps import (make_stage1_step,
+                                              stage1_features_fn)
+
+    B, img = args.batch_size, args.img_size
+    tiny = args.model_name == "tiny-test"
+    rng = np.random.default_rng(0)
+    images = torch.from_numpy(rng.standard_normal(
+        (B, 3, img, img)).astype(np.float32)).to(dev)
+    mask = torch.from_numpy(
+        (rng.random((B, img, img)) > 0.9).astype(np.float32)).to(dev)
+    n_cls = 2 if tiny else 12
+    cidx = torch.from_numpy(rng.integers(0, n_cls, B)).to(dev)
+    valid = torch.ones(B, device=dev)
+    tokens = dataset_prompt_tokens("MVTec" if tiny else "VisA")[:n_cls]
+    text = init_text_params(cfg, seed=0, device=dev)
+    adapter = init_text_adapter(cfg, acfg, seed=2, device=dev)
+    features = stage1_features_fn(vit, cfg, policy=policy,
+                                  vv_mode=args.vv_mode,
+                                  chunk=args.feature_chunk or None,
+                                  device=dev)
+    step = make_stage1_step(text, cfg, acfg,
+                            make_text_optimizer(adapter.parameters()), tokens,
+                            img_size=img, policy=policy,
+                            remat=args.remat == "full", device=dev)
+
+    def call():
+        # the production loop passes valid (train.py)
+        return step(adapter, features(images, valid), mask, cidx, valid)
+
+    imgs_per_sec = timed(call, args) * B
+    if args.profile:
+        profile_calls(call, 2)
+    chunk = f", chunk {args.feature_chunk}" if args.feature_chunk else ""
+    print(json.dumps({
+        "metric": "stage1_train_images_per_sec_per_chip",
+        "value": round(imgs_per_sec, 2),
+        "unit": f"img/s/chip ({args.model_name} @ {img}px stage-1: surgery "
+                f"feats + text update, {args.precision}, batch {B}, vv "
+                f"{args.vv_mode}{chunk}, remat {args.remat}, {card_line()})",
+        "vs_baseline": round(
+            imgs_per_sec / REFERENCE_BASELINE_STAGE1_IMG_PER_SEC, 3),
+    }))
+
+
 def timed(call, args) -> float:
     """Calls per second of ``call`` over ``args.steps`` calls after
     ``args.warmup``, between CUDA events."""
@@ -136,13 +198,17 @@ def main(argv=None) -> None:
     from aaclip_tpu_torch.core.config import PRECISION_CHOICES
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--mode", default="infer", choices=("infer", "train"),
+    parser.add_argument("--mode", default="infer",
+                        choices=("infer", "train", "train_stage1"),
                         help="infer = anomaly maps/s (default); train = "
-                             "stage-2 update steps, as images/s")
+                             "stage-2 update steps, as images/s; "
+                             "train_stage1 = stage-1 iterations (features "
+                             "+ text update), as images/s")
     parser.add_argument("--model_name", default="ViT-L-14-336")
     parser.add_argument("--img_size", type=int, default=518)
     parser.add_argument("--batch_size", type=int, default=None,
-                        help="default 32 (infer) or 8 (train)")
+                        help="default 32 (infer), 8 (train) or 16 "
+                             "(train_stage1, the reference's text batch)")
     parser.add_argument("--precision", default="bf16",
                         choices=PRECISION_CHOICES,
                         help="fp32_high and int8 are not ported yet")
@@ -153,11 +219,24 @@ def main(argv=None) -> None:
                              "with torch.profiler and print device time by "
                              "op to stderr")
     parser.add_argument("--remat", default="full", choices=("full", "off"),
-                        help="train mode: checkpoint each block (default "
+                        help="train modes: checkpoint each block (default "
                              "full, as the JAX package's bench)")
+    parser.add_argument("--vv_mode", default="batch",
+                        choices=("batch", "spatial"),
+                        help="train_stage1: 'batch' = the reference-exact "
+                             "V-V attention across the batch (plain); "
+                             "'spatial' = per-image V-V through the kernel")
+    parser.add_argument("--feature_chunk", type=int, default=0,
+                        help="train_stage1: extract features N images at a "
+                             "time (needs --vv_mode spatial)")
     args = parser.parse_args(argv)
+    if args.mode != "train_stage1" and (args.vv_mode != "batch"
+                                        or args.feature_chunk):
+        parser.error("--vv_mode and --feature_chunk apply to --mode "
+                     "train_stage1 only")
     if args.batch_size is None:
-        args.batch_size = 8 if args.mode == "train" else 32
+        args.batch_size = {"infer": 32, "train": 8,
+                           "train_stage1": 16}[args.mode]
 
     import torch
 
@@ -173,8 +252,10 @@ def main(argv=None) -> None:
     policy = DtypePolicy.from_name(args.precision)
     cfg = get_config(args.model_name, args.img_size)
     acfg = AdapterConfig() if args.model_name != "tiny-test" else \
-        AdapterConfig(levels=(1, 2), image_adapt_until=1)
+        AdapterConfig(levels=(1, 2), image_adapt_until=1, text_adapt_until=1)
     vit = init_vision_params(cfg, seed=0, device=dev)
+    if args.mode == "train_stage1":
+        return bench_train_stage1(args, cfg, acfg, policy, vit, dev)
     adapter = init_image_adapter(cfg, acfg, seed=1, device=dev)
     if args.mode == "train":
         return bench_train(args, cfg, acfg, policy, vit, adapter, dev)

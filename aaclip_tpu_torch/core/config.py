@@ -1,7 +1,8 @@
 """Model architecture configuration and dtype policy.
 
 The production architecture is OpenAI CLIP ViT-L/14-336 evaluated at
-img_size 518; ``tiny-test`` is a 2-layer, 64-wide model for the CPU tests.
+img_size 518 with its 12-layer, 768-wide text tower; ``tiny-test`` is a
+2-layer, 64-wide vision and 32-wide text model for the CPU tests.
 The JSON files under ``model_configs/`` are this package's own copy of the
 registry (the reference's schema: ``embed_dim`` + ``vision_cfg`` +
 ``text_cfg``).
@@ -45,12 +46,27 @@ class VisionConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class TextConfig:
+    context_length: int = 77
+    vocab_size: int = 49408
+    width: int = 768
+    heads: int = 12
+    layers: int = 12
+    mlp_ratio: float = 4.0
+
+    @property
+    def head_dim(self) -> int:
+        return self.width // self.heads
+
+
+@dataclasses.dataclass(frozen=True)
 class CLIPConfig:
-    """Model config (the image side; the text tower is not ported yet).
+    """Two-tower model config. Both towers project to ``embed_dim``.
     ``quick_gelu`` False means exact-erf GELU, the reference's default for
     the ViT-L model."""
 
     vision: VisionConfig = dataclasses.field(default_factory=VisionConfig)
+    text: TextConfig = dataclasses.field(default_factory=TextConfig)
     embed_dim: int = 768
     quick_gelu: bool = False
 
@@ -66,14 +82,17 @@ class CLIPConfig:
 
 @dataclasses.dataclass(frozen=True)
 class AdapterConfig:
-    """Image adapter hyper-parameters: blend weight, how many blocks get an
-    adapter, the tapped depths, and whether the seg/det projections end in
-    a LeakyReLU."""
+    """Adapter hyper-parameters: the image side's blend weight, how many
+    blocks get an adapter, the tapped depths, and whether the seg/det
+    projections end in a LeakyReLU; the text side's blend weight and
+    adapted block count."""
 
     image_adapt_weight: float = 0.1
     image_adapt_until: int = 6
     levels: Tuple[int, ...] = (6, 12, 18, 24)
     proj_relu: bool = False
+    text_adapt_weight: float = 0.1
+    text_adapt_until: int = 3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,10 +148,11 @@ PRECISION_CHOICES = ("fp32", "fp32_high", "bf16", "int8")
 
 VIT_L_14_336 = CLIPConfig()
 
-# 2-layer, 64-wide tower, 70-px images (5x5 grid).
+# 2-layer towers, 64-wide vision at 70 px (5x5 grid), 32-wide text.
 TINY_TEST = CLIPConfig(
     vision=VisionConfig(image_size=70, patch_size=14, width=64, layers=2,
                         heads=4),
+    text=TextConfig(width=32, heads=4, layers=2),
     embed_dim=32,
 )
 
@@ -143,15 +163,18 @@ MODEL_CONFIGS = {
 
 
 def config_from_json(payload: dict) -> CLIPConfig:
-    """CLIPConfig from the reference's JSON schema (its ``text_cfg`` is not
-    read until the text tower is ported)."""
-    v = payload["vision_cfg"]
+    """CLIPConfig from the reference's JSON schema."""
+    v, t = payload["vision_cfg"], payload["text_cfg"]
     return CLIPConfig(
         vision=VisionConfig(
             image_size=v["image_size"], patch_size=v["patch_size"],
             width=v["width"], layers=v["layers"],
             heads=v["width"] // v.get("head_width", 64),
             mlp_ratio=v.get("mlp_ratio", 4.0)),
+        text=TextConfig(
+            context_length=t["context_length"], vocab_size=t["vocab_size"],
+            width=t["width"], heads=t["heads"], layers=t["layers"],
+            mlp_ratio=t.get("mlp_ratio", 4.0)),
         embed_dim=payload["embed_dim"],
         quick_gelu=payload.get("quick_gelu", False),
     )

@@ -1,10 +1,17 @@
 // Packed-QKV softmax attention for Hopper (sm_90a), plain C interface.
 //
 // Replaces aaclip_tpu/ops/flash_attention.py::attention_packed
-// (_packed_kernel, standard mode): non-causal attention read straight out
-// of the packed projection qkv [B, S, sections*D] (bias already added),
+// (_packed_kernel) in both of its modes: non-causal attention read straight
+// out of the packed projection qkv [B, S, sections*D] (bias already added),
 // keys at or past `valid_len` masked, softmax division deferred to the
 // output, written token-major to out [B, S, D].
+//  - standard mode: qkv [B, S, 3*D], ld = 3*D, offsets 0, D, 2*D;
+//  - V-V mode (vv=True, packed_sections=1, the CLIP-Surgery tail of the
+//    stage-1 features): a value-only v [B, S, D], ld = D, all three
+//    offsets 0, so it computes softmax(V V^T * hd^-1/2) V per head.
+//    Nothing below assumes ld == 3*D: rows are addressed through `ld`
+//    and each section through its offset, and 16-byte row alignment holds
+//    for any D that is a multiple of 8 (bf16) or 4 (fp32).
 //
 // What bounds it on an H100: per image and launch at ViT-L/518 (S 1370,
 // 16 heads x 64) the work is 4*16*1370^2*64 = 7.69 GFLOP against 11.2 MB
@@ -18,7 +25,7 @@
 // walks the keys in tiles of 64 staged in shared memory, with an online
 // softmax (running max and sum in fp32) and one division at the end. Q, K
 // and V are read in place through the row stride and three section
-// offsets, so the V-V mode (all three on the value section) needs no new
+// offsets, so the V-V mode (all three on the one section) needs no new
 // kernel. The ragged tail is masked by bounds: rows >= S are zero-filled
 // on load and never stored, keys >= valid_len get -inf, and key tiles
 // wholly past valid_len are skipped.

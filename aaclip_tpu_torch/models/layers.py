@@ -1,5 +1,5 @@
-"""Transformer primitives of the vision tower, as functions on tensors,
-and the ``nn.Module`` containers that hold a block's weights.
+"""Transformer primitives of the vision and text towers, as functions on
+tensors, and the ``nn.Module`` containers that hold a block's weights.
 
 Linear weights use torch's ``[out_features, in_features]`` layout (the JAX
 package stores ``[in, out]``; ``core/params.py::params_from_jax``
@@ -8,10 +8,13 @@ transposes). Numerics follow the JAX package:
  * erf GELU on the fp32 parity policy, tanh GELU on the bf16 fast path;
  * every matmul accumulates in fp32 and returns fp32 (``matmul_f32``);
    biases are added in fp32 before any cast back to the compute dtype;
- * pre-LN residual blocks with packed-QKV multi-head attention.
+ * pre-LN residual blocks with packed-QKV multi-head attention, and the
+   CLIP-Surgery "V-V" variant whose queries and keys are the values.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -169,28 +172,106 @@ class ResidualBlock(nn.Module):
         self.mlp = Mlp(width, int(width * mlp_ratio))
 
 
-def attention(x: torch.Tensor, p: PackedAttention, num_heads: int, *,
-              policy: DtypePolicy = DtypePolicy()) -> torch.Tensor:
-    """Plain multi-head self-attention with a packed QKV projection: the
-    JAX package's XLA path (normalized softmax, probabilities cast to the
-    compute dtype before P.V). A CPU reference only: the forward runs the
-    packed-attention hook (``residual_block``), and a tensor on any other
-    device is refused."""
-    if x.device.type != "cpu":
-        raise ValueError(f"layers.attention is the CPU reference; on "
-                         f"{x.device} use ops.attention.make_attn_fn")
+def _attention(x: torch.Tensor, p: PackedAttention, num_heads: int, *,
+               mask: torch.Tensor | None, vv: bool,
+               policy: DtypePolicy) -> torch.Tensor:
+    """The JAX package's XLA-path attention, ``layers.attention``: fp32
+    scores from compute-dtype q and k, the additive ``mask``, fp32
+    softmax, probabilities cast to the compute dtype before P.V, the
+    out-projection. ``vv`` projects only the value third and uses it as
+    q, k and v."""
     B, L, D = x.shape
     hd = D // num_heads
     cd = policy.compute_dtype
-    qkv = linear(x, p.in_proj_weight, p.in_proj_bias, policy)
-    qkv = qkv.reshape(B, L, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
-    q, k, v = qkv[0], qkv[1], qkv[2]
+    if vv:
+        v = linear(x, p.in_proj_weight[2 * D:], p.in_proj_bias[2 * D:],
+                   policy)
+        q = k = v = v.reshape(B, L, num_heads, hd).transpose(1, 2)
+    else:
+        qkv = linear(x, p.in_proj_weight, p.in_proj_bias, policy)
+        qkv = qkv.reshape(B, L, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
+        q, k, v = qkv[0], qkv[1], qkv[2]
     scores = matmul_f32(q.to(cd), k.to(cd).transpose(-1, -2)) * hd ** -0.5
+    if mask is not None:
+        scores = scores + mask
     probs = torch.softmax(scores, dim=-1)
     out = matmul_f32(probs.to(cd), v.to(cd))
     out = out.transpose(1, 2).reshape(B, L, D)
     out = linear(out, p.out_proj.weight, p.out_proj.bias, policy)
     return out.to(x.dtype)
+
+
+def attention(x: torch.Tensor, p: PackedAttention, num_heads: int, *,
+              vv: bool = False,
+              policy: DtypePolicy = DtypePolicy()) -> torch.Tensor:
+    """Plain multi-head self-attention with a packed QKV projection
+    (``_attention``, unmasked). A CPU reference only: the vision trunk runs
+    the packed-attention hook (``residual_block``), and a tensor on any
+    other device is refused."""
+    if x.device.type != "cpu":
+        raise ValueError(f"layers.attention is the CPU reference; on "
+                         f"{x.device} use ops.attention.make_attn_fn")
+    return _attention(x, p, num_heads, mask=None, vv=vv, policy=policy)
+
+
+def masked_attention(x: torch.Tensor, p: PackedAttention, num_heads: int,
+                     mask: torch.Tensor, *,
+                     policy: DtypePolicy = DtypePolicy()) -> torch.Tensor:
+    """The text tower's attention with an additive mask (``causal_mask``),
+    on any device. JAX computes it with XLA, outside any Pallas kernel, so
+    the port runs it plain on the card too: ``matmul_f32`` products and
+    ``torch.softmax`` in fp32, not SDPA, whose roundings differ."""
+    return _attention(x, p, num_heads, mask=mask, vv=False, policy=policy)
+
+
+def attention_vv_batch(x: torch.Tensor, p: PackedAttention, num_heads: int,
+                       *, policy: DtypePolicy = DtypePolicy(),
+                       valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Reference-exact CLIP-Surgery V-V attention across the BATCH at each
+    position (the JAX package's ``attention_vv_batch``).
+
+    The reference's surgery attention reads its seq-first input as
+    batch-first (reference model/transformer.py:125-152), so its softmax
+    runs over the batch's samples at each position and stage-1 features
+    depend on the batch's composition. ``valid`` ([B], 0/1) masks padding
+    samples out of the key axis, as the reference's smaller unpadded tail
+    batch would. The scores are [L, H, B, B]; JAX runs this with XLA and
+    the port plain, on any device."""
+    B, L, D = x.shape
+    hd = D // num_heads
+    cd = policy.compute_dtype
+    v = linear(x, p.in_proj_weight[2 * D:], p.in_proj_bias[2 * D:], policy)
+    v = v.reshape(B, L, num_heads, hd).permute(1, 2, 0, 3).to(cd)  # [L,H,B,hd]
+    scores = matmul_f32(v, v.transpose(-1, -2)) * hd ** -0.5
+    if valid is not None:
+        keep = torch.as_tensor(valid, device=x.device).bool()
+        scores = torch.where(keep, scores, torch.full_like(scores, -1e30))
+    probs = torch.softmax(scores, dim=-1)
+    out = matmul_f32(probs.to(cd), v)                          # [L,H,B,hd]
+    out = out.permute(2, 0, 1, 3).reshape(B, L, D)
+    out = linear(out, p.out_proj.weight, p.out_proj.bias, policy)
+    return out.to(x.dtype)
+
+
+def make_batch_vv_attn_fn(num_heads: int, policy: DtypePolicy, valid=None):
+    """``attn_fn`` of the batch-coupled V-V form (``attention_vv_batch``),
+    with the optional ``valid`` mask of a padded final batch."""
+    return lambda h, p: attention_vv_batch(h, p, num_heads, policy=policy,
+                                           valid=valid)
+
+
+def surgery_vv_start(layers: int, surgery_until_layer: int) -> int:
+    """First V-V block index: the surgery tower replaces the last
+    ``surgery_until_layer - 1`` blocks with V-V attention (0 when the flag
+    exceeds the depth)."""
+    return max(0, layers - (surgery_until_layer - 1))
+
+
+def causal_mask(length: int, device=None) -> torch.Tensor:
+    """Additive causal mask [length, length], fp32: 0 on and below the
+    diagonal, -inf above (reference model/transformer.py:629-635)."""
+    neg = torch.full((length, length), float("-inf"), device=device)
+    return torch.triu(neg, diagonal=1)
 
 
 def mlp(x: torch.Tensor, p: Mlp, act,
@@ -200,19 +281,31 @@ def mlp(x: torch.Tensor, p: Mlp, act,
 
 
 def residual_block(x: torch.Tensor, blk: ResidualBlock, num_heads: int, *,
+                   mask: torch.Tensor | None = None, vv: bool = False,
                    act=gelu, policy: DtypePolicy = DtypePolicy(),
-                   attn_fn=None) -> torch.Tensor:
-    """Pre-LN residual block. ``attn_fn(x_normed, blk.attn)`` returns the
-    projected attention output; it defaults to the packed-attention kernel
-    hook ``ops.attention.make_attn_fn(num_heads, policy)``, which runs the
-    kernel on the card and its plain version on the CPU."""
-    if attn_fn is None:
+                   attn_fn=None, vv_attn_fn=None) -> torch.Tensor:
+    """Pre-LN residual block. ``attn_fn(x_normed, blk.attn)`` (``vv_attn_fn``
+    when ``vv``) returns the projected attention output. Unset, it is the
+    packed-attention kernel hook ``ops.attention.make_attn_fn(num_heads,
+    policy, vv=vv)``, which runs the kernel on the card and its plain
+    version on the CPU; with a ``mask`` (the text tower) it is
+    ``masked_attention``. The hooks are unmasked, so a mask with a hook
+    raises."""
+    override = vv_attn_fn if vv else attn_fn
+    if mask is not None:
+        if override is not None or vv:
+            raise ValueError("attention hooks and the V-V form are "
+                             "unmasked; a masked block takes the default "
+                             "masked attention")
+        override = functools.partial(masked_attention, num_heads=num_heads,
+                                     mask=mask, policy=policy)
+    elif override is None:
         # imported here: ops.attention imports this module's ``linear``
         from aaclip_tpu_torch.ops.attention import make_attn_fn
 
-        attn_fn = make_attn_fn(num_heads, policy)
+        override = make_attn_fn(num_heads, policy, vv=vv)
     h = layer_norm(x, blk.ln_1.weight, blk.ln_1.bias)
-    x = x + attn_fn(h, blk.attn)
+    x = x + override(h, blk.attn)
     h = layer_norm(x, blk.ln_2.weight, blk.ln_2.bias)
     return x + mlp(h, blk.mlp, act, policy)
 
@@ -237,6 +330,16 @@ def simple_adapter(x: torch.Tensor, weight: torch.Tensor,
                    policy: DtypePolicy = DtypePolicy()) -> torch.Tensor:
     """Bias-free Linear + LeakyReLU, in x's dtype."""
     return leaky_relu(linear(x, weight, None, policy)).to(x.dtype)
+
+
+def simple_proj(x: torch.Tensor, weight: torch.Tensor, relu: bool,
+                policy: DtypePolicy = DtypePolicy()) -> torch.Tensor:
+    """Bias-free Linear, optionally followed by LeakyReLU, returned in x's
+    dtype (the text adapter's final projection)."""
+    y = linear(x, weight, None, policy)
+    if relu:
+        y = leaky_relu(y)
+    return y.to(x.dtype)
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1) -> torch.Tensor:

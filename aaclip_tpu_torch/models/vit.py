@@ -26,11 +26,12 @@ from aaclip_tpu_torch.ops.preprocess import patchify
 
 
 class VisionTransformer(nn.Module):
-    """CLIP image tower weights up to ln_post (the CLS projection ``proj``
-    comes with ``encode_image``, ROADMAP A6). ``conv1`` is the patch
-    embedding as a linear layer over (c, ky, kx)-flattened patches."""
+    """CLIP image tower weights. ``conv1`` is the patch embedding as a
+    linear layer over (c, ky, kx)-flattened patches; ``proj`` is the CLS
+    projection [width, embed_dim], used as ``x @ proj`` (the stage-1
+    features project through it)."""
 
-    def __init__(self, v: VisionConfig):
+    def __init__(self, v: VisionConfig, embed_dim: int):
         super().__init__()
         patch_dim = 3 * v.patch_size * v.patch_size
         self.conv1 = nn.Linear(patch_dim, v.width, bias=False)
@@ -42,6 +43,7 @@ class VisionTransformer(nn.Module):
             L.ResidualBlock(v.width, v.mlp_ratio)
             for _ in range(v.layers))
         self.ln_post = nn.LayerNorm(v.width, eps=L._LN_EPS)
+        self.proj = nn.Parameter(torch.empty(v.width, embed_dim))
 
 
 class ImageAdapter(nn.Module):
@@ -73,6 +75,21 @@ def embed(vit: VisionTransformer, cfg: CLIPConfig, images: torch.Tensor,
     x = torch.cat([cls, x], dim=1)
     x = x + vit.positional_embedding.to(x.dtype)
     return L.layer_norm(x, vit.ln_pre.weight, vit.ln_pre.bias)
+
+
+def run_blocks(x: torch.Tensor, vit: VisionTransformer, cfg: CLIPConfig,
+               start: int, stop: int, *, vv: bool = False, act,
+               policy: DtypePolicy, attn_fn=None,
+               vv_attn_fn=None) -> torch.Tensor:
+    """Blocks ``[start, stop)`` of the tower on the residual stream ``x``,
+    in the V-V form when ``vv`` (the JAX package's ``run_block_range`` over
+    ``slice_blocks``). Hooks left at None are the packed-attention kernel
+    hooks of ``L.residual_block``."""
+    for i in range(start, stop):
+        x = L.residual_block(x, vit.blocks[i], cfg.vision.heads, vv=vv,
+                             act=act, policy=policy, attn_fn=attn_fn,
+                             vv_attn_fn=vv_attn_fn)
+    return x
 
 
 def trunk_taps(vit: VisionTransformer, cfg: CLIPConfig, images: torch.Tensor,

@@ -1,14 +1,17 @@
-"""Packed-QKV attention: the wrappers around the hand-written CUDA
-kernels (``kernels/csrc/attention_packed.cu`` forward,
-``kernels/csrc/attention_packed_bwd.cu`` backward), their plain PyTorch
-versions, the differentiable form, and the ``attn_fn`` hook that puts
-them into the residual blocks.
+"""Packed attention: the wrappers around the hand-written CUDA kernels
+(``kernels/csrc/attention_packed.cu`` forward, in its standard and V-V
+modes, ``kernels/csrc/attention_packed_bwd.cu`` backward), their plain
+PyTorch versions, the differentiable form, and the ``attn_fn`` hook that
+puts them into the residual blocks.
 
 They replace ``aaclip_tpu/ops/flash_attention.py``'s ``attention_packed``
-(standard mode) and ``attention_packed_diff``: softmax attention read
-straight out of the packed projection ``qkv [B, S, 3*D]`` (bias already
-added), keys at or past ``valid_len`` masked, written token-major
-``[B, S, D]`` for the out-projection, and its backward into ``d(qkv)``.
+and ``attention_packed_diff``: softmax attention read straight out of the
+packed projection ``qkv [B, S, 3*D]`` (bias already added), keys at or
+past ``valid_len`` masked, written token-major ``[B, S, D]`` for the
+out-projection, and its backward into ``d(qkv)``. The V-V mode
+(``vv=True, packed_sections=1``, CLIP-Surgery) reads a value-only
+projection ``v [B, S, D]`` as q, k and v: the same kernel with all three
+section offsets at 0 and the row stride D.
 
 The wrappers run the plain versions only for tensors on the CPU (the
 tests). On a CUDA tensor they launch the kernel or raise.
@@ -26,27 +29,30 @@ from aaclip_tpu_torch.models.layers import linear
 KERNEL_HEAD_DIMS = (16, 64)  # head dims the kernel is instantiated for
 
 
-def _split(qkv: torch.Tensor, num_heads: int):
+def _split(x: torch.Tensor, num_heads: int, sections: int = 3):
     """(B, S, D, head_dim, scale, (q_off, k_off, v_off)) of a packed
-    [B, S, 3*D] projection, offsets in elements."""
-    B, S, width = qkv.shape
-    if width % 3 or (width // 3) % num_heads:
-        raise ValueError(f"packed width {width} does not split into 3 "
-                         f"sections of {num_heads} heads")
-    dm = width // 3
+    [B, S, sections*D] projection, offsets in elements: q, k and v of a
+    three-section qkv, or all three on the one section of a value-only
+    projection (V-V)."""
+    B, S, width = x.shape
+    if width % sections or (width // sections) % num_heads:
+        raise ValueError(f"packed width {width} does not split into "
+                         f"{sections} section(s) of {num_heads} heads")
+    dm = width // sections
     hd = dm // num_heads
-    return B, S, dm, hd, hd ** -0.5, (0, dm, 2 * dm)
+    offs = (0, dm, 2 * dm) if sections == 3 else (0, 0, 0)
+    return B, S, dm, hd, hd ** -0.5, offs
 
 
-def attention_packed_plain(qkv: torch.Tensor, num_heads: int,
-                           valid_len: int) -> torch.Tensor:
-    """The kernel's arithmetic in plain PyTorch: fp32 scores, mask,
+def _plain(x: torch.Tensor, num_heads: int, valid_len: int,
+           sections: int) -> torch.Tensor:
+    """The forward kernel's arithmetic in plain PyTorch: fp32 scores, mask,
     max-subtract, exp, fp32 row sum, P cast to the input dtype, P.V in
     fp32, one division at the end. Materialises [B, H, S, S]."""
-    B, S, dm, hd, scale, offs = _split(qkv, num_heads)
+    B, S, dm, hd, scale, offs = _split(x, num_heads, sections)
 
     def heads(off):
-        sec = qkv[..., off:off + dm].reshape(B, S, num_heads, hd)
+        sec = x[..., off:off + dm].reshape(B, S, num_heads, hd)
         return sec.transpose(1, 2).float()
 
     q, k, v = (heads(off) for off in offs)
@@ -56,8 +62,22 @@ def attention_packed_plain(qkv: torch.Tensor, num_heads: int,
     s = s - s.amax(-1, keepdim=True)
     p = torch.exp(s)
     l = p.sum(-1, keepdim=True)
-    o = torch.matmul(p.to(qkv.dtype).float(), v) / l
-    return o.transpose(1, 2).reshape(B, S, dm).to(qkv.dtype)
+    o = torch.matmul(p.to(x.dtype).float(), v) / l
+    return o.transpose(1, 2).reshape(B, S, dm).to(x.dtype)
+
+
+def attention_packed_plain(qkv: torch.Tensor, num_heads: int,
+                           valid_len: int) -> torch.Tensor:
+    """``attention_packed``'s kernel arithmetic (``_plain``) on a packed
+    [B, S, 3*D] qkv."""
+    return _plain(qkv, num_heads, valid_len, 3)
+
+
+def attention_packed_vv_plain(v: torch.Tensor, num_heads: int,
+                              valid_len: int) -> torch.Tensor:
+    """``attention_packed_vv``'s kernel arithmetic (``_plain``) on a
+    value-only [B, S, D]: softmax(V V^T hd^-1/2) V per head."""
+    return _plain(v, num_heads, valid_len, 1)
 
 
 def attention_packed_bwd_plain(qkv: torch.Tensor, d_out: torch.Tensor,
@@ -94,19 +114,21 @@ def attention_packed_bwd_plain(qkv: torch.Tensor, d_out: torch.Tensor,
                       for g in (dq, dk, dv)], dim=-1)
 
 
-def _check_cuda(name: str, qkv: torch.Tensor, num_heads: int,
-                valid_len: int):
+def _check_cuda(name: str, x: torch.Tensor, num_heads: int,
+                valid_len: int, sections: int = 3):
     """The kernels' preconditions on a packed projection; returns
-    ``_split(qkv, num_heads)``."""
-    if qkv.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {qkv.device}")
-    split = _split(qkv, num_heads)
+    ``_split(x, num_heads, sections)``."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    split = _split(x, num_heads, sections)
     B, S, _, hd, _, _ = split
-    if qkv.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"{name}: dtype {qkv.dtype} is not bf16 or fp32")
-    if not qkv.is_contiguous() or qkv.data_ptr() % 16:
-        raise ValueError(f"{name}: qkv must be contiguous and 16-byte "
-                         f"aligned")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name}: dtype {x.dtype} is not bf16 or fp32")
+    # the kernel copies 16-byte vectors from each row and head
+    if (not x.is_contiguous() or x.data_ptr() % 16
+            or (x.shape[-1] * x.element_size()) % 16):
+        raise ValueError(f"{name}: input must be contiguous, 16-byte "
+                         f"aligned, with rows a multiple of 16 bytes")
     if hd not in KERNEL_HEAD_DIMS:
         raise ValueError(f"{name}: head dim {hd} has no kernel "
                          f"instantiation (have {KERNEL_HEAD_DIMS})")
@@ -152,6 +174,28 @@ def _bwd_kernel():
     return fn
 
 
+def _launch_forward(name: str, x: torch.Tensor, num_heads: int,
+                    valid_len: int, sections: int, return_lse: bool):
+    """Launch the forward kernel on a packed [B, S, sections*D] projection
+    on the current stream; returns ``(out, lse or None)``."""
+    B, S, dm, hd, scale, (q_off, k_off, v_off) = _check_cuda(
+        name, x, num_heads, valid_len, sections)
+    launch = _kernel()
+    out = torch.empty(B, S, dm, dtype=x.dtype, device=x.device)
+    lse = (torch.empty(B, num_heads, S, dtype=torch.float32,
+                       device=x.device) if return_lse else None)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = launch(
+            x.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if return_lse else None,
+            int(x.dtype == torch.bfloat16), hd, B, S, valid_len, num_heads,
+            sections * dm, q_off, k_off, v_off, dm, scale, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    return out, lse
+
+
 def attention_packed(qkv: torch.Tensor, num_heads: int, valid_len: int, *,
                      return_lse: bool = False):
     """Attention over the packed projection ``qkv`` [B, S, 3*D] -> [B, S, D].
@@ -164,27 +208,35 @@ def attention_packed(qkv: torch.Tensor, num_heads: int, valid_len: int, *,
     the backward kernel reads."""
     if qkv.device.type == "cpu" and not return_lse:
         return attention_packed_plain(qkv, num_heads, valid_len)
-    B, S, dm, hd, scale, (q_off, k_off, v_off) = _check_cuda(
-        "attention_packed", qkv, num_heads, valid_len)
-    launch = _kernel()
-    out = torch.empty(B, S, dm, dtype=qkv.dtype, device=qkv.device)
-    lse = (torch.empty(B, num_heads, S, dtype=torch.float32,
-                       device=qkv.device) if return_lse else None)
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = launch(
-            qkv.data_ptr(), out.data_ptr(),
-            lse.data_ptr() if return_lse else None,
-            int(qkv.dtype == torch.bfloat16), hd, B, S, valid_len, num_heads,
-            3 * dm, q_off, k_off, v_off, dm, scale, stream)
-    if rc != 0:
-        raise RuntimeError(f"attention_packed kernel launch failed: CUDA "
-                           f"error {rc}")
+    out, lse = _launch_forward("attention_packed", qkv, num_heads,
+                               valid_len, 3, return_lse)
     attention_packed.launches += 1
     return (out, lse) if return_lse else out
 
 
 attention_packed.launches = 0
+
+
+def attention_packed_vv(v: torch.Tensor, num_heads: int,
+                        valid_len: int) -> torch.Tensor:
+    """V-V attention over a value-only projection ``v`` [B, S, D] ->
+    [B, S, D]: softmax(V V^T hd^-1/2) V per head (``flash_attention.py``'s
+    ``attention_packed(vv=True, packed_sections=1)``).
+
+    CPU tensors take ``attention_packed_vv_plain``. On CUDA tensors the
+    forward kernel is launched with row stride D and all three section
+    offsets at 0, with no logsumexp: the V-V features are gradient-free.
+    ``attention_packed_vv.launches`` counts these launches apart from
+    ``attention_packed.launches``."""
+    if v.device.type == "cpu":
+        return attention_packed_vv_plain(v, num_heads, valid_len)
+    out, _ = _launch_forward("attention_packed_vv", v, num_heads, valid_len,
+                             1, False)
+    attention_packed_vv.launches += 1
+    return out
+
+
+attention_packed_vv.launches = 0
 
 
 def attention_packed_bwd(qkv: torch.Tensor, d_out: torch.Tensor,
@@ -280,28 +332,31 @@ def make_attn_fn(num_heads: int, policy: DtypePolicy = DtypePolicy(), *,
                  attention=None):
     """``attn_fn`` for ``models/layers.residual_block``: QKV projection in
     the compute dtype (fp32 accumulation, bias in fp32, then cast),
-    ``attention`` on the packed result, out-projection.
+    ``attention`` on the packed result, out-projection. ``vv=True``
+    projects only the value third of ``in_proj_weight`` / ``in_proj_bias``
+    and runs the V-V attention on it.
 
-    ``attention`` defaults to the forward kernel wrapper, or with
+    ``attention`` defaults to the forward kernel wrapper
+    (``attention_packed``, or ``attention_packed_vv`` with ``vv``), or with
     ``differentiable=True`` (training steps) to ``attention_packed_diff``;
-    ``attention_packed_plain`` / ``attention_packed_diff_plain`` give the
-    same function with the plain versions (the on-card comparison)."""
+    the ``*_plain`` versions give the same function with the plain
+    arithmetic (the on-card comparison)."""
     if vv and differentiable:
         # as in the JAX package: stage-1 surgery features are grad-free
         raise ValueError("the V-V attention has no differentiable variant: "
                          "stage-1 feature extraction is gradient-free")
-    if vv:
-        raise NotImplementedError(
-            "V-V attention (the stage-1 surgery tower) is not ported yet: "
-            "ROADMAP A10, 'stage 1 and the V-V kernel form'")
     if attention is None:
-        attention = attention_packed_diff if differentiable else \
-            attention_packed
+        attention = attention_packed_vv if vv else (
+            attention_packed_diff if differentiable else attention_packed)
     cd = policy.compute_dtype
 
     def attn_fn(x: torch.Tensor, p) -> torch.Tensor:
-        qkv = linear(x, p.in_proj_weight, p.in_proj_bias, policy).to(cd)
-        out = attention(qkv, num_heads, x.shape[1])
+        w, b = p.in_proj_weight, p.in_proj_bias
+        if vv:
+            D = x.shape[-1]
+            w, b = w[2 * D:], b[2 * D:]
+        packed = linear(x, w, b, policy).to(cd)
+        out = attention(packed, num_heads, x.shape[1])
         out = linear(out, p.out_proj.weight, p.out_proj.bias, policy)
         return out.to(x.dtype)
 

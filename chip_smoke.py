@@ -29,7 +29,22 @@ Needs one CUDA card and nvcc. Phases, each of which fails the run:
     torch's SDPA at the predict's attention shape, and the predict in
     maps/s with the kernel and with the plain attention; the backward
     kernel, its plain version and the backward of SDPA at the training
-    step's shape, and the step in images/s at batch 8.
+    step's shape, and the step in images/s at batch 8;
+ 7. the stage-1 path (the same model, bf16, VisA's 12 classes through the
+    12-layer text tower): (a) spatial features at batch 2 with the kernels
+    against the same features with both attentions plain, counting 24
+    standard and 19 V-V launches per call; (b) batch-mode features, 24
+    standard and 0 V-V launches; (c) five iterations at batch 16 from
+    spatial features, losses finite, peak device memory printed; (d) one
+    step from kernel features against one from plain features, from the
+    same text adapter (loss, each gradient's cosine and norm); (e)
+    tiny-test fp32 features and step on the card against the CPU; then
+    the V-V kernel, its plain version and SDPA on the V views at the
+    bench's [16, 1370, 1024], and stage-1 images/s at batch 16 in both
+    V-V modes.
+Phase 3 also holds the V-V mode of the forward kernel (B3) against its
+plain version, in bf16 and fp32, at [16, 1370, 1024], ragged S and head
+dim 16, and against the standard mode on the value section tripled.
 Then it prints the kernel table as one JSON line (``launches`` counts the
 wrapper's calls on the main path and ``ms`` is per call;
 ``kernels_per_call`` is 2 for the backward, whose call runs a dQ and a
@@ -89,9 +104,27 @@ STEP_LOSS_RTOL, STEP_GRAD_COS, STEP_GRAD_NORM_RTOL = 5e-4, 0.9995, 2e-2
 # kernels and cuBLAS in another summation order.
 TINY_STEP_LOSS_RTOL, TINY_STEP_GRAD_REL = 1e-5, 1e-4
 
+# stage-1 spatial features, bf16 ViT-L at batch 2, kernels vs both
+# attentions plain: each kernel is within about a bf16 ulp of its plain
+# version, carried through 24 standard and 19 V-V blocks (the features are
+# a unit patch vector plus the unit CLS vector). Read on an NVIDIA H100
+# 80GB HBM3, 700 W: max |d| 3.346e-3, least per-token cosine 0.99991481.
+# Bars about 10x above: max |d| 3.3e-2, 1 - cosine 1e-3.
+S1_FEAT_MAX_ABS, S1_FEAT_COS = 3.3e-2, 0.999
+# stage-1 step from kernel features vs from plain features, same adapter:
+# the 100x similarity scores carry that feature difference into the loss.
+# Read on the same card: loss 2.803e-3 relative, each text-adapter
+# gradient's cosine >= 0.99981563 and norm within 3.032e-2. Bars about 10x
+# above: loss 3e-2 relative, 1 - cosine 2e-3, norm within 0.3.
+S1_STEP_LOSS_RTOL, S1_STEP_GRAD_COS, S1_STEP_GRAD_NORM_RTOL = 3e-2, 0.998, 0.3
+# tiny-test stage-1, fp32, card vs CPU: features as TINY_*; the step as
+# TINY_STEP_*.
+
 H100_BF16_FLOPS = 989e12   # dense tensor-core peak, NVIDIA data sheet (SXM)
 H100_BYTES_PER_S = 3.35e12  # HBM3
 TRAIN_BATCH = 8
+STAGE1_BATCH = 16  # the reference's text batch (train.py:35)
+STAGE1_SURGERY_UNTIL = 20  # train.py's default: V-V from block 5 of 24
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -207,6 +240,72 @@ def lse_vs_logsumexp(qkv, H, valid, lse) -> float:
         want = torch.logsumexp(s[..., :valid], dim=-1)
         worst = max(worst, (lse[b] - want).abs().max().item())
     return worst
+
+
+# V-V kernel vs plain, bf16: each row's own key dominates its softmax (the
+# self-score |v|^2 hd^-1/2 stands far above the rest), so an output is
+# about v itself, up to ~5 in size rather than an average near 0, and one
+# flipped bf16 rounding there is an ulp of up to 2^-7 of the value: the
+# bar is per element, 2^-7 of the plain output plus 2^-10, mean as above.
+# (Read on an NVIDIA H100 80GB HBM3, 700 W: max 1.562e-2 at values in
+# [2, 4), mean 2.2e-5.)
+VV_BF16_REL, VV_BF16_ABS = 2 ** -7, 2 ** -10
+
+# V-V mode: (B, S, heads, head dim); valid_len is S
+VV_CASES = [
+    (STAGE1_BATCH, 1370, 16, 64),  # ViT-L/518 at the stage-1 bench's batch
+    (2, 1370, 16, 64),             # the features check's batch
+    (2, 77, 16, 64),               # ragged: one partial tile
+    (2, 257, 16, 64),              # ragged: 4 full tiles + 1 row
+    (3, 26, 4, 16),                # tiny-test geometry, head dim 16
+    (2, 257, 2, 16),               # head dim 16, ragged
+]
+
+
+def check_vv_kernel(dtype_name: str) -> float:
+    """The forward kernel's V-V mode vs ``attention_packed_vv_plain`` on
+    the card, and vs the standard mode on ``[v, v, v]`` (the same
+    arithmetic, bit for bit); returns the largest max |delta| at S 1370."""
+    import torch
+
+    from aaclip_tpu_torch.ops.attention import (attention_packed,
+                                                attention_packed_vv,
+                                                attention_packed_vv_plain)
+
+    dtype = torch_dtype(dtype_name)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    worst_main = 0.0
+    for B, S, H, hd in VV_CASES:
+        v = torch.randn(B, S, H * hd, generator=gen, device="cuda").to(dtype)
+        got = attention_packed_vv(v, H, S)
+        want = attention_packed_vv_plain(v, H, S)
+        torch.cuda.synchronize()
+        d = (got.float() - want.float()).abs()
+        mx, mean = d.max().item(), d.mean().item()
+        over = (d - VV_BF16_REL * want.float().abs()).max().item()
+        finite = bool(torch.isfinite(got).all())
+        del want, d
+        same = None
+        if B <= 3:
+            same = torch.equal(got, attention_packed(
+                torch.cat([v, v, v], dim=-1).contiguous(), H, S))
+        print(f"V-V kernel {dtype_name} B={B} S={S} H={H} hd={hd}: "
+              f"max|d|={mx:.3e} mean|d|={mean:.3e} finite={finite}"
+              + ("" if same is None else
+                 f"; equals the standard mode on [v, v, v]: {same}"))
+        expect(finite, "V-V kernel output not finite")
+        expect(same is not False, "V-V mode differs from the standard mode "
+               "on the tripled value section")
+        if dtype_name == "bf16":
+            expect(over <= VV_BF16_ABS and mean <= BF16_MEAN_ABS,
+                   f"bf16 V-V kernel off: max {mx} ({over} over 2^-7 of "
+                   f"the output), mean {mean}")
+        else:
+            expect(mx <= FP32_MAX_ABS, f"fp32 V-V kernel off: max {mx}")
+        if S == 1370:
+            worst_main = max(worst_main, mx)
+        del v, got
+    return worst_main
 
 
 def check_bwd_kernel(dtype_name: str) -> float:
@@ -621,6 +720,237 @@ def time_bwd(cfg, card):
     return ms_kernel, ms_plain, ms_sdpa, bound_ms, bound_by
 
 
+def stage1_batch(B, img, gen):
+    """The JAX package's stage-1 bench batch made on the card: normal
+    images, mask > 0.9, classes among VisA's 12, all valid."""
+    import torch
+
+    images = torch.randn(B, 3, img, img, generator=gen, device="cuda")
+    mask = (torch.rand(B, img, img, generator=gen, device="cuda")
+            > 0.9).float()
+    cidx = torch.randint(0, 12, (B,), generator=gen, device="cuda")
+    return images, mask, cidx, torch.ones(B, device="cuda")
+
+
+def counts():
+    """(standard forward, V-V, backward) launch counts."""
+    from aaclip_tpu_torch.ops.attention import (attention_packed,
+                                                attention_packed_bwd,
+                                                attention_packed_vv)
+
+    return (attention_packed.launches, attention_packed_vv.launches,
+            attention_packed_bwd.launches)
+
+
+def zero_counts() -> None:
+    from aaclip_tpu_torch.ops.attention import (attention_packed,
+                                                attention_packed_bwd,
+                                                attention_packed_vv)
+
+    attention_packed.launches = attention_packed_vv.launches = 0
+    attention_packed_bwd.launches = 0
+
+
+def stage1_step_once(text, cfg, acfg, adapter, tokens, feats, batch, *,
+                     policy, device="cuda"):
+    """One stage-1 step from a copy of ``adapter``; returns (loss, {name:
+    grad}, (the copy, its step))."""
+    import torch
+
+    from aaclip_tpu_torch.train.optim import make_text_optimizer
+    from aaclip_tpu_torch.train.steps import make_stage1_step
+
+    ad = copy.deepcopy(adapter)
+    step = make_stage1_step(text, cfg, acfg,
+                            make_text_optimizer(ad.parameters()), tokens,
+                            policy=policy, device=device)
+    _, mask, cidx, valid = batch
+    loss = step(ad, feats, mask, cidx, valid)
+    if loss.is_cuda:
+        torch.cuda.synchronize()
+    grads = {n: p.grad.detach().clone() for n, p in ad.named_parameters()}
+    return loss.item(), grads, (ad, step)
+
+
+def phase_stage1(vit, cfg, card):
+    """Phase 7: the stage-1 path and its timings; returns (V-V launches
+    per spatial features call, V-V kernel ms, plain ms, SDPA ms, bound ms,
+    bound_by)."""
+    import numpy as np
+    import torch
+
+    from aaclip_tpu_torch.core.config import (AdapterConfig, DtypePolicy,
+                                              get_config)
+    from aaclip_tpu_torch.core.params import (init_text_adapter,
+                                              init_text_params,
+                                              init_vision_params)
+    from aaclip_tpu_torch.ops.attention import (attention_packed_plain,
+                                                attention_packed_vv,
+                                                attention_packed_vv_plain,
+                                                make_attn_fn)
+    from aaclip_tpu_torch.text.anchors import dataset_prompt_tokens
+    from aaclip_tpu_torch.train.steps import stage1_features_fn
+
+    heads, img, n_layers = cfg.vision.heads, cfg.vision.image_size, \
+        cfg.vision.layers
+    vv_start = n_layers - (STAGE1_SURGERY_UNTIL - 1)
+    bf16 = DtypePolicy.bf16()
+    acfg = AdapterConfig()
+    text = init_text_params(cfg, seed=3)
+    adapter = init_text_adapter(cfg, acfg, seed=4)
+    tokens = dataset_prompt_tokens("VisA")                  # [12, 16, 77]
+    gen = torch.Generator(device="cuda").manual_seed(10)
+
+    # (a) spatial features, kernels vs plain, batch 2
+    feats_k_fn = stage1_features_fn(vit, cfg, policy=bf16, vv_mode="spatial")
+    feats_p_fn = stage1_features_fn(
+        vit, cfg, policy=bf16, vv_mode="spatial",
+        attn_fn=make_attn_fn(heads, bf16, attention=attention_packed_plain),
+        vv_attn_fn=make_attn_fn(heads, bf16, vv=True,
+                                attention=attention_packed_vv_plain))
+    batch2 = stage1_batch(2, img, gen)
+    zero_counts()
+    feats_k = feats_k_fn(batch2[0])
+    torch.cuda.synchronize()
+    main_std, main_vv, main_bwd = counts()
+    zero_counts()
+    feats_p = feats_p_fn(batch2[0])
+    torch.cuda.synchronize()
+    plain_counts = counts()
+    n_patches = cfg.vision.num_patches
+    expect(feats_k.shape == (2, n_patches, cfg.embed_dim)
+           and feats_k.dtype == torch.float32, f"features {feats_k.shape}")
+    expect(bool(torch.isfinite(feats_k).all()), "features not finite")
+    expect((main_std, main_vv, main_bwd)
+           == (vv_start + (n_layers - vv_start), n_layers - vv_start, 0),
+           f"spatial features launches {main_std}, {main_vv}, {main_bwd}")
+    expect(plain_counts == (0, 0, 0), f"plain features launched "
+           f"{plain_counts}")
+    dmax = (feats_k - feats_p).abs().max().item()
+    cos = torch.nn.functional.cosine_similarity(feats_k.double(),
+                                                feats_p.double(), dim=-1)
+    print(f"stage-1 spatial features bf16 B=2: launches {main_std} standard"
+          f" + {main_vv} V-V per call (plain: {plain_counts}); kernel vs "
+          f"plain max|d| {dmax:.3e}, least per-token cosine "
+          f"{cos.min().item():.8f}, mean {cos.mean().item():.8f}")
+    expect(dmax <= S1_FEAT_MAX_ABS and cos.min().item() >= S1_FEAT_COS,
+           f"spatial features off: max {dmax}, cosine {cos.min().item()}")
+
+    # (d) one step from kernel features vs one from plain features
+    loss_k, g_k, _ = stage1_step_once(text, cfg, acfg, adapter, tokens,
+                                      feats_k, batch2, policy=bf16)
+    loss_p, g_p, _ = stage1_step_once(text, cfg, acfg, adapter, tokens,
+                                      feats_p, batch2, policy=bf16)
+    print(f"stage-1 step bf16 B=2 from kernel vs plain features: loss "
+          f"{loss_k:.6f} vs {loss_p:.6f} (rel "
+          f"{abs(loss_k - loss_p) / abs(loss_p):.3e})")
+    expect(np.isfinite(loss_k), "stage-1 loss not finite")
+    expect(abs(loss_k - loss_p) <= S1_STEP_LOSS_RTOL * abs(loss_p),
+           f"stage-1 step loss off: {loss_k} vs {loss_p}")
+    for name, gk in g_k.items():
+        gp = g_p[name]
+        c = torch.nn.functional.cosine_similarity(
+            gk.flatten().double(), gp.flatten().double(), dim=0).item()
+        norm = abs(gk.norm().item() / gp.norm().item() - 1.0)
+        print(f"  gradient {name}: cosine {c:.8f}, |norm ratio - 1| "
+              f"{norm:.3e}")
+        expect(c >= S1_STEP_GRAD_COS and norm <= S1_STEP_GRAD_NORM_RTOL,
+               f"stage-1 gradient of {name} off: cosine {c}, norm {norm}")
+    del feats_k, feats_p, feats_p_fn, g_k, g_p
+
+    # (b) batch-mode features at batch 16
+    feats_b_fn = stage1_features_fn(vit, cfg, policy=bf16)
+    batch16 = stage1_batch(STAGE1_BATCH, img, gen)
+    zero_counts()
+    feats_b = feats_b_fn(batch16[0], batch16[3])
+    torch.cuda.synchronize()
+    b_counts = counts()
+    print(f"stage-1 batch-mode features bf16 B={STAGE1_BATCH}: launches "
+          f"{b_counts[0]} standard + {b_counts[1]} V-V per call; finite "
+          f"{bool(torch.isfinite(feats_b).all())}")
+    expect(b_counts == (n_layers, 0, 0), f"batch-mode launches {b_counts}")
+    expect(bool(torch.isfinite(feats_b).all()), "batch features not finite")
+    del feats_b
+
+    # (c) five iterations at batch 16 from spatial features
+    torch.cuda.reset_peak_memory_stats()
+    loss0, _, (ad, step) = stage1_step_once(
+        text, cfg, acfg, adapter, tokens, feats_k_fn(batch16[0]), batch16,
+        policy=bf16)
+    losses = [loss0] + [step(ad, feats_k_fn(batch16[0]), *batch16[1:]).item()
+                        for _ in range(4)]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"stage-1 bf16 B={STAGE1_BATCH} spatial: losses over 5 iterations "
+          + ", ".join(f"{l:.6f}" for l in losses)
+          + f"; peak device memory {peak:.2f} GiB")
+    expect(all(np.isfinite(losses)), "a stage-1 loss is not finite")
+
+    # (e) tiny-test fp32, card vs CPU
+    tiny = get_config("tiny-test")
+    tacfg = AdapterConfig(levels=(1, 2), image_adapt_until=1,
+                          text_adapt_until=1)
+    fp32 = DtypePolicy.fp32()
+    runs = []
+    for dev in ("cuda", "cpu"):
+        tvit = init_vision_params(tiny, seed=0, device="cpu").to(dev)
+        ttext = init_text_params(tiny, seed=0, device="cpu").to(dev)
+        tad = init_text_adapter(tiny, tacfg, seed=1, device="cpu").to(dev)
+        rng = np.random.default_rng(11)
+        x = torch.from_numpy(rng.standard_normal((4, 3, 70, 70))
+                             .astype(np.float32)).to(dev)
+        tb = (x, torch.from_numpy((rng.random((4, 70, 70)) > 0.8)
+                                  .astype(np.float32)).to(dev),
+              torch.tensor([0, 1, 1, 0], device=dev),
+              torch.tensor([1.0, 1.0, 1.0, 0.0], device=dev))
+        f = stage1_features_fn(tvit, tiny, surgery_until_layer=2,
+                               policy=fp32, vv_mode="spatial",
+                               device=dev)(x)
+        loss, grads, _ = stage1_step_once(
+            ttext, tiny, tacfg, tad, dataset_prompt_tokens(
+                "MVTec", ["bottle", "cable"]), f, tb, policy=fp32,
+            device=dev)
+        runs.append((f.cpu(), loss, {n: g.cpu() for n, g in grads.items()}))
+    (f_c, loss_c, g_c), (f_h, loss_h, g_h) = runs
+    torch.testing.assert_close(f_c, f_h, atol=TINY_ATOL, rtol=TINY_RTOL)
+    expect(abs(loss_c - loss_h) <= TINY_STEP_LOSS_RTOL * abs(loss_h),
+           f"tiny stage-1 loss card {loss_c} vs CPU {loss_h}")
+    for name, gc in g_c.items():
+        err = (gc - g_h[name]).abs().max().item()
+        expect(err <= TINY_STEP_GRAD_REL * g_h[name].abs().max().item(),
+               f"tiny stage-1 gradient {name} off by {err}")
+    print(f"stage-1 tiny-test fp32: card (kernels, hd 16) matches the CPU "
+          f"(features, loss {loss_c:.6f} vs {loss_h:.6f}, gradients)")
+
+    # timings: the V-V kernel at the bench's shape
+    B, S, hd = STAGE1_BATCH, cfg.vision.seq_len, cfg.vision.head_dim
+    v = torch.randn(B, S, heads * hd, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    ms_kernel = cuda_ms(lambda: attention_packed_vv(v, heads, S), 20)
+    ms_plain = cuda_ms(lambda: attention_packed_vv_plain(v, heads, S), 3)
+    q = v.view(B, S, heads, hd).transpose(1, 2)
+    ms_sdpa = cuda_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(q, q, q), 20)
+    flops = 4 * B * heads * S * S * hd
+    bound_ms, bound_by = bound(flops, 2 * v.numel() * v.element_size())
+    for name, ms in (("kernel", ms_kernel), ("plain", ms_plain),
+                     ("sdpa", ms_sdpa)):
+        print(f"time V-V attention {name} [{B},{S},{heads * hd}] bf16: "
+              f"{ms:.4f} ms/launch ({flops / ms / 1e9:.1f} TFLOP/s; bound "
+              f"{bound_ms:.4f} ms by {bound_by}) on {card}")
+    del v, q
+
+    # timings: whole stage-1 iterations at batch 16
+    for mode, fn in (("spatial", feats_k_fn), ("batch", feats_b_fn)):
+        def iteration():
+            return step(ad, fn(batch16[0], batch16[3]), *batch16[1:])
+
+        ms = cuda_ms(iteration, 3, warmup=1)
+        print(f"time stage-1 iteration bf16 B={STAGE1_BATCH} ViT-L/518 "
+              f"(features + step, vv {mode}): {ms:.2f} ms, "
+              f"{STAGE1_BATCH / ms * 1e3:.2f} images/s on {card}")
+    return main_vv, ms_kernel, ms_plain, ms_sdpa, bound_ms, bound_by
+
+
 def main() -> int:
     import torch
 
@@ -656,6 +986,7 @@ def main() -> int:
     err_fwd = max(check_kernel(d) for d in DTYPES)
     err_bwd = max(check_bwd_kernel(d) for d in DTYPES)
     check_matmul_f32_grad()
+    err_vv = max(check_vv_kernel(d) for d in DTYPES)
 
     cfg = get_config("ViT-L-14-336", img_size=518)
     acfg = AdapterConfig()
@@ -680,6 +1011,11 @@ def main() -> int:
     print(f"[{time.perf_counter() - t0:.0f} s] backward timings")
     ms_bwd, ms_bwd_plain, ms_sdpa_bwd, bwd_bound, bwd_bound_by = time_bwd(
         cfg, card)
+
+    # -- 7. stage-1 path
+    print(f"[{time.perf_counter() - t0:.0f} s] stage-1 path")
+    vv_launches, ms_vv, ms_vv_plain, ms_vv_sdpa, vv_bound, vv_bound_by = \
+        phase_stage1(vit, cfg, card)
 
     print(f"[{time.perf_counter() - t0:.0f} s] done")
     print(json.dumps({"kernels": [{
@@ -708,6 +1044,19 @@ def main() -> int:
         "bound_ms": bwd_bound,
         "bound_by": bwd_bound_by,
         "library_ms": ms_sdpa_bwd,
+    }, {
+        "name": "attention_packed_vv",
+        "route": "cuda",
+        "source": "aaclip_tpu_torch/kernels/csrc/attention_packed.cu",
+        "replaces": "aaclip_tpu/ops/flash_attention.py:190",
+        "launches": vv_launches,
+        "kernels_per_call": 1,
+        "max_abs_err": err_vv,
+        "ms": ms_vv,
+        "plain_ms": ms_vv_plain,
+        "bound_ms": vv_bound,
+        "bound_by": vv_bound_by,
+        "library_ms": ms_vv_sdpa,
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

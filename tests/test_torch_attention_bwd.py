@@ -38,6 +38,7 @@ from aaclip_tpu_torch.ops.attention import (attention_packed,
                                             attention_packed_bwd_plain,
                                             attention_packed_diff,
                                             attention_packed_diff_plain,
+                                            attention_packed_vv,
                                             make_attn_fn)
 from tests.test_torch_attention import DTYPES, packed_qkv
 from tests.test_torch_layers import perturbed_clip_tree
@@ -135,8 +136,10 @@ def test_differentiable_attn_fn_matches_jax(policy):
 def test_vv_has_no_differentiable_variant():
     with pytest.raises(ValueError, match="no differentiable variant"):
         make_attn_fn(4, vv=True, differentiable=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        make_attn_fn(4, vv=True)
+    # the forward-only V-V hook exists: it routes to the V-V kernel wrapper
+    fn = make_attn_fn(4, vv=True)
+    cells = dict(zip(fn.__code__.co_freevars, fn.__closure__))
+    assert cells["attention"].cell_contents is attention_packed_vv
 
 
 def test_hook_picks_the_differentiable_wrapper():

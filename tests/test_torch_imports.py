@@ -1,8 +1,9 @@
-"""The port imports neither JAX nor the JAX package: its predict and its
-stage-2 training step (the path of ``bench --mode train``) run in a fresh
-interpreter without either entering ``sys.modules``, and no source file of
-the port (or chip_smoke.py, which runs where JAX is absent) names them in
-an import."""
+"""The port imports neither JAX nor the JAX package: its predict, its
+stage-2 training step (the path of ``bench --mode train``) and its stage-1
+features and step (``bench --mode train_stage1``, tokenizer and prompts
+included) run in a fresh interpreter without either entering
+``sys.modules``, and no source file of the port (or chip_smoke.py, which
+runs where JAX is absent) names them in an import."""
 
 import json
 import os
@@ -40,11 +41,29 @@ step = make_stage2_step(vit, cfg, acfg, make_image_optimizer(ad.parameters()),
                         remat=False, device="cpu")
 loss = step(ad, x.float(), torch.zeros(2, 70, 70), torch.tensor([0, 1]),
             torch.tensor([0, 1]), torch.ones(2))
+from aaclip_tpu_torch.core.params import init_text_adapter, init_text_params
+from aaclip_tpu_torch.text.anchors import dataset_prompt_tokens
+from aaclip_tpu_torch.train.optim import make_text_optimizer
+from aaclip_tpu_torch.train.steps import make_stage1_step, stage1_features_fn
+tacfg = AdapterConfig(levels=(1, 2), image_adapt_until=1, text_adapt_until=1)
+text = init_text_params(cfg, device="cpu")
+tad = init_text_adapter(cfg, tacfg, device="cpu")
+feats = stage1_features_fn(vit, cfg, surgery_until_layer=2, vv_mode="spatial",
+                           policy=DtypePolicy.bf16(), device="cpu")(
+    x.float())
+s1 = make_stage1_step(text, cfg, tacfg, make_text_optimizer(tad.parameters()),
+                      dataset_prompt_tokens("MVTec", ["bottle", "cable"]),
+                      policy=DtypePolicy.bf16(), device="cpu")
+loss1 = s1(tad, feats, torch.zeros(2, 70, 70), torch.tensor([0, 1]),
+           torch.ones(2))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "aaclip_tpu"))
 print(json.dumps({"bad": bad, "shape": list(pix.shape),
+                  "feats": list(feats.shape),
                   "finite": bool(torch.isfinite(pix).all()
-                                 and torch.isfinite(loss))}))
+                                 and torch.isfinite(loss)
+                                 and torch.isfinite(feats).all()
+                                 and torch.isfinite(loss1))}))
 """
 
 
@@ -55,7 +74,8 @@ def test_predict_runs_without_jax_in_a_fresh_interpreter():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     result = json.loads(out.stdout.strip().splitlines()[-1])
-    assert result == {"bad": [], "shape": [2, 70, 70], "finite": True}
+    assert result == {"bad": [], "shape": [2, 70, 70], "feats": [2, 25, 32],
+                      "finite": True}
 
 
 def test_sources_do_not_import_jax_or_the_jax_package():
@@ -64,6 +84,8 @@ def test_sources_do_not_import_jax_or_the_jax_package():
     assert len(files) > 10
     assert {"steps.py", "optim.py"} <= {f.name for f in files
                                         if f.parent.name == "train"}
+    assert {"text_model.py", "anchors.py", "bpe.py", "registry.py"} <= {
+        f.name for f in files}
     offenders = {str(f.relative_to(REPO)): FORBIDDEN.findall(f.read_text())
                  for f in files}
     assert not {f: m for f, m in offenders.items() if m}

@@ -38,10 +38,27 @@ def perturbed_clip_tree(cfg, seed: int = 0):
     parameter is the trivial 0 or 1."""
     if isinstance(cfg, str):
         cfg = jget_config(cfg)
-    # the text tower is not ported: keep it tiny
+    # only the vision tower is returned: keep the text tower tiny
     cfg = dataclasses.replace(cfg, text=jget_config("tiny-test").text)
     tree = create_clip_params(cfg, seed=seed)["visual"]
     rng = np.random.default_rng(seed + 100)
+
+    def shift(x):
+        x = np.asarray(x, np.float32)
+        std = 0.2 * float(x.std()) or 0.05
+        return x + rng.normal(0, std, x.shape).astype(np.float32)
+
+    return jax.tree.map(shift, tree)
+
+
+def perturbed_text_tree(cfg, seed: int = 0):
+    """The JAX init tree of the text tower of ``cfg`` (a JAX CLIPConfig or
+    its name), every leaf shifted as ``perturbed_clip_tree`` shifts the
+    vision tower's."""
+    if isinstance(cfg, str):
+        cfg = jget_config(cfg)
+    tree = create_clip_params(cfg, seed=seed)["text"]
+    rng = np.random.default_rng(seed + 200)
 
     def shift(x):
         x = np.asarray(x, np.float32)

@@ -13,10 +13,17 @@ Bars:
   is below 1e-6 of its leaf's max (Adam turns a gradient's sign into a
   +-lr step, so summation-order noise flips those; their count is
   asserted). remat on and off agree to 1e-6.
-* stage-2 step, tiny-test bf16: loss within 1e-3 relative, each adapter
-  gradient with cosine > 0.999 against JAX's (the kernel-path roundings
-  in the same places, summed in another order; the readings are 2.4e-4
-  and 0.99955 at the least).
+* stage-2 step, tiny-test bf16: loss within 5e-4 relative, each adapter
+  gradient with cosine > 0.9999 against JAX's (the kernel-path roundings
+  in the same places, summed in another order; the readings are 5.8e-5
+  and 1 - cos 8.9e-6 at the most).
+* stage-2 step, bf16, with block biases and LayerNorm affines that bf16
+  cannot hold: JAX keeps them fp32, and so must the port. Loss within 1e-4
+  relative and each adapter gradient within 1 - cos <= 1e-5 of JAX's
+  (readings 1.5e-5 and 2.7e-6); rounding those leaves to bf16, as the
+  predictor's cast does, reads 9.7e-4 and up to 7.4e-4.
+* Every JAX step runs with XLA's excess precision off (``strict``), so
+  both sides round bf16 at the places the program states.
 """
 
 import copy
@@ -296,6 +303,16 @@ def port_step(case, policy, *, remat=False, grad_accum=1, lr=1e-3,
     return ad, lambda: step(ad, *batch)
 
 
+def strict(jitted, *args):
+    """Call a jitted JAX function compiled with XLA's excess precision
+    off. By default XLA may keep a bf16 intermediate in fp32 inside a
+    fusion, so it rounds at fewer places than the program states; the port
+    rounds at every stated place, and so does XLA with the option off."""
+    compiled = jitted.lower(*args).compile(
+        compiler_options={"xla_allow_excess_precision": False})
+    return compiled(*args)
+
+
 def jax_step(case, policy, tx, *, grad_accum=1, attn_fn=None):
     step = j_make_stage2_step({"visual": case.visual}, jget_config("tiny-test"),
                               case.jacfg, tx, case.table, policy=policy,
@@ -306,7 +323,7 @@ def jax_step(case, policy, tx, *, grad_accum=1, attn_fn=None):
 
     def run():
         nonlocal state
-        state, loss = step(state, *batch)
+        state, loss = strict(step.raw, state, step.visual, *batch)
         return float(loss), state
 
     return run
@@ -418,13 +435,53 @@ def test_stage2_bf16_step_matches_jax():
     want_loss, state = run()
     ad, step = port_step(case, tpol)
     got_loss = float(step())
-    np.testing.assert_allclose(got_loss, want_loss, rtol=1e-3)
+    np.testing.assert_allclose(got_loss, want_loss, rtol=5e-4)
     got = jax.tree.leaves(grads_as_jax(ad))
     for g, w in zip(got, jax.tree.leaves(state.opt_state)):
         w = np.asarray(w, np.float64).ravel()
         g = g.astype(np.float64).ravel()
         cos = g @ w / np.linalg.norm(g) / np.linalg.norm(w)
-        assert cos > 0.999, cos
+        assert cos > 0.9999, cos
+
+
+def off_grid(x, rng):
+    """``x`` moved just below half a bf16 ulp off the bf16 grid, away from
+    zero or towards it at random: values bf16 rounds by almost the most
+    it can."""
+    x = np.asarray(x, np.float32)
+    b = np.asarray(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+    sign = np.where(rng.random(x.shape) < 0.5, -1.0, 1.0)
+    return (b + 0.45 * 2.0 ** -8 * np.abs(b) * sign).astype(np.float32)
+
+
+def test_stage2_bf16_step_keeps_biases_and_layernorms_fp32():
+    """JAX's stage-2 step keeps the frozen tower fp32 as stored and casts
+    only each matmul operand (``train/steps.py:348``, ``layers.linear``).
+    A tower whose block biases and LayerNorm affines are of the stream's
+    size and off the bf16 grid shows whether the port rounds them."""
+    case = step_case(seed=2)
+    rng = np.random.default_rng(13)
+    blocks = case.visual["blocks"]
+    for grp, key, mean, std in (
+            ("ln_1", "scale", 1.0, 0.3), ("ln_2", "scale", 1.0, 0.3),
+            ("ln_1", "bias", 0.0, 2.0), ("ln_2", "bias", 0.0, 2.0),
+            ("attn", "b_qkv", 0.0, 2.0), ("attn", "b_out", 0.0, 4.0),
+            ("mlp", "b_fc", 0.0, 2.0), ("mlp", "b_proj", 0.0, 4.0)):
+        shape = np.asarray(blocks[grp][key]).shape
+        blocks[grp][key] = off_grid(rng.normal(mean, std, shape), rng)
+    jpol, tpol = POLICIES["bf16"]
+    run = jax_step(case, jpol, grad_capture(),
+                   attn_fn=j_make_attn_fn(4, jpol, differentiable=True,
+                                          interpret=True))
+    want_loss, state = run()
+    ad, step = port_step(case, tpol)
+    np.testing.assert_allclose(float(step()), want_loss, rtol=1e-4)
+    got = jax.tree.leaves(grads_as_jax(ad))
+    for g, w in zip(got, jax.tree.leaves(state.opt_state)):
+        w = np.asarray(w, np.float64).ravel()
+        g = g.astype(np.float64).ravel()
+        cos = g @ w / np.linalg.norm(g) / np.linalg.norm(w)
+        assert 1.0 - cos <= 1e-5, cos
 
 
 def test_stage2_step_rejects_what_is_not_ported():
