@@ -2,16 +2,19 @@
 anomaly maps per second of the inference path (adapted ViT-L/14-336
 forward at 518 px + fused anomaly map), or images per second of the
 stage-2 training step, or of the stage-1 iteration (surgery features +
-text-adapter update).
+text-adapter update), or the time of a trunk of identical blocks, unfused
+against the fused block.
 
     python -m aaclip_tpu_torch.bench [--batch_size 32] [--precision bf16]
     python -m aaclip_tpu_torch.bench --mode train [--batch_size 8] \
         [--remat full|off]
     python -m aaclip_tpu_torch.bench --mode train_stage1 [--batch_size 16] \
         [--vv_mode batch|spatial] [--feature_chunk N] [--remat full|off]
+    python -m aaclip_tpu_torch.bench --mode block [--batch_size 32]
 
 Prints ONE JSON line in the format of the repo's ``bench.py``:
   {"metric": ..., "value": N, "unit": ..., "vs_baseline": N}
+(``--mode block`` adds ``unfused_ms`` and ``max_rel_dev``.)
 The unit names the card and its power limit. Timed with CUDA events
 around ``--steps`` calls after ``--warmup`` calls. Needs a card: without
 one it raises and prints nothing.
@@ -39,6 +42,9 @@ _PROFILE_CLASSES = (
     ("attention forward kernel (standard and V-V)",
      ("attn_bf16_kernel", "attn_f32_kernel")),
     ("attention backward kernel", ("attn_bwd_",)),
+    ("fused-block kernels (ln_linear, linear_residual, mlp_fused)",
+     ("gemm_bf16_kernel", "gemm_f32_kernel", "mlp_bf16_kernel",
+      "mlp_f32_kernel")),
     ("GEMM (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass")),
 )
 
@@ -177,6 +183,62 @@ def bench_train_stage1(args, cfg, acfg, policy, vit, dev):
     }))
 
 
+def bench_block(args, cfg, policy, vit, dev):
+    """Milliseconds per trunk of ``cfg.vision.layers`` identical blocks
+    (block 0 of the seeded tower, cast as the predictor casts it) on a
+    random [batch, seq_len, width] stream: the fused block
+    (``ops.fused_block.make_block_fn``) against the unfused block
+    (``residual_block`` with the packed-attention hook), and the largest
+    deviation of the fused trunk's output relative to the unfused one's
+    largest value. The port's counterpart of ``tools/microbench_block.py``.
+    """
+    import torch
+
+    from aaclip_tpu_torch.core.params import cast_matmul_weights
+    from aaclip_tpu_torch.models import layers as L
+    from aaclip_tpu_torch.ops.fused_block import make_block_fn
+
+    v = cfg.vision
+    blk = cast_matmul_weights(vit, policy).blocks[0]
+    act = L.config_act(cfg, policy)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(args.batch_size, v.seq_len, v.width, generator=gen,
+                    device=dev).to(policy.compute_dtype)
+    blocks = {
+        "fused": make_block_fn(v.heads, policy, act=act),
+        "unfused": lambda h, b: L.residual_block(h, b, v.heads, act=act,
+                                                 policy=policy),
+    }
+
+    def trunk(block):
+        def run():
+            h = x
+            for _ in range(v.layers):
+                h = block(h, blk)
+            return h
+        return run
+
+    with torch.inference_mode():
+        ms = {name: 1e3 / timed(trunk(block), args)
+              for name, block in blocks.items()}
+        out = {name: trunk(block)().float() for name, block in blocks.items()}
+        if args.profile:
+            profile_calls(trunk(blocks["fused"]), 2)
+    rel = ((out["fused"] - out["unfused"]).abs().max()
+           / out["unfused"].abs().max()).item()
+    print(json.dumps({
+        "metric": "fused_block_trunk_ms",
+        "value": round(ms["fused"], 3),
+        "unit": f"ms per {v.layers}-block trunk ({args.model_name} block @ "
+                f"{args.img_size}px, seq {v.seq_len}, {args.precision}, "
+                f"batch {args.batch_size}, {card_line()}); vs_baseline = "
+                f"unfused ms / fused ms",
+        "vs_baseline": round(ms["unfused"] / ms["fused"], 3),
+        "unfused_ms": round(ms["unfused"], 3),
+        "max_rel_dev": rel,
+    }))
+
+
 def timed(call, args) -> float:
     """Calls per second of ``call`` over ``args.steps`` calls after
     ``args.warmup``, between CUDA events."""
@@ -199,15 +261,16 @@ def main(argv=None) -> None:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--mode", default="infer",
-                        choices=("infer", "train", "train_stage1"),
+                        choices=("infer", "train", "train_stage1", "block"),
                         help="infer = anomaly maps/s (default); train = "
                              "stage-2 update steps, as images/s; "
                              "train_stage1 = stage-1 iterations (features "
-                             "+ text update), as images/s")
+                             "+ text update), as images/s; block = ms per "
+                             "trunk of identical blocks, fused vs unfused")
     parser.add_argument("--model_name", default="ViT-L-14-336")
     parser.add_argument("--img_size", type=int, default=518)
     parser.add_argument("--batch_size", type=int, default=None,
-                        help="default 32 (infer), 8 (train) or 16 "
+                        help="default 32 (infer, block), 8 (train) or 16 "
                              "(train_stage1, the reference's text batch)")
     parser.add_argument("--precision", default="bf16",
                         choices=PRECISION_CHOICES,
@@ -235,7 +298,7 @@ def main(argv=None) -> None:
         parser.error("--vv_mode and --feature_chunk apply to --mode "
                      "train_stage1 only")
     if args.batch_size is None:
-        args.batch_size = {"infer": 32, "train": 8,
+        args.batch_size = {"infer": 32, "block": 32, "train": 8,
                            "train_stage1": 16}[args.mode]
 
     import torch
@@ -256,6 +319,8 @@ def main(argv=None) -> None:
     vit = init_vision_params(cfg, seed=0, device=dev)
     if args.mode == "train_stage1":
         return bench_train_stage1(args, cfg, acfg, policy, vit, dev)
+    if args.mode == "block":
+        return bench_block(args, cfg, policy, vit, dev)
     adapter = init_image_adapter(cfg, acfg, seed=1, device=dev)
     if args.mode == "train":
         return bench_train(args, cfg, acfg, policy, vit, adapter, dev)

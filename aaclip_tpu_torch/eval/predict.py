@@ -37,6 +37,10 @@ def make_predict_fn(vit: VisionTransformer, cfg: CLIPConfig,
     ``uint8_inputs=True`` takes raw uint8 pixels, with the CLIP
     normalisation folded into the patch-embedding weights. ``attn_fn``
     defaults to the packed-attention kernel (``ops.attention.make_attn_fn``).
+    ``block_fn`` replaces every whole block (``ops.fused_block.
+    make_block_fn``, the fused-block kernels; ``maybe_make_block_fn`` gives
+    it on the card, None off it); it receives the block's weights as cast
+    for the predictor.
     ``img_size`` mirrors the JAX signature: the size comes from ``cfg``
     (``get_config(name, img_size)``) and any other value raises.
 
@@ -44,10 +48,6 @@ def make_predict_fn(vit: VisionTransformer, cfg: CLIPConfig,
     must already live on that device. On the card TF32 is switched off for
     matmuls and cuDNN, so fp32 products are true fp32.
     """
-    if block_fn is not None:
-        raise NotImplementedError(
-            "block_fn (the fused-block kernels) is not ported yet: ROADMAP "
-            "A11, 'the remaining kernels B4-B7'")
     if mesh is not None or sequence_parallel:
         raise NotImplementedError(
             "meshes, tensor and sequence parallelism are not ported yet: "
@@ -86,7 +86,7 @@ def make_predict_fn(vit: VisionTransformer, cfg: CLIPConfig,
             visual, image_adapter, cfg, images,
             image_adapt_weight=acfg.image_adapt_weight, levels=acfg.levels,
             proj_relu=acfg.proj_relu, policy=policy, act=act,
-            attn_fn=attn_fn, patch_embed_fn=patch_embed)
+            attn_fn=attn_fn, block_fn=block_fn, patch_embed_fn=patch_embed)
         scores = level_scores(torch.stack(seg), anchors)     # [n, B, L, 2]
         _, B, L, _ = scores.shape
         grid = int(round(L ** 0.5))

@@ -3,7 +3,11 @@
 Each library is compiled from ``csrc/<name>.cu`` (and the shared
 ``csrc/*.cuh`` headers) on first use into ``_build/``, keyed by a hash of
 the sources and flags, so an edited source rebuilds and an unchanged one
-loads at once. ``build_all`` starts one nvcc per source, all together. A
+loads at once; a new or edited header rebuilds every library. The sources:
+``attention_packed.cu`` (the forward attention in its standard, V-V and
+``[B, H, S, hd]`` launches), ``attention_packed_bwd.cu`` (its backward)
+and ``fused_block.cu`` (``ln_linear``, ``linear_residual`` and
+``mlp_fused``). ``build_all`` starts one nvcc per source, all together. A
 missing ``nvcc`` or a failed compile raises: there is no fallback path.
 """
 
@@ -21,7 +25,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-KERNELS = ("attention_packed", "attention_packed_bwd")  # csrc/<name>.cu
+KERNELS = ("attention_packed", "attention_packed_bwd",
+           "fused_block")  # csrc/<name>.cu
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

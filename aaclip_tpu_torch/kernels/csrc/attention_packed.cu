@@ -38,6 +38,13 @@
 // query row.
 // Both are templated on the head dim (64 for ViT-L/B, 16 for tiny-test).
 //
+// B4 (flash_attention.py::attention_kernel, _attn_kernel) is the same
+// function on separate q, k, v in the [B, H, S, hd] layout: the kernels
+// address every operand through batch, head and row strides (`Layout`), so
+// aaclip_attention_bhsd launches them with its own base pointers and the
+// strides of that layout (H*S*hd, S*hd, hd). Rows from valid_len up to S are
+// real queries there and are computed; only keys are masked.
+//
 // Training (attention_packed_bwd.cu) needs each row's logsumexp: with a
 // non-null `lse` [B, H, S] fp32 the kernel also writes m + log(l), the
 // final running max plus the log of the row sum (both in the scaled-score
@@ -55,13 +62,19 @@ constexpr int kBlockM = 64;  // query rows per block
 constexpr int kBlockN = 64;  // keys per shared-memory tile (bf16)
 constexpr int kBlockNF = 32; // keys per shared-memory tile (fp32)
 
+// Element strides of an operand: (image, head, row) -> b*batch + h*head +
+// row*row from its base pointer.
+struct Layout {
+  int64_t batch, head, row;
+};
+
 template <int HD>
 __global__ void __launch_bounds__(128)
-attn_bf16_kernel(const __nv_bfloat16* __restrict__ qkv,
+attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                 const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v,
                  __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-                 int S, int valid_len,
-                 int64_t ld, int q_off, int k_off, int v_off, int64_t out_ld,
-                 float scale) {
+                 int S, int valid_len, Layout in, Layout ol, float scale) {
   static_assert(HD % 16 == 0, "head dim must be a multiple of 16");
   constexpr int SLD = HD + 8;       // padded row: conflict-free fragments
   constexpr int KS = HD / 16;       // k-steps of Q.K^T over the head dim
@@ -73,15 +86,13 @@ attn_bf16_kernel(const __nv_bfloat16* __restrict__ qkv,
   __shared__ __align__(16) __nv_bfloat16 sV[kBlockN * SLD];
 
   const int q0 = blockIdx.x * kBlockM;
-  const int hoff = blockIdx.y * HD;
-  const __nv_bfloat16* base = qkv + (int64_t)blockIdx.z * S * ld;
+  const int64_t in_off = blockIdx.z * in.batch + blockIdx.y * in.head;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;  // fragment row group
   const int t = lane & 3;   // thread in group
 
-  load_tile<__nv_bfloat16, HD, SLD, kBlockM>(sQ, base + q_off + hoff, ld, q0,
-                                             S);
+  load_tile<__nv_bfloat16, HD, SLD, kBlockM>(sQ, q + in_off, in.row, q0, S);
   __syncthreads();
   uint32_t qf[KS][4];
   const int r0 = warp * 16 + g;
@@ -98,10 +109,10 @@ attn_bf16_kernel(const __nv_bfloat16* __restrict__ qkv,
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * kBlockN;
     __syncthreads();  // the previous tile is fully consumed
-    load_tile<__nv_bfloat16, HD, SLD, kBlockN>(sK, base + k_off + hoff, ld,
-                                               k0, S);
-    load_tile<__nv_bfloat16, HD, SLD, kBlockN>(sV, base + v_off + hoff, ld,
-                                               k0, S);
+    load_tile<__nv_bfloat16, HD, SLD, kBlockN>(sK, k + in_off, in.row, k0,
+                                               S);
+    load_tile<__nv_bfloat16, HD, SLD, kBlockN>(sV, v + in_off, in.row, k0,
+                                               S);
     __syncthreads();
 
     float s[NT][4];
@@ -121,9 +132,9 @@ attn_bf16_kernel(const __nv_bfloat16* __restrict__ qkv,
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int col = k0 + nt * 8 + t * 2 + (i & 1);
-        const float v = col < valid_len ? s[nt][i] * scale : -INFINITY;
-        s[nt][i] = v;
-        mx[i >> 1] = fmaxf(mx[i >> 1], v);
+        const float sv = col < valid_len ? s[nt][i] * scale : -INFINITY;
+        s[nt][i] = sv;
+        mx[i >> 1] = fmaxf(mx[i >> 1], sv);
       }
     }
     float mref[2], alpha[2];
@@ -176,14 +187,15 @@ attn_bf16_kernel(const __nv_bfloat16* __restrict__ qkv,
   }
   const int row_a = q0 + r0;
   const int row_b = row_a + 8;
-  __nv_bfloat16* ob = out + (int64_t)blockIdx.z * S * out_ld + hoff + t * 2;
+  __nv_bfloat16* ob =
+      out + blockIdx.z * ol.batch + blockIdx.y * ol.head + t * 2;
 #pragma unroll
   for (int nd = 0; nd < ND; ++nd) {
     if (row_a < S)
-      *reinterpret_cast<uint32_t*>(ob + (int64_t)row_a * out_ld + nd * 8) =
+      *reinterpret_cast<uint32_t*>(ob + row_a * ol.row + nd * 8) =
           pack_f32(o[nd][0] / l[0], o[nd][1] / l[0]);
     if (row_b < S)
-      *reinterpret_cast<uint32_t*>(ob + (int64_t)row_b * out_ld + nd * 8) =
+      *reinterpret_cast<uint32_t*>(ob + row_b * ol.row + nd * 8) =
           pack_f32(o[nd][2] / l[1], o[nd][3] / l[1]);
   }
   if (lse != nullptr && t == 0) {
@@ -195,22 +207,21 @@ attn_bf16_kernel(const __nv_bfloat16* __restrict__ qkv,
 
 template <int HD>
 __global__ void __launch_bounds__(kBlockM)
-attn_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out,
-                float* __restrict__ lse, int S, int valid_len, int64_t ld,
-                int q_off, int k_off, int v_off, int64_t out_ld,
-                float scale) {
+attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, float* __restrict__ out,
+                float* __restrict__ lse, int S, int valid_len, Layout in,
+                Layout ol, float scale) {
   static_assert(HD % 4 == 0, "head dim must be a multiple of 4");
   __shared__ __align__(16) float sK[kBlockNF * HD];
   __shared__ __align__(16) float sV[kBlockNF * HD];
 
   const int row = blockIdx.x * kBlockM + threadIdx.x;
-  const int hoff = blockIdx.y * HD;
-  const float* base = qkv + (int64_t)blockIdx.z * S * ld;
+  const int64_t in_off = blockIdx.z * in.batch + blockIdx.y * in.head;
 
-  float q[HD];
+  float qr[HD];
 #pragma unroll
   for (int d = 0; d < HD; ++d)
-    q[d] = row < S ? base[(int64_t)row * ld + q_off + hoff + d] : 0.f;
+    qr[d] = row < S ? q[in_off + row * in.row + d] : 0.f;
   float o[HD];
 #pragma unroll
   for (int d = 0; d < HD; ++d) o[d] = 0.f;
@@ -218,8 +229,8 @@ attn_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out,
 
   for (int k0 = 0; k0 < valid_len; k0 += kBlockNF) {
     __syncthreads();
-    load_tile<float, HD, HD, kBlockNF>(sK, base + k_off + hoff, ld, k0, S);
-    load_tile<float, HD, HD, kBlockNF>(sV, base + v_off + hoff, ld, k0, S);
+    load_tile<float, HD, HD, kBlockNF>(sK, k + in_off, in.row, k0, S);
+    load_tile<float, HD, HD, kBlockNF>(sV, v + in_off, in.row, k0, S);
     __syncthreads();
     float s[kBlockNF];
     float mx = m;
@@ -227,7 +238,7 @@ attn_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out,
     for (int j = 0; j < kBlockNF; ++j) {
       float acc = 0.f;
 #pragma unroll
-      for (int d = 0; d < HD; ++d) acc = fmaf(q[d], sK[j * HD + d], acc);
+      for (int d = 0; d < HD; ++d) acc = fmaf(qr[d], sK[j * HD + d], acc);
       s[j] = k0 + j < valid_len ? acc * scale : -INFINITY;
       mx = fmaxf(mx, s[j]);
     }
@@ -246,8 +257,8 @@ attn_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out,
     }
   }
   if (row < S) {
-    float* orow = out + (int64_t)blockIdx.z * S * out_ld +
-                  (int64_t)row * out_ld + hoff;
+    float* orow = out + blockIdx.z * ol.batch + blockIdx.y * ol.head +
+                  row * ol.row;
 #pragma unroll
     for (int d = 0; d < HD; ++d) orow[d] = o[d] / l;
     if (lse != nullptr)
@@ -257,18 +268,41 @@ attn_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out,
 }
 
 template <int HD>
-void launch(bool bf16, dim3 grid, cudaStream_t stream, const void* qkv,
-            void* out, float* lse, int S, int valid_len, int64_t ld,
-            int q_off, int k_off, int v_off, int64_t out_ld, float scale) {
+void launch(bool bf16, dim3 grid, cudaStream_t stream, const void* q,
+            const void* k, const void* v, void* out, float* lse, int S,
+            int valid_len, Layout in, Layout ol, float scale) {
   if (bf16)
     attn_bf16_kernel<HD><<<grid, 128, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(qkv),
-        static_cast<__nv_bfloat16*>(out), lse, S, valid_len, ld, q_off, k_off,
-        v_off, out_ld, scale);
+        static_cast<const __nv_bfloat16*>(q),
+        static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v),
+        static_cast<__nv_bfloat16*>(out), lse, S, valid_len, in, ol, scale);
   else
     attn_f32_kernel<HD><<<grid, kBlockM, 0, stream>>>(
-        static_cast<const float*>(qkv), static_cast<float*>(out), lse, S,
-        valid_len, ld, q_off, k_off, v_off, out_ld, scale);
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(out), lse, S,
+        valid_len, in, ol, scale);
+}
+
+int launch_any(bool bf16, int head_dim, int batch, int seq, int valid_len,
+               int heads, const void* q, const void* k, const void* v,
+               void* out, float* lse, Layout in, Layout ol, float scale,
+               void* stream) {
+  const dim3 grid((seq + kBlockM - 1) / kBlockM, heads, batch);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 16:
+      launch<16>(bf16, grid, st, q, k, v, out, lse, seq, valid_len, in, ol,
+                 scale);
+      break;
+    case 64:
+      launch<64>(bf16, grid, st, q, k, v, out, lse, seq, valid_len, in, ol,
+                 scale);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -285,19 +319,25 @@ extern "C" int aaclip_attention_packed(const void* qkv, void* out,
                                        long long ld, int q_off, int k_off,
                                        int v_off, long long out_ld,
                                        float scale, void* stream) {
-  const dim3 grid((seq + kBlockM - 1) / kBlockM, heads, batch);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 16:
-      launch<16>(bf16 != 0, grid, st, qkv, out, lse, seq, valid_len, ld,
-                 q_off, k_off, v_off, out_ld, scale);
-      break;
-    case 64:
-      launch<64>(bf16 != 0, grid, st, qkv, out, lse, seq, valid_len, ld,
-                 q_off, k_off, v_off, out_ld, scale);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const size_t esize = bf16 ? 2 : 4;
+  const char* base = static_cast<const char*>(qkv);
+  const Layout in{(int64_t)seq * ld, head_dim, ld};
+  const Layout ol{(int64_t)seq * out_ld, head_dim, out_ld};
+  return launch_any(bf16 != 0, head_dim, batch, seq, valid_len, heads,
+                    base + q_off * esize, base + k_off * esize,
+                    base + v_off * esize, out, lse, in, ol, scale, stream);
+}
+
+// q, k, v, out: contiguous [batch, heads, seq, head_dim] (flash_attention.py
+// attention_kernel's layout); keys at or past valid_len masked, every row
+// computed. Returns as aaclip_attention_packed.
+extern "C" int aaclip_attention_bhsd(const void* q, const void* k,
+                                     const void* v, void* out, int bf16,
+                                     int head_dim, int batch, int seq,
+                                     int valid_len, int heads, float scale,
+                                     void* stream) {
+  const int64_t hs = (int64_t)seq * head_dim;
+  const Layout l{heads * hs, hs, head_dim};
+  return launch_any(bf16 != 0, head_dim, batch, seq, valid_len, heads, q, k,
+                    v, out, nullptr, l, l, scale, stream);
 }

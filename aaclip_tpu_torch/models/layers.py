@@ -283,14 +283,25 @@ def mlp(x: torch.Tensor, p: Mlp, act,
 def residual_block(x: torch.Tensor, blk: ResidualBlock, num_heads: int, *,
                    mask: torch.Tensor | None = None, vv: bool = False,
                    act=gelu, policy: DtypePolicy = DtypePolicy(),
-                   attn_fn=None, vv_attn_fn=None) -> torch.Tensor:
+                   attn_fn=None, vv_attn_fn=None, block_fn=None,
+                   vv_block_fn=None) -> torch.Tensor:
     """Pre-LN residual block. ``attn_fn(x_normed, blk.attn)`` (``vv_attn_fn``
     when ``vv``) returns the projected attention output. Unset, it is the
     packed-attention kernel hook ``ops.attention.make_attn_fn(num_heads,
     policy, vv=vv)``, which runs the kernel on the card and its plain
     version on the CPU; with a ``mask`` (the text tower) it is
-    ``masked_attention``. The hooks are unmasked, so a mask with a hook
-    raises."""
+    ``masked_attention``. ``block_fn(x, blk)`` (``vv_block_fn`` when
+    ``vv``) replaces the whole block: it receives the un-normalised stream
+    and returns the block's output (the fused block,
+    ``ops.fused_block.make_block_fn``). The hooks and overrides are
+    unmasked, so a mask with either raises."""
+    whole = vv_block_fn if vv else block_fn
+    if whole is not None:
+        if mask is not None:
+            raise ValueError("block_fn overrides are unmasked (the fused "
+                             "kernels take no mask); a masked block takes "
+                             "the default masked attention")
+        return whole(x, blk)
     override = vv_attn_fn if vv else attn_fn
     if mask is not None:
         if override is not None or vv:

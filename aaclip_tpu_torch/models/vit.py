@@ -1,4 +1,5 @@
-"""Vision transformer tower (ViT-L/14) and the adapted image forward.
+"""Vision transformer tower (ViT-L/14), the adapted image forward and
+the frozen image encoder.
 
 ``VisionTransformer`` holds the frozen CLIP weights (an ``nn.ModuleList``
 of ``ResidualBlock``s); ``ImageAdapter`` holds the trainable adapters:
@@ -7,6 +8,9 @@ level and the det projection. ``adapted_forward`` runs the trunk with
 norm-matched adapter blends after the first ``image_adapt_until`` blocks
 and taps the residual stream at the requested depths, then ln_post, the
 seg/det projections and L2 normalisation on their fp32 output.
+``encode_image`` runs the frozen tower (V-V blocks from ``vv_start``)
+to the projected CLS embedding. Each takes the whole-block override
+``block_fn`` of ``models/layers.residual_block``.
 
 The patch embedding is a reshape and one matmul (ops/preprocess.py).
 """
@@ -79,28 +83,30 @@ def embed(vit: VisionTransformer, cfg: CLIPConfig, images: torch.Tensor,
 
 def run_blocks(x: torch.Tensor, vit: VisionTransformer, cfg: CLIPConfig,
                start: int, stop: int, *, vv: bool = False, act,
-               policy: DtypePolicy, attn_fn=None,
-               vv_attn_fn=None) -> torch.Tensor:
+               policy: DtypePolicy, attn_fn=None, vv_attn_fn=None,
+               block_fn=None, vv_block_fn=None) -> torch.Tensor:
     """Blocks ``[start, stop)`` of the tower on the residual stream ``x``,
     in the V-V form when ``vv`` (the JAX package's ``run_block_range`` over
     ``slice_blocks``). Hooks left at None are the packed-attention kernel
-    hooks of ``L.residual_block``."""
+    hooks of ``L.residual_block``; a block override replaces the block."""
     for i in range(start, stop):
         x = L.residual_block(x, vit.blocks[i], cfg.vision.heads, vv=vv,
                              act=act, policy=policy, attn_fn=attn_fn,
-                             vv_attn_fn=vv_attn_fn)
+                             vv_attn_fn=vv_attn_fn, block_fn=block_fn,
+                             vv_block_fn=vv_block_fn)
     return x
 
 
 def trunk_taps(vit: VisionTransformer, cfg: CLIPConfig, images: torch.Tensor,
                out_layers: Sequence[int], *, adapters: ImageAdapter | None,
                adapt_weight: float, act, policy: DtypePolicy, attn_fn=None,
-               patch_embed_fn=None,
+               block_fn=None, patch_embed_fn=None,
                remat: bool | str = False) -> List[torch.Tensor]:
     """Residual stream after each 1-indexed depth in ``out_layers``. Block
     i (0-indexed) is followed by a norm-matched blend with adapter i while
     adapters remain; blocks past the deepest tap are not run. ``attn_fn``
-    None means the packed-attention kernel hook (``L.residual_block``).
+    None means the packed-attention kernel hook (``L.residual_block``);
+    ``block_fn`` replaces each whole block (inference only).
 
     ``remat=True`` runs each block (with its adapter blend) under
     ``torch.utils.checkpoint``, as the JAX package wraps each block in
@@ -127,7 +133,8 @@ def trunk_taps(vit: VisionTransformer, cfg: CLIPConfig, images: torch.Tensor,
 
     def block(x, i):
         x = L.residual_block(x, vit.blocks[i], v.heads, act=act,
-                             policy=policy, attn_fn=attn_fn)
+                             policy=policy, attn_fn=attn_fn,
+                             block_fn=block_fn)
         if i < n_adapt:
             a = L.simple_adapter(x, adapters.layer_adapters[i].weight, policy)
             x = L.norm_matched_blend(x, a, adapt_weight)
@@ -149,19 +156,19 @@ def adapted_forward(vit: VisionTransformer, adapter: ImageAdapter,
                     levels: Sequence[int] = (6, 12, 18, 24),
                     proj_relu: bool = False,
                     policy: DtypePolicy = DtypePolicy(), act=None,
-                    attn_fn=None, patch_embed_fn=None,
+                    attn_fn=None, block_fn=None, patch_embed_fn=None,
                     remat: bool | str = False
                     ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """AdaptedCLIP image forward: ``(seg_tokens, det_token)``, a list of
     L2-normalised per-level patch embeddings [B, num_patches, embed_dim]
     (fp32) and the pooled detection embedding [B, embed_dim] (fp32).
-    ``remat`` as in ``trunk_taps``."""
+    ``block_fn`` and ``remat`` as in ``trunk_taps``."""
     if act is None:
         act = L.config_act(cfg, policy)
     taps = trunk_taps(vit, cfg, images, levels, adapters=adapter,
                       adapt_weight=image_adapt_weight, act=act, policy=policy,
-                      attn_fn=attn_fn, patch_embed_fn=patch_embed_fn,
-                      remat=remat)
+                      attn_fn=attn_fn, block_fn=block_fn,
+                      patch_embed_fn=patch_embed_fn, remat=remat)
     tokens = [L.layer_norm(t[:, 1:, :], vit.ln_post.weight, vit.ln_post.bias)
               for t in taps]
 
@@ -176,3 +183,37 @@ def adapted_forward(vit: VisionTransformer, adapter: ImageAdapter,
     seg = [proj_norm(t, adapter.seg_proj[i]) for i, t in enumerate(tokens)]
     det = proj_norm(tokens[-1], adapter.det_proj).mean(dim=1)
     return seg, det
+
+
+def encode_image(vit: VisionTransformer, cfg: CLIPConfig,
+                 images: torch.Tensor, out_layers: Sequence[int] = (), *,
+                 vv_start: int | None = None,
+                 policy: DtypePolicy = DtypePolicy(), act=None, attn_fn=None,
+                 vv_attn_fn=None, block_fn=None, vv_block_fn=None
+                 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """Frozen CLIP image forward: ``(pooled, taps)``, the CLS token of the
+    last block through ``ln_post`` and ``proj`` [B, embed_dim] (in the
+    stream's dtype), and the residual stream [B, 1 + num_patches, width]
+    after each 1-indexed depth in ``out_layers``. Blocks with index >=
+    ``vv_start`` (0-indexed) run in the V-V form. Hooks and block overrides
+    as in ``L.residual_block``."""
+    if act is None:
+        act = L.config_act(cfg, policy)
+    v = cfg.vision
+    bad = [l for l in out_layers if not 0 < l <= v.layers]
+    if bad:
+        raise ValueError(
+            f"tap depths {bad} out of range for a {v.layers}-layer tower")
+    x = embed(vit, cfg, images, policy)
+    taps = {}
+    for i in range(v.layers):
+        x = run_blocks(x, vit, cfg, i, i + 1,
+                       vv=vv_start is not None and i >= vv_start, act=act,
+                       policy=policy, attn_fn=attn_fn, vv_attn_fn=vv_attn_fn,
+                       block_fn=block_fn, vv_block_fn=vv_block_fn)
+        if i + 1 in out_layers:
+            taps[i + 1] = x
+    pooled = L.layer_norm(x[:, 0, :], vit.ln_post.weight, vit.ln_post.bias)
+    cd = policy.compute_dtype
+    pooled = L.matmul_f32(pooled.to(cd), vit.proj.to(cd)).to(x.dtype)
+    return pooled, [taps[l] for l in out_layers]

@@ -1,8 +1,9 @@
 """Packed attention: the wrappers around the hand-written CUDA kernels
 (``kernels/csrc/attention_packed.cu`` forward, in its standard and V-V
-modes, ``kernels/csrc/attention_packed_bwd.cu`` backward), their plain
-PyTorch versions, the differentiable form, and the ``attn_fn`` hook that
-puts them into the residual blocks.
+modes and on the ``[B, H, S, hd]`` layout, ``kernels/csrc/
+attention_packed_bwd.cu`` backward), their plain PyTorch versions, the
+differentiable form, and the ``attn_fn`` hook that puts them into the
+residual blocks.
 
 They replace ``aaclip_tpu/ops/flash_attention.py``'s ``attention_packed``
 and ``attention_packed_diff``: softmax attention read straight out of the
@@ -11,7 +12,10 @@ past ``valid_len`` masked, written token-major ``[B, S, D]`` for the
 out-projection, and its backward into ``d(qkv)``. The V-V mode
 (``vv=True, packed_sections=1``, CLIP-Surgery) reads a value-only
 projection ``v [B, S, D]`` as q, k and v: the same kernel with all three
-section offsets at 0 and the row stride D.
+section offsets at 0 and the row stride D. ``attention_kernel`` replaces
+``flash_attention.py``'s ``attention_kernel``, the same function on
+separate q, k, v in ``[B, H, S, hd]``: the same kernel again, launched with
+that layout's strides.
 
 The wrappers run the plain versions only for tensors on the CPU (the
 tests). On a CUDA tensor they launch the kernel or raise.
@@ -44,25 +48,34 @@ def _split(x: torch.Tensor, num_heads: int, sections: int = 3):
     return B, S, dm, hd, hd ** -0.5, offs
 
 
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            valid_len: int, dtype: torch.dtype) -> torch.Tensor:
+    """The forward kernel's arithmetic in plain PyTorch on fp32 [B, H, S,
+    hd] heads holding ``dtype`` values: fp32 scores, mask, max-subtract,
+    exp, fp32 row sum, P cast to ``dtype``, P.V in fp32, one division at
+    the end; fp32 out. Materialises [B, H, S, S]."""
+    S, hd = q.shape[-2:]
+    s = torch.matmul(q, k.transpose(-1, -2)) * hd ** -0.5
+    if valid_len < S:
+        s[..., valid_len:] = float("-inf")
+    s = s - s.amax(-1, keepdim=True)
+    p = torch.exp(s)
+    l = p.sum(-1, keepdim=True)
+    return torch.matmul(p.to(dtype).float(), v) / l
+
+
 def _plain(x: torch.Tensor, num_heads: int, valid_len: int,
            sections: int) -> torch.Tensor:
-    """The forward kernel's arithmetic in plain PyTorch: fp32 scores, mask,
-    max-subtract, exp, fp32 row sum, P cast to the input dtype, P.V in
-    fp32, one division at the end. Materialises [B, H, S, S]."""
-    B, S, dm, hd, scale, offs = _split(x, num_heads, sections)
+    """``_attend`` on the heads of a packed projection, written
+    token-major [B, S, D] in its dtype."""
+    B, S, dm, hd, _, offs = _split(x, num_heads, sections)
 
     def heads(off):
         sec = x[..., off:off + dm].reshape(B, S, num_heads, hd)
         return sec.transpose(1, 2).float()
 
     q, k, v = (heads(off) for off in offs)
-    s = torch.matmul(q, k.transpose(-1, -2)) * scale
-    if valid_len < S:
-        s[..., valid_len:] = float("-inf")
-    s = s - s.amax(-1, keepdim=True)
-    p = torch.exp(s)
-    l = p.sum(-1, keepdim=True)
-    o = torch.matmul(p.to(x.dtype).float(), v) / l
+    o = _attend(q, k, v, valid_len, x.dtype)
     return o.transpose(1, 2).reshape(B, S, dm).to(x.dtype)
 
 
@@ -78,6 +91,15 @@ def attention_packed_vv_plain(v: torch.Tensor, num_heads: int,
     """``attention_packed_vv``'s kernel arithmetic (``_plain``) on a
     value-only [B, S, D]: softmax(V V^T hd^-1/2) V per head."""
     return _plain(v, num_heads, valid_len, 1)
+
+
+def attention_kernel_plain(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, valid_len: int) -> torch.Tensor:
+    """``attention_kernel``'s arithmetic (``_attend``) on separate [B, H,
+    S, hd] q, k, v; returns [B, H, S, hd] in q's dtype. Keys at or past
+    ``valid_len`` are masked; every row is a query."""
+    o = _attend(q.float(), k.float(), v.float(), valid_len, q.dtype)
+    return o.to(q.dtype)
 
 
 def attention_packed_bwd_plain(qkv: torch.Tensor, d_out: torch.Tensor,
@@ -152,6 +174,23 @@ def _kernel():
     # q_off, k_off, v_off, out_ld, scale, stream
     fn.argtypes = [p, p, p, i, i, i, i, i, i, ll, i, i, i, ll,
                    ctypes.c_float, p]
+    fn.restype = i
+    return fn
+
+
+@functools.cache
+def _bhsd_kernel():
+    """``aaclip_attention_bhsd`` of ``csrc/attention_packed.cu``: the
+    forward kernel on the [B, H, S, hd] layout."""
+    import ctypes
+
+    from aaclip_tpu_torch.kernels.build import load
+
+    fn = load("attention_packed").aaclip_attention_bhsd
+    i, p = ctypes.c_int, ctypes.c_void_p
+    # q, k, v, out, bf16, head_dim, batch, seq, valid_len, heads, scale,
+    # stream
+    fn.argtypes = [p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
     fn.restype = i
     return fn
 
@@ -237,6 +276,55 @@ def attention_packed_vv(v: torch.Tensor, num_heads: int,
 
 
 attention_packed_vv.launches = 0
+
+
+def attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     valid_len: int) -> torch.Tensor:
+    """Attention on separate q, k, v [B, H, S, hd] -> [B, H, S, hd] in q's
+    dtype (``flash_attention.py``'s ``attention_kernel``): keys at or past
+    ``valid_len`` are masked, every row is computed.
+
+    CPU tensors take ``attention_kernel_plain``. On CUDA tensors the
+    forward kernel of ``attention_packed`` is launched with this layout's
+    strides (contiguous operands of one shape, dtype and device, a head dim
+    in ``KERNEL_HEAD_DIMS``); ``attention_kernel.launches`` counts its
+    launches."""
+    if q.device.type == "cpu":
+        return attention_kernel_plain(q, k, v, valid_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"attention_kernel: unsupported device {q.device}")
+    if q.dim() != 4 or any(t.shape != q.shape or t.dtype != q.dtype
+                           or t.device != q.device for t in (k, v)):
+        raise ValueError("attention_kernel: q, k and v must be [B, H, S, hd] "
+                         "of one shape, dtype and device")
+    B, H, S, hd = q.shape
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"attention_kernel: dtype {q.dtype} is not bf16 or "
+                        f"fp32")
+    if any(not t.is_contiguous() or t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("attention_kernel: q, k and v must be contiguous "
+                         "and 16-byte aligned")
+    if hd not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"attention_kernel: head dim {hd} has no kernel "
+                         f"instantiation (have {KERNEL_HEAD_DIMS})")
+    if B < 1 or H < 1 or not 1 <= valid_len <= S:
+        raise ValueError(f"attention_kernel: need batch, heads >= 1 and "
+                         f"1 <= valid_len <= S, got B={B}, H={H}, "
+                         f"valid_len={valid_len}, S={S}")
+    launch = _bhsd_kernel()
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    int(q.dtype == torch.bfloat16), hd, B, S, valid_len, H,
+                    hd ** -0.5, stream)
+    if rc != 0:
+        raise RuntimeError(f"attention_kernel launch failed: CUDA error {rc}")
+    attention_kernel.launches += 1
+    return out
+
+
+attention_kernel.launches = 0
 
 
 def attention_packed_bwd(qkv: torch.Tensor, d_out: torch.Tensor,

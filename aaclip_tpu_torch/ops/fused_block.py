@@ -1,0 +1,355 @@
+"""The fused residual block: the wrappers around the hand-written CUDA
+kernels of ``kernels/csrc/fused_block.cu``, their plain PyTorch versions,
+and the whole-block override ``block_fn`` that chains them around the
+packed attention.
+
+They replace ``aaclip_tpu/ops/fused_block.py``:
+
+* ``ln_linear``       -- LayerNorm -> matmul -> + bias (ln_1 -> packed QKV);
+* ``linear_residual`` -- res + (matmul + bias) (attention out-projection);
+* ``mlp_fused``       -- x + proj(act(fc(LayerNorm(x)))), the [rows, 4*D]
+  hidden kept on chip.
+
+``make_block_fn`` runs a block as ``ln_linear`` -> packed attention ->
+``linear_residual`` -> ``mlp_fused``, the JAX package's inference-only
+override of ``models/layers.residual_block``; the JAX TPU tile knobs
+(``q_blk``, ``r_blk``, ``mlp_f_blk``, ``interpret``) have no counterpart.
+Each plain version does its kernel's arithmetic step by step: LayerNorm
+with fp32 statistics rounded to the compute dtype, products accumulated in
+fp32, biases, activation and residual in fp32, one rounding of each output
+(and of the MLP's hidden) to the compute dtype. The fp32 policy's GELU is
+the exact erf; the TPU kernel's rational erf was a Mosaic workaround.
+
+The wrappers run the plain versions only for tensors on the CPU (the
+tests). On a CUDA tensor they launch the kernel or raise. None has a
+backward: an input that requires grad while autograd records is refused.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from aaclip_tpu_torch.core.config import DtypePolicy
+from aaclip_tpu_torch.device import resolve_device
+from aaclip_tpu_torch.models import layers as L
+from aaclip_tpu_torch.ops.attention import (KERNEL_HEAD_DIMS,
+                                            attention_packed,
+                                            attention_packed_vv)
+
+# The widths fused_block.cu is instantiated for: the GEMM's output and
+# reduction tiles by dtype, its largest reduction (a LayerNorm row held in
+# registers), the model widths of mlp_fused and its hidden tile.
+_GEMM_TILES = {torch.bfloat16: (128, 32), torch.float32: (64, 16)}
+KERNEL_MAX_K = 1024
+KERNEL_MLP_WIDTHS = (128, 1024)
+KERNEL_MLP_HIDDEN_TILE = 64
+_ACT_CODES = {L.gelu: 0, L.gelu_tanh: 1, L.quick_gelu: 2}  # fused_block.cu
+
+
+def _ln_rows(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+             cd: torch.dtype) -> torch.Tensor:
+    """LayerNorm with fp32 statistics (the mean, then the mean of squared
+    deviations), affine in fp32, rounded to ``cd`` (the TPU kernel's
+    ``_ln_rows``)."""
+    x32 = x.float()
+    mean = x32.mean(-1, keepdim=True)
+    var = (x32 - mean).square().mean(-1, keepdim=True)
+    y = (x32 - mean) * torch.rsqrt(var + L._LN_EPS)
+    return (y * weight.float() + bias.float()).to(cd)
+
+
+def ln_linear_plain(x: torch.Tensor, ln_weight: torch.Tensor,
+                    ln_bias: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                    policy: DtypePolicy) -> torch.Tensor:
+    """``layer_norm(x) @ w.T + b`` [.., F] in x's dtype: ``_ln_rows``, the
+    product in fp32, + b in fp32, one rounding. ``w`` is [F, D]."""
+    cd = policy.compute_dtype
+    y = _ln_rows(x, ln_weight, ln_bias, cd)
+    h = L.matmul_f32(y, w.to(cd).t()) + b.float()
+    return h.to(x.dtype)
+
+
+def linear_residual_plain(res: torch.Tensor, y: torch.Tensor,
+                          w: torch.Tensor, b: torch.Tensor,
+                          policy: DtypePolicy) -> torch.Tensor:
+    """``res + (y @ w.T + b)`` in fp32, rounded once to res's dtype."""
+    cd = policy.compute_dtype
+    h = L.matmul_f32(y.to(cd), w.to(cd).t()) + b.float()
+    return (res.float() + h).to(res.dtype)
+
+
+def mlp_fused_plain(x: torch.Tensor, ln_weight: torch.Tensor,
+                    ln_bias: torch.Tensor, w_fc: torch.Tensor,
+                    b_fc: torch.Tensor, w_proj: torch.Tensor,
+                    b_proj: torch.Tensor, act,
+                    policy: DtypePolicy) -> torch.Tensor:
+    """``x + proj(act(fc(layer_norm(x))))``: ``_ln_rows``, fc + b_fc and
+    ``act`` in fp32, the hidden rounded to the compute dtype, proj in fp32,
+    then ``x + acc + b_proj`` in fp32, rounded once to x's dtype."""
+    cd = policy.compute_dtype
+    y = _ln_rows(x, ln_weight, ln_bias, cd)
+    h = act(L.matmul_f32(y, w_fc.to(cd).t()) + b_fc.float())
+    acc = L.matmul_f32(h.to(cd), w_proj.to(cd).t())
+    return (x.float() + acc + b_proj.float()).to(x.dtype)
+
+
+@functools.cache
+def _kernels():
+    """The three C entry points of ``csrc/fused_block.cu``, built on first
+    use, with their argument types declared."""
+    import ctypes
+
+    from aaclip_tpu_torch.kernels.build import load
+
+    lib = load("fused_block")
+    i, p = ctypes.c_int, ctypes.c_void_p
+    # x, w, bias, gamma, beta, out, bf16, rows, n, k, stream
+    lib.aaclip_ln_linear.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+    # res, y, w, bias, out, bf16, rows, n, k, stream
+    lib.aaclip_linear_residual.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    # x, gamma, beta, w_fc, b_fc, w_proj, b_proj, out, bf16, rows, d, f,
+    # act, stream
+    lib.aaclip_mlp_fused.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i,
+                                     p]
+    for fn in (lib.aaclip_ln_linear, lib.aaclip_linear_residual,
+               lib.aaclip_mlp_fused):
+        fn.restype = i
+    return lib
+
+
+def _gemm_widths_ok(dtype: torch.dtype, n: int, k: int) -> bool:
+    """``gemm_shape_ok``'s widths: n output columns, k reduced ones."""
+    bn, bk = _GEMM_TILES[dtype]
+    return n >= bn and n % bn == 0 and bk <= k <= KERNEL_MAX_K \
+        and k % bk == 0
+
+
+def _mlp_widths_ok(d: int, f: int) -> bool:
+    """``aaclip_mlp_fused``'s widths: model width d, hidden f."""
+    return d in KERNEL_MLP_WIDTHS and f >= KERNEL_MLP_HIDDEN_TILE \
+        and f % KERNEL_MLP_HIDDEN_TILE == 0
+
+
+def _refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} has no backward (the fused block is "
+                           f"inference-only); call it under no_grad or on "
+                           f"tensors that do not require grad")
+
+
+def _operands(name: str, policy: DtypePolicy, acts, mats, vecs):
+    """The kernels' preconditions on CUDA operands: activations and
+    matrices already in the compute dtype (a tower pre-cast by
+    ``core.params.cast_matmul_weights``; nothing is copied per call).
+    Returns the vectors (biases, LayerNorm affine, at most a few thousand
+    elements) in fp32, which the kernels read."""
+    cd = policy.compute_dtype
+    x = acts[0]
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if cd not in _GEMM_TILES or any(t.dtype != cd for t in (*acts, *mats)):
+        raise TypeError(f"{name}: activations and matrices must be in the "
+                        f"policy's compute dtype, bf16 or fp32 (got {cd}; "
+                        f"pre-cast the tower with cast_matmul_weights)")
+    vecs = [v.float().contiguous() for v in vecs]
+    for t in (*acts, *mats, *vecs):
+        if t.device != x.device or t.dtype not in (cd, torch.float32):
+            raise ValueError(f"{name}: operands must share the device and "
+                             f"the compute dtype")
+        # the kernels copy 16-byte vectors
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: operands must be contiguous and "
+                             f"16-byte aligned")
+    return vecs
+
+
+def _launch(name: str, entry, device: torch.device, *args) -> None:
+    """Call a C entry point on ``device``'s current stream; raise on its
+    CUDA error (cudaErrorInvalidValue for a shape with no instantiation)."""
+    with torch.cuda.device(device):
+        rc = entry(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+def ln_linear(x: torch.Tensor, ln_weight: torch.Tensor,
+              ln_bias: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+              policy: DtypePolicy = DtypePolicy()) -> torch.Tensor:
+    """``layer_norm(x) @ w.T + b``: x [B, S, D], w [F, D] (nn.Linear's
+    layout), b [F] -> [B, S, F] in x's dtype.
+
+    CPU tensors take ``ln_linear_plain``. On CUDA tensors (x and w in the
+    compute dtype, contiguous; D a multiple of 32 up to 1024 and F of 128,
+    in fp32 of 16 and 64) the kernel is launched on the current stream and
+    ``ln_linear.launches`` counts each launch."""
+    _refuse_grad("ln_linear", x, ln_weight, ln_bias, w, b)
+    if x.device.type == "cpu":
+        return ln_linear_plain(x, ln_weight, ln_bias, w, b, policy)
+    b, gamma, beta = _operands("ln_linear", policy, (x,), (w,),
+                               (b, ln_weight, ln_bias))
+    D = x.shape[-1]
+    F = w.shape[0]
+    if w.shape != (F, D) or b.shape != (F,) or gamma.shape != (D,) \
+            or beta.shape != (D,):
+        raise ValueError("ln_linear: weight shapes do not match x")
+    if not _gemm_widths_ok(x.dtype, F, D):
+        raise ValueError(f"ln_linear: widths {D} -> {F} have no kernel "
+                         f"instantiation in {x.dtype}")
+    out = torch.empty(*x.shape[:-1], F, dtype=x.dtype, device=x.device)
+    _launch("ln_linear", _kernels().aaclip_ln_linear, x.device,
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), gamma.data_ptr(),
+            beta.data_ptr(), out.data_ptr(), int(x.dtype == torch.bfloat16),
+            x.numel() // D, F, D)
+    ln_linear.launches += 1
+    return out
+
+
+ln_linear.launches = 0
+
+
+def linear_residual(res: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+                    b: torch.Tensor,
+                    policy: DtypePolicy = DtypePolicy()) -> torch.Tensor:
+    """``res + (y @ w.T + b)``: y [B, S, D_in], w [D, D_in], res [B, S,
+    D] -> [B, S, D] in res's dtype.
+
+    CPU tensors take ``linear_residual_plain``. On CUDA tensors (res, y
+    and w in the compute dtype, contiguous; D_in a multiple of 32 up to
+    1024 and D of 128, in fp32 of 16 and 64) the kernel is launched on the
+    current stream and ``linear_residual.launches`` counts each launch."""
+    _refuse_grad("linear_residual", res, y, w, b)
+    if res.device.type == "cpu":
+        return linear_residual_plain(res, y, w, b, policy)
+    b, = _operands("linear_residual", policy, (res, y), (w,), (b,))
+    K, N = y.shape[-1], res.shape[-1]
+    if (w.shape != (N, K) or b.shape != (N,)
+            or y.shape[:-1] != res.shape[:-1]):
+        raise ValueError("linear_residual: shapes do not match")
+    if not _gemm_widths_ok(res.dtype, N, K):
+        raise ValueError(f"linear_residual: widths {K} -> {N} have no "
+                         f"kernel instantiation in {res.dtype}")
+    out = torch.empty_like(res)
+    _launch("linear_residual", _kernels().aaclip_linear_residual, res.device,
+            res.data_ptr(), y.data_ptr(), w.data_ptr(), b.data_ptr(),
+            out.data_ptr(), int(res.dtype == torch.bfloat16),
+            res.numel() // N, N, K)
+    linear_residual.launches += 1
+    return out
+
+
+linear_residual.launches = 0
+
+
+def mlp_fused(x: torch.Tensor, ln_weight: torch.Tensor,
+              ln_bias: torch.Tensor, w_fc: torch.Tensor, b_fc: torch.Tensor,
+              w_proj: torch.Tensor, b_proj: torch.Tensor, act,
+              policy: DtypePolicy = DtypePolicy()) -> torch.Tensor:
+    """``x + proj(act(fc(layer_norm(x))))``: x [B, S, D], w_fc [F, D],
+    w_proj [D, F] -> [B, S, D] in x's dtype; ``act`` is ``layers.gelu``,
+    ``gelu_tanh`` or ``quick_gelu``.
+
+    CPU tensors take ``mlp_fused_plain``. On CUDA tensors (x, w_fc and
+    w_proj in the compute dtype, contiguous; D in ``KERNEL_MLP_WIDTHS``, F
+    a multiple of 64) the kernel is launched on the current stream and ``mlp_fused.launches``
+    counts each launch; the [rows, F] hidden is never written to device
+    memory."""
+    _refuse_grad("mlp_fused", x, ln_weight, ln_bias, w_fc, b_fc, w_proj,
+                 b_proj)
+    if x.device.type == "cpu":
+        return mlp_fused_plain(x, ln_weight, ln_bias, w_fc, b_fc, w_proj,
+                               b_proj, act, policy)
+    if act not in _ACT_CODES:
+        raise ValueError(f"mlp_fused: activation {act} has no kernel "
+                         f"(have gelu, gelu_tanh, quick_gelu)")
+    gamma, beta, b_fc, b_proj = _operands(
+        "mlp_fused", policy, (x,), (w_fc, w_proj),
+        (ln_weight, ln_bias, b_fc, b_proj))
+    D = x.shape[-1]
+    F = w_fc.shape[0]
+    if (w_fc.shape != (F, D) or w_proj.shape != (D, F) or b_fc.shape != (F,)
+            or b_proj.shape != (D,) or gamma.shape != (D,)
+            or beta.shape != (D,)):
+        raise ValueError("mlp_fused: weight shapes do not match x")
+    if not _mlp_widths_ok(D, F):
+        raise ValueError(f"mlp_fused: widths {D}, hidden {F} have no kernel "
+                         f"instantiation (have widths {KERNEL_MLP_WIDTHS}, "
+                         f"hidden a multiple of {KERNEL_MLP_HIDDEN_TILE})")
+    out = torch.empty_like(x)
+    _launch("mlp_fused", _kernels().aaclip_mlp_fused, x.device,
+            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w_fc.data_ptr(),
+            b_fc.data_ptr(), w_proj.data_ptr(), b_proj.data_ptr(),
+            out.data_ptr(), int(x.dtype == torch.bfloat16), x.numel() // D,
+            D, F, _ACT_CODES[act])
+    mlp_fused.launches += 1
+    return out
+
+
+mlp_fused.launches = 0
+
+
+def make_block_fn(num_heads: int, policy: DtypePolicy = DtypePolicy(), *,
+                  act, vv: bool = False, ln=ln_linear, attention=None,
+                  residual=linear_residual, mlp=mlp_fused):
+    """``block_fn`` (``vv_block_fn`` with ``vv``) for
+    ``models/layers.residual_block``: receives the block's un-normalised
+    residual stream and its ``ResidualBlock``, returns the block output:
+    ``ln`` (QKV, or only the value third of ``in_proj_weight`` with
+    ``vv``) -> ``attention`` -> ``residual`` (out-projection) -> ``mlp``.
+    Inference only.
+
+    The ops default to the kernel wrappers (``attention``:
+    ``attention_packed``, or ``attention_packed_vv`` with ``vv``); the
+    ``*_plain`` versions give the same block with the plain arithmetic on
+    any device (the on-card comparison)."""
+    if attention is None:
+        attention = attention_packed_vv if vv else attention_packed
+
+    def block_fn(x: torch.Tensor, blk: L.ResidualBlock) -> torch.Tensor:
+        D = x.shape[-1]
+        a = blk.attn
+        w, b = a.in_proj_weight, a.in_proj_bias
+        if vv:
+            w, b = w[2 * D:], b[2 * D:]
+        packed = ln(x, blk.ln_1.weight, blk.ln_1.bias, w, b, policy)
+        out = attention(packed, num_heads, x.shape[1])
+        x = residual(x, out, a.out_proj.weight, a.out_proj.bias, policy)
+        m = blk.mlp
+        return mlp(x, blk.ln_2.weight, blk.ln_2.bias, m.c_fc.weight,
+                   m.c_fc.bias, m.c_proj.weight, m.c_proj.bias, act, policy)
+
+    return block_fn
+
+
+def fused_block_supported(cfg, policy: DtypePolicy) -> bool:
+    """Whether the kernels are instantiated for ``cfg``'s vision tower
+    under ``policy``, by the wrappers' own width checks: the packed
+    attention's head dim, the QKV projection, the V-V value third and the
+    out-projection as GEMMs, and the MLP."""
+    v = cfg.vision
+    cd = policy.compute_dtype
+    return (cd in _GEMM_TILES and v.head_dim in KERNEL_HEAD_DIMS
+            and _gemm_widths_ok(cd, 3 * v.width, v.width)
+            and _gemm_widths_ok(cd, v.width, v.width)
+            and _mlp_widths_ok(v.width, int(v.width * v.mlp_ratio)))
+
+
+def maybe_make_block_fn(cfg, policy: DtypePolicy, *, vv: bool = False,
+                        device=None):
+    """The fused block for ``cfg`` on the card, under the bf16 and the fp32
+    policy; None off the card, where the caller keeps the unfused block
+    (the JAX package's "not the kernel backend"). On the card a geometry
+    or policy the kernels are not instantiated for raises
+    (``fused_block_supported``). ``device=None`` means the card and raises
+    without one."""
+    if resolve_device(device).type != "cuda":
+        return None
+    if not fused_block_supported(cfg, policy):
+        v = cfg.vision
+        raise ValueError(
+            f"the fused block has no kernels for width {v.width}, head dim "
+            f"{v.head_dim}, MLP ratio {v.mlp_ratio} under "
+            f"{policy.compute_dtype}")
+    return make_block_fn(cfg.vision.heads, policy,
+                         act=L.config_act(cfg, policy), vv=vv)

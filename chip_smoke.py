@@ -42,13 +42,36 @@ Needs one CUDA card and nvcc. Phases, each of which fails the run:
     the V-V kernel, its plain version and SDPA on the V views at the
     bench's [16, 1370, 1024], and stage-1 images/s at batch 16 in both
     V-V modes.
+ 8. the fused-block path (``ops/fused_block.py``, ``fused_block.cu``): (a)
+    ``ln_linear`` (B5, to 3072 and 1024 columns), ``linear_residual`` (B6)
+    and ``mlp_fused`` (B7, under each activation) against their plain
+    versions in bf16 and fp32 at the predict's batch-32 rows, at a ragged
+    row count and at width 128; (b) ``attention_kernel`` (B4, the forward
+    kernel on the [B, H, S, hd] layout) against its plain version at [32,
+    16, 1370, 64], ragged S with valid_len < S and head dim 16, and bit
+    for bit against ``attention_packed`` on the same values packed; (c)
+    the predict with ``block_fn=make_block_fn(...)`` (bf16 uint8 at batch
+    8, fp32 at batch 2) against the same predictor on the plain-version
+    block with phase 4's bars, 24 launches per call of each of
+    ``ln_linear``, ``attention_packed``, ``linear_residual`` and
+    ``mlp_fused`` and none of ``attention_kernel``, and (printed) its
+    distance from the unfused predictor;
+    (d) ``encode_image`` with ``block_fn`` and ``vv_block_fn`` from
+    ``vv_start`` 5 (bf16, batch 2) against the plain blocks, counting 24
+    ``ln_linear`` (5 to 3072 columns, 19 to 1024), 5 standard + 19 V-V
+    attention, 24 ``linear_residual`` and 24 ``mlp_fused`` launches, and a
+    width-128 3-layer tower in fp32 on the card against the CPU; (e) CUDA-
+    event times at the batch-32 shapes of each kernel, its plain version
+    and the library yardstick (the unfused sequence the predict runs for
+    B5-B7, SDPA for B4), and the fused predict's maps/s beside the
+    unfused one's.
 Phase 3 also holds the V-V mode of the forward kernel (B3) against its
 plain version, in bf16 and fp32, at [16, 1370, 1024], ragged S and head
 dim 16, and against the standard mode on the value section tripled.
 Then it prints the kernel table as one JSON line (``launches`` counts the
-wrapper's calls on the main path and ``ms`` is per call;
-``kernels_per_call`` is 2 for the backward, whose call runs a dQ and a
-dK/dV kernel), the card line, and the result line ``{"ok": true,
+wrapper's calls on the main path; B4's is read after the fused predict,
+where it must be 0, since no path runs B4; ``ms`` is per call; ``kernels_per_call`` is 2 for the backward, whose call runs a
+dQ and a dK/dV kernel), the card line, and the result line ``{"ok": true,
 "device": {...}}`` last. Exits non-zero without a result when there is no
 card.
 """
@@ -59,6 +82,7 @@ import copy
 import json
 import sys
 import time
+from types import SimpleNamespace
 
 # bf16 kernel vs plain: P is rounded to bf16 against the running max of
 # the online softmax, not the row's final max, and the output is rounded
@@ -119,6 +143,39 @@ S1_FEAT_MAX_ABS, S1_FEAT_COS = 3.3e-2, 0.999
 S1_STEP_LOSS_RTOL, S1_STEP_GRAD_COS, S1_STEP_GRAD_NORM_RTOL = 3e-2, 0.998, 0.3
 # tiny-test stage-1, fp32, card vs CPU: features as TINY_*; the step as
 # TINY_STEP_*.
+
+# Phase 8. B5-B7 kernel vs plain, bf16: both round the normalised rows,
+# the MLP's hidden and the output to bf16 at the same points and sum in
+# fp32 in another order (~1e-6 relative), which can flip an output
+# rounding by one bf16 ulp (at most 2^-7 of the value); a flipped rounding
+# inside (a normalised or hidden element) moves the output by a small
+# fraction of that. Per element |d| <= 2^-7 |plain| + 2^-10 max |plain|,
+# mean |d| <= 2^-10 mean |plain|. (Read on an NVIDIA H100 80GB HBM3,
+# 700 W, at the batch-32 rows: ln_linear max 1.562e-2, one ulp at [2, 4),
+# mean 8.1e-7; mlp_fused max 3.125e-2, one ulp at [4, 8), mean 1.35e-5;
+# linear_residual 0: it sums in cuBLAS's order there.)
+FUSED_BF16_REL, FUSED_BF16_OF_MAX, FUSED_BF16_MEAN = 2 ** -7, 2 ** -10, \
+    2 ** -10
+# fp32: the same fp32 arithmetic in another order over 128-4096 terms, and
+# erff/tanhf/expf against torch's (an ulp or two): ~1e-6 of the output's
+# max |value| (read: at most 1.5e-6 of it); bar 1e-5 of it.
+FUSED_FP32_OF_MAX = 1e-5
+# B4 against its plain version: the bars of the forward kernel (BF16_*,
+# FP32_MAX_ABS), whose arithmetic it is; against attention_packed on the
+# same values: bit for bit. The fused predict against the plain-block
+# predict: phase 4's bars (PIX_*, SCORE_*; read on the same card: bf16 map
+# 7.463e-3 of its span, scores 1.4e-5). That bar cannot tell the fused
+# chain from the unfused one, and no bar on the map can: 24 bf16 blocks
+# spread any moved rounding over the whole map, so the fused and unfused
+# predicts sit about as far from the plain-block one (max 7.463e-3 against
+# 9.264e-3 of the span, mean 1.322e-3 against 1.481e-3). It catches gross
+# faults only; the per-kernel bars of 8a and the encode_image cosines
+# carry the check. encode_image, fused blocks against
+# plain blocks: the kernels' ulp-level differences through 24 blocks, as
+# the stage-1 features (S1_FEAT_COS): every tap token's and the pooled
+# embedding's cosine >= 0.999 (read: least 0.99989142); the width-128
+# tower in fp32, card vs CPU: TINY_*.
+ENC_COS = 0.999
 
 H100_BF16_FLOPS = 989e12   # dense tensor-core peak, NVIDIA data sheet (SXM)
 H100_BYTES_PER_S = 3.35e12  # HBM3
@@ -951,6 +1008,457 @@ def phase_stage1(vit, cfg, card):
     return main_vv, ms_kernel, ms_plain, ms_sdpa, bound_ms, bound_by
 
 
+def fused_inputs(B, S, D, F, dtype, gen):
+    """x [B, S, D] ~ N(0, 1), LayerNorm affine near (1, 0), w [F, D] at
+    CLIP's fc scale, biases ~ 0.02, on the card in ``dtype`` (the vectors
+    too, as the predictor casts a block's leaves)."""
+    import torch
+
+    def n(*shape, s=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * s).to(
+            dtype)
+
+    return dict(x=n(B, S, D), g=(1 + torch.randn(D, generator=gen,
+                                                 device="cuda") * 0.1
+                                 ).to(dtype),
+                b=n(D, s=0.1), w=n(F, D, s=D ** -0.5), bias=n(F, s=0.02),
+                w2=n(D, F, s=F ** -0.5), bias2=n(D, s=0.02))
+
+
+def fused_err(got, want, dtype_name: str, what: str) -> float:
+    """Max |got - want| after checking it against the phase-8 bars."""
+    import torch
+
+    expect(got.shape == want.shape and got.dtype == want.dtype,
+           f"{what}: {got.dtype} {tuple(got.shape)} vs {want.dtype} "
+           f"{tuple(want.shape)}")
+    expect(bool(torch.isfinite(got).all()), f"{what}: not finite")
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    mx, mean = d.max().item(), d.mean().item()
+    top = w.abs().max().item()
+    if dtype_name == "bf16":
+        over = (d - FUSED_BF16_REL * w.abs()).max().item()
+        ok = (over <= FUSED_BF16_OF_MAX * top
+              and mean <= FUSED_BF16_MEAN * w.abs().mean().item())
+    else:
+        ok = mx <= FUSED_FP32_OF_MAX * top
+    print(f"  {what}: max|d|={mx:.3e} mean|d|={mean:.3e} (max|plain| "
+          f"{top:.3f})")
+    expect(ok, f"{what} off: max {mx}, mean {mean}, max|plain| {top}")
+    return mx
+
+
+# (B, S, D, hidden F): the predict's batch-32 rows, ragged rows, width 128
+FUSED_CASES = [(32, 1370, 1024, 4096), (3, 37, 1024, 4096),
+               (2, 21, 128, 512)]
+
+
+def check_fused_kernels(dtype_name: str) -> dict:
+    """B5-B7 against their plain versions on the card; returns the largest
+    max |d| of each at the batch-32 shape."""
+    import torch
+
+    from aaclip_tpu_torch.core.config import DtypePolicy
+    from aaclip_tpu_torch.models import layers as L
+    from aaclip_tpu_torch.ops import fused_block as FB
+
+    dtype = torch_dtype(dtype_name)
+    policy = DtypePolicy(dtype, dtype_name == "bf16")
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    worst = {"ln_linear": 0.0, "linear_residual": 0.0, "mlp_fused": 0.0}
+    for B, S, D, F in FUSED_CASES:
+        t = fused_inputs(B, S, D, F, dtype, gen)
+        x, g, b = t["x"], t["g"], t["b"]
+        print(f"fused kernels {dtype_name} x [{B},{S},{D}]:")
+        errs = {}
+        for n_out in (3 * D, D):  # the QKV projection, the V-V value third
+            w, bias = t["w"][:n_out], t["bias"][:n_out]
+            errs[f"ln_linear F={n_out}"] = fused_err(
+                FB.ln_linear(x, g, b, w, bias, policy),
+                FB.ln_linear_plain(x, g, b, w, bias, policy), dtype_name,
+                f"ln_linear F={n_out}")
+        y = torch.randn(B, S, D, generator=gen, device="cuda").to(dtype)
+        wo, bo = t["w"][:D].contiguous(), t["bias"][:D].contiguous()
+        errs["linear_residual"] = fused_err(
+            FB.linear_residual(x, y, wo, bo, policy),
+            FB.linear_residual_plain(x, y, wo, bo, policy), dtype_name,
+            "linear_residual")
+        for act in (L.gelu, L.gelu_tanh, L.quick_gelu):
+            errs[f"mlp_fused {act.__name__}"] = fused_err(
+                FB.mlp_fused(x, g, b, t["w"], t["bias"], t["w2"], t["bias2"],
+                             act, policy),
+                FB.mlp_fused_plain(x, g, b, t["w"], t["bias"], t["w2"],
+                                   t["bias2"], act, policy),
+                dtype_name, f"mlp_fused {act.__name__}")
+        torch.cuda.synchronize()
+        if B == 32:
+            for name in worst:
+                worst[name] = max(v for k, v in errs.items()
+                                  if k.startswith(name))
+        del t, x, y
+    return worst
+
+
+# B4: (B, H, S, head dim, valid_len)
+BHSD_CASES = [(32, 16, 1370, 64, 1370), (2, 16, 257, 64, 200),
+              (3, 4, 26, 16, 26), (2, 2, 77, 16, 50)]
+
+
+def check_attention_kernel(dtype_name: str) -> float:
+    """B4 against its plain version and bit for bit against
+    ``attention_packed`` on the same values packed [B, S, 3D]; returns the
+    max |d| at the batch-32 shape."""
+    import torch
+
+    from aaclip_tpu_torch.ops.attention import (attention_kernel,
+                                                attention_kernel_plain,
+                                                attention_packed)
+
+    dtype = torch_dtype(dtype_name)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    worst = 0.0
+    for B, H, S, hd, valid in BHSD_CASES:
+        q, k, v = (torch.randn(B, H, S, hd, generator=gen,
+                               device="cuda").to(dtype) for _ in range(3))
+        got = attention_kernel(q, k, v, valid)
+        want = attention_kernel_plain(q, k, v, valid)
+        packed = torch.cat([t.transpose(1, 2).reshape(B, S, H * hd)
+                            for t in (q, k, v)], dim=-1).contiguous()
+        same = torch.equal(got.transpose(1, 2).reshape(B, S, H * hd),
+                           attention_packed(packed, H, valid))
+        torch.cuda.synchronize()
+        expect(got.shape == q.shape and got.dtype == dtype,
+               f"attention_kernel {got.dtype} {tuple(got.shape)}")
+        d = (got.float() - want.float()).abs()
+        mx, mean = d.max().item(), d.mean().item()
+        finite = bool(torch.isfinite(got).all())
+        del want, d, packed, q, k, v, got
+        print(f"attention_kernel {dtype_name} [{B},{H},{S},{hd}] valid="
+              f"{valid}: max|d|={mx:.3e} mean|d|={mean:.3e} finite={finite};"
+              f" equals attention_packed on the packed values: {same}")
+        expect(finite, "attention_kernel output not finite")
+        expect(same, "attention_kernel differs from attention_packed")
+        if dtype_name == "bf16":
+            expect(mx <= BF16_MAX_ABS and mean <= BF16_MEAN_ABS,
+                   f"bf16 attention_kernel off: max {mx}, mean {mean}")
+        else:
+            expect(mx <= FP32_MAX_ABS, f"fp32 attention_kernel off: {mx}")
+        if B == 32:
+            worst = max(worst, mx)
+    return worst
+
+
+FUSED_COUNTED = ("ln_linear", "attention_packed", "attention_packed_vv",
+                 "linear_residual", "mlp_fused", "attention_kernel")
+
+
+def fused_counts():
+    """The launch counts of FUSED_COUNTED, in its order."""
+    from aaclip_tpu_torch.ops import fused_block as FB
+    from aaclip_tpu_torch.ops.attention import (attention_kernel,
+                                                attention_packed,
+                                                attention_packed_vv)
+
+    return (FB.ln_linear.launches, attention_packed.launches,
+            attention_packed_vv.launches, FB.linear_residual.launches,
+            FB.mlp_fused.launches, attention_kernel.launches)
+
+
+def zero_fused_counts() -> None:
+    from aaclip_tpu_torch.ops import fused_block as FB
+    from aaclip_tpu_torch.ops.attention import attention_kernel
+
+    zero_counts()
+    FB.ln_linear.launches = FB.linear_residual.launches = 0
+    FB.mlp_fused.launches = attention_kernel.launches = 0
+
+
+def plain_block_fn(heads: int, policy, act, vv: bool = False):
+    """``make_block_fn`` on the plain versions: the reference block."""
+    from aaclip_tpu_torch.ops import fused_block as FB
+    from aaclip_tpu_torch.ops.attention import (attention_packed_plain,
+                                                attention_packed_vv_plain)
+
+    return FB.make_block_fn(
+        heads, policy, act=act, vv=vv, ln=FB.ln_linear_plain,
+        attention=attention_packed_vv_plain if vv else attention_packed_plain,
+        residual=FB.linear_residual_plain, mlp=FB.mlp_fused_plain)
+
+
+def phase_fused_predict(vit, adapter, cfg, acfg, anchors, M, card):
+    """Phase 8c and the predict timings of 8e: returns {kernel: launches
+    per bf16 predict call}."""
+    import torch
+
+    from aaclip_tpu_torch.core.config import DtypePolicy
+    from aaclip_tpu_torch.eval.predict import make_predict_fn
+    from aaclip_tpu_torch.models.layers import config_act
+    from aaclip_tpu_torch.ops.fused_block import make_block_fn
+
+    heads, img, n_layers = cfg.vision.heads, cfg.vision.image_size, \
+        cfg.vision.layers
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    runs = {}
+    for name, B in (("bf16", 8), ("fp32", 2)):
+        policy = DtypePolicy.bf16() if name == "bf16" else DtypePolicy.fp32()
+        act = config_act(cfg, policy)
+        kw = dict(policy=policy, uint8_inputs=name == "bf16")
+        fused = make_predict_fn(vit, cfg, acfg, block_fn=make_block_fn(
+            heads, policy, act=act), **kw)
+        plain = make_predict_fn(vit, cfg, acfg, block_fn=plain_block_fn(
+            heads, policy, act), **kw)
+        unfused = make_predict_fn(vit, cfg, acfg, **kw)
+        if name == "bf16":
+            images = torch.randint(0, 256, (B, 3, img, img), generator=gen,
+                                   device="cuda", dtype=torch.uint8)
+        else:
+            images = torch.randn(B, 3, img, img, generator=gen,
+                                 device="cuda")
+        zero_fused_counts()
+        pix_f, score_f = fused(adapter, images, anchors, M)
+        torch.cuda.synchronize()
+        c = fused_counts()
+        zero_fused_counts()
+        pix_p, score_p = plain(adapter, images, anchors, M)
+        torch.cuda.synchronize()
+        c_plain = fused_counts()
+        pix_u, score_u = unfused(adapter, images, anchors, M)
+        expect(pix_f.shape == (B, img, img) and score_f.shape == (B,),
+               f"fused predict shapes {pix_f.shape}, {score_f.shape}")
+        expect(bool(torch.isfinite(pix_f).all()
+                    and torch.isfinite(score_f).all()),
+               "fused predict not finite")
+        expect(c == (n_layers, n_layers, 0, n_layers, n_layers, 0),
+               f"fused predict launches {dict(zip(FUSED_COUNTED, c))}")
+        expect(c_plain == (0,) * len(FUSED_COUNTED),
+               f"plain-block predict launched {c_plain}")
+        span = (pix_p.max() - pix_p.min()).item()
+        d = (pix_f - pix_p).abs()
+        dpix, dmean = d.max().item(), d.mean().item()
+        dscore = (score_f - score_p).abs().max().item()
+        u = (pix_f - pix_u).abs()
+        upix, umean = u.max().item(), u.mean().item()
+        print(f"fused predict {name} B={B}: launches per call ln_linear "
+              f"{c[0]}, attention_packed {c[1]}, linear_residual {c[3]}, "
+              f"mlp_fused {c[4]}, attention_kernel {c[5]}; vs the "
+              f"plain-block predict: max|d map| {dpix:.3e} ({dpix / span:.3e}"
+              f" of span {span:.4f}), mean|d map| {dmean:.3e} "
+              f"({dmean / span:.3e} of span), max|d score| {dscore:.3e}; vs "
+              f"the unfused predict (printed, not barred): max|d map| "
+              f"{upix:.3e} ({upix / span:.3e} of span), mean|d map| "
+              f"{umean:.3e} ({umean / span:.3e} of span), max|d score| "
+              f"{(score_f - score_u).abs().max().item():.3e}")
+        del d, u
+        if name == "bf16":
+            expect(dpix <= PIX_SPAN_FRAC_BF16 * span,
+                   f"fused map off: {dpix} of {span}")
+            expect(dscore <= SCORE_ATOL_BF16, f"fused scores off: {dscore}")
+            launches = dict(zip(FUSED_COUNTED, c))
+            fused_bf16, unfused_bf16 = fused, unfused
+        else:
+            torch.testing.assert_close(pix_f, pix_p, atol=PIX_ATOL_FP32,
+                                       rtol=PIX_RTOL_FP32)
+            torch.testing.assert_close(score_f, score_p,
+                                       atol=SCORE_ATOL_FP32, rtol=0)
+        del fused, plain, unfused, pix_f, pix_p, pix_u, images
+
+    u8 = torch.randint(0, 256, (32, 3, img, img), generator=gen,
+                       device="cuda", dtype=torch.uint8)
+    ms_f = cuda_ms(lambda: fused_bf16(adapter, u8, anchors, M), 5)
+    ms_u = cuda_ms(lambda: unfused_bf16(adapter, u8, anchors, M), 5)
+    for name, ms in (("fused block", ms_f), ("unfused block", ms_u)):
+        print(f"time predict bf16 B=32 ViT-L/518 ({name}): {ms:.2f} ms/call,"
+              f" {32 / ms * 1e3:.2f} maps/s on {card}")
+    return launches
+
+
+def phase_encode_image(vit, cfg):
+    """Phase 8d: ``encode_image`` with fused standard and V-V blocks
+    against plain blocks, the launch counts, and a width-128 3-layer tower
+    in fp32 on the card against the CPU."""
+    import torch
+
+    from aaclip_tpu_torch.core.config import (CLIPConfig, DtypePolicy,
+                                              VisionConfig)
+    from aaclip_tpu_torch.core.params import (cast_matmul_weights,
+                                              init_vision_params)
+    from aaclip_tpu_torch.models import layers as L
+    from aaclip_tpu_torch.models.vit import encode_image
+    from aaclip_tpu_torch.ops import fused_block as FB
+
+    heads, n_layers = cfg.vision.heads, cfg.vision.layers
+    vv_start = L.surgery_vv_start(n_layers, STAGE1_SURGERY_UNTIL)
+    bf16 = DtypePolicy.bf16()
+    act = L.config_act(cfg, bf16)
+    visual = cast_matmul_weights(vit, bf16)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    images = torch.randn(2, 3, cfg.vision.image_size, cfg.vision.image_size,
+                         generator=gen, device="cuda")
+    taps_at = (6, 12, 18, 24)
+
+    widths = []
+
+    def recording_ln_linear(x, *args):
+        out = FB.ln_linear(x, *args)
+        widths.append(out.shape[-1])
+        return out
+
+    fns = {vv: FB.make_block_fn(heads, bf16, act=act, vv=vv,
+                                ln=recording_ln_linear)
+           for vv in (False, True)}
+    plain = {vv: plain_block_fn(heads, bf16, act, vv) for vv in (False, True)}
+    with torch.inference_mode():
+        zero_fused_counts()
+        pooled_f, taps_f = encode_image(
+            visual, cfg, images, taps_at, vv_start=vv_start, policy=bf16,
+            block_fn=fns[False], vv_block_fn=fns[True])
+        torch.cuda.synchronize()
+        c = fused_counts()
+        pooled_p, taps_p = encode_image(
+            visual, cfg, images, taps_at, vv_start=vv_start, policy=bf16,
+            block_fn=plain[False], vv_block_fn=plain[True])
+    n_std = sum(w == 3 * cfg.vision.width for w in widths)
+    print(f"encode_image bf16 B=2 vv_start={vv_start}: launches ln_linear "
+          f"{c[0]} ({n_std} to {3 * cfg.vision.width} columns, "
+          f"{len(widths) - n_std} to {cfg.vision.width}), attention "
+          f"{c[1]} standard + {c[2]} V-V, linear_residual {c[3]}, "
+          f"mlp_fused {c[4]}")
+    expect(c == (n_layers, vv_start, n_layers - vv_start, n_layers,
+                 n_layers, 0), f"encode_image launches {c}")
+    expect(n_std == vv_start and len(widths) == n_layers,
+           f"ln_linear widths {widths}")
+    expect(pooled_f.shape == (2, cfg.embed_dim), f"pooled {pooled_f.shape}")
+    for name, got, want in [("pooled", pooled_f[:, None], pooled_p[:, None])]\
+            + [(f"tap {d}", t, tp) for d, t, tp in zip(taps_at, taps_f,
+                                                       taps_p)]:
+        expect(bool(torch.isfinite(got).all()), f"encode_image {name}")
+        cos = torch.nn.functional.cosine_similarity(
+            got.double(), want.double(), dim=-1).min().item()
+        d = (got.float() - want.float()).abs().max().item()
+        print(f"  encode_image {name}: fused vs plain blocks max|d| "
+              f"{d:.3e}, least cosine {cos:.8f}")
+        expect(cos >= ENC_COS, f"encode_image {name} off: cosine {cos}")
+    del pooled_f, taps_f, pooled_p, taps_p, visual
+
+    # width 128, 2 heads x 64, 3 layers, fp32: card (kernels) vs CPU
+    small = CLIPConfig(embed_dim=64, vision=VisionConfig(
+        image_size=28, patch_size=14, width=128, layers=3, heads=2))
+    fp32 = DtypePolicy.fp32()
+    outs = []
+    for dev in ("cuda", "cpu"):
+        sv = init_vision_params(small, seed=4, device="cpu")
+        cpu_gen = torch.Generator().manual_seed(24)
+        with torch.no_grad():
+            for p in sv.parameters():  # no parameter the trivial 0 or 1
+                p.add_(torch.randn(p.shape, generator=cpu_gen) * 0.05)
+        sv = sv.to(dev)
+        x = torch.randn(2, 3, 28, 28, generator=cpu_gen).to(dev)
+        fns = {vv: FB.make_block_fn(2, fp32, act=L.gelu, vv=vv)
+               for vv in (False, True)}
+        with torch.inference_mode():
+            pooled, taps = encode_image(sv, small, x, (2, 3), vv_start=2,
+                                        policy=fp32, block_fn=fns[False],
+                                        vv_block_fn=fns[True])
+        outs.append([t.cpu() for t in (pooled, *taps)])
+    for got, want in zip(*outs):
+        torch.testing.assert_close(got, want, atol=TINY_ATOL, rtol=TINY_RTOL)
+    print("encode_image width 128 fp32 (fused blocks, standard and V-V): "
+          "card (kernels) matches the CPU")
+
+
+def time_fused(cfg, card):
+    """Phase 8e: each fused kernel, its plain version and the library
+    yardstick at the batch-32 shapes; returns {name: (ms, plain ms,
+    library ms, bound ms, bound_by)}."""
+    import torch
+
+    from aaclip_tpu_torch.core.config import DtypePolicy
+    from aaclip_tpu_torch.models import layers as L
+    from aaclip_tpu_torch.ops import fused_block as FB
+    from aaclip_tpu_torch.ops.attention import (attention_kernel,
+                                                attention_kernel_plain)
+
+    bf16 = DtypePolicy.bf16()
+    D, F, B, S = cfg.vision.width, int(cfg.vision.width *
+                                       cfg.vision.mlp_ratio), 32, \
+        cfg.vision.seq_len
+    R = B * S
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    t = fused_inputs(B, S, D, F, torch.bfloat16, gen)
+    x, g, b = t["x"], t["g"], t["b"]
+    wqkv = torch.randn(3 * D, D, generator=gen, device="cuda").mul(
+        D ** -0.5).to(torch.bfloat16)
+    bqkv = torch.randn(3 * D, generator=gen, device="cuda").mul(0.02).to(
+        torch.bfloat16)
+    y = torch.randn(B, S, D, generator=gen, device="cuda").to(torch.bfloat16)
+    wo, bo = t["w"][:D].contiguous(), t["bias"][:D].contiguous()
+    act = L.gelu_tanh
+    e = 2  # bytes of a bf16 element
+
+    def unfused_ln_linear():
+        h = L.layer_norm(x, g, b)
+        return L.linear(h, wqkv, bqkv, bf16).to(bf16.compute_dtype)
+
+    def unfused_linear_residual():
+        return x + L.linear(y, wo, bo, bf16).to(x.dtype)
+
+    mlp_p = SimpleNamespace(
+        c_fc=SimpleNamespace(weight=t["w"], bias=t["bias"]),
+        c_proj=SimpleNamespace(weight=t["w2"], bias=t["bias2"]))
+
+    def unfused_mlp():
+        return x + L.mlp(L.layer_norm(x, g, b), mlp_p, act, bf16)
+
+    cases = {
+        "ln_linear": (
+            lambda: FB.ln_linear(x, g, b, wqkv, bqkv, bf16),
+            lambda: FB.ln_linear_plain(x, g, b, wqkv, bqkv, bf16),
+            unfused_ln_linear, 2 * R * D * 3 * D,
+            (R * D + 3 * D * D + 3 * D + 2 * D + R * 3 * D) * e),
+        "linear_residual": (
+            lambda: FB.linear_residual(x, y, wo, bo, bf16),
+            lambda: FB.linear_residual_plain(x, y, wo, bo, bf16),
+            unfused_linear_residual, 2 * R * D * D,
+            (3 * R * D + D * D + D) * e),
+        "mlp_fused": (
+            lambda: FB.mlp_fused(x, g, b, t["w"], t["bias"], t["w2"],
+                                 t["bias2"], act, bf16),
+            lambda: FB.mlp_fused_plain(x, g, b, t["w"], t["bias"], t["w2"],
+                                       t["bias2"], act, bf16),
+            unfused_mlp, 4 * R * D * F,
+            (2 * R * D + 2 * D * F + F + 3 * D) * e),
+    }
+    out = {}
+    with torch.inference_mode():
+        for name, (kern, plain, lib, flops, nbytes) in cases.items():
+            ms = cuda_ms(kern, 20)
+            ms_plain = cuda_ms(plain, 5)
+            ms_lib = cuda_ms(lib, 20)
+            bound_ms, bound_by = bound(flops, nbytes)
+            out[name] = (ms, ms_plain, ms_lib, bound_ms, bound_by)
+            print(f"time {name} [{B},{S},{D}] bf16: kernel {ms:.4f} ms "
+                  f"({flops / ms / 1e9:.1f} TFLOP/s), plain {ms_plain:.4f}, "
+                  f"unfused sequence {ms_lib:.4f}; bound {bound_ms:.4f} ms "
+                  f"by {bound_by} on {card}")
+        del t, x, y, wqkv
+        H, hd = cfg.vision.heads, cfg.vision.head_dim
+        q, k, v = (torch.randn(B, H, S, hd, generator=gen, device="cuda").to(
+            torch.bfloat16) for _ in range(3))
+        ms = cuda_ms(lambda: attention_kernel(q, k, v, S), 20)
+        ms_plain = cuda_ms(lambda: attention_kernel_plain(q, k, v, S), 5)
+        ms_lib = cuda_ms(lambda: torch.nn.functional.
+                         scaled_dot_product_attention(q, k, v), 20)
+        flops = 4 * B * H * S * S * hd
+        bound_ms, bound_by = bound(flops, 4 * q.numel() * q.element_size())
+        out["attention_kernel"] = (ms, ms_plain, ms_lib, bound_ms, bound_by)
+        print(f"time attention_kernel [{B},{H},{S},{hd}] bf16: kernel "
+              f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+              f"{ms_plain:.4f}, sdpa {ms_lib:.4f}; bound {bound_ms:.4f} ms by "
+              f"{bound_by} on {card}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1017,7 +1525,34 @@ def main() -> int:
     vv_launches, ms_vv, ms_vv_plain, ms_vv_sdpa, vv_bound, vv_bound_by = \
         phase_stage1(vit, cfg, card)
 
+    # -- 8. fused-block path
+    print(f"[{time.perf_counter() - t0:.0f} s] fused-block path")
+    err_fused = {}
+    for d in DTYPES:
+        for name, err in check_fused_kernels(d).items():
+            err_fused[name] = max(err_fused.get(name, 0.0), err)
+    err_b4 = max(check_attention_kernel(d) for d in DTYPES)
+    fused_launches = phase_fused_predict(vit, adapter, cfg, acfg, anchors,
+                                         M, card)
+    expect(fused_launches["attention_packed"] == fwd_launches,
+           "the fused predict's attention launches differ from the "
+           "predict's")
+    phase_encode_image(vit, cfg)
+    fused_times = time_fused(cfg, card)
+
     print(f"[{time.perf_counter() - t0:.0f} s] done")
+    fused_rows = [
+        ("attention_kernel", "attention_packed.cu",
+         "aaclip_tpu/ops/flash_attention.py:94",
+         fused_launches["attention_kernel"], err_b4),
+        ("ln_linear", "fused_block.cu", "aaclip_tpu/ops/fused_block.py:124",
+         fused_launches["ln_linear"], err_fused["ln_linear"]),
+        ("linear_residual", "fused_block.cu",
+         "aaclip_tpu/ops/fused_block.py:179",
+         fused_launches["linear_residual"], err_fused["linear_residual"]),
+        ("mlp_fused", "fused_block.cu", "aaclip_tpu/ops/fused_block.py:244",
+         fused_launches["mlp_fused"], err_fused["mlp_fused"]),
+    ]
     print(json.dumps({"kernels": [{
         "name": "attention_packed",
         "route": "cuda",
@@ -1057,7 +1592,20 @@ def main() -> int:
         "bound_ms": vv_bound,
         "bound_by": vv_bound_by,
         "library_ms": ms_vv_sdpa,
-    }]}))
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": f"aaclip_tpu_torch/kernels/csrc/{source}",
+        "replaces": replaces,
+        "launches": launches,
+        "kernels_per_call": 1,
+        "max_abs_err": err,
+        "ms": fused_times[name][0],
+        "plain_ms": fused_times[name][1],
+        "bound_ms": fused_times[name][3],
+        "bound_by": fused_times[name][4],
+        "library_ms": fused_times[name][2],
+    } for name, source, replaces, launches, err in fused_rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,6 +3,8 @@ the JAX package's, on the CPU, where the wrapper runs its plain version:
 
 * ``attention_packed_plain`` vs the Pallas ``attention_packed`` in
   interpret mode (hd 64, 2 heads, S 250, q_blk 64, fp32 and bf16);
+* ``attention_kernel_plain`` vs the Pallas ``attention_kernel`` (the same
+  function on separate [B, H, S, hd] q, k, v) with valid_len < S;
 * the ``attn_fn`` hook and the plain XLA-path attention vs
   ``layers.attention`` at tiny-test's head dim 16.
 
@@ -21,13 +23,17 @@ import torch
 
 from aaclip_tpu.core.config import DtypePolicy as JPolicy
 from aaclip_tpu.models import layers as JL
+from aaclip_tpu.ops.flash_attention import attention_kernel as \
+    j_attention_kernel
 from aaclip_tpu.ops.flash_attention import attention_packed as j_attention
 from aaclip_tpu_torch.core.config import DtypePolicy
 from aaclip_tpu_torch.core.params import params_from_jax
 from aaclip_tpu_torch.device import resolve_device
 from aaclip_tpu_torch.kernels import build
 from aaclip_tpu_torch.models import layers as L
-from aaclip_tpu_torch.ops.attention import (attention_packed,
+from aaclip_tpu_torch.ops.attention import (attention_kernel,
+                                            attention_kernel_plain,
+                                            attention_packed,
                                             attention_packed_plain,
                                             make_attn_fn)
 from tests.test_torch_layers import perturbed_clip_tree
@@ -57,6 +63,52 @@ def test_plain_matches_pallas_interpret(dtype, valid_len):
     else:
         np.testing.assert_allclose(got.float().numpy(), want, atol=1e-3,
                                    rtol=2 ** -8)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_attention_kernel_plain_matches_pallas_interpret(dtype):
+    """B4 on separate [B, H, S, hd] q, k, v with keys past valid_len
+    masked; every row, the ones past valid_len too, is a query. Bars as
+    the packed attention's above."""
+    jd, td = DTYPES[dtype]
+    rng = np.random.default_rng(2)
+    q, k, v = (rng.standard_normal((2, 3, 70, 16)).astype(np.float32)
+               for _ in range(3))
+    want = j_attention_kernel(*(jnp.asarray(t, jd) for t in (q, k, v)), 50,
+                              q_blk=32, bh_blk=2,
+                              precision="highest" if dtype == "fp32"
+                              else None, interpret=True)
+    got = attention_kernel_plain(*(torch.from_numpy(t).to(td)
+                                   for t in (q, k, v)), 50)
+    assert got.shape == (2, 3, 70, 16) and got.dtype == td
+    want = np.asarray(want, np.float32)
+    if dtype == "fp32":
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+    else:
+        np.testing.assert_allclose(got.float().numpy(), want, atol=1e-3,
+                                   rtol=2 ** -8)
+
+
+def test_attention_kernel_is_the_packed_kernel_on_another_layout():
+    """On the CPU the wrapper is its plain version, counts no launch, and
+    equals the packed attention on the same values packed [B, S, 3D]; it
+    refuses a device it has no kernel for."""
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 4, 33, 16))
+                                .astype(np.float32)) for _ in range(3))
+    before = attention_kernel.launches
+    got = attention_kernel(q, k, v, 20)
+    assert attention_kernel.launches == before
+    torch.testing.assert_close(got, attention_kernel_plain(q, k, v, 20),
+                               atol=0, rtol=0)
+    packed = torch.cat([t.transpose(1, 2).reshape(2, 33, 64)
+                        for t in (q, k, v)], dim=-1)
+    torch.testing.assert_close(got.transpose(1, 2).reshape(2, 33, 64),
+                               attention_packed_plain(packed, 4, 20),
+                               atol=1e-6, rtol=1e-6)
+    with pytest.raises(ValueError, match="attention_kernel: unsupported"):
+        attention_kernel(*(torch.empty(1, 1, 8, 16, device="meta")
+                           for _ in range(3)), 8)
 
 
 def test_wrapper_runs_plain_on_cpu_and_counts_no_launch():
@@ -123,6 +175,11 @@ def test_kernel_entry_point_matches_the_c_signature():
     code = (build.CSRC.parent.parent / "ops" / "attention.py").read_text()
     argtypes = re.search(r"fn\.argtypes = \[([^\]]*)\]", code).group(1)
     assert len(argtypes.split(",")) == n_params == 16
+    sig = re.search(r'extern "C" int aaclip_attention_bhsd\(([^)]*)\)',
+                    src).group(1)
+    argtypes = re.search(r"aaclip_attention_bhsd\n.*?fn\.argtypes = "
+                         r"\[([^\]]*)\]", code, re.DOTALL).group(1)
+    assert len(argtypes.split(",")) == len(sig.split(",")) == 12
 
 
 def test_library_path_is_keyed_by_the_sources():

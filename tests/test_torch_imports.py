@@ -1,7 +1,8 @@
-"""The port imports neither JAX nor the JAX package: its predict, its
-stage-2 training step (the path of ``bench --mode train``) and its stage-1
-features and step (``bench --mode train_stage1``, tokenizer and prompts
-included) run in a fresh interpreter without either entering
+"""The port imports neither JAX nor the JAX package: its predict (with the
+default block and with the fused block), its stage-2 training step (the
+path of ``bench --mode train``) and its stage-1 features and step
+(``bench --mode train_stage1``, tokenizer and prompts included) run in a
+fresh interpreter without either entering
 ``sys.modules``, and no source file of the port (or chip_smoke.py, which
 runs where JAX is absent) names them in an import."""
 
@@ -36,6 +37,13 @@ x = torch.zeros(2, 3, 70, 70, dtype=torch.uint8)
 a = torch.nn.functional.normalize(torch.ones(32, 2), dim=0)
 M = torch.from_numpy(fused_postproc_matrix(5, 70, "Industrial"))
 pix, score = p(ad, x, a, M)
+from aaclip_tpu_torch.models.layers import config_act
+from aaclip_tpu_torch.ops.fused_block import make_block_fn
+bf = DtypePolicy.bf16()
+pf = make_predict_fn(vit, cfg, acfg, policy=bf, uint8_inputs=True,
+                     device="cpu", block_fn=make_block_fn(
+                         cfg.vision.heads, bf, act=config_act(cfg, bf)))
+fpix, fscore = pf(ad, x, a, M)
 step = make_stage2_step(vit, cfg, acfg, make_image_optimizer(ad.parameters()),
                         torch.stack([a, a]), policy=DtypePolicy.bf16(),
                         remat=False, device="cpu")
@@ -59,8 +67,10 @@ loss1 = s1(tad, feats, torch.zeros(2, 70, 70), torch.tensor([0, 1]),
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "aaclip_tpu"))
 print(json.dumps({"bad": bad, "shape": list(pix.shape),
+                  "fused_shape": list(fpix.shape),
                   "feats": list(feats.shape),
                   "finite": bool(torch.isfinite(pix).all()
+                                 and torch.isfinite(fpix).all()
                                  and torch.isfinite(loss)
                                  and torch.isfinite(feats).all()
                                  and torch.isfinite(loss1))}))
@@ -74,7 +84,8 @@ def test_predict_runs_without_jax_in_a_fresh_interpreter():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     result = json.loads(out.stdout.strip().splitlines()[-1])
-    assert result == {"bad": [], "shape": [2, 70, 70], "feats": [2, 25, 32],
+    assert result == {"bad": [], "shape": [2, 70, 70],
+                      "fused_shape": [2, 70, 70], "feats": [2, 25, 32],
                       "finite": True}
 
 

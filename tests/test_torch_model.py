@@ -149,8 +149,7 @@ def test_predict_rejects_what_is_not_ported():
     from aaclip_tpu_torch.core.params import init_vision_params
 
     vit = init_vision_params(cfg, device="cpu")
-    for kwargs in (dict(block_fn=lambda x, p: x), dict(mesh=object()),
-                   dict(sequence_parallel=True)):
+    for kwargs in (dict(mesh=object()), dict(sequence_parallel=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make_predict_fn(vit, cfg, acfg, device="cpu", **kwargs)
     for name in ("fp32_high", "int8"):
