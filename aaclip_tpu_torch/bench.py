@@ -40,7 +40,7 @@ REFERENCE_BASELINE_STAGE1_IMG_PER_SEC = 20.0
 # kernel-name fragments of the profile's device rows, by class
 _PROFILE_CLASSES = (
     ("attention forward kernel (standard and V-V)",
-     ("attn_bf16_kernel", "attn_f32_kernel")),
+     ("attn_fwd_wgmma", "attn_bf16_kernel", "attn_f32_kernel")),
     ("attention backward kernel", ("attn_bwd_",)),
     ("fused-block kernels (ln_linear, linear_residual, mlp_fused)",
      ("gemm_bf16_kernel", "gemm_f32_kernel", "mlp_bf16_kernel",

@@ -7,8 +7,15 @@ loads at once; a new or edited header rebuilds every library. The sources:
 ``attention_packed.cu`` (the forward attention in its standard, V-V and
 ``[B, H, S, hd]`` launches), ``attention_packed_bwd.cu`` (its backward)
 and ``fused_block.cu`` (``ln_linear``, ``linear_residual`` and
-``mlp_fused``). ``build_all`` starts one nvcc per source, all together. A
-missing ``nvcc`` or a failed compile raises: there is no fallback path.
+``mlp_fused``); the headers ``mma_common.cuh`` (mma.sync helpers) and
+``hopper_common.cuh`` (mbarriers, TMA, wgmma, and the host-side tensor
+maps of the attention kernels' bf16 head-dim-64 route). Each library links
+only the CUDA runtime: the driver-API call that encodes a tensor map,
+``cuTensorMapEncodeTiled``, is taken at run time through
+``cudaGetDriverEntryPoint(ByVersion)``, so nothing links ``-lcuda``.
+``build_all`` starts one nvcc per source, all together (about 25 s on the
+card's machine). A missing ``nvcc`` or a failed compile raises: there is
+no fallback path.
 """
 
 from __future__ import annotations

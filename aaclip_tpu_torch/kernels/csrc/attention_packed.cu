@@ -17,41 +17,70 @@
 // 16 heads x 64) the work is 4*16*1370^2*64 = 7.69 GFLOP against 11.2 MB
 // moved (3072*1370*2 B read, 1024*1370*2 B written), about 690 FLOP per
 // byte, far above the card's ~295 bf16 FLOP per byte of HBM: it is bound
-// by the tensor cores, not by memory.
+// by the tensor cores (989 TFLOP/s), not by memory; 245.9 GFLOP at the
+// predict's batch 32 is 0.249 ms. At head dim 64 the softmax's
+// exponentials are a second bound of the same size: one per score at 16
+// per SM and clock takes as long as the score's 4*64 product FLOP at the
+// tensor cores' ~4096 per SM and clock, so the design overlaps the two.
 //
-// Design. The TPU kernel holds a head's whole K and V row in VMEM; at
-// S 1408 in bf16 that is ~360 KB, more than a block's 227 KB of shared
-// memory. Here one block owns (64 query rows, one head, one image) and
-// walks the keys in tiles of 64 staged in shared memory, with an online
-// softmax (running max and sum in fp32) and one division at the end. Q, K
-// and V are read in place through the row stride and three section
-// offsets, so the V-V mode (all three on the one section) needs no new
-// kernel. The ragged tail is masked by bounds: rows >= S are zero-filled
-// on load and never stored, keys >= valid_len get -inf, and key tiles
-// wholly past valid_len are skipped.
+// Routes. bf16 at head dim kTmaHeadDim (64: ViT-L and ViT-B) runs
+// attn_fwd_wgmma, the design below. The other instantiations keep the
+// first port's kernels: bf16 at head dim 16 (tiny-test) on mma.sync
+// (attn_bf16_kernel: one block per 64 query rows, K/V tiles of 64 copied
+// through registers), and fp32, the parity policy, on fp32 FMA with one
+// thread per query row and no TF32 (attn_f32_kernel).
 //
-// bf16: Q.K^T and P.V run on the tensor cores through mma.sync m16n8k16
-// with fp32 accumulation; P is rounded to bf16 before P.V as the TPU
-// kernel does, the row sum is taken over the fp32 P. Each of the 4 warps
-// owns 16 query rows; scores, P and the output stay in registers.
-// fp32 (the parity policy): fp32 FMA throughout, no TF32; one thread per
-// query row.
-// Both are templated on the head dim (64 for ViT-L/B, 16 for tiny-test).
+// Design of attn_fwd_wgmma. The TPU kernel holds a head's whole K and V
+// in VMEM (~360 KB at S 1408), more than a block's 227 KB of shared
+// memory, so here one block owns (128 query rows, one head, one image) and
+// walks the keys in tiles of 128 with an online softmax (running max and
+// sum in fp32) and one division at the end. Its 384 threads are three
+// warpgroups: two consumers of 64 query rows each and a producer. One
+// producer thread keeps the block's Q tile and a ring of kFwdStages K/V
+// tile pairs in flight by TMA, each stage tracked by a full and an empty
+// mbarrier, so the next tiles arrive while the current one's products run
+// (the first port copied each tile through registers between two
+// __syncthreads, with no copy in flight). Each consumer computes
+// S = Q K^T on wgmma from shared memory (m64n128k16, both operands K-major,
+// 128-byte swizzle as TMA writes it; hopper_common.cuh), rounds P to bf16
+// in registers, where the accumulator layout of S is already the
+// A-fragment layout of the next product, and accumulates O += P V on wgmma
+// with A from registers and V read MN-major (m64n64k16). Tile k's S is
+// issued together with tile k-1's P V, so the softmax of tile k runs on
+// the CUDA cores while that product is on the tensor cores; P V of tile
+// k-1 reads its fragments from registers the softmax of tile k does not
+// write. Scores stay raw and one FFMA takes them to the exp2 domain
+// (exp(s*scale - m*scale) = 2^(s*c - m*c), c = scale * log2 e), and only
+// the tile holding valid_len is masked. The producer gives its registers
+// up (setmaxnreg) to the consumers. Q, K and V come through three 3-D
+// tensor maps (columns x rows x depth): the packed launches map each
+// section as (D columns, S rows, B images) with strides ld and S*ld, the
+// section offset in the base address, so rows past S in a tail tile read
+// as zeros from this image and never from the next; the [B, H, S, hd]
+// launch maps (hd, S, B*H). The ragged tail is masked as before: keys >=
+// valid_len get -inf, key tiles wholly past valid_len are not loaded, rows
+// >= S are never stored. P is rounded to bf16 against the running max
+// before P.V and the row sum is taken over the fp32 P, as the TPU kernel
+// does.
 //
 // B4 (flash_attention.py::attention_kernel, _attn_kernel) is the same
-// function on separate q, k, v in the [B, H, S, hd] layout: the kernels
-// address every operand through batch, head and row strides (`Layout`), so
-// aaclip_attention_bhsd launches them with its own base pointers and the
-// strides of that layout (H*S*hd, S*hd, hd). Rows from valid_len up to S are
-// real queries there and are computed; only keys are masked.
+// function on separate q, k, v in the [B, H, S, hd] layout: every route
+// addresses its operands through (batch, head, row) strides (`Layout`) or
+// through tensor maps, so aaclip_attention_bhsd launches the same kernels
+// with its own base pointers and the strides of that layout (H*S*hd,
+// S*hd, hd). Rows from valid_len up to S are real queries there and are
+// computed; only keys are masked. The same kernel and tiles on the same
+// values give the same bits in both layouts, and the V-V launch gives the
+// bits of the standard launch on [v, v, v].
 //
 // Training (attention_packed_bwd.cu) needs each row's logsumexp: with a
-// non-null `lse` [B, H, S] fp32 the kernel also writes m + log(l), the
+// non-null `lse` [B, H, S] fp32 every route also writes m + log(l), the
 // final running max plus the log of the row sum (both in the scaled-score
 // domain). The inference path passes null and stores nothing more.
 
 #include <math.h>
 
+#include "hopper_common.cuh"
 #include "mma_common.cuh"
 
 namespace {
@@ -267,41 +296,292 @@ attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int HD>
-void launch(bool bf16, dim3 grid, cudaStream_t stream, const void* q,
-            const void* k, const void* v, void* out, float* lse, int S,
-            int valid_len, Layout in, Layout ol, float scale) {
-  if (bf16)
-    attn_bf16_kernel<HD><<<grid, 128, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v),
-        static_cast<__nv_bfloat16*>(out), lse, S, valid_len, in, ol, scale);
-  else
-    attn_f32_kernel<HD><<<grid, kBlockM, 0, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(out), lse, S,
-        valid_len, in, ol, scale);
+
+// ------------------------------------------------ bf16, hd 64: TMA + wgmma
+
+constexpr int kTmaHeadDim = 64;  // the bf16 head dim on attn_fwd_wgmma
+constexpr int kWgRows = 64;      // query rows per consumer warpgroup
+constexpr int kFwdRows = 2 * kWgRows;  // query rows per block
+constexpr int kFwdKeys = 128;    // keys per TMA tile
+constexpr int kFwdStages = 3;    // K/V tile pairs in flight
+constexpr int kFwdThreads = 384;  // two consumer warpgroups + the producer
+constexpr int kFwdTileBytes = kFwdKeys * kRowBytes;  // one K or V tile
+constexpr int kFwdSmem = kSwizzleAtom +  // slack to align the tiles
+                         kFwdRows * kRowBytes + 2 * kFwdStages * kFwdTileBytes +
+                         8 * (1 + 2 * kFwdStages);
+static_assert(kTmaHeadDim == kTileCols, "one tile row is one head");
+
+// Tensor-map coordinates of head h of image b: column h * hcol, depth
+// b * bz + h * hz ((hd, 1, 0) packed; (0, H, 1) on [B, H, S, hd]).
+struct MapCoords {
+  int hcol, bz, hz;
+};
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-int launch_any(bool bf16, int head_dim, int batch, int seq, int valid_len,
-               int heads, const void* q, const void* k, const void* v,
-               void* out, float* lse, Layout in, Layout ol, float scale,
-               void* stream) {
-  const dim3 grid((seq + kBlockM - 1) / kBlockM, heads, batch);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 16:
-      launch<16>(bf16, grid, st, q, k, v, out, lse, seq, valid_len, in, ol,
-                 scale);
-      break;
-    case 64:
-      launch<64>(bf16, grid, st, q, k, v, out, lse, seq, valid_len, in, ol,
-                 scale);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+// One tile of the online softmax for rows g and g + 8 of a warp: raw
+// scores s (keys at or past valid_len read as -inf when kMask) update the
+// running raw max m and the row sums l (scaled by alpha, which the caller
+// applies to O), and become bf16(P) as the A fragments pf of P V. P is
+// rounded against the running max, the sum taken over the fp32 P. The
+// scores are only read: writing a wgmma's accumulator registers while
+// products are in flight makes the compiler serialize them.
+template <bool kMask>
+__device__ __forceinline__ void softmax_tile(const float (&s)[64],
+                                             float (&m)[2], float (&l)[2],
+                                             uint32_t (&pf)[8][4],
+                                             float (&alpha)[2], int k0,
+                                             int valid_len, float c, int t) {
+  auto score = [&](int j, int i) {
+    return kMask && k0 + j * 8 + t * 2 + (i & 1) >= valid_len
+               ? -INFINITY
+               : s[4 * j + i];
+  };
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) mx[i >> 1] = fmaxf(mx[i >> 1], score(j, i));
+  float mc[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    mc[r] = (mx[r] == -INFINITY ? 0.f : mx[r]) * c;
+    alpha[r] = ex2(fmaf(m[r], c, -mc[r]));
+    m[r] = mx[r];
+    l[r] *= alpha[r];
   }
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const float p0 = ex2(fmaf(score(j, 0), c, -mc[0]));
+    const float p1 = ex2(fmaf(score(j, 1), c, -mc[0]));
+    const float p2 = ex2(fmaf(score(j, 2), c, -mc[1]));
+    const float p3 = ex2(fmaf(score(j, 3), c, -mc[1]));
+    l[0] += p0 + p1;
+    l[1] += p2 + p3;
+    // two adjacent 8-key column groups form one 16-key k-step
+    pf[j >> 1][(j & 1) * 2 + 0] = pack_f32(p0, p1);
+    pf[j >> 1][(j & 1) * 2 + 1] = pack_f32(p2, p3);
+  }
+}
+
+__global__ void __launch_bounds__(kFwdThreads, 1)
+attn_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
+               const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv,
+               __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+               int S, int valid_len, MapCoords mc, Layout ol, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_atom(smem_raw);
+  uint8_t* sQ = smem;  // [128 rows][64], rows 64w.. for warpgroup w
+  uint8_t* sK = sQ + kFwdRows * kRowBytes;        // [stage][128 keys][64]
+  uint8_t* sV = sK + kFwdStages * kFwdTileBytes;  // [stage][128 keys][64]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sV + kFwdStages *
+                                               kFwdTileBytes);
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + kFwdStages;
+
+  const int q0 = blockIdx.x * kFwdRows;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int col = h * mc.hcol, depth = b * mc.bz + h * mc.hz;
+  const int n_tiles = (valid_len + kFwdKeys - 1) / kFwdKeys;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kFwdStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2 * 128);  // every consumer thread
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {  // producer
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 2 * 128) {
+      mbar_arrive_expect_tx(q_full, kFwdRows * kRowBytes);
+      tma_load_3d(sQ, &tq, q_full, col, q0, depth);
+      for (int kt = 0; kt < n_tiles; ++kt) {
+        const int st = kt % kFwdStages;
+        if (kt >= kFwdStages) mbar_wait(&empty[st], (kt / kFwdStages - 1) & 1);
+        mbar_arrive_expect_tx(&full[st], 2 * kFwdTileBytes);
+        tma_load_3d(sK + st * kFwdTileBytes, &tk, &full[st], col,
+                    kt * kFwdKeys, depth);
+        tma_load_3d(sV + st * kFwdTileBytes, &tv, &full[st], col,
+                    kt * kFwdKeys, depth);
+      }
+    }
+  } else {  // consumers: 64 query rows each
+    setmaxnreg_inc<kConsumerRegs>();
+    const int warp = (threadIdx.x % 128) / 32;
+    const int g = (threadIdx.x & 31) >> 2;
+    const int t = threadIdx.x & 3;
+    const uint64_t dq = sw128_desc(sQ + wg * kWgRows * kRowBytes);
+
+    // scores are kept raw (unscaled); c takes them to the exp2 domain, so
+    // each probability is one FFMA and one ex2: exp(s*scale - m*scale)
+    const float c = scale * kLog2e;
+    float o[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY};  // running raw max of rows g, g+8
+    float l[2] = {0.f, 0.f};              // this thread's share of the sums
+    float s[64];                 // S = Q K^T: [64 rows x 128 keys]
+    uint32_t pf[kFwdKeys / 16][4];   // bf16(P) of the previous tile
+    uint32_t pn[kFwdKeys / 16][4];   // bf16(P) of the current tile
+    float alpha[2];
+    const int n_full = valid_len / kFwdKeys;  // tiles with no masked key
+    mbar_wait(q_full, 0);
+
+    // Tile kt's S = Q K^T is issued together with the previous tile's
+    // O += P V; the softmax of tile kt runs on the CUDA cores while that
+    // P V product is still on the tensor cores.
+    for (int kt = 0; kt < n_tiles; ++kt) {
+      const int st = kt % kFwdStages;
+      const int prev = (kt + kFwdStages - 1) % kFwdStages;
+      mbar_wait(&full[st], (kt / kFwdStages) & 1);
+      const uint64_t dk = sw128_desc(sK + st * kFwdTileBytes);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kTmaHeadDim / 16; ++ks)
+        wgmma_ss_n128(s, desc_plus(dq, 32 * ks), desc_plus(dk, 32 * ks), ks);
+      wgmma_commit();
+      if (kt > 0) {
+        const uint64_t dv = sw128_desc(sV + prev * kFwdTileBytes);
+#pragma unroll
+        for (int kk = 0; kk < kFwdKeys / 16; ++kk)
+          wgmma_rs_n64_mn(o, pf[kk], desc_plus(dv, 16 * kRowBytes * kk));
+        wgmma_commit();
+        wgmma_wait<1>();
+      } else {
+        wgmma_wait<0>();
+      }
+      fence_operand(s);
+      if (kt < n_full)
+        softmax_tile<false>(s, m, l, pn, alpha, 0, valid_len, c, t);
+      else
+        softmax_tile<true>(s, m, l, pn, alpha, kt * kFwdKeys, valid_len, c,
+                           t);
+      wgmma_wait<0>();
+      fence_operand(o);
+      fence_frags(pf);  // the P V product read pf until here
+      if (kt > 0) mbar_arrive(&empty[prev]);
+#pragma unroll
+      for (int nd = 0; nd < 8; ++nd) {
+        o[4 * nd + 0] *= alpha[0];
+        o[4 * nd + 1] *= alpha[0];
+        o[4 * nd + 2] *= alpha[1];
+        o[4 * nd + 3] *= alpha[1];
+      }
+#pragma unroll
+      for (int kk = 0; kk < kFwdKeys / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) pf[kk][r] = pn[kk][r];
+    }
+    {  // the last tile's P V
+      const int st = (n_tiles - 1) % kFwdStages;
+      const uint64_t dv = sw128_desc(sV + st * kFwdTileBytes);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kFwdKeys / 16; ++kk)
+        wgmma_rs_n64_mn(o, pf[kk], desc_plus(dv, 16 * kRowBytes * kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operand(o);
+      fence_frags(pf);
+      mbar_arrive(&empty[st]);
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+    const int row_a = q0 + wg * kWgRows + warp * 16 + g;
+    const int row_b = row_a + 8;
+    __nv_bfloat16* ob = out + b * ol.batch + h * ol.head + t * 2;
+#pragma unroll
+    for (int nd = 0; nd < 8; ++nd) {
+      if (row_a < S)
+        *reinterpret_cast<uint32_t*>(ob + row_a * ol.row + nd * 8) =
+            pack_f32(o[4 * nd + 0] / l[0], o[4 * nd + 1] / l[0]);
+      if (row_b < S)
+        *reinterpret_cast<uint32_t*>(ob + row_b * ol.row + nd * 8) =
+            pack_f32(o[4 * nd + 2] / l[1], o[4 * nd + 3] / l[1]);
+    }
+    if (lse != nullptr && t == 0) {
+      float* lrow = lse + ((int64_t)b * gridDim.y + h) * S;
+      if (row_a < S) lrow[row_a] = m[0] * scale + logf(l[0]);
+      if (row_b < S) lrow[row_b] = m[1] * scale + logf(l[1]);
+    }
+  }
+}
+
+// A bf16 operand for attn_fwd_wgmma: its base, the columns the map spans,
+// the rows per depth step, the depth, and the row and depth strides in
+// elements.
+struct MapOperand {
+  const void* base;
+  int64_t cols, rows, depth, row, step;
+};
+
+int launch_wgmma(const MapOperand (&qkv)[3], MapCoords mc, int batch,
+                 int seq, int valid_len, int heads, void* out, float* lse,
+                 Layout ol, float scale, cudaStream_t st) {
+  CUtensorMap maps[3];
+  for (int i = 0; i < 3; ++i) {
+    const MapOperand& a = qkv[i];
+    const cudaError_t err = make_tile_map(
+        &maps[i], a.base, a.cols, a.rows, a.depth, a.row * 2, a.step * 2,
+        kFwdRows);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  static_assert(kFwdRows == kFwdKeys, "Q and K/V tiles share a box shape");
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_fwd_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((seq + kFwdRows - 1) / kFwdRows, heads, batch);
+  attn_fwd_wgmma<<<grid, kFwdThreads, kFwdSmem, st>>>(
+      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(out), lse, seq,
+      valid_len, mc, ol, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------ the retained routes
+
+// bf16 at head dim 16 and fp32 at 16 and 64; cudaErrorInvalidValue for a
+// pair with no kernel.
+int launch_retained(bool bf16, int head_dim, int batch, int seq,
+                    int valid_len, int heads, const void* q, const void* k,
+                    const void* v, void* out, float* lse, Layout in,
+                    Layout ol, float scale, cudaStream_t st) {
+  const dim3 grid((seq + kBlockM - 1) / kBlockM, heads, batch);
+  using T = __nv_bfloat16;
+  if (bf16 && head_dim == 16)
+    attn_bf16_kernel<16><<<grid, 128, 0, st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(out), lse, seq, valid_len,
+        in, ol, scale);
+  else if (!bf16 && head_dim == 16)
+    attn_f32_kernel<16><<<grid, kBlockM, 0, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(out), lse, seq,
+        valid_len, in, ol, scale);
+  else if (!bf16 && head_dim == 64)
+    attn_f32_kernel<64><<<grid, kBlockM, 0, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(out), lse, seq,
+        valid_len, in, ol, scale);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -309,9 +589,11 @@ int launch_any(bool bf16, int head_dim, int batch, int seq, int valid_len,
 
 // qkv: [batch, seq, ld] elements, out: [batch, seq, out_ld]; the q/k/v
 // sections of head h start at column {q,k,v}_off + h * head_dim. lse:
-// [batch, heads, seq] fp32, or null to skip it. Returns
+// [batch, heads, seq] fp32, or null to skip it. bf16 at head dim
+// kTmaHeadDim takes attn_fwd_wgmma, whose tensor maps need qkv, each
+// section's start and ld * 2 bytes to be multiples of kTmaAlign. Returns
 // the CUDA error of the launch (0 on success); cudaErrorInvalidValue for a
-// head dim with no instantiation.
+// head dim with no instantiation or an operand TMA cannot take.
 extern "C" int aaclip_attention_packed(const void* qkv, void* out,
                                        float* lse, int bf16,
                                        int head_dim, int batch, int seq,
@@ -321,16 +603,26 @@ extern "C" int aaclip_attention_packed(const void* qkv, void* out,
                                        float scale, void* stream) {
   const size_t esize = bf16 ? 2 : 4;
   const char* base = static_cast<const char*>(qkv);
-  const Layout in{(int64_t)seq * ld, head_dim, ld};
   const Layout ol{(int64_t)seq * out_ld, head_dim, out_ld};
-  return launch_any(bf16 != 0, head_dim, batch, seq, valid_len, heads,
-                    base + q_off * esize, base + k_off * esize,
-                    base + v_off * esize, out, lse, in, ol, scale, stream);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16 && head_dim == kTmaHeadDim) {
+    const int64_t cols = (int64_t)heads * head_dim;
+    const MapOperand ops[3] = {
+        {base + q_off * esize, cols, seq, batch, ld, (int64_t)seq * ld},
+        {base + k_off * esize, cols, seq, batch, ld, (int64_t)seq * ld},
+        {base + v_off * esize, cols, seq, batch, ld, (int64_t)seq * ld}};
+    return launch_wgmma(ops, MapCoords{head_dim, 1, 0}, batch, seq,
+                        valid_len, heads, out, lse, ol, scale, st);
+  }
+  const Layout in{(int64_t)seq * ld, head_dim, ld};
+  return launch_retained(bf16 != 0, head_dim, batch, seq, valid_len, heads,
+                         base + q_off * esize, base + k_off * esize,
+                         base + v_off * esize, out, lse, in, ol, scale, st);
 }
 
 // q, k, v, out: contiguous [batch, heads, seq, head_dim] (flash_attention.py
 // attention_kernel's layout); keys at or past valid_len masked, every row
-// computed. Returns as aaclip_attention_packed.
+// computed. The same routes and returns as aaclip_attention_packed.
 extern "C" int aaclip_attention_bhsd(const void* q, const void* k,
                                      const void* v, void* out, int bf16,
                                      int head_dim, int batch, int seq,
@@ -338,6 +630,15 @@ extern "C" int aaclip_attention_bhsd(const void* q, const void* k,
                                      void* stream) {
   const int64_t hs = (int64_t)seq * head_dim;
   const Layout l{heads * hs, hs, head_dim};
-  return launch_any(bf16 != 0, head_dim, batch, seq, valid_len, heads, q, k,
-                    v, out, nullptr, l, l, scale, stream);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16 && head_dim == kTmaHeadDim) {
+    const int64_t depth = (int64_t)batch * heads;
+    const MapOperand ops[3] = {{q, head_dim, seq, depth, head_dim, hs},
+                               {k, head_dim, seq, depth, head_dim, hs},
+                               {v, head_dim, seq, depth, head_dim, hs}};
+    return launch_wgmma(ops, MapCoords{0, heads, 1}, batch, seq, valid_len,
+                        heads, out, nullptr, l, scale, st);
+  }
+  return launch_retained(bf16 != 0, head_dim, batch, seq, valid_len, heads, q,
+                         k, v, out, nullptr, l, l, scale, st);
 }

@@ -21,31 +21,73 @@
 // 989 TFLOP/s), against ~158 MB moved (qkv and d(qkv) 67.3 MB each, dO
 // 22.4 MB, lse 0.7 MB: 0.047 ms at 3.35 TB/s). Operations bound it.
 //
-// Design. On the TPU the q grid axis runs in order and dK/dV accumulate in
-// VMEM across q blocks. Blocks on Hopper run in no order, so the work is
-// split into two kernels, without atomics and deterministic:
-//  (1) attn_bwd_dq_*: one block per (query tile, head, image). A first
-//      walk over the K/V tiles recomputes P from lse and sums
-//      dsum = rowsum(dP * P) (stored to `dsum` [B, H, S] for kernel 2); a
-//      second walk forms dS and accumulates dQ = dS K in fp32 registers.
-//  (2) attn_bwd_dkdv_*: one block per (key tile, head, image) walks the
-//      query tiles, recomputes P^T = exp(K Q^T * scale - lse) and
-//      dP^T = V dO^T, and keeps dK and dV of its rows in fp32 registers.
-// This recomputes Q.K^T three times and dO.V^T twice, 11 S^2*hd products
-// where the TPU kernel does 5; making it fast is later work.
+// Why nine products, not five. On the TPU the q grid axis runs in order
+// and dK/dV accumulate in VMEM across q blocks, so one walk does S, dP,
+// dV, dQ and dK. Blocks on Hopper run in no order, and dQ sums over keys
+// while dK and dV sum over queries; without atomics (which would make the
+// result depend on the order blocks finish) the work is split into two
+// kernels, deterministic, each output element written once:
+//  (A) attn_bwd_dq_*, query-outer: one block per (query tile, head,
+//      image). Walk 1 over the K/V tiles recomputes S = Q K^T and
+//      dP = dO V^T (2 products) and sums dsum = rowsum(dP * P), stored to
+//      `dsum` [B, H, S] for kernel B; dsum must be complete before any dS,
+//      so walk 2 recomputes S and dP and accumulates dQ += dS K
+//      (3 products).
+//  (B) attn_bwd_dkdv_*, key-outer: one block per (key tile, head, image)
+//      walks the query tiles, recomputes S^T = K Q^T and dP^T = V dO^T and
+//      accumulates dV += bf16(P)^T dO and dK += dS^T Q (4 products).
+// That is 9 S^2*hd products (18*B*H*S^2*hd FLOP, 276.8 GFLOP at the shape
+// above, 0.280 ms at peak). The first port did the same 9 on mma.sync (its
+// header said 11; it was 9). Five would need either FlashAttention-2's
+// dsum = rowsum(dO * O), which departs from the TPU kernel's arithmetic,
+// or dQ summed across key-outer blocks with atomics, which is not
+// deterministic; this design takes neither.
 //
-// bf16: every product on the tensor cores through mma.sync m16n8k16 with
-// fp32 accumulation, 4 warps of 16 rows, tiles of 64 rows. fp32 (the parity
-// policy): fp32 FMA, no TF32; 32 rows per block and two threads per row,
-// each owning half its columns; the block's own rows and the walked tile in
-// shared memory, the fp32 accumulator half-rows in registers. Both are
-// templated on the head dim.
-// Ragged tail as in the forward: rows >= S are zero-filled and never stored
-// (a padded query row's lse is +inf, so its P is 0), keys >= valid_len get
-// P = 0 and key tiles wholly past valid_len store zero gradients.
+// Routes. bf16 at head dim kTmaHeadDim (64) runs the TMA + wgmma pair
+// attn_bwd_dq_wgmma / attn_bwd_dkdv_wgmma below. bf16 at head dim 16
+// (tiny-test) keeps the first port's mma.sync pair (4 warps of 16 rows,
+// tiles of 64 copied through registers), and fp32, the parity policy,
+// keeps fp32 FMA (32 rows per block, two threads per row, each owning half
+// its columns; no TF32).
+//
+// Design of the wgmma pair. Each block has three warpgroups: two
+// consumers of 64 rows each (128 rows per block) and a producer whose
+// registers go to the consumers (setmaxnreg 40 / 232). All tiles arrive
+// by TMA (3-D tensor maps of the packed sections and of dO, columns x rows
+// x images, so a tail tile reads zeros past S and never the next image),
+// 128-byte swizzled, into a ring of stages tracked by full and empty
+// mbarriers, so the next tiles are in flight while the current products
+// run; every product is a wgmma of a 64-row warpgroup tile
+// (hopper_common.cuh).
+//  (A) The block's Q and dO rows stay in shared memory; K/V tiles of 64
+//      keys stream through the ring twice, once per walk. S and dP are
+//      m64n64k16 from shared memory (both K-major); walk 2 rounds dS to
+//      bf16 in registers, where S's accumulator layout is the A-fragment
+//      layout, and accumulates dQ += dS K with A from registers and the K
+//      tile read MN-major. Each walk keeps the tensor cores busy during
+//      its elementwise work: walk 1 issues tile k+1's S and dP (into a
+//      second register set) before tile k's rowsum, walk 2 issues tile k's
+//      S and dP together with tile k-1's dQ product (whose dS fragments
+//      are a second register set). The elementwise work only reads the
+//      score registers: writing a wgmma's accumulator registers while
+//      products are in flight makes the compiler serialize them (ptxas
+//      notes C7515 / C7517, and a markedly slower kernel on an H100).
+//  (B) The block's K and V rows stay in shared memory; Q/dO tiles of 64
+//      queries stream through the ring with their lse and dsum slices
+//      (the producer warp copies those into the stage beside the TMA
+//      tiles: a row of lse is S * 4 bytes, not a multiple of 16 at
+//      S 1370, so TMA cannot map it). S^T and dP^T are m64n64k16 from
+//      shared memory; bf16(P^T) and bf16(dS^T) are the register A
+//      operands of dV += P^T dO and dK += dS^T Q with dO and Q read
+//      MN-major; dK and dV stay in fp32 registers.
+// Ragged tail as in the forward: rows >= S read as zeros and are never
+// stored (a padded query row's lse is +inf, so its P is 0), keys >=
+// valid_len get P = 0, and key tiles wholly past valid_len store zero
+// gradients without loading anything.
 
 #include <math.h>
 
+#include "hopper_common.cuh"
 #include "mma_common.cuh"
 
 namespace {
@@ -479,12 +521,481 @@ attn_bwd_dkdv_f32(const float* __restrict__ qkv,
   }
 }
 
-template <int HD>
-int launch(bool bf16, int batch, int seq, int heads, cudaStream_t st,
-           const void* qkv, const void* dout, const float* lse, float* dsum,
-           void* dqkv, int valid_len, int64_t ld, int q_off, int k_off,
-           int v_off, int64_t do_ld, float scale) {
-  if (bf16) {
+// ------------------------------------------------ bf16, hd 64: TMA + wgmma
+
+constexpr int kTmaHeadDim = 64;  // the bf16 head dim on the wgmma pair
+constexpr int kWgRows = 64;      // rows per consumer warpgroup
+constexpr int kBlockRows = 2 * kWgRows;  // the block's own rows (Q or K/V)
+constexpr int kWalkRows = 64;    // rows per streamed tile (K/V or Q/dO)
+constexpr int kBwdStages = 3;    // streamed tile pairs in flight
+constexpr int kBwdThreads = 384;  // two consumer warpgroups + the producer
+constexpr int kHalfBytes = kWgRows * kRowBytes;     // 8 KB: one TMA box
+constexpr int kWalkBytes = kWalkRows * kRowBytes;   // one streamed tile
+constexpr int kDqSmem = kSwizzleAtom + 2 * kBlockRows * kRowBytes +
+                        2 * kBwdStages * kWalkBytes + 8 * (1 + 2 * kBwdStages);
+constexpr int kDkdvSmem = kSwizzleAtom + 2 * kBlockRows * kRowBytes +
+                          2 * kBwdStages * kWalkBytes +
+                          kBwdStages * 2 * kWalkRows * 4 +
+                          8 * (1 + 2 * kBwdStages);
+static_assert(kTmaHeadDim == kTileCols, "one tile row is one head");
+static_assert(kWalkRows == kWgRows, "every TMA box is 64 rows");
+
+// The block's own 128 rows as two 64-row boxes (one per warpgroup).
+__device__ __forceinline__ void load_block_rows(uint8_t* dst,
+                                                const CUtensorMap* map,
+                                                uint64_t* bar, int col,
+                                                int row0, int depth) {
+  tma_load_3d(dst, map, bar, col, row0, depth);
+  tma_load_3d(dst + kHalfBytes, map, bar, col, row0 + kWgRows, depth);
+}
+
+// Issue S and dP of one warpgroup's 64 rows against one streamed 64-row
+// tile as one wgmma group: s = A . B^T and dp = dA . dB^T, all four
+// operands K-major in shared memory. The caller waits for the group.
+__device__ __forceinline__ void issue_scores_and_dp(float (&s)[32],
+                                                    float (&dp)[32],
+                                                    uint64_t a, uint64_t da,
+                                                    uint64_t bt,
+                                                    uint64_t dbt) {
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < kTmaHeadDim / 16; ++ks)
+    wgmma_ss_n64(s, desc_plus(a, 32 * ks), desc_plus(bt, 32 * ks), ks);
+#pragma unroll
+  for (int ks = 0; ks < kTmaHeadDim / 16; ++ks)
+    wgmma_ss_n64(dp, desc_plus(da, 32 * ks), desc_plus(dbt, 32 * ks), ks);
+  wgmma_commit();
+}
+
+// Kernel A's P of score s[4j + i] of one tile (keys at or past valid_len,
+// checked when kMask, get P = 0). The two users below read the scores and
+// write other registers: a score register written while a wgmma is in
+// flight would serialize the products.
+template <bool kMask>
+__device__ __forceinline__ float prob_a(const float (&s)[32], int j, int i,
+                                        int k0, int valid_len, float scale,
+                                        const float (&lse_r)[2], int t) {
+  const bool keep = !kMask || k0 + j * 8 + t * 2 + (i & 1) < valid_len;
+  return keep ? __expf(__fmul_rn(s[4 * j + i], scale) - lse_r[i >> 1])
+              : 0.f;
+}
+
+// Walk 1 of kernel A: ds_row += rowsum(dP * P) over one tile.
+template <bool kMask>
+__device__ __forceinline__ void dsum_tile(const float (&s)[32],
+                                          const float (&dp)[32],
+                                          float (&ds_row)[2], int k0,
+                                          int valid_len, float scale,
+                                          const float (&lse_r)[2], int t) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      ds_row[i >> 1] +=
+          dp[4 * j + i] *
+          prob_a<kMask>(s, j, i, k0, valid_len, scale, lse_r, t);
+}
+
+// Walk 2 of kernel A: bf16(dS) = round(P * (dP - dsum) * scale) of one
+// tile as the A fragments f of dQ += dS K.
+template <bool kMask>
+__device__ __forceinline__ void ds_tile(const float (&s)[32],
+                                        const float (&dp)[32],
+                                        uint32_t (&f)[4][4],
+                                        const float (&ds_row)[2], int k0,
+                                        int valid_len, float scale,
+                                        const float (&lse_r)[2], int t) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    float v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      v[i] = prob_a<kMask>(s, j, i, k0, valid_len, scale, lse_r, t) *
+             (dp[4 * j + i] - ds_row[i >> 1]) * scale;
+    f[j >> 1][(j & 1) * 2 + 0] = pack_f32(v[0], v[1]);
+    f[j >> 1][(j & 1) * 2 + 1] = pack_f32(v[2], v[3]);
+  }
+}
+
+// bf16 A fragments of a 64-column accumulator: two adjacent 8-column
+// groups form one 16-deep k-step.
+__device__ __forceinline__ void pack_frags(uint32_t (&f)[4][4],
+                                           const float (&v)[32]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    f[j >> 1][(j & 1) * 2 + 0] = pack_f32(v[4 * j + 0], v[4 * j + 1]);
+    f[j >> 1][(j & 1) * 2 + 1] = pack_f32(v[4 * j + 2], v[4 * j + 3]);
+  }
+}
+
+// acc += A . B over a 64-deep reduction: A from the fragments f, B a
+// [64 x 64] tile read MN-major (its rows are the reduction).
+__device__ __forceinline__ void mma_rows(float (&acc)[32],
+                                         const uint32_t (&f)[4][4],
+                                         uint64_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs_n64_mn(acc, f[kk], desc_plus(b, 16 * kRowBytes * kk));
+}
+
+// Rows row_a and row_a + 8 (when < S) of a [64 x 64] accumulator into
+// dst (row stride ld), cast to bf16.
+__device__ __forceinline__ void store_acc(__nv_bfloat16* dst, int64_t ld,
+                                          const float (&acc)[32], int row_a,
+                                          int S, int t) {
+#pragma unroll
+  for (int nd = 0; nd < 8; ++nd) {
+    if (row_a < S)
+      *reinterpret_cast<uint32_t*>(dst + (int64_t)row_a * ld + nd * 8 +
+                                   t * 2) =
+          pack_f32(acc[4 * nd + 0], acc[4 * nd + 1]);
+    if (row_a + 8 < S)
+      *reinterpret_cast<uint32_t*>(dst + (int64_t)(row_a + 8) * ld + nd * 8 +
+                                   t * 2) =
+          pack_f32(acc[4 * nd + 2], acc[4 * nd + 3]);
+  }
+}
+
+__global__ void __launch_bounds__(kBwdThreads, 1)
+attn_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  const __grid_constant__ CUtensorMap tdo,
+                  const float* __restrict__ lse, float* __restrict__ dsum,
+                  __nv_bfloat16* __restrict__ dqkv, int S, int valid_len,
+                  int64_t ld, int q_off, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sQ = align_atom(smem_raw);                 // [128 rows][64]
+  uint8_t* sdO = sQ + kBlockRows * kRowBytes;         // [128 rows][64]
+  uint8_t* sK = sdO + kBlockRows * kRowBytes;         // [stage][64][64]
+  uint8_t* sV = sK + kBwdStages * kWalkBytes;         // [stage][64][64]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sV + kBwdStages * kWalkBytes);
+  uint64_t* own_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + kBwdStages;
+
+  const int q0 = blockIdx.x * kBlockRows;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int col = h * kTmaHeadDim;
+  const int n = (valid_len + kWalkRows - 1) / kWalkRows;
+  if (threadIdx.x == 0) {
+    mbar_init(own_full, 1);
+    for (int s = 0; s < kBwdStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2 * 128);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {  // producer: Q and dO once, then K/V tiles for both walks
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 2 * 128) {
+      mbar_arrive_expect_tx(own_full, 2 * kBlockRows * kRowBytes);
+      load_block_rows(sQ, &tq, own_full, col, q0, b);
+      load_block_rows(sdO, &tdo, own_full, col, q0, b);
+      for (int it = 0; it < 2 * n; ++it) {
+        const int st = it % kBwdStages;
+        if (it >= kBwdStages)
+          mbar_wait(&empty[st], (it / kBwdStages - 1) & 1);
+        const int k0 = (it % n) * kWalkRows;
+        mbar_arrive_expect_tx(&full[st], 2 * kWalkBytes);
+        tma_load_3d(sK + st * kWalkBytes, &tk, &full[st], col, k0, b);
+        tma_load_3d(sV + st * kWalkBytes, &tv, &full[st], col, k0, b);
+      }
+    }
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    const int warp = (threadIdx.x % 128) / 32;
+    const int g = (threadIdx.x & 31) >> 2;
+    const int t = threadIdx.x & 3;
+    const int row_a = q0 + wg * kWgRows + warp * 16 + g;
+    const int64_t lrow = ((int64_t)b * gridDim.y + h) * S;
+    const float lse_r[2] = {row_a < S ? lse[lrow + row_a] : INFINITY,
+                            row_a + 8 < S ? lse[lrow + row_a + 8] : INFINITY};
+    const uint64_t dq_desc = sw128_desc(sQ + wg * kHalfBytes);
+    const uint64_t ddo_desc = sw128_desc(sdO + wg * kHalfBytes);
+    mbar_wait(own_full, 0);
+
+    // walk 1: dsum = rowsum(dP * P). Tile it + 1's S and dP are issued
+    // before tile it's elementwise work, into the other of two register
+    // sets (sa/da, sb/db), so the tensor cores run them meanwhile.
+    float ds_row[2] = {0.f, 0.f};
+    auto issue = [&](float (&s)[32], float (&dp)[32], int it) {
+      const int st = it % kBwdStages;
+      mbar_wait(&full[st], (it / kBwdStages) & 1);
+      issue_scores_and_dp(s, dp, dq_desc, ddo_desc,
+                          sw128_desc(sK + st * kWalkBytes),
+                          sw128_desc(sV + st * kWalkBytes));
+    };
+    auto walk1 = [&](float (&s)[32], float (&dp)[32], float (&sn)[32],
+                     float (&dpn)[32], int it) {
+      if (it + 1 < n) {
+        issue(sn, dpn, it + 1);
+        wgmma_wait<1>();
+      } else {
+        wgmma_wait<0>();
+      }
+      fence_operand(s);
+      fence_operand(dp);
+      mbar_arrive(&empty[it % kBwdStages]);
+      const int k0 = it * kWalkRows;
+      if (k0 + kWalkRows <= valid_len)
+        dsum_tile<false>(s, dp, ds_row, k0, valid_len, scale, lse_r, t);
+      else
+        dsum_tile<true>(s, dp, ds_row, k0, valid_len, scale, lse_r, t);
+    };
+    float s[32], dp[32], sb[32], db[32];
+    issue(s, dp, 0);
+    for (int it = 0; it < n; it += 2) {
+      walk1(s, dp, sb, db, it);
+      if (it + 1 < n) walk1(sb, db, s, dp, it + 1);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      ds_row[r] += __shfl_xor_sync(0xffffffffu, ds_row[r], 1);
+      ds_row[r] += __shfl_xor_sync(0xffffffffu, ds_row[r], 2);
+    }
+    if (t == 0) {
+      if (row_a < S) dsum[lrow + row_a] = ds_row[0];
+      if (row_a + 8 < S) dsum[lrow + row_a + 8] = ds_row[1];
+    }
+
+    // walk 2: dQ = dS K. Tile it's S and dP are issued together with the
+    // previous tile's dQ product, whose dS fragments (dsf) the elementwise
+    // work of tile it does not touch: it writes the next ones (dsn).
+    float dq[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+    uint32_t dsf[4][4], dsn[4][4];
+    for (int it = n; it < 2 * n; ++it) {
+      const int st = it % kBwdStages;
+      const int prev = (it - 1) % kBwdStages;
+      mbar_wait(&full[st], (it / kBwdStages) & 1);
+      issue_scores_and_dp(s, dp, dq_desc, ddo_desc,
+                          sw128_desc(sK + st * kWalkBytes),
+                          sw128_desc(sV + st * kWalkBytes));
+      if (it > n) {
+        mma_rows(dq, dsf, sw128_desc(sK + prev * kWalkBytes));
+        wgmma_commit();
+        wgmma_wait<1>();
+      } else {
+        wgmma_wait<0>();
+      }
+      fence_operand(s);
+      fence_operand(dp);
+      const int k0 = (it - n) * kWalkRows;
+      if (k0 + kWalkRows <= valid_len)
+        ds_tile<false>(s, dp, dsn, ds_row, k0, valid_len, scale, lse_r, t);
+      else
+        ds_tile<true>(s, dp, dsn, ds_row, k0, valid_len, scale, lse_r, t);
+      wgmma_wait<0>();
+      fence_operand(dq);
+      fence_frags(dsf);
+      if (it > n) mbar_arrive(&empty[prev]);
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) dsf[k][r] = dsn[k][r];
+    }
+    {  // the last tile's dQ product
+      const int st = (2 * n - 1) % kBwdStages;
+      wgmma_fence();
+      mma_rows(dq, dsf, sw128_desc(sK + st * kWalkBytes));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operand(dq);
+      fence_frags(dsf);
+      mbar_arrive(&empty[st]);
+    }
+    store_acc(dqkv + (int64_t)b * S * ld + q_off + col, ld, dq, row_a, S, t);
+  }
+}
+
+__global__ void __launch_bounds__(kBwdThreads, 1)
+attn_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ dsum,
+                    __nv_bfloat16* __restrict__ dqkv, int S, int valid_len,
+                    int64_t ld, int k_off, int v_off, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sK = align_atom(smem_raw);                 // [128 keys][64]
+  uint8_t* sV = sK + kBlockRows * kRowBytes;          // [128 keys][64]
+  uint8_t* sQ = sV + kBlockRows * kRowBytes;          // [stage][64][64]
+  uint8_t* sdO = sQ + kBwdStages * kWalkBytes;        // [stage][64][64]
+  float* sRow = reinterpret_cast<float*>(sdO + kBwdStages * kWalkBytes);
+  // sRow[stage][0][64]: lse of the tile's queries; [stage][1][64]: dsum
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sRow + kBwdStages * 2 *
+                                               kWalkRows);
+  uint64_t* own_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + kBwdStages;
+
+  const int kv0 = blockIdx.x * kBlockRows;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int col = h * kTmaHeadDim;
+  const int nq = (S + kWalkRows - 1) / kWalkRows;
+  const bool active = kv0 < valid_len;  // else zero gradients, no loads
+  const int64_t lrow = ((int64_t)b * gridDim.y + h) * S;
+  if (threadIdx.x == 0) {
+    mbar_init(own_full, 1);
+    for (int s = 0; s < kBwdStages; ++s) {
+      mbar_init(&full[s], 32);  // the producer warp
+      mbar_init(&empty[s], 2 * 128);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {  // producer warp: K and V once, then Q/dO tiles
+    setmaxnreg_dec<kProducerRegs>();
+    const int lane = threadIdx.x - 2 * 128;
+    if (lane < 32 && active) {
+      if (lane == 0) {
+        mbar_arrive_expect_tx(own_full, 2 * kBlockRows * kRowBytes);
+        load_block_rows(sK, &tk, own_full, col, kv0, b);
+        load_block_rows(sV, &tv, own_full, col, kv0, b);
+      }
+      for (int it = 0; it < nq; ++it) {
+        const int st = it % kBwdStages;
+        if (it >= kBwdStages)
+          mbar_wait(&empty[st], (it / kBwdStages - 1) & 1);
+        float* rows = sRow + st * 2 * kWalkRows;
+        for (int i = lane; i < kWalkRows; i += 32) {
+          const int qr = it * kWalkRows + i;
+          rows[i] = qr < S ? lse[lrow + qr] : INFINITY;
+          rows[kWalkRows + i] = qr < S ? dsum[lrow + qr] : 0.f;
+        }
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&full[st], 2 * kWalkBytes);
+          tma_load_3d(sQ + st * kWalkBytes, &tq, &full[st], col,
+                      it * kWalkRows, b);
+          tma_load_3d(sdO + st * kWalkBytes, &tdo, &full[st], col,
+                      it * kWalkRows, b);
+        } else {
+          mbar_arrive(&full[st]);
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    const int warp = (threadIdx.x % 128) / 32;
+    const int g = (threadIdx.x & 31) >> 2;
+    const int t = threadIdx.x & 3;
+    const int row_a = kv0 + wg * kWgRows + warp * 16 + g;
+    float dk[32], dv[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+    if (active) {
+      const bool keep_r[2] = {row_a < valid_len, row_a + 8 < valid_len};
+      const uint64_t dk_desc = sw128_desc(sK + wg * kHalfBytes);
+      const uint64_t dv_desc = sw128_desc(sV + wg * kHalfBytes);
+      mbar_wait(own_full, 0);
+      // (Issuing tile it's S^T and dP^T together with tile it-1's dV and
+      // dK, as kernel A's walk 2 does, ran slower here on an H100: the two
+      // extra fragment sets leave little of the register budget.)
+      float s[32], dp[32];  // S^T and dP^T: [64 keys x 64 queries]
+      uint32_t pf[4][4], dsf[4][4];
+      for (int it = 0; it < nq; ++it) {
+        const int st = it % kBwdStages;
+        mbar_wait(&full[st], (it / kBwdStages) & 1);
+        const uint64_t q_desc = sw128_desc(sQ + st * kWalkBytes);
+        const uint64_t do_desc = sw128_desc(sdO + st * kWalkBytes);
+        issue_scores_and_dp(s, dp, dk_desc, dv_desc, q_desc, do_desc);
+        wgmma_wait<0>();
+        fence_operand(s);
+        fence_operand(dp);
+        const float* rows = sRow + st * 2 * kWalkRows;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int c = j * 8 + t * 2 + (i & 1);
+            s[4 * j + i] =
+                keep_r[i >> 1]
+                    ? __expf(__fmul_rn(s[4 * j + i], scale) - rows[c])
+                    : 0.f;
+          }
+        pack_frags(pf, s);  // bf16(P)^T
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int c = j * 8 + t * 2 + (i & 1);
+            dp[4 * j + i] = s[4 * j + i] *
+                            (dp[4 * j + i] - rows[kWalkRows + c]) * scale;
+          }
+        pack_frags(dsf, dp);  // round(dS)^T
+        wgmma_fence();
+        mma_rows(dv, pf, do_desc);
+        mma_rows(dk, dsf, q_desc);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operand(dv);
+        fence_operand(dk);
+        fence_frags(pf);
+        fence_frags(dsf);
+        mbar_arrive(&empty[st]);
+      }
+    }
+    __nv_bfloat16* out = dqkv + (int64_t)b * S * ld + col;
+    store_acc(out + k_off, ld, dk, row_a, S, t);
+    store_acc(out + v_off, ld, dv, row_a, S, t);
+  }
+}
+
+int launch_wgmma(int batch, int seq, int heads, cudaStream_t st,
+                 const void* qkv, const void* dout, const float* lse,
+                 float* dsum, void* dqkv, int valid_len, int64_t ld,
+                 int q_off, int k_off, int v_off, int64_t do_ld,
+                 float scale) {
+  const char* base = static_cast<const char*>(qkv);
+  const int64_t cols = (int64_t)heads * kTmaHeadDim;
+  CUtensorMap maps[4];  // q, k, v, dO: 64-row boxes
+  const void* bases[4] = {base + 2 * (int64_t)q_off, base + 2 * (int64_t)k_off,
+                          base + 2 * (int64_t)v_off, dout};
+  for (int i = 0; i < 4; ++i) {
+    const int64_t row = i < 3 ? ld : do_ld;
+    const cudaError_t err = make_tile_map(&maps[i], bases[i], cols, seq,
+                                          batch, 2 * row, 2 * seq * row,
+                                          kWalkRows);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_bwd_dq_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(attn_bwd_dkdv_wgmma,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kDkdvSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((seq + kBlockRows - 1) / kBlockRows, heads, batch);
+  using T = __nv_bfloat16;
+  attn_bwd_dq_wgmma<<<grid, kBwdThreads, kDqSmem, st>>>(
+      maps[0], maps[1], maps[2], maps[3], lse, dsum, static_cast<T*>(dqkv),
+      seq, valid_len, ld, q_off, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  attn_bwd_dkdv_wgmma<<<grid, kBwdThreads, kDkdvSmem, st>>>(
+      maps[0], maps[1], maps[2], maps[3], lse, dsum, static_cast<T*>(dqkv),
+      seq, valid_len, ld, k_off, v_off, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------ the retained routes
+
+// The mma.sync (BF16) or fp32 FMA pair at head dim HD.
+template <int HD, bool BF16>
+int launch_retained(int batch, int seq, int heads, cudaStream_t st,
+                    const void* qkv, const void* dout, const float* lse,
+                    float* dsum, void* dqkv, int valid_len, int64_t ld,
+                    int q_off, int k_off, int v_off, int64_t do_ld,
+                    float scale) {
+  if constexpr (BF16) {
     const dim3 grid((seq + kTile - 1) / kTile, heads, batch);
     using T = __nv_bfloat16;
     attn_bwd_dq_bf16<HD><<<grid, 128, 0, st>>>(
@@ -517,25 +1028,32 @@ int launch(bool bf16, int batch, int seq, int heads, cudaStream_t st,
 
 // qkv and d_qkv: [batch, seq, ld] elements, the q/k/v sections of head h at
 // column {q,k,v}_off + h * head_dim; d_out: [batch, seq, do_ld]; lse and
-// the scratch dsum: [batch, heads, seq] fp32. Returns the CUDA error of the
-// launches (0 on success); cudaErrorInvalidValue for a head dim with no
-// instantiation.
+// the scratch dsum: [batch, heads, seq] fp32. bf16 at head dim kTmaHeadDim
+// takes the wgmma pair, whose tensor maps need qkv, each section's start,
+// d_out and the row strides ld * 2 and do_ld * 2 bytes to be multiples of
+// kTmaAlign. Returns the CUDA error of the launches (0 on success);
+// cudaErrorInvalidValue for a head dim with no instantiation or an operand
+// TMA cannot take.
 extern "C" int aaclip_attention_packed_bwd(
     const void* qkv, const void* d_out, const float* lse, float* dsum,
     void* d_qkv, int bf16, int head_dim, int batch, int seq, int valid_len,
     int heads, long long ld, int q_off, int k_off, int v_off, long long do_ld,
     float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 16:
-      return launch<16>(bf16 != 0, batch, seq, heads, st, qkv, d_out, lse,
-                        dsum, d_qkv, valid_len, ld, q_off, k_off, v_off, do_ld,
-                        scale);
-    case 64:
-      return launch<64>(bf16 != 0, batch, seq, heads, st, qkv, d_out, lse,
-                        dsum, d_qkv, valid_len, ld, q_off, k_off, v_off, do_ld,
-                        scale);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (bf16 && head_dim == kTmaHeadDim)
+    return launch_wgmma(batch, seq, heads, st, qkv, d_out, lse, dsum, d_qkv,
+                        valid_len, ld, q_off, k_off, v_off, do_ld, scale);
+  if (bf16 && head_dim == 16)
+    return launch_retained<16, true>(batch, seq, heads, st, qkv, d_out, lse,
+                                     dsum, d_qkv, valid_len, ld, q_off, k_off,
+                                     v_off, do_ld, scale);
+  if (!bf16 && head_dim == 16)
+    return launch_retained<16, false>(batch, seq, heads, st, qkv, d_out, lse,
+                                      dsum, d_qkv, valid_len, ld, q_off,
+                                      k_off, v_off, do_ld, scale);
+  if (!bf16 && head_dim == 64)
+    return launch_retained<64, false>(batch, seq, heads, st, qkv, d_out, lse,
+                                      dsum, d_qkv, valid_len, ld, q_off,
+                                      k_off, v_off, do_ld, scale);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,0 +1,317 @@
+// Hopper building blocks shared by the TMA + wgmma attention kernels:
+// mbarriers (with a bounded wait that traps instead of hanging), TMA tile
+// loads into 128-byte-swizzled shared memory, the matching wgmma shared-
+// memory descriptor, the warpgroup products, register hand-off between
+// warpgroups, and the host-side tensor map of a bf16 [depth, rows, cols]
+// array.
+//
+// The swizzle pairing, in one place. A tile row is 64 bf16 = 128 bytes.
+// TMA with CU_TENSOR_MAP_SWIZZLE_128B writes row r of a tile at byte
+// r * 128 with its eight 16-byte chunks permuted by chunk ^ (r % 8), which
+// is exactly the canonical 128-byte-swizzle layout wgmma reads through a
+// descriptor with layout type 1, the stride between 8-row groups (SBO) of
+// 1024 bytes, and a tile base aligned to 1024 bytes (base offset 0). The
+// same descriptor serves
+//  - a K-major operand (the 64-wide head dim is the reduction): its k-th
+//    16-column slice starts 32 * k bytes into the row (inside the swizzle
+//    atom; the hardware applies the permutation to the full address);
+//  - an MN-major operand (the tile's rows are the reduction, its 64
+//    columns the output): its k-th 16-row slice starts 2048 * k bytes in,
+//    and the 64 columns are exactly one swizzle atom, so the leading byte
+//    offset is never used.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace aaclip {
+
+constexpr int kTmaAlign = 16;     // bytes: TMA base address and strides
+constexpr int kTileCols = 64;     // bf16 columns of every TMA tile (128 B)
+constexpr int kRowBytes = kTileCols * 2;
+constexpr int kSwizzleAtom = 8 * kRowBytes;  // 1024 B: 8 rows of 128 B
+// A wait that sees no progress for this long traps: a wrong phase or byte
+// count becomes a launch failure, not a hung process.
+constexpr unsigned long long kHangNs = 2000000000ull;
+// Registers per thread of the kernels with two consumer warpgroups and a
+// producer warpgroup (384 threads, one block per SM): the launch bound
+// gives each thread 168; the producer drops to kProducerRegs and the
+// consumers take what it frees (128 * 40 + 256 * 232 = 384 * 168).
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---------------------------------------------------------------- mbarrier
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// After the initialising thread's mbar_init calls, before __syncthreads.
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// This thread's arrival, and `bytes` more to come from TMA copies.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Wait for the completion of the barrier's phase of parity `parity` (the
+// n-th completion has parity n & 1); traps after kHangNs without it. The
+// retry loop is inside the asm, so the compiler sees no divergent branch
+// while wgmma products are in flight (which would serialize them).
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done, late;\n"
+      ".reg .u64 t0, t1;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@done bra.uni WAIT_DONE;\n"
+      "mov.u64 t0, %%globaltimer;\n"
+      "WAIT_RETRY:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@done bra.uni WAIT_DONE;\n"
+      "mov.u64 t1, %%globaltimer;\n"
+      "sub.u64 t1, t1, t0;\n"
+      "setp.gt.u64 late, t1, %2;\n"
+      "@late trap;\n"
+      "bra.uni WAIT_RETRY;\n"
+      "WAIT_DONE:\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity), "l"(kHangNs)
+      : "memory");
+}
+
+// ---------------------------------------------------------------- TMA
+
+// One box of the 3-D tensor map at (col, row, depth) into shared memory;
+// its bytes complete on `bar`. Rows past the map's extent arrive as zeros.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int col, int row,
+                                            int depth) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col),
+      "r"(row), "r"(depth)
+      : "memory");
+}
+
+// ---------------------------------------------------------------- wgmma
+
+// Descriptor of a 128-byte-swizzled tile at `tile` (1024-byte aligned, or
+// a slice of one as the header describes): SBO 1024 B, layout type 1.
+__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
+  const uint64_t addr = smem_u32(tile);
+  return ((addr & 0x3FFFFull) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(kSwizzleAtom >> 4) << 32) | (1ull << 62);
+}
+
+// A descriptor moved `bytes` further into its tile.
+__device__ __forceinline__ uint64_t desc_plus(uint64_t desc, int bytes) {
+  return desc + static_cast<uint64_t>(bytes >> 4);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep reads of an accumulator after the wgmma_wait that completes it.
+template <int N>
+__device__ __forceinline__ void fence_operand(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Keep the register A fragments of an asynchronous wgmma alive and
+// unchanged up to here, after the wgmma_wait that completes it (the
+// compiler sees the registers read when the wgmma is issued).
+template <int K>
+__device__ __forceinline__ void fence_frags(uint32_t (&f)[K][4]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(f[k][r])::"memory");
+}
+
+// Register hand-off between the producer and the consumer warpgroups
+// (all four warps of a warpgroup execute it together).
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// The products, m64nNk16 bf16 -> fp32. Accumulator layout (thread t of the
+// warpgroup, warp w = t / 32, g = (t % 32) / 4, q = t % 4): d[4j + 0..1]
+// at row 16w + g, columns 8j + 2q + 0..1; d[4j + 2..3] at row 16w + g + 8.
+// scale_d = 0 overwrites d, anything else accumulates.
+
+// d[64 x 64] (+)= A . B, A and B from shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[64 x 128] (+)= A . B, A and B from shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[64 x 64] += A . B, A from registers (the m16k16 fragments of
+// mma.sync, per warp), B from shared memory MN-major (transposed).
+__device__ __forceinline__ void wgmma_rs_n64_mn(float (&d)[32],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+// Dynamic shared memory rounded up to the swizzle atom.
+__device__ __forceinline__ uint8_t* align_atom(uint8_t* p) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  return reinterpret_cast<uint8_t*>((a + kSwizzleAtom - 1) &
+                                    ~static_cast<uintptr_t>(kSwizzleAtom - 1));
+}
+
+// ---------------------------------------------------------------- host
+
+// cuTensorMapEncodeTiled is a driver-API call; it is taken through the
+// runtime's driver entry point, so the libraries link nothing beyond
+// cudart.
+using EncodeTiledFn = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled_fn() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// Tensor map of a bf16 array of `depth` blocks of `rows` rows of `cols`
+// elements (rows `row_bytes` apart, blocks `depth_bytes` apart) read in
+// boxes of kTileCols x box_rows x 1 with the 128-byte swizzle; rows past
+// `rows` read as zeros. cudaErrorInvalidValue for an address or stride TMA
+// cannot take (the wrappers refuse those first).
+inline cudaError_t make_tile_map(CUtensorMap* map, const void* base,
+                                 uint64_t cols, uint64_t rows, uint64_t depth,
+                                 uint64_t row_bytes, uint64_t depth_bytes,
+                                 uint32_t box_rows) {
+  const EncodeTiledFn encode = encode_tiled_fn();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  if (reinterpret_cast<uintptr_t>(base) % kTmaAlign ||
+      row_bytes % kTmaAlign || depth_bytes % kTmaAlign)
+    return cudaErrorInvalidValue;
+  const cuuint64_t dims[3] = {cols, rows, depth};
+  const cuuint64_t strides[2] = {row_bytes, depth_bytes};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(kTileCols), box_rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+}  // namespace aaclip

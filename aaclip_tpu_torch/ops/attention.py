@@ -18,7 +18,12 @@ separate q, k, v in ``[B, H, S, hd]``: the same kernel again, launched with
 that layout's strides.
 
 The wrappers run the plain versions only for tensors on the CPU (the
-tests). On a CUDA tensor they launch the kernel or raise.
+tests). On a CUDA tensor they launch the kernel or raise. Which kernel
+runs is the route table ``TMA_ROUTES``: bf16 at head dim 64 takes the TMA
++ wgmma kernels (tiles fed by tensor maps, whose base addresses and row
+strides must be multiples of ``TMA_ALIGN`` bytes: the wrappers refuse what
+a map cannot take); bf16 at head dim 16 and fp32 keep the first port's
+mma.sync and fp32 FMA kernels in the same sources.
 """
 
 from __future__ import annotations
@@ -31,6 +36,17 @@ from aaclip_tpu_torch.core.config import DtypePolicy
 from aaclip_tpu_torch.models.layers import linear
 
 KERNEL_HEAD_DIMS = (16, 64)  # head dims the kernel is instantiated for
+# (dtype, head dim) pairs on the TMA + wgmma kernels (kTmaHeadDim of
+# attention_packed.cu and attention_packed_bwd.cu); every other pair of
+# (bf16, fp32) x KERNEL_HEAD_DIMS runs a retained kernel.
+TMA_ROUTES = frozenset({(torch.bfloat16, 64)})
+TMA_ALIGN = 16  # bytes: a tensor map's base address and strides (kTmaAlign)
+
+
+def _tma_misaligned(*addresses: int) -> bool:
+    """Whether any base address or stride, in bytes, is one a TMA tensor
+    map cannot take."""
+    return any(a % TMA_ALIGN for a in addresses)
 
 
 def _split(x: torch.Tensor, num_heads: int, sections: int = 3):
@@ -157,6 +173,11 @@ def _check_cuda(name: str, x: torch.Tensor, num_heads: int,
     if B < 1 or not 1 <= valid_len <= S:
         raise ValueError(f"{name}: need batch >= 1 and 1 <= valid_len <= S,"
                          f" got B={B}, valid_len={valid_len}, S={S}")
+    esize, offs = x.element_size(), split[-1]
+    if (x.dtype, hd) in TMA_ROUTES and _tma_misaligned(
+            x.shape[-1] * esize, *(x.data_ptr() + o * esize for o in offs)):
+        raise ValueError(f"{name}: a section start or the row stride is not "
+                         f"a multiple of {TMA_ALIGN} bytes (TMA)")
     return split
 
 
@@ -304,6 +325,10 @@ def attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if any(not t.is_contiguous() or t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("attention_kernel: q, k and v must be contiguous "
                          "and 16-byte aligned")
+    if (q.dtype, hd) in TMA_ROUTES and _tma_misaligned(
+            hd * q.element_size(), *(t.data_ptr() for t in (q, k, v))):
+        raise ValueError(f"attention_kernel: a start or the row stride is "
+                         f"not a multiple of {TMA_ALIGN} bytes (TMA)")
     if hd not in KERNEL_HEAD_DIMS:
         raise ValueError(f"attention_kernel: head dim {hd} has no kernel "
                          f"instantiation (have {KERNEL_HEAD_DIMS})")
@@ -345,6 +370,11 @@ def attention_packed_bwd(qkv: torch.Tensor, d_out: torch.Tensor,
     if d_out.shape != (B, S, dm) or d_out.device != qkv.device:
         raise ValueError(f"attention_packed_bwd: d_out {tuple(d_out.shape)} "
                          f"on {d_out.device} does not match qkv")
+    if (qkv.dtype, hd) in TMA_ROUTES and _tma_misaligned(
+            d_out.data_ptr(), dm * d_out.element_size()):
+        raise ValueError(f"attention_packed_bwd: d_out's start or row "
+                         f"stride is not a multiple of {TMA_ALIGN} bytes "
+                         f"(TMA)")
     if (lse is None or lse.shape != (B, num_heads, S)
             or lse.dtype != torch.float32 or not lse.is_contiguous()
             or lse.device != qkv.device):

@@ -6,12 +6,17 @@ Needs one CUDA card and nvcc. Phases, each of which fails the run:
  1. the card's name and power limit (nvidia-smi);
  2. build every kernel from the sources in ``aaclip_tpu_torch/kernels/
     csrc``, one nvcc per source started together, and print nvcc's
-    register and spill report for every instantiation;
+    register and spill report for every instantiation, with ptxas's
+    C75xx notes on serialized wgmma products;
  3. hold each kernel against its plain PyTorch version on the card, at the
-    main paths' shapes, at ragged sequence lengths and at head dim 16, in
-    bf16 and fp32: the forward attention, its logsumexp output against
-    ``torch.logsumexp`` of the plain scores, the backward kernel's dq, dk
-    and dv, and the bf16 ``matmul_f32`` gradients against fp64;
+    main paths' shapes, at ragged sequence lengths, at the edges of the
+    TMA + wgmma kernels' 128-row tiles (S 128, 129, 256, valid_len 128 of
+    200, a batch of 3 at S 200) and at head dim 16, in bf16 and fp32: the
+    forward attention, its logsumexp output against ``torch.logsumexp`` of
+    the plain scores, the backward kernel's dq, dk and dv (and two runs of
+    it bit for bit), a batch whose image 1 is NaN (images 0 and 2 as with
+    image 1 zero, bit for bit, in every attention launch), and the bf16
+    ``matmul_f32`` gradients against fp64;
  4. the inference path (ViT-L-14-336 @ 518 px, random weights from a seed)
     through ``make_predict_fn``: bf16 with uint8 inputs at batch 8 and fp32
     at batch 2, each against the same predictor with the plain attention,
@@ -228,7 +233,19 @@ KERNEL_CASES = [
     (2, 257, 16, 64, 200),     # keys past valid_len masked
     (3, 26, 4, 16, 26),        # tiny-test geometry, head dim 16
     (2, 257, 2, 16, 257),      # head dim 16, ragged
+    # the 128-row tiles of the TMA + wgmma kernels (64-row streamed tiles
+    # in the backward): exactly one tile, one row over, two tiles, keys
+    # masked at a tile edge, and a batch of 3 whose images' tail tiles end
+    # mid-tile (TAIL_CASE below also poisons image 1)
+    (2, 128, 16, 64, 128),
+    (2, 129, 16, 64, 129),
+    (2, 256, 16, 64, 256),
+    (2, 200, 16, 64, 128),
+    (3, 200, 16, 64, 200),
 ]
+# B, S, heads, head dim, valid_len of the tail check: image 1 is NaN, and
+# images 0 and 2 must come out bit for bit as with image 1 zero.
+TAIL_CASE = (3, 200, 16, 64, 200)
 DTYPES = ("bf16", "fp32")
 
 
@@ -316,6 +333,10 @@ VV_CASES = [
     (2, 257, 16, 64),              # ragged: 4 full tiles + 1 row
     (3, 26, 4, 16),                # tiny-test geometry, head dim 16
     (2, 257, 2, 16),               # head dim 16, ragged
+    (2, 128, 16, 64),              # the wgmma kernel's tile edges
+    (2, 129, 16, 64),
+    (2, 256, 16, 64),
+    (3, 200, 16, 64),
 ]
 
 
@@ -384,10 +405,14 @@ def check_bwd_kernel(dtype_name: str) -> float:
                             device="cuda").to(dtype)
         _, lse = attention_packed(qkv, H, valid, return_lse=True)
         got = attention_packed_bwd(qkv, d_out, lse, H, valid)
+        again = attention_packed_bwd(qkv, d_out, lse, H, valid)
         want = attention_packed_bwd_plain(qkv, d_out, H, valid)
         torch.cuda.synchronize()
         expect(got.dtype == dtype and got.shape == qkv.shape,
                f"d(qkv) {got.dtype} {tuple(got.shape)}")
+        # deterministic: no atomics, every element written once
+        expect(torch.equal(got, again), "two backward runs differ")
+        del again
         expect(bool(torch.isfinite(got).all()), "d(qkv) not finite")
         parts = []
         dm = H * hd
@@ -414,8 +439,51 @@ def check_bwd_kernel(dtype_name: str) -> float:
             expect(tail == 0.0, f"dk/dv past valid_len: {tail}")
         del qkv, d_out, lse, got, want
         print(f"backward {dtype_name} B={B} S={S} H={H} hd={hd} "
-              f"valid={valid}: " + "; ".join(parts))
+              f"valid={valid}: " + "; ".join(parts)
+              + "; two runs bit-equal")
     return worst_main
+
+
+def check_tail_isolation(dtype_name: str) -> None:
+    """At TAIL_CASE, image 1 NaN against image 1 zero: a kernel whose tail
+    tile of one image read the next image's rows (on [B, H, S, hd], image
+    0's last head reading image 1's first) would carry the NaN into images
+    0 and 2 (a masked key's P = 0 times NaN is NaN). The forward and its lse, the backward, the V-V
+    mode and B4 must give images 0 and 2 bit for bit the same in both
+    runs, and finite."""
+    import torch
+
+    from aaclip_tpu_torch.ops.attention import (attention_kernel,
+                                                attention_packed,
+                                                attention_packed_bwd,
+                                                attention_packed_vv)
+
+    dtype = torch_dtype(dtype_name)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    B, S, H, hd, valid = TAIL_CASE
+    dm = H * hd
+    qkv = random_qkv(B, S, H, hd, dtype, gen)
+    d_out = torch.randn(B, S, dm, generator=gen, device="cuda").to(dtype)
+    runs = []
+    for fill in (float("nan"), 0.0):
+        x, g = qkv.clone(), d_out.clone()
+        x[1], g[1] = fill, fill
+        out, lse = attention_packed(x, H, valid, return_lse=True)
+        heads = [x[..., i * dm:(i + 1) * dm].reshape(B, S, H, hd)
+                 .transpose(1, 2).contiguous() for i in range(3)]
+        runs.append((out, lse, attention_packed_bwd(x, g, lse, H, valid),
+                     attention_packed_vv(x[..., 2 * dm:].contiguous(), H,
+                                         valid),
+                     attention_kernel(*heads, valid)))
+    torch.cuda.synchronize()
+    names = ("forward", "lse", "backward", "V-V", "attention_kernel")
+    for name, got, clean in zip(names, *runs):
+        same = torch.equal(got[[0, 2]], clean[[0, 2]])
+        finite = bool(torch.isfinite(got[[0, 2]]).all())
+        print(f"tail {dtype_name} B={B} S={S} hd={hd} {name}: images 0 and 2"
+              f" with image 1 NaN equal image 1 zero: {same}, finite: "
+              f"{finite}")
+        expect(same and finite, f"{name} read across images")
 
 
 def check_matmul_f32_grad() -> None:
@@ -765,15 +833,18 @@ def time_bwd(cfg, card):
     # the TPU kernel's five S^2*hd products; each input read once, each
     # output written once
     flops = 10 * B * H * S * S * hd
+    own_flops = 18 * B * H * S * S * hd  # the kernel pair's nine products
     nbytes = (2 * qkv.numel() + d_out.numel()) * qkv.element_size() + \
         lse.numel() * 4
     bound_ms, bound_by = bound(flops, nbytes)
     for name, ms in (("kernel", ms_kernel), ("plain", ms_plain),
                      ("sdpa backward", ms_sdpa)):
+        own = (f", {own_flops / ms / 1e9:.1f} TFLOP/s of its own nine "
+               f"products" if name == "kernel" else "")
         print(f"time attention backward {name} [{B},{S},{3 * H * hd}] bf16: "
               f"{ms:.4f} ms/call ({flops / ms / 1e9:.1f} TFLOP/s of the "
-              f"TPU kernel's work; bound {bound_ms:.4f} ms by {bound_by}) "
-              f"on {card}")
+              f"TPU kernel's five products{own}; bound {bound_ms:.4f} ms by "
+              f"{bound_by}) on {card}")
     return ms_kernel, ms_plain, ms_sdpa, bound_ms, bound_by
 
 
@@ -1102,7 +1173,11 @@ def check_fused_kernels(dtype_name: str) -> dict:
 
 # B4: (B, H, S, head dim, valid_len)
 BHSD_CASES = [(32, 16, 1370, 64, 1370), (2, 16, 257, 64, 200),
-              (3, 4, 26, 16, 26), (2, 2, 77, 16, 50)]
+              (3, 4, 26, 16, 26), (2, 2, 77, 16, 50),
+              # the wgmma kernel's tile edges
+              (2, 16, 128, 64, 128), (2, 16, 129, 64, 129),
+              (2, 16, 256, 64, 256), (2, 16, 200, 64, 128),
+              (3, 16, 200, 64, 200)]
 
 
 def check_attention_kernel(dtype_name: str) -> float:
@@ -1486,13 +1561,16 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s")
     for name in KERNELS:
         for line in built[name][1].splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
+            if any(w in line for w in ("registers", "spill", "Compiling",
+                                       "(C75")):  # C75xx: wgmma notes
                 print(f"  nvcc {name}:", line.strip())
 
     # -- 3. kernels vs plain
     print(f"[{time.perf_counter() - t0:.0f} s] kernels vs plain")
     err_fwd = max(check_kernel(d) for d in DTYPES)
     err_bwd = max(check_bwd_kernel(d) for d in DTYPES)
+    for d in DTYPES:
+        check_tail_isolation(d)
     check_matmul_f32_grad()
     err_vv = max(check_vv_kernel(d) for d in DTYPES)
 

@@ -31,7 +31,9 @@ from aaclip_tpu_torch.core.params import params_from_jax
 from aaclip_tpu_torch.device import resolve_device
 from aaclip_tpu_torch.kernels import build
 from aaclip_tpu_torch.models import layers as L
-from aaclip_tpu_torch.ops.attention import (attention_kernel,
+from aaclip_tpu_torch.ops import attention as A
+from aaclip_tpu_torch.ops.attention import (KERNEL_HEAD_DIMS, TMA_ALIGN,
+                                            TMA_ROUTES, attention_kernel,
                                             attention_kernel_plain,
                                             attention_packed,
                                             attention_packed_plain,
@@ -180,6 +182,63 @@ def test_kernel_entry_point_matches_the_c_signature():
     argtypes = re.search(r"aaclip_attention_bhsd\n.*?fn\.argtypes = "
                          r"\[([^\]]*)\]", code, re.DOTALL).group(1)
     assert len(argtypes.split(",")) == len(sig.split(",")) == 12
+
+
+def _const(src: str, name: str) -> int:
+    import re
+
+    return int(re.search(rf"\b{name} = (\d+)", src).group(1))
+
+
+def test_tma_routes_match_the_kernel_sources():
+    """The route table is the sources' own: bf16 at kTmaHeadDim takes the
+    TMA + wgmma kernels of both attention sources, and every other (dtype,
+    head dim) the wrappers accept has a retained kernel in each."""
+    fwd = (build.CSRC / "attention_packed.cu").read_text()
+    bwd = (build.CSRC / "attention_packed_bwd.cu").read_text()
+    for src in (fwd, bwd):
+        assert TMA_ROUTES == {(torch.bfloat16, _const(src, "kTmaHeadDim"))}
+        assert "if (bf16 && head_dim == kTmaHeadDim)" in src
+    for hd in KERNEL_HEAD_DIMS:
+        for dtype in (torch.bfloat16, torch.float32):
+            if (dtype, hd) in TMA_ROUTES:
+                continue
+            bf16 = dtype == torch.bfloat16
+            assert f"if ({'' if bf16 else '!'}bf16 && head_dim == {hd})" in fwd
+            assert (f"launch_retained<{hd}, {'true' if bf16 else 'false'}>"
+                    in bwd)
+
+
+def test_tma_alignment_matches_the_kernel_header():
+    """TMA_ALIGN is hopper_common.cuh's kTmaAlign, the bound its tensor
+    maps check; every wrapper on the TMA route refuses what a map cannot
+    take before the launch."""
+    import inspect
+
+    common = (build.CSRC / "hopper_common.cuh").read_text()
+    assert TMA_ALIGN == _const(common, "kTmaAlign") == 16
+    assert "% kTmaAlign" in common
+    assert not A._tma_misaligned(0, 16, 6144, 4096 * 3)
+    assert A._tma_misaligned(0, 16, 8) and A._tma_misaligned(2)
+    for fn in (A._check_cuda, A.attention_packed_bwd, A.attention_kernel):
+        assert "_tma_misaligned(" in inspect.getsource(fn)
+
+
+def test_bench_profile_classes_name_every_kernel():
+    """Every __global__ kernel of the sources falls in one of the bench
+    profile's named classes, so its device time is not filed as glue."""
+    import re
+
+    from aaclip_tpu_torch.bench import _PROFILE_CLASSES
+
+    kernels = {name for src in build.CSRC.glob("*.cu") for name in re.findall(
+        r"__global__ void __launch_bounds__\([^)]*\)\s+(\w+)\(",
+        src.read_text())}
+    assert {"attn_fwd_wgmma", "attn_bwd_dq_wgmma",
+            "attn_bwd_dkdv_wgmma"} <= kernels
+    for name in kernels:
+        assert any(frag in name for cls, frags in _PROFILE_CLASSES[:3]
+                   for frag in frags), name
 
 
 def test_library_path_is_keyed_by_the_sources():
