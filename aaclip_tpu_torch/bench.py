@@ -43,7 +43,7 @@ _PROFILE_CLASSES = (
      ("attn_fwd_wgmma", "attn_bf16_kernel", "attn_f32_kernel")),
     ("attention backward kernel", ("attn_bwd_",)),
     ("fused-block kernels (ln_linear, linear_residual, mlp_fused)",
-     ("gemm_bf16_kernel", "gemm_f32_kernel", "mlp_bf16_kernel",
+     ("gemm_wgmma", "row_stats_kernel", "gemm_f32_kernel",
       "mlp_f32_kernel")),
     ("GEMM (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass")),
 )

@@ -39,8 +39,8 @@ def make_predict_fn(vit: VisionTransformer, cfg: CLIPConfig,
     defaults to the packed-attention kernel (``ops.attention.make_attn_fn``).
     ``block_fn`` replaces every whole block (``ops.fused_block.
     make_block_fn``, the fused-block kernels; ``maybe_make_block_fn`` gives
-    it on the card, None off it); it receives the block's weights as cast
-    for the predictor.
+    it on the card under bf16, None off it and under fp32); it receives
+    the block's weights as cast for the predictor.
     ``img_size`` mirrors the JAX signature: the size comes from ``cfg``
     (``get_config(name, img_size)``) and any other value raises.
 

@@ -7,9 +7,11 @@ loads at once; a new or edited header rebuilds every library. The sources:
 ``attention_packed.cu`` (the forward attention in its standard, V-V and
 ``[B, H, S, hd]`` launches), ``attention_packed_bwd.cu`` (its backward)
 and ``fused_block.cu`` (``ln_linear``, ``linear_residual`` and
-``mlp_fused``); the headers ``mma_common.cuh`` (mma.sync helpers) and
+``mlp_fused``); the headers ``mma_common.cuh`` (mma.sync helpers),
 ``hopper_common.cuh`` (mbarriers, TMA, wgmma, and the host-side tensor
-maps of the attention kernels' bf16 head-dim-64 route). Each library links
+maps of the attention kernels' bf16 head-dim-64 route) and
+``launch_count.cuh`` (each library's count of its kernel launches,
+``kernels_launched``). Each library links
 only the CUDA runtime: the driver-API call that encodes a tensor map,
 ``cuTensorMapEncodeTiled``, is taken at run time through
 ``cudaGetDriverEntryPoint(ByVersion)``, so nothing links ``-lcuda``.
@@ -106,3 +108,11 @@ def load(name: str) -> ctypes.CDLL:
     argument types."""
     path, _ = build(name)
     return ctypes.CDLL(str(path))
+
+
+def kernels_launched(name: str) -> int:
+    """How many kernels library ``name`` has launched since it was loaded:
+    each launch site in its source counts itself (``launch_count.cuh``)."""
+    fn = load(name).aaclip_kernels_launched
+    fn.argtypes, fn.restype = [], ctypes.c_longlong
+    return fn()

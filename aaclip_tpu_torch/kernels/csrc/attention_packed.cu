@@ -81,6 +81,7 @@
 #include <math.h>
 
 #include "hopper_common.cuh"
+#include "launch_count.cuh"
 #include "mma_common.cuh"
 
 namespace {
@@ -552,6 +553,7 @@ int launch_wgmma(const MapOperand (&qkv)[3], MapCoords mc, int batch,
   attn_fwd_wgmma<<<grid, kFwdThreads, kFwdSmem, st>>>(
       maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(out), lse, seq,
       valid_len, mc, ol, scale);
+  note_launch();
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -565,23 +567,27 @@ int launch_retained(bool bf16, int head_dim, int batch, int seq,
                     Layout ol, float scale, cudaStream_t st) {
   const dim3 grid((seq + kBlockM - 1) / kBlockM, heads, batch);
   using T = __nv_bfloat16;
-  if (bf16 && head_dim == 16)
+  if (bf16 && head_dim == 16) {
     attn_bf16_kernel<16><<<grid, 128, 0, st>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<T*>(out), lse, seq, valid_len,
         in, ol, scale);
-  else if (!bf16 && head_dim == 16)
+    note_launch();
+  } else if (!bf16 && head_dim == 16) {
     attn_f32_kernel<16><<<grid, kBlockM, 0, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(out), lse, seq,
         valid_len, in, ol, scale);
-  else if (!bf16 && head_dim == 64)
+    note_launch();
+  } else if (!bf16 && head_dim == 64) {
     attn_f32_kernel<64><<<grid, kBlockM, 0, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(out), lse, seq,
         valid_len, in, ol, scale);
-  else
+    note_launch();
+  } else {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

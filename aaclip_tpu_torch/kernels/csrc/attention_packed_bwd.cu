@@ -88,6 +88,7 @@
 #include <math.h>
 
 #include "hopper_common.cuh"
+#include "launch_count.cuh"
 #include "mma_common.cuh"
 
 namespace {
@@ -978,11 +979,13 @@ int launch_wgmma(int batch, int seq, int heads, cudaStream_t st,
   attn_bwd_dq_wgmma<<<grid, kBwdThreads, kDqSmem, st>>>(
       maps[0], maps[1], maps[2], maps[3], lse, dsum, static_cast<T*>(dqkv),
       seq, valid_len, ld, q_off, scale);
+  note_launch();
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   attn_bwd_dkdv_wgmma<<<grid, kBwdThreads, kDkdvSmem, st>>>(
       maps[0], maps[1], maps[2], maps[3], lse, dsum, static_cast<T*>(dqkv),
       seq, valid_len, ld, k_off, v_off, scale);
+  note_launch();
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1002,24 +1005,28 @@ int launch_retained(int batch, int seq, int heads, cudaStream_t st,
         static_cast<const T*>(qkv), static_cast<const T*>(dout), lse, dsum,
         static_cast<T*>(dqkv), seq, valid_len, ld, q_off, k_off, v_off, do_ld,
         scale);
+    note_launch();
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     attn_bwd_dkdv_bf16<HD><<<grid, 128, 0, st>>>(
         static_cast<const T*>(qkv), static_cast<const T*>(dout), lse, dsum,
         static_cast<T*>(dqkv), seq, valid_len, ld, q_off, k_off, v_off, do_ld,
         scale);
+    note_launch();
   } else {
     const dim3 grid((seq + kRowsF - 1) / kRowsF, heads, batch);
     attn_bwd_dq_f32<HD><<<grid, kRowsF * kSplitF, 0, st>>>(
         static_cast<const float*>(qkv), static_cast<const float*>(dout), lse,
         dsum, static_cast<float*>(dqkv), seq, valid_len, ld, q_off, k_off,
         v_off, do_ld, scale);
+    note_launch();
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     attn_bwd_dkdv_f32<HD><<<grid, kRowsF * kSplitF, 0, st>>>(
         static_cast<const float*>(qkv), static_cast<const float*>(dout), lse,
         dsum, static_cast<float*>(dqkv), seq, valid_len, ld, q_off, k_off,
         v_off, do_ld, scale);
+    note_launch();
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,12 +11,12 @@
 //    fp32 and rounded once (the attention out-projection and residual add);
 //  - mlp_fused (_mlp_kernel): x + proj(act(fc(LN(x)))): the LayerNorm
 //    rounded to the compute dtype, fc + b_fc and the activation in fp32, the
-//    hidden rounded to the compute dtype, proj accumulated in fp32 over the
-//    hidden tiles, then x + acc + b_proj in fp32, rounded once. The [rows,
-//    hidden] activation never reaches device memory.
+//    hidden rounded to the compute dtype, proj accumulated in fp32, then
+//    x + acc + b_proj in fp32, rounded once.
 // Weights are read in nn.Linear's [out, in] layout as they lie: a row of W
-// is a column of the product's B operand, which is the column-major operand
-// mma.sync takes, so no transposed copy exists.
+// is a column of the product's B operand, which is the K-major B operand
+// of wgmma (and the column-major one of mma.sync), so no transposed copy
+// exists.
 //
 // What bounds them on an H100: at the predict's batch 32 (43,840 rows of
 // 1024) ln_linear to 3072 columns is 275.8 GFLOP against 365.5 MB moved,
@@ -24,38 +24,66 @@
 // 735.5 GFLOP against 196.4 MB: all far above the card's ~295 bf16 FLOP per
 // byte of HBM, so bound by the tensor cores.
 //
-// Design. bf16 runs on mma.sync m16n8k16 with fp32 accumulation, fp32 on
-// FMA with no TF32, as the attention kernels do.
-//  - ln_linear / linear_residual share one GEMM: a block owns 128 rows x
-//    128 output columns, 8 warps of 64 x 32, and walks K in tiles of 32
-//    staged in shared memory, double-buffered through registers. The LN
-//    prologue first takes each of its rows' mean and variance (one warp per
-//    row, the row held in registers), then normalises and rounds the A tile
-//    as it is staged, where the TPU kernel casts. The epilogue adds the bias
-//    (and the residual) in fp32. Ragged row tails are masked by bounds: the
-//    TPU kernel's row padding is not needed.
-//  - mlp_fused: the TPU kernel keeps a [512, 1024] fp32 accumulator and the
-//    normalised rows in VMEM while it sweeps the hidden in tiles; an SM has
-//    64 K registers and 227 KB of shared memory. Here a block owns 32 rows
-//    and all D output columns: 16 warps, each holding a [32, D/16] fp32
-//    accumulator in registers (64 a thread at D 1024), the 32 normalised
-//    rows (bf16) stay in shared memory, and the hidden is swept in tiles of
-//    64: the fc tile of W_fc is staged, each warp computes one 16 x 8 piece
-//    of the [32, 64] hidden tile, adds b_fc, activates, rounds it into
-//    shared memory; then the proj tile of W_proj is staged in the same
-//    buffer and every warp multiplies the hidden tile into its accumulator.
-//    Each block reads both weight matrices once from L2 (16 MB at D 1024):
-//    32 rows are the most whose accumulator fits a block.
-//  - The activations use the precise erff / tanhf / expf: the hidden is
-//    rounded to bf16 right after, and an approximate function would flip
-//    those roundings against the plain version.
-// Instantiated widths: any K and N that are multiples of the tiles (K a
-// multiple of 32, at most 1024, N of 128; fp32 16 and 64) for the GEMM, D
-// 128 and 1024 (hidden a multiple of 64) for the MLP; anything else returns
-// cudaErrorInvalidValue.
+// Routes. bf16, the fast policy, runs the TMA + wgmma engine below; fp32,
+// the parity policy, keeps the first port's FMA kernels with no TF32
+// (gemm_f32_kernel, and mlp_f32_kernel at D 128 and 1024, which keeps the
+// hidden on chip).
+//
+// The bf16 engine is one GEMM, out[R, N] = epilogue(prologue(A)[R, K] .
+// W[N, K]^T), and a row-statistics kernel:
+//  - row_stats_kernel writes each row's mean and 1/sqrt(var + eps) (fp32,
+//    [R], one warp per row, the mean first and then the mean of squared
+//    deviations) once, where a GEMM prologue would redo them in each of
+//    the N / BN column blocks of a row.
+//  - gemm_wgmma: persistent blocks of 384 threads walk 128 x BN output
+//    tiles (BN 256 where N allows it, else 128), tile t at rows
+//    128 * (t / (N / BN)), so the blocks in flight share their A rows and
+//    W stays in L2. One thread of the producer warpgroup streams the A and
+//    W tiles of 64 reduction columns by TMA (128-byte swizzle; rows past R
+//    arrive as zeros) into a ring of kGemmStages stages with full and empty
+//    mbarriers, and runs on into the block's next tile while the consumers
+//    store the current one; it gives its registers up (setmaxnreg) to the
+//    two consumer warpgroups, each of which holds a [64, BN] fp32
+//    accumulator. Plain prologue (linear_residual, proj): wgmma with A and
+//    W from shared memory. LN prologue (ln_linear, fc): each consumer reads
+//    its A fragments of the raw x tile by ldmatrix, normalises them in fp32
+//    with its rows' statistics and gamma / beta (staged once per block in
+//    shared memory), rounds them to bf16 where the TPU kernel casts, and
+//    issues wgmma with A from registers and W K-major; the next k-tile's
+//    fragments are built while this one's products run.
+//    Epilogues, in fp32 in the plain versions' order: acc + b (ln_linear);
+//    act(acc + b), rounded to bf16 (fc; the precise erff / tanhf / expf:
+//    the hidden is rounded right after, and an approximate function would
+//    flip those roundings against the plain version); res + (acc + b)
+//    (linear_residual); (x + acc) + b (proj). Rows past R are never
+//    stored. No split-K and no atomics: two runs are bit-equal.
+//  - mlp_fused is three launches: the statistics; fc (LN prologue,
+//    activation epilogue) into a bf16 hidden [R, F] in device memory; proj
+//    (plain prologue, K = F, the (x + acc) + b epilogue). The hidden goes
+//    through device memory as bf16. The TPU kernel keeps it in VMEM, which
+//    holds megabytes; on this card the register file decides: a wgmma tile
+//    has 64 rows per warpgroup and a [64, 1024] fp32 accumulator is the
+//    SM's whole 256 KB of registers, so a block holding the full-width
+//    output holds at most ~40 rows and reads both weight matrices (16.8 MB
+//    at D 1024) for them, and splitting D
+//    across blocks recomputes fc D / 256 times. Each half alone is bound
+//    by the tensor cores: at the predict's batch 32 fc is 367.8 GFLOP
+//    against 90 MB of x, 8.4 MB of W_fc and 359 MB of bf16 hidden, and
+//    proj the same; writing and reading the hidden adds 718 MB, ~0.21 ms at
+//    3.35 TB/s, under ~0.74 ms of tensor-core time. The TPU kernel and the
+//    plain version round the hidden to bf16 at exactly that point, so the
+//    numerics stay the same.
+// Widths: bf16 K a multiple of 64 (at most kMaxK under the LN prologue,
+// whose statistics hold a row in registers), N a multiple of 128; fp32 K a
+// multiple of 16 up to kMaxK, N of 64, the MLP at D 128 and 1024 with the
+// hidden a multiple of 64. Anything else returns cudaErrorInvalidValue.
 
 #include <math.h>
 
+#include <atomic>
+
+#include "hopper_common.cuh"
+#include "launch_count.cuh"
 #include "mma_common.cuh"
 
 namespace {
@@ -64,20 +92,30 @@ using namespace aaclip;
 using bf16 = __nv_bfloat16;
 
 constexpr float kLnEps = 1e-5f;
-constexpr int kMaxK = 1024;  // the LayerNorm holds a row in registers
+constexpr int kMaxK = 1024;  // the LayerNorm statistics hold a row in registers
 
 // activation codes, as ops/fused_block.py passes them
 constexpr int kGeluErf = 0, kGeluTanh = 1, kQuickGelu = 2;
 
 // The activation in fp32, in the order torch's elementwise kernels
 // evaluate it (the plain version's F.gelu and x * sigmoid(1.702 x)).
-__device__ __forceinline__ float activate(int act, float x) {
-  if (act == kGeluErf) return x * 0.5f * (1.f + erff(x * 0.70710678118654752f));
-  if (act == kGeluTanh) {
+template <int ACT>
+__device__ __forceinline__ float activate(float x) {
+  if constexpr (ACT == kGeluErf) {
+    return x * 0.5f * (1.f + erff(x * 0.70710678118654752f));
+  } else if constexpr (ACT == kGeluTanh) {
     const float inner = 0.79788456080286536f * (x + 0.044715f * (x * x * x));
     return 0.5f * x * (1.f + tanhf(inner));
+  } else {
+    return x * (1.f / (1.f + expf(-1.702f * x)));
   }
-  return x * (1.f / (1.f + expf(-1.702f * x)));
+}
+
+// The same with the activation chosen at run time (the fp32 MLP).
+__device__ __forceinline__ float activate(int act, float x) {
+  if (act == kGeluErf) return activate<kGeluErf>(x);
+  if (act == kGeluTanh) return activate<kGeluTanh>(x);
+  return activate<kQuickGelu>(x);
 }
 
 __device__ __forceinline__ float warp_sum(float s) {
@@ -86,19 +124,9 @@ __device__ __forceinline__ float warp_sum(float s) {
   return s;
 }
 
-__device__ __forceinline__ void bf16x8_to_f32(const uint4& u, float (&v)[8]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ uint4 f32_to_bf16x8(const float (&v)[8]) {
-  return make_uint4(pack_f32(v[0], v[1]), pack_f32(v[2], v[3]),
-                    pack_f32(v[4], v[5]), pack_f32(v[6], v[7]));
+// two bf16 (the lower address first) as fp32, exactly
+__device__ __forceinline__ float2 bf16x2_to_f32(uint32_t u) {
+  return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
 }
 
 // 16 bytes of a row as fp32: 8 bf16 or 4 fp32 values
@@ -109,7 +137,14 @@ template <>
 struct Vec<bf16> {
   static constexpr int n = 8;
   __device__ static void load(const bf16* p, float (&v)[8]) {
-    bf16x8_to_f32(*reinterpret_cast<const uint4*>(p), v);
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = bf16x2_to_f32(w[i]);
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
   }
 };
 
@@ -165,155 +200,309 @@ __device__ __forceinline__ void row_stats(const T* __restrict__ row, int K,
 }
 
 // ---------------------------------------------------------------------------
-// ln_linear and linear_residual, bf16: out [R, N] = epilogue(A [R, K] .
-// W [N, K]^T). LN: A is x, normalised with gamma/beta and rounded to bf16 as
-// it is staged, and the epilogue adds the bias (ln_linear). Otherwise A is y
-// and the epilogue computes res + (acc + bias) (linear_residual).
+// bf16: the row statistics of the LN prologue, one warp per row.
 
-constexpr int kBM = 128, kBN = 128, kBK = 32, kSK = kBK + 8;
-constexpr int kGemmThreads = 256;
+constexpr int kStatsRows = 8;  // rows (warps) per block
 
-template <bool LN>
-__global__ void __launch_bounds__(kGemmThreads)
-gemm_bf16_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
-                 const float* __restrict__ bias,
-                 const float* __restrict__ gamma,
-                 const float* __restrict__ beta,
-                 const bf16* __restrict__ res, bf16* __restrict__ out, int R,
-                 int N, int K) {
-  // padded rows of 40 (80 bytes): the fragment loads are conflict-free
-  __shared__ __align__(16) bf16 sA[2][kBM * kSK];
-  __shared__ __align__(16) bf16 sB[2][kBN * kSK];
-  __shared__ float sMean[kBM], sRstd[kBM];
+__global__ void __launch_bounds__(kStatsRows * 32)
+row_stats_kernel(const bf16* __restrict__ x, float* __restrict__ mean,
+                 float* __restrict__ rstd, int R, int K) {
+  const int row = blockIdx.x * kStatsRows + threadIdx.x / 32;
+  if (row >= R) return;  // the whole warp
+  float m, r;
+  row_stats(x + (int64_t)row * K, K, m, r);
+  if ((threadIdx.x & 31) == 0) {
+    mean[row] = m;
+    rstd[row] = r;
+  }
+}
 
-  const int n0 = blockIdx.x * kBN;
-  const int m0 = blockIdx.y * kBM;
-  const int warp = threadIdx.x >> 5;
+// ---------------------------------------------------------------------------
+// bf16: the TMA + wgmma GEMM, out [R, N] = epilogue(prologue(A) . W^T).
+
+constexpr int kBM = 128;  // output rows per tile: two warpgroups of 64
+constexpr int kBK = 64;   // reduction columns per TMA tile (one 128 B row)
+constexpr int kBN = 128, kBNWide = 256;  // output columns per tile
+constexpr int kGemmStages = 4;   // A / W tile pairs in flight
+constexpr int kTmaThreads = 384;  // two consumer warpgroups + the producer
+static_assert(kBK == kTileCols, "a tile row is one 128-byte swizzle row");
+
+enum Epilogue { kEpiBias, kEpiAct, kEpiResidual, kEpiProj };
+
+struct GemmArgs {
+  const bf16* bias;   // [N]
+  const bf16* gamma;  // [K], LN prologue
+  const bf16* beta;
+  const float* mean;   // [R], LN prologue
+  const float* rstd;
+  const bf16* res;     // [R, N]: the residual, or proj's x
+  bf16* out;           // [R, N]
+  int R, N, K, act;
+};
+
+// Shared memory of a block: the ring (stage s: the A tile, then the W
+// tile, both 1024-byte aligned), the mbarriers, and gamma and beta under
+// the LN prologue.
+template <int BN>
+struct GemmSmem {
+  static constexpr int kA = kBM * kRowBytes;
+  static constexpr int kStage = kA + BN * kRowBytes;
+  static constexpr int kBars = kGemmStages * kStage;
+  static constexpr int kVecs = kBars + 2 * 8 * kGemmStages;
+  static constexpr int bytes(bool ln) {
+    return kSwizzleAtom + kVecs + (ln ? 2 * kMaxK * 4 : 0);
+  }
+};
+
+template <int BN>
+__device__ __forceinline__ void wgmma_ss(float (&d)[BN / 2], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  if constexpr (BN == kBNWide)
+    wgmma_ss_n256(d, da, db, scale_d);
+  else
+    wgmma_ss_n128(d, da, db, scale_d);
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_rs(float (&d)[BN / 2],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d) {
+  if constexpr (BN == kBNWide)
+    wgmma_rs_n256(d, a, db, scale_d);
+  else
+    wgmma_rs_n128(d, a, db, scale_d);
+}
+
+// The LN prologue of one k-tile for one consumer thread: its warp's A
+// fragments of the raw x tile `a` (rows wrow .. wrow + 15 of the tile) by
+// ldmatrix, normalised in fp32 with the statistics of rows g and g + 8
+// (index 0 and 1) and gamma / beta of columns k0 .., rounded to bf16.
+// Fragment register r holds row g + 8 * (r % 2), columns 2t, 2t + 1 of the
+// k-step's first (r < 2) or second eight.
+__device__ __forceinline__ void ln_frags(uint32_t (&f)[kBK / 16][4],
+                                         const uint8_t* a, int wrow, int k0,
+                                         const float* sg, const float* sb,
+                                         const float (&mean)[2],
+                                         const float (&rstd)[2]) {
   const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;  // fragment row group
-  const int t = lane & 3;   // thread in group
-  const int wm = warp >> 2;  // 2 x 4 warps, each 64 rows x 32 columns
-  const int wn = warp & 3;
-
-  if (LN) {
-    for (int r = warp; r < kBM; r += kGemmThreads / 32) {
-      float mean = 0.f, rstd = 0.f;
-      if (m0 + r < R) row_stats(a + (int64_t)(m0 + r) * K, K, mean, rstd);
-      if (lane == 0) {
-        sMean[r] = mean;
-        sRstd[r] = rstd;
-      }
+  const int t = lane & 3;
+  const uint8_t* rp = a + (wrow + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                              kRowBytes;
+#pragma unroll
+  for (int ks = 0; ks < kBK / 16; ++ks) {
+    const int chunk = ks * 2 + (lane >> 4);
+    ldmatrix_x4(f[ks], rp + ((chunk ^ (lane & 7)) << 4));  // the swizzle
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int c = k0 + ks * 16 + (r >> 1) * 8 + 2 * t;
+      const float2 gm = *reinterpret_cast<const float2*>(sg + c);
+      const float2 bt = *reinterpret_cast<const float2*>(sb + c);
+      const float2 v = bf16x2_to_f32(f[ks][r]);
+      const int i = r & 1;
+      f[ks][r] = pack_f32((v.x - mean[i]) * rstd[i] * gm.x + bt.x,
+                          (v.y - mean[i]) * rstd[i] * gm.y + bt.y);
     }
-    __syncthreads();
   }
+}
 
-  // each thread stages two 16-byte vectors of the A tile and two of W's
-  uint4 ra[2], rb[2];
-  auto fetch = [&](int k0) {
+// The epilogue of one consumer thread: rows r0 and r0 + 8, columns
+// n0 + 8j + 2t, 2t + 1 of its accumulator (hopper_common.cuh's layout),
+// with the activation ACT (kEpiAct) fixed at compile time. The bias and
+// residual operands of kEpiCols column groups are loaded together, through
+// the read-only path, before any of their stores, and rows past R are
+// computed and only their stores skipped: one load and one store at a
+// time, or a branch around each element, would wait out a memory or
+// arithmetic latency for every pair of columns.
+constexpr int kEpiCols = 8;
+
+template <int BN, int EPI, int ACT>
+__device__ __forceinline__ void store_tile(const float (&acc)[BN / 2],
+                                           const GemmArgs& p, int r0, int n0,
+                                           int t) {
+  constexpr bool kRes = EPI == kEpiResidual || EPI == kEpiProj;
+  const bool in[2] = {r0 < p.R, r0 + 8 < p.R};
+  const int64_t o0 = (int64_t)r0 * p.N + n0 + 2 * t;
+  const int64_t o[2] = {o0, o0 + 8 * (int64_t)p.N};
+  const unsigned int* res = reinterpret_cast<const unsigned int*>(p.res);
+  const unsigned int* bias = reinterpret_cast<const unsigned int*>(p.bias);
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int idx = threadIdx.x + i * kGemmThreads;
-      const int r = idx >> 2, c = (idx & 3) * 8;
-      ra[i] = m0 + r < R ? *reinterpret_cast<const uint4*>(
-                               a + (int64_t)(m0 + r) * K + k0 + c)
-                         : make_uint4(0u, 0u, 0u, 0u);
-      rb[i] = *reinterpret_cast<const uint4*>(w + (int64_t)(n0 + r) * K +
-                                              k0 + c);
+  for (int j0 = 0; j0 < BN / 8; j0 += kEpiCols) {
+    float2 b[kEpiCols];
+    uint32_t r[kEpiCols][2];
+#pragma unroll
+    for (int j = 0; j < kEpiCols; ++j) {
+      const int c = 8 * (j0 + j);
+      b[j] = bf16x2_to_f32(__ldg(bias + (n0 + 2 * t + c) / 2));
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        r[j][h] = kRes && in[h] ? __ldg(res + (o[h] + c) / 2) : 0u;
     }
-  };
-  auto stage = [&](int buf, int k0) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int idx = threadIdx.x + i * kGemmThreads;
-      const int r = idx >> 2, c = (idx & 3) * 8;
-      uint4 v = ra[i];
-      if (LN && m0 + r < R) {
-        float f[8];
-        bf16x8_to_f32(v, f);
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          f[j] = (f[j] - sMean[r]) * sRstd[r] * gamma[k0 + c + j] +
-                 beta[k0 + c + j];
-        v = f32_to_bf16x8(f);
-      }
-      *reinterpret_cast<uint4*>(&sA[buf][r * kSK + c]) = v;
-      *reinterpret_cast<uint4*>(&sB[buf][r * kSK + c]) = rb[i];
-    }
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-      acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
-
-  const int n_k = K / kBK;
-  fetch(0);
-  stage(0, 0);
-  __syncthreads();
-  for (int kt = 0; kt < n_k; ++kt) {
-    const int buf = kt & 1;
-    if (kt + 1 < n_k) fetch((kt + 1) * kBK);
-    const bf16* A = sA[buf];
-    const bf16* B = sB[buf];
-#pragma unroll
-    for (int ks = 0; ks < kBK / 16; ++ks) {
-      uint32_t af[4][4];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const bf16* p = A + (wm * 64 + mt * 16 + g) * kSK + ks * 16 + t * 2;
-        af[mt][0] = ld32(p);
-        af[mt][1] = ld32(p + 8 * kSK);
-        af[mt][2] = ld32(p + 8);
-        af[mt][3] = ld32(p + 8 * kSK + 8);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const bf16* p = B + (wn * 32 + nt * 8 + g) * kSK + ks * 16 + t * 2;
-        const uint32_t b0 = ld32(p), b1 = ld32(p + 8);
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt)
-          mma_bf16_16816(acc[mt][nt], af[mt], b0, b1);
-      }
-    }
-    // the other buffer was last read before the previous barrier
-    if (kt + 1 < n_k) stage(buf ^ 1, (kt + 1) * kBK);
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int col = n0 + wn * 32 + nt * 8 + t * 2;
-      const float b0 = bias[col], b1 = bias[col + 1];
+    for (int j = 0; j < kEpiCols; ++j) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int row = m0 + wm * 64 + mt * 16 + g + h * 8;
-        if (row >= R) continue;
-        const int64_t o = (int64_t)row * N + col;
-        float v0 = acc[mt][nt][2 * h] + b0;
-        float v1 = acc[mt][nt][2 * h + 1] + b1;
-        if (!LN) {
-          const float2 r = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(res + o));
-          v0 = r.x + v0;
-          v1 = r.y + v1;
+        const float a0 = acc[4 * (j0 + j) + 2 * h];
+        const float a1 = acc[4 * (j0 + j) + 2 * h + 1];
+        float v0, v1;
+        if (EPI == kEpiProj) {
+          const float2 x = bf16x2_to_f32(r[j][h]);
+          v0 = (x.x + a0) + b[j].x;
+          v1 = (x.y + a1) + b[j].y;
+        } else {
+          v0 = a0 + b[j].x;
+          v1 = a1 + b[j].y;
+          if (EPI == kEpiAct) {
+            v0 = activate<ACT>(v0);
+            v1 = activate<ACT>(v1);
+          } else if (EPI == kEpiResidual) {
+            const float2 x = bf16x2_to_f32(r[j][h]);
+            v0 = x.x + v0;
+            v1 = x.y + v1;
+          }
         }
-        *reinterpret_cast<uint32_t*>(out + o) = pack_f32(v0, v1);
+        if (in[h])
+          *reinterpret_cast<uint32_t*>(p.out + o[h] + 8 * (j0 + j)) =
+              pack_f32(v0, v1);
       }
     }
   }
 }
 
-// The same two functions in fp32 on FMA: a block owns 64 x 64 outputs, each
-// thread a 4 x 4 block of them; K walks in tiles of 16 staged transposed in
-// shared memory.
+template <int BN, bool LN, int EPI>
+__global__ void __launch_bounds__(kTmaThreads, 1)
+gemm_wgmma(const __grid_constant__ CUtensorMap ta,
+           const __grid_constant__ CUtensorMap tw, const GemmArgs p) {
+  using S = GemmSmem<BN>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_atom(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::kBars);
+  uint64_t* empty = full + kGemmStages;
+  float* sg = reinterpret_cast<float*>(smem + S::kVecs);  // gamma [K]
+  float* sb = sg + kMaxK;                                 // beta [K]
+
+  const int tiles_n = p.N / BN;
+  const int n_tiles = (p.R + kBM - 1) / kBM * tiles_n;
+  const int n_k = p.K / kBK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kGemmStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2 * 128);  // every consumer thread
+    }
+    mbar_fence_init();
+  }
+  if (LN) {
+    for (int i = threadIdx.x; i < p.K; i += kTmaThreads) {
+      sg[i] = __bfloat162float(p.gamma[i]);
+      sb[i] = __bfloat162float(p.beta[i]);
+    }
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {  // producer
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 2 * 128) {
+      int it = 0;  // k-tiles of all this block's tiles so far
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        const int m0 = tile / tiles_n * kBM, n0 = tile % tiles_n * BN;
+        for (int kt = 0; kt < n_k; ++kt, ++it) {
+          const int st = it % kGemmStages;
+          if (it >= kGemmStages)
+            mbar_wait(&empty[st], (it / kGemmStages - 1) & 1);
+          uint8_t* s = smem + st * S::kStage;
+          mbar_arrive_expect_tx(&full[st], S::kStage);
+          tma_load_3d(s, &ta, &full[st], kt * kBK, m0, 0);
+          tma_load_3d(s + S::kA, &tw, &full[st], kt * kBK, n0, 0);
+        }
+      }
+    }
+  } else {  // consumers: 64 rows each
+    setmaxnreg_inc<kConsumerRegs>();
+    const int warp = (threadIdx.x % 128) / 32;
+    const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+    const int wrow = wg * 64 + warp * 16;  // the warp's first row of a tile
+    float acc[BN / 2];
+    int it = 0;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const int m0 = tile / tiles_n * kBM, n0 = tile % tiles_n * BN;
+      const int r0 = m0 + wrow + g;  // this thread's rows r0 and r0 + 8
+      if constexpr (LN) {
+        float mean[2], rstd[2];  // rows past R: 0, so they read as beta
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const bool in = r0 + 8 * i < p.R;
+          mean[i] = in ? p.mean[r0 + 8 * i] : 0.f;
+          rstd[i] = in ? p.rstd[r0 + 8 * i] : 0.f;
+        }
+        uint32_t cur[kBK / 16][4], nxt[kBK / 16][4];
+        mbar_wait(&full[it % kGemmStages], (it / kGemmStages) & 1);
+        ln_frags(nxt, smem + it % kGemmStages * S::kStage, wrow, 0, sg, sb,
+                 mean, rstd);
+        for (int kt = 0; kt < n_k; ++kt, ++it) {
+          const int st = it % kGemmStages;
+#pragma unroll
+          for (int ks = 0; ks < kBK / 16; ++ks)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) cur[ks][r] = nxt[ks][r];
+          const uint64_t db = sw128_desc(smem + st * S::kStage + S::kA);
+          wgmma_fence();
+#pragma unroll
+          for (int ks = 0; ks < kBK / 16; ++ks)
+            wgmma_rs<BN>(acc, cur[ks], desc_plus(db, 32 * ks), kt | ks);
+          wgmma_commit();
+          if (kt + 1 < n_k) {  // the next k-tile's fragments, under these
+            const int sn = (it + 1) % kGemmStages;
+            mbar_wait(&full[sn], ((it + 1) / kGemmStages) & 1);
+            ln_frags(nxt, smem + sn * S::kStage, wrow, (kt + 1) * kBK, sg, sb,
+                     mean, rstd);
+          }
+          wgmma_wait<0>();
+          fence_frags(cur);  // the products read cur until here
+          mbar_arrive(&empty[st]);
+        }
+      } else {
+        for (int kt = 0; kt < n_k; ++kt, ++it) {
+          const int st = it % kGemmStages;
+          mbar_wait(&full[st], (it / kGemmStages) & 1);
+          const uint8_t* s = smem + st * S::kStage;
+          const uint64_t da = sw128_desc(s + wg * 64 * kRowBytes);
+          const uint64_t db = sw128_desc(s + S::kA);
+          wgmma_fence();
+#pragma unroll
+          for (int ks = 0; ks < kBK / 16; ++ks)
+            wgmma_ss<BN>(acc, desc_plus(da, 32 * ks), desc_plus(db, 32 * ks),
+                         kt | ks);
+          wgmma_commit();
+          wgmma_wait<1>();  // the previous k-tile's products are done
+          if (kt > 0) mbar_arrive(&empty[(it + kGemmStages - 1) % kGemmStages]);
+        }
+        wgmma_wait<0>();
+        mbar_arrive(&empty[(it + kGemmStages - 1) % kGemmStages]);
+      }
+      fence_operand(acc);
+      if constexpr (EPI == kEpiAct) {
+        if (p.act == kGeluErf)
+          store_tile<BN, EPI, kGeluErf>(acc, p, r0, n0, t);
+        else if (p.act == kGeluTanh)
+          store_tile<BN, EPI, kGeluTanh>(acc, p, r0, n0, t);
+        else
+          store_tile<BN, EPI, kQuickGelu>(acc, p, r0, n0, t);
+      } else {
+        store_tile<BN, EPI, 0>(acc, p, r0, n0, t);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// fp32, on FMA (the first port's kernels). ln_linear and linear_residual: a
+// block owns 64 x 64 outputs, each thread a 4 x 4 block of them; K walks in
+// tiles of 16 staged transposed in shared memory.
 constexpr int kFBM = 64, kFBN = 64, kFBK = 16;
+constexpr int kF32Threads = 256;
 
 template <bool LN>
-__global__ void __launch_bounds__(kGemmThreads)
+__global__ void __launch_bounds__(kF32Threads)
 gemm_f32_kernel(const float* __restrict__ a, const float* __restrict__ w,
                 const float* __restrict__ bias,
                 const float* __restrict__ gamma,
@@ -330,7 +519,7 @@ gemm_f32_kernel(const float* __restrict__ a, const float* __restrict__ w,
   const int lane = threadIdx.x & 31;
 
   if (LN) {
-    for (int r = warp; r < kFBM; r += kGemmThreads / 32) {
+    for (int r = warp; r < kFBM; r += kF32Threads / 32) {
       float mean = 0.f, rstd = 0.f;
       if (m0 + r < R) row_stats(a + (int64_t)(m0 + r) * K, K, mean, rstd);
       if (lane == 0) {
@@ -395,165 +584,6 @@ gemm_f32_kernel(const float* __restrict__ a, const float* __restrict__ w,
   }
 }
 
-// ---------------------------------------------------------------------------
-// mlp_fused, bf16: a block owns kMlpRows rows and all D output columns.
-
-constexpr int kMlpRows = 32, kMlpHid = 64, kMlpThreads = 512;
-
-template <int D>
-struct MlpSmem {
-  static constexpr int kLd = D + 8;         // normalised rows, W_fc tile
-  static constexpr int kLdH = kMlpHid + 8;  // hidden tile, W_proj tile
-  static constexpr int kLn = kMlpRows * kLd;
-  static constexpr int kWfc = kMlpHid * kLd;
-  static constexpr int kWpj = D * kLdH;
-  static constexpr int kW = kWfc > kWpj ? kWfc : kWpj;  // one buffer, both
-  static constexpr int kH = kMlpRows * kLdH;
-  static constexpr int bytes = (kLn + kW + kH) * 2;
-};
-
-template <int D>
-__global__ void __launch_bounds__(kMlpThreads, 1)
-mlp_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
-                const float* __restrict__ beta, const bf16* __restrict__ wfc,
-                const float* __restrict__ bfc, const bf16* __restrict__ wpj,
-                const float* __restrict__ bpj, bf16* __restrict__ out, int R,
-                int F, int act) {
-  using S = MlpSmem<D>;
-  constexpr int WN = D / 16;  // output columns of each of the 16 warps
-  constexpr int NT = WN / 8;  // their n8 tiles
-  static_assert(D % 128 == 0 && D <= kMaxK, "width");
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sLN = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sW = sLN + S::kLn;
-  bf16* sH = sW + S::kW;
-
-  const int m0 = blockIdx.x * kMlpRows;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-
-  // the block's rows, normalised and rounded to bf16; rows past R are 0
-  for (int rr = warp; rr < kMlpRows; rr += kMlpThreads / 32) {
-    const int row = m0 + rr;
-    bf16* dst = sLN + rr * S::kLd;
-    if (row < R) {
-      const bf16* src = x + (int64_t)row * D;
-      float mean, rstd;
-      row_stats(src, D, mean, rstd);
-      for (int c = lane * 8; c < D; c += 256) {
-        float f[8];
-        Vec<bf16>::load(src + c, f);
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          f[j] = (f[j] - mean) * rstd * gamma[c + j] + beta[c + j];
-        *reinterpret_cast<uint4*>(dst + c) = f32_to_bf16x8(f);
-      }
-    } else {
-      for (int c = lane * 8; c < D; c += 256)
-        *reinterpret_cast<uint4*>(dst + c) = make_uint4(0u, 0u, 0u, 0u);
-    }
-  }
-
-  float acc[2][NT][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-      acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
-
-  const int fr = (warp >> 3) * 16 + g;  // this warp's 16 x 8 piece of the
-  const int fc = (warp & 7) * 8;        // [32, 64] hidden tile
-  for (int f0 = 0; f0 < F; f0 += kMlpHid) {
-    // W_fc rows f0 .. f0 + 63, all D columns
-    for (int i = threadIdx.x; i < kMlpHid * (D / 8); i += kMlpThreads) {
-      const int n = i / (D / 8), c = (i % (D / 8)) * 8;
-      *reinterpret_cast<uint4*>(sW + n * S::kLd + c) =
-          *reinterpret_cast<const uint4*>(wfc + (int64_t)(f0 + n) * D + c);
-    }
-    __syncthreads();
-    // two accumulators over alternate k-steps keep two products in flight
-    float h0[4] = {0.f, 0.f, 0.f, 0.f}, h1[4] = {0.f, 0.f, 0.f, 0.f};
-    const bf16* pa = sLN + fr * S::kLd + t * 2;
-    const bf16* pb = sW + (fc + g) * S::kLd + t * 2;
-#pragma unroll 4
-    for (int ks = 0; ks < D / 16; ks += 2) {
-      uint32_t af[4];
-      const int k = ks * 16;
-      af[0] = ld32(pa + k);
-      af[1] = ld32(pa + 8 * S::kLd + k);
-      af[2] = ld32(pa + k + 8);
-      af[3] = ld32(pa + 8 * S::kLd + k + 8);
-      mma_bf16_16816(h0, af, ld32(pb + k), ld32(pb + k + 8));
-      af[0] = ld32(pa + k + 16);
-      af[1] = ld32(pa + 8 * S::kLd + k + 16);
-      af[2] = ld32(pa + k + 24);
-      af[3] = ld32(pa + 8 * S::kLd + k + 24);
-      mma_bf16_16816(h1, af, ld32(pb + k + 16), ld32(pb + k + 24));
-    }
-    {
-      const int col = fc + t * 2;
-      const float b0 = bfc[f0 + col], b1 = bfc[f0 + col + 1];
-      *reinterpret_cast<uint32_t*>(sH + fr * S::kLdH + col) =
-          pack_f32(activate(act, (h0[0] + h1[0]) + b0),
-                   activate(act, (h0[1] + h1[1]) + b1));
-      *reinterpret_cast<uint32_t*>(sH + (fr + 8) * S::kLdH + col) =
-          pack_f32(activate(act, (h0[2] + h1[2]) + b0),
-                   activate(act, (h0[3] + h1[3]) + b1));
-    }
-    __syncthreads();  // W_fc consumed, the hidden tile complete
-    // W_proj[:, f0 .. f0 + 63] into the same buffer
-    for (int i = threadIdx.x; i < D * (kMlpHid / 8); i += kMlpThreads) {
-      const int n = i / (kMlpHid / 8), c = (i % (kMlpHid / 8)) * 8;
-      *reinterpret_cast<uint4*>(sW + n * S::kLdH + c) =
-          *reinterpret_cast<const uint4*>(wpj + (int64_t)n * F + f0 + c);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < kMlpHid / 16; ++ks) {
-      uint32_t af[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const bf16* p = sH + (mt * 16 + g) * S::kLdH + ks * 16 + t * 2;
-        af[mt][0] = ld32(p);
-        af[mt][1] = ld32(p + 8 * S::kLdH);
-        af[mt][2] = ld32(p + 8);
-        af[mt][3] = ld32(p + 8 * S::kLdH + 8);
-      }
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const bf16* p =
-            sW + (warp * WN + nt * 8 + g) * S::kLdH + ks * 16 + t * 2;
-        const uint32_t b0 = ld32(p), b1 = ld32(p + 8);
-        mma_bf16_16816(acc[0][nt], af[0], b0, b1);
-        mma_bf16_16816(acc[1][nt], af[1], b0, b1);
-      }
-    }
-    __syncthreads();  // W_proj and the hidden tile consumed
-  }
-
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int col = warp * WN + nt * 8 + t * 2;
-      const float b0 = bpj[col], b1 = bpj[col + 1];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + mt * 16 + g + h * 8;
-        if (row >= R) continue;
-        const int64_t o = (int64_t)row * D + col;
-        const float2 xv = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(x + o));
-        *reinterpret_cast<uint32_t*>(out + o) =
-            pack_f32((xv.x + acc[mt][nt][2 * h]) + b0,
-                     (xv.y + acc[mt][nt][2 * h + 1]) + b1);
-      }
-    }
-  }
-}
-
 // mlp_fused, fp32 on FMA: a block owns kFRows rows and all D columns; each
 // thread accumulates an RPT x 4 block of the output. The hidden tile [16,
 // 64] is computed from W_fc staged in k-chunks of 64, activated into shared
@@ -571,7 +601,7 @@ struct MlpF32Smem {
 };
 
 template <int D>
-__global__ void __launch_bounds__(kGemmThreads)
+__global__ void __launch_bounds__(kF32Threads)
 mlp_f32_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
                const float* __restrict__ beta, const float* __restrict__ wfc,
                const float* __restrict__ bfc, const float* __restrict__ wpj,
@@ -579,9 +609,9 @@ mlp_f32_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
                int F, int act) {
   using S = MlpF32Smem<D>;
   constexpr int CB = D / 4;              // 4-column blocks of the output
-  constexpr int RG = kGemmThreads / CB;  // row groups
+  constexpr int RG = kF32Threads / CB;  // row groups
   constexpr int RPT = kFRows / RG;       // rows of each thread
-  static_assert(kGemmThreads % CB == 0 && kFRows % RG == 0, "width");
+  static_assert(kF32Threads % CB == 0 && kFRows % RG == 0, "width");
   extern __shared__ __align__(16) float fsmem[];
   float* sLN = fsmem;
   float* sWf = sLN + S::kLn;
@@ -592,7 +622,7 @@ mlp_f32_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
 
-  for (int rr = warp; rr < kFRows; rr += kGemmThreads / 32) {
+  for (int rr = warp; rr < kFRows; rr += kF32Threads / 32) {
     const int row = m0 + rr;
     float* dst = sLN + rr * D;
     if (row < R) {
@@ -617,7 +647,7 @@ mlp_f32_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
     float h[4] = {0.f, 0.f, 0.f, 0.f};
     for (int k0 = 0; k0 < D; k0 += kFKc) {
       __syncthreads();  // the rows are written, the previous chunk consumed
-      for (int i = threadIdx.x; i < kFHid * kFKc / 4; i += kGemmThreads) {
+      for (int i = threadIdx.x; i < kFHid * kFKc / 4; i += kF32Threads) {
         const int n = i / (kFKc / 4), k = (i % (kFKc / 4)) * 4;
         float v[4];
         Vec<float>::load(wfc + (int64_t)(f0 + n) * D + k0 + k, v);
@@ -639,7 +669,7 @@ mlp_f32_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
       sH[hr * kFHid + hc + j] = activate(act, h[j] + bfc[f0 + hc + j]);
     for (int p0 = 0; p0 < kFHid; p0 += kFPc) {
       __syncthreads();  // the hidden tile is written, the chunk consumed
-      for (int i = threadIdx.x; i < D * kFPc / 4; i += kGemmThreads) {
+      for (int i = threadIdx.x; i < D * kFPc / 4; i += kF32Threads) {
         const int n = i / (kFPc / 4), k = (i % (kFPc / 4)) * 4;
         float v[4];
         Vec<float>::load(wpj + (int64_t)n * F + f0 + p0 + k, v);
@@ -674,116 +704,215 @@ mlp_f32_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
   }
 }
 
-int gemm_shape_ok(bool use_bf16, int rows, int n, int k) {
-  const int bm = use_bf16 ? kBM : kFBM, bn = use_bf16 ? kBN : kFBN;
-  const int bk = use_bf16 ? kBK : kFBK;
-  return rows >= 1 && n >= bn && n % bn == 0 && k >= bk && k % bk == 0 &&
-         k <= kMaxK && (rows + bm - 1) / bm <= 65535;
+// ---------------------------------------------------------------------------
+// Host side.
+
+// Whether N output columns take the 256-wide tile: wherever 256 divides
+// N. At the predict's rows it is the faster width for each of its GEMMs
+// (ln_linear's, linear_residual's, fc and proj), which chip_smoke.py's
+// phase 8e times at both widths.
+bool wide_tiles(int n) { return n % kBNWide == 0; }
+
+// The output tile width of every bf16 GEMM launch: 0 for wide_tiles' rule,
+// or kBN / kBNWide as aaclip_gemm_tile_width forces it.
+std::atomic<int> g_tile_width{0};
+
+bool tma_shape_ok(bool ln, int rows, int n, int k) {
+  return rows >= 1 && n >= kBN && n % kBN == 0 && k >= kBK && k % kBK == 0 &&
+         (!ln || k <= kMaxK);
+}
+
+int launch_stats(const void* x, float* mean, float* rstd, int rows, int k,
+                 cudaStream_t st) {
+  row_stats_kernel<<<(rows + kStatsRows - 1) / kStatsRows, kStatsRows * 32,
+                     0, st>>>(static_cast<const bf16*>(x), mean, rstd, rows,
+                              k);
+  note_launch();
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int BN, bool LN, int EPI>
+int run_gemm(const CUtensorMap& ta, const void* w, const GemmArgs& p,
+             cudaStream_t st) {
+  CUtensorMap tw;
+  cudaError_t err = make_tile_map(&tw, w, p.K, p.N, 1, (uint64_t)p.K * 2,
+                                  (uint64_t)p.N * p.K * 2, BN);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr int smem = GemmSmem<BN>::bytes(LN);
+  err = cudaFuncSetAttribute(gemm_wgmma<BN, LN, EPI>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = (p.R + kBM - 1) / kBM * (p.N / BN);
+  gemm_wgmma<BN, LN, EPI><<<tiles < sms ? tiles : sms, kTmaThreads, smem,
+                            st>>>(ta, tw, p);
+  note_launch();
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The GEMM on A [p.R, p.K] and W [p.N, p.K], both bf16 and row-major.
+template <bool LN, int EPI>
+int launch_tma_gemm(const void* a, const void* w, const GemmArgs& p,
+                    cudaStream_t st) {
+  if (!tma_shape_ok(LN, p.R, p.N, p.K))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap ta;
+  const cudaError_t err = make_tile_map(&ta, a, p.K, p.R, 1,
+                                        (uint64_t)p.K * 2,
+                                        (uint64_t)p.R * p.K * 2, kBM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int bn = g_tile_width.load(std::memory_order_relaxed);
+  if (bn == kBNWide && p.N % kBNWide)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return (bn ? bn == kBNWide : wide_tiles(p.N))
+             ? run_gemm<kBNWide, LN, EPI>(ta, w, p, st)
+             : run_gemm<kBN, LN, EPI>(ta, w, p, st);
+}
+
+int gemm_f32_shape_ok(int rows, int n, int k) {
+  return rows >= 1 && n >= kFBN && n % kFBN == 0 && k >= kFBK &&
+         k % kFBK == 0 && k <= kMaxK && (rows + kFBM - 1) / kFBM <= 65535;
 }
 
 template <bool LN>
-int launch_gemm(bool use_bf16, const void* a, const void* w,
-                const float* bias, const float* gamma, const float* beta,
-                const void* res, void* out, int rows, int n, int k,
-                cudaStream_t st) {
-  if (!gemm_shape_ok(use_bf16, rows, n, k))
+int launch_gemm_f32(const void* a, const void* w, const void* bias,
+                    const void* gamma, const void* beta, const void* res,
+                    void* out, int rows, int n, int k, cudaStream_t st) {
+  if (!gemm_f32_shape_ok(rows, n, k))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (use_bf16) {
-    const dim3 grid(n / kBN, (rows + kBM - 1) / kBM);
-    gemm_bf16_kernel<LN><<<grid, kGemmThreads, 0, st>>>(
-        static_cast<const bf16*>(a), static_cast<const bf16*>(w), bias, gamma,
-        beta, static_cast<const bf16*>(res), static_cast<bf16*>(out), rows, n,
-        k);
-  } else {
-    const dim3 grid(n / kFBN, (rows + kFBM - 1) / kFBM);
-    gemm_f32_kernel<LN><<<grid, kGemmThreads, 0, st>>>(
-        static_cast<const float*>(a), static_cast<const float*>(w), bias,
-        gamma, beta, static_cast<const float*>(res), static_cast<float*>(out),
-        rows, n, k);
-  }
+  const dim3 grid(n / kFBN, (rows + kFBM - 1) / kFBM);
+  gemm_f32_kernel<LN><<<grid, kF32Threads, 0, st>>>(
+      static_cast<const float*>(a), static_cast<const float*>(w),
+      static_cast<const float*>(bias), static_cast<const float*>(gamma),
+      static_cast<const float*>(beta), static_cast<const float*>(res),
+      static_cast<float*>(out), rows, n, k);
+  note_launch();
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
-int launch_mlp(bool use_bf16, const void* x, const float* gamma,
-               const float* beta, const void* wfc, const float* bfc,
-               const void* wpj, const float* bpj, void* out, int rows, int f,
-               int act, cudaStream_t st) {
-  cudaError_t e;
-  if (use_bf16) {
-    constexpr int bytes = MlpSmem<D>::bytes;
-    e = cudaFuncSetAttribute(mlp_bf16_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    mlp_bf16_kernel<D><<<(rows + kMlpRows - 1) / kMlpRows, kMlpThreads,
-                         bytes, st>>>(
-        static_cast<const bf16*>(x), gamma, beta,
-        static_cast<const bf16*>(wfc), bfc, static_cast<const bf16*>(wpj),
-        bpj, static_cast<bf16*>(out), rows, f, act);
-  } else {
-    constexpr int bytes = MlpF32Smem<D>::bytes;
-    e = cudaFuncSetAttribute(mlp_f32_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    mlp_f32_kernel<D><<<(rows + kFRows - 1) / kFRows, kGemmThreads, bytes,
-                        st>>>(
-        static_cast<const float*>(x), gamma, beta,
-        static_cast<const float*>(wfc), bfc, static_cast<const float*>(wpj),
-        bpj, static_cast<float*>(out), rows, f, act);
-  }
+int launch_mlp_f32(const void* x, const void* gamma, const void* beta,
+                   const void* wfc, const void* bfc, const void* wpj,
+                   const void* bpj, void* out, int rows, int f, int act,
+                   cudaStream_t st) {
+  constexpr int bytes = MlpF32Smem<D>::bytes;
+  const cudaError_t e = cudaFuncSetAttribute(
+      mlp_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  mlp_f32_kernel<D><<<(rows + kFRows - 1) / kFRows, kF32Threads, bytes, st>>>(
+      static_cast<const float*>(x), static_cast<const float*>(gamma),
+      static_cast<const float*>(beta), static_cast<const float*>(wfc),
+      static_cast<const float*>(bfc), static_cast<const float*>(wpj),
+      static_cast<const float*>(bpj), static_cast<float*>(out), rows, f, act);
+  note_launch();
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Row-major operands of `rows` rows; x and out [rows, k] / [rows, n], w
-// [n, k] (nn.Linear's layout); bias [n], gamma and beta [k] in fp32.
-// `use_bf16` selects the bf16 kernel (every tensor operand bf16) or the
-// fp32 one.
-// Each returns the CUDA error of the launch (0 on success), or
-// cudaErrorInvalidValue for a shape with no instantiation.
+// [n, k] (nn.Linear's layout); bias [n], gamma and beta [k]. `use_bf16`
+// selects the route: bf16 (every operand, the vectors too, bf16, as the
+// predictor casts a block's leaves) on the TMA + wgmma engine, whose
+// tensor maps need every bf16 operand's base 16-byte aligned (the wrappers
+// refuse anything else), or fp32 (every operand fp32) on the FMA kernels.
+// mean and rstd are fp32 [rows] scratch for the bf16 route's statistics
+// (unused, and may be null, in fp32).
+// Each returns the CUDA error of its launches (0 on success), or
+// cudaErrorInvalidValue for a shape the route does not take.
 extern "C" int aaclip_ln_linear(const void* x, const void* w,
-                                const float* bias, const float* gamma,
-                                const float* beta, void* out, int use_bf16,
-                                int rows, int n, int k, void* stream) {
-  return launch_gemm<true>(use_bf16 != 0, x, w, bias, gamma, beta, nullptr,
-                           out, rows, n, k,
-                           static_cast<cudaStream_t>(stream));
+                                const void* bias, const void* gamma,
+                                const void* beta, float* mean, float* rstd,
+                                void* out, int use_bf16, int rows, int n,
+                                int k, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!use_bf16)
+    return launch_gemm_f32<true>(x, w, bias, gamma, beta, nullptr, out, rows,
+                                 n, k, st);
+  if (!tma_shape_ok(true, rows, n, k))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int err = launch_stats(x, mean, rstd, rows, k, st);
+  if (err != 0) return err;
+  const GemmArgs p{static_cast<const bf16*>(bias),
+                   static_cast<const bf16*>(gamma),
+                   static_cast<const bf16*>(beta), mean, rstd, nullptr,
+                   static_cast<bf16*>(out), rows, n, k, 0};
+  return launch_tma_gemm<true, kEpiBias>(x, w, p, st);
 }
 
 // out = res + (y @ w^T + bias); y [rows, k], res and out [rows, n].
 extern "C" int aaclip_linear_residual(const void* res, const void* y,
-                                      const void* w, const float* bias,
+                                      const void* w, const void* bias,
                                       void* out, int use_bf16, int rows, int n,
                                       int k, void* stream) {
-  return launch_gemm<false>(use_bf16 != 0, y, w, bias, nullptr, nullptr, res,
-                            out, rows, n, k,
-                            static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!use_bf16)
+    return launch_gemm_f32<false>(y, w, bias, nullptr, nullptr, res, out,
+                                  rows, n, k, st);
+  const GemmArgs p{static_cast<const bf16*>(bias), nullptr, nullptr, nullptr,
+                   nullptr, static_cast<const bf16*>(res),
+                   static_cast<bf16*>(out), rows, n, k, 0};
+  return launch_tma_gemm<false, kEpiResidual>(y, w, p, st);
 }
 
 // out = x + proj(act(fc(LN(x)))); x and out [rows, d], w_fc [f, d], w_proj
-// [d, f]; gamma, beta, b_proj [d] and b_fc [f] in fp32; act 0 erf GELU, 1
-// tanh GELU, 2 QuickGELU.
-extern "C" int aaclip_mlp_fused(const void* x, const float* gamma,
-                                const float* beta, const void* w_fc,
-                                const float* b_fc, const void* w_proj,
-                                const float* b_proj, void* out, int use_bf16,
+// [d, f]; gamma, beta, b_proj [d] and b_fc [f]; act 0 erf GELU, 1 tanh
+// GELU, 2 QuickGELU. The bf16 route takes scratch from the caller:
+// mean and rstd fp32 [rows], hidden bf16 [rows, f] (unused, and may be
+// null, in fp32, which keeps the hidden on chip).
+extern "C" int aaclip_mlp_fused(const void* x, const void* gamma,
+                                const void* beta, const void* w_fc,
+                                const void* b_fc, const void* w_proj,
+                                const void* b_proj, float* mean, float* rstd,
+                                void* hidden, void* out, int use_bf16,
                                 int rows, int d, int f, int act,
                                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (rows < 1 || f < kMlpHid || f % kMlpHid || act < kGeluErf ||
-      act > kQuickGelu)
+  if (act < kGeluErf || act > kQuickGelu)
     return static_cast<int>(cudaErrorInvalidValue);
-  switch (d) {
-    case 128:
-      return launch_mlp<128>(use_bf16 != 0, x, gamma, beta, w_fc, b_fc,
-                             w_proj, b_proj, out, rows, f, act, st);
-    case 1024:
-      return launch_mlp<1024>(use_bf16 != 0, x, gamma, beta, w_fc, b_fc,
-                              w_proj, b_proj, out, rows, f, act, st);
-    default:
+  if (!use_bf16) {
+    if (rows < 1 || f < kFHid || f % kFHid)
       return static_cast<int>(cudaErrorInvalidValue);
+    switch (d) {
+      case 128:
+        return launch_mlp_f32<128>(x, gamma, beta, w_fc, b_fc, w_proj, b_proj,
+                                   out, rows, f, act, st);
+      case 1024:
+        return launch_mlp_f32<1024>(x, gamma, beta, w_fc, b_fc, w_proj,
+                                    b_proj, out, rows, f, act, st);
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
+  // fc (K = d under the LN prologue, N = f), then proj (K = f, N = d)
+  if (!tma_shape_ok(true, rows, f, d) || !tma_shape_ok(false, rows, d, f))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int err = launch_stats(x, mean, rstd, rows, d, st);
+  if (err != 0) return err;
+  const GemmArgs fc{static_cast<const bf16*>(b_fc),
+                    static_cast<const bf16*>(gamma),
+                    static_cast<const bf16*>(beta), mean, rstd, nullptr,
+                    static_cast<bf16*>(hidden), rows, f, d, act};
+  err = launch_tma_gemm<true, kEpiAct>(x, w_fc, fc, st);
+  if (err != 0) return err;
+  const GemmArgs proj{static_cast<const bf16*>(b_proj), nullptr, nullptr,
+                      nullptr, nullptr, static_cast<const bf16*>(x),
+                      static_cast<bf16*>(out), rows, d, f, 0};
+  return launch_tma_gemm<false, kEpiProj>(hidden, w_proj, proj, st);
+}
+
+// Every later bf16 GEMM launch of this library takes output tiles of `bn`
+// columns (128 or 256; a launch whose N 256 does not divide then fails
+// with cudaErrorInvalidValue), or wide_tiles' rule again with 0. For
+// holding the two widths against each other on the card; returns
+// cudaErrorInvalidValue for any other width.
+extern "C" int aaclip_gemm_tile_width(int bn) {
+  if (bn != 0 && bn != kBN && bn != kBNWide)
+    return static_cast<int>(cudaErrorInvalidValue);
+  g_tile_width.store(bn, std::memory_order_relaxed);
+  return 0;
 }

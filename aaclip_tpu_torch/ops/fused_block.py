@@ -7,8 +7,7 @@ They replace ``aaclip_tpu/ops/fused_block.py``:
 
 * ``ln_linear``       -- LayerNorm -> matmul -> + bias (ln_1 -> packed QKV);
 * ``linear_residual`` -- res + (matmul + bias) (attention out-projection);
-* ``mlp_fused``       -- x + proj(act(fc(LayerNorm(x)))), the [rows, 4*D]
-  hidden kept on chip.
+* ``mlp_fused``       -- x + proj(act(fc(LayerNorm(x)))).
 
 ``make_block_fn`` runs a block as ``ln_linear`` -> packed attention ->
 ``linear_residual`` -> ``mlp_fused``, the JAX package's inference-only
@@ -21,8 +20,14 @@ fp32, biases, activation and residual in fp32, one rounding of each output
 the exact erf; the TPU kernel's rational erf was a Mosaic workaround.
 
 The wrappers run the plain versions only for tensors on the CPU (the
-tests). On a CUDA tensor they launch the kernel or raise. None has a
-backward: an input that requires grad while autograd records is refused.
+tests). On a CUDA tensor they launch the kernels or raise. Which kernels
+run is the route table ``TMA_ROUTES``: bf16 takes the TMA + wgmma engine
+(a row-statistics kernel and one GEMM with a LayerNorm or plain prologue
+and a bias, activation or residual epilogue; ``ln_linear`` is two
+launches, ``linear_residual`` one, ``mlp_fused`` three, with its bf16
+hidden through device memory); fp32, the parity policy, keeps the first
+port's FMA kernels. None has a backward: an input that requires grad while
+autograd records is refused.
 """
 
 from __future__ import annotations
@@ -34,14 +39,19 @@ import torch
 from aaclip_tpu_torch.core.config import DtypePolicy
 from aaclip_tpu_torch.device import resolve_device
 from aaclip_tpu_torch.models import layers as L
-from aaclip_tpu_torch.ops.attention import (KERNEL_HEAD_DIMS,
+from aaclip_tpu_torch.ops.attention import (KERNEL_HEAD_DIMS, TMA_ALIGN,
                                             attention_packed,
                                             attention_packed_vv)
 
-# The widths fused_block.cu is instantiated for: the GEMM's output and
-# reduction tiles by dtype, its largest reduction (a LayerNorm row held in
-# registers), the model widths of mlp_fused and its hidden tile.
-_GEMM_TILES = {torch.bfloat16: (128, 32), torch.float32: (64, 16)}
+# Compute dtypes on the TMA + wgmma engine of fused_block.cu (gemm_wgmma,
+# row_stats_kernel); fp32 runs the FMA kernels (gemm_f32_kernel,
+# mlp_f32_kernel).
+TMA_ROUTES = frozenset({torch.bfloat16})
+# The widths fused_block.cu takes: by dtype, the narrowest output tile and
+# the reduction tile (N and K multiples of them); the largest LayerNorm row
+# (the statistics hold it in registers: every LN prologue, and every fp32
+# K); the fp32 MLP's model widths and hidden tile.
+_GEMM_TILES = {torch.bfloat16: (128, 64), torch.float32: (64, 16)}
 KERNEL_MAX_K = 1024
 KERNEL_MLP_WIDTHS = (128, 1024)
 KERNEL_MLP_HIDDEN_TILE = 64
@@ -97,37 +107,46 @@ def mlp_fused_plain(x: torch.Tensor, ln_weight: torch.Tensor,
 
 @functools.cache
 def _kernels():
-    """The three C entry points of ``csrc/fused_block.cu``, built on first
-    use, with their argument types declared."""
+    """The C entry points of ``csrc/fused_block.cu``, built on first use,
+    with their argument types declared."""
     import ctypes
 
     from aaclip_tpu_torch.kernels.build import load
 
     lib = load("fused_block")
     i, p = ctypes.c_int, ctypes.c_void_p
-    # x, w, bias, gamma, beta, out, bf16, rows, n, k, stream
-    lib.aaclip_ln_linear.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+    # x, w, bias, gamma, beta, mean, rstd, out, bf16, rows, n, k, stream
+    lib.aaclip_ln_linear.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
     # res, y, w, bias, out, bf16, rows, n, k, stream
     lib.aaclip_linear_residual.argtypes = [p, p, p, p, p, i, i, i, i, p]
-    # x, gamma, beta, w_fc, b_fc, w_proj, b_proj, out, bf16, rows, d, f,
-    # act, stream
-    lib.aaclip_mlp_fused.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i,
-                                     p]
+    # x, gamma, beta, w_fc, b_fc, w_proj, b_proj, mean, rstd, hidden, out,
+    # bf16, rows, d, f, act, stream
+    lib.aaclip_mlp_fused.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i,
+                                     i, i, i, p]
+    lib.aaclip_gemm_tile_width.argtypes = [i]  # bn
     for fn in (lib.aaclip_ln_linear, lib.aaclip_linear_residual,
-               lib.aaclip_mlp_fused):
+               lib.aaclip_mlp_fused, lib.aaclip_gemm_tile_width):
         fn.restype = i
     return lib
 
 
-def _gemm_widths_ok(dtype: torch.dtype, n: int, k: int) -> bool:
-    """``gemm_shape_ok``'s widths: n output columns, k reduced ones."""
+def _gemm_widths_ok(dtype: torch.dtype, n: int, k: int,
+                    ln: bool = True) -> bool:
+    """``tma_shape_ok`` (bf16) or ``gemm_f32_shape_ok``'s widths: n output
+    columns, k reduced ones, under the LayerNorm prologue or not."""
     bn, bk = _GEMM_TILES[dtype]
-    return n >= bn and n % bn == 0 and bk <= k <= KERNEL_MAX_K \
-        and k % bk == 0
+    capped = ln or dtype not in TMA_ROUTES
+    return n >= bn and n % bn == 0 and k >= bk and k % bk == 0 \
+        and (not capped or k <= KERNEL_MAX_K)
 
 
-def _mlp_widths_ok(d: int, f: int) -> bool:
-    """``aaclip_mlp_fused``'s widths: model width d, hidden f."""
+def _mlp_widths_ok(dtype: torch.dtype, d: int, f: int) -> bool:
+    """``aaclip_mlp_fused``'s widths: model width d, hidden f. bf16 runs
+    fc (LN, d -> f) and proj (f -> d) on the GEMM; fp32 has its kernel at
+    ``KERNEL_MLP_WIDTHS``."""
+    if dtype in TMA_ROUTES:
+        return _gemm_widths_ok(dtype, f, d) \
+            and _gemm_widths_ok(dtype, d, f, ln=False)
     return d in KERNEL_MLP_WIDTHS and f >= KERNEL_MLP_HIDDEN_TILE \
         and f % KERNEL_MLP_HIDDEN_TILE == 0
 
@@ -139,39 +158,54 @@ def _refuse_grad(name: str, *tensors: torch.Tensor) -> None:
                            f"tensors that do not require grad")
 
 
-def _operands(name: str, policy: DtypePolicy, acts, mats, vecs):
-    """The kernels' preconditions on CUDA operands: activations and
-    matrices already in the compute dtype (a tower pre-cast by
-    ``core.params.cast_matmul_weights``; nothing is copied per call).
-    Returns the vectors (biases, LayerNorm affine, at most a few thousand
-    elements) in fp32, which the kernels read."""
+def _check_operands(name: str, policy: DtypePolicy, *tensors) -> None:
+    """The kernels' preconditions on CUDA operands (x first): every one,
+    the biases and LayerNorm affines too, already in the compute dtype (a
+    tower pre-cast by ``core.params.cast_matmul_weights``, which casts a
+    block's every leaf), so that a call launches its kernels and nothing
+    else: no operand is cast or copied per call."""
     cd = policy.compute_dtype
-    x = acts[0]
+    x = tensors[0]
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
-    if cd not in _GEMM_TILES or any(t.dtype != cd for t in (*acts, *mats)):
-        raise TypeError(f"{name}: activations and matrices must be in the "
-                        f"policy's compute dtype, bf16 or fp32 (got {cd}; "
-                        f"pre-cast the tower with cast_matmul_weights)")
-    vecs = [v.float().contiguous() for v in vecs]
-    for t in (*acts, *mats, *vecs):
-        if t.device != x.device or t.dtype not in (cd, torch.float32):
-            raise ValueError(f"{name}: operands must share the device and "
-                             f"the compute dtype")
-        # the kernels copy 16-byte vectors
-        if not t.is_contiguous() or t.data_ptr() % 16:
+    if cd not in _GEMM_TILES or any(t.dtype != cd for t in tensors):
+        raise TypeError(f"{name}: every operand, vectors included, must be "
+                        f"in the policy's compute dtype, bf16 or fp32 (got "
+                        f"{cd}; pre-cast the tower with cast_matmul_weights)")
+    for t in tensors:
+        if t.device != x.device:
+            raise ValueError(f"{name}: operands must share the device")
+        # the kernels copy 16-byte vectors; a tensor map's base is a
+        # multiple of TMA_ALIGN bytes, its row stride (K * 2 bytes, K a
+        # multiple of 64) too
+        if not t.is_contiguous() or t.data_ptr() % TMA_ALIGN:
             raise ValueError(f"{name}: operands must be contiguous and "
-                             f"16-byte aligned")
-    return vecs
+                             f"{TMA_ALIGN}-byte aligned")
 
 
 def _launch(name: str, entry, device: torch.device, *args) -> None:
     """Call a C entry point on ``device``'s current stream; raise on its
-    CUDA error (cudaErrorInvalidValue for a shape with no instantiation)."""
+    CUDA error (cudaErrorInvalidValue for a shape with no instantiation).
+    A null pointer is passed as None."""
     with torch.cuda.device(device):
         rc = entry(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+def _scratch(x: torch.Tensor, *shape: int, dtype=torch.float32):
+    """A scratch tensor of the bf16 route on x's device, or None in fp32,
+    whose kernels take none. The caller keeps it until the launch is
+    enqueued; after that the allocator may hand its memory on, in the
+    stream's order."""
+    if x.dtype not in TMA_ROUTES:
+        return None
+    return torch.empty(*shape, dtype=dtype, device=x.device)
+
+
+def _ptr(t) -> int | None:
+    """A tensor's address, or None (a null pointer) for no tensor."""
+    return None if t is None else t.data_ptr()
 
 
 def ln_linear(x: torch.Tensor, ln_weight: torch.Tensor,
@@ -180,28 +214,30 @@ def ln_linear(x: torch.Tensor, ln_weight: torch.Tensor,
     """``layer_norm(x) @ w.T + b``: x [B, S, D], w [F, D] (nn.Linear's
     layout), b [F] -> [B, S, F] in x's dtype.
 
-    CPU tensors take ``ln_linear_plain``. On CUDA tensors (x and w in the
-    compute dtype, contiguous; D a multiple of 32 up to 1024 and F of 128,
-    in fp32 of 16 and 64) the kernel is launched on the current stream and
-    ``ln_linear.launches`` counts each launch."""
+    CPU tensors take ``ln_linear_plain``. On CUDA tensors (all in the
+    compute dtype, contiguous; D a multiple of 64 up to 1024 and F of 128,
+    in fp32 of 16 and 64) the kernels are launched on the current stream
+    (bf16: the row statistics into two fp32 [rows] scratch vectors, then
+    the GEMM) and ``ln_linear.launches`` counts each call."""
     _refuse_grad("ln_linear", x, ln_weight, ln_bias, w, b)
     if x.device.type == "cpu":
         return ln_linear_plain(x, ln_weight, ln_bias, w, b, policy)
-    b, gamma, beta = _operands("ln_linear", policy, (x,), (w,),
-                               (b, ln_weight, ln_bias))
+    _check_operands("ln_linear", policy, x, w, b, ln_weight, ln_bias)
     D = x.shape[-1]
     F = w.shape[0]
-    if w.shape != (F, D) or b.shape != (F,) or gamma.shape != (D,) \
-            or beta.shape != (D,):
+    if w.shape != (F, D) or b.shape != (F,) or ln_weight.shape != (D,) \
+            or ln_bias.shape != (D,):
         raise ValueError("ln_linear: weight shapes do not match x")
     if not _gemm_widths_ok(x.dtype, F, D):
         raise ValueError(f"ln_linear: widths {D} -> {F} have no kernel "
                          f"instantiation in {x.dtype}")
+    R = x.numel() // D
     out = torch.empty(*x.shape[:-1], F, dtype=x.dtype, device=x.device)
+    mean, rstd = _scratch(x, R), _scratch(x, R)  # the row statistics
     _launch("ln_linear", _kernels().aaclip_ln_linear, x.device,
-            x.data_ptr(), w.data_ptr(), b.data_ptr(), gamma.data_ptr(),
-            beta.data_ptr(), out.data_ptr(), int(x.dtype == torch.bfloat16),
-            x.numel() // D, F, D)
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), ln_weight.data_ptr(),
+            ln_bias.data_ptr(), _ptr(mean), _ptr(rstd), out.data_ptr(),
+            int(x.dtype in TMA_ROUTES), R, F, D)
     ln_linear.launches += 1
     return out
 
@@ -215,26 +251,26 @@ def linear_residual(res: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     """``res + (y @ w.T + b)``: y [B, S, D_in], w [D, D_in], res [B, S,
     D] -> [B, S, D] in res's dtype.
 
-    CPU tensors take ``linear_residual_plain``. On CUDA tensors (res, y
-    and w in the compute dtype, contiguous; D_in a multiple of 32 up to
-    1024 and D of 128, in fp32 of 16 and 64) the kernel is launched on the
+    CPU tensors take ``linear_residual_plain``. On CUDA tensors (all in
+    the compute dtype, contiguous; D_in a multiple of 64 and D of
+    128, in fp32 of 16 up to 1024 and of 64) the kernel is launched on the
     current stream and ``linear_residual.launches`` counts each launch."""
     _refuse_grad("linear_residual", res, y, w, b)
     if res.device.type == "cpu":
         return linear_residual_plain(res, y, w, b, policy)
-    b, = _operands("linear_residual", policy, (res, y), (w,), (b,))
+    _check_operands("linear_residual", policy, res, y, w, b)
     K, N = y.shape[-1], res.shape[-1]
     if (w.shape != (N, K) or b.shape != (N,)
             or y.shape[:-1] != res.shape[:-1]):
         raise ValueError("linear_residual: shapes do not match")
-    if not _gemm_widths_ok(res.dtype, N, K):
+    if not _gemm_widths_ok(res.dtype, N, K, ln=False):
         raise ValueError(f"linear_residual: widths {K} -> {N} have no "
                          f"kernel instantiation in {res.dtype}")
     out = torch.empty_like(res)
     _launch("linear_residual", _kernels().aaclip_linear_residual, res.device,
             res.data_ptr(), y.data_ptr(), w.data_ptr(), b.data_ptr(),
-            out.data_ptr(), int(res.dtype == torch.bfloat16),
-            res.numel() // N, N, K)
+            out.data_ptr(), int(res.dtype in TMA_ROUTES), res.numel() // N,
+            N, K)
     linear_residual.launches += 1
     return out
 
@@ -250,11 +286,25 @@ def mlp_fused(x: torch.Tensor, ln_weight: torch.Tensor,
     w_proj [D, F] -> [B, S, D] in x's dtype; ``act`` is ``layers.gelu``,
     ``gelu_tanh`` or ``quick_gelu``.
 
-    CPU tensors take ``mlp_fused_plain``. On CUDA tensors (x, w_fc and
-    w_proj in the compute dtype, contiguous; D in ``KERNEL_MLP_WIDTHS``, F
-    a multiple of 64) the kernel is launched on the current stream and ``mlp_fused.launches``
-    counts each launch; the [rows, F] hidden is never written to device
-    memory."""
+    CPU tensors take ``mlp_fused_plain``. On CUDA tensors (all in the
+    compute dtype, contiguous) the kernels are launched on
+    the current stream and ``mlp_fused.launches`` counts each call.
+
+    bf16 (D a multiple of 128 up to 1024, F of 128) is three launches: the
+    row statistics, fc with the LayerNorm prologue and the activation
+    epilogue into a bf16 [rows, F] hidden, and proj with the ``(x + acc) +
+    b_proj`` epilogue. The hidden goes through device memory as bf16, 359
+    MB at the predict's batch 32 (43,840 rows of F 4096), allocated here:
+    a block that kept it on chip would have to hold the full-width
+    [rows, D] fp32 accumulator, at most ~40 rows in the SM's 256 KB of
+    registers, and read both weight matrices (16.8 MB at D 1024) for them,
+    while each half alone is bound by the tensor cores (fc 367.8 GFLOP
+    against 90 MB of x, 8.4 MB of W_fc and 359 MB of hidden, proj the
+    same), so writing and reading the hidden (718 MB, ~0.21 ms at 3.35
+    TB/s) hides under ~0.74 ms of tensor-core time. The TPU kernel and the
+    plain version round the hidden to bf16 at that point, so the numerics
+    are the same. fp32 (D in ``KERNEL_MLP_WIDTHS``, F a multiple of 64) is
+    one launch that keeps the hidden on chip."""
     _refuse_grad("mlp_fused", x, ln_weight, ln_bias, w_fc, b_fc, w_proj,
                  b_proj)
     if x.device.type == "cpu":
@@ -263,30 +313,48 @@ def mlp_fused(x: torch.Tensor, ln_weight: torch.Tensor,
     if act not in _ACT_CODES:
         raise ValueError(f"mlp_fused: activation {act} has no kernel "
                          f"(have gelu, gelu_tanh, quick_gelu)")
-    gamma, beta, b_fc, b_proj = _operands(
-        "mlp_fused", policy, (x,), (w_fc, w_proj),
-        (ln_weight, ln_bias, b_fc, b_proj))
+    _check_operands("mlp_fused", policy, x, ln_weight, ln_bias, w_fc, b_fc,
+                    w_proj, b_proj)
     D = x.shape[-1]
     F = w_fc.shape[0]
     if (w_fc.shape != (F, D) or w_proj.shape != (D, F) or b_fc.shape != (F,)
-            or b_proj.shape != (D,) or gamma.shape != (D,)
-            or beta.shape != (D,)):
+            or b_proj.shape != (D,) or ln_weight.shape != (D,)
+            or ln_bias.shape != (D,)):
         raise ValueError("mlp_fused: weight shapes do not match x")
-    if not _mlp_widths_ok(D, F):
-        raise ValueError(f"mlp_fused: widths {D}, hidden {F} have no kernel "
-                         f"instantiation (have widths {KERNEL_MLP_WIDTHS}, "
-                         f"hidden a multiple of {KERNEL_MLP_HIDDEN_TILE})")
+    if not _mlp_widths_ok(x.dtype, D, F):
+        raise ValueError(
+            f"mlp_fused: width {D}, hidden {F} have no kernel in {x.dtype} "
+            f"(bf16: width a multiple of {_GEMM_TILES[torch.bfloat16][0]} "
+            f"up to {KERNEL_MAX_K}, hidden of "
+            f"{_GEMM_TILES[torch.bfloat16][0]}; fp32: widths "
+            f"{KERNEL_MLP_WIDTHS}, hidden a multiple of "
+            f"{KERNEL_MLP_HIDDEN_TILE})")
+    R = x.numel() // D
     out = torch.empty_like(x)
+    mean, rstd = _scratch(x, R), _scratch(x, R)
+    hidden = _scratch(x, R, F, dtype=x.dtype)
     _launch("mlp_fused", _kernels().aaclip_mlp_fused, x.device,
-            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w_fc.data_ptr(),
+            x.data_ptr(), ln_weight.data_ptr(), ln_bias.data_ptr(),
+            w_fc.data_ptr(),
             b_fc.data_ptr(), w_proj.data_ptr(), b_proj.data_ptr(),
-            out.data_ptr(), int(x.dtype == torch.bfloat16), x.numel() // D,
-            D, F, _ACT_CODES[act])
+            _ptr(mean), _ptr(rstd), _ptr(hidden), out.data_ptr(),
+            int(x.dtype in TMA_ROUTES), R, D, F, _ACT_CODES[act])
     mlp_fused.launches += 1
     return out
 
 
 mlp_fused.launches = 0
+
+
+def gemm_tile_width(bn: int) -> None:
+    """Make every later bf16 GEMM launch take output tiles of ``bn``
+    columns, 128 or 256 (a launch whose width 256 does not divide then
+    raises), or ``fused_block.cu``'s own choice again with 0: for timing
+    the two widths against each other on the card. Builds the kernels on
+    first use."""
+    if _kernels().aaclip_gemm_tile_width(bn) != 0:
+        raise ValueError(f"gemm_tile_width: no tile of {bn} columns "
+                         f"(have 0, 128, 256)")
 
 
 def make_block_fn(num_heads: int, policy: DtypePolicy = DtypePolicy(), *,
@@ -331,19 +399,25 @@ def fused_block_supported(cfg, policy: DtypePolicy) -> bool:
     cd = policy.compute_dtype
     return (cd in _GEMM_TILES and v.head_dim in KERNEL_HEAD_DIMS
             and _gemm_widths_ok(cd, 3 * v.width, v.width)
-            and _gemm_widths_ok(cd, v.width, v.width)
-            and _mlp_widths_ok(v.width, int(v.width * v.mlp_ratio)))
+            and _gemm_widths_ok(cd, v.width, v.width, ln=False)
+            and _mlp_widths_ok(cd, v.width, int(v.width * v.mlp_ratio)))
 
 
 def maybe_make_block_fn(cfg, policy: DtypePolicy, *, vv: bool = False,
                         device=None):
-    """The fused block for ``cfg`` on the card, under the bf16 and the fp32
-    policy; None off the card, where the caller keeps the unfused block
-    (the JAX package's "not the kernel backend"). On the card a geometry
-    or policy the kernels are not instantiated for raises
+    """The fused block for ``cfg`` on the card under the bf16 policy; None
+    off the card (the JAX package's "not the kernel backend") and under
+    every other policy, where the caller keeps the unfused block. This
+    follows JAX's gate, which gives None for every policy but bf16 so that
+    the fp32 parity paths keep their numerics: a caller under fp32 is
+    asking for the parity path, not for the fused kernels (which
+    ``make_block_fn`` still builds in fp32 when asked directly). On the
+    card a bf16 geometry the kernels do not take raises
     (``fused_block_supported``). ``device=None`` means the card and raises
     without one."""
     if resolve_device(device).type != "cuda":
+        return None
+    if policy.compute_dtype != torch.bfloat16:
         return None
     if not fused_block_supported(cfg, policy):
         v = cfg.vision

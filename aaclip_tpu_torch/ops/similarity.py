@@ -52,7 +52,13 @@ def fused_postproc_matrix(grid: int, img_size: int, domain: str) -> np.ndarray:
 
 
 def apply_postproc_matrix(q: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
-    """[B, g, g] grid maps -> [B, I, I] pixel maps: ``M q Mᵀ`` in fp32."""
+    """[B, g, g] grid maps -> [B, I, I] pixel maps: ``M q Mᵀ`` in fp32.
+
+    A departure from the JAX package, stated: its bf16 predict takes these
+    two products at precision "high", 3-pass bf16 (``aaclip_tpu/eval/
+    predict.py:123-126``, ~1e-5 relative on the map); here they run in
+    true fp32 under every policy (TF32 off on the card), the more precise
+    of the two. The 3-pass product comes with fp32_high (ROADMAP A7)."""
     M = M.float()
     return torch.matmul(torch.matmul(M, q.float()), M.t())
 

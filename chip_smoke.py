@@ -47,14 +47,20 @@ Needs one CUDA card and nvcc. Phases, each of which fails the run:
     the V-V kernel, its plain version and SDPA on the V views at the
     bench's [16, 1370, 1024], and stage-1 images/s at batch 16 in both
     V-V modes.
- 8. the fused-block path (``ops/fused_block.py``, ``fused_block.cu``): (a)
-    ``ln_linear`` (B5, to 3072 and 1024 columns), ``linear_residual`` (B6)
-    and ``mlp_fused`` (B7, under each activation) against their plain
-    versions in bf16 and fp32 at the predict's batch-32 rows, at a ragged
-    row count and at width 128; (b) ``attention_kernel`` (B4, the forward
-    kernel on the [B, H, S, hd] layout) against its plain version at [32,
-    16, 1370, 64], ragged S with valid_len < S and head dim 16, and bit
-    for bit against ``attention_packed`` on the same values packed; (c)
+ 8. the fused-block path (``ops/fused_block.py``, ``fused_block.cu``; bf16
+    on the TMA + wgmma GEMM, fp32 on the FMA kernels): (a) ``ln_linear``
+    (B5, to 3D and D columns), ``linear_residual`` (B6) and ``mlp_fused``
+    (B7, under each activation) against their plain versions in bf16 and
+    fp32, each kernel run twice bit for bit, at the predict's batch-32
+    rows, a ragged row count, the GEMM's 128-row tile edges (128, 129 and
+    255 rows), ViT-B-16's width 768 (hidden 3072; the fp32 MLP has no
+    kernel there and says so) and width 128; then one NaN row of x (and of
+    B6's input) in a [3, 200, 1024] batch, which must leave every other
+    row of each output bit for bit as with that row zero; (b)
+    ``attention_kernel`` (B4, the forward kernel on the [B, H, S, hd]
+    layout) against its plain version at [32, 16, 1370, 64], ragged S
+    with valid_len < S and head dim 16, and bit for bit against
+    ``attention_packed`` on the same values packed; (c)
     the predict with ``block_fn=make_block_fn(...)`` (bf16 uint8 at batch
     8, fp32 at batch 2) against the same predictor on the plain-version
     block with phase 4's bars, 24 launches per call of each of
@@ -68,22 +74,30 @@ Needs one CUDA card and nvcc. Phases, each of which fails the run:
     width-128 3-layer tower in fp32 on the card against the CPU; (e) CUDA-
     event times at the batch-32 shapes of each kernel, its plain version
     and the library yardstick (the unfused sequence the predict runs for
-    B5-B7, SDPA for B4), and the fused predict's maps/s beside the
+    B5-B7, SDPA for B4), each bf16 GEMM with output tiles of the source's
+    own width, of 128 and of 256 columns (ms per call, and per GEMM launch
+    from torch.profiler), and the fused predict's maps/s beside the
     unfused one's.
 Phase 3 also holds the V-V mode of the forward kernel (B3) against its
 plain version, in bf16 and fp32, at [16, 1370, 1024], ragged S and head
 dim 16, and against the standard mode on the value section tripled.
 Then it prints the kernel table as one JSON line (``launches`` counts the
 wrapper's calls on the main path; B4's is read after the fused predict,
-where it must be 0, since no path runs B4; ``ms`` is per call; ``kernels_per_call`` is 2 for the backward, whose call runs a
-dQ and a dK/dV kernel), the card line, and the result line ``{"ok": true,
-"device": {...}}`` last. Exits non-zero without a result when there is no
-card.
+where it must be 0, since no path runs B4; ``ms`` is per call;
+``kernels_per_call`` is counted at the library's launch sites in one call
+at the timed shape, and torch.profiler must see no device operation but
+those kernels in three calls, no cast or copy: 1 for the forward, 2 for
+the backward (a dQ and a dK/dV kernel), 2 for ``ln_linear`` (row
+statistics, GEMM), 1 for ``linear_residual``, 3 for ``mlp_fused``
+(statistics, fc, proj)), the card line, and the result line ``{"ok":
+true, "device": {...}}`` last. Exits non-zero without a result
+when there is no card.
 """
 
 from __future__ import annotations
 
 import copy
+import functools
 import json
 import sys
 import time
@@ -156,29 +170,30 @@ S1_STEP_LOSS_RTOL, S1_STEP_GRAD_COS, S1_STEP_GRAD_NORM_RTOL = 3e-2, 0.998, 0.3
 # inside (a normalised or hidden element) moves the output by a small
 # fraction of that. Per element |d| <= 2^-7 |plain| + 2^-10 max |plain|,
 # mean |d| <= 2^-10 mean |plain|. (Read on an NVIDIA H100 80GB HBM3,
-# 700 W, at the batch-32 rows: ln_linear max 1.562e-2, one ulp at [2, 4),
-# mean 8.1e-7; mlp_fused max 3.125e-2, one ulp at [4, 8), mean 1.35e-5;
-# linear_residual 0: it sums in cuBLAS's order there.)
+# 700 W, on the TMA + wgmma GEMM at the batch-32 rows: ln_linear max
+# 1.562e-2, one ulp at [2, 4), mean 8.2e-7; mlp_fused max 3.125e-2, one
+# ulp at [4, 8), mean 2.7e-6; linear_residual 0: it sums in cuBLAS's order
+# there. The tile edges, ragged rows and width 768 read no more.)
 FUSED_BF16_REL, FUSED_BF16_OF_MAX, FUSED_BF16_MEAN = 2 ** -7, 2 ** -10, \
     2 ** -10
 # fp32: the same fp32 arithmetic in another order over 128-4096 terms, and
 # erff/tanhf/expf against torch's (an ulp or two): ~1e-6 of the output's
-# max |value| (read: at most 1.5e-6 of it); bar 1e-5 of it.
+# max |value| (read: at most 1.8e-6 of it); bar 1e-5 of it.
 FUSED_FP32_OF_MAX = 1e-5
 # B4 against its plain version: the bars of the forward kernel (BF16_*,
 # FP32_MAX_ABS), whose arithmetic it is; against attention_packed on the
 # same values: bit for bit. The fused predict against the plain-block
 # predict: phase 4's bars (PIX_*, SCORE_*; read on the same card: bf16 map
-# 7.463e-3 of its span, scores 1.4e-5). That bar cannot tell the fused
+# 7.763e-3 of its span, scores 1.9e-5). That bar cannot tell the fused
 # chain from the unfused one, and no bar on the map can: 24 bf16 blocks
 # spread any moved rounding over the whole map, so the fused and unfused
-# predicts sit about as far from the plain-block one (max 7.463e-3 against
-# 9.264e-3 of the span, mean 1.322e-3 against 1.481e-3). It catches gross
+# predicts sit about as far from the plain-block one (max 7.763e-3 against
+# 8.850e-3 of the span, mean 1.307e-3 against 1.511e-3). It catches gross
 # faults only; the per-kernel bars of 8a and the encode_image cosines
 # carry the check. encode_image, fused blocks against
 # plain blocks: the kernels' ulp-level differences through 24 blocks, as
 # the stage-1 features (S1_FEAT_COS): every tap token's and the pooled
-# embedding's cosine >= 0.999 (read: least 0.99989142); the width-128
+# embedding's cosine >= 0.999 (read: least 0.99988777); the width-128
 # tower in fp32, card vs CPU: TINY_*.
 ENC_COS = 0.999
 
@@ -203,6 +218,72 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ops(fn, calls: int = 1) -> dict:
+    """The device operations (kernels, copies, fills) of ``calls`` calls of
+    ``fn`` under torch.profiler: {name: (count, device microseconds)}.
+    One call runs first as the profiler's warm-up step, traced and
+    discarded: a trace can miss the work at its very start."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=calls,
+                                   repeat=1)) as prof:
+        for _ in range(calls + 1):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return {e.key: (e.count, e.self_device_time_total)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.is_user_annotation}
+
+
+# (fn, want, what) of every kernels_per_call, for check_device_ops
+DEVICE_OPS_CHECKS = []
+
+
+def kernels_per_call(fn, lib: str, want: dict, what: str) -> int:
+    """The kernels one call of ``fn`` launches, counted by library ``lib``
+    at its launch sites (``kernels_launched``), which must be ``want``'s
+    total ({a kernel name's part: launches per call}); queues ``fn`` for
+    ``check_device_ops``."""
+    import torch
+
+    from aaclip_tpu_torch.kernels.build import kernels_launched
+
+    before = kernels_launched(lib)
+    fn()
+    torch.cuda.synchronize()
+    n = kernels_launched(lib) - before
+    print(f"{what}: {n} kernels per call (counted at the launch sites)")
+    expect(n == sum(want.values()),
+           f"{what} launches {n} kernels per call, not {want}")
+    DEVICE_OPS_CHECKS.append((fn, want, what))
+    return n
+
+
+def check_device_ops() -> None:
+    """The device operations of three calls of each function
+    ``kernels_per_call`` counted, under torch.profiler: each must be one of
+    its kernels, so that no cast, copy or fill rides along. The library
+    counts and the profiler only names: a trace can miss a kernel (the
+    attention backward's first, in one of three traces on the H100). Run
+    after every timed phase: the host-bound stage-1 and stage-2 rates read
+    2-5% lower in runs that had traced before them."""
+    for fn, want, what in DEVICE_OPS_CHECKS:
+        seen = {}
+        for name, (count, _) in device_ops(fn, 3).items():
+            part = next((p for p in want if p in name), name)
+            seen[part] = seen.get(part, 0) + count
+        print(f"{what}: device operations of 3 calls (profiler): {seen}")
+        expect(set(seen) <= set(want),
+               f"{what} runs {sorted(set(seen) - set(want))} beside its "
+               f"kernels")
+    DEVICE_OPS_CHECKS.clear()
 
 
 def expect(cond: bool, what: str) -> None:
@@ -629,7 +710,10 @@ def phase_predict(vit, adapter, cfg, acfg, anchors, M, card, gen):
     # timings at the predict's attention shape
     B, S, hd = 32, cfg.vision.seq_len, cfg.vision.head_dim
     qkv = random_qkv(B, S, heads, hd, torch.bfloat16, gen)
-    ms_kernel = cuda_ms(lambda: attention_packed(qkv, heads, S), 20)
+    fwd = functools.partial(attention_packed, qkv, heads, S)
+    ms_kernel = cuda_ms(fwd, 20)
+    per_call = kernels_per_call(fwd, "attention_packed", {"attn_fwd_wgmma": 1},
+                                "attention_packed")
     ms_plain = cuda_ms(lambda: attention_packed_plain(qkv, heads, S), 5)
     q, k, v = qkv.view(B, S, 3, heads, hd).permute(2, 0, 3, 1, 4).unbind(0)
     ms_sdpa = cuda_ms(
@@ -651,7 +735,8 @@ def phase_predict(vit, adapter, cfg, acfg, anchors, M, card, gen):
     for name, ms in (("kernel", ms_pred), ("plain", ms_pred_p)):
         print(f"time predict bf16 B=32 ViT-L/518 ({name} attention): "
               f"{ms:.2f} ms/call, {32 / ms * 1e3:.2f} maps/s on {card}")
-    return main_launches, ms_kernel, ms_plain, ms_sdpa, bound_ms, bound_by
+    return (main_launches, per_call, ms_kernel, ms_plain, ms_sdpa, bound_ms,
+            bound_by)
 
 
 def tiny_acfg():
@@ -820,8 +905,12 @@ def time_bwd(cfg, card):
     d_out = torch.randn(B, S, H * hd, generator=gen,
                         device="cuda").to(torch.bfloat16)
     _, lse = attention_packed(qkv, H, S, return_lse=True)
-    ms_kernel = cuda_ms(lambda: attention_packed_bwd(qkv, d_out, lse, H, S),
-                        10)
+    bwd = functools.partial(attention_packed_bwd, qkv, d_out, lse, H, S)
+    ms_kernel = cuda_ms(bwd, 10)
+    per_call = kernels_per_call(
+        bwd, "attention_packed_bwd",
+        {"attn_bwd_dq_wgmma": 1, "attn_bwd_dkdv_wgmma": 1},
+        "attention_packed_bwd")
     ms_plain = cuda_ms(lambda: attention_packed_bwd_plain(qkv, d_out, H, S),
                        3)
     q, k, v = (t.detach().requires_grad_() for t in
@@ -845,7 +934,7 @@ def time_bwd(cfg, card):
               f"{ms:.4f} ms/call ({flops / ms / 1e9:.1f} TFLOP/s of the "
               f"TPU kernel's five products{own}; bound {bound_ms:.4f} ms by "
               f"{bound_by}) on {card}")
-    return ms_kernel, ms_plain, ms_sdpa, bound_ms, bound_by
+    return per_call, ms_kernel, ms_plain, ms_sdpa, bound_ms, bound_by
 
 
 def stage1_batch(B, img, gen):
@@ -1053,7 +1142,10 @@ def phase_stage1(vit, cfg, card):
     B, S, hd = STAGE1_BATCH, cfg.vision.seq_len, cfg.vision.head_dim
     v = torch.randn(B, S, heads * hd, generator=gen,
                     device="cuda").to(torch.bfloat16)
-    ms_kernel = cuda_ms(lambda: attention_packed_vv(v, heads, S), 20)
+    vv = functools.partial(attention_packed_vv, v, heads, S)
+    ms_kernel = cuda_ms(vv, 20)
+    per_call = kernels_per_call(vv, "attention_packed", {"attn_fwd_wgmma": 1},
+                                "attention_packed_vv")
     ms_plain = cuda_ms(lambda: attention_packed_vv_plain(v, heads, S), 3)
     q = v.view(B, S, heads, hd).transpose(1, 2)
     ms_sdpa = cuda_ms(
@@ -1076,7 +1168,7 @@ def phase_stage1(vit, cfg, card):
         print(f"time stage-1 iteration bf16 B={STAGE1_BATCH} ViT-L/518 "
               f"(features + step, vv {mode}): {ms:.2f} ms, "
               f"{STAGE1_BATCH / ms * 1e3:.2f} images/s on {card}")
-    return main_vv, ms_kernel, ms_plain, ms_sdpa, bound_ms, bound_by
+    return main_vv, per_call, ms_kernel, ms_plain, ms_sdpa, bound_ms, bound_by
 
 
 def fused_inputs(B, S, D, F, dtype, gen):
@@ -1120,14 +1212,51 @@ def fused_err(got, want, dtype_name: str, what: str) -> float:
     return mx
 
 
-# (B, S, D, hidden F): the predict's batch-32 rows, ragged rows, width 128
+# (B, S, D, hidden F): the predict's batch-32 rows, ragged rows, the bf16
+# GEMM's 128-row tile edges (one tile, one row over, one short of two),
+# ViT-B-16's width at 224 px, and width 128 (N 384 and 128 take the
+# 128-column tile)
 FUSED_CASES = [(32, 1370, 1024, 4096), (3, 37, 1024, 4096),
-               (2, 21, 128, 512)]
+               (1, 128, 1024, 4096), (1, 129, 1024, 4096),
+               (1, 255, 1024, 4096), (2, 197, 768, 3072), (2, 21, 128, 512)]
+# the NaN-row check: x [B, S, D], hidden F, and the poisoned row
+NAN_ROW_CASE = (3, 200, 1024, 4096, 300)
+
+
+def twice(fn, what: str):
+    """``fn()`` run twice; the two outputs must be equal bit for bit."""
+    import torch
+
+    first, second = fn(), fn()
+    expect(torch.equal(first, second), f"{what}: two runs differ")
+    return first
+
+
+def fused_calls(FB, t, y, policy, acts, plain=False):
+    """{name: call} of B5 (to 3D columns, the QKV projection, and to D, the
+    V-V value third), B6 and B7 under each activation of ``acts``, on the
+    inputs of ``fused_inputs`` and the out-projection input y: FB's
+    wrappers, or with ``plain`` their plain versions."""
+    def op(name):
+        return getattr(FB, f"{name}_plain" if plain else name)
+
+    x, g, b = t["x"], t["g"], t["b"]
+    D = x.shape[-1]
+    wo, bo = t["w"][:D].contiguous(), t["bias"][:D].contiguous()
+    calls = {f"ln_linear F={n}": (lambda n=n: op("ln_linear")(
+        x, g, b, t["w"][:n], t["bias"][:n], policy)) for n in (3 * D, D)}
+    calls["linear_residual"] = lambda: op("linear_residual")(x, y, wo, bo,
+                                                             policy)
+    for act in acts:
+        calls[f"mlp_fused {act.__name__}"] = lambda act=act: op("mlp_fused")(
+            x, g, b, t["w"], t["bias"], t["w2"], t["bias2"], act, policy)
+    return calls
 
 
 def check_fused_kernels(dtype_name: str) -> dict:
-    """B5-B7 against their plain versions on the card; returns the largest
-    max |d| of each at the batch-32 shape."""
+    """B5-B7 against their plain versions on the card, each kernel run
+    twice bit for bit; returns the largest max |d| of each at the batch-32
+    shape."""
     import torch
 
     from aaclip_tpu_torch.core.config import DtypePolicy
@@ -1140,35 +1269,59 @@ def check_fused_kernels(dtype_name: str) -> dict:
     worst = {"ln_linear": 0.0, "linear_residual": 0.0, "mlp_fused": 0.0}
     for B, S, D, F in FUSED_CASES:
         t = fused_inputs(B, S, D, F, dtype, gen)
-        x, g, b = t["x"], t["g"], t["b"]
-        print(f"fused kernels {dtype_name} x [{B},{S},{D}]:")
-        errs = {}
-        for n_out in (3 * D, D):  # the QKV projection, the V-V value third
-            w, bias = t["w"][:n_out], t["bias"][:n_out]
-            errs[f"ln_linear F={n_out}"] = fused_err(
-                FB.ln_linear(x, g, b, w, bias, policy),
-                FB.ln_linear_plain(x, g, b, w, bias, policy), dtype_name,
-                f"ln_linear F={n_out}")
         y = torch.randn(B, S, D, generator=gen, device="cuda").to(dtype)
-        wo, bo = t["w"][:D].contiguous(), t["bias"][:D].contiguous()
-        errs["linear_residual"] = fused_err(
-            FB.linear_residual(x, y, wo, bo, policy),
-            FB.linear_residual_plain(x, y, wo, bo, policy), dtype_name,
-            "linear_residual")
-        for act in (L.gelu, L.gelu_tanh, L.quick_gelu):
-            errs[f"mlp_fused {act.__name__}"] = fused_err(
-                FB.mlp_fused(x, g, b, t["w"], t["bias"], t["w2"], t["bias2"],
-                             act, policy),
-                FB.mlp_fused_plain(x, g, b, t["w"], t["bias"], t["w2"],
-                                   t["bias2"], act, policy),
-                dtype_name, f"mlp_fused {act.__name__}")
+        print(f"fused kernels {dtype_name} x [{B},{S},{D}], hidden {F}:")
+        acts = (L.gelu, L.gelu_tanh, L.quick_gelu)
+        if not FB._mlp_widths_ok(dtype, D, F):
+            print(f"  mlp_fused: no {dtype_name} kernel at width {D} (the "
+                  f"fp32 MLP is instantiated at {FB.KERNEL_MLP_WIDTHS})")
+            expect(dtype_name == "fp32", f"no bf16 MLP at width {D}")
+            acts = ()
+        plain = fused_calls(FB, t, y, policy, acts, plain=True)
+        errs = {name: fused_err(twice(fn, name), plain[name](), dtype_name,
+                                name)
+                for name, fn in fused_calls(FB, t, y, policy, acts).items()}
         torch.cuda.synchronize()
         if B == 32:
             for name in worst:
                 worst[name] = max(v for k, v in errs.items()
                                   if k.startswith(name))
-        del t, x, y
+        del t, y
     return worst
+
+
+def check_fused_nan_row(dtype_name: str) -> None:
+    """One row of x (and of the out-projection's input) NaN: every other
+    row of each B5-B7 output is bit for bit the output with that row 0."""
+    import torch
+
+    from aaclip_tpu_torch.core.config import DtypePolicy
+    from aaclip_tpu_torch.models import layers as L
+    from aaclip_tpu_torch.ops import fused_block as FB
+
+    B, S, D, F, row = NAN_ROW_CASE
+    dtype = torch_dtype(dtype_name)
+    policy = DtypePolicy(dtype, dtype_name == "bf16")
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    t = fused_inputs(B, S, D, F, dtype, gen)
+    y = torch.randn(B, S, D, generator=gen, device="cuda").to(dtype)
+    outs = []
+    for fill in (float("nan"), 0.0):
+        t["x"].view(-1, D)[row] = fill
+        y.view(-1, D)[row] = fill
+        calls = fused_calls(FB, t, y, policy, (L.gelu_tanh,))
+        outs.append({k: fn().view(B * S, -1) for k, fn in calls.items()})
+    torch.cuda.synchronize()
+    keep = torch.arange(B * S, device="cuda") != row
+    for name, poisoned in outs[0].items():
+        clean = outs[1][name]
+        expect(bool(torch.isnan(poisoned[row]).all()),
+               f"{name}: the NaN row did not come out NaN")
+        expect(torch.equal(poisoned[keep], clean[keep]),
+               f"{name}: the NaN row moved other rows")
+    print(f"fused kernels {dtype_name}, row {row} of x [{B},{S},{D}] NaN: "
+          f"every other row of {', '.join(outs[0])} equals the output with "
+          f"the row 0, bit for bit")
 
 
 # B4: (B, H, S, head dim, valid_len)
@@ -1442,10 +1595,36 @@ def phase_encode_image(vit, cfg):
           "card (kernels) matches the CPU")
 
 
+def compare_tile_widths(FB, calls: dict, card) -> None:
+    """Phase 8e: the bf16 wrappers at the batch-32 shapes with every GEMM
+    on output tiles of fused_block.cu's own width (``rule``), then of 128
+    and of 256 columns (``gemm_tile_width``): ms per call by CUDA events,
+    and each GEMM's device ms per launch by the profiler, under its
+    kernel's name, which carries the tile width (``gemm_wgmma<BN, LN,
+    EPI>``: B5 is ln_linear's, B6 linear_residual's; fc is mlp_fused's LN
+    GEMM, proj its other)."""
+    for bn in (0, 128, 256):
+        FB.gemm_tile_width(bn)
+        try:
+            for name, fn in calls.items():
+                ms = cuda_ms(fn, 20)
+                gemms = "; ".join(
+                    f"{k[k.index('gemm_wgmma'):].split('(')[0]} "
+                    f"{us / n / 1e3:.4f} ms"
+                    for k, (n, us) in sorted(device_ops(fn, 10).items())
+                    if "gemm_wgmma" in k)
+                print(f"tile {bn or 'rule'}: {name} {ms:.4f} ms per call; "
+                      f"per GEMM launch (profiler): {gemms} on {card}")
+        finally:
+            FB.gemm_tile_width(0)
+
+
 def time_fused(cfg, card):
     """Phase 8e: each fused kernel, its plain version and the library
-    yardstick at the batch-32 shapes; returns {name: (ms, plain ms,
-    library ms, bound ms, bound_by)}."""
+    yardstick at the batch-32 shapes, with the device operations of one
+    call (the profiler's count, which must be the kernels' own) and the
+    GEMM's tile widths against each other; returns {name: (ms, plain ms,
+    library ms, bound ms, bound_by, kernels per call)}."""
     import torch
 
     from aaclip_tpu_torch.core.config import DtypePolicy
@@ -1487,31 +1666,35 @@ def time_fused(cfg, card):
 
     cases = {
         "ln_linear": (
-            lambda: FB.ln_linear(x, g, b, wqkv, bqkv, bf16),
+            functools.partial(FB.ln_linear, x, g, b, wqkv, bqkv, bf16),
             lambda: FB.ln_linear_plain(x, g, b, wqkv, bqkv, bf16),
             unfused_ln_linear, 2 * R * D * 3 * D,
             (R * D + 3 * D * D + 3 * D + 2 * D + R * 3 * D) * e),
         "linear_residual": (
-            lambda: FB.linear_residual(x, y, wo, bo, bf16),
+            functools.partial(FB.linear_residual, x, y, wo, bo, bf16),
             lambda: FB.linear_residual_plain(x, y, wo, bo, bf16),
             unfused_linear_residual, 2 * R * D * D,
             (3 * R * D + D * D + D) * e),
         "mlp_fused": (
-            lambda: FB.mlp_fused(x, g, b, t["w"], t["bias"], t["w2"],
-                                 t["bias2"], act, bf16),
+            functools.partial(FB.mlp_fused, x, g, b, t["w"], t["bias"],
+                              t["w2"], t["bias2"], act, bf16),
             lambda: FB.mlp_fused_plain(x, g, b, t["w"], t["bias"], t["w2"],
                                        t["bias2"], act, bf16),
             unfused_mlp, 4 * R * D * F,
             (2 * R * D + 2 * D * F + F + 3 * D) * e),
     }
+    per_call = {"ln_linear": {"row_stats_kernel": 1, "gemm_wgmma": 1},
+                "linear_residual": {"gemm_wgmma": 1},
+                "mlp_fused": {"row_stats_kernel": 1, "gemm_wgmma": 2}}
     out = {}
     with torch.inference_mode():
         for name, (kern, plain, lib, flops, nbytes) in cases.items():
             ms = cuda_ms(kern, 20)
+            n = kernels_per_call(kern, "fused_block", per_call[name], name)
             ms_plain = cuda_ms(plain, 5)
             ms_lib = cuda_ms(lib, 20)
             bound_ms, bound_by = bound(flops, nbytes)
-            out[name] = (ms, ms_plain, ms_lib, bound_ms, bound_by)
+            out[name] = (ms, ms_plain, ms_lib, bound_ms, bound_by, n)
             print(f"time {name} [{B},{S},{D}] bf16: kernel {ms:.4f} ms "
                   f"({flops / ms / 1e9:.1f} TFLOP/s), plain {ms_plain:.4f}, "
                   f"unfused sequence {ms_lib:.4f}; bound {bound_ms:.4f} ms "
@@ -1520,17 +1703,25 @@ def time_fused(cfg, card):
         H, hd = cfg.vision.heads, cfg.vision.head_dim
         q, k, v = (torch.randn(B, H, S, hd, generator=gen, device="cuda").to(
             torch.bfloat16) for _ in range(3))
-        ms = cuda_ms(lambda: attention_kernel(q, k, v, S), 20)
+        b4 = functools.partial(attention_kernel, q, k, v, S)
+        ms = cuda_ms(b4, 20)
+        n = kernels_per_call(b4, "attention_packed", {"attn_fwd_wgmma": 1},
+                             "attention_kernel")
         ms_plain = cuda_ms(lambda: attention_kernel_plain(q, k, v, S), 5)
         ms_lib = cuda_ms(lambda: torch.nn.functional.
                          scaled_dot_product_attention(q, k, v), 20)
         flops = 4 * B * H * S * S * hd
         bound_ms, bound_by = bound(flops, 4 * q.numel() * q.element_size())
-        out["attention_kernel"] = (ms, ms_plain, ms_lib, bound_ms, bound_by)
+        out["attention_kernel"] = (ms, ms_plain, ms_lib, bound_ms, bound_by,
+                                   n)
         print(f"time attention_kernel [{B},{H},{S},{hd}] bf16: kernel "
               f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
               f"{ms_plain:.4f}, sdpa {ms_lib:.4f}; bound {bound_ms:.4f} ms by "
               f"{bound_by} on {card}")
+        # last: it traces, and a traced process times host-bound work
+        # slower (check_device_ops)
+        compare_tile_widths(FB, {name: c[0] for name, c in cases.items()},
+                            card)
     return out
 
 
@@ -1586,7 +1777,7 @@ def main() -> int:
 
     # -- 4, 6a. inference path
     print(f"[{time.perf_counter() - t0:.0f} s] inference path")
-    (fwd_launches, ms_fwd, ms_fwd_plain, ms_sdpa, fwd_bound,
+    (fwd_launches, fwd_per_call, ms_fwd, ms_fwd_plain, ms_sdpa, fwd_bound,
      fwd_bound_by) = phase_predict(vit, adapter, cfg, acfg, anchors, M, card,
                                    gen)
     # -- 5, 6b. stage-2 training step
@@ -1595,13 +1786,13 @@ def main() -> int:
     expect(train_fwd == fwd_launches, "forward launches differ by path")
     # -- 6c. backward timings
     print(f"[{time.perf_counter() - t0:.0f} s] backward timings")
-    ms_bwd, ms_bwd_plain, ms_sdpa_bwd, bwd_bound, bwd_bound_by = time_bwd(
-        cfg, card)
+    (bwd_per_call, ms_bwd, ms_bwd_plain, ms_sdpa_bwd, bwd_bound,
+     bwd_bound_by) = time_bwd(cfg, card)
 
     # -- 7. stage-1 path
     print(f"[{time.perf_counter() - t0:.0f} s] stage-1 path")
-    vv_launches, ms_vv, ms_vv_plain, ms_vv_sdpa, vv_bound, vv_bound_by = \
-        phase_stage1(vit, cfg, card)
+    (vv_launches, vv_per_call, ms_vv, ms_vv_plain, ms_vv_sdpa, vv_bound,
+     vv_bound_by) = phase_stage1(vit, cfg, card)
 
     # -- 8. fused-block path
     print(f"[{time.perf_counter() - t0:.0f} s] fused-block path")
@@ -1609,6 +1800,7 @@ def main() -> int:
     for d in DTYPES:
         for name, err in check_fused_kernels(d).items():
             err_fused[name] = max(err_fused.get(name, 0.0), err)
+        check_fused_nan_row(d)
     err_b4 = max(check_attention_kernel(d) for d in DTYPES)
     fused_launches = phase_fused_predict(vit, adapter, cfg, acfg, anchors,
                                          M, card)
@@ -1617,8 +1809,10 @@ def main() -> int:
            "predict's")
     phase_encode_image(vit, cfg)
     fused_times = time_fused(cfg, card)
+    check_device_ops()
 
     print(f"[{time.perf_counter() - t0:.0f} s] done")
+    # (name, source, replaces, launches, max |d|)
     fused_rows = [
         ("attention_kernel", "attention_packed.cu",
          "aaclip_tpu/ops/flash_attention.py:94",
@@ -1637,7 +1831,7 @@ def main() -> int:
         "source": "aaclip_tpu_torch/kernels/csrc/attention_packed.cu",
         "replaces": "aaclip_tpu/ops/flash_attention.py:190",
         "launches": fwd_launches,
-        "kernels_per_call": 1,
+        "kernels_per_call": fwd_per_call,
         "max_abs_err": err_fwd,
         "ms": ms_fwd,
         "plain_ms": ms_fwd_plain,
@@ -1650,7 +1844,7 @@ def main() -> int:
         "source": "aaclip_tpu_torch/kernels/csrc/attention_packed_bwd.cu",
         "replaces": "aaclip_tpu/ops/flash_attention.py:302",
         "launches": train_bwd,
-        "kernels_per_call": 2,
+        "kernels_per_call": bwd_per_call,
         "max_abs_err": err_bwd,
         "ms": ms_bwd,
         "plain_ms": ms_bwd_plain,
@@ -1663,7 +1857,7 @@ def main() -> int:
         "source": "aaclip_tpu_torch/kernels/csrc/attention_packed.cu",
         "replaces": "aaclip_tpu/ops/flash_attention.py:190",
         "launches": vv_launches,
-        "kernels_per_call": 1,
+        "kernels_per_call": vv_per_call,
         "max_abs_err": err_vv,
         "ms": ms_vv,
         "plain_ms": ms_vv_plain,
@@ -1676,7 +1870,7 @@ def main() -> int:
         "source": f"aaclip_tpu_torch/kernels/csrc/{source}",
         "replaces": replaces,
         "launches": launches,
-        "kernels_per_call": 1,
+        "kernels_per_call": fused_times[name][5],
         "max_abs_err": err,
         "ms": fused_times[name][0],
         "plain_ms": fused_times[name][1],

@@ -8,7 +8,10 @@ Pallas kernels in interpret mode, at tests/test_fused_block.py's shapes (D
 * ``make_block_fn`` in the standard and V-V forms;
 * ``encode_image`` with both block overrides, and the predictor with
   ``block_fn``, on a 128-wide 3-layer tower;
-* the gate, the wrappers' refusals, and their C signatures.
+* the gate, the wrappers' refusals, their C signatures and the route
+  table;
+* the plain ``ln_linear`` and ``mlp_fused`` at ViT-B's width (D 768, F
+  3072, B 1, S 5), which the bf16 kernels take.
 
 The CUDA kernels themselves are held against the plain versions on the
 card by chip_smoke.py (phase 8); here only the arithmetic the kernels copy
@@ -187,6 +190,59 @@ def test_mlp_fused_matches_jax(data, policy, act):
     assert_matches(got, want, policy)
 
 
+# ViT-B's width (ViT-B-16: D 768, MLP 3072), which the bf16 kernels take:
+# one block's LayerNorm, QKV and MLP weights at B 1, S 5.
+WD, WF = 768, 3072
+
+
+@pytest.fixture(scope="module")
+def wide():
+    rng = np.random.default_rng(8)
+
+    def n(*shape, s):
+        return (rng.standard_normal(shape) * s).astype(np.float32)
+
+    ln = {"scale": 1 + n(WD, s=0.1), "bias": n(WD, s=0.1)}
+    mlp = {"w_fc": n(WD, WF, s=WD ** -0.5), "b_fc": n(WF, s=0.02),
+           "w_proj": n(WF, WD, s=WF ** -0.5), "b_proj": n(WD, s=0.02)}
+    return (n(1, 5, WD, s=1.0), ln, n(WD, 3 * WD, s=WD ** -0.5),
+            n(3 * WD, s=0.02), mlp)
+
+
+def as_torch(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+@pytest.mark.parametrize("policy", ["fp32", "bf16"])
+def test_ln_linear_matches_jax_at_vit_b_width(wide, policy):
+    x, ln, w, b, _ = wide
+    jpol, tpol = POLICIES[policy]
+    jx, tx = inputs(x, policy)
+    want = run_jax(lambda x_: JFB.ln_linear(
+        x_, ln, w, b, policy=jpol, r_blk=8, f_blk=768, interpret=True), jx)
+    got = FB.ln_linear(tx, as_torch(ln["scale"]), as_torch(ln["bias"]),
+                       as_torch(w.T), as_torch(b), tpol)
+    assert got.dtype == tx.dtype and got.shape == (1, 5, 3 * WD)
+    assert_matches(got, want, policy)
+
+
+@pytest.mark.parametrize("policy,act", [("fp32", "gelu"),
+                                        ("bf16", "gelu_tanh")])
+def test_mlp_fused_matches_jax_at_vit_b_width(wide, policy, act):
+    x, ln, _, _, mlp = wide
+    jpol, tpol = POLICIES[policy]
+    jx, tx = inputs(x, policy)
+    want = run_jax(lambda x_: JFB.mlp_fused(
+        x_, ln, mlp, act=getattr(JL, act), policy=jpol, r_blk=8, f_blk=768,
+        interpret=True), jx)
+    got = FB.mlp_fused(tx, as_torch(ln["scale"]), as_torch(ln["bias"]),
+                       as_torch(mlp["w_fc"].T), as_torch(mlp["b_fc"]),
+                       as_torch(mlp["w_proj"].T), as_torch(mlp["b_proj"]),
+                       getattr(L, act), tpol)
+    assert got.dtype == tx.dtype and got.shape == (1, 5, WD)
+    assert_matches(got, want, policy)
+
+
 @pytest.mark.parametrize("vv", [False, True], ids=["standard", "vv"])
 @pytest.mark.parametrize("policy", ["fp32", "bf16"])
 def test_block_fn_matches_jax(data, policy, vv):
@@ -309,28 +365,44 @@ def test_predict_with_block_fn_matches_jax(policy):
 
 
 def test_gate_and_supported_geometry(monkeypatch):
-    """ViT-L's geometry is supported under bf16 and fp32 and tiny-test's
-    (width 64) is not; off the card the gate gives no block, and on the
-    card an unsupported geometry raises instead of falling back."""
+    """ViT-L's geometry is supported under bf16 and fp32, ViT-B-16's (width
+    768) under bf16 only (the fp32 MLP kernel is instantiated at widths 128
+    and 1024), tiny-test's (width 64) under neither. Off the card the gate
+    gives no block; on the card it gives one under bf16 only, None under
+    fp32 as JAX's gate does, and an unsupported bf16 geometry raises
+    instead of falling back."""
     vit_l, tiny = get_config("ViT-L-14-336"), get_config("tiny-test")
-    for policy in (DtypePolicy.bf16(), DtypePolicy.fp32()):
+    vit_b = [get_config(n) for n in ("ViT-B-16", "ViT-B-16-quickgelu")]
+    bf16, fp32 = DtypePolicy.bf16(), DtypePolicy.fp32()
+    for policy in (bf16, fp32):
         assert FB.fused_block_supported(vit_l, policy)
         assert FB.fused_block_supported(small_configs()[1], policy)
         assert not FB.fused_block_supported(tiny, policy)
         assert FB.maybe_make_block_fn(vit_l, policy, device="cpu") is None
+    for cfg in vit_b:
+        assert cfg.vision.width == 768 and cfg.vision.head_dim == 64
+        assert FB.fused_block_supported(cfg, bf16)
+        assert not FB.fused_block_supported(cfg, fp32)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
-            FB.maybe_make_block_fn(vit_l, DtypePolicy.bf16())
+            FB.maybe_make_block_fn(vit_l, bf16)
     monkeypatch.setattr(FB, "resolve_device",
                         lambda device: torch.device("cuda"))
     with pytest.raises(ValueError, match="no kernels for width 64"):
-        FB.maybe_make_block_fn(tiny, DtypePolicy.bf16())
-    assert callable(FB.maybe_make_block_fn(vit_l, DtypePolicy.bf16()))
+        FB.maybe_make_block_fn(tiny, bf16)
+    for cfg in (vit_l, *vit_b):
+        assert callable(FB.maybe_make_block_fn(cfg, bf16))
+        assert callable(FB.maybe_make_block_fn(cfg, bf16, vv=True))
+        assert FB.maybe_make_block_fn(cfg, fp32) is None
+    assert FB.maybe_make_block_fn(tiny, fp32) is None
 
 
 def test_width_checks_match_the_kernel_tiles():
     """The wrappers' width checks read the tiles fused_block.cu is
-    instantiated for."""
+    instantiated for: the bf16 GEMM's 64-column reduction tile (one
+    128-byte TMA row) and its output tiles of 128 and 256 columns (every N
+    the check admits has a tile), the LayerNorm cap, the fp32 tiles and
+    the fp32 MLP's widths and hidden tile."""
     import re
 
     src = (build.CSRC / "fused_block.cu").read_text()
@@ -340,10 +412,62 @@ def test_width_checks_match_the_kernel_tiles():
 
     assert FB._GEMM_TILES == {torch.bfloat16: (const("kBN"), const("kBK")),
                               torch.float32: (const("kFBN"), const("kFBK"))}
-    assert FB.KERNEL_MAX_K == const("kMaxK")
-    assert FB.KERNEL_MLP_HIDDEN_TILE == const("kMlpHid")
+    assert (const("kBK"), const("kBN"), const("kBNWide")) == (64, 128, 256)
+    assert FB.KERNEL_MAX_K == const("kMaxK") == 1024
+    assert FB.KERNEL_MLP_HIDDEN_TILE == const("kFHid")
     for d in FB.KERNEL_MLP_WIDTHS:
         assert f"case {d}:" in src
+    bf16, fp32 = torch.bfloat16, torch.float32
+    assert FB._gemm_widths_ok(bf16, 3072, 1024)
+    assert FB._gemm_widths_ok(bf16, 384, 128)
+    assert not FB._gemm_widths_ok(bf16, 3072, 2048)  # LN row over the cap
+    assert FB._gemm_widths_ok(bf16, 1024, 4096, ln=False)  # proj, K = F
+    assert not FB._gemm_widths_ok(bf16, 1024, 96, ln=False)
+    assert not FB._gemm_widths_ok(bf16, 192, 1024)
+    assert not FB._gemm_widths_ok(fp32, 1024, 4096, ln=False)
+    assert FB._mlp_widths_ok(bf16, 768, 3072)
+    assert FB._mlp_widths_ok(bf16, 128, 512)
+    assert not FB._mlp_widths_ok(bf16, 1280, 5120)
+    assert not FB._mlp_widths_ok(bf16, 768, 3136)
+    assert not FB._mlp_widths_ok(fp32, 768, 3072)
+    assert FB._mlp_widths_ok(fp32, 1024, 4096)
+
+
+def test_routes_match_the_kernel_sources():
+    """The route table is the source's own: each C entry point sends fp32
+    to the FMA kernels and bf16 (the rest) to the TMA + wgmma GEMM, after
+    the row statistics where there is a LayerNorm; every __global__ kernel
+    of the source is one of the two routes'."""
+    import re
+
+    src = (build.CSRC / "fused_block.cu").read_text()
+    assert FB.TMA_ROUTES == {torch.bfloat16}
+
+    def body(entry):
+        start = src.index(f'extern "C" int {entry}(')
+        end = src.find('extern "C"', start + 1)
+        return src[start:end if end > 0 else len(src)]
+
+    tma = {"aaclip_ln_linear": ["launch_stats(", "launch_tma_gemm<true, "
+                                "kEpiBias>"],
+           "aaclip_linear_residual": ["launch_tma_gemm<false, kEpiResidual>"],
+           "aaclip_mlp_fused": ["launch_stats(", "launch_tma_gemm<true, "
+                                "kEpiAct>", "launch_tma_gemm<false, kEpiProj>"]}
+    f32 = {"aaclip_ln_linear": "launch_gemm_f32<true>",
+           "aaclip_linear_residual": "launch_gemm_f32<false>",
+           "aaclip_mlp_fused": "launch_mlp_f32<"}
+    for entry, calls in tma.items():
+        b = body(entry)
+        split = b.index("if (!use_bf16)")
+        assert f32[entry] in b[split:] and "launch_tma_gemm" not in \
+            b[:split]
+        tail = b[b.index(f32[entry]):]
+        positions = [tail.index(c) for c in calls]
+        assert positions == sorted(positions), entry  # in launch order
+    kernels = set(re.findall(
+        r"__global__ void __launch_bounds__\([^)]*\)\s+(\w+)\(", src))
+    assert kernels == {"row_stats_kernel", "gemm_wgmma", "gemm_f32_kernel",
+                       "mlp_f32_kernel"}
 
 
 def test_wrappers_refuse_inputs_that_require_grad(data):
@@ -405,12 +529,15 @@ def test_masked_block_refuses_a_block_override(data):
                          block_fn=FB.make_block_fn(HEADS, act=L.gelu))
 
 
-@pytest.mark.parametrize("entry,n_params", [("aaclip_ln_linear", 11),
+@pytest.mark.parametrize("entry,n_params", [("aaclip_ln_linear", 13),
                                             ("aaclip_linear_residual", 10),
-                                            ("aaclip_mlp_fused", 14)])
+                                            ("aaclip_mlp_fused", 17),
+                                            ("aaclip_gemm_tile_width", 1)])
 def test_entry_points_match_the_c_signatures(entry, n_params):
     """The ctypes argument lists in ops/fused_block.py have one entry per
-    parameter of each C entry point in fused_block.cu."""
+    parameter of each C entry point in fused_block.cu: ``ln_linear`` with
+    the row statistics' mean and rstd scratch, ``mlp_fused`` with those and
+    the bf16 hidden, and the GEMM's tile-width override."""
     import re
 
     src = (build.CSRC / "fused_block.cu").read_text()
@@ -420,3 +547,20 @@ def test_entry_points_match_the_c_signatures(entry, n_params):
     assert len(sig.split(",")) == len(argtypes.group(1).split(",")) \
         == n_params
     assert "fused_block" in build.KERNELS
+
+
+@pytest.mark.parametrize("name", build.KERNELS)
+def test_every_launch_site_counts_itself(name):
+    """Each source counts its kernel launches for ``build.kernels_launched``
+    (the per-call counts of chip_smoke.py): it includes launch_count.cuh
+    and every ``<<<...>>>`` launch is followed by ``note_launch()``."""
+    import re
+
+    src = (build.CSRC / f"{name}.cu").read_text()
+    assert '#include "launch_count.cuh"' in src
+    launches = src.count(">>>(")
+    assert launches >= 2
+    assert len(re.findall(r">>>\([^;]*\);\s*note_launch\(\);", src)) \
+        == launches == src.count("note_launch();")
+    header = (build.CSRC / "launch_count.cuh").read_text()
+    assert 'extern "C" long long aaclip_kernels_launched()' in header
