@@ -1,11 +1,16 @@
 """Parameters of both towers and of the adapters: random init on the
-device from a ``torch.Generator``, loading from (and, for the adapters,
+device from a ``torch.Generator``, loading from an OpenAI-layout CLIP
+checkpoint (``create_clip_towers``), loading from (and, for the adapters,
 back to) the JAX package's parameter tree, and the compute-dtype casts.
 """
 
 from __future__ import annotations
 
 import copy
+import logging
+import math
+import os
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -16,6 +21,7 @@ from aaclip_tpu_torch.core.config import (AdapterConfig, CLIPConfig,
 from aaclip_tpu_torch.device import resolve_device
 from aaclip_tpu_torch.models.text_model import TextAdapter, TextTransformer
 from aaclip_tpu_torch.models.vit import ImageAdapter, VisionTransformer
+from aaclip_tpu_torch.ops.resize import resize_bicubic_2d
 
 
 def _init_tower(tower: nn.Module, width: int, gen: torch.Generator) -> None:
@@ -256,10 +262,10 @@ def text_adapter_to_jax(adapter: TextAdapter) -> dict:
     }
 
 
-def cast_matmul_weights(vit: VisionTransformer,
-                        policy: DtypePolicy) -> VisionTransformer:
-    """A copy of ``vit`` with its weights pre-cast to the compute dtype
-    (``vit`` itself when that is the storage dtype), for the predictor.
+def cast_matmul_weights(vit: nn.Module, policy: DtypePolicy) -> nn.Module:
+    """A copy of the tower ``vit`` (image, or text for the anchor encoder)
+    with its weights pre-cast to the compute dtype (``vit`` itself when
+    that is the storage dtype), for inference.
 
     The cast follows the JAX predictor (``eval/predict.py:68``), whose
     stacked block leaves are all at least 2-D: every block parameter is
@@ -298,3 +304,157 @@ def cast_block_matrices(tower: nn.Module, policy: DtypePolicy) -> nn.Module:
             if p.dim() == 2:
                 p.data = p.data.to(cd)
     return out
+
+
+# --------------------------------------------------------------------------
+# OpenAI-layout CLIP checkpoints (reference model/openai.py:17-136). The
+# towers' parameter names are OpenAI's below the tower prefix, so a
+# checkpoint loads by renaming ``visual.transformer.resblocks.{i}`` and
+# ``transformer.resblocks.{i}`` to ``blocks.{i}``; only the patch
+# embedding (a linear over flattened patches here) and the visual
+# positional embedding (resized to the run-time grid) change shape.
+
+
+def resize_pos_embed(pos: np.ndarray, new_grid: int) -> np.ndarray:
+    """Resize a [1 + g*g, width] positional embedding to [1 + G*G, width]
+    with the antialiased bicubic kernel at half-pixel centres (reference
+    model/model.py:395-426); the CLS row is kept."""
+    tok, img = pos[:1], pos[1:]
+    old_grid = int(round(math.sqrt(img.shape[0])))
+    if old_grid * old_grid != img.shape[0]:
+        raise ValueError(f"non-square pos embed: {img.shape}")
+    if old_grid == new_grid:
+        return pos
+    grid = np.asarray(img, np.float32).reshape(old_grid, old_grid, -1)
+    grid = np.moveaxis(grid, -1, 0)  # [C, g, g]
+    resized = resize_bicubic_2d(grid, (new_grid, new_grid))
+    resized = np.moveaxis(resized, 0, -1).reshape(new_grid * new_grid, -1)
+    return np.concatenate([np.asarray(tok, np.float32), resized], axis=0)
+
+
+def _load_state_dict(path: str) -> dict:
+    """A TorchScript archive (the published OpenAI format) or a raw or
+    ``{"state_dict": ...}`` ``torch.save`` file (read with
+    ``weights_only=True``) as a dict of tensors."""
+    try:
+        sd = torch.jit.load(path, map_location="cpu").eval().state_dict()
+    except RuntimeError:
+        obj = torch.load(path, map_location="cpu", weights_only=True)
+        if not isinstance(obj, dict):
+            raise ValueError(f"{path!r} holds a {type(obj).__name__}, not a "
+                             "state dict") from None
+        sd = obj.get("state_dict", obj)
+    return {k: v for k, v in sd.items() if isinstance(v, torch.Tensor)}
+
+
+def checkpoint_matches_config(sd: dict, cfg: CLIPConfig) -> bool:
+    """Whether a state dict has ``cfg``'s architecture (vision width and
+    depth, text width): decides whether a discovered default checkpoint
+    applies."""
+    try:
+        v, t = cfg.vision, cfg.text
+        return (sd["visual.conv1.weight"].shape[0] == v.width
+                and f"visual.transformer.resblocks.{v.layers - 1}"
+                    ".ln_1.weight" in sd
+                and f"visual.transformer.resblocks.{v.layers}"
+                    ".ln_1.weight" not in sd
+                and sd["token_embedding.weight"].shape[1] == t.width)
+    except (KeyError, AttributeError, IndexError):
+        return False
+
+
+def _tower_from_state_dict(tower: nn.Module, sd: dict, prefix: str,
+                           blocks: str, device, overrides: dict) -> nn.Module:
+    """Copy ``sd``'s entries under ``prefix`` into ``tower`` (built on the
+    meta device), the ``blocks`` prefix renamed to ``blocks.``, as fp32."""
+    names = list(tower.state_dict())
+    src = {}
+    for name in names:
+        key = prefix + (blocks + name[len("blocks."):]
+                        if name.startswith("blocks.") else name)
+        src[name] = overrides[name] if name in overrides else sd[key]
+    tower = tower.to_empty(device=device).requires_grad_(False)
+    tower.load_state_dict({k: v.float() for k, v in src.items()})
+    return tower
+
+
+def load_openai_checkpoint(path: str, cfg: CLIPConfig, *, device=None
+                           ) -> Tuple[VisionTransformer, TextTransformer]:
+    """The frozen fp32 towers from an OpenAI-layout checkpoint, the visual
+    positional embedding resized from the checkpoint's grid to ``cfg``'s."""
+    dev = resolve_device(device)
+    sd = _load_state_dict(path)
+    if not checkpoint_matches_config(sd, cfg):
+        raise ValueError(
+            f"checkpoint {path!r} does not match the requested config "
+            f"(vision width {cfg.vision.width}, {cfg.vision.layers} "
+            f"layers, text width {cfg.text.width})")
+    v = cfg.vision
+    pos = resize_pos_embed(
+        sd["visual.positional_embedding"].float().numpy(), v.grid)
+    with torch.device("meta"):
+        vit = VisionTransformer(v, cfg.embed_dim)
+        text = TextTransformer(cfg)
+    vit = _tower_from_state_dict(
+        vit, sd, "visual.", "transformer.resblocks.", dev,
+        {"conv1.weight": sd["visual.conv1.weight"].reshape(v.width, -1),
+         "positional_embedding": torch.from_numpy(pos)})
+    text = _tower_from_state_dict(text, sd, "", "transformer.resblocks.",
+                                  dev, {})
+    return vit, text
+
+
+DEFAULT_CKPT_PATHS = (
+    os.path.join(os.path.dirname(__file__), "..", "weights",
+                 "ViT-L-14-336px.pt"),
+)
+
+def find_default_checkpoint() -> Optional[str]:
+    """``AACLIP_CKPT`` when it names a file (an explicit override wins over
+    the bundled path), else ``aaclip_tpu_torch/weights/ViT-L-14-336px.pt``
+    when present, else None."""
+    env = os.environ.get("AACLIP_CKPT")
+    if env and os.path.isfile(env):
+        return env
+    for p in DEFAULT_CKPT_PATHS:
+        p = os.path.abspath(p)
+        if os.path.isfile(p):
+            return p
+    return None
+
+
+def resolve_clip_checkpoint(cfg: CLIPConfig, checkpoint: Optional[str] = None,
+                            require_pretrained: bool = False
+                            ) -> Optional[str]:
+    """The checkpoint ``create_clip_towers`` loads, or None for the seeded
+    init: an explicit ``checkpoint`` (or ``require_pretrained``) as given,
+    a discovered default only when its architecture matches ``cfg``
+    (probing reads the whole file)."""
+    path = checkpoint or find_default_checkpoint()
+    if path is not None and checkpoint is None and not require_pretrained:
+        if not checkpoint_matches_config(_load_state_dict(path), cfg):
+            logging.getLogger("aaclip").info(
+                "default checkpoint %s does not match config (width %d, "
+                "%d layers) — using random init", path, cfg.vision.width,
+                cfg.vision.layers)
+            path = None
+    return path
+
+
+def create_clip_towers(cfg: CLIPConfig, *, checkpoint: Optional[str] = None,
+                       seed: int = 0, require_pretrained: bool = False,
+                       device=None
+                       ) -> Tuple[VisionTransformer, TextTransformer]:
+    """The frozen image and text towers: from a checkpoint when one
+    resolves (``resolve_clip_checkpoint``), otherwise the seeded init. An
+    explicit checkpoint (or ``require_pretrained``) loads or fails."""
+    path = resolve_clip_checkpoint(cfg, checkpoint, require_pretrained)
+    if path is not None:
+        return load_openai_checkpoint(path, cfg, device=device)
+    if require_pretrained:
+        raise FileNotFoundError(
+            "Pretrained weights required but no checkpoint found; set "
+            "AACLIP_CKPT or place ViT-L-14-336px.pt under "
+            "aaclip_tpu_torch/weights/.")
+    return (init_vision_params(cfg, seed=seed, device=device),
+            init_text_params(cfg, seed=seed, device=device))

@@ -3,23 +3,30 @@
 Adapted image forward -> per-level seg tokens -> ``100 * feats @ anchors``
 -> level collapse -> ``M q Mᵀ`` (blur and upsample folded into M, see
 ops/similarity.py); the image score comes from the det token.
+``run_class_predictions`` drives a loader through the predictor for one
+class; ``make_anchor_encoder`` is the text side of the evaluation.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, List, Tuple
 
+import numpy as np
 import torch
 
 from aaclip_tpu_torch.core.config import AdapterConfig, CLIPConfig, DtypePolicy
 from aaclip_tpu_torch.core.params import cast_matmul_weights
 from aaclip_tpu_torch.device import resolve_device
 from aaclip_tpu_torch.models.layers import config_act
+from aaclip_tpu_torch.models.text_model import (TextAdapter, TextTransformer,
+                                                adapted_encode_text,
+                                                encode_text)
 from aaclip_tpu_torch.models.vit import VisionTransformer, adapted_forward
 from aaclip_tpu_torch.ops.preprocess import (fold_normalization_into_conv1,
                                              patchify_uint8)
 from aaclip_tpu_torch.ops.similarity import (apply_postproc_matrix,
                                              collapse_level_scores,
+                                             fused_postproc_matrix,
                                              image_score, level_scores)
 
 
@@ -67,6 +74,9 @@ def make_predict_fn(vit: VisionTransformer, cfg: CLIPConfig,
 
     visual = cast_matmul_weights(vit, policy)
     act = config_act(cfg, policy)
+    # M q Mᵀ at true fp32 only under the fp32 policy, as JAX's predictor
+    pp_precision = "highest" if policy.compute_dtype == torch.float32 \
+        else "high"
     patch_embed = None
     if uint8_inputs:
         w_f, b_f = fold_normalization_into_conv1(vit.conv1.weight.t(),
@@ -91,6 +101,60 @@ def make_predict_fn(vit: VisionTransformer, cfg: CLIPConfig,
         _, B, L, _ = scores.shape
         grid = int(round(L ** 0.5))
         q = collapse_level_scores(scores).reshape(B, grid, grid)
-        return apply_postproc_matrix(q, M), image_score(det, anchors)
+        return (apply_postproc_matrix(q, M, pp_precision),
+                image_score(det, anchors))
 
+    predict.device = dev
     return predict
+
+
+def run_class_predictions(predict_fn, image_adapter, loader, anchors,
+                          domain: str, img_size: int, grid: int
+                          ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
+                                     np.ndarray, List[str]]:
+    """Drive ``loader``'s batches through ``predict_fn`` (a
+    ``make_predict_fn`` predictor) for one class; returns (masks, labels,
+    pixel_preds, image_preds, file_names) of the valid samples, as numpy.
+
+    ``M`` and the anchors go to the predictor's device once; the
+    predictions stay there until the class ends, so copying them back
+    does not wait for each batch."""
+    dev = predict_fn.device
+    M = torch.from_numpy(fused_postproc_matrix(grid, img_size, domain)).to(dev)
+    anchors = torch.as_tensor(anchors).to(dev)
+    masks, labels, pix_preds, img_preds, files = [], [], [], [], []
+    for batch in loader:
+        pix, score = predict_fn(image_adapter,
+                                torch.from_numpy(batch["image"]).to(dev),
+                                anchors, M)
+        n = batch["n_valid"]
+        masks.append(batch["mask"][:n])
+        labels.append(batch["label"][:n])
+        pix_preds.append(pix[:n])
+        img_preds.append(score[:n])
+        files.extend(batch["file_name"][:n])
+    return (np.concatenate(masks), np.concatenate(labels),
+            torch.cat(pix_preds).cpu().numpy(),
+            torch.cat(img_preds).cpu().numpy(), files)
+
+
+def make_anchor_encoder(text: TextTransformer, cfg: CLIPConfig,
+                        acfg: AdapterConfig,
+                        text_adapter: TextAdapter | None = None, *,
+                        policy: DtypePolicy = DtypePolicy()) -> Callable:
+    """[N, 77] tokens -> [N, D] embeddings for ``encode_dataset_anchors``:
+    the adapted text encoder when a text adapter is given, else the frozen
+    one (reference test.py:192-200), on a copy of the tower cast as JAX's
+    encoder casts it (``cast_matmul_weights``: every block parameter and
+    the >= 2-D weights outside the blocks)."""
+    text_c = cast_matmul_weights(text, policy)
+
+    @torch.inference_mode()
+    def encode(tokens):
+        if text_adapter is None:
+            return encode_text(text_c, cfg, tokens, policy=policy)
+        return adapted_encode_text(
+            text_c, text_adapter, cfg, tokens,
+            text_adapt_weight=acfg.text_adapt_weight, policy=policy)
+
+    return encode

@@ -9,7 +9,9 @@ to the level-summed grid map:
     sum_l U B q_l B^T U^T  ==  M (sum_l q_l) M^T
 
 The image score is ``(det . anchors[:, 1] + 1) / 2``. Every product here is
-fp32 (the caller keeps TF32 off on the card).
+fp32 (the caller keeps TF32 off on the card), but for ``M q Mᵀ`` under the
+predictor's fast policies, which takes the 3-pass bf16 product as JAX's
+does.
 
 Training upsamples instead the per-level logit difference
 ``d = abnormal - normal`` with the align-corners bilinear matrix U,
@@ -24,6 +26,7 @@ import functools
 import numpy as np
 import torch
 
+from aaclip_tpu_torch.models.layers import matmul_f32
 from aaclip_tpu_torch.ops.blur import DOMAIN_BLUR, gaussian_blur_matrix
 from aaclip_tpu_torch.ops.resize import bilinear_matrix
 
@@ -51,16 +54,42 @@ def fused_postproc_matrix(grid: int, img_size: int, domain: str) -> np.ndarray:
     return (U @ B).astype(np.float32)
 
 
-def apply_postproc_matrix(q: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
-    """[B, g, g] grid maps -> [B, I, I] pixel maps: ``M q Mᵀ`` in fp32.
+def _split_bf16(x: torch.Tensor):
+    """fp32 ``x`` as bf16 ``hi + lo``: ``hi = bf16(x)``, ``lo = bf16(x -
+    hi)``."""
+    hi = x.to(torch.bfloat16)
+    return hi, (x - hi.float()).to(torch.bfloat16)
 
-    A departure from the JAX package, stated: its bf16 predict takes these
-    two products at precision "high", 3-pass bf16 (``aaclip_tpu/eval/
-    predict.py:123-126``, ~1e-5 relative on the map); here they run in
-    true fp32 under every policy (TF32 off on the card), the more precise
-    of the two. The 3-pass product comes with fp32_high (ROADMAP A7)."""
+
+def matmul_3pass(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """fp32 ``a @ b`` as three bf16 products summed in fp32, ``hi·hi +
+    (hi·lo + lo·hi)``: XLA's F32_AS_3BF16, the JAX package's precision
+    "high" (about 1e-5 relative, where one bf16 pass is 4e-3). On the card
+    each product is ``matmul_f32`` (cuBLAS, bf16 in, fp32 out); on the CPU
+    the same split with fp32 products. ``b`` is 2-D or batched like
+    ``a``."""
+    ah, al = _split_bf16(a.float())
+    bh, bl = _split_bf16(b.float())
+    return matmul_f32(ah, bh) + (matmul_f32(ah, bl) + matmul_f32(al, bh))
+
+
+def apply_postproc_matrix(q: torch.Tensor, M: torch.Tensor,
+                          precision: str = "highest") -> torch.Tensor:
+    """[B, g, g] grid maps -> [B, I, I] pixel maps, ``M q Mᵀ``, fp32 out.
+
+    ``precision`` is the JAX package's for these two products: "highest"
+    true fp32 (TF32 off on the card), "high" the 3-pass product
+    (``matmul_3pass``), which its predictor takes under every policy but
+    fp32 (``aaclip_tpu/eval/predict.py:123-126``)."""
     M = M.float()
-    return torch.matmul(torch.matmul(M, q.float()), M.t())
+    if precision == "highest":
+        return torch.matmul(torch.matmul(M, q.float()), M.t())
+    if precision != "high":
+        raise ValueError(f"precision {precision!r}: 'highest' or 'high'")
+    Mt = M.t().contiguous()
+    # M q = (qᵀ Mᵀ)ᵀ, so both products take M as the 2-D right operand
+    out = matmul_3pass(q.float().transpose(1, 2), Mt).transpose(1, 2)
+    return matmul_3pass(out, Mt)
 
 
 def collapse_level_scores(scores: torch.Tensor) -> torch.Tensor:

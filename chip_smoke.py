@@ -78,6 +78,20 @@ Needs one CUDA card and nvcc. Phases, each of which fails the run:
     own width, of 128 and of 256 columns (ms per call, and per GEMM launch
     from torch.profiler), and the fused predict's maps/s beside the
     unfused one's.
+ 9. the evaluation CLI from checkpoints (``python -m aaclip_tpu_torch.test``
+    through ``main``): a seeded ViT-L-14-336 at its native 336 px saved as
+    an OpenAI-layout state dict (the loader resizes the positional
+    embedding 24 -> 37), an npz image adapter and a reference ``.pth``
+    text adapter, a synthetic MVTec set (2 classes, 24 normal and 24
+    anomalous 256 px images each); the CLI at bf16 batch 32 and at fp32
+    batch 8 with ``--csv --dump_scores``, each held to (a) 24 forward
+    kernel launches per predict batch and no other kernel, (b) its
+    ``scores_1.csv`` bit for bit against a direct ``make_predict_fn`` on
+    the same loaded towers and batches, (c) the same loop on the plain
+    attention (maps, scores and the metric table, both tables printed);
+    then (d) the 3-pass ``M q Mᵀ`` against fp64; with the CLI's logged
+    maps/s, the host's decode+resize ms per image and the checkpoint's
+    save and load seconds.
 Phase 3 also holds the V-V mode of the forward kernel (B3) against its
 plain version, in bf16 and fp32, at [16, 1370, 1024], ragged S and head
 dim 16, and against the standard mode on the value section tripled.
@@ -1725,6 +1739,475 @@ def time_fused(cfg, card):
     return out
 
 
+# Phase 9, the evaluation CLI from checkpoints, on a synthetic MVTec set
+# sized like the real one: four classes of 150 test images (50 normal, 100
+# anomalous) at 1024 px (MVTec AD's classes hold 42-167 test images of
+# 700-1024 px), so the CLI's logged rate, which leaves out the first
+# class, covers 450 maps. (b) the CLI against a direct predict on the same
+# loaded towers and batches: bit for bit (the same kernels and products at
+# the same shapes). (c) the kernel run against the same loop on the plain
+# attention: phase 4's bars on the scores, at fp32 on the maps too, and
+# the tables within 0.01 points at fp32 (a rounding may flip). The bf16
+# map and table are held against a second bf16 attention, the
+# library's (SDPA through the same projections): phase 4's bar (kernel
+# within 1e-2 of the plain map's span) is below what any two bf16
+# attentions agree to on these flat maps (plain span 0.629-0.672). Read
+# on an NVIDIA H100 80GB HBM3, 700 W, over the four classes, as fractions
+# of the span: max |kernel - plain| 1.525-1.930e-2, max |SDPA - plain|
+# 1.634-2.236e-2; mean 2.552-2.799e-3 and 2.540-2.823e-3; max from the
+# fp32 map: kernel 2.226-2.733e-2, plain 2.245-3.092e-2, SDPA
+# 2.340-3.005e-2. So the kernel's mean distance from the plain map may be
+# at most 1.1x SDPA's (read: 1.005x at most) and its max distance 1.5x
+# SDPA's (read: 1.165x; a max over 40M pixels scatters more) or phase
+# 4's bar. The bf16 table: each cell within 1.0 point of the plain table
+# beyond SDPA's distance from it in the same cell. The image AUROC/AP
+# rank 150 near-tied images by half their map's maximum, which that
+# scatter moves, so one cell can jump by a point: read, the kernel's
+# table lies up to 1.06 points from plain (cable's image AP, where SDPA
+# lies 0.46 from plain), SDPA's up to 0.54, the two up to 0.60 apart.
+# (d) the 3-pass M q Mᵀ (JAX's precision "high") against fp64: 1e-5 of the
+# map's span, JAX's stated error (read on an NVIDIA H100 80GB HBM3, 700 W:
+# 7.375e-6; true fp32 1.142e-7).
+EVAL_TABLE_ATOL = {"fp32": 0.01, "bf16": 1.0}
+VS_SDPA_MEAN, VS_SDPA_MAX = 1.1, 1.5
+PP_3PASS_SPAN_FRAC = 1e-5
+EVAL_CLASSES, EVAL_NORMAL, EVAL_ANOMALOUS, EVAL_PX = 4, 50, 100, 1024
+EVAL_RUNS = (("bf16", 32), ("fp32", 8))
+DECODE_SAMPLE = 16  # images and masks timed one at a time on the host
+
+
+def sdpa_packed(qkv, num_heads: int, valid_len: int):
+    """The library's attention (``scaled_dot_product_attention``) on a
+    packed [B, S, 3*D] qkv, in ``attention_packed_plain``'s signature."""
+    import torch
+
+    B, S, D3 = qkv.shape
+    expect(valid_len == S, f"sdpa_packed takes no padding ({valid_len}/{S})")
+    hd = D3 // 3 // num_heads
+    q, k, v = qkv.view(B, S, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
+    out = torch.nn.functional.scaled_dot_product_attention(q, k, v)
+    return out.transpose(1, 2).reshape(B, S, D3 // 3)
+
+
+def time_host_decode(images, masks, tmp, img, card) -> None:
+    """Decode and resize ``DECODE_SAMPLE`` images and masks one at a time:
+    the files as written (every row filter None: the row-by-row unfilter)
+    and the same pixels rewritten with every row Paeth (the anti-diagonal
+    unfilter, which files with Average or Paeth rows take: libpng's and
+    Pillow's adaptive filtering write them)."""
+    import os
+
+    import numpy as np
+
+    from aaclip_tpu_torch.data.image import (encode_png, load_gray, load_rgb,
+                                             resize_bicubic, resize_nearest)
+
+    sample = images[:DECODE_SAMPLE]
+    paeth_dir = os.path.join(tmp, "paeth")
+    os.makedirs(paeth_dir)
+    paeth = []
+    for i, f in enumerate(sample):
+        paeth.append(os.path.join(paeth_dir, f"{i:03d}.png"))
+        with open(paeth[-1], "wb") as out:
+            out.write(encode_png(load_rgb(f), 4))
+    for what, files in (("filter None (rows)", sample),
+                        ("filter Paeth (anti-diagonals)", paeth)):
+        t0 = time.perf_counter()
+        decoded = [load_rgb(f) for f in files]
+        dec_ms = (time.perf_counter() - t0) / len(files) * 1e3
+        t0 = time.perf_counter()
+        for x in decoded:
+            resize_bicubic(x, img)
+        res_ms = (time.perf_counter() - t0) / len(files) * 1e3
+        print(f"eval CLI host, one thread, {EVAL_PX} px RGB PNG, {what}: "
+              f"decode {dec_ms:.2f} + bicubic resize to {img} px "
+              f"{res_ms:.2f} = {dec_ms + res_ms:.2f} ms per image on {card}")
+        if files is paeth:
+            expect(all(np.array_equal(load_rgb(a), b)
+                       for a, b in zip(sample, decoded)),
+                   "Paeth-filtered files decode to other pixels")
+    t0 = time.perf_counter()
+    for f in masks[:DECODE_SAMPLE]:
+        resize_nearest(load_gray(f), img)
+    mask_ms = (time.perf_counter() - t0) / DECODE_SAMPLE * 1e3
+    print(f"eval CLI host, one thread: {EVAL_PX} px mask decode + nearest "
+          f"resize {mask_ms:.2f} ms per mask on {card}")
+
+
+def openai_state_dict(vit, text) -> dict:
+    """The towers as an OpenAI-layout CLIP state dict on the host (what
+    ``core/params.py::load_openai_checkpoint`` reads)."""
+    import math
+
+    import torch
+
+    def blocks(tower, prefix):
+        return {f"{prefix}.{i}.{k}": v for i, blk in enumerate(tower.blocks)
+                for k, v in blk.state_dict().items()}
+
+    v = {k: t for k, t in vit.state_dict().items()
+         if not k.startswith("blocks.")}
+    w = v.pop("conv1.weight")
+    sd = {"visual." + k: t for k, t in v.items()}
+    sd["visual.conv1.weight"] = w.reshape(w.shape[0], 3, 14, 14)
+    sd.update(blocks(vit, "visual.transformer.resblocks"))
+    sd.update({k: t for k, t in text.state_dict().items()
+               if not k.startswith("blocks.")})
+    sd.update(blocks(text, "transformer.resblocks"))
+    sd["logit_scale"] = torch.tensor(math.log(1 / 0.07))
+    return {k: t.detach().cpu().contiguous() for k, t in sd.items()}
+
+
+def table_distance(rows_a, rows_b) -> float:
+    """The largest difference of two tables' cells, in points (the rows'
+    class names must agree)."""
+    expect([r[0] for r in rows_a] == [r[0] for r in rows_b],
+           "the tables' classes differ")
+    return max(abs(a - b) for ra, rb in zip(rows_a, rows_b)
+               for a, b in zip(ra[1:], rb[1:]))
+
+
+def read_csv(path):
+    import csv
+
+    with open(path, newline="") as f:
+        return list(csv.reader(f))
+
+
+def phase_eval_cli(card) -> None:
+    """Phase 9: ``aaclip_tpu_torch.test.main`` at ViT-L-14-336 @ 518 from a
+    saved OpenAI-layout checkpoint (the pos embed resized 24 -> 37), an npz
+    image adapter and a reference ``.pth`` text adapter, on a synthetic
+    MVTec set of real size, once per ``EVAL_RUNS`` entry, held to (a) 24
+    kernel launches per predict batch and no other kernel, (b), (c) and
+    (d) above; the host's decode and resize timed beside it."""
+    import gc
+    import os
+    import re
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from aaclip_tpu_torch import test as cli
+    from aaclip_tpu_torch.core.config import (AdapterConfig, DtypePolicy,
+                                              get_config)
+    from aaclip_tpu_torch.core.params import (adapter_from_jax,
+                                              adapter_to_jax,
+                                              create_clip_towers,
+                                              init_image_adapter,
+                                              init_text_adapter,
+                                              init_text_params,
+                                              init_vision_params,
+                                              text_adapter_from_jax,
+                                              text_adapter_to_jax)
+    from aaclip_tpu_torch.data.datasets import BatchLoader, get_test_datasets
+    from aaclip_tpu_torch.data.registry import CLASS_NAMES
+    from aaclip_tpu_torch.data.synthetic import make_synthetic_dataset
+    from aaclip_tpu_torch.eval.metrics import metrics_eval
+    from aaclip_tpu_torch.eval.predict import (make_anchor_encoder,
+                                               make_predict_fn,
+                                               run_class_predictions)
+    from aaclip_tpu_torch.kernels.build import kernels_launched
+    from aaclip_tpu_torch.ops import fused_block as FB
+    from aaclip_tpu_torch.ops.attention import (attention_kernel,
+                                                attention_packed_plain,
+                                                make_attn_fn)
+    from aaclip_tpu_torch.ops.similarity import (apply_postproc_matrix,
+                                                 fused_postproc_matrix)
+    from aaclip_tpu_torch.text.anchors import encode_dataset_anchors
+    from aaclip_tpu_torch.train import checkpoint as ckpt
+
+    cfg = get_config("ViT-L-14-336", img_size=518)
+    img, grid, n_layers = (cfg.vision.image_size, cfg.vision.grid,
+                           cfg.vision.layers)
+    acfg = AdapterConfig()
+    tmp = tempfile.mkdtemp(prefix="aaclip_eval_cli_")
+    env_before = {k: os.environ.get(k) for k in ("AACLIP_DATA",
+                                                 "AACLIP_METADATA")}
+    try:
+        # 1. a seeded ViT-L at its native 336 px grid, saved OpenAI-style
+        native = get_config("ViT-L-14-336", img_size=336)
+        sd = openai_state_dict(init_vision_params(native, seed=7),
+                               init_text_params(native, seed=8))
+        expect(sd["visual.positional_embedding"].shape == (577, 1024),
+               "the checkpoint is not at the 24x24 grid")
+        ckpt_path = os.path.join(tmp, "ViT-L-14-336.pt")
+        t0 = time.perf_counter()
+        torch.save(sd, ckpt_path)
+        save_s = time.perf_counter() - t0
+        size_gb = os.path.getsize(ckpt_path) / 1e9
+        del sd
+        # 2. the adapters: npz image snapshot, reference .pth text adapter
+        ad_tree = adapter_to_jax(init_image_adapter(cfg, acfg, seed=9,
+                                                    device="cpu"))
+        text_sd, _ = ckpt.adapters_to_torch_state_dicts(
+            {"text": text_adapter_to_jax(init_text_adapter(
+                cfg, acfg, seed=10, device="cpu")), "image": ad_tree},
+            proj_relu=False)
+        adapters = os.path.join(tmp, "adapters")
+        ckpt.save_adapter_checkpoint(
+            os.path.join(adapters, "image_adapter_1.npz"), 1, ad_tree)
+        torch.save({"epoch": 0, "text_adapter": text_sd},
+                   os.path.join(adapters, "text_adapter.pth"))
+        print(f"eval CLI: checkpoint {size_gb:.3f} GB saved in {save_s:.2f} "
+              f"s on {card}")
+        # 3. the synthetic dataset
+        classes = CLASS_NAMES["MVTec"][:EVAL_CLASSES]
+        per_class = EVAL_NORMAL + EVAL_ANOMALOUS
+        t0 = time.perf_counter()
+        data_root, meta_root = make_synthetic_dataset(
+            os.path.join(tmp, "synthetic"), class_names=classes,
+            n_normal=EVAL_NORMAL, n_anomalous=EVAL_ANOMALOUS, img_px=EVAL_PX,
+            hard=True)
+        os.environ.update(AACLIP_DATA=data_root, AACLIP_METADATA=meta_root)
+        files = sorted(os.path.join(d, f) for d, _, fs in
+                       os.walk(data_root) for f in fs)
+        images = [f for f in files if not f.endswith("_mask.png")]
+        masks = [f for f in files if f.endswith("_mask.png")]
+        expect(len(images) == EVAL_CLASSES * per_class
+               and len(masks) == EVAL_CLASSES * EVAL_ANOMALOUS,
+               f"{len(images)} synthetic images, {len(masks)} masks")
+        print(f"eval CLI: synthetic MVTec {', '.join(classes)}: "
+              f"{len(images)} images of {EVAL_PX} px, {len(masks)} masks, "
+              f"{sum(map(os.path.getsize, files)) / 1e9:.3f} GB written in "
+              f"{time.perf_counter() - t0:.1f} s")
+        time_host_decode(images, masks, tmp, img, card)
+
+        # the direct path's towers, loaded as the CLI loads them
+        t0 = time.perf_counter()
+        vit, text = create_clip_towers(cfg, checkpoint=ckpt_path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        print(f"eval CLI: checkpoint loaded into the towers on the card in "
+              f"{load_s:.2f} s (pos embed {tuple(vit.positional_embedding.shape)})"
+              f" on {card}")
+        image_adapter = adapter_from_jax(ad_tree, cfg, acfg)
+        _, tree = ckpt.load_reference_checkpoint(
+            os.path.join(adapters, "text_adapter.pth"), "text",
+            n_adapt=acfg.text_adapt_until)
+        text_adapter = text_adapter_from_jax(tree, cfg, acfg)
+
+        for name, B in EVAL_RUNS:
+            policy = DtypePolicy.from_name(name)
+            save = os.path.join(tmp, f"run_{name}")
+            shutil.copytree(adapters, save)
+            zero_fused_counts()
+            before = kernels_launched("attention_packed")
+            t0 = time.perf_counter()
+            cli.main(["--clip_checkpoint", ckpt_path, "--save_path", save,
+                      "--precision", name, "--batch_size", str(B), "--csv",
+                      "--dump_scores"])
+            wall = time.perf_counter() - t0
+            gc.collect()
+            torch.cuda.empty_cache()
+            # (a) 24 launches per predict batch, no other kernel
+            n_batches = EVAL_CLASSES * -(-per_class // B)
+            n_lib = kernels_launched("attention_packed") - before
+            counts_now = dict(zip(("standard", "vv", "bwd"), counts()))
+            others = {"attention_kernel": attention_kernel.launches,
+                      "ln_linear": FB.ln_linear.launches,
+                      "linear_residual": FB.linear_residual.launches,
+                      "mlp_fused": FB.mlp_fused.launches}
+            print(f"eval CLI {name} B={B}: {n_batches} predict batches, "
+                  f"attention_packed {counts_now['standard']} launches "
+                  f"({n_lib} kernels counted by the library), V-V "
+                  f"{counts_now['vv']}, backward {counts_now['bwd']}, "
+                  f"{others}")
+            expect(counts_now["standard"] == n_layers * n_batches == n_lib,
+                   f"eval CLI {name}: {counts_now['standard']} launches, "
+                   f"{n_lib} kernels, not {n_layers} x {n_batches}")
+            expect(counts_now["vv"] == counts_now["bwd"] == 0
+                   and not any(others.values()),
+                   f"eval CLI {name}: other kernels ran: {counts_now}, "
+                   f"{others}")
+            log = open(os.path.join(save, "test.log")).read()
+            rate = float(re.search(r"eval throughput: ([\d.]+) maps/s",
+                                   log).group(1))
+            print(f"eval CLI {name} B={B}: {rate:.2f} maps/s logged (eval "
+                  f"throughput, the first class excluded); {wall:.2f} s "
+                  f"for the whole main() on {card}")
+
+            # (b) the CLI's scores equal a direct predict, bit for bit
+            uint8 = name == "bf16"
+            heads = cfg.vision.heads
+            kernel = make_predict_fn(vit, cfg, acfg, policy=policy,
+                                     uint8_inputs=uint8)
+            plain = make_predict_fn(
+                vit, cfg, acfg, policy=policy, uint8_inputs=uint8,
+                attn_fn=make_attn_fn(heads, policy,
+                                     attention=attention_packed_plain))
+            library = make_predict_fn(
+                vit, cfg, acfg, policy=policy, uint8_inputs=uint8,
+                attn_fn=make_attn_fn(heads, policy, attention=sdpa_packed))
+            exact = make_predict_fn(vit, cfg, acfg,
+                                    policy=DtypePolicy.fp32(),
+                                    uint8_inputs=uint8)
+            anchors = encode_dataset_anchors(
+                make_anchor_encoder(text, cfg, acfg, text_adapter,
+                                    policy=policy), "MVTec")
+            scores = read_csv(os.path.join(save, "scores_1.csv"))[1:]
+            table = read_csv(os.path.join(save, "results_1.csv"))
+            plain_rows, lib_rows = [], []
+            dpix_rel = dscore = 0.0
+            bf16_maps = {}
+            host_s = {"loader": [], "metrics": []}
+            for cls, ds in get_test_datasets("MVTec", img,
+                                             uint8=uint8).items():
+                if len(ds) == 0:
+                    continue
+                t0 = time.perf_counter()
+                batches = list(BatchLoader(ds, B, num_workers=4))
+                host_s["loader"].append(time.perf_counter() - t0)
+                got = run_class_predictions(kernel, image_adapter, batches,
+                                            anchors[cls], "Industrial", img,
+                                            grid)
+                mine = [r for r in scores if r[0] == cls]
+                expect([r[1] for r in mine] == got[4]
+                       and [int(r[2]) for r in mine] == got[1].tolist(),
+                       f"eval CLI {name} {cls}: files or labels differ")
+                expect([float(r[3]) for r in mine]
+                       == [float(x) for x in got[3]],
+                       f"eval CLI {name} {cls}: scores differ from the "
+                       f"direct predict")
+                # (c) the plain attention on the same batches
+                ref = run_class_predictions(plain, image_adapter, batches,
+                                            anchors[cls], "Industrial", img,
+                                            grid)
+                span = float(ref[2].max() - ref[2].min())
+                dpix = float(np.abs(got[2] - ref[2]).max())
+                dpix_rel = max(dpix_rel, dpix / span)
+                dscore = max(dscore, float(np.abs(got[3] - ref[3]).max()))
+                if name == "bf16":
+                    lib = run_class_predictions(
+                        library, image_adapter, batches, anchors[cls],
+                        "Industrial", img, grid)
+                    f32 = run_class_predictions(
+                        exact, image_adapter, batches, anchors[cls],
+                        "Industrial", img, grid)[2]
+                    span32 = float(f32.max() - f32.min())
+                    r = {"span": span, "kernel-plain": dpix / span,
+                         "sdpa-plain": float(np.abs(lib[2] - ref[2]).max())
+                         / span,
+                         "kernel-plain mean": float(np.abs(got[2] - ref[2])
+                                                    .mean()) / span,
+                         "sdpa-plain mean": float(np.abs(lib[2] - ref[2])
+                                                  .mean()) / span}
+                    for k, m in (("kernel", got[2]), ("plain", ref[2]),
+                                 ("sdpa", lib[2])):
+                        r[f"{k}-fp32"] = float(np.abs(m - f32).max()) / span32
+                    bf16_maps[cls] = r
+                    expect(dscore <= SCORE_ATOL_BF16,
+                           f"eval CLI bf16 {cls}: scores off by {dscore}")
+                else:
+                    torch.testing.assert_close(
+                        torch.from_numpy(got[2]), torch.from_numpy(ref[2]),
+                        atol=PIX_ATOL_FP32, rtol=PIX_RTOL_FP32)
+                    torch.testing.assert_close(
+                        torch.from_numpy(got[3]), torch.from_numpy(ref[3]),
+                        atol=SCORE_ATOL_FP32, rtol=0)
+                t0 = time.perf_counter()
+                row = metrics_eval(ref[0], ref[1], ref[2], ref[3], cls,
+                                   "Industrial")
+                host_s["metrics"].append(time.perf_counter() - t0)
+                plain_rows.append([cls] + [float(row[c])
+                                           for c in table[0][1:]])
+                if name == "bf16":
+                    row = metrics_eval(ref[0], ref[1], lib[2], lib[3], cls,
+                                       "Industrial")
+                    lib_rows.append([cls] + [float(row[c])
+                                             for c in table[0][1:]])
+            for rows in (plain_rows, lib_rows):
+                if rows:
+                    rows.append(["Average"] + [
+                        sum(r[i] for r in rows) / len(rows)
+                        for i in range(1, len(table[0]))])
+            print(f"eval CLI {name} host, per class of {per_class} images: "
+                  f"the loader (the CLI's, 4 threads) "
+                  f"{', '.join(f'{t:.2f}' for t in host_s['loader'])} s, "
+                  f"metrics_eval (pixel and image AUROC/AP) "
+                  f"{', '.join(f'{t:.2f}' for t in host_s['metrics'])} s "
+                  f"on {card}")
+            print(f"eval CLI {name}: the CLI's scores equal the direct "
+                  f"predict's bit for bit; kernel vs plain attention: max|d "
+                  f"map| {dpix_rel:.3e} of the span, max|d score| "
+                  f"{dscore:.3e}")
+            for cls, r in bf16_maps.items():
+                print(f"eval CLI bf16 {cls}: plain map span {r['span']:.4f}; "
+                      f"max|d map| of the span: kernel vs plain "
+                      f"{r['kernel-plain']:.3e} (phase 4's bar "
+                      f"{PIX_SPAN_FRAC_BF16}), SDPA vs plain "
+                      f"{r['sdpa-plain']:.3e}; mean: kernel vs plain "
+                      f"{r['kernel-plain mean']:.3e}, SDPA vs plain "
+                      f"{r['sdpa-plain mean']:.3e}; vs the fp32 map: kernel "
+                      f"{r['kernel-fp32']:.3e}, plain {r['plain-fp32']:.3e}, "
+                      f"SDPA {r['sdpa-fp32']:.3e}")
+            for cls, r in bf16_maps.items():
+                expect(r["kernel-plain mean"]
+                       <= VS_SDPA_MEAN * r["sdpa-plain mean"]
+                       and r["kernel-plain"] <= max(
+                           PIX_SPAN_FRAC_BF16,
+                           VS_SDPA_MAX * r["sdpa-plain"]),
+                       f"eval CLI bf16 {cls}: the kernel's map lies "
+                       f"{r['kernel-plain mean']} (mean) and "
+                       f"{r['kernel-plain']} (max) of the span from the "
+                       f"plain map, SDPA's {r['sdpa-plain mean']} and "
+                       f"{r['sdpa-plain']}")
+            kernel_rows = [[r[0]] + [float(x) for x in r[1:]]
+                           for r in table[1:]]
+            print(f"eval CLI {name}: the CLI's table (kernel attention):\n"
+                  + cli.format_table(table[0], kernel_rows))
+            print(f"eval CLI {name}: the same loop on the plain attention:\n"
+                  + cli.format_table(table[0], plain_rows))
+            dtable = table_distance(kernel_rows, plain_rows)
+            print(f"eval CLI {name}: the kernel's table differs from the "
+                  f"plain one by at most {dtable:.4f} points")
+            if lib_rows:
+                print(f"eval CLI {name}: the same loop on SDPA:\n"
+                      + cli.format_table(table[0], lib_rows))
+                print(f"eval CLI {name}: SDPA's table differs from the "
+                      f"plain one by at most "
+                      f"{table_distance(lib_rows, plain_rows):.4f} points, "
+                      f"from the kernel's by at most "
+                      f"{table_distance(lib_rows, kernel_rows):.4f}")
+                dtable = max(abs(k - p) - abs(q - p) for rk, rp, rq in
+                             zip(kernel_rows, plain_rows, lib_rows)
+                             for k, p, q in zip(rk[1:], rp[1:], rq[1:]))
+                print(f"eval CLI {name}: beyond SDPA's distance from the "
+                      f"plain table in the same cell, the kernel's lies at "
+                      f"most {dtable:.4f} points from it")
+            expect(dtable <= EVAL_TABLE_ATOL[name],
+                   f"eval CLI {name}: tables differ by {dtable} points (bar "
+                   f"{EVAL_TABLE_ATOL[name]})")
+            del kernel, plain, library, exact
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        # (d) the 3-pass M q Mᵀ against fp64
+        gen = torch.Generator(device="cuda").manual_seed(9)
+        q = torch.randn(32, grid, grid, generator=gen, device="cuda") * 10 + 2
+        M = torch.from_numpy(fused_postproc_matrix(grid, img,
+                                                   "Industrial")).cuda()
+        exact = torch.einsum("Ig,bgh,Jh->bIJ", M.double(), q.double(),
+                             M.double())
+        span = (exact.max() - exact.min()).item()
+        errs = {p: (apply_postproc_matrix(q, M, p).double() - exact).abs()
+                .max().item() / span for p in ("high", "highest")}
+        print(f"M q Mᵀ on the card vs fp64 [32, {img}, {img}]: 3-pass "
+              f"{errs['high']:.3e} of the span (bar {PP_3PASS_SPAN_FRAC}), "
+              f"fp32 {errs['highest']:.3e}")
+        expect(errs["high"] <= PP_3PASS_SPAN_FRAC,
+               f"3-pass M q Mᵀ off by {errs['high']} of the span")
+    finally:
+        for k, v in env_before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -1809,6 +2292,10 @@ def main() -> int:
            "predict's")
     phase_encode_image(vit, cfg)
     fused_times = time_fused(cfg, card)
+
+    # -- 9. the evaluation CLI from checkpoints
+    print(f"[{time.perf_counter() - t0:.0f} s] evaluation CLI")
+    phase_eval_cli(card)
     check_device_ops()
 
     print(f"[{time.perf_counter() - t0:.0f} s] done")

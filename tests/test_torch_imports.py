@@ -4,7 +4,9 @@ path of ``bench --mode train``) and its stage-1 features and step
 (``bench --mode train_stage1``, tokenizer and prompts included) run in a
 fresh interpreter without either entering
 ``sys.modules``, and no source file of the port (or chip_smoke.py, which
-runs where JAX is absent) names them in an import."""
+runs where JAX is absent) names them in an import. The evaluation CLI runs
+on a PNG dataset in an interpreter where PIL, pandas, scikit-learn and cv2
+cannot be imported (the card's machine has none of them)."""
 
 import json
 import os
@@ -108,3 +110,49 @@ def test_forbidden_pattern_catches_what_it_should():
     assert FORBIDDEN.search("import aaclip_tpu")
     assert not FORBIDDEN.search("from aaclip_tpu_torch.ops import blur")
     assert not FORBIDDEN.search("import jaxtyping")
+
+
+CLI_PROBE = """
+import json, os, sys, tempfile
+for name in ("PIL", "pandas", "sklearn", "cv2"):
+    sys.modules[name] = None  # any import of them raises
+from aaclip_tpu_torch.core.config import AdapterConfig, get_config
+from aaclip_tpu_torch.core.params import (adapter_to_jax, init_image_adapter,
+                                          init_text_adapter,
+                                          text_adapter_to_jax)
+from aaclip_tpu_torch.data.synthetic import make_synthetic_dataset
+from aaclip_tpu_torch.train import checkpoint as ckpt
+from aaclip_tpu_torch import test
+root = tempfile.mkdtemp()
+data_root, meta_root = make_synthetic_dataset(root, img_px=48)
+os.environ.update(AACLIP_DATA=data_root, AACLIP_METADATA=meta_root)
+cfg = get_config("tiny-test")
+acfg = AdapterConfig(levels=(1, 2), image_adapt_until=1, text_adapt_until=1)
+save = os.path.join(root, "ckpt")
+ckpt.save_adapter_checkpoint(
+    os.path.join(save, "image_adapter_1.npz"), 1,
+    adapter_to_jax(init_image_adapter(cfg, acfg, device="cpu")))
+ckpt.save_adapter_checkpoint(
+    os.path.join(save, "text_adapter.npz"), 0,
+    text_adapter_to_jax(init_text_adapter(cfg, acfg, device="cpu")))
+test.main(["--model_name", "tiny-test", "--img_size", "70",
+           "--text_adapt_until", "1", "--image_adapt_until", "1",
+           "--levels", "1", "2", "--batch_size", "4", "--precision", "bf16",
+           "--save_path", save, "--aupro", "--csv", "--dump_scores"],
+          device="cpu")
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "aaclip_tpu"))
+rows = open(os.path.join(save, "results_1.csv")).read().splitlines()
+print(json.dumps({"bad": bad, "rows": [r.split(",")[0] for r in rows]}))
+"""
+
+
+def test_eval_cli_runs_without_pil_pandas_sklearn_cv2_or_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run([sys.executable, "-c", CLI_PROBE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result == {"bad": [], "rows": ["class name", "bottle", "cable",
+                                          "Average"]}
