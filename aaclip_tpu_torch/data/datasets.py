@@ -1,4 +1,4 @@
-"""jsonl-backed test datasets and a threaded, prefetching batch loader.
+"""jsonl-backed datasets and a threaded, prefetching batch loader.
 
 Metadata follows the reference (dataset/metadata/*/full-shot.jsonl): one
 JSON record per line with ``image_path``, ``label``, ``class_name`` and,
@@ -6,9 +6,11 @@ for anomalous samples, ``mask_path``. The port carries its own copy of the
 benchmark metadata under ``data/metadata``; ``AACLIP_METADATA`` points
 elsewhere.
 
-The loader decodes in a thread pool while the card is busy; batch shapes
-stay static: the final ragged batch is padded by repeating its last sample
-and carries ``n_valid``.
+The loader decodes (and, for training, augments) in a thread pool while
+the card is busy; batch shapes stay static: the final ragged batch is
+padded by repeating its last sample and carries ``n_valid``. Training
+epochs are shuffled from ``SeedSequence([seed, epoch])`` and may be
+sharded over hosts, as the JAX package's loader does.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import json
 import os
 import queue
 import threading
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -69,6 +71,37 @@ def metadata_path(dataset_name: str, shot: int = -1) -> str:
 
 
 @dataclasses.dataclass
+class TrainDataset:
+    """Randomly augmented training view (text or image stage): sample
+    ``idx`` of ``epoch`` draws from ``SeedSequence([seed, epoch, idx,
+    text_stage])``. ``device_augment=True`` leaves the geometric augment
+    to the card and emits uint8 images and masks (the colour jitter and
+    the resize still run here)."""
+    spec: DatasetSpec
+    records: List[Record]
+    img_size: int
+    text_stage: bool
+    seed: int = 111
+    device_augment: bool = False
+
+    def __len__(self) -> int:
+        return len(self.records)
+
+    def get(self, idx: int, epoch: int) -> dict:
+        r = self.records[idx]
+        rng = np.random.default_rng(np.random.SeedSequence(
+            [self.seed, epoch, idx, int(self.text_stage)]))
+        img, mask = T.preprocess_train(
+            os.path.join(self.spec.data_path, r.image_path),
+            os.path.join(self.spec.data_path, r.mask_path)
+            if r.mask_path else None,
+            self.img_size, r.label, rng, self.text_stage,
+            geometric=not self.device_augment, uint8=self.device_augment)
+        return {"image": img, "mask": mask, "label": r.label,
+                "class_name": r.class_name, "file_name": r.image_path}
+
+
+@dataclasses.dataclass
 class TestDataset:
     """Deterministic single-class evaluation view; ``uint8=True`` gives raw
     pixels for the normalisation folded into the patch embedding."""
@@ -81,7 +114,7 @@ class TestDataset:
     def __len__(self) -> int:
         return len(self.records)
 
-    def get(self, idx: int) -> dict:
+    def get(self, idx: int, epoch: int = 0) -> dict:
         r = self.records[idx]
         img, mask = T.preprocess_test(
             os.path.join(self.spec.data_path, r.image_path),
@@ -91,6 +124,17 @@ class TestDataset:
         )
         return {"image": img, "mask": mask, "label": r.label,
                 "class_name": r.class_name, "file_name": r.image_path}
+
+
+def get_train_datasets(dataset_name: str, img_size: int, shot: int = -1,
+                       seed: int = 111, device_augment: bool = False):
+    """(text-stage dataset, image-stage dataset) over the same metadata
+    (reference dataset/__init__.py:188-202)."""
+    spec = DATASETS[dataset_name]
+    records = read_jsonl(metadata_path(dataset_name, shot))
+    return tuple(TrainDataset(spec, records, img_size, text_stage=stage,
+                              seed=seed, device_augment=device_augment)
+                 for stage in (True, False))
 
 
 def get_test_datasets(dataset_name: str, img_size: int,
@@ -109,19 +153,52 @@ def get_test_datasets(dataset_name: str, img_size: int,
 
 class BatchLoader:
     """Threaded prefetch loader producing dense numpy batches of a static
-    ``batch_size`` in the dataset's order; the final ragged batch is
-    padded by repeating its last sample and reports ``n_valid``."""
+    ``batch_size``; the final ragged batch is padded by repeating its last
+    sample and reports ``n_valid``. ``shuffle`` permutes each epoch from
+    ``SeedSequence([seed, epoch])``; ``host_id`` / ``num_hosts`` shard the
+    indices. ``epoch`` advances after each pass, also one left early."""
 
-    def __init__(self, dataset, batch_size: int, *, num_workers: int = 4,
-                 prefetch: int = 2):
+    def __init__(self, dataset, batch_size: int, *, shuffle: bool = False,
+                 seed: int = 111, num_workers: int = 4, prefetch: int = 2,
+                 host_id: int = 0, num_hosts: int = 1):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
         self.num_workers = max(1, num_workers)
         # queue.Queue(maxsize=0) would be unbounded
         self.prefetch = max(1, prefetch)
+        self.host_id = host_id
+        self.num_hosts = num_hosts
+        self.epoch = 0
+
+    def indices(self) -> Tuple[np.ndarray, int]:
+        """(this host's indices for the current epoch, how many of them are
+        real). Every host gets ceil(n / num_hosts) indices, so all run the
+        same number of batches; the at most one wrap-around pad index sits
+        at the tail, outside the final batch's ``n_valid``."""
+        idx = np.arange(len(self.dataset))
+        if self.shuffle:
+            rng = np.random.default_rng(
+                np.random.SeedSequence([self.seed, self.epoch]))
+            rng.shuffle(idx)
+        mine = idx[self.host_id::self.num_hosts]
+        n_real = mine.size
+        if self.num_hosts > 1:
+            per = -(-idx.size // self.num_hosts)
+            if mine.size < per:
+                mine = np.concatenate([mine, idx[:per - mine.size]])
+        return mine, n_real
+
+    def batches(self) -> List[Tuple[np.ndarray, int]]:
+        """The current epoch's (indices, n_valid) per batch, unpadded."""
+        indices, n_real = self.indices()
+        return [(indices[i:i + self.batch_size],
+                 max(0, min(self.batch_size, n_real - i)))
+                for i in range(0, len(indices), self.batch_size)]
 
     def __len__(self) -> int:
-        return -(-len(self.dataset) // self.batch_size)
+        return -(-self.indices()[0].size // self.batch_size)
 
     def _assemble(self, samples: List[dict], n_valid: int) -> dict:
         while len(samples) < self.batch_size:
@@ -136,9 +213,8 @@ class BatchLoader:
         }
 
     def __iter__(self) -> Iterator[dict]:
-        n = len(self.dataset)
-        batches = [range(i, min(i + self.batch_size, n))
-                   for i in range(0, n, self.batch_size)]
+        batches = self.batches()
+        epoch = self.epoch
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
 
@@ -155,11 +231,12 @@ class BatchLoader:
         def producer():
             try:
                 with cf.ThreadPoolExecutor(self.num_workers) as pool:
-                    for b in batches:
+                    for b, n_valid in batches:
                         if stop.is_set():
                             return
-                        samples = list(pool.map(self.dataset.get, b))
-                        if not _put(self._assemble(samples, len(b))):
+                        samples = list(pool.map(
+                            lambda i: self.dataset.get(int(i), epoch), b))
+                        if not _put(self._assemble(samples, n_valid)):
                             return
                 _put(None)
             except BaseException as e:  # re-raised in the consumer
@@ -177,3 +254,7 @@ class BatchLoader:
                 yield batch
         finally:
             stop.set()
+            # in the finally: a consumer that leaves early must still
+            # advance the epoch, or the next pass replays the same shuffle
+            # and augment streams
+            self.epoch += 1

@@ -219,7 +219,9 @@ def encode_png(img: np.ndarray, filter_type: int = 0) -> bytes:
 # Loading with PIL's conversions
 
 
-def _rgb_to_gray(rgb: np.ndarray) -> np.ndarray:
+def rgb_to_gray(rgb: np.ndarray) -> np.ndarray:
+    """PIL's ``convert("L")`` of uint8 [..., 3]: ITU-R 601-2 in 16.16
+    fixed point."""
     r, g, b = (rgb[..., i].astype(np.uint32) for i in range(3))
     return ((r * 19595 + g * 38470 + b * 7471 + 0x8000) >> 16).astype(
         np.uint8)
@@ -253,7 +255,7 @@ def load_gray(path: str) -> np.ndarray:
     if data[:8] != PNG_SIGNATURE:
         return _load_with_pil(path, "L")
     img = decode_png(data, path)
-    return img[..., 0] if img.shape[2] == 1 else _rgb_to_gray(img)
+    return img[..., 0] if img.shape[2] == 1 else rgb_to_gray(img)
 
 
 # ---------------------------------------------------------------------------

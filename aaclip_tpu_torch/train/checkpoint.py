@@ -8,8 +8,15 @@ axis); ``core/params.py::adapter_from_jax`` / ``adapter_to_jax`` (and the
 is the JAX package's byte layout: '/'-joined pytree paths under
 ``adapter/`` (dict keys sorted, list entries by index), ``__epoch__`` and
 ``__step__``, written atomically, so a checkpoint written by either
-package loads in the other. Reading ignores ``opt_state/*`` and writing
-writes none: the port's optimizer state comes with its training CLI.
+package loads in the other. The optimizer state sits under
+``opt_state/`` in optax's tree layout, as the JAX package's
+``_flatten`` names it: ``opt_state/0/.count``, ``opt_state/0/.mu/...`` and
+``opt_state/0/.nu/...`` (Adam's count and moments, each moment a tree of
+the adapter's layout), and for the image optimizer
+``opt_state/1/.count`` (the LR schedule's count). ``adam_state_tree`` and
+``load_adam_state`` map torch's Adam (``step``, ``exp_avg``,
+``exp_avg_sq``) and MultiStepLR to and from it, so a run saved by either
+package resumes in the other.
 
 The reference's state dicts name SimpleAdapter weights ``{i}.fc.0.weight``
 and SimpleProj weights ``fc.weight`` or ``fc.0.weight`` (with --relu).
@@ -17,8 +24,10 @@ and SimpleProj weights ``fc.weight`` or ``fc.0.weight`` (with --relu).
 
 from __future__ import annotations
 
+import bisect
+import copy
 import os
-from typing import Dict, Tuple
+from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
@@ -72,11 +81,15 @@ def _restore(data, root: str, template):
 
 
 def save_adapter_checkpoint(path: str, epoch: int, adapter: dict,
-                            step: int = 0) -> None:
-    """Write ``adapter`` (a JAX-layout tree, e.g. ``adapter_to_jax(m)``) as
-    the npz checkpoint, atomically and durably: the data is fsync'd
-    before the rename and the directory after it."""
-    flat = _flatten({"adapter": adapter})
+                            step: int = 0, opt_state=None) -> None:
+    """Write ``adapter`` (a JAX-layout tree, e.g. ``adapter_to_jax(m)``)
+    and, when given, ``opt_state`` (``adam_state_tree``) as the npz
+    checkpoint, atomically and durably: the data is fsync'd before the
+    rename and the directory after it."""
+    payload = {"adapter": adapter}
+    if opt_state is not None:
+        payload["opt_state"] = opt_state
+    flat = _flatten(payload)
     flat["__epoch__"] = np.asarray(epoch, np.int64)
     flat["__step__"] = np.asarray(step, np.int64)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
@@ -109,6 +122,16 @@ def load_adapter_checkpoint(path: str, adapter_template
     return epoch, adapter, step
 
 
+def load_optimizer_state(path: str, opt_state_template):
+    """The ``opt_state`` tree of an npz checkpoint, with the template's
+    structure, shapes and dtypes; None when the file holds none (an
+    adapter exported for evaluation)."""
+    with np.load(path, allow_pickle=False) as data:
+        if not any(k.startswith("opt_state/") for k in data.files):
+            return None
+        return _restore(data, "opt_state", opt_state_template)
+
+
 def find_adapter_checkpoint(path: str):
     """The snapshot saved at ``path`` by either of the JAX package's
     backends: the npz file or the ``.orbax`` directory beside it (the newer
@@ -134,6 +157,82 @@ def load_adapter_checkpoint_any(path: str, adapter_template
             "own backend, which the port does not read: ROADMAP A6 "
             "(JAX-only backend); save with --ckpt_backend npz")
     return load_adapter_checkpoint(path, adapter_template)
+
+
+# ---------------------------------------------------------------------------
+# torch's Adam and MultiStepLR <-> optax's state tree
+
+
+def _with_values(module: torch.nn.Module, values) -> torch.nn.Module:
+    """A copy of ``module`` whose parameters hold ``values`` (in
+    ``parameters()`` order), for the JAX-layout converters."""
+    out = copy.deepcopy(module)
+    with torch.no_grad():
+        for p, v in zip(out.parameters(), values):
+            p.copy_(v)
+    return out
+
+
+def adam_state_tree(optimizer: torch.optim.Adam, module: torch.nn.Module,
+                    to_jax: Callable[[torch.nn.Module], dict],
+                    scheduler=None) -> list:
+    """optax's ``adam`` state of ``module``'s parameters as the npz
+    layout wants it: ``[{".count", ".mu", ".nu"}]`` and, with a
+    ``scheduler``, ``{".count"}`` for the schedule. ``to_jax`` is the
+    module's tree converter (``core/params.py::adapter_to_jax`` or
+    ``text_adapter_to_jax``); each moment leaf is the parameter's, in the
+    same layout. Before the first step the moments are zero."""
+    params = list(module.parameters())
+    state = [optimizer.state.get(p, {}) for p in params]
+    count = int(state[0]["step"]) if state[0] else 0
+
+    def moment(key):
+        return to_jax(_with_values(module, [
+            s[key] if s else torch.zeros_like(p)
+            for p, s in zip(params, state)]))
+
+    tree = [{".count": np.asarray(count, np.int32), ".mu": moment("exp_avg"),
+             ".nu": moment("exp_avg_sq")}]
+    if scheduler is not None:
+        tree.append({".count": np.asarray(scheduler.last_epoch, np.int32)})
+    return tree
+
+
+def load_adam_state(optimizer: torch.optim.Adam, module: torch.nn.Module,
+                    tree: list, from_jax: Callable[[dict], torch.nn.Module],
+                    scheduler=None) -> None:
+    """Restore ``adam_state_tree``'s ``tree`` into ``optimizer`` (and the
+    scheduler's count and learning rate): the inverse of
+    ``adam_state_tree``; ``from_jax`` builds a module of ``module``'s
+    structure from a JAX-layout tree on the CPU."""
+    adam = tree[0]
+    count = int(adam[".count"])
+    params = list(module.parameters())
+    mu = list(from_jax(adam[".mu"]).parameters())
+    nu = list(from_jax(adam[".nu"]).parameters())
+    held = [p for g in optimizer.param_groups for p in g["params"]]
+    if len(held) != len(params) or len(mu) != len(params) or any(
+            a is not b for a, b in zip(held, params)):
+        raise ValueError(
+            f"the optimizer must hold the module's {len(params)} parameters "
+            f"in order (it holds {len(held)}; the checkpoint has "
+            f"{len(mu)})")
+    sd = optimizer.state_dict()
+    ids = [i for g in sd["param_groups"] for i in g["params"]]
+    # torch keeps Adam's step as an fp32 scalar tensor; load_state_dict
+    # moves the moments to each parameter's device and dtype
+    sd["state"] = {} if count == 0 else {
+        i: {"step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": m.detach(), "exp_avg_sq": v.detach()}
+        for i, m, v in zip(ids, mu, nu)}
+    optimizer.load_state_dict(sd)
+    if scheduler is not None:
+        n = int(tree[1][".count"])
+        scheduler.last_epoch = n
+        drops = bisect.bisect_right(sorted(scheduler.milestones.elements()),
+                                    n)
+        for g in optimizer.param_groups:
+            g["lr"] = g["initial_lr"] * scheduler.gamma ** drops
 
 
 # ---------------------------------------------------------------------------

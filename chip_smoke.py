@@ -92,12 +92,31 @@ Needs one CUDA card and nvcc. Phases, each of which fails the run:
     then (d) the 3-pass ``M q Mᵀ`` against fp64; with the CLI's logged
     maps/s, the host's decode+resize ms per image and the checkpoint's
     save and load seconds.
+10. the training CLI (``python -m aaclip_tpu_torch.train`` through
+    ``main``) from phase 9's checkpoint on a synthetic MVTec training set
+    (2 classes of 48 images at 1024 px), bf16, at the CLI's batches (16
+    text, 2 image), remat auto (full): the host path (1 text and 2 image
+    epochs) held to (a) 24 forward launches per stage-1 features call,
+    47 forward and 23 backward per stage-2 step and no other kernel, (b)
+    each stage's step-1 loss against the same update on the plain
+    attention (phases 7 and 5's bars), (c) its checkpoints loading into
+    fresh adapters and Adam and saving again bit for bit, (d) a resumed
+    run (--image_epoch 3) training image epoch 2 only, and (e) the
+    evaluation CLI on the trained checkpoints; the host colour jitter
+    against the installed Pillow, the card's jitter chain and geometric
+    augment against the host's bit for bit; the device path
+    (--device_augment --cache_device, one stage-2 epoch) and the spatial
+    V-V mode (one stage-1 epoch, 19 V-V launches per features call), with
+    each epoch's logged img/s and host-loop shares beside the steps' own
+    rates.
 Phase 3 also holds the V-V mode of the forward kernel (B3) against its
 plain version, in bf16 and fp32, at [16, 1370, 1024], ragged S and head
 dim 16, and against the standard mode on the value section tripled.
 Then it prints the kernel table as one JSON line (``launches`` counts the
 wrapper's calls on the main path; B4's is read after the fused predict,
-where it must be 0, since no path runs B4; ``ms`` is per call;
+where it must be 0, since no path runs B4; ``calls`` gives B1's, B2's
+and B3's launches on each path that runs them, the training CLI's runs
+included; ``ms`` is per call;
 ``kernels_per_call`` is counted at the library's launch sites in one call
 at the timed shape, and torch.profiler must see no device operation but
 those kernels in three calls, no cast or copy: 1 for the forward, 2 for
@@ -113,7 +132,9 @@ from __future__ import annotations
 import copy
 import functools
 import json
+import shutil
 import sys
+import tempfile
 import time
 from types import SimpleNamespace
 
@@ -1874,13 +1895,39 @@ def read_csv(path):
         return list(csv.reader(f))
 
 
-def phase_eval_cli(card) -> None:
-    """Phase 9: ``aaclip_tpu_torch.test.main`` at ViT-L-14-336 @ 518 from a
-    saved OpenAI-layout checkpoint (the pos embed resized 24 -> 37), an npz
-    image adapter and a reference ``.pth`` text adapter, on a synthetic
-    MVTec set of real size, once per ``EVAL_RUNS`` entry, held to (a) 24
-    kernel launches per predict batch and no other kernel, (b), (c) and
-    (d) above; the host's decode and resize timed beside it."""
+def write_seeded_checkpoint(tmp: str, card) -> str:
+    """A seeded ViT-L-14-336 at its native 336 px grid, saved as an
+    OpenAI-layout state dict under ``tmp`` (the loaders resize the
+    positional embedding 24 -> 37 at 518 px); phases 9 and 10 load it."""
+    import os
+
+    import torch
+
+    from aaclip_tpu_torch.core.config import get_config
+    from aaclip_tpu_torch.core.params import (init_text_params,
+                                              init_vision_params)
+
+    native = get_config("ViT-L-14-336", img_size=336)
+    sd = openai_state_dict(init_vision_params(native, seed=7),
+                           init_text_params(native, seed=8))
+    expect(sd["visual.positional_embedding"].shape == (577, 1024),
+           "the checkpoint is not at the 24x24 grid")
+    path = os.path.join(tmp, "ViT-L-14-336.pt")
+    t0 = time.perf_counter()
+    torch.save(sd, path)
+    save_s = time.perf_counter() - t0
+    print(f"eval CLI: checkpoint {os.path.getsize(path) / 1e9:.3f} GB saved "
+          f"in {save_s:.2f} s on {card}")
+    return path
+
+
+def phase_eval_cli(card, ckpt_path: str) -> None:
+    """Phase 9: ``aaclip_tpu_torch.test.main`` at ViT-L-14-336 @ 518 from
+    the saved OpenAI-layout checkpoint ``ckpt_path``, an npz image adapter
+    and a reference ``.pth`` text adapter, on a synthetic MVTec set of real
+    size, once per ``EVAL_RUNS`` entry, held to (a) 24 kernel launches per
+    predict batch and no other kernel, (b), (c) and (d) above; the host's
+    decode and resize timed beside it."""
     import gc
     import os
     import re
@@ -1898,8 +1945,6 @@ def phase_eval_cli(card) -> None:
                                               create_clip_towers,
                                               init_image_adapter,
                                               init_text_adapter,
-                                              init_text_params,
-                                              init_vision_params,
                                               text_adapter_from_jax,
                                               text_adapter_to_jax)
     from aaclip_tpu_torch.data.datasets import BatchLoader, get_test_datasets
@@ -1927,19 +1972,7 @@ def phase_eval_cli(card) -> None:
     env_before = {k: os.environ.get(k) for k in ("AACLIP_DATA",
                                                  "AACLIP_METADATA")}
     try:
-        # 1. a seeded ViT-L at its native 336 px grid, saved OpenAI-style
-        native = get_config("ViT-L-14-336", img_size=336)
-        sd = openai_state_dict(init_vision_params(native, seed=7),
-                               init_text_params(native, seed=8))
-        expect(sd["visual.positional_embedding"].shape == (577, 1024),
-               "the checkpoint is not at the 24x24 grid")
-        ckpt_path = os.path.join(tmp, "ViT-L-14-336.pt")
-        t0 = time.perf_counter()
-        torch.save(sd, ckpt_path)
-        save_s = time.perf_counter() - t0
-        size_gb = os.path.getsize(ckpt_path) / 1e9
-        del sd
-        # 2. the adapters: npz image snapshot, reference .pth text adapter
+        # the adapters: npz image snapshot, reference .pth text adapter
         ad_tree = adapter_to_jax(init_image_adapter(cfg, acfg, seed=9,
                                                     device="cpu"))
         text_sd, _ = ckpt.adapters_to_torch_state_dicts(
@@ -1951,9 +1984,7 @@ def phase_eval_cli(card) -> None:
             os.path.join(adapters, "image_adapter_1.npz"), 1, ad_tree)
         torch.save({"epoch": 0, "text_adapter": text_sd},
                    os.path.join(adapters, "text_adapter.pth"))
-        print(f"eval CLI: checkpoint {size_gb:.3f} GB saved in {save_s:.2f} "
-              f"s on {card}")
-        # 3. the synthetic dataset
+        # the synthetic dataset
         classes = CLASS_NAMES["MVTec"][:EVAL_CLASSES]
         per_class = EVAL_NORMAL + EVAL_ANOMALOUS
         t0 = time.perf_counter()
@@ -2208,6 +2239,501 @@ def phase_eval_cli(card) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# Phase 10, the training CLI (``python -m aaclip_tpu_torch.train`` through
+# ``main``) at ViT-L-14-336 @ 518 from phase 9's checkpoint, on a
+# synthetic MVTec training set of 2 classes of 48 images at 1024 px (24
+# normal, 24 anomalous: a real class's pixel size, MVTec AD's training
+# classes hold 60-391 images), bf16, at the CLI's own batch sizes (16 text,
+# 2 image), remat auto (full), full shot. (a) Launch counts: B1 24 per
+# stage-1 features call and 47 per stage-2 step (24 forward, 23 recomputed
+# in the backward under full remat; phase 5 counts the same), B2 23 per
+# step, B3 19 per spatial features call, no fused-block kernel. (b) Each
+# stage's first update, done again from the same batch, adapter and
+# anchors on the plain attention: the CLI's step-1 loss within phase 7's
+# bar (S1_STEP_LOSS_RTOL, stage 1) and phase 5's (STEP_LOSS_RTOL, stage
+# 2), which hold the same kernel-vs-plain difference at batch 2 (read on
+# an NVIDIA H100 80GB HBM3, 700 W: 1.229e-4 and 1.084e-5 relative, as
+# phases 7 and 5 read 2.8e-3 and 2.8e-5); every later loss finite. (c)
+# The checkpoints, loaded into fresh adapters and Adam and saved again,
+# give the same files bit for bit (adapters,
+# moments, counts, the schedule's count, epoch and step). (d) A run
+# resumed with --image_epoch 3 trains image epoch 2 only and continues the
+# counts. (e) The evaluation CLI on the trained checkpoints gives the full
+# table, finite. The device path (--device_augment --cache_device, one
+# stage-2 epoch): the card's jitter chain and geometric augment on 16 of
+# the cached 518 px images, with drawn parameters, equal the host's numpy
+# functions bit for bit (CUDA divides by a Python scalar through its
+# reciprocal, an ulp off numpy: ops/augment.py divides by device tensors);
+# the host's jitter equals the installed Pillow's on random and fixed
+# factors. Rates are printed, not held: no gain is claimed. The phase took
+# 88-124 s on an NVIDIA H100 80GB HBM3, 700 W (phase 9: 317-326 s).
+TRAIN_CLI_CLASSES, TRAIN_CLI_PER_KIND, TRAIN_CLI_PX = 2, 24, 1024
+TRAIN_CLI_SEED = 111  # the CLI's default --seed
+S2_FWD_PER_STEP_REMAT = 47
+
+
+def pil_jitter(img, factors):
+    """Pillow's ImageEnhance chain on uint8 [H, W, 3] (1.0 skips)."""
+    import numpy as np
+    from PIL import Image, ImageEnhance
+
+    p = Image.fromarray(img)
+    for enhancer, f in zip((ImageEnhance.Brightness, ImageEnhance.Contrast,
+                            ImageEnhance.Color), factors):
+        if f != 1.0:
+            p = enhancer(p).enhance(f)
+    return np.asarray(p)
+
+
+def check_jitter_vs_pillow(images) -> None:
+    """The host colour jitter against the installed Pillow: 300 random
+    images at seeded factors, every triple of 0.5, 1.0 and 1.5, and the
+    synthetic 1024 px ``images`` at drawn factors."""
+    import itertools
+
+    import PIL
+    import numpy as np
+
+    from aaclip_tpu_torch.data import transforms as T
+    from aaclip_tpu_torch.data.image import load_rgb
+
+    rng = np.random.default_rng(0)
+    n = 0
+    for i in range(300):
+        h, w = (int(v) for v in rng.integers(1, 65, 2))
+        img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        if i % 2:
+            img = (img // 8 + rng.integers(0, 224)).astype(np.uint8)
+        cases = [T.jitter_factors(rng)]
+        if i < 3:
+            cases += list(itertools.product((0.5, 1.0, 1.5), repeat=3))
+        for f in cases:
+            expect(np.array_equal(T.jitter_chain(img, *f),
+                                  pil_jitter(img, f)),
+                   f"colour jitter differs from Pillow at {f}")
+            n += 1
+    for i, path in enumerate(images):
+        img = load_rgb(path)
+        f = T.jitter_factors(np.random.default_rng(i))
+        expect(np.array_equal(T.jitter_chain(img, *f), pil_jitter(img, f)),
+               f"colour jitter differs from Pillow on {path} at {f}")
+    print(f"train CLI: the host colour jitter equals Pillow "
+          f"{PIL.__version__}'s bit for bit in {n} cases on 300 random "
+          f"images and on {len(images)} of {TRAIN_CLI_PX} px")
+
+
+def check_device_augment_vs_host(ds, n: int) -> None:
+    """The card's jitter chain and geometric augment on ``n`` cached
+    (resized, pre-jitter) images of ``ds`` with drawn parameters, against
+    the host's numpy functions: bit for bit."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from aaclip_tpu_torch.data import transforms as T
+    from aaclip_tpu_torch.ops import augment as aug
+
+    raw = [T.preprocess_train(
+        os.path.join(ds.spec.data_path, r.image_path),
+        os.path.join(ds.spec.data_path, r.mask_path) if r.mask_path
+        else None, ds.img_size, r.label, None, True, geometric=False,
+        uint8=True) for r in ds.records[::len(ds) // n][:n]]
+    imgs = torch.from_numpy(np.stack([r[0] for r in raw])).cuda()
+    masks = torch.from_numpy(np.stack([r[1][0] for r in raw])).cuda()
+    H = W = ds.img_size
+    gen = aug.augment_generator(TRAIN_CLI_SEED, 2, 0, 0, "cuda")
+    fb, fc, fs = aug.jitter_params(gen, n)
+    params = aug.geometric_params(gen, n, H, W)
+    jit = aug.jitter_chain(imgs, fb, fc, fs)
+    img_d, mask_d, valid = aug.geometric_augment_u8(jit, masks, params)
+    img_d = aug.normalize_valid(img_d, valid).cpu()
+    mask_d = (mask_d.float() * valid.float()).cpu()
+    jit = jit.cpu().numpy()
+    angle, ty, tx, hflip, vflip = (t.cpu() for t in params)
+    expect(bool((angle != 0).any() and (tx != 0).any() and hflip.any()
+                and vflip.any() and (fc != 1).any()),
+           "the drawn parameters leave a transform out")
+    for b in range(n):
+        host = T.jitter_chain(raw[b][0].transpose(1, 2, 0), float(fb[b]),
+                              float(fc[b]), float(fs[b]))
+        expect(np.array_equal(jit[b], host.transpose(2, 0, 1)),
+               f"the card's jitter differs from the host's on sample {b}")
+        want = T.apply_geometric(
+            np.concatenate([T.normalize_uint8_chw(jit[b]),
+                            raw[b][1].astype(np.float32)]),
+            float(angle[b]), float(ty[b]), float(tx[b]), bool(hflip[b]),
+            bool(vflip[b]))
+        got = img_d[b].numpy()
+        expect(np.array_equal(got.view(np.int32), want[:3].view(np.int32))
+               and np.array_equal(mask_d[b].numpy(), want[3]),
+               f"the card's geometric augment differs from the host's on "
+               f"sample {b} ({float(angle[b])}, {float(ty[b])}, "
+               f"{float(tx[b])}, {bool(hflip[b])}, {bool(vflip[b])}): "
+               f"{int((got != want[:3]).sum())} values, max |d| "
+               f"{float(np.abs(got - want[:3]).max())}, masks "
+               f"{int((mask_d[b].numpy() != want[3]).sum())}")
+    print(f"train CLI: the card's jitter chain and geometric augment equal "
+          f"the host's bit for bit on {n} cached {H} px images (angles "
+          f"{angle.abs().max().item():.2f} deg at most, "
+          f"{int((angle != 0).sum())} rotated, {int((tx != 0).sum())} "
+          f"translated)")
+
+
+def epoch_reports(log: str) -> list:
+    """(stage, epoch, img/s, {phase: % of the accounted host wall}) per
+    logged epoch of a train.log."""
+    import re
+
+    out = []
+    for block in re.split(r"INFO:aaclip\.train:training ", log)[1:]:
+        m = re.match(r"(text|image) epoch (\d+):", block)
+        rate = float(re.search(r"throughput: ([\d.]+) img/s",
+                               block).group(1))
+        shares = {k: float(v) for k, v in re.findall(
+            r"\n  (\w+)\s+[\d.]+ ms/step\s+\(\s*([\d.]+)% of accounted",
+            block)}
+        out.append((m.group(1), int(m.group(2)), rate, shares))
+    return out
+
+
+def phase_train_cli(card, ckpt_path: str) -> dict:
+    """Phase 10: the training CLI on the card; returns {run: (B1, B3, B2
+    launches)} for the kernel line."""
+    import gc
+    import os
+
+    import numpy as np
+    import torch
+
+    import aaclip_tpu_torch.utils.profiling as profiling
+    from aaclip_tpu_torch import test as eval_cli
+    from aaclip_tpu_torch.core.config import (AdapterConfig, DtypePolicy,
+                                              get_config)
+    from aaclip_tpu_torch.core.params import (adapter_from_jax,
+                                              adapter_to_jax,
+                                              create_clip_towers,
+                                              init_image_adapter,
+                                              init_text_adapter,
+                                              text_adapter_from_jax,
+                                              text_adapter_to_jax)
+    from aaclip_tpu_torch.data.datasets import BatchLoader, get_train_datasets
+    from aaclip_tpu_torch.data.registry import CLASS_NAMES
+    from aaclip_tpu_torch.data.synthetic import make_synthetic_dataset
+    from aaclip_tpu_torch.eval.predict import make_anchor_encoder
+    from aaclip_tpu_torch.kernels.build import kernels_launched
+    from aaclip_tpu_torch.ops import fused_block as FB
+    from aaclip_tpu_torch.ops.attention import (attention_kernel,
+                                                attention_packed_diff_plain,
+                                                attention_packed_plain,
+                                                make_attn_fn)
+    from aaclip_tpu_torch.text.anchors import (dataset_prompt_tokens,
+                                               encode_dataset_anchors)
+    from aaclip_tpu_torch.train import checkpoint as ckpt
+    from aaclip_tpu_torch.train import cli
+    from aaclip_tpu_torch.train.optim import (make_image_optimizer,
+                                              make_text_optimizer)
+    from aaclip_tpu_torch.train.steps import (make_stage1_step,
+                                              make_stage2_step,
+                                              stage1_features_fn)
+
+    t_phase = time.perf_counter()
+    cfg = get_config("ViT-L-14-336", img_size=518)
+    img, n_layers, heads = (cfg.vision.image_size, cfg.vision.layers,
+                            cfg.vision.heads)
+    vv_layers = STAGE1_SURGERY_UNTIL - 1
+    acfg = AdapterConfig()
+    bf16 = DtypePolicy.bf16()
+    seed = TRAIN_CLI_SEED
+    tmp = tempfile.mkdtemp(prefix="aaclip_train_cli_")
+    env_before = {k: os.environ.get(k) for k in ("AACLIP_DATA",
+                                                 "AACLIP_METADATA")}
+    launches = {}
+
+    def run(name, argv, *, feats, steps, vv):
+        """``cli.main(argv)`` with each epoch's per-step losses recorded;
+        holds its launches to ``feats`` features calls and ``steps``
+        stage-2 steps; returns (losses per epoch, train.log)."""
+        losses = []
+        base = profiling.ThrottledLossDrain
+
+        class Recording(base):
+            def drain(self):
+                vals = super().drain()
+                losses.append(vals)
+                return vals
+
+        zero_fused_counts()
+        lib0 = {n: kernels_launched(n) for n in ("attention_packed",
+                                                 "attention_packed_bwd",
+                                                 "fused_block")}
+        profiling.ThrottledLossDrain = Recording
+        t0 = time.perf_counter()
+        try:
+            cli.main(argv)
+        finally:
+            profiling.ThrottledLossDrain = base
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        std, vvn, bwd = counts()
+        lib = {n: kernels_launched(n) - v for n, v in lib0.items()}
+        others = {"attention_kernel": attention_kernel.launches,
+                  "ln_linear": FB.ln_linear.launches,
+                  "linear_residual": FB.linear_residual.launches,
+                  "mlp_fused": FB.mlp_fused.launches}
+        want = (n_layers * feats + S2_FWD_PER_STEP_REMAT * steps,
+                vv_layers * feats if vv else 0, (n_layers - 1) * steps)
+        print(f"train CLI {name}: {feats} features calls, {steps} stage-2 "
+              f"steps: attention_packed {std}, V-V {vvn}, backward {bwd} "
+              f"launches (want {want}); kernels counted by the libraries "
+              f"{lib}; {others}; {wall:.1f} s for main()")
+        expect((std, vvn, bwd) == want,
+               f"train CLI {name}: launches {(std, vvn, bwd)}, not {want}")
+        expect(lib == {"attention_packed": std + vvn,
+                       "attention_packed_bwd": 2 * bwd, "fused_block": 0}
+               and not any(others.values()),
+               f"train CLI {name}: library counts {lib}, {others}")
+        expect(all(np.isfinite(v).all() for v in losses),
+               f"train CLI {name}: a loss is not finite")
+        launches[name] = (std, vvn, bwd)
+        gc.collect()
+        torch.cuda.empty_cache()
+        with open(os.path.join(argv[argv.index("--save_path") + 1],
+                               "train.log")) as f:
+            return losses, f.read()
+
+    try:
+        classes = CLASS_NAMES["MVTec"][:TRAIN_CLI_CLASSES]
+        t0 = time.perf_counter()
+        data_root, meta_root = make_synthetic_dataset(
+            os.path.join(tmp, "synthetic"), class_names=classes,
+            n_normal=TRAIN_CLI_PER_KIND, n_anomalous=TRAIN_CLI_PER_KIND,
+            img_px=TRAIN_CLI_PX, hard=True)
+        os.environ.update(AACLIP_DATA=data_root, AACLIP_METADATA=meta_root)
+        n_img = TRAIN_CLI_CLASSES * 2 * TRAIN_CLI_PER_KIND
+        print(f"train CLI: synthetic MVTec {', '.join(classes)}: {n_img} "
+              f"images of {TRAIN_CLI_PX} px written in "
+              f"{time.perf_counter() - t0:.1f} s")
+        text_ds, image_ds = get_train_datasets("MVTec", img, -1, seed=seed)
+        check_jitter_vs_pillow([os.path.join(image_ds.spec.data_path,
+                                             r.image_path)
+                                for r in image_ds.records[:2]])
+        n_feat = -(-n_img // 16)
+        n_step = -(-n_img // 2)
+        common = ["--clip_checkpoint", ckpt_path, "--dataset", "MVTec",
+                  "--training_mode", "full_shot", "--precision", "bf16",
+                  "--profile_input"]
+
+        # the host path: 1 text epoch, 2 image epochs
+        host = os.path.join(tmp, "host")
+        losses, log = run("host run", common + [
+            "--save_path", host, "--text_epoch", "1", "--image_epoch", "2"],
+            feats=n_feat, steps=2 * n_step, vv=False)
+        expect([len(e) for e in losses] == [n_feat, n_step, n_step],
+               f"host run: {[len(e) for e in losses]} steps per epoch")
+        reports = epoch_reports(log)
+
+        # (b) each stage's first update again, on the plain attention
+        vit, text = create_clip_towers(cfg, checkpoint=ckpt_path)
+
+        def first_batch(ds, B, loader_seed):
+            b = next(iter(BatchLoader(ds, B, shuffle=True,
+                                      seed=loader_seed)))
+            return (torch.as_tensor(b["image"], device="cuda"),
+                    torch.as_tensor(b["mask"][:, 0], device="cuda"),
+                    torch.as_tensor(b["label"], device="cuda").long(),
+                    torch.tensor([CLASS_NAMES["MVTec"].index(c)
+                                  for c in b["class_name"]], device="cuda"),
+                    torch.ones(B, device="cuda"))
+
+        images, mask, _, cidx, valid = first_batch(text_ds, 16, seed)
+        feats = stage1_features_fn(
+            vit, cfg, surgery_until_layer=STAGE1_SURGERY_UNTIL, policy=bf16,
+            vv_mode="batch",
+            attn_fn=make_attn_fn(heads, bf16,
+                                 attention=attention_packed_plain))(
+            images, valid)
+        tad = init_text_adapter(cfg, acfg, seed=seed + 1)
+        s1 = make_stage1_step(text, cfg, acfg,
+                              make_text_optimizer(tad.parameters(), 1e-5),
+                              dataset_prompt_tokens("MVTec"), policy=bf16)
+        plain1 = s1(tad, feats, mask, cidx, valid).item()
+        del feats, s1, tad
+        _, tree, _ = ckpt.load_adapter_checkpoint(
+            os.path.join(host, "text_adapter.npz"),
+            text_adapter_to_jax(init_text_adapter(cfg, acfg, device="cpu")))
+        anchors = encode_dataset_anchors(make_anchor_encoder(
+            text, cfg, acfg, text_adapter_from_jax(tree, cfg, acfg),
+            policy=bf16), "MVTec")
+        table = torch.stack([anchors[c] for c in CLASS_NAMES["MVTec"]])
+        iad = init_image_adapter(cfg, acfg, seed=seed)
+        s2 = make_stage2_step(
+            vit, cfg, acfg, make_image_optimizer(iad.parameters(), 5e-4),
+            table, policy=bf16, remat=True,
+            attn_fn=make_attn_fn(heads, bf16,
+                                 attention=attention_packed_diff_plain))
+        plain2 = s2(iad, *first_batch(image_ds, 2, seed + 1)).item()
+        del s2, iad
+        r1 = abs(losses[0][0] - plain1) / abs(plain1)
+        r2 = abs(losses[1][0] - plain2) / abs(plain2)
+        print(f"train CLI: step-1 losses, kernels vs plain attention: "
+              f"stage 1 {losses[0][0]:.6f} vs {plain1:.6f} ({r1:.3e} "
+              f"relative, bar {S1_STEP_LOSS_RTOL}), stage 2 "
+              f"{losses[1][0]:.6f} vs {plain2:.6f} ({r2:.3e}, bar "
+              f"{STEP_LOSS_RTOL}); epoch means "
+              f"{[round(float(np.mean(e)), 6) for e in losses]}")
+        expect(r1 <= S1_STEP_LOSS_RTOL and r2 <= STEP_LOSS_RTOL,
+               f"train CLI: step-1 losses off by {r1}, {r2}")
+
+        # the step alone, at the CLI's batches
+        gen = torch.Generator(device="cuda").manual_seed(12)
+        iad = init_image_adapter(cfg, acfg, seed=1)
+        s2 = make_stage2_step(vit, cfg, acfg,
+                              make_image_optimizer(iad.parameters()),
+                              unit_table(cfg.embed_dim, gen), policy=bf16,
+                              remat=True)
+        batch = train_batch(2, img, gen)
+        ms2 = cuda_ms(lambda: s2(iad, *batch), 20)
+        del s2, iad
+        feats_fn = stage1_features_fn(
+            vit, cfg, surgery_until_layer=STAGE1_SURGERY_UNTIL, policy=bf16)
+        tad = init_text_adapter(cfg, acfg, seed=2)
+        s1 = make_stage1_step(text, cfg, acfg,
+                              make_text_optimizer(tad.parameters()),
+                              dataset_prompt_tokens("MVTec"), policy=bf16)
+        images, mask, cidx, valid = stage1_batch(16, img, gen)
+        ms1 = cuda_ms(lambda: s1(tad, feats_fn(images, valid), mask, cidx,
+                                 valid), 5, warmup=1)
+        del s1, tad, feats_fn, vit, text
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"train CLI: the steps alone, bf16: stage 1 (batch-mode "
+              f"features + update) at batch 16 {16e3 / ms1:.2f} img/s, "
+              f"stage 2 (remat full) at batch 2 {2e3 / ms2:.2f} img/s on "
+              f"{card}")
+
+        # (c) the checkpoints load back and save again bit for bit
+        for name, make, to_jax, from_jax in (
+                ("text_adapter.npz", init_text_adapter, text_adapter_to_jax,
+                 text_adapter_from_jax),
+                ("image_adapter.npz", init_image_adapter, adapter_to_jax,
+                 adapter_from_jax)):
+            mod = make(cfg, acfg, seed=0)
+            if name.startswith("image"):
+                opt, sched = make_image_optimizer(mod.parameters())
+            else:
+                opt, sched = make_text_optimizer(mod.parameters()), None
+            path = os.path.join(host, name)
+            epoch, tree, step = ckpt.load_adapter_checkpoint(
+                path, to_jax(mod))
+            opt_tree = ckpt.load_optimizer_state(
+                path, ckpt.adam_state_tree(opt, mod, to_jax, sched))
+            with torch.no_grad():
+                for p, q in zip(mod.parameters(), from_jax(
+                        tree, cfg, acfg, device="cpu").parameters()):
+                    p.copy_(q)
+            ckpt.load_adam_state(
+                opt, mod, opt_tree,
+                lambda t: from_jax(t, cfg, acfg, device="cpu"), sched)
+            again = os.path.join(tmp, "again_" + name)
+            ckpt.save_adapter_checkpoint(
+                again, epoch, to_jax(mod), step=step,
+                opt_state=ckpt.adam_state_tree(opt, mod, to_jax, sched))
+            with np.load(path) as a, np.load(again) as b:
+                expect(sorted(a.files) == sorted(b.files) and all(
+                    a[k].dtype == b[k].dtype
+                    and a[k].tobytes() == b[k].tobytes() for k in a.files),
+                    f"train CLI: {name} does not round-trip")
+                n_up = n_feat if sched is None else 2 * n_step
+                counts_ = [int(a[k]) for k in sorted(a.files)
+                           if k.endswith(".count")] + [int(a["__step__"])]
+                expect(counts_ == [n_up] * len(counts_)
+                       and int(a["__epoch__"]) == (1 if sched is None
+                                                   else 2),
+                       f"train CLI: {name} counts {counts_}")
+        print(f"train CLI: text_adapter.npz and image_adapter.npz load into "
+              f"fresh adapters and Adam (and MultiStepLR) on the card and "
+              f"save again bit for bit; counts {n_feat} and {2 * n_step}")
+
+        # (d) resumed with --image_epoch 3
+        losses3, log = run("resumed run", common + [
+            "--save_path", host, "--text_epoch", "1", "--image_epoch", "3"],
+            feats=0, steps=n_step, vv=False)
+        expect([len(e) for e in losses3] == [n_step]
+               and log.count("training image epoch 2:") == 1
+               and log.count("training image epoch 1:") == 1
+               and log.count("training text epoch 0:") == 1,
+               "train CLI: the resumed run did not train image epoch 2 "
+               "only")
+        with np.load(os.path.join(host, "image_adapter_3.npz")) as a:
+            got = [int(a[k]) for k in ("__epoch__", "__step__",
+                                       "opt_state/0/.count",
+                                       "opt_state/1/.count")]
+        expect(got == [3] + [3 * n_step] * 3,
+               f"train CLI: resumed checkpoint at {got}")
+        reports += epoch_reports(log)[len(reports):]
+        print(f"train CLI: resumed at image epoch 2 from the saved state: "
+              f"epoch, step and counts {got}; loss "
+              f"{np.mean(losses3[0]):.6f}")
+
+        # (e) the evaluation CLI on what was trained
+        evald = os.path.join(tmp, "eval")
+        os.makedirs(evald)
+        for f in ("text_adapter.npz", "image_adapter_3.npz"):
+            shutil.copy(os.path.join(host, f), os.path.join(evald, f))
+        zero_fused_counts()
+        eval_cli.main(["--clip_checkpoint", ckpt_path, "--save_path", evald,
+                       "--precision", "bf16", "--batch_size", "32", "--csv"])
+        rows = read_csv(os.path.join(evald, "results_3.csv"))
+        cells = [float(x) for r in rows[1:] for x in r[1:]]
+        n_eval = TRAIN_CLI_CLASSES * -(-2 * TRAIN_CLI_PER_KIND // 32)
+        print(f"train CLI: the evaluation CLI's table (above) on the "
+              f"trained checkpoints, {n_eval} predict batches")
+        expect([r[0] for r in rows[1:]] == list(classes) + ["Average"]
+               and all(np.isfinite(cells)) and all(0 <= c <= 100
+                                                   for c in cells),
+               f"train CLI: evaluation table {rows}")
+        expect(counts()[0] == n_layers * n_eval,
+               f"train CLI: evaluation launched {counts()[0]}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the device path: one stage-2 epoch from the set on the card
+        check_device_augment_vs_host(image_ds, 16)
+        dev_losses, log = run("device run", common + [
+            "--save_path", os.path.join(tmp, "device"), "--text_epoch", "0",
+            "--image_epoch", "1", "--device_augment", "--cache_device"],
+            feats=0, steps=n_step, vv=False)
+        expect(len(dev_losses) == 1, "device run: epochs")
+        dev_reports = epoch_reports(log)
+
+        # the spatial V-V mode: one stage-1 epoch
+        _, log = run("spatial run", common + [
+            "--save_path", os.path.join(tmp, "spatial"), "--text_epoch", "1",
+            "--image_epoch", "0", "--vv_mode", "spatial"],
+            feats=n_feat, steps=0, vv=True)
+        sp_reports = epoch_reports(log)
+
+        for path, reps in (("host", reports), ("device", dev_reports),
+                           ("host, spatial V-V", sp_reports)):
+            for stage, epoch, rate, shares in reps:
+                top = ", ".join(f"{k} {v:.1f}%" for k, v in sorted(
+                    shares.items(), key=lambda kv: -kv[1]))
+                print(f"train CLI {path} path, {stage} epoch {epoch}: "
+                      f"{rate:.2f} img/s logged; host loop: {top} on "
+                      f"{card}")
+        print(f"train CLI: phase 10 took {time.perf_counter() - t_phase:.0f}"
+              f" s")
+    finally:
+        for k, v in env_before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2293,9 +2819,16 @@ def main() -> int:
     phase_encode_image(vit, cfg)
     fused_times = time_fused(cfg, card)
 
-    # -- 9. the evaluation CLI from checkpoints
-    print(f"[{time.perf_counter() - t0:.0f} s] evaluation CLI")
-    phase_eval_cli(card)
+    # -- 9, 10. the evaluation and training CLIs from one saved checkpoint
+    ckpt_dir = tempfile.mkdtemp(prefix="aaclip_smoke_ckpt_")
+    try:
+        ckpt_path = write_seeded_checkpoint(ckpt_dir, card)
+        print(f"[{time.perf_counter() - t0:.0f} s] evaluation CLI")
+        phase_eval_cli(card, ckpt_path)
+        print(f"[{time.perf_counter() - t0:.0f} s] training CLI")
+        train_cli = phase_train_cli(card, ckpt_path)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
     check_device_ops()
 
     print(f"[{time.perf_counter() - t0:.0f} s] done")
@@ -2318,6 +2851,9 @@ def main() -> int:
         "source": "aaclip_tpu_torch/kernels/csrc/attention_packed.cu",
         "replaces": "aaclip_tpu/ops/flash_attention.py:190",
         "launches": fwd_launches,
+        "calls": {"predict": fwd_launches, "stage-2 step": train_fwd,
+                  **{f"training CLI {k}": v[0] for k, v in
+                     train_cli.items()}},
         "kernels_per_call": fwd_per_call,
         "max_abs_err": err_fwd,
         "ms": ms_fwd,
@@ -2331,6 +2867,9 @@ def main() -> int:
         "source": "aaclip_tpu_torch/kernels/csrc/attention_packed_bwd.cu",
         "replaces": "aaclip_tpu/ops/flash_attention.py:302",
         "launches": train_bwd,
+        "calls": {"stage-2 step": train_bwd,
+                  **{f"training CLI {k}": v[2] for k, v in
+                     train_cli.items()}},
         "kernels_per_call": bwd_per_call,
         "max_abs_err": err_bwd,
         "ms": ms_bwd,
@@ -2344,6 +2883,9 @@ def main() -> int:
         "source": "aaclip_tpu_torch/kernels/csrc/attention_packed.cu",
         "replaces": "aaclip_tpu/ops/flash_attention.py:190",
         "launches": vv_launches,
+        "calls": {"stage-1 spatial features": vv_launches,
+                  **{f"training CLI {k}": v[1] for k, v in
+                     train_cli.items()}},
         "kernels_per_call": vv_per_call,
         "max_abs_err": err_vv,
         "ms": ms_vv,

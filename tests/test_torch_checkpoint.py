@@ -15,6 +15,14 @@
 * Adapter checkpoints (``train/checkpoint.py``): npz and reference
   ``.pth`` files written by either package load in the other bit for bit,
   and a shape mismatch raises JAX's message.
+* Optimizer state: torch's Adam (and the image optimizer's MultiStepLR)
+  saved by the port loads into optax's ``adam`` state through JAX's
+  ``load_adapter_checkpoint`` bit for bit (count, moments, the
+  schedule's count), under JAX's own key names; optax's state saved by
+  JAX loads into torch's Adam bit for bit; one more update with the same
+  gradient on each side then agrees within 1e-7 at LR 1e-3 (Adam's bar
+  in ``test_torch_train.py``), and the restored schedule's learning rate
+  drops at the same update.
 """
 
 import dataclasses
@@ -296,3 +304,146 @@ def test_reference_pth_round_trips_both_ways(proj_relu, tmp_path):
     _, image = ckpt.load_reference_checkpoint(path, "image", n_adapt=1,
                                               n_levels=2)
     _assert_trees_equal(image, adapters["image"])
+
+
+def _port_optimizer(kind, milestones=(16000, 32000)):
+    """(module, optimizer, scheduler or None, to_jax, from_jax)."""
+    from aaclip_tpu_torch.train import optim
+
+    if kind == "image":
+        mod = params.init_image_adapter(CFG, ACFG, seed=5, device="cpu")
+        opt, sched = optim.make_image_optimizer(mod.parameters(), 1e-3,
+                                                milestones=milestones)
+        return (mod, opt, sched, params.adapter_to_jax,
+                lambda t: params.adapter_from_jax(t, CFG, ACFG,
+                                                  device="cpu"))
+    mod = params.init_text_adapter(CFG, ACFG, seed=5, device="cpu")
+    opt = optim.make_text_optimizer(mod.parameters(), 1e-3)
+    return (mod, opt, None, params.text_adapter_to_jax,
+            lambda t: params.text_adapter_from_jax(t, CFG, ACFG,
+                                                   device="cpu"))
+
+
+def _jax_tx(kind, milestones=(16000, 32000)):
+    from aaclip_tpu.train import optim as joptim
+
+    return joptim.make_image_optimizer(1e-3, milestones) \
+        if kind == "image" else joptim.make_text_optimizer(1e-3)
+
+
+def _grads(mod, to_jax, seed):
+    """One random gradient: torch tensors per parameter and the same
+    values as a JAX-layout tree."""
+    g = torch.Generator().manual_seed(seed)
+    grads = [torch.randn(p.shape, generator=g) for p in mod.parameters()]
+    return grads, to_jax(ckpt._with_values(mod, grads))
+
+
+def _torch_updates(mod, opt, sched, to_jax, n):
+    for i in range(n):
+        grads, _ = _grads(mod, to_jax, i)
+        for p, gr in zip(mod.parameters(), grads):
+            p.grad = gr
+        opt.step()
+        if sched is not None:
+            sched.step()
+
+
+@pytest.mark.parametrize("kind", ["image", "text"])
+def test_port_adam_state_loads_into_optax(kind, tmp_path):
+    from aaclip_tpu.train.steps import init_state
+
+    mod, opt, sched, to_jax, _ = _port_optimizer(kind, (3, 5))
+    _torch_updates(mod, opt, sched, to_jax, 4)
+    path = str(tmp_path / "a.npz")
+    ckpt.save_adapter_checkpoint(path, 2, to_jax(mod), step=4,
+                                 opt_state=ckpt.adam_state_tree(
+                                     opt, mod, to_jax, sched))
+    tx = _jax_tx(kind, (3, 5))
+    state = init_state(_jax_adapters(0)[kind], tx)
+    epoch, adapter, opt_state, step = jckpt.load_adapter_checkpoint(
+        path, state.params, state.opt_state)
+    assert (epoch, step) == (2, 4)
+    adam = opt_state[0]
+    assert int(adam.count) == 4
+    if kind == "image":
+        assert int(opt_state[1].count) == 4
+    ps = list(mod.parameters())
+    _assert_trees_equal(jax.tree.map(np.asarray, adam.mu), to_jax(
+        ckpt._with_values(mod, [opt.state[p]["exp_avg"] for p in ps])))
+    _assert_trees_equal(jax.tree.map(np.asarray, adam.nu), to_jax(
+        ckpt._with_values(mod, [opt.state[p]["exp_avg_sq"] for p in ps])))
+    # one more update with the same gradient on both sides
+    import optax
+
+    grads, gtree = _grads(mod, to_jax, 99)
+    updates, _ = tx.update(jax.tree.map(jnp.asarray, gtree), opt_state,
+                           adapter)
+    want = optax.apply_updates(adapter, updates)
+    for p, gr in zip(mod.parameters(), grads):
+        p.grad = gr
+    opt.step()
+    for g, w in zip(jax.tree.leaves(to_jax(mod)), jax.tree.leaves(want)):
+        np.testing.assert_allclose(g, np.asarray(w), atol=1e-7, rtol=0)
+    # the two files name their entries alike
+    jpath = str(tmp_path / "j.npz")
+    jckpt.save_adapter_checkpoint(jpath, 2, adapter, opt_state, 4)
+    with np.load(jpath) as j, np.load(path) as p:
+        assert sorted(j.files) == sorted(p.files)
+        assert all(j[k].dtype == p[k].dtype for k in j.files)
+
+
+@pytest.mark.parametrize("kind", ["image", "text"])
+def test_optax_state_saved_by_jax_resumes_in_torch(kind, tmp_path):
+    import optax
+
+    from aaclip_tpu.train.steps import init_state
+
+    mod, opt, sched, to_jax, from_jax = _port_optimizer(kind, (3, 5))
+    tx = _jax_tx(kind, (3, 5))
+    state = init_state(to_jax(mod), tx)
+    p, o = state.params, state.opt_state
+    for i in range(3):
+        _, gtree = _grads(mod, to_jax, i)
+        updates, o = tx.update(jax.tree.map(jnp.asarray, gtree), o, p)
+        p = optax.apply_updates(p, updates)
+    path = str(tmp_path / "j.npz")
+    jckpt.save_adapter_checkpoint(path, 1, p, o, 3)
+    template = ckpt.adam_state_tree(opt, mod, to_jax, sched)
+    assert int(template[0][".count"]) == 0
+    _, tree, step = ckpt.load_adapter_checkpoint(path, to_jax(mod))
+    assert step == 3
+    with torch.no_grad():
+        for q, v in zip(mod.parameters(), from_jax(tree).parameters()):
+            q.copy_(v)
+    ckpt.load_adam_state(opt, mod, ckpt.load_optimizer_state(path, template),
+                         from_jax, sched)
+    got = ckpt.adam_state_tree(opt, mod, to_jax, sched)
+    assert int(got[0][".count"]) == 3
+    _assert_trees_equal(got[0][".mu"], jax.tree.map(np.asarray, o[0].mu))
+    _assert_trees_equal(got[0][".nu"], jax.tree.map(np.asarray, o[0].nu))
+    ps = list(mod.parameters())
+    assert all(opt.state[q]["step"].dtype == torch.float32 for q in ps)
+    if kind == "image":
+        assert sched.last_epoch == int(got[1][".count"]) == 3
+    # updates 3 and 4 on both sides: the LR drops at update 3 in both
+    for i in (3, 4):
+        grads, gtree = _grads(mod, to_jax, 10 + i)
+        updates, o = tx.update(jax.tree.map(jnp.asarray, gtree), o, p)
+        p = optax.apply_updates(p, updates)
+        for q, gr in zip(ps, grads):
+            q.grad = gr
+        opt.step()
+        if sched is not None:
+            sched.step()
+        for g, w in zip(jax.tree.leaves(to_jax(mod)), jax.tree.leaves(p)):
+            np.testing.assert_allclose(g, np.asarray(w), atol=1e-7, rtol=0)
+    if kind == "image":
+        assert opt.param_groups[0]["lr"] == pytest.approx(1e-3 * 0.25)
+
+
+def test_checkpoint_without_optimizer_state_gives_none(tmp_path):
+    tree = _jax_adapters(1)["text"]
+    path = str(tmp_path / "a.npz")
+    ckpt.save_adapter_checkpoint(path, 1, tree)
+    assert ckpt.load_optimizer_state(path, [{".count": 0}]) is None

@@ -4,9 +4,10 @@ path of ``bench --mode train``) and its stage-1 features and step
 (``bench --mode train_stage1``, tokenizer and prompts included) run in a
 fresh interpreter without either entering
 ``sys.modules``, and no source file of the port (or chip_smoke.py, which
-runs where JAX is absent) names them in an import. The evaluation CLI runs
-on a PNG dataset in an interpreter where PIL, pandas, scikit-learn and cv2
-cannot be imported (the card's machine has none of them)."""
+runs where JAX is absent) names them in an import. The evaluation CLI and
+the training CLI (both stages, host and on-card augment) run on a PNG
+dataset in an interpreter where PIL, pandas, scikit-learn and cv2 cannot
+be imported (the card's machine may lack any of them)."""
 
 import json
 import os
@@ -95,8 +96,10 @@ def test_sources_do_not_import_jax_or_the_jax_package():
     files = sorted((REPO / "aaclip_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10
-    assert {"steps.py", "optim.py"} <= {f.name for f in files
-                                        if f.parent.name == "train"}
+    assert {"steps.py", "optim.py", "cli.py", "checkpoint.py"} <= {
+        f.name for f in files if f.parent.name == "train"}
+    assert {"augment.py", "device_cache.py", "transforms.py"} <= {
+        f.name for f in files}
     assert {"text_model.py", "anchors.py", "bpe.py", "registry.py"} <= {
         f.name for f in files}
     offenders = {str(f.relative_to(REPO)): FORBIDDEN.findall(f.read_text())
@@ -156,3 +159,39 @@ def test_eval_cli_runs_without_pil_pandas_sklearn_cv2_or_jax():
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result == {"bad": [], "rows": ["class name", "bottle", "cable",
                                           "Average"]}
+
+
+TRAIN_PROBE = """
+import json, os, sys, tempfile
+for name in ("PIL", "pandas", "sklearn", "cv2"):
+    sys.modules[name] = None  # any import of them raises
+from aaclip_tpu_torch.data.synthetic import make_synthetic_dataset
+from aaclip_tpu_torch.train import cli
+root = tempfile.mkdtemp()
+data_root, meta_root = make_synthetic_dataset(root, img_px=48)
+os.environ.update(AACLIP_DATA=data_root, AACLIP_METADATA=meta_root)
+argv = ["--model_name", "tiny-test", "--img_size", "70",
+        "--text_adapt_until", "1", "--image_adapt_until", "1",
+        "--levels", "1", "2", "--dataset", "MVTec", "--training_mode",
+        "full_shot", "--surgery_until_layer", "2", "--text_batch_size", "4",
+        "--image_batch_size", "4", "--text_epoch", "1", "--image_epoch", "1"]
+for extra in ([], ["--device_augment", "--cache_device"]):
+    save = os.path.join(root, "ckpt" + str(len(extra)))
+    cli.main(argv + extra + ["--save_path", save], device="cpu")
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "aaclip_tpu"))
+print(json.dumps({"bad": bad, "files": sorted(os.listdir(save))}))
+"""
+
+
+def test_train_cli_runs_without_pil_pandas_sklearn_cv2_or_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run([sys.executable, "-c", TRAIN_PROBE], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result == {"bad": [], "files": [
+        "image_adapter.npz", "image_adapter_1.npz", "text_adapter.npz",
+        "train.log"]}
