@@ -6,6 +6,7 @@ text-adapter update), or the time of a trunk of identical blocks, unfused
 against the fused block.
 
     python -m aaclip_tpu_torch.bench [--batch_size 32] [--precision bf16]
+    python -m aaclip_tpu_torch.bench --precision fp32_high [--bf16_until K]
     python -m aaclip_tpu_torch.bench --mode train [--batch_size 8] \
         [--remat full|off]
     python -m aaclip_tpu_torch.bench --mode train_stage1 [--batch_size 16] \
@@ -23,6 +24,7 @@ one it raises and prints nothing.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 import time
@@ -40,7 +42,8 @@ REFERENCE_BASELINE_STAGE1_IMG_PER_SEC = 20.0
 # kernel-name fragments of the profile's device rows, by class
 _PROFILE_CLASSES = (
     ("attention forward kernel (standard and V-V)",
-     ("attn_fwd_wgmma", "attn_bf16_kernel", "attn_f32_kernel")),
+     ("attn_fwd_wgmma", "attn_bf16_kernel", "attn_f32_kernel",
+      "attn_fwd_3pass")),
     ("attention backward kernel", ("attn_bwd_",)),
     ("fused-block kernels (ln_linear, linear_residual, mlp_fused)",
      ("gemm_wgmma", "row_stats_kernel", "gemm_f32_kernel",
@@ -274,8 +277,12 @@ def main(argv=None) -> None:
                              "(train_stage1, the reference's text batch)")
     parser.add_argument("--precision", default="bf16",
                         choices=PRECISION_CHOICES,
-                        help="fp32_high and int8 are not ported yet")
+                        help="int8 is not ported yet")
     parser.add_argument("--steps", type=int, default=10)
+    parser.add_argument("--bf16_until", type=int, default=None,
+                        help="override the policy's staged trunk depth "
+                             "(leading vision blocks at single-pass bf16 "
+                             "products; inference path only)")
     parser.add_argument("--warmup", type=int, default=3)
     parser.add_argument("--profile", action="store_true",
                         help="after the timed loop, trace two more calls "
@@ -313,6 +320,8 @@ def main(argv=None) -> None:
 
     dev = resolve_device(None)
     policy = DtypePolicy.from_name(args.precision)
+    if args.bf16_until is not None:
+        policy = dataclasses.replace(policy, bf16_until=args.bf16_until)
     cfg = get_config(args.model_name, args.img_size)
     acfg = AdapterConfig() if args.model_name != "tiny-test" else \
         AdapterConfig(levels=(1, 2), image_adapt_until=1, text_adapt_until=1)

@@ -100,32 +100,56 @@ class DtypePolicy:
     """Precision policy.
 
     Parameters are stored in fp32. ``compute_dtype`` is what matmul inputs
-    are cast to (products always accumulate in fp32; fp32 products are
-    true fp32, TF32 off) and the residual stream's dtype. ``fast_act``
-    selects the tanh GELU. LayerNorm statistics and softmax always run in
-    fp32.
+    are cast to (products always accumulate in fp32) and the residual
+    stream's dtype. ``fast_act`` selects the tanh GELU. LayerNorm
+    statistics and softmax always run in fp32.
+
+    ``precision`` is the JAX package's dot precision for fp32 operands:
+    "highest" true fp32 (TF32 off on the card), "high" the 3-pass product
+    (bf16 hi and lo halves, hi·hi + hi·lo + lo·hi summed in fp32: XLA's
+    F32_AS_3BF16; ``models/layers.py::matmul``), None for the bf16
+    policy, whose operands are bf16 already. ``bf16_until=K`` stages the
+    first K vision blocks of the INFERENCE path at single-pass bf16
+    products (``prefix_policy``) while the residual stream and every later
+    block keep this policy; the training steps drop it (``unstaged``).
     """
 
     compute_dtype: torch.dtype = torch.float32
     fast_act: bool = False
+    precision: str | None = "highest"
+    bf16_until: int = 0
+
+    def prefix_policy(self) -> "DtypePolicy":
+        """The policy of the bf16-staged leading vision blocks: single-pass
+        bf16 matmul inputs, the same activation, staging cleared."""
+        return dataclasses.replace(self, compute_dtype=torch.bfloat16,
+                                   precision=None, bf16_until=0)
+
+    def unstaged(self) -> "DtypePolicy":
+        """This policy with the trunk staging off (the training steps)."""
+        if not self.bf16_until:
+            return self
+        return dataclasses.replace(self, bf16_until=0)
 
     @classmethod
     def fp32(cls) -> "DtypePolicy":
         """Parity path: true fp32 matmuls (no TF32), erf GELU."""
-        return cls(torch.float32, False)
+        return cls(torch.float32, False, "highest")
 
     @classmethod
     def bf16(cls) -> "DtypePolicy":
         """Fast path: bf16 matmul inputs with fp32 accumulation, tanh GELU,
         bf16 residual stream."""
-        return cls(torch.bfloat16, True)
+        return cls(torch.bfloat16, True, None)
 
     @classmethod
     def fp32_high(cls) -> "DtypePolicy":
-        raise NotImplementedError(
-            "fp32_high (3-pass bf16 matmuls, bf16-staged prefix blocks and "
-            "the prefix attention) is not ported yet: ROADMAP A7, 'fp32_high "
-            "and its 3-pass kernel mode'")
+        """Fast-parity path: fp32 parameters, residual stream and erf GELU,
+        every fp32 product 3-pass (the attention kernels' 3-pass mode
+        included), and on the inference path the first 6 vision blocks
+        (the adapter-blend range) staged at single-pass bf16 products;
+        ``bf16_until=0`` gives the unstaged 3-pass trunk."""
+        return cls(torch.float32, False, "high", bf16_until=6)
 
     @classmethod
     def int8(cls) -> "DtypePolicy":

@@ -47,7 +47,11 @@ def make_predict_fn(vit: VisionTransformer, cfg: CLIPConfig,
     ``block_fn`` replaces every whole block (``ops.fused_block.
     make_block_fn``, the fused-block kernels; ``maybe_make_block_fn`` gives
     it on the card under bf16, None off it and under fp32); it receives
-    the block's weights as cast for the predictor.
+    the block's weights as cast for the predictor. A staged policy
+    (``policy.bf16_until``, fp32_high) runs its first blocks under
+    ``policy.prefix_policy()`` with that policy's attention hook, the bf16
+    kernel, as JAX's predictor builds it (``models/vit.py::trunk_taps``);
+    ``attn_fn`` serves the later blocks.
     ``img_size`` mirrors the JAX signature: the size comes from ``cfg``
     (``get_config(name, img_size)``) and any other value raises.
 
@@ -74,9 +78,9 @@ def make_predict_fn(vit: VisionTransformer, cfg: CLIPConfig,
 
     visual = cast_matmul_weights(vit, policy)
     act = config_act(cfg, policy)
-    # M q Mᵀ at true fp32 only under the fp32 policy, as JAX's predictor
-    pp_precision = "highest" if policy.compute_dtype == torch.float32 \
-        else "high"
+    # M q Mᵀ at true fp32 only under precision "highest" (the fp32
+    # policy), 3-pass under fp32_high and bf16, as JAX's predictor
+    pp_precision = "highest" if policy.precision == "highest" else "high"
     patch_embed = None
     if uint8_inputs:
         w_f, b_f = fold_normalization_into_conv1(vit.conv1.weight.t(),
@@ -85,7 +89,8 @@ def make_predict_fn(vit: VisionTransformer, cfg: CLIPConfig,
 
         def patch_embed(images_u8):
             return patchify_uint8(images_u8, w_f, b_f, cfg.vision.patch_size,
-                                  compute_dtype=policy.compute_dtype)
+                                  compute_dtype=policy.compute_dtype,
+                                  precision=policy.precision)
 
     @torch.inference_mode()
     def predict(image_adapter, images, anchors, M):

@@ -591,6 +591,179 @@ int launch_retained(bool bf16, int head_dim, int batch, int seq,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------ fp32, 3-pass ("high")
+
+// attn_fwd_3pass: the forward under the JAX package's precision "high"
+// (_kdot's F32_AS_3BF16 branch) on fp32 inputs. Blocks of 64 query rows
+// (4 warps of 16) walk key tiles of 64 as attn_bf16_kernel does, but each
+// fp32 tile is split into its bf16 hi and lo halves as it is staged into
+// shared memory (load_split_tile), and every product is three mma.sync
+// bf16 products into one fp32 accumulator: S = Q K^T as Qhi.Khi + Qhi.Klo
+// + Qlo.Khi, then O += P V the same way from P's halves, where P =
+// exp(s - m) is kept in fp32 (split, never rounded) with precise expf, the
+// row sum taken over the fp32 P, and one division at the end; the
+// logsumexp is m + log(l) as in the other routes. What bounds it: three
+// bf16 products per product, 3 x 4*B*H*S^2*hd FLOP (184.5 GFLOP at the
+// predict's batch 8), on the tensor cores.
+template <int HD>
+__global__ void __launch_bounds__(128)
+attn_fwd_3pass(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, float* __restrict__ out,
+               float* __restrict__ lse, int S, int valid_len, Layout in,
+               Layout ol, float scale) {
+  static_assert(HD % 16 == 0, "head dim must be a multiple of 16");
+  static_assert(kBlockM == kBlockN, "Q and K/V tiles share one size");
+  constexpr int SLD = HD + 8;       // padded row: conflict-free fragments
+  constexpr int KS = HD / 16;       // k-steps of Q.K^T over the head dim
+  constexpr int ND = HD / 8;        // n-tiles of P.V over the head dim
+  constexpr int NT = kBlockN / 8;   // n-tiles of Q.K^T over the keys
+  constexpr int KK = kBlockN / 16;  // k-steps of P.V over the keys
+  constexpr int kTileElems = kBlockN * SLD;
+  extern __shared__ __align__(16) uint8_t smem3_raw[];
+  __nv_bfloat16* sQh = reinterpret_cast<__nv_bfloat16*>(smem3_raw);
+  __nv_bfloat16* sQl = sQh + kTileElems;
+  __nv_bfloat16* sKh = sQl + kTileElems;
+  __nv_bfloat16* sKl = sKh + kTileElems;
+  __nv_bfloat16* sVh = sKl + kTileElems;
+  __nv_bfloat16* sVl = sVh + kTileElems;
+
+  const int q0 = blockIdx.x * kBlockM;
+  const int64_t in_off = blockIdx.z * in.batch + blockIdx.y * in.head;
+  const int warp = threadIdx.x >> 5;
+  const int g = (threadIdx.x & 31) >> 2;
+  const int t = threadIdx.x & 3;
+
+  load_split_tile<HD, SLD, kBlockM>(sQh, sQl, q + in_off, in.row, q0, S);
+  __syncthreads();
+  uint32_t qh[KS][4], ql[KS][4];
+  const int r0 = warp * 16 + g;
+  load_a_frags<KS, SLD>(qh, sQh, r0, t);
+  load_a_frags<KS, SLD>(ql, sQl, r0, t);
+
+  float o[ND][4];
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd)
+    o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};  // running max of rows g, g + 8
+  float l[2] = {0.f, 0.f};              // this thread's share of the sums
+
+  const int n_tiles = (valid_len + kBlockN - 1) / kBlockN;
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * kBlockN;
+    __syncthreads();  // the previous tile is fully consumed
+    load_split_tile<HD, SLD, kBlockN>(sKh, sKl, k + in_off, in.row, k0, S);
+    load_split_tile<HD, SLD, kBlockN>(sVh, sVl, v + in_off, in.row, k0, S);
+    __syncthreads();
+
+    float s[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        mma3_bt<SLD>(s[nt], qh[ks], ql[ks], sKh, sKl, nt, ks, g, t);
+
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int col = k0 + nt * 8 + t * 2 + (i & 1);
+        const float sv = col < valid_len ? s[nt][i] * scale : -INFINITY;
+        s[nt][i] = sv;
+        mx[i >> 1] = fmaxf(mx[i >> 1], sv);
+      }
+    }
+    float mref[2], alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      mref[r] = mx[r] == -INFINITY ? 0.f : mx[r];
+      alpha[r] = expf(m[r] - mref[r]);
+      m[r] = mx[r];
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[nt][i] = expf(s[nt][i] - mref[i >> 1]);  // P, fp32
+        l[i >> 1] += s[nt][i];
+      }
+    }
+    uint32_t ph[KK][4], pl[KK][4];
+    split_a_frags<NT>(ph, pl, s);
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd) {
+      o[nd][0] *= alpha[0];
+      o[nd][1] *= alpha[0];
+      o[nd][2] *= alpha[1];
+      o[nd][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk)
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd)
+        mma3_b<SLD>(o[nd], ph[kk], pl[kk], sVh, sVl, kk, nd, g, t);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  const int row_a = q0 + r0;
+  const int row_b = row_a + 8;
+  float* ob = out + blockIdx.z * ol.batch + blockIdx.y * ol.head + t * 2;
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd) {
+    if (row_a < S)
+      *reinterpret_cast<float2*>(ob + row_a * ol.row + nd * 8) =
+          make_float2(o[nd][0] / l[0], o[nd][1] / l[0]);
+    if (row_b < S)
+      *reinterpret_cast<float2*>(ob + row_b * ol.row + nd * 8) =
+          make_float2(o[nd][2] / l[1], o[nd][3] / l[1]);
+  }
+  if (lse != nullptr && t == 0) {
+    float* lrow = lse + ((int64_t)blockIdx.z * gridDim.y + blockIdx.y) * S;
+    if (row_a < S) lrow[row_a] = m[0] + logf(l[0]);
+    if (row_b < S) lrow[row_b] = m[1] + logf(l[1]);
+  }
+}
+
+// Shared memory of attn_fwd_3pass<HD>: the hi and lo halves of the Q, K
+// and V tiles.
+constexpr int fwd_3pass_smem(int hd) {
+  return 6 * kBlockN * (hd + 8) * 2;
+}
+
+// attn_fwd_3pass at head dim 16 or 64; cudaErrorInvalidValue for another.
+int launch_3pass(int head_dim, int batch, int seq, int valid_len, int heads,
+                 const float* q, const float* k, const float* v, float* out,
+                 float* lse, Layout in, Layout ol, float scale,
+                 cudaStream_t st) {
+  const dim3 grid((seq + kBlockM - 1) / kBlockM, heads, batch);
+  if (head_dim == 16) {
+    attn_fwd_3pass<16><<<grid, 128, fwd_3pass_smem(16), st>>>(
+        q, k, v, out, lse, seq, valid_len, in, ol, scale);
+    note_launch();
+  } else if (head_dim == 64) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        attn_fwd_3pass<64>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        fwd_3pass_smem(64));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attn_fwd_3pass<64><<<grid, 128, fwd_3pass_smem(64), st>>>(
+        q, k, v, out, lse, seq, valid_len, in, ol, scale);
+    note_launch();
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // qkv: [batch, seq, ld] elements, out: [batch, seq, out_ld]; the q/k/v
@@ -647,4 +820,31 @@ extern "C" int aaclip_attention_bhsd(const void* q, const void* k,
   }
   return launch_retained(bf16 != 0, head_dim, batch, seq, valid_len, heads, q,
                          k, v, out, nullptr, l, l, scale, st);
+}
+
+// The 3-pass mode (fp32 under precision "high") of aaclip_attention_packed:
+// the same operands in fp32, attn_fwd_3pass at head dim 16 or 64.
+extern "C" int aaclip_attention_packed_3pass(
+    const float* qkv, float* out, float* lse, int head_dim, int batch,
+    int seq, int valid_len, int heads, long long ld, int q_off, int k_off,
+    int v_off, long long out_ld, float scale, void* stream) {
+  const Layout in{(int64_t)seq * ld, head_dim, ld};
+  const Layout ol{(int64_t)seq * out_ld, head_dim, out_ld};
+  return launch_3pass(head_dim, batch, seq, valid_len, heads, qkv + q_off,
+                      qkv + k_off, qkv + v_off, out, lse, in, ol, scale,
+                      static_cast<cudaStream_t>(stream));
+}
+
+// The 3-pass mode of aaclip_attention_bhsd on fp32 [batch, heads, seq,
+// head_dim] operands.
+extern "C" int aaclip_attention_bhsd_3pass(const float* q, const float* k,
+                                           const float* v, float* out,
+                                           int head_dim, int batch, int seq,
+                                           int valid_len, int heads,
+                                           float scale, void* stream) {
+  const int64_t hs = (int64_t)seq * head_dim;
+  const Layout l{heads * hs, hs, head_dim};
+  return launch_3pass(head_dim, batch, seq, valid_len, heads, q, k, v, out,
+                      nullptr, l, l, scale,
+                      static_cast<cudaStream_t>(stream));
 }

@@ -1031,6 +1031,309 @@ int launch_retained(int batch, int seq, int heads, cudaStream_t st,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------ fp32, 3-pass ("high")
+
+// The backward under the JAX package's precision "high" on fp32 inputs,
+// as _packed_bwd_kernel computes it there: dO is consumed in fp32
+// (do.astype(v.dtype)), P = exp(s - lse) and dS = P * (dP - dsum) * scale
+// stay fp32 (the casts to the input dtype are no-ops), and each of the
+// products S = Q K^T, dP = dO V^T, dV = P^T dO, dQ = dS K and dK = dS^T Q
+// is _kdot's three bf16 products hi.hi + hi.lo + lo.hi of the operands'
+// halves (mma3, mma_common.cuh) into one fp32 accumulator. The same two
+// deterministic kernels as the retained mma.sync pair (64-row blocks of 4
+// warps, 64-row tiles, walks 1 and 2 for dsum and dQ, then dK/dV key-outer;
+// no atomics, every output written once), with every fp32 tile split into
+// its bf16 hi and lo halves as it is staged into shared memory; the A
+// fragments of the block's own rows are read from shared memory per
+// k-step, not held, to leave registers to the accumulators. Outputs fp32.
+// What bounds it: three bf16 products per product, 3 x 10*B*H*S^2*hd FLOP
+// of the TPU kernel's five products (461.5 GFLOP at the step's batch 8),
+// on the tensor cores.
+
+constexpr int k3Tiles = 8;  // hi and lo of four [64, HD] tiles
+
+constexpr int bwd_3pass_smem(int hd) {
+  return k3Tiles * kTile * (hd + 8) * 2;
+}
+
+// P (masked, from lse) and dP, fp32, for one warp's 16 rows (r0, r0 + 8)
+// against a 64-row tile: the A operands are rows of (ah, al) and (dah,
+// dal), the B operands rows of (bh, bl) and (dbh, dbl), all hi/lo tiles in
+// shared memory; `keep(i, col)` masks accumulator element i of tile column
+// col, `lse_of(i, col)` gives its logsumexp.
+template <int HD, typename Mask, typename Lse>
+__device__ __forceinline__ void probs_and_dp_3pass(
+    float (&p)[kTile / 8][4], float (&dp)[kTile / 8][4],
+    const __nv_bfloat16* ah, const __nv_bfloat16* al,
+    const __nv_bfloat16* dah, const __nv_bfloat16* dal,
+    const __nv_bfloat16* bh, const __nv_bfloat16* bl,
+    const __nv_bfloat16* dbh, const __nv_bfloat16* dbl, int r0, int g,
+    int t, float scale, Mask keep, Lse lse_of) {
+  constexpr int SLD = HD + 8;
+  constexpr int NT = kTile / 8;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) p[nt][i] = dp[nt][i] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < HD / 16; ++ks) {
+    uint32_t fh[1][4], fl[1][4], dfh[1][4], dfl[1][4];
+    load_a_frags<1, SLD>(fh, ah + ks * 16, r0, t);
+    load_a_frags<1, SLD>(fl, al + ks * 16, r0, t);
+    load_a_frags<1, SLD>(dfh, dah + ks * 16, r0, t);
+    load_a_frags<1, SLD>(dfl, dal + ks * 16, r0, t);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      mma3_bt<SLD>(p[nt], fh[0], fl[0], bh, bl, nt, ks, g, t);
+      mma3_bt<SLD>(dp[nt], dfh[0], dfl[0], dbh, dbl, nt, ks, g, t);
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int col = nt * 8 + t * 2 + (i & 1);
+      p[nt][i] = keep(i, col)
+                     ? expf(__fmul_rn(p[nt][i], scale) - lse_of(i, col))
+                     : 0.f;
+    }
+}
+
+// acc[nd] += V . B for C-layout fp32 values V [16 x 64] (split into hi and
+// lo A fragments here) and B the row-major [64 x HD] tile (bh, bl).
+template <int HD>
+__device__ __forceinline__ void mma3_tile_rows(float (&acc)[HD / 8][4],
+                                               const float (&v)[kTile / 8][4],
+                                               const __nv_bfloat16* bh,
+                                               const __nv_bfloat16* bl,
+                                               int g, int t) {
+  uint32_t fh[kTile / 16][4], fl[kTile / 16][4];
+  split_a_frags<kTile / 8>(fh, fl, v);
+#pragma unroll
+  for (int kk = 0; kk < kTile / 16; ++kk)
+#pragma unroll
+    for (int nd = 0; nd < HD / 8; ++nd)
+      mma3_b<HD + 8>(acc[nd], fh[kk], fl[kk], bh, bl, kk, nd, g, t);
+}
+
+template <int HD>
+__device__ __forceinline__ void store_rows_f32(float* dst, int64_t ld,
+                                               const float (&acc)[HD / 8][4],
+                                               int row_a, int S, int t) {
+#pragma unroll
+  for (int nd = 0; nd < HD / 8; ++nd) {
+    if (row_a < S)
+      *reinterpret_cast<float2*>(dst + (int64_t)row_a * ld + nd * 8 + t * 2) =
+          make_float2(acc[nd][0], acc[nd][1]);
+    if (row_a + 8 < S)
+      *reinterpret_cast<float2*>(dst + (int64_t)(row_a + 8) * ld + nd * 8 +
+                                 t * 2) = make_float2(acc[nd][2], acc[nd][3]);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(128)
+attn_bwd_dq_3pass(const float* __restrict__ qkv,
+                  const float* __restrict__ dout,
+                  const float* __restrict__ lse, float* __restrict__ dsum,
+                  float* __restrict__ dqkv, int S, int valid_len, int64_t ld,
+                  int q_off, int k_off, int v_off, int64_t do_ld,
+                  float scale) {
+  static_assert(HD % 16 == 0, "head dim must be a multiple of 16");
+  constexpr int SLD = HD + 8;
+  constexpr int NT = kTile / 8;
+  constexpr int T = kTile * SLD;
+  extern __shared__ __align__(16) uint8_t smem3_raw[];
+  __nv_bfloat16* sQh = reinterpret_cast<__nv_bfloat16*>(smem3_raw);
+  __nv_bfloat16 *sQl = sQh + T, *sdOh = sQl + T, *sdOl = sdOh + T;
+  __nv_bfloat16 *sKh = sdOl + T, *sKl = sKh + T, *sVh = sKl + T,
+                *sVl = sVh + T;
+
+  const int q0 = blockIdx.x * kTile;
+  const int hoff = blockIdx.y * HD;
+  const int64_t img = blockIdx.z;
+  const float* base = qkv + img * S * ld;
+  const int64_t lrow = (img * gridDim.y + blockIdx.y) * S;
+  const int warp = threadIdx.x >> 5;
+  const int g = (threadIdx.x & 31) >> 2;
+  const int t = threadIdx.x & 3;
+  const int r0 = warp * 16 + g;
+  const int row_a = q0 + r0;
+
+  load_split_tile<HD, SLD, kTile>(sQh, sQl, base + q_off + hoff, ld, q0, S);
+  load_split_tile<HD, SLD, kTile>(sdOh, sdOl, dout + img * S * do_ld + hoff,
+                                  do_ld, q0, S);
+  const float lse_r[2] = {row_a < S ? lse[lrow + row_a] : INFINITY,
+                          row_a + 8 < S ? lse[lrow + row_a + 8] : INFINITY};
+  auto lse_of = [&](int i, int) { return lse_r[i >> 1]; };
+
+  const int n_tiles = (valid_len + kTile - 1) / kTile;
+  float p[NT][4], dp[NT][4];
+  // walk 1: dsum = rowsum(dP * P)
+  float ds_row[2] = {0.f, 0.f};
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * kTile;
+    __syncthreads();
+    load_split_tile<HD, SLD, kTile>(sKh, sKl, base + k_off + hoff, ld, k0,
+                                    S);
+    load_split_tile<HD, SLD, kTile>(sVh, sVl, base + v_off + hoff, ld, k0,
+                                    S);
+    __syncthreads();
+    probs_and_dp_3pass<HD>(p, dp, sQh, sQl, sdOh, sdOl, sKh, sKl, sVh, sVl,
+                           r0, g, t, scale,
+                           [&](int, int col) { return k0 + col < valid_len; },
+                           lse_of);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) ds_row[i >> 1] += dp[nt][i] * p[nt][i];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    ds_row[r] += __shfl_xor_sync(0xffffffffu, ds_row[r], 1);
+    ds_row[r] += __shfl_xor_sync(0xffffffffu, ds_row[r], 2);
+  }
+  if (t == 0) {
+    if (row_a < S) dsum[lrow + row_a] = ds_row[0];
+    if (row_a + 8 < S) dsum[lrow + row_a + 8] = ds_row[1];
+  }
+
+  // walk 2: dQ = dS K
+  float dq[HD / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < HD / 8; ++nd)
+    dq[nd][0] = dq[nd][1] = dq[nd][2] = dq[nd][3] = 0.f;
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * kTile;
+    __syncthreads();
+    load_split_tile<HD, SLD, kTile>(sKh, sKl, base + k_off + hoff, ld, k0,
+                                    S);
+    load_split_tile<HD, SLD, kTile>(sVh, sVl, base + v_off + hoff, ld, k0,
+                                    S);
+    __syncthreads();
+    probs_and_dp_3pass<HD>(p, dp, sQh, sQl, sdOh, sdOl, sKh, sKl, sVh, sVl,
+                           r0, g, t, scale,
+                           [&](int, int col) { return k0 + col < valid_len; },
+                           lse_of);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        p[nt][i] = p[nt][i] * (dp[nt][i] - ds_row[i >> 1]) * scale;
+    mma3_tile_rows<HD>(dq, p, sKh, sKl, g, t);
+  }
+  store_rows_f32<HD>(dqkv + img * S * ld + q_off + hoff, ld, dq, row_a, S,
+                     t);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(128)
+attn_bwd_dkdv_3pass(const float* __restrict__ qkv,
+                    const float* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ dsum,
+                    float* __restrict__ dqkv, int S, int valid_len,
+                    int64_t ld, int q_off, int k_off, int v_off,
+                    int64_t do_ld, float scale) {
+  static_assert(HD % 16 == 0, "head dim must be a multiple of 16");
+  constexpr int SLD = HD + 8;
+  constexpr int NT = kTile / 8;
+  constexpr int T = kTile * SLD;
+  extern __shared__ __align__(16) uint8_t smem3_raw[];
+  __nv_bfloat16* sKh = reinterpret_cast<__nv_bfloat16*>(smem3_raw);
+  __nv_bfloat16 *sKl = sKh + T, *sVh = sKl + T, *sVl = sVh + T;
+  __nv_bfloat16 *sQh = sVl + T, *sQl = sQh + T, *sdOh = sQl + T,
+                *sdOl = sdOh + T;
+  __shared__ float sLse[kTile];
+  __shared__ float sDsum[kTile];
+
+  const int kv0 = blockIdx.x * kTile;
+  const int hoff = blockIdx.y * HD;
+  const int64_t img = blockIdx.z;
+  const float* base = qkv + img * S * ld;
+  const float* dob = dout + img * S * do_ld + hoff;
+  const int64_t lrow = (img * gridDim.y + blockIdx.y) * S;
+  const int warp = threadIdx.x >> 5;
+  const int g = (threadIdx.x & 31) >> 2;
+  const int t = threadIdx.x & 3;
+  const int r0 = warp * 16 + g;
+  const int row_a = kv0 + r0;
+
+  float dk[HD / 8][4], dv[HD / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < HD / 8; ++nd)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dk[nd][i] = dv[nd][i] = 0.f;
+
+  if (kv0 < valid_len) {  // a tile wholly past valid_len has zero grads
+    load_split_tile<HD, SLD, kTile>(sKh, sKl, base + k_off + hoff, ld, kv0,
+                                    S);
+    load_split_tile<HD, SLD, kTile>(sVh, sVl, base + v_off + hoff, ld, kv0,
+                                    S);
+    const bool keep_r[2] = {row_a < valid_len, row_a + 8 < valid_len};
+    float p[NT][4], dp[NT][4];
+    for (int q0 = 0; q0 < S; q0 += kTile) {
+      __syncthreads();
+      load_split_tile<HD, SLD, kTile>(sQh, sQl, base + q_off + hoff, ld, q0,
+                                      S);
+      load_split_tile<HD, SLD, kTile>(sdOh, sdOl, dob, do_ld, q0, S);
+      for (int i = threadIdx.x; i < kTile; i += blockDim.x) {
+        sLse[i] = q0 + i < S ? lse[lrow + q0 + i] : INFINITY;
+        sDsum[i] = q0 + i < S ? dsum[lrow + q0 + i] : 0.f;
+      }
+      __syncthreads();
+      // P^T and dP^T: rows are this block's keys, columns the tile's
+      // queries
+      probs_and_dp_3pass<HD>(p, dp, sKh, sKl, sVh, sVl, sQh, sQl, sdOh,
+                             sdOl, r0, g, t, scale,
+                             [&](int i, int) { return keep_r[i >> 1]; },
+                             [&](int, int col) { return sLse[col]; });
+      mma3_tile_rows<HD>(dv, p, sdOh, sdOl, g, t);  // P^T dO
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int col = nt * 8 + t * 2 + (i & 1);
+          p[nt][i] = p[nt][i] * (dp[nt][i] - sDsum[col]) * scale;
+        }
+      mma3_tile_rows<HD>(dk, p, sQh, sQl, g, t);  // dS^T Q
+    }
+  }
+  float* out = dqkv + img * S * ld;
+  store_rows_f32<HD>(out + k_off + hoff, ld, dk, row_a, S, t);
+  store_rows_f32<HD>(out + v_off + hoff, ld, dv, row_a, S, t);
+}
+
+// The 3-pass pair at head dim HD.
+template <int HD>
+int launch_3pass(int batch, int seq, int heads, cudaStream_t st,
+                 const float* qkv, const float* dout, const float* lse,
+                 float* dsum, float* dqkv, int valid_len, int64_t ld,
+                 int q_off, int k_off, int v_off, int64_t do_ld,
+                 float scale) {
+  constexpr int smem = bwd_3pass_smem(HD);
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_bwd_dq_3pass<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(attn_bwd_dkdv_3pass<HD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((seq + kTile - 1) / kTile, heads, batch);
+  attn_bwd_dq_3pass<HD><<<grid, 128, smem, st>>>(
+      qkv, dout, lse, dsum, dqkv, seq, valid_len, ld, q_off, k_off, v_off,
+      do_ld, scale);
+  note_launch();
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  attn_bwd_dkdv_3pass<HD><<<grid, 128, smem, st>>>(
+      qkv, dout, lse, dsum, dqkv, seq, valid_len, ld, q_off, k_off, v_off,
+      do_ld, scale);
+  note_launch();
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // qkv and d_qkv: [batch, seq, ld] elements, the q/k/v sections of head h at
@@ -1062,5 +1365,25 @@ extern "C" int aaclip_attention_packed_bwd(
     return launch_retained<64, false>(batch, seq, heads, st, qkv, d_out, lse,
                                       dsum, d_qkv, valid_len, ld, q_off,
                                       k_off, v_off, do_ld, scale);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The 3-pass mode (fp32 under precision "high") of
+// aaclip_attention_packed_bwd: the same operands in fp32, the lse of the
+// forward's 3-pass mode, the 3-pass pair at head dim 16 or 64.
+extern "C" int aaclip_attention_packed_bwd_3pass(
+    const float* qkv, const float* d_out, const float* lse, float* dsum,
+    float* d_qkv, int head_dim, int batch, int seq, int valid_len, int heads,
+    long long ld, int q_off, int k_off, int v_off, long long do_ld,
+    float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (head_dim == 16)
+    return launch_3pass<16>(batch, seq, heads, st, qkv, d_out, lse, dsum,
+                            d_qkv, valid_len, ld, q_off, k_off, v_off, do_ld,
+                            scale);
+  if (head_dim == 64)
+    return launch_3pass<64>(batch, seq, heads, st, qkv, d_out, lse, dsum,
+                            d_qkv, valid_len, ld, q_off, k_off, v_off, do_ld,
+                            scale);
   return static_cast<int>(cudaErrorInvalidValue);
 }

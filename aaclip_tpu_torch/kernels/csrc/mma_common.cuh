@@ -71,4 +71,98 @@ __device__ __forceinline__ void load_tile(T* smem, const T* src, int64_t ld,
   }
 }
 
+// ---------------------------------------------- the 3-pass ("high") mode
+// The JAX package's _kdot under precision "high" (XLA's F32_AS_3BF16): an
+// fp32 operand x is split into bf16 halves hi = bf16(x), lo = bf16(x - hi)
+// (x - hi is exact in fp32), and a product is hi.hi + hi.lo + lo.hi of the
+// halves, each on the bf16 tensor cores with fp32 accumulation; the
+// dropped lo.lo term and lo's own rounding leave about 2^-16 relative.
+
+// Two fp32 values as the packed bf16 pairs of their hi and lo halves.
+__device__ __forceinline__ void split_pack(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat16 h0 = __float2bfloat16_rn(x0);
+  const __nv_bfloat16 h1 = __float2bfloat16_rn(x1);
+  hi = pack_bf16(h0, h1);
+  lo = pack_f32(x0 - __bfloat162float(h0), x1 - __bfloat162float(h1));
+}
+
+// d += a . b in three passes: a's and b's hi and lo fragments (layouts as
+// mma_bf16_16816), hi.hi, then hi.lo, then lo.hi into one fp32
+// accumulator.
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], uint32_t bh0,
+                                     uint32_t bh1, uint32_t bl0,
+                                     uint32_t bl1) {
+  mma_bf16_16816(d, ah, bh0, bh1);
+  mma_bf16_16816(d, ah, bl0, bl1);
+  mma_bf16_16816(d, al, bh0, bh1);
+}
+
+// C-layout fp32 values [16 x 8*NT] as the hi and lo A fragments of a
+// product over them: two adjacent n-tiles form one 16-wide k-step.
+template <int NT>
+__device__ __forceinline__ void split_a_frags(uint32_t (&hi)[NT / 2][4],
+                                              uint32_t (&lo)[NT / 2][4],
+                                              const float (&v)[NT][4]) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int j = (nt & 1) * 2;
+    split_pack(v[nt][0], v[nt][1], hi[nt >> 1][j], lo[nt >> 1][j]);
+    split_pack(v[nt][2], v[nt][3], hi[nt >> 1][j + 1], lo[nt >> 1][j + 1]);
+  }
+}
+
+// Copy a [kRows, HD] fp32 tile starting at row `row0` (row stride `ld`
+// elements) into shared memory as its bf16 hi and lo halves (row stride
+// SLD), 16 bytes read per thread and step; rows >= S are zeros.
+template <int HD, int SLD, int kRows>
+__device__ __forceinline__ void load_split_tile(__nv_bfloat16* hi,
+                                                __nv_bfloat16* lo,
+                                                const float* src, int64_t ld,
+                                                int row0, int S) {
+  constexpr int kPerRow = HD / 4;
+  for (int i = threadIdx.x; i < kRows * kPerRow; i += blockDim.x) {
+    const int r = i / kPerRow;
+    const int c = (i % kPerRow) * 4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row0 + r < S)
+      v = *reinterpret_cast<const float4*>(src + (int64_t)(row0 + r) * ld +
+                                           c);
+    uint2 h, l;
+    split_pack(v.x, v.y, h.x, l.x);
+    split_pack(v.z, v.w, h.y, l.y);
+    *reinterpret_cast<uint2*>(hi + r * SLD + c) = h;
+    *reinterpret_cast<uint2*>(lo + r * SLD + c) = l;
+  }
+}
+
+// The B fragments (hi and lo) at k-step ks of n-tile nt of B = T^T for a
+// row-major [n rows x k] tile T (row stride SLD): a product A . T^T.
+template <int SLD>
+__device__ __forceinline__ void mma3_bt(float (&d)[4], const uint32_t (&ah)[4],
+                                        const uint32_t (&al)[4],
+                                        const __nv_bfloat16* th,
+                                        const __nv_bfloat16* tl, int nt,
+                                        int ks, int g, int t) {
+  const int off = (nt * 8 + g) * SLD + ks * 16 + t * 2;
+  mma3(d, ah, al, ld32(th + off), ld32(th + off + 8), ld32(tl + off),
+       ld32(tl + off + 8));
+}
+
+// The same for B = T, a row-major [k rows x n] tile: a product A . T at
+// k-step kk of n-tile nd.
+template <int SLD>
+__device__ __forceinline__ void mma3_b(float (&d)[4], const uint32_t (&ah)[4],
+                                       const uint32_t (&al)[4],
+                                       const __nv_bfloat16* th,
+                                       const __nv_bfloat16* tl, int kk,
+                                       int nd, int g, int t) {
+  const int off = (kk * 16 + t * 2) * SLD + nd * 8 + g;
+  const __nv_bfloat16* h = th + off;
+  const __nv_bfloat16* l = tl + off;
+  mma3(d, ah, al, pack_bf16(h[0], h[SLD]), pack_bf16(h[8 * SLD], h[9 * SLD]),
+       pack_bf16(l[0], l[SLD]), pack_bf16(l[8 * SLD], l[9 * SLD]));
+}
+
 }  // namespace aaclip

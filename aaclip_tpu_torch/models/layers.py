@@ -6,8 +6,10 @@ package stores ``[in, out]``; ``core/params.py::params_from_jax``
 transposes). Numerics follow the JAX package:
  * LayerNorm eps 1e-5, biased variance, fp32 statistics;
  * erf GELU on the fp32 parity policy, tanh GELU on the bf16 fast path;
- * every matmul accumulates in fp32 and returns fp32 (``matmul_f32``);
-   biases are added in fp32 before any cast back to the compute dtype;
+ * every matmul accumulates in fp32 and returns fp32 (``matmul_f32``),
+   fp32 products under the policy's precision "high" as three bf16
+   products (``matmul``, ``matmul_3pass``); biases are added in fp32
+   before any cast back to the compute dtype;
  * pre-LN residual blocks with packed-QKV multi-head attention, and the
    CLIP-Surgery "V-V" variant whose queries and keys are the values.
 """
@@ -132,12 +134,83 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _MatmulF32.apply(a, b)
 
 
+def _split_bf16(x: torch.Tensor):
+    """fp32 ``x`` as bf16 ``hi + lo``: ``hi = bf16(x)``, ``lo = bf16(x -
+    hi)`` (the difference is exact in fp32)."""
+    hi = x.to(torch.bfloat16)
+    return hi, (x - hi.float()).to(torch.bfloat16)
+
+
+def _mm_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """bf16 ``a @ b`` with fp32 output, outside autograd: cuBLAS on the
+    card (``_mm_f32``); on the CPU the bf16 values multiplied in fp32 (a
+    bf16 x bf16 product is exact in fp32)."""
+    if a.device.type == "cuda":
+        return _mm_f32(a, b)
+    return torch.matmul(a.float(), b.float())
+
+
+def _mm_3pass(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    ah, al = _split_bf16(a)
+    bh, bl = _split_bf16(b)
+    return _mm_bf16(ah, bh) + (_mm_bf16(ah, bl) + _mm_bf16(al, bh))
+
+
+class _Matmul3Pass(torch.autograd.Function):
+    """``matmul_3pass`` with its transpose at the same precision: JAX
+    transposes a precision-"high" ``dot`` into "high" dots, so dA = g·Bᵀ
+    and dB = Aᵀ·g are each 3-pass on the fp32 cotangent (autograd through
+    the bf16 casts would round the cotangent to bf16)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        need_a, need_b = ctx.needs_input_grad
+        ctx.save_for_backward(a if need_b else None, b if need_a else None)
+        ctx.b_2d = b.dim() == 2
+        return _mm_3pass(a, b)
+
+    @staticmethod
+    def backward(ctx, grad):
+        a, b = ctx.saved_tensors
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = _mm_3pass(grad, b.transpose(-1, -2))
+        if ctx.needs_input_grad[1]:
+            if ctx.b_2d:
+                db = _mm_3pass(a.reshape(-1, a.shape[-1]).t(),
+                               grad.reshape(-1, grad.shape[-1]))
+            else:
+                db = _mm_3pass(a.transpose(-1, -2), grad)
+        return da, db
+
+
+def matmul_3pass(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """fp32 ``a @ b`` as three bf16 products summed in fp32, ``hi·hi +
+    (hi·lo + lo·hi)``: XLA's F32_AS_3BF16, the JAX package's precision
+    "high" (about 1e-5 relative, where one bf16 pass is 4e-3). On the card
+    each product is a cuBLAS bf16 GEMM with fp32 output; on the CPU the
+    same split with fp32 products. ``b`` is 2-D or batched like ``a``.
+    Differentiable, its gradients 3-pass too (``_Matmul3Pass``)."""
+    return _Matmul3Pass.apply(a.float(), b.float())
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor,
+           precision: str | None = "highest") -> torch.Tensor:
+    """``a @ b`` accumulated in fp32 and returned in fp32 at the JAX
+    package's ``precision``: fp32 operands under "high" take
+    ``matmul_3pass``; everything else ``matmul_f32`` (true fp32 for fp32
+    operands, bf16 operands single-pass)."""
+    if precision == "high" and a.dtype == b.dtype == torch.float32:
+        return matmul_3pass(a, b)
+    return matmul_f32(a, b)
+
+
 def linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
            policy: DtypePolicy = DtypePolicy()) -> torch.Tensor:
     """``x @ weight.T (+ bias)`` in the policy's compute dtype with fp32
-    accumulation; returns fp32."""
+    accumulation at the policy's precision (``matmul``); returns fp32."""
     cd = policy.compute_dtype
-    y = matmul_f32(x.to(cd), weight.to(cd).t())
+    y = matmul(x.to(cd), weight.to(cd).t(), policy.precision)
     if bias is not None:
         y = y + bias.float()
     return y
@@ -191,11 +264,13 @@ def _attention(x: torch.Tensor, p: PackedAttention, num_heads: int, *,
         qkv = linear(x, p.in_proj_weight, p.in_proj_bias, policy)
         qkv = qkv.reshape(B, L, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0], qkv[1], qkv[2]
-    scores = matmul_f32(q.to(cd), k.to(cd).transpose(-1, -2)) * hd ** -0.5
+    prec = policy.precision
+    scores = matmul(q.to(cd), k.to(cd).transpose(-1, -2), prec) \
+        * hd ** -0.5
     if mask is not None:
         scores = scores + mask
     probs = torch.softmax(scores, dim=-1)
-    out = matmul_f32(probs.to(cd), v.to(cd))
+    out = matmul(probs.to(cd), v.to(cd), prec)
     out = out.transpose(1, 2).reshape(B, L, D)
     out = linear(out, p.out_proj.weight, p.out_proj.bias, policy)
     return out.to(x.dtype)
@@ -242,12 +317,13 @@ def attention_vv_batch(x: torch.Tensor, p: PackedAttention, num_heads: int,
     cd = policy.compute_dtype
     v = linear(x, p.in_proj_weight[2 * D:], p.in_proj_bias[2 * D:], policy)
     v = v.reshape(B, L, num_heads, hd).permute(1, 2, 0, 3).to(cd)  # [L,H,B,hd]
-    scores = matmul_f32(v, v.transpose(-1, -2)) * hd ** -0.5
+    prec = policy.precision
+    scores = matmul(v, v.transpose(-1, -2), prec) * hd ** -0.5
     if valid is not None:
         keep = torch.as_tensor(valid, device=x.device).bool()
         scores = torch.where(keep, scores, torch.full_like(scores, -1e30))
     probs = torch.softmax(scores, dim=-1)
-    out = matmul_f32(probs.to(cd), v)                          # [L,H,B,hd]
+    out = matmul(probs.to(cd), v, prec)                        # [L,H,B,hd]
     out = out.permute(2, 0, 1, 3).reshape(B, L, D)
     out = linear(out, p.out_proj.weight, p.out_proj.bias, policy)
     return out.to(x.dtype)

@@ -114,8 +114,8 @@ def encode_text(text_w: TextTransformer, cfg: CLIPConfig, text: torch.Tensor,
     x = _trunk(text_w, cfg, text, policy=policy, act=act)
     pooled = _eot_pool(x, text)
     cd = policy.compute_dtype
-    return L.matmul_f32(pooled.to(cd),
-                        text_w.text_projection.to(cd)).to(x.dtype)
+    return L.matmul(pooled.to(cd), text_w.text_projection.to(cd),
+                    policy.precision).to(x.dtype)
 
 
 def adapted_encode_text(text_w: TextTransformer, adapter: TextAdapter,

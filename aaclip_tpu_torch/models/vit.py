@@ -73,7 +73,7 @@ def embed(vit: VisionTransformer, cfg: CLIPConfig, images: torch.Tensor,
         x = patch_embed_fn(images)
     else:
         x = patchify(images, vit.conv1.weight.t(), cfg.vision.patch_size,
-                     policy.compute_dtype)
+                     policy.compute_dtype, policy.precision)
     x = x.to(policy.compute_dtype)
     cls = vit.class_embedding.to(x.dtype).expand(x.shape[0], 1, -1)
     x = torch.cat([cls, x], dim=1)
@@ -97,6 +97,15 @@ def run_blocks(x: torch.Tensor, vit: VisionTransformer, cfg: CLIPConfig,
     return x
 
 
+def staged_depth(policy: DtypePolicy, layers: int) -> int:
+    """How many leading blocks run under ``policy.prefix_policy()``: the
+    policy's ``bf16_until``, at most the depth, and only when its compute
+    dtype is 4 bytes (the JAX package's ``_trunk_with_taps``)."""
+    if policy.bf16_until and policy.compute_dtype.itemsize >= 4:
+        return min(policy.bf16_until, layers)
+    return 0
+
+
 def trunk_taps(vit: VisionTransformer, cfg: CLIPConfig, images: torch.Tensor,
                out_layers: Sequence[int], *, adapters: ImageAdapter | None,
                adapt_weight: float, act, policy: DtypePolicy, attn_fn=None,
@@ -107,6 +116,13 @@ def trunk_taps(vit: VisionTransformer, cfg: CLIPConfig, images: torch.Tensor,
     adapters remain; blocks past the deepest tap are not run. ``attn_fn``
     None means the packed-attention kernel hook (``L.residual_block``);
     ``block_fn`` replaces each whole block (inference only).
+
+    ``policy.bf16_until`` stages the first ``staged_depth`` blocks, their
+    adapters included, at ``policy.prefix_policy()`` (single-pass bf16
+    products) with that policy's kernel hook (the bf16 kernel), whatever
+    ``attn_fn`` is, as JAX's predictor builds its prefix hook; the
+    residual stream, LayerNorm statistics, the blends and every later block
+    keep ``policy``.
 
     ``remat=True`` runs each block (with its adapter blend) under
     ``torch.utils.checkpoint``, as the JAX package wraps each block in
@@ -130,13 +146,15 @@ def trunk_taps(vit: VisionTransformer, cfg: CLIPConfig, images: torch.Tensor,
         raise ValueError(
             f"tap depths {bad} out of range for a {v.layers}-layer tower")
     x = embed(vit, cfg, images, policy, patch_embed_fn)
+    stage_k = staged_depth(policy, v.layers)
+    prefix = policy.prefix_policy() if stage_k else policy
 
     def block(x, i):
-        x = L.residual_block(x, vit.blocks[i], v.heads, act=act,
-                             policy=policy, attn_fn=attn_fn,
-                             block_fn=block_fn)
+        pol, hook = (prefix, None) if i < stage_k else (policy, attn_fn)
+        x = L.residual_block(x, vit.blocks[i], v.heads, act=act, policy=pol,
+                             attn_fn=hook, block_fn=block_fn)
         if i < n_adapt:
-            a = L.simple_adapter(x, adapters.layer_adapters[i].weight, policy)
+            a = L.simple_adapter(x, adapters.layer_adapters[i].weight, pol)
             x = L.norm_matched_blend(x, a, adapt_weight)
         return x
 
@@ -162,7 +180,7 @@ def adapted_forward(vit: VisionTransformer, adapter: ImageAdapter,
     """AdaptedCLIP image forward: ``(seg_tokens, det_token)``, a list of
     L2-normalised per-level patch embeddings [B, num_patches, embed_dim]
     (fp32) and the pooled detection embedding [B, embed_dim] (fp32).
-    ``block_fn`` and ``remat`` as in ``trunk_taps``."""
+    ``block_fn``, ``remat`` and the staged blocks as in ``trunk_taps``."""
     if act is None:
         act = L.config_act(cfg, policy)
     taps = trunk_taps(vit, cfg, images, levels, adapters=adapter,
@@ -196,7 +214,8 @@ def encode_image(vit: VisionTransformer, cfg: CLIPConfig,
     stream's dtype), and the residual stream [B, 1 + num_patches, width]
     after each 1-indexed depth in ``out_layers``. Blocks with index >=
     ``vv_start`` (0-indexed) run in the V-V form. Hooks and block overrides
-    as in ``L.residual_block``."""
+    as in ``L.residual_block``; ``policy.bf16_until`` stages the leading
+    standard blocks as in ``trunk_taps`` (a V-V block is never staged)."""
     if act is None:
         act = L.config_act(cfg, policy)
     v = cfg.vision
@@ -205,15 +224,20 @@ def encode_image(vit: VisionTransformer, cfg: CLIPConfig,
         raise ValueError(
             f"tap depths {bad} out of range for a {v.layers}-layer tower")
     x = embed(vit, cfg, images, policy)
+    stage_k = staged_depth(policy, v.layers)
     taps = {}
     for i in range(v.layers):
-        x = run_blocks(x, vit, cfg, i, i + 1,
-                       vv=vv_start is not None and i >= vv_start, act=act,
-                       policy=policy, attn_fn=attn_fn, vv_attn_fn=vv_attn_fn,
-                       block_fn=block_fn, vv_block_fn=vv_block_fn)
+        vv = vv_start is not None and i >= vv_start
+        staged = i < stage_k and not vv
+        x = run_blocks(x, vit, cfg, i, i + 1, vv=vv, act=act,
+                       policy=policy.prefix_policy() if staged else policy,
+                       attn_fn=None if staged else attn_fn,
+                       vv_attn_fn=vv_attn_fn, block_fn=block_fn,
+                       vv_block_fn=vv_block_fn)
         if i + 1 in out_layers:
             taps[i + 1] = x
     pooled = L.layer_norm(x[:, 0, :], vit.ln_post.weight, vit.ln_post.bias)
     cd = policy.compute_dtype
-    pooled = L.matmul_f32(pooled.to(cd), vit.proj.to(cd)).to(x.dtype)
+    pooled = L.matmul(pooled.to(cd), vit.proj.to(cd),
+                      policy.precision).to(x.dtype)
     return pooled, [taps[l] for l in out_layers]

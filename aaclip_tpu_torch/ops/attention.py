@@ -24,6 +24,17 @@ runs is the route table ``TMA_ROUTES``: bf16 at head dim 64 takes the TMA
 strides must be multiples of ``TMA_ALIGN`` bytes: the wrappers refuse what
 a map cannot take); bf16 at head dim 16 and fp32 keep the first port's
 mma.sync and fp32 FMA kernels in the same sources.
+
+Precision. Every wrapper and plain version takes the JAX package's
+``precision``, as its kernels do through ``_kdot``: fp32 inputs under
+"high" run the 3-pass mode (``_three_pass``), each product as three bf16
+products hi·hi + hi·lo + lo·hi of the operands' bf16 halves summed in fp32
+(XLA's F32_AS_3BF16), the softmax and P in fp32 and P split too, never
+rounded. On the card that mode is its own kernels (the ``*_3pass`` entry
+points of both sources: mma.sync bf16 tensor-core products from hi/lo
+tiles), counted apart in each wrapper's ``launches_3pass`` beside
+``launches``. bf16 inputs ignore the precision, as ``_kernel_precision``
+does; fp32 under "highest" or None keeps the fp32 FMA kernels.
 """
 
 from __future__ import annotations
@@ -33,7 +44,7 @@ import functools
 import torch
 
 from aaclip_tpu_torch.core.config import DtypePolicy
-from aaclip_tpu_torch.models.layers import linear
+from aaclip_tpu_torch.models.layers import _split_bf16, linear
 
 KERNEL_HEAD_DIMS = (16, 64)  # head dims the kernel is instantiated for
 # (dtype, head dim) pairs on the TMA + wgmma kernels (kTmaHeadDim of
@@ -47,6 +58,25 @@ def _tma_misaligned(*addresses: int) -> bool:
     """Whether any base address or stride, in bytes, is one a TMA tensor
     map cannot take."""
     return any(a % TMA_ALIGN for a in addresses)
+
+
+def _three_pass(dtype: torch.dtype, precision) -> bool:
+    """Whether inputs of ``dtype`` run the 3-pass mode under ``precision``
+    (``flash_attention.py::_kernel_precision``: "high" for 4-byte inputs;
+    bf16 inputs always run single-pass)."""
+    return dtype == torch.float32 and precision == "high"
+
+
+def _kdot(a: torch.Tensor, b: torch.Tensor, three_pass: bool) -> torch.Tensor:
+    """``a @ b`` of fp32 tensors holding the kernel's operands: plain fp32,
+    or with ``three_pass`` as ``_kdot``'s "high" branch computes it, the
+    bf16 halves' products hi·hi + hi·lo + lo·hi summed in fp32 in that
+    order (each product exact in fp32)."""
+    if not three_pass:
+        return torch.matmul(a, b)
+    ah, al = (t.float() for t in _split_bf16(a))
+    bh, bl = (t.float() for t in _split_bf16(b))
+    return torch.matmul(ah, bh) + torch.matmul(ah, bl) + torch.matmul(al, bh)
 
 
 def _split(x: torch.Tensor, num_heads: int, sections: int = 3):
@@ -65,23 +95,27 @@ def _split(x: torch.Tensor, num_heads: int, sections: int = 3):
 
 
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            valid_len: int, dtype: torch.dtype) -> torch.Tensor:
+            valid_len: int, dtype: torch.dtype,
+            precision=None) -> torch.Tensor:
     """The forward kernel's arithmetic in plain PyTorch on fp32 [B, H, S,
     hd] heads holding ``dtype`` values: fp32 scores, mask, max-subtract,
     exp, fp32 row sum, P cast to ``dtype``, P.V in fp32, one division at
-    the end; fp32 out. Materialises [B, H, S, S]."""
+    the end; fp32 out. In the 3-pass mode both products are ``_kdot``'s
+    three bf16 products and P stays fp32 (split, not rounded).
+    Materialises [B, H, S, S]."""
     S, hd = q.shape[-2:]
-    s = torch.matmul(q, k.transpose(-1, -2)) * hd ** -0.5
+    three = _three_pass(dtype, precision)
+    s = _kdot(q, k.transpose(-1, -2), three) * hd ** -0.5
     if valid_len < S:
         s[..., valid_len:] = float("-inf")
     s = s - s.amax(-1, keepdim=True)
     p = torch.exp(s)
     l = p.sum(-1, keepdim=True)
-    return torch.matmul(p.to(dtype).float(), v) / l
+    return _kdot(p.to(dtype).float(), v, three) / l
 
 
 def _plain(x: torch.Tensor, num_heads: int, valid_len: int,
-           sections: int) -> torch.Tensor:
+           sections: int, precision) -> torch.Tensor:
     """``_attend`` on the heads of a packed projection, written
     token-major [B, S, D] in its dtype."""
     B, S, dm, hd, _, offs = _split(x, num_heads, sections)
@@ -91,63 +125,70 @@ def _plain(x: torch.Tensor, num_heads: int, valid_len: int,
         return sec.transpose(1, 2).float()
 
     q, k, v = (heads(off) for off in offs)
-    o = _attend(q, k, v, valid_len, x.dtype)
+    o = _attend(q, k, v, valid_len, x.dtype, precision)
     return o.transpose(1, 2).reshape(B, S, dm).to(x.dtype)
 
 
 def attention_packed_plain(qkv: torch.Tensor, num_heads: int,
-                           valid_len: int) -> torch.Tensor:
+                           valid_len: int, *,
+                           precision=None) -> torch.Tensor:
     """``attention_packed``'s kernel arithmetic (``_plain``) on a packed
     [B, S, 3*D] qkv."""
-    return _plain(qkv, num_heads, valid_len, 3)
+    return _plain(qkv, num_heads, valid_len, 3, precision)
 
 
 def attention_packed_vv_plain(v: torch.Tensor, num_heads: int,
-                              valid_len: int) -> torch.Tensor:
+                              valid_len: int, *,
+                              precision=None) -> torch.Tensor:
     """``attention_packed_vv``'s kernel arithmetic (``_plain``) on a
     value-only [B, S, D]: softmax(V V^T hd^-1/2) V per head."""
-    return _plain(v, num_heads, valid_len, 1)
+    return _plain(v, num_heads, valid_len, 1, precision)
 
 
 def attention_kernel_plain(q: torch.Tensor, k: torch.Tensor,
-                           v: torch.Tensor, valid_len: int) -> torch.Tensor:
+                           v: torch.Tensor, valid_len: int, *,
+                           precision=None) -> torch.Tensor:
     """``attention_kernel``'s arithmetic (``_attend``) on separate [B, H,
     S, hd] q, k, v; returns [B, H, S, hd] in q's dtype. Keys at or past
     ``valid_len`` are masked; every row is a query."""
-    o = _attend(q.float(), k.float(), v.float(), valid_len, q.dtype)
+    o = _attend(q.float(), k.float(), v.float(), valid_len, q.dtype,
+                precision)
     return o.to(q.dtype)
 
 
 def attention_packed_bwd_plain(qkv: torch.Tensor, d_out: torch.Tensor,
-                               num_heads: int,
-                               valid_len: int) -> torch.Tensor:
+                               num_heads: int, valid_len: int, *,
+                               precision=None) -> torch.Tensor:
     """``d(qkv)`` [B, S, 3*D] in qkv's dtype, step by step as
     ``_packed_bwd_kernel`` computes it: dO cast to the input dtype; fp32
     scores, mask, max-subtract, exp and normalise to P in fp32;
     dV = round(P)^T dO and dP = dO V^T in fp32; dsum = rowsum(dP * P);
     dS = P * (dP - dsum) * scale rounded to the input dtype; dQ = dS K cast
     to the input dtype; dK = dS^T Q. Every product accumulates in fp32 (the
-    rounded operands are exact in fp32) and dK, dV are cast at the end.
-    Materialises several [B, H, S, S] fp32 tensors."""
+    rounded operands are exact in fp32) and dK, dV are cast at the end. In
+    the 3-pass mode (fp32 under "high") each of the five products is
+    ``_kdot``'s three bf16 products, with dO, P and dS fp32 (split, never
+    rounded). Materialises several [B, H, S, S] fp32 tensors."""
     B, S, dm, hd, scale, offs = _split(qkv, num_heads)
     dt = qkv.dtype
+    three = _three_pass(dt, precision)
 
     def heads(t):
         return t.reshape(B, S, num_heads, hd).transpose(1, 2).float()
 
     q, k, v = (heads(qkv[..., off:off + dm]) for off in offs)
     do = heads(d_out.to(dt))
-    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    s = _kdot(q, k.transpose(-1, -2), three) * scale
     if valid_len < S:
         s[..., valid_len:] = float("-inf")
     e = torch.exp(s - s.amax(-1, keepdim=True))
     p = e / e.sum(-1, keepdim=True)
-    dv = torch.matmul(p.to(dt).float().transpose(-1, -2), do)
-    dp = torch.matmul(do, v.transpose(-1, -2))
+    dv = _kdot(p.to(dt).float().transpose(-1, -2), do, three)
+    dp = _kdot(do, v.transpose(-1, -2), three)
     dsum = (dp * p).sum(-1, keepdim=True)
     ds = (p * (dp - dsum) * scale).to(dt).float()
-    dq = torch.matmul(ds, k)
-    dk = torch.matmul(ds.transpose(-1, -2), q)
+    dq = _kdot(ds, k, three)
+    dk = _kdot(ds.transpose(-1, -2), q, three)
     return torch.cat([g.to(dt).transpose(1, 2).reshape(B, S, dm)
                       for g in (dq, dk, dv)], dim=-1)
 
@@ -234,84 +275,130 @@ def _bwd_kernel():
     return fn
 
 
+@functools.cache
+def _kernels_3pass():
+    """The 3-pass entry points of both sources (fp32 only), built on first
+    use: ``(packed forward, [B, H, S, hd] forward, packed backward)``."""
+    import ctypes
+
+    from aaclip_tpu_torch.kernels.build import load
+
+    i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+    fwd = load("attention_packed").aaclip_attention_packed_3pass
+    # qkv, out, lse, head_dim, batch, seq, valid_len, heads, ld, q_off,
+    # k_off, v_off, out_ld, scale, stream
+    fwd.argtypes = [p, p, p, i, i, i, i, i, ll, i, i, i, ll,
+                    ctypes.c_float, p]
+    bhsd = load("attention_packed").aaclip_attention_bhsd_3pass
+    # q, k, v, out, head_dim, batch, seq, valid_len, heads, scale, stream
+    bhsd.argtypes = [p, p, p, p, i, i, i, i, i, ctypes.c_float, p]
+    bwd = load("attention_packed_bwd").aaclip_attention_packed_bwd_3pass
+    # qkv, d_out, lse, dsum, d_qkv, head_dim, batch, seq, valid_len, heads,
+    # ld, q_off, k_off, v_off, do_ld, scale, stream
+    bwd.argtypes = [p, p, p, p, p, i, i, i, i, i, ll, i, i, i, ll,
+                    ctypes.c_float, p]
+    for fn in (fwd, bhsd, bwd):
+        fn.restype = i
+    return fwd, bhsd, bwd
+
+
+def _count(wrapper, three_pass: bool) -> None:
+    """One launch of ``wrapper``'s kernel, and of its 3-pass mode."""
+    wrapper.launches += 1
+    wrapper.launches_3pass += int(three_pass)
+
+
 def _launch_forward(name: str, x: torch.Tensor, num_heads: int,
-                    valid_len: int, sections: int, return_lse: bool):
-    """Launch the forward kernel on a packed [B, S, sections*D] projection
-    on the current stream; returns ``(out, lse or None)``."""
+                    valid_len: int, sections: int, return_lse: bool,
+                    three_pass: bool):
+    """Launch the forward kernel (its 3-pass mode with ``three_pass``) on a
+    packed [B, S, sections*D] projection on the current stream; returns
+    ``(out, lse or None)``."""
     B, S, dm, hd, scale, (q_off, k_off, v_off) = _check_cuda(
         name, x, num_heads, valid_len, sections)
-    launch = _kernel()
     out = torch.empty(B, S, dm, dtype=x.dtype, device=x.device)
     lse = (torch.empty(B, num_heads, S, dtype=torch.float32,
                        device=x.device) if return_lse else None)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = launch(
-            x.data_ptr(), out.data_ptr(),
-            lse.data_ptr() if return_lse else None,
-            int(x.dtype == torch.bfloat16), hd, B, S, valid_len, num_heads,
-            sections * dm, q_off, k_off, v_off, dm, scale, stream)
+        args = (hd, B, S, valid_len, num_heads, sections * dm, q_off, k_off,
+                v_off, dm, scale, stream)
+        lse_ptr = lse.data_ptr() if return_lse else None
+        if three_pass:
+            rc = _kernels_3pass()[0](x.data_ptr(), out.data_ptr(), lse_ptr,
+                                     *args)
+        else:
+            rc = _kernel()(x.data_ptr(), out.data_ptr(), lse_ptr,
+                           int(x.dtype == torch.bfloat16), *args)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     return out, lse
 
 
 def attention_packed(qkv: torch.Tensor, num_heads: int, valid_len: int, *,
-                     return_lse: bool = False):
+                     return_lse: bool = False, precision=None):
     """Attention over the packed projection ``qkv`` [B, S, 3*D] -> [B, S, D].
 
     CPU tensors take ``attention_packed_plain``. CUDA tensors must be
     contiguous bf16 or fp32 with a head dim in ``KERNEL_HEAD_DIMS``; the
     kernel is launched on the current stream and
-    ``attention_packed.launches`` counts each launch. ``return_lse=True``
-    (CUDA only) also returns each row's logsumexp [B, H, S] fp32, which
-    the backward kernel reads."""
+    ``attention_packed.launches`` counts each launch
+    (``launches_3pass`` those of the 3-pass mode, fp32 under "high").
+    ``return_lse=True`` (CUDA only) also returns each row's logsumexp
+    [B, H, S] fp32, which the backward kernel reads."""
     if qkv.device.type == "cpu" and not return_lse:
-        return attention_packed_plain(qkv, num_heads, valid_len)
+        return attention_packed_plain(qkv, num_heads, valid_len,
+                                      precision=precision)
+    three = _three_pass(qkv.dtype, precision)
     out, lse = _launch_forward("attention_packed", qkv, num_heads,
-                               valid_len, 3, return_lse)
-    attention_packed.launches += 1
+                               valid_len, 3, return_lse, three)
+    _count(attention_packed, three)
     return (out, lse) if return_lse else out
 
 
-attention_packed.launches = 0
+attention_packed.launches = attention_packed.launches_3pass = 0
 
 
 def attention_packed_vv(v: torch.Tensor, num_heads: int,
-                        valid_len: int) -> torch.Tensor:
+                        valid_len: int, *, precision=None) -> torch.Tensor:
     """V-V attention over a value-only projection ``v`` [B, S, D] ->
     [B, S, D]: softmax(V V^T hd^-1/2) V per head (``flash_attention.py``'s
     ``attention_packed(vv=True, packed_sections=1)``).
 
     CPU tensors take ``attention_packed_vv_plain``. On CUDA tensors the
-    forward kernel is launched with row stride D and all three section
-    offsets at 0, with no logsumexp: the V-V features are gradient-free.
-    ``attention_packed_vv.launches`` counts these launches apart from
-    ``attention_packed.launches``."""
+    forward kernel (its 3-pass mode for fp32 under "high") is launched with
+    row stride D and all three section offsets at 0, with no logsumexp:
+    the V-V features are gradient-free. ``attention_packed_vv.launches``
+    (and ``launches_3pass``) count these launches apart from
+    ``attention_packed``'s."""
     if v.device.type == "cpu":
-        return attention_packed_vv_plain(v, num_heads, valid_len)
+        return attention_packed_vv_plain(v, num_heads, valid_len,
+                                         precision=precision)
+    three = _three_pass(v.dtype, precision)
     out, _ = _launch_forward("attention_packed_vv", v, num_heads, valid_len,
-                             1, False)
-    attention_packed_vv.launches += 1
+                             1, False, three)
+    _count(attention_packed_vv, three)
     return out
 
 
-attention_packed_vv.launches = 0
+attention_packed_vv.launches = attention_packed_vv.launches_3pass = 0
 
 
 def attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     valid_len: int) -> torch.Tensor:
+                     valid_len: int, *, precision=None) -> torch.Tensor:
     """Attention on separate q, k, v [B, H, S, hd] -> [B, H, S, hd] in q's
     dtype (``flash_attention.py``'s ``attention_kernel``): keys at or past
     ``valid_len`` are masked, every row is computed.
 
     CPU tensors take ``attention_kernel_plain``. On CUDA tensors the
-    forward kernel of ``attention_packed`` is launched with this layout's
-    strides (contiguous operands of one shape, dtype and device, a head dim
-    in ``KERNEL_HEAD_DIMS``); ``attention_kernel.launches`` counts its
+    forward kernel of ``attention_packed`` (its 3-pass mode for fp32 under
+    "high") is launched with this layout's strides (contiguous operands of
+    one shape, dtype and device, a head dim in ``KERNEL_HEAD_DIMS``);
+    ``attention_kernel.launches`` (and ``launches_3pass``) count its
     launches."""
     if q.device.type == "cpu":
-        return attention_kernel_plain(q, k, v, valid_len)
+        return attention_kernel_plain(q, k, v, valid_len,
+                                      precision=precision)
     if q.device.type != "cuda":
         raise ValueError(f"attention_kernel: unsupported device {q.device}")
     if q.dim() != 4 or any(t.shape != q.shape or t.dtype != q.dtype
@@ -336,34 +423,40 @@ def attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"attention_kernel: need batch, heads >= 1 and "
                          f"1 <= valid_len <= S, got B={B}, H={H}, "
                          f"valid_len={valid_len}, S={S}")
-    launch = _bhsd_kernel()
+    three = _three_pass(q.dtype, precision)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    int(q.dtype == torch.bfloat16), hd, B, S, valid_len, H,
-                    hd ** -0.5, stream)
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+        args = (hd, B, S, valid_len, H, hd ** -0.5, stream)
+        if three:
+            rc = _kernels_3pass()[1](*ptrs, *args)
+        else:
+            rc = _bhsd_kernel()(*ptrs, int(q.dtype == torch.bfloat16), *args)
     if rc != 0:
         raise RuntimeError(f"attention_kernel launch failed: CUDA error {rc}")
-    attention_kernel.launches += 1
+    _count(attention_kernel, three)
     return out
 
 
-attention_kernel.launches = 0
+attention_kernel.launches = attention_kernel.launches_3pass = 0
 
 
 def attention_packed_bwd(qkv: torch.Tensor, d_out: torch.Tensor,
                          lse: torch.Tensor | None, num_heads: int,
-                         valid_len: int) -> torch.Tensor:
+                         valid_len: int, *, precision=None) -> torch.Tensor:
     """``d(qkv)`` [B, S, 3*D] from the packed projection, the output
     cotangent ``d_out`` [B, S, D] and the forward's ``lse`` [B, H, S].
 
     CPU tensors take ``attention_packed_bwd_plain`` (``lse`` unused). On
-    CUDA tensors the backward kernel is launched on the current stream and
-    ``attention_packed_bwd.launches`` counts each call (one call launches
-    the kernel's two passes)."""
+    CUDA tensors the backward kernel (its 3-pass mode for fp32 under
+    "high", which takes the 3-pass forward's ``lse``) is launched on the
+    current stream and ``attention_packed_bwd.launches`` (and
+    ``launches_3pass``) count each call (one call launches the kernel's two
+    passes)."""
     if qkv.device.type == "cpu":
-        return attention_packed_bwd_plain(qkv, d_out, num_heads, valid_len)
+        return attention_packed_bwd_plain(qkv, d_out, num_heads, valid_len,
+                                          precision=precision)
     B, S, dm, hd, scale, (q_off, k_off, v_off) = _check_cuda(
         "attention_packed_bwd", qkv, num_heads, valid_len)
     d_out = d_out.to(qkv.dtype).contiguous()
@@ -380,69 +473,77 @@ def attention_packed_bwd(qkv: torch.Tensor, d_out: torch.Tensor,
             or lse.device != qkv.device):
         raise ValueError("attention_packed_bwd: lse must be the forward "
                          "kernel's contiguous fp32 [B, H, S] logsumexp")
-    launch = _bwd_kernel()
+    three = _three_pass(qkv.dtype, precision)
     d_qkv = torch.empty_like(qkv)
     dsum = torch.empty_like(lse)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = launch(
-            qkv.data_ptr(), d_out.data_ptr(), lse.data_ptr(),
-            dsum.data_ptr(), d_qkv.data_ptr(),
-            int(qkv.dtype == torch.bfloat16), hd, B, S, valid_len, num_heads,
-            3 * dm, q_off, k_off, v_off, dm, scale, stream)
+        ptrs = (qkv.data_ptr(), d_out.data_ptr(), lse.data_ptr(),
+                dsum.data_ptr(), d_qkv.data_ptr())
+        args = (hd, B, S, valid_len, num_heads, 3 * dm, q_off, k_off, v_off,
+                dm, scale, stream)
+        if three:
+            rc = _kernels_3pass()[2](*ptrs, *args)
+        else:
+            rc = _bwd_kernel()(*ptrs, int(qkv.dtype == torch.bfloat16),
+                               *args)
     if rc != 0:
         raise RuntimeError(f"attention_packed_bwd kernel launch failed: "
                            f"CUDA error {rc}")
-    attention_packed_bwd.launches += 1
+    _count(attention_packed_bwd, three)
     return d_qkv
 
 
-attention_packed_bwd.launches = 0
+attention_packed_bwd.launches = attention_packed_bwd.launches_3pass = 0
 
 
 class _PackedAttention(torch.autograd.Function):
-    """Packed attention with a backward into ``qkv``. ``plain=False``: the
-    kernels on CUDA tensors (the forward saves qkv and its logsumexp), the
-    plain versions on CPU tensors. ``plain=True``: the plain versions on
-    any device (the on-card comparison)."""
+    """Packed attention with a backward into ``qkv``, both at
+    ``precision``. ``plain=False``: the kernels on CUDA tensors (the
+    forward saves qkv and its logsumexp), the plain versions on CPU
+    tensors. ``plain=True``: the plain versions on any device (the on-card
+    comparison)."""
 
     @staticmethod
-    def forward(ctx, qkv, num_heads, valid_len, plain):
+    def forward(ctx, qkv, num_heads, valid_len, plain, precision):
         lse = None
         if plain or qkv.device.type == "cpu":
-            out = attention_packed_plain(qkv, num_heads, valid_len)
+            out = attention_packed_plain(qkv, num_heads, valid_len,
+                                         precision=precision)
         else:
             out, lse = attention_packed(qkv, num_heads, valid_len,
-                                        return_lse=True)
+                                        return_lse=True, precision=precision)
         ctx.save_for_backward(qkv, lse)
-        ctx.args = (num_heads, valid_len, plain)
+        ctx.args = (num_heads, valid_len, plain, precision)
         return out
 
     @staticmethod
     def backward(ctx, d_out):
         qkv, lse = ctx.saved_tensors
-        num_heads, valid_len, plain = ctx.args
+        num_heads, valid_len, plain, precision = ctx.args
         if plain:
             d_qkv = attention_packed_bwd_plain(qkv, d_out, num_heads,
-                                               valid_len)
+                                               valid_len, precision=precision)
         else:
             d_qkv = attention_packed_bwd(qkv, d_out, lse, num_heads,
-                                         valid_len)
-        return d_qkv, None, None, None
+                                         valid_len, precision=precision)
+        return d_qkv, None, None, None, None
 
 
 def attention_packed_diff(qkv: torch.Tensor, num_heads: int,
-                          valid_len: int) -> torch.Tensor:
+                          valid_len: int, *, precision=None) -> torch.Tensor:
     """Differentiable ``attention_packed``: forward and backward kernels
     on CUDA tensors, the plain versions on CPU tensors."""
-    return _PackedAttention.apply(qkv, num_heads, valid_len, False)
+    return _PackedAttention.apply(qkv, num_heads, valid_len, False,
+                                  precision)
 
 
 def attention_packed_diff_plain(qkv: torch.Tensor, num_heads: int,
-                                valid_len: int) -> torch.Tensor:
+                                valid_len: int, *,
+                                precision=None) -> torch.Tensor:
     """``attention_packed_diff`` with the plain forward and backward on any
     device: the reference the kernels are held against on the card."""
-    return _PackedAttention.apply(qkv, num_heads, valid_len, True)
+    return _PackedAttention.apply(qkv, num_heads, valid_len, True, precision)
 
 
 def make_attn_fn(num_heads: int, policy: DtypePolicy = DtypePolicy(), *,
@@ -450,15 +551,17 @@ def make_attn_fn(num_heads: int, policy: DtypePolicy = DtypePolicy(), *,
                  attention=None):
     """``attn_fn`` for ``models/layers.residual_block``: QKV projection in
     the compute dtype (fp32 accumulation, bias in fp32, then cast),
-    ``attention`` on the packed result, out-projection. ``vv=True``
-    projects only the value third of ``in_proj_weight`` / ``in_proj_bias``
-    and runs the V-V attention on it.
+    ``attention`` on the packed result at ``policy.precision``,
+    out-projection. ``vv=True`` projects only the value third of
+    ``in_proj_weight`` / ``in_proj_bias`` and runs the V-V attention on
+    it.
 
     ``attention`` defaults to the forward kernel wrapper
     (``attention_packed``, or ``attention_packed_vv`` with ``vv``), or with
     ``differentiable=True`` (training steps) to ``attention_packed_diff``;
     the ``*_plain`` versions give the same function with the plain
-    arithmetic (the on-card comparison)."""
+    arithmetic (the on-card comparison). It is called as ``attention(x,
+    num_heads, valid_len, precision=policy.precision)``."""
     if vv and differentiable:
         # as in the JAX package: stage-1 surgery features are grad-free
         raise ValueError("the V-V attention has no differentiable variant: "
@@ -474,7 +577,8 @@ def make_attn_fn(num_heads: int, policy: DtypePolicy = DtypePolicy(), *,
             D = x.shape[-1]
             w, b = w[2 * D:], b[2 * D:]
         packed = linear(x, w, b, policy).to(cd)
-        out = attention(packed, num_heads, x.shape[1])
+        out = attention(packed, num_heads, x.shape[1],
+                        precision=policy.precision)
         out = linear(out, p.out_proj.weight, p.out_proj.bias, policy)
         return out.to(x.dtype)
 

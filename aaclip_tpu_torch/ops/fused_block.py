@@ -370,7 +370,16 @@ def make_block_fn(num_heads: int, policy: DtypePolicy = DtypePolicy(), *,
     The ops default to the kernel wrappers (``attention``:
     ``attention_packed``, or ``attention_packed_vv`` with ``vv``); the
     ``*_plain`` versions give the same block with the plain arithmetic on
-    any device (the on-card comparison)."""
+    any device (the on-card comparison).
+
+    The kernels' 3-pass mode (fp32 under precision "high", fp32_high) is
+    not ported: such a policy raises (JAX's gate admits bf16 alone, so
+    ``maybe_make_block_fn`` gives None there)."""
+    if policy.compute_dtype == torch.float32 and policy.precision == "high":
+        raise NotImplementedError(
+            "the fused-block kernels' 3-pass mode (fp32 under precision "
+            "'high') is not ported yet: ROADMAP B8, 'the 3-pass \"high\" "
+            "mode of B5-B7'")
     if attention is None:
         attention = attention_packed_vv if vv else attention_packed
 

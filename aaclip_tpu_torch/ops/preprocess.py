@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from aaclip_tpu_torch.models.layers import matmul_f32
+from aaclip_tpu_torch.models.layers import matmul
 
 CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
 CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
@@ -45,16 +45,19 @@ def extract_patches(x: torch.Tensor, patch: int) -> torch.Tensor:
 
 
 def patchify(x: torch.Tensor, conv_w: torch.Tensor, patch: int,
-             compute_dtype=torch.float32) -> torch.Tensor:
-    """[B, 3, H, W] float -> [B, (H/p)*(W/p), width] fp32 patch embeddings."""
-    return matmul_f32(extract_patches(x, patch).to(compute_dtype),
-                      conv_w.to(compute_dtype))
+             compute_dtype=torch.float32,
+             precision: str | None = "highest") -> torch.Tensor:
+    """[B, 3, H, W] float -> [B, (H/p)*(W/p), width] fp32 patch embeddings
+    (the product at ``precision``, ``models/layers.py::matmul``)."""
+    return matmul(extract_patches(x, patch).to(compute_dtype),
+                  conv_w.to(compute_dtype), precision)
 
 
 def patchify_uint8(images_u8: torch.Tensor, w_folded: torch.Tensor,
                    b_folded: torch.Tensor, patch: int,
-                   compute_dtype=torch.bfloat16) -> torch.Tensor:
+                   compute_dtype=torch.bfloat16,
+                   precision: str | None = None) -> torch.Tensor:
     """[B, 3, H, W] uint8 -> [B, (H/p)*(W/p), width] normalized patch
     embeddings (fp32), normalization fused into the matmul."""
-    return patchify(images_u8, w_folded, patch, compute_dtype) \
+    return patchify(images_u8, w_folded, patch, compute_dtype, precision) \
         + b_folded.float()

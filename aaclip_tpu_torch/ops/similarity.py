@@ -26,7 +26,7 @@ import functools
 import numpy as np
 import torch
 
-from aaclip_tpu_torch.models.layers import matmul_f32
+from aaclip_tpu_torch.models.layers import matmul_3pass
 from aaclip_tpu_torch.ops.blur import DOMAIN_BLUR, gaussian_blur_matrix
 from aaclip_tpu_torch.ops.resize import bilinear_matrix
 
@@ -52,25 +52,6 @@ def fused_postproc_matrix(grid: int, img_size: int, domain: str) -> np.ndarray:
     B = gaussian_blur_matrix(grid, k, s)
     U = bilinear_matrix(grid, img_size, align_corners=True)
     return (U @ B).astype(np.float32)
-
-
-def _split_bf16(x: torch.Tensor):
-    """fp32 ``x`` as bf16 ``hi + lo``: ``hi = bf16(x)``, ``lo = bf16(x -
-    hi)``."""
-    hi = x.to(torch.bfloat16)
-    return hi, (x - hi.float()).to(torch.bfloat16)
-
-
-def matmul_3pass(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """fp32 ``a @ b`` as three bf16 products summed in fp32, ``hi·hi +
-    (hi·lo + lo·hi)``: XLA's F32_AS_3BF16, the JAX package's precision
-    "high" (about 1e-5 relative, where one bf16 pass is 4e-3). On the card
-    each product is ``matmul_f32`` (cuBLAS, bf16 in, fp32 out); on the CPU
-    the same split with fp32 products. ``b`` is 2-D or batched like
-    ``a``."""
-    ah, al = _split_bf16(a.float())
-    bh, bl = _split_bf16(b.float())
-    return matmul_f32(ah, bh) + (matmul_f32(ah, bl) + matmul_f32(al, bh))
 
 
 def apply_postproc_matrix(q: torch.Tensor, M: torch.Tensor,

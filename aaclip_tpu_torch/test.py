@@ -21,12 +21,12 @@ from __future__ import annotations
 
 import argparse
 import csv
+import dataclasses
 import glob
 import os
 import re
 
 # flags of paths the port does not have yet -> (ROADMAP item, its title)
-_A7 = ("A7", "fp32_high and its 3-pass kernel mode")
 _A12 = ("A12", "int8, mesh and serving")
 _A15 = ("A15", "visualization")
 
@@ -55,16 +55,23 @@ def parse_args(argv=None):
                         default=[6, 12, 18, 24])
     parser.add_argument("--precision", type=str, default="fp32",
                         choices=["fp32", "fp32_high", "bf16", "int8"],
-                        help="fp32 = true fp32 products (TF32 off); bf16 = "
-                             "the fast path (uint8 inputs); fp32_high and "
-                             "int8 are not ported yet")
+                        help="fp32 = true fp32 products (TF32 off); "
+                             "fp32_high = 3-pass products (three bf16 "
+                             "passes) with the first --bf16_until blocks "
+                             "at bf16; bf16 = the fast path (uint8 "
+                             "inputs); int8 is not ported yet")
     parser.add_argument("--clip_checkpoint", type=str, default=None,
                         help="OpenAI-layout CLIP checkpoint (TorchScript "
                              "archive or state dict); default: AACLIP_CKPT "
                              "or aaclip_tpu_torch/weights/ViT-L-14-336px.pt "
                              "when its architecture matches, else the "
                              "seeded init")
-    parser.add_argument("--bf16_until", type=int, default=None)
+    parser.add_argument("--bf16_until", type=int, default=None,
+                        help="override the staged trunk depth (leading "
+                             "vision blocks at single-pass bf16 products; "
+                             "fp32 residual stream; inference only). "
+                             "Default: the precision's own (6 for "
+                             "fp32_high, 0 otherwise)")
     parser.add_argument("--int8_until", type=int, default=None)
     parser.add_argument("--aupro", action="store_true",
                         help="also compute pixel AUPRO")
@@ -91,8 +98,6 @@ def parse_args(argv=None):
     parser.add_argument("--artifact", type=str, default=None)
     args = parser.parse_args(argv)
     unported = [
-        ("--precision fp32_high", args.precision == "fp32_high", _A7),
-        ("--bf16_until", args.bf16_until is not None, _A7),
         ("--precision int8", args.precision == "int8", _A12),
         ("--int8_until", args.int8_until is not None, _A12),
         ("--data_parallel", args.data_parallel, _A12),
@@ -169,6 +174,8 @@ def main(argv=None, *, device=None):
     logger.info("args: %s", vars(args))
 
     policy = DtypePolicy.from_name(args.precision)
+    if args.bf16_until is not None:
+        policy = dataclasses.replace(policy, bf16_until=args.bf16_until)
     cfg = get_config(args.model_name, args.img_size)
     acfg = AdapterConfig(
         text_adapt_weight=args.text_adapt_weight,

@@ -33,7 +33,6 @@ import numpy as np
 
 # flags of paths the port does not have yet -> (ROADMAP item, its title)
 _A6 = ("A6", "the orbax checkpoint backend, JAX's own")
-_A7 = ("A7", "fp32_high and its 3-pass kernel mode")
 _A12 = ("A12", "int8, mesh and serving")
 _A13 = ("A13", "selective remat")
 _A16 = ("A16", "assembly folded into the stage-2 step")
@@ -76,8 +75,10 @@ def parse_args(argv=None):
                         default=[6, 12, 18, 24])
     parser.add_argument("--precision", type=str, default="fp32",
                         choices=["fp32", "fp32_high", "bf16"],
-                        help="fp32 = true fp32 products (TF32 off); bf16 = "
-                             "the fast path; fp32_high is not ported yet")
+                        help="fp32 = true fp32 products (TF32 off); "
+                             "fp32_high = 3-pass products (three bf16 "
+                             "passes; training never stages blocks at "
+                             "bf16); bf16 = the fast path")
     parser.add_argument("--clip_checkpoint", type=str, default=None)
     parser.add_argument("--require_pretrained", action="store_true")
     parser.add_argument("--ckpt_backend", type=str, default="npz",
@@ -137,7 +138,6 @@ def parse_args(argv=None):
                      "does not compose with data/tensor/pipeline "
                      "parallelism")
     unported = [
-        ("--precision fp32_high", args.precision == "fp32_high", _A7),
         ("--remat selective", args.remat == "selective", _A13),
         ("--data_parallel", args.data_parallel, _A12),
         ("--tensor_parallel", args.tensor_parallel > 1, _A12),

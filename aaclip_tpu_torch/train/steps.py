@@ -112,6 +112,9 @@ def stage1_features_fn(vit: VisionTransformer, cfg: CLIPConfig, *,
             "a custom vv_attn_fn requires vv_mode='spatial': batch mode "
             "installs the reference-exact batch-coupled attention")
     dev = _step_device(vit, device)
+    # staging (bf16_until) is an inference-path feature: the supervision
+    # features keep the policy's uniform precision, as JAX's do
+    policy = policy.unstaged()
     visual = cast_block_matrices(vit, policy)
     act = L.config_act(cfg, policy)
     heads, layers = cfg.vision.heads, cfg.vision.layers
@@ -120,7 +123,7 @@ def stage1_features_fn(vit: VisionTransformer, cfg: CLIPConfig, *,
 
     def project(t):
         t = L.layer_norm(t, visual.ln_post.weight, visual.ln_post.bias)
-        return L.matmul_f32(t.to(cd), visual.proj.to(cd))
+        return L.matmul(t.to(cd), visual.proj.to(cd), policy.precision)
 
     @torch.no_grad()
     def run(images, vv_fn):
@@ -175,6 +178,7 @@ def make_stage1_step(text: TextTransformer, cfg: CLIPConfig,
     there."""
     _no_mesh(mesh, sequence_parallel)
     dev = _step_device(text, device)
+    policy = policy.unstaged()  # staging is inference-only
     img = img_size or cfg.vision.image_size
     tokens = torch.as_tensor(prompt_tokens, device=dev).long()
     C, S, _ = tokens.shape
@@ -241,6 +245,7 @@ def make_stage2_step(vit: VisionTransformer, cfg: CLIPConfig,
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     dev = _step_device(vit, device)
+    policy = policy.unstaged()  # staging is inference-only
     img = img_size or cfg.vision.image_size
     # fp32 biases and LayerNorm affines, as JAX's step keeps them
     # (train/steps.py:348); only the matmul weights are pre-cast
@@ -259,7 +264,8 @@ def make_stage2_step(vit: VisionTransformer, cfg: CLIPConfig,
             proj_relu=acfg.proj_relu, policy=policy, act=act,
             attn_fn=attn_fn, remat=remat)
         banchors = anchors[class_idx]                       # [B, D, 2]
-        logits = torch.einsum("bd,bdk->bk", det, banchors)
+        logits = L.matmul(det[:, None, :], banchors,
+                          policy.precision)[:, 0]
         loss = LL.cross_entropy_logits_masked(logits, label, valid)
         scores = level_scores(torch.stack(seg), banchors)   # [n, B, L, 2]
         for lvl in range(scores.shape[0]):

@@ -16,7 +16,12 @@ Needs one CUDA card and nvcc. Phases, each of which fails the run:
     the plain scores, the backward kernel's dq, dk and dv (and two runs of
     it bit for bit), a batch whose image 1 is NaN (images 0 and 2 as with
     image 1 zero, bit for bit, in every attention launch), and the bf16
-    ``matmul_f32`` gradients against fp64;
+    ``matmul_f32`` gradients against fp64; then the 3-pass mode (fp32 under
+    precision "high") of the forward, its logsumexp, the backward (twice
+    bit for bit), the V-V mode and B4 against their plain 3-pass versions
+    at the predict's and the step's fp32 batch 8, ragged S, valid_len < S
+    and head dim 16, the NaN image, and each mode's distance from fp64
+    beside the fp32 FMA kernels';
  4. the inference path (ViT-L-14-336 @ 518 px, random weights from a seed)
     through ``make_predict_fn``: bf16 with uint8 inputs at batch 8 and fp32
     at batch 2, each against the same predictor with the plain attention,
@@ -109,10 +114,27 @@ Needs one CUDA card and nvcc. Phases, each of which fails the run:
     V-V mode (one stage-1 epoch, 19 V-V launches per features call), with
     each epoch's logged img/s and host-loop shares beside the steps' own
     rates.
+11. fp32_high (3-pass products, the first 6 vision blocks at bf16 on the
+    inference path, the attention kernels' 3-pass mode) at ViT-L/518: (a)
+    the predict at batch 8, staged and at ``bf16_until`` 0, against the
+    same predictor with the plain 3-pass attention (phase 4's fp32 bars;
+    6 bf16 + 18 and 0 + 24 three-pass launches per call) and, printed, its
+    distance from the fp32 predict; (b) the stage-2 step at batch 2 with
+    remat against the plain-attention step (phase 5's bars; 47 forward and
+    23 backward launches, all 3-pass); (c) spatial stage-1 features at
+    batch 2 against plain (phase 7's bars; 24 + 19 launches, all 3-pass);
+    (d) the evaluation CLI at batch 8 from phase 9's checkpoint on one
+    class of phase 9's set, its scores bit for bit against a direct
+    predict; (e) the training CLI, one text and one image epoch on phase
+    10's set, its step-1 losses against the plain attention (phase 10's
+    bars); (f) CUDA-event times of each 3-pass kernel, the fp32 FMA kernel,
+    the plain 3-pass version and SDPA on the same fp32 inputs, and the
+    fp32_high predict's maps/s and stage-2 step's images/s beside fp32's.
 Phase 3 also holds the V-V mode of the forward kernel (B3) against its
 plain version, in bf16 and fp32, at [16, 1370, 1024], ragged S and head
 dim 16, and against the standard mode on the value section tripled.
-Then it prints the kernel table as one JSON line (``launches`` counts the
+Then it prints the whole script's time and the kernel table as one JSON
+line (the 3-pass modes as rows of their own) (``launches`` counts the
 wrapper's calls on the main path; B4's is read after the fused predict,
 where it must be 0, since no path runs B4; ``calls`` gives B1's, B2's
 and B3's launches on each path that runs them, the training CLI's runs
@@ -560,13 +582,13 @@ def check_bwd_kernel(dtype_name: str) -> float:
     return worst_main
 
 
-def check_tail_isolation(dtype_name: str) -> None:
+def check_tail_isolation(dtype_name: str, precision=None) -> None:
     """At TAIL_CASE, image 1 NaN against image 1 zero: a kernel whose tail
     tile of one image read the next image's rows (on [B, H, S, hd], image
     0's last head reading image 1's first) would carry the NaN into images
     0 and 2 (a masked key's P = 0 times NaN is NaN). The forward and its lse, the backward, the V-V
     mode and B4 must give images 0 and 2 bit for bit the same in both
-    runs, and finite."""
+    runs, and finite; ``precision="high"`` checks the 3-pass mode."""
     import torch
 
     from aaclip_tpu_torch.ops.attention import (attention_kernel,
@@ -584,19 +606,22 @@ def check_tail_isolation(dtype_name: str) -> None:
     for fill in (float("nan"), 0.0):
         x, g = qkv.clone(), d_out.clone()
         x[1], g[1] = fill, fill
-        out, lse = attention_packed(x, H, valid, return_lse=True)
+        kw = dict(precision=precision)
+        out, lse = attention_packed(x, H, valid, return_lse=True, **kw)
         heads = [x[..., i * dm:(i + 1) * dm].reshape(B, S, H, hd)
                  .transpose(1, 2).contiguous() for i in range(3)]
-        runs.append((out, lse, attention_packed_bwd(x, g, lse, H, valid),
+        runs.append((out, lse,
+                     attention_packed_bwd(x, g, lse, H, valid, **kw),
                      attention_packed_vv(x[..., 2 * dm:].contiguous(), H,
-                                         valid),
-                     attention_kernel(*heads, valid)))
+                                         valid, **kw),
+                     attention_kernel(*heads, valid, **kw)))
     torch.cuda.synchronize()
     names = ("forward", "lse", "backward", "V-V", "attention_kernel")
     for name, got, clean in zip(names, *runs):
         same = torch.equal(got[[0, 2]], clean[[0, 2]])
         finite = bool(torch.isfinite(got[[0, 2]]).all())
-        print(f"tail {dtype_name} B={B} S={S} hd={hd} {name}: images 0 and 2"
+        print(f"tail {dtype_name}{' 3-pass' if precision else ''} B={B} "
+              f"S={S} hd={hd} {name}: images 0 and 2"
               f" with image 1 NaN equal image 1 zero: {same}, finite: "
               f"{finite}")
         expect(same and finite, f"{name} read across images")
@@ -994,13 +1019,25 @@ def counts():
             attention_packed_bwd.launches)
 
 
+def counts_3pass():
+    """(standard forward, V-V, backward) launches of the 3-pass mode."""
+    from aaclip_tpu_torch.ops.attention import (attention_packed,
+                                                attention_packed_bwd,
+                                                attention_packed_vv)
+
+    return (attention_packed.launches_3pass,
+            attention_packed_vv.launches_3pass,
+            attention_packed_bwd.launches_3pass)
+
+
 def zero_counts() -> None:
     from aaclip_tpu_torch.ops.attention import (attention_packed,
                                                 attention_packed_bwd,
                                                 attention_packed_vv)
 
-    attention_packed.launches = attention_packed_vv.launches = 0
-    attention_packed_bwd.launches = 0
+    for wrapper in (attention_packed, attention_packed_vv,
+                    attention_packed_bwd):
+        wrapper.launches = wrapper.launches_3pass = 0
 
 
 def stage1_step_once(text, cfg, acfg, adapter, tokens, feats, batch, *,
@@ -1435,6 +1472,7 @@ def zero_fused_counts() -> None:
     zero_counts()
     FB.ln_linear.launches = FB.linear_residual.launches = 0
     FB.mlp_fused.launches = attention_kernel.launches = 0
+    attention_kernel.launches_3pass = 0
 
 
 def plain_block_fn(heads: int, policy, act, vv: bool = False):
@@ -1797,9 +1835,10 @@ EVAL_RUNS = (("bf16", 32), ("fp32", 8))
 DECODE_SAMPLE = 16  # images and masks timed one at a time on the host
 
 
-def sdpa_packed(qkv, num_heads: int, valid_len: int):
+def sdpa_packed(qkv, num_heads: int, valid_len: int, precision=None):
     """The library's attention (``scaled_dot_product_attention``) on a
-    packed [B, S, 3*D] qkv, in ``attention_packed_plain``'s signature."""
+    packed [B, S, 3*D] qkv, in ``attention_packed_plain``'s signature
+    (``precision`` unused: phase 9 runs it on bf16)."""
     import torch
 
     B, S, D3 = qkv.shape
@@ -2397,6 +2436,104 @@ def epoch_reports(log: str) -> list:
     return out
 
 
+def train_cli_losses(argv) -> list:
+    """``aaclip_tpu_torch.train.cli.main(argv)`` with each epoch's per-step
+    losses recorded (``ThrottledLossDrain.drain`` wrapped); returns them,
+    one list per epoch."""
+    import torch
+
+    import aaclip_tpu_torch.utils.profiling as profiling
+    from aaclip_tpu_torch.train import cli
+
+    losses = []
+    base = profiling.ThrottledLossDrain
+
+    class Recording(base):
+        def drain(self):
+            vals = super().drain()
+            losses.append(vals)
+            return vals
+
+    profiling.ThrottledLossDrain = Recording
+    try:
+        cli.main(argv)
+    finally:
+        profiling.ThrottledLossDrain = base
+    torch.cuda.synchronize()
+    return losses
+
+
+def plain_first_losses(vit, text, cfg, acfg, policy, save_path, text_ds,
+                       image_ds):
+    """Each stage's first update of a training-CLI run (seed
+    ``TRAIN_CLI_SEED``, batches 16 and 2, its first shuffled batches and
+    seeded adapters) again under ``policy`` on the plain attention, the
+    stage-2 anchors from the run's ``text_adapter.npz`` under
+    ``save_path``: returns (stage-1 loss, stage-2 loss)."""
+    import os
+
+    import torch
+
+    from aaclip_tpu_torch.core.params import (init_image_adapter,
+                                              init_text_adapter,
+                                              text_adapter_from_jax,
+                                              text_adapter_to_jax)
+    from aaclip_tpu_torch.data.datasets import BatchLoader
+    from aaclip_tpu_torch.data.registry import CLASS_NAMES
+    from aaclip_tpu_torch.eval.predict import make_anchor_encoder
+    from aaclip_tpu_torch.ops.attention import (attention_packed_diff_plain,
+                                                attention_packed_plain,
+                                                make_attn_fn)
+    from aaclip_tpu_torch.text.anchors import (dataset_prompt_tokens,
+                                               encode_dataset_anchors)
+    from aaclip_tpu_torch.train import checkpoint as ckpt
+    from aaclip_tpu_torch.train.optim import (make_image_optimizer,
+                                              make_text_optimizer)
+    from aaclip_tpu_torch.train.steps import (make_stage1_step,
+                                              make_stage2_step,
+                                              stage1_features_fn)
+
+    heads, seed = cfg.vision.heads, TRAIN_CLI_SEED
+
+    def first_batch(ds, B, loader_seed):
+        b = next(iter(BatchLoader(ds, B, shuffle=True, seed=loader_seed)))
+        return (torch.as_tensor(b["image"], device="cuda"),
+                torch.as_tensor(b["mask"][:, 0], device="cuda"),
+                torch.as_tensor(b["label"], device="cuda").long(),
+                torch.tensor([CLASS_NAMES["MVTec"].index(c)
+                              for c in b["class_name"]], device="cuda"),
+                torch.ones(B, device="cuda"))
+
+    images, mask, _, cidx, valid = first_batch(text_ds, 16, seed)
+    feats = stage1_features_fn(
+        vit, cfg, surgery_until_layer=STAGE1_SURGERY_UNTIL, policy=policy,
+        vv_mode="batch",
+        attn_fn=make_attn_fn(heads, policy,
+                             attention=attention_packed_plain))(
+        images, valid)
+    tad = init_text_adapter(cfg, acfg, seed=seed + 1)
+    s1 = make_stage1_step(text, cfg, acfg,
+                          make_text_optimizer(tad.parameters(), 1e-5),
+                          dataset_prompt_tokens("MVTec"), policy=policy)
+    plain1 = s1(tad, feats, mask, cidx, valid).item()
+    del feats, s1, tad
+    _, tree, _ = ckpt.load_adapter_checkpoint(
+        os.path.join(save_path, "text_adapter.npz"),
+        text_adapter_to_jax(init_text_adapter(cfg, acfg, device="cpu")))
+    anchors = encode_dataset_anchors(make_anchor_encoder(
+        text, cfg, acfg, text_adapter_from_jax(tree, cfg, acfg),
+        policy=policy), "MVTec")
+    table = torch.stack([anchors[c] for c in CLASS_NAMES["MVTec"]])
+    iad = init_image_adapter(cfg, acfg, seed=seed)
+    s2 = make_stage2_step(
+        vit, cfg, acfg, make_image_optimizer(iad.parameters(), 5e-4),
+        table, policy=policy, remat=True,
+        attn_fn=make_attn_fn(heads, policy,
+                             attention=attention_packed_diff_plain))
+    plain2 = s2(iad, *first_batch(image_ds, 2, seed + 1)).item()
+    return plain1, plain2
+
+
 def phase_train_cli(card, ckpt_path: str) -> dict:
     """Phase 10: the training CLI on the card; returns {run: (B1, B3, B2
     launches)} for the kernel line."""
@@ -2406,7 +2543,6 @@ def phase_train_cli(card, ckpt_path: str) -> dict:
     import numpy as np
     import torch
 
-    import aaclip_tpu_torch.utils.profiling as profiling
     from aaclip_tpu_torch import test as eval_cli
     from aaclip_tpu_torch.core.config import (AdapterConfig, DtypePolicy,
                                               get_config)
@@ -2417,20 +2553,14 @@ def phase_train_cli(card, ckpt_path: str) -> dict:
                                               init_text_adapter,
                                               text_adapter_from_jax,
                                               text_adapter_to_jax)
-    from aaclip_tpu_torch.data.datasets import BatchLoader, get_train_datasets
+    from aaclip_tpu_torch.data.datasets import get_train_datasets
     from aaclip_tpu_torch.data.registry import CLASS_NAMES
     from aaclip_tpu_torch.data.synthetic import make_synthetic_dataset
-    from aaclip_tpu_torch.eval.predict import make_anchor_encoder
     from aaclip_tpu_torch.kernels.build import kernels_launched
     from aaclip_tpu_torch.ops import fused_block as FB
-    from aaclip_tpu_torch.ops.attention import (attention_kernel,
-                                                attention_packed_diff_plain,
-                                                attention_packed_plain,
-                                                make_attn_fn)
-    from aaclip_tpu_torch.text.anchors import (dataset_prompt_tokens,
-                                               encode_dataset_anchors)
+    from aaclip_tpu_torch.ops.attention import attention_kernel
+    from aaclip_tpu_torch.text.anchors import dataset_prompt_tokens
     from aaclip_tpu_torch.train import checkpoint as ckpt
-    from aaclip_tpu_torch.train import cli
     from aaclip_tpu_torch.train.optim import (make_image_optimizer,
                                               make_text_optimizer)
     from aaclip_tpu_torch.train.steps import (make_stage1_step,
@@ -2454,26 +2584,12 @@ def phase_train_cli(card, ckpt_path: str) -> dict:
         """``cli.main(argv)`` with each epoch's per-step losses recorded;
         holds its launches to ``feats`` features calls and ``steps``
         stage-2 steps; returns (losses per epoch, train.log)."""
-        losses = []
-        base = profiling.ThrottledLossDrain
-
-        class Recording(base):
-            def drain(self):
-                vals = super().drain()
-                losses.append(vals)
-                return vals
-
         zero_fused_counts()
         lib0 = {n: kernels_launched(n) for n in ("attention_packed",
                                                  "attention_packed_bwd",
                                                  "fused_block")}
-        profiling.ThrottledLossDrain = Recording
         t0 = time.perf_counter()
-        try:
-            cli.main(argv)
-        finally:
-            profiling.ThrottledLossDrain = base
-        torch.cuda.synchronize()
+        losses = train_cli_losses(argv)
         wall = time.perf_counter() - t0
         std, vvn, bwd = counts()
         lib = {n: kernels_launched(n) - v for n, v in lib0.items()}
@@ -2535,45 +2651,8 @@ def phase_train_cli(card, ckpt_path: str) -> dict:
 
         # (b) each stage's first update again, on the plain attention
         vit, text = create_clip_towers(cfg, checkpoint=ckpt_path)
-
-        def first_batch(ds, B, loader_seed):
-            b = next(iter(BatchLoader(ds, B, shuffle=True,
-                                      seed=loader_seed)))
-            return (torch.as_tensor(b["image"], device="cuda"),
-                    torch.as_tensor(b["mask"][:, 0], device="cuda"),
-                    torch.as_tensor(b["label"], device="cuda").long(),
-                    torch.tensor([CLASS_NAMES["MVTec"].index(c)
-                                  for c in b["class_name"]], device="cuda"),
-                    torch.ones(B, device="cuda"))
-
-        images, mask, _, cidx, valid = first_batch(text_ds, 16, seed)
-        feats = stage1_features_fn(
-            vit, cfg, surgery_until_layer=STAGE1_SURGERY_UNTIL, policy=bf16,
-            vv_mode="batch",
-            attn_fn=make_attn_fn(heads, bf16,
-                                 attention=attention_packed_plain))(
-            images, valid)
-        tad = init_text_adapter(cfg, acfg, seed=seed + 1)
-        s1 = make_stage1_step(text, cfg, acfg,
-                              make_text_optimizer(tad.parameters(), 1e-5),
-                              dataset_prompt_tokens("MVTec"), policy=bf16)
-        plain1 = s1(tad, feats, mask, cidx, valid).item()
-        del feats, s1, tad
-        _, tree, _ = ckpt.load_adapter_checkpoint(
-            os.path.join(host, "text_adapter.npz"),
-            text_adapter_to_jax(init_text_adapter(cfg, acfg, device="cpu")))
-        anchors = encode_dataset_anchors(make_anchor_encoder(
-            text, cfg, acfg, text_adapter_from_jax(tree, cfg, acfg),
-            policy=bf16), "MVTec")
-        table = torch.stack([anchors[c] for c in CLASS_NAMES["MVTec"]])
-        iad = init_image_adapter(cfg, acfg, seed=seed)
-        s2 = make_stage2_step(
-            vit, cfg, acfg, make_image_optimizer(iad.parameters(), 5e-4),
-            table, policy=bf16, remat=True,
-            attn_fn=make_attn_fn(heads, bf16,
-                                 attention=attention_packed_diff_plain))
-        plain2 = s2(iad, *first_batch(image_ds, 2, seed + 1)).item()
-        del s2, iad
+        plain1, plain2 = plain_first_losses(vit, text, cfg, acfg, bf16,
+                                            host, text_ds, image_ds)
         r1 = abs(losses[0][0] - plain1) / abs(plain1)
         r2 = abs(losses[1][0] - plain2) / abs(plain2)
         print(f"train CLI: step-1 losses, kernels vs plain attention: "
@@ -2734,6 +2813,579 @@ def phase_train_cli(card, ckpt_path: str) -> dict:
     return launches
 
 
+# The 3-pass mode of the attention kernels (fp32 under precision "high",
+# fp32_high's attention; _kdot's F32_AS_3BF16 in the TPU kernels). Kernel
+# vs its plain 3-pass version: both split the same fp32 operands into the
+# same bf16 halves and accumulate in fp32; the summation order and the
+# online rescaling (P split against the running max, not the final one)
+# differ, ~1e-6 relative as in fp32, so the forward, V-V mode and B4 keep
+# FP32_MAX_ABS and LSE_MAX_ABS. The backward: two 3-pass forms (the plain
+# version against JAX's interpret-mode kernel) read 1.13e-5 of a
+# gradient's max apart on the CPU, where dP - dsum cancels; bar 5e-5 of
+# each gradient's max.
+HIGH = "high"
+HIGH_BWD_MAX_REL = 5e-5
+# (B, S, heads, head dim, valid_len): the predict's and the step's fp32
+# shape, ragged S, keys past valid_len, the wgmma tile edges' batch of 3,
+# head dim 16
+HIGH_CASES = [
+    (TRAIN_BATCH, 1370, 16, 64, 1370),
+    (2, 77, 16, 64, 77),
+    (2, 257, 16, 64, 200),
+    (3, 200, 16, 64, 200),
+    (3, 26, 4, 16, 26),
+    (2, 257, 2, 16, 257),
+]
+
+
+def attention_fp64(qkv, H, valid, d_out=None):
+    """Softmax attention of a packed fp32 qkv in fp64, and with ``d_out``
+    its d(qkv) (the exact function the kernels approximate)."""
+    import torch
+
+    B, S, width = qkv.shape
+    dm = width // 3
+    hd = dm // H
+
+    def heads(t):
+        return t.reshape(B, S, H, hd).transpose(1, 2).double()
+
+    q, k, v = (heads(qkv[..., i * dm:(i + 1) * dm]) for i in range(3))
+    s = torch.matmul(q, k.transpose(-1, -2)) * hd ** -0.5
+    s[..., valid:] = float("-inf")
+    p = torch.softmax(s, dim=-1)
+    o = torch.matmul(p, v)
+    if d_out is None:
+        return o.transpose(1, 2).reshape(B, S, dm)
+    do = heads(d_out)
+    dv = torch.matmul(p.transpose(-1, -2), do)
+    dp = torch.matmul(do, v.transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True)) * hd ** -0.5
+    dq, dk = torch.matmul(ds, k), torch.matmul(ds.transpose(-1, -2), q)
+    return torch.cat([g.transpose(1, 2).reshape(B, S, dm)
+                      for g in (dq, dk, dv)], dim=-1)
+
+
+def check_kernels_3pass() -> dict:
+    """Phase 3, the 3-pass mode on fp32: B1 and its logsumexp, B2 (twice
+    bit for bit), B3 (and bit for bit the standard mode on [v, v, v]) and
+    B4 (and bit for bit B1 on the same values packed) against their plain
+    3-pass versions at HIGH_CASES; every launch counted in the wrappers'
+    ``launches_3pass``. Then each mode's distance from fp64 beside the fp32
+    FMA kernels' on the same inputs. Returns {kernel: the largest max |d|
+    at the predict's and the step's shape}."""
+    import torch
+
+    from aaclip_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    worst = {"fwd": 0.0, "bwd": 0.0, "vv": 0.0, "b4": 0.0}
+    for B, S, H, hd, valid in HIGH_CASES:
+        main = (B, S) == (TRAIN_BATCH, 1370)
+        dm = H * hd
+        qkv = random_qkv(B, S, H, hd, torch.float32, gen)
+        d_out = torch.randn(B, S, dm, generator=gen, device="cuda")
+        before = [w.launches_3pass for w in (A.attention_packed,
+                                             A.attention_packed_bwd,
+                                             A.attention_packed_vv,
+                                             A.attention_kernel)]
+        got, lse = A.attention_packed(qkv, H, valid, return_lse=True,
+                                      precision=HIGH)
+        again = A.attention_packed(qkv, H, valid, precision=HIGH)
+        want = A.attention_packed_plain(qkv, H, valid, precision=HIGH)
+        torch.cuda.synchronize()
+        fwd = (got - want).abs().max().item()
+        lse_err = lse_vs_logsumexp(qkv, H, valid, lse)
+        expect(bool(torch.isfinite(got).all()) and torch.equal(got, again),
+               "3-pass forward not finite or its lse output changed it")
+        expect(fwd <= FP32_MAX_ABS and lse_err <= LSE_MAX_ABS,
+               f"3-pass forward off: {fwd}, lse {lse_err}")
+        del want
+        g1 = A.attention_packed_bwd(qkv, d_out, lse, H, valid,
+                                    precision=HIGH)
+        g2 = A.attention_packed_bwd(qkv, d_out, lse, H, valid,
+                                    precision=HIGH)
+        gw = A.attention_packed_bwd_plain(qkv, d_out, H, valid,
+                                          precision=HIGH)
+        torch.cuda.synchronize()
+        expect(torch.equal(g1, g2), "two 3-pass backward runs differ")
+        expect(bool(torch.isfinite(g1).all()), "3-pass d(qkv) not finite")
+        rel = []
+        for i in range(3):
+            sl = slice(i * dm, (i + 1) * dm)
+            scale = gw[..., sl].abs().max().item()
+            d = (g1[..., sl] - gw[..., sl]).abs().max().item()
+            rel.append(d / scale)
+            expect(d <= HIGH_BWD_MAX_REL * scale,
+                   f"3-pass backward {'qkv'[i]} off: {d} of {scale}")
+            if main:
+                worst["bwd"] = max(worst["bwd"], d)
+        if valid < S:
+            expect(g1[:, valid:, dm:].abs().max().item() == 0.0,
+                   "3-pass dk/dv past valid_len")
+        del g1, g2, gw
+        v = qkv[..., 2 * dm:].contiguous()
+        gv = A.attention_packed_vv(v, H, S, precision=HIGH)
+        wv = A.attention_packed_vv_plain(v, H, S, precision=HIGH)
+        same_vv = torch.equal(gv, A.attention_packed(
+            torch.cat([v, v, v], dim=-1).contiguous(), H, S, precision=HIGH))
+        vv = (gv - wv).abs().max().item()
+        del gv, wv
+        heads = [qkv[..., i * dm:(i + 1) * dm].reshape(B, S, H, hd)
+                 .transpose(1, 2).contiguous() for i in range(3)]
+        g4 = A.attention_kernel(*heads, valid, precision=HIGH)
+        w4 = A.attention_kernel_plain(*heads, valid, precision=HIGH)
+        b4 = (g4 - w4).abs().max().item()
+        same_b4 = torch.equal(g4.transpose(1, 2).reshape(B, S, dm)[:, :valid],
+                              got[:, :valid])
+        torch.cuda.synchronize()
+        after = [w.launches_3pass for w in (A.attention_packed,
+                                            A.attention_packed_bwd,
+                                            A.attention_packed_vv,
+                                            A.attention_kernel)]
+        expect([a - b for a, b in zip(after, before)] == [3, 2, 1, 1],
+               f"3-pass launches {before} -> {after}")
+        expect(vv <= FP32_MAX_ABS and b4 <= FP32_MAX_ABS and same_vv
+               and same_b4, f"3-pass V-V {vv} (equal to the standard mode: "
+               f"{same_vv}), B4 {b4} (equal to B1: {same_b4})")
+        if main:
+            worst["fwd"] = max(worst["fwd"], fwd)
+            worst["vv"] = max(worst["vv"], vv)
+            worst["b4"] = max(worst["b4"], b4)
+        print(f"3-pass kernels fp32 B={B} S={S} H={H} hd={hd} "
+              f"valid={valid}: forward max|d|={fwd:.3e} (lse {lse_err:.3e});"
+              f" backward dq/dk/dv {', '.join(f'{r:.2e}' for r in rel)} of "
+              f"each max, two runs bit-equal; V-V {vv:.3e} (= standard "
+              f"mode on [v, v, v] bit for bit); B4 {b4:.3e} (= B1 bit for "
+              f"bit)")
+        del qkv, d_out, lse, got, again, heads, g4, w4
+
+    # each mode's distance from fp64, beside the FMA kernels'
+    B, S, H, hd = 2, 1370, 16, 64
+    dm = H * hd
+    qkv = random_qkv(B, S, H, hd, torch.float32, gen)
+    d_out = torch.randn(B, S, dm, generator=gen, device="cuda")
+    exact = attention_fp64(qkv, H, S)
+    exact_g = attention_fp64(qkv, H, S, d_out)
+    for mode, prec in (("3-pass", HIGH), ("fp32 FMA", None)):
+        out, lse = A.attention_packed(qkv, H, S, return_lse=True,
+                                      precision=prec)
+        g = A.attention_packed_bwd(qkv, d_out, lse, H, S, precision=prec)
+        errs = [(out.double() - exact).abs().max().item()
+                / exact.abs().max().item()]
+        for i in range(3):
+            sl = slice(i * dm, (i + 1) * dm)
+            errs.append((g[..., sl].double() - exact_g[..., sl]).abs().max()
+                        .item() / exact_g[..., sl].abs().max().item())
+        print(f"distance from fp64 [{B},{S},{3 * dm}], {mode} kernels: "
+              f"forward {errs[0]:.3e}, dq {errs[1]:.3e}, dk {errs[2]:.3e}, "
+              f"dv {errs[3]:.3e} of each max")
+    check_tail_isolation("fp32", HIGH)
+    return worst
+
+
+def time_kernels_3pass(card) -> dict:
+    """Phase 11f: CUDA-event times of each 3-pass kernel, its plain
+    version, the fp32 FMA kernel and SDPA (its backward for B2) on the same
+    fp32 inputs (TF32 off), at the predict's and the step's batch 8 (B1,
+    B2, B4) and the stage-1 bench's batch 16 (B3); returns {kernel: (ms,
+    plain ms, SDPA ms, bound ms, bound_by, kernels per call)}."""
+    import torch
+
+    from aaclip_tpu_torch.ops import attention as A
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    B, S, H, hd = TRAIN_BATCH, 1370, 16, 64
+    dm = H * hd
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    out = {}
+
+    def report(name, shape, ms, ms_fma, ms_plain, ms_sdpa, flops, nbytes,
+               per_call):
+        bound_ms, bound_by = bound(3 * flops, nbytes)
+        for what, t in (("3-pass kernel", ms), ("fp32 FMA kernel", ms_fma),
+                        ("plain 3-pass", ms_plain), ("SDPA fp32", ms_sdpa)):
+            print(f"time {name} {what} {shape} fp32: {t:.4f} ms/call "
+                  f"({3 * flops / t / 1e9:.1f} TFLOP/s of the three bf16 "
+                  f"passes; bound {bound_ms:.4f} ms by {bound_by}) on {card}")
+        out[name] = (ms, ms_plain, ms_sdpa, bound_ms, bound_by, per_call)
+
+    qkv = random_qkv(B, S, H, hd, torch.float32, gen)
+    fwd = functools.partial(A.attention_packed, qkv, H, S, precision=HIGH)
+    ms = cuda_ms(fwd, 10)
+    per_call = kernels_per_call(fwd, "attention_packed",
+                                {"attn_fwd_3pass": 1},
+                                "attention_packed 3-pass")
+    q, k, v = qkv.view(B, S, 3, H, hd).permute(2, 0, 3, 1, 4).unbind(0)
+    report("attention_packed", f"[{B},{S},{3 * dm}]", ms,
+           cuda_ms(lambda: A.attention_packed(qkv, H, S), 5),
+           cuda_ms(lambda: A.attention_packed_plain(qkv, H, S,
+                                                    precision=HIGH), 2),
+           cuda_ms(lambda: sdpa(q, k, v), 5),
+           4 * B * H * S * S * hd, 4 * B * S * dm * 4, per_call)
+
+    d_out = torch.randn(B, S, dm, generator=gen, device="cuda")
+    _, lse = A.attention_packed(qkv, H, S, return_lse=True, precision=HIGH)
+    _, lse32 = A.attention_packed(qkv, H, S, return_lse=True)
+    bwd = functools.partial(A.attention_packed_bwd, qkv, d_out, lse, H, S,
+                            precision=HIGH)
+    ms = cuda_ms(bwd, 5)
+    per_call = kernels_per_call(
+        bwd, "attention_packed_bwd",
+        {"attn_bwd_dq_3pass": 1, "attn_bwd_dkdv_3pass": 1},
+        "attention_packed_bwd 3-pass")
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    o = sdpa(qg, kg, vg)
+    g = d_out.view(B, S, H, hd).transpose(1, 2)
+    report("attention_packed_bwd", f"[{B},{S},{3 * dm}]", ms,
+           cuda_ms(lambda: A.attention_packed_bwd(qkv, d_out, lse32, H, S),
+                   2, warmup=1),
+           cuda_ms(lambda: A.attention_packed_bwd_plain(
+               qkv, d_out, H, S, precision=HIGH), 2, warmup=1),
+           cuda_ms(lambda: torch.autograd.grad(o, (qg, kg, vg), g,
+                                               retain_graph=True), 5),
+           10 * B * H * S * S * hd,
+           (2 * qkv.numel() + d_out.numel() + lse.numel()) * 4, per_call)
+    del d_out, lse, lse32, qg, kg, vg, o, g
+
+    heads = [t.contiguous() for t in (q, k, v)]
+    b4 = functools.partial(A.attention_kernel, *heads, S, precision=HIGH)
+    ms = cuda_ms(b4, 10)
+    per_call = kernels_per_call(b4, "attention_packed",
+                                {"attn_fwd_3pass": 1},
+                                "attention_kernel 3-pass")
+    report("attention_kernel", f"[{B},{H},{S},{hd}]", ms,
+           cuda_ms(lambda: A.attention_kernel(*heads, S), 5),
+           cuda_ms(lambda: A.attention_kernel_plain(*heads, S,
+                                                    precision=HIGH), 2),
+           cuda_ms(lambda: sdpa(*heads), 5),
+           4 * B * H * S * S * hd, 4 * B * S * dm * 4, per_call)
+    del qkv, q, k, v, heads
+
+    B = STAGE1_BATCH
+    v = torch.randn(B, S, dm, generator=gen, device="cuda")
+    vv = functools.partial(A.attention_packed_vv, v, H, S, precision=HIGH)
+    ms = cuda_ms(vv, 10)
+    per_call = kernels_per_call(vv, "attention_packed",
+                                {"attn_fwd_3pass": 1},
+                                "attention_packed_vv 3-pass")
+    qv = v.view(B, S, H, hd).transpose(1, 2)
+    report("attention_packed_vv", f"[{B},{S},{dm}]", ms,
+           cuda_ms(lambda: A.attention_packed_vv(v, H, S), 5),
+           cuda_ms(lambda: A.attention_packed_vv_plain(v, H, S,
+                                                       precision=HIGH), 2),
+           cuda_ms(lambda: sdpa(qv, qv, qv), 5),
+           4 * B * H * S * S * hd, 2 * v.numel() * 4, per_call)
+    return out
+
+
+# Phase 11, fp32_high at ViT-L/14-336 @ 518. (a) the predict, against the
+# same predictor with the plain 3-pass attention (the staged blocks keep
+# the bf16 kernel on both sides, so the 3-pass kernel is what differs):
+# phase 4's fp32 bars. (b) the stage-2 step at batch 2 with remat against
+# the plain-attention step: phase 5's bars. (c) spatial stage-1 features
+# at batch 2 against both attentions plain: phase 7's bars. (d) the
+# evaluation CLI's scores bit for bit against a direct predict, on one
+# class of phase 9's set (150 images at 1024 px) and phase 9's checkpoint,
+# (e) the training CLI's step-1 losses against the plain attention on
+# phase 10's set: phase 10's bars.
+
+
+def phase_fp32_high(vit, adapter, cfg, acfg, anchors, M, card,
+                    ckpt_path: str) -> dict:
+    """Phase 11; returns the 3-pass launches per path and the kernels'
+    times for the kernel line."""
+    import dataclasses
+    import gc
+    import os
+
+    import numpy as np
+    import torch
+
+    from aaclip_tpu_torch import test as eval_cli
+    from aaclip_tpu_torch.core.config import DtypePolicy
+    from aaclip_tpu_torch.core.params import (adapter_from_jax,
+                                              adapter_to_jax,
+                                              create_clip_towers,
+                                              init_image_adapter)
+    from aaclip_tpu_torch.data.datasets import (BatchLoader,
+                                                get_test_datasets,
+                                                get_train_datasets)
+    from aaclip_tpu_torch.data.registry import CLASS_NAMES
+    from aaclip_tpu_torch.data.synthetic import make_synthetic_dataset
+    from aaclip_tpu_torch.eval.predict import (make_anchor_encoder,
+                                               make_predict_fn,
+                                               run_class_predictions)
+    from aaclip_tpu_torch.ops import attention as A
+    from aaclip_tpu_torch.text.anchors import encode_dataset_anchors
+    from aaclip_tpu_torch.train import checkpoint as ckpt
+    from aaclip_tpu_torch.train.steps import stage1_features_fn
+
+    t_phase = time.perf_counter()
+    heads, img, n_layers = cfg.vision.heads, cfg.vision.image_size, \
+        cfg.vision.layers
+    high = DtypePolicy.fp32_high()
+    fp32 = DtypePolicy.fp32()
+    staged = high.bf16_until
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    # 3-pass launches per call on each path, by wrapper
+    calls = {"attention_packed": {}, "attention_packed_bwd": {},
+             "attention_packed_vv": {}, "attention_kernel": {}}
+    rates = {}
+
+    # (a) the predict at batch 8, staged and unstaged
+    images = torch.randn(TRAIN_BATCH, 3, img, img, generator=gen,
+                         device="cuda")
+    exact = make_predict_fn(vit, cfg, acfg, policy=fp32)
+    pix32, score32, _ = run_predict(exact, adapter, images, anchors, M)
+    span32 = (pix32.max() - pix32.min()).item()
+    rates["fp32"] = TRAIN_BATCH / cuda_ms(
+        lambda: exact(adapter, images, anchors, M), 3, warmup=1) * 1e3
+    del exact
+    for K in (staged, 0):
+        pol = dataclasses.replace(high, bf16_until=K)
+        kernel = make_predict_fn(vit, cfg, acfg, policy=pol)
+        plain = make_predict_fn(
+            vit, cfg, acfg, policy=pol,
+            attn_fn=make_attn_fn_plain(heads, pol))
+        zero_counts()
+        pix_k, score_k = kernel(adapter, images, anchors, M)
+        torch.cuda.synchronize()
+        n, n3 = A.attention_packed.launches, A.attention_packed.launches_3pass
+        zero_counts()
+        pix_p, score_p = plain(adapter, images, anchors, M)
+        torch.cuda.synchronize()
+        p, p3 = A.attention_packed.launches, A.attention_packed.launches_3pass
+        what = f"predict fp32_high bf16_until {K} B={TRAIN_BATCH}"
+        print(f"{what}: launches {n - n3} bf16 + {n3} 3-pass per call "
+              f"(plain-attention predictor: {p - p3} bf16 + {p3} 3-pass); "
+              f"max|d map| vs plain {(pix_k - pix_p).abs().max().item():.3e}"
+              f", max|d score| {(score_k - score_p).abs().max().item():.3e};"
+              f" from the fp32 predict on the same images: max|d map| "
+              f"{(pix_k - pix32).abs().max().item() / span32:.3e} of its "
+              f"span {span32:.4f}, max|d score| "
+              f"{(score_k - score32).abs().max().item():.3e}")
+        expect(pix_k.shape == (TRAIN_BATCH, img, img)
+               and bool(torch.isfinite(pix_k).all()
+                        and torch.isfinite(score_k).all()),
+               f"{what}: output {pix_k.shape} not finite")
+        expect((n, n3, p, p3) == (n_layers, n_layers - K, K, 0),
+               f"{what}: launches {n}, {n3} (plain {p}, {p3})")
+        torch.testing.assert_close(pix_k, pix_p, atol=PIX_ATOL_FP32,
+                                   rtol=PIX_RTOL_FP32)
+        torch.testing.assert_close(score_k, score_p, atol=SCORE_ATOL_FP32,
+                                   rtol=0)
+        calls["attention_packed"][f"fp32_high predict, bf16_until {K}"] = n3
+        rates[f"fp32_high, bf16_until {K}"] = TRAIN_BATCH / cuda_ms(
+            lambda: kernel(adapter, images, anchors, M), 3, warmup=1) * 1e3
+        del kernel, plain, pix_k, pix_p
+    for name, r in rates.items():
+        print(f"time predict {name} B={TRAIN_BATCH} ViT-L/518: {r:.2f} "
+              f"maps/s on {card}")
+    del images, pix32
+
+    # (b) the stage-2 step at batch 2 with remat, kernel vs plain
+    table = unit_table(cfg.embed_dim, gen)
+    batch2 = train_batch(2, img, gen)
+    zero_counts()
+    loss_k, g_k, fwd, bwd, _ = train_step_once(
+        vit, cfg, acfg, adapter, batch2, table, policy=high, remat=True)
+    f3, _, b3 = counts_3pass()
+    zero_counts()
+    loss_p, g_p, fwd_p, bwd_p, _ = train_step_once(
+        vit, cfg, acfg, adapter, batch2, table, policy=high, remat=True,
+        attn_fn=make_attn_fn_plain(heads, high, differentiable=True))
+    worst_cos, worst_norm = 1.0, 0.0
+    for name, gk in g_k.items():
+        cos = torch.nn.functional.cosine_similarity(
+            gk.flatten().double(), g_p[name].flatten().double(),
+            dim=0).item()
+        norm = abs(gk.norm().item() / g_p[name].norm().item() - 1.0)
+        worst_cos, worst_norm = min(worst_cos, cos), max(worst_norm, norm)
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    print(f"train fp32_high B=2 remat: launches forward {fwd} ({f3} 3-pass),"
+          f" backward {bwd} ({b3} 3-pass); plain step {fwd_p}, {bwd_p}; "
+          f"loss {loss_k:.6f} vs plain {loss_p:.6f} ({rel:.3e} relative); "
+          f"gradients over {len(g_k)} leaves: min cosine {worst_cos:.8f}, "
+          f"max |norm ratio - 1| {worst_norm:.3e}")
+    expect((fwd, f3, bwd, b3) == (S2_FWD_PER_STEP_REMAT,
+                                  S2_FWD_PER_STEP_REMAT, n_layers - 1,
+                                  n_layers - 1),
+           f"fp32_high step launches {fwd}, {f3}, {bwd}, {b3}")
+    expect(fwd_p == bwd_p == 0, "the plain fp32_high step launched a kernel")
+    expect(np.isfinite(loss_k) and rel <= STEP_LOSS_RTOL
+           and worst_cos >= STEP_GRAD_COS
+           and worst_norm <= STEP_GRAD_NORM_RTOL,
+           f"fp32_high step off: loss {rel}, cosine {worst_cos}, norm "
+           f"{worst_norm}")
+    calls["attention_packed"]["fp32_high stage-2 step (remat)"] = f3
+    calls["attention_packed_bwd"]["fp32_high stage-2 step (remat)"] = b3
+    del g_k, g_p, batch2
+    batch8 = train_batch(TRAIN_BATCH, img, gen)
+    for name, pol in (("fp32_high", high), ("fp32", fp32)):
+        _, _, _, _, (ad, opt, sched, step) = train_step_once(
+            vit, cfg, acfg, adapter, batch8, table, policy=pol, remat=False)
+        ms = cuda_ms(lambda: step(ad, *batch8), 3, warmup=1)
+        rates[f"stage-2 {name}"] = TRAIN_BATCH / ms * 1e3
+        print(f"time train step {name} B={TRAIN_BATCH} ViT-L/518 no remat: "
+              f"{ms:.2f} ms/step, {rates[f'stage-2 {name}']:.2f} images/s "
+              f"on {card}")
+        del ad, opt, sched, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    del batch8
+
+    # (c) spatial stage-1 features at batch 2
+    feats_fn = {name: stage1_features_fn(
+        vit, cfg, policy=high, vv_mode="spatial",
+        attn_fn=make_attn_fn_plain(heads, high) if name == "plain" else None,
+        vv_attn_fn=make_attn_fn_plain(heads, high, vv=True)
+        if name == "plain" else None) for name in ("kernel", "plain")}
+    x2 = stage1_batch(2, img, gen)[0]
+    zero_counts()
+    feats_k = feats_fn["kernel"](x2)
+    torch.cuda.synchronize()
+    k_counts, k3 = counts(), counts_3pass()
+    zero_counts()
+    feats_p = feats_fn["plain"](x2)
+    torch.cuda.synchronize()
+    p_counts = counts()
+    vv_layers = STAGE1_SURGERY_UNTIL - 1
+    dmax = (feats_k - feats_p).abs().max().item()
+    cos = torch.nn.functional.cosine_similarity(
+        feats_k.double(), feats_p.double(), dim=-1).min().item()
+    print(f"stage-1 spatial features fp32_high B=2: launches {k_counts} "
+          f"(3-pass {k3}; plain {p_counts}); kernel vs plain max|d| "
+          f"{dmax:.3e}, least per-token cosine {cos:.8f}")
+    expect(k_counts == k3 == (n_layers, vv_layers, 0)
+           and p_counts == (0, 0, 0),
+           f"fp32_high features launches {k_counts}, {k3}, {p_counts}")
+    expect(dmax <= S1_FEAT_MAX_ABS and cos >= S1_FEAT_COS,
+           f"fp32_high features off: {dmax}, {cos}")
+    calls["attention_packed"]["fp32_high stage-1 spatial features"] = k3[0]
+    calls["attention_packed_vv"]["fp32_high stage-1 spatial features"] = \
+        k3[1]
+    del feats_fn, feats_k, feats_p, x2
+
+    # (d) the evaluation CLI, one class, against a direct predict
+    tmp = tempfile.mkdtemp(prefix="aaclip_fp32_high_")
+    env_before = {k: os.environ.get(k) for k in ("AACLIP_DATA",
+                                                 "AACLIP_METADATA")}
+    try:
+        data_root, meta_root = make_synthetic_dataset(
+            os.path.join(tmp, "eval_set"), class_names=["bottle"],
+            n_normal=EVAL_NORMAL, n_anomalous=EVAL_ANOMALOUS,
+            img_px=EVAL_PX, hard=True)
+        os.environ.update(AACLIP_DATA=data_root, AACLIP_METADATA=meta_root)
+        ad_tree = adapter_to_jax(init_image_adapter(cfg, acfg, seed=9,
+                                                    device="cpu"))
+        save = os.path.join(tmp, "eval")
+        ckpt.save_adapter_checkpoint(
+            os.path.join(save, "image_adapter_1.npz"), 1, ad_tree)
+        zero_fused_counts()
+        eval_cli.main(["--clip_checkpoint", ckpt_path, "--save_path", save,
+                       "--precision", "fp32_high", "--batch_size",
+                       str(TRAIN_BATCH), "--dump_scores"])
+        n_batches = -(-(EVAL_NORMAL + EVAL_ANOMALOUS) // TRAIN_BATCH)
+        std, std3 = A.attention_packed.launches, \
+            A.attention_packed.launches_3pass
+        expect((std, std3) == (n_layers * n_batches,
+                               (n_layers - staged) * n_batches),
+               f"eval CLI fp32_high launches {std}, {std3}")
+        vit_l, text = create_clip_towers(cfg, checkpoint=ckpt_path)
+        direct = make_predict_fn(vit_l, cfg, acfg, policy=high)
+        cls_anchors = encode_dataset_anchors(make_anchor_encoder(
+            text, cfg, acfg, policy=high), "MVTec")["bottle"]
+        ds = get_test_datasets("MVTec", img)["bottle"]
+        got = run_class_predictions(direct, adapter_from_jax(
+            ad_tree, cfg, acfg), list(BatchLoader(ds, TRAIN_BATCH)),
+            cls_anchors, "Industrial", img, cfg.vision.grid)
+        rows = read_csv(os.path.join(save, "scores_1.csv"))[1:]
+        expect([r[1] for r in rows] == got[4]
+               and [float(r[3]) for r in rows] == [float(x) for x in got[3]],
+               "eval CLI fp32_high: scores differ from the direct predict")
+        print(f"eval CLI fp32_high B={TRAIN_BATCH}: {n_batches} batches, "
+              f"{std - std3} bf16 + {std3} 3-pass launches; the CLI's "
+              f"scores equal the direct predict's bit for bit")
+        calls["attention_packed"]["fp32_high evaluation CLI"] = std3
+        del vit_l, text, direct
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (e) the training CLI, one text and one image epoch
+        data_root, meta_root = make_synthetic_dataset(
+            os.path.join(tmp, "train_set"),
+            class_names=CLASS_NAMES["MVTec"][:TRAIN_CLI_CLASSES],
+            n_normal=TRAIN_CLI_PER_KIND, n_anomalous=TRAIN_CLI_PER_KIND,
+            img_px=TRAIN_CLI_PX, hard=True)
+        os.environ.update(AACLIP_DATA=data_root, AACLIP_METADATA=meta_root)
+        train_dir = os.path.join(tmp, "train")
+        n_img = TRAIN_CLI_CLASSES * 2 * TRAIN_CLI_PER_KIND
+        zero_fused_counts()
+        losses = train_cli_losses([
+            "--clip_checkpoint", ckpt_path, "--dataset", "MVTec",
+            "--training_mode", "full_shot", "--precision", "fp32_high",
+            "--save_path", train_dir, "--text_epoch", "1",
+            "--image_epoch", "1"])
+        n_feat, n_step = -(-n_img // STAGE1_BATCH), -(-n_img // 2)
+        got_counts, got3 = counts(), counts_3pass()
+        # no path runs B4: its 3-pass count, zeroed with the others
+        calls["attention_kernel"]["fp32_high training CLI"] = \
+            A.attention_kernel.launches_3pass
+        expect(A.attention_kernel.launches == 0,
+               "the training CLI launched attention_kernel")
+        want = (n_layers * n_feat + S2_FWD_PER_STEP_REMAT * n_step, 0,
+                (n_layers - 1) * n_step)
+        expect([len(e) for e in losses] == [n_feat, n_step]
+               and all(np.isfinite(v).all() for v in losses)
+               and got_counts == got3 == want,
+               f"train CLI fp32_high: {[len(e) for e in losses]} steps, "
+               f"launches {got_counts} (3-pass {got3}), not {want}")
+        vit_l, text = create_clip_towers(cfg, checkpoint=ckpt_path)
+        text_ds, image_ds = get_train_datasets("MVTec", img, -1,
+                                               seed=TRAIN_CLI_SEED)
+        plain1, plain2 = plain_first_losses(vit_l, text, cfg, acfg, high,
+                                            train_dir, text_ds, image_ds)
+        r1 = abs(losses[0][0] - plain1) / abs(plain1)
+        r2 = abs(losses[1][0] - plain2) / abs(plain2)
+        print(f"train CLI fp32_high: {n_img} images, {n_feat} features "
+              f"calls and {n_step} stage-2 steps, launches {got_counts} all "
+              f"3-pass; step-1 losses vs plain attention: stage 1 "
+              f"{losses[0][0]:.6f} vs {plain1:.6f} ({r1:.3e}), stage 2 "
+              f"{losses[1][0]:.6f} vs {plain2:.6f} ({r2:.3e})")
+        expect(r1 <= S1_STEP_LOSS_RTOL and r2 <= STEP_LOSS_RTOL,
+               f"train CLI fp32_high: step-1 losses off by {r1}, {r2}")
+        calls["attention_packed"]["fp32_high training CLI"] = got3[0]
+        calls["attention_packed_bwd"]["fp32_high training CLI"] = got3[2]
+        del vit_l, text
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        for k, v in env_before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (f) the 3-pass kernels' times
+    times = time_kernels_3pass(card)
+    print(f"phase 11 (fp32_high) took {time.perf_counter() - t_phase:.0f} s")
+    return {"calls": calls, "times": times, "rates": rates}
+
+
+def make_attn_fn_plain(heads: int, policy, *, vv: bool = False,
+                       differentiable: bool = False):
+    """``make_attn_fn`` on the plain attention of its kind."""
+    from aaclip_tpu_torch.ops import attention as A
+
+    plain = (A.attention_packed_vv_plain if vv else
+             A.attention_packed_diff_plain if differentiable else
+             A.attention_packed_plain)
+    return A.make_attn_fn(heads, policy, vv=vv, differentiable=differentiable,
+                          attention=plain)
+
+
 def main() -> int:
     import torch
 
@@ -2748,6 +3400,7 @@ def main() -> int:
     from aaclip_tpu_torch.kernels.build import KERNELS, build_all
     from aaclip_tpu_torch.ops.similarity import fused_postproc_matrix
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -2773,6 +3426,7 @@ def main() -> int:
         check_tail_isolation(d)
     check_matmul_f32_grad()
     err_vv = max(check_vv_kernel(d) for d in DTYPES)
+    err_high = check_kernels_3pass()
 
     cfg = get_config("ViT-L-14-336", img_size=518)
     acfg = AdapterConfig()
@@ -2827,11 +3481,16 @@ def main() -> int:
         phase_eval_cli(card, ckpt_path)
         print(f"[{time.perf_counter() - t0:.0f} s] training CLI")
         train_cli = phase_train_cli(card, ckpt_path)
+        # -- 11. fp32_high
+        print(f"[{time.perf_counter() - t0:.0f} s] fp32_high")
+        high = phase_fp32_high(vit, adapter, cfg, acfg, anchors, M, card,
+                               ckpt_path)
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     check_device_ops()
 
-    print(f"[{time.perf_counter() - t0:.0f} s] done")
+    print(f"[{time.perf_counter() - t0:.0f} s] done: the whole script took "
+          f"{time.perf_counter() - t_start:.0f} s")
     # (name, source, replaces, launches, max |d|)
     fused_rows = [
         ("attention_kernel", "attention_packed.cu",
@@ -2844,6 +3503,28 @@ def main() -> int:
          fused_launches["linear_residual"], err_fused["linear_residual"]),
         ("mlp_fused", "fused_block.cu", "aaclip_tpu/ops/fused_block.py:244",
          fused_launches["mlp_fused"], err_fused["mlp_fused"]),
+    ]
+    hc = high["calls"]
+    # (name, source, replaces, launches on the main path, calls per path,
+    # max |d|): B1's on the staged predict, B2's on the stage-2 step, B3's
+    # on the spatial features, B4 on no path
+    high_rows = [
+        ("attention_packed", "attention_packed.cu",
+         "aaclip_tpu/ops/flash_attention.py:190",
+         hc["attention_packed"]["fp32_high predict, bf16_until 6"],
+         hc["attention_packed"], err_high["fwd"]),
+        ("attention_packed_bwd", "attention_packed_bwd.cu",
+         "aaclip_tpu/ops/flash_attention.py:302",
+         hc["attention_packed_bwd"]["fp32_high stage-2 step (remat)"],
+         hc["attention_packed_bwd"], err_high["bwd"]),
+        ("attention_packed_vv", "attention_packed.cu",
+         "aaclip_tpu/ops/flash_attention.py:190",
+         hc["attention_packed_vv"]["fp32_high stage-1 spatial features"],
+         hc["attention_packed_vv"], err_high["vv"]),
+        ("attention_kernel", "attention_packed.cu",
+         "aaclip_tpu/ops/flash_attention.py:94",
+         hc["attention_kernel"]["fp32_high training CLI"],
+         hc["attention_kernel"], err_high["b4"]),
     ]
     print(json.dumps({"kernels": [{
         "name": "attention_packed",
@@ -2906,7 +3587,21 @@ def main() -> int:
         "bound_ms": fused_times[name][3],
         "bound_by": fused_times[name][4],
         "library_ms": fused_times[name][2],
-    } for name, source, replaces, launches, err in fused_rows]}))
+    } for name, source, replaces, launches, err in fused_rows] + [{
+        "name": f"{name} (3-pass)",
+        "route": "cuda",
+        "source": f"aaclip_tpu_torch/kernels/csrc/{source}",
+        "replaces": replaces,
+        "launches": launches,
+        "calls": calls,
+        "kernels_per_call": high["times"][name][5],
+        "max_abs_err": err,
+        "ms": high["times"][name][0],
+        "plain_ms": high["times"][name][1],
+        "bound_ms": high["times"][name][3],
+        "bound_by": high["times"][name][4],
+        "library_ms": high["times"][name][2],
+    } for name, source, replaces, launches, calls, err in high_rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

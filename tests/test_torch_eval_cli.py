@@ -124,8 +124,6 @@ def test_log_has_the_table_and_the_rate(runs):
 
 
 @pytest.mark.parametrize("flags,label", [
-    (["--precision", "fp32_high"], "ROADMAP A7"),
-    (["--bf16_until", "4"], "ROADMAP A7"),
     (["--precision", "int8"], "ROADMAP A12"),
     (["--int8_until", "2"], "ROADMAP A12"),
     (["--data_parallel"], "ROADMAP A12"),

@@ -220,7 +220,6 @@ def test_evaluations_of_both_runs_agree(runs):
 
 
 @pytest.mark.parametrize("flags,label", [
-    (["--precision", "fp32_high"], "ROADMAP A7"),
     (["--remat", "selective"], "ROADMAP A13"),
     (["--data_parallel"], "ROADMAP A12"),
     (["--tensor_parallel", "2"], "ROADMAP A12"),
