@@ -24,11 +24,26 @@
 // tensor cores' ~4096 per SM and clock, so the design overlaps the two.
 //
 // Routes. bf16 at head dim kTmaHeadDim (64: ViT-L and ViT-B) runs
-// attn_fwd_wgmma, the design below. The other instantiations keep the
-// first port's kernels: bf16 at head dim 16 (tiny-test) on mma.sync
-// (attn_bf16_kernel: one block per 64 query rows, K/V tiles of 64 copied
-// through registers), and fp32, the parity policy, on fp32 FMA with one
-// thread per query row and no TF32 (attn_f32_kernel).
+// attn_fwd_wgmma, the design below. fp32 at head dim 64, the CLIs'
+// default precision ("highest"), runs attn_fwd_6pass on the same TMA +
+// wgmma machinery (below). fp32 under precision "high" runs the 3-pass
+// mode (attn_fwd_3pass, mma.sync). Head dim 16 (tiny-test) keeps the
+// first port's kernels: bf16 on mma.sync (attn_bf16_kernel: one block per
+// 64 query rows, K/V tiles of 64 copied through registers) and fp32 on
+// FMA with one thread per query row and no TF32 (attn_f32_kernel).
+//
+// The fp32 route at head dim 64 (attn_fwd_6pass) replaces the same TPU
+// kernel at precision "highest", where _kdot (flash_attention.py:49-71)
+// lowers every product to the MXU's native 6-pass form: six bf16
+// products of the operands' bf16 hi/mid/lo planes. What bounds it: those
+// six passes, 6 x 4*B*H*S^2*hd = 369.0 GFLOP at the fp32 predict's batch
+// 8, 0.373 ms at 989 TFLOP/s, while on fp32 FMA at 67 TFLOP/s the one
+// true-fp32 pass alone takes at least 0.92 ms. The design: a split
+// kernel (split3_kernel) writes each fp32 operand's three bf16 planes to
+// scratch, so every tile arrives by TMA as in the bf16 route; each product
+// is six wgmma chains into one fp32 accumulator; P stays fp32 and is split
+// in registers. TF32's wgmma would do three passes at the same cost, but it
+// reads only K-major operands, and P V needs V MN-major.
 //
 // Design of attn_fwd_wgmma. The TPU kernel holds a head's whole K and V
 // in VMEM (~360 KB at S 1408), more than a block's 227 KB of shared
@@ -313,9 +328,11 @@ constexpr int kFwdSmem = kSwizzleAtom +  // slack to align the tiles
 static_assert(kTmaHeadDim == kTileCols, "one tile row is one head");
 
 // Tensor-map coordinates of head h of image b: column h * hcol, depth
-// b * bz + h * hz ((hd, 1, 0) packed; (0, H, 1) on [B, H, S, hd]).
+// b * bz + h * hz ((hd, 1, 0) packed; (0, H, 1) on [B, H, S, hd]); the
+// 6-pass route's bf16 plane p lies pz further in depth (0 on the bf16
+// route, which has one plane).
 struct MapCoords {
-  int hcol, bz, hz;
+  int hcol, bz, hz, pz;
 };
 
 constexpr float kLog2e = 1.4426950408889634f;
@@ -557,10 +574,263 @@ int launch_wgmma(const MapOperand (&qkv)[3], MapCoords mc, int batch,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------ fp32, hd 64: 6-pass
+
+constexpr int kX6Keys = kWgRows;  // keys per TMA tile: one 64-row box
+constexpr int kX6Stages = 3;      // K/V tile pairs in flight
+constexpr int kBoxBytes = kWgRows * kRowBytes;   // 8 KB: one plane of a box
+constexpr int kX6QPlane = kFwdRows * kRowBytes;  // 16 KB: one plane of Q
+constexpr int kX6StageBytes = 2 * kPlanes * kBoxBytes;  // K and V planes
+constexpr int kX6Smem = kSwizzleAtom + kPlanes * kX6QPlane +
+                        kX6Stages * kX6StageBytes + 8 * (1 + 2 * kX6Stages);
+
+// split3_kernel: the 6-pass route's operand staging. fp32 x[n] becomes
+// its bf16 planes hi, mid, lo (mma_common.cuh, split3) at planes,
+// planes + stride and planes + 2 * stride, four values per thread and
+// step (x 16-byte aligned, stride a multiple of 4), the n % 4 tail one by
+// one. What bounds it: bytes, 4 read and 6 written per value (0.10 ms for
+// the step's qkv [8, 1370, 3072] at 3.35 TB/s).
+__global__ void __launch_bounds__(256)
+split3_kernel(const float* __restrict__ x, __nv_bfloat16* __restrict__ planes,
+              int64_t n, int64_t stride) {
+  const int64_t step = (int64_t)gridDim.x * blockDim.x;
+  const int64_t first = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  __nv_bfloat16* mid = planes + stride;
+  __nv_bfloat16* lo = mid + stride;
+  for (int64_t i = first; i < n / 4; i += step) {
+    const float4 v = reinterpret_cast<const float4*>(x)[i];
+    uint2 h, m, l;
+    split3_pack(v.x, v.y, h.x, m.x, l.x);
+    split3_pack(v.z, v.w, h.y, m.y, l.y);
+    reinterpret_cast<uint2*>(planes)[i] = h;
+    reinterpret_cast<uint2*>(mid)[i] = m;
+    reinterpret_cast<uint2*>(lo)[i] = l;
+  }
+  for (int64_t i = n / 4 * 4 + first; i < n; i += step)
+    split3(x[i], planes[i], mid[i], lo[i]);
+}
+
+// One tile of the 6-pass forward's online softmax for rows g and g + 8 of
+// a warp, on 64 keys: the raw scores s (keys at or past valid_len read as
+// -inf when kMask) scaled as the FMA and 3-pass kernels and the TPU kernel
+// scale them (one rounded product), the running max m and the row sums l
+// in that domain (alpha, which the caller applies to O, rescales l here),
+// and P = expf(score - max) with the precise expf, kept in fp32 and split
+// into the A fragments of its three planes (pf[plane][k-step]) for O +=
+// P V. (The bf16 route's exp2 of one FFMA is faster and rounds otherwise;
+// at fp32 the route follows the reference's arithmetic.)
+template <bool kMask>
+__device__ __forceinline__ void softmax_tile6(const float (&s)[32],
+                                              float (&m)[2], float (&l)[2],
+                                              uint32_t (&pf)[kPlanes][4][4],
+                                              float (&alpha)[2], int k0,
+                                              int valid_len, float scale,
+                                              int t) {
+  auto score = [&](int j, int i) {
+    return kMask && k0 + j * 8 + t * 2 + (i & 1) >= valid_len
+               ? -INFINITY
+               : __fmul_rn(s[4 * j + i], scale);
+  };
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) mx[i >> 1] = fmaxf(mx[i >> 1], score(j, i));
+  float mref[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    mref[r] = mx[r] == -INFINITY ? 0.f : mx[r];
+    alpha[r] = expf(m[r] - mref[r]);
+    m[r] = mx[r];
+    l[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int k = j >> 1, r = (j & 1) * 2;
+    const float p0 = expf(score(j, 0) - mref[0]);
+    const float p1 = expf(score(j, 1) - mref[0]);
+    const float p2 = expf(score(j, 2) - mref[1]);
+    const float p3 = expf(score(j, 3) - mref[1]);
+    l[0] += p0 + p1;
+    l[1] += p2 + p3;
+    split3_pack(p0, p1, pf[0][k][r], pf[1][k][r], pf[2][k][r]);
+    split3_pack(p2, p3, pf[0][k][r + 1], pf[1][k][r + 1], pf[2][k][r + 1]);
+  }
+}
+
+// attn_fwd_6pass: fp32 at head dim 64 under precision "highest" (or
+// None), on the bf16 planes split3_kernel wrote; the tensor maps span all
+// three planes in depth (plane p of head h, image b at depth b * bz +
+// h * hz + p * pz). The layout of attn_fwd_wgmma (a producer warpgroup,
+// two consumers of 64 query rows, 128-byte-swizzled TMA tiles in a ring)
+// with three planes of every tile and keys in tiles of 64: Q's planes take
+// 48 KB and each stage's K and V planes 48 KB. S = Q K^T is mma6_ss (six
+// chains of m64n64k16 from shared memory); P stays fp32 and is split in
+// registers into the A fragments of its planes for O += P V (mma6_rs, the
+// V planes read MN-major). Each tile's P V goes into its own accumulator,
+// which is added to the fp32 running O in registers (O = O * alpha +
+// tile): the tensor cores' chains stay 24 products long, and the sum over
+// tiles is rounded as fp32 adds round. Each consumer waits for its own
+// products (the other consumer's run meanwhile): issuing tile kt + 1's S
+// before tile kt's softmax, into a second score set, made ptxas inject a
+// wait (C7517) and gained no time that two runs could tell apart. One row
+// sum
+// over the fp32 P, one division at the end, and m + log(l) into `lse` when
+// it is non-null.
+__global__ void __launch_bounds__(kFwdThreads, 1)
+attn_fwd_6pass(const __grid_constant__ CUtensorMap tq,
+               const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv,
+               float* __restrict__ out, float* __restrict__ lse, int S,
+               int valid_len, MapCoords mc, Layout ol, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sQ = align_atom(smem_raw);  // [plane][128 rows][64]
+  uint8_t* sKV = sQ + kPlanes * kX6QPlane;
+  // stage st: K planes at sKV + st * kX6StageBytes + p * kBoxBytes, V
+  // planes kPlanes boxes further
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(sKV + kX6Stages * kX6StageBytes);
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + kX6Stages;
+
+  const int q0 = blockIdx.x * kFwdRows;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int col = h * mc.hcol, depth = b * mc.bz + h * mc.hz;
+  const int n_tiles = (valid_len + kX6Keys - 1) / kX6Keys;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kX6Stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2 * 128);  // every consumer thread
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {  // producer
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 2 * 128) {
+      mbar_arrive_expect_tx(q_full, kPlanes * kX6QPlane);
+      for (int p = 0; p < kPlanes; ++p)
+        for (int half = 0; half < 2; ++half)
+          tma_load_3d(sQ + p * kX6QPlane + half * kBoxBytes, &tq, q_full,
+                      col, q0 + half * kWgRows, depth + p * mc.pz);
+      for (int kt = 0; kt < n_tiles; ++kt) {
+        const int st = kt % kX6Stages;
+        if (kt >= kX6Stages) mbar_wait(&empty[st], (kt / kX6Stages - 1) & 1);
+        uint8_t* dst = sKV + st * kX6StageBytes;
+        mbar_arrive_expect_tx(&full[st], kX6StageBytes);
+        for (int p = 0; p < kPlanes; ++p) {
+          tma_load_3d(dst + p * kBoxBytes, &tk, &full[st], col,
+                      kt * kX6Keys, depth + p * mc.pz);
+          tma_load_3d(dst + (kPlanes + p) * kBoxBytes, &tv, &full[st], col,
+                      kt * kX6Keys, depth + p * mc.pz);
+        }
+      }
+    }
+  } else {  // consumers: 64 query rows each
+    setmaxnreg_inc<kConsumerRegs>();
+    const int warp = (threadIdx.x % 128) / 32;
+    const int g = (threadIdx.x & 31) >> 2;
+    const int t = threadIdx.x & 3;
+    const uint64_t dq = sw128_desc(sQ + wg * kBoxBytes);
+    float o[32], ot[32];  // running O; the current tile's P V
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY};  // running max of rows g, g + 8
+    float l[2] = {0.f, 0.f};              // this thread's share of the sums
+    uint32_t pf[kPlanes][4][4];           // P's planes as A fragments
+    const int n_full = valid_len / kX6Keys;  // tiles with no masked key
+    mbar_wait(q_full, 0);
+
+    float s[32];
+    for (int kt = 0; kt < n_tiles; ++kt) {
+      const int st = kt % kX6Stages;
+      uint8_t* stage = sKV + st * kX6StageBytes;
+      mbar_wait(&full[st], (kt / kX6Stages) & 1);
+      wgmma_fence();
+      mma6_ss(s, dq, kX6QPlane, sw128_desc(stage), kBoxBytes);  // S = Q K^T
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operand(s);
+      float alpha[2];
+      if (kt < n_full)
+        softmax_tile6<false>(s, m, l, pf, alpha, 0, valid_len, scale, t);
+      else
+        softmax_tile6<true>(s, m, l, pf, alpha, kt * kX6Keys, valid_len,
+                            scale, t);
+      wgmma_fence();
+      mma6_rs(ot, pf, sw128_desc(stage + kPlanes * kBoxBytes), kBoxBytes);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operand(ot);
+      fence_frags6(pf);
+      mbar_arrive(&empty[st]);
+#pragma unroll
+      for (int nd = 0; nd < 8; ++nd) {
+        o[4 * nd + 0] = fmaf(o[4 * nd + 0], alpha[0], ot[4 * nd + 0]);
+        o[4 * nd + 1] = fmaf(o[4 * nd + 1], alpha[0], ot[4 * nd + 1]);
+        o[4 * nd + 2] = fmaf(o[4 * nd + 2], alpha[1], ot[4 * nd + 2]);
+        o[4 * nd + 3] = fmaf(o[4 * nd + 3], alpha[1], ot[4 * nd + 3]);
+      }
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+    const int row_a = q0 + wg * kWgRows + warp * 16 + g;
+    const int row_b = row_a + 8;
+    float* ob = out + b * ol.batch + h * ol.head + t * 2;
+#pragma unroll
+    for (int nd = 0; nd < 8; ++nd) {
+      if (row_a < S)
+        *reinterpret_cast<float2*>(ob + row_a * ol.row + nd * 8) =
+            make_float2(o[4 * nd + 0] / l[0], o[4 * nd + 1] / l[0]);
+      if (row_b < S)
+        *reinterpret_cast<float2*>(ob + row_b * ol.row + nd * 8) =
+            make_float2(o[4 * nd + 2] / l[1], o[4 * nd + 3] / l[1]);
+    }
+    if (lse != nullptr && t == 0) {
+      float* lrow = lse + ((int64_t)b * gridDim.y + h) * S;
+      if (row_a < S) lrow[row_a] = m[0] + logf(l[0]);
+      if (row_b < S) lrow[row_b] = m[1] + logf(l[1]);
+    }
+  }
+}
+
+// attn_fwd_6pass on three bf16-plane operands (MapOperand.depth counts
+// all three planes, mc.pz the depth of one).
+int launch_6pass(const MapOperand (&qkv)[3], MapCoords mc, int batch,
+                 int seq, int valid_len, int heads, float* out, float* lse,
+                 Layout ol, float scale, cudaStream_t st) {
+  CUtensorMap maps[3];
+  for (int i = 0; i < 3; ++i) {
+    const MapOperand& a = qkv[i];
+    const cudaError_t err = make_tile_map(
+        &maps[i], a.base, a.cols, a.rows, a.depth, a.row * 2, a.step * 2,
+        kWgRows);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_fwd_6pass, cudaFuncAttributeMaxDynamicSharedMemorySize, kX6Smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((seq + kFwdRows - 1) / kFwdRows, heads, batch);
+  attn_fwd_6pass<<<grid, kFwdThreads, kX6Smem, st>>>(
+      maps[0], maps[1], maps[2], out, lse, seq, valid_len, mc, ol, scale);
+  note_launch();
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ------------------------------------------------ the retained routes
 
-// bf16 at head dim 16 and fp32 at 16 and 64; cudaErrorInvalidValue for a
-// pair with no kernel.
+// bf16 and fp32 at head dim 16; cudaErrorInvalidValue for a pair with no
+// kernel.
 int launch_retained(bool bf16, int head_dim, int batch, int seq,
                     int valid_len, int heads, const void* q, const void* k,
                     const void* v, void* out, float* lse, Layout in,
@@ -575,12 +845,6 @@ int launch_retained(bool bf16, int head_dim, int batch, int seq,
     note_launch();
   } else if (!bf16 && head_dim == 16) {
     attn_f32_kernel<16><<<grid, kBlockM, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(out), lse, seq,
-        valid_len, in, ol, scale);
-    note_launch();
-  } else if (!bf16 && head_dim == 64) {
-    attn_f32_kernel<64><<<grid, kBlockM, 0, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(out), lse, seq,
         valid_len, in, ol, scale);
@@ -770,9 +1034,10 @@ int launch_3pass(int head_dim, int batch, int seq, int valid_len, int heads,
 // sections of head h start at column {q,k,v}_off + h * head_dim. lse:
 // [batch, heads, seq] fp32, or null to skip it. bf16 at head dim
 // kTmaHeadDim takes attn_fwd_wgmma, whose tensor maps need qkv, each
-// section's start and ld * 2 bytes to be multiples of kTmaAlign. Returns
+// section's start and ld * 2 bytes to be multiples of kTmaAlign; fp32 at
+// kTmaHeadDim has its own entry (aaclip_attention_packed_6pass). Returns
 // the CUDA error of the launch (0 on success); cudaErrorInvalidValue for a
-// head dim with no instantiation or an operand TMA cannot take.
+// pair with no kernel here or an operand TMA cannot take.
 extern "C" int aaclip_attention_packed(const void* qkv, void* out,
                                        float* lse, int bf16,
                                        int head_dim, int batch, int seq,
@@ -847,4 +1112,73 @@ extern "C" int aaclip_attention_bhsd_3pass(const float* q, const float* k,
   return launch_3pass(head_dim, batch, seq, valid_len, heads, q, k, v, out,
                       nullptr, l, l, scale,
                       static_cast<cudaStream_t>(stream));
+}
+
+// The 6-pass route (fp32 at head dim kTmaHeadDim under precision "highest"
+// or None) of aaclip_attention_packed: `planes` holds the bf16 planes hi,
+// mid and lo of the fp32 qkv [batch, seq, ld], one after the other
+// (aaclip_split3 with stride batch * seq * ld), and attn_fwd_6pass reads
+// them through tensor maps, which need each section's start and ld * 2
+// bytes to be multiples of kTmaAlign. out [batch, seq, out_ld] and lse as
+// aaclip_attention_packed's, in fp32. cudaErrorInvalidValue for another
+// head dim.
+extern "C" int aaclip_attention_packed_6pass(
+    const void* planes, float* out, float* lse, int head_dim, int batch,
+    int seq, int valid_len, int heads, long long ld, int q_off, int k_off,
+    int v_off, long long out_ld, float scale, void* stream) {
+  if (head_dim != kTmaHeadDim) return static_cast<int>(cudaErrorInvalidValue);
+  const char* base = static_cast<const char*>(planes);
+  const int64_t cols = (int64_t)heads * head_dim;
+  const int64_t depth = (int64_t)kPlanes * batch;
+  const int64_t step = (int64_t)seq * ld;
+  const MapOperand ops[3] = {{base + 2 * (int64_t)q_off, cols, seq, depth,
+                              ld, step},
+                             {base + 2 * (int64_t)k_off, cols, seq, depth,
+                              ld, step},
+                             {base + 2 * (int64_t)v_off, cols, seq, depth,
+                              ld, step}};
+  const Layout ol{(int64_t)seq * out_ld, head_dim, out_ld};
+  return launch_6pass(ops, MapCoords{head_dim, 1, 0, batch}, batch, seq,
+                      valid_len, heads, out, lse, ol, scale,
+                      static_cast<cudaStream_t>(stream));
+}
+
+// The 6-pass route of aaclip_attention_bhsd: q, k and v each the three
+// bf16 planes of an fp32 [batch, heads, seq, head_dim] operand
+// (aaclip_split3 with stride batch * heads * seq * head_dim).
+extern "C" int aaclip_attention_bhsd_6pass(const void* q, const void* k,
+                                           const void* v, float* out,
+                                           int head_dim, int batch, int seq,
+                                           int valid_len, int heads,
+                                           float scale, void* stream) {
+  if (head_dim != kTmaHeadDim) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t hs = (int64_t)seq * head_dim;
+  const int64_t depth = (int64_t)kPlanes * batch * heads;
+  const MapOperand ops[3] = {{q, head_dim, seq, depth, head_dim, hs},
+                             {k, head_dim, seq, depth, head_dim, hs},
+                             {v, head_dim, seq, depth, head_dim, hs}};
+  const Layout l{heads * hs, hs, head_dim};
+  return launch_6pass(ops, MapCoords{0, heads, 1, batch * heads}, batch, seq,
+                      valid_len, heads, out, nullptr, l, scale,
+                      static_cast<cudaStream_t>(stream));
+}
+
+// fp32 x[n] (16-byte aligned) into its bf16 planes hi, mid, lo at planes,
+// planes + stride and planes + 2 * stride (stride a multiple of 4,
+// planes 16-byte aligned): split3_kernel. cudaErrorInvalidValue for an
+// alignment it cannot take.
+extern "C" int aaclip_split3(const float* x, void* planes, long long n,
+                             long long stride, void* stream) {
+  if (reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(planes) % 16 || stride % 4 || stride < n ||
+      n < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = (n / 4 + 255) / 256;
+  split3_kernel<<<static_cast<unsigned>(blocks < 1 ? 1
+                                        : blocks > 4096 ? 4096
+                                                        : blocks),
+                  256, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, static_cast<__nv_bfloat16*>(planes), n, stride);
+  note_launch();
+  return static_cast<int>(cudaGetLastError());
 }

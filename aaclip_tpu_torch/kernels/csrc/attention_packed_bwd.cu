@@ -44,11 +44,29 @@
 // deterministic; this design takes neither.
 //
 // Routes. bf16 at head dim kTmaHeadDim (64) runs the TMA + wgmma pair
-// attn_bwd_dq_wgmma / attn_bwd_dkdv_wgmma below. bf16 at head dim 16
-// (tiny-test) keeps the first port's mma.sync pair (4 warps of 16 rows,
-// tiles of 64 copied through registers), and fp32, the parity policy,
-// keeps fp32 FMA (32 rows per block, two threads per row, each owning half
-// its columns; no TF32).
+// attn_bwd_dq_wgmma / attn_bwd_dkdv_wgmma below. fp32 at head dim 64, the
+// CLIs' default precision ("highest"), runs attn_bwd_dq_6pass /
+// attn_bwd_dkdv_6pass, the same pair with every product in the TPU's
+// native 6-pass form (below). fp32 under precision "high" runs the 3-pass
+// pair (attn_bwd_*_3pass, mma.sync). Head dim 16 (tiny-test) keeps the
+// first port's kernels: bf16 on the mma.sync pair (4 warps of 16 rows,
+// tiles of 64 copied through registers), fp32 on FMA (32 rows per block,
+// two threads per row, each owning half its columns; no TF32).
+//
+// The fp32 route at head dim 64. Under "highest" the TPU kernel's
+// _kdot (flash_attention.py:49-71) computes each product as six bf16
+// products of the operands' hi/mid/lo planes, and that is the work here:
+// the pair's nine products x 6 = 1660.6 GFLOP at [8, 1370, 3072], 1.679
+// ms at 989 TFLOP/s (the TPU kernel's five products: 0.933 ms). On fp32
+// FMA at 67 TFLOP/s the nine true-fp32 products alone take at least 4.13
+// ms, about what a library's fp32 backward takes on tensor cores. So
+// the fp32 pair runs the wgmma pair's design on bf16 planes: the wrapper
+// splits qkv and dO into hi/mid/lo planes (attention_packed.cu,
+// split3_kernel), the planes arrive by TMA, each product is six wgmma
+// chains into one fp32 accumulator, and P and dS stay fp32, split in
+// registers. (TF32's wgmma would take three passes at the same rate, but
+// only K-major operands; dV = P^T dO, dQ = dS K and dK = dS^T Q need the
+// MN-major B operand that only bf16 and fp16 wgmma take.)
 //
 // Design of the wgmma pair. Each block has three warpgroups: two
 // consumers of 64 rows each (128 rows per block) and a producer whose
@@ -989,6 +1007,436 @@ int launch_wgmma(int batch, int seq, int heads, cudaStream_t st,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------ fp32, hd 64: 6-pass
+
+// The fp32 pair at precision "highest" on the bf16 planes of qkv and dO
+// (attention_packed.cu, aaclip_split3): the layout of the wgmma pair with
+// three planes of every tile, so each block's own 128 rows of two
+// operands take 96 KB and a stage of two streamed 64-row tiles 48 KB:
+// two stages fit. Every product is six wgmma chains (mma6_ss, mma6_rs;
+// hopper_common.cuh); P = exp(s - lse) and dS = P * (dP - dsum) * scale
+// stay fp32 and are split in registers; dO is consumed in fp32 (the TPU
+// kernel's do.astype(v.dtype)). A gradient sums its tiles in fp32
+// registers: each tile's product goes into its own accumulator first, so
+// the tensor cores' chains stay 24 products long.
+constexpr int kX6BwdStages = 2;
+constexpr int kBlockPlane = kBlockRows * kRowBytes;  // 16 KB: one plane
+constexpr int kX6Own = 2 * kPlanes * kBlockPlane;    // the block's rows
+constexpr int kX6Walk = 2 * kPlanes * kWalkBytes;    // one stage's tiles
+constexpr int kX6DqSmem = kSwizzleAtom + kX6Own + kX6BwdStages * kX6Walk +
+                          8 * (1 + 2 * kX6BwdStages);
+constexpr int kX6DkdvSmem = kSwizzleAtom + kX6Own + kX6BwdStages * kX6Walk +
+                            kX6BwdStages * 2 * kWalkRows * 4 +
+                            8 * (1 + 2 * kX6BwdStages);
+
+// All three planes of the block's own 128 rows of one operand (plane p
+// at depth `depth` + p * pz, kBlockPlane bytes apart).
+__device__ __forceinline__ void load_block_planes(uint8_t* dst,
+                                                  const CUtensorMap* map,
+                                                  uint64_t* bar, int col,
+                                                  int row0, int depth,
+                                                  int pz) {
+  for (int p = 0; p < kPlanes; ++p)
+    load_block_rows(dst + p * kBlockPlane, map, bar, col, row0,
+                    depth + p * pz);
+}
+
+// All three planes of one streamed 64-row tile (kWalkBytes apart).
+__device__ __forceinline__ void load_walk_planes(uint8_t* dst,
+                                                 const CUtensorMap* map,
+                                                 uint64_t* bar, int col,
+                                                 int row0, int depth,
+                                                 int pz) {
+  for (int p = 0; p < kPlanes; ++p)
+    tma_load_3d(dst + p * kWalkBytes, map, bar, col, row0, depth + p * pz);
+}
+
+// fp32 P of score s[4j + i] from the logsumexp, as the FMA kernels take
+// it (precise expf); keys at or past valid_len get 0 when kMask.
+template <bool kMask>
+__device__ __forceinline__ float prob6(const float (&s)[32], int j, int i,
+                                       int k0, int valid_len, float scale,
+                                       const float (&lse_r)[2], int t) {
+  const bool keep = !kMask || k0 + j * 8 + t * 2 + (i & 1) < valid_len;
+  return keep ? expf(__fmul_rn(s[4 * j + i], scale) - lse_r[i >> 1]) : 0.f;
+}
+
+// Walk 1 of the 6-pass kernel A: ds_row += rowsum(dP * P) over one tile.
+template <bool kMask>
+__device__ __forceinline__ void dsum_tile6(const float (&s)[32],
+                                           const float (&dp)[32],
+                                           float (&ds_row)[2], int k0,
+                                           int valid_len, float scale,
+                                           const float (&lse_r)[2], int t) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      ds_row[i >> 1] += dp[4 * j + i] * prob6<kMask>(s, j, i, k0, valid_len,
+                                                     scale, lse_r, t);
+}
+
+// Walk 2 of the 6-pass kernel A: dS = P * (dP - dsum) * scale of one tile
+// in fp32, written over the scores s (so dP's registers are free before
+// the fragments are built), then as the A fragments of its three planes.
+template <bool kMask>
+__device__ __forceinline__ void ds_tile6(float (&s)[32],
+                                         const float (&dp)[32],
+                                         uint32_t (&f)[kPlanes][4][4],
+                                         const float (&ds_row)[2], int k0,
+                                         int valid_len, float scale,
+                                         const float (&lse_r)[2], int t) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      s[4 * j + i] = prob6<kMask>(s, j, i, k0, valid_len, scale, lse_r, t) *
+                     (dp[4 * j + i] - ds_row[i >> 1]) * scale;
+  split3_frags(f, s);
+}
+
+// Rows row_a and row_a + 8 (when < S) of a [64 x 64] fp32 accumulator
+// into dst (row stride ld).
+__device__ __forceinline__ void store_acc_f32(float* dst, int64_t ld,
+                                              const float (&acc)[32],
+                                              int row_a, int S, int t) {
+#pragma unroll
+  for (int nd = 0; nd < 8; ++nd) {
+    if (row_a < S)
+      *reinterpret_cast<float2*>(dst + (int64_t)row_a * ld + nd * 8 +
+                                 t * 2) =
+          make_float2(acc[4 * nd + 0], acc[4 * nd + 1]);
+    if (row_a + 8 < S)
+      *reinterpret_cast<float2*>(dst + (int64_t)(row_a + 8) * ld + nd * 8 +
+                                 t * 2) =
+          make_float2(acc[4 * nd + 2], acc[4 * nd + 3]);
+  }
+}
+
+__device__ __forceinline__ void add_acc(float (&d)[32], const float (&v)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) d[i] += v[i];
+}
+
+// Kernel A, 6-pass: walk 1 sums dsum = rowsum(dP * P); walk 2 recomputes
+// S and dP and accumulates dQ += dS K. Each consumer waits for its own
+// products, the other consumer's running meanwhile: issuing tile it + 1's
+// S and dP before tile it's rowsum, as the bf16 kernel does, needs a
+// second set of 64 accumulators, and ptxas then spilled and serialized
+// the wgmma (C7512), which cost more time than the overlap saved.
+__global__ void __launch_bounds__(kBwdThreads, 1)
+attn_bwd_dq_6pass(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  const __grid_constant__ CUtensorMap tdo,
+                  const float* __restrict__ lse, float* __restrict__ dsum,
+                  float* __restrict__ dqkv, int S, int valid_len, int64_t ld,
+                  int q_off, int pz, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sQ = align_atom(smem_raw);             // [plane][128 rows][64]
+  uint8_t* sdO = sQ + kPlanes * kBlockPlane;       // [plane][128 rows][64]
+  uint8_t* sKV = sdO + kPlanes * kBlockPlane;
+  // stage st: K planes at sKV + st * kX6Walk + p * kWalkBytes, V planes
+  // kPlanes tiles further
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sKV + kX6BwdStages * kX6Walk);
+  uint64_t* own_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + kX6BwdStages;
+
+  const int q0 = blockIdx.x * kBlockRows;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int col = h * kTmaHeadDim;
+  const int n = (valid_len + kWalkRows - 1) / kWalkRows;
+  if (threadIdx.x == 0) {
+    mbar_init(own_full, 1);
+    for (int s = 0; s < kX6BwdStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2 * 128);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {  // producer: Q and dO once, then K/V tiles for both walks
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 2 * 128) {
+      mbar_arrive_expect_tx(own_full, kX6Own);
+      load_block_planes(sQ, &tq, own_full, col, q0, b, pz);
+      load_block_planes(sdO, &tdo, own_full, col, q0, b, pz);
+      for (int it = 0; it < 2 * n; ++it) {
+        const int st = it % kX6BwdStages;
+        if (it >= kX6BwdStages)
+          mbar_wait(&empty[st], (it / kX6BwdStages - 1) & 1);
+        const int k0 = (it % n) * kWalkRows;
+        uint8_t* dst = sKV + st * kX6Walk;
+        mbar_arrive_expect_tx(&full[st], kX6Walk);
+        load_walk_planes(dst, &tk, &full[st], col, k0, b, pz);
+        load_walk_planes(dst + kPlanes * kWalkBytes, &tv, &full[st], col, k0,
+                         b, pz);
+      }
+    }
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    const int warp = (threadIdx.x % 128) / 32;
+    const int g = (threadIdx.x & 31) >> 2;
+    const int t = threadIdx.x & 3;
+    const int row_a = q0 + wg * kWgRows + warp * 16 + g;
+    const int64_t lrow = ((int64_t)b * gridDim.y + h) * S;
+    const float lse_r[2] = {row_a < S ? lse[lrow + row_a] : INFINITY,
+                            row_a + 8 < S ? lse[lrow + row_a + 8] : INFINITY};
+    const uint64_t dq_desc = sw128_desc(sQ + wg * kHalfBytes);
+    const uint64_t ddo_desc = sw128_desc(sdO + wg * kHalfBytes);
+    mbar_wait(own_full, 0);
+
+    // S = Q K^T and dP = dO V^T of tile it, as one wgmma group
+    auto issue = [&](float (&s)[32], float (&dp)[32], int it) {
+      const int st = it % kX6BwdStages;
+      mbar_wait(&full[st], (it / kX6BwdStages) & 1);
+      const uint8_t* tile = sKV + st * kX6Walk;
+      wgmma_fence();
+      mma6_ss(s, dq_desc, kBlockPlane, sw128_desc(tile), kWalkBytes);
+      mma6_ss(dp, ddo_desc, kBlockPlane,
+              sw128_desc(tile + kPlanes * kWalkBytes), kWalkBytes);
+      wgmma_commit();
+    };
+
+    // walk 1: dsum = rowsum(dP * P)
+    float ds_row[2] = {0.f, 0.f};
+    float s[32], dp[32];
+    for (int it = 0; it < n; ++it) {
+      issue(s, dp, it);
+      wgmma_wait<0>();
+      fence_operand(s);
+      fence_operand(dp);
+      mbar_arrive(&empty[it % kX6BwdStages]);
+      const int k0 = it * kWalkRows;
+      if (k0 + kWalkRows <= valid_len)
+        dsum_tile6<false>(s, dp, ds_row, k0, valid_len, scale, lse_r, t);
+      else
+        dsum_tile6<true>(s, dp, ds_row, k0, valid_len, scale, lse_r, t);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      ds_row[r] += __shfl_xor_sync(0xffffffffu, ds_row[r], 1);
+      ds_row[r] += __shfl_xor_sync(0xffffffffu, ds_row[r], 2);
+    }
+    if (t == 0) {
+      if (row_a < S) dsum[lrow + row_a] = ds_row[0];
+      if (row_a + 8 < S) dsum[lrow + row_a + 8] = ds_row[1];
+    }
+
+    // walk 2: dQ = dS K, each tile's product in qt, summed into dq
+    float dq[32], qt[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+    uint32_t dsf[kPlanes][4][4];
+    for (int it = n; it < 2 * n; ++it) {
+      const int st = it % kX6BwdStages;
+      issue(s, dp, it);
+      wgmma_wait<0>();
+      fence_operand(s);
+      fence_operand(dp);
+      const int k0 = (it - n) * kWalkRows;
+      if (k0 + kWalkRows <= valid_len)
+        ds_tile6<false>(s, dp, dsf, ds_row, k0, valid_len, scale, lse_r, t);
+      else
+        ds_tile6<true>(s, dp, dsf, ds_row, k0, valid_len, scale, lse_r, t);
+      wgmma_fence();
+      mma6_rs(qt, dsf, sw128_desc(sKV + st * kX6Walk), kWalkBytes);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operand(qt);
+      fence_frags6(dsf);
+      mbar_arrive(&empty[st]);
+      add_acc(dq, qt);
+    }
+    store_acc_f32(dqkv + (int64_t)b * S * ld + q_off + col, ld, dq, row_a, S,
+                  t);
+  }
+}
+
+// Kernel B, 6-pass: the block's K and V rows against every Q/dO tile;
+// P^T and dS^T split in registers for dV += P^T dO and dK += dS^T Q, each
+// tile's product in one accumulator, summed into dv and dk.
+__global__ void __launch_bounds__(kBwdThreads, 1)
+attn_bwd_dkdv_6pass(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ dsum,
+                    float* __restrict__ dqkv, int S, int valid_len,
+                    int64_t ld, int k_off, int v_off, int pz, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sK = align_atom(smem_raw);        // [plane][128 keys][64]
+  uint8_t* sV = sK + kPlanes * kBlockPlane;  // [plane][128 keys][64]
+  uint8_t* sQdO = sV + kPlanes * kBlockPlane;
+  // stage st: Q planes at sQdO + st * kX6Walk + p * kWalkBytes, dO
+  // planes kPlanes tiles further
+  float* sRow = reinterpret_cast<float*>(sQdO + kX6BwdStages * kX6Walk);
+  // sRow[stage][0][64]: lse of the tile's queries; [stage][1][64]: dsum
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(sRow + kX6BwdStages * 2 * kWalkRows);
+  uint64_t* own_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + kX6BwdStages;
+
+  const int kv0 = blockIdx.x * kBlockRows;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int col = h * kTmaHeadDim;
+  const int nq = (S + kWalkRows - 1) / kWalkRows;
+  const bool active = kv0 < valid_len;  // else zero gradients, no loads
+  const int64_t lrow = ((int64_t)b * gridDim.y + h) * S;
+  if (threadIdx.x == 0) {
+    mbar_init(own_full, 1);
+    for (int s = 0; s < kX6BwdStages; ++s) {
+      mbar_init(&full[s], 32);  // the producer warp
+      mbar_init(&empty[s], 2 * 128);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {  // producer warp: K and V once, then Q/dO tiles
+    setmaxnreg_dec<kProducerRegs>();
+    const int lane = threadIdx.x - 2 * 128;
+    if (lane < 32 && active) {
+      if (lane == 0) {
+        mbar_arrive_expect_tx(own_full, kX6Own);
+        load_block_planes(sK, &tk, own_full, col, kv0, b, pz);
+        load_block_planes(sV, &tv, own_full, col, kv0, b, pz);
+      }
+      for (int it = 0; it < nq; ++it) {
+        const int st = it % kX6BwdStages;
+        if (it >= kX6BwdStages)
+          mbar_wait(&empty[st], (it / kX6BwdStages - 1) & 1);
+        float* rows = sRow + st * 2 * kWalkRows;
+        for (int i = lane; i < kWalkRows; i += 32) {
+          const int qr = it * kWalkRows + i;
+          rows[i] = qr < S ? lse[lrow + qr] : INFINITY;
+          rows[kWalkRows + i] = qr < S ? dsum[lrow + qr] : 0.f;
+        }
+        if (lane == 0) {
+          uint8_t* dst = sQdO + st * kX6Walk;
+          mbar_arrive_expect_tx(&full[st], kX6Walk);
+          load_walk_planes(dst, &tq, &full[st], col, it * kWalkRows, b, pz);
+          load_walk_planes(dst + kPlanes * kWalkBytes, &tdo, &full[st], col,
+                           it * kWalkRows, b, pz);
+        } else {
+          mbar_arrive(&full[st]);
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    const int warp = (threadIdx.x % 128) / 32;
+    const int g = (threadIdx.x & 31) >> 2;
+    const int t = threadIdx.x & 3;
+    const int row_a = kv0 + wg * kWgRows + warp * 16 + g;
+    float dk[32], dv[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+    if (active) {
+      const bool keep_r[2] = {row_a < valid_len, row_a + 8 < valid_len};
+      const uint64_t dk_desc = sw128_desc(sK + wg * kHalfBytes);
+      const uint64_t dv_desc = sw128_desc(sV + wg * kHalfBytes);
+      mbar_wait(own_full, 0);
+      float s[32], dp[32], acc[32];  // S^T, dP^T: [64 keys x 64 queries]
+      uint32_t f[kPlanes][4][4];     // P^T's planes, then dS^T's
+      for (int it = 0; it < nq; ++it) {
+        const int st = it % kX6BwdStages;
+        mbar_wait(&full[st], (it / kX6BwdStages) & 1);
+        const uint8_t* tile = sQdO + st * kX6Walk;
+        const uint64_t q_desc = sw128_desc(tile);
+        const uint64_t do_desc = sw128_desc(tile + kPlanes * kWalkBytes);
+        wgmma_fence();
+        mma6_ss(s, dk_desc, kBlockPlane, q_desc, kWalkBytes);
+        mma6_ss(dp, dv_desc, kBlockPlane, do_desc, kWalkBytes);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operand(s);
+        fence_operand(dp);
+        const float* rows = sRow + st * 2 * kWalkRows;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int c = j * 8 + t * 2 + (i & 1);
+            const float p =
+                keep_r[i >> 1]
+                    ? expf(__fmul_rn(s[4 * j + i], scale) - rows[c])
+                    : 0.f;
+            s[4 * j + i] = p;
+            dp[4 * j + i] = p * (dp[4 * j + i] - rows[kWalkRows + c]) * scale;
+          }
+        split3_frags(f, s);  // P^T
+        wgmma_fence();
+        mma6_rs(acc, f, do_desc, kWalkBytes);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operand(acc);
+        fence_frags6(f);
+        add_acc(dv, acc);
+        split3_frags(f, dp);  // dS^T
+        wgmma_fence();
+        mma6_rs(acc, f, q_desc, kWalkBytes);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operand(acc);
+        fence_frags6(f);
+        add_acc(dk, acc);
+        mbar_arrive(&empty[st]);
+      }
+    }
+    float* out = dqkv + (int64_t)b * S * ld + col;
+    store_acc_f32(out + k_off, ld, dk, row_a, S, t);
+    store_acc_f32(out + v_off, ld, dv, row_a, S, t);
+  }
+}
+
+// The 6-pass pair on the bf16 planes of qkv and dO (plane strides batch *
+// seq * ld and batch * seq * do_ld elements), into fp32 dqkv.
+int launch_6pass(int batch, int seq, int heads, cudaStream_t st,
+                 const void* qkv, const void* dout, const float* lse,
+                 float* dsum, float* dqkv, int valid_len, int64_t ld,
+                 int q_off, int k_off, int v_off, int64_t do_ld,
+                 float scale) {
+  const char* base = static_cast<const char*>(qkv);
+  const int64_t cols = (int64_t)heads * kTmaHeadDim;
+  CUtensorMap maps[4];  // q, k, v, dO: 64-row boxes over all three planes
+  const void* bases[4] = {base + 2 * (int64_t)q_off, base + 2 * (int64_t)k_off,
+                          base + 2 * (int64_t)v_off, dout};
+  for (int i = 0; i < 4; ++i) {
+    const int64_t row = i < 3 ? ld : do_ld;
+    const cudaError_t err = make_tile_map(&maps[i], bases[i], cols, seq,
+                                          kPlanes * batch, 2 * row,
+                                          2 * seq * row, kWalkRows);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_bwd_dq_6pass, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kX6DqSmem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(attn_bwd_dkdv_6pass,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kX6DkdvSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((seq + kBlockRows - 1) / kBlockRows, heads, batch);
+  attn_bwd_dq_6pass<<<grid, kBwdThreads, kX6DqSmem, st>>>(
+      maps[0], maps[1], maps[2], maps[3], lse, dsum, dqkv, seq, valid_len,
+      ld, q_off, batch, scale);
+  note_launch();
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  attn_bwd_dkdv_6pass<<<grid, kBwdThreads, kX6DkdvSmem, st>>>(
+      maps[0], maps[1], maps[2], maps[3], lse, dsum, dqkv, seq, valid_len,
+      ld, k_off, v_off, batch, scale);
+  note_launch();
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ------------------------------------------------ the retained routes
 
 // The mma.sync (BF16) or fp32 FMA pair at head dim HD.
@@ -1341,9 +1789,10 @@ int launch_3pass(int batch, int seq, int heads, cudaStream_t st,
 // the scratch dsum: [batch, heads, seq] fp32. bf16 at head dim kTmaHeadDim
 // takes the wgmma pair, whose tensor maps need qkv, each section's start,
 // d_out and the row strides ld * 2 and do_ld * 2 bytes to be multiples of
-// kTmaAlign. Returns the CUDA error of the launches (0 on success);
-// cudaErrorInvalidValue for a head dim with no instantiation or an operand
-// TMA cannot take.
+// kTmaAlign; fp32 at kTmaHeadDim has its own entry
+// (aaclip_attention_packed_bwd_6pass). Returns the CUDA error of the
+// launches (0 on success); cudaErrorInvalidValue for a pair with no kernel
+// here or an operand TMA cannot take.
 extern "C" int aaclip_attention_packed_bwd(
     const void* qkv, const void* d_out, const float* lse, float* dsum,
     void* d_qkv, int bf16, int head_dim, int batch, int seq, int valid_len,
@@ -1359,10 +1808,6 @@ extern "C" int aaclip_attention_packed_bwd(
                                      v_off, do_ld, scale);
   if (!bf16 && head_dim == 16)
     return launch_retained<16, false>(batch, seq, heads, st, qkv, d_out, lse,
-                                      dsum, d_qkv, valid_len, ld, q_off,
-                                      k_off, v_off, do_ld, scale);
-  if (!bf16 && head_dim == 64)
-    return launch_retained<64, false>(batch, seq, heads, st, qkv, d_out, lse,
                                       dsum, d_qkv, valid_len, ld, q_off,
                                       k_off, v_off, do_ld, scale);
   return static_cast<int>(cudaErrorInvalidValue);
@@ -1386,4 +1831,24 @@ extern "C" int aaclip_attention_packed_bwd_3pass(
                             d_qkv, valid_len, ld, q_off, k_off, v_off, do_ld,
                             scale);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The 6-pass route (fp32 at head dim kTmaHeadDim under precision
+// "highest" or None) of aaclip_attention_packed_bwd: qkv_planes and
+// do_planes hold the bf16 planes hi, mid and lo of the fp32 qkv [batch,
+// seq, ld] and dO [batch, seq, do_ld], one after the other
+// (attention_packed.cu's aaclip_split3); the tensor maps need each
+// section's start and the row strides ld * 2 and do_ld * 2 bytes to be
+// multiples of kTmaAlign. d_qkv, lse and dsum as aaclip_attention_packed_
+// bwd's, d_qkv in fp32. cudaErrorInvalidValue for another head dim.
+extern "C" int aaclip_attention_packed_bwd_6pass(
+    const void* qkv_planes, const void* do_planes, const float* lse,
+    float* dsum, float* d_qkv, int head_dim, int batch, int seq,
+    int valid_len, int heads, long long ld, int q_off, int k_off, int v_off,
+    long long do_ld, float scale, void* stream) {
+  if (head_dim != kTmaHeadDim)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_6pass(batch, seq, heads, static_cast<cudaStream_t>(stream),
+                      qkv_planes, do_planes, lse, dsum, d_qkv, valid_len, ld,
+                      q_off, k_off, v_off, do_ld, scale);
 }

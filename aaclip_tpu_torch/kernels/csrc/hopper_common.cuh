@@ -2,9 +2,9 @@
 // forward and backward, the fused-block GEMM): mbarriers (with a bounded
 // wait that traps instead of hanging), TMA tile loads into 128-byte-
 // swizzled shared memory, the matching wgmma shared-memory descriptor, the
-// warpgroup products, A fragments by ldmatrix, register hand-off between
-// warpgroups, and the host-side tensor map of a bf16 [depth, rows, cols]
-// array.
+// warpgroup products (and the fp32 kernels' 6-pass products over bf16
+// planes), A fragments by ldmatrix, register hand-off between warpgroups,
+// and the host-side tensor map of a bf16 [depth, rows, cols] array.
 //
 // The swizzle pairing, in one place. A tile row is 64 bf16 = 128 bytes.
 // TMA with CU_TENSOR_MAP_SWIZZLE_128B writes row r of a tile at byte
@@ -233,11 +233,12 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// d[64 x 64] += A . B, A from registers (the m16k16 fragments of
+// d[64 x 64] (+)= A . B, A from registers (the m16k16 fragments of
 // mma.sync, per warp), B from shared memory MN-major (transposed).
 __device__ __forceinline__ void wgmma_rs_n64_mn(float (&d)[32],
                                                  const uint32_t (&a)[4],
-                                                 uint64_t db) {
+                                                 uint64_t db,
+                                                 int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -252,7 +253,7 @@ __device__ __forceinline__ void wgmma_rs_n64_mn(float (&d)[32],
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
 // d[64 x 256] (+)= A . B, A and B from shared memory, both K-major.
@@ -382,6 +383,64 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
         "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// ---------------------------------------------------------------- 6-pass
+// The fp32 attention kernels' products at precision "highest" (the TPU's
+// native 6-pass form; mma_common.cuh, split3): each operand is three bf16
+// planes hi, mid, lo (plane 0, 1, 2), and pass i (0-5) multiplies A's
+// plane pass_a(i) by B's plane pass_b(i), all into one fp32 accumulator
+// whose first product overwrites it. The passes run smallest first,
+// mid.mid, hi.lo, lo.hi, hi.mid, mid.hi, and hi.hi last: the tensor
+// cores' fp32 accumulation truncates each product's sum to the
+// accumulator's precision, so the small passes, added while the
+// accumulator is still about 2^-8 of its final size, cost next to nothing,
+// and only hi.hi's four k-steps truncate at full size (adding hi.hi first
+// left the kernels further from fp64 than chip_smoke.py's bar allows).
+constexpr int kPlanes = 3;
+
+__host__ __device__ constexpr int pass_a(int i) {
+  return i == 0 || i == 4 ? 1 : i == 2 ? 2 : 0;
+}
+
+__host__ __device__ constexpr int pass_b(int i) {
+  return i == 0 || i == 3 ? 1 : i == 1 ? 2 : 0;
+}
+
+// d = A . B^T over one 64-column (128-byte) tile row in six passes: A and
+// B both K-major from shared memory, A's planes `a_plane` bytes apart,
+// B's `b_plane` bytes apart.
+__device__ __forceinline__ void mma6_ss(float (&d)[32], uint64_t a,
+                                        int a_plane, uint64_t b,
+                                        int b_plane) {
+#pragma unroll
+  for (int i = 0; i < 6; ++i)
+#pragma unroll
+    for (int ks = 0; ks < kTileCols / 16; ++ks)
+      wgmma_ss_n64(d, desc_plus(a, pass_a(i) * a_plane + 32 * ks),
+                   desc_plus(b, pass_b(i) * b_plane + 32 * ks), i + ks);
+}
+
+// d = A . B over a 64-deep reduction in six passes: A the register
+// fragments f[plane][k-step] of its three planes, B a [64 x 64] tile read
+// MN-major (its rows are the reduction), planes `b_plane` bytes apart.
+__device__ __forceinline__ void mma6_rs(float (&d)[32],
+                                        const uint32_t (&f)[kPlanes][4][4],
+                                        uint64_t b, int b_plane) {
+#pragma unroll
+  for (int i = 0; i < 6; ++i)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_n64_mn(d, f[pass_a(i)][kk],
+                      desc_plus(b, pass_b(i) * b_plane +
+                                       16 * kRowBytes * kk),
+                      i + kk);
+}
+
+// Keep all three planes' fragments alive up to here (fence_frags).
+__device__ __forceinline__ void fence_frags6(uint32_t (&f)[kPlanes][4][4]) {
+#pragma unroll
+  for (int p = 0; p < kPlanes; ++p) fence_frags(f[p]);
 }
 
 // The m16k16 A fragments of mma.sync (and of a register-A wgmma) for one

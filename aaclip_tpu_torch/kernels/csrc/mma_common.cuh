@@ -113,6 +113,52 @@ __device__ __forceinline__ void split_a_frags(uint32_t (&hi)[NT / 2][4],
   }
 }
 
+// ---------------------------------------------- the 6-pass ("highest") mode
+// The JAX package's _kdot under precision "highest" on a TPU (the native
+// 6-pass form): an fp32 x is held as three bf16 values hi = bf16(x),
+// mid = bf16(x - hi), lo = bf16(x - hi - mid); each difference is exact
+// in fp32, and hi + mid + lo = x whenever hi does not overflow and the
+// residuals' bits lie above bf16's smallest subnormal step (2^-133):
+// |x| in [2^-110, 0x1.fep127). A product is the six bf16 products
+// hi.hi + hi.mid + mid.hi + hi.lo + lo.hi + mid.mid summed in fp32, the
+// small ones first (hopper_common.cuh, mma6_ss / mma6_rs); the dropped
+// terms are about 2^-24 relative.
+
+__device__ __forceinline__ void split3(float x, __nv_bfloat16& hi,
+                                       __nv_bfloat16& mid,
+                                       __nv_bfloat16& lo) {
+  hi = __float2bfloat16_rn(x);
+  const float r = x - __bfloat162float(hi);
+  mid = __float2bfloat16_rn(r);
+  lo = __float2bfloat16_rn(r - __bfloat162float(mid));
+}
+
+// Two fp32 values as the packed bf16 pairs of their three planes.
+__device__ __forceinline__ void split3_pack(float x0, float x1, uint32_t& hi,
+                                            uint32_t& mid, uint32_t& lo) {
+  __nv_bfloat16 h0, m0, l0, h1, m1, l1;
+  split3(x0, h0, m0, l0);
+  split3(x1, h1, m1, l1);
+  hi = pack_bf16(h0, h1);
+  mid = pack_bf16(m0, m1);
+  lo = pack_bf16(l0, l1);
+}
+
+// The A fragments of the three planes (f[plane][k-step]) of a [64 x 64]
+// fp32 wgmma accumulator: two adjacent 8-column groups form one 16-deep
+// k-step, as in the bf16 kernels' pack_frags.
+__device__ __forceinline__ void split3_frags(uint32_t (&f)[3][4][4],
+                                             const float (&v)[32]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int k = j >> 1, r = (j & 1) * 2;
+    split3_pack(v[4 * j + 0], v[4 * j + 1], f[0][k][r], f[1][k][r],
+                f[2][k][r]);
+    split3_pack(v[4 * j + 2], v[4 * j + 3], f[0][k][r + 1], f[1][k][r + 1],
+                f[2][k][r + 1]);
+  }
+}
+
 // Copy a [kRows, HD] fp32 tile starting at row `row0` (row stride `ld`
 // elements) into shared memory as its bf16 hi and lo halves (row stride
 // SLD), 16 bytes read per thread and step; rows >= S are zeros.

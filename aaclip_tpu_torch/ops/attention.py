@@ -19,22 +19,30 @@ that layout's strides.
 
 The wrappers run the plain versions only for tensors on the CPU (the
 tests). On a CUDA tensor they launch the kernel or raise. Which kernel
-runs is the route table ``TMA_ROUTES``: bf16 at head dim 64 takes the TMA
-+ wgmma kernels (tiles fed by tensor maps, whose base addresses and row
+runs is ``kernel_route`` over the route table ``TMA_ROUTES``: at head dim
+64 bf16 takes the TMA + wgmma kernels, and fp32 the 6-pass kernels on the
+same machinery (tiles fed by tensor maps, whose base addresses and row
 strides must be multiples of ``TMA_ALIGN`` bytes: the wrappers refuse what
-a map cannot take); bf16 at head dim 16 and fp32 keep the first port's
-mma.sync and fp32 FMA kernels in the same sources.
+a map cannot take); head dim 16 keeps the first port's mma.sync (bf16) and
+FMA (fp32) kernels in the same sources.
 
 Precision. Every wrapper and plain version takes the JAX package's
-``precision``, as its kernels do through ``_kdot``: fp32 inputs under
+``precision``, as its kernels do through ``_kdot``. fp32 inputs under
+"highest" or None (the CLIs' default ``--precision fp32``) are the TPU's
+native 6-pass form on the card: ``split3`` writes each fp32 operand's
+bf16 planes hi, mid and lo (hi + mid + lo = x), and every product is the
+six bf16 products hi·hi + hi·mid + mid·hi + hi·lo + lo·hi + mid·mid summed
+in fp32 (the ``*_6pass`` entry points of both sources, TMA + wgmma on the
+planes; P and dS stay fp32 and are split in registers), counted in each
+wrapper's ``launches_6pass``. The plain versions compute those in true
+fp32: the dropped terms are about 2^-24 relative. fp32 inputs under
 "high" run the 3-pass mode (``_three_pass``), each product as three bf16
 products hi·hi + hi·lo + lo·hi of the operands' bf16 halves summed in fp32
 (XLA's F32_AS_3BF16), the softmax and P in fp32 and P split too, never
 rounded. On the card that mode is its own kernels (the ``*_3pass`` entry
 points of both sources: mma.sync bf16 tensor-core products from hi/lo
-tiles), counted apart in each wrapper's ``launches_3pass`` beside
-``launches``. bf16 inputs ignore the precision, as ``_kernel_precision``
-does; fp32 under "highest" or None keeps the fp32 FMA kernels.
+tiles), counted in ``launches_3pass``. ``launches`` counts every launch.
+bf16 inputs ignore the precision, as ``_kernel_precision`` does.
 """
 
 from __future__ import annotations
@@ -48,9 +56,11 @@ from aaclip_tpu_torch.models.layers import _split_bf16, linear
 
 KERNEL_HEAD_DIMS = (16, 64)  # head dims the kernel is instantiated for
 # (dtype, head dim) pairs on the TMA + wgmma kernels (kTmaHeadDim of
-# attention_packed.cu and attention_packed_bwd.cu); every other pair of
-# (bf16, fp32) x KERNEL_HEAD_DIMS runs a retained kernel.
-TMA_ROUTES = frozenset({(torch.bfloat16, 64)})
+# attention_packed.cu and attention_packed_bwd.cu): bf16 directly, fp32 on
+# its bf16 planes (the 6-pass route) unless the 3-pass mode takes it;
+# every other pair of (bf16, fp32) x KERNEL_HEAD_DIMS runs a retained
+# kernel.
+TMA_ROUTES = frozenset({(torch.bfloat16, 64), (torch.float32, 64)})
 TMA_ALIGN = 16  # bytes: a tensor map's base address and strides (kTmaAlign)
 
 
@@ -65,6 +75,78 @@ def _three_pass(dtype: torch.dtype, precision) -> bool:
     (``flash_attention.py::_kernel_precision``: "high" for 4-byte inputs;
     bf16 inputs always run single-pass)."""
     return dtype == torch.float32 and precision == "high"
+
+
+def kernel_route(dtype: torch.dtype, head_dim: int, precision) -> str:
+    """The kernel a CUDA launch of ``dtype`` operands at ``head_dim`` runs
+    under ``precision``: "3pass" (fp32 under "high", mma.sync from hi/lo
+    tiles), "wgmma" (bf16 on ``TMA_ROUTES``), "6pass" (fp32 on
+    ``TMA_ROUTES``: TMA + wgmma on the ``split3`` planes), "mma" (bf16
+    otherwise) or "fma" (fp32 otherwise). Every wrapper launches by it."""
+    if _three_pass(dtype, precision):
+        return "3pass"
+    bf16 = dtype == torch.bfloat16
+    if (dtype, head_dim) in TMA_ROUTES:
+        return "wgmma" if bf16 else "6pass"
+    return "mma" if bf16 else "fma"
+
+
+def split3_plain(x: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x`` as its three bf16 planes ``[3, *x.shape]``: hi = bf16(x),
+    mid = bf16(x - hi), lo = bf16(x - hi - mid), each difference exact in
+    fp32, so hi + mid + lo = x for |x| in [2^-110, 0x1.fep127) (below,
+    lo drops bits under bf16's subnormal step 2^-133; above, hi rounds to
+    inf). The 6-pass route's operand staging: ``split3`` and the tests."""
+    hi = x.to(torch.bfloat16)
+    r = x - hi.float()
+    mid = r.to(torch.bfloat16)
+    return torch.stack([hi, mid, (r - mid.float()).to(torch.bfloat16)])
+
+
+@functools.cache
+def _split_kernel():
+    """``aaclip_split3`` of ``csrc/attention_packed.cu``."""
+    import ctypes
+
+    from aaclip_tpu_torch.kernels.build import load
+
+    split = load("attention_packed").aaclip_split3
+    ll, p = ctypes.c_longlong, ctypes.c_void_p
+    split.argtypes = [p, p, ll, ll, p]  # x, planes, n, plane stride, stream
+    split.restype = ctypes.c_int
+    return split
+
+
+def split3(x: torch.Tensor) -> torch.Tensor:
+    """``split3_plain``'s planes ``[3, *x.shape]`` bf16 of an fp32 ``x``.
+
+    CPU tensors take ``split3_plain``. A CUDA tensor must be contiguous
+    and 16-byte aligned; the split kernel writes the planes into one new
+    tensor (plane stride ``x.numel()`` rounded up to 8) on the current
+    stream, and ``split3.launches`` counts each launch."""
+    if x.device.type == "cpu":
+        return split3_plain(x)
+    if x.device.type != "cuda" or x.dtype != torch.float32:
+        raise ValueError(f"split3: need an fp32 CUDA tensor, got {x.dtype} "
+                         f"on {x.device}")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("split3: input must be contiguous and 16-byte "
+                         "aligned")
+    n = x.numel()
+    stride = -(-n // 8) * 8
+    planes = torch.empty(3, stride, dtype=torch.bfloat16, device=x.device)
+    if n:
+        with torch.cuda.device(x.device):
+            rc = _split_kernel()(x.data_ptr(), planes.data_ptr(), n, stride,
+                                 torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"split3 kernel launch failed: CUDA error "
+                               f"{rc}")
+        split3.launches += 1
+    return planes[:, :n].view(3, *x.shape)
+
+
+split3.launches = 0
 
 
 def _kdot(a: torch.Tensor, b: torch.Tensor, three_pass: bool) -> torch.Tensor:
@@ -194,9 +276,9 @@ def attention_packed_bwd_plain(qkv: torch.Tensor, d_out: torch.Tensor,
 
 
 def _check_cuda(name: str, x: torch.Tensor, num_heads: int,
-                valid_len: int, sections: int = 3):
+                valid_len: int, sections: int = 3, precision=None):
     """The kernels' preconditions on a packed projection; returns
-    ``_split(x, num_heads, sections)``."""
+    ``_split(x, num_heads, sections)`` and the ``kernel_route``."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     split = _split(x, num_heads, sections)
@@ -214,12 +296,16 @@ def _check_cuda(name: str, x: torch.Tensor, num_heads: int,
     if B < 1 or not 1 <= valid_len <= S:
         raise ValueError(f"{name}: need batch >= 1 and 1 <= valid_len <= S,"
                          f" got B={B}, valid_len={valid_len}, S={S}")
-    esize, offs = x.element_size(), split[-1]
-    if (x.dtype, hd) in TMA_ROUTES and _tma_misaligned(
-            x.shape[-1] * esize, *(x.data_ptr() + o * esize for o in offs)):
+    route = kernel_route(x.dtype, hd, precision)
+    # the tensor maps read bf16: x itself on the wgmma route, its split3
+    # planes on the 6-pass route (a new tensor, whose planes are aligned
+    # when the row stride is)
+    base = x.data_ptr() if route == "wgmma" else 0
+    if route in ("wgmma", "6pass") and _tma_misaligned(
+            x.shape[-1] * 2, *(base + o * 2 for o in split[-1])):
         raise ValueError(f"{name}: a section start or the row stride is not "
                          f"a multiple of {TMA_ALIGN} bytes (TMA)")
-    return split
+    return split, route
 
 
 @functools.cache
@@ -276,6 +362,35 @@ def _bwd_kernel():
 
 
 @functools.cache
+def _kernels_6pass():
+    """The 6-pass entry points of both sources (fp32 at head dim 64 on the
+    ``split3`` planes), built on first use: ``(packed forward, [B, H, S,
+    hd] forward, packed backward)``."""
+    import ctypes
+
+    from aaclip_tpu_torch.kernels.build import load
+
+    i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+    fwd = load("attention_packed").aaclip_attention_packed_6pass
+    # planes, out, lse, head_dim, batch, seq, valid_len, heads, ld, q_off,
+    # k_off, v_off, out_ld, scale, stream
+    fwd.argtypes = [p, p, p, i, i, i, i, i, ll, i, i, i, ll,
+                    ctypes.c_float, p]
+    bhsd = load("attention_packed").aaclip_attention_bhsd_6pass
+    # q planes, k planes, v planes, out, head_dim, batch, seq, valid_len,
+    # heads, scale, stream
+    bhsd.argtypes = [p, p, p, p, i, i, i, i, i, ctypes.c_float, p]
+    bwd = load("attention_packed_bwd").aaclip_attention_packed_bwd_6pass
+    # qkv planes, d_out planes, lse, dsum, d_qkv, head_dim, batch, seq,
+    # valid_len, heads, ld, q_off, k_off, v_off, do_ld, scale, stream
+    bwd.argtypes = [p, p, p, p, p, i, i, i, i, i, ll, i, i, i, ll,
+                    ctypes.c_float, p]
+    for fn in (fwd, bhsd, bwd):
+        fn.restype = i
+    return fwd, bhsd, bwd
+
+
+@functools.cache
 def _kernels_3pass():
     """The 3-pass entry points of both sources (fp32 only), built on first
     use: ``(packed forward, [B, H, S, hd] forward, packed backward)``."""
@@ -302,20 +417,23 @@ def _kernels_3pass():
     return fwd, bhsd, bwd
 
 
-def _count(wrapper, three_pass: bool) -> None:
-    """One launch of ``wrapper``'s kernel, and of its 3-pass mode."""
+def _count(wrapper, route: str) -> None:
+    """One launch of ``wrapper``'s kernel on ``route``: ``launches``
+    counts every launch, ``launches_3pass`` and ``launches_6pass`` those
+    of the two fp32 tensor-core modes."""
     wrapper.launches += 1
-    wrapper.launches_3pass += int(three_pass)
+    wrapper.launches_3pass += int(route == "3pass")
+    wrapper.launches_6pass += int(route == "6pass")
 
 
 def _launch_forward(name: str, x: torch.Tensor, num_heads: int,
                     valid_len: int, sections: int, return_lse: bool,
-                    three_pass: bool):
-    """Launch the forward kernel (its 3-pass mode with ``three_pass``) on a
-    packed [B, S, sections*D] projection on the current stream; returns
-    ``(out, lse or None)``."""
-    B, S, dm, hd, scale, (q_off, k_off, v_off) = _check_cuda(
-        name, x, num_heads, valid_len, sections)
+                    precision):
+    """Launch the forward kernel of ``kernel_route`` on a packed [B, S,
+    sections*D] projection on the current stream; returns ``(out, lse or
+    None, route)``."""
+    (B, S, dm, hd, scale, (q_off, k_off, v_off)), route = _check_cuda(
+        name, x, num_heads, valid_len, sections, precision)
     out = torch.empty(B, S, dm, dtype=x.dtype, device=x.device)
     lse = (torch.empty(B, num_heads, S, dtype=torch.float32,
                        device=x.device) if return_lse else None)
@@ -324,15 +442,19 @@ def _launch_forward(name: str, x: torch.Tensor, num_heads: int,
         args = (hd, B, S, valid_len, num_heads, sections * dm, q_off, k_off,
                 v_off, dm, scale, stream)
         lse_ptr = lse.data_ptr() if return_lse else None
-        if three_pass:
+        if route == "3pass":
             rc = _kernels_3pass()[0](x.data_ptr(), out.data_ptr(), lse_ptr,
                                      *args)
+        elif route == "6pass":
+            planes = split3(x)  # held until the launch is queued
+            rc = _kernels_6pass()[0](planes.data_ptr(), out.data_ptr(),
+                                     lse_ptr, *args)
         else:
             rc = _kernel()(x.data_ptr(), out.data_ptr(), lse_ptr,
                            int(x.dtype == torch.bfloat16), *args)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    return out, lse
+    return out, lse, route
 
 
 def attention_packed(qkv: torch.Tensor, num_heads: int, valid_len: int, *,
@@ -341,22 +463,23 @@ def attention_packed(qkv: torch.Tensor, num_heads: int, valid_len: int, *,
 
     CPU tensors take ``attention_packed_plain``. CUDA tensors must be
     contiguous bf16 or fp32 with a head dim in ``KERNEL_HEAD_DIMS``; the
-    kernel is launched on the current stream and
-    ``attention_packed.launches`` counts each launch
-    (``launches_3pass`` those of the 3-pass mode, fp32 under "high").
-    ``return_lse=True`` (CUDA only) also returns each row's logsumexp
-    [B, H, S] fp32, which the backward kernel reads."""
+    kernel of ``kernel_route`` is launched on the current stream and
+    ``attention_packed.launches`` counts each launch (``launches_3pass``
+    those of the 3-pass mode, fp32 under "high"; ``launches_6pass`` those
+    of the 6-pass route, fp32 at head dim 64 otherwise, each after one
+    ``split3`` launch). ``return_lse=True`` (CUDA only) also returns each
+    row's logsumexp [B, H, S] fp32, which the backward kernel reads."""
     if qkv.device.type == "cpu" and not return_lse:
         return attention_packed_plain(qkv, num_heads, valid_len,
                                       precision=precision)
-    three = _three_pass(qkv.dtype, precision)
-    out, lse = _launch_forward("attention_packed", qkv, num_heads,
-                               valid_len, 3, return_lse, three)
-    _count(attention_packed, three)
+    out, lse, route = _launch_forward("attention_packed", qkv, num_heads,
+                                      valid_len, 3, return_lse, precision)
+    _count(attention_packed, route)
     return (out, lse) if return_lse else out
 
 
-attention_packed.launches = attention_packed.launches_3pass = 0
+attention_packed.launches = attention_packed.launches_3pass = \
+    attention_packed.launches_6pass = 0
 
 
 def attention_packed_vv(v: torch.Tensor, num_heads: int,
@@ -366,22 +489,22 @@ def attention_packed_vv(v: torch.Tensor, num_heads: int,
     ``attention_packed(vv=True, packed_sections=1)``).
 
     CPU tensors take ``attention_packed_vv_plain``. On CUDA tensors the
-    forward kernel (its 3-pass mode for fp32 under "high") is launched with
-    row stride D and all three section offsets at 0, with no logsumexp:
-    the V-V features are gradient-free. ``attention_packed_vv.launches``
-    (and ``launches_3pass``) count these launches apart from
-    ``attention_packed``'s."""
+    forward kernel of ``kernel_route`` is launched with row stride D and
+    all three section offsets at 0, with no logsumexp: the V-V features
+    are gradient-free. ``attention_packed_vv.launches`` (and
+    ``launches_3pass``, ``launches_6pass``) count these launches apart
+    from ``attention_packed``'s."""
     if v.device.type == "cpu":
         return attention_packed_vv_plain(v, num_heads, valid_len,
                                          precision=precision)
-    three = _three_pass(v.dtype, precision)
-    out, _ = _launch_forward("attention_packed_vv", v, num_heads, valid_len,
-                             1, False, three)
-    _count(attention_packed_vv, three)
+    out, _, route = _launch_forward("attention_packed_vv", v, num_heads,
+                                    valid_len, 1, False, precision)
+    _count(attention_packed_vv, route)
     return out
 
 
-attention_packed_vv.launches = attention_packed_vv.launches_3pass = 0
+attention_packed_vv.launches = attention_packed_vv.launches_3pass = \
+    attention_packed_vv.launches_6pass = 0
 
 
 def attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -391,11 +514,11 @@ def attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``valid_len`` are masked, every row is computed.
 
     CPU tensors take ``attention_kernel_plain``. On CUDA tensors the
-    forward kernel of ``attention_packed`` (its 3-pass mode for fp32 under
-    "high") is launched with this layout's strides (contiguous operands of
-    one shape, dtype and device, a head dim in ``KERNEL_HEAD_DIMS``);
-    ``attention_kernel.launches`` (and ``launches_3pass``) count its
-    launches."""
+    forward kernel of ``attention_packed``'s ``kernel_route`` is launched
+    with this layout's strides (contiguous operands of one shape, dtype
+    and device, a head dim in ``KERNEL_HEAD_DIMS``; on the 6-pass route
+    each operand's ``split3`` planes); ``attention_kernel.launches`` (and
+    ``launches_3pass``, ``launches_6pass``) count its launches."""
     if q.device.type == "cpu":
         return attention_kernel_plain(q, k, v, valid_len,
                                       precision=precision)
@@ -412,34 +535,43 @@ def attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if any(not t.is_contiguous() or t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("attention_kernel: q, k and v must be contiguous "
                          "and 16-byte aligned")
-    if (q.dtype, hd) in TMA_ROUTES and _tma_misaligned(
-            hd * q.element_size(), *(t.data_ptr() for t in (q, k, v))):
-        raise ValueError(f"attention_kernel: a start or the row stride is "
-                         f"not a multiple of {TMA_ALIGN} bytes (TMA)")
     if hd not in KERNEL_HEAD_DIMS:
         raise ValueError(f"attention_kernel: head dim {hd} has no kernel "
                          f"instantiation (have {KERNEL_HEAD_DIMS})")
+    route = kernel_route(q.dtype, hd, precision)
+    # the wgmma route maps q, k, v themselves; the 6-pass route their new
+    # split3 planes, aligned when the row stride is
+    bases = ([t.data_ptr() for t in (q, k, v)] if route == "wgmma" else [])
+    if route in ("wgmma", "6pass") and _tma_misaligned(hd * 2, *bases):
+        raise ValueError(f"attention_kernel: a start or the row stride is "
+                         f"not a multiple of {TMA_ALIGN} bytes (TMA)")
     if B < 1 or H < 1 or not 1 <= valid_len <= S:
         raise ValueError(f"attention_kernel: need batch, heads >= 1 and "
                          f"1 <= valid_len <= S, got B={B}, H={H}, "
                          f"valid_len={valid_len}, S={S}")
-    three = _three_pass(q.dtype, precision)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
         args = (hd, B, S, valid_len, H, hd ** -0.5, stream)
-        if three:
-            rc = _kernels_3pass()[1](*ptrs, *args)
+        if route == "6pass":
+            planes = [split3(t) for t in (q, k, v)]
+            rc = _kernels_6pass()[1](*(t.data_ptr() for t in planes),
+                                     out.data_ptr(), *args)
         else:
-            rc = _bhsd_kernel()(*ptrs, int(q.dtype == torch.bfloat16), *args)
+            ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+            if route == "3pass":
+                rc = _kernels_3pass()[1](*ptrs, *args)
+            else:
+                rc = _bhsd_kernel()(*ptrs, int(q.dtype == torch.bfloat16),
+                                    *args)
     if rc != 0:
         raise RuntimeError(f"attention_kernel launch failed: CUDA error {rc}")
-    _count(attention_kernel, three)
+    _count(attention_kernel, route)
     return out
 
 
-attention_kernel.launches = attention_kernel.launches_3pass = 0
+attention_kernel.launches = attention_kernel.launches_3pass = \
+    attention_kernel.launches_6pass = 0
 
 
 def attention_packed_bwd(qkv: torch.Tensor, d_out: torch.Tensor,
@@ -449,22 +581,25 @@ def attention_packed_bwd(qkv: torch.Tensor, d_out: torch.Tensor,
     cotangent ``d_out`` [B, S, D] and the forward's ``lse`` [B, H, S].
 
     CPU tensors take ``attention_packed_bwd_plain`` (``lse`` unused). On
-    CUDA tensors the backward kernel (its 3-pass mode for fp32 under
-    "high", which takes the 3-pass forward's ``lse``) is launched on the
+    CUDA tensors the backward kernel of ``kernel_route`` (the 3-pass mode,
+    fp32 under "high", takes the 3-pass forward's ``lse``; the 6-pass
+    route launches ``split3`` on qkv and on d_out first) is launched on the
     current stream and ``attention_packed_bwd.launches`` (and
-    ``launches_3pass``) count each call (one call launches the kernel's two
-    passes)."""
+    ``launches_3pass``, ``launches_6pass``) count each call (one call
+    launches the kernel's two passes)."""
     if qkv.device.type == "cpu":
         return attention_packed_bwd_plain(qkv, d_out, num_heads, valid_len,
                                           precision=precision)
-    B, S, dm, hd, scale, (q_off, k_off, v_off) = _check_cuda(
-        "attention_packed_bwd", qkv, num_heads, valid_len)
+    (B, S, dm, hd, scale, (q_off, k_off, v_off)), route = _check_cuda(
+        "attention_packed_bwd", qkv, num_heads, valid_len,
+        precision=precision)
     d_out = d_out.to(qkv.dtype).contiguous()
     if d_out.shape != (B, S, dm) or d_out.device != qkv.device:
         raise ValueError(f"attention_packed_bwd: d_out {tuple(d_out.shape)} "
                          f"on {d_out.device} does not match qkv")
-    if (qkv.dtype, hd) in TMA_ROUTES and _tma_misaligned(
-            d_out.data_ptr(), dm * d_out.element_size()):
+    # d_out's tensor map reads it (wgmma) or its new split3 planes (6-pass)
+    if route in ("wgmma", "6pass") and _tma_misaligned(
+            d_out.data_ptr() if route == "wgmma" else 0, dm * 2):
         raise ValueError(f"attention_packed_bwd: d_out's start or row "
                          f"stride is not a multiple of {TMA_ALIGN} bytes "
                          f"(TMA)")
@@ -473,28 +608,34 @@ def attention_packed_bwd(qkv: torch.Tensor, d_out: torch.Tensor,
             or lse.device != qkv.device):
         raise ValueError("attention_packed_bwd: lse must be the forward "
                          "kernel's contiguous fp32 [B, H, S] logsumexp")
-    three = _three_pass(qkv.dtype, precision)
     d_qkv = torch.empty_like(qkv)
     dsum = torch.empty_like(lse)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
-        ptrs = (qkv.data_ptr(), d_out.data_ptr(), lse.data_ptr(),
-                dsum.data_ptr(), d_qkv.data_ptr())
         args = (hd, B, S, valid_len, num_heads, 3 * dm, q_off, k_off, v_off,
                 dm, scale, stream)
-        if three:
-            rc = _kernels_3pass()[2](*ptrs, *args)
+        rest = (lse.data_ptr(), dsum.data_ptr(), d_qkv.data_ptr())
+        if route == "6pass":
+            # both held until the launch is queued: a freed qkv split could
+            # be handed to d_out's and overwritten before the kernel runs
+            planes = (split3(qkv), split3(d_out))
+            rc = _kernels_6pass()[2](*(t.data_ptr() for t in planes), *rest,
+                                     *args)
+        elif route == "3pass":
+            rc = _kernels_3pass()[2](qkv.data_ptr(), d_out.data_ptr(), *rest,
+                                     *args)
         else:
-            rc = _bwd_kernel()(*ptrs, int(qkv.dtype == torch.bfloat16),
-                               *args)
+            rc = _bwd_kernel()(qkv.data_ptr(), d_out.data_ptr(), *rest,
+                               int(qkv.dtype == torch.bfloat16), *args)
     if rc != 0:
         raise RuntimeError(f"attention_packed_bwd kernel launch failed: "
                            f"CUDA error {rc}")
-    _count(attention_packed_bwd, three)
+    _count(attention_packed_bwd, route)
     return d_qkv
 
 
-attention_packed_bwd.launches = attention_packed_bwd.launches_3pass = 0
+attention_packed_bwd.launches = attention_packed_bwd.launches_3pass = \
+    attention_packed_bwd.launches_6pass = 0
 
 
 class _PackedAttention(torch.autograd.Function):

@@ -20,12 +20,18 @@ Needs one CUDA card and nvcc. Phases, each of which fails the run:
     precision "high") of the forward, its logsumexp, the backward (twice
     bit for bit), the V-V mode and B4 against their plain 3-pass versions
     at the predict's and the step's fp32 batch 8, ragged S, valid_len < S
-    and head dim 16, the NaN image, and each mode's distance from fp64
-    beside the fp32 FMA kernels';
+    and head dim 16, the NaN image; the 6-pass route (fp32 at head dim 64
+    under "highest" or None: the split kernel ``split3`` and the
+    ``*_6pass`` TMA + wgmma kernels) through every fp32 check above, each
+    launch's route counted, the split kernel bit for bit against
+    ``split3_plain``, and each fp32 route's distance from fp64 (6-pass
+    within 4e-6 of each output's max, beside the 3-pass mode's and the
+    head-dim-16 FMA kernels');
  4. the inference path (ViT-L-14-336 @ 518 px, random weights from a seed)
     through ``make_predict_fn``: bf16 with uint8 inputs at batch 8 and fp32
     at batch 2, each against the same predictor with the plain attention,
-    counting kernel launches; bf16 against fp32 on the same images (printed,
+    counting kernel launches (fp32's all on the 6-pass route, each after a
+    ``split3`` launch); bf16 against fp32 on the same images (printed,
     the scale of bf16's own rounding); and tiny-test on the card against
     the CPU;
  5. the stage-2 training step (the same model, bf16) through
@@ -35,6 +41,11 @@ Needs one CUDA card and nvcc. Phases, each of which fails the run:
     steps at batch 8 without remat, counting 24 forward and 23 backward
     launches per step, losses finite, peak device memory printed;
     tiny-test fp32 steps on the card against the CPU;
+ 5b. the fp32 paths that run the 6-pass backward and V-V launches: the
+    stage-2 step at batch 2 with remat against the plain-attention step
+    (phase 5's bars; 47 forward and 23 backward launches, all 6-pass) and
+    spatial stage-1 features at batch 2 against plain (phase 7's bars;
+    24 + 19 launches, all 6-pass);
  6. time, with CUDA events: the forward kernel, its plain version and
     torch's SDPA at the predict's attention shape, and the predict in
     maps/s with the kernel and with the plain attention; the backward
@@ -90,7 +101,8 @@ Needs one CUDA card and nvcc. Phases, each of which fails the run:
     text adapter, a synthetic MVTec set (2 classes, 24 normal and 24
     anomalous 256 px images each); the CLI at bf16 batch 32 and at fp32
     batch 8 with ``--csv --dump_scores``, each held to (a) 24 forward
-    kernel launches per predict batch and no other kernel, (b) its
+    kernel launches per predict batch and no other kernel (fp32's on the
+    6-pass route, each after a ``split3`` launch), (b) its
     ``scores_1.csv`` bit for bit against a direct ``make_predict_fn`` on
     the same loaded towers and batches, (c) the same loop on the plain
     attention (maps, scores and the metric table, both tables printed);
@@ -127,14 +139,19 @@ Needs one CUDA card and nvcc. Phases, each of which fails the run:
     class of phase 9's set, its scores bit for bit against a direct
     predict; (e) the training CLI, one text and one image epoch on phase
     10's set, its step-1 losses against the plain attention (phase 10's
-    bars); (f) CUDA-event times of each 3-pass kernel, the fp32 FMA kernel,
-    the plain 3-pass version and SDPA on the same fp32 inputs, and the
-    fp32_high predict's maps/s and stage-2 step's images/s beside fp32's.
+    bars); (f) CUDA-event times of each 3-pass kernel and its plain 3-pass
+    version, each 6-pass kernel (``split3`` included) and the plain fp32
+    version, ``split3`` alone, and SDPA on the same fp32 inputs, and the
+    fp32_high predict's maps/s and stage-2 step's images/s beside fp32's
+    (every fp32 launch of those timed runs counted on the 6-pass route).
 Phase 3 also holds the V-V mode of the forward kernel (B3) against its
 plain version, in bf16 and fp32, at [16, 1370, 1024], ragged S and head
 dim 16, and against the standard mode on the value section tripled.
 Then it prints the whole script's time and the kernel table as one JSON
-line (the 3-pass modes as rows of their own) (``launches`` counts the
+line (the 3-pass and 6-pass modes and ``split3`` as rows of their own;
+each 6-pass row's ``calls`` are the fp32 paths' launches, its
+``launches`` phase 4's fp32 predict's for B1 and ``split3``, phase 5b's
+for B2 and B3) (``launches`` counts the
 wrapper's calls on the main path; B4's is read after the fused predict,
 where it must be 0, since no path runs B4; ``calls`` gives B1's, B2's
 and B3's launches on each path that runs them, the training CLI's runs
@@ -303,19 +320,22 @@ def device_ops(fn, calls: int = 1) -> dict:
 DEVICE_OPS_CHECKS = []
 
 
-def kernels_per_call(fn, lib: str, want: dict, what: str) -> int:
+def kernels_per_call(fn, lib, want: dict, what: str) -> int:
     """The kernels one call of ``fn`` launches, counted by library ``lib``
-    at its launch sites (``kernels_launched``), which must be ``want``'s
-    total ({a kernel name's part: launches per call}); queues ``fn`` for
+    (a name, or a tuple of names whose counts are summed: the 6-pass
+    backward's splits run in the forward's library) at its launch sites
+    (``kernels_launched``), which must be ``want``'s total ({a kernel
+    name's part: launches per call}); queues ``fn`` for
     ``check_device_ops``."""
     import torch
 
     from aaclip_tpu_torch.kernels.build import kernels_launched
 
-    before = kernels_launched(lib)
+    libs = (lib,) if isinstance(lib, str) else lib
+    before = sum(kernels_launched(n) for n in libs)
     fn()
     torch.cuda.synchronize()
-    n = kernels_launched(lib) - before
+    n = sum(kernels_launched(n) for n in libs) - before
     print(f"{what}: {n} kernels per call (counted at the launch sites)")
     expect(n == sum(want.values()),
            f"{what} launches {n} kernels per call, not {want}")
@@ -393,6 +413,17 @@ def torch_dtype(name: str):
     return {"bf16": torch.bfloat16, "fp32": torch.float32}[name]
 
 
+def expect_routed(wrapper, before: int, calls: int, dtype_name: str,
+                  hd: int, what: str, precision=None) -> None:
+    """The ``calls`` launches of ``wrapper`` since its ``launches_6pass``
+    read ``before`` all took the 6-pass route if fp32 at head dim 64 under
+    "highest" or None, and none did otherwise."""
+    six = (dtype_name, hd, precision) == ("fp32", 64, None)
+    got = wrapper.launches_6pass - before
+    expect(got == (calls if six else 0),
+           f"{what}: {got} of {calls} launches on the 6-pass route")
+
+
 def check_kernel(dtype_name: str) -> float:
     """Forward kernel vs plain, and its logsumexp vs ``torch.logsumexp``
     of the plain scores, on the card; returns the largest max |delta| of
@@ -410,10 +441,13 @@ def check_kernel(dtype_name: str) -> float:
     worst_main = 0.0
     for B, S, H, hd, valid in cases:
         qkv = random_qkv(B, S, H, hd, dtype, gen)
+        before = attention_packed.launches_6pass
         got = attention_packed(qkv, H, valid)
         want = attention_packed_plain(qkv, H, valid)
         out2, lse = attention_packed(qkv, H, valid, return_lse=True)
         torch.cuda.synchronize()
+        expect_routed(attention_packed, before, 2, dtype_name, hd,
+                      "attention_packed")
         d = (got.float() - want.float()).abs()
         mx, mean = d.max().item(), d.mean().item()
         finite = bool(torch.isfinite(got).all())
@@ -493,9 +527,12 @@ def check_vv_kernel(dtype_name: str) -> float:
     worst_main = 0.0
     for B, S, H, hd in VV_CASES:
         v = torch.randn(B, S, H * hd, generator=gen, device="cuda").to(dtype)
+        before = attention_packed_vv.launches_6pass
         got = attention_packed_vv(v, H, S)
         want = attention_packed_vv_plain(v, H, S)
         torch.cuda.synchronize()
+        expect_routed(attention_packed_vv, before, 1, dtype_name, hd,
+                      "attention_packed_vv")
         d = (got.float() - want.float()).abs()
         mx, mean = d.max().item(), d.mean().item()
         over = (d - VV_BF16_REL * want.float().abs()).max().item()
@@ -542,10 +579,13 @@ def check_bwd_kernel(dtype_name: str) -> float:
         d_out = torch.randn(B, S, H * hd, generator=gen,
                             device="cuda").to(dtype)
         _, lse = attention_packed(qkv, H, valid, return_lse=True)
+        before = attention_packed_bwd.launches_6pass
         got = attention_packed_bwd(qkv, d_out, lse, H, valid)
         again = attention_packed_bwd(qkv, d_out, lse, H, valid)
         want = attention_packed_bwd_plain(qkv, d_out, H, valid)
         torch.cuda.synchronize()
+        expect_routed(attention_packed_bwd, before, 2, dtype_name, hd,
+                      "attention_packed_bwd")
         expect(got.dtype == dtype and got.shape == qkv.shape,
                f"d(qkv) {got.dtype} {tuple(got.shape)}")
         # deterministic: no atomics, every element written once
@@ -603,6 +643,9 @@ def check_tail_isolation(dtype_name: str, precision=None) -> None:
     qkv = random_qkv(B, S, H, hd, dtype, gen)
     d_out = torch.randn(B, S, dm, generator=gen, device="cuda").to(dtype)
     runs = []
+    wrappers = (attention_packed, attention_packed_bwd, attention_packed_vv,
+                attention_kernel)
+    before = [w.launches_6pass for w in wrappers]
     for fill in (float("nan"), 0.0):
         x, g = qkv.clone(), d_out.clone()
         x[1], g[1] = fill, fill
@@ -616,6 +659,9 @@ def check_tail_isolation(dtype_name: str, precision=None) -> None:
                                          valid, **kw),
                      attention_kernel(*heads, valid, **kw)))
     torch.cuda.synchronize()
+    for w, b in zip(wrappers, before):
+        expect_routed(w, b, 2, dtype_name, hd, f"tail {w.__name__}",
+                      precision)
     names = ("forward", "lse", "backward", "V-V", "attention_kernel")
     for name, got, clean in zip(names, *runs):
         same = torch.equal(got[[0, 2]], clean[[0, 2]])
@@ -660,7 +706,7 @@ def run_predict(predict, adapter, images, anchors, M):
 
     from aaclip_tpu_torch.ops.attention import attention_packed
 
-    attention_packed.launches = 0
+    zero_counts()
     pix, score = predict(adapter, images, anchors, M)
     torch.cuda.synchronize()
     return pix, score, attention_packed.launches
@@ -737,6 +783,7 @@ def phase_predict(vit, adapter, cfg, acfg, anchors, M, card, gen):
     f32 = torch.randn(2, 3, img, img, generator=gen, device="cuda")
     pix_k, score_k, launches32 = run_predict(predict_k32, adapter, f32,
                                              anchors, M)
+    expect_6pass((launches32, 0, 0), "predict fp32 B=2")
     pix_p, score_p, _ = run_predict(predict_p32, adapter, f32, anchors, M)
     expect(launches32 == n_layers, f"{launches32} fp32 kernel launches")
     print(f"predict fp32 B=2: launches={launches32} per call; max|d map| "
@@ -1030,14 +1077,155 @@ def counts_3pass():
             attention_packed_bwd.launches_3pass)
 
 
-def zero_counts() -> None:
+def counts_6pass():
+    """(standard forward, V-V, backward) launches of the 6-pass route."""
     from aaclip_tpu_torch.ops.attention import (attention_packed,
                                                 attention_packed_bwd,
                                                 attention_packed_vv)
 
+    return (attention_packed.launches_6pass,
+            attention_packed_vv.launches_6pass,
+            attention_packed_bwd.launches_6pass)
+
+
+def zero_counts() -> None:
+    from aaclip_tpu_torch.ops.attention import (attention_kernel,
+                                                attention_packed,
+                                                attention_packed_bwd,
+                                                attention_packed_vv, split3)
+
     for wrapper in (attention_packed, attention_packed_vv,
-                    attention_packed_bwd):
+                    attention_packed_bwd, attention_kernel):
         wrapper.launches = wrapper.launches_3pass = 0
+        wrapper.launches_6pass = 0
+    split3.launches = 0
+
+
+# {path: ((standard, V-V, backward) 6-pass launches, split3 launches)} of
+# every fp32 ViT-L path expect_6pass held, for the kernel line
+SIX_PASS_CALLS = {}
+
+
+def expect_6pass(counted: tuple, what: str) -> None:
+    """Every launch of ``counted`` ((standard, V-V, backward) launches as
+    ``counts()``, since the last ``zero_counts``) went through the 6-pass
+    route, each after its ``split3`` launches (one per forward, two per
+    backward), and none through B4's: an fp32 ViT-L path at head dim 64.
+    Records the path in SIX_PASS_CALLS."""
+    from aaclip_tpu_torch.ops.attention import attention_kernel, split3
+
+    six, splits = counts_6pass(), split3.launches
+    want_splits = counted[0] + counted[1] + 2 * counted[2]
+    print(f"{what}: 6-pass launches {six} of {counted}, split3 {splits}")
+    expect(six == counted and splits == want_splits
+           and attention_kernel.launches == 0,
+           f"{what}: 6-pass launches {six} of {counted}, split3 {splits} "
+           f"not {want_splits}, B4 {attention_kernel.launches}")
+    SIX_PASS_CALLS[what] = (six, splits)
+
+
+def check_step_vs_plain(vit, cfg, acfg, adapter, batch, table, policy,
+                        what: str, check_counts) -> tuple:
+    """Phase 5's comparison under ``policy``: one stage-2 step with remat,
+    the kernels against the plain attention from the same adapter (loss
+    within STEP_LOSS_RTOL, every adapter gradient's cosine and norm within
+    STEP_GRAD_*). ``check_counts(counts())`` runs right after the kernel
+    step; returns those (standard, V-V, backward) launches."""
+    import numpy as np
+    import torch
+
+    zero_counts()
+    loss_k, g_k, _, _, _ = train_step_once(
+        vit, cfg, acfg, adapter, batch, table, policy=policy, remat=True)
+    launched = counts()
+    check_counts(launched)
+    loss_p, g_p, fwd_p, bwd_p, _ = train_step_once(
+        vit, cfg, acfg, adapter, batch, table, policy=policy, remat=True,
+        attn_fn=make_attn_fn_plain(cfg.vision.heads, policy,
+                                   differentiable=True))
+    worst_cos, worst_norm = 1.0, 0.0
+    for name, gk in g_k.items():
+        cos = torch.nn.functional.cosine_similarity(
+            gk.flatten().double(), g_p[name].flatten().double(),
+            dim=0).item()
+        norm = abs(gk.norm().item() / g_p[name].norm().item() - 1.0)
+        worst_cos, worst_norm = min(worst_cos, cos), max(worst_norm, norm)
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    print(f"{what}: launches {launched}; plain step {fwd_p}, {bwd_p}; loss "
+          f"{loss_k:.6f} vs plain {loss_p:.6f} ({rel:.3e} relative); "
+          f"gradients over {len(g_k)} leaves: min cosine {worst_cos:.8f}, "
+          f"max |norm ratio - 1| {worst_norm:.3e}")
+    expect(fwd_p == bwd_p == 0, f"{what}: the plain step launched a kernel")
+    expect(np.isfinite(loss_k) and rel <= STEP_LOSS_RTOL
+           and worst_cos >= STEP_GRAD_COS
+           and worst_norm <= STEP_GRAD_NORM_RTOL,
+           f"{what} off: loss {rel}, cosine {worst_cos}, norm {worst_norm}")
+    return launched
+
+
+def check_features_vs_plain(vit, cfg, policy, x, what: str,
+                            check_counts) -> tuple:
+    """Phase 7's comparison under ``policy``: spatial stage-1 features
+    with the kernels against the same with both attentions plain (max |d|
+    within S1_FEAT_MAX_ABS, every token's cosine within S1_FEAT_COS).
+    ``check_counts(counts())`` runs right after the kernel call; returns
+    those (standard, V-V, backward) launches."""
+    import torch
+
+    from aaclip_tpu_torch.train.steps import stage1_features_fn
+
+    heads = cfg.vision.heads
+    zero_counts()
+    feats_k = stage1_features_fn(vit, cfg, policy=policy,
+                                 vv_mode="spatial")(x)
+    torch.cuda.synchronize()
+    launched = counts()
+    check_counts(launched)
+    zero_counts()
+    feats_p = stage1_features_fn(
+        vit, cfg, policy=policy, vv_mode="spatial",
+        attn_fn=make_attn_fn_plain(heads, policy),
+        vv_attn_fn=make_attn_fn_plain(heads, policy, vv=True))(x)
+    torch.cuda.synchronize()
+    plain = counts()
+    dmax = (feats_k - feats_p).abs().max().item()
+    cos = torch.nn.functional.cosine_similarity(
+        feats_k.double(), feats_p.double(), dim=-1).min().item()
+    print(f"{what}: launches {launched} (plain {plain}); kernel vs plain "
+          f"max|d| {dmax:.3e}, least per-token cosine {cos:.8f}")
+    expect(plain == (0, 0, 0), f"{what}: the plain features launched")
+    expect(dmax <= S1_FEAT_MAX_ABS and cos >= S1_FEAT_COS,
+           f"{what} off: {dmax}, {cos}")
+    return launched
+
+
+def phase_fp32_paths(vit, adapter, cfg, acfg) -> None:
+    """Phase 5b: the fp32 ViT-L paths that run the 6-pass backward and V-V
+    launches, end to end: the stage-2 step at batch 2 with remat against
+    the plain-attention step (phase 5's bars; 47 forward and 23 backward
+    launches, all 6-pass) and spatial stage-1 features at batch 2 against
+    both attentions plain (phase 7's bars; 24 standard and 19 V-V, all
+    6-pass)."""
+    import torch
+
+    from aaclip_tpu_torch.core.config import DtypePolicy
+
+    n_layers, img = cfg.vision.layers, cfg.vision.image_size
+    fp32 = DtypePolicy.fp32()
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    table = unit_table(cfg.embed_dim, gen)
+    what = "train fp32 B=2 remat"
+    launched = check_step_vs_plain(
+        vit, cfg, acfg, adapter, train_batch(2, img, gen), table, fp32, what,
+        lambda c: expect_6pass(c, what))
+    expect(launched == (S2_FWD_PER_STEP_REMAT, 0, n_layers - 1),
+           f"{what}: launches {launched}")
+    what = "stage-1 spatial features fp32 B=2"
+    launched = check_features_vs_plain(
+        vit, cfg, fp32, stage1_batch(2, img, gen)[0], what,
+        lambda c: expect_6pass(c, what))
+    expect(launched == (n_layers, STAGE1_SURGERY_UNTIL - 1, 0),
+           f"{what}: launches {launched}")
 
 
 def stage1_step_once(text, cfg, acfg, adapter, tokens, feats, batch, *,
@@ -1421,7 +1609,10 @@ def check_attention_kernel(dtype_name: str) -> float:
     for B, H, S, hd, valid in BHSD_CASES:
         q, k, v = (torch.randn(B, H, S, hd, generator=gen,
                                device="cuda").to(dtype) for _ in range(3))
+        before = attention_kernel.launches_6pass
         got = attention_kernel(q, k, v, valid)
+        expect_routed(attention_kernel, before, 1, dtype_name, hd,
+                      "attention_kernel")
         want = attention_kernel_plain(q, k, v, valid)
         packed = torch.cat([t.transpose(1, 2).reshape(B, S, H * hd)
                             for t in (q, k, v)], dim=-1).contiguous()
@@ -1472,7 +1663,7 @@ def zero_fused_counts() -> None:
     zero_counts()
     FB.ln_linear.launches = FB.linear_residual.launches = 0
     FB.mlp_fused.launches = attention_kernel.launches = 0
-    attention_kernel.launches_3pass = 0
+    attention_kernel.launches_3pass = attention_kernel.launches_6pass = 0
 
 
 def plain_block_fn(heads: int, policy, act, vv: bool = False):
@@ -1520,6 +1711,8 @@ def phase_fused_predict(vit, adapter, cfg, acfg, anchors, M, card):
         pix_f, score_f = fused(adapter, images, anchors, M)
         torch.cuda.synchronize()
         c = fused_counts()
+        if name == "fp32":
+            expect_6pass((c[1], c[2], 0), f"fused predict fp32 B={B}")
         zero_fused_counts()
         pix_p, score_p = plain(adapter, images, anchors, M)
         torch.cuda.synchronize()
@@ -1805,8 +1998,17 @@ def time_fused(cfg, card):
 # class, covers 450 maps. (b) the CLI against a direct predict on the same
 # loaded towers and batches: bit for bit (the same kernels and products at
 # the same shapes). (c) the kernel run against the same loop on the plain
-# attention: phase 4's bars on the scores, at fp32 on the maps too, and
-# the tables within 0.01 points at fp32 (a rounding may flip). The bf16
+# attention: phase 4's bars on the scores, at fp32 on the maps too. The
+# fp32 table is held within 0.01 points (a rounding may flip) of the table
+# the same loop gives with the attention in fp64 (the exact attention
+# through the same fp32 trunk), and the plain fp32 attention's table is
+# printed beside it: the image AUROC/AP rank each class's images by half
+# the min-max-normalised map maximum plus half the score, and two fp32
+# attentions can order a near-tied normal/anomalous pair differently; on
+# this set the plain fp32 attention's rounding does so for one carpet
+# pair, so its table's carpet image AUROC lies 0.02 points (one of 5000
+# pairs) from both the exact attention's and the 6-pass kernel's, which
+# agree (read on an NVIDIA H100 80GB HBM3, 700 W). The bf16
 # map and table are held against a second bf16 attention, the
 # library's (SDPA through the same projections): phase 4's bar (kernel
 # within 1e-2 of the plain map's span) is below what any two bf16
@@ -1833,6 +2035,14 @@ PP_3PASS_SPAN_FRAC = 1e-5
 EVAL_CLASSES, EVAL_NORMAL, EVAL_ANOMALOUS, EVAL_PX = 4, 50, 100, 1024
 EVAL_RUNS = (("bf16", 32), ("fp32", 8))
 DECODE_SAMPLE = 16  # images and masks timed one at a time on the host
+
+
+def attention_packed_fp64(qkv, num_heads: int, valid_len: int,
+                          precision=None):
+    """The exact attention (``attention_fp64``) of a packed fp32 qkv, cast
+    back to its dtype, in ``attention_packed_plain``'s signature: phase
+    9's fp32 table reference."""
+    return attention_fp64(qkv, num_heads, valid_len).to(qkv.dtype)
 
 
 def sdpa_packed(qkv, num_heads: int, valid_len: int, precision=None):
@@ -2076,6 +2286,10 @@ def phase_eval_cli(card, ckpt_path: str) -> None:
             n_batches = EVAL_CLASSES * -(-per_class // B)
             n_lib = kernels_launched("attention_packed") - before
             counts_now = dict(zip(("standard", "vv", "bwd"), counts()))
+            # fp32: each launch on the 6-pass route after a split3 launch
+            per_launch = 2 if name == "fp32" else 1
+            if name == "fp32":
+                expect_6pass(counts(), f"eval CLI {name}")
             others = {"attention_kernel": attention_kernel.launches,
                       "ln_linear": FB.ln_linear.launches,
                       "linear_residual": FB.linear_residual.launches,
@@ -2085,7 +2299,8 @@ def phase_eval_cli(card, ckpt_path: str) -> None:
                   f"({n_lib} kernels counted by the library), V-V "
                   f"{counts_now['vv']}, backward {counts_now['bwd']}, "
                   f"{others}")
-            expect(counts_now["standard"] == n_layers * n_batches == n_lib,
+            expect(counts_now["standard"] == n_layers * n_batches
+                   and n_lib == per_launch * counts_now["standard"],
                    f"eval CLI {name}: {counts_now['standard']} launches, "
                    f"{n_lib} kernels, not {n_layers} x {n_batches}")
             expect(counts_now["vv"] == counts_now["bwd"] == 0
@@ -2114,12 +2329,16 @@ def phase_eval_cli(card, ckpt_path: str) -> None:
             exact = make_predict_fn(vit, cfg, acfg,
                                     policy=DtypePolicy.fp32(),
                                     uint8_inputs=uint8)
+            exact_attention = make_predict_fn(
+                vit, cfg, acfg, policy=policy, uint8_inputs=uint8,
+                attn_fn=make_attn_fn(heads, policy,
+                                     attention=attention_packed_fp64))
             anchors = encode_dataset_anchors(
                 make_anchor_encoder(text, cfg, acfg, text_adapter,
                                     policy=policy), "MVTec")
             scores = read_csv(os.path.join(save, "scores_1.csv"))[1:]
             table = read_csv(os.path.join(save, "results_1.csv"))
-            plain_rows, lib_rows = [], []
+            plain_rows, lib_rows, exact_rows = [], [], []
             dpix_rel = dscore = 0.0
             bf16_maps = {}
             host_s = {"loader": [], "metrics": []}
@@ -2188,7 +2407,16 @@ def phase_eval_cli(card, ckpt_path: str) -> None:
                                        "Industrial")
                     lib_rows.append([cls] + [float(row[c])
                                              for c in table[0][1:]])
-            for rows in (plain_rows, lib_rows):
+                else:
+                    e64 = run_class_predictions(
+                        exact_attention, image_adapter, batches,
+                        anchors[cls], "Industrial", img, grid)
+                    row = metrics_eval(ref[0], ref[1], e64[2], e64[3], cls,
+                                       "Industrial")
+                    exact_rows.append([cls] + [float(row[c])
+                                               for c in table[0][1:]])
+                    del e64
+            for rows in (plain_rows, lib_rows, exact_rows):
                 if rows:
                     rows.append(["Average"] + [
                         sum(r[i] for r in rows) / len(rows)
@@ -2247,10 +2475,18 @@ def phase_eval_cli(card, ckpt_path: str) -> None:
                 print(f"eval CLI {name}: beyond SDPA's distance from the "
                       f"plain table in the same cell, the kernel's lies at "
                       f"most {dtable:.4f} points from it")
+            if exact_rows:
+                print(f"eval CLI {name}: the same loop with the attention in "
+                      f"fp64:\n" + cli.format_table(table[0], exact_rows))
+                dtable = table_distance(kernel_rows, exact_rows)
+                print(f"eval CLI {name}: the kernel's table differs from the "
+                      f"fp64-attention one by at most {dtable:.4f} points, "
+                      f"the plain attention's by at most "
+                      f"{table_distance(plain_rows, exact_rows):.4f}")
             expect(dtable <= EVAL_TABLE_ATOL[name],
                    f"eval CLI {name}: tables differ by {dtable} points (bar "
                    f"{EVAL_TABLE_ATOL[name]})")
-            del kernel, plain, library, exact
+            del kernel, plain, library, exact, exact_attention
             gc.collect()
             torch.cuda.empty_cache()
 
@@ -2871,9 +3107,9 @@ def check_kernels_3pass() -> dict:
     bit for bit), B3 (and bit for bit the standard mode on [v, v, v]) and
     B4 (and bit for bit B1 on the same values packed) against their plain
     3-pass versions at HIGH_CASES; every launch counted in the wrappers'
-    ``launches_3pass``. Then each mode's distance from fp64 beside the fp32
-    FMA kernels' on the same inputs. Returns {kernel: the largest max |d|
-    at the predict's and the step's shape}."""
+    ``launches_3pass``; then the NaN image (check_fp64_distances gives the
+    mode's distance from fp64). Returns {kernel: the largest max |d| at
+    the predict's and the step's shape}."""
     import torch
 
     from aaclip_tpu_torch.ops import attention as A
@@ -2960,36 +3196,132 @@ def check_kernels_3pass() -> dict:
               f"bit)")
         del qkv, d_out, lse, got, again, heads, g4, w4
 
-    # each mode's distance from fp64, beside the FMA kernels'
-    B, S, H, hd = 2, 1370, 16, 64
-    dm = H * hd
-    qkv = random_qkv(B, S, H, hd, torch.float32, gen)
-    d_out = torch.randn(B, S, dm, generator=gen, device="cuda")
-    exact = attention_fp64(qkv, H, S)
-    exact_g = attention_fp64(qkv, H, S, d_out)
-    for mode, prec in (("3-pass", HIGH), ("fp32 FMA", None)):
-        out, lse = A.attention_packed(qkv, H, S, return_lse=True,
-                                      precision=prec)
-        g = A.attention_packed_bwd(qkv, d_out, lse, H, S, precision=prec)
-        errs = [(out.double() - exact).abs().max().item()
-                / exact.abs().max().item()]
-        for i in range(3):
-            sl = slice(i * dm, (i + 1) * dm)
-            errs.append((g[..., sl].double() - exact_g[..., sl]).abs().max()
-                        .item() / exact_g[..., sl].abs().max().item())
-        print(f"distance from fp64 [{B},{S},{3 * dm}], {mode} kernels: "
-              f"forward {errs[0]:.3e}, dq {errs[1]:.3e}, dk {errs[2]:.3e}, "
-              f"dv {errs[3]:.3e} of each max")
     check_tail_isolation("fp32", HIGH)
     return worst
 
 
-def time_kernels_3pass(card) -> dict:
-    """Phase 11f: CUDA-event times of each 3-pass kernel, its plain
-    version, the fp32 FMA kernel and SDPA (its backward for B2) on the same
-    fp32 inputs (TF32 off), at the predict's and the step's batch 8 (B1,
-    B2, B4) and the stage-1 bench's batch 16 (B3); returns {kernel: (ms,
-    plain ms, SDPA ms, bound ms, bound_by, kernels per call)}."""
+# The 6-pass route (fp32 at head dim 64 under "highest" or None, the CLIs'
+# default --precision fp32). The split kernel against split3_plain bit for
+# bit: both round with the card's bf16 conversion and subtract in fp32, at
+# the step's qkv shape, over fp32's binades, on powers of two, near the
+# largest and the smallest normals (and under the exact domain, where both
+# drop the same bits), on zeros of both signs and on counts that leave a
+# one-by-one tail; NaN stays NaN in every plane. The kernels' distance from
+# fp64: the six passes drop terms of about 2^-24 relative, the small ones
+# are summed first and each tile's sum joins the running one in fp32
+# registers, so they sit at the FMA kernels' level (those read 1.2-1.9e-6
+# of each output's max, the 6-pass kernels 0.6-1.0e-6, on an NVIDIA H100
+# 80GB HBM3, 700 W); bar 4e-6 of each output's max. Against the plain
+# fp32 versions they keep the fp32 bars (FP32_MAX_ABS, LSE_MAX_ABS,
+# BWD_FP32_MAX_REL) through check_kernel and its siblings.
+SIX_FP64_MAX_REL = 4e-6
+
+
+def check_split3() -> None:
+    """Phase 3: ``split3`` (the split kernel) against ``split3_plain`` on
+    the card, bit for bit."""
+    import torch
+
+    from aaclip_tpu_torch.ops.attention import split3, split3_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    wide = torch.randn(1 << 20, generator=gen, device="cuda") * torch.exp2(
+        torch.randint(-120, 120, (1 << 20,), generator=gen, device="cuda")
+        .float())
+    pow2 = torch.exp2(torch.arange(-126, 128, device="cuda").float())
+    top = torch.tensor(float.fromhex("0x1.fcp127"), device="cuda")
+    near_top = top * (1 - torch.arange(256, device="cuda") * 2.0 ** -20)
+    low = torch.exp2(torch.tensor(-126.0, device="cuda")) * (
+        1 + torch.arange(4096, device="cuda") * 2.0 ** -12)
+    special = torch.cat([pow2, near_top, low, wide[wide.abs() < top]])
+    special = torch.cat([special, -special, torch.tensor([0.0, -0.0],
+                                                         device="cuda")])
+    cases = {"step qkv [8,1370,3072]": random_qkv(TRAIN_BATCH, 1370, 16, 64,
+                                                   torch.float32, gen),
+             "binades, powers of two, extreme normals, zeros": special}
+    for n in (1, 7, 1001):  # the one-by-one tail
+        cases[f"{n} values"] = torch.randn(n, generator=gen, device="cuda")
+    for what, x in cases.items():
+        got, want = split3(x), split3_plain(x)
+        torch.cuda.synchronize()
+        same = torch.equal(got.view(torch.int16), want.view(torch.int16))
+        exact = torch.equal(got.double().sum(0), x.double())
+        print(f"split3 {what} ({x.numel()} values): bit for bit the plain "
+              f"version's: {same}; hi + mid + lo == x in fp64: {exact}")
+        expect(same and got.shape == (3, *x.shape),
+               f"split3 {what}: differs from split3_plain")
+    nan = split3(torch.full((8,), float("nan"), device="cuda"))
+    expect(bool(torch.isnan(nan.float()).all()), "split3: NaN not kept")
+
+
+def fp64_distances(qkv, H: int, d_out, precision) -> dict:
+    """Each kernel's max |d| from fp64, as a fraction of its output's max:
+    the forward, V-V (on the value section), B4 (on the heads) and the
+    backward's dq, dk, dv at ``precision``."""
+    import torch
+
+    from aaclip_tpu_torch.ops import attention as A
+
+    B, S, width = qkv.shape
+    dm = width // 3
+    hd = dm // H
+    v = qkv[..., 2 * dm:].contiguous()
+    heads = [qkv[..., i * dm:(i + 1) * dm].reshape(B, S, H, hd)
+             .transpose(1, 2).contiguous() for i in range(3)]
+    out, lse = A.attention_packed(qkv, H, S, return_lse=True,
+                                  precision=precision)
+    got = {"forward": out,
+           "V-V": A.attention_packed_vv(v, H, S, precision=precision),
+           "B4": A.attention_kernel(*heads, S, precision=precision)
+           .transpose(1, 2).reshape(B, S, dm)}
+    g = A.attention_packed_bwd(qkv, d_out, lse, H, S, precision=precision)
+    exact = attention_fp64(qkv, H, S)
+    exact_vv = attention_fp64(torch.cat([v, v, v], dim=-1), H, S)
+    exact_g = attention_fp64(qkv, H, S, d_out)
+    want = {"forward": exact, "V-V": exact_vv, "B4": exact}
+    for i, name in enumerate(("dq", "dk", "dv")):
+        got[name] = g[..., i * dm:(i + 1) * dm]
+        want[name] = exact_g[..., i * dm:(i + 1) * dm]
+    return {name: ((got[name].double() - want[name]).abs().max()
+                   / want[name].abs().max()).item() for name in got}
+
+
+def check_fp64_distances() -> None:
+    """Phase 3: each fp32 route's distance from fp64 at [2, 1370, 3072]
+    (the 6-pass kernels, held to SIX_FP64_MAX_REL, and the 3-pass mode),
+    beside the head-dim-16 FMA kernels' at [2, 1370, 768]."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    for mode, hd, prec in (("6-pass", 64, None), ("3-pass", 64, HIGH),
+                           ("FMA, head dim 16,", 16, None)):
+        qkv = random_qkv(2, 1370, 16, hd, torch.float32, gen)
+        d_out = torch.randn(2, 1370, 16 * hd, generator=gen, device="cuda")
+        errs = fp64_distances(qkv, 16, d_out, prec)
+        print(f"distance from fp64 {list(qkv.shape)}, {mode} kernels: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + " of each output's max")
+        if mode == "6-pass":
+            expect(max(errs.values()) <= SIX_FP64_MAX_REL,
+                   f"6-pass kernels off fp64: {errs}")
+
+
+
+H100_FP32_FMA_FLOPS = 67e12  # fp32 outside the tensor cores, data sheet
+
+
+def time_kernels_fp32(card) -> dict:
+    """Phase 11f: CUDA-event times of the fp32 attention kernels on the
+    same fp32 inputs (TF32 off), at the predict's and the step's batch 8
+    (B1, B2, B4) and the stage-1 bench's batch 16 (B3): each 3-pass kernel
+    (precision "high") beside its plain 3-pass version, each 6-pass kernel
+    (precision None: ``split3`` and the kernel, as a call runs them) beside
+    the plain fp32 version, SDPA (its backward for B2), and ``split3``
+    alone on the step's qkv (the inputs stay alive: check_device_ops calls
+    the timed functions again). Returns {"3pass": {kernel: (ms, plain ms,
+    SDPA ms, bound ms, bound_by, kernels per call)}, "6pass": {...},
+    "split3": (...), SDPA None}. The bounds: the 3-pass rows three bf16
+    passes and the 6-pass rows six of the TPU kernel's products."""
     import torch
 
     from aaclip_tpu_torch.ops import attention as A
@@ -2998,84 +3330,95 @@ def time_kernels_3pass(card) -> dict:
     B, S, H, hd = TRAIN_BATCH, 1370, 16, 64
     dm = H * hd
     gen = torch.Generator(device="cuda").manual_seed(15)
-    out = {}
+    out = {"3pass": {}, "6pass": {}}
+    fwd_lib, bwd_libs = "attention_packed", ("attention_packed",
+                                             "attention_packed_bwd")
 
-    def report(name, shape, ms, ms_fma, ms_plain, ms_sdpa, flops, nbytes,
-               per_call):
-        bound_ms, bound_by = bound(3 * flops, nbytes)
-        for what, t in (("3-pass kernel", ms), ("fp32 FMA kernel", ms_fma),
-                        ("plain 3-pass", ms_plain), ("SDPA fp32", ms_sdpa)):
-            print(f"time {name} {what} {shape} fp32: {t:.4f} ms/call "
-                  f"({3 * flops / t / 1e9:.1f} TFLOP/s of the three bf16 "
-                  f"passes; bound {bound_ms:.4f} ms by {bound_by}) on {card}")
-        out[name] = (ms, ms_plain, ms_sdpa, bound_ms, bound_by, per_call)
+    def report(name, shape, call, plain3, plain, ms_sdpa, flops, nbytes,
+               iters, libs, want3, want6):
+        """Time ``call(precision)`` under "high" and None; ``plain3`` and
+        ``plain`` are the two plain versions."""
+        k3, k6 = (functools.partial(call, p) for p in (HIGH, None))
+        ms3, ms6 = cuda_ms(k3, iters), cuda_ms(k6, iters)
+        per3 = kernels_per_call(k3, libs, want3, f"{name} 3-pass")
+        per6 = kernels_per_call(k6, libs, want6, f"{name} 6-pass")
+        ms_p3, ms_p = cuda_ms(plain3, 2, warmup=1), cuda_ms(plain, 2,
+                                                            warmup=1)
+        for mode, passes, ms, ms_plain, per in (
+                ("3pass", 3, ms3, ms_p3, per3), ("6pass", 6, ms6, ms_p, per6)):
+            bound_ms, bound_by = bound(passes * flops, nbytes)
+            out[mode][name] = (ms, ms_plain, ms_sdpa, bound_ms, bound_by,
+                               per)
+            print(f"time {name} {mode} kernel {shape} fp32: {ms:.4f} ms/call "
+                  f"({passes * flops / ms / 1e9:.1f} TFLOP/s of the {passes} "
+                  f"bf16 passes; bound {bound_ms:.4f} ms by {bound_by}, one "
+                  f"fp32 pass at the FMA rate "
+                  f"{flops / H100_FP32_FMA_FLOPS * 1e3:.4f} ms); its plain "
+                  f"version {ms_plain:.4f} ms on {card}")
+        print(f"time {name} SDPA fp32 {shape}: {ms_sdpa:.4f} ms/call on "
+              f"{card}")
 
     qkv = random_qkv(B, S, H, hd, torch.float32, gen)
-    fwd = functools.partial(A.attention_packed, qkv, H, S, precision=HIGH)
-    ms = cuda_ms(fwd, 10)
-    per_call = kernels_per_call(fwd, "attention_packed",
-                                {"attn_fwd_3pass": 1},
-                                "attention_packed 3-pass")
     q, k, v = qkv.view(B, S, 3, H, hd).permute(2, 0, 3, 1, 4).unbind(0)
-    report("attention_packed", f"[{B},{S},{3 * dm}]", ms,
-           cuda_ms(lambda: A.attention_packed(qkv, H, S), 5),
-           cuda_ms(lambda: A.attention_packed_plain(qkv, H, S,
-                                                    precision=HIGH), 2),
+    report("attention_packed", f"[{B},{S},{3 * dm}]",
+           lambda p: A.attention_packed(qkv, H, S, precision=p),
+           lambda: A.attention_packed_plain(qkv, H, S, precision=HIGH),
+           lambda: A.attention_packed_plain(qkv, H, S),
            cuda_ms(lambda: sdpa(q, k, v), 5),
-           4 * B * H * S * S * hd, 4 * B * S * dm * 4, per_call)
+           4 * B * H * S * S * hd, 4 * B * S * dm * 4, 10, fwd_lib,
+           {"attn_fwd_3pass": 1}, {"split3_kernel": 1, "attn_fwd_6pass": 1})
+
+    split = functools.partial(A.split3, qkv)
+    ms = cuda_ms(split, 20)
+    per_call = kernels_per_call(split, fwd_lib, {"split3_kernel": 1},
+                                "split3")
+    ms_plain = cuda_ms(lambda: A.split3_plain(qkv), 5)
+    nbytes = qkv.numel() * (4 + 3 * 2)  # fp32 in, three bf16 planes out
+    bound_ms, bound_by = bound(0, nbytes)
+    out["split3"] = (ms, ms_plain, None, bound_ms, bound_by, per_call)
+    print(f"time split3 [{B},{S},{3 * dm}] fp32: {ms:.4f} ms/call "
+          f"({nbytes / ms / 1e9:.1f} TB/s; bound {bound_ms:.4f} ms "
+          f"by {bound_by}); its plain version {ms_plain:.4f} ms on {card}")
 
     d_out = torch.randn(B, S, dm, generator=gen, device="cuda")
-    _, lse = A.attention_packed(qkv, H, S, return_lse=True, precision=HIGH)
-    _, lse32 = A.attention_packed(qkv, H, S, return_lse=True)
-    bwd = functools.partial(A.attention_packed_bwd, qkv, d_out, lse, H, S,
-                            precision=HIGH)
-    ms = cuda_ms(bwd, 5)
-    per_call = kernels_per_call(
-        bwd, "attention_packed_bwd",
-        {"attn_bwd_dq_3pass": 1, "attn_bwd_dkdv_3pass": 1},
-        "attention_packed_bwd 3-pass")
+    lse = {p: A.attention_packed(qkv, H, S, return_lse=True,
+                                 precision=p)[1] for p in (HIGH, None)}
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
     o = sdpa(qg, kg, vg)
     g = d_out.view(B, S, H, hd).transpose(1, 2)
-    report("attention_packed_bwd", f"[{B},{S},{3 * dm}]", ms,
-           cuda_ms(lambda: A.attention_packed_bwd(qkv, d_out, lse32, H, S),
-                   2, warmup=1),
-           cuda_ms(lambda: A.attention_packed_bwd_plain(
-               qkv, d_out, H, S, precision=HIGH), 2, warmup=1),
+    report("attention_packed_bwd", f"[{B},{S},{3 * dm}]",
+           lambda p: A.attention_packed_bwd(qkv, d_out, lse[p], H, S,
+                                            precision=p),
+           lambda: A.attention_packed_bwd_plain(qkv, d_out, H, S,
+                                                precision=HIGH),
+           lambda: A.attention_packed_bwd_plain(qkv, d_out, H, S),
            cuda_ms(lambda: torch.autograd.grad(o, (qg, kg, vg), g,
                                                retain_graph=True), 5),
            10 * B * H * S * S * hd,
-           (2 * qkv.numel() + d_out.numel() + lse.numel()) * 4, per_call)
-    del d_out, lse, lse32, qg, kg, vg, o, g
+           (2 * qkv.numel() + d_out.numel() + B * H * S) * 4, 5, bwd_libs,
+           {"attn_bwd_dq_3pass": 1, "attn_bwd_dkdv_3pass": 1},
+           {"split3_kernel": 2, "attn_bwd_dq_6pass": 1,
+            "attn_bwd_dkdv_6pass": 1})
 
     heads = [t.contiguous() for t in (q, k, v)]
-    b4 = functools.partial(A.attention_kernel, *heads, S, precision=HIGH)
-    ms = cuda_ms(b4, 10)
-    per_call = kernels_per_call(b4, "attention_packed",
-                                {"attn_fwd_3pass": 1},
-                                "attention_kernel 3-pass")
-    report("attention_kernel", f"[{B},{H},{S},{hd}]", ms,
-           cuda_ms(lambda: A.attention_kernel(*heads, S), 5),
-           cuda_ms(lambda: A.attention_kernel_plain(*heads, S,
-                                                    precision=HIGH), 2),
+    report("attention_kernel", f"[{B},{H},{S},{hd}]",
+           lambda p: A.attention_kernel(*heads, S, precision=p),
+           lambda: A.attention_kernel_plain(*heads, S, precision=HIGH),
+           lambda: A.attention_kernel_plain(*heads, S),
            cuda_ms(lambda: sdpa(*heads), 5),
-           4 * B * H * S * S * hd, 4 * B * S * dm * 4, per_call)
-    del qkv, q, k, v, heads
+           4 * B * H * S * S * hd, 4 * B * S * dm * 4, 10, fwd_lib,
+           {"attn_fwd_3pass": 1}, {"split3_kernel": 3, "attn_fwd_6pass": 1})
 
     B = STAGE1_BATCH
     v = torch.randn(B, S, dm, generator=gen, device="cuda")
-    vv = functools.partial(A.attention_packed_vv, v, H, S, precision=HIGH)
-    ms = cuda_ms(vv, 10)
-    per_call = kernels_per_call(vv, "attention_packed",
-                                {"attn_fwd_3pass": 1},
-                                "attention_packed_vv 3-pass")
     qv = v.view(B, S, H, hd).transpose(1, 2)
-    report("attention_packed_vv", f"[{B},{S},{dm}]", ms,
-           cuda_ms(lambda: A.attention_packed_vv(v, H, S), 5),
-           cuda_ms(lambda: A.attention_packed_vv_plain(v, H, S,
-                                                       precision=HIGH), 2),
+    report("attention_packed_vv", f"[{B},{S},{dm}]",
+           lambda p: A.attention_packed_vv(v, H, S, precision=p),
+           lambda: A.attention_packed_vv_plain(v, H, S, precision=HIGH),
+           lambda: A.attention_packed_vv_plain(v, H, S),
            cuda_ms(lambda: sdpa(qv, qv, qv), 5),
-           4 * B * H * S * S * hd, 2 * v.numel() * 4, per_call)
+           4 * B * H * S * S * hd, 2 * v.numel() * 4, 10, fwd_lib,
+           {"attn_fwd_3pass": 1}, {"split3_kernel": 1, "attn_fwd_6pass": 1})
     return out
 
 
@@ -3119,7 +3462,6 @@ def phase_fp32_high(vit, adapter, cfg, acfg, anchors, M, card,
     from aaclip_tpu_torch.ops import attention as A
     from aaclip_tpu_torch.text.anchors import encode_dataset_anchors
     from aaclip_tpu_torch.train import checkpoint as ckpt
-    from aaclip_tpu_torch.train.steps import stage1_features_fn
 
     t_phase = time.perf_counter()
     heads, img, n_layers = cfg.vision.heads, cfg.vision.image_size, \
@@ -3141,6 +3483,10 @@ def phase_fp32_high(vit, adapter, cfg, acfg, anchors, M, card,
     span32 = (pix32.max() - pix32.min()).item()
     rates["fp32"] = TRAIN_BATCH / cuda_ms(
         lambda: exact(adapter, images, anchors, M), 3, warmup=1) * 1e3
+    # 5 calls: run_predict's, a warm-up and 3 timed
+    expect(counts() == (5 * n_layers, 0, 0),
+           f"timed fp32 predict launches {counts()}")
+    expect_6pass(counts(), "timed fp32 predict, 5 calls")
     del exact
     for K in (staged, 0):
         pol = dataclasses.replace(high, bf16_until=K)
@@ -3186,46 +3532,29 @@ def phase_fp32_high(vit, adapter, cfg, acfg, anchors, M, card,
 
     # (b) the stage-2 step at batch 2 with remat, kernel vs plain
     table = unit_table(cfg.embed_dim, gen)
-    batch2 = train_batch(2, img, gen)
-    zero_counts()
-    loss_k, g_k, fwd, bwd, _ = train_step_once(
-        vit, cfg, acfg, adapter, batch2, table, policy=high, remat=True)
-    f3, _, b3 = counts_3pass()
-    zero_counts()
-    loss_p, g_p, fwd_p, bwd_p, _ = train_step_once(
-        vit, cfg, acfg, adapter, batch2, table, policy=high, remat=True,
-        attn_fn=make_attn_fn_plain(heads, high, differentiable=True))
-    worst_cos, worst_norm = 1.0, 0.0
-    for name, gk in g_k.items():
-        cos = torch.nn.functional.cosine_similarity(
-            gk.flatten().double(), g_p[name].flatten().double(),
-            dim=0).item()
-        norm = abs(gk.norm().item() / g_p[name].norm().item() - 1.0)
-        worst_cos, worst_norm = min(worst_cos, cos), max(worst_norm, norm)
-    rel = abs(loss_k - loss_p) / abs(loss_p)
-    print(f"train fp32_high B=2 remat: launches forward {fwd} ({f3} 3-pass),"
-          f" backward {bwd} ({b3} 3-pass); plain step {fwd_p}, {bwd_p}; "
-          f"loss {loss_k:.6f} vs plain {loss_p:.6f} ({rel:.3e} relative); "
-          f"gradients over {len(g_k)} leaves: min cosine {worst_cos:.8f}, "
-          f"max |norm ratio - 1| {worst_norm:.3e}")
-    expect((fwd, f3, bwd, b3) == (S2_FWD_PER_STEP_REMAT,
-                                  S2_FWD_PER_STEP_REMAT, n_layers - 1,
-                                  n_layers - 1),
-           f"fp32_high step launches {fwd}, {f3}, {bwd}, {b3}")
-    expect(fwd_p == bwd_p == 0, "the plain fp32_high step launched a kernel")
-    expect(np.isfinite(loss_k) and rel <= STEP_LOSS_RTOL
-           and worst_cos >= STEP_GRAD_COS
-           and worst_norm <= STEP_GRAD_NORM_RTOL,
-           f"fp32_high step off: loss {rel}, cosine {worst_cos}, norm "
-           f"{worst_norm}")
-    calls["attention_packed"]["fp32_high stage-2 step (remat)"] = f3
-    calls["attention_packed_bwd"]["fp32_high stage-2 step (remat)"] = b3
-    del g_k, g_p, batch2
+    what = "train fp32_high B=2 remat"
+
+    def all_3pass(c):
+        expect(counts_3pass() == c,
+               f"{what}: 3-pass launches {counts_3pass()} of {c}")
+
+    fwd, _, bwd = check_step_vs_plain(vit, cfg, acfg, adapter,
+                                      train_batch(2, img, gen), table, high,
+                                      what, all_3pass)
+    expect((fwd, bwd) == (S2_FWD_PER_STEP_REMAT, n_layers - 1),
+           f"fp32_high step launches {fwd}, {bwd}")
+    calls["attention_packed"]["fp32_high stage-2 step (remat)"] = fwd
+    calls["attention_packed_bwd"]["fp32_high stage-2 step (remat)"] = bwd
     batch8 = train_batch(TRAIN_BATCH, img, gen)
     for name, pol in (("fp32_high", high), ("fp32", fp32)):
+        zero_counts()
         _, _, _, _, (ad, opt, sched, step) = train_step_once(
             vit, cfg, acfg, adapter, batch8, table, policy=pol, remat=False)
         ms = cuda_ms(lambda: step(ad, *batch8), 3, warmup=1)
+        if name == "fp32":  # 5 steps: the first, a warm-up and 3 timed
+            expect(counts() == (5 * n_layers, 0, 5 * (n_layers - 1)),
+                   f"timed fp32 step launches {counts()}")
+            expect_6pass(counts(), "timed fp32 stage-2 step, 5 steps")
         rates[f"stage-2 {name}"] = TRAIN_BATCH / ms * 1e3
         print(f"time train step {name} B={TRAIN_BATCH} ViT-L/518 no remat: "
               f"{ms:.2f} ms/step, {rates[f'stage-2 {name}']:.2f} images/s "
@@ -3236,36 +3565,14 @@ def phase_fp32_high(vit, adapter, cfg, acfg, anchors, M, card,
     del batch8
 
     # (c) spatial stage-1 features at batch 2
-    feats_fn = {name: stage1_features_fn(
-        vit, cfg, policy=high, vv_mode="spatial",
-        attn_fn=make_attn_fn_plain(heads, high) if name == "plain" else None,
-        vv_attn_fn=make_attn_fn_plain(heads, high, vv=True)
-        if name == "plain" else None) for name in ("kernel", "plain")}
-    x2 = stage1_batch(2, img, gen)[0]
-    zero_counts()
-    feats_k = feats_fn["kernel"](x2)
-    torch.cuda.synchronize()
-    k_counts, k3 = counts(), counts_3pass()
-    zero_counts()
-    feats_p = feats_fn["plain"](x2)
-    torch.cuda.synchronize()
-    p_counts = counts()
-    vv_layers = STAGE1_SURGERY_UNTIL - 1
-    dmax = (feats_k - feats_p).abs().max().item()
-    cos = torch.nn.functional.cosine_similarity(
-        feats_k.double(), feats_p.double(), dim=-1).min().item()
-    print(f"stage-1 spatial features fp32_high B=2: launches {k_counts} "
-          f"(3-pass {k3}; plain {p_counts}); kernel vs plain max|d| "
-          f"{dmax:.3e}, least per-token cosine {cos:.8f}")
-    expect(k_counts == k3 == (n_layers, vv_layers, 0)
-           and p_counts == (0, 0, 0),
-           f"fp32_high features launches {k_counts}, {k3}, {p_counts}")
-    expect(dmax <= S1_FEAT_MAX_ABS and cos >= S1_FEAT_COS,
-           f"fp32_high features off: {dmax}, {cos}")
+    what = "stage-1 spatial features fp32_high B=2"
+    k3 = check_features_vs_plain(vit, cfg, high, stage1_batch(2, img, gen)[0],
+                                 what, all_3pass)
+    expect(k3 == (n_layers, STAGE1_SURGERY_UNTIL - 1, 0),
+           f"fp32_high features launches {k3}")
     calls["attention_packed"]["fp32_high stage-1 spatial features"] = k3[0]
     calls["attention_packed_vv"]["fp32_high stage-1 spatial features"] = \
         k3[1]
-    del feats_fn, feats_k, feats_p, x2
 
     # (d) the evaluation CLI, one class, against a direct predict
     tmp = tempfile.mkdtemp(prefix="aaclip_fp32_high_")
@@ -3368,8 +3675,8 @@ def phase_fp32_high(vit, adapter, cfg, acfg, anchors, M, card,
                 os.environ[k] = v
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # (f) the 3-pass kernels' times
-    times = time_kernels_3pass(card)
+    # (f) the fp32 kernels' times
+    times = time_kernels_fp32(card)
     print(f"phase 11 (fp32_high) took {time.perf_counter() - t_phase:.0f} s")
     return {"calls": calls, "times": times, "rates": rates}
 
@@ -3420,13 +3727,17 @@ def main() -> int:
 
     # -- 3. kernels vs plain
     print(f"[{time.perf_counter() - t0:.0f} s] kernels vs plain")
-    err_fwd = max(check_kernel(d) for d in DTYPES)
-    err_bwd = max(check_bwd_kernel(d) for d in DTYPES)
+    # {dtype: the largest max |d| at the main paths' shapes}; fp32 at head
+    # dim 64 is the 6-pass route
+    err_fwd = {d: check_kernel(d) for d in DTYPES}
+    err_bwd = {d: check_bwd_kernel(d) for d in DTYPES}
     for d in DTYPES:
         check_tail_isolation(d)
     check_matmul_f32_grad()
-    err_vv = max(check_vv_kernel(d) for d in DTYPES)
+    err_vv = {d: check_vv_kernel(d) for d in DTYPES}
     err_high = check_kernels_3pass()
+    check_split3()
+    check_fp64_distances()
 
     cfg = get_config("ViT-L-14-336", img_size=518)
     acfg = AdapterConfig()
@@ -3447,6 +3758,9 @@ def main() -> int:
     print(f"[{time.perf_counter() - t0:.0f} s] stage-2 step")
     train_fwd, train_bwd = phase_train(vit, adapter, cfg, acfg, card)
     expect(train_fwd == fwd_launches, "forward launches differ by path")
+    # -- 5b. the fp32 step and spatial features on the 6-pass kernels
+    print(f"[{time.perf_counter() - t0:.0f} s] fp32 step and features")
+    phase_fp32_paths(vit, adapter, cfg, acfg)
     # -- 6c. backward timings
     print(f"[{time.perf_counter() - t0:.0f} s] backward timings")
     (bwd_per_call, ms_bwd, ms_bwd_plain, ms_sdpa_bwd, bwd_bound,
@@ -3464,7 +3778,7 @@ def main() -> int:
         for name, err in check_fused_kernels(d).items():
             err_fused[name] = max(err_fused.get(name, 0.0), err)
         check_fused_nan_row(d)
-    err_b4 = max(check_attention_kernel(d) for d in DTYPES)
+    err_b4 = {d: check_attention_kernel(d) for d in DTYPES}
     fused_launches = phase_fused_predict(vit, adapter, cfg, acfg, anchors,
                                          M, card)
     expect(fused_launches["attention_packed"] == fwd_launches,
@@ -3495,7 +3809,7 @@ def main() -> int:
     fused_rows = [
         ("attention_kernel", "attention_packed.cu",
          "aaclip_tpu/ops/flash_attention.py:94",
-         fused_launches["attention_kernel"], err_b4),
+         fused_launches["attention_kernel"], err_b4["bf16"]),
         ("ln_linear", "fused_block.cu", "aaclip_tpu/ops/fused_block.py:124",
          fused_launches["ln_linear"], err_fused["ln_linear"]),
         ("linear_residual", "fused_block.cu",
@@ -3526,6 +3840,39 @@ def main() -> int:
          hc["attention_kernel"]["fp32_high training CLI"],
          hc["attention_kernel"], err_high["b4"]),
     ]
+    # (name, source, replaces, launches on the main path, calls per path,
+    # max |d|, times): the fp32 ViT-L paths' 6-pass launches as
+    # expect_6pass recorded them (standard, V-V, backward; split3), B1's on
+    # phase 4's fp32 predict, B2's on phase 5b's step, B3's on 5b's
+    # features, B4 on no path, split3's beside B1's on the predict
+    six = high["times"]["6pass"]
+
+    def six_calls(i):
+        return {k: (v[1] if i is None else v[0][i])
+                for k, v in SIX_PASS_CALLS.items()
+                if (v[1] if i is None else v[0][i])}
+
+    six_rows = [
+        ("attention_packed", "attention_packed.cu",
+         "aaclip_tpu/ops/flash_attention.py:190",
+         SIX_PASS_CALLS["predict fp32 B=2"][0][0], six_calls(0),
+         err_fwd["fp32"], six["attention_packed"]),
+        ("attention_packed_bwd", "attention_packed_bwd.cu",
+         "aaclip_tpu/ops/flash_attention.py:302",
+         SIX_PASS_CALLS["train fp32 B=2 remat"][0][2], six_calls(2),
+         err_bwd["fp32"], six["attention_packed_bwd"]),
+        ("attention_packed_vv", "attention_packed.cu",
+         "aaclip_tpu/ops/flash_attention.py:190",
+         SIX_PASS_CALLS["stage-1 spatial features fp32 B=2"][0][1],
+         six_calls(1), err_vv["fp32"], six["attention_packed_vv"]),
+        ("attention_kernel", "attention_packed.cu",
+         "aaclip_tpu/ops/flash_attention.py:94", 0, {}, err_b4["fp32"],
+         six["attention_kernel"]),
+        ("split3", "attention_packed.cu",
+         "aaclip_tpu/ops/flash_attention.py:49",
+         SIX_PASS_CALLS["predict fp32 B=2"][1], six_calls(None), 0.0,
+         high["times"]["split3"]),
+    ]
     print(json.dumps({"kernels": [{
         "name": "attention_packed",
         "route": "cuda",
@@ -3536,7 +3883,7 @@ def main() -> int:
                   **{f"training CLI {k}": v[0] for k, v in
                      train_cli.items()}},
         "kernels_per_call": fwd_per_call,
-        "max_abs_err": err_fwd,
+        "max_abs_err": err_fwd["bf16"],
         "ms": ms_fwd,
         "plain_ms": ms_fwd_plain,
         "bound_ms": fwd_bound,
@@ -3552,7 +3899,7 @@ def main() -> int:
                   **{f"training CLI {k}": v[2] for k, v in
                      train_cli.items()}},
         "kernels_per_call": bwd_per_call,
-        "max_abs_err": err_bwd,
+        "max_abs_err": err_bwd["bf16"],
         "ms": ms_bwd,
         "plain_ms": ms_bwd_plain,
         "bound_ms": bwd_bound,
@@ -3568,7 +3915,7 @@ def main() -> int:
                   **{f"training CLI {k}": v[1] for k, v in
                      train_cli.items()}},
         "kernels_per_call": vv_per_call,
-        "max_abs_err": err_vv,
+        "max_abs_err": err_vv["bf16"],
         "ms": ms_vv,
         "plain_ms": ms_vv_plain,
         "bound_ms": vv_bound,
@@ -3594,14 +3941,28 @@ def main() -> int:
         "replaces": replaces,
         "launches": launches,
         "calls": calls,
-        "kernels_per_call": high["times"][name][5],
+        "kernels_per_call": high["times"]["3pass"][name][5],
         "max_abs_err": err,
-        "ms": high["times"][name][0],
-        "plain_ms": high["times"][name][1],
-        "bound_ms": high["times"][name][3],
-        "bound_by": high["times"][name][4],
-        "library_ms": high["times"][name][2],
-    } for name, source, replaces, launches, calls, err in high_rows]}))
+        "ms": high["times"]["3pass"][name][0],
+        "plain_ms": high["times"]["3pass"][name][1],
+        "bound_ms": high["times"]["3pass"][name][3],
+        "bound_by": high["times"]["3pass"][name][4],
+        "library_ms": high["times"]["3pass"][name][2],
+    } for name, source, replaces, launches, calls, err in high_rows] + [{
+        "name": f"{name} (6-pass)" if name != "split3" else name,
+        "route": "cuda",
+        "source": f"aaclip_tpu_torch/kernels/csrc/{source}",
+        "replaces": replaces,
+        "launches": launches,
+        "calls": calls,
+        "kernels_per_call": times[5],
+        "max_abs_err": err,
+        "ms": times[0],
+        "plain_ms": times[1],
+        "bound_ms": times[3],
+        "bound_by": times[4],
+        "library_ms": times[2],
+    } for name, source, replaces, launches, calls, err, times in six_rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

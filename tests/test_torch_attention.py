@@ -192,13 +192,17 @@ def _const(src: str, name: str) -> int:
 
 def test_tma_routes_match_the_kernel_sources():
     """The route table is the sources' own: bf16 at kTmaHeadDim takes the
-    TMA + wgmma kernels of both attention sources, and every other (dtype,
-    head dim) the wrappers accept has a retained kernel in each."""
+    TMA + wgmma kernels of both attention sources, fp32 there their 6-pass
+    entry points (which refuse any other head dim), and every other
+    (dtype, head dim) the wrappers accept has a retained kernel in each."""
     fwd = (build.CSRC / "attention_packed.cu").read_text()
     bwd = (build.CSRC / "attention_packed_bwd.cu").read_text()
     for src in (fwd, bwd):
-        assert TMA_ROUTES == {(torch.bfloat16, _const(src, "kTmaHeadDim"))}
+        hd = _const(src, "kTmaHeadDim")
+        assert TMA_ROUTES == {(torch.bfloat16, hd), (torch.float32, hd)}
         assert "if (bf16 && head_dim == kTmaHeadDim)" in src
+        assert src.count("if (head_dim != kTmaHeadDim)") == (
+            2 if src is fwd else 1)
     for hd in KERNEL_HEAD_DIMS:
         for dtype in (torch.bfloat16, torch.float32):
             if (dtype, hd) in TMA_ROUTES:
