@@ -41,9 +41,10 @@ REFERENCE_BASELINE_STAGE1_IMG_PER_SEC = 20.0
 
 # kernel-name fragments of the profile's device rows, by class
 _PROFILE_CLASSES = (
-    ("attention forward kernel (standard and V-V; the 6-pass split)",
+    ("attention forward kernel (standard and V-V; the 6-pass and 3-pass "
+     "splits)",
      ("attn_fwd_wgmma", "attn_bf16_kernel", "attn_f32_kernel",
-      "attn_fwd_3pass", "attn_fwd_6pass", "split3_kernel")),
+      "attn_fwd_3pass", "attn_fwd_6pass", "split3_kernel", "split2_kernel")),
     ("attention backward kernel", ("attn_bwd_",)),
     ("fused-block kernels (ln_linear, linear_residual, mlp_fused)",
      ("gemm_wgmma", "row_stats_kernel", "gemm_f32_kernel",

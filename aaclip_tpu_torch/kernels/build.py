@@ -5,13 +5,15 @@ Each library is compiled from ``csrc/<name>.cu`` (and the shared
 the sources and flags, so an edited source rebuilds and an unchanged one
 loads at once; a new or edited header rebuilds every library. The sources:
 ``attention_packed.cu`` (the forward attention in its standard, V-V and
-``[B, H, S, hd]`` launches, and the 6-pass route's split kernel),
+``[B, H, S, hd]`` launches, and the split kernels of the 6-pass and 3-pass
+routes),
 ``attention_packed_bwd.cu`` (its backward) and ``fused_block.cu``
 (``ln_linear``, ``linear_residual`` and ``mlp_fused``); the headers
 ``mma_common.cuh`` (mma.sync helpers and the bf16 splits of the 3-pass
 and 6-pass modes), ``hopper_common.cuh`` (mbarriers, TMA, wgmma, the
-6-pass products, and the host-side tensor maps of the attention kernels'
-head-dim-64 routes) and ``launch_count.cuh`` (each library's count of its
+products over two or three bf16 planes, each kernel's shared-memory
+attribute set once per device, and the host-side tensor maps of the
+attention kernels' head-dim-64 routes) and ``launch_count.cuh`` (each library's count of its
 kernel launches, ``kernels_launched``). Each library links only the CUDA
 runtime: the driver-API call that encodes a tensor map,
 ``cuTensorMapEncodeTiled``, is taken at run time through

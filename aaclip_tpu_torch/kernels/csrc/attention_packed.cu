@@ -26,11 +26,13 @@
 // Routes. bf16 at head dim kTmaHeadDim (64: ViT-L and ViT-B) runs
 // attn_fwd_wgmma, the design below. fp32 at head dim 64, the CLIs'
 // default precision ("highest"), runs attn_fwd_6pass on the same TMA +
-// wgmma machinery (below). fp32 under precision "high" runs the 3-pass
-// mode (attn_fwd_3pass, mma.sync). Head dim 16 (tiny-test) keeps the
-// first port's kernels: bf16 on mma.sync (attn_bf16_kernel: one block per
-// 64 query rows, K/V tiles of 64 copied through registers) and fp32 on
-// FMA with one thread per query row and no TF32 (attn_f32_kernel).
+// wgmma machinery (below); fp32 under precision "high" (the 3-pass mode)
+// runs attn_fwd_3pass_wgmma, the same kernel on two planes. Head dim 16
+// (tiny-test) keeps the first port's kernels: bf16 on mma.sync
+// (attn_bf16_kernel: one block per 64 query rows, K/V tiles of 64 copied
+// through registers), fp32 on FMA with one thread per query row and no
+// TF32 (attn_f32_kernel), and the 3-pass mode on mma.sync from hi/lo tiles
+// (attn_fwd_3pass).
 //
 // The fp32 route at head dim 64 (attn_fwd_6pass) replaces the same TPU
 // kernel at precision "highest", where _kdot (flash_attention.py:49-71)
@@ -44,6 +46,14 @@
 // is six wgmma chains into one fp32 accumulator; P stays fp32 and is split
 // in registers. TF32's wgmma would do three passes at the same cost, but it
 // reads only K-major operands, and P V needs V MN-major.
+//
+// The 3-pass route at head dim 64 (attn_fwd_3pass_wgmma) replaces the same
+// TPU kernel at precision "high", where _kdot splits each fp32 operand
+// into bf16 hi and lo = bf16(x - hi) and sums hi.hi + hi.lo + lo.hi in
+// fp32. What bounds it: three bf16 passes, 3 x 4*B*H*S^2*hd = 184.5 GFLOP
+// at the fp32_high predict's batch 8, 0.187 ms at 989 TFLOP/s. The design
+// is the 6-pass route's on two planes (split2_kernel writes hi and lo, the
+// products are passes 3-5 of the 6-pass table).
 //
 // Design of attn_fwd_wgmma. The TPU kernel holds a head's whole K and V
 // in VMEM (~360 KB at S 1408), more than a block's 227 KB of shared
@@ -563,8 +573,8 @@ int launch_wgmma(const MapOperand (&qkv)[3], MapCoords mc, int batch,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   static_assert(kFwdRows == kFwdKeys, "Q and K/V tiles share a box shape");
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_fwd_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdSmem);
+  const cudaError_t err = smem_attribute_once(
+      reinterpret_cast<const void*>(attn_fwd_wgmma), kFwdSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((seq + kFwdRows - 1) / kFwdRows, heads, batch);
   attn_fwd_wgmma<<<grid, kFwdThreads, kFwdSmem, st>>>(
@@ -574,58 +584,86 @@ int launch_wgmma(const MapOperand (&qkv)[3], MapCoords mc, int batch,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ------------------------------------------------ fp32, hd 64: 6-pass
+// ------------------------------------------------ fp32, hd 64: 6-pass, 3-pass
 
-constexpr int kX6Keys = kWgRows;  // keys per TMA tile: one 64-row box
-constexpr int kX6Stages = 3;      // K/V tile pairs in flight
-constexpr int kBoxBytes = kWgRows * kRowBytes;   // 8 KB: one plane of a box
-constexpr int kX6QPlane = kFwdRows * kRowBytes;  // 16 KB: one plane of Q
-constexpr int kX6StageBytes = 2 * kPlanes * kBoxBytes;  // K and V planes
-constexpr int kX6Smem = kSwizzleAtom + kPlanes * kX6QPlane +
-                        kX6Stages * kX6StageBytes + 8 * (1 + 2 * kX6Stages);
+constexpr int kXKeys = kWgRows;  // keys per TMA tile: one 64-row box
+constexpr int kBoxBytes = kWgRows * kRowBytes;  // 8 KB: one plane of a box
+constexpr int kXQPlane = kFwdRows * kRowBytes;  // 16 KB: one plane of Q
 
-// split3_kernel: the 6-pass route's operand staging. fp32 x[n] becomes
-// its bf16 planes hi, mid, lo (mma_common.cuh, split3) at planes,
-// planes + stride and planes + 2 * stride, four values per thread and
-// step (x 16-byte aligned, stride a multiple of 4), the n % 4 tail one by
-// one. What bounds it: bytes, 4 read and 6 written per value (0.10 ms for
-// the step's qkv [8, 1370, 3072] at 3.35 TB/s).
+// The layout of the plane kernels over kP bf16 planes: K/V tile pairs in
+// flight, one stage's K and V planes, the dynamic shared memory.
+template <int kP>
+struct PlaneTiles {
+  static constexpr int kStages = kP == kPlanes ? 3 : 4;
+  static constexpr int kStageBytes = 2 * kP * kBoxBytes;
+  static constexpr int kSmem = kSwizzleAtom + kP * kXQPlane +
+                               kStages * kStageBytes + 8 * (1 + 2 * kStages);
+};
+
+// The split kernels, the fp32 routes' operand staging: fp32 x[n] becomes
+// its kP bf16 planes at planes, planes + stride (and planes + 2 * stride):
+// split3's hi, mid, lo for the 6-pass route (split3_kernel), split_pack's
+// hi, lo for the 3-pass route (split2_kernel; its lo is split3's mid bit
+// for bit, and models/layers.py::_split_bf16's lo), four values per thread
+// and step (x 16-byte aligned, stride a multiple of 4), the n % 4 tail one
+// by one. What bounds them: bytes, 4 read and 2 * kP written per value
+// (the step's qkv [8, 1370, 3072]: 0.10 ms for split3, 0.080 ms for
+// split2 at 3.35 TB/s).
+template <int kP>
+__device__ __forceinline__ void split_planes(const float* __restrict__ x,
+                                             __nv_bfloat16* __restrict__ planes,
+                                             int64_t n, int64_t stride) {
+  const int64_t step = (int64_t)gridDim.x * blockDim.x;
+  const int64_t first = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  for (int64_t i = first; i < n / 4; i += step) {
+    const float4 v = reinterpret_cast<const float4*>(x)[i];
+    uint2 w[kP];
+    if constexpr (kP == kPlanes) {
+      split3_pack(v.x, v.y, w[0].x, w[1].x, w[2].x);
+      split3_pack(v.z, v.w, w[0].y, w[1].y, w[2].y);
+    } else {
+      split_pack(v.x, v.y, w[0].x, w[1].x);
+      split_pack(v.z, v.w, w[0].y, w[1].y);
+    }
+#pragma unroll
+    for (int p = 0; p < kP; ++p)
+      reinterpret_cast<uint2*>(planes + p * stride)[i] = w[p];
+  }
+  for (int64_t i = n / 4 * 4 + first; i < n; i += step) {
+    __nv_bfloat16 hi, mid, lo;
+    split3(x[i], hi, mid, lo);
+    planes[i] = hi;
+    planes[stride + i] = mid;
+    if constexpr (kP == kPlanes) planes[2 * stride + i] = lo;
+  }
+}
+
 __global__ void __launch_bounds__(256)
 split3_kernel(const float* __restrict__ x, __nv_bfloat16* __restrict__ planes,
               int64_t n, int64_t stride) {
-  const int64_t step = (int64_t)gridDim.x * blockDim.x;
-  const int64_t first = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  __nv_bfloat16* mid = planes + stride;
-  __nv_bfloat16* lo = mid + stride;
-  for (int64_t i = first; i < n / 4; i += step) {
-    const float4 v = reinterpret_cast<const float4*>(x)[i];
-    uint2 h, m, l;
-    split3_pack(v.x, v.y, h.x, m.x, l.x);
-    split3_pack(v.z, v.w, h.y, m.y, l.y);
-    reinterpret_cast<uint2*>(planes)[i] = h;
-    reinterpret_cast<uint2*>(mid)[i] = m;
-    reinterpret_cast<uint2*>(lo)[i] = l;
-  }
-  for (int64_t i = n / 4 * 4 + first; i < n; i += step)
-    split3(x[i], planes[i], mid[i], lo[i]);
+  split_planes<3>(x, planes, n, stride);
 }
 
-// One tile of the 6-pass forward's online softmax for rows g and g + 8 of
-// a warp, on 64 keys: the raw scores s (keys at or past valid_len read as
-// -inf when kMask) scaled as the FMA and 3-pass kernels and the TPU kernel
-// scale them (one rounded product), the running max m and the row sums l
-// in that domain (alpha, which the caller applies to O, rescales l here),
-// and P = expf(score - max) with the precise expf, kept in fp32 and split
-// into the A fragments of its three planes (pf[plane][k-step]) for O +=
-// P V. (The bf16 route's exp2 of one FFMA is faster and rounds otherwise;
-// at fp32 the route follows the reference's arithmetic.)
-template <bool kMask>
-__device__ __forceinline__ void softmax_tile6(const float (&s)[32],
-                                              float (&m)[2], float (&l)[2],
-                                              uint32_t (&pf)[kPlanes][4][4],
-                                              float (&alpha)[2], int k0,
-                                              int valid_len, float scale,
-                                              int t) {
+__global__ void __launch_bounds__(256)
+split2_kernel(const float* __restrict__ x, __nv_bfloat16* __restrict__ planes,
+              int64_t n, int64_t stride) {
+  split_planes<2>(x, planes, n, stride);
+}
+
+// One tile of the plane kernels' online softmax for rows g and g + 8 of a
+// warp, on 64 keys: the raw scores s (keys at or past valid_len read as
+// -inf when kMask) scaled as the FMA and mma.sync 3-pass kernels and the
+// TPU kernel scale them (one rounded product), the running max m and the
+// row sums l in that domain (alpha, which the caller applies to O,
+// rescales l here), and P = expf(score - max) with the precise expf, kept
+// in fp32 and split into the A fragments of its kP planes (pf[plane]
+// [k-step]) for O += P V. (The bf16 route's exp2 of one FFMA is faster and
+// rounds otherwise; at fp32 the routes follow the reference's arithmetic.)
+template <bool kMask, int kP>
+__device__ __forceinline__ void softmax_tile_planes(
+    const float (&s)[32], float (&m)[2], float (&l)[2],
+    uint32_t (&pf)[kP][4][4], float (&alpha)[2], int k0, int valid_len,
+    float scale, int t) {
   auto score = [&](int j, int i) {
     return kMask && k0 + j * 8 + t * 2 + (i & 1) >= valid_len
                ? -INFINITY
@@ -655,54 +693,63 @@ __device__ __forceinline__ void softmax_tile6(const float (&s)[32],
     const float p3 = expf(score(j, 3) - mref[1]);
     l[0] += p0 + p1;
     l[1] += p2 + p3;
-    split3_pack(p0, p1, pf[0][k][r], pf[1][k][r], pf[2][k][r]);
-    split3_pack(p2, p3, pf[0][k][r + 1], pf[1][k][r + 1], pf[2][k][r + 1]);
+    split_frag<kP>(pf, k, r, p0, p1);
+    split_frag<kP>(pf, k, r + 1, p2, p3);
   }
 }
 
-// attn_fwd_6pass: fp32 at head dim 64 under precision "highest" (or
-// None), on the bf16 planes split3_kernel wrote; the tensor maps span all
-// three planes in depth (plane p of head h, image b at depth b * bz +
-// h * hz + p * pz). The layout of attn_fwd_wgmma (a producer warpgroup,
-// two consumers of 64 query rows, 128-byte-swizzled TMA tiles in a ring)
-// with three planes of every tile and keys in tiles of 64: Q's planes take
-// 48 KB and each stage's K and V planes 48 KB. S = Q K^T is mma6_ss (six
-// chains of m64n64k16 from shared memory); P stays fp32 and is split in
-// registers into the A fragments of its planes for O += P V (mma6_rs, the
-// V planes read MN-major). Each tile's P V goes into its own accumulator,
-// which is added to the fp32 running O in registers (O = O * alpha +
-// tile): the tensor cores' chains stay 24 products long, and the sum over
-// tiles is rounded as fp32 adds round. Each consumer waits for its own
-// products (the other consumer's run meanwhile): issuing tile kt + 1's S
-// before tile kt's softmax, into a second score set, made ptxas inject a
-// wait (C7517) and gained no time that two runs could tell apart. One row
-// sum
-// over the fp32 P, one division at the end, and m + log(l) into `lse` when
-// it is non-null.
-__global__ void __launch_bounds__(kFwdThreads, 1)
-attn_fwd_6pass(const __grid_constant__ CUtensorMap tq,
-               const __grid_constant__ CUtensorMap tk,
-               const __grid_constant__ CUtensorMap tv,
-               float* __restrict__ out, float* __restrict__ lse, int S,
-               int valid_len, MapCoords mc, Layout ol, float scale) {
+// The plane kernels: fp32 at head dim 64 on the bf16 planes a split kernel
+// wrote, attn_fwd_6pass (kP 3, precision "highest" or None) and
+// attn_fwd_3pass_wgmma (kP 2, precision "high": _kdot's hi.hi + hi.lo +
+// lo.hi); the tensor maps span every plane in depth (plane p of head h,
+// image b at depth b * bz + h * hz + p * pz). The layout of attn_fwd_wgmma
+// (a producer warpgroup, two consumers of 64 query rows, 128-byte-swizzled
+// TMA tiles in a ring) with kP planes of every tile and keys in tiles of
+// 64: Q's planes take kP * 16 KB and each stage's K and V planes kP * 16
+// KB (3 stages of three planes, 4 of two). S = Q K^T is mma_planes_ss (one
+// chain of m64n64k16 from shared memory per pass, smallest first); P stays
+// fp32 and is split in registers into the A fragments of its planes for
+// O += P V (mma_planes_rs, the V planes read MN-major). Each tile's P V
+// goes into its own accumulator, which is added to the fp32 running O in
+// registers (O = O * alpha + tile): the tensor cores' chains stay 4 k-steps
+// per pass long, and the sum over tiles is rounded as fp32 adds round.
+// Keys stay in tiles of 64 with two planes too: a 128-key tile holds 64
+// scores and 64 fragment registers of P at once, which with O and its
+// per-tile accumulator leaves nothing of ptxas's 168-register plan (the
+// 384-thread consumers are planned as if setmaxnreg gave nothing). Each
+// consumer waits for its own products (the other consumer's run
+// meanwhile): issuing tile kt + 1's S before tile kt's softmax, into a
+// second score set, made ptxas inject a wait (C7517) in the 6-pass kernel
+// and gained no time that two runs could tell apart. One row sum over the
+// fp32 P, one division at the end, and m + log(l) into `lse` when it is
+// non-null.
+template <int kP>
+__device__ __forceinline__ void fwd_planes(const CUtensorMap& tq,
+                                           const CUtensorMap& tk,
+                                           const CUtensorMap& tv,
+                                           float* __restrict__ out,
+                                           float* __restrict__ lse, int S,
+                                           int valid_len, MapCoords mc,
+                                           Layout ol, float scale) {
+  using T = PlaneTiles<kP>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sQ = align_atom(smem_raw);  // [plane][128 rows][64]
-  uint8_t* sKV = sQ + kPlanes * kX6QPlane;
-  // stage st: K planes at sKV + st * kX6StageBytes + p * kBoxBytes, V
-  // planes kPlanes boxes further
+  uint8_t* sKV = sQ + kP * kXQPlane;
+  // stage st: K planes at sKV + st * T::kStageBytes + p * kBoxBytes, V
+  // planes kP boxes further
   uint64_t* bars =
-      reinterpret_cast<uint64_t*>(sKV + kX6Stages * kX6StageBytes);
+      reinterpret_cast<uint64_t*>(sKV + T::kStages * T::kStageBytes);
   uint64_t* q_full = bars;
   uint64_t* full = bars + 1;
-  uint64_t* empty = full + kX6Stages;
+  uint64_t* empty = full + T::kStages;
 
   const int q0 = blockIdx.x * kFwdRows;
   const int h = blockIdx.y, b = blockIdx.z;
   const int col = h * mc.hcol, depth = b * mc.bz + h * mc.hz;
-  const int n_tiles = (valid_len + kX6Keys - 1) / kX6Keys;
+  const int n_tiles = (valid_len + kXKeys - 1) / kXKeys;
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
-    for (int s = 0; s < kX6Stages; ++s) {
+    for (int s = 0; s < T::kStages; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 2 * 128);  // every consumer thread
     }
@@ -714,21 +761,22 @@ attn_fwd_6pass(const __grid_constant__ CUtensorMap tq,
   if (wg == 2) {  // producer
     setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x == 2 * 128) {
-      mbar_arrive_expect_tx(q_full, kPlanes * kX6QPlane);
-      for (int p = 0; p < kPlanes; ++p)
+      mbar_arrive_expect_tx(q_full, kP * kXQPlane);
+      for (int p = 0; p < kP; ++p)
         for (int half = 0; half < 2; ++half)
-          tma_load_3d(sQ + p * kX6QPlane + half * kBoxBytes, &tq, q_full,
+          tma_load_3d(sQ + p * kXQPlane + half * kBoxBytes, &tq, q_full,
                       col, q0 + half * kWgRows, depth + p * mc.pz);
       for (int kt = 0; kt < n_tiles; ++kt) {
-        const int st = kt % kX6Stages;
-        if (kt >= kX6Stages) mbar_wait(&empty[st], (kt / kX6Stages - 1) & 1);
-        uint8_t* dst = sKV + st * kX6StageBytes;
-        mbar_arrive_expect_tx(&full[st], kX6StageBytes);
-        for (int p = 0; p < kPlanes; ++p) {
+        const int st = kt % T::kStages;
+        if (kt >= T::kStages)
+          mbar_wait(&empty[st], (kt / T::kStages - 1) & 1);
+        uint8_t* dst = sKV + st * T::kStageBytes;
+        mbar_arrive_expect_tx(&full[st], T::kStageBytes);
+        for (int p = 0; p < kP; ++p) {
           tma_load_3d(dst + p * kBoxBytes, &tk, &full[st], col,
-                      kt * kX6Keys, depth + p * mc.pz);
-          tma_load_3d(dst + (kPlanes + p) * kBoxBytes, &tv, &full[st], col,
-                      kt * kX6Keys, depth + p * mc.pz);
+                      kt * kXKeys, depth + p * mc.pz);
+          tma_load_3d(dst + (kP + p) * kBoxBytes, &tv, &full[st], col,
+                      kt * kXKeys, depth + p * mc.pz);
         }
       }
     }
@@ -743,32 +791,34 @@ attn_fwd_6pass(const __grid_constant__ CUtensorMap tq,
     for (int i = 0; i < 32; ++i) o[i] = 0.f;
     float m[2] = {-INFINITY, -INFINITY};  // running max of rows g, g + 8
     float l[2] = {0.f, 0.f};              // this thread's share of the sums
-    uint32_t pf[kPlanes][4][4];           // P's planes as A fragments
-    const int n_full = valid_len / kX6Keys;  // tiles with no masked key
+    uint32_t pf[kP][4][4];                // P's planes as A fragments
+    const int n_full = valid_len / kXKeys;  // tiles with no masked key
     mbar_wait(q_full, 0);
 
     float s[32];
     for (int kt = 0; kt < n_tiles; ++kt) {
-      const int st = kt % kX6Stages;
-      uint8_t* stage = sKV + st * kX6StageBytes;
-      mbar_wait(&full[st], (kt / kX6Stages) & 1);
+      const int st = kt % T::kStages;
+      uint8_t* stage = sKV + st * T::kStageBytes;
+      mbar_wait(&full[st], (kt / T::kStages) & 1);
       wgmma_fence();
-      mma6_ss(s, dq, kX6QPlane, sw128_desc(stage), kBoxBytes);  // S = Q K^T
+      mma_planes_ss<kP>(s, dq, kXQPlane, sw128_desc(stage), kBoxBytes);
       wgmma_commit();
       wgmma_wait<0>();
       fence_operand(s);
       float alpha[2];
       if (kt < n_full)
-        softmax_tile6<false>(s, m, l, pf, alpha, 0, valid_len, scale, t);
+        softmax_tile_planes<false, kP>(s, m, l, pf, alpha, 0, valid_len,
+                                       scale, t);
       else
-        softmax_tile6<true>(s, m, l, pf, alpha, kt * kX6Keys, valid_len,
-                            scale, t);
+        softmax_tile_planes<true, kP>(s, m, l, pf, alpha, kt * kXKeys,
+                                      valid_len, scale, t);
       wgmma_fence();
-      mma6_rs(ot, pf, sw128_desc(stage + kPlanes * kBoxBytes), kBoxBytes);
+      mma_planes_rs<kP>(ot, pf, sw128_desc(stage + kP * kBoxBytes),
+                        kBoxBytes);
       wgmma_commit();
       wgmma_wait<0>();
       fence_operand(ot);
-      fence_frags6(pf);
+      fence_planes<kP>(pf);
       mbar_arrive(&empty[st]);
 #pragma unroll
       for (int nd = 0; nd < 8; ++nd) {
@@ -804,11 +854,30 @@ attn_fwd_6pass(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// attn_fwd_6pass on three bf16-plane operands (MapOperand.depth counts
-// all three planes, mc.pz the depth of one).
-int launch_6pass(const MapOperand (&qkv)[3], MapCoords mc, int batch,
-                 int seq, int valid_len, int heads, float* out, float* lse,
-                 Layout ol, float scale, cudaStream_t st) {
+__global__ void __launch_bounds__(kFwdThreads, 1)
+attn_fwd_6pass(const __grid_constant__ CUtensorMap tq,
+               const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv,
+               float* __restrict__ out, float* __restrict__ lse, int S,
+               int valid_len, MapCoords mc, Layout ol, float scale) {
+  fwd_planes<3>(tq, tk, tv, out, lse, S, valid_len, mc, ol, scale);
+}
+
+__global__ void __launch_bounds__(kFwdThreads, 1)
+attn_fwd_3pass_wgmma(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     float* __restrict__ out, float* __restrict__ lse, int S,
+                     int valid_len, MapCoords mc, Layout ol, float scale) {
+  fwd_planes<2>(tq, tk, tv, out, lse, S, valid_len, mc, ol, scale);
+}
+
+// A plane kernel on three operands of kP bf16 planes each
+// (MapOperand.depth counts every plane, mc.pz the depth of one).
+template <int kP>
+int launch_planes(const MapOperand (&qkv)[3], MapCoords mc, int batch,
+                  int seq, int valid_len, int heads, float* out, float* lse,
+                  Layout ol, float scale, cudaStream_t st) {
   CUtensorMap maps[3];
   for (int i = 0; i < 3; ++i) {
     const MapOperand& a = qkv[i];
@@ -817,13 +886,92 @@ int launch_6pass(const MapOperand (&qkv)[3], MapCoords mc, int batch,
         kWgRows);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_fwd_6pass, cudaFuncAttributeMaxDynamicSharedMemorySize, kX6Smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr int smem = PlaneTiles<kP>::kSmem;
   const dim3 grid((seq + kFwdRows - 1) / kFwdRows, heads, batch);
-  attn_fwd_6pass<<<grid, kFwdThreads, kX6Smem, st>>>(
-      maps[0], maps[1], maps[2], out, lse, seq, valid_len, mc, ol, scale);
-  note_launch();
+  if constexpr (kP == kPlanes) {
+    const cudaError_t err = smem_attribute_once(
+        reinterpret_cast<const void*>(attn_fwd_6pass), smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attn_fwd_6pass<<<grid, kFwdThreads, smem, st>>>(
+        maps[0], maps[1], maps[2], out, lse, seq, valid_len, mc, ol, scale);
+    note_launch();
+  } else {
+    const cudaError_t err = smem_attribute_once(
+        reinterpret_cast<const void*>(attn_fwd_3pass_wgmma), smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attn_fwd_3pass_wgmma<<<grid, kFwdThreads, smem, st>>>(
+        maps[0], maps[1], maps[2], out, lse, seq, valid_len, mc, ol, scale);
+    note_launch();
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The packed launch of a plane kernel: `planes` holds the kP bf16 planes
+// of the fp32 qkv [batch, seq, ld], one after the other (plane stride
+// batch * seq * ld).
+template <int kP>
+int launch_planes_packed(const void* planes, float* out, float* lse,
+                         int head_dim, int batch, int seq, int valid_len,
+                         int heads, long long ld, int q_off, int k_off,
+                         int v_off, long long out_ld, float scale,
+                         void* stream) {
+  if (head_dim != kTmaHeadDim) return static_cast<int>(cudaErrorInvalidValue);
+  const char* base = static_cast<const char*>(planes);
+  const int64_t cols = (int64_t)heads * head_dim;
+  const int64_t depth = (int64_t)kP * batch;
+  const int64_t step = (int64_t)seq * ld;
+  const MapOperand ops[3] = {{base + 2 * (int64_t)q_off, cols, seq, depth,
+                              ld, step},
+                             {base + 2 * (int64_t)k_off, cols, seq, depth,
+                              ld, step},
+                             {base + 2 * (int64_t)v_off, cols, seq, depth,
+                              ld, step}};
+  const Layout ol{(int64_t)seq * out_ld, head_dim, out_ld};
+  return launch_planes<kP>(ops, MapCoords{head_dim, 1, 0, batch}, batch, seq,
+                           valid_len, heads, out, lse, ol, scale,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// The [batch, heads, seq, head_dim] launch: q, k and v each the kP bf16
+// planes of an fp32 operand (plane stride batch * heads * seq * head_dim).
+template <int kP>
+int launch_planes_bhsd(const void* q, const void* k, const void* v,
+                       float* out, int head_dim, int batch, int seq,
+                       int valid_len, int heads, float scale, void* stream) {
+  if (head_dim != kTmaHeadDim) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t hs = (int64_t)seq * head_dim;
+  const int64_t depth = (int64_t)kP * batch * heads;
+  const MapOperand ops[3] = {{q, head_dim, seq, depth, head_dim, hs},
+                             {k, head_dim, seq, depth, head_dim, hs},
+                             {v, head_dim, seq, depth, head_dim, hs}};
+  const Layout l{heads * hs, hs, head_dim};
+  return launch_planes<kP>(ops, MapCoords{0, heads, 1, batch * heads}, batch,
+                           seq, valid_len, heads, out, nullptr, l, scale,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// A split kernel's launch; cudaErrorInvalidValue for an alignment it
+// cannot take.
+template <int kP>
+int launch_split(const float* x, void* planes, long long n, long long stride,
+                 void* stream) {
+  if (reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(planes) % 16 || stride % 4 || stride < n ||
+      n < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long want = (n / 4 + 255) / 256;
+  const dim3 grid(static_cast<unsigned>(want < 1      ? 1
+                                        : want > 4096 ? 4096
+                                                      : want));
+  auto* dst = static_cast<__nv_bfloat16*>(planes);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if constexpr (kP == kPlanes) {
+    split3_kernel<<<grid, 256, 0, st>>>(x, dst, n, stride);
+    note_launch();
+  } else {
+    split2_kernel<<<grid, 256, 0, st>>>(x, dst, n, stride);
+    note_launch();
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -858,7 +1006,8 @@ int launch_retained(bool bf16, int head_dim, int batch, int seq,
 // ------------------------------------------------ fp32, 3-pass ("high")
 
 // attn_fwd_3pass: the forward under the JAX package's precision "high"
-// (_kdot's F32_AS_3BF16 branch) on fp32 inputs. Blocks of 64 query rows
+// (_kdot's F32_AS_3BF16 branch) on fp32 inputs at head dim 16 (tiny-test;
+// head dim 64 runs attn_fwd_3pass_wgmma above). Blocks of 64 query rows
 // (4 warps of 16) walk key tiles of 64 as attn_bf16_kernel does, but each
 // fp32 tile is split into its bf16 hi and lo halves as it is staged into
 // shared memory (load_split_tile), and every product is three mma.sync
@@ -866,9 +1015,7 @@ int launch_retained(bool bf16, int head_dim, int batch, int seq,
 // + Qlo.Khi, then O += P V the same way from P's halves, where P =
 // exp(s - m) is kept in fp32 (split, never rounded) with precise expf, the
 // row sum taken over the fp32 P, and one division at the end; the
-// logsumexp is m + log(l) as in the other routes. What bounds it: three
-// bf16 products per product, 3 x 4*B*H*S^2*hd FLOP (184.5 GFLOP at the
-// predict's batch 8), on the tensor cores.
+// logsumexp is m + log(l) as in the other routes.
 template <int HD>
 __global__ void __launch_bounds__(128)
 attn_fwd_3pass(const float* __restrict__ q, const float* __restrict__ k,
@@ -998,33 +1145,17 @@ attn_fwd_3pass(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// Shared memory of attn_fwd_3pass<HD>: the hi and lo halves of the Q, K
-// and V tiles.
-constexpr int fwd_3pass_smem(int hd) {
-  return 6 * kBlockN * (hd + 8) * 2;
-}
-
-// attn_fwd_3pass at head dim 16 or 64; cudaErrorInvalidValue for another.
+// attn_fwd_3pass at head dim 16; cudaErrorInvalidValue for another.
 int launch_3pass(int head_dim, int batch, int seq, int valid_len, int heads,
                  const float* q, const float* k, const float* v, float* out,
                  float* lse, Layout in, Layout ol, float scale,
                  cudaStream_t st) {
+  if (head_dim != 16) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int smem = 6 * kBlockN * (16 + 8) * 2;  // Q, K, V hi and lo
   const dim3 grid((seq + kBlockM - 1) / kBlockM, heads, batch);
-  if (head_dim == 16) {
-    attn_fwd_3pass<16><<<grid, 128, fwd_3pass_smem(16), st>>>(
-        q, k, v, out, lse, seq, valid_len, in, ol, scale);
-    note_launch();
-  } else if (head_dim == 64) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        attn_fwd_3pass<64>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        fwd_3pass_smem(64));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    attn_fwd_3pass<64><<<grid, 128, fwd_3pass_smem(64), st>>>(
-        q, k, v, out, lse, seq, valid_len, in, ol, scale);
-    note_launch();
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  attn_fwd_3pass<16><<<grid, 128, smem, st>>>(q, k, v, out, lse, seq,
+                                              valid_len, in, ol, scale);
+  note_launch();
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1087,8 +1218,10 @@ extern "C" int aaclip_attention_bhsd(const void* q, const void* k,
                          k, v, out, nullptr, l, l, scale, st);
 }
 
-// The 3-pass mode (fp32 under precision "high") of aaclip_attention_packed:
-// the same operands in fp32, attn_fwd_3pass at head dim 16 or 64.
+// The 3-pass mode (fp32 under precision "high") of aaclip_attention_packed
+// at head dim 16: the same operands in fp32, attn_fwd_3pass;
+// cudaErrorInvalidValue for another head dim (64 has its own entry,
+// aaclip_attention_packed_3pass_wgmma).
 extern "C" int aaclip_attention_packed_3pass(
     const float* qkv, float* out, float* lse, int head_dim, int batch,
     int seq, int valid_len, int heads, long long ld, int q_off, int k_off,
@@ -1101,7 +1234,7 @@ extern "C" int aaclip_attention_packed_3pass(
 }
 
 // The 3-pass mode of aaclip_attention_bhsd on fp32 [batch, heads, seq,
-// head_dim] operands.
+// head_dim] operands at head dim 16.
 extern "C" int aaclip_attention_bhsd_3pass(const float* q, const float* k,
                                            const float* v, float* out,
                                            int head_dim, int batch, int seq,
@@ -1126,21 +1259,9 @@ extern "C" int aaclip_attention_packed_6pass(
     const void* planes, float* out, float* lse, int head_dim, int batch,
     int seq, int valid_len, int heads, long long ld, int q_off, int k_off,
     int v_off, long long out_ld, float scale, void* stream) {
-  if (head_dim != kTmaHeadDim) return static_cast<int>(cudaErrorInvalidValue);
-  const char* base = static_cast<const char*>(planes);
-  const int64_t cols = (int64_t)heads * head_dim;
-  const int64_t depth = (int64_t)kPlanes * batch;
-  const int64_t step = (int64_t)seq * ld;
-  const MapOperand ops[3] = {{base + 2 * (int64_t)q_off, cols, seq, depth,
-                              ld, step},
-                             {base + 2 * (int64_t)k_off, cols, seq, depth,
-                              ld, step},
-                             {base + 2 * (int64_t)v_off, cols, seq, depth,
-                              ld, step}};
-  const Layout ol{(int64_t)seq * out_ld, head_dim, out_ld};
-  return launch_6pass(ops, MapCoords{head_dim, 1, 0, batch}, batch, seq,
-                      valid_len, heads, out, lse, ol, scale,
-                      static_cast<cudaStream_t>(stream));
+  return launch_planes_packed<kPlanes>(planes, out, lse, head_dim, batch,
+                                       seq, valid_len, heads, ld, q_off,
+                                       k_off, v_off, out_ld, scale, stream);
 }
 
 // The 6-pass route of aaclip_attention_bhsd: q, k and v each the three
@@ -1151,16 +1272,33 @@ extern "C" int aaclip_attention_bhsd_6pass(const void* q, const void* k,
                                            int head_dim, int batch, int seq,
                                            int valid_len, int heads,
                                            float scale, void* stream) {
-  if (head_dim != kTmaHeadDim) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t hs = (int64_t)seq * head_dim;
-  const int64_t depth = (int64_t)kPlanes * batch * heads;
-  const MapOperand ops[3] = {{q, head_dim, seq, depth, head_dim, hs},
-                             {k, head_dim, seq, depth, head_dim, hs},
-                             {v, head_dim, seq, depth, head_dim, hs}};
-  const Layout l{heads * hs, hs, head_dim};
-  return launch_6pass(ops, MapCoords{0, heads, 1, batch * heads}, batch, seq,
-                      valid_len, heads, out, nullptr, l, scale,
-                      static_cast<cudaStream_t>(stream));
+  return launch_planes_bhsd<kPlanes>(q, k, v, out, head_dim, batch, seq,
+                                     valid_len, heads, scale, stream);
+}
+
+// The 3-pass route (fp32 at head dim kTmaHeadDim under precision "high")
+// of aaclip_attention_packed: `planes` holds the bf16 planes hi and lo of
+// the fp32 qkv (aaclip_split2 with stride batch * seq * ld), read by
+// attn_fwd_3pass_wgmma as the 6-pass entry's planes are read.
+// cudaErrorInvalidValue for another head dim.
+extern "C" int aaclip_attention_packed_3pass_wgmma(
+    const void* planes, float* out, float* lse, int head_dim, int batch,
+    int seq, int valid_len, int heads, long long ld, int q_off, int k_off,
+    int v_off, long long out_ld, float scale, void* stream) {
+  return launch_planes_packed<2>(planes, out, lse, head_dim, batch, seq,
+                                 valid_len, heads, ld, q_off, k_off, v_off,
+                                 out_ld, scale, stream);
+}
+
+// The 3-pass route of aaclip_attention_bhsd: q, k and v each the two bf16
+// planes of an fp32 [batch, heads, seq, head_dim] operand (aaclip_split2
+// with stride batch * heads * seq * head_dim).
+extern "C" int aaclip_attention_bhsd_3pass_wgmma(
+    const void* q, const void* k, const void* v, float* out, int head_dim,
+    int batch, int seq, int valid_len, int heads, float scale,
+    void* stream) {
+  return launch_planes_bhsd<2>(q, k, v, out, head_dim, batch, seq, valid_len,
+                               heads, scale, stream);
 }
 
 // fp32 x[n] (16-byte aligned) into its bf16 planes hi, mid, lo at planes,
@@ -1169,16 +1307,12 @@ extern "C" int aaclip_attention_bhsd_6pass(const void* q, const void* k,
 // alignment it cannot take.
 extern "C" int aaclip_split3(const float* x, void* planes, long long n,
                              long long stride, void* stream) {
-  if (reinterpret_cast<uintptr_t>(x) % 16 ||
-      reinterpret_cast<uintptr_t>(planes) % 16 || stride % 4 || stride < n ||
-      n < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long long blocks = (n / 4 + 255) / 256;
-  split3_kernel<<<static_cast<unsigned>(blocks < 1 ? 1
-                                        : blocks > 4096 ? 4096
-                                                        : blocks),
-                  256, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, static_cast<__nv_bfloat16*>(planes), n, stride);
-  note_launch();
-  return static_cast<int>(cudaGetLastError());
+  return launch_split<kPlanes>(x, planes, n, stride, stream);
+}
+
+// The same into the two planes hi and lo = bf16(x - hi) at planes and
+// planes + stride: split2_kernel.
+extern "C" int aaclip_split2(const float* x, void* planes, long long n,
+                             long long stride, void* stream) {
+  return launch_split<2>(x, planes, n, stride, stream);
 }

@@ -47,11 +47,13 @@
 // attn_bwd_dq_wgmma / attn_bwd_dkdv_wgmma below. fp32 at head dim 64, the
 // CLIs' default precision ("highest"), runs attn_bwd_dq_6pass /
 // attn_bwd_dkdv_6pass, the same pair with every product in the TPU's
-// native 6-pass form (below). fp32 under precision "high" runs the 3-pass
-// pair (attn_bwd_*_3pass, mma.sync). Head dim 16 (tiny-test) keeps the
-// first port's kernels: bf16 on the mma.sync pair (4 warps of 16 rows,
-// tiles of 64 copied through registers), fp32 on FMA (32 rows per block,
-// two threads per row, each owning half its columns; no TF32).
+// native 6-pass form (below); fp32 under precision "high" (the 3-pass
+// mode) runs attn_bwd_dq_3pass_wgmma / attn_bwd_dkdv_3pass_wgmma, the same
+// pair on two planes. Head dim 16 (tiny-test) keeps the first port's
+// kernels: bf16 on the mma.sync pair (4 warps of 16 rows, tiles of 64
+// copied through registers), fp32 on FMA (32 rows per block, two threads
+// per row, each owning half its columns; no TF32), and the 3-pass mode on
+// the mma.sync pair attn_bwd_*_3pass from hi/lo tiles.
 //
 // The fp32 route at head dim 64. Under "highest" the TPU kernel's
 // _kdot (flash_attention.py:49-71) computes each product as six bf16
@@ -985,12 +987,11 @@ int launch_wgmma(int batch, int seq, int heads, cudaStream_t st,
                                           kWalkRows);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_bwd_dq_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmem);
+  cudaError_t err = smem_attribute_once(
+      reinterpret_cast<const void*>(attn_bwd_dq_wgmma), kDqSmem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(attn_bwd_dkdv_wgmma,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kDkdvSmem);
+    err = smem_attribute_once(
+        reinterpret_cast<const void*>(attn_bwd_dkdv_wgmma), kDkdvSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((seq + kBlockRows - 1) / kBlockRows, heads, batch);
   using T = __nv_bfloat16;
@@ -1007,92 +1008,107 @@ int launch_wgmma(int batch, int seq, int heads, cudaStream_t st,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ------------------------------------------------ fp32, hd 64: 6-pass
+// ------------------------------------------------ fp32, hd 64: 6-pass, 3-pass
 
-// The fp32 pair at precision "highest" on the bf16 planes of qkv and dO
-// (attention_packed.cu, aaclip_split3): the layout of the wgmma pair with
-// three planes of every tile, so each block's own 128 rows of two
-// operands take 96 KB and a stage of two streamed 64-row tiles 48 KB:
-// two stages fit. Every product is six wgmma chains (mma6_ss, mma6_rs;
+// The plane pairs: fp32 at head dim 64 on the bf16 planes of qkv and dO
+// (attention_packed.cu's split kernels), attn_bwd_{dq,dkdv}_6pass (kP 3,
+// precision "highest" or None) and attn_bwd_{dq,dkdv}_3pass_wgmma (kP 2,
+// precision "high": _kdot's hi.hi + hi.lo + lo.hi on hi and lo = bf16(x -
+// hi), passes 3-5 of the 6-pass table). The layout of the wgmma pair with
+// kP planes of every tile, so each block's own 128 rows of two operands
+// take kP * 32 KB and a stage of two streamed 64-row tiles kP * 16 KB: two
+// stages fit at three planes, three at two. Every product is one wgmma
+// chain per pass, smallest first (mma_planes_ss, mma_planes_rs;
 // hopper_common.cuh); P = exp(s - lse) and dS = P * (dP - dsum) * scale
-// stay fp32 and are split in registers; dO is consumed in fp32 (the TPU
-// kernel's do.astype(v.dtype)). A gradient sums its tiles in fp32
-// registers: each tile's product goes into its own accumulator first, so
-// the tensor cores' chains stay 24 products long.
-constexpr int kX6BwdStages = 2;
+// stay fp32 and are split in registers into kP planes; dO is consumed in
+// fp32 (the TPU kernel's do.astype(v.dtype)). A gradient sums its tiles in
+// fp32 registers: each tile's product goes into its own accumulator first,
+// so the tensor cores' chains stay 4 k-steps per pass long. What bounds the
+// 3-pass pair: the TPU kernel's five products in three bf16 passes, 461.5
+// GFLOP at [8, 1370, 3072] (0.466 ms at 989 TFLOP/s); the pair's nine, 830.3
+// (0.840 ms).
+template <int kP>
+struct PlaneWalk {
+  static constexpr int kStages = kP == kPlanes ? 2 : 3;
+  static constexpr int kOwn = 2 * kP * kBlockRows * kRowBytes;  // own rows
+  static constexpr int kWalk = 2 * kP * kWalkBytes;  // one stage's tiles
+  static constexpr int kDqSmem =
+      kSwizzleAtom + kOwn + kStages * kWalk + 8 * (1 + 2 * kStages);
+  static constexpr int kDkdvSmem = kDqSmem + kStages * 2 * kWalkRows * 4;
+};
 constexpr int kBlockPlane = kBlockRows * kRowBytes;  // 16 KB: one plane
-constexpr int kX6Own = 2 * kPlanes * kBlockPlane;    // the block's rows
-constexpr int kX6Walk = 2 * kPlanes * kWalkBytes;    // one stage's tiles
-constexpr int kX6DqSmem = kSwizzleAtom + kX6Own + kX6BwdStages * kX6Walk +
-                          8 * (1 + 2 * kX6BwdStages);
-constexpr int kX6DkdvSmem = kSwizzleAtom + kX6Own + kX6BwdStages * kX6Walk +
-                            kX6BwdStages * 2 * kWalkRows * 4 +
-                            8 * (1 + 2 * kX6BwdStages);
 
-// All three planes of the block's own 128 rows of one operand (plane p
-// at depth `depth` + p * pz, kBlockPlane bytes apart).
+// All kP planes of the block's own 128 rows of one operand (plane p at
+// depth `depth` + p * pz, kBlockPlane bytes apart).
+template <int kP>
 __device__ __forceinline__ void load_block_planes(uint8_t* dst,
                                                   const CUtensorMap* map,
                                                   uint64_t* bar, int col,
                                                   int row0, int depth,
                                                   int pz) {
-  for (int p = 0; p < kPlanes; ++p)
+  for (int p = 0; p < kP; ++p)
     load_block_rows(dst + p * kBlockPlane, map, bar, col, row0,
                     depth + p * pz);
 }
 
-// All three planes of one streamed 64-row tile (kWalkBytes apart).
+// All kP planes of one streamed 64-row tile (kWalkBytes apart).
+template <int kP>
 __device__ __forceinline__ void load_walk_planes(uint8_t* dst,
                                                  const CUtensorMap* map,
                                                  uint64_t* bar, int col,
                                                  int row0, int depth,
                                                  int pz) {
-  for (int p = 0; p < kPlanes; ++p)
+  for (int p = 0; p < kP; ++p)
     tma_load_3d(dst + p * kWalkBytes, map, bar, col, row0, depth + p * pz);
 }
 
 // fp32 P of score s[4j + i] from the logsumexp, as the FMA kernels take
 // it (precise expf); keys at or past valid_len get 0 when kMask.
 template <bool kMask>
-__device__ __forceinline__ float prob6(const float (&s)[32], int j, int i,
-                                       int k0, int valid_len, float scale,
-                                       const float (&lse_r)[2], int t) {
+__device__ __forceinline__ float prob_f32(const float (&s)[32], int j, int i,
+                                          int k0, int valid_len, float scale,
+                                          const float (&lse_r)[2], int t) {
   const bool keep = !kMask || k0 + j * 8 + t * 2 + (i & 1) < valid_len;
   return keep ? expf(__fmul_rn(s[4 * j + i], scale) - lse_r[i >> 1]) : 0.f;
 }
 
-// Walk 1 of the 6-pass kernel A: ds_row += rowsum(dP * P) over one tile.
+// Walk 1 of the plane kernel A: ds_row += rowsum(dP * P) over one tile.
 template <bool kMask>
-__device__ __forceinline__ void dsum_tile6(const float (&s)[32],
-                                           const float (&dp)[32],
-                                           float (&ds_row)[2], int k0,
-                                           int valid_len, float scale,
-                                           const float (&lse_r)[2], int t) {
+__device__ __forceinline__ void dsum_tile_f32(const float (&s)[32],
+                                              const float (&dp)[32],
+                                              float (&ds_row)[2], int k0,
+                                              int valid_len, float scale,
+                                              const float (&lse_r)[2],
+                                              int t) {
 #pragma unroll
   for (int j = 0; j < 8; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-      ds_row[i >> 1] += dp[4 * j + i] * prob6<kMask>(s, j, i, k0, valid_len,
-                                                     scale, lse_r, t);
+      ds_row[i >> 1] += dp[4 * j + i] * prob_f32<kMask>(s, j, i, k0,
+                                                        valid_len, scale,
+                                                        lse_r, t);
 }
 
-// Walk 2 of the 6-pass kernel A: dS = P * (dP - dsum) * scale of one tile
+// Walk 2 of the plane kernel A: dS = P * (dP - dsum) * scale of one tile
 // in fp32, written over the scores s (so dP's registers are free before
-// the fragments are built), then as the A fragments of its three planes.
-template <bool kMask>
-__device__ __forceinline__ void ds_tile6(float (&s)[32],
-                                         const float (&dp)[32],
-                                         uint32_t (&f)[kPlanes][4][4],
-                                         const float (&ds_row)[2], int k0,
-                                         int valid_len, float scale,
-                                         const float (&lse_r)[2], int t) {
+// the fragments are built), then as the A fragments of its kP planes.
+template <bool kMask, int kP>
+__device__ __forceinline__ void ds_tile_planes(float (&s)[32],
+                                               const float (&dp)[32],
+                                               uint32_t (&f)[kP][4][4],
+                                               const float (&ds_row)[2],
+                                               int k0, int valid_len,
+                                               float scale,
+                                               const float (&lse_r)[2],
+                                               int t) {
 #pragma unroll
   for (int j = 0; j < 8; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-      s[4 * j + i] = prob6<kMask>(s, j, i, k0, valid_len, scale, lse_r, t) *
-                     (dp[4 * j + i] - ds_row[i >> 1]) * scale;
-  split3_frags(f, s);
+      s[4 * j + i] =
+          prob_f32<kMask>(s, j, i, k0, valid_len, scale, lse_r, t) *
+          (dp[4 * j + i] - ds_row[i >> 1]) * scale;
+  split_frags<kP>(f, s);
 }
 
 // Rows row_a and row_a + 8 (when < S) of a [64 x 64] fp32 accumulator
@@ -1118,30 +1134,30 @@ __device__ __forceinline__ void add_acc(float (&d)[32], const float (&v)[32]) {
   for (int i = 0; i < 32; ++i) d[i] += v[i];
 }
 
-// Kernel A, 6-pass: walk 1 sums dsum = rowsum(dP * P); walk 2 recomputes
-// S and dP and accumulates dQ += dS K. Each consumer waits for its own
-// products, the other consumer's running meanwhile: issuing tile it + 1's
-// S and dP before tile it's rowsum, as the bf16 kernel does, needs a
-// second set of 64 accumulators, and ptxas then spilled and serialized
-// the wgmma (C7512), which cost more time than the overlap saved.
-__global__ void __launch_bounds__(kBwdThreads, 1)
-attn_bwd_dq_6pass(const __grid_constant__ CUtensorMap tq,
-                  const __grid_constant__ CUtensorMap tk,
-                  const __grid_constant__ CUtensorMap tv,
-                  const __grid_constant__ CUtensorMap tdo,
-                  const float* __restrict__ lse, float* __restrict__ dsum,
-                  float* __restrict__ dqkv, int S, int valid_len, int64_t ld,
-                  int q_off, int pz, float scale) {
+// Kernel A on kP planes: walk 1 sums dsum = rowsum(dP * P); walk 2
+// recomputes S and dP and accumulates dQ += dS K. Each consumer waits for
+// its own products, the other consumer's running meanwhile: issuing tile
+// it + 1's S and dP before tile it's rowsum, as the bf16 kernel does,
+// needs a second set of 64 accumulators, and ptxas then spilled and
+// serialized the 6-pass kernel's wgmma (C7512), which cost more time than
+// the overlap saved.
+template <int kP>
+__device__ __forceinline__ void bwd_dq_planes(
+    const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+    const CUtensorMap& tdo, const float* __restrict__ lse,
+    float* __restrict__ dsum, float* __restrict__ dqkv, int S, int valid_len,
+    int64_t ld, int q_off, int pz, float scale) {
+  using W = PlaneWalk<kP>;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* sQ = align_atom(smem_raw);             // [plane][128 rows][64]
-  uint8_t* sdO = sQ + kPlanes * kBlockPlane;       // [plane][128 rows][64]
-  uint8_t* sKV = sdO + kPlanes * kBlockPlane;
-  // stage st: K planes at sKV + st * kX6Walk + p * kWalkBytes, V planes
-  // kPlanes tiles further
-  uint64_t* bars = reinterpret_cast<uint64_t*>(sKV + kX6BwdStages * kX6Walk);
+  uint8_t* sQ = align_atom(smem_raw);          // [plane][128 rows][64]
+  uint8_t* sdO = sQ + kP * kBlockPlane;        // [plane][128 rows][64]
+  uint8_t* sKV = sdO + kP * kBlockPlane;
+  // stage st: K planes at sKV + st * W::kWalk + p * kWalkBytes, V planes
+  // kP tiles further
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sKV + W::kStages * W::kWalk);
   uint64_t* own_full = bars;
   uint64_t* full = bars + 1;
-  uint64_t* empty = full + kX6BwdStages;
+  uint64_t* empty = full + W::kStages;
 
   const int q0 = blockIdx.x * kBlockRows;
   const int h = blockIdx.y, b = blockIdx.z;
@@ -1149,7 +1165,7 @@ attn_bwd_dq_6pass(const __grid_constant__ CUtensorMap tq,
   const int n = (valid_len + kWalkRows - 1) / kWalkRows;
   if (threadIdx.x == 0) {
     mbar_init(own_full, 1);
-    for (int s = 0; s < kX6BwdStages; ++s) {
+    for (int s = 0; s < W::kStages; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 2 * 128);
     }
@@ -1161,19 +1177,19 @@ attn_bwd_dq_6pass(const __grid_constant__ CUtensorMap tq,
   if (wg == 2) {  // producer: Q and dO once, then K/V tiles for both walks
     setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x == 2 * 128) {
-      mbar_arrive_expect_tx(own_full, kX6Own);
-      load_block_planes(sQ, &tq, own_full, col, q0, b, pz);
-      load_block_planes(sdO, &tdo, own_full, col, q0, b, pz);
+      mbar_arrive_expect_tx(own_full, W::kOwn);
+      load_block_planes<kP>(sQ, &tq, own_full, col, q0, b, pz);
+      load_block_planes<kP>(sdO, &tdo, own_full, col, q0, b, pz);
       for (int it = 0; it < 2 * n; ++it) {
-        const int st = it % kX6BwdStages;
-        if (it >= kX6BwdStages)
-          mbar_wait(&empty[st], (it / kX6BwdStages - 1) & 1);
+        const int st = it % W::kStages;
+        if (it >= W::kStages)
+          mbar_wait(&empty[st], (it / W::kStages - 1) & 1);
         const int k0 = (it % n) * kWalkRows;
-        uint8_t* dst = sKV + st * kX6Walk;
-        mbar_arrive_expect_tx(&full[st], kX6Walk);
-        load_walk_planes(dst, &tk, &full[st], col, k0, b, pz);
-        load_walk_planes(dst + kPlanes * kWalkBytes, &tv, &full[st], col, k0,
-                         b, pz);
+        uint8_t* dst = sKV + st * W::kWalk;
+        mbar_arrive_expect_tx(&full[st], W::kWalk);
+        load_walk_planes<kP>(dst, &tk, &full[st], col, k0, b, pz);
+        load_walk_planes<kP>(dst + kP * kWalkBytes, &tv, &full[st], col, k0,
+                             b, pz);
       }
     }
   } else {
@@ -1191,13 +1207,14 @@ attn_bwd_dq_6pass(const __grid_constant__ CUtensorMap tq,
 
     // S = Q K^T and dP = dO V^T of tile it, as one wgmma group
     auto issue = [&](float (&s)[32], float (&dp)[32], int it) {
-      const int st = it % kX6BwdStages;
-      mbar_wait(&full[st], (it / kX6BwdStages) & 1);
-      const uint8_t* tile = sKV + st * kX6Walk;
+      const int st = it % W::kStages;
+      mbar_wait(&full[st], (it / W::kStages) & 1);
+      const uint8_t* tile = sKV + st * W::kWalk;
       wgmma_fence();
-      mma6_ss(s, dq_desc, kBlockPlane, sw128_desc(tile), kWalkBytes);
-      mma6_ss(dp, ddo_desc, kBlockPlane,
-              sw128_desc(tile + kPlanes * kWalkBytes), kWalkBytes);
+      mma_planes_ss<kP>(s, dq_desc, kBlockPlane, sw128_desc(tile),
+                        kWalkBytes);
+      mma_planes_ss<kP>(dp, ddo_desc, kBlockPlane,
+                        sw128_desc(tile + kP * kWalkBytes), kWalkBytes);
       wgmma_commit();
     };
 
@@ -1209,12 +1226,12 @@ attn_bwd_dq_6pass(const __grid_constant__ CUtensorMap tq,
       wgmma_wait<0>();
       fence_operand(s);
       fence_operand(dp);
-      mbar_arrive(&empty[it % kX6BwdStages]);
+      mbar_arrive(&empty[it % W::kStages]);
       const int k0 = it * kWalkRows;
       if (k0 + kWalkRows <= valid_len)
-        dsum_tile6<false>(s, dp, ds_row, k0, valid_len, scale, lse_r, t);
+        dsum_tile_f32<false>(s, dp, ds_row, k0, valid_len, scale, lse_r, t);
       else
-        dsum_tile6<true>(s, dp, ds_row, k0, valid_len, scale, lse_r, t);
+        dsum_tile_f32<true>(s, dp, ds_row, k0, valid_len, scale, lse_r, t);
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -1230,24 +1247,27 @@ attn_bwd_dq_6pass(const __grid_constant__ CUtensorMap tq,
     float dq[32], qt[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) dq[i] = 0.f;
-    uint32_t dsf[kPlanes][4][4];
+    uint32_t dsf[kP][4][4];
     for (int it = n; it < 2 * n; ++it) {
-      const int st = it % kX6BwdStages;
+      const int st = it % W::kStages;
       issue(s, dp, it);
       wgmma_wait<0>();
       fence_operand(s);
       fence_operand(dp);
       const int k0 = (it - n) * kWalkRows;
       if (k0 + kWalkRows <= valid_len)
-        ds_tile6<false>(s, dp, dsf, ds_row, k0, valid_len, scale, lse_r, t);
+        ds_tile_planes<false, kP>(s, dp, dsf, ds_row, k0, valid_len, scale,
+                                  lse_r, t);
       else
-        ds_tile6<true>(s, dp, dsf, ds_row, k0, valid_len, scale, lse_r, t);
+        ds_tile_planes<true, kP>(s, dp, dsf, ds_row, k0, valid_len, scale,
+                                 lse_r, t);
       wgmma_fence();
-      mma6_rs(qt, dsf, sw128_desc(sKV + st * kX6Walk), kWalkBytes);
+      mma_planes_rs<kP>(qt, dsf, sw128_desc(sKV + st * W::kWalk),
+                        kWalkBytes);
       wgmma_commit();
       wgmma_wait<0>();
       fence_operand(qt);
-      fence_frags6(dsf);
+      fence_planes<kP>(dsf);
       mbar_arrive(&empty[st]);
       add_acc(dq, qt);
     }
@@ -1256,31 +1276,29 @@ attn_bwd_dq_6pass(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// Kernel B, 6-pass: the block's K and V rows against every Q/dO tile;
-// P^T and dS^T split in registers for dV += P^T dO and dK += dS^T Q, each
-// tile's product in one accumulator, summed into dv and dk.
-__global__ void __launch_bounds__(kBwdThreads, 1)
-attn_bwd_dkdv_6pass(const __grid_constant__ CUtensorMap tq,
-                    const __grid_constant__ CUtensorMap tk,
-                    const __grid_constant__ CUtensorMap tv,
-                    const __grid_constant__ CUtensorMap tdo,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ dsum,
-                    float* __restrict__ dqkv, int S, int valid_len,
-                    int64_t ld, int k_off, int v_off, int pz, float scale) {
+// Kernel B on kP planes: the block's K and V rows against every Q/dO
+// tile; P^T and dS^T split in registers for dV += P^T dO and dK += dS^T Q,
+// each tile's product in one accumulator, summed into dv and dk.
+template <int kP>
+__device__ __forceinline__ void bwd_dkdv_planes(
+    const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+    const CUtensorMap& tdo, const float* __restrict__ lse,
+    const float* __restrict__ dsum, float* __restrict__ dqkv, int S,
+    int valid_len, int64_t ld, int k_off, int v_off, int pz, float scale) {
+  using W = PlaneWalk<kP>;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* sK = align_atom(smem_raw);        // [plane][128 keys][64]
-  uint8_t* sV = sK + kPlanes * kBlockPlane;  // [plane][128 keys][64]
-  uint8_t* sQdO = sV + kPlanes * kBlockPlane;
-  // stage st: Q planes at sQdO + st * kX6Walk + p * kWalkBytes, dO
-  // planes kPlanes tiles further
-  float* sRow = reinterpret_cast<float*>(sQdO + kX6BwdStages * kX6Walk);
+  uint8_t* sK = align_atom(smem_raw);    // [plane][128 keys][64]
+  uint8_t* sV = sK + kP * kBlockPlane;   // [plane][128 keys][64]
+  uint8_t* sQdO = sV + kP * kBlockPlane;
+  // stage st: Q planes at sQdO + st * W::kWalk + p * kWalkBytes, dO planes
+  // kP tiles further
+  float* sRow = reinterpret_cast<float*>(sQdO + W::kStages * W::kWalk);
   // sRow[stage][0][64]: lse of the tile's queries; [stage][1][64]: dsum
   uint64_t* bars =
-      reinterpret_cast<uint64_t*>(sRow + kX6BwdStages * 2 * kWalkRows);
+      reinterpret_cast<uint64_t*>(sRow + W::kStages * 2 * kWalkRows);
   uint64_t* own_full = bars;
   uint64_t* full = bars + 1;
-  uint64_t* empty = full + kX6BwdStages;
+  uint64_t* empty = full + W::kStages;
 
   const int kv0 = blockIdx.x * kBlockRows;
   const int h = blockIdx.y, b = blockIdx.z;
@@ -1290,7 +1308,7 @@ attn_bwd_dkdv_6pass(const __grid_constant__ CUtensorMap tq,
   const int64_t lrow = ((int64_t)b * gridDim.y + h) * S;
   if (threadIdx.x == 0) {
     mbar_init(own_full, 1);
-    for (int s = 0; s < kX6BwdStages; ++s) {
+    for (int s = 0; s < W::kStages; ++s) {
       mbar_init(&full[s], 32);  // the producer warp
       mbar_init(&empty[s], 2 * 128);
     }
@@ -1304,14 +1322,14 @@ attn_bwd_dkdv_6pass(const __grid_constant__ CUtensorMap tq,
     const int lane = threadIdx.x - 2 * 128;
     if (lane < 32 && active) {
       if (lane == 0) {
-        mbar_arrive_expect_tx(own_full, kX6Own);
-        load_block_planes(sK, &tk, own_full, col, kv0, b, pz);
-        load_block_planes(sV, &tv, own_full, col, kv0, b, pz);
+        mbar_arrive_expect_tx(own_full, W::kOwn);
+        load_block_planes<kP>(sK, &tk, own_full, col, kv0, b, pz);
+        load_block_planes<kP>(sV, &tv, own_full, col, kv0, b, pz);
       }
       for (int it = 0; it < nq; ++it) {
-        const int st = it % kX6BwdStages;
-        if (it >= kX6BwdStages)
-          mbar_wait(&empty[st], (it / kX6BwdStages - 1) & 1);
+        const int st = it % W::kStages;
+        if (it >= W::kStages)
+          mbar_wait(&empty[st], (it / W::kStages - 1) & 1);
         float* rows = sRow + st * 2 * kWalkRows;
         for (int i = lane; i < kWalkRows; i += 32) {
           const int qr = it * kWalkRows + i;
@@ -1319,11 +1337,12 @@ attn_bwd_dkdv_6pass(const __grid_constant__ CUtensorMap tq,
           rows[kWalkRows + i] = qr < S ? dsum[lrow + qr] : 0.f;
         }
         if (lane == 0) {
-          uint8_t* dst = sQdO + st * kX6Walk;
-          mbar_arrive_expect_tx(&full[st], kX6Walk);
-          load_walk_planes(dst, &tq, &full[st], col, it * kWalkRows, b, pz);
-          load_walk_planes(dst + kPlanes * kWalkBytes, &tdo, &full[st], col,
-                           it * kWalkRows, b, pz);
+          uint8_t* dst = sQdO + st * W::kWalk;
+          mbar_arrive_expect_tx(&full[st], W::kWalk);
+          load_walk_planes<kP>(dst, &tq, &full[st], col, it * kWalkRows, b,
+                               pz);
+          load_walk_planes<kP>(dst + kP * kWalkBytes, &tdo, &full[st], col,
+                               it * kWalkRows, b, pz);
         } else {
           mbar_arrive(&full[st]);
         }
@@ -1344,16 +1363,16 @@ attn_bwd_dkdv_6pass(const __grid_constant__ CUtensorMap tq,
       const uint64_t dv_desc = sw128_desc(sV + wg * kHalfBytes);
       mbar_wait(own_full, 0);
       float s[32], dp[32], acc[32];  // S^T, dP^T: [64 keys x 64 queries]
-      uint32_t f[kPlanes][4][4];     // P^T's planes, then dS^T's
+      uint32_t f[kP][4][4];          // P^T's planes, then dS^T's
       for (int it = 0; it < nq; ++it) {
-        const int st = it % kX6BwdStages;
-        mbar_wait(&full[st], (it / kX6BwdStages) & 1);
-        const uint8_t* tile = sQdO + st * kX6Walk;
+        const int st = it % W::kStages;
+        mbar_wait(&full[st], (it / W::kStages) & 1);
+        const uint8_t* tile = sQdO + st * W::kWalk;
         const uint64_t q_desc = sw128_desc(tile);
-        const uint64_t do_desc = sw128_desc(tile + kPlanes * kWalkBytes);
+        const uint64_t do_desc = sw128_desc(tile + kP * kWalkBytes);
         wgmma_fence();
-        mma6_ss(s, dk_desc, kBlockPlane, q_desc, kWalkBytes);
-        mma6_ss(dp, dv_desc, kBlockPlane, do_desc, kWalkBytes);
+        mma_planes_ss<kP>(s, dk_desc, kBlockPlane, q_desc, kWalkBytes);
+        mma_planes_ss<kP>(dp, dv_desc, kBlockPlane, do_desc, kWalkBytes);
         wgmma_commit();
         wgmma_wait<0>();
         fence_operand(s);
@@ -1371,21 +1390,21 @@ attn_bwd_dkdv_6pass(const __grid_constant__ CUtensorMap tq,
             s[4 * j + i] = p;
             dp[4 * j + i] = p * (dp[4 * j + i] - rows[kWalkRows + c]) * scale;
           }
-        split3_frags(f, s);  // P^T
+        split_frags<kP>(f, s);  // P^T
         wgmma_fence();
-        mma6_rs(acc, f, do_desc, kWalkBytes);
+        mma_planes_rs<kP>(acc, f, do_desc, kWalkBytes);
         wgmma_commit();
         wgmma_wait<0>();
         fence_operand(acc);
-        fence_frags6(f);
+        fence_planes<kP>(f);
         add_acc(dv, acc);
-        split3_frags(f, dp);  // dS^T
+        split_frags<kP>(f, dp);  // dS^T
         wgmma_fence();
-        mma6_rs(acc, f, q_desc, kWalkBytes);
+        mma_planes_rs<kP>(acc, f, q_desc, kWalkBytes);
         wgmma_commit();
         wgmma_wait<0>();
         fence_operand(acc);
-        fence_frags6(f);
+        fence_planes<kP>(f);
         add_acc(dk, acc);
         mbar_arrive(&empty[st]);
       }
@@ -1396,44 +1415,116 @@ attn_bwd_dkdv_6pass(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// The 6-pass pair on the bf16 planes of qkv and dO (plane strides batch *
-// seq * ld and batch * seq * do_ld elements), into fp32 dqkv.
-int launch_6pass(int batch, int seq, int heads, cudaStream_t st,
-                 const void* qkv, const void* dout, const float* lse,
-                 float* dsum, float* dqkv, int valid_len, int64_t ld,
-                 int q_off, int k_off, int v_off, int64_t do_ld,
-                 float scale) {
+__global__ void __launch_bounds__(kBwdThreads, 1)
+attn_bwd_dq_6pass(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  const __grid_constant__ CUtensorMap tdo,
+                  const float* __restrict__ lse, float* __restrict__ dsum,
+                  float* __restrict__ dqkv, int S, int valid_len, int64_t ld,
+                  int q_off, int pz, float scale) {
+  bwd_dq_planes<3>(tq, tk, tv, tdo, lse, dsum, dqkv, S, valid_len, ld, q_off,
+                   pz, scale);
+}
+
+__global__ void __launch_bounds__(kBwdThreads, 1)
+attn_bwd_dkdv_6pass(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ dsum,
+                    float* __restrict__ dqkv, int S, int valid_len,
+                    int64_t ld, int k_off, int v_off, int pz, float scale) {
+  bwd_dkdv_planes<3>(tq, tk, tv, tdo, lse, dsum, dqkv, S, valid_len, ld,
+                     k_off, v_off, pz, scale);
+}
+
+__global__ void __launch_bounds__(kBwdThreads, 1)
+attn_bwd_dq_3pass_wgmma(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tdo,
+                        const float* __restrict__ lse,
+                        float* __restrict__ dsum, float* __restrict__ dqkv,
+                        int S, int valid_len, int64_t ld, int q_off, int pz,
+                        float scale) {
+  bwd_dq_planes<2>(tq, tk, tv, tdo, lse, dsum, dqkv, S, valid_len, ld, q_off,
+                   pz, scale);
+}
+
+__global__ void __launch_bounds__(kBwdThreads, 1)
+attn_bwd_dkdv_3pass_wgmma(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ dsum,
+                          float* __restrict__ dqkv, int S, int valid_len,
+                          int64_t ld, int k_off, int v_off, int pz,
+                          float scale) {
+  bwd_dkdv_planes<2>(tq, tk, tv, tdo, lse, dsum, dqkv, S, valid_len, ld,
+                     k_off, v_off, pz, scale);
+}
+
+// A plane pair on the kP bf16 planes of qkv and dO (plane strides batch *
+// seq * ld and batch * seq * do_ld elements), into fp32 dqkv;
+// cudaErrorInvalidValue for another head dim.
+template <int kP>
+int launch_planes(int head_dim, int batch, int seq, int heads,
+                  cudaStream_t st, const void* qkv, const void* dout,
+                  const float* lse, float* dsum, float* dqkv, int valid_len,
+                  int64_t ld, int q_off, int k_off, int v_off, int64_t do_ld,
+                  float scale) {
+  if (head_dim != kTmaHeadDim) return static_cast<int>(cudaErrorInvalidValue);
+  using W = PlaneWalk<kP>;
   const char* base = static_cast<const char*>(qkv);
   const int64_t cols = (int64_t)heads * kTmaHeadDim;
-  CUtensorMap maps[4];  // q, k, v, dO: 64-row boxes over all three planes
+  CUtensorMap maps[4];  // q, k, v, dO: 64-row boxes over every plane
   const void* bases[4] = {base + 2 * (int64_t)q_off, base + 2 * (int64_t)k_off,
                           base + 2 * (int64_t)v_off, dout};
   for (int i = 0; i < 4; ++i) {
     const int64_t row = i < 3 ? ld : do_ld;
     const cudaError_t err = make_tile_map(&maps[i], bases[i], cols, seq,
-                                          kPlanes * batch, 2 * row,
+                                          kP * batch, 2 * row,
                                           2 * seq * row, kWalkRows);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_bwd_dq_6pass, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kX6DqSmem);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(attn_bwd_dkdv_6pass,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kX6DkdvSmem);
+  const void* dq_fn =
+      kP == kPlanes ? reinterpret_cast<const void*>(attn_bwd_dq_6pass)
+                    : reinterpret_cast<const void*>(attn_bwd_dq_3pass_wgmma);
+  const void* dkdv_fn =
+      kP == kPlanes
+          ? reinterpret_cast<const void*>(attn_bwd_dkdv_6pass)
+          : reinterpret_cast<const void*>(attn_bwd_dkdv_3pass_wgmma);
+  cudaError_t err = smem_attribute_once(dq_fn, W::kDqSmem);
+  if (err == cudaSuccess) err = smem_attribute_once(dkdv_fn, W::kDkdvSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((seq + kBlockRows - 1) / kBlockRows, heads, batch);
-  attn_bwd_dq_6pass<<<grid, kBwdThreads, kX6DqSmem, st>>>(
-      maps[0], maps[1], maps[2], maps[3], lse, dsum, dqkv, seq, valid_len,
-      ld, q_off, batch, scale);
-  note_launch();
+  if constexpr (kP == kPlanes) {
+    attn_bwd_dq_6pass<<<grid, kBwdThreads, W::kDqSmem, st>>>(
+        maps[0], maps[1], maps[2], maps[3], lse, dsum, dqkv, seq, valid_len,
+        ld, q_off, batch, scale);
+    note_launch();
+  } else {
+    attn_bwd_dq_3pass_wgmma<<<grid, kBwdThreads, W::kDqSmem, st>>>(
+        maps[0], maps[1], maps[2], maps[3], lse, dsum, dqkv, seq, valid_len,
+        ld, q_off, batch, scale);
+    note_launch();
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  attn_bwd_dkdv_6pass<<<grid, kBwdThreads, kX6DkdvSmem, st>>>(
-      maps[0], maps[1], maps[2], maps[3], lse, dsum, dqkv, seq, valid_len,
-      ld, k_off, v_off, batch, scale);
-  note_launch();
+  if constexpr (kP == kPlanes) {
+    attn_bwd_dkdv_6pass<<<grid, kBwdThreads, W::kDkdvSmem, st>>>(
+        maps[0], maps[1], maps[2], maps[3], lse, dsum, dqkv, seq, valid_len,
+        ld, k_off, v_off, batch, scale);
+    note_launch();
+  } else {
+    attn_bwd_dkdv_3pass_wgmma<<<grid, kBwdThreads, W::kDkdvSmem, st>>>(
+        maps[0], maps[1], maps[2], maps[3], lse, dsum, dqkv, seq, valid_len,
+        ld, k_off, v_off, batch, scale);
+    note_launch();
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1481,8 +1572,9 @@ int launch_retained(int batch, int seq, int heads, cudaStream_t st,
 
 // ------------------------------------------------ fp32, 3-pass ("high")
 
-// The backward under the JAX package's precision "high" on fp32 inputs,
-// as _packed_bwd_kernel computes it there: dO is consumed in fp32
+// The backward under the JAX package's precision "high" on fp32 inputs at
+// head dim 16 (tiny-test; head dim 64 runs the plane pair above), as
+// _packed_bwd_kernel computes it there: dO is consumed in fp32
 // (do.astype(v.dtype)), P = exp(s - lse) and dS = P * (dP - dsum) * scale
 // stay fp32 (the casts to the input dtype are no-ops), and each of the
 // products S = Q K^T, dP = dO V^T, dV = P^T dO, dQ = dS K and dK = dS^T Q
@@ -1494,9 +1586,6 @@ int launch_retained(int batch, int seq, int heads, cudaStream_t st,
 // its bf16 hi and lo halves as it is staged into shared memory; the A
 // fragments of the block's own rows are read from shared memory per
 // k-step, not held, to leave registers to the accumulators. Outputs fp32.
-// What bounds it: three bf16 products per product, 3 x 10*B*H*S^2*hd FLOP
-// of the TPU kernel's five products (461.5 GFLOP at the step's batch 8),
-// on the tensor cores.
 
 constexpr int k3Tiles = 8;  // hi and lo of four [64, HD] tiles
 
@@ -1752,30 +1841,21 @@ attn_bwd_dkdv_3pass(const float* __restrict__ qkv,
   store_rows_f32<HD>(out + v_off + hoff, ld, dv, row_a, S, t);
 }
 
-// The 3-pass pair at head dim HD.
-template <int HD>
+// The 3-pass pair at head dim 16.
 int launch_3pass(int batch, int seq, int heads, cudaStream_t st,
                  const float* qkv, const float* dout, const float* lse,
                  float* dsum, float* dqkv, int valid_len, int64_t ld,
                  int q_off, int k_off, int v_off, int64_t do_ld,
                  float scale) {
-  constexpr int smem = bwd_3pass_smem(HD);
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_bwd_dq_3pass<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(attn_bwd_dkdv_3pass<HD>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr int smem = bwd_3pass_smem(16);
   const dim3 grid((seq + kTile - 1) / kTile, heads, batch);
-  attn_bwd_dq_3pass<HD><<<grid, 128, smem, st>>>(
+  attn_bwd_dq_3pass<16><<<grid, 128, smem, st>>>(
       qkv, dout, lse, dsum, dqkv, seq, valid_len, ld, q_off, k_off, v_off,
       do_ld, scale);
   note_launch();
-  err = cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  attn_bwd_dkdv_3pass<HD><<<grid, 128, smem, st>>>(
+  attn_bwd_dkdv_3pass<16><<<grid, 128, smem, st>>>(
       qkv, dout, lse, dsum, dqkv, seq, valid_len, ld, q_off, k_off, v_off,
       do_ld, scale);
   note_launch();
@@ -1814,23 +1894,19 @@ extern "C" int aaclip_attention_packed_bwd(
 }
 
 // The 3-pass mode (fp32 under precision "high") of
-// aaclip_attention_packed_bwd: the same operands in fp32, the lse of the
-// forward's 3-pass mode, the 3-pass pair at head dim 16 or 64.
+// aaclip_attention_packed_bwd at head dim 16: the same operands in fp32,
+// the lse of the forward's 3-pass mode, the mma.sync 3-pass pair;
+// cudaErrorInvalidValue for another head dim (64 has its own entry,
+// aaclip_attention_packed_bwd_3pass_wgmma).
 extern "C" int aaclip_attention_packed_bwd_3pass(
     const float* qkv, const float* d_out, const float* lse, float* dsum,
     float* d_qkv, int head_dim, int batch, int seq, int valid_len, int heads,
     long long ld, int q_off, int k_off, int v_off, long long do_ld,
     float scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (head_dim == 16)
-    return launch_3pass<16>(batch, seq, heads, st, qkv, d_out, lse, dsum,
-                            d_qkv, valid_len, ld, q_off, k_off, v_off, do_ld,
-                            scale);
-  if (head_dim == 64)
-    return launch_3pass<64>(batch, seq, heads, st, qkv, d_out, lse, dsum,
-                            d_qkv, valid_len, ld, q_off, k_off, v_off, do_ld,
-                            scale);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (head_dim != 16) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_3pass(batch, seq, heads, static_cast<cudaStream_t>(stream),
+                      qkv, d_out, lse, dsum, d_qkv, valid_len, ld, q_off,
+                      k_off, v_off, do_ld, scale);
 }
 
 // The 6-pass route (fp32 at head dim kTmaHeadDim under precision
@@ -1846,9 +1922,25 @@ extern "C" int aaclip_attention_packed_bwd_6pass(
     float* dsum, float* d_qkv, int head_dim, int batch, int seq,
     int valid_len, int heads, long long ld, int q_off, int k_off, int v_off,
     long long do_ld, float scale, void* stream) {
-  if (head_dim != kTmaHeadDim)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return launch_6pass(batch, seq, heads, static_cast<cudaStream_t>(stream),
-                      qkv_planes, do_planes, lse, dsum, d_qkv, valid_len, ld,
-                      q_off, k_off, v_off, do_ld, scale);
+  return launch_planes<kPlanes>(head_dim, batch, seq, heads,
+                                static_cast<cudaStream_t>(stream),
+                                qkv_planes, do_planes, lse, dsum, d_qkv,
+                                valid_len, ld, q_off, k_off, v_off, do_ld,
+                                scale);
+}
+
+// The 3-pass route (fp32 at head dim kTmaHeadDim under precision "high")
+// of aaclip_attention_packed_bwd: qkv_planes and do_planes hold the bf16
+// planes hi and lo of qkv and dO (attention_packed.cu's aaclip_split2),
+// with the lse of the forward's 3-pass route; otherwise as the 6-pass
+// entry.
+extern "C" int aaclip_attention_packed_bwd_3pass_wgmma(
+    const void* qkv_planes, const void* do_planes, const float* lse,
+    float* dsum, float* d_qkv, int head_dim, int batch, int seq,
+    int valid_len, int heads, long long ld, int q_off, int k_off, int v_off,
+    long long do_ld, float scale, void* stream) {
+  return launch_planes<2>(head_dim, batch, seq, heads,
+                          static_cast<cudaStream_t>(stream), qkv_planes,
+                          do_planes, lse, dsum, d_qkv, valid_len, ld, q_off,
+                          k_off, v_off, do_ld, scale);
 }

@@ -2,8 +2,9 @@
 // forward and backward, the fused-block GEMM): mbarriers (with a bounded
 // wait that traps instead of hanging), TMA tile loads into 128-byte-
 // swizzled shared memory, the matching wgmma shared-memory descriptor, the
-// warpgroup products (and the fp32 kernels' 6-pass products over bf16
-// planes), A fragments by ldmatrix, register hand-off between warpgroups,
+// warpgroup products (and the fp32 kernels' 6-pass and 3-pass products
+// over bf16 planes), A fragments by ldmatrix, each kernel's shared-memory
+// attribute set once per device, register hand-off between warpgroups,
 // and the host-side tensor map of a bf16 [depth, rows, cols] array.
 //
 // The swizzle pairing, in one place. A tile row is 64 bf16 = 128 bytes.
@@ -29,6 +30,10 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
+#include <set>
+#include <utility>
 
 namespace aaclip {
 
@@ -385,19 +390,23 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
-// ---------------------------------------------------------------- 6-pass
-// The fp32 attention kernels' products at precision "highest" (the TPU's
-// native 6-pass form; mma_common.cuh, split3): each operand is three bf16
-// planes hi, mid, lo (plane 0, 1, 2), and pass i (0-5) multiplies A's
-// plane pass_a(i) by B's plane pass_b(i), all into one fp32 accumulator
-// whose first product overwrites it. The passes run smallest first,
-// mid.mid, hi.lo, lo.hi, hi.mid, mid.hi, and hi.hi last: the tensor
-// cores' fp32 accumulation truncates each product's sum to the
-// accumulator's precision, so the small passes, added while the
+// ---------------------------------------------------------------- split passes
+// The fp32 attention kernels' products over bf16 planes (mma_common.cuh,
+// split3 and split_pack). Precision "highest" (the TPU's native 6-pass
+// form): each operand is three planes hi, mid, lo (plane 0, 1, 2), and
+// pass i (0-5) multiplies A's plane pass_a(i) by B's plane pass_b(i), all
+// into one fp32 accumulator whose first product overwrites it. The passes
+// run smallest first, mid.mid, hi.lo, lo.hi, hi.mid, mid.hi, and hi.hi
+// last: the tensor cores' fp32 accumulation truncates each product's sum
+// to the accumulator's precision, so the small passes, added while the
 // accumulator is still about 2^-8 of its final size, cost next to nothing,
 // and only hi.hi's four k-steps truncate at full size (adding hi.hi first
 // left the kernels further from fp64 than chip_smoke.py's bar allows).
-constexpr int kPlanes = 3;
+// Precision "high" (_kdot's 3-pass form, XLA's F32_AS_3BF16): two planes
+// hi and lo, where lo = bf16(x - hi) is exactly the 6-pass split's mid, so
+// its products hi.lo, lo.hi and hi.hi are passes 3, 4 and 5 of the same
+// table, in the same smallest-first order. kP is the number of planes.
+constexpr int kPlanes = 3;  // the 6-pass route's planes
 
 __host__ __device__ constexpr int pass_a(int i) {
   return i == 0 || i == 4 ? 1 : i == 2 ? 2 : 0;
@@ -407,40 +416,53 @@ __host__ __device__ constexpr int pass_b(int i) {
   return i == 0 || i == 3 ? 1 : i == 1 ? 2 : 0;
 }
 
-// d = A . B^T over one 64-column (128-byte) tile row in six passes: A and
-// B both K-major from shared memory, A's planes `a_plane` bytes apart,
-// B's `b_plane` bytes apart.
-__device__ __forceinline__ void mma6_ss(float (&d)[32], uint64_t a,
-                                        int a_plane, uint64_t b,
-                                        int b_plane) {
+// The first pass over kP planes: 0 of six on three, 3 of three on two.
+template <int kP>
+__host__ __device__ constexpr int first_pass() {
+  static_assert(kP == 2 || kP == 3, "two or three bf16 planes");
+  return kP == 3 ? 0 : 3;
+}
+
+// d = A . B^T over one 64-column (128-byte) tile row in the passes of kP
+// planes: A and B both K-major from shared memory, A's planes `a_plane`
+// bytes apart, B's `b_plane` bytes apart.
+template <int kP>
+__device__ __forceinline__ void mma_planes_ss(float (&d)[32], uint64_t a,
+                                              int a_plane, uint64_t b,
+                                              int b_plane) {
+  constexpr int first = first_pass<kP>();
 #pragma unroll
-  for (int i = 0; i < 6; ++i)
+  for (int i = first; i < 6; ++i)
 #pragma unroll
     for (int ks = 0; ks < kTileCols / 16; ++ks)
       wgmma_ss_n64(d, desc_plus(a, pass_a(i) * a_plane + 32 * ks),
-                   desc_plus(b, pass_b(i) * b_plane + 32 * ks), i + ks);
+                   desc_plus(b, pass_b(i) * b_plane + 32 * ks),
+                   i - first + ks);
 }
 
-// d = A . B over a 64-deep reduction in six passes: A the register
-// fragments f[plane][k-step] of its three planes, B a [64 x 64] tile read
-// MN-major (its rows are the reduction), planes `b_plane` bytes apart.
-__device__ __forceinline__ void mma6_rs(float (&d)[32],
-                                        const uint32_t (&f)[kPlanes][4][4],
-                                        uint64_t b, int b_plane) {
+// d = A . B over a 64-deep reduction in the passes of kP planes: A the
+// register fragments f[plane][k-step] of its planes, B a [64 x 64] tile
+// read MN-major (its rows are the reduction), planes `b_plane` bytes apart.
+template <int kP>
+__device__ __forceinline__ void mma_planes_rs(float (&d)[32],
+                                              const uint32_t (&f)[kP][4][4],
+                                              uint64_t b, int b_plane) {
+  constexpr int first = first_pass<kP>();
 #pragma unroll
-  for (int i = 0; i < 6; ++i)
+  for (int i = first; i < 6; ++i)
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
       wgmma_rs_n64_mn(d, f[pass_a(i)][kk],
                       desc_plus(b, pass_b(i) * b_plane +
                                        16 * kRowBytes * kk),
-                      i + kk);
+                      i - first + kk);
 }
 
-// Keep all three planes' fragments alive up to here (fence_frags).
-__device__ __forceinline__ void fence_frags6(uint32_t (&f)[kPlanes][4][4]) {
+// Keep every plane's fragments alive up to here (fence_frags).
+template <int kP>
+__device__ __forceinline__ void fence_planes(uint32_t (&f)[kP][4][4]) {
 #pragma unroll
-  for (int p = 0; p < kPlanes; ++p) fence_frags(f[p]);
+  for (int p = 0; p < kP; ++p) fence_frags(f[p]);
 }
 
 // The m16k16 A fragments of mma.sync (and of a register-A wgmma) for one
@@ -489,6 +511,24 @@ inline EncodeTiledFn encode_tiled_fn() {
                : nullptr;
   }();
   return fn;
+}
+
+// A kernel's dynamic shared-memory limit, raised to `bytes` once per
+// device: the first launch on a device sets the attribute, later launches
+// find it set and skip cudaFuncSetAttribute.
+inline cudaError_t smem_attribute_once(const void* kernel, int bytes) {
+  static std::mutex mu;
+  static std::set<std::pair<const void*, int>> done;  // (kernel, device)
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const std::lock_guard<std::mutex> lock(mu);
+  if (done.count({kernel, device})) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess) done.insert({kernel, device});
+  return err;
 }
 
 // Tensor map of a bf16 array of `depth` blocks of `rows` rows of `cols`

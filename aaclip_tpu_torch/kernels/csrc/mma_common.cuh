@@ -144,18 +144,30 @@ __device__ __forceinline__ void split3_pack(float x0, float x1, uint32_t& hi,
   lo = pack_bf16(l0, l1);
 }
 
-// The A fragments of the three planes (f[plane][k-step]) of a [64 x 64]
-// fp32 wgmma accumulator: two adjacent 8-column groups form one 16-deep
-// k-step, as in the bf16 kernels' pack_frags.
-__device__ __forceinline__ void split3_frags(uint32_t (&f)[3][4][4],
-                                             const float (&v)[32]) {
+// Two fp32 values as the packed bf16 pairs of their kP planes, into
+// f[plane][k][r]: split3's hi, mid, lo (kP 3) or split_pack's hi, lo
+// (kP 2, whose lo is split3's mid bit for bit).
+template <int kP>
+__device__ __forceinline__ void split_frag(uint32_t (&f)[kP][4][4], int k,
+                                           int r, float x0, float x1) {
+  static_assert(kP == 2 || kP == 3, "two or three bf16 planes");
+  if constexpr (kP == 3)
+    split3_pack(x0, x1, f[0][k][r], f[1][k][r], f[2][k][r]);
+  else
+    split_pack(x0, x1, f[0][k][r], f[1][k][r]);
+}
+
+// The A fragments of the kP planes (f[plane][k-step]) of a [64 x 64] fp32
+// wgmma accumulator: two adjacent 8-column groups form one 16-deep k-step,
+// as in the bf16 kernels' pack_frags.
+template <int kP>
+__device__ __forceinline__ void split_frags(uint32_t (&f)[kP][4][4],
+                                            const float (&v)[32]) {
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     const int k = j >> 1, r = (j & 1) * 2;
-    split3_pack(v[4 * j + 0], v[4 * j + 1], f[0][k][r], f[1][k][r],
-                f[2][k][r]);
-    split3_pack(v[4 * j + 2], v[4 * j + 3], f[0][k][r + 1], f[1][k][r + 1],
-                f[2][k][r + 1]);
+    split_frag<kP>(f, k, r, v[4 * j + 0], v[4 * j + 1]);
+    split_frag<kP>(f, k, r + 1, v[4 * j + 2], v[4 * j + 3]);
   }
 }
 

@@ -41,8 +41,11 @@ products hi·hi + hi·lo + lo·hi of the operands' bf16 halves summed in fp32
 (XLA's F32_AS_3BF16), the softmax and P in fp32 and P split too, never
 rounded. On the card that mode is its own kernels (the ``*_3pass`` entry
 points of both sources: mma.sync bf16 tensor-core products from hi/lo
-tiles), counted in ``launches_3pass``. ``launches`` counts every launch.
-bf16 inputs ignore the precision, as ``_kernel_precision`` does.
+tiles at head dim 16; at head dim 64 the ``*_3pass_wgmma`` entry points,
+the 6-pass route's TMA + wgmma machinery on the two planes hi and lo that
+``split2`` writes, with three bf16 products per product), counted in
+``launches_3pass``. ``launches`` counts every launch. bf16 inputs ignore
+the precision, as ``_kernel_precision`` does.
 """
 
 from __future__ import annotations
@@ -57,7 +60,7 @@ from aaclip_tpu_torch.models.layers import _split_bf16, linear
 KERNEL_HEAD_DIMS = (16, 64)  # head dims the kernel is instantiated for
 # (dtype, head dim) pairs on the TMA + wgmma kernels (kTmaHeadDim of
 # attention_packed.cu and attention_packed_bwd.cu): bf16 directly, fp32 on
-# its bf16 planes (the 6-pass route) unless the 3-pass mode takes it;
+# its bf16 planes (three on the 6-pass route, two on the 3-pass one);
 # every other pair of (bf16, fp32) x KERNEL_HEAD_DIMS runs a retained
 # kernel.
 TMA_ROUTES = frozenset({(torch.bfloat16, 64), (torch.float32, 64)})
@@ -79,16 +82,24 @@ def _three_pass(dtype: torch.dtype, precision) -> bool:
 
 def kernel_route(dtype: torch.dtype, head_dim: int, precision) -> str:
     """The kernel a CUDA launch of ``dtype`` operands at ``head_dim`` runs
-    under ``precision``: "3pass" (fp32 under "high", mma.sync from hi/lo
-    tiles), "wgmma" (bf16 on ``TMA_ROUTES``), "6pass" (fp32 on
-    ``TMA_ROUTES``: TMA + wgmma on the ``split3`` planes), "mma" (bf16
-    otherwise) or "fma" (fp32 otherwise). Every wrapper launches by it."""
+    under ``precision``: "wgmma" (bf16 on ``TMA_ROUTES``), "6pass" (fp32 on
+    ``TMA_ROUTES``: TMA + wgmma on the ``split3`` planes), "3pass_wgmma"
+    (fp32 on ``TMA_ROUTES`` under "high": the same on the ``split2``
+    planes), "3pass" (fp32 otherwise under "high": mma.sync from hi/lo
+    tiles), "mma" (bf16 otherwise) or "fma" (fp32 otherwise). Every
+    wrapper launches by it."""
+    tma = (dtype, head_dim) in TMA_ROUTES
     if _three_pass(dtype, precision):
-        return "3pass"
+        return "3pass_wgmma" if tma else "3pass"
     bf16 = dtype == torch.bfloat16
-    if (dtype, head_dim) in TMA_ROUTES:
+    if tma:
         return "wgmma" if bf16 else "6pass"
     return "mma" if bf16 else "fma"
+
+
+# the routes whose kernels read bf16 tensor maps: of the operands
+# themselves (wgmma) or of their split planes (the others)
+MAP_ROUTES = ("wgmma", "6pass", "3pass_wgmma")
 
 
 def split3_plain(x: torch.Tensor) -> torch.Tensor:
@@ -103,50 +114,79 @@ def split3_plain(x: torch.Tensor) -> torch.Tensor:
     return torch.stack([hi, mid, (r - mid.float()).to(torch.bfloat16)])
 
 
+def split2_plain(x: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x`` as its two bf16 planes ``[2, *x.shape]``: hi = bf16(x),
+    lo = bf16(x - hi), ``models/layers.py::_split_bf16``'s halves and
+    planes 0 and 1 of ``split3_plain``. The 3-pass route's operand
+    staging: ``split2`` and the tests."""
+    return torch.stack(_split_bf16(x))
+
+
 @functools.cache
-def _split_kernel():
-    """``aaclip_split3`` of ``csrc/attention_packed.cu``."""
+def _split_kernel(planes: int):
+    """``aaclip_split3`` (three planes) or ``aaclip_split2`` (two) of
+    ``csrc/attention_packed.cu``."""
     import ctypes
 
     from aaclip_tpu_torch.kernels.build import load
 
-    split = load("attention_packed").aaclip_split3
+    split = getattr(load("attention_packed"), f"aaclip_split{planes}")
     ll, p = ctypes.c_longlong, ctypes.c_void_p
     split.argtypes = [p, p, ll, ll, p]  # x, planes, n, plane stride, stream
     split.restype = ctypes.c_int
     return split
 
 
+def _split_planes(wrapper, x: torch.Tensor, planes: int) -> torch.Tensor:
+    """The split kernel of ``planes`` planes on a CUDA ``x`` (contiguous,
+    16-byte aligned): the planes in one new tensor (plane stride
+    ``x.numel()`` rounded up to 8), written on the current stream, each
+    launch counted in ``wrapper.launches``."""
+    name = wrapper.__name__
+    if x.device.type != "cuda" or x.dtype != torch.float32:
+        raise ValueError(f"{name}: need an fp32 CUDA tensor, got {x.dtype} "
+                         f"on {x.device}")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(f"{name}: input must be contiguous and 16-byte "
+                         "aligned")
+    n = x.numel()
+    stride = -(-n // 8) * 8
+    out = torch.empty(planes, stride, dtype=torch.bfloat16, device=x.device)
+    if n:
+        with torch.cuda.device(x.device):
+            rc = _split_kernel(planes)(
+                x.data_ptr(), out.data_ptr(), n, stride,
+                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{name} kernel launch failed: CUDA error "
+                               f"{rc}")
+        wrapper.launches += 1
+    return out[:, :n].view(planes, *x.shape)
+
+
 def split3(x: torch.Tensor) -> torch.Tensor:
     """``split3_plain``'s planes ``[3, *x.shape]`` bf16 of an fp32 ``x``.
 
     CPU tensors take ``split3_plain``. A CUDA tensor must be contiguous
-    and 16-byte aligned; the split kernel writes the planes into one new
-    tensor (plane stride ``x.numel()`` rounded up to 8) on the current
-    stream, and ``split3.launches`` counts each launch."""
+    and 16-byte aligned; ``split3_kernel`` writes the planes into one new
+    tensor and ``split3.launches`` counts each launch."""
     if x.device.type == "cpu":
         return split3_plain(x)
-    if x.device.type != "cuda" or x.dtype != torch.float32:
-        raise ValueError(f"split3: need an fp32 CUDA tensor, got {x.dtype} "
-                         f"on {x.device}")
-    if not x.is_contiguous() or x.data_ptr() % 16:
-        raise ValueError("split3: input must be contiguous and 16-byte "
-                         "aligned")
-    n = x.numel()
-    stride = -(-n // 8) * 8
-    planes = torch.empty(3, stride, dtype=torch.bfloat16, device=x.device)
-    if n:
-        with torch.cuda.device(x.device):
-            rc = _split_kernel()(x.data_ptr(), planes.data_ptr(), n, stride,
-                                 torch.cuda.current_stream().cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"split3 kernel launch failed: CUDA error "
-                               f"{rc}")
-        split3.launches += 1
-    return planes[:, :n].view(3, *x.shape)
+    return _split_planes(split3, x, 3)
 
 
-split3.launches = 0
+def split2(x: torch.Tensor) -> torch.Tensor:
+    """``split2_plain``'s planes ``[2, *x.shape]`` bf16 of an fp32 ``x``.
+
+    CPU tensors take ``split2_plain``. A CUDA tensor must be contiguous
+    and 16-byte aligned; ``split2_kernel`` writes the planes into one new
+    tensor and ``split2.launches`` counts each launch."""
+    if x.device.type == "cpu":
+        return split2_plain(x)
+    return _split_planes(split2, x, 2)
+
+
+split3.launches = split2.launches = 0
 
 
 def _kdot(a: torch.Tensor, b: torch.Tensor, three_pass: bool) -> torch.Tensor:
@@ -297,11 +337,11 @@ def _check_cuda(name: str, x: torch.Tensor, num_heads: int,
         raise ValueError(f"{name}: need batch >= 1 and 1 <= valid_len <= S,"
                          f" got B={B}, valid_len={valid_len}, S={S}")
     route = kernel_route(x.dtype, hd, precision)
-    # the tensor maps read bf16: x itself on the wgmma route, its split3
-    # planes on the 6-pass route (a new tensor, whose planes are aligned
+    # the tensor maps read bf16: x itself on the wgmma route, its split
+    # planes on the plane routes (a new tensor, whose planes are aligned
     # when the row stride is)
     base = x.data_ptr() if route == "wgmma" else 0
-    if route in ("wgmma", "6pass") and _tma_misaligned(
+    if route in MAP_ROUTES and _tma_misaligned(
             x.shape[-1] * 2, *(base + o * 2 for o in split[-1])):
         raise ValueError(f"{name}: a section start or the row stride is not "
                          f"a multiple of {TMA_ALIGN} bytes (TMA)")
@@ -417,12 +457,48 @@ def _kernels_3pass():
     return fwd, bhsd, bwd
 
 
+@functools.cache
+def _kernels_3pass_wgmma():
+    """The 3-pass entry points at head dim 64 (fp32 under "high" on the
+    ``split2`` planes), built on first use: ``(packed forward, [B, H, S,
+    hd] forward, packed backward)``, with the 6-pass entries' signatures."""
+    import ctypes
+
+    from aaclip_tpu_torch.kernels.build import load
+
+    i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+    fwd = load("attention_packed").aaclip_attention_packed_3pass_wgmma
+    # planes, out, lse, head_dim, batch, seq, valid_len, heads, ld, q_off,
+    # k_off, v_off, out_ld, scale, stream
+    fwd.argtypes = [p, p, p, i, i, i, i, i, ll, i, i, i, ll,
+                    ctypes.c_float, p]
+    bhsd = load("attention_packed").aaclip_attention_bhsd_3pass_wgmma
+    # q planes, k planes, v planes, out, head_dim, batch, seq, valid_len,
+    # heads, scale, stream
+    bhsd.argtypes = [p, p, p, p, i, i, i, i, i, ctypes.c_float, p]
+    bwd = load("attention_packed_bwd").aaclip_attention_packed_bwd_3pass_wgmma
+    # qkv planes, d_out planes, lse, dsum, d_qkv, head_dim, batch, seq,
+    # valid_len, heads, ld, q_off, k_off, v_off, do_ld, scale, stream
+    bwd.argtypes = [p, p, p, p, p, i, i, i, i, i, ll, i, i, i, ll,
+                    ctypes.c_float, p]
+    for fn in (fwd, bhsd, bwd):
+        fn.restype = i
+    return fwd, bhsd, bwd
+
+
+def _planes(route: str, x: torch.Tensor) -> torch.Tensor:
+    """The split planes a plane route's kernels read: ``split3``'s on the
+    6-pass route, ``split2``'s on the 3-pass one."""
+    return split3(x) if route == "6pass" else split2(x)
+
+
 def _count(wrapper, route: str) -> None:
     """One launch of ``wrapper``'s kernel on ``route``: ``launches``
     counts every launch, ``launches_3pass`` and ``launches_6pass`` those
-    of the two fp32 tensor-core modes."""
+    of the two fp32 tensor-core modes (the 3-pass mode on either of its
+    routes)."""
     wrapper.launches += 1
-    wrapper.launches_3pass += int(route == "3pass")
+    wrapper.launches_3pass += int(route in ("3pass", "3pass_wgmma"))
     wrapper.launches_6pass += int(route == "6pass")
 
 
@@ -445,10 +521,12 @@ def _launch_forward(name: str, x: torch.Tensor, num_heads: int,
         if route == "3pass":
             rc = _kernels_3pass()[0](x.data_ptr(), out.data_ptr(), lse_ptr,
                                      *args)
-        elif route == "6pass":
-            planes = split3(x)  # held until the launch is queued
-            rc = _kernels_6pass()[0](planes.data_ptr(), out.data_ptr(),
-                                     lse_ptr, *args)
+        elif route in ("6pass", "3pass_wgmma"):
+            planes = _planes(route, x)  # held until the launch is queued
+            kernels = (_kernels_6pass() if route == "6pass"
+                       else _kernels_3pass_wgmma())
+            rc = kernels[0](planes.data_ptr(), out.data_ptr(), lse_ptr,
+                            *args)
         else:
             rc = _kernel()(x.data_ptr(), out.data_ptr(), lse_ptr,
                            int(x.dtype == torch.bfloat16), *args)
@@ -465,9 +543,9 @@ def attention_packed(qkv: torch.Tensor, num_heads: int, valid_len: int, *,
     contiguous bf16 or fp32 with a head dim in ``KERNEL_HEAD_DIMS``; the
     kernel of ``kernel_route`` is launched on the current stream and
     ``attention_packed.launches`` counts each launch (``launches_3pass``
-    those of the 3-pass mode, fp32 under "high"; ``launches_6pass`` those
-    of the 6-pass route, fp32 at head dim 64 otherwise, each after one
-    ``split3`` launch). ``return_lse=True`` (CUDA only) also returns each
+    those of the 3-pass mode, fp32 under "high", at head dim 64 each after
+    one ``split2`` launch; ``launches_6pass`` those of the 6-pass route,
+    fp32 at head dim 64 otherwise, each after one ``split3`` launch). ``return_lse=True`` (CUDA only) also returns each
     row's logsumexp [B, H, S] fp32, which the backward kernel reads."""
     if qkv.device.type == "cpu" and not return_lse:
         return attention_packed_plain(qkv, num_heads, valid_len,
@@ -516,8 +594,9 @@ def attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CPU tensors take ``attention_kernel_plain``. On CUDA tensors the
     forward kernel of ``attention_packed``'s ``kernel_route`` is launched
     with this layout's strides (contiguous operands of one shape, dtype
-    and device, a head dim in ``KERNEL_HEAD_DIMS``; on the 6-pass route
-    each operand's ``split3`` planes); ``attention_kernel.launches`` (and
+    and device, a head dim in ``KERNEL_HEAD_DIMS``; on the 6-pass and
+    3-pass routes at head dim 64 each operand's ``split3`` or ``split2``
+    planes); ``attention_kernel.launches`` (and
     ``launches_3pass``, ``launches_6pass``) count its launches."""
     if q.device.type == "cpu":
         return attention_kernel_plain(q, k, v, valid_len,
@@ -539,10 +618,10 @@ def attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"attention_kernel: head dim {hd} has no kernel "
                          f"instantiation (have {KERNEL_HEAD_DIMS})")
     route = kernel_route(q.dtype, hd, precision)
-    # the wgmma route maps q, k, v themselves; the 6-pass route their new
-    # split3 planes, aligned when the row stride is
+    # the wgmma route maps q, k, v themselves; the plane routes their new
+    # split planes, aligned when the row stride is
     bases = ([t.data_ptr() for t in (q, k, v)] if route == "wgmma" else [])
-    if route in ("wgmma", "6pass") and _tma_misaligned(hd * 2, *bases):
+    if route in MAP_ROUTES and _tma_misaligned(hd * 2, *bases):
         raise ValueError(f"attention_kernel: a start or the row stride is "
                          f"not a multiple of {TMA_ALIGN} bytes (TMA)")
     if B < 1 or H < 1 or not 1 <= valid_len <= S:
@@ -553,10 +632,12 @@ def attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         args = (hd, B, S, valid_len, H, hd ** -0.5, stream)
-        if route == "6pass":
-            planes = [split3(t) for t in (q, k, v)]
-            rc = _kernels_6pass()[1](*(t.data_ptr() for t in planes),
-                                     out.data_ptr(), *args)
+        if route in ("6pass", "3pass_wgmma"):
+            planes = [_planes(route, t) for t in (q, k, v)]
+            kernels = (_kernels_6pass() if route == "6pass"
+                       else _kernels_3pass_wgmma())
+            rc = kernels[1](*(t.data_ptr() for t in planes), out.data_ptr(),
+                            *args)
         else:
             ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
             if route == "3pass":
@@ -583,7 +664,8 @@ def attention_packed_bwd(qkv: torch.Tensor, d_out: torch.Tensor,
     CPU tensors take ``attention_packed_bwd_plain`` (``lse`` unused). On
     CUDA tensors the backward kernel of ``kernel_route`` (the 3-pass mode,
     fp32 under "high", takes the 3-pass forward's ``lse``; the 6-pass
-    route launches ``split3`` on qkv and on d_out first) is launched on the
+    route launches ``split3`` on qkv and on d_out first, the 3-pass route
+    at head dim 64 ``split2``) is launched on the
     current stream and ``attention_packed_bwd.launches`` (and
     ``launches_3pass``, ``launches_6pass``) count each call (one call
     launches the kernel's two passes)."""
@@ -597,8 +679,8 @@ def attention_packed_bwd(qkv: torch.Tensor, d_out: torch.Tensor,
     if d_out.shape != (B, S, dm) or d_out.device != qkv.device:
         raise ValueError(f"attention_packed_bwd: d_out {tuple(d_out.shape)} "
                          f"on {d_out.device} does not match qkv")
-    # d_out's tensor map reads it (wgmma) or its new split3 planes (6-pass)
-    if route in ("wgmma", "6pass") and _tma_misaligned(
+    # d_out's tensor map reads it (wgmma) or its new split planes
+    if route in MAP_ROUTES and _tma_misaligned(
             d_out.data_ptr() if route == "wgmma" else 0, dm * 2):
         raise ValueError(f"attention_packed_bwd: d_out's start or row "
                          f"stride is not a multiple of {TMA_ALIGN} bytes "
@@ -615,12 +697,13 @@ def attention_packed_bwd(qkv: torch.Tensor, d_out: torch.Tensor,
         args = (hd, B, S, valid_len, num_heads, 3 * dm, q_off, k_off, v_off,
                 dm, scale, stream)
         rest = (lse.data_ptr(), dsum.data_ptr(), d_qkv.data_ptr())
-        if route == "6pass":
+        if route in ("6pass", "3pass_wgmma"):
             # both held until the launch is queued: a freed qkv split could
             # be handed to d_out's and overwritten before the kernel runs
-            planes = (split3(qkv), split3(d_out))
-            rc = _kernels_6pass()[2](*(t.data_ptr() for t in planes), *rest,
-                                     *args)
+            planes = (_planes(route, qkv), _planes(route, d_out))
+            kernels = (_kernels_6pass() if route == "6pass"
+                       else _kernels_3pass_wgmma())
+            rc = kernels[2](*(t.data_ptr() for t in planes), *rest, *args)
         elif route == "3pass":
             rc = _kernels_3pass()[2](qkv.data_ptr(), d_out.data_ptr(), *rest,
                                      *args)

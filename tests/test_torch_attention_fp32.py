@@ -230,7 +230,7 @@ def test_six_pass_attention_matches_pallas_interpret(valid_len, direction):
 @pytest.mark.parametrize("dtype,head_dim,precision,route", [
     (torch.float32, 64, "highest", "6pass"),
     (torch.float32, 64, None, "6pass"),
-    (torch.float32, 64, "high", "3pass"),
+    (torch.float32, 64, "high", "3pass_wgmma"),
     (torch.float32, 16, "highest", "fma"),
     (torch.float32, 16, None, "fma"),
     (torch.float32, 16, "high", "3pass"),
@@ -252,8 +252,10 @@ def test_every_wrapper_launches_by_the_route():
     for fn in (A._launch_forward, A.attention_kernel,
                A.attention_packed_bwd):
         src = inspect.getsource(fn)
-        assert '"6pass"' in src and "split3(" in src
+        assert '"6pass"' in src and "_planes(route, " in src
         assert "_kernels_6pass()" in src
+    planes = inspect.getsource(A._planes)
+    assert '"6pass"' in planes and "split3(" in planes
 
 
 @pytest.mark.parametrize("route,counts", [

@@ -509,8 +509,9 @@ def test_fp32_high_fused_block_raises_naming_b8(monkeypatch):
 def test_fp32_high_entry_points_match_the_c_signatures(source, entry,
                                                        loader, n_params):
     """``_kernels_3pass`` declares one ctypes argument per parameter of
-    each 3-pass C entry point, and each entry takes head dims 16 and 64
-    (``KERNEL_HEAD_DIMS``) in fp32."""
+    each 3-pass C entry point, and each entry takes head dim 16 in fp32 on
+    its mma.sync kernels; ``KERNEL_HEAD_DIMS``' other, 64, has an entry of
+    its own (``<entry>_wgmma``, TMA + wgmma on the split planes)."""
     import inspect
     import re
 
@@ -524,9 +525,8 @@ def test_fp32_high_entry_points_match_the_c_signatures(source, entry,
                          code).group(1)
     assert len(argtypes.split(",")) == len(sig.split(",")) == n_params
     assert A.KERNEL_HEAD_DIMS == (16, 64)
-    for hd in A.KERNEL_HEAD_DIMS:
-        assert (f"head_dim == {hd}" in src and
-                (f"<{hd}><<<" in src or f"launch_3pass<{hd}>" in src))
+    assert "<16><<<" in src and "<64><<<" not in src
+    assert f'extern "C" int {entry}_wgmma(' in src
 
 
 def test_fp32_high_mode_is_fp32_under_high_only():
