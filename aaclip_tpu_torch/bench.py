@@ -8,9 +8,10 @@ against the fused block.
     python -m aaclip_tpu_torch.bench [--batch_size 32] [--precision bf16]
     python -m aaclip_tpu_torch.bench --precision fp32_high [--bf16_until K]
     python -m aaclip_tpu_torch.bench --mode train [--batch_size 8] \
-        [--remat full|off]
+        [--remat full|selective|off]
     python -m aaclip_tpu_torch.bench --mode train_stage1 [--batch_size 16] \
-        [--vv_mode batch|spatial] [--feature_chunk N] [--remat full|off]
+        [--vv_mode batch|spatial] [--feature_chunk N] \
+        [--remat full|selective|off]
     python -m aaclip_tpu_torch.bench --mode block [--batch_size 32]
 
 Prints ONE JSON line in the format of the repo's ``bench.py``:
@@ -51,6 +52,9 @@ _PROFILE_CLASSES = (
       "mlp_f32_kernel")),
     ("GEMM (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass")),
 )
+
+# --remat -> the steps' ``remat`` (the JAX bench's mapping)
+REMAT = {"full": True, "selective": "selective", "off": False}
 
 
 def profile_calls(fn, calls: int) -> None:
@@ -110,7 +114,7 @@ def bench_train(args, cfg, acfg, policy, vit, adapter, dev):
     table = table / table.norm(dim=1, keepdim=True)
     step = make_stage2_step(vit, cfg, acfg,
                             make_image_optimizer(adapter.parameters()), table,
-                            policy=policy, remat=args.remat == "full",
+                            policy=policy, remat=REMAT[args.remat],
                             device=dev)
 
     def call():
@@ -166,7 +170,7 @@ def bench_train_stage1(args, cfg, acfg, policy, vit, dev):
     step = make_stage1_step(text, cfg, acfg,
                             make_text_optimizer(adapter.parameters()), tokens,
                             img_size=img, policy=policy,
-                            remat=args.remat == "full", device=dev)
+                            remat=REMAT[args.remat], device=dev)
 
     def call():
         # the production loop passes valid (train.py)
@@ -289,9 +293,10 @@ def main(argv=None) -> None:
                         help="after the timed loop, trace two more calls "
                              "with torch.profiler and print device time by "
                              "op to stderr")
-    parser.add_argument("--remat", default="full", choices=("full", "off"),
+    parser.add_argument("--remat", default="full", choices=tuple(REMAT),
                         help="train modes: checkpoint each block (default "
-                             "full, as the JAX package's bench)")
+                             "full, as the JAX package's bench), keep "
+                             "JAX's selective set, or keep everything")
     parser.add_argument("--vv_mode", default="batch",
                         choices=("batch", "spatial"),
                         help="train_stage1: 'batch' = the reference-exact "

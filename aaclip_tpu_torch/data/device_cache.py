@@ -17,13 +17,17 @@ vector.
   sample repeated, ``valid`` marking the real ones).
 * Each batch's draws come from ``ops/augment.py::augment_generator(
   aug_seed, stage, epoch, it)``, the host path's device-augment stream.
+* ``make_fused_step`` (``--fused_assemble``, the JAX package's fold of
+  batch k+1's assembly into step k's program) assembles the next batch on
+  a second CUDA stream while the step runs; each batch keeps its own
+  generator, so the numbers are the unfused loop's.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
 import os
-from typing import Iterator, Tuple
+from typing import Callable, Iterator, List, Tuple
 
 import numpy as np
 import torch
@@ -109,17 +113,67 @@ class DeviceCacheLoader:
         return (normalize_valid(im, valid), mk.float() * valid.float(),
                 self._labels[i], self._cidx[i])
 
-    def __iter__(self) -> Iterator[Tuple[torch.Tensor, ...]]:
+    def epoch_plan(self) -> List[Tuple[np.ndarray, torch.Generator,
+                                       torch.Tensor]]:
+        """The current epoch's per-step inputs, ``[(idx [B], generator,
+        valid [B]), ...]``: the shuffled indices padded by the last one,
+        each batch's own draws and its validity mask, as ``__iter__``
+        assembles them; ``make_fused_step``'s loop reads batch k+1's
+        during step k."""
         stage = 1 if self.text_stage else 2
-        epoch = self.epoch
         B = self.batch_size
+        plan = []
+        for it, (b, n_valid) in enumerate(self._plan.batches()):
+            b = np.concatenate([b, np.repeat(b[-1:], B - b.size)])
+            gen = augment_generator(self.aug_seed, stage, self.epoch, it,
+                                    self.device)
+            valid = (torch.arange(B, device=self.device) < n_valid).float()
+            plan.append((b, gen, valid))
+        return plan
+
+    def advance_epoch(self) -> None:
+        self.epoch += 1
+
+    def __iter__(self) -> Iterator[Tuple[torch.Tensor, ...]]:
         try:
-            for it, (b, n_valid) in enumerate(self._plan.batches()):
-                b = np.concatenate([b, np.repeat(b[-1:], B - b.size)])
-                gen = augment_generator(self.aug_seed, stage, epoch, it,
-                                        self.device)
-                valid = (torch.arange(B, device=self.device)
-                         < n_valid).float()
+            for b, gen, valid in self.epoch_plan():
                 yield (*self.assemble(b, gen), valid)
         finally:
-            self.epoch = epoch + 1
+            self.advance_epoch()
+
+    def make_fused_step(self, step: Callable) -> Callable:
+        """``fused(adapter, images, mask, label, class_idx, valid, next_idx,
+        next_gen) -> (loss, next_batch)``: ``step`` (``make_stage2_step``'s)
+        on one assembled batch, and the assembly of the next,
+        ``self.assemble(next_idx, next_gen)``.
+
+        On the card the assembly runs on a second CUDA stream, so its
+        gathers and augment fill the gaps of the step's many small kernels
+        (the JAX package puts both in one XLA program for the same
+        reason): the side stream first waits for the work queued before
+        the step (an event on the current stream), takes the assembly, and
+        the current stream then waits for it before anything queued after
+        the step, such as the next step, can read the batch; the batch's
+        buffers are recorded on the current stream, so the allocator does
+        not hand them out again while a step may still read them. On the
+        CPU the two run in sequence. Each batch draws from its own
+        generator, so the numbers are those of the unfused loop."""
+        dev = self.device
+        side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+
+        def fused(adapter, images, mask, label, class_idx, valid, next_idx,
+                  next_gen):
+            if side is None:
+                loss = step(adapter, images, mask, label, class_idx, valid)
+                return loss, self.assemble(next_idx, next_gen)
+            current = torch.cuda.current_stream(dev)
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                nbatch = self.assemble(next_idx, next_gen)
+            loss = step(adapter, images, mask, label, class_idx, valid)
+            current.wait_stream(side)
+            for t in nbatch:
+                t.record_stream(current)
+            return loss, nbatch
+
+        return fused

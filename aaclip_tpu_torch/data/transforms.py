@@ -13,8 +13,15 @@
   p 0.5), horizontal and vertical flips (p 0.5), nearest resampling, zero
   fill.
 
-Decoding and resizing are ``data/image.py``'s and the colour jitter is
-Pillow's ``ImageEnhance`` chain in numpy, so a PNG dataset needs no PIL.
+Test-time decoding and resizing (``load_rgb_chw``, and the masks of
+both stages) go through the host library (``native/image.py``: libpng,
+libjpeg and Pillow's resamplers in C++) when it is built, else, and for a
+file it leaves to Python, through ``data/image.py`` (numpy for PNG, PIL
+for other formats); both give Pillow's pixels, and ``DECODE_COUNTS``
+counts the images each took. Training images are decoded by
+``data/image.py`` (the colour jitter runs before the resize). The colour
+jitter is Pillow's ``ImageEnhance`` chain in numpy, so a PNG dataset
+needs no PIL.
 The draws come from an explicit numpy Generator in the JAX package's
 order, so a sample's pixels depend only on (seed, epoch, index, stage).
 """
@@ -22,12 +29,28 @@ order, so a sample's pixels depend only on (seed, epoch, index, stage).
 from __future__ import annotations
 
 import math
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
 
 from aaclip_tpu_torch.data import image
+from aaclip_tpu_torch.native import image as native_image
 from aaclip_tpu_torch.ops.preprocess import CLIP_MEAN, CLIP_STD
+
+# {"native" or "fallback": images and masks decoded that way}, for the
+# evaluation CLI's log (the loader's threads add to it)
+DECODE_COUNTS = {"native": 0, "fallback": 0}
+_counts_lock = threading.Lock()
+
+
+def _counted(native_result, fallback):
+    """``native_result``, or ``fallback()`` where it is None; counted in
+    ``DECODE_COUNTS``."""
+    path = "fallback" if native_result is None else "native"
+    with _counts_lock:
+        DECODE_COUNTS[path] += 1
+    return fallback() if native_result is None else native_result
 
 
 def to_uint8_chw(img: np.ndarray) -> np.ndarray:
@@ -44,15 +67,19 @@ def normalize_uint8_chw(chw: np.ndarray) -> np.ndarray:
 
 def load_rgb_chw(path: str, size: int, uint8: bool = False) -> np.ndarray:
     """Decode + bicubic resize -> [3, size, size], uint8 or normalised
-    float32."""
-    chw = to_uint8_chw(image.resize_bicubic(image.load_rgb(path), size))
+    float32: the host library's, else ``data/image.py``'s (the same
+    pixels)."""
+    chw = _counted(native_image.load_rgb_resize_chw(path, size),
+                   lambda: to_uint8_chw(image.resize_bicubic(
+                       image.load_rgb(path), size)))
     return chw if uint8 else normalize_uint8_chw(chw)
 
 
 def load_mask_binarized(path: str, size: int) -> np.ndarray:
     """Decode as gray + nearest resize + binarise -> float32 [1, size,
-    size]."""
-    m = image.resize_nearest(image.load_gray(path), size)
+    size], through the host library or ``data/image.py``."""
+    m = _counted(native_image.load_gray_resize_nearest(path, size),
+                 lambda: image.resize_nearest(image.load_gray(path), size))
     return (m != 0).astype(np.float32)[None]
 
 

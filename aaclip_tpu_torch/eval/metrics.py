@@ -1,9 +1,13 @@
 """Evaluation metrics: pixel and image AUROC and AP with the reference's
 min-max normalisation and domain-dependent image score
 (forward_utils.py:233-280), plus AUPRO (the area under the per-region
-overlap curve, MVTec-AD protocol), in numpy: the JAX package's numpy path
-(``aaclip_tpu/eval/metrics.py``), equal to sklearn's
-``roc_auc_score`` / ``average_precision_score``.
+overlap curve, MVTec-AD protocol), as the JAX package's
+``aaclip_tpu/eval/metrics.py`` computes them: AUROC/AP and AUPRO's region
+labelling through the host library (``native/fast_metrics.cc``: a
+parallel sort, then one pass over the distinct score cuts; 4-connected
+labelling) when it is built, else in numpy and ``scipy.ndimage.label``.
+Both paths equal sklearn's ``roc_auc_score`` /
+``average_precision_score``; ``native.metrics_path()`` says which runs.
 """
 
 from __future__ import annotations
@@ -11,6 +15,8 @@ from __future__ import annotations
 from typing import Dict
 
 import numpy as np
+
+from aaclip_tpu_torch import native
 
 _trapezoid = getattr(np, "trapezoid", None) or np.trapz  # numpy < 2
 
@@ -31,6 +37,16 @@ def _binary_clf_curve(labels: np.ndarray, scores: np.ndarray):
 
 
 def auroc_ap(labels: np.ndarray, scores: np.ndarray) -> tuple[float, float]:
+    """(ROC AUC, AP): the host library's when it is built (NaN for both
+    when only one class is present), else ``auroc_ap_numpy``."""
+    res = native.auroc_ap(labels, scores)
+    if res is not None:
+        return res
+    return auroc_ap_numpy(labels, scores)
+
+
+def auroc_ap_numpy(labels: np.ndarray, scores: np.ndarray
+                   ) -> tuple[float, float]:
     """(ROC AUC, AP) from one curve: AUC by trapezoidal integration (==
     sklearn.roc_auc_score), AP = sum (R_i - R_{i-1}) P_i (==
     sklearn.average_precision_score); NaN where undefined."""
@@ -47,20 +63,30 @@ def auroc_ap(labels: np.ndarray, scores: np.ndarray) -> tuple[float, float]:
     return auc, ap
 
 
+def label_components(mask: np.ndarray) -> tuple[np.ndarray, int]:
+    """(labels [H, W], count) of the 4-connected components of ``mask``:
+    the host library's, else ``scipy.ndimage.label``'s (the same
+    numbering)."""
+    res = native.label_components(mask)
+    if res is not None:
+        return res
+    from scipy import ndimage
+
+    return ndimage.label(mask)
+
+
 def aupro(masks: np.ndarray, preds: np.ndarray,
           fpr_limit: float = 0.3) -> float:
     """Area under the per-region-overlap curve up to ``fpr_limit``,
     normalised to [0, 1]; NaN without anomalous or without normal pixels.
 
     masks: [N, H, W] binary ground truth; preds: [N, H, W] scores. Regions
-    are 4-connected components (``scipy.ndimage.label``). Exact over every
+    are 4-connected components (``label_components``). Exact over every
     distinct score: sorting all pixels by score, each negative pixel adds
     1/n_neg to the FPR and each pixel of region r adds 1/(|r| n_regions)
     to the PRO; the cumulative sums at the last pixel of each distinct
     score give the curve of the ``>= t`` binarisation, integrated by
     trapezoids to ``fpr_limit`` (interpolated at the limit)."""
-    from scipy import ndimage
-
     masks = masks.reshape(masks.shape[0], *masks.shape[-2:]).astype(bool)
     preds = preds.reshape(preds.shape[0], *preds.shape[-2:]).astype(
         np.float64)
@@ -72,7 +98,7 @@ def aupro(masks: np.ndarray, preds: np.ndarray,
     for i in range(masks.shape[0]):
         if not masks[i].any():
             continue
-        lab, n = ndimage.label(masks[i])
+        lab, n = label_components(masks[i])
         lab_f = lab.ravel()
         sel = lab_f > 0
         labs_sel = lab_f[sel]

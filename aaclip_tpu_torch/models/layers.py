@@ -21,6 +21,7 @@ import functools
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from aaclip_tpu_torch.core.config import DtypePolicy
 
@@ -247,11 +248,12 @@ class ResidualBlock(nn.Module):
 
 def _attention(x: torch.Tensor, p: PackedAttention, num_heads: int, *,
                mask: torch.Tensor | None, vv: bool,
-               policy: DtypePolicy) -> torch.Tensor:
+               policy: DtypePolicy, project: bool = True) -> torch.Tensor:
     """The JAX package's XLA-path attention, ``layers.attention``: fp32
     scores from compute-dtype q and k, the additive ``mask``, fp32
     softmax, probabilities cast to the compute dtype before P.V, the
-    out-projection. ``vv`` projects only the value third and uses it as
+    out-projection (left out, and the fp32 heads' output returned, when
+    not ``project``). ``vv`` projects only the value third and uses it as
     q, k and v."""
     B, L, D = x.shape
     hd = D // num_heads
@@ -272,6 +274,8 @@ def _attention(x: torch.Tensor, p: PackedAttention, num_heads: int, *,
     probs = torch.softmax(scores, dim=-1)
     out = matmul(probs.to(cd), v.to(cd), prec)
     out = out.transpose(1, 2).reshape(B, L, D)
+    if not project:
+        return out
     out = linear(out, p.out_proj.weight, p.out_proj.bias, policy)
     return out.to(x.dtype)
 
@@ -395,6 +399,74 @@ def residual_block(x: torch.Tensor, blk: ResidualBlock, num_heads: int, *,
     x = x + override(h, blk.attn)
     h = layer_norm(x, blk.ln_2.weight, blk.ln_2.bias)
     return x + mlp(h, blk.mlp, act, policy)
+
+
+def residual_block_selective(x: torch.Tensor, blk: ResidualBlock,
+                             num_heads: int, *,
+                             mask: torch.Tensor | None = None, act=gelu,
+                             policy: DtypePolicy = DtypePolicy(),
+                             attn_fn=None, tail=None) -> torch.Tensor:
+    """``residual_block`` (standard form, then ``tail``, the adapter blend,
+    when given) with a backward that keeps what the JAX package's selective
+    remat keeps (``save_only_these_names("attn_out", "attn_qkv",
+    "mlp_fc")``) and recomputes the rest: the same values, less memory than
+    no remat, and, unlike full remat, no second attention forward.
+
+    The block runs as checkpoint regions (``torch.utils.checkpoint``, each
+    keeping only its inputs) bounded by the kept tensors, with the
+    products between them outside any region: a product with a frozen
+    weight keeps no activation. Per block the backward keeps
+     * ``x``, the input of the ln_1 region;
+     * the attention's packed qkv (and on the card its fp32 logsumexp
+       [B, H, S]): the ``attn_fn`` hook runs outside any region, and its
+       differentiable attention (``ops.attention._PackedAttention``, the
+       default here) keeps them for its backward kernel, which never reruns
+       the forward;
+     * ``x + attn_out`` [B, S, D], the input of the ln_2 region;
+     * ``mlp_fc`` [B, S, 4D] fp32, the MLP's pre-activation, the input of
+       the activation region (with ``tail``: of the region activation ->
+       projection -> residual -> ``tail``, which recomputes the projection,
+       as JAX's must, since the adapter's gradient needs its input).
+    The attention's output before its out-projection is kept by nothing.
+    With a ``mask`` (the text tower, plain attention), JAX names no tensor
+    inside the attention, so ln_1 and the whole masked attention up to the
+    out-projection form one region, recomputed in the backward.
+
+    A tensor-op policy (``create_selective_checkpoint_contexts``) could not
+    do this: the kernels launch through ctypes inside an autograd
+    ``Function``, not as aten ops, so such a policy would rerun them."""
+    from aaclip_tpu_torch.ops.attention import make_attn_fn
+
+    def region(fn, *args):
+        return checkpoint(fn, *args, use_reentrant=False)
+
+    def ln_1(t):
+        return layer_norm(t, blk.ln_1.weight, blk.ln_1.bias)
+
+    p = blk.attn
+    if mask is not None:
+        if attn_fn is not None:
+            raise ValueError("attention hooks are unmasked; a masked block "
+                             "takes the default masked attention")
+        o = region(lambda t: _attention(ln_1(t), p, num_heads, mask=mask,
+                                        vv=False, policy=policy,
+                                        project=False), x)
+        a = linear(o, p.out_proj.weight, p.out_proj.bias, policy)
+    else:
+        if attn_fn is None:
+            attn_fn = make_attn_fn(num_heads, policy, differentiable=True)
+        a = attn_fn(region(ln_1, x), p)
+    x = x + a.to(x.dtype)
+    h = region(lambda t: layer_norm(t, blk.ln_2.weight, blk.ln_2.bias), x)
+    fc = linear(h, blk.mlp.c_fc.weight, blk.mlp.c_fc.bias, policy)
+
+    def proj(g, x):
+        y = linear(g, blk.mlp.c_proj.weight, blk.mlp.c_proj.bias, policy)
+        return x + y.to(x.dtype)
+
+    if tail is None:
+        return proj(region(act, fc), x)
+    return region(lambda f, x: tail(proj(act(f), x)), fc, x)
 
 
 def norm_matched_blend(x: torch.Tensor, adapted: torch.Tensor,

@@ -17,6 +17,8 @@ kernel serves the text tower.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -65,11 +67,14 @@ def _trunk(text_w: TextTransformer, cfg: CLIPConfig, text: torch.Tensor, *,
     embedding is gathered in fp32 and cast to the compute dtype. The mask
     follows the input length Lt, not ``context_length``. ``remat=True``
     runs each block (with its blend) under ``torch.utils.checkpoint``, as
-    the JAX package wraps it in ``jax.checkpoint``."""
-    if remat == "selective":
-        raise NotImplementedError(
-            "selective remat (saving the named per-block tensors) is not "
-            "ported yet: ROADMAP A13, 'selective remat'")
+    the JAX package wraps it in ``jax.checkpoint``; ``remat="selective"``
+    runs it as ``L.residual_block_selective``, whose backward keeps each
+    block's input, ``x + attn_out`` and ``mlp_fc`` (the names JAX's text
+    tower carries: it names qkv only on the kernel path) and recomputes the
+    masked attention with the LayerNorms, activations and blends."""
+    if remat not in (False, True, "selective"):
+        raise ValueError(f"remat must be False, True or 'selective', got "
+                         f"{remat!r}")
     if act is None:
         act = L.config_act(cfg, policy)
     t = cfg.text
@@ -85,16 +90,22 @@ def _trunk(text_w: TextTransformer, cfg: CLIPConfig, text: torch.Tensor, *,
     x = x + text_w.positional_embedding[:Lt].to(x.dtype)
     mask = L.causal_mask(Lt, device=dev)
 
+    def blend(x, i):
+        a = L.simple_adapter(x, adapters.layer_adapters[i].weight, policy)
+        return L.norm_matched_blend(x, a, adapt_weight)
+
     def block(x, i):
         x = L.residual_block(x, text_w.blocks[i], t.heads, mask=mask,
                              act=act, policy=policy)
-        if i < n_adapt:
-            a = L.simple_adapter(x, adapters.layer_adapters[i].weight, policy)
-            x = L.norm_matched_blend(x, a, adapt_weight)
-        return x
+        return blend(x, i) if i < n_adapt else x
 
     for i in range(t.layers):
-        if remat and x.requires_grad:
+        if remat == "selective" and x.requires_grad:
+            x = L.residual_block_selective(
+                x, text_w.blocks[i], t.heads, mask=mask, act=act,
+                policy=policy,
+                tail=functools.partial(blend, i=i) if i < n_adapt else None)
+        elif remat and x.requires_grad:
             x = checkpoint(block, x, i, use_reentrant=False)
         else:
             x = block(x, i)

@@ -17,6 +17,7 @@ The patch embedding is a reshape and one matmul (ops/preprocess.py).
 
 from __future__ import annotations
 
+import functools
 from typing import List, Sequence, Tuple
 
 import torch
@@ -127,14 +128,22 @@ def trunk_taps(vit: VisionTransformer, cfg: CLIPConfig, images: torch.Tensor,
     ``remat=True`` runs each block (with its adapter blend) under
     ``torch.utils.checkpoint``, as the JAX package wraps each block in
     ``jax.checkpoint``: the backward recomputes the block instead of
-    keeping its activations. A block whose input carries no gradient (the
-    first; the trunk is frozen) is run plainly: it has nothing to
-    recompute for the backward, and its output is kept anyway as the next
-    block's saved input."""
-    if remat == "selective":
-        raise NotImplementedError(
-            "selective remat (saving the named per-block tensors) is not "
-            "ported yet: ROADMAP A13, 'selective remat'")
+    keeping its activations, the attention forward included.
+    ``remat="selective"`` (the JAX package's ``save_only_these_names(
+    "attn_out", "attn_qkv", "mlp_fc")``) runs each block as
+    ``L.residual_block_selective``: the backward keeps the block's input,
+    qkv, ``x + attn_out`` and ``mlp_fc`` and recomputes only LayerNorms,
+    activations, adds and the adapter blend; ``attn_fn`` None then means
+    the differentiable attention kernels. A block whose input carries no
+    gradient (the first; the trunk is frozen) is run plainly under either:
+    it has nothing to recompute for the backward, and its output is kept
+    anyway as the next block's saved input."""
+    if remat not in (False, True, "selective"):
+        raise ValueError(f"remat must be False, True or 'selective', got "
+                         f"{remat!r}")
+    if remat == "selective" and block_fn is not None:
+        raise ValueError("block_fn overrides are inference-only; selective "
+                         "remat runs the standard block")
     v = cfg.vision
     n_adapt = len(adapters.layer_adapters) if adapters is not None else 0
     if n_adapt > v.layers:
@@ -149,18 +158,29 @@ def trunk_taps(vit: VisionTransformer, cfg: CLIPConfig, images: torch.Tensor,
     stage_k = staged_depth(policy, v.layers)
     prefix = policy.prefix_policy() if stage_k else policy
 
+    def blend(x, i, pol):
+        a = L.simple_adapter(x, adapters.layer_adapters[i].weight, pol)
+        return L.norm_matched_blend(x, a, adapt_weight)
+
     def block(x, i):
         pol, hook = (prefix, None) if i < stage_k else (policy, attn_fn)
         x = L.residual_block(x, vit.blocks[i], v.heads, act=act, policy=pol,
                              attn_fn=hook, block_fn=block_fn)
-        if i < n_adapt:
-            a = L.simple_adapter(x, adapters.layer_adapters[i].weight, pol)
-            x = L.norm_matched_blend(x, a, adapt_weight)
-        return x
+        return blend(x, i, pol) if i < n_adapt else x
+
+    def selective_block(x, i):
+        pol, hook = (prefix, None) if i < stage_k else (policy, attn_fn)
+        tail = functools.partial(blend, i=i, pol=pol) if i < n_adapt \
+            else None
+        return L.residual_block_selective(x, vit.blocks[i], v.heads,
+                                          act=act, policy=pol, attn_fn=hook,
+                                          tail=tail)
 
     taps = {}
     for i in range(max(out_layers, default=0)):
-        if remat and x.requires_grad:
+        if remat == "selective" and x.requires_grad:
+            x = selective_block(x, i)
+        elif remat and x.requires_grad:
             x = checkpoint(block, x, i, use_reentrant=False)
         else:
             x = block(x, i)

@@ -10,7 +10,9 @@ AUROC and AP (and AUPRO under ``--aupro``) with its "Average" row, as a
 plain fixed-width table; ``--csv`` and ``--dump_scores`` write
 ``results_<epoch>.csv`` and ``scores_<epoch>.csv`` with the JAX CLI's
 headers. Needs neither PIL (for PNG datasets), pandas, scikit-learn nor
-cv2.
+cv2. The metrics and the decode run on the host library
+(``native/``) where it builds, else on their numpy paths; the log says
+which, once, and each class's ``metrics_eval`` seconds.
 
 The flags are the JAX CLI's; those of paths not ported yet raise at parse
 time naming their ROADMAP item. ``main(argv, device="cpu")`` runs on the
@@ -25,6 +27,7 @@ import dataclasses
 import glob
 import os
 import re
+import time
 
 # flags of paths the port does not have yet -> (ROADMAP item, its title)
 _A12 = ("A12", "int8, mesh and serving")
@@ -144,6 +147,7 @@ def _write_csv(path: str, header, rows) -> None:
 def main(argv=None, *, device=None):
     args = parse_args(argv)
 
+    from aaclip_tpu_torch import native
     from aaclip_tpu_torch.core.config import (AdapterConfig, DtypePolicy,
                                               get_config)
     from aaclip_tpu_torch.core.params import (adapter_from_jax,
@@ -155,6 +159,7 @@ def main(argv=None, *, device=None):
                                               text_adapter_to_jax)
     from aaclip_tpu_torch.data.datasets import BatchLoader, get_test_datasets
     from aaclip_tpu_torch.data.registry import DOMAINS
+    from aaclip_tpu_torch.data.transforms import DECODE_COUNTS
     from aaclip_tpu_torch.device import resolve_device
     from aaclip_tpu_torch.eval.metrics import metrics_eval
     from aaclip_tpu_torch.eval.predict import (make_anchor_encoder,
@@ -167,6 +172,7 @@ def main(argv=None, *, device=None):
     from aaclip_tpu_torch.utils.seed import setup_seed
 
     dev = resolve_device(device)
+    decoded_before = dict(DECODE_COUNTS)
     setup_seed(args.seed)
     os.makedirs(args.save_path, exist_ok=True)
     logger = setup_logger("aaclip.test",
@@ -256,8 +262,10 @@ def main(argv=None, *, device=None):
             timer.tick(len(file_names))
             score_rows += [(class_name, f, int(lab), float(sc)) for f, lab, sc
                            in zip(file_names, labels, preds_image)]
+            t0 = time.perf_counter()
             row = metrics_eval(masks, labels, preds, preds_image, class_name,
                                domain, compute_aupro=args.aupro)
+            logger.info("metrics_eval: %.3f s", time.perf_counter() - t0)
             rows.append([row[c] if c == "class name" else float(row[c])
                          for c in columns])
         if timer.rate():
@@ -289,6 +297,13 @@ def main(argv=None, *, device=None):
             test_epoch, tree, _ = ckpt.load_adapter_checkpoint_any(
                 file, image_template)
         eval_one(adapter_from_jax(tree, cfg, acfg, device=dev), test_epoch)
+    # which host paths produced the numbers: the native library or numpy
+    info = native.build_info()
+    logger.info("host paths: metrics %s (%s); decode native %d, fallback "
+                "%d images and masks (image library: %s)",
+                native.metrics_path(), info.get("fast_metrics"),
+                *(DECODE_COUNTS[k] - decoded_before[k]
+                  for k in ("native", "fallback")), info.get("fast_image"))
 
 
 if __name__ == "__main__":

@@ -14,14 +14,16 @@ The input path is the host's (``data/``: PNG decode, colour jitter and
 the geometric augment in numpy threads, no PIL for PNG sets), or with
 ``--device_augment`` the geometric augment on the card, and with
 ``--cache_device`` the whole raw set on the card, each batch assembled
-there (``data/device_cache.py``). The host waits for a loss only every
-``--loss_fetch_every`` steps; ``--profile_input`` logs where each epoch's
-host loop spent its time.
+there (``data/device_cache.py``); ``--fused_assemble`` then assembles
+batch k+1 on a second CUDA stream while step k runs. The host waits for a
+loss only every ``--loss_fetch_every`` steps; ``--profile_input`` logs
+where each epoch's host loop spent its time.
 
 The flags are the JAX CLI's; those of paths not ported yet raise at parse
-time naming their ROADMAP item. ``--remat auto`` is ``full`` until A13
-brings the selective form. ``main(argv, device="cpu")`` runs on the CPU
-(the tests); by default it runs on the card.
+time naming their ROADMAP item. ``--remat auto`` resolves as JAX's does
+(``resolve_remat``) and the log says to what. ``main(argv,
+device="cpu")`` runs on the CPU (the tests); by default it runs on the
+card.
 """
 
 from __future__ import annotations
@@ -34,8 +36,6 @@ import numpy as np
 # flags of paths the port does not have yet -> (ROADMAP item, its title)
 _A6 = ("A6", "the orbax checkpoint backend, JAX's own")
 _A12 = ("A12", "int8, mesh and serving")
-_A13 = ("A13", "selective remat")
-_A16 = ("A16", "assembly folded into the stage-2 step")
 
 
 def parse_args(argv=None):
@@ -105,7 +105,10 @@ def parse_args(argv=None):
                              "there (gather, colour jitter, normalise, "
                              "geometric augment); needs n_images * 4 * "
                              "img_size^2 bytes of device memory")
-    parser.add_argument("--fused_assemble", action="store_true")
+    parser.add_argument("--fused_assemble", action="store_true",
+                        help="with --cache_device: assemble stage 2's next "
+                             "batch on a second CUDA stream while the step "
+                             "runs (the same numbers)")
     parser.add_argument("--loss_fetch_every", type=int, default=8,
                         help="wait for a loss only every K steps (the rest "
                              "are read at epoch end); 1 waits every step")
@@ -123,7 +126,9 @@ def parse_args(argv=None):
     parser.add_argument("--remat", type=str, default="auto",
                         choices=["auto", "full", "selective", "off"],
                         help="rematerialisation of the blocks: 'auto' is "
-                             "'full' until selective remat is ported")
+                             "'selective' for the text tower, and for "
+                             "stage 2 'selective' on the card (the "
+                             "attention kernels) and 'full' on the CPU")
     args = parser.parse_args(argv)
     # the JAX CLI's flag rules (train.py:186-198)
     if args.fused_assemble and not args.cache_device:
@@ -138,20 +143,32 @@ def parse_args(argv=None):
                      "does not compose with data/tensor/pipeline "
                      "parallelism")
     unported = [
-        ("--remat selective", args.remat == "selective", _A13),
         ("--data_parallel", args.data_parallel, _A12),
         ("--tensor_parallel", args.tensor_parallel > 1, _A12),
         ("--sequence_parallel", args.sequence_parallel, _A12),
         ("--pipeline_parallel", args.pipeline_parallel > 1, _A12),
         ("--pp_microbatches", args.pp_microbatches is not None, _A12),
         ("--ckpt_backend orbax", args.ckpt_backend == "orbax", _A6),
-        ("--fused_assemble", args.fused_assemble, _A16),
     ]
     for flag, given, (item, title) in unported:
         if given:
             raise NotImplementedError(
                 f"{flag} is not ported yet: ROADMAP {item}, '{title}'")
     return args
+
+
+def resolve_remat(flag: str, stage: int, device) -> bool | str:
+    """The steps' ``remat`` for ``--remat`` at ``stage``, as the JAX CLI
+    resolves it (``train.py:466-468, :515-520``): "auto" is "selective"
+    for the text tower, whose saved tensors are context-length-sized; for
+    stage 2 it is "selective" where the attention kernels run (the card;
+    JAX: where its Pallas attention does) and full remat on the CPU, where
+    the attention is the plain version (JAX: its XLA attention)."""
+    if flag != "auto":
+        return {"full": True, "selective": "selective", "off": False}[flag]
+    if stage == 1 or device.type == "cuda":
+        return "selective"
+    return True
 
 
 def _copy_into(module, source) -> None:
@@ -294,9 +311,11 @@ def main(argv=None, *, device=None):
                 image_sched)
         image_start_epoch = epoch
 
-    remat = {"auto": True, "full": True, "off": False}[args.remat]
-    if args.remat == "auto":
-        logger.info("remat auto: full (the selective form is ROADMAP A13)")
+    remat = {stage: resolve_remat(args.remat, stage, dev)
+             for stage in (1, 2)}
+    logger.info("remat %s: stage 1 (text tower) %s, stage 2 %s", args.remat,
+                *({True: "full", False: "off"}.get(remat[s], remat[s])
+                  for s in (1, 2)))
 
     def device_batch(batch):
         """numpy batch -> (images, mask [B, H, W], label, class_idx,
@@ -355,6 +374,35 @@ def main(argv=None, *, device=None):
             with prof.phase("loss_fetch"):
                 drain.append(loss)  # waits only every K steps
             timer.tick(images.shape[0])
+        report_epoch(timer, prof, drain)
+
+    def run_fused_epoch(loader, fused):
+        """One stage-2 epoch of ``loader.make_fused_step``'s ``fused``:
+        step k assembles batch k+1 beside it; the last step assembles step
+        0's plan again and drops it, as the JAX CLI's loop does."""
+        nonlocal image_step
+        timer = StepTimer()
+        prof = HostLoopProfiler(enabled=args.profile_input)
+        drain = ThrottledLossDrain(args.loss_fetch_every)
+        plan = loader.epoch_plan()
+        batch = loader.assemble(plan[0][0], plan[0][1])
+        valid = plan[0][2]
+        for it in prof.wrap(range(len(plan))):
+            nidx, ngen, nvalid = plan[(it + 1) % len(plan)]
+            images, mask, label, class_idx = batch
+            with prof.phase("step_dispatch"):
+                loss, batch = fused(image_adapter, images, mask,
+                                    label.long(), class_idx.long(), valid,
+                                    nidx, ngen)
+            image_step += 1
+            valid = nvalid
+            with prof.phase("loss_fetch"):
+                drain.append(loss)
+            timer.tick(images.shape[0])
+        loader.advance_epoch()
+        report_epoch(timer, prof, drain)
+
+    def report_epoch(timer, prof, drain):
         losses = drain.drain()
         timer.stop()  # the losses are read: the card is idle
         logger.info("loss: %s", float(np.mean(losses)))
@@ -370,7 +418,7 @@ def main(argv=None, *, device=None):
         step_fn = make_stage1_step(
             text, cfg, acfg, text_opt, prompt_tokens,
             text_norm_weight=args.text_norm_weight, img_size=args.img_size,
-            policy=policy, remat=remat, device=dev)
+            policy=policy, remat=remat[1], device=dev)
 
         def update_text(prof, images, mask, label, class_idx, valid):
             nonlocal text_step
@@ -405,7 +453,7 @@ def main(argv=None, *, device=None):
     # ---- stage 2 ----------------------------------------------------------
     step_fn = make_stage2_step(vit, cfg, acfg, (image_opt, image_sched),
                                anchors_table, img_size=args.img_size,
-                               policy=policy, remat=remat,
+                               policy=policy, remat=remat[2],
                                grad_accum=args.grad_accum, device=dev)
 
     def update_image(prof, images, mask, label, class_idx, valid):
@@ -419,9 +467,23 @@ def main(argv=None, *, device=None):
     loader = make_train_loader(image_ds, args.image_batch_size,
                                text_stage=False, seed=args.seed + 1)
     loader.epoch = image_start_epoch
+    fused = None
+    if args.fused_assemble:  # parse_args required --cache_device
+        # stage 2 only, as in the JAX CLI: stage 1's features and step
+        # are two calls with the loss between them
+        fused = loader.make_fused_step(step_fn)
+        logger.info("fused_assemble: batch k+1 assembles %s",
+                    "on a second CUDA stream while step k runs"
+                    if dev.type == "cuda" else "after step k (no card)")
+    elif args.cache_device:
+        logger.info("cache_device: each batch assembles before its step "
+                    "(not overlapped; --fused_assemble overlaps it)")
     for epoch in range(image_start_epoch, args.image_epoch):
         logger.info("training image epoch %d:", epoch)
-        run_epoch(loader, 2, epoch, update_image)
+        if fused is not None:
+            run_fused_epoch(loader, fused)
+        else:
+            run_epoch(loader, 2, epoch, update_image)
         tree, state = adapter_to_jax(image_adapter), image_state()
         for path in (image_ckpt, os.path.join(
                 args.save_path, f"image_adapter_{epoch + 1}.npz")):

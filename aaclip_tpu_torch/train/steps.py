@@ -167,7 +167,9 @@ def make_stage1_step(text: TextTransformer, cfg: CLIPConfig,
 
     ``prompt_tokens`` [n_classes, 16, 77] are every prompt sentence of the
     training dataset's classes; each step encodes all of them through the
-    adapted text tower (``remat`` checkpoints each block), reduces them to
+    adapted text tower (``remat``: True checkpoints each block,
+    "selective" keeps JAX's named tensors, ``models/text_model.py``),
+    reduces them to
     [n_classes, D, 2] anchors and takes each sample's by ``class_idx``.
     ``feats`` [B, L, D] come from ``stage1_features_fn``; mask [B, H, W],
     class_idx and valid [B]. The loss is the seg loss of ``100 * feats .
@@ -234,10 +236,12 @@ def make_stage2_step(vit: VisionTransformer, cfg: CLIPConfig,
     ``anchors_table`` is [n_classes, D, 2]; images [B, 3, H, W], mask
     [B, H, W], label, class_idx and valid [B]. ``attn_fn=None`` means the
     differentiable packed-attention kernels. ``remat`` checkpoints each
-    block (``models/vit.py::trunk_taps``). ``grad_accum=K`` splits the
-    batch into K microbatches, sums their gradients and applies the mean
-    over the live ones (those with a valid sample) once; the loss reported
-    is the mean over live microbatches, as in the JAX package.
+    block (True) or keeps JAX's selective set ("selective": no second
+    attention forward; ``models/vit.py::trunk_taps``). ``grad_accum=K``
+    splits the batch into K microbatches, sums their gradients and
+    applies the mean over the live ones (those with a valid sample) once;
+    the loss reported is the mean over live microbatches, as in the JAX
+    package.
 
     ``device=None`` means the card and raises when there is none; ``vit``
     and the adapter must already live there."""

@@ -41,9 +41,13 @@ Needs one CUDA card and nvcc. Phases, each of which fails the run:
  5. the stage-2 training step (the same model, bf16) through
     ``make_stage2_step``: at batch 2 with remat, the kernel step against the
     plain-attention step from the same adapter (loss and every adapter
-    gradient), counting 47 forward and 23 backward launches; five kernel
-    steps at batch 8 without remat, counting 24 forward and 23 backward
-    launches per step, losses finite, peak device memory printed;
+    gradient), counting 47 forward and 23 backward launches; the same
+    step under selective remat, 24 forward and 23 backward launches (no
+    attention forward rerun), bit for bit against the full-remat step (or,
+    if not, phase 5's bars against the plain step, naming whether the
+    forward or the backward differs); five kernel steps at batch 8 each
+    without remat, with full and with selective remat, counting launches,
+    losses finite, peak device memory and images/s printed;
     tiny-test fp32 steps on the card against the CPU;
  5b. the fp32 paths that run the 6-pass backward and V-V launches: the
     stage-2 step at batch 2 with remat against the plain-attention step
@@ -102,8 +106,8 @@ Needs one CUDA card and nvcc. Phases, each of which fails the run:
     through ``main``): a seeded ViT-L-14-336 at its native 336 px saved as
     an OpenAI-layout state dict (the loader resizes the positional
     embedding 24 -> 37), an npz image adapter and a reference ``.pth``
-    text adapter, a synthetic MVTec set (2 classes, 24 normal and 24
-    anomalous 256 px images each); the CLI at bf16 batch 32 and at fp32
+    text adapter, a synthetic MVTec set (3 classes, 50 normal and 100
+    anomalous 1024 px images each); the CLI at bf16 batch 32 and at fp32
     batch 8 with ``--csv --dump_scores``, each held to (a) 24 forward
     kernel launches per predict batch and no other kernel (fp32's on the
     6-pass route, each after a ``split3`` launch), (b) its
@@ -112,13 +116,23 @@ Needs one CUDA card and nvcc. Phases, each of which fails the run:
     attention (maps, scores and the metric table, both tables printed);
     then (d) the 3-pass ``M q Mᵀ`` against fp64; with the CLI's logged
     maps/s, the host's decode+resize ms per image and the checkpoint's
-    save and load seconds.
+    save and load seconds. The host library (``native/``): the metrics
+    library must build and be the path the CLI logs; the image library
+    (libjpeg/libpng) is held bit for bit against the numpy decode on the
+    sample files, or the line naming why it did not build is printed;
+    per class, ``metrics_eval`` on the kernel's bf16 maps through the
+    library and through numpy, raw AUROC/AP within 1e-10 and the rows
+    equal, timed, and ``label_components`` against scipy on one class's
+    masks; the bf16 CLI once more in a child process with
+    ``AACLIP_NO_NATIVE`` (the numpy metrics and decode), its table equal
+    to the library run's, its maps/s and metrics seconds beside them.
 10. the training CLI (``python -m aaclip_tpu_torch.train`` through
     ``main``) from phase 9's checkpoint on a synthetic MVTec training set
     (2 classes of 48 images at 1024 px), bf16, at the CLI's batches (16
-    text, 2 image), remat auto (full): the host path (1 text and 2 image
-    epochs) held to (a) 24 forward launches per stage-1 features call,
-    47 forward and 23 backward per stage-2 step and no other kernel, (b)
+    text, 2 image), remat auto (selective on the card): the host path (1
+    text and 2 image epochs) held to (a) 24 forward launches per stage-1
+    features call, 24 forward and 23 backward per stage-2 step and no
+    other kernel, (b)
     each stage's step-1 loss against the same update on the plain
     attention (phases 7 and 5's bars), (c) its checkpoints loading into
     fresh adapters and Adam and saving again bit for bit, (d) a resumed
@@ -126,10 +140,12 @@ Needs one CUDA card and nvcc. Phases, each of which fails the run:
     evaluation CLI on the trained checkpoints; the host colour jitter
     against the installed Pillow, the card's jitter chain and geometric
     augment against the host's bit for bit; the device path
-    (--device_augment --cache_device, one stage-2 epoch) and the spatial
-    V-V mode (one stage-1 epoch, 19 V-V launches per features call), with
-    each epoch's logged img/s and host-loop shares beside the steps' own
-    rates.
+    (--device_augment --cache_device, one stage-2 epoch) four times, in
+    turns without and with --fused_assemble (every epoch's losses bit for
+    bit the first's), and
+    the spatial V-V mode (one stage-1 epoch, 19 V-V launches per features
+    call), with each epoch's logged img/s and host-loop shares beside the
+    steps' own rates.
 11. fp32_high (3-pass products, the first 6 vision blocks at bf16 on the
     inference path, the attention kernels' 3-pass mode) at ViT-L/518: (a)
     the predict at batch 8, staged and at ``bf16_until`` 0, against the
@@ -142,9 +158,12 @@ Needs one CUDA card and nvcc. Phases, each of which fails the run:
     (d) the evaluation CLI at batch 8 from phase 9's checkpoint on one
     class of phase 9's set, its scores bit for bit against a direct
     predict; (e) the training CLI, one text and one image epoch on phase
-    10's set, its step-1 losses against the plain attention (phase 10's
-    bars); every 3-pass launch at head dim 64 after its ``split2``
-    launches (one per forward, two per backward); (f) CUDA-event times of
+    10's set (remat auto: selective, 24 forward and 23 backward launches
+    per stage-2 step), its step-1 losses against the plain attention
+    (phase 10's bars); every 3-pass launch at head dim 64 after its
+    ``split2``
+    launches (one per forward, two per backward); (f), run after phase
+    8e and before phase 9, CUDA-event times of
     each 3-pass kernel (``split2`` included) and its plain 3-pass version,
     each 6-pass kernel (``split3`` included) and the plain fp32 version,
     ``split3`` and ``split2`` alone, and SDPA on the same fp32 inputs, and the
@@ -306,19 +325,20 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
 def device_ops(fn, calls: int = 1) -> dict:
     """The device operations (kernels, copies, fills) of ``calls`` calls of
     ``fn`` under torch.profiler: {name: (count, device microseconds)}.
-    One call runs first as the profiler's warm-up step, traced and
-    discarded: a trace can miss the work at its very start."""
+    One call runs first, untraced, as a warm-up. No profiler schedule: on
+    the card's machine a scheduled trace (a warm-up step, then the active
+    ones) now and then came back empty several times in a row, and an
+    unscheduled one did not in as many traces (NVIDIA H100 80GB HBM3)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
+    from torch.profiler import ProfilerActivity, profile
 
+    fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=calls,
-                                   repeat=1)) as prof:
-        for _ in range(calls + 1):
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
             fn()
-            torch.cuda.synchronize()
-            prof.step()
+        torch.cuda.synchronize()
     return {e.key: (e.count, e.self_device_time_total)
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
@@ -332,7 +352,8 @@ DEVICE_OPS_CHECKS = []
 # as the ctypes libraries' kernels, whether those link the CUDA runtime
 # statically (nvcc's default) or shared (-cudart shared). Read on an NVIDIA
 # H100 80GB HBM3: few or none came back short in a fresh process, while at
-# the end of this script every other trace came back empty.
+# the end of this script every other trace came back empty (traces then
+# ran under a profiler schedule, which device_ops no longer uses).
 # check_device_ops traces a function again, up to this many times, until
 # every kernel its launch counter names has been seen.
 DEVICE_OPS_TRACES = 8
@@ -368,8 +389,11 @@ def check_device_ops() -> None:
     kernel the launch counter names must be seen at least once, in up to
     DEVICE_OPS_TRACES traces (the profiler drops events); a row it cannot
     confirm fails. The library counts and the profiler only names. Run
-    after every timed phase: the host-bound stage-1 and stage-2 rates read
-    2-5% lower in runs that had traced before them."""
+    after the kernels' timings and before the CLIs (phases 9-11): after
+    those, the profiler on the card's machine returned empty traces for
+    whole rows. The host-bound stage-1 and stage-2 rates read 2-5% lower in
+    runs that had traced before them, so phases 5-7 run first; phase 8e
+    traces too, so phases 9-11 always ran after a trace."""
     for fn, want, what in DEVICE_OPS_CHECKS:
         seen, traces = {}, 0
         while set(seen) != set(want) and traces < DEVICE_OPS_TRACES:
@@ -923,9 +947,77 @@ def train_step_once(vit, cfg, acfg, adapter, batch, table, *, policy,
     return loss.item(), grads, fwd, bwd, (ad, opt, sched, step)
 
 
+# the steps' ``remat`` values by name
+REMAT_NAMES = {False: "off", True: "full", "selective": "selective"}
+
+
+def check_selective_step(vit, cfg, acfg, adapter, batch, table, policy,
+                         loss_full, g_full, loss_plain, g_plain) -> None:
+    """Phase 5, selective remat: the stage-2 step at batch 2 from the same
+    adapter launches 24 forward and 23 backward kernels (the backward
+    reruns no attention forward) and equals the full-remat kernel step
+    (``loss_full``, ``g_full``) bit for bit: the same kernels and products
+    on the same operands, only where each is recomputed differs. If it
+    does not, it is held to phase 5's bars against the plain-attention step
+    (``loss_plain``, ``g_plain``) and the forward's outputs under both
+    remat modes are compared, to say whether the forward or the backward
+    differs."""
+    import numpy as np
+    import torch
+
+    n_layers = cfg.vision.layers
+    zero_counts()
+    loss_s, g_s, fwd, bwd, _ = train_step_once(
+        vit, cfg, acfg, adapter, batch, table, policy=policy,
+        remat="selective")
+    print(f"train bf16 B=2 remat selective: kernel launches forward {fwd}, "
+          f"backward {bwd}; loss {loss_s:.6f} (full remat {loss_full:.6f})")
+    expect(fwd == n_layers and bwd == n_layers - 1,
+           f"selective remat step launches {fwd}, {bwd}")
+    same = loss_s == loss_full and all(torch.equal(g, g_full[n])
+                                       for n, g in g_s.items())
+    if same:
+        print("train bf16 B=2: the selective-remat step equals the "
+              "full-remat step bit for bit (loss and every adapter "
+              "gradient)")
+        return
+    worst = max((g - g_full[n]).abs().max().item() for n, g in g_s.items())
+    from aaclip_tpu_torch.core.params import cast_block_matrices
+    from aaclip_tpu_torch.models.vit import adapted_forward
+    from aaclip_tpu_torch.ops.attention import make_attn_fn
+
+    outs = []
+    for remat in (True, "selective"):  # the step's forward, as it runs it
+        seg, det = adapted_forward(
+            cast_block_matrices(vit, policy), copy.deepcopy(adapter), cfg,
+            batch[0], image_adapt_weight=acfg.image_adapt_weight,
+            levels=acfg.levels, proj_relu=acfg.proj_relu, policy=policy,
+            remat=remat, attn_fn=make_attn_fn(cfg.vision.heads, policy,
+                                              differentiable=True))
+        outs.append(torch.cat([t.flatten() for t in seg] + [det.flatten()]))
+    where = "the forward" if not torch.equal(*outs) else "the backward"
+    cos = min(torch.nn.functional.cosine_similarity(
+        g.flatten().double(), g_plain[n].flatten().double(), dim=0).item()
+        for n, g in g_s.items())
+    norm = max(abs(g.norm().item() / g_plain[n].norm().item() - 1.0)
+               for n, g in g_s.items())
+    rel = abs(loss_s - loss_plain) / abs(loss_plain)
+    print(f"train bf16 B=2: the selective-remat step differs from the "
+          f"full-remat one in {where} (loss {loss_s} vs {loss_full}, max "
+          f"|d gradient| {worst:.3e}); against the plain step: loss "
+          f"{rel:.3e} relative, min cosine {cos:.8f}, max |norm ratio - 1| "
+          f"{norm:.3e}")
+    expect(np.isfinite(loss_s) and rel <= STEP_LOSS_RTOL
+           and cos >= STEP_GRAD_COS and norm <= STEP_GRAD_NORM_RTOL,
+           f"selective remat step off: loss {rel}, cosine {cos}, norm "
+           f"{norm}")
+
+
 def phase_train(vit, adapter, cfg, acfg, card):
-    """Phases 5 and 6b: the stage-2 step; returns the forward and backward
-    launches per step without remat."""
+    """Phases 5 and 6b: the stage-2 step; returns {remat: (forward,
+    backward) launches per step} at batch 8."""
+    import gc
+
     import numpy as np
     import torch
 
@@ -969,26 +1061,39 @@ def phase_train(vit, adapter, cfg, acfg, card):
     print(f"train bf16 B=2 kernel vs plain gradients over {len(g_k)} "
           f"adapter leaves: min cosine {worst_cos:.6f}, max |norm ratio - 1| "
           f"{worst_norm:.3e}")
+    check_selective_step(vit, cfg, acfg, adapter, batch2, table, bf16,
+                         loss_k, g_k, loss_p, g_p)
     del g_k, g_p, batch2
 
     batch8 = train_batch(TRAIN_BATCH, img, gen)
-    torch.cuda.reset_peak_memory_stats()
-    loss0, _, fwd, bwd, (ad, opt, sched, step) = train_step_once(
-        vit, cfg, acfg, adapter, batch8, table, policy=bf16, remat=False)
-    losses = [loss0] + [step(ad, *batch8).item() for _ in range(4)]
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"train bf16 B={TRAIN_BATCH} no remat: launches forward {fwd}, "
-          f"backward {bwd} per step; losses over 5 steps "
-          + ", ".join(f"{l:.6f}" for l in losses)
-          + f"; peak device memory {peak:.2f} GiB")
-    expect(fwd == n_layers and bwd == n_layers - 1,
-           f"step launches {fwd}, {bwd}")
-    expect(all(np.isfinite(losses)), "a training loss is not finite")
-    ms_step = cuda_ms(lambda: step(ad, *batch8), 5, warmup=1)
-    print(f"time train step bf16 B={TRAIN_BATCH} ViT-L/518 no remat: "
-          f"{ms_step:.2f} ms/step, {TRAIN_BATCH / ms_step * 1e3:.2f} "
-          f"images/s on {card}")
-    del ad, opt, sched, step, batch8
+    by_remat = {}
+    for remat in (False, True, "selective"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        loss0, _, fwd, bwd, (ad, opt, sched, step) = train_step_once(
+            vit, cfg, acfg, adapter, batch8, table, policy=bf16, remat=remat)
+        losses = [loss0] + [step(ad, *batch8).item() for _ in range(4)]
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        what = REMAT_NAMES[remat]
+        print(f"train bf16 B={TRAIN_BATCH} remat {what}: launches forward "
+              f"{fwd}, backward {bwd} per step; losses over 5 steps "
+              + ", ".join(f"{l:.6f}" for l in losses)
+              + f"; peak device memory {peak:.2f} GiB on {card}")
+        want_fwd = S2_FWD_PER_STEP_REMAT if remat is True else n_layers
+        expect(fwd == want_fwd and bwd == n_layers - 1,
+               f"step launches {fwd}, {bwd} under remat {what}")
+        expect(all(np.isfinite(losses)), "a training loss is not finite")
+        ms_step = cuda_ms(lambda: step(ad, *batch8), 5, warmup=1)
+        print(f"time train step bf16 B={TRAIN_BATCH} ViT-L/518 remat "
+              f"{what}: {ms_step:.2f} ms/step, "
+              f"{TRAIN_BATCH / ms_step * 1e3:.2f} images/s, peak "
+              f"{peak:.2f} GiB on {card}")
+        by_remat[what] = (fwd, bwd)
+        del ad, opt, sched, step
+    del batch8
+    gc.collect()
+    torch.cuda.empty_cache()
 
     tiny = get_config("tiny-test")
     tacfg = tiny_acfg()
@@ -1018,7 +1123,7 @@ def phase_train(vit, adapter, cfg, acfg, card):
                f"tiny step gradient {name} off by {err}")
     print(f"train tiny-test fp32: card (kernels, hd 16) matches the CPU "
           f"(loss {loss_c:.6f} vs {loss_h:.6f})")
-    return fwd, bwd
+    return by_remat
 
 
 def time_bwd(cfg, card):
@@ -2018,10 +2123,10 @@ def time_fused(cfg, card):
 
 
 # Phase 9, the evaluation CLI from checkpoints, on a synthetic MVTec set
-# sized like the real one: four classes of 150 test images (50 normal, 100
-# anomalous) at 1024 px (MVTec AD's classes hold 42-167 test images of
+# sized like the real one: three classes of 150 test images (50 normal,
+# 100 anomalous) at 1024 px (MVTec AD's classes hold 42-167 test images of
 # 700-1024 px), so the CLI's logged rate, which leaves out the first
-# class, covers 450 maps. (b) the CLI against a direct predict on the same
+# class, covers 300 maps. (b) the CLI against a direct predict on the same
 # loaded towers and batches: bit for bit (the same kernels and products at
 # the same shapes). (c) the kernel run against the same loop on the plain
 # attention: phase 4's bars on the scores, at fp32 on the maps too. The
@@ -2058,9 +2163,12 @@ def time_fused(cfg, card):
 EVAL_TABLE_ATOL = {"fp32": 0.01, "bf16": 1.0}
 VS_SDPA_MEAN, VS_SDPA_MAX = 1.1, 1.5
 PP_3PASS_SPAN_FRAC = 1e-5
-EVAL_CLASSES, EVAL_NORMAL, EVAL_ANOMALOUS, EVAL_PX = 4, 50, 100, 1024
+EVAL_CLASSES, EVAL_NORMAL, EVAL_ANOMALOUS, EVAL_PX = 3, 50, 100, 1024
 EVAL_RUNS = (("bf16", 32), ("fp32", 8))
 DECODE_SAMPLE = 16  # images and masks timed one at a time on the host
+# the host library's AUROC/AP against numpy's on the same arrays: another
+# summation order of the same float64 sums (tests/test_metrics.py's bar)
+METRICS_RAW_ATOL = 1e-10
 
 
 def attention_packed_fp64(qkv, num_heads: int, valid_len: int,
@@ -2098,6 +2206,9 @@ def time_host_decode(images, masks, tmp, img, card) -> None:
     from aaclip_tpu_torch.data.image import (encode_png, load_gray, load_rgb,
                                              resize_bicubic, resize_nearest)
 
+    from aaclip_tpu_torch.native import build_info
+    from aaclip_tpu_torch.native import image as nimage
+
     sample = images[:DECODE_SAMPLE]
     paeth_dir = os.path.join(tmp, "paeth")
     os.makedirs(paeth_dir)
@@ -2106,28 +2217,52 @@ def time_host_decode(images, masks, tmp, img, card) -> None:
         paeth.append(os.path.join(paeth_dir, f"{i:03d}.png"))
         with open(paeth[-1], "wb") as out:
             out.write(encode_png(load_rgb(f), 4))
+    native = nimage.image_native_available()
+    if not native:
+        print(f"eval CLI host: no image library, the CLI decodes with "
+              f"data/image.py: {build_info().get('fast_image')}")
     for what, files in (("filter None (rows)", sample),
                         ("filter Paeth (anti-diagonals)", paeth)):
         t0 = time.perf_counter()
         decoded = [load_rgb(f) for f in files]
         dec_ms = (time.perf_counter() - t0) / len(files) * 1e3
         t0 = time.perf_counter()
-        for x in decoded:
-            resize_bicubic(x, img)
+        resized = [resize_bicubic(x, img) for x in decoded]
         res_ms = (time.perf_counter() - t0) / len(files) * 1e3
         print(f"eval CLI host, one thread, {EVAL_PX} px RGB PNG, {what}: "
               f"decode {dec_ms:.2f} + bicubic resize to {img} px "
-              f"{res_ms:.2f} = {dec_ms + res_ms:.2f} ms per image on {card}")
+              f"{res_ms:.2f} = {dec_ms + res_ms:.2f} ms per image in numpy "
+              f"on {card}")
         if files is paeth:
             expect(all(np.array_equal(load_rgb(a), b)
                        for a, b in zip(sample, decoded)),
                    "Paeth-filtered files decode to other pixels")
+        if native:
+            t0 = time.perf_counter()
+            got = [nimage.load_rgb_resize_chw(f, img) for f in files]
+            nat_ms = (time.perf_counter() - t0) / len(files) * 1e3
+            expect(all(g is not None and np.array_equal(
+                g, np.ascontiguousarray(r.transpose(2, 0, 1)))
+                for g, r in zip(got, resized)),
+                f"native decode + resize differs from numpy's ({what})")
+            print(f"eval CLI host, one thread, {what}: the image library "
+                  f"{nat_ms:.2f} ms per image, bit for bit the numpy "
+                  f"path's ({(dec_ms + res_ms) / nat_ms:.1f}x) on {card}")
+    mask_files = masks[:DECODE_SAMPLE]
     t0 = time.perf_counter()
-    for f in masks[:DECODE_SAMPLE]:
-        resize_nearest(load_gray(f), img)
+    want = [resize_nearest(load_gray(f), img) for f in mask_files]
     mask_ms = (time.perf_counter() - t0) / DECODE_SAMPLE * 1e3
     print(f"eval CLI host, one thread: {EVAL_PX} px mask decode + nearest "
-          f"resize {mask_ms:.2f} ms per mask on {card}")
+          f"resize {mask_ms:.2f} ms per mask in numpy on {card}")
+    if native:
+        t0 = time.perf_counter()
+        got = [nimage.load_gray_resize_nearest(f, img) for f in mask_files]
+        nat_ms = (time.perf_counter() - t0) / DECODE_SAMPLE * 1e3
+        expect(all(g is not None and np.array_equal(g, w)
+                   for g, w in zip(got, want)),
+               "native mask decode differs from numpy's")
+        print(f"eval CLI host, one thread: masks through the image library "
+              f"{nat_ms:.2f} ms per mask, bit for bit on {card}")
 
 
 def openai_state_dict(vit, text) -> dict:
@@ -2170,6 +2305,63 @@ def read_csv(path):
         return list(csv.reader(f))
 
 
+def metrics_both_paths(masks, labels, preds, preds_image, cls: str):
+    """``metrics_eval`` of one class through the host library, then with
+    the library switched off (the numpy path): (rows, seconds, the largest
+    difference of the raw AUROC/AP values the two computed)."""
+    from aaclip_tpu_torch import native
+    from aaclip_tpu_torch.eval import metrics
+
+    base, saved = metrics.auroc_ap, (native.auroc_ap,
+                                     native.label_components)
+    raw, rows, secs = [], [], []
+
+    def recording(lab, scores):
+        raw[-1].append(base(lab, scores))
+        return raw[-1][-1]
+
+    metrics.auroc_ap = recording
+    try:
+        for numpy_path in (False, True):
+            if numpy_path:
+                native.auroc_ap = native.label_components = \
+                    lambda *a: None
+            raw.append([])
+            t0 = time.perf_counter()
+            rows.append(metrics.metrics_eval(masks, labels, preds,
+                                             preds_image, cls, "Industrial"))
+            secs.append(time.perf_counter() - t0)
+    finally:
+        metrics.auroc_ap = base
+        native.auroc_ap, native.label_components = saved
+    expect(len(raw[0]) == len(raw[1]) > 0, f"{cls}: metrics calls differ")
+    d = max(abs(a - b) for x, y in zip(*raw) for a, b in zip(x, y))
+    return rows, secs, d
+
+
+def check_label_components(masks) -> None:
+    """The host library's connected components of each mask against
+    ``scipy.ndimage.label`` (the same raster-order numbering)."""
+    import numpy as np
+    from scipy import ndimage
+
+    from aaclip_tpu_torch import native
+
+    m = np.asarray(masks).reshape(len(masks), *np.shape(masks)[-2:]) != 0
+    t0 = time.perf_counter()
+    got = [native.label_components(x) for x in m]
+    nat_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = [ndimage.label(x) for x in m]
+    sci_s = time.perf_counter() - t0
+    expect(all(g[1] == w[1] and np.array_equal(g[0], w[0])
+               for g, w in zip(got, want)),
+           "label_components differs from scipy.ndimage.label")
+    print(f"eval CLI host: label_components on {len(m)} masks equals "
+          f"scipy.ndimage.label ({sum(w[1] for w in want)} regions; "
+          f"{nat_s:.3f} s against scipy's {sci_s:.3f} s)")
+
+
 def write_seeded_checkpoint(tmp: str, card) -> str:
     """A seeded ViT-L-14-336 at its native 336 px grid, saved as an
     OpenAI-layout state dict under ``tmp`` (the loaders resize the
@@ -2194,6 +2386,66 @@ def write_seeded_checkpoint(tmp: str, card) -> str:
     print(f"eval CLI: checkpoint {os.path.getsize(path) / 1e9:.3f} GB saved "
           f"in {save_s:.2f} s on {card}")
     return path
+
+
+def eval_log(log: str, name: str):
+    """(maps/s, the host-paths line, metrics_eval seconds per class) of an
+    evaluation CLI's test.log."""
+    import re
+
+    rate = float(re.search(r"eval throughput: ([\d.]+) maps/s",
+                           log).group(1))
+    host = re.findall(r"host paths: (.*)", log)
+    expect(len(host) == 1, f"eval CLI {name}: {len(host)} host-path lines")
+    mtimes = [float(t) for t in re.findall(r"metrics_eval: ([\d.]+) s",
+                                           log)]
+    expect(len(mtimes) == EVAL_CLASSES,
+           f"eval CLI {name}: {len(mtimes)} metrics_eval lines")
+    return rate, host[0], mtimes
+
+
+def eval_cli_numpy_path(native_save, ckpt_path, adapters, B, native_rate,
+                        native_mtimes, card) -> None:
+    """The bf16 evaluation CLI again, in a child process with
+    ``AACLIP_NO_NATIVE`` set (the numpy metrics and decode): its log must
+    say so, its table must equal the native run's, and its maps/s and
+    metrics_eval seconds per class print beside the native run's."""
+    import gc
+    import os
+    import subprocess
+
+    import torch
+
+    save = native_save + "_numpy"
+    shutil.copytree(adapters, save)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "aaclip_tpu_torch.test", "--clip_checkpoint",
+         ckpt_path, "--save_path", save, "--precision", "bf16",
+         "--batch_size", str(B), "--csv"],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        env={**os.environ, "AACLIP_NO_NATIVE": "1"}, capture_output=True,
+        text=True, timeout=1200)
+    wall = time.perf_counter() - t0
+    expect(proc.returncode == 0, f"eval CLI, numpy path: exit "
+           f"{proc.returncode}: {proc.stderr[-2000:]}")
+    rate, host_line, mtimes = eval_log(
+        open(os.path.join(save, "test.log")).read(), "bf16 numpy")
+    expect(host_line.startswith("metrics numpy")
+           and "decode native 0, " in host_line,
+           f"eval CLI, numpy path: {host_line}")
+    same = read_csv(os.path.join(save, "results_1.csv")) == \
+        read_csv(os.path.join(native_save, "results_1.csv"))
+    print(f"eval CLI bf16 B={B}, child process with AACLIP_NO_NATIVE: "
+          f"{host_line}; {rate:.2f} maps/s logged against {native_rate:.2f} "
+          f"on the host library; metrics_eval per class "
+          f"{', '.join(f'{t:.2f}' for t in mtimes)} s against "
+          f"{', '.join(f'{t:.2f}' for t in native_mtimes)} s; tables equal "
+          f"{same}; {wall:.1f} s for the process on {card}")
+    expect(same, "eval CLI: the numpy path's table differs from the host "
+           "library's")
 
 
 def phase_eval_cli(card, ckpt_path: str) -> None:
@@ -2247,6 +2499,16 @@ def phase_eval_cli(card, ckpt_path: str) -> None:
     env_before = {k: os.environ.get(k) for k in ("AACLIP_DATA",
                                                  "AACLIP_METADATA")}
     try:
+        # the host libraries: the metrics one must build here; the image
+        # one needs libjpeg and libpng headers, which the host may lack
+        from aaclip_tpu_torch import native
+        from aaclip_tpu_torch.native import image as nimage
+
+        metrics_native = native.native_available()
+        image_native = nimage.image_native_available()
+        print(f"eval CLI host libraries: {native.build_info()}")
+        expect(metrics_native, f"the metrics library did not build: "
+               f"{native.build_info().get('fast_metrics')}")
         # the adapters: npz image snapshot, reference .pth text adapter
         ad_tree = adapter_to_jax(init_image_adapter(cfg, acfg, seed=9,
                                                     device="cpu"))
@@ -2334,11 +2596,17 @@ def phase_eval_cli(card, ckpt_path: str) -> None:
                    f"eval CLI {name}: other kernels ran: {counts_now}, "
                    f"{others}")
             log = open(os.path.join(save, "test.log")).read()
-            rate = float(re.search(r"eval throughput: ([\d.]+) maps/s",
-                                   log).group(1))
+            rate, host_line, mtimes = eval_log(log, name)
+            expect(host_line.startswith("metrics native")
+                   and (not image_native or ", fallback 0 " in host_line),
+                   f"eval CLI {name}: not on the host library: {host_line}")
             print(f"eval CLI {name} B={B}: {rate:.2f} maps/s logged (eval "
                   f"throughput, the first class excluded); {wall:.2f} s "
-                  f"for the whole main() on {card}")
+                  f"for the whole main(); metrics_eval per class "
+                  f"{', '.join(f'{t:.2f}' for t in mtimes)} s on {card}")
+            if name == "bf16":
+                eval_cli_numpy_path(save, ckpt_path, adapters, B, rate,
+                                    mtimes, card)
 
             # (b) the CLI's scores equal a direct predict, bit for bit
             uint8 = name == "bf16"
@@ -2364,7 +2632,7 @@ def phase_eval_cli(card, ckpt_path: str) -> None:
                                     policy=policy), "MVTec")
             scores = read_csv(os.path.join(save, "scores_1.csv"))[1:]
             table = read_csv(os.path.join(save, "results_1.csv"))
-            plain_rows, lib_rows, exact_rows = [], [], []
+            plain_rows, lib_rows, exact_rows, both_paths = [], [], [], []
             dpix_rel = dscore = 0.0
             bf16_maps = {}
             host_s = {"loader": [], "metrics": []}
@@ -2386,6 +2654,20 @@ def phase_eval_cli(card, ckpt_path: str) -> None:
                        == [float(x) for x in got[3]],
                        f"eval CLI {name} {cls}: scores differ from the "
                        f"direct predict")
+                if name == "bf16":
+                    (nat_row, num_row), secs, d = metrics_both_paths(
+                        got[0], got[1], got[2], got[3], cls)
+                    print(f"eval CLI bf16 {cls}: metrics_eval through the "
+                          f"host library {secs[0]:.3f} s, numpy "
+                          f"{secs[1]:.3f} s; raw AUROC/AP max |d| {d:.3e} "
+                          f"(bar {METRICS_RAW_ATOL}); rows equal "
+                          f"{nat_row == num_row}")
+                    expect(d <= METRICS_RAW_ATOL and nat_row == num_row,
+                           f"eval CLI {cls}: the metric paths differ: "
+                           f"{nat_row} vs {num_row}")
+                    both_paths.append(secs)
+                    if len(both_paths) == 1:
+                        check_label_components(got[0])
                 # (c) the plain attention on the same batches
                 ref = run_class_predictions(plain, image_adapter, batches,
                                             anchors[cls], "Industrial", img,
@@ -2545,10 +2827,11 @@ def phase_eval_cli(card, ckpt_path: str) -> None:
 # synthetic MVTec training set of 2 classes of 48 images at 1024 px (24
 # normal, 24 anomalous: a real class's pixel size, MVTec AD's training
 # classes hold 60-391 images), bf16, at the CLI's own batch sizes (16 text,
-# 2 image), remat auto (full), full shot. (a) Launch counts: B1 24 per
-# stage-1 features call and 47 per stage-2 step (24 forward, 23 recomputed
-# in the backward under full remat; phase 5 counts the same), B2 23 per
-# step, B3 19 per spatial features call, no fused-block kernel. (b) Each
+# 2 image), remat auto (selective on the card for both stages, and the log
+# says so), full shot. (a) Launch counts: B1 24 per stage-1 features call
+# and 24 per stage-2 step (selective remat reruns no attention forward;
+# phase 5 counts the same), B2 23 per step, B3 19 per spatial features
+# call, no fused-block kernel. (b) Each
 # stage's first update, done again from the same batch, adapter and
 # anchors on the plain attention: the CLI's step-1 loss within phase 7's
 # bar (S1_STEP_LOSS_RTOL, stage 1) and phase 5's (STEP_LOSS_RTOL, stage
@@ -2566,10 +2849,15 @@ def phase_eval_cli(card, ckpt_path: str) -> None:
 # functions bit for bit (CUDA divides by a Python scalar through its
 # reciprocal, an ulp off numpy: ops/augment.py divides by device tensors);
 # the host's jitter equals the installed Pillow's on random and fixed
-# factors. Rates are printed, not held: no gain is claimed. The phase took
+# factors. The device path runs four times, unfused, with --fused_assemble
+# (batch k+1 assembled on a second CUDA stream while step k runs) twice,
+# unfused: every epoch's losses equal the first's bit for bit. Rates are
+# printed, not held: no gain is claimed. The phase took
 # 88-124 s on an NVIDIA H100 80GB HBM3, 700 W (phase 9: 317-326 s).
 TRAIN_CLI_CLASSES, TRAIN_CLI_PER_KIND, TRAIN_CLI_PX = 2, 24, 1024
 TRAIN_CLI_SEED = 111  # the CLI's default --seed
+# forward launches per stage-2 step under full remat: 24, and the 23
+# blocks whose input carries a gradient again in the backward
 S2_FWD_PER_STEP_REMAT = 47
 
 
@@ -2845,7 +3133,9 @@ def phase_train_cli(card, ckpt_path: str) -> dict:
     def run(name, argv, *, feats, steps, vv):
         """``cli.main(argv)`` with each epoch's per-step losses recorded;
         holds its launches to ``feats`` features calls and ``steps``
-        stage-2 steps; returns (losses per epoch, train.log)."""
+        stage-2 steps (under ``--remat auto``, selective on the card: 24
+        forward launches per step); returns (losses per epoch,
+        train.log)."""
         zero_fused_counts()
         lib0 = {n: kernels_launched(n) for n in ("attention_packed",
                                                  "attention_packed_bwd",
@@ -2859,7 +3149,7 @@ def phase_train_cli(card, ckpt_path: str) -> dict:
                   "ln_linear": FB.ln_linear.launches,
                   "linear_residual": FB.linear_residual.launches,
                   "mlp_fused": FB.mlp_fused.launches}
-        want = (n_layers * feats + S2_FWD_PER_STEP_REMAT * steps,
+        want = (n_layers * feats + n_layers * steps,
                 vv_layers * feats if vv else 0, (n_layers - 1) * steps)
         print(f"train CLI {name}: {feats} features calls, {steps} stage-2 "
               f"steps: attention_packed {std}, V-V {vvn}, backward {bwd} "
@@ -2878,7 +3168,11 @@ def phase_train_cli(card, ckpt_path: str) -> dict:
         torch.cuda.empty_cache()
         with open(os.path.join(argv[argv.index("--save_path") + 1],
                                "train.log")) as f:
-            return losses, f.read()
+            log = f.read()
+        expect("remat auto: stage 1 (text tower) selective, stage 2 "
+               "selective" in log, f"train CLI {name}: remat not resolved "
+               f"to selective")
+        return losses, log
 
     try:
         classes = CLASS_NAMES["MVTec"][:TRAIN_CLI_CLASSES]
@@ -2932,7 +3226,7 @@ def phase_train_cli(card, ckpt_path: str) -> dict:
         s2 = make_stage2_step(vit, cfg, acfg,
                               make_image_optimizer(iad.parameters()),
                               unit_table(cfg.embed_dim, gen), policy=bf16,
-                              remat=True)
+                              remat="selective")
         batch = train_batch(2, img, gen)
         ms2 = cuda_ms(lambda: s2(iad, *batch), 20)
         del s2, iad
@@ -2950,8 +3244,8 @@ def phase_train_cli(card, ckpt_path: str) -> dict:
         torch.cuda.empty_cache()
         print(f"train CLI: the steps alone, bf16: stage 1 (batch-mode "
               f"features + update) at batch 16 {16e3 / ms1:.2f} img/s, "
-              f"stage 2 (remat full) at batch 2 {2e3 / ms2:.2f} img/s on "
-              f"{card}")
+              f"stage 2 (remat selective) at batch 2 {2e3 / ms2:.2f} img/s "
+              f"on {card}")
 
         # (c) the checkpoints load back and save again bit for bit
         for name, make, to_jax, from_jax in (
@@ -3041,12 +3335,30 @@ def phase_train_cli(card, ckpt_path: str) -> dict:
 
         # the device path: one stage-2 epoch from the set on the card
         check_device_augment_vs_host(image_ds, 16)
-        dev_losses, log = run("device run", common + [
-            "--save_path", os.path.join(tmp, "device"), "--text_epoch", "0",
-            "--image_epoch", "1", "--device_augment", "--cache_device"],
-            feats=0, steps=n_step, vv=False)
-        expect(len(dev_losses) == 1, "device run: epochs")
-        dev_reports = epoch_reports(log)
+        # unfused, fused, fused, unfused: the two in turns on one card,
+        # each epoch's losses bit for bit the first's
+        dev_reports = {False: [], True: []}
+        dev_losses = None
+        for k, fused in enumerate((False, True, True, False)):
+            name = ("device run, fused assembly" if fused else "device run") \
+                + f" ({k + 1} of 4)"
+            losses, log = run(name, common + [
+                "--save_path", os.path.join(tmp, f"device{k}"),
+                "--text_epoch", "0", "--image_epoch", "1",
+                "--device_augment", "--cache_device"]
+                + (["--fused_assemble"] if fused else []),
+                feats=0, steps=n_step, vv=False)
+            expect(len(losses) == 1, f"{name}: epochs")
+            expect(("on a second CUDA stream while step k runs" if fused
+                    else "each batch assembles before its step") in log,
+                   f"{name}: the log does not say how assembly runs")
+            dev_losses = dev_losses or losses
+            expect(losses == dev_losses,
+                   f"{name}: the losses differ from the first device run's")
+            dev_reports[fused] += epoch_reports(log)
+        print(f"train CLI device path: the fused-assembly epochs' "
+              f"{len(dev_losses[0])} losses equal the unfused epochs' bit "
+              f"for bit")
 
         # the spatial V-V mode: one stage-1 epoch
         _, log = run("spatial run", common + [
@@ -3055,7 +3367,9 @@ def phase_train_cli(card, ckpt_path: str) -> dict:
             feats=n_feat, steps=0, vv=True)
         sp_reports = epoch_reports(log)
 
-        for path, reps in (("host", reports), ("device", dev_reports),
+        for path, reps in (("host", reports),
+                           ("device", dev_reports[False]),
+                           ("device, fused assembly", dev_reports[True]),
                            ("host, spatial V-V", sp_reports)):
             for stage, epoch, rate, shares in reps:
                 top = ", ".join(f"{k} {v:.1f}%" for k, v in sorted(
@@ -3721,7 +4035,8 @@ def phase_fp32_high(vit, adapter, cfg, acfg, anchors, M, card,
             A.attention_kernel.launches_3pass
         expect(A.attention_kernel.launches == 0,
                "the training CLI launched attention_kernel")
-        want = (n_layers * n_feat + S2_FWD_PER_STEP_REMAT * n_step, 0,
+        # --remat auto: selective on the card, 24 forward launches a step
+        want = (n_layers * n_feat + n_layers * n_step, 0,
                 (n_layers - 1) * n_step)
         want_split = want[0] + want[1] + 2 * want[2]
         expect([len(e) for e in losses] == [n_feat, n_step]
@@ -3758,10 +4073,8 @@ def phase_fp32_high(vit, adapter, cfg, acfg, anchors, M, card,
                 os.environ[k] = v
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # (f) the fp32 kernels' times
-    times = time_kernels_fp32(card)
     print(f"phase 11 (fp32_high) took {time.perf_counter() - t_phase:.0f} s")
-    return {"calls": calls, "times": times, "rates": rates}
+    return {"calls": calls, "rates": rates}
 
 
 def make_attn_fn_plain(heads: int, policy, *, vv: bool = False,
@@ -3839,7 +4152,8 @@ def main() -> int:
                                    gen)
     # -- 5, 6b. stage-2 training step
     print(f"[{time.perf_counter() - t0:.0f} s] stage-2 step")
-    train_fwd, train_bwd = phase_train(vit, adapter, cfg, acfg, card)
+    train_steps = phase_train(vit, adapter, cfg, acfg, card)
+    train_fwd, train_bwd = train_steps["off"]
     expect(train_fwd == fwd_launches, "forward launches differ by path")
     # -- 5b. the fp32 step and spatial features on the 6-pass kernels
     print(f"[{time.perf_counter() - t0:.0f} s] fp32 step and features")
@@ -3869,6 +4183,10 @@ def main() -> int:
            "predict's")
     phase_encode_image(vit, cfg)
     fused_times = time_fused(cfg, card)
+    # -- 11f. the fp32 kernels' times, then every traced check while the
+    # profiler still returns whole traces
+    fp32_times = time_kernels_fp32(card)
+    check_device_ops()
 
     # -- 9, 10. the evaluation and training CLIs from one saved checkpoint
     ckpt_dir = tempfile.mkdtemp(prefix="aaclip_smoke_ckpt_")
@@ -3884,7 +4202,6 @@ def main() -> int:
                                ckpt_path)
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
-    check_device_ops()
 
     print(f"[{time.perf_counter() - t0:.0f} s] done: the whole script took "
           f"{time.perf_counter() - t_start:.0f} s")
@@ -3929,7 +4246,7 @@ def main() -> int:
     # expect_6pass recorded them (standard, V-V, backward; split3), B1's on
     # phase 4's fp32 predict, B2's on phase 5b's step, B3's on 5b's
     # features, B4 on no path, split3's beside B1's on the predict
-    six = high["times"]["6pass"]
+    six = fp32_times["6pass"]
 
     def six_calls(i):
         return {k: (v[1] if i is None else v[0][i])
@@ -3955,13 +4272,13 @@ def main() -> int:
         ("split3", "attention_packed.cu",
          "aaclip_tpu/ops/flash_attention.py:49",
          SIX_PASS_CALLS["predict fp32 B=2"][1], six_calls(None), 0.0,
-         high["times"]["split3"]),
+         fp32_times["split3"]),
         # the 3-pass route's split: launches on the staged fp32_high
         # predict, calls on every fp32_high path
         ("split2", "attention_packed.cu",
          "aaclip_tpu/ops/flash_attention.py:56",
          hc["split2"]["fp32_high predict, bf16_until 6"], hc["split2"], 0.0,
-         high["times"]["split2"]),
+         fp32_times["split2"]),
     ]
     print(json.dumps({"kernels": [{
         "name": "attention_packed",
@@ -3969,7 +4286,9 @@ def main() -> int:
         "source": "aaclip_tpu_torch/kernels/csrc/attention_packed.cu",
         "replaces": "aaclip_tpu/ops/flash_attention.py:190",
         "launches": fwd_launches,
-        "calls": {"predict": fwd_launches, "stage-2 step": train_fwd,
+        "calls": {"predict": fwd_launches,
+                  **{f"stage-2 step, remat {k}": v[0] for k, v in
+                     train_steps.items()},
                   **{f"training CLI {k}": v[0] for k, v in
                      train_cli.items()}},
         "kernels_per_call": fwd_per_call,
@@ -3985,7 +4304,8 @@ def main() -> int:
         "source": "aaclip_tpu_torch/kernels/csrc/attention_packed_bwd.cu",
         "replaces": "aaclip_tpu/ops/flash_attention.py:302",
         "launches": train_bwd,
-        "calls": {"stage-2 step": train_bwd,
+        "calls": {**{f"stage-2 step, remat {k}": v[1] for k, v in
+                     train_steps.items()},
                   **{f"training CLI {k}": v[2] for k, v in
                      train_cli.items()}},
         "kernels_per_call": bwd_per_call,
@@ -4031,13 +4351,13 @@ def main() -> int:
         "replaces": replaces,
         "launches": launches,
         "calls": calls,
-        "kernels_per_call": high["times"]["3pass"][name][5],
+        "kernels_per_call": fp32_times["3pass"][name][5],
         "max_abs_err": err,
-        "ms": high["times"]["3pass"][name][0],
-        "plain_ms": high["times"]["3pass"][name][1],
-        "bound_ms": high["times"]["3pass"][name][3],
-        "bound_by": high["times"]["3pass"][name][4],
-        "library_ms": high["times"]["3pass"][name][2],
+        "ms": fp32_times["3pass"][name][0],
+        "plain_ms": fp32_times["3pass"][name][1],
+        "bound_ms": fp32_times["3pass"][name][3],
+        "bound_by": fp32_times["3pass"][name][4],
+        "library_ms": fp32_times["3pass"][name][2],
     } for name, source, replaces, launches, calls, err in high_rows] + [{
         "name": f"{name} (6-pass)" if not name.startswith("split") else name,
         "route": "cuda",

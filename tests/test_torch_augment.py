@@ -17,7 +17,14 @@ Bars:
 * ``DeviceCacheLoader``: its plan is ``BatchLoader``'s (permutation,
   padding, ``valid``) over 3 epochs, its cached pixels the host's, and
   a text-stage batch equals the host path's uint8 batch put through
-  ``make_device_augment`` with the same generator.
+  ``make_device_augment`` with the same generator;
+* ``make_fused_step`` (``--fused_assemble``): an epoch of the fused loop
+  equals the unfused loop bit for bit (losses, adapters, the Adam state
+  and the schedule), and fed the batches JAX's ``make_fused_step``
+  assembled from the same cache and plan (the draws are the two
+  packages' own), its losses and adapters follow JAX's fused loop within
+  the stage-2 step's bars (``test_torch_train.py``: loss rtol 1e-5,
+  adapters atol 1e-5).
 """
 
 import os
@@ -231,3 +238,143 @@ def test_cache_text_batch_equals_the_host_device_augment_path(synth):
         torch.from_numpy(host["image"]),
         torch.from_numpy(host["mask"][:, 0]))
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _stage2(cfg, acfg, clip_visual, jad, table, remat=False):
+    """The port's stage-2 step on the CPU from JAX trees: (adapter, step,
+    optimizer, scheduler)."""
+    from aaclip_tpu_torch.core.params import adapter_from_jax, params_from_jax
+    from aaclip_tpu_torch.train.optim import make_image_optimizer
+    from aaclip_tpu_torch.train.steps import make_stage2_step
+
+    vit = params_from_jax(clip_visual, cfg, device="cpu")
+    ad = adapter_from_jax(jad, cfg, acfg, device="cpu")
+    opt, sched = make_image_optimizer(ad.parameters(), lr=1e-3,
+                                      milestones=(2, 4))
+    step = make_stage2_step(vit, cfg, acfg, (opt, sched), table,
+                            remat=remat, device="cpu")
+    return ad, step, opt, sched
+
+
+def _fused_epoch(loader, fused, ad):
+    """The training CLI's ``--fused_assemble`` loop over one epoch."""
+    plan = loader.epoch_plan()
+    batch = loader.assemble(plan[0][0], plan[0][1])
+    valid, losses = plan[0][2], []
+    for it in range(len(plan)):
+        nidx, ngen, nvalid = plan[(it + 1) % len(plan)]
+        images, mask, label, cidx = batch
+        loss, batch = fused(ad, images, mask, label.long(), cidx.long(),
+                            valid, nidx, ngen)
+        valid = nvalid
+        losses.append(loss)
+    loader.advance_epoch()
+    return losses
+
+
+@pytest.fixture(scope="module")
+def stage2_case(synth):
+    import jax
+
+    from aaclip_tpu.core.config import AdapterConfig as JAdapterConfig
+    from aaclip_tpu.core.config import get_config as jget_config
+    from aaclip_tpu.core.params import create_clip_params, init_adapter_params
+    from aaclip_tpu_torch.core.config import AdapterConfig, get_config
+
+    jcfg = jget_config("tiny-test", 42)
+    jacfg = JAdapterConfig(levels=(1, 2), image_adapt_until=1,
+                           text_adapt_until=1)
+    clip = jax.tree.map(np.array, create_clip_params(jcfg, seed=0))
+    jad = jax.tree.map(np.array, init_adapter_params(
+        jax.random.PRNGKey(1), jcfg, jacfg)["image"])
+    rng = np.random.default_rng(5)
+    table = rng.standard_normal((2, jcfg.embed_dim, 2)).astype(np.float32)
+    table /= np.linalg.norm(table, axis=1, keepdims=True)
+    return dict(cfg=get_config("tiny-test", 42),
+                acfg=AdapterConfig(levels=(1, 2), image_adapt_until=1),
+                jcfg=jcfg, jacfg=jacfg, clip=clip, jad=jad, table=table)
+
+
+def test_fused_assemble_equals_the_unfused_loop(stage2_case):
+    c = stage2_case
+    ds = datasets.get_train_datasets("MVTec", 42, -1, seed=2,
+                                     device_augment=True)[1]
+    runs = []
+    for fused in (False, True):
+        loader = DeviceCacheLoader(ds, {"bottle": 0, "cable": 1}, 4, seed=8,
+                                   text_stage=False, aug_seed=3,
+                                   device="cpu", num_workers=2)
+        ad, step, opt, sched = _stage2(c["cfg"], c["acfg"],
+                                       c["clip"]["visual"], c["jad"],
+                                       c["table"], remat="selective")
+        if fused:
+            losses = _fused_epoch(loader, loader.make_fused_step(step), ad)
+        else:
+            losses = [step(ad, im, mk, lb.long(), ci.long(), v)
+                      for im, mk, lb, ci, v in loader]
+        assert loader.epoch == 1 and len(losses) == 4
+        runs.append((torch.stack(losses), list(ad.parameters()),
+                     opt.state_dict(), sched.state_dict()))
+    (l0, p0, o0, s0), (l1, p1, o1, s1) = runs
+    assert torch.equal(l0, l1) and torch.isfinite(l0).all()
+    for a, b in zip(p0, p1):
+        assert torch.equal(a, b)
+    for k, st in o0["state"].items():
+        for name, v in st.items():
+            assert torch.equal(v, o1["state"][k][name]), name
+    assert s0 == s1
+
+
+def test_fused_step_follows_jax_s_fused_loop(stage2_case):
+    import jax
+
+    from aaclip_tpu.data.datasets import get_train_datasets as jget
+    from aaclip_tpu.data.device_cache import DeviceCacheLoader as JLoader
+    from aaclip_tpu.train.optim import make_image_optimizer as jopt
+    from aaclip_tpu.train.steps import init_state
+    from aaclip_tpu.train.steps import make_stage2_step as jstage2
+
+    c = stage2_case
+    cls_to_idx = {"bottle": 0, "cable": 1}
+    jloader = JLoader(jget("MVTec", 42, -1, seed=2, device_augment=True)[1],
+                      cls_to_idx, batch_size=4, seed=8, text_stage=False,
+                      aug_base=jax.random.PRNGKey(7))
+    tx = jopt(1e-3, milestones=(2, 4))
+    jfused = jloader.make_fused_step(jstage2(c["clip"], c["jcfg"],
+                                             c["jacfg"], tx, c["table"]))
+    state = init_state(c["jad"], tx)
+    plan = jloader.epoch_plan()
+    batch = jloader.assemble(plan[0][0], plan[0][1])
+    batches, valids, jlosses = [], [p[2] for p in plan], []
+    for it in range(len(plan)):
+        batches.append([np.array(x) for x in batch])
+        nidx, nkey, _ = plan[(it + 1) % len(plan)]
+        state, loss, batch = jfused(state, *batch, jnp.asarray(valids[it]),
+                                    nidx, nkey)
+        jlosses.append(float(loss))
+    batches.append([np.array(x) for x in batch])
+
+    ds = datasets.get_train_datasets("MVTec", 42, -1, seed=2,
+                                     device_augment=True)[1]
+    loader = DeviceCacheLoader(ds, cls_to_idx, 4, seed=8, text_stage=False,
+                               aug_seed=3, device="cpu", num_workers=2)
+    fed = iter(batches)
+    loader.assemble = lambda idx, gen: tuple(torch.from_numpy(x)
+                                             for x in next(fed))
+    ad, step, _, _ = _stage2(c["cfg"], c["acfg"], c["clip"]["visual"],
+                             c["jad"], c["table"], remat=True)
+    fused = loader.make_fused_step(step)
+    plan = loader.epoch_plan()
+    batch = loader.assemble(None, None)
+    losses = []
+    for it in range(len(plan)):
+        images, mask, label, cidx = batch
+        loss, batch = fused(ad, images, mask, label.long(), cidx.long(),
+                            torch.from_numpy(valids[it]), None, None)
+        losses.append(float(loss))
+    np.testing.assert_allclose(losses, jlosses, rtol=1e-5)
+    from aaclip_tpu_torch.core.params import adapter_to_jax
+
+    for g, w in zip(jax.tree.leaves(adapter_to_jax(ad)),
+                    jax.tree.leaves(state.params)):
+        np.testing.assert_allclose(g, np.asarray(w), atol=1e-5, rtol=0)

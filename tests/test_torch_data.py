@@ -7,8 +7,11 @@ and the JAX package's, on the CPU, all bit for bit:
   each), and the L / LA / RGBA / P /
   gray-as-RGB / 1-bit / 4-bit-palette layouts through PIL's
   ``convert("RGB")``; masks through ``convert("L")`` and PIL's nearest;
-* the PNG path without PIL; other formats through PIL, or an error naming
-  the file without it;
+* ``load_rgb_chw`` (the host library's decode where it is built) and
+  ``data/image.py``'s numpy decode and resize, both against PIL;
+* the PNG path without PIL, and JPEG through the host library; on the
+  fallback other formats through PIL, or an error naming the file without
+  it;
 * the synthetic dataset: the same pixels and metadata as JAX's for a seed;
 * the registry, the metadata copy, ``get_test_datasets`` and
   ``BatchLoader``'s batches (uint8 and float images, masks, labels,
@@ -31,6 +34,7 @@ from aaclip_tpu.data import registry as jregistry
 from aaclip_tpu.data.synthetic import make_synthetic_dataset as j_make
 from aaclip_tpu_torch.data import datasets, image, registry, transforms
 from aaclip_tpu_torch.data.synthetic import make_synthetic_dataset
+from aaclip_tpu_torch.native import image as native_image
 
 SHAPES = [(64, 64), (100, 83), (37, 41), (517, 300)]
 
@@ -45,6 +49,13 @@ def _save(arr_or_img, path, **kw):
 def _pil_rgb(path, size):
     return np.asarray(Image.open(path).convert("RGB").resize(
         (size, size), Image.BICUBIC), np.uint8).transpose(2, 0, 1)
+
+
+def _numpy_rgb_chw(path, size):
+    """``load_rgb_chw``'s fallback: ``data/image.py``'s decode and
+    resize (the default path is the host library's where it is built)."""
+    return transforms.to_uint8_chw(image.resize_bicubic(
+        image.load_rgb(path), size))
 
 
 def _idat(data):
@@ -82,9 +93,10 @@ def test_png_decode_resize_bit_exact(tmp_path, shape):
         p = _save(a, str(tmp_path / f"{name}.png"))
         np.testing.assert_array_equal(image.load_rgb(p), a)
         for size in (70, 518, 33):
+            want = _pil_rgb(p, size)
             np.testing.assert_array_equal(
-                transforms.load_rgb_chw(p, size, uint8=True),
-                _pil_rgb(p, size))
+                transforms.load_rgb_chw(p, size, uint8=True), want)
+            np.testing.assert_array_equal(_numpy_rgb_chw(p, size), want)
 
 
 def _png_with_filters(a, ftypes):
@@ -163,6 +175,7 @@ def test_png_layouts_convert_as_pil(tmp_path, mode):
     p = _save(img, str(tmp_path / f"v_{mode}.png"))
     np.testing.assert_array_equal(transforms.load_rgb_chw(p, 50, uint8=True),
                                   _pil_rgb(p, 50))
+    np.testing.assert_array_equal(_numpy_rgb_chw(p, 50), _pil_rgb(p, 50))
     np.testing.assert_array_equal(image.load_gray(p),
                                   np.asarray(Image.open(p).convert("L")))
 
@@ -237,8 +250,16 @@ def test_png_path_needs_no_pil_and_jpeg_needs_pil(tmp_path, monkeypatch):
     jpg = _save(a, str(tmp_path / "a.jpg"), quality=90)
     np.testing.assert_array_equal(
         transforms.load_rgb_chw(jpg, 33, uint8=True), _pil_rgb(jpg, 33))
-    want_png = _pil_rgb(png, 33)
+    want_png, want_jpg = _pil_rgb(png, 33), _pil_rgb(jpg, 33)
     monkeypatch.setitem(sys.modules, "PIL", None)  # import PIL now fails
+    np.testing.assert_array_equal(
+        transforms.load_rgb_chw(png, 33, uint8=True), want_png)
+    if native_image.image_native_available():
+        # the host library decodes JPEG itself (libjpeg), PIL's pixels
+        np.testing.assert_array_equal(
+            transforms.load_rgb_chw(jpg, 33, uint8=True), want_jpg)
+    # the fallback decodes PNG in numpy and needs PIL for JPEG
+    monkeypatch.setattr(native_image, "load_rgb_resize_chw", lambda *a: None)
     np.testing.assert_array_equal(
         transforms.load_rgb_chw(png, 33, uint8=True), want_png)
     with pytest.raises(RuntimeError, match="a.jpg.*PIL"):

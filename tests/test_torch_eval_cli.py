@@ -121,6 +121,17 @@ def test_log_has_the_table_and_the_rate(runs):
     assert "final results" in log and "Average" in log
     assert "eval throughput:" in log
     assert "Sample number: 6" in log
+    # the host paths that ran, once, and each class's metrics time
+    from aaclip_tpu_torch import native
+    from aaclip_tpu_torch.native import image
+
+    assert log.count("host paths: metrics ") == 1
+    assert f"host paths: metrics {native.metrics_path()} " in log
+    # 12 images and the 6 anomalous ones' masks
+    decoded = "decode native 18, fallback 0" \
+        if image.image_native_available() else "decode native 0, fallback 18"
+    assert decoded in log, log[log.index("host paths"):]
+    assert log.count("metrics_eval: ") == 2
 
 
 @pytest.mark.parametrize("flags,label", [

@@ -181,7 +181,7 @@ def test_fp32_high_flags_parse_and_the_rest_still_raise():
     assert (args.precision, args.bf16_until) == ("fp32_high", 3)
     assert cli.parse_args(["--precision", "fp32_high"]).precision == \
         "fp32_high"
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        cli.parse_args(["--precision", "fp32_high", "--remat", "selective"])
+    assert cli.parse_args(["--precision", "fp32_high", "--remat",
+                           "selective"]).remat == "selective"
     with pytest.raises(NotImplementedError, match="ROADMAP A12"):
         port_eval.parse_args(["--precision", "int8"])

@@ -7,7 +7,10 @@ fresh interpreter without either entering
 runs where JAX is absent) names them in an import. The evaluation CLI and
 the training CLI (both stages, host and on-card augment) run on a PNG
 dataset in an interpreter where PIL, pandas, scikit-learn and cv2 cannot
-be imported (the card's machine may lack any of them)."""
+be imported (the card's machine may lack any of them): the evaluation
+CLI on the host library (``native/``, its metrics and decode), the
+training CLI also with ``--remat selective --fused_assemble
+--cache_device``."""
 
 import json
 import os
@@ -146,7 +149,11 @@ test.main(["--model_name", "tiny-test", "--img_size", "70",
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "aaclip_tpu"))
 rows = open(os.path.join(save, "results_1.csv")).read().splitlines()
-print(json.dumps({"bad": bad, "rows": [r.split(",")[0] for r in rows]}))
+from aaclip_tpu_torch import native
+host = [l for l in open(os.path.join(save, "test.log")).read().splitlines()
+        if "host paths:" in l]
+print(json.dumps({"bad": bad, "rows": [r.split(",")[0] for r in rows],
+                  "metrics": native.metrics_path(), "host": host}))
 """
 
 
@@ -157,8 +164,13 @@ def test_eval_cli_runs_without_pil_pandas_sklearn_cv2_or_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     result = json.loads(out.stdout.strip().splitlines()[-1])
+    from aaclip_tpu_torch import native
+
+    host = result.pop("host")
     assert result == {"bad": [], "rows": ["class name", "bottle", "cable",
-                                          "Average"]}
+                                          "Average"],
+                      "metrics": native.metrics_path()}
+    assert len(host) == 1 and f"metrics {native.metrics_path()} " in host[0]
 
 
 TRAIN_PROBE = """
@@ -175,12 +187,17 @@ argv = ["--model_name", "tiny-test", "--img_size", "70",
         "--levels", "1", "2", "--dataset", "MVTec", "--training_mode",
         "full_shot", "--surgery_until_layer", "2", "--text_batch_size", "4",
         "--image_batch_size", "4", "--text_epoch", "1", "--image_epoch", "1"]
-for extra in ([], ["--device_augment", "--cache_device"]):
+for extra in ([], ["--device_augment", "--cache_device"],
+              ["--device_augment", "--cache_device", "--fused_assemble",
+               "--remat", "selective"]):
     save = os.path.join(root, "ckpt" + str(len(extra)))
     cli.main(argv + extra + ["--save_path", save], device="cpu")
+log = open(os.path.join(save, "train.log")).read()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "aaclip_tpu"))
-print(json.dumps({"bad": bad, "files": sorted(os.listdir(save))}))
+print(json.dumps({"bad": bad, "files": sorted(os.listdir(save)),
+                  "selective": "stage 2 selective" in log,
+                  "fused": "fused_assemble: batch k+1" in log}))
 """
 
 
@@ -194,4 +211,4 @@ def test_train_cli_runs_without_pil_pandas_sklearn_cv2_or_jax():
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result == {"bad": [], "files": [
         "image_adapter.npz", "image_adapter_1.npz", "text_adapter.npz",
-        "train.log"]}
+        "train.log"], "selective": True, "fused": True}

@@ -268,21 +268,22 @@ def test_random_init_is_frozen_seeded_and_shaped():
     assert all(p.requires_grad for p in ad.parameters())
 
 
-def test_text_remat_changes_nothing_and_selective_raises():
+def test_text_remat_full_or_selective_changes_nothing():
     cfg = get_config("tiny-test")
     acfg = AdapterConfig(text_adapt_until=2)
     text_w = init_text_params(cfg, device="cpu")
     tokens = t(prompt_batch()[:8])
     grads = []
-    for remat in (False, True):
+    for remat in (False, True, "selective"):
         ad = init_text_adapter(cfg, acfg, device="cpu")
         out = T.adapted_encode_text(text_w, ad, cfg, tokens, remat=remat)
         out.square().sum().backward()
         grads.append([p.grad.clone() for p in ad.parameters()])
-    for g0, g1 in zip(*grads):
-        torch.testing.assert_close(g1, g0, atol=1e-6, rtol=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        T.adapted_encode_text(text_w, ad, cfg, tokens, remat="selective")
+    for other in grads[1:]:
+        for g0, g1 in zip(grads[0], other):
+            torch.testing.assert_close(g1, g0, atol=1e-6, rtol=0)
+    with pytest.raises(ValueError, match="remat must be"):
+        T.adapted_encode_text(text_w, ad, cfg, tokens, remat="partial")
     with pytest.raises(ValueError, match="exceed"):
         T.adapted_encode_text(
             text_w, init_text_adapter(cfg, AdapterConfig(text_adapt_until=3),

@@ -192,7 +192,8 @@ def test_logs_name_the_epochs_rates_and_phases(runs):
     save, _, _ = runs
     log = open(os.path.join(save["port"], "train.log")).read()
     for line in ("training text epoch 1:", "training image epoch 1:",
-                 "remat auto: full", "host-loop phase decomposition",
+                 "remat auto: stage 1 (text tower) selective, stage 2 full",
+                 "host-loop phase decomposition",
                  "features_dispatch", "step_dispatch", "loader_wait",
                  "done"):
         assert line in log, line
@@ -220,19 +221,29 @@ def test_evaluations_of_both_runs_agree(runs):
 
 
 @pytest.mark.parametrize("flags,label", [
-    (["--remat", "selective"], "ROADMAP A13"),
     (["--data_parallel"], "ROADMAP A12"),
     (["--tensor_parallel", "2"], "ROADMAP A12"),
     (["--sequence_parallel"], "ROADMAP A12"),
     (["--pipeline_parallel", "2"], "ROADMAP A12"),
     (["--pp_microbatches", "4"], "ROADMAP A12"),
     (["--ckpt_backend", "orbax"], "ROADMAP A6"),
-    (["--fused_assemble", "--cache_device", "--device_augment"],
-     "ROADMAP A16"),
 ])
 def test_unported_flags_raise_naming_their_item(flags, label):
     with pytest.raises(NotImplementedError, match=label):
         cli.parse_args(flags)
+
+
+@pytest.mark.parametrize("flags,key,value", [
+    (["--remat", "selective"], "remat", "selective"),
+    (["--fused_assemble", "--cache_device", "--device_augment"],
+     "fused_assemble", True),
+])
+def test_selective_remat_and_fused_assemble_parse(flags, key, value):
+    """Selective remat and fused assembly: their flags parse as JAX's."""
+    import train as jax_train
+
+    assert getattr(cli.parse_args(flags), key) == value
+    assert vars(cli.parse_args(flags)) == vars(jax_train.parse_args(flags))
 
 
 @pytest.mark.parametrize("flags", [["--fused_assemble"], ["--cache_device"]])
