@@ -13,13 +13,22 @@ against the fused block.
         [--vv_mode batch|spatial] [--feature_chunk N] \
         [--remat full|selective|off]
     python -m aaclip_tpu_torch.bench --mode block [--batch_size 32]
+    python -m aaclip_tpu_torch.bench --mode serve [--batch_size 8] \
+        [--clients 8 | --open_loop RPS] [--map_stride S] [--steps SECONDS]
 
 Prints ONE JSON line in the format of the repo's ``bench.py``:
   {"metric": ..., "value": N, "unit": ..., "vs_baseline": N}
-(``--mode block`` adds ``unfused_ms`` and ``max_rel_dev``.)
+(``--mode block`` adds ``unfused_ms`` and ``max_rel_dev``; ``--mode
+serve`` adds the served and failed counts and the latency percentiles.)
 The unit names the card and its power limit. Timed with CUDA events
-around ``--steps`` calls after ``--warmup`` calls. Needs a card: without
-one it raises and prints nothing.
+around ``--steps`` calls after ``--warmup`` calls; ``--mode serve`` runs
+the serving engine (``serve/server.py``) under load for ``--steps``
+seconds of wall time: ``--clients`` closed-loop threads, each submitting
+its next request when its last one returns, or ``--open_loop RPS``
+arrivals at a fixed rate, each its own thread, whose rejections (the
+engine's admission control) are counted apart. Needs a card: without one
+it raises and prints nothing (``main(argv, device="cpu")`` runs the serve
+mode on the CPU, for the tests).
 """
 
 from __future__ import annotations
@@ -247,6 +256,145 @@ def bench_block(args, cfg, policy, vit, dev):
     }))
 
 
+def bench_serve(args, dev):
+    """Anomaly maps per second of the serving engine under load: a
+    ``max_batch`` ``--batch_size`` engine on MVTec's anchors (random
+    weights from the seeded init; ``AACLIP_ANCHOR_CACHE`` names an anchor
+    cache), pre-decoded random uint8 images, one warm-up request; the JAX
+    package's ``bench_serve`` with ``--steps`` as seconds in both loops."""
+    import os
+
+    import numpy as np
+
+    from aaclip_tpu_torch.serve.server import (EngineOverloadedError,
+                                               InferenceEngine)
+
+    tiny = args.model_name == "tiny-test"
+    engine = InferenceEngine(
+        model_name=args.model_name, img_size=args.img_size,
+        datasets=("MVTec",), precision=args.precision,
+        max_batch=args.batch_size, precompile=True,
+        anchor_cache=os.environ.get("AACLIP_ANCHOR_CACHE") or None,
+        adapter_cfg=(dict(levels=(1, 2), image_adapt_until=1,
+                          text_adapt_until=1) if tiny else None),
+        device=dev)
+    try:
+        rng = np.random.default_rng(0)
+        ds = sorted(engine.anchors)[0]
+        classes = sorted(engine.anchors[ds])[:2]
+        imgs = [rng.integers(0, 256, (3, args.img_size, args.img_size),
+                             dtype=np.uint8)
+                for _ in range(max(args.clients, 1))]
+        engine.submit(imgs[0], ds, classes[0], timeout=600)  # warm-up
+        loop = _serve_closed_loop if args.open_loop is None else \
+            _serve_open_loop
+        counts, elapsed, extra = loop(args, engine, imgs, ds, classes,
+                                      EngineOverloadedError)
+    finally:
+        engine.shutdown()
+    stats = engine.stats()
+    rate = counts["ok"] / elapsed
+    card = card_line() if dev.type == "cuda" else "cpu"
+    stride = f", map_stride={args.map_stride}" if args.map_stride != 1 \
+        else ""
+    print(json.dumps({
+        "metric": "serve_maps_per_sec_per_chip",
+        "value": round(rate, 2),
+        "unit": f"maps/s/chip (serving engine, {args.model_name} @ "
+                f"{args.img_size}px, {args.precision}, max_batch "
+                f"{args.batch_size}, {extra}, occupancy "
+                f"{stats['mean_batch_occupancy']}, p95 "
+                f"{stats['latency_ms']['p95']}ms{stride}, {card})",
+        # the reference has no serving path: its inference constant is the
+        # only yardstick of maps/s
+        "vs_baseline": round(rate / REFERENCE_BASELINE_MAPS_PER_SEC, 3),
+        "served": counts["ok"],
+        "rejected": counts["rejected"],
+        "errors": counts["err"],
+        "seconds": elapsed,
+        "latency_ms": stats["latency_ms"],
+        "mean_batch_occupancy": stats["mean_batch_occupancy"],
+    }))
+
+
+def _serve_closed_loop(args, engine, imgs, ds, classes, overloaded):
+    """``--clients`` threads, each submitting again when its result
+    returns, until ``--steps`` seconds have passed."""
+    import threading
+
+    duration = max(1.0, float(args.steps))
+    counts = {"ok": 0, "rejected": 0, "err": 0}
+    lock = threading.Lock()
+    t0 = time.perf_counter()
+
+    def client(i):
+        k = 0
+        while time.perf_counter() - t0 < duration:
+            try:
+                engine.submit(imgs[i], ds, classes[k % len(classes)],
+                              timeout=600, map_stride=args.map_stride)
+                outcome = "ok"
+            except overloaded:
+                outcome = "rejected"
+            except Exception:
+                outcome = "err"
+            with lock:
+                counts[outcome] += 1
+            k += 1
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(args.clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    elapsed = time.perf_counter() - t0
+    return counts, elapsed, (f"{args.clients} closed-loop clients x "
+                             f"{duration:g}s")
+
+
+def _serve_open_loop(args, engine, imgs, ds, classes, overloaded):
+    """Arrivals at ``--open_loop`` per second for ``--steps`` seconds,
+    whatever completes; rejections are counted, not retried (each arrival
+    is its own thread, as each HTTP request would be)."""
+    import threading
+
+    rps = args.open_loop
+    duration = max(1.0, float(args.steps))
+    n_total = max(1, int(rps * duration))
+    counts = {"ok": 0, "rejected": 0, "err": 0}
+    lock = threading.Lock()
+    threads = []
+
+    def fire(k):
+        try:
+            engine.submit(imgs[k % len(imgs)], ds,
+                          classes[k % len(classes)], timeout=600,
+                          map_stride=args.map_stride)
+            outcome = "ok"
+        except overloaded:
+            outcome = "rejected"
+        except Exception:
+            outcome = "err"
+        with lock:
+            counts[outcome] += 1
+
+    t0 = time.perf_counter()
+    for k in range(n_total):
+        delay = t0 + k / rps - time.perf_counter()
+        if delay > 0:
+            time.sleep(delay)
+        t = threading.Thread(target=fire, args=(k,))
+        t.start()
+        threads.append(t)
+    for t in threads:
+        t.join()
+    elapsed = time.perf_counter() - t0
+    return counts, elapsed, (
+        f"open-loop {rps:g} rps x {duration:g}s: {counts['ok']} ok, "
+        f"{counts['rejected']} rejected, {counts['err']} errors")
+
+
 def timed(call, args) -> float:
     """Calls per second of ``call`` over ``args.steps`` calls after
     ``args.warmup``, between CUDA events."""
@@ -264,17 +412,20 @@ def timed(call, args) -> float:
     return args.steps / (start.elapsed_time(end) / 1e3)
 
 
-def main(argv=None) -> None:
+def main(argv=None, *, device=None) -> None:
     from aaclip_tpu_torch.core.config import PRECISION_CHOICES
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--mode", default="infer",
-                        choices=("infer", "train", "train_stage1", "block"),
+                        choices=("infer", "train", "train_stage1", "block",
+                                 "serve"),
                         help="infer = anomaly maps/s (default); train = "
                              "stage-2 update steps, as images/s; "
                              "train_stage1 = stage-1 iterations (features "
                              "+ text update), as images/s; block = ms per "
-                             "trunk of identical blocks, fused vs unfused")
+                             "trunk of identical blocks, fused vs unfused; "
+                             "serve = maps/s of the serving engine under "
+                             "concurrent requests")
     parser.add_argument("--model_name", default="ViT-L-14-336")
     parser.add_argument("--img_size", type=int, default=518)
     parser.add_argument("--batch_size", type=int, default=None,
@@ -283,7 +434,8 @@ def main(argv=None) -> None:
     parser.add_argument("--precision", default="bf16",
                         choices=PRECISION_CHOICES,
                         help="int8 is not ported yet")
-    parser.add_argument("--steps", type=int, default=10)
+    parser.add_argument("--steps", type=int, default=10,
+                        help="timed calls; serve: seconds of load")
     parser.add_argument("--bf16_until", type=int, default=None,
                         help="override the policy's staged trunk depth "
                              "(leading vision blocks at single-pass bf16 "
@@ -305,14 +457,37 @@ def main(argv=None) -> None:
     parser.add_argument("--feature_chunk", type=int, default=0,
                         help="train_stage1: extract features N images at a "
                              "time (needs --vv_mode spatial)")
+    parser.add_argument("--clients", type=int, default=8,
+                        help="serve: concurrent closed-loop clients")
+    parser.add_argument("--open_loop", type=float, default=None,
+                        metavar="RPS",
+                        help="serve: arrivals at a fixed rate (requests/s) "
+                             "for --steps seconds instead of closed-loop "
+                             "clients; the engine's rejections are counted "
+                             "apart")
+    parser.add_argument("--map_stride", type=int, default=1,
+                        help="serve: clients request map[::s, ::s], sliced "
+                             "on the card before the copy to the host")
+    parser.add_argument("--artifact", default=None,
+                        help="serve: an exported artifact (not ported yet: "
+                             "ROADMAP A12)")
     args = parser.parse_args(argv)
     if args.mode != "train_stage1" and (args.vv_mode != "batch"
                                         or args.feature_chunk):
         parser.error("--vv_mode and --feature_chunk apply to --mode "
                      "train_stage1 only")
+    if args.mode != "serve" and (args.open_loop is not None
+                                 or args.map_stride != 1
+                                 or args.artifact is not None):
+        parser.error("--open_loop, --map_stride and --artifact apply to "
+                     "--mode serve only")
+    if args.artifact is not None:
+        raise NotImplementedError(
+            "--artifact is not ported yet: ROADMAP A12, 'int8, mesh and "
+            "serving'")
     if args.batch_size is None:
         args.batch_size = {"infer": 32, "block": 32, "train": 8,
-                           "train_stage1": 16}[args.mode]
+                           "train_stage1": 16, "serve": 8}[args.mode]
 
     import torch
 
@@ -324,7 +499,12 @@ def main(argv=None) -> None:
     from aaclip_tpu_torch.eval.predict import make_predict_fn
     from aaclip_tpu_torch.ops.similarity import fused_postproc_matrix
 
-    dev = resolve_device(None)
+    dev = resolve_device(device)
+    if args.mode == "serve":
+        return bench_serve(args, dev)
+    if dev.type != "cuda":
+        raise ValueError(f"--mode {args.mode} times with CUDA events: it "
+                         f"needs the card")
     policy = DtypePolicy.from_name(args.precision)
     if args.bf16_until is not None:
         policy = dataclasses.replace(policy, bf16_until=args.bf16_until)

@@ -30,6 +30,7 @@ C++ (``aaclip_tpu/native/fast_image.cc``). Here:
 from __future__ import annotations
 
 import functools
+import io
 import math
 import struct
 import zlib
@@ -227,25 +228,32 @@ def rgb_to_gray(rgb: np.ndarray) -> np.ndarray:
         np.uint8)
 
 
-def _load_with_pil(path: str, mode: str) -> np.ndarray:
+def _load_with_pil(src, mode: str, what: str) -> np.ndarray:
+    """``Image.open(src).convert(mode)``: ``src`` a path or a file
+    object; ``what`` names it in errors."""
     try:
         from PIL import Image
     except ImportError:
         raise RuntimeError(
-            f"{path}: not a PNG file, and PIL, which decodes other "
+            f"{what}: not a PNG file, and PIL, which decodes other "
             "formats, is not installed") from None
-    with Image.open(path) as im:
+    with Image.open(src) as im:
         return np.asarray(im.convert(mode), np.uint8)
+
+
+def decode_rgb(data: bytes, what: str = "<bytes>") -> np.ndarray:
+    """``Image.open(...).convert("RGB")`` of encoded image bytes as uint8
+    [h, w, 3]: PNG in numpy, other formats through PIL."""
+    if data[:8] != PNG_SIGNATURE:
+        return _load_with_pil(io.BytesIO(data), "RGB", what)
+    img = decode_png(data, what)
+    return np.repeat(img, 3, axis=2) if img.shape[2] == 1 else img
 
 
 def load_rgb(path: str) -> np.ndarray:
     """``Image.open(path).convert("RGB")`` as uint8 [h, w, 3]."""
     with open(path, "rb") as f:
-        data = f.read()
-    if data[:8] != PNG_SIGNATURE:
-        return _load_with_pil(path, "RGB")
-    img = decode_png(data, path)
-    return np.repeat(img, 3, axis=2) if img.shape[2] == 1 else img
+        return decode_rgb(f.read(), path)
 
 
 def load_gray(path: str) -> np.ndarray:
@@ -253,7 +261,7 @@ def load_gray(path: str) -> np.ndarray:
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != PNG_SIGNATURE:
-        return _load_with_pil(path, "L")
+        return _load_with_pil(path, "L", path)
     img = decode_png(data, path)
     return img[..., 0] if img.shape[2] == 1 else rgb_to_gray(img)
 

@@ -30,6 +30,67 @@ from aaclip_tpu_torch.ops.similarity import (apply_postproc_matrix,
                                              image_score, level_scores)
 
 
+def make_features_fn(vit: VisionTransformer, cfg: CLIPConfig,
+                     acfg: AdapterConfig, *, img_size: int | None = None,
+                     policy: DtypePolicy = DtypePolicy(), attn_fn=None,
+                     block_fn=None, uint8_inputs: bool = False, mesh=None,
+                     sequence_parallel: bool = False,
+                     device=None) -> Callable:
+    """``features(image_adapter, images) -> (seg [n_levels, B, L, D],
+    det [B, D])``, fp32: the adapted forward that ``make_predict_fn`` scores,
+    up to the stacked, L2-normalised seg tokens and the det token (the
+    memory bank builds its banks from it). Arguments as
+    ``make_predict_fn``'s; ``features.device`` is the device it runs on and
+    ``features.pp_precision`` the precision of ``M q Mᵀ`` under ``policy``.
+    """
+    if mesh is not None or sequence_parallel:
+        raise NotImplementedError(
+            "meshes, tensor and sequence parallelism are not ported yet: "
+            "ROADMAP A12, 'int8, mesh and export'")
+    dev = resolve_device(device)
+    param_dev = next(vit.parameters()).device
+    if param_dev.type != dev.type:
+        raise ValueError(f"vit lives on {param_dev}, predictor built for "
+                         f"{dev}")
+    if img_size is not None and img_size != cfg.vision.image_size:
+        raise ValueError(f"img_size {img_size} does not match the config's "
+                         f"{cfg.vision.image_size} (use get_config(name, "
+                         f"img_size))")
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+    visual = cast_matmul_weights(vit, policy)
+    act = config_act(cfg, policy)
+    patch_embed = None
+    if uint8_inputs:
+        w_f, b_f = fold_normalization_into_conv1(vit.conv1.weight.t(),
+                                                 cfg.vision.patch_size)
+        w_f = w_f.to(policy.compute_dtype)
+
+        def patch_embed(images_u8):
+            return patchify_uint8(images_u8, w_f, b_f, cfg.vision.patch_size,
+                                  compute_dtype=policy.compute_dtype,
+                                  precision=policy.precision)
+
+    @torch.inference_mode()
+    def features(image_adapter, images):
+        images = torch.as_tensor(images, device=dev)
+        seg, det = adapted_forward(
+            visual, image_adapter, cfg, images,
+            image_adapt_weight=acfg.image_adapt_weight, levels=acfg.levels,
+            proj_relu=acfg.proj_relu, policy=policy, act=act,
+            attn_fn=attn_fn, block_fn=block_fn, patch_embed_fn=patch_embed)
+        return torch.stack(seg), det
+
+    features.device = dev
+    # M q Mᵀ at true fp32 only under precision "highest" (the fp32
+    # policy), 3-pass under fp32_high and bf16, as JAX's predictor
+    features.pp_precision = "highest" if policy.precision == "highest" \
+        else "high"
+    return features
+
+
 def make_predict_fn(vit: VisionTransformer, cfg: CLIPConfig,
                     acfg: AdapterConfig, *, img_size: int | None = None,
                     policy: DtypePolicy = DtypePolicy(), attn_fn=None,
@@ -57,52 +118,21 @@ def make_predict_fn(vit: VisionTransformer, cfg: CLIPConfig,
 
     ``device=None`` means the card and raises when there is none; ``vit``
     must already live on that device. On the card TF32 is switched off for
-    matmuls and cuDNN, so fp32 products are true fp32.
+    matmuls and cuDNN, so fp32 products are true fp32. The forward is
+    ``make_features_fn``'s.
     """
-    if mesh is not None or sequence_parallel:
-        raise NotImplementedError(
-            "meshes, tensor and sequence parallelism are not ported yet: "
-            "ROADMAP A12, 'int8, mesh and serving'")
-    dev = resolve_device(device)
-    param_dev = next(vit.parameters()).device
-    if param_dev.type != dev.type:
-        raise ValueError(f"vit lives on {param_dev}, predictor built for "
-                         f"{dev}")
-    if img_size is not None and img_size != cfg.vision.image_size:
-        raise ValueError(f"img_size {img_size} does not match the config's "
-                         f"{cfg.vision.image_size} (use get_config(name, "
-                         f"img_size))")
-    if dev.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-
-    visual = cast_matmul_weights(vit, policy)
-    act = config_act(cfg, policy)
-    # M q Mᵀ at true fp32 only under precision "highest" (the fp32
-    # policy), 3-pass under fp32_high and bf16, as JAX's predictor
-    pp_precision = "highest" if policy.precision == "highest" else "high"
-    patch_embed = None
-    if uint8_inputs:
-        w_f, b_f = fold_normalization_into_conv1(vit.conv1.weight.t(),
-                                                 cfg.vision.patch_size)
-        w_f = w_f.to(policy.compute_dtype)
-
-        def patch_embed(images_u8):
-            return patchify_uint8(images_u8, w_f, b_f, cfg.vision.patch_size,
-                                  compute_dtype=policy.compute_dtype,
-                                  precision=policy.precision)
+    features = make_features_fn(
+        vit, cfg, acfg, img_size=img_size, policy=policy, attn_fn=attn_fn,
+        block_fn=block_fn, uint8_inputs=uint8_inputs, mesh=mesh,
+        sequence_parallel=sequence_parallel, device=device)
+    dev, pp_precision = features.device, features.pp_precision
 
     @torch.inference_mode()
     def predict(image_adapter, images, anchors, M):
-        images = torch.as_tensor(images, device=dev)
+        seg, det = features(image_adapter, images)
         anchors = torch.as_tensor(anchors, device=dev)
         M = torch.as_tensor(M, device=dev)
-        seg, det = adapted_forward(
-            visual, image_adapter, cfg, images,
-            image_adapt_weight=acfg.image_adapt_weight, levels=acfg.levels,
-            proj_relu=acfg.proj_relu, policy=policy, act=act,
-            attn_fn=attn_fn, block_fn=block_fn, patch_embed_fn=patch_embed)
-        scores = level_scores(torch.stack(seg), anchors)     # [n, B, L, 2]
+        scores = level_scores(seg, anchors)                  # [n, B, L, 2]
         _, B, L, _ = scores.shape
         grid = int(round(L ** 0.5))
         q = collapse_level_scores(scores).reshape(B, grid, grid)

@@ -7,7 +7,9 @@ Each binding returns None when its library is unavailable (no compiler,
 no libjpeg/libpng headers for the image library, or ``AACLIP_NO_NATIVE``
 set); the callers then take their numpy paths (``eval/metrics.py``,
 ``data/transforms.py``). The same C ABI as the JAX package's
-``aaclip_tpu/native``, from a copy of its sources.
+``aaclip_tpu/native``, from a copy of its sources; ``fast_image.cc`` adds
+``decode_rgb_resize_chw``, the decode of an encoded image in memory (the
+serving engine's request bodies).
 """
 
 from __future__ import annotations

@@ -36,8 +36,9 @@ from typing import Optional
 _DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_DIR, "_build")
 # bump a library's ABI version whenever one of its C signatures changes
-# (v2: auroc_ap takes float64 scores, as the JAX package's v2)
-LIBS = {"fast_metrics": ("v2", ()), "fast_image": ("v2", ("jpeg", "png"))}
+# (v2: auroc_ap takes float64 scores, as the JAX package's v2; fast_image
+# v3: decode_rgb_resize_chw, the serving engine's in-memory decode)
+LIBS = {"fast_metrics": ("v2", ()), "fast_image": ("v3", ("jpeg", "png"))}
 FAST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-fopenmp",
               "-D_GLIBCXX_PARALLEL", "-march=native")
 PORTABLE_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
@@ -160,6 +161,10 @@ def _bind_image(lib) -> None:
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_char_p, ctypes.c_int,
                        ctypes.POINTER(ctypes.c_uint8)]
+    lib.decode_rgb_resize_chw.restype = ctypes.c_int
+    lib.decode_rgb_resize_chw.argtypes = [
+        ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_uint8)]
 
 
 def load() -> Optional[ctypes.CDLL]:

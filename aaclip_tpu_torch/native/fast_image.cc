@@ -273,9 +273,8 @@ int decode_png(FILE* f, DecodeResult& res) {
   return 0;
 }
 
-int decode_file(const char* path, DecodeResult& res) {
-  FILE* f = std::fopen(path, "rb");
-  if (!f) return 1;
+// Decode the open stream `f` (rewound, then closed here).
+int decode_stream(FILE* f, DecodeResult& res) {
   uint8_t magic[8] = {0};
   const size_t got = std::fread(magic, 1, 8, f);
   std::rewind(f);
@@ -289,6 +288,19 @@ int decode_file(const char* path, DecodeResult& res) {
   }
   std::fclose(f);
   return rc;
+}
+
+int decode_file(const char* path, DecodeResult& res) {
+  FILE* f = std::fopen(path, "rb");
+  if (!f) return 1;
+  return decode_stream(f, res);
+}
+
+int decode_memory(const uint8_t* data, size_t len, DecodeResult& res) {
+  if (len == 0) return 1;
+  FILE* f = fmemopen(const_cast<uint8_t*>(data), len, "rb");
+  if (!f) return 1;
+  return decode_stream(f, res);
 }
 
 // PIL convert("RGB") from "L": replicate; convert("L") from RGB:
@@ -315,17 +327,8 @@ void rgb_to_gray(DecodeResult& res) {
   res.ch = 1;
 }
 
-}  // namespace
-
-extern "C" {
-
-// Decode `path`, convert to RGB, bicubic-resize to out_size x out_size, and
-// write uint8 CHW planes into `out` (3 * out_size * out_size bytes).
-// Returns 0 on success; nonzero = caller must fall back to Python.
-int load_rgb_resize_chw(const char* path, int out_size, uint8_t* out) try {
-  DecodeResult res;
-  const int rc = decode_file(path, res);
-  if (rc != 0) return rc;
+// RGB conversion, bicubic resize to out_size x out_size, uint8 CHW planes.
+void rgb_resize_chw(DecodeResult& res, int out_size, uint8_t* out) {
   if (res.ch == 1) gray_to_rgb(res);
   std::vector<uint8_t> tmp(static_cast<size_t>(res.h) * out_size * 3);
   resample_horizontal(res.pixels.data(), res.h, res.w, 3, out_size,
@@ -338,11 +341,38 @@ int load_rgb_resize_chw(const char* path, int out_size, uint8_t* out) try {
     out[plane + i] = hw[3 * i + 1];
     out[2 * plane + i] = hw[3 * i + 2];
   }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Decode `path`, convert to RGB, bicubic-resize to out_size x out_size, and
+// write uint8 CHW planes into `out` (3 * out_size * out_size bytes).
+// Returns 0 on success; nonzero = caller must fall back to Python.
+int load_rgb_resize_chw(const char* path, int out_size, uint8_t* out) try {
+  DecodeResult res;
+  const int rc = decode_file(path, res);
+  if (rc != 0) return rc;
+  rgb_resize_chw(res, out_size, out);
   return 0;
 } catch (...) {
   // a C++ exception (e.g. bad_alloc) must never unwind through the
   // ctypes FFI boundary — report failure and let the caller fall back
   return 100;
+}
+
+// load_rgb_resize_chw of the encoded image in `data` (`len` bytes): the
+// serving engine's request bodies.
+int decode_rgb_resize_chw(const uint8_t* data, size_t len, int out_size,
+                          uint8_t* out) try {
+  DecodeResult res;
+  const int rc = decode_memory(data, len, res);
+  if (rc != 0) return rc;
+  rgb_resize_chw(res, out_size, out);
+  return 0;
+} catch (...) {
+  return 100;  // see load_rgb_resize_chw: no unwind across the FFI
 }
 
 // Decode `path`, convert to grayscale (PIL "L"), nearest-resize to

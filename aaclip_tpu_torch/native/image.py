@@ -1,7 +1,8 @@
 """ctypes bindings of ``fast_image.cc``: decode (libpng, libjpeg) and
 Pillow's resamplers bit for bit, to the uint8 arrays the test-time input
 path needs (``data/transforms.py::load_rgb_chw`` and
-``load_mask_binarized``). Each returns None where the library is
+``load_mask_binarized``) and the serving engine decodes request bodies
+to (``decode_rgb_resize_chw``). Each returns None where the library is
 unavailable or the file is one it leaves to Python (16-bit PNG, CMYK
 JPEG, another format: rc != 0); the caller then decodes with
 ``data/image.py``. The call releases the GIL, so the loader's threads
@@ -47,5 +48,18 @@ def load_gray_resize_nearest(path: str, size: int) -> Optional[np.ndarray]:
     out = np.empty((size, size), np.uint8)
     rc = lib.load_gray_resize_nearest(
         os.fsencode(path), ctypes.c_int(size),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+    return out if rc == 0 else None
+
+
+def decode_rgb_resize_chw(data: bytes, size: int) -> Optional[np.ndarray]:
+    """``load_rgb_resize_chw`` of encoded image bytes (a request body);
+    or None."""
+    lib = load_image_lib()
+    if lib is None:
+        return None
+    out = np.empty((3, size, size), np.uint8)
+    rc = lib.decode_rgb_resize_chw(
+        data, ctypes.c_size_t(len(data)), ctypes.c_int(size),
         out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
     return out if rc == 0 else None

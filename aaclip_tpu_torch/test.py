@@ -14,8 +14,10 @@ cv2. The metrics and the decode run on the host library
 (``native/``) where it builds, else on their numpy paths; the log says
 which, once, and each class's ``metrics_eval`` seconds.
 
-The flags are the JAX CLI's; those of paths not ported yet raise at parse
-time naming their ROADMAP item. ``main(argv, device="cpu")`` runs on the
+``--memory_bank`` (with ``--shot``, ``--bank_weight``, ``--bank_chunk``)
+fuses each class's few-shot memory bank into the prediction
+(``eval/memory_bank.py``). The flags are the JAX CLI's; those of paths not
+ported yet raise at parse time naming their ROADMAP item. ``main(argv, device="cpu")`` runs on the
 CPU (the tests); by default it runs on the card.
 """
 
@@ -30,7 +32,7 @@ import re
 import time
 
 # flags of paths the port does not have yet -> (ROADMAP item, its title)
-_A12 = ("A12", "int8, mesh and serving")
+_A12 = ("A12", "int8, mesh and export")
 _A15 = ("A15", "visualization")
 
 
@@ -95,9 +97,18 @@ def parse_args(argv=None):
     parser.add_argument("--sequence_parallel", action="store_true")
     parser.add_argument("--pipeline_parallel", type=int, default=1)
     parser.add_argument("--pp_microbatches", type=int, default=None)
-    parser.add_argument("--memory_bank", action="store_true")
-    parser.add_argument("--bank_weight", type=float, default=0.5)
-    parser.add_argument("--bank_chunk", type=int, default=1024)
+    parser.add_argument("--memory_bank", action="store_true",
+                        help="few-shot mode: a per-class bank of adapted "
+                             "patch features from the first --shot normal "
+                             "training images, its nearest-neighbour scores "
+                             "fused with the text-anchor prediction at "
+                             "--bank_weight (eval/memory_bank.py)")
+    parser.add_argument("--bank_weight", type=float, default=0.5,
+                        help="fusion weight of the bank scores (0 = text "
+                             "anchors alone, 1 = the bank alone)")
+    parser.add_argument("--bank_chunk", type=int, default=1024,
+                        help="bank rows per step of the max-similarity "
+                             "loop (peak memory ~ [levels, B, L, chunk])")
     parser.add_argument("--artifact", type=str, default=None)
     args = parser.parse_args(argv)
     unported = [
@@ -107,7 +118,6 @@ def parse_args(argv=None):
         ("--tensor_parallel", args.tensor_parallel > 1, _A12),
         ("--sequence_parallel", args.sequence_parallel, _A12),
         ("--pipeline_parallel", args.pipeline_parallel > 1, _A12),
-        ("--memory_bank", args.memory_bank, _A12),
         ("--artifact", args.artifact is not None, _A12),
         ("--visualize", args.visualize, _A15),
     ]
@@ -115,6 +125,8 @@ def parse_args(argv=None):
         if given:
             raise NotImplementedError(
                 f"{flag} is not ported yet: ROADMAP {item}, '{title}'")
+    if args.memory_bank and args.shot < 1:
+        parser.error("--memory_bank needs --shot >= 1 support images")
     return args
 
 
@@ -225,6 +237,20 @@ def main(argv=None, *, device=None):
     uint8_inputs = args.fused_preprocess or args.precision == "bf16"
     predict_fn = make_predict_fn(vit, cfg, acfg, policy=policy,
                                  uint8_inputs=uint8_inputs, device=dev)
+    mb_predict = support = None
+    if args.memory_bank:
+        from aaclip_tpu_torch.eval import memory_bank as mb
+
+        mb_predict = mb.make_mb_predict_fn(
+            vit, cfg, acfg, policy=policy, uint8_inputs=uint8_inputs,
+            bank_weight=args.bank_weight, chunk=args.bank_chunk, device=dev)
+        # classes absent from the metadata are skipped (their test splits
+        # are empty too)
+        support = mb.collect_support_sets(args.dataset, args.shot,
+                                          args.img_size, uint8=uint8_inputs,
+                                          log=logger)
+        logger.info("memory_bank: fusing %d-shot nearest-neighbor scores "
+                    "at weight %.2f", args.shot, args.bank_weight)
     domain = DOMAINS[args.dataset]
     # the datasets and anchors do not change across snapshots
     image_datasets = get_test_datasets(args.dataset, args.img_size,
@@ -255,8 +281,28 @@ def main(argv=None, *, device=None):
                 continue
             loader = BatchLoader(dataset, args.batch_size,
                                  num_workers=args.num_workers)
+            fn = predict_fn
+            if mb_predict is not None:
+                if class_name not in support:
+                    # a bank-less class would mix protocols in one table
+                    raise SystemExit(
+                        f"--memory_bank: class {class_name!r} has test "
+                        "images but no training metadata to draw support "
+                        "from")
+                # per snapshot and class: the bank comes from the adapters
+                # under evaluation (reference test.py:41)
+                bank = mb.collect_bank(mb_predict.features_fn, image_adapter,
+                                       support[class_name],
+                                       batch_size=args.batch_size)
+                logger.info("memory bank: %d patch vectors/level x %d "
+                            "levels (%d-shot)", bank.shape[1], bank.shape[0],
+                            args.shot)
+
+                def fn(ia, im, an, M, _bank=bank):
+                    return mb_predict(ia, im, an, M, _bank)
+                fn.device = mb_predict.device
             masks, labels, preds, preds_image, file_names = \
-                run_class_predictions(predict_fn, image_adapter, loader,
+                run_class_predictions(fn, image_adapter, loader,
                                       text_embeddings[class_name], domain,
                                       args.img_size, grid)
             timer.tick(len(file_names))

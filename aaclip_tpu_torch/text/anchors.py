@@ -7,8 +7,8 @@ normalised again, and the two means are stacked as the columns of a
 [embed_dim, 2] anchor (column 0 normal, column 1 abnormal). All sentences
 of all classes of a dataset go through the text tower in one batch,
 [n_classes * 16, 77]; the stage-1 step runs the same reduction with
-gradients into the text adapters. The disk cache of anchors waits for
-serving.
+gradients into the text adapters. ``encode_dataset_anchors_cached`` keeps
+a dataset's anchors on disk for the serving engine's cold start.
 """
 
 from __future__ import annotations
@@ -71,3 +71,57 @@ def encode_dataset_anchors(encode_fn: Callable[[torch.Tensor], torch.Tensor],
     embeds = encode_fn(flat.long())
     anchors = reduce_to_anchors(embeds.reshape(C, SENTENCES_PER_CLASS, -1))
     return {name: anchors[i] for i, name in enumerate(names)}
+
+
+# bump when the anchor math or the token layout changes in a way the key's
+# inputs cannot see
+_ANCHOR_CACHE_VERSION = 1
+
+
+def encode_dataset_anchors_cached(encode_fn, dataset_name: str,
+                                  identity: str, cache_dir: str,
+                                  class_names: Optional[List[str]] = None
+                                  ) -> Dict[str, np.ndarray]:
+    """Disk-cached ``encode_dataset_anchors``, as host numpy arrays.
+
+    The anchors are a pure function of the prompts and of what produced
+    the text embeddings. The key hashes the token array itself (prompts,
+    class list, tokenizer) with ``identity``, which the caller builds from
+    everything else: the text weights' provenance (checkpoint identity or
+    init seed), the text adapter's digest, the adapter config, the
+    precision policy, and the library and device that computed them. A
+    wrong-identity hit is silent, so over-key rather than under-key.
+
+    An entry that does not load, or holds another class count, is rebuilt.
+    Writes are atomic (a temporary file, then ``os.replace``); engines that
+    race write identical bytes."""
+    import hashlib
+    import os
+
+    names = class_names if class_names is not None else \
+        CLASS_NAMES[dataset_name]
+    tokens = dataset_prompt_tokens(dataset_name, names)
+    h = hashlib.sha256()
+    h.update(f"v{_ANCHOR_CACHE_VERSION}|{identity}|{dataset_name}|"
+             f"{','.join(names)}|".encode())
+    h.update(np.ascontiguousarray(tokens).tobytes())
+    path = os.path.join(cache_dir, f"anchors_{h.hexdigest()[:32]}.npz")
+    if os.path.exists(path):
+        try:
+            with np.load(path) as z:
+                arr = np.asarray(z["anchors"])
+            if arr.shape[0] == len(names):
+                return {n: arr[i] for i, n in enumerate(names)}
+        except Exception:
+            pass  # a corrupt or partial entry: rebuild it below
+    out = encode_dataset_anchors(encode_fn, dataset_name, names)
+    arr = np.stack([out[n].detach().cpu().numpy() for n in names])
+    os.makedirs(cache_dir, exist_ok=True)
+    tmp = f"{path}.tmp-{os.getpid()}.npz"
+    try:
+        np.savez(tmp, anchors=arr)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return {n: arr[i] for i, n in enumerate(names)}

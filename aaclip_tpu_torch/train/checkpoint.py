@@ -159,6 +159,52 @@ def load_adapter_checkpoint_any(path: str, adapter_template
     return load_adapter_checkpoint(path, adapter_template)
 
 
+def discover_serving_adapters(save_path: str, image_template, text_template):
+    """The adapter checkpoints a serving process loads from a training
+    output directory: ``(image tree, text tree, image path, text path)``,
+    each tree the loaded one or the template when nothing was found (its
+    path None then; the engine flags that as untrained serving).
+
+    * text: the rolling ``text_adapter.npz``;
+    * image: the highest-epoch ``image_adapter_{e}`` snapshot, the epoch
+      parsed (lexicographic order puts 10 before 2), crash leftovers such
+      as ``image_adapter_1.npz.tmp-<pid>.npz`` skipped; else the rolling
+      ``image_adapter.npz``, the canonical resume file.
+
+    The JAX package's rules (its ``discover_serving_adapters``); an
+    ``.orbax`` directory raises, as ``load_adapter_checkpoint_any`` does."""
+    import glob
+    import re
+
+    text_tree, text_path = text_template, None
+    found = find_adapter_checkpoint(os.path.join(save_path,
+                                                 "text_adapter.npz"))
+    if found:
+        _, text_tree, _ = load_adapter_checkpoint_any(found, text_template)
+        text_path = found
+
+    def snap_epoch(path):
+        m = re.search(r"image_adapter_(\d+)\.(npz|orbax)$", path)
+        return int(m.group(1)) if m else -1
+
+    snaps = sorted(
+        (p for p in
+         glob.glob(os.path.join(save_path, "image_adapter_*.npz"))
+         + glob.glob(os.path.join(save_path, "image_adapter_*.orbax"))
+         if snap_epoch(p) >= 0),
+        key=snap_epoch)
+    image_tree, image_path = image_template, None
+    if snaps:
+        image_path = snaps[-1]
+    else:
+        image_path = find_adapter_checkpoint(
+            os.path.join(save_path, "image_adapter.npz"))
+    if image_path:
+        _, image_tree, _ = load_adapter_checkpoint_any(image_path,
+                                                       image_template)
+    return image_tree, text_tree, image_path, text_path
+
+
 # ---------------------------------------------------------------------------
 # torch's Adam and MultiStepLR <-> optax's state tree
 

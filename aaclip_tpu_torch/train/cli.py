@@ -35,7 +35,7 @@ import numpy as np
 
 # flags of paths the port does not have yet -> (ROADMAP item, its title)
 _A6 = ("A6", "the orbax checkpoint backend, JAX's own")
-_A12 = ("A12", "int8, mesh and serving")
+_A12 = ("A12", "int8, mesh and export")
 
 
 def parse_args(argv=None):

@@ -47,7 +47,7 @@ def _no_mesh(mesh, sequence_parallel: bool) -> None:
     if mesh is not None or sequence_parallel:
         raise NotImplementedError(
             "meshes, tensor and sequence parallelism are not ported yet: "
-            "ROADMAP A12, 'int8, mesh and serving'")
+            "ROADMAP A12, 'int8, mesh and export'")
 
 
 def _step_device(tower: torch.nn.Module, device) -> torch.device:

@@ -169,6 +169,27 @@ Needs one CUDA card and nvcc. Phases, each of which fails the run:
     ``split3`` and ``split2`` alone, and SDPA on the same fp32 inputs, and the
     fp32_high predict's maps/s and stage-2 step's images/s beside fp32's
     (every fp32 launch of those timed runs counted on the 6-pass route).
+12. serving and the memory bank at ViT-L/518, bf16, uint8 inputs: (a) the
+    mb predict (``eval/memory_bank.py``, 4 seeded support images, a test
+    batch of 8) at ``bank_weight`` 0 against ``make_predict_fn`` bit for
+    bit, at 0.5 against the same predictor on the plain attention (phase
+    4's bars), the support images against their own bank, 24 B1 launches
+    per features batch and per mb predict, its maps/s beside the
+    predict's at batch 8 and 32 and the seconds per bank build; (b) the
+    evaluation CLI with ``--memory_bank --shot 4`` from phase 9's
+    checkpoint on phase 9's first class, its scores bit for bit against a
+    direct mb predict; (c) the serving engine (``serve/server.py``) from
+    phase 9's checkpoint and npz adapters, max_batch 8, the anchor cache in
+    a temporary directory (a second engine must read it: no text forward,
+    anchors bit for bit), 8 concurrent PNG ``/predict`` requests over 3
+    classes (json, f16, u8, map_stride 2) held against a direct predict at
+    phase 4's bars plus each encoding's rounding, the stride-2 map against
+    the full map sliced exactly, ``/healthz``, ``/classes``, ``/statz``,
+    and B1's launches 24 x (the batches ``/statz`` counts + 4 warm-up
+    buckets), with the start-up split, each request's latency and the
+    phase split printed; (d) ``bench --mode serve`` in-process: closed
+    loop with 8 clients for 10 s, open loop at half its rate for 10 s, the
+    closed loop with ``--map_stride 4``, no error in any.
 Phase 3 also holds the V-V mode of the forward kernel (B3) against its
 plain version, in bf16 and fp32, at [16, 1370, 1024], ragged S and head
 dim 16, and against the standard mode on the value section tripled.
@@ -181,7 +202,7 @@ for B2 and B3) (``launches`` counts the
 wrapper's calls on the main path; B4's is read after the fused predict,
 where it must be 0, since no path runs B4; ``calls`` gives B1's, B2's
 and B3's launches on each path that runs them, the training CLI's runs
-included; ``ms`` is per call;
+and phase 12's paths included; ``ms`` is per call;
 ``kernels_per_call`` is counted at the library's launch sites in one call
 at the timed shape, and torch.profiler must see no device operation but
 those kernels in three calls, no cast or copy, and each of them at least
@@ -4077,6 +4098,549 @@ def phase_fp32_high(vit, adapter, cfg, acfg, anchors, M, card,
     return {"calls": calls, "rates": rates}
 
 
+# Phase 12, serving and the memory bank at ViT-L-14-336 @ 518, bf16, uint8
+# inputs, after phase 11. (a) The memory bank on the weights of phases 4-8:
+# 4 seeded support images, a test batch of 8; the mb predict at
+# bank_weight 0 against make_predict_fn bit for bit (the same ops in the
+# same order, and 0 * q_bank adds +0); at 0.5 against the same predictor
+# on the plain attention (its bank from plain features): scores at phase
+# 4's bar, the map at MB_PIX_SPAN_FRAC, twice phase 4's: the bank term
+# 50 (1 - max cos) per level carries two feature deviations, the test
+# image's and the bank's, where the text term carries one (read on an
+# NVIDIA H100 80GB HBM3, 700 W: 1.044e-2 and 1.115e-2 of the span, the
+# banks' features 2.5e-3 apart; phase 4's text-only map 9.1e-3 in the same
+# run);
+# each support image's own patches against its bank below MB_SELF_MAX
+# (unit fp32 vectors against themselves: |1 - x.x| is a few fp32 ulps per
+# level, times 50 per level, summed over 4; read on an NVIDIA H100 80GB
+# HBM3, 700 W: 1.401e-4, so the CPU test's bar 1e-3 stands at 7x it); 24
+# B1 launches per features batch and per mb predict. (b) The evaluation CLI
+# with --memory_bank --shot 4 from phase 9's checkpoint on phase 9's first
+# class (regenerated: the same seed draws the same images), its scores bit
+# for bit against a direct mb predict of the same images and bank. (c) The
+# serving engine from phase 9's checkpoint and a trained-looking adapter
+# directory (npz image and text adapters), max_batch 8, the anchor cache in
+# a temporary directory; a second engine on the same cache reads it (no
+# text forward) and gives bit-equal anchors; 8 concurrent PNG /predict
+# requests over 3 classes (one f16, one u8, one map_stride 2) held against
+# a direct call of the engine's make_predict_fn at batch 8 on the same
+# decoded images and anchors at phase 4's bars, plus each encoding's own
+# rounding (JSON 5e-5, f16 half an ulp, u8 half its scale); a stride-2 map
+# against the same image's full map sliced, exactly (both served alone,
+# bucket 1); B1's launches 24 x (the batches /statz counts + the 4
+# warm-up buckets). (d) ``python -m aaclip_tpu_torch.bench --mode serve``
+# in-process: closed loop, 8 clients, 10 s; open loop at half that rate,
+# 10 s; the closed loop again with --map_stride 4; no error in any.
+MB_SUPPORT, MB_BATCH, MB_SHOT = 4, 8, 4
+MB_SELF_MAX = 1e-3
+MB_PIX_SPAN_FRAC = 2 * PIX_SPAN_FRAC_BF16
+SERVE_CLASSES = ("bottle", "cable", "capsule")
+SERVE_REQUESTS, SERVE_PNG_PX, SERVE_SECONDS = 8, 700, 10
+WARMUP_BUCKETS = 4  # 1, 2, 4, 8 at max_batch 8
+
+
+def phase_memory_bank(vit, adapter, cfg, acfg, anchors, M, card, gen):
+    """Phase 12a; returns the plain predict's maps/s at batch 8 and 32 and
+    the launches per features batch and per mb predict."""
+    import torch
+
+    from aaclip_tpu_torch.core.config import DtypePolicy
+    from aaclip_tpu_torch.eval import memory_bank as mb
+    from aaclip_tpu_torch.eval.predict import make_predict_fn
+    from aaclip_tpu_torch.ops.attention import attention_packed
+
+    heads, img, n_layers = cfg.vision.heads, cfg.vision.image_size, \
+        cfg.vision.layers
+    L = cfg.vision.grid ** 2
+    bf16 = DtypePolicy.bf16()
+    kw = dict(policy=bf16, uint8_inputs=True)
+    plain = make_predict_fn(vit, cfg, acfg, **kw)
+    mb0 = mb.make_mb_predict_fn(vit, cfg, acfg, bank_weight=0.0, **kw)
+    mb5 = mb.make_mb_predict_fn(vit, cfg, acfg, bank_weight=0.5, **kw)
+    mb5_plain = mb.make_mb_predict_fn(
+        vit, cfg, acfg, bank_weight=0.5,
+        attn_fn=make_attn_fn_plain(heads, bf16), **kw)
+    support = torch.randint(0, 256, (MB_SUPPORT, 3, img, img), generator=gen,
+                            device="cuda", dtype=torch.uint8)
+    test = torch.randint(0, 256, (MB_BATCH, 3, img, img), generator=gen,
+                         device="cuda", dtype=torch.uint8)
+
+    zero_counts()
+    bank = mb.collect_bank(mb5.features_fn, adapter, support,
+                           batch_size=MB_SUPPORT)
+    torch.cuda.synchronize()
+    feat_launches = attention_packed.launches
+    expect(feat_launches == n_layers,
+           f"bank features: {feat_launches} B1 launches, not {n_layers}")
+    expect(tuple(bank.shape) == (len(acfg.levels), MB_SUPPORT * L,
+                                 cfg.embed_dim),
+           f"bank shape {tuple(bank.shape)}")
+    bank_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        mb.collect_bank(mb5.features_fn, adapter, support,
+                        batch_size=MB_SUPPORT)
+        torch.cuda.synchronize()
+        bank_s.append(time.perf_counter() - t0)
+
+    # 1. bank_weight 0: the plain predict's output, bit for bit
+    pix0, s0 = plain(adapter, test, anchors, M)
+    pix_w0, s_w0 = mb0(adapter, test, anchors, M, bank)
+    same = bool(torch.equal(pix0, pix_w0) and torch.equal(s0, s_w0))
+    print(f"mb predict bank_weight 0 vs make_predict_fn B={MB_BATCH}: bit "
+          f"for bit {same} (max|d map| "
+          f"{(pix0 - pix_w0).abs().max().item():.3e})")
+    expect(same, "mb predict at bank_weight 0 differs from the predict")
+
+    # 2. bank_weight 0.5, kernel against the plain attention
+    zero_counts()
+    pix_k, s_k = mb5(adapter, test, anchors, M, bank)
+    torch.cuda.synchronize()
+    mb_launches = attention_packed.launches
+    expect(mb_launches == n_layers,
+           f"mb predict: {mb_launches} B1 launches, not {n_layers}")
+    bank_p = mb.collect_bank(mb5_plain.features_fn, adapter, support,
+                             batch_size=MB_SUPPORT)
+    pix_p, s_p = mb5_plain(adapter, test, anchors, M, bank_p)
+    expect(attention_packed.launches == n_layers,
+           "the plain-attention mb predictor launched the kernel")
+    expect(bool(torch.isfinite(pix_k).all() and torch.isfinite(s_k).all()),
+           "mb predict output not finite")
+    span = (pix_p.max() - pix_p.min()).item()
+    dpix = (pix_k - pix_p).abs().max().item()
+    dscore = (s_k - s_p).abs().max().item()
+    print(f"mb predict bank_weight 0.5 B={MB_BATCH}, kernel vs plain "
+          f"attention: map span {span:.4f}, max|d map| {dpix:.3e} "
+          f"({dpix / span:.3e} of span, bar {MB_PIX_SPAN_FRAC}), "
+          f"max|d score| {dscore:.3e} (bar {SCORE_ATOL_BF16}); bank "
+          f"max|d| {(bank - bank_p).abs().max().item():.3e}")
+    expect(dpix <= MB_PIX_SPAN_FRAC * span, f"mb map off: {dpix}")
+    expect(dscore <= SCORE_ATOL_BF16, f"mb scores off: {dscore}")
+    del bank_p, pix_p, pix_w0, pix0
+
+    # 3. the support images against their own bank
+    seg, _ = mb5.features_fn(adapter, support)
+    self_max = mb.bank_grid_scores(seg, bank).abs().max().item()
+    print(f"memory bank: support images against their own bank, max score "
+          f"{self_max:.3e} (bar {MB_SELF_MAX})")
+    expect(self_max < MB_SELF_MAX, f"self-support score {self_max}")
+    del seg
+
+    # rates in one call: the plain predict at 8 and 32, the mb predict
+    ms_plain = cuda_ms(lambda: plain(adapter, test, anchors, M), 10)
+    ms_mb = cuda_ms(lambda: mb5(adapter, test, anchors, M, bank), 10)
+    test32 = torch.randint(0, 256, (32, 3, img, img), generator=gen,
+                           device="cuda", dtype=torch.uint8)
+    ms_plain32 = cuda_ms(lambda: plain(adapter, test32, anchors, M), 5)
+    rates = {"predict B=8": MB_BATCH * 1e3 / ms_plain,
+             "mb predict B=8": MB_BATCH * 1e3 / ms_mb,
+             "predict B=32": 32 * 1e3 / ms_plain32}
+    # the serving engine's smaller buckets: what a lightly loaded server's
+    # batches cost
+    ms_small = {b: cuda_ms(lambda b=b: plain(adapter, test[:b], anchors, M),
+                           10) for b in (1, 2, 4)}
+    print("predict bf16 ms per call by bucket: "
+          + ", ".join(f"B={b} {ms:.2f}" for b, ms in ms_small.items())
+          + f", B={MB_BATCH} {ms_plain:.2f}, B=32 {ms_plain32:.2f} on {card}")
+    print(f"memory bank ({MB_SUPPORT}-shot, bank [{bank.shape[0]}, "
+          f"{bank.shape[1]}, {bank.shape[2]}] fp32, chunk 1024): mb predict "
+          f"{rates['mb predict B=8']:.2f} maps/s against the predict's "
+          f"{rates['predict B=8']:.2f} at B={MB_BATCH} "
+          f"({ms_mb / ms_plain:.3f}x the time), predict "
+          f"{rates['predict B=32']:.2f} maps/s at B=32; bank build "
+          f"{', '.join(f'{t:.3f}' for t in bank_s)} s on {card}")
+    del plain, mb0, mb5, mb5_plain, bank, test32
+    return rates, feat_launches, mb_launches
+
+
+def phase_mb_eval_cli(card, ckpt_path: str) -> int:
+    """Phase 12b; returns the CLI's B1 launches."""
+    import gc
+    import os
+
+    import torch
+
+    from aaclip_tpu_torch import test as eval_cli
+    from aaclip_tpu_torch.core.config import (AdapterConfig, DtypePolicy,
+                                              get_config)
+    from aaclip_tpu_torch.core.params import (adapter_from_jax,
+                                              adapter_to_jax,
+                                              create_clip_towers,
+                                              init_image_adapter)
+    from aaclip_tpu_torch.data.datasets import BatchLoader, get_test_datasets
+    from aaclip_tpu_torch.data.synthetic import make_synthetic_dataset
+    from aaclip_tpu_torch.eval import memory_bank as mb
+    from aaclip_tpu_torch.eval.predict import (make_anchor_encoder,
+                                               run_class_predictions)
+    from aaclip_tpu_torch.ops.attention import attention_packed
+    from aaclip_tpu_torch.text.anchors import encode_dataset_anchors
+    from aaclip_tpu_torch.train import checkpoint as ckpt
+
+    cfg = get_config("ViT-L-14-336", img_size=518)
+    img, n_layers = cfg.vision.image_size, cfg.vision.layers
+    acfg = AdapterConfig()
+    bf16 = DtypePolicy.bf16()
+    B = 32
+    tmp = tempfile.mkdtemp(prefix="aaclip_mb_cli_")
+    env_before = {k: os.environ.get(k) for k in ("AACLIP_DATA",
+                                                 "AACLIP_METADATA")}
+    try:
+        data_root, meta_root = make_synthetic_dataset(
+            os.path.join(tmp, "eval_set"), class_names=["bottle"],
+            n_normal=EVAL_NORMAL, n_anomalous=EVAL_ANOMALOUS,
+            img_px=EVAL_PX, hard=True)
+        os.environ.update(AACLIP_DATA=data_root, AACLIP_METADATA=meta_root)
+        ad_tree = adapter_to_jax(init_image_adapter(cfg, acfg, seed=9,
+                                                    device="cpu"))
+        save = os.path.join(tmp, "eval")
+        ckpt.save_adapter_checkpoint(
+            os.path.join(save, "image_adapter_1.npz"), 1, ad_tree)
+        zero_counts()
+        t0 = time.perf_counter()
+        eval_cli.main(["--clip_checkpoint", ckpt_path, "--save_path", save,
+                       "--precision", "bf16", "--batch_size", str(B),
+                       "--memory_bank", "--shot", str(MB_SHOT),
+                       "--dump_scores", "--csv"])
+        cli_s = time.perf_counter() - t0
+        n_batches = -(-(EVAL_NORMAL + EVAL_ANOMALOUS) // B)
+        launches = attention_packed.launches
+        expect(launches == n_layers * (n_batches + 1),
+               f"mb eval CLI: {launches} B1 launches, not {n_layers} x "
+               f"({n_batches} batches + 1 bank batch)")
+        log = open(os.path.join(save, "test.log")).read()
+        expect(f"memory bank: {MB_SHOT * cfg.vision.grid ** 2} patch "
+               f"vectors/level x 4 levels ({MB_SHOT}-shot)" in log,
+               "mb eval CLI: no bank line in the log")
+        vit_l, text = create_clip_towers(cfg, checkpoint=ckpt_path)
+        mbp = mb.make_mb_predict_fn(vit_l, cfg, acfg, policy=bf16,
+                                    uint8_inputs=True)
+        ad = adapter_from_jax(ad_tree, cfg, acfg)
+        support = mb.collect_support_sets("MVTec", MB_SHOT, img,
+                                          uint8=True)["bottle"]
+        bank = mb.collect_bank(mbp.features_fn, ad, support, batch_size=B)
+
+        def fn(ia, im, an, M):
+            return mbp(ia, im, an, M, bank)
+        fn.device = mbp.device
+        cls_anchors = encode_dataset_anchors(make_anchor_encoder(
+            text, cfg, acfg, policy=bf16), "MVTec")["bottle"]
+        ds = get_test_datasets("MVTec", img, uint8=True)["bottle"]
+        got = run_class_predictions(fn, ad, list(BatchLoader(ds, B)),
+                                    cls_anchors, "Industrial", img,
+                                    cfg.vision.grid)
+        rows = read_csv(os.path.join(save, "scores_1.csv"))[1:]
+        same = [r[1] for r in rows] == got[4] and \
+            [float(r[3]) for r in rows] == [float(x) for x in got[3]]
+        table = read_csv(os.path.join(save, "results_1.csv"))
+        print(f"mb eval CLI bf16 B={B} --memory_bank --shot {MB_SHOT}: "
+              f"{len(rows)} images, {launches} B1 launches ({n_batches} "
+              f"batches + the bank's); scores equal the direct mb predict's "
+              f"bit for bit: {same}; table {table[1]}; {cli_s:.1f} s for "
+              f"the CLI on {card}")
+        expect(same, "mb eval CLI: scores differ from the direct mb predict")
+        del vit_l, text, mbp, bank
+        gc.collect()
+        torch.cuda.empty_cache()
+        return launches
+    finally:
+        for k, v in env_before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def http_call(url: str, data=None):
+    """(status, headers, body, seconds) of one GET or POST."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=data,
+                                 method="GET" if data is None else "POST")
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            out = (r.status, r.headers, r.read())
+    except urllib.error.HTTPError as e:
+        out = (e.code, e.headers, e.read())
+    return out + (time.perf_counter() - t0,)
+
+
+def served_map(status, headers, body):
+    """(map as float32, score, the encoding's own rounding bound) of a
+    /predict response."""
+    import numpy as np
+
+    expect(status == 200, f"/predict answered {status}: {body[:300]}")
+    kind = headers.get("X-Map-Dtype")
+    if kind is None:
+        payload = json.loads(body)
+        return (np.asarray(payload["anomaly_map"], np.float32),
+                payload["image_score"], 5e-5)
+    shape = tuple(int(x) for x in headers["X-Map-Shape"].split(","))
+    score = float(headers["X-Image-Score"])
+    if kind == "float16":
+        m = np.frombuffer(body, "<f2").reshape(shape).astype(np.float32)
+        return m, score, float(np.spacing(np.float16(np.abs(m).max()))) / 2
+    scale = float(headers["X-Map-Scale"])
+    m = float(headers["X-Map-Offset"]) + scale * np.frombuffer(
+        body, np.uint8).reshape(shape).astype(np.float32)
+    return m, score, scale / 2
+
+
+def phase_serve(card, ckpt_path: str) -> dict:
+    """Phase 12c; returns B1's launches per served micro-batch."""
+    import gc
+    import os
+    import threading
+
+    import numpy as np
+    import torch
+
+    from aaclip_tpu_torch.core.config import AdapterConfig, get_config
+    from aaclip_tpu_torch.core.params import (adapter_to_jax,
+                                              init_image_adapter,
+                                              init_text_adapter,
+                                              text_adapter_to_jax)
+    from aaclip_tpu_torch.data.image import encode_png
+    from aaclip_tpu_torch.ops.attention import attention_packed
+    from aaclip_tpu_torch.serve import server
+    from aaclip_tpu_torch.text import anchors as anchors_mod
+    from aaclip_tpu_torch.train import checkpoint as ckpt
+
+    cfg = get_config("ViT-L-14-336", img_size=518)
+    img, n_layers = cfg.vision.image_size, cfg.vision.layers
+    acfg = AdapterConfig()
+    tmp = tempfile.mkdtemp(prefix="aaclip_serve_")
+    engine = httpd = None
+    try:
+        adapters = os.path.join(tmp, "adapters")
+        ckpt.save_adapter_checkpoint(
+            os.path.join(adapters, "image_adapter_1.npz"), 1,
+            adapter_to_jax(init_image_adapter(cfg, acfg, seed=9,
+                                              device="cpu")))
+        ckpt.save_adapter_checkpoint(
+            os.path.join(adapters, "text_adapter.npz"), 0,
+            text_adapter_to_jax(init_text_adapter(cfg, acfg, seed=10,
+                                                  device="cpu")))
+        cache = os.path.join(tmp, "anchor_cache")
+        kw = dict(model_name="ViT-L-14-336", img_size=img,
+                  datasets=("MVTec",), save_path=adapters, precision="bf16",
+                  max_batch=8, clip_checkpoint=ckpt_path,
+                  anchor_cache=cache)
+        zero_counts()
+        t0 = time.perf_counter()
+        engine = server.InferenceEngine(**kw)
+        start_s = time.perf_counter() - t0
+        warm_launches = attention_packed.launches
+        print(f"serve: engine up in {start_s:.2f} s ("
+              + ", ".join(f"{k} {v:.2f} s" for k, v in
+                          engine.startup_s.items())
+              + "; the kernels were built in phase 2), "
+              f"{warm_launches} B1 launches in the warm-up; untrained "
+              f"{engine.untrained} on {card}")
+        expect(not engine.untrained, "serve: the engine found no adapters")
+        expect(warm_launches == n_layers * WARMUP_BUCKETS,
+               f"serve warm-up: {warm_launches} B1 launches")
+        expect(len(os.listdir(cache)) == 1, "serve: no anchor-cache entry")
+
+        # a second engine on the same cache: no text forward
+        calls = []
+        real = anchors_mod.encode_dataset_anchors
+
+        def counting(*a, **k):
+            calls.append(1)
+            return real(*a, **k)
+
+        anchors_mod.encode_dataset_anchors = counting
+        try:
+            t0 = time.perf_counter()
+            second = server.InferenceEngine(**kw, precompile=False)
+            second_s = time.perf_counter() - t0
+        finally:
+            anchors_mod.encode_dataset_anchors = real
+        second.shutdown()
+        same = all(np.array_equal(second.anchors["MVTec"][c], a)
+                   for c, a in engine.anchors["MVTec"].items())
+        print(f"serve: a second engine on the same anchor cache: "
+              f"{len(calls)} text forwards, anchors bit for bit {same}, "
+              f"anchors {second.startup_s['anchors']:.3f} s against "
+              f"{engine.startup_s['anchors']:.3f} s uncached; up in "
+              f"{second_s:.2f} s without the warm-up")
+        expect(not calls and same, "serve: the second engine did not read "
+               "the anchor cache")
+        del second
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        httpd = server.serve(engine, "127.0.0.1", 0)
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        rng = np.random.default_rng(12)
+        pngs = [encode_png(rng.integers(0, 256, (SERVE_PNG_PX, SERVE_PNG_PX,
+                                                 3), dtype=np.uint8))
+                for _ in range(SERVE_REQUESTS)]
+        classes = [SERVE_CLASSES[i % 3] for i in range(SERVE_REQUESTS)]
+        query = {5: "&map_encoding=f16", 6: "&map_encoding=u8",
+                 7: "&map_stride=2"}
+        results = [None] * SERVE_REQUESTS
+
+        def fire(i):
+            results[i] = http_call(
+                f"{base}/predict?dataset=MVTec&class_name={classes[i]}"
+                + query.get(i, ""), pngs[i])
+
+        threads = [threading.Thread(target=fire, args=(i,))
+                   for i in range(SERVE_REQUESTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        # the stride-2 request's image alone, full and at stride 2
+        alone = [http_call(f"{base}/predict?dataset=MVTec&class_name="
+                           f"{classes[7]}{q}", pngs[7])
+                 for q in ("", "&map_stride=2")]
+        gets = {p: http_call(base + p) for p in
+                ("/healthz", "/classes?dataset=MVTec", "/statz")}
+        for p, (code, _, body, _) in gets.items():
+            expect(code == 200, f"GET {p}: {code}")
+        stats = json.loads(gets["/statz"][2])
+        launches = attention_packed.launches
+        expect(launches == n_layers * (stats["batches"] + WARMUP_BUCKETS),
+               f"serve: {launches} B1 launches for {stats['batches']} "
+               f"batches + {WARMUP_BUCKETS} warm-up buckets")
+        expect(stats["errors"] == 0 and stats["rejected"] == 0,
+               f"serve: /statz counts errors {stats}")
+        health = json.loads(gets["/healthz"][2])
+        expect(health["untrained"] is False and health["img_size"] == img,
+               f"/healthz {health}")
+        n_cls = len(json.loads(gets["/classes?dataset=MVTec"][2])["classes"])
+        expect(n_cls == 15, f"/classes lists {n_cls} classes")
+
+        # a direct call of the engine's make_predict_fn on the same decoded
+        # images and anchors
+        imgs = np.stack([server._decode_image(p, img) for p in pngs])
+        anch = np.stack([engine.anchors["MVTec"][c] for c in classes])
+        with torch.inference_mode():
+            pix_d, s_d = engine._predict(
+                engine.image_adapter, torch.from_numpy(imgs).cuda(),
+                torch.from_numpy(anch).cuda(),
+                engine._postproc_dev["MVTec"])
+        pix_d, s_d = pix_d.cpu().numpy(), s_d.cpu().numpy()
+        span = float(pix_d.max() - pix_d.min())
+        worst_map = worst_score = 0.0
+        for i, (code, headers, body, _) in enumerate(results):
+            m, score, rounding = served_map(code, headers, body)
+            stride = 2 if i == 7 else 1
+            want = pix_d[i, ::stride, ::stride]
+            expect(m.shape == want.shape, f"request {i}: map {m.shape}")
+            dm = float(np.abs(m - want).max())
+            worst_map = max(worst_map, dm / span)
+            worst_score = max(worst_score, abs(score - float(s_d[i])))
+            expect(dm <= PIX_SPAN_FRAC_BF16 * span + rounding,
+                   f"request {i}: map off by {dm} (span {span}, rounding "
+                   f"{rounding})")
+            expect(abs(score - float(s_d[i])) <= SCORE_ATOL_BF16,
+                   f"request {i}: score {score} vs {s_d[i]}")
+        full, _, _ = served_map(*alone[0][:3])
+        strided, _, _ = served_map(*alone[1][:3])
+        expect(np.array_equal(strided, full[::2, ::2]),
+               "serve: the stride-2 map is not the full map sliced")
+        lat = sorted(r[3] * 1e3 for r in results)
+        print(f"serve: {SERVE_REQUESTS} concurrent PNG /predict requests "
+              f"({SERVE_PNG_PX} px, {', '.join(SERVE_CLASSES)}; json, f16, "
+              f"u8, map_stride 2) against the direct predict at B=8: max|d "
+              f"map| {worst_map:.3e} of the span (bar "
+              f"{PIX_SPAN_FRAC_BF16} + the encoding's rounding), max|d "
+              f"score| {worst_score:.3e} (bar {SCORE_ATOL_BF16}); stride 2 "
+              f"equals the full map sliced: True; latencies "
+              f"{', '.join(f'{x:.1f}' for x in lat)} ms")
+        print(f"serve /statz: {stats['requests']} requests in "
+              f"{stats['batches']} batches (occupancy "
+              f"{stats['mean_batch_occupancy']}), latency p50 "
+              f"{stats['latency_ms']['p50']} ms, p95 "
+              f"{stats['latency_ms']['p95']} ms; B1 launches {launches} = "
+              f"{n_layers} x ({stats['batches']} + {WARMUP_BUCKETS} warm-up)")
+        for name, row in stats["phases"].items():
+            print(f"  phase {name}: n {row['n']}, total {row['total_s']} s, "
+                  f"mean {row['mean_ms']} ms, p50 {row['p50_ms']} ms, p95 "
+                  f"{row['p95_ms']} ms")
+        return {"launches_per_batch": (launches // (stats["batches"]
+                                                    + WARMUP_BUCKETS)),
+                "start_s": start_s}
+    finally:
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()
+        if engine is not None:
+            engine.shutdown()
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def bench_serve_line(argv) -> dict:
+    """One in-process ``python -m aaclip_tpu_torch.bench --mode serve``
+    run's JSON line; its requests must all have succeeded."""
+    import contextlib
+    import gc
+    import io
+
+    import torch
+
+    from aaclip_tpu_torch import bench
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        bench.main(["--mode", "serve", "--steps", str(SERVE_SECONDS)] + argv)
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    expect(line["errors"] == 0 and line["served"] > 0,
+           f"bench --mode serve {' '.join(argv)}: {line}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
+def phase_bench_serve(card, rates: dict) -> dict:
+    """Phase 12d: the serve bench closed, open at half the closed rate, and
+    closed with --map_stride 4; printed beside the predict's maps/s."""
+    closed = bench_serve_line(["--clients", "8"])
+    half = closed["value"] / 2
+    open_ = bench_serve_line(["--open_loop", f"{half:.3f}"])
+    strided = bench_serve_line(["--clients", "8", "--map_stride", "4"])
+    for name, line in (("closed, 8 clients", closed),
+                       (f"open loop {half:.2f} rps", open_),
+                       ("closed, 8 clients, map_stride 4", strided)):
+        lat = line["latency_ms"]
+        print(f"bench --mode serve {name}: {line['value']} maps/s, p50 "
+              f"{lat['p50']} ms, p95 {lat['p95']} ms, occupancy "
+              f"{line['mean_batch_occupancy']}, served {line['served']}, "
+              f"rejected {line['rejected']}, errors {line['errors']}")
+    print(f"serve maps/s {closed['value']} (stride 4: {strided['value']}) "
+          f"against the predict's {rates['predict B=8']:.2f} at B=8 and "
+          f"{rates['predict B=32']:.2f} at B=32 (phase 12a) on {card}")
+    return {"closed": closed, "open": open_, "stride4": strided}
+
+
+def phase_serving(vit, adapter, cfg, acfg, anchors, M, card, gen,
+                  ckpt_path: str) -> dict:
+    """Phase 12: 12a-d above; returns B1's launches per path."""
+    t_phase = time.perf_counter()
+    rates, feat_launches, mb_launches = phase_memory_bank(
+        vit, adapter, cfg, acfg, anchors, M, card, gen)
+    cli_launches = phase_mb_eval_cli(card, ckpt_path)
+    served = phase_serve(card, ckpt_path)
+    phase_bench_serve(card, rates)
+    print(f"phase 12 (serving and the memory bank) took "
+          f"{time.perf_counter() - t_phase:.0f} s")
+    return {"memory-bank features batch": feat_launches,
+            "memory-bank predict": mb_launches,
+            "memory-bank evaluation CLI": cli_launches,
+            "served micro-batch": served["launches_per_batch"]}
+
+
 def make_attn_fn_plain(heads: int, policy, *, vv: bool = False,
                        differentiable: bool = False):
     """``make_attn_fn`` on the plain attention of its kind."""
@@ -4200,6 +4764,11 @@ def main() -> int:
         print(f"[{time.perf_counter() - t0:.0f} s] fp32_high")
         high = phase_fp32_high(vit, adapter, cfg, acfg, anchors, M, card,
                                ckpt_path)
+        # -- 12. serving and the memory bank
+        print(f"[{time.perf_counter() - t0:.0f} s] serving and the memory "
+              f"bank")
+        serving_calls = phase_serving(vit, adapter, cfg, acfg, anchors, M,
+                                      card, gen, ckpt_path)
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 
@@ -4290,7 +4859,8 @@ def main() -> int:
                   **{f"stage-2 step, remat {k}": v[0] for k, v in
                      train_steps.items()},
                   **{f"training CLI {k}": v[0] for k, v in
-                     train_cli.items()}},
+                     train_cli.items()},
+                  **serving_calls},
         "kernels_per_call": fwd_per_call,
         "max_abs_err": err_fwd["bf16"],
         "ms": ms_fwd,

@@ -3,7 +3,9 @@ the JAX package's ``test.py``, end to end on the CPU: the same synthetic
 MVTec dataset (2 classes), the same tiny-test OpenAI-layout checkpoint
 (written at a 4x4 grid, so both loaders resize the positional embedding
 to 5x5), an npz image adapter and a reference ``.pth`` text adapter, at
-fp32 with ``--aupro --csv --dump_scores``.
+fp32 with ``--aupro --csv --dump_scores``, and again with
+``--memory_bank --shot 2`` (the synthetic set's 2-shot metadata as each
+class's support).
 
 Bars: every cell of ``results_1.csv`` within 0.01 points (the table is
 rounded to 0.01 points, so a score moved by fp32 ulps may flip one
@@ -46,7 +48,8 @@ def _read_csv(path):
 
 
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
+def assets(tmp_path_factory):
+    """(root, data env, checkpoint path, adapter dir) shared by the runs."""
     root = str(tmp_path_factory.mktemp("eval_cli"))
     data_root, meta_root = make_synthetic_dataset(root, img_px=64,
                                                   hard=True)
@@ -56,10 +59,10 @@ def runs(tmp_path_factory):
     ckpt_path = os.path.join(root, "tiny.pt")
     torch.save(_make_state_dict(jax_get_config("tiny-test", 56), seed=5),
                ckpt_path)
-    save = {k: os.path.join(root, k) for k in ("jax", "port")}
-    os.makedirs(save["jax"])
+    adapters = os.path.join(root, "adapters")
+    os.makedirs(adapters)
     ckpt.save_adapter_checkpoint(
-        os.path.join(save["jax"], "image_adapter_1.npz"), 1,
+        os.path.join(adapters, "image_adapter_1.npz"), 1,
         adapter_to_jax(init_image_adapter(cfg, acfg, seed=3, device="cpu")))
     text_sd, _ = ckpt.adapters_to_torch_state_dicts(
         {"text": text_adapter_to_jax(init_text_adapter(cfg, acfg, seed=4,
@@ -68,15 +71,24 @@ def runs(tmp_path_factory):
                                                     device="cpu"))},
         proj_relu=False)
     torch.save({"epoch": 0, "text_adapter": text_sd},
-               os.path.join(save["jax"], "text_adapter.pth"))
-    shutil.copytree(save["jax"], save["port"])
+               os.path.join(adapters, "text_adapter.pth"))
     env = {"AACLIP_DATA": data_root, "AACLIP_METADATA": meta_root}
+    return root, env, ckpt_path, adapters
+
+
+def _run_both(assets, name, extra):
+    """Both CLIs with COMMON + ``extra`` from copies of the adapter dir;
+    returns {"jax": save_path, "port": save_path}."""
+    root, env, ckpt_path, adapters = assets
+    save = {k: os.path.join(root, f"{name}_{k}") for k in ("jax", "port")}
+    for path in save.values():
+        shutil.copytree(adapters, path)
     old = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     try:
         import test as jax_cli
 
-        argv = COMMON + ["--clip_checkpoint", ckpt_path]
+        argv = COMMON + extra + ["--clip_checkpoint", ckpt_path]
         jax_cli.main(argv + ["--save_path", save["jax"]])
         port_cli.main(argv + ["--save_path", save["port"]], device="cpu")
     finally:
@@ -88,7 +100,19 @@ def runs(tmp_path_factory):
     return save
 
 
-def test_results_tables_agree(runs):
+@pytest.fixture(scope="module")
+def runs(assets):
+    return _run_both(assets, "plain", [])
+
+
+@pytest.fixture(scope="module")
+def mb_runs(assets):
+    """``--memory_bank --shot 2``: the synthetic set's 2-shot metadata
+    (each class's first two normal images) as the support."""
+    return _run_both(assets, "mb", ["--memory_bank", "--shot", "2"])
+
+
+def _tables_agree(runs):
     jax_rows = _read_csv(os.path.join(runs["jax"], "results_1.csv"))
     port_rows = _read_csv(os.path.join(runs["port"], "results_1.csv"))
     assert port_rows[0] == jax_rows[0] == [
@@ -103,7 +127,7 @@ def test_results_tables_agree(runs):
     assert (want[:2, :4] > 0).all()
 
 
-def test_scores_agree(runs):
+def _scores_agree(runs):
     jax_rows = _read_csv(os.path.join(runs["jax"], "scores_1.csv"))
     port_rows = _read_csv(os.path.join(runs["port"], "scores_1.csv"))
     assert port_rows[0] == jax_rows[0] == ["class name", "file", "label",
@@ -113,6 +137,35 @@ def test_scores_agree(runs):
     np.testing.assert_allclose([float(r[3]) for r in port_rows[1:]],
                                [float(r[3]) for r in jax_rows[1:]],
                                atol=SCORE_ATOL, rtol=0)
+
+
+def test_results_tables_agree(runs):
+    _tables_agree(runs)
+
+
+def test_scores_agree(runs):
+    _scores_agree(runs)
+
+
+def test_memory_bank_results_tables_agree(mb_runs):
+    _tables_agree(mb_runs)
+
+
+def test_memory_bank_scores_agree(mb_runs):
+    _scores_agree(mb_runs)
+
+
+def test_memory_bank_moves_the_scores_and_logs_its_banks(runs, mb_runs):
+    plain = _read_csv(os.path.join(runs["port"], "scores_1.csv"))
+    fused = _read_csv(os.path.join(mb_runs["port"], "scores_1.csv"))
+    assert [r[:3] for r in plain] == [r[:3] for r in fused]
+    assert any(a[3] != b[3] for a, b in zip(plain[1:], fused[1:]))
+    log = open(os.path.join(mb_runs["port"], "test.log")).read()
+    assert "memory_bank: fusing 2-shot nearest-neighbor scores at weight " \
+        "0.50" in log
+    # 2 support images x 25 patches per class, 2 levels
+    assert log.count("memory bank: 50 patch vectors/level x 2 levels "
+                     "(2-shot)") == 2
 
 
 def test_log_has_the_table_and_the_rate(runs):
@@ -141,7 +194,7 @@ def test_log_has_the_table_and_the_rate(runs):
     (["--tensor_parallel", "2"], "ROADMAP A12"),
     (["--sequence_parallel"], "ROADMAP A12"),
     (["--pipeline_parallel", "2"], "ROADMAP A12"),
-    (["--memory_bank"], "ROADMAP A12"),
+    (["--memory_bank", "--data_parallel"], "ROADMAP A12"),
     (["--artifact", "somewhere"], "ROADMAP A12"),
     (["--visualize"], "ROADMAP A15"),
 ])

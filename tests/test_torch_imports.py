@@ -10,7 +10,9 @@ dataset in an interpreter where PIL, pandas, scikit-learn and cv2 cannot
 be imported (the card's machine may lack any of them): the evaluation
 CLI on the host library (``native/``, its metrics and decode), the
 training CLI also with ``--remat selective --fused_assemble
---cache_device``."""
+--cache_device``; so do the serving engine (a PNG request body decoded,
+submitted, and served over HTTP), a memory-bank predict and ``python -m
+aaclip_tpu_torch.serve --help``."""
 
 import json
 import os
@@ -105,6 +107,9 @@ def test_sources_do_not_import_jax_or_the_jax_package():
         f.name for f in files}
     assert {"text_model.py", "anchors.py", "bpe.py", "registry.py"} <= {
         f.name for f in files}
+    assert {"server.py", "__main__.py", "__init__.py"} <= {
+        f.name for f in files if f.parent.name == "serve"}
+    assert {"memory_bank.py", "hashing.py"} <= {f.name for f in files}
     offenders = {str(f.relative_to(REPO)): FORBIDDEN.findall(f.read_text())
                  for f in files}
     assert not {f: m for f, m in offenders.items() if m}
@@ -212,3 +217,76 @@ def test_train_cli_runs_without_pil_pandas_sklearn_cv2_or_jax():
     assert result == {"bad": [], "files": [
         "image_adapter.npz", "image_adapter_1.npz", "text_adapter.npz",
         "train.log"], "selective": True, "fused": True}
+
+
+SERVE_PROBE = """
+import contextlib, io, json, sys, threading, urllib.request
+for name in ("PIL", "pandas", "sklearn", "cv2"):
+    sys.modules[name] = None  # any import of them raises
+import numpy as np, torch
+from aaclip_tpu_torch.core.config import AdapterConfig, DtypePolicy, get_config
+from aaclip_tpu_torch.core.params import init_image_adapter, init_vision_params
+from aaclip_tpu_torch.data.image import encode_png
+from aaclip_tpu_torch.eval import memory_bank as mb
+from aaclip_tpu_torch.ops.similarity import fused_postproc_matrix
+from aaclip_tpu_torch.serve import server
+from aaclip_tpu_torch.serve.server import InferenceEngine, serve
+eng = InferenceEngine(model_name="tiny-test", img_size=70, max_batch=2,
+                      precision="bf16", device="cpu", adapter_cfg=dict(
+                          levels=(1, 2), image_adapt_until=1,
+                          text_adapt_until=1))
+png = encode_png(np.random.default_rng(0).integers(0, 256, (40, 50, 3),
+                                                   dtype=np.uint8))
+amap, score = eng.submit(server._decode_image(png, 70), "MVTec", "bottle")
+httpd = serve(eng, "127.0.0.1", 0)
+threading.Thread(target=httpd.serve_forever, daemon=True).start()
+req = urllib.request.Request(
+    f"http://127.0.0.1:{httpd.server_address[1]}/predict?dataset=MVTec"
+    "&class_name=cable&map_stride=7", data=png, method="POST")
+with urllib.request.urlopen(req, timeout=60) as r:
+    http_shape = json.loads(r.read())["map_shape"]
+httpd.shutdown()
+eng.shutdown()
+cfg = get_config("tiny-test")
+acfg = AdapterConfig(levels=(1, 2), image_adapt_until=1)
+vit = init_vision_params(cfg, device="cpu")
+ad = init_image_adapter(cfg, acfg, device="cpu")
+p = mb.make_mb_predict_fn(vit, cfg, acfg, policy=DtypePolicy.bf16(),
+                          uint8_inputs=True, device="cpu")
+x = torch.randint(0, 256, (2, 3, 70, 70), dtype=torch.uint8)
+bank = mb.collect_bank(p.features_fn, ad, x)
+a = torch.nn.functional.normalize(torch.ones(32, 2), dim=0)
+pix, s = p(ad, x, a, torch.from_numpy(fused_postproc_matrix(5, 70,
+                                                            "Industrial")),
+           bank)
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    try:
+        server.main(["--help"])
+    except SystemExit as e:
+        code = e.code
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "aaclip_tpu"))
+print(json.dumps({"bad": bad, "map": list(amap.shape), "http": http_shape,
+                  "mb": list(pix.shape), "bank": list(bank.shape),
+                  "finite": bool(np.isfinite(amap).all()
+                                 and torch.isfinite(pix).all()),
+                  "help": code == 0 and "--anchor_cache" in out.getvalue()}))
+"""
+
+
+def test_serving_and_memory_bank_run_without_pil_pandas_sklearn_cv2_or_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run([sys.executable, "-c", SERVE_PROBE], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result == {"bad": [], "map": [70, 70], "http": [10, 10],
+                      "mb": [2, 70, 70], "bank": [2, 50, 32],
+                      "finite": True, "help": True}
+    help_out = subprocess.run(
+        [sys.executable, "-m", "aaclip_tpu_torch.serve", "--help"], cwd=REPO,
+        env=env, capture_output=True, text=True, timeout=120)
+    assert help_out.returncode == 0 and "--anchor_cache" in help_out.stdout
