@@ -7,6 +7,7 @@ against the fused block.
 
     python -m aaclip_tpu_torch.bench [--batch_size 32] [--precision bf16]
     python -m aaclip_tpu_torch.bench --precision fp32_high [--bf16_until K]
+    python -m aaclip_tpu_torch.bench --precision int8 [--int8_until K]
     python -m aaclip_tpu_torch.bench --mode train [--batch_size 8] \
         [--remat full|selective|off]
     python -m aaclip_tpu_torch.bench --mode train_stage1 [--batch_size 16] \
@@ -14,7 +15,8 @@ against the fused block.
         [--remat full|selective|off]
     python -m aaclip_tpu_torch.bench --mode block [--batch_size 32]
     python -m aaclip_tpu_torch.bench --mode serve [--batch_size 8] \
-        [--clients 8 | --open_loop RPS] [--map_stride S] [--steps SECONDS]
+        [--clients 8 | --open_loop RPS] [--map_stride S] [--steps SECONDS] \
+        [--artifact DIR]
 
 Prints ONE JSON line in the format of the repo's ``bench.py``:
   {"metric": ..., "value": N, "unit": ..., "vs_baseline": N}
@@ -26,7 +28,11 @@ the serving engine (``serve/server.py``) under load for ``--steps``
 seconds of wall time: ``--clients`` closed-loop threads, each submitting
 its next request when its last one returns, or ``--open_loop RPS``
 arrivals at a fixed rate, each its own thread, whose rejections (the
-engine's admission control) are counted apart. Needs a card: without one
+engine's admission control) are counted apart; ``--artifact DIR`` serves
+an exported artifact (``deploy.py``) instead of building the model. The
+infer mode takes uint8 images under bf16 and int8 (JAX's bench), and
+``--int8_until K`` tags its stage ``+int8xK``. The train modes refuse
+int8 (inference only). Needs a card: without one
 it raises and prints nothing (``main(argv, device="cpu")`` runs the serve
 mode on the CPU, for the tests).
 """
@@ -260,8 +266,10 @@ def bench_serve(args, dev):
     """Anomaly maps per second of the serving engine under load: a
     ``max_batch`` ``--batch_size`` engine on MVTec's anchors (random
     weights from the seeded init; ``AACLIP_ANCHOR_CACHE`` names an anchor
-    cache), pre-decoded random uint8 images, one warm-up request; the JAX
-    package's ``bench_serve`` with ``--steps`` as seconds in both loops."""
+    cache) or on an exported artifact (``--artifact``, its first bundled
+    dataset), pre-decoded random uint8 images, one warm-up request; the
+    JAX package's ``bench_serve`` with ``--steps`` as seconds in both
+    loops."""
     import os
 
     import numpy as np
@@ -270,14 +278,23 @@ def bench_serve(args, dev):
                                                InferenceEngine)
 
     tiny = args.model_name == "tiny-test"
-    engine = InferenceEngine(
-        model_name=args.model_name, img_size=args.img_size,
-        datasets=("MVTec",), precision=args.precision,
-        max_batch=args.batch_size, precompile=True,
-        anchor_cache=os.environ.get("AACLIP_ANCHOR_CACHE") or None,
-        adapter_cfg=(dict(levels=(1, 2), image_adapt_until=1,
-                          text_adapt_until=1) if tiny else None),
-        device=dev)
+    if args.artifact:
+        engine = InferenceEngine(artifact=args.artifact,
+                                 max_batch=args.batch_size, precompile=True,
+                                 device=dev)
+        args.img_size = engine.img_size  # clients send the artifact's size
+        m = engine._artifact.manifest     # the line names what ran
+        args.model_name = m["model_name"]
+        args.precision = f"{m['precision']}+artifact"
+    else:
+        engine = InferenceEngine(
+            model_name=args.model_name, img_size=args.img_size,
+            datasets=("MVTec",), precision=args.precision,
+            max_batch=args.batch_size, precompile=True,
+            anchor_cache=os.environ.get("AACLIP_ANCHOR_CACHE") or None,
+            adapter_cfg=(dict(levels=(1, 2), image_adapt_until=1,
+                              text_adapt_until=1) if tiny else None),
+            device=dev)
     try:
         rng = np.random.default_rng(0)
         ds = sorted(engine.anchors)[0]
@@ -433,13 +450,18 @@ def main(argv=None, *, device=None) -> None:
                              "(train_stage1, the reference's text batch)")
     parser.add_argument("--precision", default="bf16",
                         choices=PRECISION_CHOICES,
-                        help="int8 is not ported yet")
+                        help="int8 = the trunk's big products int8 x int8 "
+                             "-> int32 (inference only)")
     parser.add_argument("--steps", type=int, default=10,
                         help="timed calls; serve: seconds of load")
     parser.add_argument("--bf16_until", type=int, default=None,
                         help="override the policy's staged trunk depth "
                              "(leading vision blocks at single-pass bf16 "
                              "products; inference path only)")
+    parser.add_argument("--int8_until", type=int, default=None,
+                        help="with --precision int8: quantize only the "
+                             "first K vision blocks (mixed prefix), the "
+                             "rest bf16; default 0 = the whole trunk")
     parser.add_argument("--warmup", type=int, default=3)
     parser.add_argument("--profile", action="store_true",
                         help="after the timed loop, trace two more calls "
@@ -469,8 +491,9 @@ def main(argv=None, *, device=None) -> None:
                         help="serve: clients request map[::s, ::s], sliced "
                              "on the card before the copy to the host")
     parser.add_argument("--artifact", default=None,
-                        help="serve: an exported artifact (not ported yet: "
-                             "ROADMAP A12)")
+                        help="serve: an exported artifact directory "
+                             "(python -m aaclip_tpu_torch.deploy); the "
+                             "model and precision come from its manifest")
     args = parser.parse_args(argv)
     if args.mode != "train_stage1" and (args.vv_mode != "batch"
                                         or args.feature_chunk):
@@ -481,10 +504,11 @@ def main(argv=None, *, device=None) -> None:
                                  or args.artifact is not None):
         parser.error("--open_loop, --map_stride and --artifact apply to "
                      "--mode serve only")
-    if args.artifact is not None:
-        raise NotImplementedError(
-            "--artifact is not ported yet: ROADMAP A12, 'int8, mesh and "
-            "serving'")
+    if args.int8_until is not None and args.precision != "int8":
+        parser.error("--int8_until requires --precision int8")
+    if args.mode in ("train", "train_stage1") and args.precision == "int8":
+        parser.error("--precision int8 is inference-only: the training "
+                     "steps never quantize")
     if args.batch_size is None:
         args.batch_size = {"infer": 32, "block": 32, "train": 8,
                            "train_stage1": 16, "serve": 8}[args.mode]
@@ -508,6 +532,8 @@ def main(argv=None, *, device=None) -> None:
     policy = DtypePolicy.from_name(args.precision)
     if args.bf16_until is not None:
         policy = dataclasses.replace(policy, bf16_until=args.bf16_until)
+    if args.int8_until is not None:
+        policy = dataclasses.replace(policy, int8_until=args.int8_until)
     cfg = get_config(args.model_name, args.img_size)
     acfg = AdapterConfig() if args.model_name != "tiny-test" else \
         AdapterConfig(levels=(1, 2), image_adapt_until=1, text_adapt_until=1)
@@ -519,7 +545,7 @@ def main(argv=None, *, device=None) -> None:
     adapter = init_image_adapter(cfg, acfg, seed=1, device=dev)
     if args.mode == "train":
         return bench_train(args, cfg, acfg, policy, vit, adapter, dev)
-    uint8_inputs = args.precision == "bf16"
+    uint8_inputs = args.precision in ("bf16", "int8")
     predict = make_predict_fn(vit, cfg, acfg, policy=policy,
                               uint8_inputs=uint8_inputs, device=dev)
 
@@ -539,11 +565,14 @@ def main(argv=None, *, device=None) -> None:
                          args) * args.batch_size
     if args.profile:
         profile_calls(lambda: predict(adapter, images, anchors, M), 2)
+    stage = f"+bf16x{policy.bf16_until}" if policy.bf16_until else ""
+    if policy.quant_int8 and policy.int8_until:
+        stage += f"+int8x{policy.int8_until}"
     print(json.dumps({
         "metric": "anomaly_maps_per_sec_per_chip",
         "value": round(maps_per_sec, 2),
         "unit": f"maps/s/chip ({args.model_name} @ {args.img_size}px, "
-                f"adapted fwd + fused map, {args.precision}, "
+                f"adapted fwd + fused map, {args.precision}{stage}, "
                 f"batch {args.batch_size}, "
                 f"{card_line()})",
         "vs_baseline": round(maps_per_sec / REFERENCE_BASELINE_MAPS_PER_SEC,

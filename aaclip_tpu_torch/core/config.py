@@ -112,12 +112,21 @@ class DtypePolicy:
     first K vision blocks of the INFERENCE path at single-pass bf16
     products (``prefix_policy``) while the residual stream and every later
     block keep this policy; the training steps drop it (``unstaged``).
+
+    ``quant_int8`` (``int8()``, inference only) stores the trunk's big
+    matmul weights (packed QKV, attention out-projection, both MLP weights)
+    as per-output-channel int8 and runs those products int8 x int8 ->
+    int32 with per-token activation quantization (``ops/quant.py``);
+    ``int8_until=K`` quantizes only blocks [0, K) and keeps the rest at the
+    compute dtype (0 = the whole trunk). The training steps refuse it.
     """
 
     compute_dtype: torch.dtype = torch.float32
     fast_act: bool = False
     precision: str | None = "highest"
     bf16_until: int = 0
+    quant_int8: bool = False
+    int8_until: int = 0
 
     def prefix_policy(self) -> "DtypePolicy":
         """The policy of the bf16-staged leading vision blocks: single-pass
@@ -153,9 +162,10 @@ class DtypePolicy:
 
     @classmethod
     def int8(cls) -> "DtypePolicy":
-        raise NotImplementedError(
-            "int8 inference is not ported yet: ROADMAP A12, 'int8, mesh and "
-            "serving'")
+        """Quantized inference path: the bf16 fast path with the trunk's big
+        matmuls on int8 x int8 -> int32 products (``ops/quant.py``: weights
+        per output channel, activations per token). Inference only."""
+        return cls(torch.bfloat16, True, None, quant_int8=True)
 
     @classmethod
     def from_name(cls, name: str) -> "DtypePolicy":

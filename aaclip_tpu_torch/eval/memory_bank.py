@@ -41,7 +41,7 @@ def _no_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "the memory bank on a mesh is not ported yet: ROADMAP A12, "
-            "'int8, mesh and export'")
+            "'the parallel axes'")
 
 
 def make_patch_features_fn(vit: VisionTransformer, cfg: CLIPConfig,
@@ -110,8 +110,10 @@ def make_mb_predict_fn(vit: VisionTransformer, cfg: CLIPConfig,
     ``make_predict_fn``, in its order) fused with the bank scores at
     ``bank_weight``; one forward feeds both. At ``bank_weight`` 0 it gives
     ``make_predict_fn``'s output bit for bit. ``predict.features_fn`` builds
-    the banks. ``mesh`` other than None raises (ROADMAP A12); a weight
-    outside [0, 1] raises ValueError."""
+    the banks; ``predict.raw(visual, adapter, images, anchors, M, bank)``
+    takes the prepared tower and the adapter as name -> tensor arguments,
+    as ``make_predict_fn``'s does. ``mesh`` other than None raises (ROADMAP
+    A12); a weight outside [0, 1] raises ValueError."""
     _no_mesh(mesh)
     w = float(bank_weight)
     if not 0.0 <= w <= 1.0:
@@ -121,11 +123,8 @@ def make_mb_predict_fn(vit: VisionTransformer, cfg: CLIPConfig,
         uint8_inputs=uint8_inputs, device=device)
     dev, pp_precision = features.device, features.pp_precision
 
-    @torch.inference_mode()
-    def predict(image_adapter, images, anchors, M, bank):
-        seg, det = features(image_adapter, images)
-        anchors = torch.as_tensor(anchors, device=dev)
-        M = torch.as_tensor(M, device=dev)
+    def forward(g, images, anchors, M, bank):
+        seg, det = features.forward(g, images)
         scores = level_scores(seg, anchors)                  # [n, B, L, 2]
         _, B, L, _ = scores.shape
         grid = int(round(L ** 0.5))
@@ -139,8 +138,20 @@ def make_mb_predict_fn(vit: VisionTransformer, cfg: CLIPConfig,
         s = (1.0 - w) * image_score(det, anchors) + w * s_bank
         return pix, s
 
+    @torch.inference_mode()
+    def predict(image_adapter, images, anchors, M, bank):
+        return forward(features.bind(image_adapter),
+                       torch.as_tensor(images, device=dev),
+                       torch.as_tensor(anchors, device=dev),
+                       torch.as_tensor(M, device=dev), bank)
+
     predict.features_fn = features
     predict.device = dev
+    # the all-arguments form (JAX's ``predict.raw``), which deploy.py
+    # exports for the bank graphs: ``raw(visual, adapter, images, anchors,
+    # M, bank)``
+    predict.raw = features.make_raw(forward)
+    predict.visual = features.visual
     return predict
 
 
@@ -189,3 +200,21 @@ def collect_support_sets(dataset: str, shot: int, img_size: int, *,
                         "training images (< --shot %d)", class_name,
                         len(recs), shot)
     return support
+
+
+def pad_banks_to_common_size(banks: dict, n_max: int | None = None) -> dict:
+    """Each class's [n, N, D] bank padded to the largest N (or ``n_max``)
+    with repeats of its first vector, which cannot raise a running
+    maximum, so one exported bank graph serves every class (the JAX
+    package's ``pad_banks_to_common_size``)."""
+    if n_max is None:
+        n_max = max(b.shape[1] for b in banks.values())
+    out = {}
+    for cls, b in banks.items():
+        b = torch.as_tensor(b)
+        pad = n_max - b.shape[1]
+        if pad:
+            b = torch.cat([b, b[:, :1, :].expand(b.shape[0], pad,
+                                                 b.shape[2])], dim=1)
+        out[cls] = b
+    return out

@@ -9,10 +9,13 @@ class; ``make_anchor_encoder`` is the text side of the evaluation.
 
 from __future__ import annotations
 
+import copy
+from types import SimpleNamespace
 from typing import Callable, List, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from aaclip_tpu_torch.core.config import AdapterConfig, CLIPConfig, DtypePolicy
 from aaclip_tpu_torch.core.params import cast_matmul_weights
@@ -21,13 +24,58 @@ from aaclip_tpu_torch.models.layers import config_act
 from aaclip_tpu_torch.models.text_model import (TextAdapter, TextTransformer,
                                                 adapted_encode_text,
                                                 encode_text)
-from aaclip_tpu_torch.models.vit import VisionTransformer, adapted_forward
+from aaclip_tpu_torch.models.vit import (ImageAdapter, VisionTransformer,
+                                         adapted_forward)
 from aaclip_tpu_torch.ops.preprocess import (fold_normalization_into_conv1,
                                              patchify_uint8)
 from aaclip_tpu_torch.ops.similarity import (apply_postproc_matrix,
                                              collapse_level_scores,
                                              fused_postproc_matrix,
                                              image_score, level_scores)
+
+
+class _Graph(nn.Module):
+    """The predictor's prepared tower (``visual``), an adapter of the
+    predictor's structure (``adapter``, on the meta device) and the folded
+    patch embedding (``patch_w``, ``patch_b``) as one module whose forward
+    is ``fn(self, *args)``: ``torch.func.functional_call`` swaps every one
+    of its tensors for an argument (the raw form that ``deploy.py``
+    exports, where the weights are graph inputs)."""
+
+    def __init__(self, visual, adapter, patch, fn):
+        super().__init__()
+        self.visual, self.adapter = visual, adapter
+        if patch is not None:
+            self.register_buffer("patch_w", patch[0])
+            self.register_buffer("patch_b", patch[1])
+        self._fn = fn
+
+    def forward(self, *args):
+        return self._fn(self, *args)
+
+
+def prepare_visual(vit: VisionTransformer, cfg: CLIPConfig,
+                   policy: DtypePolicy) -> VisionTransformer:
+    """The tower as the predictor runs it: cast as the JAX predictor casts
+    it (``cast_matmul_weights``) and, under ``policy.quant_int8``, blocks
+    [0, ``int8_until``) (every block when 0) quantized from the ORIGINAL
+    fp32 weights (``vit.quantize_prefix``): fitting the int8 grid to the
+    bf16 copies would round twice. A quantized block keeps no float copy
+    of its four big weights (JAX drops them too). ``int8_until`` outside
+    [0, depth] raises."""
+    from aaclip_tpu_torch.models.vit import quantize_prefix
+
+    visual = cast_matmul_weights(vit, policy)
+    if not policy.quant_int8:
+        return visual
+    k = policy.int8_until or 0
+    layers = cfg.vision.layers
+    if k < 0 or k > layers:
+        raise ValueError(f"int8_until={k} out of range for the "
+                         f"{layers}-layer tower")
+    if visual is vit:  # an fp32 compute dtype: never quantize the caller's
+        visual = copy.deepcopy(vit)
+    return quantize_prefix(visual, vit, k or layers)
 
 
 def make_features_fn(vit: VisionTransformer, cfg: CLIPConfig,
@@ -42,11 +90,24 @@ def make_features_fn(vit: VisionTransformer, cfg: CLIPConfig,
     memory bank builds its banks from it). Arguments as
     ``make_predict_fn``'s; ``features.device`` is the device it runs on and
     ``features.pp_precision`` the precision of ``M q Mᵀ`` under ``policy``.
+
+    For the predictors built on it: ``features.forward(g, images)`` is the
+    forward on ``g``, which holds ``visual``, ``adapter`` and (with uint8
+    inputs) ``patch_w``, ``patch_b``; ``features.bind(image_adapter)``
+    gives the live ``g``; ``features.visual`` is every prepared tensor
+    but the adapter's by name (sorted); ``features.make_raw(fn)`` gives
+    ``raw(visual, adapter, *args) = fn(g, *args)`` with ``g``'s tensors
+    taken from the two name -> tensor dicts (``torch.func.functional_call``:
+    the weights are arguments, as in JAX's ``predict.raw``).
     """
     if mesh is not None or sequence_parallel:
         raise NotImplementedError(
             "meshes, tensor and sequence parallelism are not ported yet: "
-            "ROADMAP A12, 'int8, mesh and export'")
+            "ROADMAP A12, 'the parallel axes'")
+    if policy.quant_int8 and block_fn is not None:
+        raise ValueError("int8 quantized inference does not compose with "
+                         "block_fn overrides (the fused kernels read float "
+                         "weights)")
     dev = resolve_device(device)
     param_dev = next(vit.parameters()).device
     if param_dev.type != dev.type:
@@ -60,35 +121,72 @@ def make_features_fn(vit: VisionTransformer, cfg: CLIPConfig,
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
 
-    visual = cast_matmul_weights(vit, policy)
+    visual = prepare_visual(vit, cfg, policy)
     act = config_act(cfg, policy)
-    patch_embed = None
+    patch = None
     if uint8_inputs:
         w_f, b_f = fold_normalization_into_conv1(vit.conv1.weight.t(),
                                                  cfg.vision.patch_size)
-        w_f = w_f.to(policy.compute_dtype)
+        patch = (w_f.to(policy.compute_dtype), b_f)
 
-        def patch_embed(images_u8):
-            return patchify_uint8(images_u8, w_f, b_f, cfg.vision.patch_size,
-                                  compute_dtype=policy.compute_dtype,
-                                  precision=policy.precision)
-
-    @torch.inference_mode()
-    def features(image_adapter, images):
-        images = torch.as_tensor(images, device=dev)
+    def forward(g, images):
+        patch_embed = None
+        if uint8_inputs:
+            def patch_embed(images_u8):
+                return patchify_uint8(images_u8, g.patch_w, g.patch_b,
+                                      cfg.vision.patch_size,
+                                      compute_dtype=policy.compute_dtype,
+                                      precision=policy.precision)
         seg, det = adapted_forward(
-            visual, image_adapter, cfg, images,
+            g.visual, g.adapter, cfg, images,
             image_adapt_weight=acfg.image_adapt_weight, levels=acfg.levels,
             proj_relu=acfg.proj_relu, policy=policy, act=act,
             attn_fn=attn_fn, block_fn=block_fn, patch_embed_fn=patch_embed)
         return torch.stack(seg), det
 
+    def bind(image_adapter):
+        return SimpleNamespace(
+            visual=visual, adapter=image_adapter,
+            **(dict(patch_w=patch[0], patch_b=patch[1]) if patch else {}))
+
+    with torch.device("meta"):
+        template = ImageAdapter(cfg, acfg)
+
+    def make_raw(fn):
+        graph = _Graph(visual, template, patch, fn)
+
+        def raw(visual_tensors: dict, adapter_tensors: dict, *args):
+            tensors = dict(visual_tensors)
+            tensors.update((f"adapter.{k}", v)
+                           for k, v in adapter_tensors.items())
+            return torch.func.functional_call(graph, tensors, args)
+
+        return raw
+
+    @torch.inference_mode()
+    def features(image_adapter, images):
+        return forward(bind(image_adapter), torch.as_tensor(images,
+                                                            device=dev))
+
+    g0 = _Graph(visual, template, patch, None)
+    named = {**dict(g0.named_parameters()), **dict(g0.named_buffers())}
+    features.visual = {k: named[k] for k in sorted(named)
+                       if not k.startswith("adapter.")}
+    features.forward, features.bind, features.make_raw = forward, bind, \
+        make_raw
     features.device = dev
     # M q Mᵀ at true fp32 only under precision "highest" (the fp32
     # policy), 3-pass under fp32_high and bf16, as JAX's predictor
     features.pp_precision = "highest" if policy.precision == "highest" \
         else "high"
     return features
+
+
+def adapter_tensors(image_adapter: nn.Module) -> dict:
+    """An image adapter's tensors by name (sorted), the ``adapter``
+    argument of a predictor's raw form."""
+    named = dict(image_adapter.named_parameters())
+    return {k: named[k] for k in sorted(named)}
 
 
 def make_predict_fn(vit: VisionTransformer, cfg: CLIPConfig,
@@ -107,19 +205,25 @@ def make_predict_fn(vit: VisionTransformer, cfg: CLIPConfig,
     defaults to the packed-attention kernel (``ops.attention.make_attn_fn``).
     ``block_fn`` replaces every whole block (``ops.fused_block.
     make_block_fn``, the fused-block kernels; ``maybe_make_block_fn`` gives
-    it on the card under bf16, None off it and under fp32); it receives
-    the block's weights as cast for the predictor. A staged policy
+    it on the card under bf16, None off it and under fp32 and int8); it
+    receives the block's weights as cast for the predictor. A staged policy
     (``policy.bf16_until``, fp32_high) runs its first blocks under
     ``policy.prefix_policy()`` with that policy's attention hook, the bf16
     kernel, as JAX's predictor builds it (``models/vit.py::trunk_taps``);
-    ``attn_fn`` serves the later blocks.
+    ``attn_fn`` serves the later blocks. The int8 policy quantizes blocks
+    [0, ``int8_until``) at build time (``prepare_visual``); with
+    ``block_fn`` it raises.
     ``img_size`` mirrors the JAX signature: the size comes from ``cfg``
     (``get_config(name, img_size)``) and any other value raises.
 
     ``device=None`` means the card and raises when there is none; ``vit``
     must already live on that device. On the card TF32 is switched off for
     matmuls and cuDNN, so fp32 products are true fp32. The forward is
-    ``make_features_fn``'s.
+    ``make_features_fn``'s. ``predict.raw(visual, adapter, images, anchors,
+    M)`` is the same function with the prepared tower (``predict.visual``)
+    and the adapter (``adapter_tensors``) as name -> tensor arguments,
+    outside inference mode (JAX's ``predict.raw``; ``deploy.py`` exports
+    it).
     """
     features = make_features_fn(
         vit, cfg, acfg, img_size=img_size, policy=policy, attn_fn=attn_fn,
@@ -127,11 +231,8 @@ def make_predict_fn(vit: VisionTransformer, cfg: CLIPConfig,
         sequence_parallel=sequence_parallel, device=device)
     dev, pp_precision = features.device, features.pp_precision
 
-    @torch.inference_mode()
-    def predict(image_adapter, images, anchors, M):
-        seg, det = features(image_adapter, images)
-        anchors = torch.as_tensor(anchors, device=dev)
-        M = torch.as_tensor(M, device=dev)
+    def forward(g, images, anchors, M):
+        seg, det = features.forward(g, images)
         scores = level_scores(seg, anchors)                  # [n, B, L, 2]
         _, B, L, _ = scores.shape
         grid = int(round(L ** 0.5))
@@ -139,7 +240,16 @@ def make_predict_fn(vit: VisionTransformer, cfg: CLIPConfig,
         return (apply_postproc_matrix(q, M, pp_precision),
                 image_score(det, anchors))
 
+    @torch.inference_mode()
+    def predict(image_adapter, images, anchors, M):
+        return forward(features.bind(image_adapter),
+                       torch.as_tensor(images, device=dev),
+                       torch.as_tensor(anchors, device=dev),
+                       torch.as_tensor(M, device=dev))
+
     predict.device = dev
+    predict.raw = features.make_raw(forward)
+    predict.visual = features.visual
     return predict
 
 

@@ -132,6 +132,8 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return torch.matmul(a, b)
     if a.device.type != "cuda":
         return torch.matmul(a.float(), b.float())
+    if not (torch.is_grad_enabled() and (a.requires_grad or b.requires_grad)):
+        return _mm_f32(a, b)  # no backward to record (inference, export)
     return _MatmulF32.apply(a, b)
 
 
@@ -207,14 +209,45 @@ def matmul(a: torch.Tensor, b: torch.Tensor,
 
 
 def linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
-           policy: DtypePolicy = DtypePolicy()) -> torch.Tensor:
+           policy: DtypePolicy = DtypePolicy(),
+           scale: torch.Tensor | None = None) -> torch.Tensor:
     """``x @ weight.T (+ bias)`` in the policy's compute dtype with fp32
-    accumulation at the policy's precision (``matmul``); returns fp32."""
+    accumulation at the policy's precision (``matmul``); returns fp32.
+
+    An int8 ``weight`` (``--precision int8``, ``ops/quant.py``) with its
+    per-channel ``scale`` takes the quantized product ``qdot`` on ``x`` as
+    given: per-token int8, int32 accumulation, rank-1 dequant."""
+    if weight.dtype == torch.int8:
+        from aaclip_tpu_torch.ops.quant import qdot
+
+        y = qdot(x, weight, scale)
+        return y if bias is None else y + bias.float()
     cd = policy.compute_dtype
     y = matmul(x.to(cd), weight.to(cd).t(), policy.precision)
     if bias is not None:
         y = y + bias.float()
     return y
+
+
+def linear_params(lin: nn.Module) -> dict:
+    """``linear``'s ``weight``, ``bias`` and ``scale`` of a linear layer:
+    the scale is the int8 weight's (``ops/quant.py::
+    quantize_block_weights``), None for a float one."""
+    return dict(weight=lin.weight, bias=lin.bias,
+                scale=getattr(lin, "weight_s", None))
+
+
+def qkv_params(p: nn.Module, value_only: bool = False) -> dict:
+    """``linear``'s ``weight``, ``bias`` and ``scale`` of a
+    ``PackedAttention``'s packed QKV projection, or of its value third with
+    ``value_only`` (the V-V form); the scale is None for float weights."""
+    w, b = p.in_proj_weight, p.in_proj_bias
+    s = getattr(p, "in_proj_weight_s", None)
+    if value_only:
+        D = w.shape[-1]
+        w, b = w[2 * D:], b[2 * D:]
+        s = None if s is None else s[2 * D:]
+    return dict(weight=w, bias=b, scale=s)
 
 
 class PackedAttention(nn.Module):
@@ -259,11 +292,10 @@ def _attention(x: torch.Tensor, p: PackedAttention, num_heads: int, *,
     hd = D // num_heads
     cd = policy.compute_dtype
     if vv:
-        v = linear(x, p.in_proj_weight[2 * D:], p.in_proj_bias[2 * D:],
-                   policy)
+        v = linear(x, **qkv_params(p, value_only=True), policy=policy)
         q = k = v = v.reshape(B, L, num_heads, hd).transpose(1, 2)
     else:
-        qkv = linear(x, p.in_proj_weight, p.in_proj_bias, policy)
+        qkv = linear(x, **qkv_params(p), policy=policy)
         qkv = qkv.reshape(B, L, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0], qkv[1], qkv[2]
     prec = policy.precision
@@ -276,7 +308,7 @@ def _attention(x: torch.Tensor, p: PackedAttention, num_heads: int, *,
     out = out.transpose(1, 2).reshape(B, L, D)
     if not project:
         return out
-    out = linear(out, p.out_proj.weight, p.out_proj.bias, policy)
+    out = linear(out, **linear_params(p.out_proj), policy=policy)
     return out.to(x.dtype)
 
 
@@ -319,7 +351,7 @@ def attention_vv_batch(x: torch.Tensor, p: PackedAttention, num_heads: int,
     B, L, D = x.shape
     hd = D // num_heads
     cd = policy.compute_dtype
-    v = linear(x, p.in_proj_weight[2 * D:], p.in_proj_bias[2 * D:], policy)
+    v = linear(x, **qkv_params(p, value_only=True), policy=policy)
     v = v.reshape(B, L, num_heads, hd).permute(1, 2, 0, 3).to(cd)  # [L,H,B,hd]
     prec = policy.precision
     scores = matmul(v, v.transpose(-1, -2), prec) * hd ** -0.5
@@ -329,7 +361,7 @@ def attention_vv_batch(x: torch.Tensor, p: PackedAttention, num_heads: int,
     probs = torch.softmax(scores, dim=-1)
     out = matmul(probs.to(cd), v, prec)                        # [L,H,B,hd]
     out = out.permute(2, 0, 1, 3).reshape(B, L, D)
-    out = linear(out, p.out_proj.weight, p.out_proj.bias, policy)
+    out = linear(out, **linear_params(p.out_proj), policy=policy)
     return out.to(x.dtype)
 
 
@@ -356,8 +388,8 @@ def causal_mask(length: int, device=None) -> torch.Tensor:
 
 def mlp(x: torch.Tensor, p: Mlp, act,
         policy: DtypePolicy = DtypePolicy()) -> torch.Tensor:
-    h = act(linear(x, p.c_fc.weight, p.c_fc.bias, policy))
-    return linear(h, p.c_proj.weight, p.c_proj.bias, policy).to(x.dtype)
+    h = act(linear(x, **linear_params(p.c_fc), policy=policy))
+    return linear(h, **linear_params(p.c_proj), policy=policy).to(x.dtype)
 
 
 def residual_block(x: torch.Tensor, blk: ResidualBlock, num_heads: int, *,

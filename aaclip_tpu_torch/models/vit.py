@@ -98,6 +98,21 @@ def run_blocks(x: torch.Tensor, vit: VisionTransformer, cfg: CLIPConfig,
     return x
 
 
+def quantize_prefix(visual: VisionTransformer, source: VisionTransformer,
+                    until: int) -> VisionTransformer:
+    """The mixed int8 prefix (``--int8_until``): blocks [0, ``until``) of
+    ``visual`` quantized in place from ``source``'s blocks
+    (``ops/quant.py::quantize_block_weights``), the rest left as they are.
+    One ``ModuleList`` holds both kinds, and each product dispatches on its
+    weight's dtype (``layers.linear``), so the trunk needs no second stack
+    (JAX's scan does, since its stacked leaves share one dtype)."""
+    from aaclip_tpu_torch.ops.quant import quantize_block_weights
+
+    for i in range(until):
+        quantize_block_weights(visual.blocks[i], source=source.blocks[i])
+    return visual
+
+
 def staged_depth(policy: DtypePolicy, layers: int) -> int:
     """How many leading blocks run under ``policy.prefix_policy()``: the
     policy's ``bf16_until``, at most the depth, and only when its compute

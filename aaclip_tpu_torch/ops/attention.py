@@ -55,7 +55,8 @@ import functools
 import torch
 
 from aaclip_tpu_torch.core.config import DtypePolicy
-from aaclip_tpu_torch.models.layers import _split_bf16, linear
+from aaclip_tpu_torch.models.layers import (_split_bf16, linear,
+                                            linear_params, qkv_params)
 
 KERNEL_HEAD_DIMS = (16, 64)  # head dims the kernel is instantiated for
 # (dtype, head dim) pairs on the TMA + wgmma kernels (kTmaHeadDim of
@@ -770,6 +771,44 @@ def attention_packed_diff_plain(qkv: torch.Tensor, num_heads: int,
     return _PackedAttention.apply(qkv, num_heads, valid_len, True, precision)
 
 
+@torch.library.custom_op("aaclip::attention_packed", mutates_args=())
+def attention_packed_op(qkv: torch.Tensor, num_heads: int, valid_len: int,
+                        vv: bool, precision: str | None) -> torch.Tensor:
+    """B1's forward as a torch operator, ``aaclip::attention_packed``:
+    ``attention_packed`` (or ``attention_packed_vv`` with ``vv``) on
+    ``qkv``, so that ``torch.export`` captures the kernel call as one node
+    (``deploy.py``). Its body is the wrapper: the plain version on CPU
+    tensors, on CUDA tensors the hand-written kernel (counted in the
+    wrapper's ``launches``) or a raise. No derivative."""
+    fn = attention_packed_vv if vv else attention_packed
+    return fn(qkv, num_heads, valid_len, precision=precision)
+
+
+@attention_packed_op.register_fake
+def _(qkv, num_heads, valid_len, vv, precision):
+    B, S, width = qkv.shape
+    return qkv.new_empty(B, S, width if vv else width // 3)
+
+
+def _forward_op(vv: bool):
+    """The forward attention of ``make_attn_fn``'s default hook: the
+    ``aaclip::attention_packed`` operator on CPU and CUDA tensors, or the
+    wrapper itself where autograd must see the plain CPU version (an input
+    that needs a gradient, which the operator does not give) and on any
+    other device, which the wrapper refuses (the operator's fake would
+    answer a meta tensor)."""
+    wrapper = attention_packed_vv if vv else attention_packed
+
+    def attention(x, num_heads, valid_len, *, precision=None):
+        if x.device.type not in ("cpu", "cuda") or (
+                x.requires_grad and torch.is_grad_enabled()):
+            return wrapper(x, num_heads, valid_len, precision=precision)
+        return attention_packed_op(x, num_heads, valid_len, vv, precision)
+
+    attention.wrapper = wrapper
+    return attention
+
+
 def make_attn_fn(num_heads: int, policy: DtypePolicy = DtypePolicy(), *,
                  vv: bool = False, differentiable: bool = False,
                  attention=None):
@@ -781,29 +820,31 @@ def make_attn_fn(num_heads: int, policy: DtypePolicy = DtypePolicy(), *,
     it.
 
     ``attention`` defaults to the forward kernel wrapper
-    (``attention_packed``, or ``attention_packed_vv`` with ``vv``), or with
+    (``attention_packed``, or ``attention_packed_vv`` with ``vv``) through
+    the ``aaclip::attention_packed`` operator, or with
     ``differentiable=True`` (training steps) to ``attention_packed_diff``;
     the ``*_plain`` versions give the same function with the plain
     arithmetic (the on-card comparison). It is called as ``attention(x,
-    num_heads, valid_len, precision=policy.precision)``."""
+    num_heads, valid_len, precision=policy.precision)``.
+
+    int8 weights (``ops/quant.py``) take the quantized projections
+    (``linear``'s int8 branch, the V-V value third included) on ``x`` as
+    given; the attention itself stays in the compute dtype."""
     if vv and differentiable:
         # as in the JAX package: stage-1 surgery features are grad-free
         raise ValueError("the V-V attention has no differentiable variant: "
                          "stage-1 feature extraction is gradient-free")
     if attention is None:
-        attention = attention_packed_vv if vv else (
-            attention_packed_diff if differentiable else attention_packed)
+        attention = attention_packed_diff if differentiable else \
+            _forward_op(vv)
     cd = policy.compute_dtype
 
     def attn_fn(x: torch.Tensor, p) -> torch.Tensor:
-        w, b = p.in_proj_weight, p.in_proj_bias
-        if vv:
-            D = x.shape[-1]
-            w, b = w[2 * D:], b[2 * D:]
-        packed = linear(x, w, b, policy).to(cd)
+        packed = linear(x, **qkv_params(p, value_only=vv),
+                        policy=policy).to(cd)
         out = attention(packed, num_heads, x.shape[1],
                         precision=policy.precision)
-        out = linear(out, p.out_proj.weight, p.out_proj.bias, policy)
+        out = linear(out, **linear_params(p.out_proj), policy=policy)
         return out.to(x.dtype)
 
     return attn_fn

@@ -416,7 +416,8 @@ def maybe_make_block_fn(cfg, policy: DtypePolicy, *, vv: bool = False,
                         device=None):
     """The fused block for ``cfg`` on the card under the bf16 policy; None
     off the card (the JAX package's "not the kernel backend") and under
-    every other policy, where the caller keeps the unfused block. This
+    every other policy (int8 included), where the caller keeps the
+    unfused block. This
     follows JAX's gate, which gives None for every policy but bf16 so that
     the fp32 parity paths keep their numerics: a caller under fp32 is
     asking for the parity path, not for the fused kernels (which
@@ -427,6 +428,10 @@ def maybe_make_block_fn(cfg, policy: DtypePolicy, *, vv: bool = False,
     if resolve_device(device).type != "cuda":
         return None
     if policy.compute_dtype != torch.bfloat16:
+        return None
+    if policy.quant_int8:
+        # int8 rides bf16 compute too, but the fused kernels read float
+        # weights: int8 codes without their scales would compute garbage
         return None
     if not fused_block_supported(cfg, policy):
         v = cfg.vision

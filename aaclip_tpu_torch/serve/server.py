@@ -43,8 +43,11 @@ GET /statz            -> requests, errors, rejected, batches, mean batch
                          splits the input upload out as h2d_probe)
 
 Start with ``python -m aaclip_tpu_torch.serve``. The engine runs on the
-card unless ``device="cpu"`` is passed (the tests); ``data_parallel``,
-``artifact`` and ``precision="int8"`` are not ported (ROADMAP A12).
+card unless ``device="cpu"`` is passed (the tests). ``artifact=DIR``
+(``--artifact``) serves an exported artifact (``deploy.py``): no towers,
+no checkpoint parse and no text tower; each bucket runs the smallest
+exported program that fits it. ``data_parallel`` is not ported (ROADMAP
+A12).
 """
 
 from __future__ import annotations
@@ -67,7 +70,7 @@ import torch
 MAX_BODY_BYTES = int(float(os.environ.get(
     "AACLIP_SERVE_MAX_BODY_MB", "64")) * 1024 * 1024)
 
-_A12 = "ROADMAP A12, 'int8, mesh and export'"
+_A12 = "ROADMAP A12, 'the parallel axes'"
 _log = logging.getLogger("aaclip.serve")
 
 
@@ -141,8 +144,11 @@ class InferenceEngine:
     seeded init; adapters from ``save_path`` (``train/checkpoint.py::
     discover_serving_adapters``), else random and flagged ``untrained``.
     ``anchor_cache`` keeps the text anchors on disk, keyed by everything
-    that determines them. ``startup_s`` holds the seconds of the towers
-    (with the adapters), the anchors and the warm-up."""
+    that determines them. ``precision="int8"`` quantizes the trunk
+    (``ops/quant.py``). ``artifact`` loads an exported artifact instead of
+    building the model (``_init_from_artifact``). ``startup_s`` holds the
+    seconds of the towers (with the adapters), the anchors and the warm-up,
+    or of the artifact's load and the warm-up."""
 
     def __init__(self, model_name: str = "ViT-L-14-336", img_size: int = 518,
                  datasets=None, save_path: Optional[str] = None,
@@ -155,12 +161,20 @@ class InferenceEngine:
                  max_queue: Optional[int] = None,
                  anchor_cache: Optional[str] = None,
                  artifact: Optional[str] = None, device=None):
-        if artifact is not None:
-            raise NotImplementedError(
-                f"serving an exported artifact is not ported yet: {_A12}")
         if data_parallel:
             raise NotImplementedError(
                 f"data-parallel serving is not ported yet: {_A12}")
+        if artifact is not None:
+            from aaclip_tpu_torch.device import resolve_device
+
+            self.device = resolve_device(device)
+            self.cfg = self.policy = None
+            self.max_batch = max_batch
+            self.batch_window_s = batch_window_ms / 1000.0
+            self.startup_s = {}
+            self._init_from_artifact(artifact, datasets)
+            self._start_runtime(max_queue, precompile)
+            return
         from aaclip_tpu_torch.core.config import (AdapterConfig, DtypePolicy,
                                                   get_config)
         from aaclip_tpu_torch.core.params import (adapter_from_jax,
@@ -180,7 +194,7 @@ class InferenceEngine:
             encode_dataset_anchors, encode_dataset_anchors_cached)
         from aaclip_tpu_torch.train import checkpoint as ckpt
 
-        policy = DtypePolicy.from_name(precision)   # int8 raises (A12)
+        policy = DtypePolicy.from_name(precision)
         self.device = resolve_device(device)
         self.policy = policy
         self.img_size = img_size
@@ -269,6 +283,50 @@ class InferenceEngine:
         del enc, text, text_adapter
 
         self._start_runtime(max_queue, precompile)
+
+    def _init_from_artifact(self, artifact: str, datasets) -> None:
+        """Serve an exported artifact (``deploy.py``): load its programs and
+        constants and go. Each power-of-2 bucket of the engine runs on the
+        smallest exported program that fits it (``ServingArtifact.
+        predict_tensors``), padded up by repeating the last sample, the
+        engine's own padding; ``datasets`` None serves every dataset the
+        artifact bundles."""
+        from aaclip_tpu_torch.deploy import load_serving_artifact
+
+        t0 = time.perf_counter()
+        art = load_serving_artifact(artifact, device=self.device)
+        self._artifact = art
+        if datasets is None:  # the artifact is the dataset selection
+            datasets = tuple(sorted(art.anchors))
+        self.img_size = art.img_size
+        if self.max_batch is None:  # the artifact's own largest bucket
+            self.max_batch = art.batch_sizes[-1]
+        for b in sorted({self._bucket(n)
+                         for n in range(1, self.max_batch + 1)}):
+            if b > art.batch_sizes[-1]:
+                raise ValueError(
+                    f"artifact at {artifact!r} lacks graphs for buckets >= "
+                    f"{b} required by max_batch={self.max_batch} (exported: "
+                    f"{art.batch_sizes}): re-export with --batch_sizes "
+                    "covering them or lower --max_batch")
+        want = set(datasets) - set(art.anchors)
+        if want:
+            raise ValueError(
+                f"artifact at {artifact!r} lacks datasets {sorted(want)} "
+                f"(has {sorted(art.anchors)}): re-export with --datasets")
+        self.anchors = {ds: dict(art.anchors[ds]) for ds in datasets}
+        self.postproc = {ds: art.postproc[ds] for ds in datasets}
+        self.image_adapter = None
+        self.untrained = art.untrained
+        if self.untrained:
+            _log.warning(
+                "artifact %s carries RANDOM-INIT adapters "
+                "(manifest.untrained=true): /predict responses are not "
+                "anomaly detections", artifact)
+
+        self._predict = lambda _adapter, imgs, anch, M: \
+            art.predict_tensors(imgs, anch, M)
+        self.startup_s["load"] = time.perf_counter() - t0
 
     # -- device plumbing ----------------------------------------------------
 
@@ -787,20 +845,26 @@ def parse_args(argv=None):
     parser = argparse.ArgumentParser(
         description="aaclip_tpu_torch inference server")
     parser.add_argument("--artifact", default=None,
-                        help="serve an exported artifact directory (not "
-                             "ported yet: ROADMAP A12)")
+                        help="serve an exported artifact directory "
+                             "(python -m aaclip_tpu_torch.deploy). The "
+                             "model, adapter and precision flags are "
+                             "ignored: the artifact is the model; "
+                             "--datasets selects among its bundled "
+                             "datasets")
     parser.add_argument("--model_name", default="ViT-L-14-336")
     parser.add_argument("--img_size", type=int, default=518)
     parser.add_argument("--datasets", nargs="+", default=None,
                         help="datasets to build anchors for (default: "
-                             "MVTec)")
+                             "MVTec); with --artifact, selects among the "
+                             "bundled datasets (default: all of them)")
     parser.add_argument("--save_path", default=None,
                         help="adapter checkpoint dir (optional)")
     parser.add_argument("--precision", default="bf16",
-                        choices=["fp32", "fp32_high", "bf16", "int8"],
-                        help="int8 is not ported yet (ROADMAP A12)")
+                        choices=["fp32", "fp32_high", "bf16", "int8"])
     parser.add_argument("--max_batch", type=int, default=None,
-                        help="largest micro-batch (default 8)")
+                        help="largest micro-batch (default 8; with "
+                             "--artifact, the artifact's largest exported "
+                             "bucket)")
     parser.add_argument("--max_queue", type=int, default=None,
                         help="pending-request cap (default 4 x max_batch); "
                              "submits beyond it fast-fail with HTTP 429")
@@ -827,30 +891,34 @@ def parse_args(argv=None):
     parser.add_argument("--text_adapt_until", type=int, default=3)
     parser.add_argument("--relu", action="store_true")
     args = parser.parse_args(argv)
-    unported = [("--artifact", args.artifact is not None),
-                ("--data_parallel", args.data_parallel),
-                ("--precision int8", args.precision == "int8")]
-    for flag, given in unported:
-        if given:
-            raise NotImplementedError(f"{flag} is not ported yet: {_A12}")
+    if args.data_parallel:
+        raise NotImplementedError(f"--data_parallel is not ported yet: "
+                                  f"{_A12}")
     return args
 
 
 def main(argv=None, *, device=None):
     args = parse_args(argv)
-    engine = InferenceEngine(
-        model_name=args.model_name, img_size=args.img_size,
-        datasets=tuple(args.datasets) if args.datasets else None,
-        save_path=args.save_path, precision=args.precision,
-        max_batch=args.max_batch, max_queue=args.max_queue,
-        clip_checkpoint=args.clip_checkpoint,
-        precompile=not args.no_precompile,
-        anchor_cache=args.anchor_cache or None,
-        adapter_cfg=dict(levels=tuple(args.levels),
-                         image_adapt_until=args.image_adapt_until,
-                         text_adapt_until=args.text_adapt_until,
-                         proj_relu=args.relu),
-        device=device)
+    if args.artifact:
+        engine = InferenceEngine(
+            artifact=args.artifact,
+            datasets=tuple(args.datasets) if args.datasets else None,
+            max_batch=args.max_batch, max_queue=args.max_queue,
+            precompile=not args.no_precompile, device=device)
+    else:
+        engine = InferenceEngine(
+            model_name=args.model_name, img_size=args.img_size,
+            datasets=tuple(args.datasets) if args.datasets else None,
+            save_path=args.save_path, precision=args.precision,
+            max_batch=args.max_batch, max_queue=args.max_queue,
+            clip_checkpoint=args.clip_checkpoint,
+            precompile=not args.no_precompile,
+            anchor_cache=args.anchor_cache or None,
+            adapter_cfg=dict(levels=tuple(args.levels),
+                             image_adapt_until=args.image_adapt_until,
+                             text_adapt_until=args.text_adapt_until,
+                             proj_relu=args.relu),
+            device=device)
     httpd = serve(engine, args.host, args.port)
     print(f"serving on http://{args.host}:{httpd.server_address[1]} "
           f"(datasets: {sorted(engine.anchors)}; start-up "
@@ -863,3 +931,4 @@ def main(argv=None, *, device=None):
     finally:
         httpd.server_close()
         engine.shutdown()
+

@@ -16,8 +16,13 @@ which, once, and each class's ``metrics_eval`` seconds.
 
 ``--memory_bank`` (with ``--shot``, ``--bank_weight``, ``--bank_chunk``)
 fuses each class's few-shot memory bank into the prediction
-(``eval/memory_bank.py``). The flags are the JAX CLI's; those of paths not
-ported yet raise at parse time naming their ROADMAP item. ``main(argv, device="cpu")`` runs on the
+(``eval/memory_bank.py``). ``--precision int8`` (with ``--int8_until K``)
+quantizes the trunk (``ops/quant.py``). ``--artifact DIR`` evaluates an
+exported artifact (``deploy.py``) instead of building the model: the
+programs, weights and anchors that ``serve --artifact`` would run, with
+its bundled banks under ``--memory_bank``. The flags are the JAX CLI's;
+those of paths not ported yet raise at parse time naming their ROADMAP
+item. ``main(argv, device="cpu")`` runs on the
 CPU (the tests); by default it runs on the card.
 """
 
@@ -32,7 +37,7 @@ import re
 import time
 
 # flags of paths the port does not have yet -> (ROADMAP item, its title)
-_A12 = ("A12", "int8, mesh and export")
+_A12 = ("A12", "the parallel axes")
 _A15 = ("A15", "visualization")
 
 
@@ -64,7 +69,8 @@ def parse_args(argv=None):
                              "fp32_high = 3-pass products (three bf16 "
                              "passes) with the first --bf16_until blocks "
                              "at bf16; bf16 = the fast path (uint8 "
-                             "inputs); int8 is not ported yet")
+                             "inputs); int8 = the trunk's big products "
+                             "int8 x int8 -> int32 (inference only)")
     parser.add_argument("--clip_checkpoint", type=str, default=None,
                         help="OpenAI-layout CLIP checkpoint (TorchScript "
                              "archive or state dict); default: AACLIP_CKPT "
@@ -77,7 +83,10 @@ def parse_args(argv=None):
                              "fp32 residual stream; inference only). "
                              "Default: the precision's own (6 for "
                              "fp32_high, 0 otherwise)")
-    parser.add_argument("--int8_until", type=int, default=None)
+    parser.add_argument("--int8_until", type=int, default=None,
+                        help="with --precision int8: quantize only the "
+                             "first K vision blocks, the rest bf16 "
+                             "(default 0 = the whole trunk)")
     parser.add_argument("--aupro", action="store_true",
                         help="also compute pixel AUPRO")
     parser.add_argument("--csv", action="store_true",
@@ -109,24 +118,29 @@ def parse_args(argv=None):
     parser.add_argument("--bank_chunk", type=int, default=1024,
                         help="bank rows per step of the max-similarity "
                              "loop (peak memory ~ [levels, B, L, chunk])")
-    parser.add_argument("--artifact", type=str, default=None)
+    parser.add_argument("--artifact", type=str, default=None,
+                        help="evaluate an exported artifact directory "
+                             "(python -m aaclip_tpu_torch.deploy) instead "
+                             "of building the model; the model, adapter "
+                             "and precision flags are ignored, --dataset "
+                             "must be bundled in it")
     args = parser.parse_args(argv)
     unported = [
-        ("--precision int8", args.precision == "int8", _A12),
-        ("--int8_until", args.int8_until is not None, _A12),
         ("--data_parallel", args.data_parallel, _A12),
         ("--tensor_parallel", args.tensor_parallel > 1, _A12),
         ("--sequence_parallel", args.sequence_parallel, _A12),
         ("--pipeline_parallel", args.pipeline_parallel > 1, _A12),
-        ("--artifact", args.artifact is not None, _A12),
         ("--visualize", args.visualize, _A15),
     ]
     for flag, given, (item, title) in unported:
         if given:
             raise NotImplementedError(
                 f"{flag} is not ported yet: ROADMAP {item}, '{title}'")
-    if args.memory_bank and args.shot < 1:
-        parser.error("--memory_bank needs --shot >= 1 support images")
+    if args.memory_bank and args.shot < 1 and not args.artifact:
+        parser.error("--memory_bank needs --shot >= 1 support images "
+                     "(artifact banks carry their own shot count)")
+    if args.int8_until is not None and args.precision != "int8":
+        parser.error("--int8_until requires --precision int8")
     return args
 
 
@@ -159,7 +173,6 @@ def _write_csv(path: str, header, rows) -> None:
 def main(argv=None, *, device=None):
     args = parse_args(argv)
 
-    from aaclip_tpu_torch import native
     from aaclip_tpu_torch.core.config import (AdapterConfig, DtypePolicy,
                                               get_config)
     from aaclip_tpu_torch.core.params import (adapter_from_jax,
@@ -169,18 +182,15 @@ def main(argv=None, *, device=None):
                                               init_text_adapter,
                                               text_adapter_from_jax,
                                               text_adapter_to_jax)
-    from aaclip_tpu_torch.data.datasets import BatchLoader, get_test_datasets
+    from aaclip_tpu_torch.data.datasets import get_test_datasets
     from aaclip_tpu_torch.data.registry import DOMAINS
     from aaclip_tpu_torch.data.transforms import DECODE_COUNTS
     from aaclip_tpu_torch.device import resolve_device
-    from aaclip_tpu_torch.eval.metrics import metrics_eval
     from aaclip_tpu_torch.eval.predict import (make_anchor_encoder,
-                                               make_predict_fn,
-                                               run_class_predictions)
+                                               make_predict_fn)
     from aaclip_tpu_torch.text.anchors import encode_dataset_anchors
     from aaclip_tpu_torch.train import checkpoint as ckpt
     from aaclip_tpu_torch.utils.logging import setup_logger
-    from aaclip_tpu_torch.utils.profiling import StepTimer
     from aaclip_tpu_torch.utils.seed import setup_seed
 
     dev = resolve_device(device)
@@ -191,9 +201,13 @@ def main(argv=None, *, device=None):
                           os.path.join(args.save_path, "test.log"))
     logger.info("args: %s", vars(args))
 
+    if args.artifact:
+        return _eval_artifact(args, logger, dev, decoded_before)
     policy = DtypePolicy.from_name(args.precision)
     if args.bf16_until is not None:
         policy = dataclasses.replace(policy, bf16_until=args.bf16_until)
+    if args.int8_until is not None:
+        policy = dataclasses.replace(policy, int8_until=args.int8_until)
     cfg = get_config(args.model_name, args.img_size)
     acfg = AdapterConfig(
         text_adapt_weight=args.text_adapt_weight,
@@ -234,7 +248,8 @@ def main(argv=None, *, device=None):
         raise SystemExit(
             f"image adapter checkpoint not found under {args.save_path!r}")
 
-    uint8_inputs = args.fused_preprocess or args.precision == "bf16"
+    uint8_inputs = args.fused_preprocess or args.precision in ("bf16",
+                                                               "int8")
     predict_fn = make_predict_fn(vit, cfg, acfg, policy=policy,
                                  uint8_inputs=uint8_inputs, device=dev)
     mb_predict = support = None
@@ -259,80 +274,26 @@ def main(argv=None, *, device=None):
     text_embeddings = encode_dataset_anchors(enc, args.dataset)
     grid = cfg.vision.grid
 
-    def eval_one(image_adapter, label) -> None:
-        """One results table (the reference's per-snapshot block,
-        test.py:179-250)."""
-        logger.info("-----------------------------------------------")
-        logger.info("load model from epoch %s", label)
-        logger.info("-----------------------------------------------")
-        columns = ["class name", "pixel AUC", "pixel AP", "image AUC",
-                   "image AP"]
-        if args.aupro:
-            columns.append("pixel AUPRO")
-        rows, score_rows = [], []
-        timer = StepTimer()
-        for class_name, dataset in image_datasets.items():
-            # per-class size (reference dataset/__init__.py:145-148)
-            logger.info("Class name: %s", class_name)
-            logger.info("Sample number: %d", len(dataset))
-            logger.info("=====================================")
-            if len(dataset) == 0:
-                logger.info("skipping empty class %s", class_name)
-                continue
-            loader = BatchLoader(dataset, args.batch_size,
-                                 num_workers=args.num_workers)
-            fn = predict_fn
-            if mb_predict is not None:
-                if class_name not in support:
-                    # a bank-less class would mix protocols in one table
-                    raise SystemExit(
-                        f"--memory_bank: class {class_name!r} has test "
-                        "images but no training metadata to draw support "
-                        "from")
-                # per snapshot and class: the bank comes from the adapters
-                # under evaluation (reference test.py:41)
-                bank = mb.collect_bank(mb_predict.features_fn, image_adapter,
-                                       support[class_name],
-                                       batch_size=args.batch_size)
-                logger.info("memory bank: %d patch vectors/level x %d "
-                            "levels (%d-shot)", bank.shape[1], bank.shape[0],
-                            args.shot)
+    def class_fn(class_name, image_adapter):
+        if mb_predict is None:
+            return predict_fn
+        if class_name not in support:
+            # a bank-less class would mix protocols in one table
+            raise SystemExit(
+                f"--memory_bank: class {class_name!r} has test images but "
+                "no training metadata to draw support from")
+        # per snapshot and class: the bank comes from the adapters under
+        # evaluation (reference test.py:41)
+        bank = mb.collect_bank(mb_predict.features_fn, image_adapter,
+                               support[class_name],
+                               batch_size=args.batch_size)
+        logger.info("memory bank: %d patch vectors/level x %d levels "
+                    "(%d-shot)", bank.shape[1], bank.shape[0], args.shot)
 
-                def fn(ia, im, an, M, _bank=bank):
-                    return mb_predict(ia, im, an, M, _bank)
-                fn.device = mb_predict.device
-            masks, labels, preds, preds_image, file_names = \
-                run_class_predictions(fn, image_adapter, loader,
-                                      text_embeddings[class_name], domain,
-                                      args.img_size, grid)
-            timer.tick(len(file_names))
-            score_rows += [(class_name, f, int(lab), float(sc)) for f, lab, sc
-                           in zip(file_names, labels, preds_image)]
-            t0 = time.perf_counter()
-            row = metrics_eval(masks, labels, preds, preds_image, class_name,
-                               domain, compute_aupro=args.aupro)
-            logger.info("metrics_eval: %.3f s", time.perf_counter() - t0)
-            rows.append([row[c] if c == "class name" else float(row[c])
-                         for c in columns])
-        if timer.rate():
-            # the first class's window holds the warm-up
-            logger.info("eval throughput: %.2f maps/s", timer.rate())
-        n = len(rows)
-        rows.append(["Average"] + [
-            sum(r[i] for r in rows) / n if n else float("nan")
-            for i in range(1, len(columns))])
-        table = format_table(columns, rows)
-        logger.info("final results:\n%s", table)
-        print(table)
-        if args.csv:
-            path = os.path.join(args.save_path, f"results_{label}.csv")
-            _write_csv(path, columns, rows)
-            logger.info("wrote %s", path)
-        if args.dump_scores:
-            path = os.path.join(args.save_path, f"scores_{label}.csv")
-            _write_csv(path, ["class name", "file", "label", "image_score"],
-                       score_rows)
-            logger.info("wrote %s", path)
+        def fn(ia, im, an, M):
+            return mb_predict(ia, im, an, M, bank)
+        fn.device = mb_predict.device
+        return fn
 
     for file in files:
         if file.endswith(".pth"):
@@ -342,14 +303,164 @@ def main(argv=None, *, device=None):
         else:
             test_epoch, tree, _ = ckpt.load_adapter_checkpoint_any(
                 file, image_template)
-        eval_one(adapter_from_jax(tree, cfg, acfg, device=dev), test_epoch)
-    # which host paths produced the numbers: the native library or numpy
+        _eval_table(args, logger, test_epoch, image_datasets, class_fn,
+                    adapter_from_jax(tree, cfg, acfg, device=dev),
+                    text_embeddings, domain, grid)
+    _log_host_paths(logger, decoded_before)
+
+
+def _log_host_paths(logger, decoded_before: dict) -> None:
+    """Which host paths produced the numbers: the native library or
+    numpy."""
+    from aaclip_tpu_torch import native
+    from aaclip_tpu_torch.data.transforms import DECODE_COUNTS
+
     info = native.build_info()
     logger.info("host paths: metrics %s (%s); decode native %d, fallback "
                 "%d images and masks (image library: %s)",
                 native.metrics_path(), info.get("fast_metrics"),
                 *(DECODE_COUNTS[k] - decoded_before[k]
                   for k in ("native", "fallback")), info.get("fast_image"))
+
+
+def _eval_table(args, logger, label, image_datasets, class_fn,
+                image_adapter, text_embeddings, domain: str,
+                grid: int) -> None:
+    """One results table (the reference's per-snapshot block,
+    test.py:179-250): each class's loader through ``class_fn(class_name,
+    image_adapter)``'s predictor (``run_class_predictions``), its metrics,
+    the table with its "Average" row, and the CSVs the flags ask for."""
+    from aaclip_tpu_torch.data.datasets import BatchLoader
+    from aaclip_tpu_torch.eval.metrics import metrics_eval
+    from aaclip_tpu_torch.eval.predict import run_class_predictions
+    from aaclip_tpu_torch.utils.profiling import StepTimer
+
+    logger.info("-----------------------------------------------")
+    logger.info("load model from epoch %s", label)
+    logger.info("-----------------------------------------------")
+    columns = ["class name", "pixel AUC", "pixel AP", "image AUC",
+               "image AP"]
+    if args.aupro:
+        columns.append("pixel AUPRO")
+    rows, score_rows = [], []
+    timer = StepTimer()
+    for class_name, dataset in image_datasets.items():
+        # per-class size (reference dataset/__init__.py:145-148)
+        logger.info("Class name: %s", class_name)
+        logger.info("Sample number: %d", len(dataset))
+        logger.info("=====================================")
+        if len(dataset) == 0:
+            logger.info("skipping empty class %s", class_name)
+            continue
+        loader = BatchLoader(dataset, args.batch_size,
+                             num_workers=args.num_workers)
+        masks, labels, preds, preds_image, file_names = \
+            run_class_predictions(class_fn(class_name, image_adapter),
+                                  image_adapter, loader,
+                                  text_embeddings[class_name], domain,
+                                  args.img_size, grid)
+        timer.tick(len(file_names))
+        score_rows += [(class_name, f, int(lab), float(sc)) for f, lab, sc
+                       in zip(file_names, labels, preds_image)]
+        t0 = time.perf_counter()
+        row = metrics_eval(masks, labels, preds, preds_image, class_name,
+                           domain, compute_aupro=args.aupro)
+        logger.info("metrics_eval: %.3f s", time.perf_counter() - t0)
+        rows.append([row[c] if c == "class name" else float(row[c])
+                     for c in columns])
+    if timer.rate():
+        # the first class's window holds the warm-up
+        logger.info("eval throughput: %.2f maps/s", timer.rate())
+    n = len(rows)
+    rows.append(["Average"] + [
+        sum(r[i] for r in rows) / n if n else float("nan")
+        for i in range(1, len(columns))])
+    table = format_table(columns, rows)
+    logger.info("final results:\n%s", table)
+    print(table)
+    if args.csv:
+        path = os.path.join(args.save_path, f"results_{label}.csv")
+        _write_csv(path, columns, rows)
+        logger.info("wrote %s", path)
+    if args.dump_scores:
+        path = os.path.join(args.save_path, f"scores_{label}.csv")
+        _write_csv(path, ["class name", "file", "label", "image_score"],
+                   score_rows)
+        logger.info("wrote %s", path)
+
+
+def _eval_artifact(args, logger, device, decoded_before: dict) -> None:
+    """``--artifact``: the table of an exported artifact (``deploy.py``),
+    the programs, weights and anchors that ``serve --artifact`` runs; with
+    ``--memory_bank`` its bundled banks. The image size and grid come from
+    the artifact; its programs take uint8 inputs."""
+    import torch
+
+    from aaclip_tpu_torch.data.datasets import get_test_datasets
+    from aaclip_tpu_torch.data.registry import DOMAINS
+    from aaclip_tpu_torch.deploy import load_serving_artifact
+
+    art = load_serving_artifact(args.artifact, device=device)
+    if args.dataset not in art.anchors:
+        raise SystemExit(f"dataset {args.dataset!r} not in artifact "
+                         f"({sorted(art.anchors)}): re-export with "
+                         "--datasets")
+    m = art.manifest
+    if art.untrained:
+        logger.warning("artifact %s carries RANDOM-INIT adapters "
+                       "(manifest.untrained=true): the metrics are not "
+                       "anomaly detection results", args.artifact)
+    args.img_size = art.img_size  # the loader must feed the programs' shape
+    logger.info("artifact manifest: model %s @ %dpx, precision %s, "
+                "adapters %s", m["model_name"], art.img_size,
+                m["precision"], m["image_adapter_ckpt"] or "random-init")
+    M = art._postproc_dev[args.dataset]
+    banks = {}
+    if args.memory_bank:
+        banks = art.banks.get(args.dataset, {})
+        if not banks:
+            raise SystemExit(
+                "--memory_bank with --artifact needs banks bundled at "
+                "export (python -m aaclip_tpu_torch.deploy "
+                "--memory_bank_shot K); this artifact has none for "
+                f"{args.dataset!r}")
+        logger.info("artifact memory bank: %d-shot, weight %.2f, %d classes "
+                    "banked", art.shot, art.bank_weight, len(banks))
+        # the shot count and the weight are baked into the exported banks
+        # and programs: a differing flag would be ignored silently
+        if abs(args.bank_weight - art.bank_weight) > 1e-9:
+            logger.warning("--bank_weight %.2f has no effect on an artifact "
+                           "(weight %.2f was baked at export)",
+                           args.bank_weight, art.bank_weight)
+        if args.shot not in (4, art.shot):  # 4: the default
+            logger.warning("--shot %d has no effect on an artifact (banks "
+                           "were built %d-shot at export)", args.shot,
+                           art.shot)
+
+    def class_fn(class_name, _adapter):
+        bank = None
+        if args.memory_bank:
+            if class_name not in banks:
+                raise SystemExit(f"--memory_bank: class {class_name!r} has "
+                                 "test images but no bank in the artifact: "
+                                 "re-export")
+            bank = art.class_bank(args.dataset, class_name)
+
+        def fn(_a, images, anchors, _M):
+            # the artifact's own M; anchors per sample, as its programs
+            # take them
+            anchors = anchors.expand(images.shape[0], -1, -1)
+            with torch.inference_mode():
+                return art.predict_tensors(images, anchors, M, bank)
+        fn.device = art.device
+        return fn
+
+    _eval_table(args, logger, "artifact",
+                get_test_datasets(args.dataset, args.img_size, uint8=True),
+                class_fn, None, {k: torch.from_numpy(v) for k, v in
+                                 art.anchors[args.dataset].items()},
+                DOMAINS[args.dataset], int(m["grid"]))
+    _log_host_paths(logger, decoded_before)
 
 
 if __name__ == "__main__":

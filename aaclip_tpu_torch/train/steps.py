@@ -47,7 +47,14 @@ def _no_mesh(mesh, sequence_parallel: bool) -> None:
     if mesh is not None or sequence_parallel:
         raise NotImplementedError(
             "meshes, tensor and sequence parallelism are not ported yet: "
-            "ROADMAP A12, 'int8, mesh and export'")
+            "ROADMAP A12, 'the parallel axes'")
+
+
+def _no_int8(policy: DtypePolicy) -> None:
+    if policy.quant_int8:
+        raise ValueError("--precision int8 is inference-only: the training "
+                         "steps never quantize (the JAX package's steps and "
+                         "train.py refuse it too)")
 
 
 def _step_device(tower: torch.nn.Module, device) -> torch.device:
@@ -97,6 +104,7 @@ def stage1_features_fn(vit: VisionTransformer, cfg: CLIPConfig, *,
 
     ``device=None`` means the card; ``vit`` must live there."""
     _no_mesh(mesh, sequence_parallel)
+    _no_int8(policy)
     if chunk is not None and chunk < 1:
         raise ValueError(f"feature chunk must be >= 1, got {chunk}")
     if vv_mode not in ("batch", "spatial"):
@@ -179,6 +187,7 @@ def make_stage1_step(text: TextTransformer, cfg: CLIPConfig,
     ``device=None`` means the card; ``text`` and the adapter must live
     there."""
     _no_mesh(mesh, sequence_parallel)
+    _no_int8(policy)
     dev = _step_device(text, device)
     policy = policy.unstaged()  # staging is inference-only
     img = img_size or cfg.vision.image_size
@@ -246,6 +255,7 @@ def make_stage2_step(vit: VisionTransformer, cfg: CLIPConfig,
     ``device=None`` means the card and raises when there is none; ``vit``
     and the adapter must already live there."""
     _no_mesh(mesh, sequence_parallel)
+    _no_int8(policy)
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     dev = _step_device(vit, device)

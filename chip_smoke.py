@@ -106,7 +106,7 @@ Needs one CUDA card and nvcc. Phases, each of which fails the run:
     through ``main``): a seeded ViT-L-14-336 at its native 336 px saved as
     an OpenAI-layout state dict (the loader resizes the positional
     embedding 24 -> 37), an npz image adapter and a reference ``.pth``
-    text adapter, a synthetic MVTec set (3 classes, 50 normal and 100
+    text adapter, a synthetic MVTec set (2 classes, 50 normal and 100
     anomalous 1024 px images each); the CLI at bf16 batch 32 and at fp32
     batch 8 with ``--csv --dump_scores``, each held to (a) 24 forward
     kernel launches per predict batch and no other kernel (fp32's on the
@@ -190,6 +190,26 @@ Needs one CUDA card and nvcc. Phases, each of which fails the run:
     phase split printed; (d) ``bench --mode serve`` in-process: closed
     loop with 8 clients for 10 s, open loop at half its rate for 10 s, the
     closed loop with ``--map_stride 4``, no error in any.
+13. int8 inference and the exported serving artifact at ViT-L/518: (a)
+    the int8 predict (``--precision int8``, uint8 inputs) at batch 32
+    against the same int8 trunk on the plain attention (scores at phase
+    4's bar, the map at 4e-2 of its span: the per-token int8 scale spreads
+    the kernel's ulp differences over whole rows, see the phase's notes),
+    24 B1 launches and 96 ``qdot`` calls per predict, 48 at
+    ``int8_until`` 12, and (printed) its distance from the bf16 and fp32
+    predicts; (b) int8, bf16 and int8_until 12 maps/s at batch 32 and one
+    fc product's parts (``dyn_quant``, ``_int_mm`` with either weight
+    layout, the dequant, the bf16 GEMM); (c) ``deploy.py``'s export from
+    phase 9's checkpoint, bf16 at buckets 1-8 and int8 at 8, each reloaded
+    artifact bit for bit against the live predictor at batch 8 (or within
+    1e-4 of the span, printed), ``aaclip::attention_packed`` in every
+    program and 24 B1 launches per artifact call, every ``.pt2`` under 5%
+    of ``params.npz``, export and load seconds; (d) the serving engine on
+    the bf16 artifact: start-up beside phase 12's, 8 concurrent requests
+    within 1.2e-3 of the span of a direct artifact predict, ``bench --mode
+    serve --artifact`` closed loop beside 12d's; (e) ``test --artifact``
+    on one synthetic class, its scores bit for bit a direct artifact
+    predict's, and ``test --precision int8`` on the same class.
 Phase 3 also holds the V-V mode of the forward kernel (B3) against its
 plain version, in bf16 and fp32, at [16, 1370, 1024], ragged S and head
 dim 16, and against the standard mode on the value section tripled.
@@ -2144,10 +2164,12 @@ def time_fused(cfg, card):
 
 
 # Phase 9, the evaluation CLI from checkpoints, on a synthetic MVTec set
-# sized like the real one: three classes of 150 test images (50 normal,
-# 100 anomalous) at 1024 px (MVTec AD's classes hold 42-167 test images of
-# 700-1024 px), so the CLI's logged rate, which leaves out the first
-# class, covers 300 maps. (b) the CLI against a direct predict on the same
+# whose classes are sized like the real ones: two classes of 150 test
+# images (50 normal, 100 anomalous) at 1024 px (MVTec AD's classes hold
+# 42-167 test images of 700-1024 px; cut from three classes for the
+# script's time, phase 9 being its longest, ~100 s a class on the card's
+# host), so the CLI's logged rate, which leaves out the first class,
+# covers 150 maps. (b) the CLI against a direct predict on the same
 # loaded towers and batches: bit for bit (the same kernels and products at
 # the same shapes). (c) the kernel run against the same loop on the plain
 # attention: phase 4's bars on the scores, at fp32 on the maps too. The
@@ -2184,7 +2206,7 @@ def time_fused(cfg, card):
 EVAL_TABLE_ATOL = {"fp32": 0.01, "bf16": 1.0}
 VS_SDPA_MEAN, VS_SDPA_MAX = 1.1, 1.5
 PP_3PASS_SPAN_FRAC = 1e-5
-EVAL_CLASSES, EVAL_NORMAL, EVAL_ANOMALOUS, EVAL_PX = 3, 50, 100, 1024
+EVAL_CLASSES, EVAL_NORMAL, EVAL_ANOMALOUS, EVAL_PX = 2, 50, 100, 1024
 EVAL_RUNS = (("bf16", 32), ("fp32", 8))
 DECODE_SAMPLE = 16  # images and masks timed one at a time on the host
 # the host library's AUROC/AP against numpy's on the same arrays: another
@@ -4632,13 +4654,443 @@ def phase_serving(vit, adapter, cfg, acfg, anchors, M, card, gen,
         vit, adapter, cfg, acfg, anchors, M, card, gen)
     cli_launches = phase_mb_eval_cli(card, ckpt_path)
     served = phase_serve(card, ckpt_path)
-    phase_bench_serve(card, rates)
+    bench = phase_bench_serve(card, rates)
     print(f"phase 12 (serving and the memory bank) took "
           f"{time.perf_counter() - t_phase:.0f} s")
+    SERVE_READINGS.update(start_s=served["start_s"],
+                          closed=bench["closed"]["value"])
     return {"memory-bank features batch": feat_launches,
             "memory-bank predict": mb_launches,
             "memory-bank evaluation CLI": cli_launches,
             "served micro-batch": served["launches_per_batch"]}
+
+
+# the live engine's start-up seconds and closed-loop maps/s (phase 12),
+# read beside the artifact engine's in phase 13
+SERVE_READINGS = {}
+
+
+# Phase 13, int8 inference and the exported serving artifact at
+# ViT-L-14-336 @ 518, after phase 12. (a) The int8 predict (--precision
+# int8, uint8 inputs) at batch 32 against the same int8 trunk with the
+# plain attention: scores at phase 4's bar, the map at INT8_PIX_SPAN_FRAC.
+# The kernel's one-ulp differences from the plain attention reach the
+# out-projection's per-token int8 scale: an ulp moved in a row's largest
+# value rescales the whole row and flips its int8 roundings (a step of
+# 1/127 of that value), where under bf16 it moves one element by 2^-8 of
+# itself; read on an NVIDIA H100 80GB HBM3, 700 W: 2.09e-2 of the span,
+# scores 6.3e-5, so the map bar stands at twice that reading, and the bf16
+# predict's own kernel-vs-plain distance on the same images is printed
+# beside it; 24 B1 launches and 96 qdot calls per predict, 48 at
+# int8_until 12;
+# printed, without a gate, its map correlation and deviation from the bf16
+# and fp32 predictors (random ViT-L weights are not a task: the task gate
+# is the CPU test's). (b) CUDA-event times of the int8, bf16 and int8_until
+# 12 predicts at batch 32, and of one fc product's parts at the predict's
+# rows (dyn_quant, _int_mm with the weight as the [in, out] column-major
+# view and as a contiguous [in, out] copy, the dequant, the bf16 GEMM).
+# (c) Export (deploy.py) from phase 9's checkpoint: bf16 at buckets 1, 2,
+# 4, 8 and int8 at 8; each reloaded artifact against the live predictor at
+# batch 8 (bf16 also 4), bit for bit, or, if an exported op's form moves
+# the bits on the card, within ART_SPAN_FRAC of the map's span, printed;
+# every program's graph holds aaclip::attention_packed and each artifact
+# call launches B1 24 times; every .pt2 under ART_GRAPH_FRAC of
+# params.npz; export seconds per program and the load seconds printed. (d)
+# The serving engine from the bf16 artifact (max_batch 8): start-up
+# against phase 12's live engine, 8 concurrent requests against a direct
+# artifact predict of the same images within SERVE_ART_SPAN_FRAC of the
+# span (phase 12's reading for one batch composition against another),
+# and ``bench --mode serve --artifact`` closed loop, 8 clients, 10 s,
+# beside phase 12d's live reading. (e) The evaluation CLI with --artifact
+# (the int8 artifact: one program, whose load takes seconds where the bf16
+# artifact's four take ~20) on one synthetic MVTec class, its scores bit
+# for bit against a direct artifact predict of the same batches, and with
+# --precision int8 from phase 9's checkpoint on the same class: it runs
+# and prints its table.
+INT8_PIX_SPAN_FRAC = 4e-2
+ART_SPAN_FRAC = 1e-4
+ART_GRAPH_FRAC = 0.05
+SERVE_ART_SPAN_FRAC = 1.2e-3
+INT8_BATCH, INT8_UNTIL = 32, 12
+ART_BUCKETS = (1, 2, 4, 8)
+ART_EVAL_NORMAL, ART_EVAL_ANOMALOUS = 8, 16
+
+
+def phase_int8(vit, adapter, cfg, acfg, anchors, M, card, gen) -> dict:
+    """Phase 13a-b; returns the launches per int8 predict and the rates."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from aaclip_tpu_torch.core.config import DtypePolicy
+    from aaclip_tpu_torch.eval.predict import make_predict_fn
+    from aaclip_tpu_torch.ops.attention import attention_packed
+    from aaclip_tpu_torch.ops.quant import dyn_quant, qdot, quantize_weight
+
+    heads, img, n_layers = cfg.vision.heads, cfg.vision.image_size, \
+        cfg.vision.layers
+    int8 = DtypePolicy.int8()
+    int8_k = dataclasses.replace(int8, int8_until=INT8_UNTIL)
+    kw = dict(uint8_inputs=True)
+    B = INT8_BATCH
+    images = torch.randint(0, 256, (B, 3, img, img), generator=gen,
+                           device="cuda", dtype=torch.uint8)
+    p8 = make_predict_fn(vit, cfg, acfg, policy=int8, **kw)
+    p8_plain = make_predict_fn(vit, cfg, acfg, policy=int8,
+                               attn_fn=make_attn_fn_plain(heads, int8), **kw)
+    n_q = sum(1 for v in p8.visual.values() if v.dtype == torch.int8)
+    expect(n_q == 4 * n_layers, f"int8 predictor: {n_q} int8 weights")
+
+    zero_counts()
+    qdot.launches = 0
+    pix_k, s_k = p8(adapter, images, anchors, M)
+    torch.cuda.synchronize()
+    launches, q_calls = attention_packed.launches, qdot.launches
+    expect(launches == n_layers, f"int8 predict: {launches} B1 launches")
+    expect(q_calls == 4 * n_layers, f"int8 predict: {q_calls} qdot calls")
+    pix_p, s_p = p8_plain(adapter, images, anchors, M)
+    expect(attention_packed.launches == n_layers,
+           "the plain-attention int8 predictor launched the kernel")
+    expect(bool(torch.isfinite(pix_k).all() and torch.isfinite(s_k).all()),
+           "int8 predict output not finite")
+    span = (pix_p.max() - pix_p.min()).item()
+    dpix = (pix_k - pix_p).abs().max().item()
+    dscore = (s_k - s_p).abs().max().item()
+    print(f"int8 predict B={B}, kernel vs plain attention: map span "
+          f"{span:.4f}, max|d map| {dpix:.3e} ({dpix / span:.3e} of span, "
+          f"bar {INT8_PIX_SPAN_FRAC}), max|d score| {dscore:.3e} (bar "
+          f"{SCORE_ATOL_BF16}); {launches} B1 launches, {q_calls} qdot "
+          f"calls per predict")
+    expect(dpix <= INT8_PIX_SPAN_FRAC * span, f"int8 map off: {dpix}")
+    expect(dscore <= SCORE_ATOL_BF16, f"int8 scores off: {dscore}")
+    del p8_plain, pix_p, s_p
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the bf16 predict's own kernel-vs-plain distance on these images
+    bf16 = DtypePolicy.bf16()
+    pb = make_predict_fn(vit, cfg, acfg, policy=bf16, **kw)
+    pb_plain = make_predict_fn(vit, cfg, acfg, policy=bf16,
+                               attn_fn=make_attn_fn_plain(heads, bf16), **kw)
+    pix_b, _ = pb(adapter, images, anchors, M)
+    pix_bp, _ = pb_plain(adapter, images, anchors, M)
+    span_b = (pix_bp.max() - pix_bp.min()).item()
+    print(f"bf16 predict B={B} on the same images, kernel vs plain "
+          f"attention: max|d map| "
+          f"{(pix_b - pix_bp).abs().max().item() / span_b:.3e} of span")
+    del pb_plain, pix_b, pix_bp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    pk = make_predict_fn(vit, cfg, acfg, policy=int8_k, **kw)
+    qdot.launches = 0
+    pk(adapter, images, anchors, M)
+    torch.cuda.synchronize()
+    expect(qdot.launches == 4 * INT8_UNTIL,
+           f"int8_until {INT8_UNTIL}: {qdot.launches} qdot calls")
+    n_qk = sum(1 for v in pk.visual.values() if v.dtype == torch.int8)
+    expect(n_qk == 4 * INT8_UNTIL, f"int8_until {INT8_UNTIL}: {n_qk} int8 "
+           "weights")
+    print(f"int8_until {INT8_UNTIL}: {qdot.launches} qdot calls per "
+          f"predict, {n_qk} int8 weights (blocks 0-{INT8_UNTIL - 1})")
+
+    # the deviation of int8 from the bf16 and fp32 predictors (printed)
+    with torch.inference_mode():
+        out = {"bf16": pb(adapter, images, anchors, M)}
+        pf = make_predict_fn(vit, cfg, acfg, policy=DtypePolicy.fp32(), **kw)
+        out["fp32"] = pf(adapter, images, anchors, M)
+        del pf
+        out["int8_until"] = pk(adapter, images, anchors, M)
+    for name, (pix, s) in out.items():
+        a, b = pix_k.double().flatten(), pix.double().flatten()
+        corr = torch.corrcoef(torch.stack([a, b]))[0, 1].item()
+        sp = (pix.max() - pix.min()).item()
+        print(f"int8 predict against {name}: map correlation {corr:.6f}, "
+              f"max|d map| {(pix_k - pix).abs().max().item() / sp:.3e} of "
+              f"its span, max|d score| {(s_k - s).abs().max().item():.3e}")
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 13b: the predicts' times in one call
+    ms = {"int8": cuda_ms(lambda: p8(adapter, images, anchors, M), 10),
+          "bf16": cuda_ms(lambda: pb(adapter, images, anchors, M), 10),
+          f"int8_until {INT8_UNTIL}": cuda_ms(
+              lambda: pk(adapter, images, anchors, M), 10)}
+    rates = {k: B * 1e3 / v for k, v in ms.items()}
+    print("predict B=32 maps/s: " + ", ".join(
+        f"{k} {v:.2f} ({ms[k]:.2f} ms)" for k, v in rates.items())
+        + f"; int8 / bf16 {rates['int8'] / rates['bf16']:.3f} on {card}")
+
+    # one fc product's parts at the predict's rows
+    rows, D, F = B * cfg.vision.seq_len, cfg.vision.width, 4 * \
+        cfg.vision.width
+    x = torch.randn(rows, D, generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.randn(F, D, generator=gen, device="cuda") * 0.02
+    wq, ws = quantize_weight(w)
+    q, m = dyn_quant(x)
+    y = torch._int_mm(q, wq.t())
+    wq_in_out = wq.t().contiguous()
+    w16 = w.to(torch.bfloat16)
+    parts = {
+        "dyn_quant": cuda_ms(lambda: dyn_quant(x), 10),
+        "_int_mm, weight [out, in] as w.t()": cuda_ms(
+            lambda: torch._int_mm(q, wq.t()), 10),
+        "_int_mm, weight contiguous [in, out]": cuda_ms(
+            lambda: torch._int_mm(q, wq_in_out), 10),
+        "dequant": cuda_ms(lambda: y.float() * (m * ws), 10),
+        "qdot": cuda_ms(lambda: qdot(x, wq, ws), 10),
+        "bf16 GEMM (matmul_f32)": cuda_ms(
+            lambda: torch.mm(x, w16.t(), out_dtype=torch.float32), 10),
+    }
+    expect(torch.equal(torch._int_mm(q, wq.t()),
+                       torch._int_mm(q, wq_in_out)),
+           "_int_mm differs between the two weight layouts")
+    print(f"fc product [{rows}, {D}] x [{D}, {F}] by part: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in parts.items()) + f" on {card}")
+    del p8, pk, pb, x, w, wq, q, y, wq_in_out, w16
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "qdot": q_calls, "rates": rates,
+            "parts": parts}
+
+
+def graph_has_attention_op(ep) -> bool:
+    import torch
+
+    return any(n.target is torch.ops.aaclip.attention_packed.default
+               for n in ep.graph.nodes)
+
+
+def check_artifact(name: str, art, card) -> int:
+    """The loaded artifact's programs (each holds aaclip::attention_packed)
+    and one call of its b=8 program (24 B1 launches, finite), timed;
+    returns the launches per call."""
+    import numpy as np
+    import torch
+
+    from aaclip_tpu_torch.ops.attention import attention_packed
+
+    for b, ep in art.programs.items():
+        expect(graph_has_attention_op(ep),
+               f"artifact {name} b={b}: no aaclip::attention_packed")
+    n_op = sum(1 for n in art.programs[8].graph.nodes
+               if n.target is torch.ops.aaclip.attention_packed.default)
+    img = art.img_size
+    imgs = np.random.default_rng(3).integers(0, 256, (8, 3, img, img),
+                                             dtype=np.uint8)
+    cls = sorted(art.anchors["MVTec"])[0]
+    art.predict_class(imgs, "MVTec", cls)
+    zero_counts()
+    maps, scores = art.predict_class(imgs, "MVTec", cls)
+    torch.cuda.synchronize()
+    calls = attention_packed.launches
+    expect(calls == n_op == 24, f"artifact {name}: {calls} B1 launches per "
+           f"call, {n_op} nodes")
+    expect(bool(np.isfinite(maps).all() and np.isfinite(scores).all()),
+           f"artifact {name}: not finite")
+    ms = cuda_ms(lambda: art.predict_class(imgs, "MVTec", cls), 5)
+    print(f"artifact {name}: load " + ", ".join(
+        f"{k} {v:.2f} s" for k, v in art.load_s.items())
+        + f"; {n_op} aaclip::attention_packed nodes in the b=8 program, "
+        f"{calls} B1 launches per call; predict_class B=8 {ms:.2f} ms "
+        f"({8e3 / ms:.2f} maps/s, host copies included) on {card}")
+    return calls
+
+
+def phase_artifact(card, ckpt_path: str, serve_readings: dict) -> dict:
+    """Phase 13c-e; returns B1's launches per artifact call."""
+    import gc
+    import os
+    import threading
+
+    import numpy as np
+    import torch
+
+    from aaclip_tpu_torch import deploy
+    from aaclip_tpu_torch import test as eval_cli
+    from aaclip_tpu_torch.core.config import AdapterConfig, get_config
+    from aaclip_tpu_torch.core.params import adapter_to_jax, init_image_adapter
+    from aaclip_tpu_torch.data.datasets import BatchLoader, get_test_datasets
+    from aaclip_tpu_torch.data.synthetic import make_synthetic_dataset
+    from aaclip_tpu_torch.ops.attention import attention_packed
+    from aaclip_tpu_torch.serve import server
+    from aaclip_tpu_torch.train import checkpoint as ckpt
+
+    cfg = get_config("ViT-L-14-336", img_size=518)
+    img, n_layers = cfg.vision.image_size, cfg.vision.layers
+    acfg = AdapterConfig()
+    tmp = tempfile.mkdtemp(prefix="aaclip_artifact_")
+    env_before = {k: os.environ.get(k) for k in ("AACLIP_DATA",
+                                                 "AACLIP_METADATA")}
+    try:
+        adapters = os.path.join(tmp, "adapters")
+        ckpt.save_adapter_checkpoint(
+            os.path.join(adapters, "image_adapter_1.npz"), 1,
+            adapter_to_jax(init_image_adapter(cfg, acfg, seed=9,
+                                              device="cpu")))
+        paths, calls = {}, {}
+        for name, precision, buckets in (("bf16", "bf16", ART_BUCKETS),
+                                         ("int8", "int8", (8,))):
+            path = paths[name] = os.path.join(tmp, f"artifact_{name}")
+            t0 = time.perf_counter()
+            m = deploy.export_serving_artifact(
+                path, precision=precision, clip_checkpoint=ckpt_path,
+                save_path=adapters, datasets=("MVTec",),
+                batch_sizes=buckets, verify=8)
+            wall = time.perf_counter() - t0
+            v = m["verify"]
+            sizes = {f: os.path.getsize(os.path.join(path, f))
+                     for f in os.listdir(path)}
+            params = sizes["params.npz"]
+            print(f"artifact {name}: exported in {wall:.1f} s (programs "
+                  + ", ".join(f"{k} {s:.1f} s" for k, s in
+                              m["export_s"].items())
+                  + f"; the towers, anchors, save and verify the rest), "
+                  f"params.npz {params / 1e6:.1f} MB, programs "
+                  + ", ".join(f"{f} {s / 1e6:.2f} MB" for f, s in
+                              sorted(sizes.items()) if f.endswith(".pt2"))
+                  + f"; native_kernels {m['native_kernels']}, untrained "
+                  f"{m['untrained']} on {card}")
+            expect(m["native_kernels"] is True and not m["untrained"],
+                   f"artifact {name}: manifest {m['native_kernels']}, "
+                   f"{m['untrained']}")
+            for f, s in sizes.items():
+                if f.endswith(".pt2"):
+                    expect(s < ART_GRAPH_FRAC * params,
+                           f"{f}: {s} bytes against params {params}")
+            print(f"artifact {name} against the live predictor at B="
+                  f"{v['batch']}: bit for bit {v['bit_equal']} (max|d map| "
+                  f"{v['max_abs_map']:.3e}, span {v['span']:.4f}, max|d "
+                  f"score| {v['max_abs_score']:.3e}); loaded in "
+                  f"{v['load_s']:.2f} s")
+            expect(v["bit_equal"] or v["max_abs_map"]
+                   <= ART_SPAN_FRAC * v["span"],
+                   f"artifact {name}: off the live predictor {v}")
+            gc.collect()
+            torch.cuda.empty_cache()
+        art8 = deploy.load_serving_artifact(paths["int8"])
+        calls["artifact call (int8, b=8)"] = check_artifact("int8", art8,
+                                                            card)
+
+        # 13d: the engine from the bf16 artifact (its artifact serves the
+        # checks of 13c too: each bf16 load costs ~20 s)
+        t0 = time.perf_counter()
+        engine = server.InferenceEngine(artifact=paths["bf16"], max_batch=8)
+        start_s = time.perf_counter() - t0
+        try:
+            art = engine._artifact
+            calls["artifact call (bf16, b=8)"] = check_artifact("bf16", art,
+                                                                card)
+            live = serve_readings["start_s"]
+            print(f"serve from the artifact: up in {start_s:.2f} s ("
+                  + ", ".join(f"{k} {v:.2f} s" for k, v in
+                              engine.startup_s.items())
+                  + f") against the live engine's {live:.2f} s (phase 12c)"
+                  f" on {card}")
+            rng = np.random.default_rng(14)
+            imgs = rng.integers(0, 256, (8, 3, img, img), dtype=np.uint8)
+            classes = [SERVE_CLASSES[i % 3] for i in range(8)]
+            results = [None] * 8
+
+            def fire(i):
+                results[i] = engine.submit(imgs[i], "MVTec", classes[i],
+                                           timeout=120)
+
+            threads = [threading.Thread(target=fire, args=(i,))
+                       for i in range(8)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            anch = np.stack([art.anchors["MVTec"][c] for c in classes])
+            pix_d, s_d = art.predict(imgs, anch, "MVTec")
+            span = float(pix_d.max() - pix_d.min())
+            dm = max(float(np.abs(r[0] - pix_d[i]).max())
+                     for i, r in enumerate(results))
+            ds = max(abs(r[1] - float(s_d[i])) for i, r in enumerate(results))
+            stats = engine.stats()
+            print(f"serve from the artifact: 8 concurrent requests in "
+                  f"{stats['batches']} batches against a direct artifact "
+                  f"predict at B=8: max|d map| {dm / span:.3e} of the span "
+                  f"(bar {SERVE_ART_SPAN_FRAC}), max|d score| {ds:.3e}")
+            expect(dm <= SERVE_ART_SPAN_FRAC * span and ds <= SCORE_ATOL_BF16,
+                   f"served artifact maps off: {dm} / {span}, {ds}")
+        finally:
+            engine.shutdown()
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+        closed = bench_serve_line(["--clients", "8", "--artifact",
+                                   paths["bf16"]])
+        lat = closed["latency_ms"]
+        print(f"bench --mode serve --artifact closed, 8 clients: "
+              f"{closed['value']} maps/s, p50 {lat['p50']} ms, p95 "
+              f"{lat['p95']} ms, occupancy {closed['mean_batch_occupancy']}"
+              f" against the live engine's {serve_readings['closed']} "
+              f"(phase 12d) on {card}")
+
+        # 13e: the evaluation CLI with --artifact (the int8 artifact, whose
+        # one program loads in seconds) and with --precision int8
+        data_root, meta_root = make_synthetic_dataset(
+            os.path.join(tmp, "eval_set"), class_names=["bottle"],
+            n_normal=ART_EVAL_NORMAL, n_anomalous=ART_EVAL_ANOMALOUS,
+            img_px=EVAL_PX, hard=True)
+        os.environ.update(AACLIP_DATA=data_root, AACLIP_METADATA=meta_root)
+        B = 8
+        save = os.path.join(tmp, "eval_artifact")
+        zero_counts()
+        eval_cli.main(["--artifact", paths["int8"], "--save_path", save,
+                       "--batch_size", str(B), "--dump_scores"])
+        n_batches = -(-(ART_EVAL_NORMAL + ART_EVAL_ANOMALOUS) // B)
+        expect(attention_packed.launches == n_layers * n_batches,
+               f"artifact eval CLI: {attention_packed.launches} B1 launches")
+        rows = read_csv(os.path.join(save, "scores_artifact.csv"))[1:]
+        ds_ = get_test_datasets("MVTec", img, uint8=True)["bottle"]
+        direct = []
+        for batch in BatchLoader(ds_, B):
+            n = batch["n_valid"]
+            _, sc = art8.predict_class(batch["image"], "MVTec", "bottle")
+            direct += [float(x) for x in sc[:n]]
+        same = [float(r[3]) for r in rows] == direct
+        print(f"eval CLI --artifact (int8) B={B}: {len(rows)} images, "
+              f"{n_batches * n_layers} B1 launches; scores equal a direct "
+              f"artifact predict's bit for bit: {same}")
+        expect(same, "artifact eval CLI: scores differ from the direct "
+               "artifact predict")
+        del art8
+        save8 = os.path.join(tmp, "eval_int8")
+        ckpt.save_adapter_checkpoint(
+            os.path.join(save8, "image_adapter_1.npz"), 1,
+            adapter_to_jax(init_image_adapter(cfg, acfg, seed=9,
+                                              device="cpu")))
+        t0 = time.perf_counter()
+        eval_cli.main(["--clip_checkpoint", ckpt_path, "--save_path", save8,
+                       "--precision", "int8", "--batch_size", str(B)])
+        print(f"eval CLI --precision int8 B={B}: ran in "
+              f"{time.perf_counter() - t0:.1f} s on {card}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        return calls
+    finally:
+        for k, v in env_before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_int8_artifact(vit, adapter, cfg, acfg, anchors, M, card, gen,
+                        ckpt_path: str, serve_readings: dict) -> dict:
+    """Phase 13: 13a-e above; returns B1's launches per path."""
+    t_phase = time.perf_counter()
+    int8 = phase_int8(vit, adapter, cfg, acfg, anchors, M, card, gen)
+    calls = phase_artifact(card, ckpt_path, serve_readings)
+    print(f"phase 13 (int8 and the artifact) took "
+          f"{time.perf_counter() - t_phase:.0f} s")
+    return {"int8 predict": int8["launches"], **calls}
 
 
 def make_attn_fn_plain(heads: int, policy, *, vv: bool = False,
@@ -4769,6 +5221,11 @@ def main() -> int:
               f"bank")
         serving_calls = phase_serving(vit, adapter, cfg, acfg, anchors, M,
                                       card, gen, ckpt_path)
+        # -- 13. int8 and the exported artifact
+        print(f"[{time.perf_counter() - t0:.0f} s] int8 and the artifact")
+        serving_calls.update(phase_int8_artifact(
+            vit, adapter, cfg, acfg, anchors, M, card, gen, ckpt_path,
+            SERVE_READINGS))
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 

@@ -137,20 +137,21 @@ def test_vv_has_no_differentiable_variant():
     with pytest.raises(ValueError, match="no differentiable variant"):
         make_attn_fn(4, vv=True, differentiable=True)
     # the forward-only V-V hook exists: it routes to the V-V kernel wrapper
+    # (through the aaclip::attention_packed operator)
     fn = make_attn_fn(4, vv=True)
     cells = dict(zip(fn.__code__.co_freevars, fn.__closure__))
-    assert cells["attention"].cell_contents is attention_packed_vv
+    assert cells["attention"].cell_contents.wrapper is attention_packed_vv
 
 
 def test_hook_picks_the_differentiable_wrapper():
     """The hook's attention is the differentiable kernel path for
-    training and the forward-only wrapper otherwise; an explicit
-    ``attention`` wins."""
+    training and the forward-only wrapper otherwise (through the
+    aaclip::attention_packed operator); an explicit ``attention`` wins."""
     def closure_attention(fn):
         cells = dict(zip(fn.__code__.co_freevars, fn.__closure__))
         return cells["attention"].cell_contents
 
-    assert closure_attention(make_attn_fn(4)) is attention_packed
+    assert closure_attention(make_attn_fn(4)).wrapper is attention_packed
     assert closure_attention(
         make_attn_fn(4, differentiable=True)) is attention_packed_diff
     assert closure_attention(make_attn_fn(

@@ -188,19 +188,35 @@ def test_log_has_the_table_and_the_rate(runs):
 
 
 @pytest.mark.parametrize("flags,label", [
-    (["--precision", "int8"], "ROADMAP A12"),
-    (["--int8_until", "2"], "ROADMAP A12"),
+    (["--artifact", "somewhere", "--data_parallel"], "ROADMAP A12"),
+    (["--precision", "int8", "--tensor_parallel", "2"], "ROADMAP A12"),
     (["--data_parallel"], "ROADMAP A12"),
     (["--tensor_parallel", "2"], "ROADMAP A12"),
     (["--sequence_parallel"], "ROADMAP A12"),
     (["--pipeline_parallel", "2"], "ROADMAP A12"),
     (["--memory_bank", "--data_parallel"], "ROADMAP A12"),
-    (["--artifact", "somewhere"], "ROADMAP A12"),
+    (["--artifact", "somewhere", "--pipeline_parallel", "2"], "ROADMAP A12"),
     (["--visualize"], "ROADMAP A15"),
 ])
 def test_unported_flags_raise_naming_their_item(flags, label):
     with pytest.raises(NotImplementedError, match=label):
         port_cli.parse_args(flags)
+
+
+@pytest.mark.parametrize("flags,want", [
+    (["--precision", "int8"], dict(precision="int8", int8_until=None)),
+    (["--precision", "int8", "--int8_until", "2"],
+     dict(precision="int8", int8_until=2)),
+    (["--artifact", "somewhere"], dict(artifact="somewhere")),
+])
+def test_int8_and_artifact_flags_parse(flags, want):
+    """int8, --int8_until and --artifact are ported: they parse (the runs
+    are in test_torch_quant.py and test_torch_deploy.py); --int8_until
+    without int8 is refused, as JAX's CLI refuses it."""
+    args = vars(port_cli.parse_args(flags))
+    assert {k: args[k] for k in want} == want
+    with pytest.raises(SystemExit):
+        port_cli.parse_args(["--int8_until", "2"])
 
 
 def test_defaults_and_snapshot_order_match_the_jax_cli():

@@ -183,5 +183,7 @@ def test_fp32_high_flags_parse_and_the_rest_still_raise():
         "fp32_high"
     assert cli.parse_args(["--precision", "fp32_high", "--remat",
                            "selective"]).remat == "selective"
+    assert port_eval.parse_args(["--precision", "int8"]).precision == \
+        "int8"
     with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        port_eval.parse_args(["--precision", "int8"])
+        port_eval.parse_args(["--precision", "fp32_high", "--data_parallel"])

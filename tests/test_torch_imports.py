@@ -12,7 +12,9 @@ CLI on the host library (``native/``, its metrics and decode), the
 training CLI also with ``--remat selective --fused_assemble
 --cache_device``; so do the serving engine (a PNG request body decoded,
 submitted, and served over HTTP), a memory-bank predict and ``python -m
-aaclip_tpu_torch.serve --help``."""
+aaclip_tpu_torch.serve --help``. So do the int8 predict (whole and mixed
+prefix), an artifact's export (the deploy CLI with ``--verify``) and load,
+and ``python -m aaclip_tpu_torch.deploy``."""
 
 import json
 import os
@@ -109,7 +111,8 @@ def test_sources_do_not_import_jax_or_the_jax_package():
         f.name for f in files}
     assert {"server.py", "__main__.py", "__init__.py"} <= {
         f.name for f in files if f.parent.name == "serve"}
-    assert {"memory_bank.py", "hashing.py"} <= {f.name for f in files}
+    assert {"memory_bank.py", "hashing.py", "deploy.py", "quant.py"} <= {
+        f.name for f in files}
     offenders = {str(f.relative_to(REPO)): FORBIDDEN.findall(f.read_text())
                  for f in files}
     assert not {f: m for f, m in offenders.items() if m}
@@ -290,3 +293,98 @@ def test_serving_and_memory_bank_run_without_pil_pandas_sklearn_cv2_or_jax():
         [sys.executable, "-m", "aaclip_tpu_torch.serve", "--help"], cwd=REPO,
         env=env, capture_output=True, text=True, timeout=120)
     assert help_out.returncode == 0 and "--anchor_cache" in help_out.stdout
+
+
+INT8_PROBE = """
+import dataclasses, json, sys
+import torch
+from aaclip_tpu_torch.core.config import AdapterConfig, DtypePolicy, get_config
+from aaclip_tpu_torch.core.params import init_image_adapter, init_vision_params
+from aaclip_tpu_torch.eval.predict import make_predict_fn
+from aaclip_tpu_torch.ops.quant import qdot
+from aaclip_tpu_torch.ops.similarity import fused_postproc_matrix
+cfg = get_config("tiny-test")
+acfg = AdapterConfig(levels=(1, 2), image_adapt_until=1)
+vit = init_vision_params(cfg, device="cpu")
+ad = init_image_adapter(cfg, acfg, device="cpu")
+x = torch.zeros(2, 3, 70, 70, dtype=torch.uint8)
+a = torch.nn.functional.normalize(torch.ones(32, 2), dim=0)
+M = torch.from_numpy(fused_postproc_matrix(5, 70, "Industrial"))
+shapes = []
+for until in (0, 1):
+    p = make_predict_fn(vit, cfg, acfg, uint8_inputs=True, device="cpu",
+                        policy=dataclasses.replace(DtypePolicy.int8(),
+                                                   int8_until=until))
+    pix, score = p(ad, x, a, M)
+    shapes.append(list(pix.shape))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "aaclip_tpu"))
+print(json.dumps({"bad": bad, "shapes": shapes, "qdot": qdot.launches,
+                  "finite": bool(torch.isfinite(pix).all())}))
+"""
+
+ARTIFACT_PROBE = """
+import json, sys, tempfile
+for name in ("PIL", "pandas", "sklearn", "cv2"):
+    sys.modules[name] = None  # any import of them raises
+import numpy as np
+from aaclip_tpu_torch import deploy
+out = tempfile.mkdtemp()
+deploy.main(["--out", out, "--model_name", "tiny-test", "--img_size", "70",
+             "--precision", "int8", "--levels", "1", "2",
+             "--image_adapt_until", "1", "--text_adapt_until", "1",
+             "--batch_sizes", "2", "--verify"], device="cpu")
+art = deploy.load_serving_artifact(out, device="cpu")
+imgs = np.zeros((3, 3, 70, 70), np.uint8)
+maps, scores = art.predict_class(imgs, "MVTec", "bottle")
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "aaclip_tpu"))
+print(json.dumps({"bad": bad, "maps": list(maps.shape),
+                  "finite": bool(np.isfinite(maps).all())}))
+"""
+
+
+def _fresh(code_or_args, **kw):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    argv = ([sys.executable, "-c", code_or_args]
+            if isinstance(code_or_args, str) else
+            [sys.executable] + code_or_args)
+    return subprocess.run(argv, cwd=REPO, env=env, capture_output=True,
+                          text=True, timeout=300, **kw)
+
+
+def test_int8_predict_runs_without_jax_in_a_fresh_interpreter():
+    out = _fresh(INT8_PROBE)
+    assert out.returncode == 0, out.stderr
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    # 4 int8 products per block: 2 blocks, then block 0 alone
+    assert result == {"bad": [], "shapes": [[2, 70, 70], [2, 70, 70]],
+                      "qdot": 12, "finite": True}
+
+
+def test_artifact_export_and_load_run_without_jax_in_a_fresh_interpreter():
+    out = _fresh(ARTIFACT_PROBE)
+    assert out.returncode == 0, out.stderr
+    assert "verify OK" in out.stdout
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result == {"bad": [], "maps": [3, 70, 70], "finite": True}
+
+
+def test_deploy_module_runs_without_jax(tmp_path):
+    """``python -m aaclip_tpu_torch.deploy``: its help, and without a card
+    an export raises (the CLI runs on the card, never on the CPU by
+    default)."""
+    help_out = _fresh(["-m", "aaclip_tpu_torch.deploy", "--help"])
+    assert help_out.returncode == 0 and "--verify" in help_out.stdout
+    if torch_cuda_available():
+        return
+    run = _fresh(["-m", "aaclip_tpu_torch.deploy", "--out",
+                  str(tmp_path / "art"), "--model_name", "tiny-test"])
+    assert run.returncode != 0 and "no CUDA device" in run.stderr
+
+
+def torch_cuda_available() -> bool:
+    import torch
+
+    return torch.cuda.is_available()

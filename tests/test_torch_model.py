@@ -152,8 +152,9 @@ def test_predict_rejects_what_is_not_ported():
     for kwargs in (dict(mesh=object()), dict(sequence_parallel=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make_predict_fn(vit, cfg, acfg, device="cpu", **kwargs)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        DtypePolicy.from_name("int8")
+    int8 = DtypePolicy.from_name("int8")  # ported: the bf16 path, int8
+    assert int8.quant_int8 and int8.compute_dtype == torch.bfloat16
+    assert int8.int8_until == 0 and int8.fast_act
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make_predict_fn(vit, cfg, acfg)

@@ -405,8 +405,9 @@ def test_engine_anchor_cache(assets, tmp_path, monkeypatch, engines):
 
 
 @pytest.mark.parametrize("kw", [{"data_parallel": True},
-                                {"artifact": "somewhere"},
-                                {"precision": "int8"}])
+                                {"artifact": "somewhere",
+                                 "data_parallel": True},
+                                {"precision": "int8", "data_parallel": True}])
 def test_unported_engine_options_raise_naming_a12(assets, kw):
     args = dict(_engine_kwargs(*assets), device="cpu")
     args.update(kw)
@@ -415,11 +416,23 @@ def test_unported_engine_options_raise_naming_a12(assets, kw):
 
 
 @pytest.mark.parametrize("flags", [["--data_parallel"],
-                                   ["--artifact", "somewhere"],
-                                   ["--precision", "int8"]])
+                                   ["--artifact", "somewhere",
+                                    "--data_parallel"],
+                                   ["--precision", "int8",
+                                    "--data_parallel"]])
 def test_unported_cli_flags_raise_naming_a12(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP A12"):
         psrv.parse_args(flags)
+
+
+@pytest.mark.parametrize("flags,want", [
+    (["--artifact", "somewhere"], ("artifact", "somewhere")),
+    (["--precision", "int8"], ("precision", "int8")),
+])
+def test_artifact_and_int8_cli_flags_parse(flags, want):
+    """--artifact and --precision int8 are ported (the engine's runs are
+    in test_torch_deploy.py and test_torch_quant.py)."""
+    assert getattr(psrv.parse_args(flags), want[0]) == want[1]
 
 
 def test_cli_flags_and_defaults_match_jax(capsys):
@@ -607,6 +620,6 @@ def test_bench_serve_prints_its_json_line(capsys):
     assert line["metric"] == "serve_maps_per_sec_per_chip"
     assert line["value"] > 0 and line["errors"] == 0 and line["served"] > 0
     assert "2 closed-loop clients" in line["unit"]
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        bench.main(["--mode", "serve", "--artifact", "somewhere"],
-                   device="cpu")
+    # --artifact is the serve mode's (its run: test_torch_deploy.py)
+    with pytest.raises(SystemExit):
+        bench.main(["--artifact", "somewhere"], device="cpu")
