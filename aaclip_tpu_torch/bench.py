@@ -6,6 +6,8 @@ text-adapter update), or the time of a trunk of identical blocks, unfused
 against the fused block.
 
     python -m aaclip_tpu_torch.bench [--batch_size 32] [--precision bf16]
+    python -m torch.distributed.run --nproc_per_node K \
+        -m aaclip_tpu_torch.bench --data_parallel [--batch_size 32]
     python -m aaclip_tpu_torch.bench --precision fp32_high [--bf16_until K]
     python -m aaclip_tpu_torch.bench --precision int8 [--int8_until K]
     python -m aaclip_tpu_torch.bench --mode train [--batch_size 8] \
@@ -31,6 +33,11 @@ arrivals at a fixed rate, each its own thread, whose rejections (the
 engine's admission control) are counted apart; ``--artifact DIR`` serves
 an exported artifact (``deploy.py``) instead of building the model. The
 infer mode takes uint8 images under bf16 and int8 (JAX's bench), and
+``--data_parallel`` (infer only) runs it over ``torchrun``'s ranks, one
+card each: ``--batch_size`` is per card, every rank times the global batch
+of ``batch_size`` x world through the data-parallel predictor, and rank 0
+prints the global maps/s over the slowest rank's time and the per-card
+rate (``dp=K`` in the unit); and
 ``--int8_until K`` tags its stage ``+int8xK``. The train modes refuse
 int8 (inference only). Needs a card: without one
 it raises and prints nothing (``main(argv, device="cpu")`` runs the serve
@@ -490,6 +497,10 @@ def main(argv=None, *, device=None) -> None:
     parser.add_argument("--map_stride", type=int, default=1,
                         help="serve: clients request map[::s, ::s], sliced "
                              "on the card before the copy to the host")
+    parser.add_argument("--data_parallel", action="store_true",
+                        help="infer mode: one rank per card under torchrun; "
+                             "--batch_size is per card, the report the "
+                             "global and the per-card rate")
     parser.add_argument("--artifact", default=None,
                         help="serve: an exported artifact directory "
                              "(python -m aaclip_tpu_torch.deploy); the "
@@ -509,6 +520,9 @@ def main(argv=None, *, device=None) -> None:
     if args.mode in ("train", "train_stage1") and args.precision == "int8":
         parser.error("--precision int8 is inference-only: the training "
                      "steps never quantize")
+    if args.data_parallel and args.mode != "infer":
+        parser.error("--data_parallel applies to --mode infer only "
+                     "(train --data_parallel runs data-parallel training)")
     if args.batch_size is None:
         args.batch_size = {"infer": 32, "block": 32, "train": 8,
                            "train_stage1": 16, "serve": 8}[args.mode]
@@ -523,7 +537,10 @@ def main(argv=None, *, device=None) -> None:
     from aaclip_tpu_torch.eval.predict import make_predict_fn
     from aaclip_tpu_torch.ops.similarity import fused_postproc_matrix
 
-    dev = resolve_device(device)
+    from aaclip_tpu_torch.parallel import sharding as sh
+
+    mesh = sh.cli_mesh(args.data_parallel, 1, device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     if args.mode == "serve":
         return bench_serve(args, dev)
     if dev.type != "cuda":
@@ -547,10 +564,13 @@ def main(argv=None, *, device=None) -> None:
         return bench_train(args, cfg, acfg, policy, vit, adapter, dev)
     uint8_inputs = args.precision in ("bf16", "int8")
     predict = make_predict_fn(vit, cfg, acfg, policy=policy,
-                              uint8_inputs=uint8_inputs, device=dev)
+                              uint8_inputs=uint8_inputs, mesh=mesh,
+                              device=None if mesh else dev)
+    n_cards = mesh.dp if mesh is not None else 1
+    batch = args.batch_size * n_cards  # the global batch
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    shape = (args.batch_size, 3, args.img_size, args.img_size)
+    shape = (batch, 3, args.img_size, args.img_size)
     if uint8_inputs:
         images = torch.randint(0, 256, shape, generator=gen, device=dev,
                                dtype=torch.uint8)
@@ -561,22 +581,31 @@ def main(argv=None, *, device=None) -> None:
     M = torch.from_numpy(fused_postproc_matrix(
         cfg.vision.grid, args.img_size, "Industrial")).to(dev)
 
-    maps_per_sec = timed(lambda: predict(adapter, images, anchors, M),
-                         args) * args.batch_size
+    seconds = args.steps / timed(
+        lambda: predict(adapter, images, anchors, M), args)
+    if mesh is not None:  # the slowest rank's time
+        t = torch.tensor([seconds], dtype=torch.float64, device=dev)
+        torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX)
+        seconds = float(t)
+    maps_per_sec = batch * args.steps / seconds
+    per_card = maps_per_sec / n_cards
     if args.profile:
         profile_calls(lambda: predict(adapter, images, anchors, M), 2)
+    if mesh is not None and not mesh.is_lead:
+        return
     stage = f"+bf16x{policy.bf16_until}" if policy.bf16_until else ""
     if policy.quant_int8 and policy.int8_until:
         stage += f"+int8x{policy.int8_until}"
+    dp = f", dp={n_cards} cards, global {maps_per_sec:.2f} maps/s" \
+        if mesh is not None else ""
     print(json.dumps({
         "metric": "anomaly_maps_per_sec_per_chip",
-        "value": round(maps_per_sec, 2),
+        "value": round(per_card, 2),
         "unit": f"maps/s/chip ({args.model_name} @ {args.img_size}px, "
                 f"adapted fwd + fused map, {args.precision}{stage}, "
-                f"batch {args.batch_size}, "
+                f"batch {args.batch_size}{dp}, "
                 f"{card_line()})",
-        "vs_baseline": round(maps_per_sec / REFERENCE_BASELINE_MAPS_PER_SEC,
-                             3),
+        "vs_baseline": round(per_card / REFERENCE_BASELINE_MAPS_PER_SEC, 3),
     }))
 
 

@@ -6,15 +6,20 @@ CPU explicitly (the tests do). There is no silent fallback to the CPU.
 
 from __future__ import annotations
 
+import os
 import subprocess
 
 import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` -> ``cuda``, raising when no card is present; any other
-    value is taken as given, and a CUDA device is checked to exist."""
-    dev = torch.device("cuda" if device is None else device)
+    """``None`` -> ``cuda`` (``cuda:LOCAL_RANK`` under ``torchrun``, one
+    card per process), raising when no card is present; any other value is
+    taken as given, and a CUDA device is checked to exist."""
+    if device is None:
+        local = os.environ.get("LOCAL_RANK")
+        device = "cuda" if local is None else f"cuda:{int(local)}"
+    dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; the port runs on the card unless "

@@ -30,18 +30,20 @@ import numpy as np
 import torch
 
 from aaclip_tpu_torch.core.config import AdapterConfig, CLIPConfig, DtypePolicy
-from aaclip_tpu_torch.eval.predict import make_features_fn
+from aaclip_tpu_torch.eval.predict import make_features_fn, shard_anchors
 from aaclip_tpu_torch.models.vit import VisionTransformer
 from aaclip_tpu_torch.ops.similarity import (apply_postproc_matrix,
                                              collapse_level_scores,
                                              image_score, level_scores)
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "the memory bank on a mesh is not ported yet: ROADMAP A12, "
-            "'the parallel axes'")
+def _data_mesh_only(mesh) -> None:
+    from aaclip_tpu_torch.parallel.sharding import is_tp_mesh
+
+    if is_tp_mesh(mesh):
+        raise ValueError(
+            "make_mb_predict_fn supports a 1-D ('data',) mesh only "
+            "(tensor parallelism does not compose with the memory bank)")
 
 
 def make_patch_features_fn(vit: VisionTransformer, cfg: CLIPConfig,
@@ -53,11 +55,15 @@ def make_patch_features_fn(vit: VisionTransformer, cfg: CLIPConfig,
     """``features(image_adapter, images) -> (seg [n, B, L, D], det [B, D])``:
     the adapted forward the predictor scores (``eval/predict.py::
     make_features_fn``), with uint8 inputs and the staged ``bf16_until``
-    prefix as there. ``mesh`` other than None raises (ROADMAP A12)."""
-    _no_mesh(mesh)
+    prefix as there. On a data mesh it takes the global batch of any size
+    and returns the gathered features, so every rank builds the same,
+    replicated bank; a mesh with a model axis raises ValueError, as in
+    JAX."""
+    _data_mesh_only(mesh)
     return make_features_fn(vit, cfg, acfg, img_size=img_size,
                             policy=policy, attn_fn=attn_fn,
-                            uint8_inputs=uint8_inputs, device=device)
+                            uint8_inputs=uint8_inputs, mesh=mesh,
+                            device=device)
 
 
 def collect_bank(features_fn: Callable, image_adapter, support_images,
@@ -112,15 +118,17 @@ def make_mb_predict_fn(vit: VisionTransformer, cfg: CLIPConfig,
     ``make_predict_fn``'s output bit for bit. ``predict.features_fn`` builds
     the banks; ``predict.raw(visual, adapter, images, anchors, M, bank)``
     takes the prepared tower and the adapter as name -> tensor arguments,
-    as ``make_predict_fn``'s does. ``mesh`` other than None raises (ROADMAP
-    A12); a weight outside [0, 1] raises ValueError."""
-    _no_mesh(mesh)
+    as ``make_predict_fn``'s does. A data ``mesh`` shards the query batch
+    (which the data size must divide) and gathers the results, the bank
+    replicated, as JAX's; a mesh with a model axis and a weight outside
+    [0, 1] raise ValueError."""
+    _data_mesh_only(mesh)
     w = float(bank_weight)
     if not 0.0 <= w <= 1.0:
         raise ValueError(f"bank_weight must be in [0, 1], got {w}")
     features = make_patch_features_fn(
         vit, cfg, acfg, img_size=img_size, policy=policy, attn_fn=attn_fn,
-        uint8_inputs=uint8_inputs, device=device)
+        uint8_inputs=uint8_inputs, mesh=mesh, device=device)
     dev, pp_precision = features.device, features.pp_precision
 
     def forward(g, images, anchors, M, bank):
@@ -140,13 +148,14 @@ def make_mb_predict_fn(vit: VisionTransformer, cfg: CLIPConfig,
 
     @torch.inference_mode()
     def predict(image_adapter, images, anchors, M, bank):
-        return forward(features.bind(image_adapter),
-                       torch.as_tensor(images, device=dev),
-                       torch.as_tensor(anchors, device=dev),
-                       torch.as_tensor(M, device=dev), bank)
+        pix, s = forward(features.bind(image_adapter),
+                         features.shard(images),
+                         shard_anchors(features, anchors),
+                         torch.as_tensor(M, device=dev), bank)
+        return features.gather(pix), features.gather(s)
 
     predict.features_fn = features
-    predict.device = dev
+    predict.device, predict.mesh = dev, features.mesh
     # the all-arguments form (JAX's ``predict.raw``), which deploy.py
     # exports for the bank graphs: ``raw(visual, adapter, images, anchors,
     # M, bank)``

@@ -99,18 +99,45 @@ def make_features_fn(vit: VisionTransformer, cfg: CLIPConfig,
     ``raw(visual, adapter, *args) = fn(g, *args)`` with ``g``'s tensors
     taken from the two name -> tensor dicts (``torch.func.functional_call``:
     the weights are arguments, as in JAX's ``predict.raw``).
+
+    ``mesh`` (``parallel/sharding.py``) runs the rank's part of a global
+    batch: ``features`` (and the predictors built on it) take the global
+    batch, run this rank's rows on ``mesh.device`` and all-gather the
+    outputs over the data axis in global order; ``features`` pads a batch
+    the data size does not divide (the last row repeated) and trims the
+    result, since the memory bank's support batches are ragged, while the
+    predictors refuse one, as JAX's do. ``features.shard`` and
+    ``features.gather`` are those two steps. A mesh with a model axis
+    (``make_mesh_2d``) also shards the tower's blocks Megatron-style over
+    it (``parallel/tensor.py::shard_tower``: ``vit`` may then live on the
+    CPU, and the rank keeps only its part on the card); ``attn_fn`` must be
+    a ``make_attn_fn`` hook, which reads the shards, and ``block_fn`` and
+    the int8 policy raise. ``sequence_parallel`` (a model axis only) also
+    shards the residual stream's sequence between the blocks' products.
+    ``features.forward`` and ``features.make_raw`` stay per rank.
     """
-    if mesh is not None or sequence_parallel:
-        raise NotImplementedError(
-            "meshes, tensor and sequence parallelism are not ported yet: "
-            "ROADMAP A12, 'the parallel axes'")
-    if policy.quant_int8 and block_fn is not None:
+    from aaclip_tpu_torch.parallel import sharding as sh
+    from aaclip_tpu_torch.parallel import tensor as tpar
+
+    tp = sh.is_tp_mesh(mesh)
+    if sequence_parallel and not tp:
+        raise ValueError("sequence_parallel requires a 2-D mesh with "
+                         "model-parallel size > 1 (make_mesh_2d)")
+    if tp and block_fn is not None:
+        raise ValueError("tensor parallelism and fused block_fn overrides "
+                         "are mutually exclusive (the fused block kernels "
+                         "read whole blocks)")
+    if policy.quant_int8 and (tp or block_fn is not None):
         raise ValueError("int8 quantized inference does not compose with "
-                         "block_fn overrides (the fused kernels read float "
-                         "weights)")
-    dev = resolve_device(device)
+                         "tensor parallelism or block_fn overrides (the "
+                         "fused kernels read float weights)")
+    if mesh is not None and device is not None \
+            and torch.device(device) != mesh.device:
+        raise ValueError(f"device {device} is not the mesh's "
+                         f"{mesh.device}")
+    dev = mesh.device if mesh is not None else resolve_device(device)
     param_dev = next(vit.parameters()).device
-    if param_dev.type != dev.type:
+    if param_dev.type != dev.type and not tp:
         raise ValueError(f"vit lives on {param_dev}, predictor built for "
                          f"{dev}")
     if img_size is not None and img_size != cfg.vision.image_size:
@@ -121,6 +148,9 @@ def make_features_fn(vit: VisionTransformer, cfg: CLIPConfig,
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
 
+    if tp:
+        vit = tpar.shard_tower(vit, cfg.vision.heads, mesh,
+                               sequence_parallel)
     visual = prepare_visual(vit, cfg, policy)
     act = config_act(cfg, policy)
     patch = None
@@ -163,10 +193,22 @@ def make_features_fn(vit: VisionTransformer, cfg: CLIPConfig,
 
         return raw
 
+    def shard(x):
+        return sh.shard_rows(x, mesh, dev)
+
+    def gather(x, dim=0):
+        return sh.gather_rows(x, mesh, dim)
+
     @torch.inference_mode()
     def features(image_adapter, images):
-        return forward(bind(image_adapter), torch.as_tensor(images,
-                                                            device=dev))
+        images = torch.as_tensor(images)
+        n = images.shape[0]
+        pad = -n % mesh.dp if mesh is not None else 0
+        if pad:
+            images = torch.cat([images, images[-1:].expand(
+                pad, *images.shape[1:])])
+        seg, det = forward(bind(image_adapter), shard(images))
+        return gather(seg, 1)[:, :n], gather(det)[:n]
 
     g0 = _Graph(visual, template, patch, None)
     named = {**dict(g0.named_parameters()), **dict(g0.named_buffers())}
@@ -174,12 +216,22 @@ def make_features_fn(vit: VisionTransformer, cfg: CLIPConfig,
                        if not k.startswith("adapter.")}
     features.forward, features.bind, features.make_raw = forward, bind, \
         make_raw
-    features.device = dev
+    features.shard, features.gather = shard, gather
+    features.device, features.mesh = dev, mesh
     # M q Mᵀ at true fp32 only under precision "highest" (the fp32
     # policy), 3-pass under fp32_high and bf16, as JAX's predictor
     features.pp_precision = "highest" if policy.precision == "highest" \
         else "high"
     return features
+
+
+def shard_anchors(features, anchors) -> torch.Tensor:
+    """The anchors on the features' device: the rank's rows of per-sample
+    anchors [B, D, 2] under a mesh, one class's [D, 2] whole."""
+    anchors = torch.as_tensor(anchors)
+    if anchors.dim() == 3:
+        return features.shard(anchors)
+    return anchors.to(features.device)
 
 
 def adapter_tensors(image_adapter: nn.Module) -> dict:
@@ -224,6 +276,11 @@ def make_predict_fn(vit: VisionTransformer, cfg: CLIPConfig,
     and the adapter (``adapter_tensors``) as name -> tensor arguments,
     outside inference mode (JAX's ``predict.raw``; ``deploy.py`` exports
     it).
+
+    ``mesh`` and ``sequence_parallel`` as ``make_features_fn``'s: the
+    predictor takes the global batch (which the data size must divide) and
+    per-sample anchors for all of it, runs the rank's rows and returns the
+    global map and scores.
     """
     features = make_features_fn(
         vit, cfg, acfg, img_size=img_size, policy=policy, attn_fn=attn_fn,
@@ -242,12 +299,13 @@ def make_predict_fn(vit: VisionTransformer, cfg: CLIPConfig,
 
     @torch.inference_mode()
     def predict(image_adapter, images, anchors, M):
-        return forward(features.bind(image_adapter),
-                       torch.as_tensor(images, device=dev),
-                       torch.as_tensor(anchors, device=dev),
-                       torch.as_tensor(M, device=dev))
+        pix, score = forward(features.bind(image_adapter),
+                             features.shard(images),
+                             shard_anchors(features, anchors),
+                             torch.as_tensor(M, device=dev))
+        return features.gather(pix), features.gather(score)
 
-    predict.device = dev
+    predict.device, predict.mesh = dev, features.mesh
     predict.raw = features.make_raw(forward)
     predict.visual = features.visual
     return predict
@@ -263,14 +321,17 @@ def run_class_predictions(predict_fn, image_adapter, loader, anchors,
 
     ``M`` and the anchors go to the predictor's device once; the
     predictions stay there until the class ends, so copying them back
-    does not wait for each batch."""
+    does not wait for each batch. A predictor on a mesh (``predict_fn.
+    mesh``) takes the host batch and uploads its rank's rows itself."""
     dev = predict_fn.device
+    on_mesh = getattr(predict_fn, "mesh", None) is not None
     M = torch.from_numpy(fused_postproc_matrix(grid, img_size, domain)).to(dev)
     anchors = torch.as_tensor(anchors).to(dev)
     masks, labels, pix_preds, img_preds, files = [], [], [], [], []
     for batch in loader:
+        images = torch.from_numpy(batch["image"])
         pix, score = predict_fn(image_adapter,
-                                torch.from_numpy(batch["image"]).to(dev),
+                                images if on_mesh else images.to(dev),
                                 anchors, M)
         n = batch["n_valid"]
         masks.append(batch["mask"][:n])

@@ -244,10 +244,51 @@ def qkv_params(p: nn.Module, value_only: bool = False) -> dict:
     w, b = p.in_proj_weight, p.in_proj_bias
     s = getattr(p, "in_proj_weight_s", None)
     if value_only:
-        D = w.shape[-1]
+        D = w.shape[0] // 3  # the output width: D / tp on a sharded block
         w, b = w[2 * D:], b[2 * D:]
         s = None if s is None else s[2 * D:]
     return dict(weight=w, bias=b, scale=s)
+
+
+def enter(p: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """The input of ``p``'s column-parallel products: ``x`` itself, or on a
+    tensor-parallel block (``p.tp``, ``parallel/tensor.py``) the model
+    axis's copy or sequence all-gather of it."""
+    tp = getattr(p, "tp", None)
+    return x if tp is None else tp.enter(x)
+
+
+def row_linear(x: torch.Tensor, lin: nn.Module, p: nn.Module,
+               policy: DtypePolicy) -> torch.Tensor:
+    """``linear`` through ``lin``, the row-parallel product of ``p`` (the
+    out-projection or the MLP's proj), fp32: on a tensor-parallel block the
+    partial products are reduced over the model axis (``p.tp.exit``) and
+    the bias added once, after the reduction."""
+    tp = getattr(p, "tp", None)
+    if tp is None:
+        return linear(x, **linear_params(lin), policy=policy)
+    return tp.exit(linear(x, lin.weight, None, policy)) + lin.bias.float()
+
+
+def local_heads(p: nn.Module, num_heads: int) -> int:
+    """The heads ``p`` holds: all of them, or ``num_heads / tp`` on a
+    tensor-parallel block."""
+    tp = getattr(p, "tp", None)
+    return num_heads if tp is None else tp.heads(num_heads)
+
+
+def stream_split(tower: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """The residual stream entering ``tower``'s blocks: this rank's part of
+    the sequence on a sequence-parallel tower (``tower.tp``,
+    ``parallel/tensor.py``), else ``x``."""
+    tp = getattr(tower, "tp", None)
+    return x if tp is None else tp.split(x)
+
+
+def stream_gather(tower: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``stream_split``: the whole sequence again."""
+    tp = getattr(tower, "tp", None)
+    return x if tp is None else tp.gather(x)
 
 
 class PackedAttention(nn.Module):
@@ -287,16 +328,21 @@ def _attention(x: torch.Tensor, p: PackedAttention, num_heads: int, *,
     softmax, probabilities cast to the compute dtype before P.V, the
     out-projection (left out, and the fp32 heads' output returned, when
     not ``project``). ``vv`` projects only the value third and uses it as
-    q, k and v."""
-    B, L, D = x.shape
-    hd = D // num_heads
+    q, k and v. On a tensor-parallel block (``p.tp``) the projections are
+    the rank's heads between ``enter`` and ``row_linear``'s reduction."""
+    dtype = x.dtype
+    hd = x.shape[-1] // num_heads
+    x = enter(p, x)
+    heads = local_heads(p, num_heads)
+    B, L, _ = x.shape
+    D = heads * hd
     cd = policy.compute_dtype
     if vv:
         v = linear(x, **qkv_params(p, value_only=True), policy=policy)
-        q = k = v = v.reshape(B, L, num_heads, hd).transpose(1, 2)
+        q = k = v = v.reshape(B, L, heads, hd).transpose(1, 2)
     else:
         qkv = linear(x, **qkv_params(p), policy=policy)
-        qkv = qkv.reshape(B, L, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
+        qkv = qkv.reshape(B, L, 3, heads, hd).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0], qkv[1], qkv[2]
     prec = policy.precision
     scores = matmul(q.to(cd), k.to(cd).transpose(-1, -2), prec) \
@@ -308,8 +354,7 @@ def _attention(x: torch.Tensor, p: PackedAttention, num_heads: int, *,
     out = out.transpose(1, 2).reshape(B, L, D)
     if not project:
         return out
-    out = linear(out, **linear_params(p.out_proj), policy=policy)
-    return out.to(x.dtype)
+    return row_linear(out, p.out_proj, p, policy).to(dtype)
 
 
 def attention(x: torch.Tensor, p: PackedAttention, num_heads: int, *,
@@ -337,7 +382,8 @@ def masked_attention(x: torch.Tensor, p: PackedAttention, num_heads: int,
 
 def attention_vv_batch(x: torch.Tensor, p: PackedAttention, num_heads: int,
                        *, policy: DtypePolicy = DtypePolicy(),
-                       valid: torch.Tensor | None = None) -> torch.Tensor:
+                       valid: torch.Tensor | None = None,
+                       data_group=None) -> torch.Tensor:
     """Reference-exact CLIP-Surgery V-V attention across the BATCH at each
     position (the JAX package's ``attention_vv_batch``).
 
@@ -347,29 +393,51 @@ def attention_vv_batch(x: torch.Tensor, p: PackedAttention, num_heads: int,
     depend on the batch's composition. ``valid`` ([B], 0/1) masks padding
     samples out of the key axis, as the reference's smaller unpadded tail
     batch would. The scores are [L, H, B, B]; JAX runs this with XLA and
-    the port plain, on any device."""
-    B, L, D = x.shape
-    hd = D // num_heads
+    the port plain, on any device.
+
+    Under data parallelism (``data_group``, the mesh's data axis) ``x`` and
+    ``valid`` are this rank's rows of the global batch: the values and the
+    mask are all-gathered over the axis (gradient-free, as every stage-1
+    feature is), so this rank's queries attend over the global batch's keys
+    and the features equal the single-process ones. On a tensor-parallel
+    block (``p.tp``) each rank attends with its heads."""
+    dtype = x.dtype
+    hd = x.shape[-1] // num_heads
+    x = enter(p, x)
+    heads = local_heads(p, num_heads)
+    B, L, _ = x.shape
+    D = heads * hd
     cd = policy.compute_dtype
     v = linear(x, **qkv_params(p, value_only=True), policy=policy)
-    v = v.reshape(B, L, num_heads, hd).permute(1, 2, 0, 3).to(cd)  # [L,H,B,hd]
-    prec = policy.precision
-    scores = matmul(v, v.transpose(-1, -2), prec) * hd ** -0.5
+    v = v.reshape(B, L, heads, hd).permute(1, 2, 0, 3).to(cd)  # [L,H,B,hd]
+    keys = v
     if valid is not None:
-        keep = torch.as_tensor(valid, device=x.device).bool()
+        valid = torch.as_tensor(valid, device=x.device)
+    if data_group is not None:
+        from aaclip_tpu_torch.parallel.sharding import all_gather
+
+        keys = all_gather(v, data_group, 2)                    # [L,H,Bg,hd]
+        if valid is not None:
+            valid = all_gather(valid, data_group, 0)
+    prec = policy.precision
+    scores = matmul(v, keys.transpose(-1, -2), prec) * hd ** -0.5
+    if valid is not None:
+        keep = valid.bool()
         scores = torch.where(keep, scores, torch.full_like(scores, -1e30))
     probs = torch.softmax(scores, dim=-1)
-    out = matmul(probs.to(cd), v, prec)                        # [L,H,B,hd]
+    out = matmul(probs.to(cd), keys, prec)                     # [L,H,B,hd]
     out = out.permute(2, 0, 1, 3).reshape(B, L, D)
-    out = linear(out, **linear_params(p.out_proj), policy=policy)
-    return out.to(x.dtype)
+    return row_linear(out, p.out_proj, p, policy).to(dtype)
 
 
-def make_batch_vv_attn_fn(num_heads: int, policy: DtypePolicy, valid=None):
+def make_batch_vv_attn_fn(num_heads: int, policy: DtypePolicy, valid=None,
+                          data_group=None):
     """``attn_fn`` of the batch-coupled V-V form (``attention_vv_batch``),
-    with the optional ``valid`` mask of a padded final batch."""
+    with the optional ``valid`` mask of a padded final batch and the data
+    axis of a data-parallel run."""
     return lambda h, p: attention_vv_batch(h, p, num_heads, policy=policy,
-                                           valid=valid)
+                                           valid=valid,
+                                           data_group=data_group)
 
 
 def surgery_vv_start(layers: int, surgery_until_layer: int) -> int:
@@ -388,8 +456,8 @@ def causal_mask(length: int, device=None) -> torch.Tensor:
 
 def mlp(x: torch.Tensor, p: Mlp, act,
         policy: DtypePolicy = DtypePolicy()) -> torch.Tensor:
-    h = act(linear(x, **linear_params(p.c_fc), policy=policy))
-    return linear(h, **linear_params(p.c_proj), policy=policy).to(x.dtype)
+    h = act(linear(enter(p, x), **linear_params(p.c_fc), policy=policy))
+    return row_linear(h, p.c_proj, p, policy).to(x.dtype)
 
 
 def residual_block(x: torch.Tensor, blk: ResidualBlock, num_heads: int, *,
@@ -483,17 +551,18 @@ def residual_block_selective(x: torch.Tensor, blk: ResidualBlock,
         o = region(lambda t: _attention(ln_1(t), p, num_heads, mask=mask,
                                         vv=False, policy=policy,
                                         project=False), x)
-        a = linear(o, p.out_proj.weight, p.out_proj.bias, policy)
+        a = row_linear(o, p.out_proj, p, policy)
     else:
         if attn_fn is None:
             attn_fn = make_attn_fn(num_heads, policy, differentiable=True)
         a = attn_fn(region(ln_1, x), p)
     x = x + a.to(x.dtype)
     h = region(lambda t: layer_norm(t, blk.ln_2.weight, blk.ln_2.bias), x)
-    fc = linear(h, blk.mlp.c_fc.weight, blk.mlp.c_fc.bias, policy)
+    fc = linear(enter(blk.mlp, h), blk.mlp.c_fc.weight, blk.mlp.c_fc.bias,
+                policy)
 
     def proj(g, x):
-        y = linear(g, blk.mlp.c_proj.weight, blk.mlp.c_proj.bias, policy)
+        y = row_linear(g, blk.mlp.c_proj, blk.mlp, policy)
         return x + y.to(x.dtype)
 
     if tail is None:

@@ -71,7 +71,10 @@ def _trunk(text_w: TextTransformer, cfg: CLIPConfig, text: torch.Tensor, *,
     runs it as ``L.residual_block_selective``, whose backward keeps each
     block's input, ``x + attn_out`` and ``mlp_fc`` (the names JAX's text
     tower carries: it names qkv only on the kernel path) and recomputes the
-    masked attention with the LayerNorms, activations and blends."""
+    masked attention with the LayerNorms, activations and blends. A
+    tensor-parallel tower (``parallel/tensor.py::shard_tower``) runs its
+    blocks on the rank's heads, the stream split over the model axis under
+    sequence parallelism and gathered before ln_final."""
     if remat not in (False, True, "selective"):
         raise ValueError(f"remat must be False, True or 'selective', got "
                          f"{remat!r}")
@@ -88,6 +91,7 @@ def _trunk(text_w: TextTransformer, cfg: CLIPConfig, text: torch.Tensor, *,
     Lt = text.shape[1]
     x = text_w.token_embedding.weight[text].to(policy.compute_dtype)
     x = x + text_w.positional_embedding[:Lt].to(x.dtype)
+    x = L.stream_split(text_w, x)
     mask = L.causal_mask(Lt, device=dev)
 
     def blend(x, i):
@@ -109,6 +113,7 @@ def _trunk(text_w: TextTransformer, cfg: CLIPConfig, text: torch.Tensor, *,
             x = checkpoint(block, x, i, use_reentrant=False)
         else:
             x = block(x, i)
+    x = L.stream_gather(text_w, x)
     return L.layer_norm(x, text_w.ln_final.weight, text_w.ln_final.bias)
 
 

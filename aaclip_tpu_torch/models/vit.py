@@ -152,7 +152,12 @@ def trunk_taps(vit: VisionTransformer, cfg: CLIPConfig, images: torch.Tensor,
     the differentiable attention kernels. A block whose input carries no
     gradient (the first; the trunk is frozen) is run plainly under either:
     it has nothing to recompute for the backward, and its output is kept
-    anyway as the next block's saved input."""
+    anyway as the next block's saved input.
+
+    A tensor-parallel tower (``parallel/tensor.py::shard_tower``) runs its
+    blocks on the rank's heads; under sequence parallelism the stream is
+    split over the model axis after the embedding and each tap gathered
+    (``L.stream_split``, ``L.stream_gather``)."""
     if remat not in (False, True, "selective"):
         raise ValueError(f"remat must be False, True or 'selective', got "
                          f"{remat!r}")
@@ -169,7 +174,7 @@ def trunk_taps(vit: VisionTransformer, cfg: CLIPConfig, images: torch.Tensor,
     if bad:
         raise ValueError(
             f"tap depths {bad} out of range for a {v.layers}-layer tower")
-    x = embed(vit, cfg, images, policy, patch_embed_fn)
+    x = L.stream_split(vit, embed(vit, cfg, images, policy, patch_embed_fn))
     stage_k = staged_depth(policy, v.layers)
     prefix = policy.prefix_policy() if stage_k else policy
 
@@ -200,7 +205,7 @@ def trunk_taps(vit: VisionTransformer, cfg: CLIPConfig, images: torch.Tensor,
         else:
             x = block(x, i)
         taps[i + 1] = x
-    return [taps[l] for l in out_layers]
+    return [L.stream_gather(vit, taps[l]) for l in out_layers]
 
 
 def adapted_forward(vit: VisionTransformer, adapter: ImageAdapter,
@@ -258,7 +263,7 @@ def encode_image(vit: VisionTransformer, cfg: CLIPConfig,
     if bad:
         raise ValueError(
             f"tap depths {bad} out of range for a {v.layers}-layer tower")
-    x = embed(vit, cfg, images, policy)
+    x = L.stream_split(vit, embed(vit, cfg, images, policy))
     stage_k = staged_depth(policy, v.layers)
     taps = {}
     for i in range(v.layers):
@@ -270,7 +275,8 @@ def encode_image(vit: VisionTransformer, cfg: CLIPConfig,
                        vv_attn_fn=vv_attn_fn, block_fn=block_fn,
                        vv_block_fn=vv_block_fn)
         if i + 1 in out_layers:
-            taps[i + 1] = x
+            taps[i + 1] = L.stream_gather(vit, x)
+    x = L.stream_gather(vit, x)
     pooled = L.layer_norm(x[:, 0, :], vit.ln_post.weight, vit.ln_post.bias)
     cd = policy.compute_dtype
     pooled = L.matmul(pooled.to(cd), vit.proj.to(cd),

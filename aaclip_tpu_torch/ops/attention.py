@@ -55,8 +55,9 @@ import functools
 import torch
 
 from aaclip_tpu_torch.core.config import DtypePolicy
-from aaclip_tpu_torch.models.layers import (_split_bf16, linear,
-                                            linear_params, qkv_params)
+from aaclip_tpu_torch.models.layers import (_split_bf16, enter, linear,
+                                            local_heads, qkv_params,
+                                            row_linear)
 
 KERNEL_HEAD_DIMS = (16, 64)  # head dims the kernel is instantiated for
 # (dtype, head dim) pairs on the TMA + wgmma kernels (kTmaHeadDim of
@@ -829,7 +830,13 @@ def make_attn_fn(num_heads: int, policy: DtypePolicy = DtypePolicy(), *,
 
     int8 weights (``ops/quant.py``) take the quantized projections
     (``linear``'s int8 branch, the V-V value third included) on ``x`` as
-    given; the attention itself stays in the compute dtype."""
+    given; the attention itself stays in the compute dtype.
+
+    On a tensor-parallel block (``p.tp``, ``parallel/tensor.py``) the
+    projection is the rank's packed ``[B, S, 3 D/tp]`` (or its value third)
+    with ``num_heads / tp`` heads, which the same kernels take; the
+    out-projection's partial sums are reduced over the model axis and the
+    bias added once (``layers.row_linear``)."""
     if vv and differentiable:
         # as in the JAX package: stage-1 surgery features are grad-free
         raise ValueError("the V-V attention has no differentiable variant: "
@@ -840,11 +847,11 @@ def make_attn_fn(num_heads: int, policy: DtypePolicy = DtypePolicy(), *,
     cd = policy.compute_dtype
 
     def attn_fn(x: torch.Tensor, p) -> torch.Tensor:
-        packed = linear(x, **qkv_params(p, value_only=vv),
+        h = enter(p, x)
+        packed = linear(h, **qkv_params(p, value_only=vv),
                         policy=policy).to(cd)
-        out = attention(packed, num_heads, x.shape[1],
+        out = attention(packed, local_heads(p, num_heads), h.shape[1],
                         precision=policy.precision)
-        out = linear(out, **linear_params(p.out_proj), policy=policy)
-        return out.to(x.dtype)
+        return row_linear(out, p.out_proj, p, policy).to(x.dtype)
 
     return attn_fn

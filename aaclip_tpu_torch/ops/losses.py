@@ -14,6 +14,13 @@ The fused forms take the upsampled logit-difference map d
 (p_abnormal = sigmoid(d)) instead of both probability channels. The
 ``_masked`` forms average over the valid samples of a padded batch
 (``n_valid`` clamped at 1).
+
+Under data parallelism each rank computes its rows' share of the global
+batch's loss (``train/steps.py``): the ``_masked`` forms then take
+``n_valid``, the global batch's count (summed over the ranks, clamped at
+1 after the sum), ``constant=False`` leaves dice's two constant ``1 -``
+terms to one rank, and ``reduce`` sums the orthogonality term's
+numerator over the ranks before it is squared.
 """
 
 from __future__ import annotations
@@ -79,21 +86,25 @@ def seg_loss_from_logit(d: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 
 def seg_loss_from_logit_masked(d: torch.Tensor, mask: torch.Tensor,
-                               valid: torch.Tensor) -> torch.Tensor:
+                               valid: torch.Tensor,
+                               n_valid: torch.Tensor | None = None,
+                               constant: bool = True) -> torch.Tensor:
     """``seg_loss_from_logit`` over the valid samples only; equal to it
-    when every sample is valid."""
+    when every sample is valid. ``n_valid`` and ``constant`` as in the
+    module's docstring."""
     d = d.float()
     m = mask.reshape(d.shape).float()
     v = valid.float()
-    n_valid = v.sum().clamp_min(1.0)
+    if n_valid is None:
+        n_valid = v.sum().clamp_min(1.0)
     per_pixel = _focal_terms_from_logit(d, m)
     focal = (per_pixel * v[:, None, None]).sum() / (
         n_valid * per_pixel.shape[1] * per_pixel.shape[2])
     p1 = torch.sigmoid(d)
     eff0 = _dice_eff(1.0 - p1, 1.0 - m)
     eff1 = _dice_eff(p1, m)
-    dice = ((1.0 - (eff0 * v).sum() / n_valid)
-            + (1.0 - (eff1 * v).sum() / n_valid))
+    t0, t1 = (eff0 * v).sum() / n_valid, (eff1 * v).sum() / n_valid
+    dice = (1.0 - t0) + (1.0 - t1) if constant else -t0 - t1
     return focal + dice
 
 
@@ -109,9 +120,13 @@ def cross_entropy_logits(logits: torch.Tensor,
 
 
 def cross_entropy_logits_masked(logits: torch.Tensor, labels: torch.Tensor,
-                                valid: torch.Tensor) -> torch.Tensor:
+                                valid: torch.Tensor,
+                                n_valid: torch.Tensor | None = None
+                                ) -> torch.Tensor:
     v = valid.float()
-    return (_nll(logits, labels) * v).sum() / v.sum().clamp_min(1.0)
+    if n_valid is None:
+        n_valid = v.sum().clamp_min(1.0)
+    return (_nll(logits, labels) * v).sum() / n_valid
 
 
 def orthogonality_loss(anchors: torch.Tensor) -> torch.Tensor:
@@ -120,8 +135,14 @@ def orthogonality_loss(anchors: torch.Tensor) -> torch.Tensor:
     return dots.mean() ** 2
 
 
-def orthogonality_loss_masked(anchors: torch.Tensor,
-                              valid: torch.Tensor) -> torch.Tensor:
+def orthogonality_loss_masked(anchors: torch.Tensor, valid: torch.Tensor,
+                              n_valid: torch.Tensor | None = None,
+                              reduce=None) -> torch.Tensor:
     dots = (anchors[:, :, 0] * anchors[:, :, 1]).sum(1)
     v = valid.float()
-    return ((dots * v).sum() / v.sum().clamp_min(1.0)) ** 2
+    if n_valid is None:
+        n_valid = v.sum().clamp_min(1.0)
+    total = (dots * v).sum()
+    if reduce is not None:
+        total = reduce(total)
+    return (total / n_valid) ** 2

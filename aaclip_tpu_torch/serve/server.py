@@ -46,13 +46,25 @@ Start with ``python -m aaclip_tpu_torch.serve``. The engine runs on the
 card unless ``device="cpu"`` is passed (the tests). ``artifact=DIR``
 (``--artifact``) serves an exported artifact (``deploy.py``): no towers,
 no checkpoint parse and no text tower; each bucket runs the smallest
-exported program that fits it. ``data_parallel`` is not ported (ROADMAP
-A12).
+exported program that fits it. ``data_parallel`` serves from one process
+over the local cards: one replica of the towers (or of the artifact's
+programs) per card, whole micro-batches sent to them round-robin.
+``device`` may then be a list of devices (``["cpu", "cpu"]`` in the
+tests), else every local card. This departs from JAX's live engine,
+which splits each micro-batch evenly over its devices and so needs
+``max_batch`` divisible by their count: one dispatch thread launches
+every replica's forward, and the forward's launches bound the host, so a
+split costs a launch sequence per replica for each micro-batch, where
+round-robin costs one (two replicas on one NVIDIA H100 80GB HBM3 at
+700 W: 69.95 ms of dispatch for a micro-batch of 8 split, 30.29 whole,
+36.41 on one card; ``chip_smoke.py`` phase 14e measures it).
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
+import functools
 import json
 import logging
 import os
@@ -70,8 +82,38 @@ import torch
 MAX_BODY_BYTES = int(float(os.environ.get(
     "AACLIP_SERVE_MAX_BODY_MB", "64")) * 1024 * 1024)
 
-_A12 = "ROADMAP A12, 'the parallel axes'"
 _log = logging.getLogger("aaclip.serve")
+
+
+def _replica_devices(device, data_parallel: bool):
+    """The replicas' devices under ``data_parallel`` (a given list, one
+    device, or every local card when None), else None; a list without
+    ``data_parallel`` raises."""
+    from aaclip_tpu_torch.device import resolve_device
+
+    if not data_parallel:
+        if isinstance(device, (list, tuple)):
+            raise ValueError("a list of devices needs data_parallel=True")
+        return None
+    if isinstance(device, (list, tuple)):
+        devices = [resolve_device(d) for d in device]
+    elif device is None:
+        resolve_device(None)  # raises without a card
+        devices = [torch.device(f"cuda:{i}")
+                   for i in range(torch.cuda.device_count())]
+    else:
+        devices = [resolve_device(device)]
+    if not devices:
+        raise ValueError("data_parallel needs at least one device")
+    return devices
+
+
+def _device_context(device: torch.device):
+    """``device`` as the current card (the kernels launch on its current
+    stream); nothing off the card."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
 
 
 def _path_digest(path: str, content: bool = True) -> str:
@@ -161,12 +203,12 @@ class InferenceEngine:
                  max_queue: Optional[int] = None,
                  anchor_cache: Optional[str] = None,
                  artifact: Optional[str] = None, device=None):
-        if data_parallel:
-            raise NotImplementedError(
-                f"data-parallel serving is not ported yet: {_A12}")
-        if artifact is not None:
-            from aaclip_tpu_torch.device import resolve_device
+        from aaclip_tpu_torch.device import resolve_device
 
+        self._replicas = _replica_devices(device, data_parallel)
+        if self._replicas is not None:
+            device = self._replicas[0]
+        if artifact is not None:
             self.device = resolve_device(device)
             self.cfg = self.policy = None
             self.max_batch = max_batch
@@ -186,7 +228,6 @@ class InferenceEngine:
                                                   text_adapter_from_jax,
                                                   text_adapter_to_jax)
         from aaclip_tpu_torch.data.registry import DOMAINS
-        from aaclip_tpu_torch.device import resolve_device
         from aaclip_tpu_torch.eval.predict import (make_anchor_encoder,
                                                    make_predict_fn)
         from aaclip_tpu_torch.ops.similarity import fused_postproc_matrix
@@ -245,6 +286,19 @@ class InferenceEngine:
         self._predict = make_predict_fn(vit, cfg, acfg, policy=policy,
                                         uint8_inputs=True,
                                         device=self.device)
+        if self._replicas is not None:
+            # one replica of the towers and the adapters per card; replicas
+            # on one device share them
+            reps = {self.device: functools.partial(self._predict,
+                                                   self.image_adapter)}
+            for d in self._replicas:
+                if d not in reps:
+                    reps[d] = functools.partial(
+                        make_predict_fn(copy.deepcopy(vit).to(d), cfg, acfg,
+                                        policy=policy, uint8_inputs=True,
+                                        device=d),
+                        copy.deepcopy(self.image_adapter).to(d))
+            self._replica_fns = [reps[d] for d in self._replicas]
         self._sync()
         self.startup_s["towers"] = time.perf_counter() - t0
 
@@ -326,6 +380,14 @@ class InferenceEngine:
 
         self._predict = lambda _adapter, imgs, anch, M: \
             art.predict_tensors(imgs, anch, M)
+        if self._replicas is not None:
+            # one replica of the programs per card (the first is ``art``)
+            loaded = {self.device: art}
+            for d in self._replicas:
+                if d not in loaded:
+                    loaded[d] = load_serving_artifact(artifact, device=d)
+            self._replica_fns = [loaded[d].predict_tensors
+                                 for d in self._replicas]
         self.startup_s["load"] = time.perf_counter() - t0
 
     # -- device plumbing ----------------------------------------------------
@@ -341,14 +403,16 @@ class InferenceEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _upload(self, arr: np.ndarray) -> torch.Tensor:
-        """A host array on the engine's device; on the card through pinned
-        memory without waiting (a pageable copy would first wait for the
-        stream, that is for the previous batch's forward)."""
+    def _upload(self, arr: np.ndarray, device=None) -> torch.Tensor:
+        """A host array on the engine's device (or ``device``); on the
+        card through pinned memory without waiting (a pageable copy would
+        first wait for the stream, that is for the previous batch's
+        forward)."""
+        device = self.device if device is None else device
         t = torch.from_numpy(np.ascontiguousarray(arr))
-        if self.device.type != "cuda":
+        if device.type != "cuda":
             return t
-        return t.pin_memory().to(self.device, non_blocking=True)
+        return t.pin_memory().to(device, non_blocking=True)
 
     def _start_runtime(self, max_queue: Optional[int],
                        precompile: bool) -> None:
@@ -358,15 +422,22 @@ class InferenceEngine:
         self._phase_total: Dict[str, list] = {}   # name -> [count, sum_ms]
         self._phase_probe = False  # on after the warm-up
         self._probe_wait_s = 0.0
+        self._rr = 0  # the next replica
         t0 = time.perf_counter()
         with self._device_guard(), torch.inference_mode():
             self._postproc_dev = {
                 ds: torch.from_numpy(m).to(self.device)
                 for ds, m in self.postproc.items()}
+            if self._replicas is not None:
+                self._postproc_rep = [
+                    {ds: torch.from_numpy(m).to(d)
+                     for ds, m in self.postproc.items()}
+                    for d in self._replicas]
             if precompile:
-                # every bucket once, its scores on the host, before the
-                # first request: on the card the first call of each shape
-                # loads (or builds) the kernels
+                # every bucket once on every replica (round-robin takes
+                # them in turn), its scores on the host, before the first
+                # request: on the card the first call of each shape loads
+                # (or builds) the kernels
                 ds0 = next(iter(self.anchors))
                 a0 = np.asarray(next(iter(self.anchors[ds0].values())))
                 for b in sorted({self._bucket(n)
@@ -374,8 +445,9 @@ class InferenceEngine:
                     imgs = np.zeros((b, 3, self.img_size, self.img_size),
                                     np.uint8)
                     anch = np.tile(a0[None], (b, 1, 1))
-                    pix, sc = self._dispatch(imgs, anch, ds0)
-                    _Readback(pix, sc, {1}).wait_scores()
+                    for _ in self._replicas or [None]:
+                        pix, sc = self._dispatch(imgs, anch, ds0)
+                        _Readback(pix, sc, {1}).wait_scores()
         self.startup_s["warmup"] = time.perf_counter() - t0
 
         # admission control: fast-fail past max_queue pending requests
@@ -386,7 +458,10 @@ class InferenceEngine:
         self._queue: "queue.Queue" = queue.Queue(maxsize=self.max_queue)
         # bounded: the dispatch thread blocks when the completion stage
         # falls behind, so at most two batches of results are in flight
-        self._completion_q: "queue.Queue" = queue.Queue(maxsize=2)
+        # replicas need a depth of at least their count, or round-robin
+        # dispatch could never keep every card busy
+        depth = 2 if self._replicas is None else max(2, len(self._replicas))
+        self._completion_q: "queue.Queue" = queue.Queue(maxsize=depth)
         self._stop = threading.Event()
         self._n_requests = 0
         self._n_errors = 0
@@ -412,6 +487,8 @@ class InferenceEngine:
     def _dispatch(self, imgs: np.ndarray, anch: np.ndarray, ds: str):
         """One padded host micro-batch -> (maps, scores) on the device,
         launched and not waited on."""
+        if self._replicas is not None:
+            return self._dispatch_replicas(imgs, anch, ds)
         imgs_dev = self._upload(imgs)
         if self._phase_probe:
             # measurement mode: wait for the upload and time it; one extra
@@ -423,6 +500,21 @@ class InferenceEngine:
             self._probe_wait_s = dt
         return self._predict(self.image_adapter, imgs_dev, self._upload(anch),
                              self._postproc_dev[ds])
+
+    def _dispatch_replicas(self, imgs: np.ndarray, anch: np.ndarray,
+                           ds: str):
+        """``_dispatch`` under data parallelism: the whole micro-batch runs
+        on the next replica, round-robin, and its answer is copied to the
+        engine's device."""
+        i = self._rr
+        self._rr = (i + 1) % len(self._replicas)
+        d = self._replicas[i]
+        with _device_context(d):
+            pix, score = self._replica_fns[i](
+                self._upload(imgs, d), self._upload(anch, d),
+                self._postproc_rep[i][ds])
+        return (pix.to(self.device, non_blocking=True),
+                score.to(self.device, non_blocking=True))
 
     def _bucket(self, n: int) -> int:
         """Smallest power of 2 >= n, at most max_batch: log2(max_batch)
@@ -872,7 +964,9 @@ def parse_args(argv=None):
     parser.add_argument("--port", type=int, default=8400)
     parser.add_argument("--clip_checkpoint", default=None)
     parser.add_argument("--data_parallel", action="store_true",
-                        help="not ported yet (ROADMAP A12)")
+                        help="serve over every local card: one replica "
+                             "per card (of the towers, or of --artifact's "
+                             "programs), whole micro-batches round-robin")
     parser.add_argument("--no_precompile", action="store_true",
                         help="skip running every batch bucket at start-up: "
                              "the first request of each bucket size then "
@@ -890,11 +984,7 @@ def parse_args(argv=None):
     parser.add_argument("--image_adapt_until", type=int, default=6)
     parser.add_argument("--text_adapt_until", type=int, default=3)
     parser.add_argument("--relu", action="store_true")
-    args = parser.parse_args(argv)
-    if args.data_parallel:
-        raise NotImplementedError(f"--data_parallel is not ported yet: "
-                                  f"{_A12}")
-    return args
+    return parser.parse_args(argv)
 
 
 def main(argv=None, *, device=None):
@@ -904,7 +994,8 @@ def main(argv=None, *, device=None):
             artifact=args.artifact,
             datasets=tuple(args.datasets) if args.datasets else None,
             max_batch=args.max_batch, max_queue=args.max_queue,
-            precompile=not args.no_precompile, device=device)
+            precompile=not args.no_precompile,
+            data_parallel=args.data_parallel, device=device)
     else:
         engine = InferenceEngine(
             model_name=args.model_name, img_size=args.img_size,
@@ -913,6 +1004,7 @@ def main(argv=None, *, device=None):
             max_batch=args.max_batch, max_queue=args.max_queue,
             clip_checkpoint=args.clip_checkpoint,
             precompile=not args.no_precompile,
+            data_parallel=args.data_parallel,
             anchor_cache=args.anchor_cache or None,
             adapter_cfg=dict(levels=tuple(args.levels),
                              image_adapt_until=args.image_adapt_until,

@@ -24,6 +24,14 @@ its bundled banks under ``--memory_bank``. The flags are the JAX CLI's;
 those of paths not ported yet raise at parse time naming their ROADMAP
 item. ``main(argv, device="cpu")`` runs on the
 CPU (the tests); by default it runs on the card.
+
+``--data_parallel`` and ``--tensor_parallel N`` (with
+``--sequence_parallel``) run one process per card under ``torchrun``
+(``python -m torch.distributed.run --nproc_per_node K -m
+aaclip_tpu_torch.test ...``; ``parallel/``): every rank reads the same
+global batch, rounded up to a multiple of the data size, and runs its
+rows; rank 0 alone writes the log, the table and the CSVs. The parallel
+flags' rules are JAX's.
 """
 
 from __future__ import annotations
@@ -126,16 +134,29 @@ def parse_args(argv=None):
                              "must be bundled in it")
     args = parser.parse_args(argv)
     unported = [
-        ("--data_parallel", args.data_parallel, _A12),
-        ("--tensor_parallel", args.tensor_parallel > 1, _A12),
-        ("--sequence_parallel", args.sequence_parallel, _A12),
         ("--pipeline_parallel", args.pipeline_parallel > 1, _A12),
+        ("--pp_microbatches", args.pp_microbatches is not None, _A12),
         ("--visualize", args.visualize, _A15),
     ]
     for flag, given, (item, title) in unported:
         if given:
             raise NotImplementedError(
                 f"{flag} is not ported yet: ROADMAP {item}, '{title}'")
+    tp = args.tensor_parallel > 1
+    if args.artifact and (args.data_parallel or tp
+                          or args.sequence_parallel):
+        parser.error("--artifact serves frozen single-device graphs; "
+                     "parallel flags need the live model path")
+    if args.memory_bank and tp:
+        parser.error("--memory_bank runs the live predictor (banks are "
+                     "per-class, per-snapshot device arrays); it composes "
+                     "with --data_parallel, and with --artifact when the "
+                     "artifact bundles banks (export --memory_bank_shot)")
+    if args.sequence_parallel and not tp:
+        parser.error("--sequence_parallel requires --tensor_parallel N > 1")
+    if args.precision == "int8" and tp:
+        parser.error("int8 quantized inference does not compose with "
+                     "tensor parallelism")
     if args.memory_bank and args.shot < 1 and not args.artifact:
         parser.error("--memory_bank needs --shot >= 1 support images "
                      "(artifact banks carry their own shot count)")
@@ -188,18 +209,28 @@ def main(argv=None, *, device=None):
     from aaclip_tpu_torch.device import resolve_device
     from aaclip_tpu_torch.eval.predict import (make_anchor_encoder,
                                                make_predict_fn)
+    from aaclip_tpu_torch.parallel.sharding import cli_mesh
     from aaclip_tpu_torch.text.anchors import encode_dataset_anchors
     from aaclip_tpu_torch.train import checkpoint as ckpt
     from aaclip_tpu_torch.utils.logging import setup_logger
     from aaclip_tpu_torch.utils.seed import setup_seed
 
-    dev = resolve_device(device)
+    mesh = cli_mesh(args.data_parallel, args.tensor_parallel, device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    lead = mesh is None or mesh.is_lead
     decoded_before = dict(DECODE_COUNTS)
     setup_seed(args.seed)
     os.makedirs(args.save_path, exist_ok=True)
     logger = setup_logger("aaclip.test",
-                          os.path.join(args.save_path, "test.log"))
+                          os.path.join(args.save_path, "test.log"),
+                          enabled=lead)
     logger.info("args: %s", vars(args))
+    if mesh is not None:
+        logger.info("mesh: data=%d x model=%d", mesh.dp, mesh.tp)
+        if args.batch_size % mesh.dp:
+            args.batch_size = -(-args.batch_size // mesh.dp) * mesh.dp
+            logger.info("data_parallel: batch_size rounded up to %d "
+                        "(%d-way data axis)", args.batch_size, mesh.dp)
 
     if args.artifact:
         return _eval_artifact(args, logger, dev, decoded_before)
@@ -251,14 +282,17 @@ def main(argv=None, *, device=None):
     uint8_inputs = args.fused_preprocess or args.precision in ("bf16",
                                                                "int8")
     predict_fn = make_predict_fn(vit, cfg, acfg, policy=policy,
-                                 uint8_inputs=uint8_inputs, device=dev)
+                                 uint8_inputs=uint8_inputs, mesh=mesh,
+                                 sequence_parallel=args.sequence_parallel,
+                                 device=None if mesh else dev)
     mb_predict = support = None
     if args.memory_bank:
         from aaclip_tpu_torch.eval import memory_bank as mb
 
         mb_predict = mb.make_mb_predict_fn(
             vit, cfg, acfg, policy=policy, uint8_inputs=uint8_inputs,
-            bank_weight=args.bank_weight, chunk=args.bank_chunk, device=dev)
+            bank_weight=args.bank_weight, chunk=args.bank_chunk, mesh=mesh,
+            device=None if mesh else dev)
         # classes absent from the metadata are skipped (their test splits
         # are empty too)
         support = mb.collect_support_sets(args.dataset, args.shot,
@@ -292,7 +326,7 @@ def main(argv=None, *, device=None):
 
         def fn(ia, im, an, M):
             return mb_predict(ia, im, an, M, bank)
-        fn.device = mb_predict.device
+        fn.device, fn.mesh = mb_predict.device, mb_predict.mesh
         return fn
 
     for file in files:
@@ -305,8 +339,9 @@ def main(argv=None, *, device=None):
                 file, image_template)
         _eval_table(args, logger, test_epoch, image_datasets, class_fn,
                     adapter_from_jax(tree, cfg, acfg, device=dev),
-                    text_embeddings, domain, grid)
+                    text_embeddings, domain, grid, lead)
     _log_host_paths(logger, decoded_before)
+
 
 
 def _log_host_paths(logger, decoded_before: dict) -> None:
@@ -325,11 +360,13 @@ def _log_host_paths(logger, decoded_before: dict) -> None:
 
 def _eval_table(args, logger, label, image_datasets, class_fn,
                 image_adapter, text_embeddings, domain: str,
-                grid: int) -> None:
+                grid: int, lead: bool = True) -> None:
     """One results table (the reference's per-snapshot block,
     test.py:179-250): each class's loader through ``class_fn(class_name,
     image_adapter)``'s predictor (``run_class_predictions``), its metrics,
-    the table with its "Average" row, and the CSVs the flags ask for."""
+    the table with its "Average" row, and the CSVs the flags ask for. A
+    rank other than the lead (``lead`` False) predicts with the others and
+    writes nothing."""
     from aaclip_tpu_torch.data.datasets import BatchLoader
     from aaclip_tpu_torch.eval.metrics import metrics_eval
     from aaclip_tpu_torch.eval.predict import run_class_predictions
@@ -360,6 +397,8 @@ def _eval_table(args, logger, label, image_datasets, class_fn,
                                   text_embeddings[class_name], domain,
                                   args.img_size, grid)
         timer.tick(len(file_names))
+        if not lead:
+            continue
         score_rows += [(class_name, f, int(lab), float(sc)) for f, lab, sc
                        in zip(file_names, labels, preds_image)]
         t0 = time.perf_counter()
@@ -371,6 +410,8 @@ def _eval_table(args, logger, label, image_datasets, class_fn,
     if timer.rate():
         # the first class's window holds the warm-up
         logger.info("eval throughput: %.2f maps/s", timer.rate())
+    if not lead:
+        return
     n = len(rows)
     rows.append(["Average"] + [
         sum(r[i] for r in rows) / n if n else float("nan")

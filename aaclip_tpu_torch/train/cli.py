@@ -19,6 +19,15 @@ batch k+1 on a second CUDA stream while step k runs. The host waits for a
 loss only every ``--loss_fetch_every`` steps; ``--profile_input`` logs
 where each epoch's host loop spent its time.
 
+``--data_parallel`` and ``--tensor_parallel N`` (with
+``--sequence_parallel``) run one process per card under ``torchrun``
+(``python -m torch.distributed.run --nproc_per_node K -m
+aaclip_tpu_torch.train ...``; ``parallel/``): every rank reads the same
+global batch, padded to a multiple of the data size with ``valid = 0``
+rows, augments all of it with the same draws, and the steps run its rows
+and return JAX's global loss; rank 0 alone writes the log and the
+checkpoints, and every rank resumes from them.
+
 The flags are the JAX CLI's; those of paths not ported yet raise at parse
 time naming their ROADMAP item. ``--remat auto`` resolves as JAX's does
 (``resolve_remat``) and the log says to what. ``main(argv,
@@ -142,10 +151,9 @@ def parse_args(argv=None):
         parser.error("--cache_device assembles single-device batches; it "
                      "does not compose with data/tensor/pipeline "
                      "parallelism")
+    if args.sequence_parallel and args.tensor_parallel <= 1:
+        parser.error("--sequence_parallel requires --tensor_parallel N > 1")
     unported = [
-        ("--data_parallel", args.data_parallel, _A12),
-        ("--tensor_parallel", args.tensor_parallel > 1, _A12),
-        ("--sequence_parallel", args.sequence_parallel, _A12),
         ("--pipeline_parallel", args.pipeline_parallel > 1, _A12),
         ("--pp_microbatches", args.pp_microbatches is not None, _A12),
         ("--ckpt_backend orbax", args.ckpt_backend == "orbax", _A6),
@@ -202,6 +210,7 @@ def main(argv=None, *, device=None):
     from aaclip_tpu_torch.eval.predict import make_anchor_encoder
     from aaclip_tpu_torch.ops.augment import (augment_generator,
                                               make_device_augment)
+    from aaclip_tpu_torch.parallel import sharding as sh
     from aaclip_tpu_torch.text.anchors import (dataset_prompt_tokens,
                                                encode_dataset_anchors)
     from aaclip_tpu_torch.train import checkpoint as ckpt
@@ -216,12 +225,18 @@ def main(argv=None, *, device=None):
                                                   ThrottledLossDrain)
     from aaclip_tpu_torch.utils.seed import setup_seed
 
-    dev = resolve_device(device)
+    mesh = sh.cli_mesh(args.data_parallel, args.tensor_parallel, device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    lead = mesh is None or mesh.is_lead
     setup_seed(args.seed)
     os.makedirs(args.save_path, exist_ok=True)
     logger = setup_logger("aaclip.train",
-                          os.path.join(args.save_path, "train.log"))
+                          os.path.join(args.save_path, "train.log"),
+                          enabled=lead)
     logger.info("args: %s", vars(args))
+    if mesh is not None:
+        logger.info("mesh: data=%d x model=%d", mesh.dp, mesh.tp)
+    step_dev = None if mesh is not None else dev  # on a mesh, the mesh's
 
     policy = DtypePolicy.from_name(args.precision)
     cfg = get_config(args.model_name, args.img_size)
@@ -319,16 +334,20 @@ def main(argv=None, *, device=None):
 
     def device_batch(batch):
         """numpy batch -> (images, mask [B, H, W], label, class_idx,
-        valid) on the card."""
+        valid) on the card; on a mesh padded to a multiple of the data
+        size with ``valid = 0`` rows (JAX's ``pad_batch_to_devices``)."""
         B = batch["image"].shape[0]
-        return (torch.as_tensor(batch["image"], device=dev),
-                torch.as_tensor(batch["mask"].reshape(B, args.img_size,
-                                                      args.img_size),
-                                device=dev),
-                torch.as_tensor(batch["label"], device=dev).long(),
-                torch.tensor([cls_to_idx[c] for c in batch["class_name"]],
-                             device=dev),
-                (torch.arange(B) < batch["n_valid"]).float().to(dev))
+        arrays = [batch["image"],
+                  batch["mask"].reshape(B, args.img_size, args.img_size),
+                  np.asarray(batch["label"]),
+                  np.array([cls_to_idx[c] for c in batch["class_name"]])]
+        valid = (np.arange(B) < batch["n_valid"]).astype(np.float32)
+        if mesh is not None:
+            arrays, valid = sh.pad_batch_to_devices(arrays, valid, mesh.dp)
+        images, mask, label, class_idx = (torch.as_tensor(a, device=dev)
+                                          for a in arrays)
+        return (images, mask, label.long(), class_idx,
+                torch.as_tensor(valid, device=dev))
 
     def make_train_loader(ds, batch_size, text_stage, seed):
         """BatchLoader, or with --cache_device the set on the card.
@@ -414,11 +433,13 @@ def main(argv=None, *, device=None):
         feats_fn = stage1_features_fn(
             vit, cfg, surgery_until_layer=args.surgery_until_layer,
             policy=policy, vv_mode=args.vv_mode,
-            chunk=args.feature_chunk or None, device=dev)
+            chunk=args.feature_chunk or None, mesh=mesh,
+            sequence_parallel=args.sequence_parallel, device=step_dev)
         step_fn = make_stage1_step(
             text, cfg, acfg, text_opt, prompt_tokens,
             text_norm_weight=args.text_norm_weight, img_size=args.img_size,
-            policy=policy, remat=remat[1], device=dev)
+            policy=policy, remat=remat[1], mesh=mesh,
+            sequence_parallel=args.sequence_parallel, device=step_dev)
 
         def update_text(prof, images, mask, label, class_idx, valid):
             nonlocal text_step
@@ -437,9 +458,10 @@ def main(argv=None, *, device=None):
         for epoch in range(text_start_epoch, args.text_epoch):
             logger.info("training text epoch %d:", epoch)
             run_epoch(loader, 1, epoch, update_text)
-            ckpt.save_adapter_checkpoint(
-                text_ckpt, epoch + 1, text_adapter_to_jax(text_adapter),
-                step=text_step, opt_state=text_state())
+            if lead:
+                ckpt.save_adapter_checkpoint(
+                    text_ckpt, epoch + 1, text_adapter_to_jax(text_adapter),
+                    step=text_step, opt_state=text_state())
         del feats_fn, step_fn, loader
 
     # ---- anchors for stage 2 (reference train.py:338-344) ----------------
@@ -454,7 +476,9 @@ def main(argv=None, *, device=None):
     step_fn = make_stage2_step(vit, cfg, acfg, (image_opt, image_sched),
                                anchors_table, img_size=args.img_size,
                                policy=policy, remat=remat[2],
-                               grad_accum=args.grad_accum, device=dev)
+                               grad_accum=args.grad_accum, mesh=mesh,
+                               sequence_parallel=args.sequence_parallel,
+                               device=step_dev)
 
     def update_image(prof, images, mask, label, class_idx, valid):
         nonlocal image_step
@@ -484,6 +508,8 @@ def main(argv=None, *, device=None):
             run_fused_epoch(loader, fused)
         else:
             run_epoch(loader, 2, epoch, update_image)
+        if not lead:
+            continue
         tree, state = adapter_to_jax(image_adapter), image_state()
         for path in (image_ckpt, os.path.join(
                 args.save_path, f"image_adapter_{epoch + 1}.npz")):

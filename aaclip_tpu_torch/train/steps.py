@@ -20,6 +20,19 @@ do not require grad, so the backward forms no weight gradient for them.
 Both steps keep the towers' parameters fp32 as stored, as JAX's steps do
 (``core/params.py::cast_block_matrices`` pre-casts only the blocks' matmul
 weights).
+
+On a mesh (``parallel/sharding.py``) each function still takes the global
+batch, as JAX's do, and each rank computes its rows (``_Rows``). The loss
+is JAX's global-batch loss: every masked mean divides by the global valid
+count, dice's constant terms count once, the orthogonality term squares
+the global mean, and each rank's share of it carries the gradient of its
+own samples (``_Rows.loss_terms``). The adapters' gradients are summed
+over the data axis after the backward (and, under sequence parallelism,
+the per-block adapters' over the model axis too), so every rank takes the
+same Adam update and the adapters stay replicated. A mesh with a model
+axis Megatron-shards the frozen towers (``parallel/tensor.py``): the
+vision trunk in stage 2 and the stage-1 features, the text tower in the
+stage-1 step.
 """
 
 from __future__ import annotations
@@ -40,14 +53,79 @@ from aaclip_tpu_torch.ops import losses as LL
 from aaclip_tpu_torch.ops.attention import make_attn_fn
 from aaclip_tpu_torch.ops.similarity import (level_scores,
                                              train_similarity_logit)
+from aaclip_tpu_torch.parallel import sharding as sh
+from aaclip_tpu_torch.parallel import tensor as tpar
 from aaclip_tpu_torch.text.anchors import reduce_to_anchors
 
 
-def _no_mesh(mesh, sequence_parallel: bool) -> None:
-    if mesh is not None or sequence_parallel:
-        raise NotImplementedError(
-            "meshes, tensor and sequence parallelism are not ported yet: "
-            "ROADMAP A12, 'the parallel axes'")
+def _check_mesh(mesh, sequence_parallel: bool) -> None:
+    if sequence_parallel and not sh.is_tp_mesh(mesh):
+        raise ValueError("sequence_parallel requires a 2-D mesh with "
+                         "model-parallel size > 1 (make_mesh_2d)")
+
+
+def _tower(tower, heads: int, mesh, sequence_parallel: bool):
+    """The tower a step runs: this rank's shard on a mesh with a model
+    axis (``vit`` may then live on the CPU), else ``tower``."""
+    if sh.is_tp_mesh(mesh):
+        return tpar.shard_tower(tower, heads, mesh, sequence_parallel)
+    return tower
+
+
+class _Rows:
+    """A rank's part of a step's global batch, split into ``micro``
+    microbatches: microbatch k is global rows [k B/micro, (k+1) B/micro),
+    spread over the data axis, so the rank takes its contiguous share of
+    each (JAX reshapes the global batch into microbatches before GSPMD
+    shards them). Without a mesh it is the whole batch."""
+
+    def __init__(self, mesh, device, micro: int = 1):
+        self.mesh, self.device, self.micro = mesh, device, micro
+        self.lead = mesh is None or mesh.data_rank == 0
+
+    def take(self, x) -> torch.Tensor:
+        x = torch.as_tensor(x)
+        if self.mesh is None:
+            return x.to(self.device)
+        B, dp = x.shape[0], self.mesh.dp
+        n = B // self.micro
+        if n % dp:
+            raise ValueError(f"microbatch {n} (batch {B} / grad_accum "
+                             f"{self.micro}) not divisible by data-parallel "
+                             f"size {dp}")
+        per, d = n // dp, self.mesh.data_rank
+        x = x.reshape(self.micro, n, *x.shape[1:])[:, d * per:(d + 1) * per]
+        return x.reshape(self.micro * per, *x.shape[2:]).to(self.device)
+
+    def counts(self, valid: torch.Tensor) -> torch.Tensor:
+        """Each microbatch's valid count over the global batch."""
+        c = valid.float().reshape(self.micro, -1).sum(1)
+        return c if self.mesh is None else sh.all_reduce(c, self.mesh.data)
+
+    def orth_reduce(self):
+        """The orthogonality numerator's sum over the data axis (identity
+        backward: each rank's gradient reaches its own samples)."""
+        if self.mesh is None:
+            return None
+        return lambda t: sh.reduce_from(t, self.mesh.data)
+
+    def share(self, term: torch.Tensor) -> torch.Tensor:
+        """A global term every rank computes whole (the squared mean):
+        counted once in the loss's value, its gradient kept on every
+        rank."""
+        return term if self.lead else term - term.detach()
+
+    def total(self, loss: torch.Tensor) -> torch.Tensor:
+        """The global loss from the ranks' shares."""
+        return loss if self.mesh is None else \
+            sh.all_reduce(loss, self.mesh.data)
+
+    def reduce_grads(self, params, sp_params=()) -> None:
+        if self.mesh is None:
+            return
+        sh.all_reduce_grads(params, self.mesh.data)
+        if sp_params:
+            sh.all_reduce_grads(sp_params, self.mesh.model)
 
 
 def _no_int8(policy: DtypePolicy) -> None:
@@ -57,12 +135,18 @@ def _no_int8(policy: DtypePolicy) -> None:
                          "train.py refuse it too)")
 
 
-def _step_device(tower: torch.nn.Module, device) -> torch.device:
-    """The step's device (``None`` is the card); the tower must live there.
-    On the card TF32 is switched off, so fp32 products are true fp32."""
-    dev = resolve_device(device)
+def _step_device(tower: torch.nn.Module, device, mesh=None) -> torch.device:
+    """The step's device (``None`` is the card; on a mesh, the mesh's); the
+    tower must live there, or, on a mesh with a model axis, may live on
+    the CPU. On the card TF32 is switched off, so fp32 products are true
+    fp32."""
+    if mesh is not None and device is not None \
+            and torch.device(device) != mesh.device:
+        raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+    dev = mesh.device if mesh is not None else resolve_device(device)
     param_dev = next(tower.parameters()).device
-    if param_dev.type != dev.type:
+    if param_dev.type != dev.type and not (sh.is_tp_mesh(mesh)
+                                           and param_dev.type == "cpu"):
         raise ValueError(f"the tower lives on {param_dev}, step built for "
                          f"{dev}")
     if dev.type == "cuda":
@@ -102,8 +186,13 @@ def stage1_features_fn(vit: VisionTransformer, cfg: CLIPConfig, *,
     mode (the block's default V-V hook). ``chunk=N`` (spatial only: batch-mode features are coupled
     across the batch) extracts N images at a time, which is exact.
 
-    ``device=None`` means the card; ``vit`` must live there."""
-    _no_mesh(mesh, sequence_parallel)
+    ``device=None`` means the card; ``vit`` must live there. On a mesh the
+    global batch goes in and its features come out; the batch-mode V-V
+    softmax then runs over the global batch (the values and ``valid``
+    all-gathered over the data axis, ``layers.attention_vv_batch``), so
+    the features equal the single-process ones, and ``device`` is the
+    mesh's."""
+    _check_mesh(mesh, sequence_parallel)
     _no_int8(policy)
     if chunk is not None and chunk < 1:
         raise ValueError(f"feature chunk must be >= 1, got {chunk}")
@@ -119,11 +208,14 @@ def stage1_features_fn(vit: VisionTransformer, cfg: CLIPConfig, *,
         raise ValueError(
             "a custom vv_attn_fn requires vv_mode='spatial': batch mode "
             "installs the reference-exact batch-coupled attention")
-    dev = _step_device(vit, device)
+    dev = _step_device(vit, device, mesh)
     # staging (bf16_until) is an inference-path feature: the supervision
     # features keep the policy's uniform precision, as JAX's do
     policy = policy.unstaged()
-    visual = cast_block_matrices(vit, policy)
+    visual = cast_block_matrices(
+        _tower(vit, cfg.vision.heads, mesh, sequence_parallel), policy)
+    rows = _Rows(mesh, dev)
+    data_group = mesh.data if mesh is not None else None
     act = L.config_act(cfg, policy)
     heads, layers = cfg.vision.heads, cfg.vision.layers
     vv_start = L.surgery_vv_start(layers, surgery_until_layer)
@@ -135,28 +227,32 @@ def stage1_features_fn(vit: VisionTransformer, cfg: CLIPConfig, *,
 
     @torch.no_grad()
     def run(images, vv_fn):
-        x = embed(visual, cfg, images, policy)
+        x = L.stream_split(visual, embed(visual, cfg, images, policy))
         x = run_blocks(x, visual, cfg, 0, vv_start, act=act, policy=policy,
                        attn_fn=attn_fn)
         xs = run_blocks(x, visual, cfg, vv_start, layers, vv=True, act=act,
                         policy=policy, attn_fn=attn_fn, vv_attn_fn=vv_fn)
-        feats = project(xs[:, 1:, :])
+        feats = project(L.stream_gather(visual, xs)[:, 1:, :])
         del xs
         xc = run_blocks(x, visual, cfg, vv_start, layers, act=act,
                         policy=policy, attn_fn=attn_fn)
-        cls = L.l2_normalize(project(xc[:, 0, :]))
+        cls = L.l2_normalize(project(L.stream_gather(visual, xc)[:, 0, :]))
         return L.l2_normalize(feats) + cls[:, None, :]
 
-    def features(images, valid=None):
-        images = torch.as_tensor(images, device=dev)
+    def local(images, valid):
         if vv_mode == "spatial":
             if not chunk or images.shape[0] <= chunk:
                 return run(images, vv_attn_fn)
             return torch.cat([run(images[i:i + chunk], vv_attn_fn)
                               for i in range(0, images.shape[0], chunk)])
+        return run(images, L.make_batch_vv_attn_fn(heads, policy, valid,
+                                                   data_group))
+
+    def features(images, valid=None):
+        images = rows.take(images)
         if valid is not None:
-            valid = torch.as_tensor(valid, device=dev)
-        return run(images, L.make_batch_vv_attn_fn(heads, policy, valid))
+            valid = rows.take(valid)
+        return sh.gather_rows(local(images, valid), mesh)
 
     return features
 
@@ -185,18 +281,23 @@ def make_stage1_step(text: TextTransformer, cfg: CLIPConfig,
     anchors' orthogonality loss; a device tensor, not synchronised.
 
     ``device=None`` means the card; ``text`` and the adapter must live
-    there."""
-    _no_mesh(mesh, sequence_parallel)
+    there. On a mesh the step takes the global batch and returns JAX's
+    global loss; every rank encodes every prompt (the prompt batch is
+    replicated over the data axis, which JAX's batch constraint only
+    spreads), the text tower Megatron-sharded over a model axis."""
+    _check_mesh(mesh, sequence_parallel)
     _no_int8(policy)
-    dev = _step_device(text, device)
+    dev = _step_device(text, device, mesh)
     policy = policy.unstaged()  # staging is inference-only
     img = img_size or cfg.vision.image_size
     tokens = torch.as_tensor(prompt_tokens, device=dev).long()
     C, S, _ = tokens.shape
     flat_tokens = tokens.reshape(C * S, -1)
-    text_w = cast_block_matrices(text, policy)
+    text_w = cast_block_matrices(
+        _tower(text, cfg.text.heads, mesh, sequence_parallel), policy)
+    rows = _Rows(mesh, dev)
 
-    def loss_fn(adapter: TextAdapter, feats, mask, class_idx, valid):
+    def loss_fn(adapter: TextAdapter, feats, mask, class_idx, valid, n):
         embeds = adapted_encode_text(
             text_w, adapter, cfg, flat_tokens,
             text_adapt_weight=acfg.text_adapt_weight, policy=policy,
@@ -205,19 +306,25 @@ def make_stage1_step(text: TextTransformer, cfg: CLIPConfig,
         banchors = anchors[class_idx]                          # [B, D, 2]
         scores = 100.0 * torch.einsum("bld,bdk->blk", feats, banchors)
         d = train_similarity_logit(scores, img)
-        seg = LL.seg_loss_from_logit_masked(d, mask, valid)
-        orth = LL.orthogonality_loss_masked(banchors, valid)
+        seg = LL.seg_loss_from_logit_masked(d, mask, valid, n,
+                                            constant=rows.lead)
+        orth = rows.share(LL.orthogonality_loss_masked(
+            banchors, valid, n, reduce=rows.orth_reduce()))
         return seg + text_norm_weight * orth
 
     def step(adapter, feats, mask, class_idx, valid):
         feats, mask, class_idx, valid = (
-            torch.as_tensor(t, device=dev)
-            for t in (feats, mask, class_idx, valid))
+            rows.take(t) for t in (feats, mask, class_idx, valid))
+        n = rows.counts(valid)[0].clamp_min(1.0)
         optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(adapter, feats.float(), mask, class_idx.long(), valid)
+        loss = loss_fn(adapter, feats.float(), mask, class_idx.long(), valid,
+                       n)
         loss.backward()
+        rows.reduce_grads(
+            [p for g in optimizer.param_groups for p in g["params"]],
+            tpar.sp_trunk_params(adapter) if sequence_parallel else ())
         optimizer.step()
-        return loss.detach()
+        return rows.total(loss.detach())
 
     return step
 
@@ -253,17 +360,22 @@ def make_stage2_step(vit: VisionTransformer, cfg: CLIPConfig,
     package.
 
     ``device=None`` means the card and raises when there is none; ``vit``
-    and the adapter must already live there."""
-    _no_mesh(mesh, sequence_parallel)
+    and the adapter must already live there. On a mesh the step takes the
+    global batch (each microbatch divisible by the data size) and returns
+    JAX's global loss; a model axis shards the trunk, whose attention hook
+    must then be a ``make_attn_fn`` one (the default)."""
+    _check_mesh(mesh, sequence_parallel)
     _no_int8(policy)
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
-    dev = _step_device(vit, device)
+    dev = _step_device(vit, device, mesh)
     policy = policy.unstaged()  # staging is inference-only
     img = img_size or cfg.vision.image_size
     # fp32 biases and LayerNorm affines, as JAX's step keeps them
     # (train/steps.py:348); only the matmul weights are pre-cast
-    visual = cast_block_matrices(vit, policy)
+    visual = cast_block_matrices(
+        _tower(vit, cfg.vision.heads, mesh, sequence_parallel), policy)
+    rows = _Rows(mesh, dev, grad_accum)
     act = L.config_act(cfg, policy)
     if attn_fn is None:
         attn_fn = make_attn_fn(cfg.vision.heads, policy, differentiable=True)
@@ -271,7 +383,7 @@ def make_stage2_step(vit: VisionTransformer, cfg: CLIPConfig,
     optimizer, scheduler = optimizer
     params = [p for group in optimizer.param_groups for p in group["params"]]
 
-    def loss_fn(adapter, images, mask, label, class_idx, valid):
+    def loss_fn(adapter, images, mask, label, class_idx, valid, n):
         seg, det = adapted_forward(
             visual, adapter, cfg, images,
             image_adapt_weight=acfg.image_adapt_weight, levels=acfg.levels,
@@ -280,38 +392,41 @@ def make_stage2_step(vit: VisionTransformer, cfg: CLIPConfig,
         banchors = anchors[class_idx]                       # [B, D, 2]
         logits = L.matmul(det[:, None, :], banchors,
                           policy.precision)[:, 0]
-        loss = LL.cross_entropy_logits_masked(logits, label, valid)
+        loss = LL.cross_entropy_logits_masked(logits, label, valid, n)
         scores = level_scores(torch.stack(seg), banchors)   # [n, B, L, 2]
         for lvl in range(scores.shape[0]):
             d = train_similarity_logit(scores[lvl], img)
-            loss = loss + LL.seg_loss_from_logit_masked(d, mask, valid)
+            loss = loss + LL.seg_loss_from_logit_masked(
+                d, mask, valid, n, constant=rows.lead)
         return loss
 
     def step(adapter, images, mask, label, class_idx, valid):
+        B = images.shape[0]
+        if B % grad_accum:
+            raise ValueError(f"batch size {B} not divisible by "
+                             f"grad_accum {grad_accum}")
         images, mask, label, class_idx, valid = (
-            torch.as_tensor(t, device=dev)
-            for t in (images, mask, label, class_idx, valid))
+            rows.take(t) for t in (images, mask, label, class_idx, valid))
+        counts = rows.counts(valid)
         optimizer.zero_grad(set_to_none=True)
         if grad_accum == 1:
-            loss = loss_fn(adapter, images, mask, label, class_idx, valid)
+            loss = loss_fn(adapter, images, mask, label, class_idx, valid,
+                           counts[0].clamp_min(1.0))
             loss.backward()
             loss = loss.detach()
         else:
-            B = images.shape[0]
-            if B % grad_accum:
-                raise ValueError(f"batch size {B} not divisible by "
-                                 f"grad_accum {grad_accum}")
-            n = B // grad_accum
+            n = images.shape[0] // grad_accum
             loss_sum = torch.zeros((), device=dev)
             n_live = torch.zeros((), device=dev)
             for k in range(grad_accum):
                 mb = slice(k * n, (k + 1) * n)
                 l = loss_fn(adapter, images[mb], mask[mb], label[mb],
-                            class_idx[mb], valid[mb])
+                            class_idx[mb], valid[mb],
+                            counts[k].clamp_min(1.0))
                 l.backward()  # gradients add up in .grad
                 # an all-padding microbatch has zero gradient but a dice
                 # term of 2 per level: gate it out of the loss and the mean
-                live = (valid[mb].sum() > 0).float()
+                live = (counts[k] > 0).float()
                 loss_sum = loss_sum + live * l.detach()
                 n_live = n_live + live
             n_live = n_live.clamp_min(1.0)
@@ -319,8 +434,10 @@ def make_stage2_step(vit: VisionTransformer, cfg: CLIPConfig,
             for p in params:
                 if p.grad is not None:
                     p.grad.div_(n_live)
+        rows.reduce_grads(params, tpar.sp_trunk_params(adapter)
+                          if sequence_parallel else ())
         optimizer.step()
         scheduler.step()
-        return loss
+        return rows.total(loss)
 
     return step

@@ -210,6 +210,27 @@ Needs one CUDA card and nvcc. Phases, each of which fails the run:
     serve --artifact`` closed loop beside 12d's; (e) ``test --artifact``
     on one synthetic class, its scores bit for bit a direct artifact
     predict's, and ``test --precision int8`` on the same class.
+14. data, tensor and sequence parallelism (``aaclip_tpu_torch/parallel``)
+    at ViT-L/518: (a) rank 0 of a world of 1 on NCCL (torchrun's
+    variables set here): the DP predict (bf16, B=32, maps/s beside the
+    single-process one), two DP stage-2 steps (B=8), DP stage-1 features
+    in both V-V modes and a step from them (B=16) and the DP memory bank
+    (4-shot, B=8), each bit for bit its single-process path (or within
+    1e-6, printed), launches counted; (b) B1, B2 and B3 at the per-rank
+    geometries of tensor parallelism at tp 2 and 4 (8 and 4 heads of 64,
+    B=8) on the bf16, 6-pass and 3-pass routes, against their plain
+    versions at phases 3-4's bars, ms per call beside 16 heads; (c) two
+    ranks on the one card, gloo on CUDA tensors: the TP = 2 predict with
+    and without SP (bf16, B=8) against the single-process predict at
+    phase 4's bars and a TP = 2 stage-2 step (B=8) at phase 5's; (d) under
+    ``python -m torch.distributed.run --nproc_per_node 1`` (one child
+    running ``chip_smoke.py --parallel-clis``): ``test --data_parallel``
+    on a 16-image class, its table and scores bit for bit the
+    single-process CLI's, ``train --data_parallel`` (one text and one
+    image epoch), its per-step losses bit for bit, and ``bench
+    --data_parallel`` beside the plain bench; (e) the serving engine with
+    ``data_parallel=True`` (one replica), every answer bit for bit the
+    engine's without it, live and (inside 13d) on the bf16 artifact.
 Phase 3 also holds the V-V mode of the forward kernel (B3) against its
 plain version, in bf16 and fp32, at [16, 1370, 1024], ragged S and head
 dim 16, and against the standard mode on the value section tripled.
@@ -5017,6 +5038,25 @@ def phase_artifact(card, ckpt_path: str, serve_readings: dict) -> dict:
                   f"(bar {SERVE_ART_SPAN_FRAC}), max|d score| {ds:.3e}")
             expect(dm <= SERVE_ART_SPAN_FRAC * span and ds <= SCORE_ATOL_BF16,
                    f"served artifact maps off: {dm} / {span}, {ds}")
+            # 14e, the artifact half: the same artifact served with
+            # data_parallel=True over two replicas of its programs on the
+            # card, whole micro-batches round-robin
+            solo, ms_one = par_timed_answers(engine, imgs[:6], classes[:6])
+            dp_engine = server.InferenceEngine(
+                artifact=paths["bf16"], max_batch=8, data_parallel=True,
+                device=["cuda:0", "cuda:0"])
+            try:
+                expect(len(dp_engine._replicas) == 2, "14e replicas")
+                got, ms_two = par_timed_answers(dp_engine, imgs[:6],
+                                                classes[:6])
+                par_same_answers(got, solo, "bf16 artifact engine, two "
+                                 f"replicas on cuda:0, on {card}")
+                print(f"14e bf16 artifact engine: dispatch {ms_two:.2f} ms "
+                      f"per micro-batch (bucket 1) over two replicas against "
+                      f"{ms_one:.2f} on one card, on {card}")
+            finally:
+                dp_engine.shutdown()
+                del dp_engine
         finally:
             engine.shutdown()
             del engine
@@ -5091,6 +5131,827 @@ def phase_int8_artifact(vit, adapter, cfg, acfg, anchors, M, card, gen,
     print(f"phase 13 (int8 and the artifact) took "
           f"{time.perf_counter() - t_phase:.0f} s")
     return {"int8 predict": int8["launches"], **calls}
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: data, tensor and sequence parallelism (aaclip_tpu_torch/parallel)
+
+# 14a's bar where a loss or an update sums its global counts in another
+# order than the single-process path: 1e-6 relative on a loss, 1e-6 of
+# each adapter's max |value|. At world size 1 every collective is a copy,
+# so bit for bit is what 14a expects first.
+PAR_REL = 1e-6
+PAR_PREDICT_BATCH, PAR_TRAIN_BATCH, PAR_S1_BATCH = 32, TRAIN_BATCH, \
+    STAGE1_BATCH
+PAR_MB_SHOT, PAR_MB_BATCH = 4, 8
+# 14b: B1/B2/B3 at the per-rank geometries of tensor parallelism at tp 2
+# and 4 (ViT-L's 16 heads of 64 -> 8 and 4), batch 8, beside tp 1
+PAR_TP, PAR_KERNEL_BATCH = (1, 2, 4), 8
+# 14c: two ranks on the one card (gloo on CUDA tensors). bf16 at phases
+# 4-5's bars cannot tell a fault from rounding, so the same TP = 2 and
+# TP = 2 + SP paths also run in fp32 (allow_tf32 off), where the ranks'
+# products and the single-process ones differ only in summation order
+# (column parts of one GEMM, two half-K partial sums added by the
+# all-reduce): ~1e-6 relative per product, carried through 24 blocks.
+# Bars: the map within 1e-4 of its span, the scores within 1e-4
+# (SCORE_ATOL_FP32), the step's loss within 1e-5 relative
+# (TINY_STEP_LOSS_RTOL) and each adapter gradient's difference within
+# 1e-3 of its norm. The last is ten times the fp32 floor of the same
+# step in one process, kernels against the plain attention (another
+# summation order alone), which 14c reads beside the ranks' distance
+# (~1e-4, PERF.md). Against each gradient's max |value| that floor
+# reads several 1e-4 on the deep layer adapters, whose gradients are
+# sums that largely cancel, so the max is not the bar.
+PAR_TP_PREDICT_BATCH, PAR_TP_STEP_BATCH = 8, TRAIN_BATCH
+PAR_TP_FP32_STEP_BATCH = 4
+PAR_TP_FP32_SPAN_FRAC, PAR_TP_FP32_GRAD_NORM_REL = 1e-4, 1e-3
+# 14d: the CLIs' small synthetic set (one class) and batches
+PAR_CLI_NORMAL, PAR_CLI_ANOMALOUS, PAR_CLI_PX, PAR_CLI_BATCH = 8, 8, 256, 8
+PAR_CHILD_TIMEOUT = 300
+# 14e: the direct dispatch timings' micro-batch and calls
+PAR_DISPATCH_BATCH, PAR_DISPATCH_CALLS = 8, 10
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def par_same(got, want, what: str) -> str:
+    """``got`` against ``want`` (floats, or lists of tensors): "bit for
+    bit", or within PAR_REL ("within 1e-6"); fails otherwise."""
+    import torch
+
+    if isinstance(want, float):
+        if got == want:
+            return "bit for bit"
+        rel = abs(got - want) / max(abs(want), 1e-30)
+        expect(rel <= PAR_REL, f"{what}: {got} vs {want} ({rel:.3e} rel)")
+        return f"within {rel:.1e} relative"
+    if all(torch.equal(g, w) for g, w in zip(got, want)):
+        return "bit for bit"
+    worst = max(((g.float() - w.float()).abs().max()
+                 / w.float().abs().max().clamp_min(1e-30)).item()
+                for g, w in zip(got, want))
+    expect(worst <= PAR_REL, f"{what}: {worst:.3e} of the max")
+    return f"within {worst:.1e} of the max"
+
+
+def par_world1(vit, adapter, cfg, acfg, anchors, M, card, gen) -> dict:
+    """14a: each parallel path at world size 1 on NCCL (rank 0 of 1 on
+    cuda:0, torchrun's variables set here) against its single-process
+    path; returns {path: (forward, V-V, backward) launches}."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from aaclip_tpu_torch.core.config import DtypePolicy
+    from aaclip_tpu_torch.core.params import (init_text_adapter,
+                                              init_text_params)
+    from aaclip_tpu_torch.eval import memory_bank as mb
+    from aaclip_tpu_torch.eval.predict import make_predict_fn
+    from aaclip_tpu_torch.parallel import sharding as sh
+    from aaclip_tpu_torch.text.anchors import dataset_prompt_tokens
+    from aaclip_tpu_torch.train.optim import (make_image_optimizer,
+                                              make_text_optimizer)
+    from aaclip_tpu_torch.train.steps import (make_stage1_step,
+                                              make_stage2_step,
+                                              stage1_features_fn)
+
+    keys = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+    env_before = {k: os.environ.get(k) for k in keys}
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()))
+    calls = {}
+    img, n_layers = cfg.vision.image_size, cfg.vision.layers
+    vv_layers = STAGE1_SURGERY_UNTIL - 1
+    bf16 = DtypePolicy.bf16()
+    try:
+        expect(sh.initialize_multihost(), "no process group")
+        mesh = sh.make_data_mesh()
+        expect(dist.get_backend() == "nccl" and mesh.dp == 1
+               and mesh.device == torch.device("cuda:0"),
+               f"world-1 mesh {dist.get_backend()} {mesh}")
+
+        # the predict, bf16 uint8 at batch 32, timed beside the plain one
+        p_dp = make_predict_fn(vit, cfg, acfg, policy=bf16,
+                               uint8_inputs=True, mesh=mesh)
+        p_1 = make_predict_fn(vit, cfg, acfg, policy=bf16, uint8_inputs=True)
+        u8 = torch.randint(0, 256, (PAR_PREDICT_BATCH, 3, img, img),
+                           generator=gen, device="cuda", dtype=torch.uint8)
+        zero_counts()
+        got = p_dp(adapter, u8, anchors, M)
+        torch.cuda.synchronize()
+        calls["DP predict (world 1)"] = counts()
+        want = p_1(adapter, u8, anchors, M)
+        how = par_same(list(got), list(want), "DP predict")
+        expect(how == "bit for bit", f"DP predict {how}")
+        ms_dp = cuda_ms(lambda: p_dp(adapter, u8, anchors, M), 5)
+        ms_1 = cuda_ms(lambda: p_1(adapter, u8, anchors, M), 5)
+        print(f"14a DP predict bf16 B={PAR_PREDICT_BATCH} at world 1 (NCCL):"
+              f" {how} the single-process predict; launches "
+              f"{calls['DP predict (world 1)']}; {PAR_PREDICT_BATCH / ms_dp * 1e3:.2f}"
+              f" maps/s against {PAR_PREDICT_BATCH / ms_1 * 1e3:.2f} "
+              f"(single-process, same call) on {card}")
+        expect(calls["DP predict (world 1)"] == (n_layers, 0, 0),
+               "DP predict launches")
+        del p_dp, p_1, u8, got, want
+
+        # the stage-2 step, bf16 at batch 8, remat off, two steps
+        batch = train_batch(PAR_TRAIN_BATCH, img, gen)
+        table = unit_table(cfg.embed_dim, gen)
+        runs = {}
+        for name, m in (("dp", mesh), ("single", None)):
+            ad = copy.deepcopy(adapter)
+            step = make_stage2_step(vit, cfg, acfg,
+                                    make_image_optimizer(ad.parameters()),
+                                    table, policy=bf16, remat=False, mesh=m)
+            zero_counts()
+            losses = [float(step(ad, *batch)) for _ in range(2)]
+            torch.cuda.synchronize()
+            runs[name] = (losses, [p.detach().clone()
+                                   for p in ad.parameters()], counts())
+            del ad, step
+        calls["DP stage-2 step (world 1), per step"] = tuple(
+            c // 2 for c in runs["dp"][2])
+        how_l = [par_same(a, b, "DP step loss")
+                 for a, b in zip(runs["dp"][0], runs["single"][0])]
+        how_a = par_same(runs["dp"][1], runs["single"][1], "DP step adapters")
+        print(f"14a DP stage-2 step bf16 B={PAR_TRAIN_BATCH} remat off, two "
+              f"steps at world 1: losses {runs['dp'][0]} ({', '.join(how_l)}"
+              f"), adapters {how_a} the single-process step's; launches "
+              f"per step {calls['DP stage-2 step (world 1), per step']}")
+        expect(calls["DP stage-2 step (world 1), per step"]
+               == (n_layers, 0, n_layers - 1), "DP step launches")
+        del runs, batch
+
+        # stage 1 at batch 16: features in both V-V modes, then a step
+        images, mask, cidx, valid = stage1_batch(PAR_S1_BATCH, img, gen)
+        cidx = cidx % 2
+        text = init_text_params(cfg, seed=3)
+        tokens = dataset_prompt_tokens("MVTec", ["bottle", "cable"])
+        for vv_mode in ("spatial", "batch"):
+            f_dp = stage1_features_fn(vit, cfg, policy=bf16, vv_mode=vv_mode,
+                                      mesh=mesh)
+            f_1 = stage1_features_fn(vit, cfg, policy=bf16, vv_mode=vv_mode)
+            zero_counts()
+            feats = f_dp(images, valid)
+            torch.cuda.synchronize()
+            key = f"DP stage-1 {vv_mode} features (world 1)"
+            calls[key] = counts()
+            want = f_1(images, valid)
+            how_f = par_same([feats], [want], f"DP {vv_mode} features")
+            res = {}
+            for name, m in (("dp", mesh), ("single", None)):
+                tad = init_text_adapter(cfg, acfg, seed=4)
+                step = make_stage1_step(text, cfg, acfg,
+                                        make_text_optimizer(tad.parameters()),
+                                        tokens, policy=bf16, mesh=m)
+                loss = float(step(tad, want, mask, cidx, valid))
+                res[name] = (loss, [p.detach().clone()
+                                    for p in tad.parameters()])
+            how_l = par_same(res["dp"][0], res["single"][0], "DP s1 loss")
+            how_a = par_same(res["dp"][1], res["single"][1], "DP s1 adapters")
+            print(f"14a DP stage-1 {vv_mode} features B={PAR_S1_BATCH} at "
+                  f"world 1: {how_f}; launches {calls[key]}; the step's loss"
+                  f" {res['dp'][0]:.6f} {how_l}, text adapters {how_a}")
+            expect(calls[key] == (n_layers, vv_layers if vv_mode ==
+                                  "spatial" else 0, 0),
+                   f"{key} launches {calls[key]}")
+            expect(how_f == "bit for bit", f"DP {vv_mode} features {how_f}")
+            del f_dp, f_1, feats, want
+        del text, images, mask
+
+        # the memory bank, 4-shot, queries at batch 8
+        support = torch.randint(0, 256, (PAR_MB_SHOT, 3, img, img),
+                                generator=gen, device="cuda",
+                                dtype=torch.uint8)
+        q = torch.randint(0, 256, (PAR_MB_BATCH, 3, img, img), generator=gen,
+                          device="cuda", dtype=torch.uint8)
+        outs = {}
+        for name, m in (("dp", mesh), ("single", None)):
+            fn = mb.make_mb_predict_fn(vit, cfg, acfg, policy=bf16,
+                                       uint8_inputs=True, mesh=m)
+            bank = mb.collect_bank(fn.features_fn, adapter, support,
+                                   batch_size=PAR_MB_BATCH)
+            zero_counts()
+            outs[name] = [bank, *fn(adapter, q, anchors, M, bank)]
+            torch.cuda.synchronize()
+            if m is not None:
+                calls["DP memory-bank predict (world 1)"] = counts()
+            del fn
+        how = par_same(outs["dp"], outs["single"], "DP mb predict")
+        print(f"14a DP memory-bank predict {PAR_MB_SHOT}-shot B="
+              f"{PAR_MB_BATCH} at world 1: bank and answers {how}")
+        expect(how == "bit for bit", f"DP mb predict {how}")
+        del outs
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in env_before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return calls
+
+
+def par_kernel_case(route: str, dtype, precision, H: int, gen) -> dict:
+    """14b: one route's B1 (forward), B2 (backward) and B3 (V-V) at ``H``
+    heads of 64, batch 8, S 1370, against their plain versions at phases
+    3-4's bars; returns {kernel: (ms per call, launches)}."""
+    import torch
+
+    from aaclip_tpu_torch.ops import attention as A
+
+    B, S, hd = PAR_KERNEL_BATCH, 1370, 64
+    dm = H * hd
+    qkv = random_qkv(B, S, H, hd, dtype, gen)
+    d_out = torch.randn(B, S, dm, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(B, S, dm, generator=gen, device="cuda").to(dtype)
+    zero_counts()
+    got, lse = A.attention_packed(qkv, H, S, return_lse=True,
+                                  precision=precision)
+    g = A.attention_packed_bwd(qkv, d_out, lse, H, S, precision=precision)
+    gv = A.attention_packed_vv(v, H, S, precision=precision)
+    torch.cuda.synchronize()
+    launched, six, three = counts(), counts_6pass(), counts_3pass()
+    expect(launched == (1, 1, 1), f"14b {route} H={H}: launches {launched}")
+    expect(six == ((1, 1, 1) if route == "fp32" else (0, 0, 0))
+           and three == ((1, 1, 1) if route == "fp32_high" else (0, 0, 0)),
+           f"14b {route} H={H}: 6-pass {six}, 3-pass {three}")
+    fwd = (got.float() - A.attention_packed_plain(
+        qkv, H, S, precision=precision).float()).abs()
+    gw = A.attention_packed_bwd_plain(qkv, d_out, H, S, precision=precision)
+    vw = A.attention_packed_vv_plain(v, H, S, precision=precision).float()
+    dv = (gv.float() - vw).abs()
+    bwd_rel = max(((g[..., i * dm:(i + 1) * dm].float()
+                    - gw[..., i * dm:(i + 1) * dm].float()).abs().max()
+                   / gw[..., i * dm:(i + 1) * dm].float().abs().max()).item()
+                  for i in range(3))
+    if route == "bf16":
+        expect(fwd.max().item() <= BF16_MAX_ABS
+               and fwd.mean().item() <= BF16_MEAN_ABS, f"14b B1 {route}")
+        expect(bwd_rel <= BWD_BF16_MAX_REL, f"14b B2 {route}: {bwd_rel}")
+        expect((dv - VV_BF16_REL * vw.abs()).max().item() <= VV_BF16_ABS
+               and dv.mean().item() <= BF16_MEAN_ABS, f"14b B3 {route}")
+    else:
+        expect(fwd.max().item() <= FP32_MAX_ABS, f"14b B1 {route}")
+        expect(bwd_rel <= (BWD_FP32_MAX_REL if route == "fp32"
+                           else HIGH_BWD_MAX_REL), f"14b B2 {route}")
+        expect(dv.max().item() <= FP32_MAX_ABS, f"14b B3 {route}")
+    errs = (fwd.max().item(), bwd_rel, dv.max().item())
+    del fwd, gw, vw, dv
+    ms = (cuda_ms(lambda: A.attention_packed(qkv, H, S, precision=precision),
+                  10),
+          cuda_ms(lambda: A.attention_packed_bwd(qkv, d_out, lse, H, S,
+                                                 precision=precision), 10),
+          cuda_ms(lambda: A.attention_packed_vv(v, H, S,
+                                                precision=precision), 10))
+    return {"errs": errs, "ms": ms}
+
+
+def par_kernels(card) -> dict:
+    """14b; returns {route: {tp: case}}."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    out = {}
+    for route, dtype, precision in (("bf16", torch.bfloat16, None),
+                                    ("fp32", torch.float32, None),
+                                    ("fp32_high", torch.float32, HIGH)):
+        out[route] = {}
+        for tp in PAR_TP:
+            H = 16 // tp
+            case = out[route][tp] = par_kernel_case(route, dtype, precision,
+                                                    H, gen)
+            print(f"14b {route} tp={tp} ({H} heads, packed width "
+                  f"{3 * H * 64}, V width {H * 64}) B={PAR_KERNEL_BATCH}: "
+                  f"B1 max|d| {case['errs'][0]:.3e}, B2 {case['errs'][1]:.3e}"
+                  f" of max, B3 max|d| {case['errs'][2]:.3e}; ms per call "
+                  f"B1 {case['ms'][0]:.4f}, B2 {case['ms'][1]:.4f}, B3 "
+                  f"{case['ms'][2]:.4f} (tp=1: "
+                  + ", ".join(f"{x:.4f}" for x in out[route][1]['ms'])
+                  + f"); 1 launch of each on {card}")
+    return out
+
+
+def _tp_rank(rank: int, port: int, payload: dict, out) -> None:
+    """14c: one of two ranks on cuda:0, gloo on CUDA tensors: the TP = 2
+    predict (with and without SP) and one TP = 2 stage-2 step in bf16, and
+    the same predicts and a step with and without SP in fp32; puts each
+    result and its launch counts in ``out``, as numpy (a torch tensor
+    sent through the queue would be shared memory the exiting rank takes
+    with it)."""
+    import os
+    import traceback
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK="0",
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    try:
+        import torch
+        import torch.distributed as dist
+
+        from aaclip_tpu_torch.core.config import (AdapterConfig, DtypePolicy,
+                                                  get_config)
+        from aaclip_tpu_torch.core.params import (init_image_adapter,
+                                                  init_vision_params)
+        from aaclip_tpu_torch.eval.predict import make_predict_fn
+        from aaclip_tpu_torch.parallel import sharding as sh
+        from aaclip_tpu_torch.train.optim import make_image_optimizer
+        from aaclip_tpu_torch.train.steps import make_stage2_step
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        # NCCL refuses two ranks on one device: the group is gloo's, on
+        # CUDA tensors, and initialize_multihost finds it up
+        dist.init_process_group("gloo", init_method="env://", rank=rank,
+                                world_size=2)
+        mesh = sh.make_mesh_2d(2, device="cuda:0")
+        cfg = get_config("ViT-L-14-336", img_size=518)
+        acfg = AdapterConfig()
+        vit = init_vision_params(cfg, seed=0)
+        adapter = init_image_adapter(cfg, acfg, seed=1)
+        t = {k: torch.from_numpy(v).cuda() for k, v in payload.items()}
+        batch = [t[k] for k in ("images", "mask", "label", "cidx", "valid")]
+        res = {}
+        for name, policy in (("bf16", DtypePolicy.bf16()),
+                             ("fp32", DtypePolicy.fp32())):
+            for sp in (False, True):
+                fn = make_predict_fn(vit, cfg, acfg, policy=policy,
+                                     uint8_inputs=True, mesh=mesh,
+                                     sequence_parallel=sp)
+                zero_counts()
+                pix, score = fn(adapter, t["u8"], t["anchors"], t["M"])
+                torch.cuda.synchronize()
+                res[f"{name} predict sp={sp}"] = (
+                    pix.cpu().numpy(), score.cpu().numpy(), counts())
+                del fn, pix, score
+            rows = PAR_TP_STEP_BATCH if name == "bf16" else \
+                PAR_TP_FP32_STEP_BATCH
+            for sp in ((False,) if name == "bf16" else (False, True)):
+                ad = copy.deepcopy(adapter)
+                step = make_stage2_step(
+                    vit, cfg, acfg, make_image_optimizer(ad.parameters()),
+                    t["table"], policy=policy, remat=False, mesh=mesh,
+                    sequence_parallel=sp)
+                zero_counts()
+                loss = float(step(ad, *(x[:rows] for x in batch)))
+                res[f"{name} step sp={sp}"] = (
+                    loss, {n: p.grad.cpu().numpy() for n, p in
+                           ad.named_parameters()}, counts())
+                del step, ad
+                torch.cuda.empty_cache()
+        dist.destroy_process_group()
+        out.put((rank, "ok", res))
+    except BaseException:
+        out.put((rank, "error", traceback.format_exc()))
+
+
+def grad_distance(got: dict, want: dict) -> tuple:
+    """The largest |got - want| / |want| (norms) over the leaves, its
+    leaf's name, and the largest max |got - want| / max |want|."""
+    rows = []
+    for n, g in got.items():
+        g, w = g.double().cpu(), want[n].double().cpu()
+        rows.append((((g - w).norm() / w.norm().clamp_min(1e-30)).item(), n,
+                     ((g - w).abs().max()
+                      / w.abs().max().clamp_min(1e-30)).item()))
+    worst = max(rows)
+    return worst[0], worst[1], max(r[2] for r in rows)
+
+
+def par_two_ranks(vit, adapter, cfg, acfg, anchors, M, card, gen) -> dict:
+    """14c: TP = 2 (and SP) on two ranks of the one card against the
+    single-process predict (phase 4's bars) and step (phase 5's bars) in
+    bf16, and against the single-process fp32 predict and step at fp32's
+    bars (PAR_TP_FP32_*); returns {path: launches per rank}."""
+    import multiprocessing as mp
+
+    import numpy as np
+    import torch
+
+    from aaclip_tpu_torch.core.config import DtypePolicy
+    from aaclip_tpu_torch.eval.predict import make_predict_fn
+
+    img = cfg.vision.image_size
+    policies = {"bf16": DtypePolicy.bf16(), "fp32": DtypePolicy.fp32()}
+    u8 = torch.randint(0, 256, (PAR_TP_PREDICT_BATCH, 3, img, img),
+                       generator=gen, device="cuda", dtype=torch.uint8)
+    batch = train_batch(PAR_TP_STEP_BATCH, img, gen)
+    table = unit_table(cfg.embed_dim, gen)
+    images, mask, label, cidx, valid = batch
+    payload = {k: v.cpu().numpy() for k, v in dict(
+        u8=u8, anchors=anchors, M=M, images=images, mask=mask, label=label,
+        cidx=cidx, valid=valid, table=table).items()}
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_tp_rank, args=(r, port, payload, q))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    results = {}
+    try:
+        for _ in procs:
+            rank, status, res = q.get(timeout=PAR_CHILD_TIMEOUT)
+            expect(status == "ok", f"14c rank {rank} failed:\n{res}")
+            results[rank] = res
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    wall = time.perf_counter() - t0
+    calls = {}
+    for name, policy in policies.items():
+        pix_1, score_1 = make_predict_fn(vit, cfg, acfg, policy=policy,
+                                         uint8_inputs=True)(adapter, u8,
+                                                            anchors, M)
+        pix_1, score_1 = pix_1.cpu(), score_1.cpu()
+        span = (pix_1.max() - pix_1.min()).item()
+        frac, score_bar = ((PIX_SPAN_FRAC_BF16, SCORE_ATOL_BF16)
+                           if name == "bf16" else
+                           (PAR_TP_FP32_SPAN_FRAC, SCORE_ATOL_FP32))
+        for sp in (False, True):
+            key = f"{name} predict sp={sp}"
+            expect(np.array_equal(results[1][key][0], results[0][key][0]),
+                   f"14c {key}: the ranks' maps differ")
+            pix, score, c = results[0][key]
+            pix, score = torch.from_numpy(pix), torch.from_numpy(score)
+            dpix = (pix - pix_1).abs().max().item()
+            dscore = (score - score_1).abs().max().item()
+            print(f"14c TP=2{' + SP' if sp else ''} predict {name} B="
+                  f"{PAR_TP_PREDICT_BATCH} on two gloo ranks of the card: "
+                  f"max|d map| {dpix:.3e} ({dpix / span:.3e} of the span, "
+                  f"bar {frac:g}), max|d score| {dscore:.3e} (bar "
+                  f"{score_bar:g}) against the single-process predict; "
+                  f"launches per rank {c}")
+            expect(dpix <= frac * span and dscore <= score_bar,
+                   f"14c {key} off")
+            expect(c == (cfg.vision.layers, 0, 0), f"14c {key} launches {c}")
+            calls[f"TP=2{' SP' if sp else ''} predict {name}, per rank"] = c
+        rows = PAR_TP_STEP_BATCH if name == "bf16" else \
+            PAR_TP_FP32_STEP_BATCH
+        sub = tuple(x[:rows] for x in batch)
+        loss_1, g_1, _, _, _ = train_step_once(
+            vit, cfg, acfg, adapter, sub, table, policy=policy, remat=False)
+        if name == "fp32":
+            # the floor: the same step in one process on the plain
+            # attention, another summation order alone
+            loss_p, g_p, _, _, _ = train_step_once(
+                vit, cfg, acfg, adapter, sub, table, policy=policy,
+                remat=False, attn_fn=make_attn_fn_plain(
+                    cfg.vision.heads, policy, differentiable=True))
+            floor = grad_distance(g_p, g_1)
+            print(f"14c fp32 floor, the single-process step B={rows} on the "
+                  f"plain attention against the kernels: loss "
+                  f"{abs(loss_p - loss_1) / abs(loss_1):.3e} relative, "
+                  f"gradient |d| / |g| {floor[0]:.3e} ({floor[1]}), max "
+                  f"|d| {floor[2]:.3e} of its max, on {card}")
+            del g_p
+        for sp in ((False,) if name == "bf16" else (False, True)):
+            key = f"{name} step sp={sp}"
+            loss, grads, c = results[0][key]
+            grads = {n: torch.from_numpy(g) for n, g in grads.items()}
+            rel = abs(loss - loss_1) / abs(loss_1)
+            what = (f"14c TP=2{' + SP' if sp else ''} stage-2 step {name} "
+                    f"B={rows} remat off on two gloo ranks: loss {rel:.3e} "
+                    f"relative")
+            if name == "bf16":
+                cos = min(torch.nn.functional.cosine_similarity(
+                    g.flatten().double(), g_1[n].cpu().flatten().double(),
+                    dim=0).item() for n, g in grads.items())
+                norm = max(abs(g.norm().item() / g_1[n].norm().item() - 1.0)
+                           for n, g in grads.items())
+                print(f"{what}, min gradient cosine {cos:.8f}, max |norm "
+                      f"ratio - 1| {norm:.3e} against the single-process "
+                      f"step; launches per rank {c}")
+                ok = (rel <= STEP_LOSS_RTOL and cos >= STEP_GRAD_COS
+                      and norm <= STEP_GRAD_NORM_RTOL)
+            else:
+                worst, leaf, of_max = grad_distance(grads, g_1)
+                print(f"{what} (bar {TINY_STEP_LOSS_RTOL:g}), gradient |d| / "
+                      f"|g| {worst:.3e} ({leaf}; bar "
+                      f"{PAR_TP_FP32_GRAD_NORM_REL:g}, floor {floor[0]:.3e})"
+                      f", max |d| {of_max:.3e} of its max, against the "
+                      f"single-process step; launches per rank {c}")
+                ok = (rel <= TINY_STEP_LOSS_RTOL
+                      and worst <= PAR_TP_FP32_GRAD_NORM_REL)
+            expect(ok, f"14c {key} off")
+            expect(c == (cfg.vision.layers, 0, cfg.vision.layers - 1),
+                   f"14c {key} launches {c}")
+            calls[f"TP=2{' SP' if sp else ''} stage-2 step {name}, "
+                  f"per rank"] = c
+        del g_1
+        torch.cuda.empty_cache()
+    print(f"14c: {wall:.0f} s for both ranks (start-up included, untimed)")
+    return calls
+
+
+def torchrun(args: list, what: str) -> str:
+    """``python -m torch.distributed.run --nproc_per_node 1`` ``args`` in
+    a child process from the repo root; returns its standard output."""
+    import os
+    import subprocess
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
+           "1", "--master_addr", "127.0.0.1", "--master_port",
+           str(free_port())] + args
+    out = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                         timeout=PAR_CHILD_TIMEOUT)
+    expect(out.returncode == 0, f"{what} under torchrun failed "
+           f"({out.returncode}):\n{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    return out.stdout
+
+
+def par_clis(card, ckpt_path: str) -> None:
+    """14d: the evaluation and training CLIs and the bench under
+    ``torchrun --nproc_per_node 1`` (one child running all three,
+    ``cli_ranks_main``) against the single-process runs."""
+    import contextlib
+    import gc
+    import io
+    import os
+
+    import torch
+
+    from aaclip_tpu_torch import bench
+    from aaclip_tpu_torch import test as eval_cli
+    from aaclip_tpu_torch.core.config import AdapterConfig, get_config
+    from aaclip_tpu_torch.core.params import adapter_to_jax, init_image_adapter
+    from aaclip_tpu_torch.data.synthetic import make_synthetic_dataset
+    from aaclip_tpu_torch.train import checkpoint as ckpt
+
+    cfg = get_config("ViT-L-14-336", img_size=518)
+    tmp = tempfile.mkdtemp(prefix="aaclip_parallel_cli_")
+    env_before = {k: os.environ.get(k) for k in ("AACLIP_DATA",
+                                                 "AACLIP_METADATA")}
+    try:
+        data_root, meta_root = make_synthetic_dataset(
+            os.path.join(tmp, "set"), class_names=["bottle"],
+            n_normal=PAR_CLI_NORMAL, n_anomalous=PAR_CLI_ANOMALOUS,
+            img_px=PAR_CLI_PX, hard=True)
+        os.environ.update(AACLIP_DATA=data_root, AACLIP_METADATA=meta_root)
+        tree = adapter_to_jax(init_image_adapter(cfg, AdapterConfig(),
+                                                 seed=9, device="cpu"))
+        save = {}
+        for k in ("single", "dp"):
+            save[k] = os.path.join(tmp, f"eval_{k}")
+            ckpt.save_adapter_checkpoint(
+                os.path.join(save[k], "image_adapter_1.npz"), 1, tree)
+        argv = ["--clip_checkpoint", ckpt_path, "--precision", "bf16",
+                "--batch_size", str(PAR_CLI_BATCH), "--csv",
+                "--dump_scores"]
+        targv = ["--clip_checkpoint", ckpt_path, "--dataset", "MVTec",
+                 "--training_mode", "full_shot", "--text_epoch", "1",
+                 "--image_epoch", "1", "--text_batch_size",
+                 str(PAR_CLI_BATCH), "--image_batch_size",
+                 str(PAR_CLI_BATCH), "--precision", "bf16"]
+        bargv = ["--steps", "5"]
+        t0 = time.perf_counter()
+        out = torchrun([os.path.abspath(__file__), "--parallel-clis",
+                        json.dumps({
+                            "test": argv + ["--data_parallel", "--save_path",
+                                            save["dp"]],
+                            "train": targv + ["--data_parallel",
+                                              "--save_path",
+                                              os.path.join(tmp, "t_dp")],
+                            "bench": bargv + ["--data_parallel"]})],
+                       "the CLIs")
+        child_s = time.perf_counter() - t0
+        lines = {ln.split(" ", 1)[0]: json.loads(ln.split(" ", 1)[1])
+                 for ln in out.splitlines()
+                 if ln.startswith(("CLI_LOSSES ", "BENCH_LINE "))}
+
+        eval_cli.main(argv + ["--save_path", save["single"]])
+        same = {f: read_csv(os.path.join(save["dp"], f))
+                == read_csv(os.path.join(save["single"], f))
+                for f in ("results_1.csv", "scores_1.csv")}
+        print(f"14d test --data_parallel under torchrun (1 rank), bf16 B="
+              f"{PAR_CLI_BATCH}, one class of "
+              f"{PAR_CLI_NORMAL + PAR_CLI_ANOMALOUS} images: table and "
+              f"scores bit for bit the single-process CLI's: {same}")
+        expect(all(same.values()), f"14d test --data_parallel: {same}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        single = train_cli_losses(targv + ["--save_path",
+                                           os.path.join(tmp, "t_single")])
+        dp = lines["CLI_LOSSES"]
+        expect([len(e) for e in dp] == [len(e) for e in single],
+               f"14d train: steps {dp} vs {single}")
+        how = [par_same(a, b, "14d train loss") for a, b in
+               zip(sum(dp, []), sum(single, []))]
+        print(f"14d train --data_parallel under torchrun (1 rank), one text"
+              f" and one image epoch, bf16 batch {PAR_CLI_BATCH}: per-step "
+              f"losses {dp} against {single}: "
+              f"{'bit for bit' if set(how) == {'bit for bit'} else how}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            bench.main(bargv)
+        plain = json.loads(buf.getvalue().strip().splitlines()[-1])
+        line = lines["BENCH_LINE"]
+        print(f"14d bench --data_parallel under torchrun (1 rank): "
+              f"{line['value']} maps/s/card ({line['unit']}) beside the "
+              f"plain bench's {plain['value']} maps/s; the torchrun child "
+              f"ran the three in {child_s:.0f} s on {card}")
+        expect(line["value"] > 0 and "dp=1 cards" in line["unit"],
+               f"14d bench line {line}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        for k, v in env_before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def par_engine_answers(engine, imgs, classes) -> list:
+    """Each image submitted alone (one bucket-1 batch each), in order."""
+    return [engine.submit(im, "MVTec", c, timeout=120)
+            for im, c in zip(imgs, classes)]
+
+
+def par_timed_answers(engine, imgs, classes) -> tuple:
+    """``par_engine_answers`` and the engine's mean dispatch ms (its /statz
+    "dispatch" phase: the host's upload and launch of a micro-batch) over
+    the batches these requests made."""
+    def total():  # /statz rounds its total to ms: read the sum itself
+        with engine._stats_lock:
+            return list(engine._phase_total.get("dispatch", (0, 0.0)))
+
+    n0, ms0 = total()
+    answers = par_engine_answers(engine, imgs, classes)
+    n1, ms1 = total()
+    return answers, (ms1 - ms0) / (n1 - n0)
+
+
+def par_same_answers(got, want, what: str) -> None:
+    import numpy as np
+
+    same = all(np.array_equal(g[0], w[0]) and g[1] == w[1]
+               for g, w in zip(got, want))
+    print(f"14e {what}: {len(got)} answers bit for bit the engine's without "
+          f"data_parallel: {same}")
+    expect(same, f"14e {what}: answers differ")
+
+
+def par_dispatch_ms(engine, imgs, split: bool = False) -> float:
+    """The median host ms of one micro-batch's dispatch (upload and
+    launches, not waited on; the card synchronised between calls) over
+    PAR_DISPATCH_CALLS after 3 warm-up calls: ``engine._dispatch``, or
+    with ``split`` the micro-batch halved over the engine's two replicas
+    and concatenated, as JAX's live engine splits it."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from aaclip_tpu_torch.serve import server
+
+    a0 = np.asarray(next(iter(engine.anchors["MVTec"].values())))
+    anch = np.tile(a0[None], (len(imgs), 1, 1))
+
+    def split_dispatch():
+        outs, h = [], len(imgs) // 2
+        for i, d in enumerate(engine._replicas):
+            part = slice(i * h, (i + 1) * h)
+            with server._device_context(d):
+                outs.append(engine._replica_fns[i](
+                    engine._upload(imgs[part], d),
+                    engine._upload(anch[part], d),
+                    engine._postproc_rep[i]["MVTec"]))
+        return tuple(torch.cat([o[k] for o in outs]) for k in (0, 1))
+
+    fn = split_dispatch if split else \
+        (lambda: engine._dispatch(imgs, anch, "MVTec"))
+    times = []
+    with engine._device_guard(), torch.inference_mode():
+        for k in range(3 + PAR_DISPATCH_CALLS):
+            t0 = time.perf_counter()
+            fn()
+            dt = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            if k >= 3:
+                times.append(dt * 1e3)
+    return statistics.median(times)
+
+
+def par_serving(card, ckpt_path: str) -> None:
+    """14e, the live half: the engine with ``data_parallel=True`` on one
+    replica and on two replicas of the card (``device=["cuda:0",
+    "cuda:0"]``: whole micro-batches round-robin) against the engine
+    without it, every answer bit for bit; prints each engine's dispatch ms
+    per micro-batch, served (bucket 1) and direct at PAR_DISPATCH_BATCH,
+    and, on the two replicas, what a split micro-batch's dispatch costs."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from aaclip_tpu_torch.serve import server
+
+    rng = np.random.default_rng(15)
+    imgs = rng.integers(0, 256, (6, 3, 518, 518), dtype=np.uint8)
+    classes = [SERVE_CLASSES[i % 3] for i in range(6)]
+    batch = rng.integers(0, 256, (PAR_DISPATCH_BATCH, 3, 518, 518),
+                         dtype=np.uint8)
+    answers, ms, direct = {}, {}, {}
+    for name, n_rep, kw in (
+            ("one card", None, {}),
+            ("one replica", 1, {"data_parallel": True}),
+            ("two replicas on cuda:0", 2,
+             {"data_parallel": True, "device": ["cuda:0", "cuda:0"]})):
+        engine = server.InferenceEngine(
+            clip_checkpoint=ckpt_path, precision="bf16", max_batch=4,
+            anchor_cache=None, **kw)
+        try:
+            expect(n_rep is None or len(engine._replicas) == n_rep,
+                   "14e replicas")
+            answers[name], ms[name] = par_timed_answers(engine, imgs,
+                                                        classes)
+            direct[name] = par_dispatch_ms(engine, batch)
+            if n_rep == 2:
+                direct["split over the two replicas"] = par_dispatch_ms(
+                    engine, batch, split=True)
+        finally:
+            engine.shutdown()
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+    for name in ("one replica", "two replicas on cuda:0"):
+        par_same_answers(answers[name], answers["one card"],
+                         f"live engine, {name}, on {card}")
+    print("14e live engine dispatch ms per micro-batch (bucket 1, "
+          f"{len(imgs)} requests alone): "
+          + ", ".join(f"{n} {v:.2f}" for n, v in ms.items()) + f" on {card}")
+    print(f"14e live engine dispatch ms of a micro-batch of "
+          f"{PAR_DISPATCH_BATCH} (median of {PAR_DISPATCH_CALLS}): "
+          + ", ".join(f"{n} {v:.2f}" for n, v in direct.items())
+          + f" on {card}")
+
+
+def phase_parallel(vit, adapter, cfg, acfg, anchors, M, card, gen,
+                   ckpt_path: str) -> dict:
+    """Phase 14 (14e's artifact half runs in phase 13d, where its artifact
+    lives); returns {kernel: {path: launches}}."""
+    t_phase = time.perf_counter()
+    world1 = par_world1(vit, adapter, cfg, acfg, anchors, M, card, gen)
+    print(f"[{time.perf_counter() - t_phase:.0f} s] 14b")
+    par_kernels(card)
+    print(f"[{time.perf_counter() - t_phase:.0f} s] 14c")
+    two = par_two_ranks(vit, adapter, cfg, acfg, anchors, M, card, gen)
+    print(f"[{time.perf_counter() - t_phase:.0f} s] 14d")
+    par_clis(card, ckpt_path)
+    print(f"[{time.perf_counter() - t_phase:.0f} s] 14e")
+    par_serving(card, ckpt_path)
+    print(f"phase 14 (parallel) took {time.perf_counter() - t_phase:.0f} s")
+    calls = {"attention_packed": {}, "attention_packed_vv": {},
+             "attention_packed_bwd": {}}
+    for path, (fwd, vv, bwd) in {**world1, **two}.items():
+        for name, n in (("attention_packed", fwd),
+                        ("attention_packed_vv", vv),
+                        ("attention_packed_bwd", bwd)):
+            if n:
+                calls[name][path] = n
+    return calls
+
+
+def cli_ranks_main(spec: str) -> int:
+    """``chip_smoke.py --parallel-clis JSON``: one rank (under torchrun) of
+    the evaluation CLI, the training CLI and the bench, each with the argv
+    ``JSON`` gives it (phase 14d); prints the training CLI's per-step
+    losses as a ``CLI_LOSSES`` line and the bench's JSON as a
+    ``BENCH_LINE`` line."""
+    import contextlib
+    import io
+
+    from aaclip_tpu_torch import bench
+    from aaclip_tpu_torch import test as eval_cli
+
+    argv = json.loads(spec)
+    eval_cli.main(argv["test"])
+    losses = train_cli_losses(argv["train"])
+    print("CLI_LOSSES " + json.dumps(losses), flush=True)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        bench.main(argv["bench"])
+    print("BENCH_LINE " + buf.getvalue().strip().splitlines()[-1],
+          flush=True)
+    return 0
 
 
 def make_attn_fn_plain(heads: int, policy, *, vv: bool = False,
@@ -5226,6 +6087,10 @@ def main() -> int:
         serving_calls.update(phase_int8_artifact(
             vit, adapter, cfg, acfg, anchors, M, card, gen, ckpt_path,
             SERVE_READINGS))
+        # -- 14. data, tensor and sequence parallelism
+        print(f"[{time.perf_counter() - t0:.0f} s] parallel")
+        par_calls = phase_parallel(vit, adapter, cfg, acfg, anchors, M,
+                                   card, gen, ckpt_path)
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 
@@ -5317,7 +6182,7 @@ def main() -> int:
                      train_steps.items()},
                   **{f"training CLI {k}": v[0] for k, v in
                      train_cli.items()},
-                  **serving_calls},
+                  **serving_calls, **par_calls["attention_packed"]},
         "kernels_per_call": fwd_per_call,
         "max_abs_err": err_fwd["bf16"],
         "ms": ms_fwd,
@@ -5334,7 +6199,8 @@ def main() -> int:
         "calls": {**{f"stage-2 step, remat {k}": v[1] for k, v in
                      train_steps.items()},
                   **{f"training CLI {k}": v[2] for k, v in
-                     train_cli.items()}},
+                     train_cli.items()},
+                  **par_calls["attention_packed_bwd"]},
         "kernels_per_call": bwd_per_call,
         "max_abs_err": err_bwd["bf16"],
         "ms": ms_bwd,
@@ -5350,7 +6216,8 @@ def main() -> int:
         "launches": vv_launches,
         "calls": {"stage-1 spatial features": vv_launches,
                   **{f"training CLI {k}": v[1] for k, v in
-                     train_cli.items()}},
+                     train_cli.items()},
+                  **par_calls["attention_packed_vv"]},
         "kernels_per_call": vv_per_call,
         "max_abs_err": err_vv["bf16"],
         "ms": ms_vv,
@@ -5408,4 +6275,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-clis"]:
+        sys.exit(cli_ranks_main(sys.argv[2]))
     sys.exit(main())

@@ -188,19 +188,44 @@ def test_log_has_the_table_and_the_rate(runs):
 
 
 @pytest.mark.parametrize("flags,label", [
-    (["--artifact", "somewhere", "--data_parallel"], "ROADMAP A12"),
-    (["--precision", "int8", "--tensor_parallel", "2"], "ROADMAP A12"),
-    (["--data_parallel"], "ROADMAP A12"),
-    (["--tensor_parallel", "2"], "ROADMAP A12"),
-    (["--sequence_parallel"], "ROADMAP A12"),
     (["--pipeline_parallel", "2"], "ROADMAP A12"),
-    (["--memory_bank", "--data_parallel"], "ROADMAP A12"),
+    (["--pp_microbatches", "4"], "ROADMAP A12"),
     (["--artifact", "somewhere", "--pipeline_parallel", "2"], "ROADMAP A12"),
+    (["--data_parallel", "--pipeline_parallel", "2"], "ROADMAP A12"),
     (["--visualize"], "ROADMAP A15"),
 ])
 def test_unported_flags_raise_naming_their_item(flags, label):
     with pytest.raises(NotImplementedError, match=label):
         port_cli.parse_args(flags)
+
+
+@pytest.mark.parametrize("flags,refusal", [
+    # JAX's rules (test.py:128-137, eval/predict.py:76-80, :136-138)
+    (["--artifact", "somewhere", "--data_parallel"], "--artifact serves"),
+    (["--artifact", "somewhere", "--tensor_parallel", "2"],
+     "--artifact serves"),
+    (["--precision", "int8", "--tensor_parallel", "2"], "int8 quantized"),
+    (["--sequence_parallel"], "requires --tensor_parallel"),
+    (["--data_parallel", "--sequence_parallel"],
+     "requires --tensor_parallel"),
+    (["--memory_bank", "--tensor_parallel", "2"], "--memory_bank runs"),
+    # ported: these parse
+    (["--data_parallel"], None),
+    (["--tensor_parallel", "2"], None),
+    (["--tensor_parallel", "2", "--sequence_parallel"], None),
+    (["--memory_bank", "--data_parallel"], None),
+    (["--precision", "int8", "--data_parallel"], None),
+])
+def test_parallel_flags_follow_jax_rules(flags, refusal, capsys):
+    """The parallel flags parse, or are refused at parse time with JAX's
+    message, combination by combination."""
+    if refusal is None:
+        args = port_cli.parse_args(flags)
+        assert args.data_parallel == ("--data_parallel" in flags)
+        return
+    with pytest.raises(SystemExit):
+        port_cli.parse_args(flags)
+    assert refusal in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("flags,want", [

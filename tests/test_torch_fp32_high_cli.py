@@ -185,5 +185,10 @@ def test_fp32_high_flags_parse_and_the_rest_still_raise():
                            "selective"]).remat == "selective"
     assert port_eval.parse_args(["--precision", "int8"]).precision == \
         "int8"
+    # data parallelism is ported: it composes with fp32_high, as in JAX
+    args = port_eval.parse_args(["--precision", "fp32_high",
+                                 "--data_parallel"])
+    assert (args.precision, args.data_parallel) == ("fp32_high", True)
     with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        port_eval.parse_args(["--precision", "fp32_high", "--data_parallel"])
+        port_eval.parse_args(["--precision", "fp32_high",
+                              "--pipeline_parallel", "2"])

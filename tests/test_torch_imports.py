@@ -14,7 +14,9 @@ training CLI also with ``--remat selective --fused_assemble
 submitted, and served over HTTP), a memory-bank predict and ``python -m
 aaclip_tpu_torch.serve --help``. So do the int8 predict (whole and mixed
 prefix), an artifact's export (the deploy CLI with ``--verify``) and load,
-and ``python -m aaclip_tpu_torch.deploy``."""
+and ``python -m aaclip_tpu_torch.deploy``. A data-parallel predict and
+stage-2 step (``parallel/``) run at world size 1 on gloo (``torchrun``'s
+variables set) in a fresh interpreter without either."""
 
 import json
 import os
@@ -99,6 +101,69 @@ def test_predict_runs_without_jax_in_a_fresh_interpreter():
                       "finite": True}
 
 
+PARALLEL_PROBE = """
+import json, os, sys
+os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                  MASTER_ADDR="127.0.0.1", MASTER_PORT=sys.argv[1])
+import torch
+import torch.distributed as dist
+from aaclip_tpu_torch.core.config import AdapterConfig, DtypePolicy, get_config
+from aaclip_tpu_torch.core.params import init_image_adapter, init_vision_params
+from aaclip_tpu_torch.eval.predict import make_predict_fn
+from aaclip_tpu_torch.ops.similarity import fused_postproc_matrix
+from aaclip_tpu_torch.parallel import sharding as sh
+from aaclip_tpu_torch.train.optim import make_image_optimizer
+from aaclip_tpu_torch.train.steps import make_stage2_step
+assert sh.initialize_multihost(device="cpu")
+mesh = sh.make_data_mesh(device="cpu")
+cfg = get_config("tiny-test")
+acfg = AdapterConfig(levels=(1, 2), image_adapt_until=1)
+vit = init_vision_params(cfg, device="cpu")
+ad = init_image_adapter(cfg, acfg, device="cpu")
+pol = DtypePolicy.fp32()
+x = torch.randn(2, 3, 70, 70, generator=torch.Generator().manual_seed(0))
+a = torch.nn.functional.normalize(torch.ones(32, 2), dim=0)
+M = torch.from_numpy(fused_postproc_matrix(5, 70, "Industrial"))
+pix, score = make_predict_fn(vit, cfg, acfg, policy=pol, mesh=mesh)(
+    ad, x, a, M)
+pix1, score1 = make_predict_fn(vit, cfg, acfg, policy=pol, device="cpu")(
+    ad, x, a, M)
+batch = (x, torch.zeros(2, 70, 70), torch.tensor([0, 1]),
+         torch.tensor([0, 1]), torch.ones(2))
+losses = []
+for m in (mesh, None):
+    ad2 = init_image_adapter(cfg, acfg, device="cpu")
+    step = make_stage2_step(vit, cfg, acfg,
+                            make_image_optimizer(ad2.parameters()),
+                            torch.stack([a, a]), policy=pol, remat=False,
+                            mesh=m, device=None if m else "cpu")
+    losses.append(float(step(ad2, *batch)))
+dist.destroy_process_group()
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "aaclip_tpu"))
+print(json.dumps({"bad": bad, "shape": list(pix.shape),
+                  "same_predict": bool(torch.equal(pix, pix1)
+                                       and torch.equal(score, score1)),
+                  "same_loss": losses[0] == losses[1]}))
+"""
+
+
+def test_parallel_paths_run_without_jax_at_world_one():
+    """A data-parallel predict and stage-2 step at world size 1 on gloo:
+    bit for bit the single-process ones, and no JAX imported."""
+    from tests.torch_parallel_worker import free_port
+
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run([sys.executable, "-c", PARALLEL_PROBE,
+                          str(free_port())], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result == {"bad": [], "shape": [2, 70, 70], "same_predict": True,
+                      "same_loss": True}
+
+
 def test_sources_do_not_import_jax_or_the_jax_package():
     files = sorted((REPO / "aaclip_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
@@ -113,6 +178,10 @@ def test_sources_do_not_import_jax_or_the_jax_package():
         f.name for f in files if f.parent.name == "serve"}
     assert {"memory_bank.py", "hashing.py", "deploy.py", "quant.py"} <= {
         f.name for f in files}
+    assert {"__init__.py", "sharding.py", "tensor.py"} <= {
+        f.name for f in files if f.parent.name == "parallel"}
+    worker = REPO / "tests" / "torch_parallel_worker.py"
+    assert not FORBIDDEN.findall(worker.read_text())  # spawned ranks
     offenders = {str(f.relative_to(REPO)): FORBIDDEN.findall(f.read_text())
                  for f in files}
     assert not {f: m for f, m in offenders.items() if m}

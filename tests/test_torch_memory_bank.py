@@ -177,9 +177,16 @@ def test_bank_weight_outside_unit_interval_raises(setup, weight):
 
 
 def test_mesh_raises_naming_a12(setup):
+    """A mesh with a model axis is refused, as JAX refuses it
+    (eval/memory_bank.py:204-209); a data mesh is ported
+    (tests/test_torch_parallel_data.py)."""
+    from aaclip_tpu_torch.parallel.sharding import Mesh
+
+    tp_mesh = Mesh(dp=1, tp=2, rank=0, data_rank=0, model_rank=0,
+                   data=None, model=None, device=torch.device("cpu"))
     for make in (mb.make_mb_predict_fn, mb.make_patch_features_fn):
-        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-            make(setup["vit"], setup["cfg"], setup["acfg"], mesh=object(),
+        with pytest.raises(ValueError, match="1-D .'data',. mesh only"):
+            make(setup["vit"], setup["cfg"], setup["acfg"], mesh=tp_mesh,
                  device="cpu")
 
 

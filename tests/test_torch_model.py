@@ -149,9 +149,10 @@ def test_predict_rejects_what_is_not_ported():
     from aaclip_tpu_torch.core.params import init_vision_params
 
     vit = init_vision_params(cfg, device="cpu")
-    for kwargs in (dict(mesh=object()), dict(sequence_parallel=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_predict_fn(vit, cfg, acfg, device="cpu", **kwargs)
+    # meshes are ported (tests/test_torch_parallel_*.py); sequence
+    # parallelism without a model axis is refused, as in JAX
+    with pytest.raises(ValueError, match="sequence_parallel requires"):
+        make_predict_fn(vit, cfg, acfg, device="cpu", sequence_parallel=True)
     int8 = DtypePolicy.from_name("int8")  # ported: the bf16 path, int8
     assert int8.quant_int8 and int8.compute_dtype == torch.bfloat16
     assert int8.int8_until == 0 and int8.fast_act

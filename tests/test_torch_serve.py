@@ -206,10 +206,15 @@ def test_map_stride_slices_the_same_batch_exactly(engines):
 
 def test_bucket_sizing_matches_jax(engines):
     port_eng = engines[1]
-    for max_batch in (1, 3, 4, 6, 8, 16):
+    # one device's buckets; under data parallelism too, since the port's
+    # replicas take whole micro-batches round-robin where JAX's engine
+    # splits each over its devices (and rounds its buckets to their count)
+    for max_batch, n_dev in [(1, 1), (3, 1), (4, 1), (6, 1), (8, 1),
+                             (16, 1), (4, 2), (6, 2), (8, 4), (16, 2)]:
         fake = types.SimpleNamespace(max_batch=max_batch, _dp_devices=1,
                                      _shard_batches=False)
-        port = types.SimpleNamespace(max_batch=max_batch)
+        port = types.SimpleNamespace(max_batch=max_batch,
+                                     _replicas=["cpu"] * n_dev)
         got = [psrv.InferenceEngine._bucket(port, n)
                for n in range(1, max_batch + 1)]
         assert got == [jsrv.InferenceEngine._bucket(fake, n)
@@ -408,11 +413,64 @@ def test_engine_anchor_cache(assets, tmp_path, monkeypatch, engines):
                                 {"artifact": "somewhere",
                                  "data_parallel": True},
                                 {"precision": "int8", "data_parallel": True}])
-def test_unported_engine_options_raise_naming_a12(assets, kw):
-    args = dict(_engine_kwargs(*assets), device="cpu")
+def test_unported_engine_options_raise_naming_a12(assets, kw, tmp_path):
+    """Data-parallel serving is ported: over two replicas on ``["cpu",
+    "cpu"]``, live or from an artifact, whole micro-batches go to the
+    replicas round-robin, so every answer equals the one-device engine's
+    bit for bit, alone and in shared batches, and the buckets are one
+    device's. A device list without data_parallel is refused; a max_batch
+    the replicas do not divide is served (JAX's live engine, which splits
+    each micro-batch, refuses it)."""
+    args = dict(_engine_kwargs(*assets))
     args.update(kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        psrv.InferenceEngine(**args)
+    if "artifact" in args:
+        from aaclip_tpu_torch.deploy import export_serving_artifact
+
+        out = str(tmp_path / "artifact")
+        export_serving_artifact(out, model_name="tiny-test", img_size=70,
+                                precision="fp32", adapter_cfg=ACFG, seed=3,
+                                datasets=("MVTec",), batch_sizes=(1, 2, 4),
+                                device="cpu")
+        args = dict(artifact=out, max_batch=4, data_parallel=True)
+    one = psrv.InferenceEngine(**{**args, "data_parallel": False},
+                               device="cpu")
+    two = psrv.InferenceEngine(**args, device=["cpu", "cpu"])
+    try:
+        assert len(two._replicas) == 2
+        imgs = _images(21, 3)
+        want = [one.submit(im, "MVTec", "bottle") for im in imgs]
+        got = [two.submit(im, "MVTec", "bottle") for im in imgs]
+        results = [None] * 3
+
+        def worker(i):
+            results[i] = two.submit(imgs[i], "MVTec", "bottle")
+
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+        for (wm, ws), (gm, gs), (cm, cs) in zip(want, got, results):
+            np.testing.assert_array_equal(gm, wm)
+            np.testing.assert_array_equal(cm, wm)
+            assert gs == ws and cs == ws
+        assert [two._bucket(n) for n in (1, 2, 3, 4)] == [1, 2, 4, 4]
+    finally:
+        one.shutdown()
+        two.shutdown()
+    with pytest.raises(ValueError, match="needs data_parallel"):
+        psrv.InferenceEngine(**{**args, "data_parallel": False},
+                             device=["cpu", "cpu"])
+    if "artifact" not in args:
+        three = psrv.InferenceEngine(**{**args, "max_batch": 3},
+                                     device=["cpu", "cpu"])
+        try:
+            m, s = three.submit(imgs[0], "MVTec", "bottle")
+            np.testing.assert_array_equal(m, want[0][0])
+            assert s == want[0][1]
+        finally:
+            three.shutdown()
 
 
 @pytest.mark.parametrize("flags", [["--data_parallel"],
@@ -421,8 +479,10 @@ def test_unported_engine_options_raise_naming_a12(assets, kw):
                                    ["--precision", "int8",
                                     "--data_parallel"]])
 def test_unported_cli_flags_raise_naming_a12(flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        psrv.parse_args(flags)
+    """``--data_parallel`` is ported: it parses with every mode, as in
+    JAX's CLI."""
+    args = psrv.parse_args(flags)
+    assert args.data_parallel is True
 
 
 @pytest.mark.parametrize("flags,want", [

@@ -371,12 +371,14 @@ def test_stage1_bf16_step_matches_jax(case):
 def test_stage1_rejects_what_is_not_ported(case):
     ad = case.adapter()
     opt = optim.make_text_optimizer(ad.parameters())
-    for kwargs in (dict(mesh=object()), dict(sequence_parallel=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-            make_stage1_step(case.text, case.cfg, case.acfg, opt,
-                             case.tokens, device="cpu", **kwargs)
-        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-            stage1_features_fn(case.vit, case.cfg, device="cpu", **kwargs)
+    # meshes are ported (tests/test_torch_parallel_*.py); sequence
+    # parallelism without a model axis is refused, as in JAX
+    with pytest.raises(ValueError, match="sequence_parallel requires"):
+        make_stage1_step(case.text, case.cfg, case.acfg, opt, case.tokens,
+                         device="cpu", sequence_parallel=True)
+    with pytest.raises(ValueError, match="sequence_parallel requires"):
+        stage1_features_fn(case.vit, case.cfg, device="cpu",
+                           sequence_parallel=True)
     # selective remat steps
     step = make_stage1_step(case.text, case.cfg, case.acfg, opt, case.tokens,
                             remat="selective", device="cpu")

@@ -512,10 +512,11 @@ def test_stage2_step_rejects_what_is_not_ported():
     vit = params_from_jax(case.visual, cfg, device="cpu")
     ad = adapter_from_jax(case.jad, cfg, acfg, device="cpu")
     opt = optim.make_image_optimizer(ad.parameters())
-    for kwargs in (dict(mesh=object()), dict(sequence_parallel=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-            make_stage2_step(vit, cfg, acfg, opt, case.table, device="cpu",
-                             **kwargs)
+    # meshes are ported (tests/test_torch_parallel_*.py); sequence
+    # parallelism without a model axis is refused, as in JAX
+    with pytest.raises(ValueError, match="sequence_parallel requires"):
+        make_stage2_step(vit, cfg, acfg, opt, case.table, device="cpu",
+                         sequence_parallel=True)
     with pytest.raises(ValueError, match="grad_accum"):
         make_stage2_step(vit, cfg, acfg, opt, case.table, device="cpu",
                          grad_accum=0)

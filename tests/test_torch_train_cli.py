@@ -221,16 +221,39 @@ def test_evaluations_of_both_runs_agree(runs):
 
 
 @pytest.mark.parametrize("flags,label", [
-    (["--data_parallel"], "ROADMAP A12"),
-    (["--tensor_parallel", "2"], "ROADMAP A12"),
-    (["--sequence_parallel"], "ROADMAP A12"),
     (["--pipeline_parallel", "2"], "ROADMAP A12"),
     (["--pp_microbatches", "4"], "ROADMAP A12"),
+    (["--data_parallel", "--pipeline_parallel", "2"], "ROADMAP A12"),
     (["--ckpt_backend", "orbax"], "ROADMAP A6"),
 ])
 def test_unported_flags_raise_naming_their_item(flags, label):
     with pytest.raises(NotImplementedError, match=label):
         cli.parse_args(flags)
+
+
+@pytest.mark.parametrize("flags,refusal", [
+    # JAX's rules (train.py:193-197; steps.py's sequence_parallel check)
+    (["--sequence_parallel"], "requires --tensor_parallel"),
+    (["--data_parallel", "--sequence_parallel"],
+     "requires --tensor_parallel"),
+    (["--cache_device", "--device_augment", "--data_parallel"],
+     "--cache_device assembles single-device batches"),
+    (["--cache_device", "--device_augment", "--tensor_parallel", "2"],
+     "--cache_device assembles single-device batches"),
+    # ported: these parse
+    (["--data_parallel"], None),
+    (["--tensor_parallel", "2"], None),
+    (["--tensor_parallel", "2", "--sequence_parallel"], None),
+    (["--data_parallel", "--grad_accum", "2"], None),
+])
+def test_parallel_flags_follow_jax_rules(flags, refusal, capsys):
+    if refusal is None:
+        args = cli.parse_args(flags)
+        assert args.data_parallel == ("--data_parallel" in flags)
+        return
+    with pytest.raises(SystemExit):
+        cli.parse_args(flags)
+    assert refusal in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("flags,key,value", [
