@@ -17,8 +17,8 @@ against the fused block.
         [--remat full|selective|off]
     python -m aaclip_tpu_torch.bench --mode block [--batch_size 32]
     python -m aaclip_tpu_torch.bench --mode serve [--batch_size 8] \
-        [--clients 8 | --open_loop RPS] [--map_stride S] [--steps SECONDS] \
-        [--artifact DIR]
+        [--clients 8 --steps REQUESTS | --open_loop RPS --steps SECONDS] \
+        [--map_stride S] [--artifact DIR]
 
 Prints ONE JSON line in the format of the repo's ``bench.py``:
   {"metric": ..., "value": N, "unit": ..., "vs_baseline": N}
@@ -26,11 +26,12 @@ Prints ONE JSON line in the format of the repo's ``bench.py``:
 serve`` adds the served and failed counts and the latency percentiles.)
 The unit names the card and its power limit. Timed with CUDA events
 around ``--steps`` calls after ``--warmup`` calls; ``--mode serve`` runs
-the serving engine (``serve/server.py``) under load for ``--steps``
-seconds of wall time: ``--clients`` closed-loop threads, each submitting
-its next request when its last one returns, or ``--open_loop RPS``
-arrivals at a fixed rate, each its own thread, whose rejections (the
-engine's admission control) are counted apart; ``--artifact DIR`` serves
+the serving engine (``serve/server.py``) under load, as JAX's bench does:
+``--clients`` closed-loop threads, each submitting its next request when
+its last one returns, ``--steps`` requests each, or ``--open_loop RPS``
+arrivals at a fixed rate for ``--steps`` seconds of wall time, each its
+own thread, whose rejections (the engine's admission control) are counted
+apart; ``--artifact DIR`` serves
 an exported artifact (``deploy.py``) instead of building the model. The
 infer mode takes uint8 images under bf16 and int8 (JAX's bench), and
 ``--data_parallel`` (infer only) runs it over ``torchrun``'s ranks, one
@@ -69,9 +70,10 @@ _PROFILE_CLASSES = (
      ("attn_fwd_wgmma", "attn_bf16_kernel", "attn_f32_kernel",
       "attn_fwd_3pass", "attn_fwd_6pass", "split3_kernel", "split2_kernel")),
     ("attention backward kernel", ("attn_bwd_",)),
-    ("fused-block kernels (ln_linear, linear_residual, mlp_fused)",
+    ("fused-block kernels (ln_linear, linear_residual, mlp_fused; the "
+     "3-pass splits)",
      ("gemm_wgmma", "row_stats_kernel", "gemm_f32_kernel",
-      "mlp_f32_kernel")),
+      "mlp_f32_kernel", "gemm_3pass_wgmma", "split_kernel")),
     ("GEMM (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass")),
 )
 
@@ -275,8 +277,8 @@ def bench_serve(args, dev):
     weights from the seeded init; ``AACLIP_ANCHOR_CACHE`` names an anchor
     cache) or on an exported artifact (``--artifact``, its first bundled
     dataset), pre-decoded random uint8 images, one warm-up request; the
-    JAX package's ``bench_serve`` with ``--steps`` as seconds in both
-    loops."""
+    JAX package's ``bench_serve``: ``--steps`` is the requests of each
+    closed-loop client and the seconds of the open loop's arrivals."""
     import os
 
     import numpy as np
@@ -343,17 +345,17 @@ def bench_serve(args, dev):
 
 def _serve_closed_loop(args, engine, imgs, ds, classes, overloaded):
     """``--clients`` threads, each submitting again when its result
-    returns, until ``--steps`` seconds have passed."""
+    returns, ``--steps`` requests each (JAX's ``bench.py``
+    ``_serve_closed_loop``)."""
     import threading
 
-    duration = max(1.0, float(args.steps))
+    per_client = max(1, int(args.steps))
     counts = {"ok": 0, "rejected": 0, "err": 0}
     lock = threading.Lock()
     t0 = time.perf_counter()
 
     def client(i):
-        k = 0
-        while time.perf_counter() - t0 < duration:
+        for k in range(per_client):
             try:
                 engine.submit(imgs[i], ds, classes[k % len(classes)],
                               timeout=600, map_stride=args.map_stride)
@@ -364,7 +366,6 @@ def _serve_closed_loop(args, engine, imgs, ds, classes, overloaded):
                 outcome = "err"
             with lock:
                 counts[outcome] += 1
-            k += 1
 
     threads = [threading.Thread(target=client, args=(i,))
                for i in range(args.clients)]
@@ -374,7 +375,7 @@ def _serve_closed_loop(args, engine, imgs, ds, classes, overloaded):
         t.join()
     elapsed = time.perf_counter() - t0
     return counts, elapsed, (f"{args.clients} closed-loop clients x "
-                             f"{duration:g}s")
+                             f"{per_client} requests")
 
 
 def _serve_open_loop(args, engine, imgs, ds, classes, overloaded):
@@ -460,7 +461,9 @@ def main(argv=None, *, device=None) -> None:
                         help="int8 = the trunk's big products int8 x int8 "
                              "-> int32 (inference only)")
     parser.add_argument("--steps", type=int, default=10,
-                        help="timed calls; serve: seconds of load")
+                        help="timed calls; serve: requests per "
+                             "closed-loop client, or seconds of open-loop "
+                             "arrivals")
     parser.add_argument("--bf16_until", type=int, default=None,
                         help="override the policy's staged trunk depth "
                              "(leading vision blocks at single-pass bf16 "

@@ -27,6 +27,7 @@ import numpy as np
 
 from aaclip_tpu_torch.data import transforms as T
 from aaclip_tpu_torch.data.registry import CLASS_NAMES, DATASETS, DatasetSpec
+from aaclip_tpu_torch.parallel.sharding import pad_batch_to_devices
 
 
 def metadata_root() -> str:
@@ -156,13 +157,28 @@ class BatchLoader:
     ``batch_size``; the final ragged batch is padded by repeating its last
     sample and reports ``n_valid``. ``shuffle`` permutes each epoch from
     ``SeedSequence([seed, epoch])``; ``host_id`` / ``num_hosts`` shard the
-    indices. ``epoch`` advances after each pass, also one left early."""
+    indices. ``epoch`` advances after each pass, also one left early.
+
+    ``deal_batches=True`` deals each batch instead (the port's CLIs under
+    ``torchrun``, where ``batch_size`` is the global batch): the epoch's
+    batches are one host's, each is padded to a multiple of ``num_hosts``
+    with invalid rows (``parallel/sharding.py::pad_batch_to_devices``,
+    JAX's padding), and this host takes rows ``host_id``, ``host_id +
+    num_hosts``, ... of it (``sharding.shard_rows``'s), ``ceil(batch_size
+    / num_hosts)`` a batch. It loads only its valid ones (one padding row
+    where it has none) and repeats the last, so the hosts together decode
+    each sample once."""
 
     def __init__(self, dataset, batch_size: int, *, shuffle: bool = False,
                  seed: int = 111, num_workers: int = 4, prefetch: int = 2,
-                 host_id: int = 0, num_hosts: int = 1):
+                 host_id: int = 0, num_hosts: int = 1,
+                 deal_batches: bool = False):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.deal_batches = deal_batches
+        # the rows a batch of this host holds
+        self.rows = -(-batch_size // num_hosts) if deal_batches \
+            else batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.num_workers = max(1, num_workers)
@@ -182,6 +198,8 @@ class BatchLoader:
             rng = np.random.default_rng(
                 np.random.SeedSequence([self.seed, self.epoch]))
             rng.shuffle(idx)
+        if self.deal_batches:
+            return idx, idx.size
         mine = idx[self.host_id::self.num_hosts]
         n_real = mine.size
         if self.num_hosts > 1:
@@ -191,17 +209,30 @@ class BatchLoader:
         return mine, n_real
 
     def batches(self) -> List[Tuple[np.ndarray, int]]:
-        """The current epoch's (indices, n_valid) per batch, unpadded."""
+        """The current epoch's (indices, n_valid) per batch: unpadded, or
+        under ``deal_batches`` this host's rows of each padded batch."""
         indices, n_real = self.indices()
-        return [(indices[i:i + self.batch_size],
-                 max(0, min(self.batch_size, n_real - i)))
-                for i in range(0, len(indices), self.batch_size)]
+        B = self.batch_size
+        out = [(indices[i:i + B], max(0, min(B, n_real - i)))
+               for i in range(0, len(indices), B)]
+        if not self.deal_batches:
+            return out
+        r, k = self.host_id, self.num_hosts
+        dealt = []
+        for b, n_valid in out:
+            b = np.concatenate([b, np.repeat(b[-1:], B - len(b))])
+            valid = (np.arange(B) < n_valid).astype(np.float32)
+            (b,), valid = pad_batch_to_devices([b], valid, k)
+            n = int(valid[r::k].sum())
+            # rows past the valid ones are loaded once: _assemble repeats
+            dealt.append((b[r::k][:max(n, 1)], n))
+        return dealt
 
     def __len__(self) -> int:
         return -(-self.indices()[0].size // self.batch_size)
 
     def _assemble(self, samples: List[dict], n_valid: int) -> dict:
-        while len(samples) < self.batch_size:
+        while len(samples) < self.rows:
             samples.append(samples[-1])
         return {
             "image": np.stack([s["image"] for s in samples]),

@@ -147,14 +147,21 @@ def make_mb_predict_fn(vit: VisionTransformer, cfg: CLIPConfig,
         return pix, s
 
     @torch.inference_mode()
+    def local(image_adapter, images, anchors, M, bank):
+        """The rank's rows: their maps and scores, not gathered
+        (``make_predict_fn``'s ``local``)."""
+        return forward(features.bind(image_adapter),
+                       torch.as_tensor(images).to(dev),
+                       torch.as_tensor(anchors).to(dev),
+                       torch.as_tensor(M, device=dev), bank)
+
+    @torch.inference_mode()
     def predict(image_adapter, images, anchors, M, bank):
-        pix, s = forward(features.bind(image_adapter),
-                         features.shard(images),
-                         shard_anchors(features, anchors),
-                         torch.as_tensor(M, device=dev), bank)
+        pix, s = local(image_adapter, features.shard(images),
+                       shard_anchors(features, anchors), M, bank)
         return features.gather(pix), features.gather(s)
 
-    predict.features_fn = features
+    predict.features_fn, predict.local = features, local
     predict.device, predict.mesh = dev, features.mesh
     # the all-arguments form (JAX's ``predict.raw``), which deploy.py
     # exports for the bank graphs: ``raw(visual, adapter, images, anchors,

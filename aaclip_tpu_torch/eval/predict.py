@@ -102,8 +102,9 @@ def make_features_fn(vit: VisionTransformer, cfg: CLIPConfig,
 
     ``mesh`` (``parallel/sharding.py``) runs the rank's part of a global
     batch: ``features`` (and the predictors built on it) take the global
-    batch, run this rank's rows on ``mesh.device`` and all-gather the
-    outputs over the data axis in global order; ``features`` pads a batch
+    batch, run this rank's rows (``sharding.shard_rows``: rows r, r + dp,
+    ...) on ``mesh.device`` and all-gather the outputs over the data axis
+    back in global order; ``features`` pads a batch
     the data size does not divide (the last row repeated) and trims the
     result, since the memory bank's support batches are ragged, while the
     predictors refuse one, as JAX's do. ``features.shard`` and
@@ -280,7 +281,9 @@ def make_predict_fn(vit: VisionTransformer, cfg: CLIPConfig,
     ``mesh`` and ``sequence_parallel`` as ``make_features_fn``'s: the
     predictor takes the global batch (which the data size must divide) and
     per-sample anchors for all of it, runs the rank's rows and returns the
-    global map and scores.
+    global map and scores: ``features.gather`` of ``predict.local`` on
+    ``features.shard`` of the batch. ``predict.local`` alone takes the
+    rank's rows as the evaluation CLI's loader reads them.
     """
     features = make_features_fn(
         vit, cfg, acfg, img_size=img_size, policy=policy, attn_fn=attn_fn,
@@ -298,14 +301,22 @@ def make_predict_fn(vit: VisionTransformer, cfg: CLIPConfig,
                 image_score(det, anchors))
 
     @torch.inference_mode()
+    def local(image_adapter, images, anchors, M):
+        """The rank's rows (``sharding.shard_rows``'s, as the evaluation
+        CLI's loader reads them): their maps and scores, not gathered;
+        one class's [D, 2] anchors or the rows' [b, D, 2]."""
+        return forward(features.bind(image_adapter),
+                       torch.as_tensor(images).to(dev),
+                       torch.as_tensor(anchors).to(dev),
+                       torch.as_tensor(M, device=dev))
+
+    @torch.inference_mode()
     def predict(image_adapter, images, anchors, M):
-        pix, score = forward(features.bind(image_adapter),
-                             features.shard(images),
-                             shard_anchors(features, anchors),
-                             torch.as_tensor(M, device=dev))
+        pix, score = local(image_adapter, features.shard(images),
+                           shard_anchors(features, anchors), M)
         return features.gather(pix), features.gather(score)
 
-    predict.device, predict.mesh = dev, features.mesh
+    predict.device, predict.mesh, predict.local = dev, features.mesh, local
     predict.raw = features.make_raw(forward)
     predict.visual = features.visual
     return predict
@@ -321,27 +332,65 @@ def run_class_predictions(predict_fn, image_adapter, loader, anchors,
 
     ``M`` and the anchors go to the predictor's device once; the
     predictions stay there until the class ends, so copying them back
-    does not wait for each batch. A predictor on a mesh (``predict_fn.
-    mesh``) takes the host batch and uploads its rank's rows itself."""
+    does not wait for each batch. On a mesh (``predict_fn.mesh``) the
+    loader deals each global batch (``BatchLoader(deal_batches=True)``:
+    the rank's rows, padded to as many on every rank), ``predict_fn.local``
+    runs them, and the class's maps, masks, labels, scores and file names
+    are gathered over the data axis in global order (``sharding.
+    gather_rows``) before the padding goes: every rank returns the whole
+    class."""
     dev = predict_fn.device
-    on_mesh = getattr(predict_fn, "mesh", None) is not None
+    mesh = getattr(predict_fn, "mesh", None)
+    call = predict_fn if mesh is None else predict_fn.local
     M = torch.from_numpy(fused_postproc_matrix(grid, img_size, domain)).to(dev)
     anchors = torch.as_tensor(anchors).to(dev)
-    masks, labels, pix_preds, img_preds, files = [], [], [], [], []
+    masks, labels, pix_preds, img_preds, files, keep = [], [], [], [], [], []
     for batch in loader:
-        images = torch.from_numpy(batch["image"])
-        pix, score = predict_fn(image_adapter,
-                                images if on_mesh else images.to(dev),
-                                anchors, M)
-        n = batch["n_valid"]
+        pix, score = call(image_adapter,
+                          torch.from_numpy(batch["image"]).to(dev), anchors,
+                          M)
+        # on a mesh every row stays until the gather, which needs as many
+        # on each rank; ``keep`` marks the valid ones
+        n = len(batch["label"]) if mesh is not None else batch["n_valid"]
+        keep.append(np.arange(n) < batch["n_valid"])
         masks.append(batch["mask"][:n])
         labels.append(batch["label"][:n])
         pix_preds.append(pix[:n])
         img_preds.append(score[:n])
         files.extend(batch["file_name"][:n])
-    return (np.concatenate(masks), np.concatenate(labels),
-            torch.cat(pix_preds).cpu().numpy(),
-            torch.cat(img_preds).cpu().numpy(), files)
+    masks, labels, keep = (np.concatenate(a) for a in (masks, labels, keep))
+    pix, score = torch.cat(pix_preds), torch.cat(img_preds)
+    if mesh is not None and mesh.dp > 1:
+        masks, labels, keep, pix, score, files = _gather_class(
+            mesh, masks, labels, keep, pix, score, files)
+    if not keep.all():
+        rows = np.flatnonzero(keep)
+        masks, labels, files = masks[rows], labels[rows], \
+            [files[i] for i in rows]
+        pix, score = (t[torch.from_numpy(rows).to(dev)] for t in (pix, score))
+    return masks, labels, pix.cpu().numpy(), score.cpu().numpy(), files
+
+
+def _gather_class(mesh, masks, labels, keep, pix, score, files):
+    """One class's rows of every data rank (each holds as many: its share
+    of each padded global batch), in global order."""
+    import torch.distributed as dist
+
+    from aaclip_tpu_torch.parallel import sharding as sh
+
+    per_rank = [None] * mesh.dp
+    dist.all_gather_object(per_rank, files, group=mesh.data)
+    files = [per_rank[i % mesh.dp][i // mesh.dp]
+             for i in range(mesh.dp * len(files))]
+    dev = pix.device
+
+    def gather(a):
+        return sh.gather_rows(torch.as_tensor(a, device=dev), mesh)
+
+    masks, labels, keep = (gather(a).cpu().numpy() for a in
+                           (masks, labels, keep.astype(np.uint8)))
+    return masks, labels, keep.astype(bool), gather(pix), gather(score), \
+        files
 
 
 def make_anchor_encoder(text: TextTransformer, cfg: CLIPConfig,

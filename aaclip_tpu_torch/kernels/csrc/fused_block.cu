@@ -24,10 +24,13 @@
 // 735.5 GFLOP against 196.4 MB: all far above the card's ~295 bf16 FLOP per
 // byte of HBM, so bound by the tensor cores.
 //
-// Routes. bf16, the fast policy, runs the TMA + wgmma engine below; fp32,
-// the parity policy, keeps the first port's FMA kernels with no TF32
-// (gemm_f32_kernel, and mlp_f32_kernel at D 128 and 1024, which keeps the
-// hidden on chip).
+// Routes, by the entry points' `mode`. bf16 (kModeBf16), the fast policy,
+// runs the TMA + wgmma engine below; fp32 under precision "high"
+// (kMode3Pass, fp32_high) runs the same engine's 3-pass mode on bf16
+// planes of its fp32 operands (gemm_3pass_wgmma, further down); fp32 under
+// "highest" (kModeF32), the parity policy, keeps the first port's FMA
+// kernels with no TF32 (gemm_f32_kernel, and mlp_f32_kernel at D 128 and
+// 1024, which keeps the hidden on chip).
 //
 // The bf16 engine is one GEMM, out[R, N] = epilogue(prologue(A)[R, K] .
 // W[N, K]^T), and a row-statistics kernel:
@@ -73,10 +76,11 @@
 //    3.35 TB/s, under ~0.74 ms of tensor-core time. The TPU kernel and the
 //    plain version round the hidden to bf16 at exactly that point, so the
 //    numerics stay the same.
-// Widths: bf16 K a multiple of 64 (at most kMaxK under the LN prologue,
-// whose statistics hold a row in registers), N a multiple of 128; fp32 K a
-// multiple of 16 up to kMaxK, N of 64, the MLP at D 128 and 1024 with the
-// hidden a multiple of 64. Anything else returns cudaErrorInvalidValue.
+// Widths: bf16 and 3-pass K a multiple of 64 (at most kMaxK under the LN
+// prologue, whose statistics hold a row in registers), N a multiple of
+// 128; fp32 K a multiple of 16 up to kMaxK, N of 64, the MLP at D 128 and
+// 1024 with the hidden a multiple of 64. Anything else returns
+// cudaErrorInvalidValue.
 
 #include <math.h>
 
@@ -96,6 +100,9 @@ constexpr int kMaxK = 1024;  // the LayerNorm statistics hold a row in registers
 
 // activation codes, as ops/fused_block.py passes them
 constexpr int kGeluErf = 0, kGeluTanh = 1, kQuickGelu = 2;
+
+// the entry points' routes, as ops/fused_block.py passes them (_MODES)
+constexpr int kModeF32 = 0, kModeBf16 = 1, kMode3Pass = 2;
 
 // The activation in fp32, in the order torch's elementwise kernels
 // evaluate it (the plain version's F.gelu and x * sigmoid(1.702 x)).
@@ -495,6 +502,279 @@ gemm_wgmma(const __grid_constant__ CUtensorMap ta,
 }
 
 // ---------------------------------------------------------------------------
+// fp32 under precision "high" (fp32_high): the 3-pass mode, what the TPU
+// kernels' _kdot("high") computes (flash_attention.py:49): each fp32
+// operand v as its bf16 planes hi = bf16(v), lo = bf16(v - hi)
+// (mma_common.cuh's split_pack; plane p of an [rows, cols] operand at
+// p * rows * cols), and each product hi.hi + hi.lo + lo.hi in fp32, with
+// fp32 epilogues and fp32 outputs. Bound by the tensor cores three times
+// over: at the predict's batch 8 (10,960 rows) ln_linear to 3072 columns
+// is 206.9 GFLOP, ~0.209 ms at 989 TFLOP/s, against ~192 MB of fp32 moved
+// (~0.057 ms at 3.35 TB/s).
+//  - split_kernel writes the planes of W (every call: 12.6 MB of them at
+//    the QKV shape) and of the plain prologue's A (linear_residual's y).
+//  - ln_split_kernel is the LN prologue: one warp per row, the fp32
+//    statistics (row_stats), y = (x - mean) * rstd * gamma + beta in fp32
+//    rounded step by step as the plain version's tensor ops round it, and
+//    y's planes written out; the GEMM then reads A as planes like any
+//    other operand.
+//  - gemm_3pass_wgmma is gemm_wgmma's persistent blocks, producer and ring
+//    with four tiles a stage (A hi, A lo, W hi, W lo: 64 KB at BN 128, so
+//    kHighStages 3 stages fit). Each consumer runs a k-tile's three
+//    products smallest first (hi.lo, lo.hi, hi.hi, hopper_common.cuh's
+//    pass order) into a fresh fp32 accumulator and adds that to the
+//    tile's running sum with round-to-nearest: the tensor cores truncate
+//    a chain's sum at each step, a one-sided error that would grow with K
+//    (4096 in proj) in one long chain, where a k-tile's chain of 12 steps
+//    truncates at its own, far smaller, size.
+//  - The epilogues run in fp32 in the plain versions' order: acc + b
+//    (ln_linear), res + (acc + b) (linear_residual), (x + acc) + b (proj),
+//    and fc's act(acc + b) written straight out as the hidden's planes,
+//    the split of the fp32 hidden the plain version hands proj, so proj
+//    needs no split of its own.
+// mlp_fused is four launches (the weights' split, the LN prologue, fc,
+// proj), ln_linear three, linear_residual two (one split of W and y).
+// Two runs are bit-equal (no atomics, no split-K).
+
+constexpr int kHighStages = 3;
+
+struct HighSmem {
+  static constexpr int kA = kBM * kRowBytes;  // one plane's A tile
+  static constexpr int kW = kBN * kRowBytes;  // one plane's W tile
+  static constexpr int kStage = 2 * kA + 2 * kW;
+  static constexpr int kBars = kHighStages * kStage;
+  static constexpr int bytes = kSwizzleAtom + kBars + 2 * 8 * kHighStages;
+};
+
+struct HighArgs {
+  const float* bias;  // [N]
+  const float* res;   // [R, N]: the residual, or proj's x
+  void* out;          // [R, N] fp32, or fc's hidden planes [2, R, N] bf16
+  int R, N, K, act;
+};
+
+// Up to two fp32 arrays of n values (n a multiple of 4) as their planes
+// hi and lo at dst and dst + n: one job per blockIdx.y.
+struct SplitJob {
+  const float* src;
+  bf16* dst;
+  int64_t n;
+};
+
+constexpr int kSplitThreads = 256;
+
+__global__ void __launch_bounds__(kSplitThreads)
+split_kernel(const SplitJob a, const SplitJob b) {
+  const SplitJob j = blockIdx.y ? b : a;
+  const int64_t n4 = j.n / 4;
+  const float4* src = reinterpret_cast<const float4*>(j.src);
+  uint2* hi = reinterpret_cast<uint2*>(j.dst);
+  uint2* lo = reinterpret_cast<uint2*>(j.dst + j.n);
+  for (int64_t i = (int64_t)blockIdx.x * kSplitThreads + threadIdx.x; i < n4;
+       i += (int64_t)gridDim.x * kSplitThreads) {
+    const float4 v = src[i];
+    uint2 h, l;
+    split_pack(v.x, v.y, h.x, l.x);
+    split_pack(v.z, v.w, h.y, l.y);
+    hi[i] = h;
+    lo[i] = l;
+  }
+}
+
+// The LN prologue of the 3-pass mode: row `row` of x [R, K] normalised
+// and written as its planes [2, R, K].
+__global__ void __launch_bounds__(kStatsRows * 32)
+ln_split_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
+                const float* __restrict__ beta, bf16* __restrict__ planes,
+                int R, int K) {
+  const int row = blockIdx.x * kStatsRows + threadIdx.x / 32;
+  if (row >= R) return;  // the whole warp
+  const float* xr = x + (int64_t)row * K;
+  float mean, rstd;
+  row_stats(xr, K, mean, rstd);
+  bf16* hi = planes + (int64_t)row * K;
+  bf16* lo = hi + (int64_t)R * K;
+  for (int c = (threadIdx.x & 31) * 4; c < K; c += 32 * 4) {
+    float v[4], g[4], b[4], y[4];
+    Vec<float>::load(xr + c, v);
+    Vec<float>::load(gamma + c, g);
+    Vec<float>::load(beta + c, b);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)  // ((x - mean) * rstd) * gamma + beta
+      y[i] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v[i], mean), rstd),
+                                 g[i]),
+                       b[i]);
+    uint2 h, l;
+    split_pack(y[0], y[1], h.x, l.x);
+    split_pack(y[2], y[3], h.y, l.y);
+    *reinterpret_cast<uint2*>(hi + c) = h;
+    *reinterpret_cast<uint2*>(lo + c) = l;
+  }
+}
+
+// The 3-pass epilogue of one consumer thread, laid out as store_tile's.
+template <int EPI, int ACT>
+__device__ __forceinline__ void store_tile_high(const float (&acc)[kBN / 2],
+                                                const HighArgs& p, int r0,
+                                                int n0, int t) {
+  constexpr bool kRes = EPI == kEpiResidual || EPI == kEpiProj;
+  const bool in[2] = {r0 < p.R, r0 + 8 < p.R};
+  const int64_t o0 = (int64_t)r0 * p.N + n0 + 2 * t;
+  const int64_t o[2] = {o0, o0 + 8 * (int64_t)p.N};
+  const int64_t plane = (int64_t)p.R * p.N;
+#pragma unroll
+  for (int j0 = 0; j0 < kBN / 8; j0 += kEpiCols) {
+    float2 b[kEpiCols], r[kEpiCols][2];
+#pragma unroll
+    for (int j = 0; j < kEpiCols; ++j) {
+      const int c = 8 * (j0 + j);
+      b[j] = __ldg(reinterpret_cast<const float2*>(p.bias + n0 + 2 * t + c));
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        r[j][h] = kRes && in[h]
+                      ? __ldg(reinterpret_cast<const float2*>(p.res + o[h] +
+                                                              c))
+                      : make_float2(0.f, 0.f);
+    }
+#pragma unroll
+    for (int j = 0; j < kEpiCols; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float a0 = acc[4 * (j0 + j) + 2 * h];
+        const float a1 = acc[4 * (j0 + j) + 2 * h + 1];
+        float v0, v1;
+        if (EPI == kEpiProj) {
+          v0 = (r[j][h].x + a0) + b[j].x;
+          v1 = (r[j][h].y + a1) + b[j].y;
+        } else {
+          v0 = a0 + b[j].x;
+          v1 = a1 + b[j].y;
+          if (EPI == kEpiAct) {
+            v0 = activate<ACT>(v0);
+            v1 = activate<ACT>(v1);
+          } else if (EPI == kEpiResidual) {
+            v0 = r[j][h].x + v0;
+            v1 = r[j][h].y + v1;
+          }
+        }
+        if (!in[h]) continue;
+        const int64_t at = o[h] + 8 * (j0 + j);
+        if (EPI == kEpiAct) {
+          uint32_t hi, lo;
+          split_pack(v0, v1, hi, lo);
+          bf16* planes = static_cast<bf16*>(p.out);
+          *reinterpret_cast<uint32_t*>(planes + at) = hi;
+          *reinterpret_cast<uint32_t*>(planes + plane + at) = lo;
+        } else {
+          *reinterpret_cast<float2*>(static_cast<float*>(p.out) + at) =
+              make_float2(v0, v1);
+        }
+      }
+    }
+  }
+}
+
+// out [R, N] = epilogue(A . W^T) in three passes, A and W as their planes
+// [2, R, K] and [2, N, K] (tensor maps of depth 2), tiles of 128 x kBN.
+template <int EPI>
+__global__ void __launch_bounds__(kTmaThreads, 1)
+gemm_3pass_wgmma(const __grid_constant__ CUtensorMap ta,
+                 const __grid_constant__ CUtensorMap tw, const HighArgs p) {
+  using S = HighSmem;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_atom(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::kBars);
+  uint64_t* empty = full + kHighStages;
+
+  const int tiles_n = p.N / kBN;
+  const int n_tiles = (p.R + kBM - 1) / kBM * tiles_n;
+  const int n_k = p.K / kBK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kHighStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2 * 128);  // every consumer thread
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {  // producer
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 2 * 128) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        const int m0 = tile / tiles_n * kBM, n0 = tile % tiles_n * kBN;
+        for (int kt = 0; kt < n_k; ++kt, ++it) {
+          const int st = it % kHighStages;
+          if (it >= kHighStages)
+            mbar_wait(&empty[st], (it / kHighStages - 1) & 1);
+          uint8_t* s = smem + st * S::kStage;
+          mbar_arrive_expect_tx(&full[st], S::kStage);
+#pragma unroll
+          for (int pl = 0; pl < 2; ++pl) {
+            tma_load_3d(s + pl * S::kA, &ta, &full[st], kt * kBK, m0, pl);
+            tma_load_3d(s + 2 * S::kA + pl * S::kW, &tw, &full[st],
+                        kt * kBK, n0, pl);
+          }
+        }
+      }
+    }
+  } else {  // consumers: 64 rows each
+    setmaxnreg_inc<kConsumerRegs>();
+    const int warp = (threadIdx.x % 128) / 32;
+    const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+    const int wrow = wg * 64 + warp * 16;
+    float acc[kBN / 2], part[kBN / 2];
+    int it = 0;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const int m0 = tile / tiles_n * kBM, n0 = tile % tiles_n * kBN;
+#pragma unroll
+      for (int i = 0; i < kBN / 2; ++i) acc[i] = 0.f;
+      for (int kt = 0; kt < n_k; ++kt, ++it) {
+        const int st = it % kHighStages;
+        mbar_wait(&full[st], (it / kHighStages) & 1);
+        const uint8_t* s = smem + st * S::kStage;
+        const uint64_t a_hi = sw128_desc(s + wg * 64 * kRowBytes);
+        const uint64_t a_lo = sw128_desc(s + S::kA + wg * 64 * kRowBytes);
+        const uint64_t w_hi = sw128_desc(s + 2 * S::kA);
+        const uint64_t w_lo = sw128_desc(s + 2 * S::kA + S::kW);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < kBK / 16; ++ks)  // hi.lo starts the chain
+          wgmma_ss_n128(part, desc_plus(a_hi, 32 * ks),
+                        desc_plus(w_lo, 32 * ks), ks);
+#pragma unroll
+        for (int ks = 0; ks < kBK / 16; ++ks)
+          wgmma_ss_n128(part, desc_plus(a_lo, 32 * ks),
+                        desc_plus(w_hi, 32 * ks), 1);
+#pragma unroll
+        for (int ks = 0; ks < kBK / 16; ++ks)
+          wgmma_ss_n128(part, desc_plus(a_hi, 32 * ks),
+                        desc_plus(w_hi, 32 * ks), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operand(part);
+        mbar_arrive(&empty[st]);
+#pragma unroll
+        for (int i = 0; i < kBN / 2; ++i) acc[i] += part[i];
+      }
+      const int r0 = m0 + wrow + g;  // this thread's rows r0 and r0 + 8
+      if constexpr (EPI == kEpiAct) {
+        if (p.act == kGeluErf)
+          store_tile_high<EPI, kGeluErf>(acc, p, r0, n0, t);
+        else if (p.act == kGeluTanh)
+          store_tile_high<EPI, kGeluTanh>(acc, p, r0, n0, t);
+        else
+          store_tile_high<EPI, kQuickGelu>(acc, p, r0, n0, t);
+      } else {
+        store_tile_high<EPI, 0>(acc, p, r0, n0, t);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // fp32, on FMA (the first port's kernels). ln_linear and linear_residual: a
 // block owns 64 x 64 outputs, each thread a 4 x 4 block of them; K walks in
 // tiles of 16 staged transposed in shared memory.
@@ -773,6 +1053,64 @@ int launch_tma_gemm(const void* a, const void* w, const GemmArgs& p,
              : run_gemm<kBN, LN, EPI>(ta, w, p, st);
 }
 
+// The planes of one or two fp32 arrays (src1 null for one), each of n
+// values, a multiple of 4.
+int launch_split(const void* src0, void* dst0, int64_t n0, const void* src1,
+                 void* dst1, int64_t n1, cudaStream_t st) {
+  const SplitJob a{static_cast<const float*>(src0), static_cast<bf16*>(dst0),
+                   n0};
+  const SplitJob b = src1 ? SplitJob{static_cast<const float*>(src1),
+                                     static_cast<bf16*>(dst1), n1}
+                          : a;
+  const int64_t most = (src1 && n1 > n0 ? n1 : n0) / 4;
+  const int64_t blocks = (most + kSplitThreads - 1) / kSplitThreads;
+  const dim3 grid(static_cast<unsigned>(blocks < 4096 ? blocks : 4096),
+                  src1 ? 2 : 1);
+  split_kernel<<<grid, kSplitThreads, 0, st>>>(a, b);
+  note_launch();
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_ln_split(const void* x, const void* gamma, const void* beta,
+                    void* planes, int rows, int k, cudaStream_t st) {
+  ln_split_kernel<<<(rows + kStatsRows - 1) / kStatsRows, kStatsRows * 32, 0,
+                    st>>>(static_cast<const float*>(x),
+                          static_cast<const float*>(gamma),
+                          static_cast<const float*>(beta),
+                          static_cast<bf16*>(planes), rows, k);
+  note_launch();
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The 3-pass GEMM on A's planes [2, p.R, p.K] and W's [2, p.N, p.K].
+template <int EPI>
+int launch_3pass_gemm(const void* a_planes, const void* w_planes,
+                      const HighArgs& p, cudaStream_t st) {
+  if (!tma_shape_ok(false, p.R, p.N, p.K))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap ta, tw;
+  cudaError_t err = make_tile_map(&ta, a_planes, p.K, p.R, 2,
+                                  (uint64_t)p.K * 2,
+                                  (uint64_t)p.R * p.K * 2, kBM);
+  if (err == cudaSuccess)
+    err = make_tile_map(&tw, w_planes, p.K, p.N, 2, (uint64_t)p.K * 2,
+                        (uint64_t)p.N * p.K * 2, kBN);
+  if (err == cudaSuccess)
+    err = smem_attribute_once(
+        reinterpret_cast<const void*>(gemm_3pass_wgmma<EPI>),
+        HighSmem::bytes);
+  int dev = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = (p.R + kBM - 1) / kBM * (p.N / kBN);
+  gemm_3pass_wgmma<EPI><<<tiles < sms ? tiles : sms, kTmaThreads,
+                          HighSmem::bytes, st>>>(ta, tw, p);
+  note_launch();
+  return static_cast<int>(cudaGetLastError());
+}
+
 int gemm_f32_shape_ok(int rows, int n, int k) {
   return rows >= 1 && n >= kFBN && n % kFBN == 0 && k >= kFBK &&
          k % kFBK == 0 && k <= kMaxK && (rows + kFBM - 1) / kFBM <= 65535;
@@ -815,26 +1153,40 @@ int launch_mlp_f32(const void* x, const void* gamma, const void* beta,
 }  // namespace
 
 // Row-major operands of `rows` rows; x and out [rows, k] / [rows, n], w
-// [n, k] (nn.Linear's layout); bias [n], gamma and beta [k]. `use_bf16`
-// selects the route: bf16 (every operand, the vectors too, bf16, as the
-// predictor casts a block's leaves) on the TMA + wgmma engine, whose
+// [n, k] (nn.Linear's layout); bias [n], gamma and beta [k]. `mode`
+// selects the route: kModeBf16 (every operand, the vectors too, bf16, as
+// the predictor casts a block's leaves) on the TMA + wgmma engine, whose
 // tensor maps need every bf16 operand's base 16-byte aligned (the wrappers
-// refuse anything else), or fp32 (every operand fp32) on the FMA kernels.
-// mean and rstd are fp32 [rows] scratch for the bf16 route's statistics
-// (unused, and may be null, in fp32).
+// refuse anything else); kMode3Pass (every operand fp32) on the same
+// engine's 3-pass mode; kModeF32 (every operand fp32) on the FMA kernels.
+// Scratch from the caller, each unused (and may be null) on the other
+// routes: mean and rstd fp32 [rows] for the bf16 route's statistics;
+// a_planes bf16 [2, rows, k] and w_planes bf16 [2, n, k] for the 3-pass
+// planes of the normalised x and of w.
 // Each returns the CUDA error of its launches (0 on success), or
-// cudaErrorInvalidValue for a shape the route does not take.
+// cudaErrorInvalidValue for a shape or mode the routes do not take.
 extern "C" int aaclip_ln_linear(const void* x, const void* w,
                                 const void* bias, const void* gamma,
                                 const void* beta, float* mean, float* rstd,
-                                void* out, int use_bf16, int rows, int n,
-                                int k, void* stream) {
+                                void* a_planes, void* w_planes, void* out,
+                                int mode, int rows, int n, int k,
+                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!use_bf16)
+  if (mode == kModeF32)
     return launch_gemm_f32<true>(x, w, bias, gamma, beta, nullptr, out, rows,
                                  n, k, st);
-  if (!tma_shape_ok(true, rows, n, k))
+  if ((mode != kModeBf16 && mode != kMode3Pass) ||
+      !tma_shape_ok(true, rows, n, k))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (mode == kMode3Pass) {
+    int err = launch_split(w, w_planes, (int64_t)n * k, nullptr, nullptr, 0,
+                           st);
+    if (err == 0) err = launch_ln_split(x, gamma, beta, a_planes, rows, k, st);
+    if (err != 0) return err;
+    const HighArgs p{static_cast<const float*>(bias), nullptr, out, rows, n,
+                     k, 0};
+    return launch_3pass_gemm<kEpiBias>(a_planes, w_planes, p, st);
+  }
   const int err = launch_stats(x, mean, rstd, rows, k, st);
   if (err != 0) return err;
   const GemmArgs p{static_cast<const bf16*>(bias),
@@ -844,15 +1196,28 @@ extern "C" int aaclip_ln_linear(const void* x, const void* w,
   return launch_tma_gemm<true, kEpiBias>(x, w, p, st);
 }
 
-// out = res + (y @ w^T + bias); y [rows, k], res and out [rows, n].
+// out = res + (y @ w^T + bias); y [rows, k], res and out [rows, n];
+// a_planes [2, rows, k] and w_planes [2, n, k] the 3-pass scratch.
 extern "C" int aaclip_linear_residual(const void* res, const void* y,
                                       const void* w, const void* bias,
-                                      void* out, int use_bf16, int rows, int n,
+                                      void* a_planes, void* w_planes,
+                                      void* out, int mode, int rows, int n,
                                       int k, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!use_bf16)
+  if (mode == kModeF32)
     return launch_gemm_f32<false>(y, w, bias, nullptr, nullptr, res, out,
                                   rows, n, k, st);
+  if (mode == kMode3Pass) {
+    if (!tma_shape_ok(false, rows, n, k))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int err = launch_split(w, w_planes, (int64_t)n * k, y, a_planes,
+                                 (int64_t)rows * k, st);
+    if (err != 0) return err;
+    const HighArgs p{static_cast<const float*>(bias),
+                     static_cast<const float*>(res), out, rows, n, k, 0};
+    return launch_3pass_gemm<kEpiResidual>(a_planes, w_planes, p, st);
+  }
+  if (mode != kModeBf16) return static_cast<int>(cudaErrorInvalidValue);
   const GemmArgs p{static_cast<const bf16*>(bias), nullptr, nullptr, nullptr,
                    nullptr, static_cast<const bf16*>(res),
                    static_cast<bf16*>(out), rows, n, k, 0};
@@ -861,20 +1226,22 @@ extern "C" int aaclip_linear_residual(const void* res, const void* y,
 
 // out = x + proj(act(fc(LN(x)))); x and out [rows, d], w_fc [f, d], w_proj
 // [d, f]; gamma, beta, b_proj [d] and b_fc [f]; act 0 erf GELU, 1 tanh
-// GELU, 2 QuickGELU. The bf16 route takes scratch from the caller:
-// mean and rstd fp32 [rows], hidden bf16 [rows, f] (unused, and may be
-// null, in fp32, which keeps the hidden on chip).
+// GELU, 2 QuickGELU. Scratch from the caller: on the bf16 route mean and
+// rstd fp32 [rows] and hidden bf16 [rows, f]; on the 3-pass route hidden
+// the hidden's planes bf16 [2, rows, f], a_planes the normalised x's
+// [2, rows, d] and w_planes w_fc's [2, f, d] then w_proj's [2, d, f]; the
+// fp32 route takes none (and keeps the hidden on chip).
 extern "C" int aaclip_mlp_fused(const void* x, const void* gamma,
                                 const void* beta, const void* w_fc,
                                 const void* b_fc, const void* w_proj,
                                 const void* b_proj, float* mean, float* rstd,
-                                void* hidden, void* out, int use_bf16,
-                                int rows, int d, int f, int act,
-                                void* stream) {
+                                void* hidden, void* a_planes, void* w_planes,
+                                void* out, int mode, int rows, int d, int f,
+                                int act, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (act < kGeluErf || act > kQuickGelu)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (!use_bf16) {
+  if (mode == kModeF32) {
     if (rows < 1 || f < kFHid || f % kFHid)
       return static_cast<int>(cudaErrorInvalidValue);
     switch (d) {
@@ -889,8 +1256,24 @@ extern "C" int aaclip_mlp_fused(const void* x, const void* gamma,
     }
   }
   // fc (K = d under the LN prologue, N = f), then proj (K = f, N = d)
-  if (!tma_shape_ok(true, rows, f, d) || !tma_shape_ok(false, rows, d, f))
+  if ((mode != kModeBf16 && mode != kMode3Pass) ||
+      !tma_shape_ok(true, rows, f, d) || !tma_shape_ok(false, rows, d, f))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (mode == kMode3Pass) {
+    bf16* wp_fc = static_cast<bf16*>(w_planes);
+    bf16* wp_proj = wp_fc + 2 * (int64_t)f * d;
+    int err = launch_split(w_fc, wp_fc, (int64_t)f * d, w_proj, wp_proj,
+                           (int64_t)d * f, st);
+    if (err == 0) err = launch_ln_split(x, gamma, beta, a_planes, rows, d, st);
+    if (err != 0) return err;
+    const HighArgs fc{static_cast<const float*>(b_fc), nullptr, hidden, rows,
+                      f, d, act};
+    err = launch_3pass_gemm<kEpiAct>(a_planes, wp_fc, fc, st);
+    if (err != 0) return err;
+    const HighArgs proj{static_cast<const float*>(b_proj),
+                        static_cast<const float*>(x), out, rows, d, f, 0};
+    return launch_3pass_gemm<kEpiProj>(hidden, wp_proj, proj, st);
+  }
   int err = launch_stats(x, mean, rstd, rows, d, st);
   if (err != 0) return err;
   const GemmArgs fc{static_cast<const bf16*>(b_fc),

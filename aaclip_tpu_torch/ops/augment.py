@@ -230,23 +230,33 @@ def color_jitter(gen: torch.Generator, images_u8: torch.Tensor
 # ---------------------------------------------------------------------------
 
 
+def _params(gen, B: int, H: int, W: int, part: Tuple[int, int]):
+    """The draws of ``part = (rank, size)``'s rows of a global batch of
+    ``B * size`` (rows rank, rank + size, ..., as ``parallel/sharding.py::
+    shard_rows`` deals them): the global batch's draws, so a row's draw
+    does not depend on how many ranks share the batch."""
+    rank, size = part
+    params = geometric_params(gen, B * size, H, W)
+    return tuple(p[rank::size] for p in params) if size > 1 else params
+
+
 def make_device_augment(uint8_inputs: bool = False):
-    """``augment(gen, images, masks) -> (float32 images, float32 masks)``
-    for a batch: images [B, 3, H, W] and masks [B, H, W], with independent
-    draws per sample from ``gen``. ``uint8_inputs=True`` takes raw uint8
-    pixels and {0, 1} masks, gathers them packed and normalises after,
-    equal bit for bit to normalising first (the card then receives a
-    quarter of the bytes)."""
+    """``augment(gen, images, masks, part=(0, 1)) -> (float32 images,
+    float32 masks)`` for a batch: images [B, 3, H, W] and masks [B, H, W],
+    with independent draws per sample from ``gen``; ``part = (rank, size)``
+    takes these rows as rank ``rank``'s of a global batch of ``B * size``
+    (``_params``). ``uint8_inputs=True`` takes raw uint8 pixels and {0, 1}
+    masks, gathers them packed and normalises after, equal bit for bit to
+    normalising first (the card then receives a quarter of the bytes)."""
 
-    def augment_float(gen, images, masks):
+    def augment_float(gen, images, masks, part=(0, 1)):
         B, _, H, W = images.shape
-        return geometric_augment(images, masks,
-                                 geometric_params(gen, B, H, W))
+        return geometric_augment(images, masks, _params(gen, B, H, W, part))
 
-    def augment_u8(gen, images_u8, masks_u8):
+    def augment_u8(gen, images_u8, masks_u8, part=(0, 1)):
         B, _, H, W = images_u8.shape
         img, mask, valid = geometric_augment_u8(
-            images_u8, masks_u8, geometric_params(gen, B, H, W))
+            images_u8, masks_u8, _params(gen, B, H, W, part))
         return normalize_valid(img, valid), mask.float() * valid.float()
 
     return augment_u8 if uint8_inputs else augment_float

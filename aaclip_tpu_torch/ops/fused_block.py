@@ -15,19 +15,25 @@ override of ``models/layers.residual_block``; the JAX TPU tile knobs
 (``q_blk``, ``r_blk``, ``mlp_f_blk``, ``interpret``) have no counterpart.
 Each plain version does its kernel's arithmetic step by step: LayerNorm
 with fp32 statistics rounded to the compute dtype, products accumulated in
-fp32, biases, activation and residual in fp32, one rounding of each output
-(and of the MLP's hidden) to the compute dtype. The fp32 policy's GELU is
-the exact erf; the TPU kernel's rational erf was a Mosaic workaround.
+fp32 at the policy's precision (``layers.matmul``: under fp32's "high",
+the 3-pass split), biases, activation and residual in fp32, one rounding
+of each output (and of the MLP's hidden) to the compute dtype, which
+under fp32 rounds nothing. The fp32 policies' GELU is the exact erf; the
+TPU kernel's rational erf was a Mosaic workaround.
 
 The wrappers run the plain versions only for tensors on the CPU (the
 tests). On a CUDA tensor they launch the kernels or raise. Which kernels
-run is the route table ``TMA_ROUTES``: bf16 takes the TMA + wgmma engine
-(a row-statistics kernel and one GEMM with a LayerNorm or plain prologue
-and a bias, activation or residual epilogue; ``ln_linear`` is two
-launches, ``linear_residual`` one, ``mlp_fused`` three, with its bf16
-hidden through device memory); fp32, the parity policy, keeps the first
-port's FMA kernels. None has a backward: an input that requires grad while
-autograd records is refused.
+run is the route of the operands' dtype and the policy's precision
+(``route``, ``TMA_ROUTES``): bf16 takes the TMA + wgmma engine (a
+row-statistics kernel and one GEMM with a LayerNorm or plain prologue and
+a bias, activation or residual epilogue; ``ln_linear`` is two launches,
+``linear_residual`` one, ``mlp_fused`` three, with its bf16 hidden through
+device memory); fp32 under precision "high" (fp32_high) the same engine's
+3-pass mode on the bf16 planes of its fp32 operands (``ln_linear`` three
+launches, ``linear_residual`` two, ``mlp_fused`` four, counted apart in
+each wrapper's ``launches_3pass``); fp32 under "highest", the parity
+policy, keeps the first port's FMA kernels. None has a backward: an input
+that requires grad while autograd records is refused.
 """
 
 from __future__ import annotations
@@ -43,15 +49,32 @@ from aaclip_tpu_torch.ops.attention import (KERNEL_HEAD_DIMS, TMA_ALIGN,
                                             attention_packed,
                                             attention_packed_vv)
 
-# Compute dtypes on the TMA + wgmma engine of fused_block.cu (gemm_wgmma,
-# row_stats_kernel); fp32 runs the FMA kernels (gemm_f32_kernel,
-# mlp_f32_kernel).
-TMA_ROUTES = frozenset({torch.bfloat16})
-# The widths fused_block.cu takes: by dtype, the narrowest output tile and
+
+def route(dtype: torch.dtype, precision) -> tuple:
+    """The key of the fused_block.cu route that operands of ``dtype`` take
+    under ``precision``, read as ``flash_attention.py::_kernel_precision``
+    reads it: bf16 is single-pass whatever the precision (None); fp32 is
+    3-pass under "high" and true fp32 otherwise ("highest")."""
+    if dtype != torch.float32:
+        return (dtype, None)
+    return (dtype, "high" if precision == "high" else "highest")
+
+
+BF16 = route(torch.bfloat16, None)
+HIGH = route(torch.float32, "high")
+FP32 = route(torch.float32, "highest")
+# The routes on the TMA + wgmma engine of fused_block.cu: bf16
+# (gemm_wgmma, row_stats_kernel) and fp32 under "high" (its 3-pass mode:
+# split_kernel, ln_split_kernel, gemm_3pass_wgmma); fp32 otherwise runs the
+# FMA kernels (gemm_f32_kernel, mlp_f32_kernel). ``_MODES`` are the entry
+# points' ``mode`` codes (kModeF32, kModeBf16, kMode3Pass).
+TMA_ROUTES = frozenset({BF16, HIGH})
+_MODES = {FP32: 0, BF16: 1, HIGH: 2}
+# The widths fused_block.cu takes: by route, the narrowest output tile and
 # the reduction tile (N and K multiples of them); the largest LayerNorm row
 # (the statistics hold it in registers: every LN prologue, and every fp32
 # K); the fp32 MLP's model widths and hidden tile.
-_GEMM_TILES = {torch.bfloat16: (128, 64), torch.float32: (64, 16)}
+_GEMM_TILES = {BF16: (128, 64), HIGH: (128, 64), FP32: (64, 16)}
 KERNEL_MAX_K = 1024
 KERNEL_MLP_WIDTHS = (128, 1024)
 KERNEL_MLP_HIDDEN_TILE = 64
@@ -74,19 +97,21 @@ def ln_linear_plain(x: torch.Tensor, ln_weight: torch.Tensor,
                     ln_bias: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                     policy: DtypePolicy) -> torch.Tensor:
     """``layer_norm(x) @ w.T + b`` [.., F] in x's dtype: ``_ln_rows``, the
-    product in fp32, + b in fp32, one rounding. ``w`` is [F, D]."""
+    product in fp32 at the policy's precision, + b in fp32, one rounding.
+    ``w`` is [F, D]."""
     cd = policy.compute_dtype
     y = _ln_rows(x, ln_weight, ln_bias, cd)
-    h = L.matmul_f32(y, w.to(cd).t()) + b.float()
+    h = L.matmul(y, w.to(cd).t(), policy.precision) + b.float()
     return h.to(x.dtype)
 
 
 def linear_residual_plain(res: torch.Tensor, y: torch.Tensor,
                           w: torch.Tensor, b: torch.Tensor,
                           policy: DtypePolicy) -> torch.Tensor:
-    """``res + (y @ w.T + b)`` in fp32, rounded once to res's dtype."""
+    """``res + (y @ w.T + b)`` in fp32 (the product at the policy's
+    precision), rounded once to res's dtype."""
     cd = policy.compute_dtype
-    h = L.matmul_f32(y.to(cd), w.to(cd).t()) + b.float()
+    h = L.matmul(y.to(cd), w.to(cd).t(), policy.precision) + b.float()
     return (res.float() + h).to(res.dtype)
 
 
@@ -96,12 +121,14 @@ def mlp_fused_plain(x: torch.Tensor, ln_weight: torch.Tensor,
                     b_proj: torch.Tensor, act,
                     policy: DtypePolicy) -> torch.Tensor:
     """``x + proj(act(fc(layer_norm(x))))``: ``_ln_rows``, fc + b_fc and
-    ``act`` in fp32, the hidden rounded to the compute dtype, proj in fp32,
-    then ``x + acc + b_proj`` in fp32, rounded once to x's dtype."""
+    ``act`` in fp32, the hidden rounded to the compute dtype (under fp32 it
+    stays fp32), proj in fp32, then ``x + acc + b_proj`` in fp32, rounded
+    once to x's dtype; both products at the policy's precision."""
     cd = policy.compute_dtype
     y = _ln_rows(x, ln_weight, ln_bias, cd)
-    h = act(L.matmul_f32(y, w_fc.to(cd).t()) + b_fc.float())
-    acc = L.matmul_f32(h.to(cd), w_proj.to(cd).t())
+    prec = policy.precision
+    h = act(L.matmul(y, w_fc.to(cd).t(), prec) + b_fc.float())
+    acc = L.matmul(h.to(cd), w_proj.to(cd).t(), prec)
     return (x.float() + acc + b_proj.float()).to(x.dtype)
 
 
@@ -115,14 +142,17 @@ def _kernels():
 
     lib = load("fused_block")
     i, p = ctypes.c_int, ctypes.c_void_p
-    # x, w, bias, gamma, beta, mean, rstd, out, bf16, rows, n, k, stream
-    lib.aaclip_ln_linear.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
-    # res, y, w, bias, out, bf16, rows, n, k, stream
-    lib.aaclip_linear_residual.argtypes = [p, p, p, p, p, i, i, i, i, p]
-    # x, gamma, beta, w_fc, b_fc, w_proj, b_proj, mean, rstd, hidden, out,
-    # bf16, rows, d, f, act, stream
-    lib.aaclip_mlp_fused.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i,
-                                     i, i, i, p]
+    # x, w, bias, gamma, beta, mean, rstd, a_planes, w_planes, out, mode,
+    # rows, n, k, stream
+    lib.aaclip_ln_linear.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i,
+                                     i, p]
+    # res, y, w, bias, a_planes, w_planes, out, mode, rows, n, k, stream
+    lib.aaclip_linear_residual.argtypes = [p, p, p, p, p, p, p, i, i, i, i,
+                                           p]
+    # x, gamma, beta, w_fc, b_fc, w_proj, b_proj, mean, rstd, hidden,
+    # a_planes, w_planes, out, mode, rows, d, f, act, stream
+    lib.aaclip_mlp_fused.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, p,
+                                     i, i, i, i, i, p]
     lib.aaclip_gemm_tile_width.argtypes = [i]  # bn
     for fn in (lib.aaclip_ln_linear, lib.aaclip_linear_residual,
                lib.aaclip_mlp_fused, lib.aaclip_gemm_tile_width):
@@ -130,23 +160,23 @@ def _kernels():
     return lib
 
 
-def _gemm_widths_ok(dtype: torch.dtype, n: int, k: int,
-                    ln: bool = True) -> bool:
-    """``tma_shape_ok`` (bf16) or ``gemm_f32_shape_ok``'s widths: n output
-    columns, k reduced ones, under the LayerNorm prologue or not."""
-    bn, bk = _GEMM_TILES[dtype]
-    capped = ln or dtype not in TMA_ROUTES
+def _gemm_widths_ok(key: tuple, n: int, k: int, ln: bool = True) -> bool:
+    """``tma_shape_ok`` (the engine's routes) or ``gemm_f32_shape_ok``'s
+    widths on route ``key``: n output columns, k reduced ones, under the
+    LayerNorm prologue or not."""
+    bn, bk = _GEMM_TILES[key]
+    capped = ln or key not in TMA_ROUTES
     return n >= bn and n % bn == 0 and k >= bk and k % bk == 0 \
         and (not capped or k <= KERNEL_MAX_K)
 
 
-def _mlp_widths_ok(dtype: torch.dtype, d: int, f: int) -> bool:
-    """``aaclip_mlp_fused``'s widths: model width d, hidden f. bf16 runs
-    fc (LN, d -> f) and proj (f -> d) on the GEMM; fp32 has its kernel at
-    ``KERNEL_MLP_WIDTHS``."""
-    if dtype in TMA_ROUTES:
-        return _gemm_widths_ok(dtype, f, d) \
-            and _gemm_widths_ok(dtype, d, f, ln=False)
+def _mlp_widths_ok(key: tuple, d: int, f: int) -> bool:
+    """``aaclip_mlp_fused``'s widths on route ``key``: model width d,
+    hidden f. The engine's routes run fc (LN, d -> f) and proj (f -> d) on
+    the GEMM; fp32 has its kernel at ``KERNEL_MLP_WIDTHS``."""
+    if key in TMA_ROUTES:
+        return _gemm_widths_ok(key, f, d) \
+            and _gemm_widths_ok(key, d, f, ln=False)
     return d in KERNEL_MLP_WIDTHS and f >= KERNEL_MLP_HIDDEN_TILE \
         and f % KERNEL_MLP_HIDDEN_TILE == 0
 
@@ -168,7 +198,8 @@ def _check_operands(name: str, policy: DtypePolicy, *tensors) -> None:
     x = tensors[0]
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
-    if cd not in _GEMM_TILES or any(t.dtype != cd for t in tensors):
+    if cd not in (torch.bfloat16, torch.float32) \
+            or any(t.dtype != cd for t in tensors):
         raise TypeError(f"{name}: every operand, vectors included, must be "
                         f"in the policy's compute dtype, bf16 or fp32 (got "
                         f"{cd}; pre-cast the tower with cast_matmul_weights)")
@@ -193,14 +224,21 @@ def _launch(name: str, entry, device: torch.device, *args) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
-def _scratch(x: torch.Tensor, *shape: int, dtype=torch.float32):
-    """A scratch tensor of the bf16 route on x's device, or None in fp32,
-    whose kernels take none. The caller keeps it until the launch is
-    enqueued; after that the allocator may hand its memory on, in the
+def _scratch(x: torch.Tensor, key: tuple, *shapes) -> list:
+    """The scratch of route ``key`` on x's device: for each ``(route,
+    shape, dtype)`` of ``shapes`` a new tensor where ``route`` is ``key``,
+    else None (a null pointer). The caller keeps them until the launch is
+    enqueued; after that the allocator may hand their memory on, in the
     stream's order."""
-    if x.dtype not in TMA_ROUTES:
-        return None
-    return torch.empty(*shape, dtype=dtype, device=x.device)
+    return [torch.empty(*shape, dtype=dtype, device=x.device)
+            if r == key else None for r, shape, dtype in shapes]
+
+
+def _count(wrapper, key: tuple) -> None:
+    """One call of ``wrapper`` on route ``key``: ``launches`` counts every
+    call, ``launches_3pass`` those of the 3-pass mode."""
+    wrapper.launches += 1
+    wrapper.launches_3pass += int(key == HIGH)
 
 
 def _ptr(t) -> int | None:
@@ -216,9 +254,11 @@ def ln_linear(x: torch.Tensor, ln_weight: torch.Tensor,
 
     CPU tensors take ``ln_linear_plain``. On CUDA tensors (all in the
     compute dtype, contiguous; D a multiple of 64 up to 1024 and F of 128,
-    in fp32 of 16 and 64) the kernels are launched on the current stream
-    (bf16: the row statistics into two fp32 [rows] scratch vectors, then
-    the GEMM) and ``ln_linear.launches`` counts each call."""
+    in fp32 under "highest" of 16 and 64) the kernels are launched on the
+    current stream (bf16: the row statistics into two fp32 [rows] scratch
+    vectors, then the GEMM; fp32 under "high": W's planes, the normalised
+    rows' planes, then the 3-pass GEMM) and ``ln_linear.launches`` counts
+    each call (``launches_3pass`` those on the 3-pass route)."""
     _refuse_grad("ln_linear", x, ln_weight, ln_bias, w, b)
     if x.device.type == "cpu":
         return ln_linear_plain(x, ln_weight, ln_bias, w, b, policy)
@@ -228,21 +268,25 @@ def ln_linear(x: torch.Tensor, ln_weight: torch.Tensor,
     if w.shape != (F, D) or b.shape != (F,) or ln_weight.shape != (D,) \
             or ln_bias.shape != (D,):
         raise ValueError("ln_linear: weight shapes do not match x")
-    if not _gemm_widths_ok(x.dtype, F, D):
+    key = route(x.dtype, policy.precision)
+    if not _gemm_widths_ok(key, F, D):
         raise ValueError(f"ln_linear: widths {D} -> {F} have no kernel "
-                         f"instantiation in {x.dtype}")
+                         f"instantiation on route {key}")
     R = x.numel() // D
     out = torch.empty(*x.shape[:-1], F, dtype=x.dtype, device=x.device)
-    mean, rstd = _scratch(x, R), _scratch(x, R)  # the row statistics
+    # the row statistics (bf16); the planes of the rows and of W (3-pass)
+    mean, rstd, a_planes, w_planes = _scratch(
+        x, key, (BF16, (R,), torch.float32), (BF16, (R,), torch.float32),
+        (HIGH, (2, R, D), torch.bfloat16), (HIGH, (2, F, D), torch.bfloat16))
     _launch("ln_linear", _kernels().aaclip_ln_linear, x.device,
             x.data_ptr(), w.data_ptr(), b.data_ptr(), ln_weight.data_ptr(),
-            ln_bias.data_ptr(), _ptr(mean), _ptr(rstd), out.data_ptr(),
-            int(x.dtype in TMA_ROUTES), R, F, D)
-    ln_linear.launches += 1
+            ln_bias.data_ptr(), _ptr(mean), _ptr(rstd), _ptr(a_planes),
+            _ptr(w_planes), out.data_ptr(), _MODES[key], R, F, D)
+    _count(ln_linear, key)
     return out
 
 
-ln_linear.launches = 0
+ln_linear.launches = ln_linear.launches_3pass = 0
 
 
 def linear_residual(res: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
@@ -252,9 +296,11 @@ def linear_residual(res: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     D] -> [B, S, D] in res's dtype.
 
     CPU tensors take ``linear_residual_plain``. On CUDA tensors (all in
-    the compute dtype, contiguous; D_in a multiple of 64 and D of
-    128, in fp32 of 16 up to 1024 and of 64) the kernel is launched on the
-    current stream and ``linear_residual.launches`` counts each launch."""
+    the compute dtype, contiguous; D_in a multiple of 64 and D of 128, in
+    fp32 under "highest" of 16 up to 1024 and of 64) the kernel is launched
+    on the current stream (fp32 under "high" after one launch that splits W
+    and y into their planes) and ``linear_residual.launches`` counts each
+    call (``launches_3pass`` those on the 3-pass route)."""
     _refuse_grad("linear_residual", res, y, w, b)
     if res.device.type == "cpu":
         return linear_residual_plain(res, y, w, b, policy)
@@ -263,19 +309,24 @@ def linear_residual(res: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     if (w.shape != (N, K) or b.shape != (N,)
             or y.shape[:-1] != res.shape[:-1]):
         raise ValueError("linear_residual: shapes do not match")
-    if not _gemm_widths_ok(res.dtype, N, K, ln=False):
+    key = route(res.dtype, policy.precision)
+    if not _gemm_widths_ok(key, N, K, ln=False):
         raise ValueError(f"linear_residual: widths {K} -> {N} have no "
-                         f"kernel instantiation in {res.dtype}")
+                         f"kernel instantiation on route {key}")
+    R = res.numel() // N
     out = torch.empty_like(res)
+    a_planes, w_planes = _scratch(res, key,
+                                  (HIGH, (2, R, K), torch.bfloat16),
+                                  (HIGH, (2, N, K), torch.bfloat16))
     _launch("linear_residual", _kernels().aaclip_linear_residual, res.device,
             res.data_ptr(), y.data_ptr(), w.data_ptr(), b.data_ptr(),
-            out.data_ptr(), int(res.dtype in TMA_ROUTES), res.numel() // N,
+            _ptr(a_planes), _ptr(w_planes), out.data_ptr(), _MODES[key], R,
             N, K)
-    linear_residual.launches += 1
+    _count(linear_residual, key)
     return out
 
 
-linear_residual.launches = 0
+linear_residual.launches = linear_residual.launches_3pass = 0
 
 
 def mlp_fused(x: torch.Tensor, ln_weight: torch.Tensor,
@@ -287,8 +338,9 @@ def mlp_fused(x: torch.Tensor, ln_weight: torch.Tensor,
     ``gelu_tanh`` or ``quick_gelu``.
 
     CPU tensors take ``mlp_fused_plain``. On CUDA tensors (all in the
-    compute dtype, contiguous) the kernels are launched on
-    the current stream and ``mlp_fused.launches`` counts each call.
+    compute dtype, contiguous) the kernels are launched on the current
+    stream and ``mlp_fused.launches`` counts each call
+    (``launches_3pass`` those on the 3-pass route).
 
     bf16 (D a multiple of 128 up to 1024, F of 128) is three launches: the
     row statistics, fc with the LayerNorm prologue and the activation
@@ -303,7 +355,11 @@ def mlp_fused(x: torch.Tensor, ln_weight: torch.Tensor,
     same), so writing and reading the hidden (718 MB, ~0.21 ms at 3.35
     TB/s) hides under ~0.74 ms of tensor-core time. The TPU kernel and the
     plain version round the hidden to bf16 at that point, so the numerics
-    are the same. fp32 (D in ``KERNEL_MLP_WIDTHS``, F a multiple of 64) is
+    are the same. fp32 under "high" (the bf16 route's widths) is four
+    launches: the planes of both weights, the normalised rows' planes, fc
+    with the activation epilogue writing the fp32 hidden's planes [2, rows,
+    F] (bf16, as much memory as the fp32 hidden), and proj on them. fp32
+    under "highest" (D in ``KERNEL_MLP_WIDTHS``, F a multiple of 64) is
     one launch that keeps the hidden on chip."""
     _refuse_grad("mlp_fused", x, ln_weight, ln_bias, w_fc, b_fc, w_proj,
                  b_proj)
@@ -321,29 +377,36 @@ def mlp_fused(x: torch.Tensor, ln_weight: torch.Tensor,
             or b_proj.shape != (D,) or ln_weight.shape != (D,)
             or ln_bias.shape != (D,)):
         raise ValueError("mlp_fused: weight shapes do not match x")
-    if not _mlp_widths_ok(x.dtype, D, F):
+    key = route(x.dtype, policy.precision)
+    if not _mlp_widths_ok(key, D, F):
         raise ValueError(
-            f"mlp_fused: width {D}, hidden {F} have no kernel in {x.dtype} "
-            f"(bf16: width a multiple of {_GEMM_TILES[torch.bfloat16][0]} "
-            f"up to {KERNEL_MAX_K}, hidden of "
-            f"{_GEMM_TILES[torch.bfloat16][0]}; fp32: widths "
-            f"{KERNEL_MLP_WIDTHS}, hidden a multiple of "
-            f"{KERNEL_MLP_HIDDEN_TILE})")
+            f"mlp_fused: width {D}, hidden {F} have no kernel on route {key}"
+            f" (bf16 and fp32 under 'high': width a multiple of "
+            f"{_GEMM_TILES[BF16][0]} up to {KERNEL_MAX_K}, hidden of "
+            f"{_GEMM_TILES[BF16][0]}; fp32: widths {KERNEL_MLP_WIDTHS}, "
+            f"hidden a multiple of {KERNEL_MLP_HIDDEN_TILE})")
     R = x.numel() // D
     out = torch.empty_like(x)
-    mean, rstd = _scratch(x, R), _scratch(x, R)
-    hidden = _scratch(x, R, F, dtype=x.dtype)
+    bf16 = torch.bfloat16
+    # bf16: the statistics and the bf16 hidden; 3-pass: the hidden's, the
+    # normalised rows' and both weights' planes
+    mean, rstd, hidden, hidden_planes, a_planes, w_planes = _scratch(
+        x, key, (BF16, (R,), torch.float32), (BF16, (R,), torch.float32),
+        (BF16, (R, F), bf16), (HIGH, (2, R, F), bf16),
+        (HIGH, (2, R, D), bf16), (HIGH, (4, F, D), bf16))
     _launch("mlp_fused", _kernels().aaclip_mlp_fused, x.device,
             x.data_ptr(), ln_weight.data_ptr(), ln_bias.data_ptr(),
             w_fc.data_ptr(),
             b_fc.data_ptr(), w_proj.data_ptr(), b_proj.data_ptr(),
-            _ptr(mean), _ptr(rstd), _ptr(hidden), out.data_ptr(),
-            int(x.dtype in TMA_ROUTES), R, D, F, _ACT_CODES[act])
-    mlp_fused.launches += 1
+            _ptr(mean), _ptr(rstd), _ptr(hidden if key == BF16
+                                         else hidden_planes),
+            _ptr(a_planes), _ptr(w_planes), out.data_ptr(), _MODES[key], R,
+            D, F, _ACT_CODES[act])
+    _count(mlp_fused, key)
     return out
 
 
-mlp_fused.launches = 0
+mlp_fused.launches = mlp_fused.launches_3pass = 0
 
 
 def gemm_tile_width(bn: int) -> None:
@@ -370,16 +433,11 @@ def make_block_fn(num_heads: int, policy: DtypePolicy = DtypePolicy(), *,
     The ops default to the kernel wrappers (``attention``:
     ``attention_packed``, or ``attention_packed_vv`` with ``vv``); the
     ``*_plain`` versions give the same block with the plain arithmetic on
-    any device (the on-card comparison).
-
-    The kernels' 3-pass mode (fp32 under precision "high", fp32_high) is
-    not ported: such a policy raises (JAX's gate admits bf16 alone, so
-    ``maybe_make_block_fn`` gives None there)."""
-    if policy.compute_dtype == torch.float32 and policy.precision == "high":
-        raise NotImplementedError(
-            "the fused-block kernels' 3-pass mode (fp32 under precision "
-            "'high') is not ported yet: ROADMAP B8, 'the 3-pass \"high\" "
-            "mode of B5-B7'")
+    any device (the on-card comparison). ``attention`` gets the policy's
+    precision, as JAX's block passes it, so under fp32_high (fp32, "high")
+    every op of the block runs its kernels' 3-pass mode. The block closes
+    over ``policy`` and runs it on every block it is given, the staged
+    prefix of an fp32_high trunk included, as JAX's does."""
     if attention is None:
         attention = attention_packed_vv if vv else attention_packed
 
@@ -390,7 +448,8 @@ def make_block_fn(num_heads: int, policy: DtypePolicy = DtypePolicy(), *,
         if vv:
             w, b = w[2 * D:], b[2 * D:]
         packed = ln(x, blk.ln_1.weight, blk.ln_1.bias, w, b, policy)
-        out = attention(packed, num_heads, x.shape[1])
+        out = attention(packed, num_heads, x.shape[1],
+                        precision=policy.precision)
         x = residual(x, out, a.out_proj.weight, a.out_proj.bias, policy)
         m = blk.mlp
         return mlp(x, blk.ln_2.weight, blk.ln_2.bias, m.c_fc.weight,
@@ -405,11 +464,11 @@ def fused_block_supported(cfg, policy: DtypePolicy) -> bool:
     attention's head dim, the QKV projection, the V-V value third and the
     out-projection as GEMMs, and the MLP."""
     v = cfg.vision
-    cd = policy.compute_dtype
-    return (cd in _GEMM_TILES and v.head_dim in KERNEL_HEAD_DIMS
-            and _gemm_widths_ok(cd, 3 * v.width, v.width)
-            and _gemm_widths_ok(cd, v.width, v.width, ln=False)
-            and _mlp_widths_ok(cd, v.width, int(v.width * v.mlp_ratio)))
+    key = route(policy.compute_dtype, policy.precision)
+    return (key in _GEMM_TILES and v.head_dim in KERNEL_HEAD_DIMS
+            and _gemm_widths_ok(key, 3 * v.width, v.width)
+            and _gemm_widths_ok(key, v.width, v.width, ln=False)
+            and _mlp_widths_ok(key, v.width, int(v.width * v.mlp_ratio)))
 
 
 def maybe_make_block_fn(cfg, policy: DtypePolicy, *, vv: bool = False,

@@ -13,10 +13,15 @@ runs one process per card (``torchrun``) with explicit collectives:
   this rank's coordinates and its device; ``make_data_mesh`` and
   ``make_mesh_2d`` build it in JAX's device order, the model axis the
   fastest (rank = d * tp + m);
-* ``shard_rows`` / ``gather_rows`` take this rank's contiguous rows of a
-  global batch and all-gather per-rank outputs back in global order, so
-  the parallel entry points keep JAX's call contract (the global batch in,
-  the global result out);
+* ``shard_rows`` / ``gather_rows`` deal a global batch to the data ranks
+  as JAX's per-host loaders deal rows (rows r, r + dp, ... to data rank
+  r; the ranks of one model group share them) and all-gather per-rank
+  outputs back in global order. The CLIs' loaders read only their rank's
+  rows of each global batch (``BatchLoader(deal_batches=True)``, the
+  batch padded first with ``pad_batch_to_devices``, JAX's padding), the
+  training steps take them, and the predictors are ``gather_rows`` of
+  their per-rank body on ``shard_rows`` of the global batch (JAX's call
+  contract: the global batch in, the global result out);
 * the differentiable collectives are Megatron's pair (``copy_to``:
   identity forward, all-reduce backward; ``reduce_from``: all-reduce
   forward, identity backward) and, for sequence parallelism, all-gather
@@ -177,30 +182,32 @@ def pad_batch_to_devices(arrays: Iterable[np.ndarray], valid: np.ndarray,
     return out, valid
 
 
-def row_slice(n: int, mesh: Mesh) -> slice:
-    """This rank's contiguous rows of a global batch of ``n``; ``n`` must
-    divide by the data size."""
-    if n % mesh.dp:
-        raise ValueError(f"batch {n} not divisible by data-parallel size "
-                         f"{mesh.dp}")
-    per = n // mesh.dp
-    return slice(mesh.data_rank * per, (mesh.data_rank + 1) * per)
-
-
-def shard_rows(x, mesh: Optional[Mesh], device) -> torch.Tensor:
-    """This rank's rows of the global batch ``x`` on ``device``: sliced
-    before the copy, so a host batch uploads only its rank's rows."""
+def shard_rows(x, mesh: Optional[Mesh], device=None) -> torch.Tensor:
+    """This rank's rows of the global batch ``x`` (rows ``data_rank``,
+    ``data_rank + dp``, ...; the whole batch without a mesh), on
+    ``device`` when one is given: taken before the copy, so a host batch
+    uploads only its rank's rows. The data size must divide the batch
+    (``pad_batch_to_devices`` pads one)."""
     x = torch.as_tensor(x)
     if mesh is not None:
-        x = x[row_slice(x.shape[0], mesh)]
-    return x.to(device)
+        if x.shape[0] % mesh.dp:
+            raise ValueError(f"batch {x.shape[0]} not divisible by "
+                             f"data-parallel size {mesh.dp}")
+        x = x[mesh.data_rank::mesh.dp].contiguous()
+    return x if device is None else x.to(device)
 
 
 def gather_rows(x: torch.Tensor, mesh: Optional[Mesh],
                 dim: int = 0) -> torch.Tensor:
-    """Per-rank outputs all-gathered over the data axis along ``dim`` (the
-    batch axis), in global order (not differentiable)."""
-    return x if mesh is None else all_gather(x, mesh.data, dim)
+    """The inverse of ``shard_rows``: every data rank's rows along ``dim``
+    (the batch axis; as many on each rank), all-gathered over the data
+    axis and put back in global order (not differentiable)."""
+    if mesh is None or mesh.dp == 1:
+        return x
+    g = all_gather(x, mesh.data, dim).movedim(dim, 0)
+    rest = tuple(g.shape[1:])
+    g = g.reshape((mesh.dp, x.shape[dim]) + rest).transpose(0, 1)
+    return g.reshape((-1,) + rest).movedim(0, dim)
 
 
 # ---------------------------------------------------------------------------

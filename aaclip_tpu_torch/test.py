@@ -28,10 +28,13 @@ CPU (the tests); by default it runs on the card.
 ``--data_parallel`` and ``--tensor_parallel N`` (with
 ``--sequence_parallel``) run one process per card under ``torchrun``
 (``python -m torch.distributed.run --nproc_per_node K -m
-aaclip_tpu_torch.test ...``; ``parallel/``): every rank reads the same
-global batch, rounded up to a multiple of the data size, and runs its
-rows; rank 0 alone writes the log, the table and the CSVs. The parallel
-flags' rules are JAX's.
+aaclip_tpu_torch.test ...``; ``parallel/``): ``--batch_size`` is the
+global batch, rounded up to a multiple of the data size; each data rank
+reads, decodes and predicts only its rows of each global batch (its
+loader's ``deal_batches``: rows r, r + dp, ...; the ranks of one model
+group share rows), and each class's maps, masks, labels and scores are
+gathered for the metrics; rank 0 alone writes the log, the table and
+the CSVs. The parallel flags' rules are JAX's.
 """
 
 from __future__ import annotations
@@ -326,7 +329,12 @@ def main(argv=None, *, device=None):
 
         def fn(ia, im, an, M):
             return mb_predict(ia, im, an, M, bank)
-        fn.device, fn.mesh = mb_predict.device, mb_predict.mesh
+
+        def local(ia, im, an, M):
+            return mb_predict.local(ia, im, an, M, bank)
+
+        fn.device, fn.mesh, fn.local = mb_predict.device, mb_predict.mesh, \
+            local
         return fn
 
     for file in files:
@@ -339,7 +347,7 @@ def main(argv=None, *, device=None):
                 file, image_template)
         _eval_table(args, logger, test_epoch, image_datasets, class_fn,
                     adapter_from_jax(tree, cfg, acfg, device=dev),
-                    text_embeddings, domain, grid, lead)
+                    text_embeddings, domain, grid, lead, mesh)
     _log_host_paths(logger, decoded_before)
 
 
@@ -360,17 +368,21 @@ def _log_host_paths(logger, decoded_before: dict) -> None:
 
 def _eval_table(args, logger, label, image_datasets, class_fn,
                 image_adapter, text_embeddings, domain: str,
-                grid: int, lead: bool = True) -> None:
+                grid: int, lead: bool = True, mesh=None) -> None:
     """One results table (the reference's per-snapshot block,
     test.py:179-250): each class's loader through ``class_fn(class_name,
     image_adapter)``'s predictor (``run_class_predictions``), its metrics,
     the table with its "Average" row, and the CSVs the flags ask for. A
     rank other than the lead (``lead`` False) predicts with the others and
-    writes nothing."""
+    writes nothing. On a ``mesh`` each data rank's loader reads its rows
+    of each global batch of a class."""
     from aaclip_tpu_torch.data.datasets import BatchLoader
     from aaclip_tpu_torch.eval.metrics import metrics_eval
     from aaclip_tpu_torch.eval.predict import run_class_predictions
     from aaclip_tpu_torch.utils.profiling import StepTimer
+
+    deal = {} if mesh is None else dict(
+        host_id=mesh.data_rank, num_hosts=mesh.dp, deal_batches=True)
 
     logger.info("-----------------------------------------------")
     logger.info("load model from epoch %s", label)
@@ -390,7 +402,7 @@ def _eval_table(args, logger, label, image_datasets, class_fn,
             logger.info("skipping empty class %s", class_name)
             continue
         loader = BatchLoader(dataset, args.batch_size,
-                             num_workers=args.num_workers)
+                             num_workers=args.num_workers, **deal)
         masks, labels, preds, preds_image, file_names = \
             run_class_predictions(class_fn(class_name, image_adapter),
                                   image_adapter, loader,

@@ -22,10 +22,15 @@ where each epoch's host loop spent its time.
 ``--data_parallel`` and ``--tensor_parallel N`` (with
 ``--sequence_parallel``) run one process per card under ``torchrun``
 (``python -m torch.distributed.run --nproc_per_node K -m
-aaclip_tpu_torch.train ...``; ``parallel/``): every rank reads the same
-global batch, padded to a multiple of the data size with ``valid = 0``
-rows, augments all of it with the same draws, and the steps run its rows
-and return JAX's global loss; rank 0 alone writes the log and the
+aaclip_tpu_torch.train ...``; ``parallel/``): the batch sizes are the
+global batch; each data rank's loader reads, decodes and jitters only its
+rows of it (``BatchLoader(deal_batches=True)``: the global batch padded
+to a multiple of the data size with ``valid = 0`` rows, JAX's padding,
+and rows r, r + dp, ... to data rank r; the ranks of one model group
+share rows), uploads them, draws the device augment for the padded
+global batch and keeps its rows' draws, so a row's augment does not
+depend on how many ranks share the batch, and the steps run its rows and
+return JAX's global loss; rank 0 alone writes the log and the
 checkpoints, and every rank resumes from them.
 
 The flags are the JAX CLI's; those of paths not ported yet raise at parse
@@ -272,6 +277,8 @@ def main(argv=None, *, device=None):
     # the datasets emit uint8 under --device_augment; the card normalises
     aug_fn = make_device_augment(uint8_inputs=True) \
         if args.device_augment else None
+    # the loader's rows of each global batch: (data rank, data size)
+    part = (mesh.data_rank, mesh.dp) if mesh is not None else (0, 1)
 
     text_opt = make_text_optimizer(text_adapter.parameters(), args.text_lr)
     image_opt, image_sched = make_image_optimizer(
@@ -333,21 +340,17 @@ def main(argv=None, *, device=None):
                   for s in (1, 2)))
 
     def device_batch(batch):
-        """numpy batch -> (images, mask [B, H, W], label, class_idx,
-        valid) on the card; on a mesh padded to a multiple of the data
-        size with ``valid = 0`` rows (JAX's ``pad_batch_to_devices``)."""
+        """numpy batch (on a mesh, this data rank's rows) -> (images,
+        mask [B, H, W], label, class_idx, valid) on the card."""
         B = batch["image"].shape[0]
         arrays = [batch["image"],
                   batch["mask"].reshape(B, args.img_size, args.img_size),
                   np.asarray(batch["label"]),
-                  np.array([cls_to_idx[c] for c in batch["class_name"]])]
-        valid = (np.arange(B) < batch["n_valid"]).astype(np.float32)
-        if mesh is not None:
-            arrays, valid = sh.pad_batch_to_devices(arrays, valid, mesh.dp)
-        images, mask, label, class_idx = (torch.as_tensor(a, device=dev)
-                                          for a in arrays)
-        return (images, mask, label.long(), class_idx,
-                torch.as_tensor(valid, device=dev))
+                  np.array([cls_to_idx[c] for c in batch["class_name"]]),
+                  (np.arange(B) < batch["n_valid"]).astype(np.float32)]
+        images, mask, label, class_idx, valid = (
+            torch.as_tensor(a, device=dev) for a in arrays)
+        return images, mask, label.long(), class_idx, valid
 
     def make_train_loader(ds, batch_size, text_stage, seed):
         """BatchLoader, or with --cache_device the set on the card.
@@ -362,8 +365,10 @@ def main(argv=None, *, device=None):
                                      text_stage=text_stage,
                                      aug_seed=args.seed, device=dev,
                                      num_workers=args.num_workers)
+        deal = {} if mesh is None else dict(
+            host_id=mesh.data_rank, num_hosts=mesh.dp, deal_batches=True)
         return BatchLoader(ds, batch_size, shuffle=True, seed=seed,
-                           num_workers=args.num_workers)
+                           num_workers=args.num_workers, **deal)
 
     def prepare_batch(prof, batch, stage, epoch, it):
         """A loader batch -> five tensors on the card; cache batches come
@@ -377,7 +382,7 @@ def main(argv=None, *, device=None):
             with prof.phase("augment_dispatch"):
                 images, mask = aug_fn(
                     augment_generator(args.seed, stage, epoch, it, dev),
-                    images, mask)
+                    images, mask, part)
         return images, mask, label, class_idx, valid
 
     def run_epoch(loader, stage, epoch, update):

@@ -21,9 +21,12 @@ Both steps keep the towers' parameters fp32 as stored, as JAX's steps do
 (``core/params.py::cast_block_matrices`` pre-casts only the blocks' matmul
 weights).
 
-On a mesh (``parallel/sharding.py``) each function still takes the global
-batch, as JAX's do, and each rank computes its rows (``_Rows``). The loss
-is JAX's global-batch loss: every masked mean divides by the global valid
+On a mesh (``parallel/sharding.py``) each function takes this data
+rank's rows of the global batch, as the training CLI's loader reads them
+(``sharding.shard_rows``: rows r, r + dp, ... of each global batch, as
+JAX's per-host loaders deal them), and returns the rank's part: the
+features of its rows, the global loss (``_Rows``). The loss is JAX's
+global-batch loss: every masked mean divides by the global valid
 count, dice's constant terms count once, the orthogonality term squares
 the global mean, and each rank's share of it carries the gradient of its
 own samples (``_Rows.loss_terms``). The adapters' gradients are summed
@@ -74,28 +77,20 @@ def _tower(tower, heads: int, mesh, sequence_parallel: bool):
 
 class _Rows:
     """A rank's part of a step's global batch, split into ``micro``
-    microbatches: microbatch k is global rows [k B/micro, (k+1) B/micro),
-    spread over the data axis, so the rank takes its contiguous share of
-    each (JAX reshapes the global batch into microbatches before GSPMD
-    shards them). Without a mesh it is the whole batch."""
+    microbatches. The step is given the rank's rows (``sharding.
+    shard_rows``: global rows r, r + dp, ..., which its loader read), so
+    its local microbatch k, rows [k b/micro, (k+1) b/micro) of its b, is
+    its share of global microbatch k, rows [k B/micro, (k+1) B/micro) (JAX
+    reshapes the global batch into microbatches before GSPMD shards
+    them). Without a mesh it is the whole batch."""
 
     def __init__(self, mesh, device, micro: int = 1):
         self.mesh, self.device, self.micro = mesh, device, micro
         self.lead = mesh is None or mesh.data_rank == 0
 
     def take(self, x) -> torch.Tensor:
-        x = torch.as_tensor(x)
-        if self.mesh is None:
-            return x.to(self.device)
-        B, dp = x.shape[0], self.mesh.dp
-        n = B // self.micro
-        if n % dp:
-            raise ValueError(f"microbatch {n} (batch {B} / grad_accum "
-                             f"{self.micro}) not divisible by data-parallel "
-                             f"size {dp}")
-        per, d = n // dp, self.mesh.data_rank
-        x = x.reshape(self.micro, n, *x.shape[1:])[:, d * per:(d + 1) * per]
-        return x.reshape(self.micro * per, *x.shape[2:]).to(self.device)
+        """The rank's rows, as given, on the step's device."""
+        return torch.as_tensor(x).to(self.device)
 
     def counts(self, valid: torch.Tensor) -> torch.Tensor:
         """Each microbatch's valid count over the global batch."""
@@ -187,11 +182,12 @@ def stage1_features_fn(vit: VisionTransformer, cfg: CLIPConfig, *,
     across the batch) extracts N images at a time, which is exact.
 
     ``device=None`` means the card; ``vit`` must live there. On a mesh the
-    global batch goes in and its features come out; the batch-mode V-V
-    softmax then runs over the global batch (the values and ``valid``
-    all-gathered over the data axis, ``layers.attention_vv_batch``), so
-    the features equal the single-process ones, and ``device`` is the
-    mesh's."""
+    rank's rows go in (``sharding.shard_rows``) and their features come
+    out; the batch-mode V-V softmax then runs over the global batch (the
+    values and ``valid`` all-gathered over the data axis,
+    ``layers.attention_vv_batch``), so the features equal the
+    single-process ones up to the order of that softmax's sums, and
+    ``device`` is the mesh's."""
     _check_mesh(mesh, sequence_parallel)
     _no_int8(policy)
     if chunk is not None and chunk < 1:
@@ -252,7 +248,7 @@ def stage1_features_fn(vit: VisionTransformer, cfg: CLIPConfig, *,
         images = rows.take(images)
         if valid is not None:
             valid = rows.take(valid)
-        return sh.gather_rows(local(images, valid), mesh)
+        return local(images, valid)
 
     return features
 
@@ -281,8 +277,9 @@ def make_stage1_step(text: TextTransformer, cfg: CLIPConfig,
     anchors' orthogonality loss; a device tensor, not synchronised.
 
     ``device=None`` means the card; ``text`` and the adapter must live
-    there. On a mesh the step takes the global batch and returns JAX's
-    global loss; every rank encodes every prompt (the prompt batch is
+    there. On a mesh the step takes the rank's rows of the global batch
+    (``sharding.shard_rows``; its features as ``stage1_features_fn`` gives
+    them) and returns JAX's global loss; every rank encodes every prompt (the prompt batch is
     replicated over the data axis, which JAX's batch constraint only
     spreads), the text tower Megatron-sharded over a model axis."""
     _check_mesh(mesh, sequence_parallel)
@@ -361,8 +358,9 @@ def make_stage2_step(vit: VisionTransformer, cfg: CLIPConfig,
 
     ``device=None`` means the card and raises when there is none; ``vit``
     and the adapter must already live there. On a mesh the step takes the
-    global batch (each microbatch divisible by the data size) and returns
-    JAX's global loss; a model axis shards the trunk, whose attention hook
+    rank's rows of the global batch (``sharding.shard_rows``; every rank
+    the same count, a multiple of ``grad_accum``) and returns JAX's global
+    loss; a model axis shards the trunk, whose attention hook
     must then be a ``make_attn_fn`` one (the default)."""
     _check_mesh(mesh, sequence_parallel)
     _no_int8(policy)

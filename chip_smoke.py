@@ -72,7 +72,8 @@ Needs one CUDA card and nvcc. Phases, each of which fails the run:
     bench's [16, 1370, 1024], and stage-1 images/s at batch 16 in both
     V-V modes.
  8. the fused-block path (``ops/fused_block.py``, ``fused_block.cu``; bf16
-    on the TMA + wgmma GEMM, fp32 on the FMA kernels): (a) ``ln_linear``
+    on the TMA + wgmma GEMM, fp32 under "high" on its 3-pass mode, fp32
+    on the FMA kernels): (a) ``ln_linear``
     (B5, to 3D and D columns), ``linear_residual`` (B6) and ``mlp_fused``
     (B7, under each activation) against their plain versions in bf16 and
     fp32, each kernel run twice bit for bit, at the predict's batch-32
@@ -101,7 +102,15 @@ Needs one CUDA card and nvcc. Phases, each of which fails the run:
     B5-B7, SDPA for B4), each bf16 GEMM with output tiles of the source's
     own width, of 128 and of 256 columns (ms per call, and per GEMM launch
     from torch.profiler), and the fused predict's maps/s beside the
-    unfused one's.
+    unfused one's; (f-i) the same under fp32_high, the kernels' 3-pass
+    mode (B8): B5-B7 against their plain 3-pass versions and fp64 at batch
+    8 and the GEMM's edges, 3 / 2 / 4 kernels per call; the fused fp32_high
+    predict at batch 8, staged and unstaged, against the plain-block and
+    the unfused predicts at phase 11's bars, 24 3-pass calls of each
+    wrapper, maps/s beside the unfused ones; the kernels' times at batch 8
+    beside their bounds, plain versions and the unfused sequence; and
+    ``bench --mode block --precision fp32_high --batch_size 8`` (see the
+    notes before ``HIGH_FUSED_CASES``).
  9. the evaluation CLI from checkpoints (``python -m aaclip_tpu_torch.test``
     through ``main``): a seeded ViT-L-14-336 at its native 336 px saved as
     an OpenAI-layout state dict (the loader resizes the positional
@@ -188,8 +197,10 @@ Needs one CUDA card and nvcc. Phases, each of which fails the run:
     and B1's launches 24 x (the batches ``/statz`` counts + 4 warm-up
     buckets), with the start-up split, each request's latency and the
     phase split printed; (d) ``bench --mode serve`` in-process: closed
-    loop with 8 clients for 10 s, open loop at half its rate for 10 s, the
-    closed loop with ``--map_stride 4``, no error in any.
+    loop with 8 clients of SERVE_CLOSED_REQUESTS requests each (``--steps``
+    counts a closed-loop client's requests, as JAX's bench does; exactly
+    that many served), open loop at half its rate for 10 s, the closed
+    loop with ``--map_stride 4``, no error in any.
 13. int8 inference and the exported serving artifact at ViT-L/518: (a)
     the int8 predict (``--precision int8``, uint8 inputs) at batch 32
     against the same int8 trunk on the plain attention (scores at phase
@@ -227,7 +238,9 @@ Needs one CUDA card and nvcc. Phases, each of which fails the run:
     running ``chip_smoke.py --parallel-clis``): ``test --data_parallel``
     on a 16-image class, its table and scores bit for bit the
     single-process CLI's, ``train --data_parallel`` (one text and one
-    image epoch), its per-step losses bit for bit, and ``bench
+    image epoch), its per-step losses bit for bit (each data rank loads,
+    decodes and predicts only its rows, which at world 1 are all of
+    them), and ``bench
     --data_parallel`` beside the plain bench; (e) the serving engine with
     ``data_parallel=True`` (one replica), every answer bit for bit the
     engine's without it, live and (inside 13d) on the bf16 artifact.
@@ -236,7 +249,7 @@ plain version, in bf16 and fp32, at [16, 1370, 1024], ragged S and head
 dim 16, and against the standard mode on the value section tripled.
 Then it prints the whole script's time and the kernel table as one JSON
 line (the 3-pass and 6-pass modes, ``split3`` and ``split2`` as rows of
-their own;
+their own; B5-B7's 3-pass rows with their distance from fp64;
 each 6-pass row's ``calls`` are the fp32 paths' launches, its
 ``launches`` phase 4's fp32 predict's for B1 and ``split3``, phase 5b's
 for B2 and B3) (``launches`` counts the
@@ -250,7 +263,9 @@ those kernels in three calls, no cast or copy, and each of them at least
 once in up to DEVICE_OPS_TRACES traces: 1 for the forward, 2 for the
 backward (a dQ and a dK/dV kernel), 2 for ``ln_linear`` (row
 statistics, GEMM), 1 for ``linear_residual``, 3 for ``mlp_fused``
-(statistics, fc, proj); the fp32 routes add their splits), the card
+(statistics, fc, proj), and on the 3-pass mode 3, 2 and 4 (the splits
+into planes before the GEMMs); the fp32 attention routes add their
+splits), the card
 line, and the result line ``{"ok":
 true, "device": {...}}`` last. Exits non-zero without a result
 when there is no card.
@@ -261,6 +276,7 @@ from __future__ import annotations
 import copy
 import functools
 import json
+import math
 import shutil
 import sys
 import tempfile
@@ -457,17 +473,24 @@ def check_device_ops() -> None:
     runs that had traced before them, so phases 5-7 run first; phase 8e
     traces too, so phases 9-11 always ran after a trace."""
     for fn, want, what in DEVICE_OPS_CHECKS:
-        seen, traces = {}, 0
+        seen, us, traces = {}, {}, 0
         while set(seen) != set(want) and traces < DEVICE_OPS_TRACES:
             traces += 1
-            for name, (count, _) in device_ops(fn, 3).items():
+            for name, (count, t) in device_ops(fn, 3).items():
                 part = next((p for p in want if p in name), name)
                 seen[part] = seen.get(part, 0) + count
+                us[part] = us.get(part, 0.0) + t
             expect(set(seen) <= set(want),
                    f"{what} runs {sorted(set(seen) - set(want))} beside its "
                    f"kernels")
         print(f"{what}: device operations of {3 * traces} calls in {traces} "
               f"trace(s) (profiler): {seen}")
+        # each kernel's mean device time times its launches per call
+        per_call = {p: us[p] / seen[p] * want[p] for p in want if p in seen}
+        total = sum(per_call.values())
+        print(f"{what}: device ms per call by kernel (profiler): " + ", ".join(
+            f"{p} {t / 1e3:.4f} ({t / total:.1%})"
+            for p, t in per_call.items()))
         expect(set(seen) == set(want),
                f"{what}: the profiler saw {sorted(seen)} of {sorted(want)} "
                f"in {traces} traces")
@@ -1725,7 +1748,7 @@ def check_fused_kernels(dtype_name: str) -> dict:
         y = torch.randn(B, S, D, generator=gen, device="cuda").to(dtype)
         print(f"fused kernels {dtype_name} x [{B},{S},{D}], hidden {F}:")
         acts = (L.gelu, L.gelu_tanh, L.quick_gelu)
-        if not FB._mlp_widths_ok(dtype, D, F):
+        if not FB._mlp_widths_ok(FB.route(dtype, policy.precision), D, F):
             print(f"  mlp_fused: no {dtype_name} kernel at width {D} (the "
                   f"fp32 MLP is instantiated at {FB.KERNEL_MLP_WIDTHS})")
             expect(dtype_name == "fp32", f"no bf16 MLP at width {D}")
@@ -1851,12 +1874,23 @@ def fused_counts():
 
 def zero_fused_counts() -> None:
     from aaclip_tpu_torch.ops import fused_block as FB
-    from aaclip_tpu_torch.ops.attention import attention_kernel
 
     zero_counts()
-    FB.ln_linear.launches = FB.linear_residual.launches = 0
-    FB.mlp_fused.launches = attention_kernel.launches = 0
-    attention_kernel.launches_3pass = attention_kernel.launches_6pass = 0
+    for wrapper in (FB.ln_linear, FB.linear_residual, FB.mlp_fused):
+        wrapper.launches = wrapper.launches_3pass = 0
+
+
+def fused_counts_3pass():
+    """The 3-pass launches of ``ln_linear``, ``linear_residual``,
+    ``mlp_fused``, ``attention_packed`` and ``attention_packed_vv``, and
+    ``split2``'s launches."""
+    from aaclip_tpu_torch.ops import fused_block as FB
+    from aaclip_tpu_torch.ops.attention import (attention_packed,
+                                                attention_packed_vv, split2)
+
+    return (FB.ln_linear.launches_3pass, FB.linear_residual.launches_3pass,
+            FB.mlp_fused.launches_3pass, attention_packed.launches_3pass,
+            attention_packed_vv.launches_3pass, split2.launches)
 
 
 def plain_block_fn(heads: int, policy, act, vv: bool = False):
@@ -2182,6 +2216,297 @@ def time_fused(cfg, card):
         compare_tile_widths(FB, {name: c[0] for name, c in cases.items()},
                             card)
     return out
+
+
+# Phase 8f-8i, the fused block under fp32_high (fp32 operands, precision
+# "high"): B5-B7's 3-pass mode (fused_block.cu's split_kernel,
+# ln_split_kernel and gemm_3pass_wgmma). (f) Each kernel against its plain
+# version (the same split into bf16 halves, the three products as cuBLAS
+# bf16 GEMMs in matmul_3pass) at FUSED_FP32_OF_MAX of the output's max:
+# the two differ only in the order of the fp32 sums and in erff against
+# torch's erf; twice bit for bit; against fp64 at HIGH_FP64_MAX_REL of the
+# output's max, the attention 3-pass kernels' bar (the plain version's own
+# distance printed beside), at the fp32 parity batch 8 (10,960 rows) on
+# the QKV and the V-V value third, and at the GEMM's edges (one row over a
+# 128-row tile; width 128, where N 384 and 128 take one or three tiles).
+# (g) The fused fp32_high predict at batch 8 (24 calls of each wrapper,
+# every one 3-pass, and 24 3-pass attention launches after their split2
+# launches): staged (bf16_until 6, the policy's default, whose six prefix
+# blocks the fused block also runs 3-pass, as JAX's block_fn does) against
+# the predict on the plain-version blocks, and unstaged against the
+# unfused unstaged predict, both at phase 11's bars (PIX_*_FP32,
+# SCORE_ATOL_FP32); the staged fused predict against the unfused staged
+# one is printed (the unfused runs its prefix at bf16); maps/s of all
+# four. (h) Each kernel's ms, plain ms and the unfused sequence's ms
+# (LayerNorm, matmul_3pass, bias / activation / residual) at batch 8
+# beside its bound (three bf16 passes at 989 TFLOP/s). (i) ``bench --mode
+# block --precision fp32_high --batch_size 8``.
+HIGH_FUSED_CASES = [(TRAIN_BATCH, 1370, 1024, 4096), (1, 129, 1024, 4096),
+                    (2, 21, 128, 512)]
+# kernels per call of each 3-pass wrapper (ln_split_kernel first: the
+# profiler's names are matched by substring)
+HIGH_PER_CALL = {"ln_linear": {"ln_split_kernel": 1, "split_kernel": 1,
+                               "gemm_3pass_wgmma": 1},
+                 "linear_residual": {"split_kernel": 1,
+                                     "gemm_3pass_wgmma": 1},
+                 "mlp_fused": {"ln_split_kernel": 1, "split_kernel": 1,
+                               "gemm_3pass_wgmma": 2}}
+
+
+def fused_fp64(name: str, t: dict, y, act):
+    """The exact value of one of ``fused_calls``' outputs, in fp64 from
+    the same fp32 inputs."""
+    import torch
+
+    x, g, b = (t[k].double() for k in ("x", "g", "b"))
+    D = x.shape[-1]
+
+    def ln(v):
+        m = v.mean(-1, keepdim=True)
+        var = (v - m).square().mean(-1, keepdim=True)
+        return (v - m) / torch.sqrt(var + 1e-5) * g + b
+
+    w, bias = t["w"].double(), t["bias"].double()
+    if name.startswith("ln_linear F="):
+        n = int(name.split("=")[1])
+        return ln(x) @ w[:n].T + bias[:n]
+    if name == "linear_residual":
+        return x + (y.double() @ w[:D].T + bias[:D])
+    h = act(ln(x) @ w.T + bias)
+    return x + h @ t["w2"].double().T + t["bias2"].double()
+
+
+def check_fused_kernels_3pass() -> dict:
+    """Phase 8f; returns {name: max |d| against the plain version} at
+    batch 8 and {name: distance from fp64} as {"err": ..., "fp64": ...}."""
+    import torch
+
+    from aaclip_tpu_torch.core.config import DtypePolicy
+    from aaclip_tpu_torch.kernels.build import kernels_launched
+    from aaclip_tpu_torch.models import layers as L
+    from aaclip_tpu_torch.ops import fused_block as FB
+
+    high = DtypePolicy.fp32_high()
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    out = {"err": {}, "fp64": {}}
+    acts = (L.gelu, L.quick_gelu, L.gelu_tanh)
+    per_call = {"ln_linear": 3, "linear_residual": 2, "mlp_fused": 4}
+    with torch.inference_mode():
+        for B, S, D, F in HIGH_FUSED_CASES:
+            t = fused_inputs(B, S, D, F, torch.float32, gen)
+            y = torch.randn(B, S, D, generator=gen, device="cuda")
+            print(f"fused kernels fp32_high (3-pass) x [{B},{S},{D}], hidden "
+                  f"{F}:")
+            plain = fused_calls(FB, t, y, high, acts, plain=True)
+            for name, fn in fused_calls(FB, t, y, high, acts).items():
+                wrapper = getattr(FB, name.split()[0])
+                before = (wrapper.launches_3pass,
+                          kernels_launched("fused_block"))
+                got = twice(fn, name)
+                torch.cuda.synchronize()
+                n3 = wrapper.launches_3pass - before[0]
+                nk = kernels_launched("fused_block") - before[1]
+                expect(n3 == 2 and nk == 2 * per_call[name.split()[0]],
+                       f"{name}: {n3} 3-pass calls, {nk} kernels in two "
+                       f"calls")
+                want = plain[name]()
+                err = fused_err(got, want, "fp32", f"{name} (3-pass)")
+                if B != TRAIN_BATCH:
+                    continue
+                act = next((a for a in acts
+                            if name.split()[-1] == a.__name__), None)
+                exact = fused_fp64(name, t, y, act)
+                top = exact.abs().max().item()
+                rel = (got.double() - exact).abs().max().item() / top
+                rel_plain = (want.double() - exact).abs().max().item() / top
+                print(f"    from fp64: kernel {rel:.3e}, plain version "
+                      f"{rel_plain:.3e} of the output's max")
+                expect(rel <= HIGH_FP64_MAX_REL,
+                       f"{name} (3-pass) off fp64: {rel}")
+                key = name.split()[0]
+                out["err"][key] = max(out["err"].get(key, 0.0), err)
+                out["fp64"][key] = max(out["fp64"].get(key, 0.0), rel)
+                del exact, got, want
+            del t, y, plain
+            torch.cuda.empty_cache()
+    return out
+
+
+def phase_fused_predict_3pass(vit, adapter, cfg, acfg, anchors, M,
+                              card) -> dict:
+    """Phase 8g: returns {"calls": {predict: {wrapper: its 3-pass
+    launches}}, "rates": {predict: maps/s}} of the fused fp32_high
+    predicts."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from aaclip_tpu_torch.core.config import DtypePolicy
+    from aaclip_tpu_torch.eval.predict import make_predict_fn
+    from aaclip_tpu_torch.kernels.build import kernels_launched
+    from aaclip_tpu_torch.models.layers import config_act
+    from aaclip_tpu_torch.ops.fused_block import make_block_fn
+
+    heads, img, n_layers = cfg.vision.heads, cfg.vision.image_size, \
+        cfg.vision.layers
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    images = torch.randn(TRAIN_BATCH, 3, img, img, generator=gen,
+                         device="cuda")
+    high = DtypePolicy.fp32_high()
+    rates, calls = {}, {}
+    for pol in (high, dataclasses.replace(high, bf16_until=0)):
+        K = pol.bf16_until
+        act = config_act(cfg, pol)
+        fused = make_predict_fn(vit, cfg, acfg, policy=pol,
+                                block_fn=make_block_fn(heads, pol, act=act))
+        ref = make_predict_fn(vit, cfg, acfg, policy=pol,
+                              block_fn=plain_block_fn(heads, pol, act))
+        unfused = make_predict_fn(vit, cfg, acfg, policy=pol)
+        zero_fused_counts()
+        k0 = kernels_launched("fused_block")
+        pix_f, score_f = fused(adapter, images, anchors, M)
+        torch.cuda.synchronize()
+        c, c3 = fused_counts(), fused_counts_3pass()
+        nk = kernels_launched("fused_block") - k0
+        what = f"fused predict fp32_high bf16_until {K} B={TRAIN_BATCH}"
+        print(f"{what}: launches per call ln_linear {c[0]}, attention_packed"
+              f" {c[1]}, linear_residual {c[3]}, mlp_fused {c[4]}; 3-pass "
+              f"{c3[:4]}, split2 {c3[5]}; {nk} fused_block kernels")
+        expect(c == (n_layers, n_layers, 0, n_layers, n_layers, 0)
+               and c3 == (n_layers,) * 4 + (0, n_layers)
+               and nk == n_layers * (3 + 2 + 4),
+               f"{what}: launches {c}, 3-pass {c3}, kernels {nk}")
+        expect(pix_f.shape == (TRAIN_BATCH, img, img)
+               and bool(torch.isfinite(pix_f).all()
+                        and torch.isfinite(score_f).all()),
+               f"{what}: output {pix_f.shape} not finite")
+        zero_fused_counts()
+        pix_r, score_r = ref(adapter, images, anchors, M)
+        pix_u, score_u = unfused(adapter, images, anchors, M)
+        torch.cuda.synchronize()
+        expect(fused_counts()[0] == 0, f"{what}: the plain blocks launched")
+        span = (pix_u.max() - pix_u.min()).item()
+        for name, pix, score in (("plain-block", pix_r, score_r),
+                                 ("unfused", pix_u, score_u)):
+            d = (pix_f - pix).abs().max().item()
+            ds = (score_f - score).abs().max().item()
+            print(f"  vs the {name} predict: max|d map| {d:.3e} "
+                  f"({d / span:.3e} of span {span:.4f}), max|d score| "
+                  f"{ds:.3e}")
+        torch.testing.assert_close(pix_f, pix_r, atol=PIX_ATOL_FP32,
+                                   rtol=PIX_RTOL_FP32)
+        torch.testing.assert_close(score_f, score_r, atol=SCORE_ATOL_FP32,
+                                   rtol=0)
+        if not K:  # unstaged: the unfused predict runs the same products
+            torch.testing.assert_close(pix_f, pix_u, atol=PIX_ATOL_FP32,
+                                       rtol=PIX_RTOL_FP32)
+            torch.testing.assert_close(score_f, score_u,
+                                       atol=SCORE_ATOL_FP32, rtol=0)
+        calls[f"fused fp32_high predict, bf16_until {K}"] = dict(
+            zip(("ln_linear", "linear_residual", "mlp_fused"), c3[:3]))
+        for name, fn in (("fused", fused), ("unfused", unfused)):
+            rates[f"{name} fp32_high, bf16_until {K}"] = TRAIN_BATCH / \
+                cuda_ms(lambda: fn(adapter, images, anchors, M), 3,
+                        warmup=1) * 1e3
+        del fused, ref, unfused, pix_f, pix_r, pix_u
+        gc.collect()
+        torch.cuda.empty_cache()
+    for name, r in rates.items():
+        print(f"time predict {name} B={TRAIN_BATCH} ViT-L/518: {r:.2f} "
+              f"maps/s on {card}")
+    return {"calls": calls, "rates": rates}
+
+
+def time_fused_3pass(cfg, card) -> dict:
+    """Phase 8h: {name: (ms, plain ms, library ms, bound ms, bound_by,
+    kernels per call)} of each 3-pass wrapper at batch 8."""
+    import torch
+
+    from aaclip_tpu_torch.core.config import DtypePolicy
+    from aaclip_tpu_torch.models import layers as L
+    from aaclip_tpu_torch.ops import fused_block as FB
+
+    high = DtypePolicy.fp32_high()
+    D, F, B, S = cfg.vision.width, int(cfg.vision.width *
+                                       cfg.vision.mlp_ratio), TRAIN_BATCH, \
+        cfg.vision.seq_len
+    R = B * S
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    t = fused_inputs(B, S, D, F, torch.float32, gen)
+    x, g, b = t["x"], t["g"], t["b"]
+    wqkv = torch.randn(3 * D, D, generator=gen, device="cuda") * D ** -0.5
+    bqkv = torch.randn(3 * D, generator=gen, device="cuda") * 0.02
+    y = torch.randn(B, S, D, generator=gen, device="cuda")
+    wo, bo = t["w"][:D].contiguous(), t["bias"][:D].contiguous()
+    act = L.config_act(cfg, high)
+    e = 4  # bytes of an fp32 element
+    mlp_p = SimpleNamespace(
+        c_fc=SimpleNamespace(weight=t["w"], bias=t["bias"]),
+        c_proj=SimpleNamespace(weight=t["w2"], bias=t["bias2"]))
+    cases = {
+        "ln_linear": (
+            functools.partial(FB.ln_linear, x, g, b, wqkv, bqkv, high),
+            lambda: FB.ln_linear_plain(x, g, b, wqkv, bqkv, high),
+            lambda: L.linear(L.layer_norm(x, g, b), wqkv, bqkv, high),
+            3 * 2 * R * D * 3 * D,
+            (R * D + 3 * D * D + 3 * D + 2 * D + R * 3 * D) * e),
+        "linear_residual": (
+            functools.partial(FB.linear_residual, x, y, wo, bo, high),
+            lambda: FB.linear_residual_plain(x, y, wo, bo, high),
+            lambda: x + L.linear(y, wo, bo, high),
+            3 * 2 * R * D * D, (3 * R * D + D * D + D) * e),
+        "mlp_fused": (
+            functools.partial(FB.mlp_fused, x, g, b, t["w"], t["bias"],
+                              t["w2"], t["bias2"], act, high),
+            lambda: FB.mlp_fused_plain(x, g, b, t["w"], t["bias"], t["w2"],
+                                       t["bias2"], act, high),
+            lambda: x + L.mlp(L.layer_norm(x, g, b), mlp_p, act, high),
+            3 * 4 * R * D * F, (2 * R * D + 2 * D * F + F + 3 * D) * e),
+    }
+    out = {}
+    with torch.inference_mode():
+        for name, (kern, plain, lib, flops, nbytes) in cases.items():
+            ms = cuda_ms(kern, 20)
+            n = kernels_per_call(kern, "fused_block", HIGH_PER_CALL[name],
+                                 f"{name} (3-pass)")
+            ms_plain = cuda_ms(plain, 5)
+            ms_lib = cuda_ms(lib, 5)
+            bound_ms, bound_by = bound(flops, nbytes)
+            out[name] = (ms, ms_plain, ms_lib, bound_ms, bound_by, n)
+            print(f"time {name} (3-pass) [{B},{S},{D}] fp32_high: kernel "
+                  f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s of bf16 "
+                  f"passes), plain {ms_plain:.4f}, unfused sequence "
+                  f"{ms_lib:.4f}; bound {bound_ms:.4f} ms by {bound_by} "
+                  f"on {card}")
+    return out
+
+
+def bench_block_high(card) -> dict:
+    """Phase 8i: one in-process ``python -m aaclip_tpu_torch.bench --mode
+    block --precision fp32_high --batch_size 8`` run's JSON line."""
+    import contextlib
+    import gc
+    import io
+
+    import torch
+
+    from aaclip_tpu_torch import bench
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        bench.main(["--mode", "block", "--precision", "fp32_high",
+                    "--batch_size", str(TRAIN_BATCH)])
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    print(f"bench --mode block --precision fp32_high --batch_size "
+          f"{TRAIN_BATCH}: {json.dumps(line)}")
+    expect(line["metric"] == "fused_block_trunk_ms" and line["value"] > 0
+           and "fp32_high" in line["unit"]
+           and math.isfinite(line["max_rel_dev"]),
+           f"bench --mode block fp32_high: {line}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
 
 
 # Phase 9, the evaluation CLI from checkpoints, on a synthetic MVTec set
@@ -4172,13 +4497,16 @@ def phase_fp32_high(vit, adapter, cfg, acfg, anchors, M, card,
 # against the same image's full map sliced, exactly (both served alone,
 # bucket 1); B1's launches 24 x (the batches /statz counts + the 4
 # warm-up buckets). (d) ``python -m aaclip_tpu_torch.bench --mode serve``
-# in-process: closed loop, 8 clients, 10 s; open loop at half that rate,
-# 10 s; the closed loop again with --map_stride 4; no error in any.
+# in-process: closed loop, 8 clients of SERVE_CLOSED_REQUESTS requests each
+# (``--steps`` counts a closed-loop client's requests, as in JAX's bench:
+# exactly 8 x that many served); open loop at half that rate, 10 s; the
+# closed loop again with --map_stride 4; no error in any.
 MB_SUPPORT, MB_BATCH, MB_SHOT = 4, 8, 4
 MB_SELF_MAX = 1e-3
 MB_PIX_SPAN_FRAC = 2 * PIX_SPAN_FRAC_BF16
 SERVE_CLASSES = ("bottle", "cable", "capsule")
 SERVE_REQUESTS, SERVE_PNG_PX, SERVE_SECONDS = 8, 700, 10
+SERVE_CLOSED_REQUESTS = 100  # per client: ~6 s at ~130 maps/s
 WARMUP_BUCKETS = 4  # 1, 2, 4, 8 at max_batch 8
 
 
@@ -4626,7 +4954,9 @@ def phase_serve(card, ckpt_path: str) -> dict:
 
 def bench_serve_line(argv) -> dict:
     """One in-process ``python -m aaclip_tpu_torch.bench --mode serve``
-    run's JSON line; its requests must all have succeeded."""
+    run's JSON line: the closed loop (``--clients``) SERVE_CLOSED_REQUESTS
+    requests per client, all of them served, the open loop
+    (``--open_loop``) SERVE_SECONDS of arrivals; no request may fail."""
     import contextlib
     import gc
     import io
@@ -4635,12 +4965,20 @@ def bench_serve_line(argv) -> dict:
 
     from aaclip_tpu_torch import bench
 
+    closed = "--open_loop" not in argv
+    steps = SERVE_CLOSED_REQUESTS if closed else SERVE_SECONDS
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        bench.main(["--mode", "serve", "--steps", str(SERVE_SECONDS)] + argv)
+        bench.main(["--mode", "serve", "--steps", str(steps)] + argv)
     line = json.loads(out.getvalue().strip().splitlines()[-1])
     expect(line["errors"] == 0 and line["served"] > 0,
            f"bench --mode serve {' '.join(argv)}: {line}")
+    if closed:
+        clients = int(argv[argv.index("--clients") + 1])
+        expect(line["served"] == clients * steps
+               and f"x {steps} requests" in line["unit"],
+               f"bench --mode serve {' '.join(argv)}: served "
+               f"{line['served']}, not {clients} x {steps} requests")
     gc.collect()
     torch.cuda.empty_cache()
     return line
@@ -6059,7 +6397,14 @@ def main() -> int:
            "the fused predict's attention launches differ from the "
            "predict's")
     phase_encode_image(vit, cfg)
+    # -- 8f-8i. the fused block under fp32_high (the 3-pass mode, B8)
+    print(f"[{time.perf_counter() - t0:.0f} s] fused block fp32_high")
+    high_fused = check_fused_kernels_3pass()
+    high_predict = phase_fused_predict_3pass(vit, adapter, cfg, acfg,
+                                             anchors, M, card)
     fused_times = time_fused(cfg, card)
+    fused_high_times = time_fused_3pass(cfg, card)
+    bench_block_high(card)
     # -- 11f. the fp32 kernels' times, then every traced check while the
     # profiler still returns whole traces
     fp32_times = time_kernels_fp32(card)
@@ -6110,6 +6455,15 @@ def main() -> int:
          fused_launches["mlp_fused"], err_fused["mlp_fused"]),
     ]
     hc = high["calls"]
+    # B5-B7's 3-pass mode: launches on the fused fp32_high predict (staged,
+    # the policy's default), calls on both fused fp32_high predicts
+    high_fused_rows = [
+        (name, replaces, {k: v[name] for k, v in
+                          high_predict["calls"].items()})
+        for name, replaces in (
+            ("ln_linear", "aaclip_tpu/ops/fused_block.py:124"),
+            ("linear_residual", "aaclip_tpu/ops/fused_block.py:179"),
+            ("mlp_fused", "aaclip_tpu/ops/fused_block.py:244"))]
     # (name, source, replaces, launches on the main path, calls per path,
     # max |d|): B1's on the staged predict, B2's on the stage-2 step, B3's
     # on the spatial features, B4 on no path (at head dim 64 each on the
@@ -6239,6 +6593,21 @@ def main() -> int:
         "bound_by": fused_times[name][4],
         "library_ms": fused_times[name][2],
     } for name, source, replaces, launches, err in fused_rows] + [{
+        "name": f"{name} (3-pass)",
+        "route": "cuda",
+        "source": "aaclip_tpu_torch/kernels/csrc/fused_block.cu",
+        "replaces": replaces,
+        "launches": calls["fused fp32_high predict, bf16_until 6"],
+        "calls": calls,
+        "kernels_per_call": fused_high_times[name][5],
+        "max_abs_err": high_fused["err"][name],
+        "fp64_of_max": high_fused["fp64"][name],
+        "ms": fused_high_times[name][0],
+        "plain_ms": fused_high_times[name][1],
+        "bound_ms": fused_high_times[name][3],
+        "bound_by": fused_high_times[name][4],
+        "library_ms": fused_high_times[name][2],
+    } for name, replaces, calls in high_fused_rows] + [{
         "name": f"{name} (3-pass)",
         "route": "cuda",
         "source": f"aaclip_tpu_torch/kernels/csrc/{source}",

@@ -39,8 +39,10 @@ Bars:
   4e-5 (read: 1.15e-5 and 7.8e-6; JAX's text tower is XLA, true fp32
   here), one step's gradients within 6e-5 of each leaf's max (read:
   1.2e-5).
-* ``make_block_fn`` under "high" raises naming ROADMAP B8, and
-  ``maybe_make_block_fn`` gives None.
+* ``make_block_fn`` under "high" builds the fused block on the kernels'
+  3-pass mode (its arithmetic against JAX's Pallas kernels is
+  ``test_torch_fused_block.py``'s), and ``maybe_make_block_fn`` gives
+  None, as JAX's gate admits bf16 alone.
 """
 
 import dataclasses
@@ -481,13 +483,25 @@ def test_fp32_high_stage1_gradients_match_jax(s1case):
 # ------------------------------------------------------- the fused block
 
 def test_fp32_high_fused_block_raises_naming_b8(monkeypatch):
-    """B5-B7's 3-pass mode is not ported: ``make_block_fn`` under "high"
-    raises naming it, and the gate gives None under fp32_high even on the
+    """B5-B7's 3-pass mode (ROADMAP B8) is ported: ``make_block_fn`` under
+    "high" builds a block whose wrappers take the 3-pass route on fp32
+    operands (their CPU tensors run the 3-pass plain versions, which count
+    no launch), and the gate still gives None under fp32_high even on the
     card, as JAX's gate admits bf16 alone."""
-    with pytest.raises(NotImplementedError, match="ROADMAP B8"):
-        FB.make_block_fn(4, DtypePolicy.fp32_high(), act=L.gelu)
+    high = DtypePolicy.fp32_high()
+    block = FB.make_block_fn(4, high, act=L.gelu)
+    assert callable(block)
+    assert FB.route(torch.float32, high.precision) == FB.HIGH
+    assert FB.HIGH in FB.TMA_ROUTES
+    assert FB.fused_block_supported(get_config("ViT-L-14-336"), high)
+    blk = L.ResidualBlock(256, 4.0).requires_grad_(False)
+    x = torch.randn(1, 5, 256)
+    before = (FB.ln_linear.launches, FB.mlp_fused.launches_3pass)
+    out = block(x, blk)
+    assert out.shape == x.shape and out.dtype == torch.float32
+    assert before == (FB.ln_linear.launches, FB.mlp_fused.launches_3pass)
     # its bf16 prefix policy and the other policies still build
-    FB.make_block_fn(4, DtypePolicy.fp32_high().prefix_policy(), act=L.gelu)
+    FB.make_block_fn(4, high.prefix_policy(), act=L.gelu)
     FB.make_block_fn(4, DtypePolicy.fp32(), act=L.gelu)
     vit_l = get_config("ViT-L-14-336")
     assert FB.maybe_make_block_fn(vit_l, DtypePolicy.fp32_high(),

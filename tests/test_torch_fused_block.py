@@ -11,7 +11,13 @@ Pallas kernels in interpret mode, at tests/test_fused_block.py's shapes (D
 * the gate, the wrappers' refusals, their C signatures and the route
   table;
 * the plain ``ln_linear`` and ``mlp_fused`` at ViT-B's width (D 768, F
-  3072, B 1, S 5), which the bf16 kernels take.
+  3072, B 1, S 5), which the bf16 and 3-pass kernels take.
+
+Each under fp32, bf16 and fp32_high (fp32 under precision "high", the
+kernels' 3-pass mode; unstaged, ``bf16_until`` 0, so that every product of
+the predictor's tower is 3-pass: the staged prefix is
+``test_torch_fp32_high.py``'s), the wrappers, the blocks and the
+predictor.
 
 The CUDA kernels themselves are held against the plain versions on the
 card by chip_smoke.py (phase 8); here only the arithmetic the kernels copy
@@ -19,7 +25,15 @@ and the wrappers' routing are.
 
 fp32 bar: atol = rtol = 2e-5, JAX's own (``test_fused_block.py:51``): the
 same fp32 arithmetic in another summation order, and the exact erf against
-the TPU kernel's rational erf (|err| <= 1.5e-7). bf16 bar: JAX compiled
+the TPU kernel's rational erf (|err| <= 1.5e-7). fp32_high holds the same
+bar: both sides split every operand into the same bf16 halves and sum the
+three exact products in fp32 in another order (JAX's ``(hi.hi + hi.lo) +
+lo.hi``, the port's ``hi.hi + (hi.lo + lo.hi)``), plus the rational erf.
+Its predictor sits at ``test_torch_fp32_high.py``'s unstaged bars (map
+within 5e-5 of its span, scores atol 5e-6): JAX's products outside the
+Pallas kernels (the patch embedding, the adapters, the projections) are
+XLA dots, which this CPU computes at "high" as true fp32, where the port
+runs them 3-pass. bf16 bar: JAX compiled
 with XLA's excess precision off (``test_torch_train.strict``) rounds the
 normalised rows, the MLP's hidden and the output to bf16 at the points the
 port does, and sums in fp32 in another order, so an output rounding may
@@ -63,12 +77,16 @@ from tests.test_torch_train import strict
 D, F, HEADS = 128, 512, 2
 B, S = 2, 21
 POLICIES = {"fp32": (JPolicy.fp32(), DtypePolicy.fp32()),
-            "bf16": (JPolicy.bf16(), DtypePolicy.bf16())}
+            "bf16": (JPolicy.bf16(), DtypePolicy.bf16()),
+            "fp32_high": (JPolicy.fp32_high().unstaged(),
+                          DtypePolicy.fp32_high().unstaged())}
 FP32_TOL = 2e-5
 BF16_REL, BF16_OF_MAX = 2 ** -7, 2 ** -8
+HIGH_PIX_SPAN_FRAC, HIGH_SCORE_ATOL = 5e-5, 5e-6
 # each policy's own activation, and QuickGELU (the quick_gelu configs)
 ACTS = [("fp32", "gelu"), ("fp32", "quick_gelu"), ("bf16", "gelu_tanh"),
-        ("bf16", "quick_gelu")]
+        ("bf16", "quick_gelu"), ("fp32_high", "gelu"),
+        ("fp32_high", "quick_gelu")]
 
 
 def block_arrays(seed=0):
@@ -133,7 +151,7 @@ def assert_matches(got: torch.Tensor, want: np.ndarray, policy: str,
                    tol: float = FP32_TOL) -> None:
     got = got.float().numpy()
     assert got.shape == want.shape
-    if policy == "fp32":
+    if policy != "bf16":
         np.testing.assert_allclose(got, want, atol=tol, rtol=tol)
     else:
         over = np.abs(got - want) - BF16_REL * np.abs(want)
@@ -142,7 +160,7 @@ def assert_matches(got: torch.Tensor, want: np.ndarray, policy: str,
 
 
 @pytest.mark.parametrize("section", ["qkv", "value_third"])
-@pytest.mark.parametrize("policy", ["fp32", "bf16"])
+@pytest.mark.parametrize("policy", ["fp32", "bf16", "fp32_high"])
 def test_ln_linear_matches_jax(data, policy, section):
     x, p, blk = data
     jpol, tpol = POLICIES[policy]
@@ -159,7 +177,7 @@ def test_ln_linear_matches_jax(data, policy, section):
     assert_matches(got, want, policy)
 
 
-@pytest.mark.parametrize("policy", ["fp32", "bf16"])
+@pytest.mark.parametrize("policy", ["fp32", "bf16", "fp32_high"])
 def test_linear_residual_matches_jax(data, policy):
     x, p, blk = data
     jpol, tpol = POLICIES[policy]
@@ -227,7 +245,8 @@ def test_ln_linear_matches_jax_at_vit_b_width(wide, policy):
 
 
 @pytest.mark.parametrize("policy,act", [("fp32", "gelu"),
-                                        ("bf16", "gelu_tanh")])
+                                        ("bf16", "gelu_tanh"),
+                                        ("fp32_high", "gelu")])
 def test_mlp_fused_matches_jax_at_vit_b_width(wide, policy, act):
     x, ln, _, _, mlp = wide
     jpol, tpol = POLICIES[policy]
@@ -244,7 +263,7 @@ def test_mlp_fused_matches_jax_at_vit_b_width(wide, policy, act):
 
 
 @pytest.mark.parametrize("vv", [False, True], ids=["standard", "vv"])
-@pytest.mark.parametrize("policy", ["fp32", "bf16"])
+@pytest.mark.parametrize("policy", ["fp32", "bf16", "fp32_high"])
 def test_block_fn_matches_jax(data, policy, vv):
     x, p, blk = data
     jpol, tpol = POLICIES[policy]
@@ -313,7 +332,7 @@ def test_encode_image_rejects_bad_taps():
         encode_image(vit, tcfg, torch.zeros(1, 3, 56, 56), (4,))
 
 
-@pytest.mark.parametrize("policy", ["fp32", "bf16"])
+@pytest.mark.parametrize("policy", ["fp32", "bf16", "fp32_high"])
 def test_predict_with_block_fn_matches_jax(policy):
     """The predictor with the fused block on the 128-wide tower against
     JAX's with its fused block (interpret mode); bf16 with uint8 inputs.
@@ -321,7 +340,8 @@ def test_predict_with_block_fn_matches_jax(policy):
     three blocks, the projections and the 100x similarity: fp32 atol 1e-4,
     rtol 1e-5 (the predictor's bar in test_torch_model.py); bf16 within
     1e-2 of the map's span, scores atol 5e-3 (chip_smoke.py's predict
-    bars)."""
+    bars); fp32_high the unstaged bars of test_torch_fp32_high.py (see
+    the module docstring)."""
     jcfg, tcfg = small_configs()
     jpol, tpol = POLICIES[policy]
     levels = dict(levels=(2, 3), image_adapt_until=1)
@@ -358,6 +378,10 @@ def test_predict_with_block_fn_matches_jax(policy):
     if policy == "fp32":
         np.testing.assert_allclose(pix, jpix, atol=1e-4, rtol=1e-5)
         np.testing.assert_allclose(score, jscore, atol=1e-4, rtol=1e-5)
+    elif policy == "fp32_high":
+        span = jpix.max() - jpix.min()
+        assert np.abs(pix - jpix).max() <= HIGH_PIX_SPAN_FRAC * span
+        np.testing.assert_allclose(score, jscore, atol=HIGH_SCORE_ATOL)
     else:
         span = jpix.max() - jpix.min()
         assert np.abs(pix - jpix).max() <= 1e-2 * span
@@ -401,8 +425,9 @@ def test_width_checks_match_the_kernel_tiles():
     """The wrappers' width checks read the tiles fused_block.cu is
     instantiated for: the bf16 GEMM's 64-column reduction tile (one
     128-byte TMA row) and its output tiles of 128 and 256 columns (every N
-    the check admits has a tile), the LayerNorm cap, the fp32 tiles and
-    the fp32 MLP's widths and hidden tile."""
+    the check admits has a tile), the same GEMM's 3-pass mode at 128
+    columns, the LayerNorm cap, the fp32 tiles and the fp32 MLP's widths
+    and hidden tile."""
     import re
 
     src = (build.CSRC / "fused_block.cu").read_text()
@@ -410,14 +435,24 @@ def test_width_checks_match_the_kernel_tiles():
     def const(name):
         return int(re.search(rf"\b{name} = (\d+)", src).group(1))
 
-    assert FB._GEMM_TILES == {torch.bfloat16: (const("kBN"), const("kBK")),
-                              torch.float32: (const("kFBN"), const("kFBK"))}
+    assert FB._GEMM_TILES == {FB.BF16: (const("kBN"), const("kBK")),
+                              FB.HIGH: (const("kBN"), const("kBK")),
+                              FB.FP32: (const("kFBN"), const("kFBK"))}
     assert (const("kBK"), const("kBN"), const("kBNWide")) == (64, 128, 256)
+    assert "float acc[kBN / 2], part[kBN / 2];" in src  # 3-pass: 128 wide
     assert FB.KERNEL_MAX_K == const("kMaxK") == 1024
     assert FB.KERNEL_MLP_HIDDEN_TILE == const("kFHid")
     for d in FB.KERNEL_MLP_WIDTHS:
         assert f"case {d}:" in src
-    bf16, fp32 = torch.bfloat16, torch.float32
+    bf16, fp32, high = FB.BF16, FB.FP32, FB.HIGH
+    for key in (bf16, high):  # the engine's widths, in either mode
+        assert FB._gemm_widths_ok(key, 3072, 1024)
+        assert not FB._gemm_widths_ok(key, 3072, 2048)
+        assert FB._gemm_widths_ok(key, 1024, 4096, ln=False)
+        assert not FB._gemm_widths_ok(key, 192, 1024)
+        assert FB._mlp_widths_ok(key, 768, 3072)
+        assert FB._mlp_widths_ok(key, 1024, 4096)
+        assert not FB._mlp_widths_ok(key, 768, 3136)
     assert FB._gemm_widths_ok(bf16, 3072, 1024)
     assert FB._gemm_widths_ok(bf16, 384, 128)
     assert not FB._gemm_widths_ok(bf16, 3072, 2048)  # LN row over the cap
@@ -434,40 +469,63 @@ def test_width_checks_match_the_kernel_tiles():
 
 
 def test_routes_match_the_kernel_sources():
-    """The route table is the source's own: each C entry point sends fp32
-    to the FMA kernels and bf16 (the rest) to the TMA + wgmma GEMM, after
-    the row statistics where there is a LayerNorm; every __global__ kernel
-    of the source is one of the two routes'."""
+    """The route table is the source's own: the wrappers' mode codes are
+    the source's; each C entry point sends kModeF32 (fp32 under "highest")
+    to the FMA kernels, kMode3Pass (fp32 under "high") to the 3-pass mode
+    of the TMA + wgmma GEMM after the splits into planes, and kModeBf16 to
+    the bf16 GEMM after the row statistics where there is a LayerNorm, in
+    that order; every __global__ kernel of the source is one of the three
+    routes'."""
     import re
 
     src = (build.CSRC / "fused_block.cu").read_text()
-    assert FB.TMA_ROUTES == {torch.bfloat16}
+    assert FB.TMA_ROUTES == {FB.BF16, FB.HIGH}
+    assert FB.BF16 == FB.route(torch.bfloat16, "high") == (torch.bfloat16,
+                                                           None)
+    assert FB.FP32 == FB.route(torch.float32, None) == \
+        FB.route(torch.float32, "highest")
+    modes = {name: int(v) for name, v in
+             re.findall(r"\b(kMode\w+) = (\d+)", src)}
+    assert FB._MODES == {FB.FP32: modes["kModeF32"],
+                         FB.BF16: modes["kModeBf16"],
+                         FB.HIGH: modes["kMode3Pass"]}
 
     def body(entry):
         start = src.index(f'extern "C" int {entry}(')
         end = src.find('extern "C"', start + 1)
         return src[start:end if end > 0 else len(src)]
 
+    f32 = {"aaclip_ln_linear": ["launch_gemm_f32<true>"],
+           "aaclip_linear_residual": ["launch_gemm_f32<false>"],
+           "aaclip_mlp_fused": ["launch_mlp_f32<"]}
+    high = {"aaclip_ln_linear": ["launch_split(", "launch_ln_split(",
+                                 "launch_3pass_gemm<kEpiBias>"],
+            "aaclip_linear_residual": ["launch_split(",
+                                       "launch_3pass_gemm<kEpiResidual>"],
+            "aaclip_mlp_fused": ["launch_split(", "launch_ln_split(",
+                                 "launch_3pass_gemm<kEpiAct>",
+                                 "launch_3pass_gemm<kEpiProj>"]}
     tma = {"aaclip_ln_linear": ["launch_stats(", "launch_tma_gemm<true, "
                                 "kEpiBias>"],
            "aaclip_linear_residual": ["launch_tma_gemm<false, kEpiResidual>"],
            "aaclip_mlp_fused": ["launch_stats(", "launch_tma_gemm<true, "
                                 "kEpiAct>", "launch_tma_gemm<false, kEpiProj>"]}
-    f32 = {"aaclip_ln_linear": "launch_gemm_f32<true>",
-           "aaclip_linear_residual": "launch_gemm_f32<false>",
-           "aaclip_mlp_fused": "launch_mlp_f32<"}
-    for entry, calls in tma.items():
+    for entry in tma:
         b = body(entry)
-        split = b.index("if (!use_bf16)")
-        assert f32[entry] in b[split:] and "launch_tma_gemm" not in \
-            b[:split]
-        tail = b[b.index(f32[entry]):]
-        positions = [tail.index(c) for c in calls]
+        at_f32 = b.index("if (mode == kModeF32)")
+        at_high = b.index("if (mode == kMode3Pass)")
+        assert at_f32 < at_high
+        calls = f32[entry] + high[entry] + tma[entry]
+        positions = [b.index(c) for c in calls]
         assert positions == sorted(positions), entry  # in launch order
+        assert positions[len(f32[entry])] > at_high  # the 3-pass route's
+        assert "launch_tma_gemm" not in b[:b.index(tma[entry][0])]
+        assert "launch_3pass_gemm" not in b[at_f32:at_high]
     kernels = set(re.findall(
         r"__global__ void __launch_bounds__\([^)]*\)\s+(\w+)\(", src))
     assert kernels == {"row_stats_kernel", "gemm_wgmma", "gemm_f32_kernel",
-                       "mlp_f32_kernel"}
+                       "mlp_f32_kernel", "split_kernel", "ln_split_kernel",
+                       "gemm_3pass_wgmma"}
 
 
 def test_wrappers_refuse_inputs_that_require_grad(data):
@@ -529,15 +587,18 @@ def test_masked_block_refuses_a_block_override(data):
                          block_fn=FB.make_block_fn(HEADS, act=L.gelu))
 
 
-@pytest.mark.parametrize("entry,n_params", [("aaclip_ln_linear", 13),
-                                            ("aaclip_linear_residual", 10),
-                                            ("aaclip_mlp_fused", 17),
+@pytest.mark.parametrize("entry,n_params", [("aaclip_ln_linear", 15),
+                                            ("aaclip_linear_residual", 12),
+                                            ("aaclip_mlp_fused", 19),
                                             ("aaclip_gemm_tile_width", 1)])
 def test_entry_points_match_the_c_signatures(entry, n_params):
     """The ctypes argument lists in ops/fused_block.py have one entry per
-    parameter of each C entry point in fused_block.cu: ``ln_linear`` with
-    the row statistics' mean and rstd scratch, ``mlp_fused`` with those and
-    the bf16 hidden, and the GEMM's tile-width override."""
+    parameter of each C entry point in fused_block.cu: the route's mode,
+    ``ln_linear`` with the row statistics' mean and rstd scratch and the
+    3-pass planes of the rows and of W, ``linear_residual`` with the
+    planes of y and W, ``mlp_fused`` with the statistics, the hidden (bf16,
+    or its 3-pass planes) and the planes of the rows and of both weights,
+    and the GEMM's tile-width override."""
     import re
 
     src = (build.CSRC / "fused_block.cu").read_text()

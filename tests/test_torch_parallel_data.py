@@ -272,3 +272,63 @@ def test_pad_batch_to_devices_matches_jax():
         sh.pad_batch_to_devices([arrays[0], arrays[1][:5]], valid, 4)
     with pytest.raises(ValueError, match="valid mask length"):
         sh.pad_batch_to_devices(arrays, valid[:5], 4)
+
+
+class _Indexed:
+    """A dataset whose sample ``i`` carries ``i`` as its label."""
+
+    def __init__(self, n):
+        self.n = n
+
+    def __len__(self):
+        return self.n
+
+    def get(self, i, epoch):
+        return {"image": np.full((2,), i, np.float32),
+                "mask": np.zeros((2,), np.float32), "label": i,
+                "class_name": "c", "file_name": str(i)}
+
+
+@pytest.mark.parametrize("n,batch,hosts", [(12, 4, 2), (12, 3, 2),
+                                           (11, 6, 4), (5, 4, 2),
+                                           (7, 2, 4)])
+def test_loader_deals_each_global_batch(n, batch, hosts):
+    """``BatchLoader(deal_batches=True)``: host r takes rows r, r + hosts,
+    ... of each global batch, ``ceil(batch / hosts)`` of them, so the
+    hosts' batches interleaved are the one-host loader's batches padded
+    as JAX's ``pad_batch_to_devices`` pads them, with that validity; a
+    host's rows past its valid ones repeat its last loaded row, and the
+    hosts together load each sample once."""
+    from aaclip_tpu_torch.data.datasets import BatchLoader
+
+    kw = dict(shuffle=True, seed=7, num_workers=1)
+    one = list(BatchLoader(_Indexed(n), batch, **kw))
+    per_host = [list(BatchLoader(_Indexed(n), batch, host_id=r,
+                                 num_hosts=hosts, deal_batches=True, **kw))
+                for r in range(hosts)]
+    rows = -(-batch // hosts)
+    assert [len(h) for h in per_host] == [len(one)] * hosts
+    for i, b in enumerate(one):
+        valid = (np.arange(batch) < b["n_valid"]).astype(np.float32)
+        (labels,), valid = jsh.pad_batch_to_devices([b["label"]], valid,
+                                                    hosts)
+        got = [h[i] for h in per_host]
+        assert all(g["label"].shape == (rows,) for g in got)
+        keep = np.stack([np.arange(rows) < g["n_valid"] for g in got],
+                        1).reshape(-1)
+        np.testing.assert_array_equal(keep, valid.astype(bool))
+        np.testing.assert_array_equal(
+            np.stack([g["label"] for g in got], 1).reshape(-1)[keep],
+            labels[keep])
+        for r, g in enumerate(got):
+            v = max(g["n_valid"], 1)
+            want = labels[r::hosts][v - 1]
+            assert (g["label"][v - 1:] == want).all(), (r, g["label"])
+    loads = []
+    for r in range(hosts):
+        loader = BatchLoader(_Indexed(n), batch, host_id=r, num_hosts=hosts,
+                             deal_batches=True, **kw)
+        loads += [int(i) for b, _ in loader.batches() for i in b]
+    empty = sum(h[i]["n_valid"] == 0 for h in per_host
+                for i in range(len(one)))
+    assert sorted(set(loads)) == list(range(n)) and len(loads) == n + empty

@@ -680,6 +680,8 @@ def test_bench_serve_prints_its_json_line(capsys):
     assert line["metric"] == "serve_maps_per_sec_per_chip"
     assert line["value"] > 0 and line["errors"] == 0 and line["served"] > 0
     assert "2 closed-loop clients" in line["unit"]
+    # --steps counts each closed-loop client's requests, as in JAX's bench
+    assert line["served"] == 2 and "x 1 requests" in line["unit"]
     # --artifact is the serve mode's (its run: test_torch_deploy.py)
     with pytest.raises(SystemExit):
         bench.main(["--artifact", "somewhere"], device="cpu")

@@ -158,12 +158,14 @@ def mb_predict(tp, visual, jad, support, images, anchors, M, weight=0.5):
 
 def stage2(tp, visual, jad, table, batch, steps=2, sp=False, remat=False,
            grad_accum=1, policy="fp32", lr=1e-3, milestones=(2, 4)):
-    """``steps`` stage-2 updates on the global batch: the losses, the
-    reduced gradients of the first and the adapters after the last (JAX
-    tree layout)."""
+    """``steps`` stage-2 updates on the global batch, each rank given its
+    rows of it (``shard_rows``, as the training CLI's loader reads them):
+    the losses, the reduced gradients of the first and the adapters after
+    the last (JAX tree layout)."""
     import torch
 
     from aaclip_tpu_torch.core.params import adapter_to_jax
+    from aaclip_tpu_torch.parallel.sharding import shard_rows
     from aaclip_tpu_torch.train import optim
     from aaclip_tpu_torch.train.steps import make_stage2_step
 
@@ -171,11 +173,13 @@ def stage2(tp, visual, jad, table, batch, steps=2, sp=False, remat=False,
     ad = m["ad"]
     opt = optim.make_image_optimizer(ad.parameters(), lr=lr,
                                      milestones=milestones)
+    mesh = _mesh(tp)
     step = make_stage2_step(m["vit"], m["cfg"], m["acfg"], opt, table,
                             policy=_policy(policy), remat=remat,
-                            mesh=_mesh(tp), sequence_parallel=sp,
+                            mesh=mesh, sequence_parallel=sp,
                             grad_accum=grad_accum, device="cpu")
-    batch = [torch.from_numpy(np.asarray(x)) for x in batch]
+    batch = [shard_rows(torch.from_numpy(np.asarray(x)), mesh)
+             for x in batch]
     losses, first = [], None
     for i in range(steps):
         losses.append(float(step(ad, *batch)))
@@ -186,32 +190,51 @@ def stage2(tp, visual, jad, table, batch, steps=2, sp=False, remat=False,
 
 def stage1_features(tp, visual, images, valid=None, vv_mode="batch",
                     sp=False, surgery_until_layer=2, chunk=None):
+    """The features of the global batch: each rank's of its rows
+    (``shard_rows``), gathered back into global order."""
+    import torch
+
+    from aaclip_tpu_torch.parallel.sharding import (gather_rows,
+                                                    shard_rows)
     from aaclip_tpu_torch.train.steps import stage1_features_fn
 
     m = _tiny(visual)
+    mesh = _mesh(tp)
     fn = stage1_features_fn(m["vit"], m["cfg"],
                             surgery_until_layer=surgery_until_layer,
                             policy=_policy("fp32"), vv_mode=vv_mode,
-                            chunk=chunk, mesh=_mesh(tp),
+                            chunk=chunk, mesh=mesh,
                             sequence_parallel=sp, device="cpu")
-    return fn(images, valid).numpy()
+    images = torch.as_tensor(images)
+    feats = fn(shard_rows(images, mesh),
+               None if valid is None
+               else shard_rows(torch.as_tensor(valid), mesh))
+    return gather_rows(feats, mesh).numpy()
 
 
 def stage1(tp, text, tad, tokens, feats, mask, class_idx, valid, steps=2,
            sp=False, remat=True, acfg_kwargs=None):
-    """``steps`` stage-1 updates: the losses, the first reduced gradients
+    """``steps`` stage-1 updates on the global batch, each rank given its
+    rows of it (``shard_rows``): the losses, the first reduced gradients
     and the text adapters after the last (JAX tree layout)."""
+    import torch
+
     from aaclip_tpu_torch.core.params import text_adapter_to_jax
+    from aaclip_tpu_torch.parallel.sharding import shard_rows
     from aaclip_tpu_torch.train import optim
     from aaclip_tpu_torch.train.steps import make_stage1_step
 
     m = _tiny(text=text, tad=tad, acfg_kwargs=acfg_kwargs)
     ad = m["tad"]
     opt = optim.make_text_optimizer(ad.parameters(), lr=1e-3)
+    mesh = _mesh(tp)
     step = make_stage1_step(m["text"], m["cfg"], m["acfg"], opt, tokens,
                             img_size=70, policy=_policy("fp32"),
-                            remat=remat, mesh=_mesh(tp),
+                            remat=remat, mesh=mesh,
                             sequence_parallel=sp, device="cpu")
+    feats, mask, class_idx, valid = (
+        shard_rows(torch.as_tensor(np.asarray(t)), mesh)
+        for t in (feats, mask, class_idx, valid))
     losses, first = [], None
     for i in range(steps):
         losses.append(float(step(ad, feats, mask, class_idx, valid)))
@@ -271,6 +294,7 @@ def sp_roundtrip(s, d=3):
 def mesh_errors():
     """The mesh constructors' size errors (JAX's), a mesh's shape and every
     rank's (data, model) coordinates."""
+    import torch
     import torch.distributed as dist
 
     from aaclip_tpu_torch.parallel import sharding as sh
@@ -286,10 +310,57 @@ def mesh_errors():
     dist.all_gather_object(coords, (mesh.data_rank, mesh.model_rank))
     out["rank_order"] = coords
     try:
-        sh.row_slice(3, sh.make_data_mesh(device="cpu"))
+        sh.shard_rows(torch.zeros(3), sh.make_data_mesh(device="cpu"))
     except ValueError as e:
         out["ragged"] = str(e)
     return out
+
+
+def count_loads():
+    """A context that counts the samples the datasets load (each
+    ``TestDataset.get`` / ``TrainDataset.get``: one image, and its mask
+    where it has one) and the images and masks decoded
+    (``data/transforms.py::DECODE_COUNTS``, both paths); yields a dict
+    whose ``rows`` and ``decodes`` hold the counts on exit."""
+    import contextlib
+    import threading
+
+    from aaclip_tpu_torch.data import datasets as D
+    from aaclip_tpu_torch.data.transforms import DECODE_COUNTS
+
+    @contextlib.contextmanager
+    def counting():
+        got = {"rows": 0}
+        lock = threading.Lock()
+        originals = {cls: cls.get for cls in (D.TestDataset, D.TrainDataset)}
+
+        def wrap(get):
+            def counted(self, *args, **kwargs):
+                with lock:  # the loaders' thread pools call it
+                    got["rows"] += 1
+                return get(self, *args, **kwargs)
+            return counted
+
+        before = sum(DECODE_COUNTS.values())
+        for cls, get in originals.items():
+            cls.get = wrap(get)
+        try:
+            yield got
+        finally:
+            for cls, get in originals.items():
+                cls.get = get
+            got["decodes"] = sum(DECODE_COUNTS.values()) - before
+
+    return counting()
+
+
+def decoded(case, kwargs):
+    """Another case of this module, run in this rank, and the samples the
+    rank loaded and the images and masks it decoded meanwhile
+    (``count_loads``)."""
+    with count_loads() as got:
+        out = globals()[case](**kwargs)
+    return out, got
 
 
 def cli(kind, argv, env):
@@ -318,3 +389,4 @@ def cli(kind, argv, env):
     finally:
         prof.ThrottledLossDrain = base
     return losses
+
