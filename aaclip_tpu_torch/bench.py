@@ -71,9 +71,9 @@ _PROFILE_CLASSES = (
       "attn_fwd_3pass", "attn_fwd_6pass", "split3_kernel", "split2_kernel")),
     ("attention backward kernel", ("attn_bwd_",)),
     ("fused-block kernels (ln_linear, linear_residual, mlp_fused; the "
-     "3-pass splits)",
-     ("gemm_wgmma", "row_stats_kernel", "gemm_f32_kernel",
-      "mlp_f32_kernel", "gemm_3pass_wgmma", "split_kernel")),
+     "3-pass and 6-pass splits)",
+     ("gemm_wgmma", "row_stats_kernel", "gemm_planes_wgmma",
+      "split_kernel")),
     ("GEMM (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass")),
 )
 

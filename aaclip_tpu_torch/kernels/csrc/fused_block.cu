@@ -25,12 +25,11 @@
 // byte of HBM, so bound by the tensor cores.
 //
 // Routes, by the entry points' `mode`. bf16 (kModeBf16), the fast policy,
-// runs the TMA + wgmma engine below; fp32 under precision "high"
-// (kMode3Pass, fp32_high) runs the same engine's 3-pass mode on bf16
-// planes of its fp32 operands (gemm_3pass_wgmma, further down); fp32 under
-// "highest" (kModeF32), the parity policy, keeps the first port's FMA
-// kernels with no TF32 (gemm_f32_kernel, and mlp_f32_kernel at D 128 and
-// 1024, which keeps the hidden on chip).
+// runs the TMA + wgmma engine below; fp32 runs the same engine's
+// split-plane modes on bf16 planes of its fp32 operands
+// (gemm_planes_wgmma, further down): under precision "high" (kMode3Pass,
+// fp32_high) the 3-pass mode on two planes, under "highest" (kModeF32),
+// the parity policy, the 6-pass mode on three.
 //
 // The bf16 engine is one GEMM, out[R, N] = epilogue(prologue(A)[R, K] .
 // W[N, K]^T), and a row-statistics kernel:
@@ -76,11 +75,9 @@
 //    3.35 TB/s, under ~0.74 ms of tensor-core time. The TPU kernel and the
 //    plain version round the hidden to bf16 at exactly that point, so the
 //    numerics stay the same.
-// Widths: bf16 and 3-pass K a multiple of 64 (at most kMaxK under the LN
+// Widths, every route: K a multiple of 64 (at most kMaxK under the LN
 // prologue, whose statistics hold a row in registers), N a multiple of
-// 128; fp32 K a multiple of 16 up to kMaxK, N of 64, the MLP at D 128 and
-// 1024 with the hidden a multiple of 64. Anything else returns
-// cudaErrorInvalidValue.
+// 128. Anything else returns cudaErrorInvalidValue.
 
 #include <math.h>
 
@@ -116,13 +113,6 @@ __device__ __forceinline__ float activate(float x) {
   } else {
     return x * (1.f / (1.f + expf(-1.702f * x)));
   }
-}
-
-// The same with the activation chosen at run time (the fp32 MLP).
-__device__ __forceinline__ float activate(int act, float x) {
-  if (act == kGeluErf) return activate<kGeluErf>(x);
-  if (act == kGeluTanh) return activate<kGeluTanh>(x);
-  return activate<kQuickGelu>(x);
 }
 
 __device__ __forceinline__ float warp_sum(float s) {
@@ -502,59 +492,74 @@ gemm_wgmma(const __grid_constant__ CUtensorMap ta,
 }
 
 // ---------------------------------------------------------------------------
-// fp32 under precision "high" (fp32_high): the 3-pass mode, what the TPU
-// kernels' _kdot("high") computes (flash_attention.py:49): each fp32
-// operand v as its bf16 planes hi = bf16(v), lo = bf16(v - hi)
-// (mma_common.cuh's split_pack; plane p of an [rows, cols] operand at
-// p * rows * cols), and each product hi.hi + hi.lo + lo.hi in fp32, with
-// fp32 epilogues and fp32 outputs. Bound by the tensor cores three times
-// over: at the predict's batch 8 (10,960 rows) ln_linear to 3072 columns
-// is 206.9 GFLOP, ~0.209 ms at 989 TFLOP/s, against ~192 MB of fp32 moved
-// (~0.057 ms at 3.35 TB/s).
-//  - split_kernel writes the planes of W (every call: 12.6 MB of them at
-//    the QKV shape) and of the plain prologue's A (linear_residual's y).
-//  - ln_split_kernel is the LN prologue: one warp per row, the fp32
+// fp32: the split-plane modes, what the TPU kernels' _kdot computes on fp32
+// operands (flash_attention.py:49-71). Each fp32 operand v is held as kP
+// bf16 planes (plane p of an [rows, cols] operand at p * rows * cols), and
+// each product is a sum of bf16 products of planes in hopper_common.cuh's
+// pass table (pass_a / pass_b), smallest first:
+//  - precision "high" (kMode3Pass, fp32_high), kP 2: hi = bf16(v), lo =
+//    bf16(v - hi) (mma_common.cuh's split_pack); hi.lo + lo.hi + hi.hi,
+//    passes 3-5 (_kdot's 3-pass form);
+//  - precision "highest" (kModeF32, the parity policy), kP 3: hi, mid, lo
+//    with hi + mid + lo = v (split3_pack); all six passes, mid.mid, hi.lo,
+//    lo.hi, hi.mid, mid.hi, hi.hi (the TPU's native 6-pass form; the
+//    dropped terms are about 2^-24 relative).
+// fp32 epilogues and fp32 outputs. Bound by the tensor cores three or six
+// times over: at the predict's batch 8 (10,960 rows) ln_linear to 3072
+// columns is 206.9 GFLOP in three passes (~0.209 ms at 989 TFLOP/s) and
+// 413.7 in six (~0.418 ms), against ~192 MB of fp32 moved (~0.057 ms at
+// 3.35 TB/s), and mlp_fused (hidden 4096) 1103.4 GFLOP in six (~1.116 ms).
+//  - split_kernel<kP> writes the planes of W (every call: 12.6 MB of
+//    3-pass planes at the QKV shape) and of the plain prologue's A
+//    (linear_residual's y).
+//  - ln_split_kernel<kP> is the LN prologue: one warp per row, the fp32
 //    statistics (row_stats), y = (x - mean) * rstd * gamma + beta in fp32
 //    rounded step by step as the plain version's tensor ops round it, and
 //    y's planes written out; the GEMM then reads A as planes like any
 //    other operand.
-//  - gemm_3pass_wgmma is gemm_wgmma's persistent blocks, producer and ring
-//    with four tiles a stage (A hi, A lo, W hi, W lo: 64 KB at BN 128, so
-//    kHighStages 3 stages fit). Each consumer runs a k-tile's three
-//    products smallest first (hi.lo, lo.hi, hi.hi, hopper_common.cuh's
-//    pass order) into a fresh fp32 accumulator and adds that to the
-//    tile's running sum with round-to-nearest: the tensor cores truncate
-//    a chain's sum at each step, a one-sided error that would grow with K
-//    (4096 in proj) in one long chain, where a k-tile's chain of 12 steps
-//    truncates at its own, far smaller, size.
+//  - gemm_planes_wgmma<kP, EPI> is gemm_wgmma's persistent blocks,
+//    producer and ring, with 2 kP tiles a stage (A's planes, then W's) in
+//    kPlaneRing bytes of stages, each tile kBK (64) deep with the 128-byte
+//    swizzle: 3-pass three 64 KB stages, 6-pass two 96 KB stages (four
+//    48 KB stages of 32-deep k-tiles read 4-7% slower on the card).
+//    Each consumer runs a k-tile's passes into a fresh fp32 accumulator
+//    and adds that to the tile's running sum with round-to-nearest: the
+//    tensor cores truncate a chain's sum at each step, a one-sided error
+//    that would grow with K (4096 in proj) in one long chain, where a
+//    k-tile's chain truncates at its own, far smaller, size. The fresh
+//    accumulator and the running sum are 128 registers of a consumer.
 //  - The epilogues run in fp32 in the plain versions' order: acc + b
 //    (ln_linear), res + (acc + b) (linear_residual), (x + acc) + b (proj),
-//    and fc's act(acc + b) written straight out as the hidden's planes,
-//    the split of the fp32 hidden the plain version hands proj, so proj
-//    needs no split of its own.
+//    and fc's act(acc + b) written straight out as the hidden's kP planes,
+//    the exact split of the fp32 hidden the plain version hands proj, so
+//    proj needs no split of its own.
 // mlp_fused is four launches (the weights' split, the LN prologue, fc,
-// proj), ln_linear three, linear_residual two (one split of W and y).
-// Two runs are bit-equal (no atomics, no split-K).
+// proj), ln_linear three, linear_residual two (one split of W and y), in
+// either mode. Two runs are bit-equal (no atomics, no split-K).
 
-constexpr int kHighStages = 3;
+// Bytes of the split-plane GEMM's ring of stages.
+constexpr int kPlaneRing = 192 * 1024;
 
-struct HighSmem {
-  static constexpr int kA = kBM * kRowBytes;  // one plane's A tile
-  static constexpr int kW = kBN * kRowBytes;  // one plane's W tile
-  static constexpr int kStage = 2 * kA + 2 * kW;
-  static constexpr int kBars = kHighStages * kStage;
-  static constexpr int bytes = kSwizzleAtom + kBars + 2 * 8 * kHighStages;
+template <int kP>
+struct PlaneSmem {
+  static constexpr int kRow = kBK * 2;   // bytes of a tile row
+  static constexpr int kA = kBM * kRow;  // one plane's A tile
+  static constexpr int kW = kBN * kRow;  // one plane's W tile
+  static constexpr int kStage = kP * (kA + kW);
+  static constexpr int kStages = kPlaneRing / kStage;
+  static constexpr int kBars = kStages * kStage;
+  static constexpr int bytes = kSwizzleAtom + kBars + 2 * 8 * kStages;
 };
 
-struct HighArgs {
+struct PlaneArgs {
   const float* bias;  // [N]
   const float* res;   // [R, N]: the residual, or proj's x
-  void* out;          // [R, N] fp32, or fc's hidden planes [2, R, N] bf16
+  void* out;          // [R, N] fp32, or fc's hidden planes [kP, R, N] bf16
   int R, N, K, act;
 };
 
-// Up to two fp32 arrays of n values (n a multiple of 4) as their planes
-// hi and lo at dst and dst + n: one job per blockIdx.y.
+// Up to two fp32 arrays of n values (n a multiple of 4) as their kP planes
+// at dst, dst + n, ...: one job per blockIdx.y.
 struct SplitJob {
   const float* src;
   bf16* dst;
@@ -563,26 +568,28 @@ struct SplitJob {
 
 constexpr int kSplitThreads = 256;
 
+template <int kP>
 __global__ void __launch_bounds__(kSplitThreads)
 split_kernel(const SplitJob a, const SplitJob b) {
   const SplitJob j = blockIdx.y ? b : a;
   const int64_t n4 = j.n / 4;
   const float4* src = reinterpret_cast<const float4*>(j.src);
-  uint2* hi = reinterpret_cast<uint2*>(j.dst);
-  uint2* lo = reinterpret_cast<uint2*>(j.dst + j.n);
   for (int64_t i = (int64_t)blockIdx.x * kSplitThreads + threadIdx.x; i < n4;
        i += (int64_t)gridDim.x * kSplitThreads) {
     const float4 v = src[i];
-    uint2 h, l;
-    split_pack(v.x, v.y, h.x, l.x);
-    split_pack(v.z, v.w, h.y, l.y);
-    hi[i] = h;
-    lo[i] = l;
+    uint32_t p01[kP], p23[kP];  // values 0-1 and 2-3 of each plane
+    split_planes<kP>(v.x, v.y, p01);
+    split_planes<kP>(v.z, v.w, p23);
+#pragma unroll
+    for (int pl = 0; pl < kP; ++pl)
+      reinterpret_cast<uint2*>(j.dst + pl * j.n)[i] =
+          make_uint2(p01[pl], p23[pl]);
   }
 }
 
-// The LN prologue of the 3-pass mode: row `row` of x [R, K] normalised
-// and written as its planes [2, R, K].
+// The LN prologue of the split-plane modes: row `row` of x [R, K]
+// normalised and written as its planes [kP, R, K].
+template <int kP>
 __global__ void __launch_bounds__(kStatsRows * 32)
 ln_split_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
                 const float* __restrict__ beta, bf16* __restrict__ planes,
@@ -592,8 +599,7 @@ ln_split_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
   const float* xr = x + (int64_t)row * K;
   float mean, rstd;
   row_stats(xr, K, mean, rstd);
-  bf16* hi = planes + (int64_t)row * K;
-  bf16* lo = hi + (int64_t)R * K;
+  bf16* dst = planes + (int64_t)row * K;
   for (int c = (threadIdx.x & 31) * 4; c < K; c += 32 * 4) {
     float v[4], g[4], b[4], y[4];
     Vec<float>::load(xr + c, v);
@@ -604,19 +610,21 @@ ln_split_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
       y[i] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v[i], mean), rstd),
                                  g[i]),
                        b[i]);
-    uint2 h, l;
-    split_pack(y[0], y[1], h.x, l.x);
-    split_pack(y[2], y[3], h.y, l.y);
-    *reinterpret_cast<uint2*>(hi + c) = h;
-    *reinterpret_cast<uint2*>(lo + c) = l;
+    uint32_t p01[kP], p23[kP];
+    split_planes<kP>(y[0], y[1], p01);
+    split_planes<kP>(y[2], y[3], p23);
+#pragma unroll
+    for (int pl = 0; pl < kP; ++pl)
+      *reinterpret_cast<uint2*>(dst + pl * (int64_t)R * K + c) =
+          make_uint2(p01[pl], p23[pl]);
   }
 }
 
-// The 3-pass epilogue of one consumer thread, laid out as store_tile's.
-template <int EPI, int ACT>
-__device__ __forceinline__ void store_tile_high(const float (&acc)[kBN / 2],
-                                                const HighArgs& p, int r0,
-                                                int n0, int t) {
+// The split-plane epilogue of one consumer thread, laid out as
+// store_tile's.
+template <int kP, int EPI, int ACT>
+__device__ __forceinline__ void store_tile_planes(
+    const float (&acc)[kBN / 2], const PlaneArgs& p, int r0, int n0, int t) {
   constexpr bool kRes = EPI == kEpiResidual || EPI == kEpiProj;
   const bool in[2] = {r0 < p.R, r0 + 8 < p.R};
   const int64_t o0 = (int64_t)r0 * p.N + n0 + 2 * t;
@@ -660,11 +668,12 @@ __device__ __forceinline__ void store_tile_high(const float (&acc)[kBN / 2],
         if (!in[h]) continue;
         const int64_t at = o[h] + 8 * (j0 + j);
         if (EPI == kEpiAct) {
-          uint32_t hi, lo;
-          split_pack(v0, v1, hi, lo);
+          uint32_t pk[kP];
+          split_planes<kP>(v0, v1, pk);
           bf16* planes = static_cast<bf16*>(p.out);
-          *reinterpret_cast<uint32_t*>(planes + at) = hi;
-          *reinterpret_cast<uint32_t*>(planes + plane + at) = lo;
+#pragma unroll
+          for (int pl = 0; pl < kP; ++pl)
+            *reinterpret_cast<uint32_t*>(planes + pl * plane + at) = pk[pl];
         } else {
           *reinterpret_cast<float2*>(static_cast<float*>(p.out) + at) =
               make_float2(v0, v1);
@@ -674,23 +683,25 @@ __device__ __forceinline__ void store_tile_high(const float (&acc)[kBN / 2],
   }
 }
 
-// out [R, N] = epilogue(A . W^T) in three passes, A and W as their planes
-// [2, R, K] and [2, N, K] (tensor maps of depth 2), tiles of 128 x kBN.
-template <int EPI>
+// out [R, N] = epilogue(A . W^T) in the passes of kP planes, A and W as
+// their planes [kP, R, K] and [kP, N, K] (tensor maps of depth kP), tiles
+// of 128 x kBN.
+template <int kP, int EPI>
 __global__ void __launch_bounds__(kTmaThreads, 1)
-gemm_3pass_wgmma(const __grid_constant__ CUtensorMap ta,
-                 const __grid_constant__ CUtensorMap tw, const HighArgs p) {
-  using S = HighSmem;
+gemm_planes_wgmma(const __grid_constant__ CUtensorMap ta,
+                  const __grid_constant__ CUtensorMap tw, const PlaneArgs p) {
+  using S = PlaneSmem<kP>;
+  constexpr int kStages = S::kStages;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align_atom(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::kBars);
-  uint64_t* empty = full + kHighStages;
+  uint64_t* empty = full + kStages;
 
   const int tiles_n = p.N / kBN;
   const int n_tiles = (p.R + kBM - 1) / kBM * tiles_n;
   const int n_k = p.K / kBK;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kHighStages; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 2 * 128);  // every consumer thread
     }
@@ -706,15 +717,14 @@ gemm_3pass_wgmma(const __grid_constant__ CUtensorMap ta,
       for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
         const int m0 = tile / tiles_n * kBM, n0 = tile % tiles_n * kBN;
         for (int kt = 0; kt < n_k; ++kt, ++it) {
-          const int st = it % kHighStages;
-          if (it >= kHighStages)
-            mbar_wait(&empty[st], (it / kHighStages - 1) & 1);
+          const int st = it % kStages;
+          if (it >= kStages) mbar_wait(&empty[st], (it / kStages - 1) & 1);
           uint8_t* s = smem + st * S::kStage;
           mbar_arrive_expect_tx(&full[st], S::kStage);
 #pragma unroll
-          for (int pl = 0; pl < 2; ++pl) {
+          for (int pl = 0; pl < kP; ++pl) {
             tma_load_3d(s + pl * S::kA, &ta, &full[st], kt * kBK, m0, pl);
-            tma_load_3d(s + 2 * S::kA + pl * S::kW, &tw, &full[st],
+            tma_load_3d(s + kP * S::kA + pl * S::kW, &tw, &full[st],
                         kt * kBK, n0, pl);
           }
         }
@@ -725,6 +735,7 @@ gemm_3pass_wgmma(const __grid_constant__ CUtensorMap ta,
     const int warp = (threadIdx.x % 128) / 32;
     const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
     const int wrow = wg * 64 + warp * 16;
+    constexpr int first = first_pass<kP>();
     float acc[kBN / 2], part[kBN / 2];
     int it = 0;
     for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
@@ -732,26 +743,19 @@ gemm_3pass_wgmma(const __grid_constant__ CUtensorMap ta,
 #pragma unroll
       for (int i = 0; i < kBN / 2; ++i) acc[i] = 0.f;
       for (int kt = 0; kt < n_k; ++kt, ++it) {
-        const int st = it % kHighStages;
-        mbar_wait(&full[st], (it / kHighStages) & 1);
+        const int st = it % kStages;
+        mbar_wait(&full[st], (it / kStages) & 1);
         const uint8_t* s = smem + st * S::kStage;
-        const uint64_t a_hi = sw128_desc(s + wg * 64 * kRowBytes);
-        const uint64_t a_lo = sw128_desc(s + S::kA + wg * 64 * kRowBytes);
-        const uint64_t w_hi = sw128_desc(s + 2 * S::kA);
-        const uint64_t w_lo = sw128_desc(s + 2 * S::kA + S::kW);
+        const uint64_t a = sw128_desc(s + wg * 64 * S::kRow);
+        const uint64_t w = sw128_desc(s + kP * S::kA);
         wgmma_fence();
 #pragma unroll
-        for (int ks = 0; ks < kBK / 16; ++ks)  // hi.lo starts the chain
-          wgmma_ss_n128(part, desc_plus(a_hi, 32 * ks),
-                        desc_plus(w_lo, 32 * ks), ks);
+        for (int i = first; i < 6; ++i)  // the smallest pass starts the chain
 #pragma unroll
-        for (int ks = 0; ks < kBK / 16; ++ks)
-          wgmma_ss_n128(part, desc_plus(a_lo, 32 * ks),
-                        desc_plus(w_hi, 32 * ks), 1);
-#pragma unroll
-        for (int ks = 0; ks < kBK / 16; ++ks)
-          wgmma_ss_n128(part, desc_plus(a_hi, 32 * ks),
-                        desc_plus(w_hi, 32 * ks), 1);
+          for (int ks = 0; ks < kBK / 16; ++ks)
+            wgmma_ss_n128(part, desc_plus(a, pass_a(i) * S::kA + 32 * ks),
+                          desc_plus(w, pass_b(i) * S::kW + 32 * ks),
+                          (i - first) | ks);
         wgmma_commit();
         wgmma_wait<0>();
         fence_operand(part);
@@ -762,224 +766,14 @@ gemm_3pass_wgmma(const __grid_constant__ CUtensorMap ta,
       const int r0 = m0 + wrow + g;  // this thread's rows r0 and r0 + 8
       if constexpr (EPI == kEpiAct) {
         if (p.act == kGeluErf)
-          store_tile_high<EPI, kGeluErf>(acc, p, r0, n0, t);
+          store_tile_planes<kP, EPI, kGeluErf>(acc, p, r0, n0, t);
         else if (p.act == kGeluTanh)
-          store_tile_high<EPI, kGeluTanh>(acc, p, r0, n0, t);
+          store_tile_planes<kP, EPI, kGeluTanh>(acc, p, r0, n0, t);
         else
-          store_tile_high<EPI, kQuickGelu>(acc, p, r0, n0, t);
+          store_tile_planes<kP, EPI, kQuickGelu>(acc, p, r0, n0, t);
       } else {
-        store_tile_high<EPI, 0>(acc, p, r0, n0, t);
+        store_tile_planes<kP, EPI, 0>(acc, p, r0, n0, t);
       }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// fp32, on FMA (the first port's kernels). ln_linear and linear_residual: a
-// block owns 64 x 64 outputs, each thread a 4 x 4 block of them; K walks in
-// tiles of 16 staged transposed in shared memory.
-constexpr int kFBM = 64, kFBN = 64, kFBK = 16;
-constexpr int kF32Threads = 256;
-
-template <bool LN>
-__global__ void __launch_bounds__(kF32Threads)
-gemm_f32_kernel(const float* __restrict__ a, const float* __restrict__ w,
-                const float* __restrict__ bias,
-                const float* __restrict__ gamma,
-                const float* __restrict__ beta,
-                const float* __restrict__ res, float* __restrict__ out, int R,
-                int N, int K) {
-  __shared__ __align__(16) float sA[kFBK][kFBM + 4];
-  __shared__ __align__(16) float sB[kFBK][kFBN + 4];
-  __shared__ float sMean[kFBM], sRstd[kFBM];
-
-  const int n0 = blockIdx.x * kFBN;
-  const int m0 = blockIdx.y * kFBM;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-
-  if (LN) {
-    for (int r = warp; r < kFBM; r += kF32Threads / 32) {
-      float mean = 0.f, rstd = 0.f;
-      if (m0 + r < R) row_stats(a + (int64_t)(m0 + r) * K, K, mean, rstd);
-      if (lane == 0) {
-        sMean[r] = mean;
-        sRstd[r] = rstd;
-      }
-    }
-    __syncthreads();
-  }
-
-  const int lr = threadIdx.x >> 2, lc = (threadIdx.x & 3) * 4;  // loads
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;       // outputs
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += kFBK) {
-    float va[4] = {0.f, 0.f, 0.f, 0.f};
-    if (m0 + lr < R) {
-      Vec<float>::load(a + (int64_t)(m0 + lr) * K + k0 + lc, va);
-      if (LN) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          va[j] = (va[j] - sMean[lr]) * sRstd[lr] * gamma[k0 + lc + j] +
-                  beta[k0 + lc + j];
-      }
-    }
-    float vb[4];
-    Vec<float>::load(w + (int64_t)(n0 + lr) * K + k0 + lc, vb);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      sA[lc + j][lr] = va[j];
-      sB[lc + j][lr] = vb[j];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kFBK; ++k) {
-      float xa[4], yb[4];
-      Vec<float>::load(&sA[k][ty * 4], xa);
-      Vec<float>::load(&sB[k][tx * 4], yb);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xa[i], yb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = m0 + ty * 4 + i;
-    if (row >= R) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + tx * 4 + j;
-      const int64_t o = (int64_t)row * N + col;
-      float v = acc[i][j] + bias[col];
-      if (!LN) v = res[o] + v;
-      out[o] = v;
-    }
-  }
-}
-
-// mlp_fused, fp32 on FMA: a block owns kFRows rows and all D columns; each
-// thread accumulates an RPT x 4 block of the output. The hidden tile [16,
-// 64] is computed from W_fc staged in k-chunks of 64, activated into shared
-// memory, then multiplied with W_proj staged in k-chunks of 16.
-constexpr int kFRows = 16, kFHid = 64, kFKc = 64, kFPc = 16;
-
-template <int D>
-struct MlpF32Smem {
-  static constexpr int kLdWf = kFHid + 4, kLdWp = D + 4;
-  static constexpr int kLn = kFRows * D;
-  static constexpr int kWf = kFKc * kLdWf;
-  static constexpr int kH = kFRows * kFHid;
-  static constexpr int kWp = kFPc * kLdWp;
-  static constexpr int bytes = (kLn + kWf + kH + kWp) * 4;
-};
-
-template <int D>
-__global__ void __launch_bounds__(kF32Threads)
-mlp_f32_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
-               const float* __restrict__ beta, const float* __restrict__ wfc,
-               const float* __restrict__ bfc, const float* __restrict__ wpj,
-               const float* __restrict__ bpj, float* __restrict__ out, int R,
-               int F, int act) {
-  using S = MlpF32Smem<D>;
-  constexpr int CB = D / 4;              // 4-column blocks of the output
-  constexpr int RG = kF32Threads / CB;  // row groups
-  constexpr int RPT = kFRows / RG;       // rows of each thread
-  static_assert(kF32Threads % CB == 0 && kFRows % RG == 0, "width");
-  extern __shared__ __align__(16) float fsmem[];
-  float* sLN = fsmem;
-  float* sWf = sLN + S::kLn;
-  float* sH = sWf + S::kWf;
-  float* sWp = sH + S::kH;
-
-  const int m0 = blockIdx.x * kFRows;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-
-  for (int rr = warp; rr < kFRows; rr += kF32Threads / 32) {
-    const int row = m0 + rr;
-    float* dst = sLN + rr * D;
-    if (row < R) {
-      const float* src = x + (int64_t)row * D;
-      float mean, rstd;
-      row_stats(src, D, mean, rstd);
-      for (int c = lane; c < D; c += 32)
-        dst[c] = (src[c] - mean) * rstd * gamma[c] + beta[c];
-    } else {
-      for (int c = lane; c < D; c += 32) dst[c] = 0.f;
-    }
-  }
-
-  const int hr = threadIdx.x >> 4, hc = (threadIdx.x & 15) * 4;  // hidden
-  const int cb = threadIdx.x % CB, rg = threadIdx.x / CB;         // output
-  float acc[RPT][4];
-#pragma unroll
-  for (int r = 0; r < RPT; ++r)
-    acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
-
-  for (int f0 = 0; f0 < F; f0 += kFHid) {
-    float h[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int k0 = 0; k0 < D; k0 += kFKc) {
-      __syncthreads();  // the rows are written, the previous chunk consumed
-      for (int i = threadIdx.x; i < kFHid * kFKc / 4; i += kF32Threads) {
-        const int n = i / (kFKc / 4), k = (i % (kFKc / 4)) * 4;
-        float v[4];
-        Vec<float>::load(wfc + (int64_t)(f0 + n) * D + k0 + k, v);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sWf[(k + j) * S::kLdWf + n] = v[j];
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int k = 0; k < kFKc; ++k) {
-        const float av = sLN[hr * D + k0 + k];
-        float b[4];
-        Vec<float>::load(sWf + k * S::kLdWf + hc, b);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) h[j] = fmaf(av, b[j], h[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      sH[hr * kFHid + hc + j] = activate(act, h[j] + bfc[f0 + hc + j]);
-    for (int p0 = 0; p0 < kFHid; p0 += kFPc) {
-      __syncthreads();  // the hidden tile is written, the chunk consumed
-      for (int i = threadIdx.x; i < D * kFPc / 4; i += kF32Threads) {
-        const int n = i / (kFPc / 4), k = (i % (kFPc / 4)) * 4;
-        float v[4];
-        Vec<float>::load(wpj + (int64_t)n * F + f0 + p0 + k, v);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sWp[(k + j) * S::kLdWp + n] = v[j];
-      }
-      __syncthreads();
-#pragma unroll
-      for (int k = 0; k < kFPc; ++k) {
-        float b[4];
-        Vec<float>::load(sWp + k * S::kLdWp + cb * 4, b);
-#pragma unroll
-        for (int r = 0; r < RPT; ++r) {
-          const float hv = sH[(rg * RPT + r) * kFHid + p0 + k];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[r][j] = fmaf(hv, b[j], acc[r][j]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int row = m0 + rg * RPT + r;
-    if (row >= R) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = cb * 4 + j;
-      const int64_t o = (int64_t)row * D + col;
-      out[o] = (x[o] + acc[r][j]) + bpj[col];
     }
   }
 }
@@ -1017,15 +811,12 @@ int run_gemm(const CUtensorMap& ta, const void* w, const GemmArgs& p,
   CUtensorMap tw;
   cudaError_t err = make_tile_map(&tw, w, p.K, p.N, 1, (uint64_t)p.K * 2,
                                   (uint64_t)p.N * p.K * 2, BN);
-  if (err != cudaSuccess) return static_cast<int>(err);
   constexpr int smem = GemmSmem<BN>::bytes(LN);
-  err = cudaFuncSetAttribute(gemm_wgmma<BN, LN, EPI>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int dev = 0, sms = 0;
-  err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    err = smem_attribute_once(
+        reinterpret_cast<const void*>(gemm_wgmma<BN, LN, EPI>), smem);
+  int sms = 0;
+  if (err == cudaSuccess) err = sm_count(&sms);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = (p.R + kBM - 1) / kBM * (p.N / BN);
   gemm_wgmma<BN, LN, EPI><<<tiles < sms ? tiles : sms, kTmaThreads, smem,
@@ -1053,8 +844,9 @@ int launch_tma_gemm(const void* a, const void* w, const GemmArgs& p,
              : run_gemm<kBN, LN, EPI>(ta, w, p, st);
 }
 
-// The planes of one or two fp32 arrays (src1 null for one), each of n
+// The kP planes of one or two fp32 arrays (src1 null for one), each of n
 // values, a multiple of 4.
+template <int kP>
 int launch_split(const void* src0, void* dst0, int64_t n0, const void* src1,
                  void* dst1, int64_t n1, cudaStream_t st) {
   const SplitJob a{static_cast<const float*>(src0), static_cast<bf16*>(dst0),
@@ -1066,88 +858,100 @@ int launch_split(const void* src0, void* dst0, int64_t n0, const void* src1,
   const int64_t blocks = (most + kSplitThreads - 1) / kSplitThreads;
   const dim3 grid(static_cast<unsigned>(blocks < 4096 ? blocks : 4096),
                   src1 ? 2 : 1);
-  split_kernel<<<grid, kSplitThreads, 0, st>>>(a, b);
+  split_kernel<kP><<<grid, kSplitThreads, 0, st>>>(a, b);
   note_launch();
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int kP>
 int launch_ln_split(const void* x, const void* gamma, const void* beta,
                     void* planes, int rows, int k, cudaStream_t st) {
-  ln_split_kernel<<<(rows + kStatsRows - 1) / kStatsRows, kStatsRows * 32, 0,
-                    st>>>(static_cast<const float*>(x),
-                          static_cast<const float*>(gamma),
-                          static_cast<const float*>(beta),
-                          static_cast<bf16*>(planes), rows, k);
+  ln_split_kernel<kP><<<(rows + kStatsRows - 1) / kStatsRows,
+                        kStatsRows * 32, 0, st>>>(
+      static_cast<const float*>(x), static_cast<const float*>(gamma),
+      static_cast<const float*>(beta), static_cast<bf16*>(planes), rows, k);
   note_launch();
   return static_cast<int>(cudaGetLastError());
 }
 
-// The 3-pass GEMM on A's planes [2, p.R, p.K] and W's [2, p.N, p.K].
-template <int EPI>
-int launch_3pass_gemm(const void* a_planes, const void* w_planes,
-                      const HighArgs& p, cudaStream_t st) {
+// The split-plane GEMM on A's planes [kP, p.R, p.K] and W's [kP, p.N,
+// p.K].
+template <int kP, int EPI>
+int launch_planes_gemm(const void* a_planes, const void* w_planes,
+                       const PlaneArgs& p, cudaStream_t st) {
+  using S = PlaneSmem<kP>;
   if (!tma_shape_ok(false, p.R, p.N, p.K))
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap ta, tw;
-  cudaError_t err = make_tile_map(&ta, a_planes, p.K, p.R, 2,
+  cudaError_t err = make_tile_map(&ta, a_planes, p.K, p.R, kP,
                                   (uint64_t)p.K * 2,
                                   (uint64_t)p.R * p.K * 2, kBM);
   if (err == cudaSuccess)
-    err = make_tile_map(&tw, w_planes, p.K, p.N, 2, (uint64_t)p.K * 2,
+    err = make_tile_map(&tw, w_planes, p.K, p.N, kP, (uint64_t)p.K * 2,
                         (uint64_t)p.N * p.K * 2, kBN);
   if (err == cudaSuccess)
     err = smem_attribute_once(
-        reinterpret_cast<const void*>(gemm_3pass_wgmma<EPI>),
-        HighSmem::bytes);
-  int dev = 0, sms = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        reinterpret_cast<const void*>(gemm_planes_wgmma<kP, EPI>), S::bytes);
+  int sms = 0;
+  if (err == cudaSuccess) err = sm_count(&sms);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = (p.R + kBM - 1) / kBM * (p.N / kBN);
-  gemm_3pass_wgmma<EPI><<<tiles < sms ? tiles : sms, kTmaThreads,
-                          HighSmem::bytes, st>>>(ta, tw, p);
+  gemm_planes_wgmma<kP, EPI><<<tiles < sms ? tiles : sms, kTmaThreads,
+                               S::bytes, st>>>(ta, tw, p);
   note_launch();
   return static_cast<int>(cudaGetLastError());
 }
 
-int gemm_f32_shape_ok(int rows, int n, int k) {
-  return rows >= 1 && n >= kFBN && n % kFBN == 0 && k >= kFBK &&
-         k % kFBK == 0 && k <= kMaxK && (rows + kFBM - 1) / kFBM <= 65535;
+// The split-plane routes of the entry points below, kP planes (2:
+// kMode3Pass, 3: kModeF32), each after the entry's width check.
+template <int kP>
+int ln_linear_planes(const void* x, const void* w, const void* bias,
+                     const void* gamma, const void* beta, void* a_planes,
+                     void* w_planes, void* out, int rows, int n, int k,
+                     cudaStream_t st) {
+  int err = launch_split<kP>(w, w_planes, (int64_t)n * k, nullptr, nullptr,
+                             0, st);
+  if (err == 0)
+    err = launch_ln_split<kP>(x, gamma, beta, a_planes, rows, k, st);
+  if (err != 0) return err;
+  const PlaneArgs p{static_cast<const float*>(bias), nullptr, out, rows, n,
+                    k, 0};
+  return launch_planes_gemm<kP, kEpiBias>(a_planes, w_planes, p, st);
 }
 
-template <bool LN>
-int launch_gemm_f32(const void* a, const void* w, const void* bias,
-                    const void* gamma, const void* beta, const void* res,
-                    void* out, int rows, int n, int k, cudaStream_t st) {
-  if (!gemm_f32_shape_ok(rows, n, k))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(n / kFBN, (rows + kFBM - 1) / kFBM);
-  gemm_f32_kernel<LN><<<grid, kF32Threads, 0, st>>>(
-      static_cast<const float*>(a), static_cast<const float*>(w),
-      static_cast<const float*>(bias), static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), static_cast<const float*>(res),
-      static_cast<float*>(out), rows, n, k);
-  note_launch();
-  return static_cast<int>(cudaGetLastError());
+template <int kP>
+int linear_residual_planes(const void* res, const void* y, const void* w,
+                           const void* bias, void* a_planes, void* w_planes,
+                           void* out, int rows, int n, int k,
+                           cudaStream_t st) {
+  const int err = launch_split<kP>(w, w_planes, (int64_t)n * k, y, a_planes,
+                                   (int64_t)rows * k, st);
+  if (err != 0) return err;
+  const PlaneArgs p{static_cast<const float*>(bias),
+                    static_cast<const float*>(res), out, rows, n, k, 0};
+  return launch_planes_gemm<kP, kEpiResidual>(a_planes, w_planes, p, st);
 }
 
-template <int D>
-int launch_mlp_f32(const void* x, const void* gamma, const void* beta,
-                   const void* wfc, const void* bfc, const void* wpj,
-                   const void* bpj, void* out, int rows, int f, int act,
-                   cudaStream_t st) {
-  constexpr int bytes = MlpF32Smem<D>::bytes;
-  const cudaError_t e = cudaFuncSetAttribute(
-      mlp_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  mlp_f32_kernel<D><<<(rows + kFRows - 1) / kFRows, kF32Threads, bytes, st>>>(
-      static_cast<const float*>(x), static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), static_cast<const float*>(wfc),
-      static_cast<const float*>(bfc), static_cast<const float*>(wpj),
-      static_cast<const float*>(bpj), static_cast<float*>(out), rows, f, act);
-  note_launch();
-  return static_cast<int>(cudaGetLastError());
+template <int kP>
+int mlp_planes(const void* x, const void* gamma, const void* beta,
+               const void* w_fc, const void* b_fc, const void* w_proj,
+               const void* b_proj, void* hidden, void* a_planes,
+               void* w_planes, void* out, int rows, int d, int f, int act,
+               cudaStream_t st) {
+  bf16* wp_fc = static_cast<bf16*>(w_planes);
+  bf16* wp_proj = wp_fc + kP * (int64_t)f * d;
+  int err = launch_split<kP>(w_fc, wp_fc, (int64_t)f * d, w_proj, wp_proj,
+                             (int64_t)d * f, st);
+  if (err == 0)
+    err = launch_ln_split<kP>(x, gamma, beta, a_planes, rows, d, st);
+  if (err != 0) return err;
+  const PlaneArgs fc{static_cast<const float*>(b_fc), nullptr, hidden, rows,
+                     f, d, act};
+  err = launch_planes_gemm<kP, kEpiAct>(a_planes, wp_fc, fc, st);
+  if (err != 0) return err;
+  const PlaneArgs proj{static_cast<const float*>(b_proj),
+                       static_cast<const float*>(x), out, rows, d, f, 0};
+  return launch_planes_gemm<kP, kEpiProj>(hidden, wp_proj, proj, st);
 }
 
 }  // namespace
@@ -1157,12 +961,12 @@ int launch_mlp_f32(const void* x, const void* gamma, const void* beta,
 // selects the route: kModeBf16 (every operand, the vectors too, bf16, as
 // the predictor casts a block's leaves) on the TMA + wgmma engine, whose
 // tensor maps need every bf16 operand's base 16-byte aligned (the wrappers
-// refuse anything else); kMode3Pass (every operand fp32) on the same
-// engine's 3-pass mode; kModeF32 (every operand fp32) on the FMA kernels.
-// Scratch from the caller, each unused (and may be null) on the other
-// routes: mean and rstd fp32 [rows] for the bf16 route's statistics;
-// a_planes bf16 [2, rows, k] and w_planes bf16 [2, n, k] for the 3-pass
-// planes of the normalised x and of w.
+// refuse anything else); kMode3Pass and kModeF32 (every operand fp32) on
+// the same engine's 3-pass and 6-pass modes. Scratch from the caller, each
+// unused (and may be null) on the other routes: mean and rstd fp32 [rows]
+// for the bf16 route's statistics; a_planes bf16 [kP, rows, k] and
+// w_planes bf16 [kP, n, k] for the kP planes of the normalised x and of w
+// (kP 2 on kMode3Pass, 3 on kModeF32).
 // Each returns the CUDA error of its launches (0 on success), or
 // cudaErrorInvalidValue for a shape or mode the routes do not take.
 extern "C" int aaclip_ln_linear(const void* x, const void* w,
@@ -1172,21 +976,15 @@ extern "C" int aaclip_ln_linear(const void* x, const void* w,
                                 int mode, int rows, int n, int k,
                                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (mode == kModeF32)
-    return launch_gemm_f32<true>(x, w, bias, gamma, beta, nullptr, out, rows,
-                                 n, k, st);
-  if ((mode != kModeBf16 && mode != kMode3Pass) ||
-      !tma_shape_ok(true, rows, n, k))
+  if (!tma_shape_ok(true, rows, n, k))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (mode == kMode3Pass) {
-    int err = launch_split(w, w_planes, (int64_t)n * k, nullptr, nullptr, 0,
-                           st);
-    if (err == 0) err = launch_ln_split(x, gamma, beta, a_planes, rows, k, st);
-    if (err != 0) return err;
-    const HighArgs p{static_cast<const float*>(bias), nullptr, out, rows, n,
-                     k, 0};
-    return launch_3pass_gemm<kEpiBias>(a_planes, w_planes, p, st);
-  }
+  if (mode == kModeF32)
+    return ln_linear_planes<3>(x, w, bias, gamma, beta, a_planes, w_planes,
+                               out, rows, n, k, st);
+  if (mode == kMode3Pass)
+    return ln_linear_planes<2>(x, w, bias, gamma, beta, a_planes, w_planes,
+                               out, rows, n, k, st);
+  if (mode != kModeBf16) return static_cast<int>(cudaErrorInvalidValue);
   const int err = launch_stats(x, mean, rstd, rows, k, st);
   if (err != 0) return err;
   const GemmArgs p{static_cast<const bf16*>(bias),
@@ -1197,26 +995,22 @@ extern "C" int aaclip_ln_linear(const void* x, const void* w,
 }
 
 // out = res + (y @ w^T + bias); y [rows, k], res and out [rows, n];
-// a_planes [2, rows, k] and w_planes [2, n, k] the 3-pass scratch.
+// a_planes [kP, rows, k] and w_planes [kP, n, k] the split routes'
+// scratch.
 extern "C" int aaclip_linear_residual(const void* res, const void* y,
                                       const void* w, const void* bias,
                                       void* a_planes, void* w_planes,
                                       void* out, int mode, int rows, int n,
                                       int k, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!tma_shape_ok(false, rows, n, k))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (mode == kModeF32)
-    return launch_gemm_f32<false>(y, w, bias, nullptr, nullptr, res, out,
-                                  rows, n, k, st);
-  if (mode == kMode3Pass) {
-    if (!tma_shape_ok(false, rows, n, k))
-      return static_cast<int>(cudaErrorInvalidValue);
-    const int err = launch_split(w, w_planes, (int64_t)n * k, y, a_planes,
-                                 (int64_t)rows * k, st);
-    if (err != 0) return err;
-    const HighArgs p{static_cast<const float*>(bias),
-                     static_cast<const float*>(res), out, rows, n, k, 0};
-    return launch_3pass_gemm<kEpiResidual>(a_planes, w_planes, p, st);
-  }
+    return linear_residual_planes<3>(res, y, w, bias, a_planes, w_planes,
+                                     out, rows, n, k, st);
+  if (mode == kMode3Pass)
+    return linear_residual_planes<2>(res, y, w, bias, a_planes, w_planes,
+                                     out, rows, n, k, st);
   if (mode != kModeBf16) return static_cast<int>(cudaErrorInvalidValue);
   const GemmArgs p{static_cast<const bf16*>(bias), nullptr, nullptr, nullptr,
                    nullptr, static_cast<const bf16*>(res),
@@ -1227,10 +1021,9 @@ extern "C" int aaclip_linear_residual(const void* res, const void* y,
 // out = x + proj(act(fc(LN(x)))); x and out [rows, d], w_fc [f, d], w_proj
 // [d, f]; gamma, beta, b_proj [d] and b_fc [f]; act 0 erf GELU, 1 tanh
 // GELU, 2 QuickGELU. Scratch from the caller: on the bf16 route mean and
-// rstd fp32 [rows] and hidden bf16 [rows, f]; on the 3-pass route hidden
-// the hidden's planes bf16 [2, rows, f], a_planes the normalised x's
-// [2, rows, d] and w_planes w_fc's [2, f, d] then w_proj's [2, d, f]; the
-// fp32 route takes none (and keeps the hidden on chip).
+// rstd fp32 [rows] and hidden bf16 [rows, f]; on the split routes hidden
+// the hidden's planes bf16 [kP, rows, f], a_planes the normalised x's
+// [kP, rows, d] and w_planes w_fc's [kP, f, d] then w_proj's [kP, d, f].
 extern "C" int aaclip_mlp_fused(const void* x, const void* gamma,
                                 const void* beta, const void* w_fc,
                                 const void* b_fc, const void* w_proj,
@@ -1239,41 +1032,17 @@ extern "C" int aaclip_mlp_fused(const void* x, const void* gamma,
                                 void* out, int mode, int rows, int d, int f,
                                 int act, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (act < kGeluErf || act > kQuickGelu)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (mode == kModeF32) {
-    if (rows < 1 || f < kFHid || f % kFHid)
-      return static_cast<int>(cudaErrorInvalidValue);
-    switch (d) {
-      case 128:
-        return launch_mlp_f32<128>(x, gamma, beta, w_fc, b_fc, w_proj, b_proj,
-                                   out, rows, f, act, st);
-      case 1024:
-        return launch_mlp_f32<1024>(x, gamma, beta, w_fc, b_fc, w_proj,
-                                    b_proj, out, rows, f, act, st);
-      default:
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
-  }
   // fc (K = d under the LN prologue, N = f), then proj (K = f, N = d)
-  if ((mode != kModeBf16 && mode != kMode3Pass) ||
-      !tma_shape_ok(true, rows, f, d) || !tma_shape_ok(false, rows, d, f))
+  if (act < kGeluErf || act > kQuickGelu || !tma_shape_ok(true, rows, f, d) ||
+      !tma_shape_ok(false, rows, d, f))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (mode == kMode3Pass) {
-    bf16* wp_fc = static_cast<bf16*>(w_planes);
-    bf16* wp_proj = wp_fc + 2 * (int64_t)f * d;
-    int err = launch_split(w_fc, wp_fc, (int64_t)f * d, w_proj, wp_proj,
-                           (int64_t)d * f, st);
-    if (err == 0) err = launch_ln_split(x, gamma, beta, a_planes, rows, d, st);
-    if (err != 0) return err;
-    const HighArgs fc{static_cast<const float*>(b_fc), nullptr, hidden, rows,
-                      f, d, act};
-    err = launch_3pass_gemm<kEpiAct>(a_planes, wp_fc, fc, st);
-    if (err != 0) return err;
-    const HighArgs proj{static_cast<const float*>(b_proj),
-                        static_cast<const float*>(x), out, rows, d, f, 0};
-    return launch_3pass_gemm<kEpiProj>(hidden, wp_proj, proj, st);
-  }
+  if (mode == kModeF32)
+    return mlp_planes<3>(x, gamma, beta, w_fc, b_fc, w_proj, b_proj, hidden,
+                         a_planes, w_planes, out, rows, d, f, act, st);
+  if (mode == kMode3Pass)
+    return mlp_planes<2>(x, gamma, beta, w_fc, b_fc, w_proj, b_proj, hidden,
+                         a_planes, w_planes, out, rows, d, f, act, st);
+  if (mode != kModeBf16) return static_cast<int>(cudaErrorInvalidValue);
   int err = launch_stats(x, mean, rstd, rows, d, st);
   if (err != 0) return err;
   const GemmArgs fc{static_cast<const bf16*>(b_fc),

@@ -31,6 +31,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <map>
 #include <mutex>
 #include <set>
 #include <utility>
@@ -528,6 +529,25 @@ inline cudaError_t smem_attribute_once(const void* kernel, int bytes) {
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              bytes);
   if (err == cudaSuccess) done.insert({kernel, device});
+  return err;
+}
+
+// The device's SM count, read once per device: the persistent kernels'
+// grids are at most that many blocks.
+inline cudaError_t sm_count(int* sms) {
+  static std::mutex mu;
+  static std::map<int, int> counts;  // device -> SMs
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const std::lock_guard<std::mutex> lock(mu);
+  const auto it = counts.find(device);
+  if (it != counts.end()) {
+    *sms = it->second;
+    return cudaSuccess;
+  }
+  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) counts[device] = *sms;
   return err;
 }
 

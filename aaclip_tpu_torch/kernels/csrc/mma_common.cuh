@@ -144,6 +144,18 @@ __device__ __forceinline__ void split3_pack(float x0, float x1, uint32_t& hi,
   lo = pack_bf16(l0, l1);
 }
 
+// Two fp32 values as the packed bf16 pairs of their kP planes, p[plane]:
+// split3_pack's hi, mid, lo (kP 3) or split_pack's hi, lo (kP 2).
+template <int kP>
+__device__ __forceinline__ void split_planes(float x0, float x1,
+                                             uint32_t (&p)[kP]) {
+  static_assert(kP == 2 || kP == 3, "two or three bf16 planes");
+  if constexpr (kP == 3)
+    split3_pack(x0, x1, p[0], p[1], p[2]);
+  else
+    split_pack(x0, x1, p[0], p[1]);
+}
+
 // Two fp32 values as the packed bf16 pairs of their kP planes, into
 // f[plane][k][r]: split3's hi, mid, lo (kP 3) or split_pack's hi, lo
 // (kP 2, whose lo is split3's mid bit for bit).

@@ -24,15 +24,16 @@ TPU kernel's rational erf was a Mosaic workaround.
 The wrappers run the plain versions only for tensors on the CPU (the
 tests). On a CUDA tensor they launch the kernels or raise. Which kernels
 run is the route of the operands' dtype and the policy's precision
-(``route``, ``TMA_ROUTES``): bf16 takes the TMA + wgmma engine (a
-row-statistics kernel and one GEMM with a LayerNorm or plain prologue and
-a bias, activation or residual epilogue; ``ln_linear`` is two launches,
-``linear_residual`` one, ``mlp_fused`` three, with its bf16 hidden through
-device memory); fp32 under precision "high" (fp32_high) the same engine's
-3-pass mode on the bf16 planes of its fp32 operands (``ln_linear`` three
-launches, ``linear_residual`` two, ``mlp_fused`` four, counted apart in
-each wrapper's ``launches_3pass``); fp32 under "highest", the parity
-policy, keeps the first port's FMA kernels. None has a backward: an input
+(``route``, ``TMA_ROUTES``), every route on one TMA + wgmma engine: bf16
+a row-statistics kernel and one GEMM with a LayerNorm or plain prologue
+and a bias, activation or residual epilogue (``ln_linear`` is two
+launches, ``linear_residual`` one, ``mlp_fused`` three, with its bf16
+hidden through device memory); fp32 the same GEMM's split-plane modes on
+the bf16 planes of its fp32 operands, under precision "high" (fp32_high)
+the 3-pass mode on two planes and under "highest", the parity policy, the
+6-pass mode on three (``ln_linear`` three launches, ``linear_residual``
+two, ``mlp_fused`` four, counted apart in each wrapper's
+``launches_3pass`` and ``launches_6pass``). None has a backward: an input
 that requires grad while autograd records is refused.
 """
 
@@ -64,20 +65,19 @@ BF16 = route(torch.bfloat16, None)
 HIGH = route(torch.float32, "high")
 FP32 = route(torch.float32, "highest")
 # The routes on the TMA + wgmma engine of fused_block.cu: bf16
-# (gemm_wgmma, row_stats_kernel) and fp32 under "high" (its 3-pass mode:
-# split_kernel, ln_split_kernel, gemm_3pass_wgmma); fp32 otherwise runs the
-# FMA kernels (gemm_f32_kernel, mlp_f32_kernel). ``_MODES`` are the entry
-# points' ``mode`` codes (kModeF32, kModeBf16, kMode3Pass).
-TMA_ROUTES = frozenset({BF16, HIGH})
+# (gemm_wgmma, row_stats_kernel) and fp32 on its split-plane modes
+# (split_kernel, ln_split_kernel, gemm_planes_wgmma) with ``PLANES[key]``
+# bf16 planes an operand: 2 under "high" (3-pass), 3 under "highest"
+# (6-pass). ``_MODES`` are the entry points' ``mode`` codes (kModeF32,
+# kModeBf16, kMode3Pass).
+TMA_ROUTES = frozenset({BF16, HIGH, FP32})
+PLANES = {HIGH: 2, FP32: 3}
 _MODES = {FP32: 0, BF16: 1, HIGH: 2}
 # The widths fused_block.cu takes: by route, the narrowest output tile and
 # the reduction tile (N and K multiples of them); the largest LayerNorm row
-# (the statistics hold it in registers: every LN prologue, and every fp32
-# K); the fp32 MLP's model widths and hidden tile.
-_GEMM_TILES = {BF16: (128, 64), HIGH: (128, 64), FP32: (64, 16)}
+# (the statistics hold it in registers).
+_GEMM_TILES = {BF16: (128, 64), HIGH: (128, 64), FP32: (128, 64)}
 KERNEL_MAX_K = 1024
-KERNEL_MLP_WIDTHS = (128, 1024)
-KERNEL_MLP_HIDDEN_TILE = 64
 _ACT_CODES = {L.gelu: 0, L.gelu_tanh: 1, L.quick_gelu: 2}  # fused_block.cu
 
 
@@ -161,24 +161,18 @@ def _kernels():
 
 
 def _gemm_widths_ok(key: tuple, n: int, k: int, ln: bool = True) -> bool:
-    """``tma_shape_ok`` (the engine's routes) or ``gemm_f32_shape_ok``'s
-    widths on route ``key``: n output columns, k reduced ones, under the
-    LayerNorm prologue or not."""
+    """``tma_shape_ok``'s widths on route ``key``: n output columns, k
+    reduced ones, under the LayerNorm prologue or not."""
     bn, bk = _GEMM_TILES[key]
-    capped = ln or key not in TMA_ROUTES
     return n >= bn and n % bn == 0 and k >= bk and k % bk == 0 \
-        and (not capped or k <= KERNEL_MAX_K)
+        and (not ln or k <= KERNEL_MAX_K)
 
 
 def _mlp_widths_ok(key: tuple, d: int, f: int) -> bool:
     """``aaclip_mlp_fused``'s widths on route ``key``: model width d,
-    hidden f. The engine's routes run fc (LN, d -> f) and proj (f -> d) on
-    the GEMM; fp32 has its kernel at ``KERNEL_MLP_WIDTHS``."""
-    if key in TMA_ROUTES:
-        return _gemm_widths_ok(key, f, d) \
-            and _gemm_widths_ok(key, d, f, ln=False)
-    return d in KERNEL_MLP_WIDTHS and f >= KERNEL_MLP_HIDDEN_TILE \
-        and f % KERNEL_MLP_HIDDEN_TILE == 0
+    hidden f, fc (LN, d -> f) and proj (f -> d) on the GEMM."""
+    return _gemm_widths_ok(key, f, d) and _gemm_widths_ok(key, d, f,
+                                                          ln=False)
 
 
 def _refuse_grad(name: str, *tensors: torch.Tensor) -> None:
@@ -224,21 +218,34 @@ def _launch(name: str, entry, device: torch.device, *args) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
-def _scratch(x: torch.Tensor, key: tuple, *shapes) -> list:
-    """The scratch of route ``key`` on x's device: for each ``(route,
-    shape, dtype)`` of ``shapes`` a new tensor where ``route`` is ``key``,
-    else None (a null pointer). The caller keeps them until the launch is
-    enqueued; after that the allocator may hand their memory on, in the
-    stream's order."""
-    return [torch.empty(*shape, dtype=dtype, device=x.device)
-            if r == key else None for r, shape, dtype in shapes]
+def _stats(x: torch.Tensor, key: tuple, rows: int) -> list:
+    """The bf16 route's scratch on x's device, the rows' mean and rstd
+    (fp32 [rows] each), or two None (null pointers) on the other routes.
+    The caller keeps scratch until the launch is enqueued; after that the
+    allocator may hand its memory on, in the stream's order."""
+    if key != BF16:
+        return [None, None]
+    return [torch.empty(rows, dtype=torch.float32, device=x.device)
+            for _ in range(2)]
+
+
+def _planes(x: torch.Tensor, key: tuple, *shapes) -> list:
+    """The split-plane routes' scratch on x's device: for each shape of
+    ``shapes`` a bf16 tensor of ``PLANES[key]`` planes of it, or None (a
+    null pointer) on the bf16 route."""
+    if key not in PLANES:
+        return [None] * len(shapes)
+    return [torch.empty(PLANES[key], *shape, dtype=torch.bfloat16,
+                        device=x.device) for shape in shapes]
 
 
 def _count(wrapper, key: tuple) -> None:
     """One call of ``wrapper`` on route ``key``: ``launches`` counts every
-    call, ``launches_3pass`` those of the 3-pass mode."""
+    call, ``launches_3pass`` those of the 3-pass mode, ``launches_6pass``
+    those of the 6-pass mode."""
     wrapper.launches += 1
     wrapper.launches_3pass += int(key == HIGH)
+    wrapper.launches_6pass += int(key == FP32)
 
 
 def _ptr(t) -> int | None:
@@ -253,12 +260,13 @@ def ln_linear(x: torch.Tensor, ln_weight: torch.Tensor,
     layout), b [F] -> [B, S, F] in x's dtype.
 
     CPU tensors take ``ln_linear_plain``. On CUDA tensors (all in the
-    compute dtype, contiguous; D a multiple of 64 up to 1024 and F of 128,
-    in fp32 under "highest" of 16 and 64) the kernels are launched on the
-    current stream (bf16: the row statistics into two fp32 [rows] scratch
-    vectors, then the GEMM; fp32 under "high": W's planes, the normalised
-    rows' planes, then the 3-pass GEMM) and ``ln_linear.launches`` counts
-    each call (``launches_3pass`` those on the 3-pass route)."""
+    compute dtype, contiguous; D a multiple of 64 up to 1024 and F of 128)
+    the kernels are launched on the current stream (bf16: the row
+    statistics into two fp32 [rows] scratch vectors, then the GEMM; fp32:
+    W's planes, the normalised rows' planes, then the 3-pass GEMM under
+    "high" or the 6-pass one under "highest") and ``ln_linear.launches``
+    counts each call (``launches_3pass`` and ``launches_6pass`` those on
+    the split-plane routes)."""
     _refuse_grad("ln_linear", x, ln_weight, ln_bias, w, b)
     if x.device.type == "cpu":
         return ln_linear_plain(x, ln_weight, ln_bias, w, b, policy)
@@ -274,10 +282,9 @@ def ln_linear(x: torch.Tensor, ln_weight: torch.Tensor,
                          f"instantiation on route {key}")
     R = x.numel() // D
     out = torch.empty(*x.shape[:-1], F, dtype=x.dtype, device=x.device)
-    # the row statistics (bf16); the planes of the rows and of W (3-pass)
-    mean, rstd, a_planes, w_planes = _scratch(
-        x, key, (BF16, (R,), torch.float32), (BF16, (R,), torch.float32),
-        (HIGH, (2, R, D), torch.bfloat16), (HIGH, (2, F, D), torch.bfloat16))
+    # the row statistics (bf16); the planes of the rows and of W (fp32)
+    mean, rstd = _stats(x, key, R)
+    a_planes, w_planes = _planes(x, key, (R, D), (F, D))
     _launch("ln_linear", _kernels().aaclip_ln_linear, x.device,
             x.data_ptr(), w.data_ptr(), b.data_ptr(), ln_weight.data_ptr(),
             ln_bias.data_ptr(), _ptr(mean), _ptr(rstd), _ptr(a_planes),
@@ -286,7 +293,7 @@ def ln_linear(x: torch.Tensor, ln_weight: torch.Tensor,
     return out
 
 
-ln_linear.launches = ln_linear.launches_3pass = 0
+ln_linear.launches = ln_linear.launches_3pass = ln_linear.launches_6pass = 0
 
 
 def linear_residual(res: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
@@ -296,11 +303,11 @@ def linear_residual(res: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     D] -> [B, S, D] in res's dtype.
 
     CPU tensors take ``linear_residual_plain``. On CUDA tensors (all in
-    the compute dtype, contiguous; D_in a multiple of 64 and D of 128, in
-    fp32 under "highest" of 16 up to 1024 and of 64) the kernel is launched
-    on the current stream (fp32 under "high" after one launch that splits W
-    and y into their planes) and ``linear_residual.launches`` counts each
-    call (``launches_3pass`` those on the 3-pass route)."""
+    the compute dtype, contiguous; D_in a multiple of 64 and D of 128) the
+    kernel is launched on the current stream (fp32 after one launch that
+    splits W and y into their planes) and ``linear_residual.launches``
+    counts each call (``launches_3pass`` and ``launches_6pass`` those on
+    the split-plane routes)."""
     _refuse_grad("linear_residual", res, y, w, b)
     if res.device.type == "cpu":
         return linear_residual_plain(res, y, w, b, policy)
@@ -315,9 +322,7 @@ def linear_residual(res: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
                          f"kernel instantiation on route {key}")
     R = res.numel() // N
     out = torch.empty_like(res)
-    a_planes, w_planes = _scratch(res, key,
-                                  (HIGH, (2, R, K), torch.bfloat16),
-                                  (HIGH, (2, N, K), torch.bfloat16))
+    a_planes, w_planes = _planes(res, key, (R, K), (N, K))
     _launch("linear_residual", _kernels().aaclip_linear_residual, res.device,
             res.data_ptr(), y.data_ptr(), w.data_ptr(), b.data_ptr(),
             _ptr(a_planes), _ptr(w_planes), out.data_ptr(), _MODES[key], R,
@@ -326,7 +331,8 @@ def linear_residual(res: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     return out
 
 
-linear_residual.launches = linear_residual.launches_3pass = 0
+linear_residual.launches = linear_residual.launches_3pass = \
+    linear_residual.launches_6pass = 0
 
 
 def mlp_fused(x: torch.Tensor, ln_weight: torch.Tensor,
@@ -338,11 +344,12 @@ def mlp_fused(x: torch.Tensor, ln_weight: torch.Tensor,
     ``gelu_tanh`` or ``quick_gelu``.
 
     CPU tensors take ``mlp_fused_plain``. On CUDA tensors (all in the
-    compute dtype, contiguous) the kernels are launched on the current
-    stream and ``mlp_fused.launches`` counts each call
-    (``launches_3pass`` those on the 3-pass route).
+    compute dtype, contiguous; D a multiple of 128 up to 1024, F of 128)
+    the kernels are launched on the current stream and
+    ``mlp_fused.launches`` counts each call (``launches_3pass`` and
+    ``launches_6pass`` those on the split-plane routes).
 
-    bf16 (D a multiple of 128 up to 1024, F of 128) is three launches: the
+    bf16 is three launches: the
     row statistics, fc with the LayerNorm prologue and the activation
     epilogue into a bf16 [rows, F] hidden, and proj with the ``(x + acc) +
     b_proj`` epilogue. The hidden goes through device memory as bf16, 359
@@ -355,12 +362,11 @@ def mlp_fused(x: torch.Tensor, ln_weight: torch.Tensor,
     same), so writing and reading the hidden (718 MB, ~0.21 ms at 3.35
     TB/s) hides under ~0.74 ms of tensor-core time. The TPU kernel and the
     plain version round the hidden to bf16 at that point, so the numerics
-    are the same. fp32 under "high" (the bf16 route's widths) is four
-    launches: the planes of both weights, the normalised rows' planes, fc
-    with the activation epilogue writing the fp32 hidden's planes [2, rows,
-    F] (bf16, as much memory as the fp32 hidden), and proj on them. fp32
-    under "highest" (D in ``KERNEL_MLP_WIDTHS``, F a multiple of 64) is
-    one launch that keeps the hidden on chip."""
+    are the same. fp32 is four launches: the planes of both weights, the
+    normalised rows' planes, fc with the activation epilogue writing the
+    fp32 hidden's planes [P, rows, F] (P = 2 under "high", as much memory
+    as the fp32 hidden; 3 under "highest"), and proj on them, in the 3-pass
+    or the 6-pass mode."""
     _refuse_grad("mlp_fused", x, ln_weight, ln_bias, w_fc, b_fc, w_proj,
                  b_proj)
     if x.device.type == "cpu":
@@ -381,32 +387,28 @@ def mlp_fused(x: torch.Tensor, ln_weight: torch.Tensor,
     if not _mlp_widths_ok(key, D, F):
         raise ValueError(
             f"mlp_fused: width {D}, hidden {F} have no kernel on route {key}"
-            f" (bf16 and fp32 under 'high': width a multiple of "
-            f"{_GEMM_TILES[BF16][0]} up to {KERNEL_MAX_K}, hidden of "
-            f"{_GEMM_TILES[BF16][0]}; fp32: widths {KERNEL_MLP_WIDTHS}, "
-            f"hidden a multiple of {KERNEL_MLP_HIDDEN_TILE})")
+            f" (width a multiple of {_GEMM_TILES[key][0]} up to "
+            f"{KERNEL_MAX_K}, hidden of {_GEMM_TILES[key][0]})")
     R = x.numel() // D
     out = torch.empty_like(x)
-    bf16 = torch.bfloat16
-    # bf16: the statistics and the bf16 hidden; 3-pass: the hidden's, the
+    # bf16: the statistics and the bf16 hidden; fp32: the hidden's, the
     # normalised rows' and both weights' planes
-    mean, rstd, hidden, hidden_planes, a_planes, w_planes = _scratch(
-        x, key, (BF16, (R,), torch.float32), (BF16, (R,), torch.float32),
-        (BF16, (R, F), bf16), (HIGH, (2, R, F), bf16),
-        (HIGH, (2, R, D), bf16), (HIGH, (4, F, D), bf16))
+    mean, rstd = _stats(x, key, R)
+    hidden, a_planes, w_planes = _planes(x, key, (R, F), (R, D), (2 * F, D))
+    if key == BF16:
+        hidden = torch.empty(R, F, dtype=torch.bfloat16, device=x.device)
     _launch("mlp_fused", _kernels().aaclip_mlp_fused, x.device,
             x.data_ptr(), ln_weight.data_ptr(), ln_bias.data_ptr(),
             w_fc.data_ptr(),
             b_fc.data_ptr(), w_proj.data_ptr(), b_proj.data_ptr(),
-            _ptr(mean), _ptr(rstd), _ptr(hidden if key == BF16
-                                         else hidden_planes),
-            _ptr(a_planes), _ptr(w_planes), out.data_ptr(), _MODES[key], R,
-            D, F, _ACT_CODES[act])
+            _ptr(mean), _ptr(rstd), _ptr(hidden), _ptr(a_planes),
+            _ptr(w_planes), out.data_ptr(), _MODES[key], R, D, F,
+            _ACT_CODES[act])
     _count(mlp_fused, key)
     return out
 
 
-mlp_fused.launches = mlp_fused.launches_3pass = 0
+mlp_fused.launches = mlp_fused.launches_3pass = mlp_fused.launches_6pass = 0
 
 
 def gemm_tile_width(bn: int) -> None:
@@ -435,7 +437,8 @@ def make_block_fn(num_heads: int, policy: DtypePolicy = DtypePolicy(), *,
     ``*_plain`` versions give the same block with the plain arithmetic on
     any device (the on-card comparison). ``attention`` gets the policy's
     precision, as JAX's block passes it, so under fp32_high (fp32, "high")
-    every op of the block runs its kernels' 3-pass mode. The block closes
+    every op of the block runs its kernels' 3-pass mode, and under fp32
+    ("highest") their 6-pass mode. The block closes
     over ``policy`` and runs it on every block it is given, the staged
     prefix of an fp32_high trunk included, as JAX's does."""
     if attention is None:

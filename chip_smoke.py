@@ -73,13 +73,15 @@ Needs one CUDA card and nvcc. Phases, each of which fails the run:
     V-V modes.
  8. the fused-block path (``ops/fused_block.py``, ``fused_block.cu``; bf16
     on the TMA + wgmma GEMM, fp32 under "high" on its 3-pass mode, fp32
-    on the FMA kernels): (a) ``ln_linear``
+    under "highest" on its 6-pass mode): (a) ``ln_linear``
     (B5, to 3D and D columns), ``linear_residual`` (B6) and ``mlp_fused``
     (B7, under each activation) against their plain versions in bf16 and
     fp32, each kernel run twice bit for bit, at the predict's batch-32
     rows, a ragged row count, the GEMM's 128-row tile edges (128, 129 and
-    255 rows), ViT-B-16's width 768 (hidden 3072; the fp32 MLP has no
-    kernel there and says so) and width 128; then one NaN row of x (and of
+    255 rows), ViT-B-16's width 768 (hidden 3072) and width 128, fp32's
+    6-pass calls counted (3 / 2 / 4 kernels per call) and held within
+    SIX_FP64_MAX_REL and SIX_FUSED_FP64_MAX_REL of fp64 (the plain
+    version's distance printed beside); then one NaN row of x (and of
     B6's input) in a [3, 200, 1024] batch, which must leave every other
     row of each output bit for bit as with that row zero; (b)
     ``attention_kernel`` (B4, the forward kernel on the [B, H, S, hd]
@@ -87,11 +89,13 @@ Needs one CUDA card and nvcc. Phases, each of which fails the run:
     with valid_len < S and head dim 16, and bit for bit against
     ``attention_packed`` on the same values packed; (c)
     the predict with ``block_fn=make_block_fn(...)`` (bf16 uint8 at batch
-    8, fp32 at batch 2) against the same predictor on the plain-version
+    8, fp32 at batch 8) against the same predictor on the plain-version
     block with phase 4's bars, 24 launches per call of each of
     ``ln_linear``, ``attention_packed``, ``linear_residual`` and
-    ``mlp_fused`` and none of ``attention_kernel``, and (printed) its
-    distance from the unfused predictor;
+    ``mlp_fused`` (fp32's all 6-pass, 24 x 9 fused_block kernels) and
+    none of ``attention_kernel``, and (printed) its distance from the
+    unfused predictor, the fused fp32 predict's maps/s beside the unfused
+    one's;
     (d) ``encode_image`` with ``block_fn`` and ``vv_block_fn`` from
     ``vv_start`` 5 (bf16, batch 2) against the plain blocks, counting 24
     ``ln_linear`` (5 to 3072 columns, 19 to 1024), 5 standard + 19 V-V
@@ -110,7 +114,11 @@ Needs one CUDA card and nvcc. Phases, each of which fails the run:
     wrapper, maps/s beside the unfused ones; the kernels' times at batch 8
     beside their bounds, plain versions and the unfused sequence; and
     ``bench --mode block --precision fp32_high --batch_size 8`` (see the
-    notes before ``HIGH_FUSED_CASES``).
+    notes before ``HIGH_FUSED_CASES``); (j-k) the same under fp32 (the
+    6-pass mode): each kernel's ms at batch 8 and 32 beside its bounds
+    (six bf16 passes, and one fp32 pass at the FMA rate), its plain
+    version and the unfused fp32 sequence, and ``bench --mode block
+    --precision fp32 --batch_size 8``.
  9. the evaluation CLI from checkpoints (``python -m aaclip_tpu_torch.test``
     through ``main``): a seeded ViT-L-14-336 at its native 336 px saved as
     an OpenAI-layout state dict (the loader resizes the positional
@@ -356,10 +364,23 @@ S1_STEP_LOSS_RTOL, S1_STEP_GRAD_COS, S1_STEP_GRAD_NORM_RTOL = 3e-2, 0.998, 0.3
 # there. The tile edges, ragged rows and width 768 read no more.)
 FUSED_BF16_REL, FUSED_BF16_OF_MAX, FUSED_BF16_MEAN = 2 ** -7, 2 ** -10, \
     2 ** -10
-# fp32: the same fp32 arithmetic in another order over 128-4096 terms, and
-# erff/tanhf/expf against torch's (an ulp or two): ~1e-6 of the output's
-# max |value| (read: at most 1.8e-6 of it); bar 1e-5 of it.
+# fp32: the 6-pass mode's six bf16 products (dropping terms of ~2^-24
+# relative) against cuBLAS's fp32 SGEMM, each summing 128-4096 terms in
+# its own order, and erff/tanhf/expf against torch's (an ulp or two):
+# ~1e-6 of the output's max |value| (read on an NVIDIA H100 80GB HBM3,
+# 700 W: at most 2.0e-6 of it, the kernel 2.7-3.3e-7 of it from fp64 and
+# the plain version 1.0-2.0e-6; the FMA kernels it replaced read 1.8e-6);
+# bar 1e-5 of it.
 FUSED_FP32_OF_MAX = 1e-5
+# The fused 6-pass kernels' own distance from fp64, which tells the
+# "highest" mode from the "high" one: on an NVIDIA H100 80GB HBM3, 700 W,
+# the 6-pass kernels read 1.0-3.3e-7 of each output's max at every
+# FUSED_CASES shape, the 3-pass kernels 5.2e-6 / 3.3e-6 / 3.6e-6 (B5 / B6
+# / B7) at batch 8. Bar 1e-6 of the output's max: 3x the largest 6-pass
+# reading, a third of the smallest 3-pass one, so a 6-pass route that ran
+# three passes or dropped the mid terms fails it. SIX_FP64_MAX_REL (the
+# 6-pass attention's bar) is held as well.
+SIX_FUSED_FP64_MAX_REL = 1e-6
 # B4 against its plain version: the bars of the forward kernel (BF16_*,
 # FP32_MAX_ABS), whose arithmetic it is; against attention_packed on the
 # same values: bit for bit. The fused predict against the plain-block
@@ -1731,39 +1752,68 @@ def fused_calls(FB, t, y, policy, acts, plain=False):
 
 def check_fused_kernels(dtype_name: str) -> dict:
     """B5-B7 against their plain versions on the card, each kernel run
-    twice bit for bit; returns the largest max |d| of each at the batch-32
-    shape."""
+    twice bit for bit; fp32 calls (the 6-pass mode) counted, 3 / 2 / 4
+    kernels each, and held within SIX_FP64_MAX_REL and
+    SIX_FUSED_FP64_MAX_REL of fp64. Returns the
+    largest max |d| of each at the batch-32 shape, and under fp32 also
+    ``{"fp64": {name: the largest distance from fp64}}``."""
     import torch
 
     from aaclip_tpu_torch.core.config import DtypePolicy
+    from aaclip_tpu_torch.kernels.build import kernels_launched
     from aaclip_tpu_torch.models import layers as L
     from aaclip_tpu_torch.ops import fused_block as FB
 
     dtype = torch_dtype(dtype_name)
     policy = DtypePolicy(dtype, dtype_name == "bf16")
+    six = dtype_name == "fp32"
     gen = torch.Generator(device="cuda").manual_seed(20)
     worst = {"ln_linear": 0.0, "linear_residual": 0.0, "mlp_fused": 0.0}
+    fp64 = {}
+    acts = (L.gelu, L.gelu_tanh, L.quick_gelu)
     for B, S, D, F in FUSED_CASES:
         t = fused_inputs(B, S, D, F, dtype, gen)
         y = torch.randn(B, S, D, generator=gen, device="cuda").to(dtype)
-        print(f"fused kernels {dtype_name} x [{B},{S},{D}], hidden {F}:")
-        acts = (L.gelu, L.gelu_tanh, L.quick_gelu)
-        if not FB._mlp_widths_ok(FB.route(dtype, policy.precision), D, F):
-            print(f"  mlp_fused: no {dtype_name} kernel at width {D} (the "
-                  f"fp32 MLP is instantiated at {FB.KERNEL_MLP_WIDTHS})")
-            expect(dtype_name == "fp32", f"no bf16 MLP at width {D}")
-            acts = ()
+        print(f"fused kernels {dtype_name}{' (6-pass)' if six else ''} x "
+              f"[{B},{S},{D}], hidden {F}:")
         plain = fused_calls(FB, t, y, policy, acts, plain=True)
-        errs = {name: fused_err(twice(fn, name), plain[name](), dtype_name,
-                                name)
-                for name, fn in fused_calls(FB, t, y, policy, acts).items()}
+        errs = {}
+        for name, fn in fused_calls(FB, t, y, policy, acts).items():
+            key = name.split()[0]
+            wrapper = getattr(FB, key)
+            before = (wrapper.launches_6pass, kernels_launched("fused_block"))
+            got = twice(fn, name)
+            torch.cuda.synchronize()
+            if six:
+                n6 = wrapper.launches_6pass - before[0]
+                nk = kernels_launched("fused_block") - before[1]
+                expect(n6 == 2 and nk == 2 * SPLIT_KERNELS[key],
+                       f"{name}: {n6} 6-pass calls, {nk} kernels in two "
+                       f"calls")
+            want = plain[name]()
+            errs[name] = fused_err(got, want, dtype_name, name)
+            if six:
+                act = next((a for a in acts
+                            if name.split()[-1] == a.__name__), None)
+                exact = fused_fp64(name, t, y, act)
+                top = exact.abs().max().item()
+                rel = (got.double() - exact).abs().max().item() / top
+                rel_plain = (want.double() - exact).abs().max().item() / top
+                print(f"    from fp64: kernel {rel:.3e}, plain version "
+                      f"{rel_plain:.3e} of the output's max")
+                expect(rel <= min(SIX_FP64_MAX_REL, SIX_FUSED_FP64_MAX_REL),
+                       f"{name} (6-pass) off fp64: {rel}")
+                fp64[key] = max(fp64.get(key, 0.0), rel)
+                del exact
+            del got, want
         torch.cuda.synchronize()
         if B == 32:
             for name in worst:
                 worst[name] = max(v for k, v in errs.items()
                                   if k.startswith(name))
-        del t, y
-    return worst
+        del t, y, plain
+        torch.cuda.empty_cache()
+    return {**worst, "fp64": fp64} if six else worst
 
 
 def check_fused_nan_row(dtype_name: str) -> None:
@@ -1878,6 +1928,7 @@ def zero_fused_counts() -> None:
     zero_counts()
     for wrapper in (FB.ln_linear, FB.linear_residual, FB.mlp_fused):
         wrapper.launches = wrapper.launches_3pass = 0
+        wrapper.launches_6pass = 0
 
 
 def fused_counts_3pass():
@@ -1906,20 +1957,22 @@ def plain_block_fn(heads: int, policy, act, vv: bool = False):
 
 
 def phase_fused_predict(vit, adapter, cfg, acfg, anchors, M, card):
-    """Phase 8c and the predict timings of 8e: returns {kernel: launches
-    per bf16 predict call}."""
+    """Phase 8c and the predict timings of 8e (and of the fp32 predicts at
+    batch 8): returns ({kernel: launches per bf16 predict call}, {wrapper:
+    its 6-pass launches per fp32 predict call})."""
     import torch
 
     from aaclip_tpu_torch.core.config import DtypePolicy
     from aaclip_tpu_torch.eval.predict import make_predict_fn
+    from aaclip_tpu_torch.kernels.build import kernels_launched
     from aaclip_tpu_torch.models.layers import config_act
+    from aaclip_tpu_torch.ops import fused_block as FB
     from aaclip_tpu_torch.ops.fused_block import make_block_fn
 
     heads, img, n_layers = cfg.vision.heads, cfg.vision.image_size, \
         cfg.vision.layers
     gen = torch.Generator(device="cuda").manual_seed(22)
-    runs = {}
-    for name, B in (("bf16", 8), ("fp32", 2)):
+    for name, B in (("bf16", 8), ("fp32", TRAIN_BATCH)):
         policy = DtypePolicy.bf16() if name == "bf16" else DtypePolicy.fp32()
         act = config_act(cfg, policy)
         kw = dict(policy=policy, uint8_inputs=name == "bf16")
@@ -1935,11 +1988,20 @@ def phase_fused_predict(vit, adapter, cfg, acfg, anchors, M, card):
             images = torch.randn(B, 3, img, img, generator=gen,
                                  device="cuda")
         zero_fused_counts()
+        k0 = kernels_launched("fused_block")
         pix_f, score_f = fused(adapter, images, anchors, M)
         torch.cuda.synchronize()
         c = fused_counts()
         if name == "fp32":
             expect_6pass((c[1], c[2], 0), f"fused predict fp32 B={B}")
+            six = tuple(getattr(FB, w).launches_6pass for w in FP32_ROWS)
+            nk = kernels_launched("fused_block") - k0
+            print(f"fused predict fp32 B={B}: 6-pass calls {six}, {nk} "
+                  f"fused_block kernels")
+            expect(six == (n_layers,) * 3
+                   and nk == n_layers * sum(SPLIT_KERNELS.values()),
+                   f"fused predict fp32: 6-pass calls {six}, kernels {nk}")
+            fp32_calls = dict(zip(FP32_ROWS, six))
         zero_fused_counts()
         pix_p, score_p = plain(adapter, images, anchors, M)
         torch.cuda.synchronize()
@@ -1982,6 +2044,12 @@ def phase_fused_predict(vit, adapter, cfg, acfg, anchors, M, card):
                                        rtol=PIX_RTOL_FP32)
             torch.testing.assert_close(score_f, score_p,
                                        atol=SCORE_ATOL_FP32, rtol=0)
+            for what, fn in (("fused", fused), ("unfused", unfused)):
+                ms = cuda_ms(lambda fn=fn: fn(adapter, images, anchors, M),
+                             3, warmup=1)
+                print(f"time predict fp32 B={B} ViT-L/518 ({what} block): "
+                      f"{ms:.2f} ms/call, {B / ms * 1e3:.2f} maps/s on "
+                      f"{card}")
         del fused, plain, unfused, pix_f, pix_p, pix_u, images
 
     u8 = torch.randint(0, 256, (32, 3, img, img), generator=gen,
@@ -1991,7 +2059,7 @@ def phase_fused_predict(vit, adapter, cfg, acfg, anchors, M, card):
     for name, ms in (("fused block", ms_f), ("unfused block", ms_u)):
         print(f"time predict bf16 B=32 ViT-L/518 ({name}): {ms:.2f} ms/call,"
               f" {32 / ms * 1e3:.2f} maps/s on {card}")
-    return launches
+    return launches, fp32_calls
 
 
 def phase_encode_image(vit, cfg):
@@ -2220,8 +2288,8 @@ def time_fused(cfg, card):
 
 # Phase 8f-8i, the fused block under fp32_high (fp32 operands, precision
 # "high"): B5-B7's 3-pass mode (fused_block.cu's split_kernel,
-# ln_split_kernel and gemm_3pass_wgmma). (f) Each kernel against its plain
-# version (the same split into bf16 halves, the three products as cuBLAS
+# ln_split_kernel and gemm_planes_wgmma on two planes). (f) Each kernel
+# against its plain version (the same split into bf16 halves, the three products as cuBLAS
 # bf16 GEMMs in matmul_3pass) at FUSED_FP32_OF_MAX of the output's max:
 # the two differ only in the order of the fp32 sums and in erff against
 # torch's erf; twice bit for bit; against fp64 at HIGH_FP64_MAX_REL of the
@@ -2243,14 +2311,16 @@ def time_fused(cfg, card):
 # block --precision fp32_high --batch_size 8``.
 HIGH_FUSED_CASES = [(TRAIN_BATCH, 1370, 1024, 4096), (1, 129, 1024, 4096),
                     (2, 21, 128, 512)]
-# kernels per call of each 3-pass wrapper (ln_split_kernel first: the
-# profiler's names are matched by substring)
-HIGH_PER_CALL = {"ln_linear": {"ln_split_kernel": 1, "split_kernel": 1,
-                               "gemm_3pass_wgmma": 1},
-                 "linear_residual": {"split_kernel": 1,
-                                     "gemm_3pass_wgmma": 1},
-                 "mlp_fused": {"ln_split_kernel": 1, "split_kernel": 1,
-                               "gemm_3pass_wgmma": 2}}
+# kernels per call of each wrapper on a split-plane mode, 3-pass or 6-pass
+# (ln_split_kernel first: the profiler's names are matched by substring)
+PLANES_PER_CALL = {"ln_linear": {"ln_split_kernel": 1, "split_kernel": 1,
+                                 "gemm_planes_wgmma": 1},
+                   "linear_residual": {"split_kernel": 1,
+                                       "gemm_planes_wgmma": 1},
+                   "mlp_fused": {"ln_split_kernel": 1, "split_kernel": 1,
+                                 "gemm_planes_wgmma": 2}}
+SPLIT_KERNELS = {k: sum(v.values()) for k, v in PLANES_PER_CALL.items()}
+FP32_ROWS = ("ln_linear", "linear_residual", "mlp_fused")
 
 
 def fused_fp64(name: str, t: dict, y, act):
@@ -2290,7 +2360,6 @@ def check_fused_kernels_3pass() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(27)
     out = {"err": {}, "fp64": {}}
     acts = (L.gelu, L.quick_gelu, L.gelu_tanh)
-    per_call = {"ln_linear": 3, "linear_residual": 2, "mlp_fused": 4}
     with torch.inference_mode():
         for B, S, D, F in HIGH_FUSED_CASES:
             t = fused_inputs(B, S, D, F, torch.float32, gen)
@@ -2306,7 +2375,7 @@ def check_fused_kernels_3pass() -> dict:
                 torch.cuda.synchronize()
                 n3 = wrapper.launches_3pass - before[0]
                 nk = kernels_launched("fused_block") - before[1]
-                expect(n3 == 2 and nk == 2 * per_call[name.split()[0]],
+                expect(n3 == 2 and nk == 2 * SPLIT_KERNELS[name.split()[0]],
                        f"{name}: {n3} 3-pass calls, {nk} kernels in two "
                        f"calls")
                 want = plain[name]()
@@ -2468,7 +2537,7 @@ def time_fused_3pass(cfg, card) -> dict:
     with torch.inference_mode():
         for name, (kern, plain, lib, flops, nbytes) in cases.items():
             ms = cuda_ms(kern, 20)
-            n = kernels_per_call(kern, "fused_block", HIGH_PER_CALL[name],
+            n = kernels_per_call(kern, "fused_block", PLANES_PER_CALL[name],
                                  f"{name} (3-pass)")
             ms_plain = cuda_ms(plain, 5)
             ms_lib = cuda_ms(lib, 5)
@@ -2482,9 +2551,10 @@ def time_fused_3pass(cfg, card) -> dict:
     return out
 
 
-def bench_block_high(card) -> dict:
-    """Phase 8i: one in-process ``python -m aaclip_tpu_torch.bench --mode
-    block --precision fp32_high --batch_size 8`` run's JSON line."""
+def bench_block(card, precision: str) -> dict:
+    """Phases 8i and 8k: one in-process ``python -m aaclip_tpu_torch.bench
+    --mode block --precision <precision> --batch_size 8`` run's JSON
+    line."""
     import contextlib
     import gc
     import io
@@ -2495,18 +2565,114 @@ def bench_block_high(card) -> dict:
 
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        bench.main(["--mode", "block", "--precision", "fp32_high",
+        bench.main(["--mode", "block", "--precision", precision,
                     "--batch_size", str(TRAIN_BATCH)])
     line = json.loads(out.getvalue().strip().splitlines()[-1])
-    print(f"bench --mode block --precision fp32_high --batch_size "
+    print(f"bench --mode block --precision {precision} --batch_size "
           f"{TRAIN_BATCH}: {json.dumps(line)}")
     expect(line["metric"] == "fused_block_trunk_ms" and line["value"] > 0
-           and "fp32_high" in line["unit"]
+           and f"{precision}," in line["unit"]
            and math.isfinite(line["max_rel_dev"]),
-           f"bench --mode block fp32_high: {line}")
+           f"bench --mode block {precision}: {line}")
     gc.collect()
     torch.cuda.empty_cache()
     return line
+
+
+# Phase 8j-8k, the fused block under fp32 (precision "highest", the parity
+# policy): B5-B7's 6-pass mode (split_kernel, ln_split_kernel and
+# gemm_planes_wgmma on three planes). (j) Each wrapper's ms at the fp32
+# parity batch 8 and at 8e's batch 32 (ln_linear to 3072 columns, the QKV
+# projection, and to 1024, the V-V value third; linear_residual;
+# mlp_fused under the config's activation), beside its plain version (true
+# fp32: cuBLAS SGEMMs with TF32 off, LayerNorm, bias, activation and
+# residual in torch), the unfused fp32 sequence the predict runs
+# (``L.layer_norm`` and ``L.linear`` under ``DtypePolicy.fp32()``), and two
+# bounds: six bf16 passes at 989 TFLOP/s (the TPU's native form, the bound
+# every fp32 row of PERF.md takes) and, printed beside, one fp32 pass at the
+# FMA rate (67 TFLOP/s). (k) ``bench --mode block --precision fp32
+# --batch_size 8``.
+FP32_BLOCK_BATCHES = (TRAIN_BATCH, 32)
+
+
+def time_fused_fp32(cfg, card) -> dict:
+    """Phase 8j: {batch: {name: (ms, plain ms, library ms, bound ms,
+    bound_by, kernels per call, FMA-rate bound ms)}}, each wrapper's
+    kernels per call held to the 6-pass mode's (and queued for
+    check_device_ops)."""
+    import torch
+
+    from aaclip_tpu_torch.core.config import DtypePolicy
+    from aaclip_tpu_torch.models import layers as L
+    from aaclip_tpu_torch.ops import fused_block as FB
+
+    fp32 = DtypePolicy.fp32()
+    D, F, S = cfg.vision.width, int(cfg.vision.width * cfg.vision.mlp_ratio), \
+        cfg.vision.seq_len
+    act = L.config_act(cfg, fp32)
+    e = 4  # bytes of an fp32 element
+    out = {}
+    for B in FP32_BLOCK_BATCHES:
+        R = B * S
+        gen = torch.Generator(device="cuda").manual_seed(30 + B)
+        t = fused_inputs(B, S, D, F, torch.float32, gen)
+        x, g, b = t["x"], t["g"], t["b"]
+        wqkv = torch.randn(3 * D, D, generator=gen, device="cuda") * D ** -0.5
+        bqkv = torch.randn(3 * D, generator=gen, device="cuda") * 0.02
+        wv, bv = wqkv[2 * D:].contiguous(), bqkv[2 * D:].contiguous()
+        y = torch.randn(B, S, D, generator=gen, device="cuda")
+        wo, bo = t["w"][:D].contiguous(), t["bias"][:D].contiguous()
+        mlp_p = SimpleNamespace(
+            c_fc=SimpleNamespace(weight=t["w"], bias=t["bias"]),
+            c_proj=SimpleNamespace(weight=t["w2"], bias=t["bias2"]))
+
+        def ln_case(w, bias):
+            n = w.shape[0]
+            return (functools.partial(FB.ln_linear, x, g, b, w, bias, fp32),
+                    lambda: FB.ln_linear_plain(x, g, b, w, bias, fp32),
+                    lambda: L.linear(L.layer_norm(x, g, b), w, bias, fp32),
+                    2 * R * D * n,
+                    (R * D + n * D + n + 2 * D + R * n) * e)
+
+        cases = {
+            "ln_linear": ln_case(wqkv, bqkv),
+            "ln_linear F=1024": ln_case(wv, bv),
+            "linear_residual": (
+                functools.partial(FB.linear_residual, x, y, wo, bo, fp32),
+                lambda: FB.linear_residual_plain(x, y, wo, bo, fp32),
+                lambda: x + L.linear(y, wo, bo, fp32),
+                2 * R * D * D, (3 * R * D + D * D + D) * e),
+            "mlp_fused": (
+                functools.partial(FB.mlp_fused, x, g, b, t["w"], t["bias"],
+                                  t["w2"], t["bias2"], act, fp32),
+                lambda: FB.mlp_fused_plain(x, g, b, t["w"], t["bias"],
+                                           t["w2"], t["bias2"], act, fp32),
+                lambda: x + L.mlp(L.layer_norm(x, g, b), mlp_p, act, fp32),
+                4 * R * D * F, (2 * R * D + 2 * D * F + F + 3 * D) * e),
+        }
+        out[B] = {}
+        with torch.inference_mode():
+            for name, (kern, plain, lib, flops, nbytes) in cases.items():
+                ms = cuda_ms(kern, 10)
+                what = f"{name} fp32 B={B}"
+                key = name.split()[0]
+                n = kernels_per_call(kern, "fused_block",
+                                     PLANES_PER_CALL[key], what)
+                ms_plain = cuda_ms(plain, 5)
+                ms_lib = cuda_ms(lib, 5)
+                bound_ms, bound_by = bound(6 * flops, nbytes)
+                fma_ms = flops / H100_FP32_FMA_FLOPS * 1e3
+                out[B][name] = (ms, ms_plain, ms_lib, bound_ms, bound_by, n,
+                                fma_ms)
+                print(f"time {name} [{B},{S},{D}] fp32: kernel {ms:.4f} ms "
+                      f"({6 * flops / ms / 1e9:.1f} TFLOP/s of six bf16 "
+                      f"passes), plain {ms_plain:.4f}, unfused sequence "
+                      f"{ms_lib:.4f}; bound {bound_ms:.4f} ms by {bound_by} "
+                      f"in six bf16 passes, {fma_ms:.4f} in one fp32 pass "
+                      f"at the FMA rate on {card}")
+        del t, x, y, wqkv, bqkv, wv, wo, cases
+        torch.cuda.empty_cache()
+    return out
 
 
 # Phase 9, the evaluation CLI from checkpoints, on a synthetic MVTec set
@@ -6385,14 +6551,12 @@ def main() -> int:
 
     # -- 8. fused-block path
     print(f"[{time.perf_counter() - t0:.0f} s] fused-block path")
-    err_fused = {}
+    err_fused = {d: check_fused_kernels(d) for d in DTYPES}
     for d in DTYPES:
-        for name, err in check_fused_kernels(d).items():
-            err_fused[name] = max(err_fused.get(name, 0.0), err)
         check_fused_nan_row(d)
     err_b4 = {d: check_attention_kernel(d) for d in DTYPES}
-    fused_launches = phase_fused_predict(vit, adapter, cfg, acfg, anchors,
-                                         M, card)
+    fused_launches, fp32_calls = phase_fused_predict(
+        vit, adapter, cfg, acfg, anchors, M, card)
     expect(fused_launches["attention_packed"] == fwd_launches,
            "the fused predict's attention launches differ from the "
            "predict's")
@@ -6404,7 +6568,11 @@ def main() -> int:
                                              anchors, M, card)
     fused_times = time_fused(cfg, card)
     fused_high_times = time_fused_3pass(cfg, card)
-    bench_block_high(card)
+    bench_block(card, "fp32_high")
+    # -- 8j-8k. the fused block under fp32 (the 6-pass mode)
+    print(f"[{time.perf_counter() - t0:.0f} s] fused block fp32 (6-pass)")
+    fp32_block_times = time_fused_fp32(cfg, card)
+    bench_block(card, "fp32")
     # -- 11f. the fp32 kernels' times, then every traced check while the
     # profiler still returns whole traces
     fp32_times = time_kernels_fp32(card)
@@ -6447,13 +6615,17 @@ def main() -> int:
          "aaclip_tpu/ops/flash_attention.py:94",
          fused_launches["attention_kernel"], err_b4["bf16"]),
         ("ln_linear", "fused_block.cu", "aaclip_tpu/ops/fused_block.py:124",
-         fused_launches["ln_linear"], err_fused["ln_linear"]),
+         fused_launches["ln_linear"], err_fused["bf16"]["ln_linear"]),
         ("linear_residual", "fused_block.cu",
          "aaclip_tpu/ops/fused_block.py:179",
-         fused_launches["linear_residual"], err_fused["linear_residual"]),
+         fused_launches["linear_residual"],
+         err_fused["bf16"]["linear_residual"]),
         ("mlp_fused", "fused_block.cu", "aaclip_tpu/ops/fused_block.py:244",
-         fused_launches["mlp_fused"], err_fused["mlp_fused"]),
+         fused_launches["mlp_fused"], err_fused["bf16"]["mlp_fused"]),
     ]
+    # B5-B7's 6-pass mode: launches and calls on the fused fp32 predict,
+    # times at batch 8 (ln_linear's to 3072 columns)
+    fused_fp32 = fp32_block_times[TRAIN_BATCH]
     hc = high["calls"]
     # B5-B7's 3-pass mode: launches on the fused fp32_high predict (staged,
     # the policy's default), calls on both fused fp32_high predicts
@@ -6608,6 +6780,22 @@ def main() -> int:
         "bound_by": fused_high_times[name][4],
         "library_ms": fused_high_times[name][2],
     } for name, replaces, calls in high_fused_rows] + [{
+        "name": f"{name} (6-pass)",
+        "route": "cuda",
+        "source": "aaclip_tpu_torch/kernels/csrc/fused_block.cu",
+        "replaces": replaces,
+        "launches": fp32_calls[name],
+        "calls": {f"fused fp32 predict B={TRAIN_BATCH}": fp32_calls[name]},
+        "kernels_per_call": fused_fp32[name][5],
+        "max_abs_err": err_fused["fp32"][name],
+        "fp64_of_max": err_fused["fp32"]["fp64"][name],
+        "ms": fused_fp32[name][0],
+        "plain_ms": fused_fp32[name][1],
+        "bound_ms": fused_fp32[name][3],
+        "bound_by": fused_fp32[name][4],
+        "fma_bound_ms": fused_fp32[name][6],
+        "library_ms": fused_fp32[name][2],
+    } for name, replaces, _ in high_fused_rows] + [{
         "name": f"{name} (3-pass)",
         "route": "cuda",
         "source": f"aaclip_tpu_torch/kernels/csrc/{source}",

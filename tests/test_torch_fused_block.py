@@ -390,8 +390,8 @@ def test_predict_with_block_fn_matches_jax(policy):
 
 def test_gate_and_supported_geometry(monkeypatch):
     """ViT-L's geometry is supported under bf16 and fp32, ViT-B-16's (width
-    768) under bf16 only (the fp32 MLP kernel is instantiated at widths 128
-    and 1024), tiny-test's (width 64) under neither. Off the card the gate
+    768) too (every route is the one engine's, widths a multiple of 128),
+    tiny-test's (width 64) under neither. Off the card the gate
     gives no block; on the card it gives one under bf16 only, None under
     fp32 as JAX's gate does, and an unsupported bf16 geometry raises
     instead of falling back."""
@@ -406,7 +406,7 @@ def test_gate_and_supported_geometry(monkeypatch):
     for cfg in vit_b:
         assert cfg.vision.width == 768 and cfg.vision.head_dim == 64
         assert FB.fused_block_supported(cfg, bf16)
-        assert not FB.fused_block_supported(cfg, fp32)
+        assert FB.fused_block_supported(cfg, fp32)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             FB.maybe_make_block_fn(vit_l, bf16)
@@ -425,9 +425,8 @@ def test_width_checks_match_the_kernel_tiles():
     """The wrappers' width checks read the tiles fused_block.cu is
     instantiated for: the bf16 GEMM's 64-column reduction tile (one
     128-byte TMA row) and its output tiles of 128 and 256 columns (every N
-    the check admits has a tile), the same GEMM's 3-pass mode at 128
-    columns, the LayerNorm cap, the fp32 tiles and the fp32 MLP's widths
-    and hidden tile."""
+    the check admits has a tile), the same GEMM's split-plane modes (3-pass
+    and 6-pass) at 128 columns, and the LayerNorm cap."""
     import re
 
     src = (build.CSRC / "fused_block.cu").read_text()
@@ -435,17 +434,14 @@ def test_width_checks_match_the_kernel_tiles():
     def const(name):
         return int(re.search(rf"\b{name} = (\d+)", src).group(1))
 
-    assert FB._GEMM_TILES == {FB.BF16: (const("kBN"), const("kBK")),
-                              FB.HIGH: (const("kBN"), const("kBK")),
-                              FB.FP32: (const("kFBN"), const("kFBK"))}
+    engine = (const("kBN"), const("kBK"))
+    assert FB._GEMM_TILES == {FB.BF16: engine, FB.HIGH: engine,
+                              FB.FP32: engine}
     assert (const("kBK"), const("kBN"), const("kBNWide")) == (64, 128, 256)
-    assert "float acc[kBN / 2], part[kBN / 2];" in src  # 3-pass: 128 wide
+    assert "float acc[kBN / 2], part[kBN / 2];" in src  # split: 128 wide
     assert FB.KERNEL_MAX_K == const("kMaxK") == 1024
-    assert FB.KERNEL_MLP_HIDDEN_TILE == const("kFHid")
-    for d in FB.KERNEL_MLP_WIDTHS:
-        assert f"case {d}:" in src
     bf16, fp32, high = FB.BF16, FB.FP32, FB.HIGH
-    for key in (bf16, high):  # the engine's widths, in either mode
+    for key in (bf16, high, fp32):  # the engine's widths, in every mode
         assert FB._gemm_widths_ok(key, 3072, 1024)
         assert not FB._gemm_widths_ok(key, 3072, 2048)
         assert FB._gemm_widths_ok(key, 1024, 4096, ln=False)
@@ -459,27 +455,27 @@ def test_width_checks_match_the_kernel_tiles():
     assert FB._gemm_widths_ok(bf16, 1024, 4096, ln=False)  # proj, K = F
     assert not FB._gemm_widths_ok(bf16, 1024, 96, ln=False)
     assert not FB._gemm_widths_ok(bf16, 192, 1024)
-    assert not FB._gemm_widths_ok(fp32, 1024, 4096, ln=False)
+    assert FB._gemm_widths_ok(fp32, 1024, 4096, ln=False)
     assert FB._mlp_widths_ok(bf16, 768, 3072)
     assert FB._mlp_widths_ok(bf16, 128, 512)
     assert not FB._mlp_widths_ok(bf16, 1280, 5120)
     assert not FB._mlp_widths_ok(bf16, 768, 3136)
-    assert not FB._mlp_widths_ok(fp32, 768, 3072)
+    assert FB._mlp_widths_ok(fp32, 768, 3072)
     assert FB._mlp_widths_ok(fp32, 1024, 4096)
 
 
 def test_routes_match_the_kernel_sources():
     """The route table is the source's own: the wrappers' mode codes are
     the source's; each C entry point sends kModeF32 (fp32 under "highest")
-    to the FMA kernels, kMode3Pass (fp32 under "high") to the 3-pass mode
-    of the TMA + wgmma GEMM after the splits into planes, and kModeBf16 to
-    the bf16 GEMM after the row statistics where there is a LayerNorm, in
-    that order; every __global__ kernel of the source is one of the three
-    routes'."""
+    to the 6-pass mode of the TMA + wgmma GEMM (three planes) and
+    kMode3Pass (fp32 under "high") to its 3-pass mode (two planes), each
+    after the splits into planes, and kModeBf16 to the bf16 GEMM after the
+    row statistics where there is a LayerNorm, in that order; every
+    __global__ kernel of the source is one of the three routes'."""
     import re
 
     src = (build.CSRC / "fused_block.cu").read_text()
-    assert FB.TMA_ROUTES == {FB.BF16, FB.HIGH}
+    assert FB.TMA_ROUTES == {FB.BF16, FB.HIGH, FB.FP32}
     assert FB.BF16 == FB.route(torch.bfloat16, "high") == (torch.bfloat16,
                                                            None)
     assert FB.FP32 == FB.route(torch.float32, None) == \
@@ -490,42 +486,43 @@ def test_routes_match_the_kernel_sources():
                          FB.BF16: modes["kModeBf16"],
                          FB.HIGH: modes["kMode3Pass"]}
 
-    def body(entry):
-        start = src.index(f'extern "C" int {entry}(')
-        end = src.find('extern "C"', start + 1)
-        return src[start:end if end > 0 else len(src)]
+    def body(start):
+        start = src.index(start)
+        return src[start:src.index("\n}\n", start)]
 
-    f32 = {"aaclip_ln_linear": ["launch_gemm_f32<true>"],
-           "aaclip_linear_residual": ["launch_gemm_f32<false>"],
-           "aaclip_mlp_fused": ["launch_mlp_f32<"]}
-    high = {"aaclip_ln_linear": ["launch_split(", "launch_ln_split(",
-                                 "launch_3pass_gemm<kEpiBias>"],
-            "aaclip_linear_residual": ["launch_split(",
-                                       "launch_3pass_gemm<kEpiResidual>"],
-            "aaclip_mlp_fused": ["launch_split(", "launch_ln_split(",
-                                 "launch_3pass_gemm<kEpiAct>",
-                                 "launch_3pass_gemm<kEpiProj>"]}
+    # each entry point's split-plane route and its launches, in order
+    planes = {"aaclip_ln_linear": ("ln_linear_planes", [
+                  "launch_split<kP>(", "launch_ln_split<kP>(",
+                  "launch_planes_gemm<kP, kEpiBias>"]),
+              "aaclip_linear_residual": ("linear_residual_planes", [
+                  "launch_split<kP>(",
+                  "launch_planes_gemm<kP, kEpiResidual>"]),
+              "aaclip_mlp_fused": ("mlp_planes", [
+                  "launch_split<kP>(", "launch_ln_split<kP>(",
+                  "launch_planes_gemm<kP, kEpiAct>",
+                  "launch_planes_gemm<kP, kEpiProj>"])}
     tma = {"aaclip_ln_linear": ["launch_stats(", "launch_tma_gemm<true, "
                                 "kEpiBias>"],
            "aaclip_linear_residual": ["launch_tma_gemm<false, kEpiResidual>"],
            "aaclip_mlp_fused": ["launch_stats(", "launch_tma_gemm<true, "
                                 "kEpiAct>", "launch_tma_gemm<false, kEpiProj>"]}
     for entry in tma:
-        b = body(entry)
-        at_f32 = b.index("if (mode == kModeF32)")
-        at_high = b.index("if (mode == kMode3Pass)")
-        assert at_f32 < at_high
-        calls = f32[entry] + high[entry] + tma[entry]
+        b = body(f'extern "C" int {entry}(')
+        route, launches = planes[entry]
+        calls = ["if (mode == kModeF32)", f"return {route}<3>(",
+                 "if (mode == kMode3Pass)", f"return {route}<2>("] + \
+            tma[entry]
         positions = [b.index(c) for c in calls]
         assert positions == sorted(positions), entry  # in launch order
-        assert positions[len(f32[entry])] > at_high  # the 3-pass route's
         assert "launch_tma_gemm" not in b[:b.index(tma[entry][0])]
-        assert "launch_3pass_gemm" not in b[at_f32:at_high]
+        r = body(f"int {route}(")
+        positions = [r.index(c) for c in launches]
+        assert positions == sorted(positions), route
+        assert "launch_tma_gemm" not in r and "launch_stats" not in r
     kernels = set(re.findall(
         r"__global__ void __launch_bounds__\([^)]*\)\s+(\w+)\(", src))
-    assert kernels == {"row_stats_kernel", "gemm_wgmma", "gemm_f32_kernel",
-                       "mlp_f32_kernel", "split_kernel", "ln_split_kernel",
-                       "gemm_3pass_wgmma"}
+    assert kernels == {"row_stats_kernel", "gemm_wgmma", "split_kernel",
+                       "ln_split_kernel", "gemm_planes_wgmma"}
 
 
 def test_wrappers_refuse_inputs_that_require_grad(data):
@@ -595,10 +592,10 @@ def test_entry_points_match_the_c_signatures(entry, n_params):
     """The ctypes argument lists in ops/fused_block.py have one entry per
     parameter of each C entry point in fused_block.cu: the route's mode,
     ``ln_linear`` with the row statistics' mean and rstd scratch and the
-    3-pass planes of the rows and of W, ``linear_residual`` with the
+    split planes of the rows and of W, ``linear_residual`` with the
     planes of y and W, ``mlp_fused`` with the statistics, the hidden (bf16,
-    or its 3-pass planes) and the planes of the rows and of both weights,
-    and the GEMM's tile-width override."""
+    or its planes) and the planes of the rows and of both weights, and
+    the bf16 GEMM's tile-width override."""
     import re
 
     src = (build.CSRC / "fused_block.cu").read_text()
