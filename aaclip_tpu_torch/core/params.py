@@ -24,6 +24,11 @@ from aaclip_tpu_torch.models.vit import ImageAdapter, VisionTransformer
 from aaclip_tpu_torch.ops.resize import resize_bicubic_2d
 
 
+# log(1 / 0.07), CLIP's initial logit scale (the JAX package's
+# core/params.py:116)
+LOGIT_SCALE_INIT = math.log(1.0 / 0.07)
+
+
 def _init_tower(tower: nn.Module, width: int, gen: torch.Generator) -> None:
     """CLIP's init of a tower's blocks (attention width^-0.5, projections
     half that, fc (2w)^-0.5; zero biases) and unit LayerNorms; freezes the
@@ -87,6 +92,9 @@ def init_text_params(cfg: CLIPConfig, *, seed: int = 0,
     _normal(text.positional_embedding, 0.01, gen)
     _init_tower(text, t.width, gen)
     _normal(text.text_projection, t.width ** -0.5, gen)
+    # CLIP's initial temperature, set without a draw: the seeded tensors
+    # stay what the same seed gave before it existed
+    nn.init.constant_(text.logit_scale, LOGIT_SCALE_INIT)
     return text
 
 
@@ -180,9 +188,12 @@ def text_params_from_jax(tree: dict, cfg: CLIPConfig, *,
                          device=None) -> TextTransformer:
     """Frozen text tower from the JAX package's tree (the full CLIP tree or
     its ``"text"`` subtree): ``token_embedding``, ``positional_embedding``,
-    the stacked blocks, ``ln_final`` and ``text_projection``."""
+    the stacked blocks, ``ln_final`` and ``text_projection``; the full
+    tree's top-level ``logit_scale`` too, else CLIP's initial value."""
     dev = resolve_device(device)
     t = tree.get("text", tree)
+    scale = tree.get("logit_scale", LOGIT_SCALE_INIT) if "text" in tree \
+        else LOGIT_SCALE_INIT
     with torch.device("meta"):
         text = TextTransformer(cfg)
     text = text.to_empty(device=dev).requires_grad_(False)
@@ -190,6 +201,8 @@ def text_params_from_jax(tree: dict, cfg: CLIPConfig, *,
     _load(text.positional_embedding, t["positional_embedding"])
     _load_ln(text.ln_final, t["ln_final"])
     _load(text.text_projection, t["text_projection"])
+    with torch.no_grad():
+        text.logit_scale.fill_(float(np.asarray(scale, np.float32)))
     _load_blocks(text.blocks, t["blocks"])
     return text
 
@@ -399,8 +412,9 @@ def load_openai_checkpoint(path: str, cfg: CLIPConfig, *, device=None
         vit, sd, "visual.", "transformer.resblocks.", dev,
         {"conv1.weight": sd["visual.conv1.weight"].reshape(v.width, -1),
          "positional_embedding": torch.from_numpy(pos)})
-    text = _tower_from_state_dict(text, sd, "", "transformer.resblocks.",
-                                  dev, {})
+    text = _tower_from_state_dict(
+        text, sd, "", "transformer.resblocks.", dev,
+        {"logit_scale": sd["logit_scale"].reshape(())})
     return vit, text
 
 
@@ -458,3 +472,25 @@ def create_clip_towers(cfg: CLIPConfig, *, checkpoint: Optional[str] = None,
             "aaclip_tpu_torch/weights/.")
     return (init_vision_params(cfg, seed=seed, device=device),
             init_text_params(cfg, seed=seed, device=device))
+
+
+def create_clip_params(cfg: CLIPConfig, *, checkpoint: Optional[str] = None,
+                       seed: int = 0, require_pretrained: bool = False,
+                       device=None) -> dict:
+    """The JAX package's ``create_clip_params`` in the port's terms: the
+    frozen towers of ``create_clip_towers`` as ``{"visual", "text",
+    "logit_scale"}`` (the last the text tower's parameter)."""
+    vit, text = create_clip_towers(cfg, checkpoint=checkpoint, seed=seed,
+                                   require_pretrained=require_pretrained,
+                                   device=device)
+    return {"visual": vit, "text": text, "logit_scale": text.logit_scale}
+
+
+def init_adapter_params(cfg: CLIPConfig, acfg: AdapterConfig, *,
+                        seed: int = 1, device=None) -> dict:
+    """The JAX package's ``init_adapter_params`` in the port's terms:
+    ``{"image": init_image_adapter(seed), "text": init_text_adapter(seed
+    + 1)}`` (a seed in place of JAX's PRNG key)."""
+    return {"image": init_image_adapter(cfg, acfg, seed=seed, device=device),
+            "text": init_text_adapter(cfg, acfg, seed=seed + 1,
+                                      device=device)}

@@ -29,7 +29,10 @@ from aaclip_tpu_torch.models import layers as L
 
 class TextTransformer(nn.Module):
     """Frozen CLIP text tower weights (OpenAI's names;
-    ``text_projection`` is [width, embed_dim], used as ``x @ proj``)."""
+    ``text_projection`` is [width, embed_dim], used as ``x @ proj``). It
+    also holds CLIP's ``logit_scale`` (a 0-d log temperature, OpenAI's
+    top-level name, which the text tower's checkpoint prefix "" keeps),
+    read only by ``models/clip.py::CLIPModel``."""
 
     def __init__(self, cfg: CLIPConfig):
         super().__init__()
@@ -42,6 +45,7 @@ class TextTransformer(nn.Module):
         self.ln_final = nn.LayerNorm(t.width, eps=L._LN_EPS)
         self.text_projection = nn.Parameter(
             torch.empty(t.width, cfg.embed_dim))
+        self.logit_scale = nn.Parameter(torch.empty(()))
 
 
 class TextAdapter(nn.Module):

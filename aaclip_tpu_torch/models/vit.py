@@ -282,3 +282,38 @@ def encode_image(vit: VisionTransformer, cfg: CLIPConfig,
     pooled = L.matmul(pooled.to(cd), vit.proj.to(cd),
                       policy.precision).to(x.dtype)
     return pooled, [taps[l] for l in out_layers]
+
+
+def surgery_patch_features(vit: VisionTransformer, cfg: CLIPConfig,
+                           images: torch.Tensor, out_layers: Sequence[int],
+                           surgery_until_layer: int = 20, *,
+                           policy: DtypePolicy = DtypePolicy(), act=None,
+                           attn_fn=None, vv_attn_fn=None, block_fn=None,
+                           vv_block_fn=None, vv_mode: str = "batch"
+                           ) -> List[torch.Tensor]:
+    """Stage-1 features of the surgery tower (reference train.py:75-81):
+    each tapped depth's patch tokens (CLS dropped) through ln_post and
+    ``proj``, fp32 [B, num_patches, embed_dim]. The last
+    ``surgery_until_layer - 1`` blocks run in the V-V form
+    (``layers.surgery_vv_start``), as in ``train/steps.py::
+    stage1_features_fn``: ``vv_mode="batch"`` (default) is the
+    reference's batch-coupled V-V attention (``layers.
+    make_batch_vv_attn_fn``, plain), ``"spatial"`` the per-sample form on
+    ``vv_attn_fn`` (default the packed kernel's V-V mode). The policy's
+    staging is dropped, as every stage-1 entry point drops it."""
+    policy = policy.unstaged()
+    if vv_mode == "batch":
+        vv_attn_fn = L.make_batch_vv_attn_fn(cfg.vision.heads, policy)
+        vv_block_fn = None
+    elif vv_mode != "spatial":
+        raise ValueError(f"vv_mode must be 'batch' or 'spatial', got "
+                         f"{vv_mode!r}")
+    vv_start = L.surgery_vv_start(cfg.vision.layers, surgery_until_layer)
+    _, taps = encode_image(vit, cfg, images, out_layers, vv_start=vv_start,
+                           policy=policy, act=act, attn_fn=attn_fn,
+                           vv_attn_fn=vv_attn_fn, block_fn=block_fn,
+                           vv_block_fn=vv_block_fn)
+    cd = policy.compute_dtype
+    return [L.matmul(L.layer_norm(t[:, 1:, :], vit.ln_post.weight,
+                                  vit.ln_post.bias).to(cd),
+                     vit.proj.to(cd), policy.precision) for t in taps]

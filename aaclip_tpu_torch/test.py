@@ -20,10 +20,11 @@ fuses each class's few-shot memory bank into the prediction
 quantizes the trunk (``ops/quant.py``). ``--artifact DIR`` evaluates an
 exported artifact (``deploy.py``) instead of building the model: the
 programs, weights and anchors that ``serve --artifact`` would run, with
-its bundled banks under ``--memory_bank``. The flags are the JAX CLI's;
-those of paths not ported yet raise at parse time naming their ROADMAP
-item. ``main(argv, device="cpu")`` runs on the
-CPU (the tests); by default it runs on the card.
+its bundled banks under ``--memory_bank``. ``--visualize`` writes each
+image's panel (the image, the mask's and the map's JET overlays) under
+``{save_path}/visualization/`` (``eval/visualize.py``). The flags are the
+JAX CLI's. ``main(argv, device="cpu")`` runs on the CPU (the tests); by
+default it runs on the card.
 
 ``--data_parallel`` and ``--tensor_parallel N`` (with
 ``--sequence_parallel``) run one process per card under ``torchrun``
@@ -34,7 +35,12 @@ reads, decodes and predicts only its rows of each global batch (its
 loader's ``deal_batches``: rows r, r + dp, ...; the ranks of one model
 group share rows), and each class's maps, masks, labels and scores are
 gathered for the metrics; rank 0 alone writes the log, the table and
-the CSVs. The parallel flags' rules are JAX's.
+the CSVs. ``--pipeline_parallel N`` (with ``--pp_microbatches``) GPipes
+the trunk over N processes (``parallel/pipeline.py``), replicated over
+``world // N`` data replicas under ``--data_parallel``: every rank reads
+the global batch, as JAX's pipeline takes it replicated, rounded up to a
+multiple of microbatches x replicas, and the staged trunk and the uint8
+inputs are off. The parallel flags' rules are JAX's.
 """
 
 from __future__ import annotations
@@ -46,11 +52,6 @@ import glob
 import os
 import re
 import time
-
-# flags of paths the port does not have yet -> (ROADMAP item, its title)
-_A12 = ("A12", "the parallel axes")
-_A15 = ("A15", "visualization")
-
 
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description="Testing")
@@ -115,8 +116,19 @@ def parse_args(argv=None):
     parser.add_argument("--data_parallel", action="store_true")
     parser.add_argument("--tensor_parallel", type=int, default=1)
     parser.add_argument("--sequence_parallel", action="store_true")
-    parser.add_argument("--pipeline_parallel", type=int, default=1)
-    parser.add_argument("--pp_microbatches", type=int, default=None)
+    parser.add_argument("--pipeline_parallel", type=int, default=1,
+                        help="GPipe the trunk over this many processes "
+                             "(stage boundaries on the tap levels, so it "
+                             "must divide the level count; each holds "
+                             "layers/N blocks). Composes with "
+                             "--data_parallel (the remaining processes form "
+                             "the data axis); excludes --tensor_parallel; "
+                             "disables the staged trunk and the fused uint8 "
+                             "preprocessing")
+    parser.add_argument("--pp_microbatches", type=int, default=None,
+                        help="microbatch count for --pipeline_parallel "
+                             "(default = stage count; the batch is rounded "
+                             "up to a multiple of it)")
     parser.add_argument("--memory_bank", action="store_true",
                         help="few-shot mode: a per-class bank of adapted "
                              "patch features from the first --shot normal "
@@ -136,21 +148,13 @@ def parse_args(argv=None):
                              "and precision flags are ignored, --dataset "
                              "must be bundled in it")
     args = parser.parse_args(argv)
-    unported = [
-        ("--pipeline_parallel", args.pipeline_parallel > 1, _A12),
-        ("--pp_microbatches", args.pp_microbatches is not None, _A12),
-        ("--visualize", args.visualize, _A15),
-    ]
-    for flag, given, (item, title) in unported:
-        if given:
-            raise NotImplementedError(
-                f"{flag} is not ported yet: ROADMAP {item}, '{title}'")
     tp = args.tensor_parallel > 1
+    pp = args.pipeline_parallel > 1
     if args.artifact and (args.data_parallel or tp
-                          or args.sequence_parallel):
+                          or args.sequence_parallel or pp):
         parser.error("--artifact serves frozen single-device graphs; "
                      "parallel flags need the live model path")
-    if args.memory_bank and tp:
+    if args.memory_bank and (tp or pp):
         parser.error("--memory_bank runs the live predictor (banks are "
                      "per-class, per-snapshot device arrays); it composes "
                      "with --data_parallel, and with --artifact when the "
@@ -218,9 +222,18 @@ def main(argv=None, *, device=None):
     from aaclip_tpu_torch.utils.logging import setup_logger
     from aaclip_tpu_torch.utils.seed import setup_seed
 
-    mesh = cli_mesh(args.data_parallel, args.tensor_parallel, device)
-    dev = mesh.device if mesh is not None else resolve_device(device)
-    lead = mesh is None or mesh.is_lead
+    pp_mesh = mesh = None
+    if args.pipeline_parallel > 1:
+        from aaclip_tpu_torch.parallel.pipeline import cli_pp_mesh
+
+        pp_mesh = cli_pp_mesh(args.pipeline_parallel, args.data_parallel,
+                              args.tensor_parallel, args.sequence_parallel,
+                              device)
+        dev, lead = pp_mesh.device, pp_mesh.is_lead
+    else:
+        mesh = cli_mesh(args.data_parallel, args.tensor_parallel, device)
+        dev = mesh.device if mesh is not None else resolve_device(device)
+        lead = mesh is None or mesh.is_lead
     decoded_before = dict(DECODE_COUNTS)
     setup_seed(args.seed)
     os.makedirs(args.save_path, exist_ok=True)
@@ -240,6 +253,26 @@ def main(argv=None, *, device=None):
     policy = DtypePolicy.from_name(args.precision)
     if args.bf16_until is not None:
         policy = dataclasses.replace(policy, bf16_until=args.bf16_until)
+    uint8_inputs = args.fused_preprocess or args.precision in ("bf16",
+                                                               "int8")
+    if pp_mesh is not None:
+        if policy.bf16_until:
+            policy = dataclasses.replace(policy, bf16_until=0)
+            logger.info("pipeline_parallel: staged-precision trunk disabled")
+        uint8_inputs = False  # the pipeline embeds normalised float pixels
+        n_micro = args.pp_microbatches or args.pipeline_parallel
+        chunk = n_micro * pp_mesh.dp
+        if args.batch_size % chunk:
+            args.batch_size = -(-args.batch_size // chunk) * chunk
+            logger.info("pipeline_parallel: batch_size rounded up to %d "
+                        "(%d microbatches x dp=%d)", args.batch_size,
+                        n_micro, pp_mesh.dp)
+        logger.info("mesh: stage=%d x data=%d (GPipe, %d microbatches)",
+                    pp_mesh.pp, pp_mesh.dp, n_micro)
+        if not pp_mesh.active:
+            logger.info("rank %d is outside the stage x data mesh: idle",
+                        pp_mesh.rank)
+            return
     if args.int8_until is not None:
         policy = dataclasses.replace(policy, int8_until=args.int8_until)
     cfg = get_config(args.model_name, args.img_size)
@@ -282,12 +315,18 @@ def main(argv=None, *, device=None):
         raise SystemExit(
             f"image adapter checkpoint not found under {args.save_path!r}")
 
-    uint8_inputs = args.fused_preprocess or args.precision in ("bf16",
-                                                               "int8")
-    predict_fn = make_predict_fn(vit, cfg, acfg, policy=policy,
-                                 uint8_inputs=uint8_inputs, mesh=mesh,
-                                 sequence_parallel=args.sequence_parallel,
-                                 device=None if mesh else dev)
+    if pp_mesh is not None:
+        from aaclip_tpu_torch.parallel.pipeline import \
+            make_pipeline_predict_fn
+
+        predict_fn = make_pipeline_predict_fn(
+            vit, cfg, acfg, pp=pp_mesh.pp, n_micro=args.pp_microbatches,
+            dp=pp_mesh.dp, policy=policy, mesh=pp_mesh)
+    else:
+        predict_fn = make_predict_fn(
+            vit, cfg, acfg, policy=policy, uint8_inputs=uint8_inputs,
+            mesh=mesh, sequence_parallel=args.sequence_parallel,
+            device=None if mesh else dev)
     mb_predict = support = None
     if args.memory_bank:
         from aaclip_tpu_torch.eval import memory_bank as mb
@@ -411,6 +450,11 @@ def _eval_table(args, logger, label, image_datasets, class_fn,
         timer.tick(len(file_names))
         if not lead:
             continue
+        if args.visualize:
+            from aaclip_tpu_torch.eval.visualize import visualize
+
+            visualize(masks, preds, file_names, args.save_path,
+                      args.dataset, class_name)
         score_rows += [(class_name, f, int(lab), float(sc)) for f, lab, sc
                        in zip(file_names, labels, preds_image)]
         t0 = time.perf_counter()

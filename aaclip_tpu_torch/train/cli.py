@@ -33,8 +33,15 @@ depend on how many ranks share the batch, and the steps run its rows and
 return JAX's global loss; rank 0 alone writes the log and the
 checkpoints, and every rank resumes from them.
 
-The flags are the JAX CLI's; those of paths not ported yet raise at parse
-time naming their ROADMAP item. ``--remat auto`` resolves as JAX's does
+``--pipeline_parallel N`` (with ``--pp_microbatches``) GPipes the
+surgery-feature trunk of stage 1 and the trunk of stage 2 over N
+processes (``parallel/pipeline.py``), replicated over ``world // N``
+data replicas under ``--data_parallel`` (stage 1's batch mode keeps one
+replica): every rank reads the global batch, as JAX's pipeline takes it
+replicated, and the text step runs whole on every rank.
+
+The flags are the JAX CLI's; ``--ckpt_backend orbax`` raises at parse
+time naming its ROADMAP item. ``--remat auto`` resolves as JAX's does
 (``resolve_remat``) and the log says to what. ``main(argv,
 device="cpu")`` runs on the CPU (the tests); by default it runs on the
 card.
@@ -49,7 +56,6 @@ import numpy as np
 
 # flags of paths the port does not have yet -> (ROADMAP item, its title)
 _A6 = ("A6", "the orbax checkpoint backend, JAX's own")
-_A12 = ("A12", "the parallel axes")
 
 
 def parse_args(argv=None):
@@ -111,8 +117,17 @@ def parse_args(argv=None):
     parser.add_argument("--data_parallel", action="store_true")
     parser.add_argument("--tensor_parallel", type=int, default=1)
     parser.add_argument("--sequence_parallel", action="store_true")
-    parser.add_argument("--pipeline_parallel", type=int, default=1)
-    parser.add_argument("--pp_microbatches", type=int, default=None)
+    parser.add_argument("--pipeline_parallel", type=int, default=1,
+                        help="GPipe both stages' trunk over this many "
+                             "processes (parallel/pipeline.py; must divide "
+                             "the level count). Composes with "
+                             "--data_parallel; excludes --tensor_parallel. "
+                             "Stage-2 updates equal --grad_accum "
+                             "<microbatches>; stage-1 batch-mode V-V "
+                             "couples per microbatch")
+    parser.add_argument("--pp_microbatches", type=int, default=None,
+                        help="microbatch count for --pipeline_parallel "
+                             "(default = stage count)")
     parser.add_argument("--cache_device", action="store_true",
                         help="with --device_augment: upload the raw uint8 "
                              "set to the card once and assemble each batch "
@@ -158,15 +173,11 @@ def parse_args(argv=None):
                      "parallelism")
     if args.sequence_parallel and args.tensor_parallel <= 1:
         parser.error("--sequence_parallel requires --tensor_parallel N > 1")
-    unported = [
-        ("--pipeline_parallel", args.pipeline_parallel > 1, _A12),
-        ("--pp_microbatches", args.pp_microbatches is not None, _A12),
-        ("--ckpt_backend orbax", args.ckpt_backend == "orbax", _A6),
-    ]
-    for flag, given, (item, title) in unported:
-        if given:
-            raise NotImplementedError(
-                f"{flag} is not ported yet: ROADMAP {item}, '{title}'")
+    if args.ckpt_backend == "orbax":
+        item, title = _A6
+        raise NotImplementedError(
+            f"--ckpt_backend orbax is not ported yet: ROADMAP {item}, "
+            f"'{title}'")
     return args
 
 
@@ -230,9 +241,28 @@ def main(argv=None, *, device=None):
                                                   ThrottledLossDrain)
     from aaclip_tpu_torch.utils.seed import setup_seed
 
-    mesh = sh.cli_mesh(args.data_parallel, args.tensor_parallel, device)
-    dev = mesh.device if mesh is not None else resolve_device(device)
-    lead = mesh is None or mesh.is_lead
+    pp_mesh = mesh = None
+    if args.pipeline_parallel > 1:
+        from aaclip_tpu_torch.parallel import pipeline as ppl
+
+        pp_mesh = ppl.cli_pp_mesh(args.pipeline_parallel, args.data_parallel,
+                                  args.tensor_parallel,
+                                  args.sequence_parallel, device)
+        if args.grad_accum > 1:
+            raise SystemExit(
+                "--grad_accum does not compose with --pipeline_parallel "
+                "(the GPipe schedule already microbatches; raise "
+                "--pp_microbatches instead)")
+        if args.remat == "selective":
+            raise SystemExit(
+                "--remat selective is not supported with "
+                "--pipeline_parallel (the pipeline trainer supports "
+                "full/off only)")
+        dev, lead = pp_mesh.device, pp_mesh.is_lead
+    else:
+        mesh = sh.cli_mesh(args.data_parallel, args.tensor_parallel, device)
+        dev = mesh.device if mesh is not None else resolve_device(device)
+        lead = mesh is None or mesh.is_lead
     setup_seed(args.seed)
     os.makedirs(args.save_path, exist_ok=True)
     logger = setup_logger("aaclip.train",
@@ -242,6 +272,24 @@ def main(argv=None, *, device=None):
     if mesh is not None:
         logger.info("mesh: data=%d x model=%d", mesh.dp, mesh.tp)
     step_dev = None if mesh is not None else dev  # on a mesh, the mesh's
+    if pp_mesh is not None:
+        n_micro = args.pp_microbatches or args.pipeline_parallel
+        chunk = n_micro * pp_mesh.dp
+        if args.image_batch_size % chunk:
+            args.image_batch_size = -(-args.image_batch_size // chunk) * chunk
+            logger.info("pipeline_parallel: image_batch_size rounded up "
+                        "to %d (%d microbatches x dp=%d)",
+                        args.image_batch_size, n_micro, pp_mesh.dp)
+        # batch-mode V-V refuses a data axis, so stage 1's dp is spatial's
+        s1_dp = pp_mesh.dp if args.vv_mode == "spatial" else 1
+        if args.text_batch_size % (n_micro * s1_dp):
+            args.text_batch_size = (-(-args.text_batch_size
+                                      // (n_micro * s1_dp)) * n_micro * s1_dp)
+            logger.info("pipeline_parallel: text_batch_size rounded up "
+                        "to %d (%d microbatches x dp=%d)",
+                        args.text_batch_size, n_micro, s1_dp)
+        logger.info("mesh: stage=%d x data=%d (GPipe stage-1+2, "
+                    "%d microbatches)", pp_mesh.pp, pp_mesh.dp, n_micro)
 
     policy = DtypePolicy.from_name(args.precision)
     cfg = get_config(args.model_name, args.img_size)
@@ -335,6 +383,9 @@ def main(argv=None, *, device=None):
 
     remat = {stage: resolve_remat(args.remat, stage, dev)
              for stage in (1, 2)}
+    if pp_mesh is not None:
+        # the pipeline trainer remats whole blocks or none: "auto" is full
+        remat[2] = args.remat != "off"
     logger.info("remat %s: stage 1 (text tower) %s, stage 2 %s", args.remat,
                 *({True: "full", False: "off"}.get(remat[s], remat[s])
                   for s in (1, 2)))
@@ -435,11 +486,25 @@ def main(argv=None, *, device=None):
 
     # ---- stage 1 ----------------------------------------------------------
     if adapt_text and text_start_epoch < args.text_epoch:
-        feats_fn = stage1_features_fn(
-            vit, cfg, surgery_until_layer=args.surgery_until_layer,
-            policy=policy, vv_mode=args.vv_mode,
-            chunk=args.feature_chunk or None, mesh=mesh,
-            sequence_parallel=args.sequence_parallel, device=step_dev)
+        if pp_mesh is None:
+            feats_fn = stage1_features_fn(
+                vit, cfg, surgery_until_layer=args.surgery_until_layer,
+                policy=policy, vv_mode=args.vv_mode,
+                chunk=args.feature_chunk or None, mesh=mesh,
+                sequence_parallel=args.sequence_parallel, device=step_dev)
+        else:
+            if args.feature_chunk:
+                raise SystemExit(
+                    "--feature_chunk does not compose with "
+                    "--pipeline_parallel (GPipe microbatches already bound "
+                    "peak memory; raise --pp_microbatches instead)")
+            # the text step below runs whole on every rank, as JAX's
+            # stays unsharded
+            feats_fn = ppl.make_pp_stage1_features_fn(
+                vit, cfg, pp=pp_mesh.pp, n_micro=args.pp_microbatches,
+                dp=s1_dp, surgery_until_layer=args.surgery_until_layer,
+                policy=policy, vv_mode=args.vv_mode,
+                mesh=pp_mesh if s1_dp == pp_mesh.dp else None, device=dev)
         step_fn = make_stage1_step(
             text, cfg, acfg, text_opt, prompt_tokens,
             text_norm_weight=args.text_norm_weight, img_size=args.img_size,
@@ -478,12 +543,23 @@ def main(argv=None, *, device=None):
     del enc
 
     # ---- stage 2 ----------------------------------------------------------
-    step_fn = make_stage2_step(vit, cfg, acfg, (image_opt, image_sched),
-                               anchors_table, img_size=args.img_size,
-                               policy=policy, remat=remat[2],
-                               grad_accum=args.grad_accum, mesh=mesh,
-                               sequence_parallel=args.sequence_parallel,
-                               device=step_dev)
+    if pp_mesh is not None and not pp_mesh.active:
+        logger.info("rank %d is outside the stage x data mesh: idle in "
+                    "stage 2", pp_mesh.rank)
+        return
+    if pp_mesh is not None:
+        step_fn = ppl.make_pp_stage2_step(
+            vit, cfg, acfg, (image_opt, image_sched), anchors_table,
+            pp=pp_mesh.pp, n_micro=args.pp_microbatches, dp=pp_mesh.dp,
+            img_size=args.img_size, policy=policy, remat=remat[2],
+            mesh=pp_mesh)
+    else:
+        step_fn = make_stage2_step(vit, cfg, acfg, (image_opt, image_sched),
+                                   anchors_table, img_size=args.img_size,
+                                   policy=policy, remat=remat[2],
+                                   grad_accum=args.grad_accum, mesh=mesh,
+                                   sequence_parallel=args.sequence_parallel,
+                                   device=step_dev)
 
     def update_image(prof, images, mask, label, class_idx, valid):
         nonlocal image_step

@@ -252,6 +252,27 @@ Needs one CUDA card and nvcc. Phases, each of which fails the run:
     --data_parallel`` beside the plain bench; (e) the serving engine with
     ``data_parallel=True`` (one replica), every answer bit for bit the
     engine's without it, live and (inside 13d) on the bf16 artifact.
+15. the GPipe pipeline (``parallel/pipeline.py``), the panels of ``test
+    --visualize`` and the object facades at ViT-L/518: (a-c) two ranks on
+    the one card, gloo on CUDA tensors (a hop through a pinned host
+    buffer), pp = 2: the predict at B=8 with 2 and 4 microbatches, bf16 at
+    phase 4's bars and fp32 within 1e-5 of the map's span and 1e-5 on the
+    scores, against the single-process predict on the same float images,
+    12 x n_micro B1 launches per rank, the ms per call and per hop
+    printed; the stage-2 step (2 microbatches) in bf16 at B=8, remat off
+    and full, and in fp32 at B=4, against the single-process step with
+    ``grad_accum`` 2 (loss and gradients at phase 5's and 14c's bars,
+    every updated entry within 2 lr), B1 and B2 launches per rank (24 /
+    24 and 22 / 24; 46 / 48 B1 under full remat); the stage-1 features in
+    bf16 at B=4, spatial against the single process and batch mode
+    against it per microbatch (phase 7's bars), 24 / 24 B1 and 14 / 24
+    B3 (spatial) per rank; (d) both CLIs' ``--pipeline_parallel 2`` in one
+    process exit as JAX's, and ``test --visualize`` on a synthetic class of
+    8 images writes 8 panels of [3 x 518, 518, 3] whose image and mask
+    rows are cv2's bit for bit, then ``visualize`` on random maps, every
+    panel cv2's bit for bit (where cv2 imports); (e) ``AdaptedCLIP.create``
+    on the card, its forward bit for bit ``adapted_forward``, 24 B1
+    launches.
 Phase 3 also holds the V-V mode of the forward kernel (B3) against its
 plain version, in bf16 and fp32, at [16, 1370, 1024], ragged S and head
 dim 16, and against the standard mode on the value section tripled.
@@ -6434,6 +6455,537 @@ def phase_parallel(vit, adapter, cfg, acfg, anchors, M, card, gen,
     return calls
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the GPipe pipeline (aaclip_tpu_torch/parallel/pipeline.py), the
+# visualization panels and the object facades
+
+# 15a-c: two ranks on the one card (gloo on CUDA tensors; a hop goes
+# through a pinned host buffer), pp = 2 at ViT-L/518, full depth. bf16
+# paths at phases 4, 5 and 7's bars. The fp32 predict differs from the
+# single-process one only where it sums the level maps (two stage halves
+# added by the all-reduce) and in the microbatches' GEMM shapes (cuBLAS
+# may pick another kernel at batch 4 than at 8): ~1e-7 relative, so the
+# bar, set before the first run, is 1e-5 of the span (14c's TP map, whose
+# products split, read 1.9e-6) and scores within 1e-5.
+PP_BATCH, PP_MICRO = 8, (2, 4)
+PP_FP32_SPAN_FRAC, PP_FP32_SCORE_ATOL = 1e-5, 1e-5
+PP_STEP_BATCH, PP_FP32_STEP_BATCH, PP_S1_BATCH = 8, 4, 4
+# one Adam step moves an entry by at most lr (its first update is lr times
+# g / (|g| + eps)), so two steps whose gradients' signs differ on a
+# near-zero entry end at most 2 lr apart
+PP_LR = 5e-4
+PP_TIMED_CALLS, PP_HOPS = 5, 10
+# 15d: the visualization run's synthetic class (8 images)
+PP_VIS_NORMAL, PP_VIS_ANOMALOUS, PP_VIS_PX = 4, 4, 256
+
+
+def _pp_rank(rank: int, port: int, payload: dict, out) -> None:
+    """15a-c: one of two ranks on cuda:0 (gloo on CUDA tensors): the pp =
+    2 predicts, stage-2 steps and stage-1 features, each with its launches
+    per rank, the ms per timed predict and per hop; puts numpy results in
+    ``out``."""
+    import os
+    import traceback
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK="0",
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    try:
+        import torch
+        import torch.distributed as dist
+
+        from aaclip_tpu_torch.core.config import (AdapterConfig, DtypePolicy,
+                                                  get_config)
+        from aaclip_tpu_torch.core.params import (init_image_adapter,
+                                                  init_vision_params)
+        from aaclip_tpu_torch.parallel import pipeline as ppl
+        from aaclip_tpu_torch.train.optim import make_image_optimizer
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dist.init_process_group("gloo", init_method="env://", rank=rank,
+                                world_size=2)
+        mesh = ppl.make_pp_mesh(2, device="cuda:0")
+        cfg = get_config("ViT-L-14-336", img_size=518)
+        acfg = AdapterConfig()
+        vit = init_vision_params(cfg, seed=0)
+        adapter = init_image_adapter(cfg, acfg, seed=1)
+        t = {k: torch.from_numpy(v).cuda() for k, v in payload.items()}
+        pols = {"bf16": DtypePolicy.bf16(), "fp32": DtypePolicy.fp32()}
+        res = {}
+        for name, policy in pols.items():
+            for n_micro in PP_MICRO:
+                fn = ppl.make_pipeline_predict_fn(
+                    vit, cfg, acfg, pp=2, n_micro=n_micro, policy=policy,
+                    mesh=mesh)
+                zero_counts()
+                pix, score = fn(adapter, t["images"], t["anchors"], t["M"])
+                torch.cuda.synchronize()
+                res[f"predict {name} n_micro={n_micro}"] = (
+                    pix.cpu().numpy(), score.cpu().numpy(), counts())
+                if name == "bf16" and n_micro == PP_MICRO[0]:
+                    ms = []
+                    for _ in range(PP_TIMED_CALLS):
+                        dist.barrier()
+                        t0 = time.perf_counter()
+                        fn(adapter, t["images"], t["anchors"], t["M"])
+                        torch.cuda.synchronize()
+                        ms.append((time.perf_counter() - t0) * 1e3)
+                    res["predict ms"] = sorted(ms)[len(ms) // 2]
+                del fn, pix, score
+        # one hop of a microbatch's bf16 and fp32 stream, both ways
+        hops = ppl._Hops(mesh)
+        S = cfg.vision.grid ** 2 + 1
+        for dt in (torch.bfloat16, torch.float32):
+            x = torch.randn(PP_BATCH // 2, S, cfg.vision.width,
+                            device="cuda").to(dt)
+            ms = []
+            for _ in range(PP_HOPS):
+                dist.barrier()
+                t0 = time.perf_counter()
+                if rank == 0:
+                    hops.send(x, 1)
+                    x = hops.recv(x.shape, dt, 1)
+                else:
+                    x = hops.recv(x.shape, dt, 0)
+                    hops.send(x, 0)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3 / 2)
+            res[f"hop ms {str(dt)[6:]}"] = sorted(ms)[len(ms) // 2]
+        for name, remat, rows in (("bf16", False, PP_STEP_BATCH),
+                                  ("bf16", True, PP_STEP_BATCH),
+                                  ("fp32", False, PP_FP32_STEP_BATCH)):
+            ad = copy.deepcopy(adapter)
+            step = ppl.make_pp_stage2_step(
+                vit, cfg, acfg, make_image_optimizer(ad.parameters(),
+                                                     lr=PP_LR),
+                t["table"], pp=2, n_micro=2, policy=pols[name],
+                remat=remat, mesh=mesh)
+            zero_counts()
+            loss = float(step(ad, *(t[k][:rows] for k in (
+                "images", "mask", "label", "cidx", "valid"))))
+            res[f"step {name} remat={remat}"] = (
+                loss, {n: p.grad.cpu().numpy() for n, p in
+                       ad.named_parameters()},
+                {n: p.detach().cpu().numpy() for n, p in
+                 ad.named_parameters()}, counts())
+            del step, ad
+            torch.cuda.empty_cache()
+        for mode in ("spatial", "batch"):
+            fn = ppl.make_pp_stage1_features_fn(
+                vit, cfg, pp=2, n_micro=2, policy=pols["bf16"],
+                vv_mode=mode, mesh=mesh)
+            zero_counts()
+            feats = fn(t["images"][:PP_S1_BATCH])
+            torch.cuda.synchronize()
+            res[f"features {mode}"] = (feats.cpu().numpy(), counts())
+            del fn, feats
+        res["coords"] = (mesh.stage_rank, mesh.data_rank)
+        dist.destroy_process_group()
+        out.put((rank, "ok", res))
+    except BaseException:
+        out.put((rank, "error", traceback.format_exc()))
+
+
+def pp_reference_step(vit, cfg, acfg, adapter, batch, table, policy):
+    """The single-process stage-2 step with ``grad_accum = 2`` from a copy
+    of ``adapter`` (the pipeline's reference): (loss, grads, updated
+    entries)."""
+    from aaclip_tpu_torch.train.optim import make_image_optimizer
+    from aaclip_tpu_torch.train.steps import make_stage2_step
+
+    ad = copy.deepcopy(adapter)
+    step = make_stage2_step(vit, cfg, acfg,
+                            make_image_optimizer(ad.parameters(), lr=PP_LR),
+                            table, policy=policy, remat=False, grad_accum=2)
+    loss = float(step(ad, *batch))
+    return loss, {n: p.grad.detach().cpu() for n, p in
+                  ad.named_parameters()}, \
+        {n: p.detach().cpu() for n, p in ad.named_parameters()}
+
+
+def pp_two_ranks(vit, adapter, cfg, acfg, anchors, M, card, gen) -> dict:
+    """15a-c: the pp = 2 paths on two ranks of the card against their
+    single-process paths; returns {path: launches per rank (rank 0's,
+    rank 1's)}."""
+    import multiprocessing as mp
+
+    import numpy as np
+    import torch
+
+    from aaclip_tpu_torch.core.config import DtypePolicy
+    from aaclip_tpu_torch.eval.predict import make_predict_fn
+    from aaclip_tpu_torch.train.steps import stage1_features_fn
+
+    img, L = cfg.vision.image_size, cfg.vision.layers
+    batch = train_batch(PP_BATCH, img, gen)
+    table = unit_table(cfg.embed_dim, gen)
+    images, mask, label, cidx, valid = batch
+    payload = {k: v.cpu().numpy() for k, v in dict(
+        images=images, anchors=anchors, M=M, mask=mask, label=label,
+        cidx=cidx, valid=valid, table=table).items()}
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_pp_rank, args=(r, port, payload, q))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    results = {}
+    try:
+        for _ in procs:
+            rank, status, res = q.get(timeout=PAR_CHILD_TIMEOUT)
+            expect(status == "ok", f"15 rank {rank} failed:\n{res}")
+            results[rank] = res
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    wall = time.perf_counter() - t0
+    expect([results[r]["coords"] for r in (0, 1)] == [(0, 0), (1, 0)],
+           "15: rank d * pp + s is not stage s")
+    pols = {"bf16": DtypePolicy.bf16(), "fp32": DtypePolicy.fp32()}
+    calls = {}
+
+    def per_rank(key, idx=-1):
+        return tuple(results[r][key][idx] for r in (0, 1))
+
+    # 15a: the predicts
+    for name, policy in pols.items():
+        fn = make_predict_fn(vit, cfg, acfg, policy=policy)
+        pix_1, score_1 = fn(adapter, images, anchors, M)
+        torch.cuda.synchronize()
+        if name == "bf16":
+            ms1 = []
+            for _ in range(PP_TIMED_CALLS):
+                t1 = time.perf_counter()
+                fn(adapter, images, anchors, M)
+                torch.cuda.synchronize()
+                ms1.append((time.perf_counter() - t1) * 1e3)
+            ms_single = sorted(ms1)[len(ms1) // 2]
+        del fn
+        pix_1, score_1 = pix_1.cpu(), score_1.cpu()
+        span = (pix_1.max() - pix_1.min()).item()
+        frac, score_bar = ((PIX_SPAN_FRAC_BF16, SCORE_ATOL_BF16)
+                           if name == "bf16" else
+                           (PP_FP32_SPAN_FRAC, PP_FP32_SCORE_ATOL))
+        for n_micro in PP_MICRO:
+            key = f"predict {name} n_micro={n_micro}"
+            expect(np.array_equal(results[1][key][0], results[0][key][0])
+                   and np.array_equal(results[1][key][1],
+                                      results[0][key][1]),
+                   f"15a {key}: the ranks' results differ")
+            pix, score = (torch.from_numpy(a) for a in results[0][key][:2])
+            dpix = (pix - pix_1).abs().max().item()
+            dscore = (score - score_1).abs().max().item()
+            c = per_rank(key)
+            print(f"15a pp=2 predict {name} B={PP_BATCH} n_micro={n_micro} "
+                  f"on two gloo ranks of the card: max|d map| {dpix:.3e} "
+                  f"({dpix / span:.3e} of the span, bar {frac:g}), max|d "
+                  f"score| {dscore:.3e} (bar {score_bar:g}) against the "
+                  f"single-process predict; launches (fwd, V-V, bwd) per "
+                  f"rank {c}")
+            expect(dpix <= frac * span and dscore <= score_bar,
+                   f"15a {key} off")
+            want = (L // 2 * n_micro, 0, 0)
+            expect(c == (want, want), f"15a {key} launches {c}")
+            calls[f"pp=2 predict {name} n_micro={n_micro}, per rank"] = \
+                want[0]
+    print(f"15a pp=2 bf16 predict B={PP_BATCH} n_micro={PP_MICRO[0]}: "
+          f"{results[0]['predict ms']:.2f} ms a call (median of "
+          f"{PP_TIMED_CALLS}, both ranks on the one card, hops through the "
+          f"host) against {ms_single:.2f} ms in one process; one hop of a "
+          f"[{PP_BATCH // 2}, {cfg.vision.grid ** 2 + 1}, "
+          f"{cfg.vision.width}] stream {results[0]['hop ms bfloat16']:.3f} "
+          f"ms bf16, {results[0]['hop ms float32']:.3f} ms fp32 (median of "
+          f"{PP_HOPS} round trips / 2) on {card}; readings, not claims")
+
+    # 15b: the stage-2 steps against grad_accum = 2 in one process
+    for name, remat, rows in (("bf16", False, PP_STEP_BATCH),
+                              ("bf16", True, PP_STEP_BATCH),
+                              ("fp32", False, PP_FP32_STEP_BATCH)):
+        key = f"step {name} remat={remat}"
+        sub = tuple(x[:rows] for x in batch)
+        if not remat:
+            ref = pp_reference_step(vit, cfg, acfg, adapter, sub, table,
+                                    pols[name])
+        loss, grads, params, _ = results[0][key]
+        expect(results[1][key][0] == loss, f"15b {key}: the ranks' losses")
+        grads = {n: torch.from_numpy(g) for n, g in grads.items()}
+        rel = abs(loss - ref[0]) / abs(ref[0])
+        moved = max((torch.from_numpy(p) - ref[2][n]).abs().max().item()
+                    for n, p in params.items())
+        c = per_rank(key)
+        what = (f"15b pp=2 stage-2 step {name} B={rows} n_micro=2 remat "
+                f"{'full' if remat else 'off'}: loss {rel:.3e} relative")
+        if name == "bf16":
+            cos = min(torch.nn.functional.cosine_similarity(
+                g.flatten().double(), ref[1][n].flatten().double(),
+                dim=0).item() for n, g in grads.items())
+            norm = max(abs(g.norm().item() / ref[1][n].norm().item() - 1.0)
+                       for n, g in grads.items())
+            print(f"{what}, min gradient cosine {cos:.8f}, max |norm ratio "
+                  f"- 1| {norm:.3e}, updated entries within {moved:.3e} "
+                  f"(bar {2 * PP_LR:g}) of the single-process grad_accum=2 "
+                  f"step's; launches per rank {c}")
+            ok = (rel <= STEP_LOSS_RTOL and cos >= STEP_GRAD_COS
+                  and norm <= STEP_GRAD_NORM_RTOL)
+        else:
+            worst, leaf, of_max = grad_distance(grads, ref[1])
+            print(f"{what} (bar {TINY_STEP_LOSS_RTOL:g}), gradient |d| / |g| "
+                  f"{worst:.3e} ({leaf}; bar {PAR_TP_FP32_GRAD_NORM_REL:g}), "
+                  f"max |d| {of_max:.3e} of its max, updated entries within "
+                  f"{moved:.3e} (bar {2 * PP_LR:g}) of the single-process "
+                  f"grad_accum=2 step's; launches per rank {c}")
+            ok = (rel <= TINY_STEP_LOSS_RTOL
+                  and worst <= PAR_TP_FP32_GRAD_NORM_REL)
+        expect(ok and moved <= 2 * PP_LR * 1.001, f"15b {key} off")
+        # stage 0: block 0's input carries no gradient (23 = 24 - 1 in one
+        # process); full remat reruns each block whose input carries one
+        fwd0, fwd1 = ((L // 2 + (L // 2 - 1 if remat else 0)) * 2,
+                      (L // 2 + (L // 2 if remat else 0)) * 2)
+        want = ((fwd0, 0, (L // 2 - 1) * 2), (fwd1, 0, L // 2 * 2))
+        expect(c == want, f"15b {key} launches {c}, want {want}")
+        calls[f"pp=2 stage-2 step {name} remat "
+              f"{'full' if remat else 'off'}, per rank"] = c
+        torch.cuda.empty_cache()
+
+    # 15c: the stage-1 features (bf16) against the single process
+    x = images[:PP_S1_BATCH]
+    policy = pols["bf16"]
+    want_f = {
+        "spatial": stage1_features_fn(vit, cfg, policy=policy,
+                                      vv_mode="spatial")(x),
+        "batch": torch.cat([stage1_features_fn(vit, cfg, policy=policy)(h)
+                            for h in x.chunk(2)])}
+    vv_start = 5  # surgery_vv_start(24, 20)
+    for mode, ref in want_f.items():
+        key = f"features {mode}"
+        got = torch.from_numpy(results[0][key][0]).cuda()
+        expect(np.array_equal(results[1][key][0], results[0][key][0]),
+               f"15c {key}: the ranks' features differ")
+        dmax = (got - ref).abs().max().item()
+        cos = torch.nn.functional.cosine_similarity(
+            got.double(), ref.double(), dim=-1).min().item()
+        c = per_rank(key)
+        # stage 0: the shared blocks and both tails' first blocks; stage 1
+        # both tails whole; batch mode's V-V is plain
+        vv0, vv1 = ((L // 2 - vv_start) * 2, L // 2 * 2) \
+            if mode == "spatial" else (0, 0)
+        want = ((L // 2 * 2, vv0, 0), (L // 2 * 2, vv1, 0))
+        print(f"15c pp=2 stage-1 features {mode} bf16 B={PP_S1_BATCH} "
+              f"n_micro=2: max|d| {dmax:.3e}, least per-token cosine "
+              f"{cos:.8f} (phase 7's bars {S1_FEAT_MAX_ABS:g}, "
+              f"{S1_FEAT_COS:g}) against the single process"
+              + (" run per microbatch" if mode == "batch" else "")
+              + f"; launches per rank {c}")
+        expect(dmax <= S1_FEAT_MAX_ABS and cos >= S1_FEAT_COS,
+               f"15c {key} off")
+        expect(c == want, f"15c {key} launches {c}, want {want}")
+        calls[f"pp=2 stage-1 features {mode}, per rank"] = c
+    print(f"15a-c: {wall:.0f} s for both ranks (start-up included)")
+    return calls
+
+
+def cv2_panel(cv2, np, path: str, gt_u8, pr_u8):
+    """The JAX package's panel through cv2 (``aaclip_tpu/eval/
+    visualize.py``'s read, resize, colour map and blend)."""
+    img = cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)
+    img = cv2.resize(img, (gt_u8.shape[1], gt_u8.shape[0]))
+
+    def over(m):
+        c = cv2.applyColorMap(cv2.cvtColor(m, cv2.COLOR_GRAY2RGB),
+                              cv2.COLORMAP_JET)
+        return (0.5 * img + 0.5 * c).astype(np.uint8)
+
+    return np.vstack([img, over(gt_u8), over(pr_u8)])
+
+
+def pp_clis(card, ckpt_path: str) -> None:
+    """15d: both CLIs' ``--pipeline_parallel 2`` in one process (JAX's
+    exit), then ``test --visualize`` on a synthetic class of 8 images: one
+    panel each, the image and mask rows bit for bit cv2's; and
+    ``visualize`` on random maps, each whole panel bit for bit cv2's."""
+    import os
+
+    import numpy as np
+
+    from aaclip_tpu_torch import test as eval_cli
+    from aaclip_tpu_torch.core.config import AdapterConfig, get_config
+    from aaclip_tpu_torch.core.params import adapter_to_jax, init_image_adapter
+    from aaclip_tpu_torch.data.registry import DATASETS
+    from aaclip_tpu_torch.data.synthetic import make_synthetic_dataset
+    from aaclip_tpu_torch.data.transforms import load_mask_binarized
+    from aaclip_tpu_torch.eval.visualize import visualize
+    from aaclip_tpu_torch.train import cli as train_cli
+
+    for name, module in (("test", eval_cli), ("train", train_cli)):
+        try:
+            module.main(["--pipeline_parallel", "2", "--save_path",
+                         "/nonexistent/pp"])
+            expect(False, f"15d {name} --pipeline_parallel 2 ran at world 1")
+        except SystemExit as e:
+            expect("exceeds the 1 available devices" in str(e),
+                   f"15d {name}: {e}")
+            print(f"15d {name} --pipeline_parallel 2 in one process exits "
+                  f"as JAX's: {e}")
+    cfg = get_config("ViT-L-14-336", img_size=518)
+    img = cfg.vision.image_size
+    tmp = tempfile.mkdtemp(prefix="aaclip_visualize_")
+    env_before = {k: os.environ.get(k) for k in ("AACLIP_DATA",
+                                                 "AACLIP_METADATA")}
+    try:
+        data_root, meta_root = make_synthetic_dataset(
+            os.path.join(tmp, "set"), class_names=["bottle"],
+            n_normal=PP_VIS_NORMAL, n_anomalous=PP_VIS_ANOMALOUS,
+            img_px=PP_VIS_PX, hard=True)
+        os.environ.update(AACLIP_DATA=data_root, AACLIP_METADATA=meta_root)
+        save = os.path.join(tmp, "eval")
+        ckpt_tree = adapter_to_jax(init_image_adapter(cfg, AdapterConfig(),
+                                                      seed=9, device="cpu"))
+        from aaclip_tpu_torch.train import checkpoint as ckpt
+
+        ckpt.save_adapter_checkpoint(
+            os.path.join(save, "image_adapter_1.npz"), 1, ckpt_tree)
+        t0 = time.perf_counter()
+        eval_cli.main(["--clip_checkpoint", ckpt_path, "--precision", "bf16",
+                       "--batch_size", "8", "--visualize", "--save_path",
+                       save])
+        cli_s = time.perf_counter() - t0
+        out = os.path.join(save, "visualization", "MVTec", "bottle")
+        names = sorted(os.listdir(out))
+        n_img = PP_VIS_NORMAL + PP_VIS_ANOMALOUS
+        expect(len(names) == n_img, f"15d --visualize wrote {names}")
+        try:
+            import cv2
+        except ImportError:
+            cv2 = None
+        base = DATASETS["MVTec"].data_path
+        rels = []
+        for rel_dir in ("bottle/test/good", "bottle/test/defect"):
+            d = os.path.join(base, rel_dir)
+            if os.path.isdir(d):
+                rels += [f"{rel_dir}/{f}" for f in sorted(os.listdir(d))]
+        expect(sorted(r.replace("/", "_") for r in rels) == names,
+               f"15d panel names {names} vs {rels}")
+        from aaclip_tpu_torch.data.image import load_rgb
+
+        rows_equal = 0
+        for rel in rels:
+            panel = load_rgb(os.path.join(out, rel.replace("/", "_")))
+            expect(panel.shape == (3 * img, img, 3),
+                   f"15d panel {rel} {panel.shape}")
+            if cv2 is None:
+                continue
+            got = cv2.imread(os.path.join(out, rel.replace("/", "_")))
+            mpath = os.path.join(base, rel.replace("/test/", "/ground_truth/")
+                                 .replace(".png", "_mask.png"))
+            gt = (load_mask_binarized(mpath, img)[0] * 255).astype(np.uint8) \
+                if os.path.exists(mpath) else np.zeros((img, img), np.uint8)
+            want = cv2_panel(cv2, np, os.path.join(base, rel), gt, gt)
+            expect(np.array_equal(got[:2 * img], want[:2 * img]),
+                   f"15d {rel}: the image or mask rows differ from cv2's")
+            rows_equal += 1
+        # every row of a panel against cv2's, on random maps
+        rng = np.random.default_rng(0)
+        preds = rng.random((n_img, img, img)).astype(np.float32)
+        masks = (rng.random((n_img, img, img)) > 0.9).astype(np.float32)
+        vdir = os.path.join(tmp, "direct")
+        visualize(masks, preds, rels, vdir, "MVTec", "bottle")
+        whole = 0
+        if cv2 is not None:
+            p8 = (preds.astype(np.float64) - preds.min()) \
+                / (preds.max() - preds.min())
+            p8 = (p8 * 255).astype(np.uint8)
+            for i, rel in enumerate(rels):
+                got = cv2.imread(os.path.join(vdir, "visualization", "MVTec",
+                                              "bottle",
+                                              rel.replace("/", "_")))
+                want = cv2_panel(cv2, np, os.path.join(base, rel),
+                                 ((masks[i] != 0) * 255).astype(np.uint8),
+                                 p8[i])
+                expect(np.array_equal(got, want),
+                       f"15d {rel}: the panel differs from cv2's")
+                whole += 1
+        print(f"15d test --visualize (bf16, batch 8) on a class of {n_img} "
+              f"synthetic images at {PP_VIS_PX} px: {len(names)} panels of "
+              f"{(3 * img, img, 3)}, the image and mask rows of "
+              f"{rows_equal} bit for bit cv2's, and {whole} whole panels of "
+              f"random maps bit for bit cv2's"
+              + ("" if cv2 else " (cv2 does not import here: not compared)")
+              + f"; the CLI ran in {cli_s:.1f} s on {card}")
+    finally:
+        for k, v in env_before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def pp_facades(cfg, card) -> dict:
+    """15e: ``AdaptedCLIP.create`` at ViT-L/518 on the card: ``forward``
+    bit for bit ``adapted_forward`` on its own towers, 24 B1 launches."""
+    import torch
+
+    from aaclip_tpu_torch.core.config import AdapterConfig
+    from aaclip_tpu_torch.models.clip import AdaptedCLIP
+    from aaclip_tpu_torch.models.vit import adapted_forward
+
+    acfg = AdapterConfig()
+    model = AdaptedCLIP.create(cfg, acfg, seed=3)
+    x = torch.randn(2, 3, cfg.vision.image_size, cfg.vision.image_size,
+                    generator=torch.Generator(device="cuda").manual_seed(4),
+                    device="cuda")
+    zero_counts()
+    seg, det = model(x)
+    torch.cuda.synchronize()
+    c = counts()
+    with torch.no_grad():
+        seg_f, det_f = adapted_forward(
+            model.clip.visual, model.adapters["image"], cfg, x,
+            image_adapt_weight=acfg.image_adapt_weight, levels=acfg.levels)
+    same = all(torch.equal(a, b) for a, b in zip(seg, seg_f)) \
+        and torch.equal(det, det_f)
+    scale = float(model.clip.logit_scale)
+    print(f"15e AdaptedCLIP.create at ViT-L/518: forward bit for bit "
+          f"adapted_forward: {same}; launches {c}; logit_scale "
+          f"{scale:.6f} on {card}")
+    expect(same and c == (cfg.vision.layers, 0, 0), f"15e off: {same} {c}")
+    expect(abs(scale - 1 / 0.07) < 1e-4, f"15e logit_scale {scale}")
+    del model
+    torch.cuda.empty_cache()
+    return {"AdaptedCLIP.forward": c}
+
+
+def phase_pipeline(vit, adapter, cfg, acfg, anchors, M, card, gen,
+                   ckpt_path: str) -> dict:
+    """Phase 15; returns {kernel: {path: launches}}."""
+    t_phase = time.perf_counter()
+    two = pp_two_ranks(vit, adapter, cfg, acfg, anchors, M, card, gen)
+    print(f"[{time.perf_counter() - t_phase:.0f} s] 15d")
+    pp_clis(card, ckpt_path)
+    print(f"[{time.perf_counter() - t_phase:.0f} s] 15e")
+    facade = pp_facades(cfg, card)
+    print(f"phase 15 (pipeline, visualization, facades) took "
+          f"{time.perf_counter() - t_phase:.0f} s")
+    calls = {"attention_packed": {}, "attention_packed_vv": {},
+             "attention_packed_bwd": {}}
+    for path, c in {**two, **facade}.items():
+        if isinstance(c, int):  # the predicts' B1 launches per rank
+            calls["attention_packed"][path] = c
+            continue
+        per = c if isinstance(c[0], tuple) else (c,)
+        for i, name in enumerate(("attention_packed", "attention_packed_vv",
+                                  "attention_packed_bwd")):
+            ns = tuple(r[i] for r in per)
+            if any(ns):
+                calls[name][path] = ns if len(ns) > 1 else ns[0]
+    return calls
+
+
 def cli_ranks_main(spec: str) -> int:
     """``chip_smoke.py --parallel-clis JSON``: one rank (under torchrun) of
     the evaluation CLI, the training CLI and the bench, each with the argv
@@ -6604,6 +7156,11 @@ def main() -> int:
         print(f"[{time.perf_counter() - t0:.0f} s] parallel")
         par_calls = phase_parallel(vit, adapter, cfg, acfg, anchors, M,
                                    card, gen, ckpt_path)
+        # -- 15. the pipeline, the visualization and the facades
+        print(f"[{time.perf_counter() - t0:.0f} s] pipeline")
+        for name, paths in phase_pipeline(vit, adapter, cfg, acfg, anchors,
+                                          M, card, gen, ckpt_path).items():
+            par_calls[name].update(paths)
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 

@@ -188,15 +188,35 @@ def test_log_has_the_table_and_the_rate(runs):
 
 
 @pytest.mark.parametrize("flags,label", [
-    (["--pipeline_parallel", "2"], "ROADMAP A12"),
-    (["--pp_microbatches", "4"], "ROADMAP A12"),
-    (["--artifact", "somewhere", "--pipeline_parallel", "2"], "ROADMAP A12"),
-    (["--data_parallel", "--pipeline_parallel", "2"], "ROADMAP A12"),
-    (["--visualize"], "ROADMAP A15"),
+    # the pipeline and visualization flags are ported (ROADMAP A12, A15)
+    # and follow JAX's rules (test.py:128-138, :422-456): in one process
+    # the pipeline exceeds the devices, as JAX's exits at one device
+    (["--pipeline_parallel", "2"], "exceeds the 1 available devices"),
+    (["--pp_microbatches", "4"], None),
+    (["--artifact", "somewhere", "--pipeline_parallel", "2"],
+     "--artifact serves"),
+    (["--data_parallel", "--pipeline_parallel", "2"],
+     "exceeds the 1 available devices"),
+    (["--visualize"], None),
 ])
-def test_unported_flags_raise_naming_their_item(flags, label):
-    with pytest.raises(NotImplementedError, match=label):
-        port_cli.parse_args(flags)
+def test_unported_flags_raise_naming_their_item(flags, label, capsys,
+                                                tmp_path):
+    """Each flag parses, is refused at parse time with JAX's message
+    (``--artifact`` with the pipeline), or exits at the start of ``main``
+    as JAX's CLI does in a world of one device."""
+    if flags[0] == "--artifact":
+        with pytest.raises(SystemExit):
+            port_cli.parse_args(flags)
+        assert label in capsys.readouterr().err
+        return
+    args = port_cli.parse_args(flags)
+    assert args.visualize == ("--visualize" in flags)
+    if label is None:
+        return
+    with pytest.raises(SystemExit, match=label):
+        port_cli.main(flags + ["--save_path", str(tmp_path / "run")],
+                      device="cpu")
+    assert not (tmp_path / "run").exists()
 
 
 @pytest.mark.parametrize("flags,refusal", [

@@ -16,7 +16,10 @@ aaclip_tpu_torch.serve --help``. So do the int8 predict (whole and mixed
 prefix), an artifact's export (the deploy CLI with ``--verify``) and load,
 and ``python -m aaclip_tpu_torch.deploy``. A data-parallel predict and
 stage-2 step (``parallel/``) run at world size 1 on gloo (``torchrun``'s
-variables set) in a fresh interpreter without either."""
+variables set) in a fresh interpreter without either, where the pipeline's
+mesh refuses a world of one. With PIL and cv2 blocked too, the package's
+lazy re-exports resolve, ``AdaptedCLIP.create`` builds and runs, and
+``eval/visualize.py`` writes a PNG panel."""
 
 import json
 import os
@@ -138,13 +141,20 @@ for m in (mesh, None):
                             torch.stack([a, a]), policy=pol, remat=False,
                             mesh=m, device=None if m else "cpu")
     losses.append(float(step(ad2, *batch)))
+from aaclip_tpu_torch.parallel import pipeline as ppl
+try:
+    ppl.make_pp_mesh(2, device="cpu")
+    pp_error = None
+except ValueError as e:
+    pp_error = str(e)
 dist.destroy_process_group()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "aaclip_tpu"))
 print(json.dumps({"bad": bad, "shape": list(pix.shape),
                   "same_predict": bool(torch.equal(pix, pix1)
                                        and torch.equal(score, score1)),
-                  "same_loss": losses[0] == losses[1]}))
+                  "same_loss": losses[0] == losses[1],
+                  "pp_error": pp_error}))
 """
 
 
@@ -161,7 +171,8 @@ def test_parallel_paths_run_without_jax_at_world_one():
     assert out.returncode == 0, out.stderr
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result == {"bad": [], "shape": [2, 70, 70], "same_predict": True,
-                      "same_loss": True}
+                      "same_loss": True,
+                      "pp_error": "pipeline_parallel=2 needs 2..1 devices"}
 
 
 def test_sources_do_not_import_jax_or_the_jax_package():
@@ -178,8 +189,11 @@ def test_sources_do_not_import_jax_or_the_jax_package():
         f.name for f in files if f.parent.name == "serve"}
     assert {"memory_bank.py", "hashing.py", "deploy.py", "quant.py"} <= {
         f.name for f in files}
-    assert {"__init__.py", "sharding.py", "tensor.py"} <= {
+    assert {"__init__.py", "sharding.py", "tensor.py", "pipeline.py"} <= {
         f.name for f in files if f.parent.name == "parallel"}
+    assert "visualize.py" in {f.name for f in files
+                              if f.parent.name == "eval"}
+    assert "clip.py" in {f.name for f in files if f.parent.name == "models"}
     worker = REPO / "tests" / "torch_parallel_worker.py"
     assert not FORBIDDEN.findall(worker.read_text())  # spawned ranks
     offenders = {str(f.relative_to(REPO)): FORBIDDEN.findall(f.read_text())
@@ -457,3 +471,59 @@ def torch_cuda_available() -> bool:
     import torch
 
     return torch.cuda.is_available()
+
+
+FACADE_PROBE = """
+import json, os, sys
+for name in ("PIL", "cv2", "pandas", "sklearn"):
+    sys.modules[name] = None  # any import of them raises
+import numpy as np, torch
+import aaclip_tpu_torch as port
+names = ("CLIPModel", "AdaptedCLIP", "get_config", "AdapterConfig",
+         "DtypePolicy", "create_clip_params", "init_adapter_params",
+         "tokenize")
+lazy = [n for n in names if "aaclip_tpu_torch.models.clip" in sys.modules]
+cfg = port.get_config("tiny-test")
+acfg = port.AdapterConfig(levels=(1, 2), image_adapt_until=1,
+                          text_adapt_until=1)
+model = port.AdaptedCLIP.create(cfg, acfg, device="cpu")
+seg, det = model(torch.zeros(1, 3, 70, 70))
+img, txt, scale = model.clip(torch.zeros(1, 3, 70, 70),
+                             torch.as_tensor(port.tokenize(["a bottle"])))
+resolved = all(callable(getattr(port, n)) for n in names)
+from aaclip_tpu_torch.data.image import encode_png, load_rgb
+from aaclip_tpu_torch.eval.visualize import visualize
+root = sys.argv[1]
+os.environ["AACLIP_DATA"] = root
+from aaclip_tpu_torch.data.registry import DATASETS
+d = os.path.join(DATASETS["MVTec"].data_path, "bottle", "test", "good")
+os.makedirs(d)
+with open(os.path.join(d, "000.png"), "wb") as f:
+    f.write(encode_png(np.full((20, 30, 3), 90, np.uint8)))
+visualize(np.zeros((1, 70, 70)), np.random.rand(1, 70, 70),
+          ["bottle/test/good/000.png"], root, "MVTec", "bottle")
+panel = load_rgb(os.path.join(root, "visualization", "MVTec", "bottle",
+                              "bottle_test_good_000.png"))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "aaclip_tpu"))
+print(json.dumps({"bad": bad, "lazy": lazy, "resolved": resolved,
+                  "seg": list(seg[0].shape), "scale": round(float(scale), 4),
+                  "panel": list(panel.shape)}))
+"""
+
+
+def test_visualize_and_facades_run_without_cv2_pil_or_jax(tmp_path):
+    """With PIL and cv2 (and pandas, scikit-learn) blocked, importing the
+    package loads none of the re-exported modules, the eight names
+    resolve, ``AdaptedCLIP`` builds and runs, and a PNG panel is written;
+    neither JAX nor the JAX package is imported."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run([sys.executable, "-c", FACADE_PROBE,
+                          str(tmp_path)], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result == {"bad": [], "lazy": [], "resolved": True,
+                      "seg": [1, 25, 32], "scale": round(1 / 0.07, 4),
+                      "panel": [210, 70, 3]}

@@ -221,14 +221,32 @@ def test_evaluations_of_both_runs_agree(runs):
 
 
 @pytest.mark.parametrize("flags,label", [
-    (["--pipeline_parallel", "2"], "ROADMAP A12"),
-    (["--pp_microbatches", "4"], "ROADMAP A12"),
-    (["--data_parallel", "--pipeline_parallel", "2"], "ROADMAP A12"),
+    # the pipeline flags are ported (ROADMAP A12) and follow JAX's rules
+    # (train.py:316-345): in one process the pipeline exceeds the
+    # devices, as JAX's exits at one device
+    (["--pipeline_parallel", "2"], "exceeds the 1 available devices"),
+    (["--pp_microbatches", "4"], None),
+    (["--data_parallel", "--pipeline_parallel", "2"],
+     "exceeds the 1 available devices"),
     (["--ckpt_backend", "orbax"], "ROADMAP A6"),
 ])
-def test_unported_flags_raise_naming_their_item(flags, label):
-    with pytest.raises(NotImplementedError, match=label):
-        cli.parse_args(flags)
+def test_unported_flags_raise_naming_their_item(flags, label, tmp_path):
+    """The orbax backend still raises naming its item at parse time;
+    the pipeline flags parse, and exit at the start of ``main`` in a
+    world of one, before anything is written."""
+    if label is not None and label.startswith("ROADMAP"):
+        with pytest.raises(NotImplementedError, match=label):
+            cli.parse_args(flags)
+        return
+    args = cli.parse_args(flags)
+    assert args.pipeline_parallel == (2 if "--pipeline_parallel" in flags
+                                      else 1)
+    if label is None:
+        return
+    with pytest.raises(SystemExit, match=label):
+        cli.main(flags + ["--save_path", str(tmp_path / "run")],
+                 device="cpu")
+    assert not (tmp_path / "run").exists()
 
 
 @pytest.mark.parametrize("flags,refusal", [

@@ -390,3 +390,179 @@ def cli(kind, argv, env):
         prof.ThrottledLossDrain = base
     return losses
 
+
+
+# ---------------------------------------------------------------- pipeline
+
+def _pp_tiny(visual=None, jad=None, layers=None, acfg_kwargs=None):
+    """``_tiny`` on a tiny-test tower of ``layers`` blocks (default its
+    own 2)."""
+    import dataclasses
+
+    from aaclip_tpu_torch.core import params as P
+    from aaclip_tpu_torch.core.config import AdapterConfig, get_config
+
+    cfg = get_config("tiny-test")
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, vision=dataclasses.replace(
+            cfg.vision, layers=layers))
+    acfg = AdapterConfig(**(acfg_kwargs or TINY))
+    return dict(
+        cfg=cfg, acfg=acfg,
+        vit=None if visual is None else P.params_from_jax(visual, cfg,
+                                                          device="cpu"),
+        ad=None if jad is None else P.adapter_from_jax(jad, cfg, acfg,
+                                                       device="cpu"))
+
+
+def pp_predict(pp, visual, jad, images, anchors, M, n_micro=None, dp=1,
+               layers=None, acfg_kwargs=None, policy="fp32", raw=False):
+    """The pipeline predictor on the global batch: the map and scores
+    every rank returns, this rank's (stage, data) coordinates, its blocks
+    and, with ``raw``, ``predict.raw``'s map and scores too."""
+    import torch
+
+    from aaclip_tpu_torch.eval.predict import adapter_tensors
+    from aaclip_tpu_torch.parallel.pipeline import make_pipeline_predict_fn
+
+    m = _pp_tiny(visual, jad, layers, acfg_kwargs)
+    fn = make_pipeline_predict_fn(m["vit"], m["cfg"], m["acfg"], pp=pp,
+                                  n_micro=n_micro, dp=dp,
+                                  policy=_policy(policy), device="cpu")
+    pix, score = fn(m["ad"], images, anchors, M)
+    out = dict(pix=pix.numpy(), score=score.numpy(),
+               coords=(fn.pp_mesh.stage_rank, fn.pp_mesh.data_rank),
+               blocks=fn.stage_blocks,
+               n_blocks=len({k.split(".")[2] for k in fn.visual
+                             if k.startswith("visual.blocks.")}))
+    if raw:
+        with torch.no_grad():
+            rp, rs = fn.raw(fn.visual, adapter_tensors(m["ad"]),
+                            *map(torch.as_tensor, (images, anchors, M)))
+        out.update(raw_pix=rp.numpy(), raw_score=rs.numpy())
+    return out
+
+
+def pp_stage2(pp, visual, jad, table, batch, n_micro=None, dp=1, steps=1,
+              layers=None, acfg_kwargs=None, remat=False, lr=1e-3):
+    """``steps`` pipeline stage-2 updates on the global batch: the losses
+    and the adapters after the last (JAX tree layout), on every rank."""
+    from aaclip_tpu_torch.core.params import adapter_to_jax
+    from aaclip_tpu_torch.parallel.pipeline import make_pp_stage2_step
+    from aaclip_tpu_torch.train import optim
+
+    m = _pp_tiny(visual, jad, layers, acfg_kwargs)
+    ad = m["ad"]
+    opt = optim.make_image_optimizer(ad.parameters(), lr=lr)
+    step = make_pp_stage2_step(m["vit"], m["cfg"], m["acfg"], opt, table,
+                               pp=pp, n_micro=n_micro, dp=dp,
+                               policy=_policy("fp32"), remat=remat,
+                               device="cpu")
+    losses = [float(step(ad, *batch)) for _ in range(steps)]
+    return losses, adapter_to_jax(ad)
+
+
+def pp_features(pp, visual, images, valid=None, n_micro=None, dp=1,
+                vv_mode="batch", layers=None, surgery_until_layer=2):
+    """The pipeline stage-1 features of the global batch, on every
+    rank."""
+    from aaclip_tpu_torch.parallel.pipeline import make_pp_stage1_features_fn
+
+    m = _pp_tiny(visual, layers=layers)
+    fn = make_pp_stage1_features_fn(
+        m["vit"], m["cfg"], pp=pp, n_micro=n_micro, dp=dp,
+        surgery_until_layer=surgery_until_layer, policy=_policy("fp32"),
+        vv_mode=vv_mode, device="cpu")
+    return fn(images, valid).numpy()
+
+
+def pp_idle(visual, jad, images, anchors, M):
+    """A world larger than the mesh (pp = 2, dp = 1 on 4 ranks): the
+    stage-1 features on every rank (the ranks outside the mesh receive
+    them) and, outside the mesh, the predictor's refusal."""
+    import torch.distributed as dist
+
+    from aaclip_tpu_torch.parallel import pipeline as ppl
+
+    feats = pp_features(2, visual, images, n_micro=2)
+    m = _pp_tiny(visual, jad)
+    err = None
+    try:
+        ppl.make_pipeline_predict_fn(m["vit"], m["cfg"], m["acfg"], pp=2,
+                                     device="cpu")
+    except ValueError as e:
+        err = str(e)
+    return feats, (dist.get_rank(), err)
+
+
+def pp_errors(visual, jad, table, batch):
+    """The pipeline's refusals, as ``{name: message}``; every rank runs
+    each make_* function (the mesh's groups are collective)."""
+    import dataclasses
+
+    import torch
+
+    from aaclip_tpu_torch.core.params import init_image_adapter
+    from aaclip_tpu_torch.parallel import pipeline as ppl
+    from aaclip_tpu_torch.train import optim
+
+    m = _pp_tiny(visual, jad)
+    cfg, acfg, vit, ad = m["cfg"], m["acfg"], m["vit"], m["ad"]
+    cfg4 = dataclasses.replace(cfg, vision=dataclasses.replace(
+        cfg.vision, layers=4))
+    out = {}
+
+    def catch(name, fn):
+        try:
+            fn()
+        except ValueError as e:
+            out[name] = str(e)
+
+    world = torch.distributed.get_world_size()
+    catch("pp3", lambda: ppl.make_pipeline_predict_fn(vit, cfg, acfg, pp=3,
+                                                      device="cpu"))
+    catch("mesh1", lambda: ppl.make_pp_mesh(1, device="cpu"))
+    catch("mesh_dp", lambda: ppl.make_pp_mesh(2, world, device="cpu"))
+    catch("spacing", lambda: ppl.make_pipeline_predict_fn(
+        vit, cfg4,
+        dataclasses.replace(acfg, levels=(1, 4)), pp=2, device="cpu"))
+    catch("staged", lambda: ppl.make_pipeline_predict_fn(
+        vit, cfg, acfg, pp=2, policy=_policy("fp32", bf16_until=1),
+        device="cpu"))
+    catch("int8", lambda: ppl.make_pipeline_predict_fn(
+        vit, cfg, acfg, pp=2, policy=_policy("int8"), device="cpu"))
+    catch("no_levels", lambda: ppl.make_pipeline_predict_fn(
+        vit, cfg, dataclasses.replace(acfg, levels=()), pp=2,
+        device="cpu"))
+    fn = ppl.make_pipeline_predict_fn(vit, cfg, acfg, pp=2, n_micro=2,
+                                      device="cpu")
+    z = lambda *s: torch.zeros(s)  # noqa: E731
+    catch("ragged", lambda: fn(ad, z(3, 3, 70, 70), z(32, 2), z(70, 5)))
+    catch("raw_ragged", lambda: fn.raw(fn.visual, {}, z(3, 3, 70, 70),
+                                       z(32, 2), z(70, 5)))
+    deep = init_image_adapter(cfg, dataclasses.replace(
+        acfg, image_adapt_until=2), seed=1, device="cpu")
+    catch("depth", lambda: fn(deep, z(4, 3, 70, 70), z(32, 2), z(70, 5)))
+    catch("s1_pp3", lambda: ppl.make_pp_stage1_features_fn(vit, cfg, pp=3,
+                                                           device="cpu"))
+    catch("s1_dp", lambda: ppl.make_pp_stage1_features_fn(
+        vit, cfg, pp=2, dp=2, surgery_until_layer=2, device="cpu"))
+    catch("s1_vv_fn", lambda: ppl.make_pp_stage1_features_fn(
+        vit, cfg, pp=2, surgery_until_layer=2, vv_attn_fn=lambda h, p: h,
+        device="cpu"))
+    catch("s1_mode", lambda: ppl.make_pp_stage1_features_fn(
+        vit, cfg, pp=2, vv_mode="typo", device="cpu"))
+    feats = ppl.make_pp_stage1_features_fn(vit, cfg, pp=2, n_micro=2,
+                                           surgery_until_layer=2,
+                                           device="cpu")
+    catch("s1_ragged", lambda: feats(z(3, 3, 70, 70)))
+    opt = optim.make_image_optimizer(ad.parameters(), lr=1e-3)
+    catch("s2_pp3", lambda: ppl.make_pp_stage2_step(
+        vit, cfg, acfg, opt, table, pp=3, device="cpu"))
+    catch("s2_selective", lambda: ppl.make_pp_stage2_step(
+        vit, cfg, acfg, opt, table, pp=2, remat="selective", device="cpu"))
+    step = ppl.make_pp_stage2_step(vit, cfg, acfg, opt, table, pp=2,
+                                   n_micro=4, device="cpu")
+    catch("s2_ragged", lambda: step(ad, *(np.asarray(x)[:6]
+                                          for x in batch)))
+    return out
