@@ -14,6 +14,7 @@ import dataclasses
 import glob
 import json
 import os
+import warnings
 from typing import Tuple
 
 import torch
@@ -215,19 +216,40 @@ def config_from_json(payload: dict) -> CLIPConfig:
 
 
 def _scan_json_configs() -> None:
-    """Add model_configs/*.json to MODEL_CONFIGS; the built-in entries
-    above win over a JSON file of the same name."""
-    here = os.path.join(os.path.dirname(__file__), "model_configs")
-    for path in sorted(glob.glob(os.path.join(here, "*.json"))):
-        name = os.path.splitext(os.path.basename(path))[0]
-        if name in MODEL_CONFIGS:
-            continue
-        try:
-            with open(path) as f:
-                MODEL_CONFIGS[name] = config_from_json(json.load(f))
-        except (OSError, ValueError, KeyError) as e:
-            raise RuntimeError(
-                f"could not load model config {path!r}: {e}") from e
+    """Add model_configs/*.json to MODEL_CONFIGS, then the JSON files of
+    the directories named in ``AACLIP_MODEL_CONFIGS`` (``os.pathsep``
+    separated), as the JAX package scans them. The built-in entries above
+    win over a built-in file of the same name; a user file overrides
+    either. A file without ``embed_dim``, ``vision_cfg`` and ``text_cfg``
+    is skipped; an unreadable user file warns and is skipped, an
+    unreadable built-in one raises naming the file."""
+    dirs = [(os.path.join(os.path.dirname(__file__), "model_configs"),
+             False)]
+    extra = os.environ.get("AACLIP_MODEL_CONFIGS")
+    if extra:
+        dirs += [(d, True) for d in extra.split(os.pathsep)]
+    for d, user in dirs:
+        for path in sorted(glob.glob(os.path.join(d, "*.json"))):
+            name = os.path.splitext(os.path.basename(path))[0]
+            if name in MODEL_CONFIGS and not user:
+                continue
+            try:
+                with open(path) as f:
+                    payload = json.load(f)
+                if not all(k in payload
+                           for k in ("embed_dim", "vision_cfg", "text_cfg")):
+                    continue
+                parsed = config_from_json(payload)
+            except (OSError, ValueError, KeyError, TypeError,
+                    AttributeError, ZeroDivisionError) as e:
+                # what a missing, malformed or mistyped file raises
+                if user:
+                    warnings.warn(
+                        f"skipping unreadable model config {path!r}: {e}")
+                    continue
+                raise RuntimeError(
+                    f"could not load model config {path!r}: {e}") from e
+            MODEL_CONFIGS[name] = parsed
 
 
 _scan_json_configs()

@@ -273,6 +273,20 @@ Needs one CUDA card and nvcc. Phases, each of which fails the run:
     panel cv2's bit for bit (where cv2 imports); (e) ``AdaptedCLIP.create``
     on the card, its forward bit for bit ``adapted_forward``, 24 B1
     launches.
+16. the practitioner tools and examples (``aaclip_tpu_torch/tools``,
+    ``aaclip_tpu_torch/examples``) through their ``main``: (a)
+    ``predict_folder`` at ViT-L/518, bf16, batch 8, on 12 seeded PNGs of
+    mixed sizes from phase 9's checkpoint and seeded npz adapters, every
+    ``scores.csv`` row bit for bit the direct predict's on the same
+    decoded batch, 24 B1 launches per batch, a heatmap per image, images/s
+    over the whole run; (b) ``predict_folder --artifact`` on phase 13's
+    ViT-L int8 artifact, bit for bit its ``predict_class``; (c)
+    ``zero_shot`` at ViT-L/518, its printed score the direct predict's;
+    (d) ``few_shot_soak`` at tiny-test (``--shots 2 4 --memory_bank``, one
+    epoch each), B1 and B2 launched; (e) ``precision_ab`` at tiny-test,
+    bf16 against int8, its verdict passed and its margins printed; (f)
+    ``serve_smoke`` against the port's server in a child process on the
+    card.
 Phase 3 also holds the V-V mode of the forward kernel (B3) against its
 plain version, in bf16 and fp32, at [16, 1370, 1024], ragged S and head
 dim 16, and against the standard mode on the value section tripled.
@@ -5445,8 +5459,11 @@ def check_artifact(name: str, art, card) -> int:
     return calls
 
 
-def phase_artifact(card, ckpt_path: str, serve_readings: dict) -> dict:
-    """Phase 13c-e; returns B1's launches per artifact call."""
+def phase_artifact(card, ckpt_path: str, serve_readings: dict,
+                   keep_int8: str = None) -> dict:
+    """Phase 13c-e; returns B1's launches per artifact call. With
+    ``keep_int8`` the int8 artifact is moved there at the end (phase 16b
+    reads it)."""
     import gc
     import os
     import threading
@@ -5637,6 +5654,8 @@ def phase_artifact(card, ckpt_path: str, serve_readings: dict) -> dict:
               f"{time.perf_counter() - t0:.1f} s on {card}")
         gc.collect()
         torch.cuda.empty_cache()
+        if keep_int8:
+            shutil.move(paths["int8"], keep_int8)
         return calls
     finally:
         for k, v in env_before.items():
@@ -5648,11 +5667,12 @@ def phase_artifact(card, ckpt_path: str, serve_readings: dict) -> dict:
 
 
 def phase_int8_artifact(vit, adapter, cfg, acfg, anchors, M, card, gen,
-                        ckpt_path: str, serve_readings: dict) -> dict:
+                        ckpt_path: str, serve_readings: dict,
+                        keep_int8: str = None) -> dict:
     """Phase 13: 13a-e above; returns B1's launches per path."""
     t_phase = time.perf_counter()
     int8 = phase_int8(vit, adapter, cfg, acfg, anchors, M, card, gen)
-    calls = phase_artifact(card, ckpt_path, serve_readings)
+    calls = phase_artifact(card, ckpt_path, serve_readings, keep_int8)
     print(f"phase 13 (int8 and the artifact) took "
           f"{time.perf_counter() - t_phase:.0f} s")
     return {"int8 predict": int8["launches"], **calls}
@@ -6986,6 +7006,334 @@ def phase_pipeline(vit, adapter, cfg, acfg, anchors, M, card, gen,
     return calls
 
 
+# Phase 16: the practitioner tools and examples (aaclip_tpu_torch/tools,
+# aaclip_tpu_torch/examples), each through its main() as a user runs it
+# with ``python -m``. (a) predict_folder at ViT-L-14-336 @ 518, bf16,
+# batch 8, on 12 seeded PNGs of TOOL_SIZES (the last batch padded, as the
+# tool pads it), from phase 9's seeded checkpoint (AACLIP_CKPT) and seeded
+# npz adapters under --save_path: every scores.csv row bit for bit the
+# score of a direct make_predict_fn on the same loaded towers, adapters,
+# anchors and decoded batch; 24 B1 launches per batch and no other kernel;
+# a [518, 518, 3] heatmap per image; images/s over the whole main()
+# (start-up included: the towers, the anchors, the decode, the heatmaps).
+# (b) predict_folder --artifact on phase 13's ViT-L int8 artifact (bucket
+# 8, seeded adapters; one program, so each of its two loads here takes
+# ~8 s where the bf16 artifact's four programs take ~24): every row bit
+# for bit the artifact's predict_class on the same batch, 24 B1 launches
+# per call. (c) zero_shot at ViT-L @ 518 on one image: its printed score
+# equals the direct predict's, formatted alike. (d) few_shot_soak at
+# tiny-test, --shots 2 4 --memory_bank (a bank is built from the normal
+# images of the K-shot file, and the tool's 1-shot draw holds no normal
+# bottle), one text and one image epoch each: FEW-SHOT SOAK OK, B1 and B2
+# launched. (e) precision_ab at tiny-test, bf16 against int8 (the tool's
+# 2 classes of 16 + 16 images, one epoch of each stage): PRECISION A/B OK,
+# each column's distance printed beside its allowance. It passes with no
+# margin (image AUC 3 flips of 3), the same bits in every run; a size with
+# margin does not exist for this pair: the allowance is 3 flips whatever
+# the size while the flips grow with the pairs, and at the tool's defaults
+# (ViT-L) int8 fails the gate (PERF.md, Findings). (f) serve_smoke against
+# the port's server in a child process on the card (ViT-L @ 518, bf16,
+# random weights, its anchor cache in a temporary directory): SERVE HTTP
+# SMOKE OK.
+TOOL_SIZES = [(518, 518), (1024, 1024), (700, 900), (333, 480), (800, 600),
+              (1024, 768), (256, 256), (600, 600), (900, 900), (480, 640),
+              (1000, 500), (518, 700)]
+TOOL_BATCH = 8
+
+
+def tool_output(fn, argv, what: str, **kw) -> str:
+    """``fn(argv, **kw)``'s standard output, captured, and its last line
+    printed; all of it printed when ``fn`` raises."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            fn(argv, **kw)
+    except BaseException:
+        print(f"{what} failed; its output:\n{buf.getvalue()}")
+        raise
+    out = buf.getvalue()
+    print(f"{what}: {out.strip().splitlines()[-1] if out.strip() else ''}")
+    return out
+
+
+def phase_tools(card, ckpt_path: str, int8_artifact: str) -> dict:
+    """Phase 16; ``int8_artifact`` is phase 13's ViT-L int8 artifact.
+    Returns {kernel: {path: launches}}."""
+    import gc
+    import os
+
+    import numpy as np
+    import torch
+
+    from aaclip_tpu_torch.core.config import (AdapterConfig, DtypePolicy,
+                                              get_config)
+    from aaclip_tpu_torch.core.params import (adapter_from_jax,
+                                              adapter_to_jax,
+                                              create_clip_towers,
+                                              init_image_adapter,
+                                              init_text_adapter,
+                                              text_adapter_from_jax,
+                                              text_adapter_to_jax)
+    from aaclip_tpu_torch.data.image import encode_png, load_rgb
+    from aaclip_tpu_torch.data.transforms import load_rgb_chw
+    from aaclip_tpu_torch.deploy import load_serving_artifact
+    from aaclip_tpu_torch.eval.predict import (make_anchor_encoder,
+                                               make_predict_fn)
+    from aaclip_tpu_torch.examples import zero_shot
+    from aaclip_tpu_torch.kernels.build import kernels_launched
+    from aaclip_tpu_torch.ops import fused_block as FB
+    from aaclip_tpu_torch.ops.attention import attention_kernel
+    from aaclip_tpu_torch.ops.similarity import fused_postproc_matrix
+    from aaclip_tpu_torch.text.anchors import encode_dataset_anchors
+    from aaclip_tpu_torch.tools import (few_shot_soak, precision_ab,
+                                        predict_folder, serve_smoke)
+    from aaclip_tpu_torch.train import checkpoint as ckpt
+
+    t_phase = time.perf_counter()
+    cfg = get_config("ViT-L-14-336", img_size=518)
+    img, n_layers = cfg.vision.image_size, cfg.vision.layers
+    acfg = AdapterConfig()
+    bf16 = DtypePolicy.bf16()
+    tmp = tempfile.mkdtemp(prefix="aaclip_tools_")
+    keys = ("AACLIP_CKPT", "AACLIP_DATA", "AACLIP_METADATA",
+            "AACLIP_ANCHOR_CACHE")
+    env_before = {k: os.environ.get(k) for k in keys}
+    calls = {"attention_packed": {}, "attention_packed_bwd": {}}
+    try:
+        # the folder: seeded PNGs of mixed sizes (smooth fields + noise)
+        folder = os.path.join(tmp, "images")
+        os.makedirs(folder)
+        rng = np.random.default_rng(16)
+        for i, (h, w) in enumerate(TOOL_SIZES):
+            yy, xx = np.mgrid[0:h, 0:w]
+            base = 128 + 60 * np.sin(xx / (17 + i)) * np.cos(yy / (23 + i))
+            px = base[..., None] + rng.normal(0, 12, (h, w, 3))
+            with open(os.path.join(folder, f"img_{i:02d}.png"), "wb") as f:
+                f.write(encode_png(np.clip(px, 0, 255).astype(np.uint8)))
+        files = sorted(os.listdir(folder))
+        # seeded adapters: an npz image snapshot and a text adapter
+        save = os.path.join(tmp, "adapters")
+        ad_tree = adapter_to_jax(init_image_adapter(cfg, acfg, seed=21,
+                                                    device="cpu"))
+        text_tree = text_adapter_to_jax(init_text_adapter(cfg, acfg,
+                                                          seed=22,
+                                                          device="cpu"))
+        ckpt.save_adapter_checkpoint(
+            os.path.join(save, "image_adapter_1.npz"), 1, ad_tree)
+        ckpt.save_adapter_checkpoint(
+            os.path.join(save, "text_adapter.npz"), 0, text_tree)
+        os.environ["AACLIP_CKPT"] = ckpt_path
+
+        # -- 16a. predict_folder, live, ViT-L @ 518 bf16
+        out = os.path.join(tmp, "out")
+        zero_counts()
+        zero_fused_counts()
+        before = kernels_launched("attention_packed")
+        t0 = time.perf_counter()
+        tool_output(predict_folder.main, [
+            folder, "--class_name", "bottle", "--save_path", save,
+            "--batch_size", str(TOOL_BATCH), "--heatmaps", "--out", out],
+            "16a predict_folder")
+        wall = time.perf_counter() - t0
+        n_batches = -(-len(files) // TOOL_BATCH)
+        launches, n_lib = counts(), kernels_launched("attention_packed") \
+            - before
+        others = {"attention_kernel": attention_kernel.launches,
+                  "ln_linear": FB.ln_linear.launches,
+                  "linear_residual": FB.linear_residual.launches,
+                  "mlp_fused": FB.mlp_fused.launches}
+        print(f"16a predict_folder bf16 B={TOOL_BATCH}: {len(files)} images "
+              f"in {n_batches} batches, attention_packed {launches[0]} "
+              f"launches ({n_lib} kernels counted by the library), V-V "
+              f"{launches[1]}, backward {launches[2]}, {others}")
+        expect(launches == (n_layers * n_batches, 0, 0)
+               and n_lib == launches[0] and not any(others.values()),
+               f"16a predict_folder: launches {launches}, {n_lib} kernels, "
+               f"{others}")
+        calls["attention_packed"][f"predict_folder ({n_batches} batches "
+                                  f"of {TOOL_BATCH})"] = launches[0]
+        rows = read_csv(os.path.join(out, "scores.csv"))
+        expect(rows[0] == ["file", "image_score"]
+               and [r[0] for r in rows[1:]] == files,
+               f"16a predict_folder: scores.csv rows {rows[:3]}")
+        heatmaps = sorted(f for f in os.listdir(out)
+                          if f.endswith("_heatmap.png"))
+        expect(len(heatmaps) == len(files)
+               and all(load_rgb(os.path.join(out, f)).shape == (img, img, 3)
+                       for f in heatmaps),
+               f"16a predict_folder: heatmaps {heatmaps}")
+        print(f"16a predict_folder: {len(files)} images in {wall:.2f} s, "
+              f"{len(files) / wall:.2f} images/s over the whole main() "
+              f"(the towers from the checkpoint, the anchors, the host "
+              f"decode and the {len(heatmaps)} heatmaps included) on {card}")
+        # the direct predict on the same towers, adapters and batches
+        vit, text = create_clip_towers(cfg, checkpoint=ckpt_path)
+        image_adapter = adapter_from_jax(ad_tree, cfg, acfg)
+        predict = make_predict_fn(vit, cfg, acfg, policy=bf16,
+                                  uint8_inputs=True)
+        anchors = encode_dataset_anchors(make_anchor_encoder(
+            text, cfg, acfg, text_adapter_from_jax(text_tree, cfg, acfg),
+            policy=bf16), "MVTec")["bottle"]
+        M = torch.from_numpy(fused_postproc_matrix(cfg.vision.grid, img,
+                                                   "Industrial"))
+        want = []
+        for start in range(0, len(files), TOOL_BATCH):
+            batch = np.stack([load_rgb_chw(os.path.join(folder, f), img,
+                                           uint8=True)
+                              for f in files[start:start + TOOL_BATCH]])
+            n = len(batch)
+            batch = np.concatenate([batch, np.repeat(
+                batch[-1:], TOOL_BATCH - n, axis=0)])
+            want += [float(s) for s in predict(
+                image_adapter, torch.from_numpy(batch), anchors,
+                M)[1].cpu().numpy()[:n]]
+        got = [float(r[1]) for r in rows[1:]]
+        print(f"16a predict_folder: scores.csv against the direct predict: "
+              f"bit for bit {got == want} (max|d| "
+              f"{max(abs(a - b) for a, b in zip(got, want)):.3e}; scores "
+              f"{min(got):.4f}..{max(got):.4f})")
+        expect(got == want, "16a predict_folder: scores differ from the "
+               "direct predict")
+
+        # -- 16c. zero_shot on one image, ViT-L @ 518 bf16
+        one = os.path.join(folder, files[1])
+        zero_counts()
+        t0 = time.perf_counter()
+        printed = tool_output(zero_shot.main, [one, "--save_path", save],
+                              "16c zero_shot")
+        zs_wall = time.perf_counter() - t0
+        zs_launches = counts()
+        frozen = encode_dataset_anchors(make_anchor_encoder(
+            text, cfg, acfg, policy=bf16), "MVTec")["bottle"]
+        score = predict(image_adapter, torch.from_numpy(load_rgb_chw(
+            one, img, uint8=True)[None]), frozen, M)[1]
+        line = printed.strip().splitlines()[0]
+        print(f"16c zero_shot: printed {line!r}, the direct predict's "
+              f"{float(score[0]):.4f}; launches {zs_launches}; "
+              f"{zs_wall:.2f} s for the whole main() on {card}")
+        expect(line == f"image score: {float(score[0]):.4f}"
+               and zs_launches == (n_layers, 0, 0),
+               f"16c zero_shot: {line!r}, launches {zs_launches}")
+        calls["attention_packed"]["zero_shot (one image)"] = zs_launches[0]
+        del vit, text, predict, image_adapter
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- 16b. predict_folder --artifact on phase 13's ViT-L int8
+        # artifact
+        out_art = os.path.join(tmp, "out_artifact")
+        zero_counts()
+        t0 = time.perf_counter()
+        tool_output(predict_folder.main, [
+            folder, "--class_name", "bottle", "--artifact", int8_artifact,
+            "--batch_size", str(TOOL_BATCH), "--out", out_art],
+            "16b predict_folder --artifact")
+        art_wall = time.perf_counter() - t0
+        art_launches = counts()
+        rows = read_csv(os.path.join(out_art, "scores.csv"))
+        art = load_serving_artifact(int8_artifact)
+        want = []
+        for start in range(0, len(files), TOOL_BATCH):
+            batch = np.stack([load_rgb_chw(os.path.join(folder, f),
+                                           art.img_size, uint8=True)
+                              for f in files[start:start + TOOL_BATCH]])
+            want += [float(s) for s in
+                     art.predict_class(batch, "MVTec", "bottle")[1]]
+        del art
+        gc.collect()
+        torch.cuda.empty_cache()
+        got = [float(r[1]) for r in rows[1:]]
+        print(f"16b predict_folder --artifact (ViT-L int8, bucket "
+              f"{TOOL_BATCH}): launches {art_launches}; scores.csv against "
+              f"predict_class bit for bit {got == want}; {art_wall:.2f} s "
+              f"for the whole main() (the artifact's load included) on "
+              f"{card}")
+        expect(got == want and [r[0] for r in rows[1:]] == files,
+               "16b predict_folder --artifact: scores differ from "
+               "predict_class")
+        expect(art_launches == (n_layers * n_batches, 0, 0),
+               f"16b predict_folder --artifact: launches {art_launches}")
+        calls["attention_packed"][
+            f"predict_folder --artifact (int8, {n_batches} batches of "
+            f"{TOOL_BATCH})"] = art_launches[0]
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        os.environ.pop("AACLIP_CKPT")  # the tiny-test runs below
+
+        # -- 16d. few_shot_soak, tiny-test
+        tiny = ["--model_name", "tiny-test", "--img_size", "70",
+                "--levels", "1", "2", "--text_adapt_until", "1",
+                "--image_adapt_until", "1"]
+        zero_counts()
+        t0 = time.perf_counter()
+        soak = tool_output(few_shot_soak.main, [
+            "--workdir", os.path.join(tmp, "soak"), "--shots", "2", "4",
+            "--memory_bank", "--surgery_until_layer", "2",
+            "--text_epoch", "1", "--image_epoch", "1"] + tiny,
+            "16d few_shot_soak")
+        soak_launches = counts()
+        summary = soak.split("=== few-shot soak summary ===")[-1]
+        print("16d few_shot_soak summary:" + summary.rstrip()
+              + f"\n16d few_shot_soak: launches {soak_launches}, "
+              f"{time.perf_counter() - t0:.1f} s on {card}")
+        expect("FEW-SHOT SOAK OK" in soak and summary.count("-shot") == 4
+               and soak_launches[0] > 0 and soak_launches[2] > 0,
+               f"16d few_shot_soak: launches {soak_launches}")
+        calls["attention_packed"]["few_shot_soak (tiny-test)"] = \
+            soak_launches[0]
+        calls["attention_packed_bwd"]["few_shot_soak (tiny-test)"] = \
+            soak_launches[2]
+
+        # -- 16e. precision_ab, tiny-test, bf16 against int8
+        zero_counts()
+        t0 = time.perf_counter()
+        ab = tool_output(precision_ab.main, [
+            "--workdir", os.path.join(tmp, "ab"), "--baseline", "bf16",
+            "--candidate", "int8"] + tiny, "16e precision_ab")
+        ab_launches = counts()
+        for line in ab.splitlines():
+            if line.startswith("  ") and ("(allowed" in line
+                                          or "Spearman" in line):
+                print(f"16e precision_ab: {line.strip()}")
+        print(f"16e precision_ab (tiny-test, bf16 against int8): launches "
+              f"{ab_launches}, {time.perf_counter() - t0:.1f} s on {card}")
+        expect("PRECISION A/B OK" in ab and ab_launches[0] > 0
+               and ab_launches[2] > 0,
+               f"16e precision_ab: launches {ab_launches}")
+        calls["attention_packed"]["precision_ab (tiny-test)"] = \
+            ab_launches[0]
+        calls["attention_packed_bwd"]["precision_ab (tiny-test)"] = \
+            ab_launches[2]
+
+        # -- 16f. serve_smoke against the port's server in a child
+        os.environ["AACLIP_ANCHOR_CACHE"] = os.path.join(tmp, "anchors")
+        t0 = time.perf_counter()
+        smoke = tool_output(serve_smoke.main, [
+            "--port", str(free_port()), "--startup_timeout", "300"],
+            "16f serve_smoke")
+        for line in smoke.splitlines():
+            if line.startswith(("healthz", "req", "unknown")):
+                print(f"16f serve_smoke: {line}")
+        print(f"16f serve_smoke: {time.perf_counter() - t0:.1f} s (the "
+              f"child's start-up included) on {card}")
+        expect(smoke.strip().endswith("SERVE HTTP SMOKE OK"),
+               "16f serve_smoke did not pass")
+        print(f"phase 16 (tools and examples) took "
+              f"{time.perf_counter() - t_phase:.0f} s")
+    finally:
+        for k, v in env_before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+    return calls
+
+
 def cli_ranks_main(spec: str) -> int:
     """``chip_smoke.py --parallel-clis JSON``: one rank (under torchrun) of
     the evaluation CLI, the training CLI and the bench, each with the argv
@@ -7023,6 +7371,8 @@ def make_attn_fn_plain(heads: int, policy, *, vv: bool = False,
 
 
 def main() -> int:
+    import os
+
     import torch
 
     if not torch.cuda.is_available():
@@ -7149,9 +7499,10 @@ def main() -> int:
                                       card, gen, ckpt_path)
         # -- 13. int8 and the exported artifact
         print(f"[{time.perf_counter() - t0:.0f} s] int8 and the artifact")
+        int8_artifact = os.path.join(ckpt_dir, "artifact_int8")
         serving_calls.update(phase_int8_artifact(
             vit, adapter, cfg, acfg, anchors, M, card, gen, ckpt_path,
-            SERVE_READINGS))
+            SERVE_READINGS, keep_int8=int8_artifact))
         # -- 14. data, tensor and sequence parallelism
         print(f"[{time.perf_counter() - t0:.0f} s] parallel")
         par_calls = phase_parallel(vit, adapter, cfg, acfg, anchors, M,
@@ -7160,6 +7511,11 @@ def main() -> int:
         print(f"[{time.perf_counter() - t0:.0f} s] pipeline")
         for name, paths in phase_pipeline(vit, adapter, cfg, acfg, anchors,
                                           M, card, gen, ckpt_path).items():
+            par_calls[name].update(paths)
+        # -- 16. the practitioner tools and examples
+        print(f"[{time.perf_counter() - t0:.0f} s] tools and examples")
+        for name, paths in phase_tools(card, ckpt_path,
+                                       int8_artifact).items():
             par_calls[name].update(paths)
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)

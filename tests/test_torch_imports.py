@@ -19,7 +19,10 @@ stage-2 step (``parallel/``) run at world size 1 on gloo (``torchrun``'s
 variables set) in a fresh interpreter without either, where the pipeline's
 mesh refuses a world of one. With PIL and cv2 blocked too, the package's
 lazy re-exports resolve, ``AdaptedCLIP.create`` builds and runs, and
-``eval/visualize.py`` writes a PNG panel."""
+``eval/visualize.py`` writes a PNG panel. The tools ``predict_folder``
+(PNG inputs, heatmaps) and ``make_few_shot`` run with JAX, the JAX
+package, PIL, pandas, scikit-learn and cv2 all blocked, and the source
+scan covers ``tools/`` and ``examples/``."""
 
 import json
 import os
@@ -194,6 +197,12 @@ def test_sources_do_not_import_jax_or_the_jax_package():
     assert "visualize.py" in {f.name for f in files
                               if f.parent.name == "eval"}
     assert "clip.py" in {f.name for f in files if f.parent.name == "models"}
+    assert {"predict_folder.py", "make_few_shot.py", "few_shot_soak.py",
+            "precision_ab.py", "int8_ab.py", "export_torch_ckpt.py",
+            "compare_golden.py", "serve_smoke.py"} <= {
+        f.name for f in files if f.parent.name == "tools"}
+    assert {"zero_shot.py", "synthetic_end_to_end.py"} <= {
+        f.name for f in files if f.parent.name == "examples"}
     worker = REPO / "tests" / "torch_parallel_worker.py"
     assert not FORBIDDEN.findall(worker.read_text())  # spawned ranks
     offenders = {str(f.relative_to(REPO)): FORBIDDEN.findall(f.read_text())
@@ -527,3 +536,52 @@ def test_visualize_and_facades_run_without_cv2_pil_or_jax(tmp_path):
     assert result == {"bad": [], "lazy": [], "resolved": True,
                       "seg": [1, 25, 32], "scale": round(1 / 0.07, 4),
                       "panel": [210, 70, 3]}
+
+
+TOOLS_PROBE = """
+import json, os, sys, tempfile
+for name in ("jax", "jaxlib", "aaclip_tpu", "PIL", "pandas", "sklearn",
+             "cv2"):
+    sys.modules[name] = None  # any import of them raises
+import numpy as np
+from aaclip_tpu_torch.data.image import encode_png, load_rgb
+from aaclip_tpu_torch.data.synthetic import make_synthetic_dataset
+from aaclip_tpu_torch.tools import make_few_shot, predict_folder
+root = tempfile.mkdtemp()
+imgs = os.path.join(root, "imgs")
+os.makedirs(imgs)
+rng = np.random.default_rng(0)
+for i, (h, w) in enumerate([(40, 50), (70, 70), (90, 30)]):
+    with open(os.path.join(imgs, f"im{i}.png"), "wb") as f:
+        f.write(encode_png(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)))
+out = os.path.join(root, "out")
+predict_folder.main([imgs, "--class_name", "bottle", "--model_name",
+                     "tiny-test", "--img_size", "70", "--levels", "1", "2",
+                     "--batch_size", "2", "--heatmaps", "--out", out],
+                    device="cpu")
+_, meta = make_synthetic_dataset(os.path.join(root, "data"), img_px=40)
+os.environ["AACLIP_METADATA"] = meta
+make_few_shot.main(["--dataset", "MVTec", "--shots", "1", "2"])
+shots = [len(open(os.path.join(meta, "MVTec", f"{k}-shot.jsonl"))
+             .read().splitlines()) for k in (1, 2)]
+bad = sorted(m for m in sys.modules if sys.modules[m] is not None
+             and m.split(".")[0] in ("jax", "jaxlib", "aaclip_tpu", "PIL",
+                                     "pandas", "sklearn", "cv2"))
+print(json.dumps({"bad": bad,
+                  "rows": len(open(os.path.join(out, "scores.csv"))
+                              .read().splitlines()),
+                  "heatmap": list(load_rgb(os.path.join(
+                      out, "im2_heatmap.png")).shape),
+                  "shots": shots}))
+"""
+
+
+def test_tools_run_without_jax_pil_pandas_sklearn_or_cv2():
+    """``tools/predict_folder.py`` (PNG folder, heatmaps) and
+    ``tools/make_few_shot.py`` in a fresh interpreter where neither JAX,
+    the JAX package, PIL, pandas, scikit-learn nor cv2 can be imported."""
+    out = _fresh(TOOLS_PROBE)
+    assert out.returncode == 0, out.stderr
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result == {"bad": [], "rows": 4, "heatmap": [70, 70, 3],
+                      "shots": [2, 4]}
