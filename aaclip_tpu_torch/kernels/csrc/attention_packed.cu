@@ -18,17 +18,20 @@
 // moved (3072*1370*2 B read, 1024*1370*2 B written), about 690 FLOP per
 // byte, far above the card's ~295 bf16 FLOP per byte of HBM: it is bound
 // by the tensor cores (989 TFLOP/s), not by memory; 245.9 GFLOP at the
-// predict's batch 32 is 0.249 ms. At head dim 64 the softmax's
-// exponentials are a second bound of the same size: one per score at 16
-// per SM and clock takes as long as the score's 4*64 product FLOP at the
-// tensor cores' ~4096 per SM and clock, so the design overlaps the two.
+// predict's batch 32 is 0.249 ms (at ViT-H-14's 16 heads of 80, 307.5
+// GFLOP, 0.311 ms; in 8 heads of 128, ViT-L's 0.249). At head dim 64 the
+// softmax's exponentials are a second bound of the same size: one per
+// score at 16 per SM and clock takes as long as the score's 4*64 product
+// FLOP at the tensor cores' ~4096 per SM and clock, so the design overlaps
+// the two.
 //
-// Routes. bf16 at head dim kTmaHeadDim (64: ViT-L and ViT-B) runs
-// attn_fwd_wgmma, the design below. fp32 at head dim 64, the CLIs'
-// default precision ("highest"), runs attn_fwd_6pass on the same TMA +
-// wgmma machinery (below); fp32 under precision "high" (the 3-pass mode)
-// runs attn_fwd_3pass_wgmma, the same kernel on two planes. Head dim 16
-// (tiny-test) keeps the first port's kernels: bf16 on mma.sync
+// Routes. bf16 at a TMA head dim (tma_head_dim: 64, ViT-L and ViT-B; 80,
+// open_clip's ViT-H-14; 128) runs attn_fwd_wgmma<HD>, the design below.
+// fp32 there, the CLIs' default precision ("highest"), runs
+// attn_fwd_6pass<HD> on the same TMA + wgmma machinery (below); fp32 under
+// precision "high" (the 3-pass mode) runs attn_fwd_3pass_wgmma<HD>, the
+// same kernel on two planes. Head dim 16 (tiny-test) keeps the first
+// port's kernels: bf16 on mma.sync
 // (attn_bf16_kernel: one block per 64 query rows, K/V tiles of 64 copied
 // through registers), fp32 on FMA with one thread per query row and no
 // TF32 (attn_f32_kernel), and the 3-pass mode on mma.sync from hi/lo tiles
@@ -54,6 +57,41 @@
 // at the fp32_high predict's batch 8, 0.187 ms at 989 TFLOP/s. The design
 // is the 6-pass route's on two planes (split2_kernel writes hi and lo, the
 // products are passes 3-5 of the 6-pass table).
+//
+// Head dims 80 and 128. One tile row of the TMA + wgmma kernels is 64
+// bf16 columns, one 128-byte swizzle row (hopper_common.cuh), so a head is
+// loaded as 64-column chunks (Head<HD>), each a TMA box of its own at
+// column 64 c of the head and a tile of the same layout: one chunk at 64,
+// two at 80 and 128. At 80 the second box covers columns 64-127 of the
+// head, of which the products read 16 (the rest is the next head's, or
+// zeros past the map's edge, and never enters a product): Q K^T runs HD /
+// 16 k-steps, k-step ks 32 * (ks % 4) bytes into chunk ks / 4 (five at 80:
+// four from the first chunk, one from the second), and P V one product per
+// chunk, m64n64 on a full chunk and m64n16 on the first 16 columns of the
+// second chunk at 80 (the MN-major descriptor reading two of each swizzled
+// row's eight 16-byte chunks). So every route spends exactly hd's own
+// products at 80 and 128; what 80 pays for the 64-column boxes is in
+// shared memory and copies: 1.6x the bytes of its head moved from L2 into
+// shared memory, and 128's tile plan. The tile plans (rows x keys per
+// tile x stages; shared memory; registers a consumer thread holds for O,
+// S, P):
+//   bf16      hd 64:     128 x 128 x 3, 113 KB; O 32, S 64, P 32 + 32
+//             hd 80/128: 128 x 64 x 5, 193 KB; O 40/64, S 32, P 16 + 16
+//   6-pass    hd 64:     128 x 64 x 3, 193 KB; O 32 + 32, S 32, P 3 x 16
+//             hd 80/128: 128 x 32 x 2, 193 KB; O 40/64 + 32, S 16, P 3 x 8
+//   3-pass    hd 64:     128 x 64 x 4, 161 KB; O 32 + 32, S 32, P 2 x 16
+//             hd 80/128: 128 x 32 x 4, 193 KB; O 40/64 + 32, S 16, P 2 x 8
+// (fp32's O + 32: the running O and one chunk's P V accumulator, the
+// chunks' P V run one after the other.) At 80 and 128 the bf16 keys drop
+// to 64 a tile because O grows to 40 and 64 registers and ptxas plans the
+// 384-thread consumers at 168 (64 keys also halve S and P); the fp32 keys
+// drop to 32 because Q's planes alone take kP x 32 KB (96 KB on the 6-pass
+// route) and a 64-key stage 2 x kP x 16 KB. ptxas (CUDA 12.8, sm_90a):
+// every instantiation 168 registers, no stack and no spill; C7519
+// (warpgroup.arrive injected) in attn_fwd_wgmma at 64, 80 and 128, and
+// C7511 (wgmma serialized for want of registers) in
+// attn_fwd_3pass_wgmma<80>. The logsumexp keeps its meaning at every head
+// dim: m + log(l) per row of [B, H, S].
 //
 // Design of attn_fwd_wgmma. The TPU kernel holds a head's whole K and V
 // in VMEM (~360 KB at S 1408), more than a block's 227 KB of shared
@@ -104,6 +142,8 @@
 // domain). The inference path passes null and stores nothing more.
 
 #include <math.h>
+
+#include <type_traits>
 
 #include "hopper_common.cuh"
 #include "launch_count.cuh"
@@ -323,19 +363,36 @@ attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 
-// ------------------------------------------------ bf16, hd 64: TMA + wgmma
+// ------------------------------------------------ TMA + wgmma: hd 64, 80, 128
 
-constexpr int kTmaHeadDim = 64;  // the bf16 head dim on attn_fwd_wgmma
 constexpr int kWgRows = 64;      // query rows per consumer warpgroup
 constexpr int kFwdRows = 2 * kWgRows;  // query rows per block
-constexpr int kFwdKeys = 128;    // keys per TMA tile
-constexpr int kFwdStages = 3;    // K/V tile pairs in flight
 constexpr int kFwdThreads = 384;  // two consumer warpgroups + the producer
-constexpr int kFwdTileBytes = kFwdKeys * kRowBytes;  // one K or V tile
-constexpr int kFwdSmem = kSwizzleAtom +  // slack to align the tiles
-                         kFwdRows * kRowBytes + 2 * kFwdStages * kFwdTileBytes +
-                         8 * (1 + 2 * kFwdStages);
-static_assert(kTmaHeadDim == kTileCols, "one tile row is one head");
+
+// The head dims of the TMA + wgmma kernels (every route: bf16, 6-pass,
+// 3-pass); the retained kernels take head dim 16.
+constexpr bool tma_head_dim(int hd) {
+  return hd == 64 || hd == 80 || hd == 128;
+}
+
+// A head of HD columns as 64-column chunks, each a TMA box of its own at
+// column 64 c of the head and one 128-byte-swizzled tile (the one layout
+// of hopper_common.cuh): one chunk at 64, two at 80 (64 + 16 columns
+// used) and 128. Q K^T runs HD / 16 k-steps, k-step ks 32 * (ks % 4)
+// bytes into chunk ks / 4; P V runs one product per chunk, m64n64 on a
+// full chunk and m64n16 on the first 16 columns of the last chunk at 80.
+template <int HD>
+struct Head {
+  static_assert(HD == 64 || HD == 80 || HD == 128,
+                "the TMA + wgmma kernels take head dims 64, 80 and 128");
+  static constexpr int kChunks = (HD + kTileCols - 1) / kTileCols;
+  static constexpr int kKSteps = HD / 16;  // k-steps of Q K^T
+  static constexpr int kORegs = HD / 2;    // O's accumulators per thread
+  // the columns of chunk c: 64, or 16 for the last one at head dim 80
+  __host__ __device__ static constexpr int cols(int c) {
+    return c + 1 < kChunks ? kTileCols : HD - kTileCols * c;
+  }
+};
 
 // Tensor-map coordinates of head h of image b: column h * hcol, depth
 // b * bz + h * hz ((hd, 1, 0) packed; (0, H, 1) on [B, H, S, hd]); the
@@ -353,17 +410,101 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// One tile of the online softmax for rows g and g + 8 of a warp: raw
-// scores s (keys at or past valid_len read as -inf when kMask) update the
-// running raw max m and the row sums l (scaled by alpha, which the caller
-// applies to O), and become bf16(P) as the A fragments pf of P V. P is
-// rounded against the running max, the sum taken over the fp32 P. The
-// scores are only read: writing a wgmma's accumulator registers while
-// products are in flight makes the compiler serialize them.
-template <bool kMask>
-__device__ __forceinline__ void softmax_tile(const float (&s)[64],
+// S = Q K^T over a head of HD columns into kN key columns (the first
+// k-step overwrites S): Q's and K's chunks `q_chunk` and `k_chunk` bytes
+// apart.
+template <int HD, int kN>
+__device__ __forceinline__ void qk_head(float (&s)[kN / 2], uint64_t dq,
+                                        int q_chunk, uint64_t dk,
+                                        int k_chunk) {
+#pragma unroll
+  for (int ks = 0; ks < Head<HD>::kKSteps; ++ks)
+    wgmma_ss<kN>(s, desc_plus(dq, (ks / 4) * q_chunk + 32 * (ks % 4)),
+                 desc_plus(dk, (ks / 4) * k_chunk + 32 * (ks % 4)), ks);
+}
+
+// O += P V on one chunk of kN columns (o: its accumulators), kKK k-steps
+// of 16 keys.
+template <int kN, int kKK>
+__device__ __forceinline__ void pv_chunk(float* o,
+                                         const uint32_t (&pf)[kKK][4],
+                                         uint64_t dv) {
+#pragma unroll
+  for (int kk = 0; kk < kKK; ++kk)
+    wgmma_rs_mn<kN>(o, pf[kk], desc_plus(dv, 16 * kRowBytes * kk));
+}
+
+// O += P V over a head of HD columns (V's chunks `v_chunk` bytes apart).
+template <int HD, int kKK>
+__device__ __forceinline__ void pv_head(float (&o)[HD / 2],
+                                        const uint32_t (&pf)[kKK][4],
+                                        uint64_t dv, int v_chunk) {
+  pv_chunk<kTileCols, kKK>(o, pf, dv);
+  if constexpr (Head<HD>::kChunks == 2)
+    pv_chunk<Head<HD>::cols(1), kKK>(o + 32, pf, desc_plus(dv, v_chunk));
+}
+
+// O's rows g and g + 8 rescaled by alpha (the accumulator layout of
+// hopper_common.cuh: pairs alternate between the two rows).
+template <int N>
+__device__ __forceinline__ void rescale(float (&o)[N],
+                                        const float (&alpha)[2]) {
+#pragma unroll
+  for (int nd = 0; nd < N / 4; ++nd) {
+    o[4 * nd + 0] *= alpha[0];
+    o[4 * nd + 1] *= alpha[0];
+    o[4 * nd + 2] *= alpha[1];
+    o[4 * nd + 3] *= alpha[1];
+  }
+}
+
+// Rows a and a + 8 of kN output columns from column c0 (o: their
+// accumulators), divided by the row sums l and stored at `ob` (rows `ld`
+// elements apart) as bf16 pairs or fp32 pairs; rows >= S are not stored.
+__device__ __forceinline__ void put_pair(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<uint32_t*>(p) = pack_f32(x, y);
+}
+
+__device__ __forceinline__ void put_pair(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+
+template <int kN, typename TO>
+__device__ __forceinline__ void store_rows(TO* ob, const float* o, int c0,
+                                           int row_a, int S, int64_t ld,
+                                           const float (&l)[2]) {
+#pragma unroll
+  for (int nd = 0; nd < kN / 8; ++nd) {
+    if (row_a < S)
+      put_pair(ob + row_a * ld + c0 + nd * 8, o[4 * nd + 0] / l[0],
+               o[4 * nd + 1] / l[0]);
+    if (row_a + 8 < S)
+      put_pair(ob + (row_a + 8) * ld + c0 + nd * 8, o[4 * nd + 2] / l[1],
+               o[4 * nd + 3] / l[1]);
+  }
+}
+
+// O of a head of HD columns: store_rows on each chunk.
+template <int HD, typename TO>
+__device__ __forceinline__ void store_head(TO* ob, const float (&o)[HD / 2],
+                                           int row_a, int S, int64_t ld,
+                                           const float (&l)[2]) {
+  store_rows<kTileCols>(ob, o, 0, row_a, S, ld, l);
+  if constexpr (Head<HD>::kChunks == 2)
+    store_rows<Head<HD>::cols(1)>(ob, o + 32, kTileCols, row_a, S, ld, l);
+}
+
+// One tile of the online softmax for rows g and g + 8 of a warp on kKeys
+// keys: raw scores s (keys at or past valid_len read as -inf when kMask)
+// update the running raw max m and the row sums l (scaled by alpha, which
+// the caller applies to O), and become bf16(P) as the A fragments pf of
+// P V. P is rounded against the running max, the sum taken over the fp32
+// P. The scores are only read: writing a wgmma's accumulator registers
+// while products are in flight makes the compiler serialize them.
+template <bool kMask, int kKeys>
+__device__ __forceinline__ void softmax_tile(const float (&s)[kKeys / 2],
                                              float (&m)[2], float (&l)[2],
-                                             uint32_t (&pf)[8][4],
+                                             uint32_t (&pf)[kKeys / 16][4],
                                              float (&alpha)[2], int k0,
                                              int valid_len, float c, int t) {
   auto score = [&](int j, int i) {
@@ -373,7 +514,7 @@ __device__ __forceinline__ void softmax_tile(const float (&s)[64],
   };
   float mx[2] = {m[0], m[1]};
 #pragma unroll
-  for (int j = 0; j < 16; ++j)
+  for (int j = 0; j < kKeys / 8; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) mx[i >> 1] = fmaxf(mx[i >> 1], score(j, i));
   float mc[2];
@@ -387,7 +528,7 @@ __device__ __forceinline__ void softmax_tile(const float (&s)[64],
     l[r] *= alpha[r];
   }
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < kKeys / 8; ++j) {
     const float p0 = ex2(fmaf(score(j, 0), c, -mc[0]));
     const float p1 = ex2(fmaf(score(j, 1), c, -mc[0]));
     const float p2 = ex2(fmaf(score(j, 2), c, -mc[1]));
@@ -400,30 +541,52 @@ __device__ __forceinline__ void softmax_tile(const float (&s)[64],
   }
 }
 
+// The bf16 kernel's tile plan at head dim HD: Q's 128 rows as its chunks,
+// a ring of kStages K/V tile pairs of kKeys keys (every chunk of each).
+// Head dim 64: 128 keys, 3 stages (S is 64 registers a thread, P's two
+// fragment sets 32 each, O 32: ptxas's 168 with no spill). 80 and 128:
+// O grows to 40 and 64 registers, so the keys drop to 64 per tile (S 32,
+// P 16 + 16) and the ring to 5 stages of two chunks (Q 32 KB + 5 x 32 KB).
+template <int HD>
+struct FwdTiles {
+  static constexpr int kKeys = HD == 64 ? 128 : 64;  // keys per TMA tile
+  static constexpr int kStages = HD == 64 ? 3 : 5;   // K/V pairs in flight
+  static constexpr int kQChunk = kFwdRows * kRowBytes;  // 16 KB
+  static constexpr int kTile = kKeys * kRowBytes;  // a chunk of K or of V
+  static constexpr int kStageBytes = 2 * Head<HD>::kChunks * kTile;
+  static constexpr int kSmem = kSwizzleAtom +  // slack to align the tiles
+                               Head<HD>::kChunks * kQChunk +
+                               kStages * kStageBytes + 8 * (1 + 2 * kStages);
+};
+
+template <int HD>
 __global__ void __launch_bounds__(kFwdThreads, 1)
 attn_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv,
                __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
                int S, int valid_len, MapCoords mc, Layout ol, float scale) {
+  using H = Head<HD>;
+  using T = FwdTiles<HD>;
+  constexpr int kKeys = T::kKeys, kC = H::kChunks;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align_atom(smem_raw);
-  uint8_t* sQ = smem;  // [128 rows][64], rows 64w.. for warpgroup w
-  uint8_t* sK = sQ + kFwdRows * kRowBytes;        // [stage][128 keys][64]
-  uint8_t* sV = sK + kFwdStages * kFwdTileBytes;  // [stage][128 keys][64]
-  uint64_t* bars = reinterpret_cast<uint64_t*>(sV + kFwdStages *
-                                               kFwdTileBytes);
+  uint8_t* sQ = smem;  // [chunk][128 rows][64], rows 64w.. for warpgroup w
+  uint8_t* sK = sQ + kC * T::kQChunk;  // [stage][chunk][keys][64]
+  uint8_t* sV = sK + T::kStages * kC * T::kTile;  // [stage][chunk][keys][64]
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(sV + T::kStages * kC * T::kTile);
   uint64_t* q_full = bars;
   uint64_t* full = bars + 1;
-  uint64_t* empty = full + kFwdStages;
+  uint64_t* empty = full + T::kStages;
 
   const int q0 = blockIdx.x * kFwdRows;
   const int h = blockIdx.y, b = blockIdx.z;
   const int col = h * mc.hcol, depth = b * mc.bz + h * mc.hz;
-  const int n_tiles = (valid_len + kFwdKeys - 1) / kFwdKeys;
+  const int n_tiles = (valid_len + kKeys - 1) / kKeys;
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
-    for (int s = 0; s < kFwdStages; ++s) {
+    for (int s = 0; s < T::kStages; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 2 * 128);  // every consumer thread
     }
@@ -435,16 +598,22 @@ attn_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
   if (wg == 2) {  // producer
     setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x == 2 * 128) {
-      mbar_arrive_expect_tx(q_full, kFwdRows * kRowBytes);
-      tma_load_3d(sQ, &tq, q_full, col, q0, depth);
+      mbar_arrive_expect_tx(q_full, kC * T::kQChunk);
+      for (int c = 0; c < kC; ++c)
+        for (int r = 0; r < kFwdRows; r += kKeys)
+          tma_load_3d(sQ + c * T::kQChunk + r * kRowBytes, &tq, q_full,
+                      col + c * kTileCols, q0 + r, depth);
       for (int kt = 0; kt < n_tiles; ++kt) {
-        const int st = kt % kFwdStages;
-        if (kt >= kFwdStages) mbar_wait(&empty[st], (kt / kFwdStages - 1) & 1);
-        mbar_arrive_expect_tx(&full[st], 2 * kFwdTileBytes);
-        tma_load_3d(sK + st * kFwdTileBytes, &tk, &full[st], col,
-                    kt * kFwdKeys, depth);
-        tma_load_3d(sV + st * kFwdTileBytes, &tv, &full[st], col,
-                    kt * kFwdKeys, depth);
+        const int st = kt % T::kStages;
+        if (kt >= T::kStages)
+          mbar_wait(&empty[st], (kt / T::kStages - 1) & 1);
+        mbar_arrive_expect_tx(&full[st], T::kStageBytes);
+        for (int c = 0; c < kC; ++c) {
+          tma_load_3d(sK + (st * kC + c) * T::kTile, &tk, &full[st],
+                      col + c * kTileCols, kt * kKeys, depth);
+          tma_load_3d(sV + (st * kC + c) * T::kTile, &tv, &full[st],
+                      col + c * kTileCols, kt * kKeys, depth);
+        }
       }
     }
   } else {  // consumers: 64 query rows each
@@ -457,36 +626,33 @@ attn_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     // scores are kept raw (unscaled); c takes them to the exp2 domain, so
     // each probability is one FFMA and one ex2: exp(s*scale - m*scale)
     const float c = scale * kLog2e;
-    float o[32];
+    float o[H::kORegs];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) o[i] = 0.f;
+    for (int i = 0; i < H::kORegs; ++i) o[i] = 0.f;
     float m[2] = {-INFINITY, -INFINITY};  // running raw max of rows g, g+8
     float l[2] = {0.f, 0.f};              // this thread's share of the sums
-    float s[64];                 // S = Q K^T: [64 rows x 128 keys]
-    uint32_t pf[kFwdKeys / 16][4];   // bf16(P) of the previous tile
-    uint32_t pn[kFwdKeys / 16][4];   // bf16(P) of the current tile
+    float s[kKeys / 2];              // S = Q K^T: [64 rows x kKeys keys]
+    uint32_t pf[kKeys / 16][4];      // bf16(P) of the previous tile
+    uint32_t pn[kKeys / 16][4];      // bf16(P) of the current tile
     float alpha[2];
-    const int n_full = valid_len / kFwdKeys;  // tiles with no masked key
+    const int n_full = valid_len / kKeys;  // tiles with no masked key
     mbar_wait(q_full, 0);
 
     // Tile kt's S = Q K^T is issued together with the previous tile's
     // O += P V; the softmax of tile kt runs on the CUDA cores while that
     // P V product is still on the tensor cores.
     for (int kt = 0; kt < n_tiles; ++kt) {
-      const int st = kt % kFwdStages;
-      const int prev = (kt + kFwdStages - 1) % kFwdStages;
-      mbar_wait(&full[st], (kt / kFwdStages) & 1);
-      const uint64_t dk = sw128_desc(sK + st * kFwdTileBytes);
+      const int st = kt % T::kStages;
+      const int prev = (kt + T::kStages - 1) % T::kStages;
+      mbar_wait(&full[st], (kt / T::kStages) & 1);
+      const uint64_t dk = sw128_desc(sK + st * kC * T::kTile);
       wgmma_fence();
-#pragma unroll
-      for (int ks = 0; ks < kTmaHeadDim / 16; ++ks)
-        wgmma_ss_n128(s, desc_plus(dq, 32 * ks), desc_plus(dk, 32 * ks), ks);
+      qk_head<HD, kKeys>(s, dq, T::kQChunk, dk, T::kTile);
       wgmma_commit();
       if (kt > 0) {
-        const uint64_t dv = sw128_desc(sV + prev * kFwdTileBytes);
-#pragma unroll
-        for (int kk = 0; kk < kFwdKeys / 16; ++kk)
-          wgmma_rs_n64_mn(o, pf[kk], desc_plus(dv, 16 * kRowBytes * kk));
+        pv_head<HD, kKeys / 16>(o, pf,
+                                sw128_desc(sV + prev * kC * T::kTile),
+                                T::kTile);
         wgmma_commit();
         wgmma_wait<1>();
       } else {
@@ -494,33 +660,25 @@ attn_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
       }
       fence_operand(s);
       if (kt < n_full)
-        softmax_tile<false>(s, m, l, pn, alpha, 0, valid_len, c, t);
+        softmax_tile<false, kKeys>(s, m, l, pn, alpha, 0, valid_len, c, t);
       else
-        softmax_tile<true>(s, m, l, pn, alpha, kt * kFwdKeys, valid_len, c,
-                           t);
+        softmax_tile<true, kKeys>(s, m, l, pn, alpha, kt * kKeys,
+                                  valid_len, c, t);
       wgmma_wait<0>();
       fence_operand(o);
       fence_frags(pf);  // the P V product read pf until here
       if (kt > 0) mbar_arrive(&empty[prev]);
+      rescale(o, alpha);
 #pragma unroll
-      for (int nd = 0; nd < 8; ++nd) {
-        o[4 * nd + 0] *= alpha[0];
-        o[4 * nd + 1] *= alpha[0];
-        o[4 * nd + 2] *= alpha[1];
-        o[4 * nd + 3] *= alpha[1];
-      }
-#pragma unroll
-      for (int kk = 0; kk < kFwdKeys / 16; ++kk)
+      for (int kk = 0; kk < kKeys / 16; ++kk)
 #pragma unroll
         for (int r = 0; r < 4; ++r) pf[kk][r] = pn[kk][r];
     }
     {  // the last tile's P V
-      const int st = (n_tiles - 1) % kFwdStages;
-      const uint64_t dv = sw128_desc(sV + st * kFwdTileBytes);
+      const int st = (n_tiles - 1) % T::kStages;
       wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kFwdKeys / 16; ++kk)
-        wgmma_rs_n64_mn(o, pf[kk], desc_plus(dv, 16 * kRowBytes * kk));
+      pv_head<HD, kKeys / 16>(o, pf, sw128_desc(sV + st * kC * T::kTile),
+                              T::kTile);
       wgmma_commit();
       wgmma_wait<0>();
       fence_operand(o);
@@ -535,16 +693,8 @@ attn_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     }
     const int row_a = q0 + wg * kWgRows + warp * 16 + g;
     const int row_b = row_a + 8;
-    __nv_bfloat16* ob = out + b * ol.batch + h * ol.head + t * 2;
-#pragma unroll
-    for (int nd = 0; nd < 8; ++nd) {
-      if (row_a < S)
-        *reinterpret_cast<uint32_t*>(ob + row_a * ol.row + nd * 8) =
-            pack_f32(o[4 * nd + 0] / l[0], o[4 * nd + 1] / l[0]);
-      if (row_b < S)
-        *reinterpret_cast<uint32_t*>(ob + row_b * ol.row + nd * 8) =
-            pack_f32(o[4 * nd + 2] / l[1], o[4 * nd + 3] / l[1]);
-    }
+    store_head<HD>(out + b * ol.batch + h * ol.head + t * 2, o, row_a, S,
+                   ol.row, l);
     if (lse != nullptr && t == 0) {
       float* lrow = lse + ((int64_t)b * gridDim.y + h) * S;
       if (row_a < S) lrow[row_a] = m[0] * scale + logf(l[0]);
@@ -553,50 +703,81 @@ attn_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// A bf16 operand for attn_fwd_wgmma: its base, the columns the map spans,
-// the rows per depth step, the depth, and the row and depth strides in
-// elements.
+// A bf16 operand of the TMA + wgmma kernels: its base, the columns the
+// map spans, the rows per depth step, the depth, and the row and depth
+// strides in elements.
 struct MapOperand {
   const void* base;
   int64_t cols, rows, depth, row, step;
 };
 
-int launch_wgmma(const MapOperand (&qkv)[3], MapCoords mc, int batch,
-                 int seq, int valid_len, int heads, void* out, float* lse,
-                 Layout ol, float scale, cudaStream_t st) {
-  CUtensorMap maps[3];
+// fn(std::integral_constant<int, hd>) for a TMA head dim hd;
+// cudaErrorInvalidValue for another.
+template <typename F>
+int by_head_dim(int hd, F&& fn) {
+  switch (hd) {
+    case 64: return fn(std::integral_constant<int, 64>{});
+    case 80: return fn(std::integral_constant<int, 80>{});
+    case 128: return fn(std::integral_constant<int, 128>{});
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The tensor maps of q, k and v, in boxes of kTileCols x box_rows.
+int make_maps(CUtensorMap (&maps)[3], const MapOperand (&qkv)[3],
+              uint32_t box_rows) {
   for (int i = 0; i < 3; ++i) {
     const MapOperand& a = qkv[i];
     const cudaError_t err = make_tile_map(
         &maps[i], a.base, a.cols, a.rows, a.depth, a.row * 2, a.step * 2,
-        kFwdRows);
+        box_rows);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  static_assert(kFwdRows == kFwdKeys, "Q and K/V tiles share a box shape");
+  return 0;
+}
+
+template <int HD>
+int launch_wgmma(const MapOperand (&qkv)[3], MapCoords mc, int batch,
+                 int seq, int valid_len, int heads, void* out, float* lse,
+                 Layout ol, float scale, cudaStream_t st) {
+  using T = FwdTiles<HD>;
+  CUtensorMap maps[3];
+  if (const int err = make_maps(maps, qkv, T::kKeys)) return err;
   const cudaError_t err = smem_attribute_once(
-      reinterpret_cast<const void*>(attn_fwd_wgmma), kFwdSmem);
+      reinterpret_cast<const void*>(attn_fwd_wgmma<HD>), T::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((seq + kFwdRows - 1) / kFwdRows, heads, batch);
-  attn_fwd_wgmma<<<grid, kFwdThreads, kFwdSmem, st>>>(
+  attn_fwd_wgmma<HD><<<grid, kFwdThreads, T::kSmem, st>>>(
       maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(out), lse, seq,
       valid_len, mc, ol, scale);
   note_launch();
   return static_cast<int>(cudaGetLastError());
 }
 
-// ------------------------------------------------ fp32, hd 64: 6-pass, 3-pass
+// ------------------------------------------------ fp32: 6-pass, 3-pass
 
-constexpr int kXKeys = kWgRows;  // keys per TMA tile: one 64-row box
-constexpr int kBoxBytes = kWgRows * kRowBytes;  // 8 KB: one plane of a box
-constexpr int kXQPlane = kFwdRows * kRowBytes;  // 16 KB: one plane of Q
-
-// The layout of the plane kernels over kP bf16 planes: K/V tile pairs in
-// flight, one stage's K and V planes, the dynamic shared memory.
-template <int kP>
+// The tile plan of the plane kernels over kP bf16 planes at head dim HD:
+// keys per TMA tile (the box's rows, which Q's 128 rows are loaded in
+// too), K/V tile pairs in flight, one chunk of one plane of a K or V
+// tile, one plane of Q, one stage's K and V planes, the dynamic shared
+// memory. Head dim 64: 64 keys, 3 stages of three planes and 4 of two.
+// 80 and 128 hold two chunks a plane, so Q alone takes kP x 32 KB (96 KB
+// on the 6-pass route) and a 64-key stage 2 x kP x 16 KB: the keys drop
+// to 32 a tile, 2 stages of three planes (96 + 2 x 48 KB) and 4 of two
+// (64 + 4 x 32 KB). 32 keys also keep the registers in ptxas's 168: O
+// (40 or 64), one chunk's P V accumulator (32), S (16), P's planes (8 a
+// plane).
+template <int kP, int HD>
 struct PlaneTiles {
-  static constexpr int kStages = kP == kPlanes ? 3 : 4;
-  static constexpr int kStageBytes = 2 * kP * kBoxBytes;
-  static constexpr int kSmem = kSwizzleAtom + kP * kXQPlane +
+  static constexpr int kKeys = HD == 64 ? kWgRows : 32;
+  static constexpr int kStages =
+      HD == 64 ? (kP == kPlanes ? 3 : 4) : (kP == kPlanes ? 2 : 4);
+  static constexpr int kBox = kKeys * kRowBytes;
+  static constexpr int kQChunk = kFwdRows * kRowBytes;  // 16 KB
+  static constexpr int kQPlane = Head<HD>::kChunks * kQChunk;
+  static constexpr int kKVPlane = Head<HD>::kChunks * kBox;
+  static constexpr int kStageBytes = 2 * kP * kKVPlane;
+  static constexpr int kSmem = kSwizzleAtom + kP * kQPlane +
                                kStages * kStageBytes + 8 * (1 + 2 * kStages);
 };
 
@@ -651,7 +832,7 @@ split2_kernel(const float* __restrict__ x, __nv_bfloat16* __restrict__ planes,
 }
 
 // One tile of the plane kernels' online softmax for rows g and g + 8 of a
-// warp, on 64 keys: the raw scores s (keys at or past valid_len read as
+// warp, on kKeys keys: the raw scores s (keys at or past valid_len read as
 // -inf when kMask) scaled as the FMA and mma.sync 3-pass kernels and the
 // TPU kernel scale them (one rounded product), the running max m and the
 // row sums l in that domain (alpha, which the caller applies to O,
@@ -659,11 +840,11 @@ split2_kernel(const float* __restrict__ x, __nv_bfloat16* __restrict__ planes,
 // in fp32 and split into the A fragments of its kP planes (pf[plane]
 // [k-step]) for O += P V. (The bf16 route's exp2 of one FFMA is faster and
 // rounds otherwise; at fp32 the routes follow the reference's arithmetic.)
-template <bool kMask, int kP>
+template <bool kMask, int kP, int kKeys>
 __device__ __forceinline__ void softmax_tile_planes(
-    const float (&s)[32], float (&m)[2], float (&l)[2],
-    uint32_t (&pf)[kP][4][4], float (&alpha)[2], int k0, int valid_len,
-    float scale, int t) {
+    const float (&s)[kKeys / 2], float (&m)[2], float (&l)[2],
+    uint32_t (&pf)[kP][kKeys / 16][4], float (&alpha)[2], int k0,
+    int valid_len, float scale, int t) {
   auto score = [&](int j, int i) {
     return kMask && k0 + j * 8 + t * 2 + (i & 1) >= valid_len
                ? -INFINITY
@@ -671,7 +852,7 @@ __device__ __forceinline__ void softmax_tile_planes(
   };
   float mx[2] = {m[0], m[1]};
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < kKeys / 8; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) mx[i >> 1] = fmaxf(mx[i >> 1], score(j, i));
   float mref[2];
@@ -685,7 +866,7 @@ __device__ __forceinline__ void softmax_tile_planes(
     l[r] *= alpha[r];
   }
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < kKeys / 8; ++j) {
     const int k = j >> 1, r = (j & 1) * 2;
     const float p0 = expf(score(j, 0) - mref[0]);
     const float p1 = expf(score(j, 1) - mref[0]);
@@ -698,32 +879,43 @@ __device__ __forceinline__ void softmax_tile_planes(
   }
 }
 
-// The plane kernels: fp32 at head dim 64 on the bf16 planes a split kernel
-// wrote, attn_fwd_6pass (kP 3, precision "highest" or None) and
+// O = O * alpha + the tile's P V, on kN columns.
+template <int kN>
+__device__ __forceinline__ void fold(float* o, const float (&ot)[32],
+                                     const float (&alpha)[2]) {
+#pragma unroll
+  for (int nd = 0; nd < kN / 8; ++nd) {
+    o[4 * nd + 0] = fmaf(o[4 * nd + 0], alpha[0], ot[4 * nd + 0]);
+    o[4 * nd + 1] = fmaf(o[4 * nd + 1], alpha[0], ot[4 * nd + 1]);
+    o[4 * nd + 2] = fmaf(o[4 * nd + 2], alpha[1], ot[4 * nd + 2]);
+    o[4 * nd + 3] = fmaf(o[4 * nd + 3], alpha[1], ot[4 * nd + 3]);
+  }
+}
+
+// The plane kernels: fp32 on the bf16 planes a split kernel wrote,
+// attn_fwd_6pass (kP 3, precision "highest" or None) and
 // attn_fwd_3pass_wgmma (kP 2, precision "high": _kdot's hi.hi + hi.lo +
 // lo.hi); the tensor maps span every plane in depth (plane p of head h,
 // image b at depth b * bz + h * hz + p * pz). The layout of attn_fwd_wgmma
 // (a producer warpgroup, two consumers of 64 query rows, 128-byte-swizzled
-// TMA tiles in a ring) with kP planes of every tile and keys in tiles of
-// 64: Q's planes take kP * 16 KB and each stage's K and V planes kP * 16
-// KB (3 stages of three planes, 4 of two). S = Q K^T is mma_planes_ss (one
-// chain of m64n64k16 from shared memory per pass, smallest first); P stays
-// fp32 and is split in registers into the A fragments of its planes for
-// O += P V (mma_planes_rs, the V planes read MN-major). Each tile's P V
-// goes into its own accumulator, which is added to the fp32 running O in
-// registers (O = O * alpha + tile): the tensor cores' chains stay 4 k-steps
-// per pass long, and the sum over tiles is rounded as fp32 adds round.
-// Keys stay in tiles of 64 with two planes too: a 128-key tile holds 64
-// scores and 64 fragment registers of P at once, which with O and its
-// per-tile accumulator leaves nothing of ptxas's 168-register plan (the
-// 384-thread consumers are planned as if setmaxnreg gave nothing). Each
-// consumer waits for its own products (the other consumer's run
-// meanwhile): issuing tile kt + 1's S before tile kt's softmax, into a
-// second score set, made ptxas inject a wait (C7517) in the 6-pass kernel
-// and gained no time that two runs could tell apart. One row sum over the
-// fp32 P, one division at the end, and m + log(l) into `lse` when it is
-// non-null.
-template <int kP>
+// TMA tiles in a ring, a head as its 64-column chunks) with kP planes of
+// every tile and the tile plan of PlaneTiles. S = Q K^T is mma_planes_ss
+// (one chain per pass, smallest first); P stays fp32 and is split in
+// registers into the A fragments of its planes for O += P V
+// (mma_planes_rs, the V planes read MN-major), a chunk at a time. Each
+// chunk's P V goes into its own accumulator, which is added to the fp32
+// running O in registers (O = O * alpha + tile): the tensor cores' chains
+// stay short, and the sum over tiles is rounded as fp32 adds round. At head dim 64, keys stay in tiles
+// of 64 with two planes too: a 128-key tile holds 64 scores and 64
+// fragment registers of P at once, which with O and its per-tile
+// accumulator leaves nothing of ptxas's 168-register plan (the 384-thread
+// consumers are planned as if setmaxnreg gave nothing). Each consumer
+// waits for its own products (the other consumer's run meanwhile): issuing
+// tile kt + 1's S before tile kt's softmax, into a second score set, made
+// ptxas inject a wait (C7517) in the 6-pass kernel and gained no time that
+// two runs could tell apart. One row sum over the fp32 P, one division at
+// the end, and m + log(l) into `lse` when it is non-null.
+template <int kP, int HD>
 __device__ __forceinline__ void fwd_planes(const CUtensorMap& tq,
                                            const CUtensorMap& tk,
                                            const CUtensorMap& tv,
@@ -731,12 +923,14 @@ __device__ __forceinline__ void fwd_planes(const CUtensorMap& tq,
                                            float* __restrict__ lse, int S,
                                            int valid_len, MapCoords mc,
                                            Layout ol, float scale) {
-  using T = PlaneTiles<kP>;
+  using H = Head<HD>;
+  using T = PlaneTiles<kP, HD>;
+  constexpr int kKeys = T::kKeys, kC = H::kChunks, kKK = kKeys / 16;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* sQ = align_atom(smem_raw);  // [plane][128 rows][64]
-  uint8_t* sKV = sQ + kP * kXQPlane;
-  // stage st: K planes at sKV + st * T::kStageBytes + p * kBoxBytes, V
-  // planes kP boxes further
+  uint8_t* sQ = align_atom(smem_raw);  // [plane][chunk][128 rows][64]
+  uint8_t* sKV = sQ + kP * T::kQPlane;
+  // stage st: K plane p, chunk c at sKV + st * T::kStageBytes + p *
+  // T::kKVPlane + c * T::kBox, the V planes kP * T::kKVPlane further
   uint64_t* bars =
       reinterpret_cast<uint64_t*>(sKV + T::kStages * T::kStageBytes);
   uint64_t* q_full = bars;
@@ -746,7 +940,7 @@ __device__ __forceinline__ void fwd_planes(const CUtensorMap& tq,
   const int q0 = blockIdx.x * kFwdRows;
   const int h = blockIdx.y, b = blockIdx.z;
   const int col = h * mc.hcol, depth = b * mc.bz + h * mc.hz;
-  const int n_tiles = (valid_len + kXKeys - 1) / kXKeys;
+  const int n_tiles = (valid_len + kKeys - 1) / kKeys;
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
     for (int s = 0; s < T::kStages; ++s) {
@@ -761,23 +955,28 @@ __device__ __forceinline__ void fwd_planes(const CUtensorMap& tq,
   if (wg == 2) {  // producer
     setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x == 2 * 128) {
-      mbar_arrive_expect_tx(q_full, kP * kXQPlane);
+      mbar_arrive_expect_tx(q_full, kP * T::kQPlane);
       for (int p = 0; p < kP; ++p)
-        for (int half = 0; half < 2; ++half)
-          tma_load_3d(sQ + p * kXQPlane + half * kBoxBytes, &tq, q_full,
-                      col, q0 + half * kWgRows, depth + p * mc.pz);
+        for (int c = 0; c < kC; ++c)
+          for (int r = 0; r < kFwdRows; r += kKeys)
+            tma_load_3d(sQ + p * T::kQPlane + c * T::kQChunk +
+                            r * kRowBytes,
+                        &tq, q_full, col + c * kTileCols, q0 + r,
+                        depth + p * mc.pz);
       for (int kt = 0; kt < n_tiles; ++kt) {
         const int st = kt % T::kStages;
         if (kt >= T::kStages)
           mbar_wait(&empty[st], (kt / T::kStages - 1) & 1);
         uint8_t* dst = sKV + st * T::kStageBytes;
         mbar_arrive_expect_tx(&full[st], T::kStageBytes);
-        for (int p = 0; p < kP; ++p) {
-          tma_load_3d(dst + p * kBoxBytes, &tk, &full[st], col,
-                      kt * kXKeys, depth + p * mc.pz);
-          tma_load_3d(dst + (kP + p) * kBoxBytes, &tv, &full[st], col,
-                      kt * kXKeys, depth + p * mc.pz);
-        }
+        for (int p = 0; p < kP; ++p)
+          for (int c = 0; c < kC; ++c) {
+            tma_load_3d(dst + p * T::kKVPlane + c * T::kBox, &tk, &full[st],
+                        col + c * kTileCols, kt * kKeys, depth + p * mc.pz);
+            tma_load_3d(dst + (kP + p) * T::kKVPlane + c * T::kBox, &tv,
+                        &full[st], col + c * kTileCols, kt * kKeys,
+                        depth + p * mc.pz);
+          }
       }
     }
   } else {  // consumers: 64 query rows each
@@ -785,47 +984,58 @@ __device__ __forceinline__ void fwd_planes(const CUtensorMap& tq,
     const int warp = (threadIdx.x % 128) / 32;
     const int g = (threadIdx.x & 31) >> 2;
     const int t = threadIdx.x & 3;
-    const uint64_t dq = sw128_desc(sQ + wg * kBoxBytes);
-    float o[32], ot[32];  // running O; the current tile's P V
+    const uint64_t dq = sw128_desc(sQ + wg * kWgRows * kRowBytes);
+    float o[H::kORegs], ot[32];  // running O; a chunk's P V of the tile
 #pragma unroll
-    for (int i = 0; i < 32; ++i) o[i] = 0.f;
+    for (int i = 0; i < H::kORegs; ++i) o[i] = 0.f;
     float m[2] = {-INFINITY, -INFINITY};  // running max of rows g, g + 8
     float l[2] = {0.f, 0.f};              // this thread's share of the sums
-    uint32_t pf[kP][4][4];                // P's planes as A fragments
-    const int n_full = valid_len / kXKeys;  // tiles with no masked key
+    uint32_t pf[kP][kKK][4];              // P's planes as A fragments
+    const int n_full = valid_len / kKeys;  // tiles with no masked key
     mbar_wait(q_full, 0);
 
-    float s[32];
+    float s[kKeys / 2];
     for (int kt = 0; kt < n_tiles; ++kt) {
       const int st = kt % T::kStages;
       uint8_t* stage = sKV + st * T::kStageBytes;
       mbar_wait(&full[st], (kt / T::kStages) & 1);
       wgmma_fence();
-      mma_planes_ss<kP>(s, dq, kXQPlane, sw128_desc(stage), kBoxBytes);
+      mma_planes_ss<kP, H::kKSteps, kKeys>(s, dq, T::kQPlane,
+                                           sw128_desc(stage), T::kKVPlane,
+                                           T::kQChunk, T::kBox);
       wgmma_commit();
       wgmma_wait<0>();
       fence_operand(s);
       float alpha[2];
       if (kt < n_full)
-        softmax_tile_planes<false, kP>(s, m, l, pf, alpha, 0, valid_len,
-                                       scale, t);
+        softmax_tile_planes<false, kP, kKeys>(s, m, l, pf, alpha, 0,
+                                              valid_len, scale, t);
       else
-        softmax_tile_planes<true, kP>(s, m, l, pf, alpha, kt * kXKeys,
-                                      valid_len, scale, t);
+        softmax_tile_planes<true, kP, kKeys>(s, m, l, pf, alpha,
+                                             kt * kKeys, valid_len, scale,
+                                             t);
+      const uint64_t dv = sw128_desc(stage + kP * T::kKVPlane);
       wgmma_fence();
-      mma_planes_rs<kP>(ot, pf, sw128_desc(stage + kP * kBoxBytes),
-                        kBoxBytes);
+      mma_planes_rs<kP>(ot, pf, dv, T::kKVPlane);
       wgmma_commit();
       wgmma_wait<0>();
       fence_operand(ot);
-      fence_planes<kP>(pf);
-      mbar_arrive(&empty[st]);
-#pragma unroll
-      for (int nd = 0; nd < 8; ++nd) {
-        o[4 * nd + 0] = fmaf(o[4 * nd + 0], alpha[0], ot[4 * nd + 0]);
-        o[4 * nd + 1] = fmaf(o[4 * nd + 1], alpha[0], ot[4 * nd + 1]);
-        o[4 * nd + 2] = fmaf(o[4 * nd + 2], alpha[1], ot[4 * nd + 2]);
-        o[4 * nd + 3] = fmaf(o[4 * nd + 3], alpha[1], ot[4 * nd + 3]);
+      if constexpr (kC == 1) {
+        fence_planes<kP>(pf);
+        mbar_arrive(&empty[st]);
+      }
+      fold<kTileCols>(o, ot, alpha);
+      if constexpr (kC == 2) {  // the second chunk, into the same ot
+        constexpr int kN1 = H::cols(1);
+        wgmma_fence();
+        mma_planes_rs<kP, kN1>(ot, pf, desc_plus(dv, T::kBox),
+                               T::kKVPlane);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operand(ot);
+        fence_planes<kP>(pf);
+        mbar_arrive(&empty[st]);
+        fold<kN1>(o + 32, ot, alpha);
       }
     }
 
@@ -836,16 +1046,8 @@ __device__ __forceinline__ void fwd_planes(const CUtensorMap& tq,
     }
     const int row_a = q0 + wg * kWgRows + warp * 16 + g;
     const int row_b = row_a + 8;
-    float* ob = out + b * ol.batch + h * ol.head + t * 2;
-#pragma unroll
-    for (int nd = 0; nd < 8; ++nd) {
-      if (row_a < S)
-        *reinterpret_cast<float2*>(ob + row_a * ol.row + nd * 8) =
-            make_float2(o[4 * nd + 0] / l[0], o[4 * nd + 1] / l[0]);
-      if (row_b < S)
-        *reinterpret_cast<float2*>(ob + row_b * ol.row + nd * 8) =
-            make_float2(o[4 * nd + 2] / l[1], o[4 * nd + 3] / l[1]);
-    }
+    store_head<HD>(out + b * ol.batch + h * ol.head + t * 2, o, row_a, S,
+                   ol.row, l);
     if (lse != nullptr && t == 0) {
       float* lrow = lse + ((int64_t)b * gridDim.y + h) * S;
       if (row_a < S) lrow[row_a] = m[0] + logf(l[0]);
@@ -854,52 +1056,49 @@ __device__ __forceinline__ void fwd_planes(const CUtensorMap& tq,
   }
 }
 
+template <int HD>
 __global__ void __launch_bounds__(kFwdThreads, 1)
 attn_fwd_6pass(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv,
                float* __restrict__ out, float* __restrict__ lse, int S,
                int valid_len, MapCoords mc, Layout ol, float scale) {
-  fwd_planes<3>(tq, tk, tv, out, lse, S, valid_len, mc, ol, scale);
+  fwd_planes<3, HD>(tq, tk, tv, out, lse, S, valid_len, mc, ol, scale);
 }
 
+template <int HD>
 __global__ void __launch_bounds__(kFwdThreads, 1)
 attn_fwd_3pass_wgmma(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv,
                      float* __restrict__ out, float* __restrict__ lse, int S,
                      int valid_len, MapCoords mc, Layout ol, float scale) {
-  fwd_planes<2>(tq, tk, tv, out, lse, S, valid_len, mc, ol, scale);
+  fwd_planes<2, HD>(tq, tk, tv, out, lse, S, valid_len, mc, ol, scale);
 }
 
 // A plane kernel on three operands of kP bf16 planes each
 // (MapOperand.depth counts every plane, mc.pz the depth of one).
-template <int kP>
+template <int kP, int HD>
 int launch_planes(const MapOperand (&qkv)[3], MapCoords mc, int batch,
                   int seq, int valid_len, int heads, float* out, float* lse,
                   Layout ol, float scale, cudaStream_t st) {
+  using T = PlaneTiles<kP, HD>;
   CUtensorMap maps[3];
-  for (int i = 0; i < 3; ++i) {
-    const MapOperand& a = qkv[i];
-    const cudaError_t err = make_tile_map(
-        &maps[i], a.base, a.cols, a.rows, a.depth, a.row * 2, a.step * 2,
-        kWgRows);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  constexpr int smem = PlaneTiles<kP>::kSmem;
+  if (const int err = make_maps(maps, qkv, T::kKeys)) return err;
+  constexpr int smem = T::kSmem;
   const dim3 grid((seq + kFwdRows - 1) / kFwdRows, heads, batch);
   if constexpr (kP == kPlanes) {
     const cudaError_t err = smem_attribute_once(
-        reinterpret_cast<const void*>(attn_fwd_6pass), smem);
+        reinterpret_cast<const void*>(attn_fwd_6pass<HD>), smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    attn_fwd_6pass<<<grid, kFwdThreads, smem, st>>>(
+    attn_fwd_6pass<HD><<<grid, kFwdThreads, smem, st>>>(
         maps[0], maps[1], maps[2], out, lse, seq, valid_len, mc, ol, scale);
     note_launch();
   } else {
     const cudaError_t err = smem_attribute_once(
-        reinterpret_cast<const void*>(attn_fwd_3pass_wgmma), smem);
+        reinterpret_cast<const void*>(attn_fwd_3pass_wgmma<HD>), smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    attn_fwd_3pass_wgmma<<<grid, kFwdThreads, smem, st>>>(
+    attn_fwd_3pass_wgmma<HD><<<grid, kFwdThreads, smem, st>>>(
         maps[0], maps[1], maps[2], out, lse, seq, valid_len, mc, ol, scale);
     note_launch();
   }
@@ -915,7 +1114,6 @@ int launch_planes_packed(const void* planes, float* out, float* lse,
                          int heads, long long ld, int q_off, int k_off,
                          int v_off, long long out_ld, float scale,
                          void* stream) {
-  if (head_dim != kTmaHeadDim) return static_cast<int>(cudaErrorInvalidValue);
   const char* base = static_cast<const char*>(planes);
   const int64_t cols = (int64_t)heads * head_dim;
   const int64_t depth = (int64_t)kP * batch;
@@ -927,9 +1125,11 @@ int launch_planes_packed(const void* planes, float* out, float* lse,
                              {base + 2 * (int64_t)v_off, cols, seq, depth,
                               ld, step}};
   const Layout ol{(int64_t)seq * out_ld, head_dim, out_ld};
-  return launch_planes<kP>(ops, MapCoords{head_dim, 1, 0, batch}, batch, seq,
-                           valid_len, heads, out, lse, ol, scale,
-                           static_cast<cudaStream_t>(stream));
+  return by_head_dim(head_dim, [&](auto hd) {
+    return launch_planes<kP, decltype(hd)::value>(
+        ops, MapCoords{head_dim, 1, 0, batch}, batch, seq, valid_len, heads,
+        out, lse, ol, scale, static_cast<cudaStream_t>(stream));
+  });
 }
 
 // The [batch, heads, seq, head_dim] launch: q, k and v each the kP bf16
@@ -938,16 +1138,17 @@ template <int kP>
 int launch_planes_bhsd(const void* q, const void* k, const void* v,
                        float* out, int head_dim, int batch, int seq,
                        int valid_len, int heads, float scale, void* stream) {
-  if (head_dim != kTmaHeadDim) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t hs = (int64_t)seq * head_dim;
   const int64_t depth = (int64_t)kP * batch * heads;
   const MapOperand ops[3] = {{q, head_dim, seq, depth, head_dim, hs},
                              {k, head_dim, seq, depth, head_dim, hs},
                              {v, head_dim, seq, depth, head_dim, hs}};
   const Layout l{heads * hs, hs, head_dim};
-  return launch_planes<kP>(ops, MapCoords{0, heads, 1, batch * heads}, batch,
-                           seq, valid_len, heads, out, nullptr, l, scale,
-                           static_cast<cudaStream_t>(stream));
+  return by_head_dim(head_dim, [&](auto hd) {
+    return launch_planes<kP, decltype(hd)::value>(
+        ops, MapCoords{0, heads, 1, batch * heads}, batch, seq, valid_len,
+        heads, out, nullptr, l, scale, static_cast<cudaStream_t>(stream));
+  });
 }
 
 // A split kernel's launch; cudaErrorInvalidValue for an alignment it
@@ -1163,10 +1364,11 @@ int launch_3pass(int head_dim, int batch, int seq, int valid_len, int heads,
 
 // qkv: [batch, seq, ld] elements, out: [batch, seq, out_ld]; the q/k/v
 // sections of head h start at column {q,k,v}_off + h * head_dim. lse:
-// [batch, heads, seq] fp32, or null to skip it. bf16 at head dim
-// kTmaHeadDim takes attn_fwd_wgmma, whose tensor maps need qkv, each
-// section's start and ld * 2 bytes to be multiples of kTmaAlign; fp32 at
-// kTmaHeadDim has its own entry (aaclip_attention_packed_6pass). Returns
+// [batch, heads, seq] fp32, or null to skip it. bf16 at a TMA head dim
+// (tma_head_dim: 64, 80, 128) takes attn_fwd_wgmma, whose tensor maps need
+// qkv, each section's start and ld * 2 bytes to be multiples of
+// kTmaAlign; fp32 there has its own entries (aaclip_attention_packed_6pass
+// and _3pass_wgmma). Returns
 // the CUDA error of the launch (0 on success); cudaErrorInvalidValue for a
 // pair with no kernel here or an operand TMA cannot take.
 extern "C" int aaclip_attention_packed(const void* qkv, void* out,
@@ -1180,14 +1382,17 @@ extern "C" int aaclip_attention_packed(const void* qkv, void* out,
   const char* base = static_cast<const char*>(qkv);
   const Layout ol{(int64_t)seq * out_ld, head_dim, out_ld};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16 && head_dim == kTmaHeadDim) {
+  if (bf16 && tma_head_dim(head_dim)) {
     const int64_t cols = (int64_t)heads * head_dim;
     const MapOperand ops[3] = {
         {base + q_off * esize, cols, seq, batch, ld, (int64_t)seq * ld},
         {base + k_off * esize, cols, seq, batch, ld, (int64_t)seq * ld},
         {base + v_off * esize, cols, seq, batch, ld, (int64_t)seq * ld}};
-    return launch_wgmma(ops, MapCoords{head_dim, 1, 0}, batch, seq,
-                        valid_len, heads, out, lse, ol, scale, st);
+    return by_head_dim(head_dim, [&](auto hd) {
+      return launch_wgmma<decltype(hd)::value>(
+          ops, MapCoords{head_dim, 1, 0, 0}, batch, seq, valid_len, heads,
+          out, lse, ol, scale, st);
+    });
   }
   const Layout in{(int64_t)seq * ld, head_dim, ld};
   return launch_retained(bf16 != 0, head_dim, batch, seq, valid_len, heads,
@@ -1206,13 +1411,16 @@ extern "C" int aaclip_attention_bhsd(const void* q, const void* k,
   const int64_t hs = (int64_t)seq * head_dim;
   const Layout l{heads * hs, hs, head_dim};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16 && head_dim == kTmaHeadDim) {
+  if (bf16 && tma_head_dim(head_dim)) {
     const int64_t depth = (int64_t)batch * heads;
     const MapOperand ops[3] = {{q, head_dim, seq, depth, head_dim, hs},
                                {k, head_dim, seq, depth, head_dim, hs},
                                {v, head_dim, seq, depth, head_dim, hs}};
-    return launch_wgmma(ops, MapCoords{0, heads, 1}, batch, seq, valid_len,
-                        heads, out, nullptr, l, scale, st);
+    return by_head_dim(head_dim, [&](auto hd) {
+      return launch_wgmma<decltype(hd)::value>(
+          ops, MapCoords{0, heads, 1, 0}, batch, seq, valid_len, heads, out,
+          nullptr, l, scale, st);
+    });
   }
   return launch_retained(bf16 != 0, head_dim, batch, seq, valid_len, heads, q,
                          k, v, out, nullptr, l, l, scale, st);
@@ -1220,8 +1428,8 @@ extern "C" int aaclip_attention_bhsd(const void* q, const void* k,
 
 // The 3-pass mode (fp32 under precision "high") of aaclip_attention_packed
 // at head dim 16: the same operands in fp32, attn_fwd_3pass;
-// cudaErrorInvalidValue for another head dim (64 has its own entry,
-// aaclip_attention_packed_3pass_wgmma).
+// cudaErrorInvalidValue for another head dim (64, 80 and 128 have their
+// own entry, aaclip_attention_packed_3pass_wgmma).
 extern "C" int aaclip_attention_packed_3pass(
     const float* qkv, float* out, float* lse, int head_dim, int batch,
     int seq, int valid_len, int heads, long long ld, int q_off, int k_off,
@@ -1247,7 +1455,7 @@ extern "C" int aaclip_attention_bhsd_3pass(const float* q, const float* k,
                       static_cast<cudaStream_t>(stream));
 }
 
-// The 6-pass route (fp32 at head dim kTmaHeadDim under precision "highest"
+// The 6-pass route (fp32 at a TMA head dim under precision "highest"
 // or None) of aaclip_attention_packed: `planes` holds the bf16 planes hi,
 // mid and lo of the fp32 qkv [batch, seq, ld], one after the other
 // (aaclip_split3 with stride batch * seq * ld), and attn_fwd_6pass reads
@@ -1276,7 +1484,7 @@ extern "C" int aaclip_attention_bhsd_6pass(const void* q, const void* k,
                                      valid_len, heads, scale, stream);
 }
 
-// The 3-pass route (fp32 at head dim kTmaHeadDim under precision "high")
+// The 3-pass route (fp32 at a TMA head dim under precision "high")
 // of aaclip_attention_packed: `planes` holds the bf16 planes hi and lo of
 // the fp32 qkv (aaclip_split2 with stride batch * seq * ld), read by
 // attn_fwd_3pass_wgmma as the 6-pass entry's planes are read.

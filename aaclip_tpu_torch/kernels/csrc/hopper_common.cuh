@@ -239,6 +239,39 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d[64 x 32] (+)= A . B, A and B from shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[64 x 16] (+)= A . B, A from registers (the m16k16 fragments of
+// mma.sync, per warp), B from shared memory MN-major (transposed): the
+// first 16 columns of a 64-column tile (two of the eight 16-byte chunks of
+// each swizzled row, as a K-major k-step reads two of them).
+__device__ __forceinline__ void wgmma_rs_n16_mn(float (&d)[8],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db,
+                                                int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 // d[64 x 64] (+)= A . B, A from registers (the m16k16 fragments of
 // mma.sync, per warp), B from shared memory MN-major (transposed).
 __device__ __forceinline__ void wgmma_rs_n64_mn(float (&d)[32],
@@ -391,6 +424,34 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+// d (+)= A . B, A and B K-major from shared memory, B kN rows: m64nNk16
+// at N = 128, 64 or 32.
+template <int kN>
+__device__ __forceinline__ void wgmma_ss(float (&d)[kN / 2], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  if constexpr (kN == 128) {
+    wgmma_ss_n128(d, da, db, scale_d);
+  } else if constexpr (kN == 64) {
+    wgmma_ss_n64(d, da, db, scale_d);
+  } else {
+    static_assert(kN == 32, "B tiles of 32, 64 or 128 rows");
+    wgmma_ss_n32(d, da, db, scale_d);
+  }
+}
+
+// d (+)= A . B, A register fragments, B MN-major from shared memory, kN
+// output columns (64, or 16); d points at kN / 2 accumulators.
+template <int kN>
+__device__ __forceinline__ void wgmma_rs_mn(float* d, const uint32_t (&a)[4],
+                                            uint64_t db, int scale_d = 1) {
+  if constexpr (kN == 64) {
+    wgmma_rs_n64_mn(*reinterpret_cast<float(*)[32]>(d), a, db, scale_d);
+  } else {
+    static_assert(kN == 16, "MN-major products of 64 or 16 columns");
+    wgmma_rs_n16_mn(*reinterpret_cast<float(*)[8]>(d), a, db, scale_d);
+  }
+}
+
 // ---------------------------------------------------------------- split passes
 // The fp32 attention kernels' products over bf16 planes (mma_common.cuh,
 // split3 and split_pack). Precision "highest" (the TPU's native 6-pass
@@ -424,44 +485,53 @@ __host__ __device__ constexpr int first_pass() {
   return kP == 3 ? 0 : 3;
 }
 
-// d = A . B^T over one 64-column (128-byte) tile row in the passes of kP
-// planes: A and B both K-major from shared memory, A's planes `a_plane`
-// bytes apart, B's `b_plane` bytes apart.
-template <int kP>
-__device__ __forceinline__ void mma_planes_ss(float (&d)[32], uint64_t a,
+// d = A . B^T in the passes of kP planes, over kKSteps k-steps of 16
+// columns: one 64-column (128-byte) tile row at the default 4, and beyond
+// it the next chunk's rows, `a_chunk` and `b_chunk` bytes on, every fourth
+// step (the forward's head dims 80 and 128). A and B both K-major from
+// shared memory, A's planes `a_plane` bytes apart, B's `b_plane`; B has
+// kN rows.
+template <int kP, int kKSteps = kTileCols / 16, int kN = 64>
+__device__ __forceinline__ void mma_planes_ss(float (&d)[kN / 2], uint64_t a,
                                               int a_plane, uint64_t b,
-                                              int b_plane) {
+                                              int b_plane, int a_chunk = 0,
+                                              int b_chunk = 0) {
   constexpr int first = first_pass<kP>();
 #pragma unroll
   for (int i = first; i < 6; ++i)
 #pragma unroll
-    for (int ks = 0; ks < kTileCols / 16; ++ks)
-      wgmma_ss_n64(d, desc_plus(a, pass_a(i) * a_plane + 32 * ks),
-                   desc_plus(b, pass_b(i) * b_plane + 32 * ks),
+    for (int ks = 0; ks < kKSteps; ++ks)
+      wgmma_ss<kN>(d,
+                   desc_plus(a, pass_a(i) * a_plane + (ks / 4) * a_chunk +
+                                    32 * (ks % 4)),
+                   desc_plus(b, pass_b(i) * b_plane + (ks / 4) * b_chunk +
+                                    32 * (ks % 4)),
                    i - first + ks);
 }
 
-// d = A . B over a 64-deep reduction in the passes of kP planes: A the
-// register fragments f[plane][k-step] of its planes, B a [64 x 64] tile
-// read MN-major (its rows are the reduction), planes `b_plane` bytes apart.
-template <int kP>
-__device__ __forceinline__ void mma_planes_rs(float (&d)[32],
-                                              const uint32_t (&f)[kP][4][4],
+// d = A . B in the passes of kP planes over kKK k-steps of 16 rows: A the
+// register fragments f[plane][k-step] of its planes, B a tile read
+// MN-major (its rows are the reduction) into kN output columns (64, or
+// the first 16), planes `b_plane` bytes apart; d points at kN / 2
+// accumulators.
+template <int kP, int kN = 64, int kKK>
+__device__ __forceinline__ void mma_planes_rs(float* d,
+                                              const uint32_t (&f)[kP][kKK][4],
                                               uint64_t b, int b_plane) {
   constexpr int first = first_pass<kP>();
 #pragma unroll
   for (int i = first; i < 6; ++i)
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs_n64_mn(d, f[pass_a(i)][kk],
+    for (int kk = 0; kk < kKK; ++kk)
+      wgmma_rs_mn<kN>(d, f[pass_a(i)][kk],
                       desc_plus(b, pass_b(i) * b_plane +
                                        16 * kRowBytes * kk),
                       i - first + kk);
 }
 
 // Keep every plane's fragments alive up to here (fence_frags).
-template <int kP>
-__device__ __forceinline__ void fence_planes(uint32_t (&f)[kP][4][4]) {
+template <int kP, int KK>
+__device__ __forceinline__ void fence_planes(uint32_t (&f)[kP][KK][4]) {
 #pragma unroll
   for (int p = 0; p < kP; ++p) fence_frags(f[p]);
 }

@@ -159,8 +159,8 @@ __device__ __forceinline__ void split_planes(float x0, float x1,
 // Two fp32 values as the packed bf16 pairs of their kP planes, into
 // f[plane][k][r]: split3's hi, mid, lo (kP 3) or split_pack's hi, lo
 // (kP 2, whose lo is split3's mid bit for bit).
-template <int kP>
-__device__ __forceinline__ void split_frag(uint32_t (&f)[kP][4][4], int k,
+template <int kP, int KK>
+__device__ __forceinline__ void split_frag(uint32_t (&f)[kP][KK][4], int k,
                                            int r, float x0, float x1) {
   static_assert(kP == 2 || kP == 3, "two or three bf16 planes");
   if constexpr (kP == 3)

@@ -19,12 +19,13 @@ that layout's strides.
 
 The wrappers run the plain versions only for tensors on the CPU (the
 tests). On a CUDA tensor they launch the kernel or raise. Which kernel
-runs is ``kernel_route`` over the route table ``TMA_ROUTES``: at head dim
-64 bf16 takes the TMA + wgmma kernels, and fp32 the 6-pass kernels on the
-same machinery (tiles fed by tensor maps, whose base addresses and row
-strides must be multiples of ``TMA_ALIGN`` bytes: the wrappers refuse what
-a map cannot take); head dim 16 keeps the first port's mma.sync (bf16) and
-FMA (fp32) kernels in the same sources.
+runs is ``kernel_route`` over the route table ``TMA_ROUTES``: at head dims
+64, 80 and 128 (``TMA_HEAD_DIMS``; the backward at 64 alone,
+``BWD_HEAD_DIMS``) bf16 takes the TMA + wgmma kernels, and fp32 the
+6-pass kernels on the same machinery (tiles fed by tensor maps, whose base
+addresses and row strides must be multiples of ``TMA_ALIGN`` bytes: the
+wrappers refuse what a map cannot take); head dim 16 keeps the first
+port's mma.sync (bf16) and FMA (fp32) kernels in the same sources.
 
 Precision. Every wrapper and plain version takes the JAX package's
 ``precision``, as its kernels do through ``_kdot``. fp32 inputs under
@@ -41,11 +42,11 @@ products hi·hi + hi·lo + lo·hi of the operands' bf16 halves summed in fp32
 (XLA's F32_AS_3BF16), the softmax and P in fp32 and P split too, never
 rounded. On the card that mode is its own kernels (the ``*_3pass`` entry
 points of both sources: mma.sync bf16 tensor-core products from hi/lo
-tiles at head dim 16; at head dim 64 the ``*_3pass_wgmma`` entry points,
-the 6-pass route's TMA + wgmma machinery on the two planes hi and lo that
-``split2`` writes, with three bf16 products per product), counted in
-``launches_3pass``. ``launches`` counts every launch. bf16 inputs ignore
-the precision, as ``_kernel_precision`` does.
+tiles at head dim 16; at the TMA head dims the ``*_3pass_wgmma`` entry
+points, the 6-pass route's TMA + wgmma machinery on the two planes hi and
+lo that ``split2`` writes, with three bf16 products per product), counted
+in ``launches_3pass``. ``launches`` counts every launch. bf16 inputs
+ignore the precision, as ``_kernel_precision`` does.
 """
 
 from __future__ import annotations
@@ -59,13 +60,21 @@ from aaclip_tpu_torch.models.layers import (_split_bf16, enter, linear,
                                             local_heads, qkv_params,
                                             row_linear)
 
-KERNEL_HEAD_DIMS = (16, 64)  # head dims the kernel is instantiated for
-# (dtype, head dim) pairs on the TMA + wgmma kernels (kTmaHeadDim of
-# attention_packed.cu and attention_packed_bwd.cu): bf16 directly, fp32 on
-# its bf16 planes (three on the 6-pass route, two on the 3-pass one);
-# every other pair of (bf16, fp32) x KERNEL_HEAD_DIMS runs a retained
-# kernel.
-TMA_ROUTES = frozenset({(torch.bfloat16, 64), (torch.float32, 64)})
+KERNEL_HEAD_DIMS = (16, 64, 80, 128)  # head dims the forward is built for
+# the head dims of the forward's TMA + wgmma kernels (tma_head_dim of
+# attention_packed.cu)
+TMA_HEAD_DIMS = (64, 80, 128)
+# (dtype, head dim) pairs on the forward's TMA + wgmma kernels: bf16
+# directly, fp32 on its bf16 planes (three on the 6-pass route, two on the
+# 3-pass one); every other pair of (bf16, fp32) x KERNEL_HEAD_DIMS runs a
+# retained kernel.
+TMA_ROUTES = frozenset((dtype, hd) for dtype in (torch.bfloat16,
+                                                 torch.float32)
+                       for hd in TMA_HEAD_DIMS)
+# the backward's head dims: the retained kernels' 16 and its TMA + wgmma
+# pair's 64 (kTmaHeadDim of attention_packed_bwd.cu). At 80 and 128 the
+# backward is ROADMAP B11's next part.
+BWD_HEAD_DIMS = (16, 64)
 TMA_ALIGN = 16  # bytes: a tensor map's base address and strides (kTmaAlign)
 
 
@@ -405,9 +414,9 @@ def _bwd_kernel():
 
 @functools.cache
 def _kernels_6pass():
-    """The 6-pass entry points of both sources (fp32 at head dim 64 on the
-    ``split3`` planes), built on first use: ``(packed forward, [B, H, S,
-    hd] forward, packed backward)``."""
+    """The 6-pass entry points of both sources (fp32 at the TMA head dims
+    on the ``split3`` planes), built on first use: ``(packed forward, [B,
+    H, S, hd] forward, packed backward)``."""
     import ctypes
 
     from aaclip_tpu_torch.kernels.build import load
@@ -461,9 +470,10 @@ def _kernels_3pass():
 
 @functools.cache
 def _kernels_3pass_wgmma():
-    """The 3-pass entry points at head dim 64 (fp32 under "high" on the
-    ``split2`` planes), built on first use: ``(packed forward, [B, H, S,
-    hd] forward, packed backward)``, with the 6-pass entries' signatures."""
+    """The 3-pass entry points at the TMA head dims (fp32 under "high" on
+    the ``split2`` planes), built on first use: ``(packed forward, [B, H,
+    S, hd] forward, packed backward)``, with the 6-pass entries'
+    signatures."""
     import ctypes
 
     from aaclip_tpu_torch.kernels.build import load
@@ -545,9 +555,10 @@ def attention_packed(qkv: torch.Tensor, num_heads: int, valid_len: int, *,
     contiguous bf16 or fp32 with a head dim in ``KERNEL_HEAD_DIMS``; the
     kernel of ``kernel_route`` is launched on the current stream and
     ``attention_packed.launches`` counts each launch (``launches_3pass``
-    those of the 3-pass mode, fp32 under "high", at head dim 64 each after
-    one ``split2`` launch; ``launches_6pass`` those of the 6-pass route,
-    fp32 at head dim 64 otherwise, each after one ``split3`` launch). ``return_lse=True`` (CUDA only) also returns each
+    those of the 3-pass mode, fp32 under "high", at ``TMA_HEAD_DIMS``
+    each after one ``split2`` launch; ``launches_6pass`` those of the
+    6-pass route, fp32 there otherwise, each after one ``split3``
+    launch). ``return_lse=True`` (CUDA only) also returns each
     row's logsumexp [B, H, S] fp32, which the backward kernel reads."""
     if qkv.device.type == "cpu" and not return_lse:
         return attention_packed_plain(qkv, num_heads, valid_len,
@@ -597,8 +608,8 @@ def attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     forward kernel of ``attention_packed``'s ``kernel_route`` is launched
     with this layout's strides (contiguous operands of one shape, dtype
     and device, a head dim in ``KERNEL_HEAD_DIMS``; on the 6-pass and
-    3-pass routes at head dim 64 each operand's ``split3`` or ``split2``
-    planes); ``attention_kernel.launches`` (and
+    3-pass routes at ``TMA_HEAD_DIMS`` each operand's ``split3`` or
+    ``split2`` planes); ``attention_kernel.launches`` (and
     ``launches_3pass``, ``launches_6pass``) count its launches."""
     if q.device.type == "cpu":
         return attention_kernel_plain(q, k, v, valid_len,
@@ -664,8 +675,10 @@ def attention_packed_bwd(qkv: torch.Tensor, d_out: torch.Tensor,
     cotangent ``d_out`` [B, S, D] and the forward's ``lse`` [B, H, S].
 
     CPU tensors take ``attention_packed_bwd_plain`` (``lse`` unused). On
-    CUDA tensors the backward kernel of ``kernel_route`` (the 3-pass mode,
-    fp32 under "high", takes the 3-pass forward's ``lse``; the 6-pass
+    CUDA tensors at a head dim of ``BWD_HEAD_DIMS`` (another raises
+    ``NotImplementedError``: ROADMAP B11) the backward kernel of
+    ``kernel_route`` (the 3-pass mode, fp32 under "high", takes the
+    3-pass forward's ``lse``; the 6-pass
     route launches ``split3`` on qkv and on d_out first, the 3-pass route
     at head dim 64 ``split2``) is launched on the
     current stream and ``attention_packed_bwd.launches`` (and
@@ -677,6 +690,11 @@ def attention_packed_bwd(qkv: torch.Tensor, d_out: torch.Tensor,
     (B, S, dm, hd, scale, (q_off, k_off, v_off)), route = _check_cuda(
         "attention_packed_bwd", qkv, num_heads, valid_len,
         precision=precision)
+    if hd not in BWD_HEAD_DIMS:
+        raise NotImplementedError(
+            f"attention_packed_bwd: head dim {hd} has no backward kernel "
+            f"(have {BWD_HEAD_DIMS}); the backward at head dims 80 and 128 "
+            f"is ROADMAP B11, next after the forward")
     d_out = d_out.to(qkv.dtype).contiguous()
     if d_out.shape != (B, S, dm) or d_out.device != qkv.device:
         raise ValueError(f"attention_packed_bwd: d_out {tuple(d_out.shape)} "

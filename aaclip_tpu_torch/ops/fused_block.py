@@ -474,20 +474,38 @@ def fused_block_supported(cfg, policy: DtypePolicy) -> bool:
             and _mlp_widths_ok(key, v.width, int(v.width * v.mlp_ratio)))
 
 
+def reference_gate(cfg) -> bool:
+    """The JAX package's gate on ``cfg``'s vision tower
+    (``aaclip_tpu/ops/fused_block.py::fused_block_supported``): the
+    geometry its Pallas kernels tile, i.e. the packed attention's
+    (``flash_attention.py::pallas_attention_supported``: two heads a block
+    when the count is even, one otherwise, their columns a multiple of
+    128) and model and MLP widths that are multiples of 128. ViT-H-14's 16
+    heads of 80 fail it; ViT-L's 16 of 64 and 8 of 128 pass."""
+    v = cfg.vision
+    heads_per_blk = 2 if v.heads % 2 == 0 else 1
+    return ((heads_per_blk * (v.width // v.heads)) % 128 == 0
+            and v.width % 128 == 0 and int(v.width * v.mlp_ratio) % 128 == 0)
+
+
 def maybe_make_block_fn(cfg, policy: DtypePolicy, *, vv: bool = False,
                         device=None):
-    """The fused block for ``cfg`` on the card under the bf16 policy; None
-    off the card (the JAX package's "not the kernel backend") and under
-    every other policy (int8 included), where the caller keeps the
-    unfused block. This
-    follows JAX's gate, which gives None for every policy but bf16 so that
-    the fp32 parity paths keep their numerics: a caller under fp32 is
-    asking for the parity path, not for the fused kernels (which
-    ``make_block_fn`` still builds in fp32 when asked directly). On the
-    card a bf16 geometry the kernels do not take raises
-    (``fused_block_supported``). ``device=None`` means the card and raises
+    """The fused block for ``cfg`` on the card under the bf16 policy, where
+    the JAX package's gate admits the geometry (``reference_gate``); None
+    off the card (the JAX package's "not the kernel backend"), where that
+    gate refuses the geometry (ViT-H-14's head dim 80), and under every
+    other policy (int8 included): the caller keeps the unfused block. As
+    JAX's gate, it gives None for every policy but bf16 so that the fp32
+    parity paths keep their numerics: a caller under fp32 is asking for
+    the parity path, not for the fused kernels (which ``make_block_fn``
+    still builds in fp32 when asked directly). On the card a bf16 geometry
+    that JAX's gate admits and the kernels do not take raises, naming the
+    widths (``fused_block_supported``: the LayerNorm GEMMs reduce at most
+    ``KERNEL_MAX_K`` columns). ``device=None`` means the card and raises
     without one."""
     if resolve_device(device).type != "cuda":
+        return None
+    if not reference_gate(cfg):
         return None
     if policy.compute_dtype != torch.bfloat16:
         return None
@@ -498,8 +516,11 @@ def maybe_make_block_fn(cfg, policy: DtypePolicy, *, vv: bool = False,
     if not fused_block_supported(cfg, policy):
         v = cfg.vision
         raise ValueError(
-            f"the fused block has no kernels for width {v.width}, head dim "
-            f"{v.head_dim}, MLP ratio {v.mlp_ratio} under "
-            f"{policy.compute_dtype}")
+            f"the fused block has no kernels for width {v.width} (QKV "
+            f"{3 * v.width} columns, MLP {int(v.width * v.mlp_ratio)}), head "
+            f"dim {v.head_dim} under {policy.compute_dtype}: the LayerNorm "
+            f"GEMMs reduce at most {KERNEL_MAX_K} columns and the GEMMs "
+            f"take widths in multiples of their tiles "
+            f"{_GEMM_TILES[route(policy.compute_dtype, policy.precision)]}")
     return make_block_fn(cfg.vision.heads, policy,
                          act=L.config_act(cfg, policy), vv=vv)

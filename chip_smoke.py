@@ -145,7 +145,7 @@ Needs one CUDA card and nvcc. Phases, each of which fails the run:
     to the library run's, its maps/s and metrics seconds beside them.
 10. the training CLI (``python -m aaclip_tpu_torch.train`` through
     ``main``) from phase 9's checkpoint on a synthetic MVTec training set
-    (2 classes of 48 images at 1024 px), bf16, at the CLI's batches (16
+    (2 classes of 24 images at 1024 px), bf16, at the CLI's batches (16
     text, 2 image), remat auto (selective on the card): the host path (1
     text and 2 image epochs) held to (a) 24 forward launches per stage-1
     features call, 24 forward and 23 backward per stage-2 step and no
@@ -287,6 +287,28 @@ Needs one CUDA card and nvcc. Phases, each of which fails the run:
     bf16 against int8, its verdict passed and its margins printed; (f)
     ``serve_smoke`` against the port's server in a child process on the
     card.
+17. the packed-attention forward at head dims 80 and 128 and open_clip's
+    ViT-H-14 @ 518: (a) B1 (and its logsumexp), B3 and B4 at head dim 80
+    (16 heads, ViT-H-14's) and 128 (8 heads, a ViT-L width) on the bf16,
+    6-pass and 3-pass routes, at S 1370 for batches 8 and 32 and at ragged
+    S and valid_len, against their plain versions at phase 3's bars, B3
+    and B4 bit for bit B1 on the same values, the fp32 routes within
+    SIX_FP64_MAX_REL and HIGH_FP64_MAX_REL of fp64, the NaN image (no
+    backward there), every launch counted on the route's TMA + wgmma
+    kernel (and its splits); each kernel's ms beside its plain version,
+    SDPA and its bound; (b) ViT-H-14 from a JSON config that
+    ``AACLIP_MODEL_CONFIGS`` names (random weights from seeds): the
+    predict in bf16 at batch 32, fp32 and fp32_high (staged) at 8 against
+    the same predictor on the plain attention (phases 4 and 11's bars), 24
+    B1 launches a call (the blocks up to the last tap), maps/s; the
+    spatial stage-1 features at batch 2 (phase 7's bars, 19 B3 launches);
+    ``bench --model_name ViT-H-14`` in
+    the three precisions; the evaluation CLI from a seeded ViT-H-14
+    checkpoint on two synthetic classes, its table and maps/s printed and
+    its scores bit for bit a direct predict's; the fused bf16 predict at
+    ViT-L in 8 heads of 128 (the gate admits it) against the unfused one
+    at phase 8e's bars; (c) the backward at head dim 80 raises naming
+    ROADMAP B11.
 Phase 3 also holds the V-V mode of the forward kernel (B3) against its
 plain version, in bf16 and fp32, at [16, 1370, 1024], ragged S and head
 dim 16, and against the standard mode on the value section tripled.
@@ -606,9 +628,12 @@ def torch_dtype(name: str):
 def expect_routed(wrapper, before: int, calls: int, dtype_name: str,
                   hd: int, what: str, precision=None) -> None:
     """The ``calls`` launches of ``wrapper`` since its ``launches_6pass``
-    read ``before`` all took the 6-pass route if fp32 at head dim 64 under
-    "highest" or None, and none did otherwise."""
-    six = (dtype_name, hd, precision) == ("fp32", 64, None)
+    read ``before`` all took the 6-pass route if fp32 at a TMA head dim
+    (64, 80, 128) under "highest" or None, and none did otherwise."""
+    from aaclip_tpu_torch.ops.attention import TMA_HEAD_DIMS
+
+    six = (dtype_name == "fp32" and hd in TMA_HEAD_DIMS
+           and precision is None)
     got = wrapper.launches_6pass - before
     expect(got == (calls if six else 0),
            f"{what}: {got} of {calls} launches on the 6-pass route")
@@ -812,13 +837,16 @@ def check_bwd_kernel(dtype_name: str) -> float:
     return worst_main
 
 
-def check_tail_isolation(dtype_name: str, precision=None) -> None:
-    """At TAIL_CASE, image 1 NaN against image 1 zero: a kernel whose tail
-    tile of one image read the next image's rows (on [B, H, S, hd], image
-    0's last head reading image 1's first) would carry the NaN into images
-    0 and 2 (a masked key's P = 0 times NaN is NaN). The forward and its lse, the backward, the V-V
-    mode and B4 must give images 0 and 2 bit for bit the same in both
-    runs, and finite; ``precision="high"`` checks the 3-pass mode."""
+def check_tail_isolation(dtype_name: str, precision=None,
+                         case=TAIL_CASE, bwd: bool = True) -> None:
+    """At ``case`` (TAIL_CASE), image 1 NaN against image 1 zero: a kernel
+    whose tail tile of one image read the next image's rows (on [B, H, S,
+    hd], image 0's last head reading image 1's first) would carry the NaN
+    into images 0 and 2 (a masked key's P = 0 times NaN is NaN). The
+    forward and its lse, the backward (unless ``bwd`` is False: head dims
+    80 and 128 have none), the V-V mode and B4 must give images 0 and 2
+    bit for bit the same in both runs, and finite; ``precision="high"``
+    checks the 3-pass mode."""
     import torch
 
     from aaclip_tpu_torch.ops.attention import (attention_kernel,
@@ -828,13 +856,14 @@ def check_tail_isolation(dtype_name: str, precision=None) -> None:
 
     dtype = torch_dtype(dtype_name)
     gen = torch.Generator(device="cuda").manual_seed(4)
-    B, S, H, hd, valid = TAIL_CASE
+    B, S, H, hd, valid = case
     dm = H * hd
     qkv = random_qkv(B, S, H, hd, dtype, gen)
     d_out = torch.randn(B, S, dm, generator=gen, device="cuda").to(dtype)
     runs = []
-    wrappers = (attention_packed, attention_packed_bwd, attention_packed_vv,
-                attention_kernel)
+    wrappers = ((attention_packed, attention_packed_bwd, attention_packed_vv,
+                 attention_kernel) if bwd else
+                (attention_packed, attention_packed_vv, attention_kernel))
     before = [w.launches_6pass for w in wrappers]
     for fill in (float("nan"), 0.0):
         x, g = qkv.clone(), d_out.clone()
@@ -844,7 +873,8 @@ def check_tail_isolation(dtype_name: str, precision=None) -> None:
         heads = [x[..., i * dm:(i + 1) * dm].reshape(B, S, H, hd)
                  .transpose(1, 2).contiguous() for i in range(3)]
         runs.append((out, lse,
-                     attention_packed_bwd(x, g, lse, H, valid, **kw),
+                     *((attention_packed_bwd(x, g, lse, H, valid, **kw),)
+                       if bwd else ()),
                      attention_packed_vv(x[..., 2 * dm:].contiguous(), H,
                                          valid, **kw),
                      attention_kernel(*heads, valid, **kw)))
@@ -852,7 +882,8 @@ def check_tail_isolation(dtype_name: str, precision=None) -> None:
     for w, b in zip(wrappers, before):
         expect_routed(w, b, 2, dtype_name, hd, f"tail {w.__name__}",
                       precision)
-    names = ("forward", "lse", "backward", "V-V", "attention_kernel")
+    names = ("forward", "lse", *(("backward",) if bwd else ()), "V-V",
+             "attention_kernel")
     for name, got, clean in zip(names, *runs):
         same = torch.equal(got[[0, 2]], clean[[0, 2]])
         finite = bool(torch.isfinite(got[[0, 2]]).all())
@@ -3414,8 +3445,8 @@ def phase_eval_cli(card, ckpt_path: str) -> None:
 
 # Phase 10, the training CLI (``python -m aaclip_tpu_torch.train`` through
 # ``main``) at ViT-L-14-336 @ 518 from phase 9's checkpoint, on a
-# synthetic MVTec training set of 2 classes of 48 images at 1024 px (24
-# normal, 24 anomalous: a real class's pixel size, MVTec AD's training
+# synthetic MVTec training set of 2 classes of 24 images at 1024 px (12
+# normal, 12 anomalous: a real class's pixel size, MVTec AD's training
 # classes hold 60-391 images), bf16, at the CLI's own batch sizes (16 text,
 # 2 image), remat auto (selective on the card for both stages, and the log
 # says so), full shot. (a) Launch counts: B1 24 per stage-1 features call
@@ -3444,7 +3475,10 @@ def phase_eval_cli(card, ckpt_path: str) -> None:
 # unfused: every epoch's losses equal the first's bit for bit. Rates are
 # printed, not held: no gain is claimed. The phase took
 # 88-124 s on an NVIDIA H100 80GB HBM3, 700 W (phase 9: 317-326 s).
-TRAIN_CLI_CLASSES, TRAIN_CLI_PER_KIND, TRAIN_CLI_PX = 2, 24, 1024
+# (12 normal and 12 anomalous a class, from 24 when phase 17 was added:
+# on a host 25% slower than usual the whole script ran 1348 s with this
+# phase at 215 s, past a 1200 s limit for the run.)
+TRAIN_CLI_CLASSES, TRAIN_CLI_PER_KIND, TRAIN_CLI_PX = 2, 12, 1024
 TRAIN_CLI_SEED = 111  # the CLI's default --seed
 # forward launches per stage-2 step under full remat: 24, and the 23
 # blocks whose input carries a gradient again in the backward
@@ -7334,6 +7368,656 @@ def phase_tools(card, ckpt_path: str, int8_artifact: str) -> dict:
     return calls
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the packed-attention forward at head dims 80 and 128 (B1, B3
+# and B4 on the bf16, 6-pass and 3-pass routes) and open_clip's ViT-H-14 @
+# 518 through the serving and evaluation path
+
+# open_clip's published ViT-H-14 (its model_configs/ViT-H-14.json), written
+# at run time into a temporary directory that AACLIP_MODEL_CONFIGS names:
+# 32 vision blocks of width 1280 in 16 heads of 80, patch 14, MLP 5120;
+# text width 1024, 16 heads, 24 blocks; embed_dim 1024. Random weights from
+# seeds; at 518 px 37 x 37 patches, S 1370.
+VIT_H_14 = {
+    "embed_dim": 1024,
+    "vision_cfg": {"image_size": 224, "layers": 32, "width": 1280,
+                   "head_width": 80, "patch_size": 14},
+    "text_cfg": {"context_length": 77, "vocab_size": 49408, "width": 1024,
+                 "heads": 16, "layers": 24},
+}
+# 17a: (head dim, heads) of ViT-H-14 and of a ViT-L width in heads of 128,
+# the batches of the predicts at S 1370 (B3 at the stage-1 batch) and the
+# ragged cases (B, S, valid_len): one partial tile, 64- and 32-key tile
+# edges, keys masked mid-tile, a batch of 3 with a tail tile
+HD_GEOMETRIES = ((80, 16), (128, 8))
+HD_BATCHES = (8, 32)
+HD_RAGGED = ((2, 77, 77), (2, 256, 200), (3, 129, 129), (2, 200, 150))
+# (route, dtype name, precision): bf16, fp32 "highest" (6-pass), "high"
+HD_ROUTES = (("bf16", "bf16", None), ("6-pass", "fp32", None),
+             ("3-pass", "fp32", HIGH))
+# the kernels each call launches, counted at the library's launch sites:
+# by route, B1 and B3 (split + kernel on the fp32 routes) and B4 (three
+# splits)
+HD_KERNELS = {"bf16": ("attn_fwd_wgmma", None),
+              "6-pass": ("attn_fwd_6pass", "split3_kernel"),
+              "3-pass": ("attn_fwd_3pass_wgmma", "split2_kernel")}
+# 17b: the evaluation CLI's two synthetic classes at ViT-H-14 (a class
+# must follow the first for the CLI to log its maps/s) and the bench's
+# timed calls
+VIT_H_EVAL_CLASSES, VIT_H_EVAL_NORMAL, VIT_H_EVAL_ANOMALOUS = 2, 16, 48
+VIT_H_EVAL_PX, VIT_H_BENCH_STEPS = 512, 5
+
+
+def chunked(fn, *args, step: int = 8, **kw):
+    """``fn`` over images ``step`` at a time (every tensor argument cut
+    along its first dimension), concatenated: the plain versions at batch
+    32 hold [B, H, S, S] fp32 scores."""
+    import torch
+
+    return torch.cat([fn(*(a[i:i + step] if torch.is_tensor(a) else a
+                           for a in args), **kw)
+                      for i in range(0, args[0].shape[0], step)])
+
+
+def hd_route_counts(route: str, wrapper, before: tuple, calls: int,
+                    splits_per_call: int, what: str) -> None:
+    """``calls`` launches of ``wrapper`` since ``before`` (its launches,
+    launches_6pass, launches_3pass and split3/split2's launches) all on
+    ``route``'s TMA + wgmma kernel, after ``splits_per_call`` split
+    launches each on the fp32 routes."""
+    from aaclip_tpu_torch.ops import attention as A
+
+    now = (wrapper.launches, wrapper.launches_6pass, wrapper.launches_3pass,
+           A.split3.launches, A.split2.launches)
+    got = tuple(a - b for a, b in zip(now, before))
+    split = calls * splits_per_call
+    want = {"bf16": (calls, 0, 0, 0, 0), "6-pass": (calls, calls, 0, split, 0),
+            "3-pass": (calls, 0, calls, 0, split)}[route]
+    expect(got == want, f"{what}: launches, 6-pass, 3-pass, split3, split2 "
+           f"{got}, not {want}")
+
+
+def hd_before(wrapper) -> tuple:
+    from aaclip_tpu_torch.ops import attention as A
+
+    return (wrapper.launches, wrapper.launches_6pass, wrapper.launches_3pass,
+            A.split3.launches, A.split2.launches)
+
+
+def hd_check(hd: int, H: int, route: str, dtype_name: str, precision,
+             gen) -> dict:
+    """17a at one head dim and route: B1 (and its logsumexp), B3 (and bit
+    for bit B1 on [v, v, v]) and B4 (and bit for bit B1 on the same values
+    packed) against their plain versions at HD_BATCHES x S 1370 and
+    HD_RAGGED, with phase 3's bars; the fp32 routes' distance from fp64 on
+    two images of batch 8 (SIX_FP64_MAX_REL, HIGH_FP64_MAX_REL); every
+    launch counted on the route's kernel. Returns {kernel: the largest max
+    |d| at S 1370}."""
+    import torch
+
+    from aaclip_tpu_torch.ops import attention as A
+
+    dtype = torch_dtype(dtype_name)
+    kw = dict(precision=precision)
+    worst = {"attention_packed": 0.0, "attention_packed_vv": 0.0,
+             "attention_kernel": 0.0}
+    cases = [(B, 1370, 1370) for B in HD_BATCHES] + list(HD_RAGGED)
+    for B, S, valid in cases:
+        what = f"17a hd {hd} {route} B={B} S={S} valid={valid}"
+        dm = H * hd
+        qkv = random_qkv(B, S, H, hd, dtype, gen)
+        before = hd_before(A.attention_packed)
+        got, lse = A.attention_packed(qkv, H, valid, return_lse=True, **kw)
+        again = A.attention_packed(qkv, H, valid, **kw)
+        torch.cuda.synchronize()
+        hd_route_counts(route, A.attention_packed, before, 2, 1, what)
+        want = chunked(A.attention_packed_plain, qkv, H, valid, **kw)
+        d = (got.float() - want.float()).abs()
+        mx, mean = d.max().item(), d.mean().item()
+        lse_err = lse_vs_logsumexp(qkv, H, valid, lse)
+        del want, d, lse
+        v = qkv[..., 2 * dm:].contiguous()
+        before = hd_before(A.attention_packed_vv)
+        gv = A.attention_packed_vv(v, H, S, **kw)
+        torch.cuda.synchronize()
+        hd_route_counts(route, A.attention_packed_vv, before, 1, 1, what)
+        wv = chunked(A.attention_packed_vv_plain, v, H, S, **kw).float()
+        dv = (gv.float() - wv).abs()
+        vmax, vmean = dv.max().item(), dv.mean().item()
+        vover = (dv - VV_BF16_REL * wv.abs()).max().item()
+        del wv, dv
+        same_vv = None
+        if B <= 8:
+            same_vv = torch.equal(gv, A.attention_packed(
+                torch.cat([v, v, v], dim=-1).contiguous(), H, S, **kw))
+        heads = [qkv[..., i * dm:(i + 1) * dm].reshape(B, S, H, hd)
+                 .transpose(1, 2).contiguous() for i in range(3)]
+        before = hd_before(A.attention_kernel)
+        g4 = A.attention_kernel(*heads, valid, **kw)
+        torch.cuda.synchronize()
+        hd_route_counts(route, A.attention_kernel, before, 1, 3, what)
+        same4 = torch.equal(g4.transpose(1, 2).reshape(B, S, dm), got)
+        w4 = chunked(A.attention_kernel_plain, heads[0], heads[1], heads[2],
+                     valid, **kw)
+        d4 = (g4.float() - w4.float()).abs()
+        b4max, b4mean = d4.max().item(), d4.mean().item()
+        del w4, d4
+        finite = bool(torch.isfinite(got).all() and torch.isfinite(gv).all()
+                      and torch.isfinite(g4).all())
+        fp64 = ""
+        if dtype_name == "fp32" and B == 8 and S == 1370:
+            x2 = qkv[:2]
+            exact = attention_fp64(x2, H, valid)
+            exact_vv = attention_fp64(torch.cat([v[:2]] * 3, dim=-1), H, S)
+            rel = max(((t.double() - e).abs().max() / e.abs().max()).item()
+                      for t, e in ((got[:2], exact), (gv[:2], exact_vv)))
+            bar = SIX_FP64_MAX_REL if precision is None else HIGH_FP64_MAX_REL
+            fp64 = f"; from fp64 {rel:.3e} of the max (bar {bar})"
+            expect(rel <= bar, f"{what}: {rel} from fp64")
+            del exact, exact_vv
+        print(f"{what}: B1 max|d| {mx:.3e} mean {mean:.3e} (lse {lse_err:.3e},"
+              f" with lse bit for bit {torch.equal(got, again)}); B3 max|d| "
+              f"{vmax:.3e} mean {vmean:.3e}" + (
+                  "" if same_vv is None else
+                  f" (= B1 on [v, v, v]: {same_vv})")
+              + f"; B4 max|d| {b4max:.3e} (= B1: {same4}); finite {finite}"
+              + fp64)
+        expect(finite and torch.equal(got, again) and same4
+               and same_vv is not False, f"{what}: not finite, or a mode "
+               f"differs from B1 on the same values")
+        expect(lse_err <= LSE_MAX_ABS, f"{what}: lse off {lse_err}")
+        if dtype_name == "bf16":
+            expect(mx <= BF16_MAX_ABS and mean <= BF16_MEAN_ABS
+                   and b4max <= BF16_MAX_ABS and b4mean <= BF16_MEAN_ABS,
+                   f"{what}: B1 {mx}, {mean}; B4 {b4max}, {b4mean}")
+            expect(vover <= VV_BF16_ABS and vmean <= BF16_MEAN_ABS,
+                   f"{what}: B3 {vmax} ({vover} over 2^-7 of it), {vmean}")
+        else:
+            expect(max(mx, vmax, b4max) <= FP32_MAX_ABS,
+                   f"{what}: B1 {mx}, B3 {vmax}, B4 {b4max}")
+        if S == 1370:
+            for name, e in (("attention_packed", mx),
+                            ("attention_packed_vv", vmax),
+                            ("attention_kernel", b4max)):
+                worst[name] = max(worst[name], e)
+        del qkv, got, again, gv, g4, heads, v
+    check_tail_isolation(dtype_name, precision, case=(3, 200, H, hd, 200),
+                         bwd=False)
+    return worst
+
+
+def hd_times(hd: int, H: int, route: str, dtype_name: str, precision,
+             card, gen) -> dict:
+    """17a's times at one head dim and route: each of B1, B3 and B4 (with
+    its splits on the fp32 routes, as a call runs them) at the predict's
+    batch (32 bf16, 8 fp32; B3 at the stage-1 batch 16) beside its plain
+    version, SDPA on the same inputs and its bound (the route's bf16
+    passes at 989 TFLOP/s, or the bytes); the kernels per call counted at
+    the launch sites. Returns {kernel: (ms, plain ms, SDPA ms, bound ms,
+    bound_by, kernels per call)}."""
+    import torch
+
+    from aaclip_tpu_torch.kernels.build import kernels_launched
+    from aaclip_tpu_torch.ops import attention as A
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    dtype = torch_dtype(dtype_name)
+    esize = torch.tensor([], dtype=dtype).element_size()
+    kw = dict(precision=precision)
+    passes = {"bf16": 1, "6-pass": 6, "3-pass": 3}[route]
+    kernel, split = HD_KERNELS[route]
+    S, dm = 1370, H * hd
+    out = {}
+
+    def row(name, B, call, plain, library, n_out, n_splits):
+        ms = cuda_ms(call, 10)
+        ms_plain = cuda_ms(plain, 2, warmup=1)
+        ms_lib = cuda_ms(library, 10)
+        before = kernels_launched("attention_packed")
+        call()
+        torch.cuda.synchronize()
+        per_call = kernels_launched("attention_packed") - before
+        want = 1 + (n_splits if split else 0)
+        expect(per_call == want, f"17a {name} hd {hd} {route}: {per_call} "
+               f"kernels per call, not {want} ({kernel}, {split})")
+        flops = passes * 4 * B * H * S * S * hd
+        bound_ms, bound_by = bound(flops, (n_out + 1) * B * S * dm * esize)
+        out[name] = (ms, ms_plain, ms_lib, bound_ms, bound_by, per_call)
+        print(f"time 17a {name} hd {hd} {route} B={B} ({H} heads): "
+              f"{ms:.4f} ms/call ({flops / ms / 1e9:.1f} TFLOP/s of the "
+              f"{passes} bf16 pass(es); bound {bound_ms:.4f} ms by "
+              f"{bound_by}); plain {ms_plain:.4f}; SDPA {ms_lib:.4f}; "
+              f"{per_call} kernel(s) per call on {card}")
+
+    B = 32 if dtype_name == "bf16" else TRAIN_BATCH
+    qkv = random_qkv(B, S, H, hd, dtype, gen)
+    q, k, v = (t.contiguous() for t in
+               qkv.view(B, S, 3, H, hd).permute(2, 0, 3, 1, 4).unbind(0))
+    row("attention_packed", B,
+        lambda: A.attention_packed(qkv, H, S, **kw),
+        lambda: A.attention_packed_plain(qkv, H, S, **kw),
+        lambda: sdpa(q, k, v), 3, 1)
+    row("attention_kernel", B,
+        lambda: A.attention_kernel(q, k, v, S, **kw),
+        lambda: A.attention_kernel_plain(q, k, v, S, **kw),
+        lambda: sdpa(q, k, v), 3, 3)
+    del qkv, q, k, v
+    B = STAGE1_BATCH
+    vv = torch.randn(B, S, dm, generator=gen, device="cuda").to(dtype)
+    qv = vv.view(B, S, H, hd).transpose(1, 2)
+    row("attention_packed_vv", B,
+        lambda: A.attention_packed_vv(vv, H, S, **kw),
+        lambda: chunked(A.attention_packed_vv_plain, vv, H, S, **kw),
+        lambda: sdpa(qv, qv, qv), 1, 1)
+    del vv, qv
+    return out
+
+
+def phase_head_dims_kernels(card) -> dict:
+    """17a; returns {(kernel, hd, route): (ms, plain ms, SDPA ms, bound ms,
+    bound_by, kernels per call, max |d|)}."""
+    import gc
+
+    import torch
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(51)
+    rows = {}
+    for hd, H in HD_GEOMETRIES:
+        for route, dtype_name, precision in HD_ROUTES:
+            worst = hd_check(hd, H, route, dtype_name, precision, gen)
+            times = hd_times(hd, H, route, dtype_name, precision, card, gen)
+            for name, t in times.items():
+                rows[(name, hd, route)] = (*t, worst[name])
+            gc.collect()
+            torch.cuda.empty_cache()
+    print(f"17a took {time.perf_counter() - t_phase:.0f} s")
+    return rows
+
+
+def vit_h_predicts(cfg, acfg, card) -> dict:
+    """17b's predicts at ViT-H-14 @ 518 (random towers from seeds): bf16
+    uint8 at batch 32, fp32 and fp32_high (staged, ``bf16_until`` 6) at
+    batch 8, each against the same predictor on the plain attention at
+    phase 4's bars (fp32_high: phase 11's), one B1 launch per block up to
+    the last tap (24 of 32) on its route; spatial stage-1 features at
+    batch 2 against both attentions plain (phase 7's bars, B3's
+    launches); maps/s of each predict on both attentions. Returns {path:
+    B1 (or B3) launches}."""
+    import gc
+
+    import torch
+
+    from aaclip_tpu_torch.core.config import DtypePolicy
+    from aaclip_tpu_torch.core.params import (init_image_adapter,
+                                              init_vision_params)
+    from aaclip_tpu_torch.eval.predict import make_predict_fn
+    from aaclip_tpu_torch.ops import attention as A
+    from aaclip_tpu_torch.ops.similarity import fused_postproc_matrix
+
+    heads, img, n_layers = (cfg.vision.heads, cfg.vision.image_size,
+                            cfg.vision.layers)
+    # the predict runs the blocks up to its last tap: 24 of ViT-H-14's 32
+    # at the default levels (6, 12, 18, 24), as JAX's does
+    depth = max(acfg.levels)
+    gen = torch.Generator(device="cuda").manual_seed(52)
+    vit = init_vision_params(cfg, seed=0)
+    adapter = init_image_adapter(cfg, acfg, seed=1)
+    anchors = torch.randn(cfg.embed_dim, 2, generator=gen, device="cuda")
+    anchors = anchors / anchors.norm(dim=0, keepdim=True)
+    M = torch.from_numpy(fused_postproc_matrix(cfg.vision.grid, img,
+                                               "Industrial")).cuda()
+    calls = {}
+    high = DtypePolicy.fp32_high()
+    for name, policy, B in (("bf16", DtypePolicy.bf16(), 32),
+                            ("fp32", DtypePolicy.fp32(), TRAIN_BATCH),
+                            ("fp32_high", high, TRAIN_BATCH)):
+        u8 = name == "bf16"
+        kernel = make_predict_fn(vit, cfg, acfg, policy=policy,
+                                 uint8_inputs=u8)
+        plain = make_predict_fn(vit, cfg, acfg, policy=policy,
+                                uint8_inputs=u8,
+                                attn_fn=make_attn_fn_plain(heads, policy))
+        if u8:
+            images = torch.randint(0, 256, (B, 3, img, img), generator=gen,
+                                   device="cuda", dtype=torch.uint8)
+        else:
+            images = torch.randn(B, 3, img, img, generator=gen,
+                                 device="cuda")
+        zero_counts()
+        pix_k, score_k = kernel(adapter, images, anchors, M)
+        torch.cuda.synchronize()
+        got = (A.attention_packed.launches, A.attention_packed.launches_6pass,
+               A.attention_packed.launches_3pass, A.split3.launches,
+               A.split2.launches)
+        staged = high.bf16_until if name == "fp32_high" else 0
+        n = depth - staged
+        want = {"bf16": (depth, 0, 0, 0, 0),
+                "fp32": (depth, depth, 0, depth, 0),
+                "fp32_high": (depth, 0, n, 0, n)}[name]
+        what = f"17b ViT-H-14 predict {name} B={B}"
+        expect(got == want, f"{what}: B1 launches, 6-pass, 3-pass, split3, "
+               f"split2 {got}, not {want}")
+        zero_counts()
+        pix_p, score_p = plain(adapter, images, anchors, M)
+        torch.cuda.synchronize()
+        p = A.attention_packed.launches
+        expect(pix_k.shape == (B, img, img) and score_k.shape == (B,)
+               and bool(torch.isfinite(pix_k).all()
+                        and torch.isfinite(score_k).all()),
+               f"{what}: output {tuple(pix_k.shape)} not finite")
+        expect(p == staged, f"{what}: the plain predictor launched {p}")
+        span = (pix_p.max() - pix_p.min()).item()
+        dpix = (pix_k - pix_p).abs().max().item()
+        dscore = (score_k - score_p).abs().max().item()
+        ms_k = cuda_ms(lambda: kernel(adapter, images, anchors, M), 3,
+                       warmup=1)
+        ms_p = cuda_ms(lambda: plain(adapter, images, anchors, M), 2,
+                       warmup=1)
+        print(f"{what}: {got[0]} B1 launches per call ({got[1]} 6-pass, "
+              f"{got[2]} 3-pass); kernel vs plain attention max|d map| "
+              f"{dpix:.3e} ({dpix / span:.3e} of span {span:.4f}), max|d "
+              f"score| {dscore:.3e}; {B / ms_k * 1e3:.2f} maps/s "
+              f"({ms_k:.2f} ms/call), plain attention {B / ms_p * 1e3:.2f} "
+              f"maps/s on {card}")
+        if name == "bf16":
+            expect(dpix <= PIX_SPAN_FRAC_BF16 * span
+                   and dscore <= SCORE_ATOL_BF16,
+                   f"{what}: map {dpix} of {span}, scores {dscore}")
+        else:
+            torch.testing.assert_close(pix_k, pix_p, atol=PIX_ATOL_FP32,
+                                       rtol=PIX_RTOL_FP32)
+            torch.testing.assert_close(score_k, score_p,
+                                       atol=SCORE_ATOL_FP32, rtol=0)
+        calls[f"ViT-H-14 predict {name}"] = got[0] - staged \
+            if name == "fp32_high" else got[0]
+        del kernel, plain, images, pix_k, pix_p
+        gc.collect()
+        torch.cuda.empty_cache()
+    what = "17b ViT-H-14 stage-1 spatial features bf16 B=2"
+    launched = check_features_vs_plain(
+        vit, cfg, DtypePolicy.bf16(), stage1_batch(2, img, gen)[0], what,
+        lambda c: None)
+    expect(launched == (n_layers, STAGE1_SURGERY_UNTIL - 1, 0),
+           f"{what}: launches {launched}")
+    calls["ViT-H-14 stage-1 spatial features bf16"] = launched[1]
+    del vit, adapter
+    gc.collect()
+    torch.cuda.empty_cache()
+    return calls
+
+
+def vit_h_bench(card) -> dict:
+    """17b: ``python -m aaclip_tpu_torch.bench --model_name ViT-H-14`` in
+    process, bf16 at batch 32, fp32 at 8, fp32_high (staged) at 8; returns
+    {precision: maps/s}."""
+    import contextlib
+    import gc
+    import io
+
+    import torch
+
+    from aaclip_tpu_torch import bench
+
+    rates = {}
+    for precision, B in (("bf16", 32), ("fp32", TRAIN_BATCH),
+                         ("fp32_high", TRAIN_BATCH)):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            bench.main(["--model_name", "ViT-H-14", "--precision", precision,
+                        "--batch_size", str(B), "--steps",
+                        str(VIT_H_BENCH_STEPS), "--warmup", "2"])
+        line = json.loads(buf.getvalue().strip().splitlines()[-1])
+        print(f"17b bench --model_name ViT-H-14 --precision {precision} "
+              f"--batch_size {B}: {json.dumps(line)}")
+        expect(line["value"] > 0 and "ViT-H-14" in line["unit"],
+               f"bench ViT-H-14 {precision}: {line}")
+        rates[precision] = line["value"]
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rates
+
+
+def vit_h_eval_cli(cfg, acfg, card, tmp: str) -> int:
+    """17b: ``python -m aaclip_tpu_torch.test --model_name ViT-H-14`` (bf16,
+    batch 32) from a seeded ViT-H-14 saved as an OpenAI-layout state dict
+    at its native 224 px (the loader resizes the positional embedding 16
+    -> 37), on two synthetic MVTec classes: its table and maps/s printed,
+    one B1 launch per block up to the last tap and batch, and its scores
+    bit for bit a direct predict's on the towers loaded as the CLI loads
+    them. Returns the B1 launches."""
+    import gc
+    import os
+    import re
+
+    import torch
+
+    from aaclip_tpu_torch import test as eval_cli
+    from aaclip_tpu_torch.core.config import DtypePolicy, get_config
+    from aaclip_tpu_torch.core.params import (adapter_from_jax,
+                                              adapter_to_jax,
+                                              create_clip_towers,
+                                              init_image_adapter,
+                                              init_text_params,
+                                              init_vision_params)
+    from aaclip_tpu_torch.data.datasets import BatchLoader, get_test_datasets
+    from aaclip_tpu_torch.data.registry import CLASS_NAMES
+    from aaclip_tpu_torch.data.synthetic import make_synthetic_dataset
+    from aaclip_tpu_torch.eval.predict import (make_anchor_encoder,
+                                               make_predict_fn,
+                                               run_class_predictions)
+    from aaclip_tpu_torch.ops import attention as A
+    from aaclip_tpu_torch.text.anchors import encode_dataset_anchors
+    from aaclip_tpu_torch.train import checkpoint as ckpt
+
+    img, B = cfg.vision.image_size, 32
+    depth = max(acfg.levels)  # the blocks up to the last tap
+    native = get_config("ViT-H-14", img_size=224)
+    sd = openai_state_dict(init_vision_params(native, seed=7),
+                           init_text_params(native, seed=8))
+    expect(sd["visual.positional_embedding"].shape == (257, 1280),
+           "the ViT-H-14 checkpoint is not at its 16 x 16 grid")
+    ckpt_path = os.path.join(tmp, "ViT-H-14.pt")
+    t0 = time.perf_counter()
+    torch.save(sd, ckpt_path)
+    del sd
+    print(f"17b eval CLI: ViT-H-14 checkpoint "
+          f"{os.path.getsize(ckpt_path) / 1e9:.3f} GB saved in "
+          f"{time.perf_counter() - t0:.2f} s on {card}")
+    classes = CLASS_NAMES["MVTec"][:VIT_H_EVAL_CLASSES]
+    data_root, meta_root = make_synthetic_dataset(
+        os.path.join(tmp, "eval_set"), class_names=classes,
+        n_normal=VIT_H_EVAL_NORMAL, n_anomalous=VIT_H_EVAL_ANOMALOUS,
+        img_px=VIT_H_EVAL_PX, hard=True)
+    os.environ.update(AACLIP_DATA=data_root, AACLIP_METADATA=meta_root)
+    ad_tree = adapter_to_jax(init_image_adapter(cfg, acfg, seed=9,
+                                                device="cpu"))
+    save = os.path.join(tmp, "eval")
+    ckpt.save_adapter_checkpoint(os.path.join(save, "image_adapter_1.npz"),
+                                 1, ad_tree)
+    zero_fused_counts()
+    t0 = time.perf_counter()
+    eval_cli.main(["--model_name", "ViT-H-14", "--clip_checkpoint",
+                   ckpt_path, "--save_path", save, "--precision", "bf16",
+                   "--batch_size", str(B), "--dump_scores"])
+    wall = time.perf_counter() - t0
+    per_class = VIT_H_EVAL_NORMAL + VIT_H_EVAL_ANOMALOUS
+    n_batches = VIT_H_EVAL_CLASSES * -(-per_class // B)
+    launched = counts()
+    expect(launched == (depth * n_batches, 0, 0)
+           and A.attention_kernel.launches == 0,
+           f"17b eval CLI: launches {launched}, not {depth} x {n_batches}")
+    log = open(os.path.join(save, "test.log")).read()
+    rate = float(re.search(r"eval throughput: ([\d.]+) maps/s",
+                           log).group(1))
+    table = log[log.rindex("class name"):] if "class name" in log else ""
+    expect(table.count("Average") == 1, "17b eval CLI: no table in test.log")
+    print(f"17b eval CLI ViT-H-14 bf16 B={B}: {n_batches} batches, "
+          f"{launched[0]} B1 launches; {rate:.2f} maps/s logged (the first "
+          f"class excluded), {wall:.2f} s for the whole main() on {card}; "
+          f"its table:\n{table.rstrip()}")
+    vit, text = create_clip_towers(cfg, checkpoint=ckpt_path)
+    bf16 = DtypePolicy.bf16()
+    # the CLI's bf16 path: uint8 batches, the normalisation folded into
+    # the patch embedding
+    direct = make_predict_fn(vit, cfg, acfg, policy=bf16, uint8_inputs=True)
+    anchors = encode_dataset_anchors(make_anchor_encoder(
+        text, cfg, acfg, policy=bf16), "MVTec")
+    rows = read_csv(os.path.join(save, "scores_1.csv"))[1:]
+    for cls, ds in get_test_datasets("MVTec", img, uint8=True).items():
+        if len(ds) == 0:  # the classes the synthetic set does not hold
+            continue
+        got = run_class_predictions(direct, adapter_from_jax(ad_tree, cfg,
+                                                             acfg),
+                                    list(BatchLoader(ds, B)), anchors[cls],
+                                    "Industrial", img, cfg.vision.grid)
+        mine = [r for r in rows if r[0] == cls]
+        expect([r[1] for r in mine] == got[4]
+               and [float(r[3]) for r in mine] == [float(x) for x in got[3]],
+               f"17b eval CLI {cls}: scores differ from the direct predict")
+    print("17b eval CLI ViT-H-14: every score bit for bit the direct "
+          "predict's")
+    del vit, text, direct
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launched[0]
+
+
+def hd128_fused_predict(card) -> int:
+    """17b: ViT-L-14-336 @ 518 in 8 heads of 128, which JAX's gate and the
+    port's admit: the fused bf16 predict (``maybe_make_block_fn``) at
+    batch 8 against the unfused one at phase 8e's bars, one launch of each
+    fused kernel and of B1 per block. Returns B1's launches."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from aaclip_tpu_torch.core.config import (AdapterConfig, DtypePolicy,
+                                              get_config)
+    from aaclip_tpu_torch.core.params import (init_image_adapter,
+                                              init_vision_params)
+    from aaclip_tpu_torch.eval.predict import make_predict_fn
+    from aaclip_tpu_torch.ops import fused_block as FB
+    from aaclip_tpu_torch.ops.similarity import fused_postproc_matrix
+
+    base = get_config("ViT-L-14-336", img_size=518)
+    cfg = dataclasses.replace(base, vision=dataclasses.replace(
+        base.vision, heads=8))
+    expect(cfg.vision.head_dim == 128 and FB.reference_gate(cfg),
+           "17b: the head-dim-128 ViT-L geometry")
+    acfg = AdapterConfig()
+    img, n_layers = cfg.vision.image_size, cfg.vision.layers
+    gen = torch.Generator(device="cuda").manual_seed(53)
+    vit = init_vision_params(cfg, seed=0)
+    adapter = init_image_adapter(cfg, acfg, seed=1)
+    anchors = torch.randn(cfg.embed_dim, 2, generator=gen, device="cuda")
+    anchors = anchors / anchors.norm(dim=0, keepdim=True)
+    M = torch.from_numpy(fused_postproc_matrix(cfg.vision.grid, img,
+                                               "Industrial")).cuda()
+    bf16 = DtypePolicy.bf16()
+    block_fn = FB.maybe_make_block_fn(cfg, bf16)
+    expect(callable(block_fn), "17b: the gate gave no fused block at hd 128")
+    fused = make_predict_fn(vit, cfg, acfg, policy=bf16, uint8_inputs=True,
+                            block_fn=block_fn)
+    unfused = make_predict_fn(vit, cfg, acfg, policy=bf16, uint8_inputs=True)
+    images = torch.randint(0, 256, (8, 3, img, img), generator=gen,
+                           device="cuda", dtype=torch.uint8)
+    zero_fused_counts()
+    pix_f, score_f = fused(adapter, images, anchors, M)
+    torch.cuda.synchronize()
+    c = fused_counts()
+    pix_u, score_u = unfused(adapter, images, anchors, M)
+    torch.cuda.synchronize()
+    span = (pix_u.max() - pix_u.min()).item()
+    dpix = (pix_f - pix_u).abs().max().item()
+    dscore = (score_f - score_u).abs().max().item()
+    print(f"17b fused predict bf16 B=8, ViT-L in 8 heads of 128: launches "
+          f"{dict(zip(FUSED_COUNTED, c))}; vs the unfused predict max|d "
+          f"map| {dpix:.3e} ({dpix / span:.3e} of span {span:.4f}), max|d "
+          f"score| {dscore:.3e} on {card}")
+    expect(c == (n_layers, n_layers, 0, n_layers, n_layers, 0),
+           f"17b fused predict hd 128: launches {c}")
+    expect(bool(torch.isfinite(pix_f).all() and torch.isfinite(score_f).all())
+           and dpix <= PIX_SPAN_FRAC_BF16 * span
+           and dscore <= SCORE_ATOL_BF16,
+           f"17b fused predict hd 128: map {dpix} of {span}, scores "
+           f"{dscore}")
+    del vit, adapter, fused, unfused
+    gc.collect()
+    torch.cuda.empty_cache()
+    return c[1]
+
+
+def backward_raises_b11() -> None:
+    """17c: the backward at head dim 80 raises, naming ROADMAP B11."""
+    import torch
+
+    from aaclip_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(54)
+    for dtype_name in DTYPES:
+        qkv = random_qkv(2, 77, 16, 80, torch_dtype(dtype_name), gen)
+        _, lse = A.attention_packed(qkv, 16, 77, return_lse=True)
+        d_out = torch.zeros(2, 77, 1280, device="cuda", dtype=qkv.dtype)
+        try:
+            A.attention_packed_bwd(qkv, d_out, lse, 16, 77)
+        except NotImplementedError as e:
+            expect("ROADMAP B11" in str(e), f"17c: {e}")
+            print(f"17c backward {dtype_name} at head dim 80 raises: {e}")
+            continue
+        raise AssertionError("17c: the backward at head dim 80 ran")
+
+
+def phase_head_dims(card) -> dict:
+    """Phase 17; returns {"kernels": 17a's rows, "calls": {kernel: {path:
+    launches}}, "rates": {...}}."""
+    import os
+    import shutil
+    import tempfile
+
+    from aaclip_tpu_torch.core import config as C
+    from aaclip_tpu_torch.core.config import AdapterConfig, get_config
+
+    t_phase = time.perf_counter()
+    rows = phase_head_dims_kernels(card)
+    backward_raises_b11()
+    tmp = tempfile.mkdtemp(prefix="aaclip_vit_h_")
+    env = {k: os.environ.get(k) for k in ("AACLIP_MODEL_CONFIGS",
+                                          "AACLIP_DATA", "AACLIP_METADATA")}
+    try:
+        configs = os.path.join(tmp, "configs")
+        os.makedirs(configs)
+        with open(os.path.join(configs, "ViT-H-14.json"), "w") as f:
+            json.dump(VIT_H_14, f)
+        os.environ["AACLIP_MODEL_CONFIGS"] = configs
+        C._scan_json_configs()
+        cfg = get_config("ViT-H-14", img_size=518)
+        v = cfg.vision
+        expect((v.layers, v.width, v.heads, v.head_dim, v.seq_len,
+                cfg.embed_dim) == (32, 1280, 16, 80, 1370, 1024),
+               f"17b: ViT-H-14 read as {v}")
+        acfg = AdapterConfig()
+        print(f"[{time.perf_counter() - t_phase:.0f} s] 17b")
+        calls = vit_h_predicts(cfg, acfg, card)
+        rates = vit_h_bench(card)
+        calls["ViT-H-14 evaluation CLI bf16"] = vit_h_eval_cli(cfg, acfg,
+                                                               card, tmp)
+        calls["fused predict bf16, ViT-L in 8 heads of 128"] = \
+            hd128_fused_predict(card)
+    finally:
+        for k, val in env.items():
+            if val is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = val
+        C.MODEL_CONFIGS.pop("ViT-H-14", None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 17 (head dims 80 and 128, ViT-H-14) took "
+          f"{time.perf_counter() - t_phase:.0f} s")
+    return {"kernels": rows, "calls": calls, "rates": rates}
+
+
 def cli_ranks_main(spec: str) -> int:
     """``chip_smoke.py --parallel-clis JSON``: one rank (under torchrun) of
     the evaluation CLI, the training CLI and the bench, each with the argv
@@ -7519,6 +8203,9 @@ def main() -> int:
             par_calls[name].update(paths)
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
+    # -- 17. the forward at head dims 80 and 128, ViT-H-14
+    print(f"[{time.perf_counter() - t0:.0f} s] head dims 80 and 128")
+    head_dims = phase_head_dims(card)
 
     print(f"[{time.perf_counter() - t0:.0f} s] done: the whole script took "
           f"{time.perf_counter() - t_start:.0f} s")
@@ -7610,6 +8297,44 @@ def main() -> int:
          hc["split2"]["fp32_high predict, bf16_until 6"], hc["split2"], 0.0,
          fp32_times["split2"]),
     ]
+    # phase 17's rows: each kernel at head dims 80 and 128 on each route,
+    # launches on the path of that head dim and route (B1: the ViT-H-14
+    # predicts, 3-pass counting the staged predict's 3-pass blocks, and at
+    # 128 the fused bf16 predict; B3 bf16 at 80: the spatial features;
+    # none for B4 and the fp32 V-V, which no phase-17 path runs)
+    hc17 = head_dims["calls"]
+    hd_paths = {
+        ("attention_packed", 80, "bf16"): (
+            "ViT-H-14 predict bf16", "ViT-H-14 evaluation CLI bf16"),
+        ("attention_packed", 80, "6-pass"): ("ViT-H-14 predict fp32",),
+        ("attention_packed", 80, "3-pass"): ("ViT-H-14 predict fp32_high",),
+        ("attention_packed_vv", 80, "bf16"): (
+            "ViT-H-14 stage-1 spatial features bf16",),
+        ("attention_packed", 128, "bf16"): (
+            "fused predict bf16, ViT-L in 8 heads of 128",)}
+    replaces17 = {"attention_packed": "aaclip_tpu/ops/flash_attention.py:190",
+                  "attention_packed_vv":
+                      "aaclip_tpu/ops/flash_attention.py:190",
+                  "attention_kernel": "aaclip_tpu/ops/flash_attention.py:94"}
+    hd_rows = []
+    for (name, hd, route), t in head_dims["kernels"].items():
+        paths = {p: hc17[p] for p in hd_paths.get((name, hd, route), ())}
+        hd_rows.append({
+            "name": f"{name} (hd {hd}"
+                    + ("" if route == "bf16" else f", {route}") + ")",
+            "route": "cuda",
+            "source": "aaclip_tpu_torch/kernels/csrc/attention_packed.cu",
+            "replaces": replaces17[name],
+            "launches": next(iter(paths.values()), 0),
+            "calls": paths,
+            "kernels_per_call": t[5],
+            "max_abs_err": t[6],
+            "ms": t[0],
+            "plain_ms": t[1],
+            "bound_ms": t[3],
+            "bound_by": t[4],
+            "library_ms": t[2],
+        })
     print(json.dumps({"kernels": [{
         "name": "attention_packed",
         "route": "cuda",
@@ -7736,7 +8461,8 @@ def main() -> int:
         "bound_ms": times[3],
         "bound_by": times[4],
         "library_ms": times[2],
-    } for name, source, replaces, launches, calls, err, times in six_rows]}))
+    } for name, source, replaces, launches, calls, err, times in six_rows]
+        + hd_rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

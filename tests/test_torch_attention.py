@@ -2,11 +2,14 @@
 the JAX package's, on the CPU, where the wrapper runs its plain version:
 
 * ``attention_packed_plain`` vs the Pallas ``attention_packed`` in
-  interpret mode (hd 64, 2 heads, S 250, q_blk 64, fp32 and bf16);
+  interpret mode (hd 64, 80 and 128, 2 heads, S 250, q_blk 64, fp32 and
+  bf16);
 * ``attention_kernel_plain`` vs the Pallas ``attention_kernel`` (the same
-  function on separate [B, H, S, hd] q, k, v) with valid_len < S;
+  function on separate [B, H, S, hd] q, k, v) with valid_len < S, at hd
+  16, 80 and 128;
 * the ``attn_fn`` hook and the plain XLA-path attention vs
-  ``layers.attention`` at tiny-test's head dim 16.
+  ``layers.attention`` at tiny-test's head dim 16 and at 80, where JAX
+  runs XLA's attention (its Pallas gate refuses 2 x 80 columns).
 
 The CUDA kernel itself is checked against the plain version on the card
 by chip_smoke.py; here only the wrapper's routing and checks are.
@@ -42,6 +45,16 @@ from tests.test_torch_layers import perturbed_clip_tree
 
 DTYPES = {"fp32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
+# A narrow user config in open_clip's JSON schema at ViT-H-14's head width
+# (80): 2 vision blocks of width 160 in 2 heads, 70 px in patches of 14
+# (S 26), a 2-block text tower of width 64.
+NARROW_HD80 = {
+    "embed_dim": 64,
+    "vision_cfg": {"image_size": 70, "layers": 2, "width": 160,
+                   "head_width": 80, "patch_size": 14},
+    "text_cfg": {"context_length": 77, "vocab_size": 49408, "width": 64,
+                 "heads": 2, "layers": 2},
+}
 
 
 def packed_qkv(B, S, heads, hd, seed=0):
@@ -51,14 +64,15 @@ def packed_qkv(B, S, heads, hd, seed=0):
 
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 @pytest.mark.parametrize("valid_len", [250, 201])
-def test_plain_matches_pallas_interpret(dtype, valid_len):
+@pytest.mark.parametrize("head_dim", [64, 80, 128])
+def test_plain_matches_pallas_interpret(dtype, valid_len, head_dim):
     jd, td = DTYPES[dtype]
-    qkv = packed_qkv(2, 250, 2, 64)
+    qkv = packed_qkv(2, 250, 2, head_dim)
     want = j_attention(jnp.asarray(qkv, jd), 2, valid_len, q_blk=64,
                        precision="highest" if dtype == "fp32" else None,
                        interpret=True)
     got = attention_packed_plain(torch.from_numpy(qkv).to(td), 2, valid_len)
-    assert got.shape == (2, 250, 128) and got.dtype == td
+    assert got.shape == (2, 250, 2 * head_dim) and got.dtype == td
     want = np.asarray(want, np.float32)
     if dtype == "fp32":
         np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
@@ -68,13 +82,14 @@ def test_plain_matches_pallas_interpret(dtype, valid_len):
 
 
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
-def test_attention_kernel_plain_matches_pallas_interpret(dtype):
+@pytest.mark.parametrize("head_dim", [16, 80, 128])
+def test_attention_kernel_plain_matches_pallas_interpret(dtype, head_dim):
     """B4 on separate [B, H, S, hd] q, k, v with keys past valid_len
     masked; every row, the ones past valid_len too, is a query. Bars as
     the packed attention's above."""
     jd, td = DTYPES[dtype]
     rng = np.random.default_rng(2)
-    q, k, v = (rng.standard_normal((2, 3, 70, 16)).astype(np.float32)
+    q, k, v = (rng.standard_normal((2, 3, 70, head_dim)).astype(np.float32)
                for _ in range(3))
     want = j_attention_kernel(*(jnp.asarray(t, jd) for t in (q, k, v)), 50,
                               q_blk=32, bh_blk=2,
@@ -82,7 +97,7 @@ def test_attention_kernel_plain_matches_pallas_interpret(dtype):
                               else None, interpret=True)
     got = attention_kernel_plain(*(torch.from_numpy(t).to(td)
                                    for t in (q, k, v)), 50)
-    assert got.shape == (2, 3, 70, 16) and got.dtype == td
+    assert got.shape == (2, 3, 70, head_dim) and got.dtype == td
     want = np.asarray(want, np.float32)
     if dtype == "fp32":
         np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
@@ -191,26 +206,60 @@ def _const(src: str, name: str) -> int:
 
 
 def test_tma_routes_match_the_kernel_sources():
-    """The route table is the sources' own: bf16 at kTmaHeadDim takes the
-    TMA + wgmma kernels of both attention sources, fp32 there their 6-pass
-    entry points (which refuse any other head dim), and every other
+    """The route table is the sources' own: bf16 at the forward's TMA head
+    dims (``tma_head_dim``: 64, 80, 128) takes its TMA + wgmma kernels,
+    each head dim instantiated once per route (``by_head_dim``), and at
+    the backward's ``kTmaHeadDim`` (64) the backward's; fp32 there their
+    6-pass entry points (which refuse any other head dim), and every other
     (dtype, head dim) the wrappers accept has a retained kernel in each."""
+    import re
+
     fwd = (build.CSRC / "attention_packed.cu").read_text()
     bwd = (build.CSRC / "attention_packed_bwd.cu").read_text()
-    for src in (fwd, bwd):
-        hd = _const(src, "kTmaHeadDim")
-        assert TMA_ROUTES == {(torch.bfloat16, hd), (torch.float32, hd)}
-        assert "if (bf16 && head_dim == kTmaHeadDim)" in src
-        assert src.count("if (head_dim != kTmaHeadDim)") == (
-            2 if src is fwd else 1)
+    body = re.search(r"constexpr bool tma_head_dim\(int hd\) \{([^}]*)\}",
+                     fwd).group(1)
+    dims = tuple(int(d) for d in re.findall(r"hd == (\d+)", body))
+    assert dims == A.TMA_HEAD_DIMS == (64, 80, 128)
+    assert TMA_ROUTES == {(dtype, hd) for dtype in (torch.bfloat16,
+                                                    torch.float32)
+                          for hd in dims}
+    assert fwd.count("if (bf16 && tma_head_dim(head_dim))") == 2
+    for hd in dims:
+        assert (f"case {hd}: return fn(std::integral_constant<int, {hd}>"
+                in fwd)
+    assert "static_assert(HD == 64 || HD == 80 || HD == 128" in fwd
+    assert _const(bwd, "kTmaHeadDim") == 64 and 64 in A.BWD_HEAD_DIMS
+    assert "if (bf16 && head_dim == kTmaHeadDim)" in bwd
+    assert bwd.count("if (head_dim != kTmaHeadDim)") == 1
     for hd in KERNEL_HEAD_DIMS:
         for dtype in (torch.bfloat16, torch.float32):
             if (dtype, hd) in TMA_ROUTES:
                 continue
             bf16 = dtype == torch.bfloat16
             assert f"if ({'' if bf16 else '!'}bf16 && head_dim == {hd})" in fwd
-            assert (f"launch_retained<{hd}, {'true' if bf16 else 'false'}>"
-                    in bwd)
+    for bf16 in ("true", "false"):
+        assert f"launch_retained<16, {bf16}>" in bwd
+
+
+def test_backward_head_dims_raise_naming_the_roadmap():
+    """The backward has kernels at ``BWD_HEAD_DIMS`` (16 and 64) only: on
+    the card any other head dim the forward takes (80, 128) raises before
+    a launch, naming ROADMAP B11; the CPU keeps its plain version at every
+    head dim."""
+    import inspect
+
+    assert A.BWD_HEAD_DIMS == (16, 64)
+    assert set(KERNEL_HEAD_DIMS) - set(A.BWD_HEAD_DIMS) == {80, 128}
+    src = inspect.getsource(A.attention_packed_bwd)
+    assert "if hd not in BWD_HEAD_DIMS:" in src
+    assert "NotImplementedError" in src and "ROADMAP B11" in src
+    assert src.index("BWD_HEAD_DIMS:") < src.index("_planes(route, ")
+    qkv = torch.from_numpy(packed_qkv(1, 20, 2, 80, seed=4))
+    d_out = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (1, 20, 160)).astype(np.float32))
+    got = A.attention_packed_bwd(qkv, d_out, None, 2, 20)
+    torch.testing.assert_close(got, A.attention_packed_bwd_plain(
+        qkv, d_out, 2, 20), atol=0, rtol=0)
 
 
 def test_tma_alignment_matches_the_kernel_header():
@@ -253,23 +302,31 @@ def test_library_path_is_keyed_by_the_sources():
 
 
 @pytest.mark.parametrize("policy", ["fp32", "bf16"])
-def test_attn_fn_and_plain_attention_match_jax(policy):
-    """tiny-test block 0 (4 heads x 16): the kernel hook (plain version on
-    the CPU) and the XLA-path port both against JAX ``layers.attention``."""
-    from aaclip_tpu_torch.core.config import get_config
+@pytest.mark.parametrize("geometry", ["tiny-test", "head_width_80"])
+def test_attn_fn_and_plain_attention_match_jax(policy, geometry):
+    """Block 0 of tiny-test (4 heads x 16) and of NARROW_HD80 (2 heads x
+    80, where JAX's Pallas gate refuses the geometry and JAX runs XLA's
+    attention): the kernel hook (plain version on the CPU) and the
+    XLA-path port both against JAX ``layers.attention``."""
+    from aaclip_tpu.core.config import config_from_json as j_config
+    from aaclip_tpu_torch.core.config import config_from_json, get_config
 
-    cfg = get_config("tiny-test")
+    if geometry == "tiny-test":
+        cfg, jcfg = get_config("tiny-test"), "tiny-test"
+    else:
+        cfg, jcfg = config_from_json(NARROW_HD80), j_config(NARROW_HD80)
+    heads, width = cfg.vision.heads, cfg.vision.width
     jpol, tpol = {"fp32": (JPolicy.fp32(), DtypePolicy.fp32()),
                   "bf16": (JPolicy.bf16(), DtypePolicy.bf16())}[policy]
-    visual = perturbed_clip_tree("tiny-test", seed=5)
+    visual = perturbed_clip_tree(jcfg, seed=5)
     vit = params_from_jax(visual, cfg, device="cpu")
     jp = {k: np.asarray(v[0]) for k, v in visual["blocks"]["attn"].items()}
     rng = np.random.default_rng(6)
-    x = rng.standard_normal((2, 26, 64)).astype(np.float32)
-    want = np.asarray(JL.attention(jnp.asarray(x), jp, 4, policy=jpol))
+    x = rng.standard_normal((2, 26, width)).astype(np.float32)
+    want = np.asarray(JL.attention(jnp.asarray(x), jp, heads, policy=jpol))
     xt = torch.from_numpy(x)
-    hooked = make_attn_fn(4, tpol)(xt, vit.blocks[0].attn)
-    plain = L.attention(xt, vit.blocks[0].attn, 4, policy=tpol)
+    hooked = make_attn_fn(heads, tpol)(xt, vit.blocks[0].attn)
+    plain = L.attention(xt, vit.blocks[0].attn, heads, policy=tpol)
     for got in (hooked, plain):
         if policy == "fp32":
             np.testing.assert_allclose(got.numpy(), want, atol=1e-5,

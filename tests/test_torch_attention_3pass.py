@@ -8,8 +8,9 @@ plain versions:
   normals, negative zero and NaN;
 * the kernels' arithmetic (two planes, the three products hi·lo, lo·hi,
   hi·hi summed in fp32 in that order, P and dS split rather than rounded,
-  keys in tiles of 64 with each tile's product in its own accumulator)
-  through the forward and the backward, against the JAX package's Pallas
+  keys in tiles of 64 at head dim 64 and of 32 at 80 and 128, each tile's
+  product in its own accumulator) through the forward at head dims 64,
+  80 and 128 and the backward at 64, against the JAX package's Pallas
   kernels in interpret mode at "high", the only 3-pass reference on the
   CPU (jax on the CPU computes XLA "high" dots in true fp32): the plain
   versions' bars, atol and rtol 1e-5 forward and 5e-5 of each gradient's
@@ -42,6 +43,12 @@ from tests.test_torch_attention import packed_qkv
 from tests.test_torch_attention_fp32 import _special
 
 TILE = 64  # keys (forward, kernel A) and queries (kernel B) per tile
+
+
+def fwd_tile(head_dim: int) -> int:
+    """The forward plane kernels' keys per tile (``PlaneTiles::kKeys``):
+    64 at head dim 64, 32 at 80 and 128."""
+    return TILE if head_dim == 64 else 32
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
@@ -100,16 +107,17 @@ def _heads(t: torch.Tensor, heads: int) -> torch.Tensor:
 
 def _forward3(q, k, v, valid: int, scale: float):
     """The 3-pass forward kernel's arithmetic on [B, H, S, hd]: keys in
-    tiles of 64, the online softmax (P = exp(s - running max) in fp32,
-    split, never rounded), each tile's P·V in its own accumulator added to
-    the running O (O = O·alpha + tile), one division at the end; returns
-    (out, lse = m + log l)."""
+    tiles of ``fwd_tile(hd)``, the online softmax (P = exp(s - running
+    max) in fp32, split, never rounded), each tile's P·V in its own
+    accumulator added to the running O (O = O·alpha + tile), one division
+    at the end; returns (out, lse = m + log l)."""
     B, H, S, hd = q.shape
+    tile = fwd_tile(hd)
     o = torch.zeros(B, H, S, hd)
     m = torch.full((B, H, S, 1), float("-inf"))
     l = torch.zeros(B, H, S, 1)
-    for k0 in range(0, valid, TILE):
-        k1 = min(k0 + TILE, S)
+    for k0 in range(0, valid, tile):
+        k1 = min(k0 + tile, S)
         s = _kdot3(q, k[..., k0:k1, :].transpose(-1, -2)) * scale
         s[..., max(valid - k0, 0):] = float("-inf")
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
@@ -160,12 +168,15 @@ def _attention3(qkv: torch.Tensor, heads: int, valid: int,
 
 
 @pytest.mark.parametrize("valid_len", [250, 201])
-@pytest.mark.parametrize("direction", ["forward", "backward"])
-def test_three_pass_kernels_match_pallas_interpret(valid_len, direction):
+@pytest.mark.parametrize("direction,head_dim", [
+    ("forward", 64), ("backward", 64), ("forward", 80), ("forward", 128)])
+def test_three_pass_kernels_match_pallas_interpret(valid_len, direction,
+                                                   head_dim):
     """The kernels' 3-pass arithmetic against the JAX package's kernels at
     "high" (interpret mode): the plain versions' bars, atol and rtol 1e-5
-    forward, 5e-5 of each gradient's max backward (dP - dsum cancels)."""
-    qkv = packed_qkv(2, 250, 2, 64, seed=11)
+    forward, 5e-5 of each gradient's max backward (dP - dsum cancels; the
+    backward's kernels are at head dim 64 alone)."""
+    qkv = packed_qkv(2, 250, 2, head_dim, seed=11)
     if direction == "forward":
         want = np.asarray(j_attention(jnp.asarray(qkv), 2, valid_len,
                                       q_blk=64, precision="high",
@@ -232,6 +243,12 @@ def test_three_passes_are_the_six_pass_tables_last_three():
     (torch.float32, 64, "high", "3pass_wgmma"),
     (torch.float32, 64, "highest", "6pass"),
     (torch.float32, 64, None, "6pass"),
+    (torch.float32, 80, "high", "3pass_wgmma"),
+    (torch.float32, 80, None, "6pass"),
+    (torch.float32, 128, "high", "3pass_wgmma"),
+    (torch.float32, 128, None, "6pass"),
+    (torch.bfloat16, 80, "high", "wgmma"),
+    (torch.bfloat16, 128, None, "wgmma"),
     (torch.float32, 16, "high", "3pass"),
     (torch.float32, 16, "highest", "fma"),
     (torch.float32, 16, None, "fma"),
@@ -300,8 +317,9 @@ def test_3pass_wgmma_entry_points_match_the_c_signatures(source, entry,
 
 def test_mma_sync_3pass_kernels_remain_at_head_dim_16_only():
     """The mma.sync 3-pass kernels are instantiated at head dim 16 alone:
-    at 64 the TMA + wgmma kernels took their place, and the mma.sync
-    entry points refuse 64 (no fallback)."""
+    at 64 (and 80 and 128 in the forward) the TMA + wgmma kernels took
+    their place, and the mma.sync entry points refuse them (no
+    fallback)."""
     fwd = (build.CSRC / "attention_packed.cu").read_text()
     bwd = (build.CSRC / "attention_packed_bwd.cu").read_text()
     assert "attn_fwd_3pass<16><<<" in fwd
@@ -311,7 +329,7 @@ def test_mma_sync_3pass_kernels_remain_at_head_dim_16_only():
     assert "launch_3pass<64>" not in bwd
     assert fwd.count("if (head_dim != 16)") == 1
     assert bwd.count("if (head_dim != 16)") == 1
-    for name in ("attn_fwd_3pass_wgmma", "split2_kernel"):
+    for name in ("attn_fwd_3pass_wgmma<HD>", "split2_kernel"):
         assert f"{name}<<<" in fwd
     for name in ("attn_bwd_dq_3pass_wgmma", "attn_bwd_dkdv_3pass_wgmma"):
         assert f"{name}<<<" in bwd

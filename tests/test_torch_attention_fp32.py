@@ -11,8 +11,9 @@ their plain versions:
   fp32, summed in fp32) lies within 2^-20 of each output's max from the
   fp64 product at the attention's reduction depths 64 and 1370: the error
   model the on-card check relies on;
-* the same six-product arithmetic through the attention forward and
-  backward (the kernels' products, P and dS split, not rounded) against
+* the same six-product arithmetic through the attention forward (at head
+  dims 64, 80 and 128) and backward (at 64, the backward's one TMA head
+  dim; the kernels' products, P and dS split, not rounded) against
   the JAX package's Pallas kernels in interpret mode at "highest" (true
   fp32 on the CPU): atol 1e-5, rtol 1e-5 as the plain versions' fp32 bar,
   and within 4e-6 of each output's max from fp64, the on-card bar;
@@ -197,13 +198,15 @@ def _fp64(qkv: np.ndarray, heads: int, valid: int,
 
 
 @pytest.mark.parametrize("valid_len", [250, 201])
-@pytest.mark.parametrize("direction", ["forward", "backward"])
-def test_six_pass_attention_matches_pallas_interpret(valid_len, direction):
+@pytest.mark.parametrize("direction,head_dim", [
+    ("forward", 64), ("backward", 64), ("forward", 80), ("forward", 128)])
+def test_six_pass_attention_matches_pallas_interpret(valid_len, direction,
+                                                     head_dim):
     """The kernels' 6-pass arithmetic against the JAX package's kernels at
     "highest" (interpret mode, true fp32 on the CPU): the fp32 bar of the
     plain versions; and each output within 4e-6 of its max from fp64, the
     bar ``chip_smoke.py`` holds the card's kernels to."""
-    qkv = packed_qkv(2, 250, 2, 64, seed=7)
+    qkv = packed_qkv(2, 250, 2, head_dim, seed=7)
     d_out = (np.random.default_rng(8).standard_normal((2, 250, 128))
              .astype(np.float32) if direction == "backward" else None)
     if d_out is None:
@@ -231,6 +234,10 @@ def test_six_pass_attention_matches_pallas_interpret(valid_len, direction):
     (torch.float32, 64, "highest", "6pass"),
     (torch.float32, 64, None, "6pass"),
     (torch.float32, 64, "high", "3pass_wgmma"),
+    (torch.float32, 80, "highest", "6pass"),
+    (torch.float32, 128, None, "6pass"),
+    (torch.bfloat16, 80, None, "wgmma"),
+    (torch.bfloat16, 128, "highest", "wgmma"),
     (torch.float32, 16, "highest", "fma"),
     (torch.float32, 16, None, "fma"),
     (torch.float32, 16, "high", "3pass"),
@@ -300,15 +307,15 @@ def test_6pass_entry_points_match_the_c_signatures(source, entry, loader,
 
 def test_fma_kernels_remain_at_head_dim_16_only():
     """The fp32 FMA kernels are instantiated at head dim 16 alone: at 64
-    the 6-pass kernels took their place, and the retained entry points
-    refuse fp32 there (no fallback)."""
+    (and 80 and 128 in the forward) the 6-pass kernels took their place,
+    and the retained entry points refuse fp32 there (no fallback)."""
     fwd = (build.CSRC / "attention_packed.cu").read_text()
     bwd = (build.CSRC / "attention_packed_bwd.cu").read_text()
     assert "attn_f32_kernel<16>" in fwd and "attn_f32_kernel<64>" not in fwd
     assert "launch_retained<16, false>" in bwd
     assert "launch_retained<64, false>" not in bwd
     assert "!bf16 && head_dim == 64" not in fwd + bwd
-    for name in ("attn_fwd_6pass", "split3_kernel"):
+    for name in ("attn_fwd_6pass<HD>", "split3_kernel"):
         assert f"{name}<<<" in fwd
     for name in ("attn_bwd_dq_6pass", "attn_bwd_dkdv_6pass"):
         assert f"{name}<<<" in bwd

@@ -393,8 +393,13 @@ def test_gate_and_supported_geometry(monkeypatch):
     768) too (every route is the one engine's, widths a multiple of 128),
     tiny-test's (width 64) under neither. Off the card the gate
     gives no block; on the card it gives one under bf16 only, None under
-    fp32 as JAX's gate does, and an unsupported bf16 geometry raises
-    instead of falling back."""
+    fp32 as JAX's gate does, None where JAX's gate refuses the geometry
+    (tiny-test's 4 heads of 16), and a bf16 geometry that JAX's gate
+    admits and the kernels do not take (width 1280 in heads of 128: the
+    LayerNorm GEMMs reduce at most 1024 columns) raises instead of
+    falling back."""
+    import dataclasses
+
     vit_l, tiny = get_config("ViT-L-14-336"), get_config("tiny-test")
     vit_b = [get_config(n) for n in ("ViT-B-16", "ViT-B-16-quickgelu")]
     bf16, fp32 = DtypePolicy.bf16(), DtypePolicy.fp32()
@@ -412,8 +417,14 @@ def test_gate_and_supported_geometry(monkeypatch):
             FB.maybe_make_block_fn(vit_l, bf16)
     monkeypatch.setattr(FB, "resolve_device",
                         lambda device: torch.device("cuda"))
-    with pytest.raises(ValueError, match="no kernels for width 64"):
-        FB.maybe_make_block_fn(tiny, bf16)
+    assert FB.maybe_make_block_fn(tiny, bf16) is None
+    wide = dataclasses.replace(vit_l, vision=dataclasses.replace(
+        vit_l.vision, width=1280, heads=10))
+    assert FB.reference_gate(wide)
+    assert not FB.fused_block_supported(wide, bf16)
+    with pytest.raises(ValueError, match="no kernels for width 1280"):
+        FB.maybe_make_block_fn(wide, bf16)
+    assert FB.maybe_make_block_fn(wide, fp32) is None
     for cfg in (vit_l, *vit_b):
         assert callable(FB.maybe_make_block_fn(cfg, bf16))
         assert callable(FB.maybe_make_block_fn(cfg, bf16, vv=True))
