@@ -43,17 +43,18 @@
 // or dQ summed across key-outer blocks with atomics, which is not
 // deterministic; this design takes neither.
 //
-// Routes. bf16 at head dim kTmaHeadDim (64) runs the TMA + wgmma pair
-// attn_bwd_dq_wgmma / attn_bwd_dkdv_wgmma below. fp32 at head dim 64, the
-// CLIs' default precision ("highest"), runs attn_bwd_dq_6pass /
-// attn_bwd_dkdv_6pass, the same pair with every product in the TPU's
+// Routes. bf16 at a TMA head dim (tma_head_dim: 64, ViT-L and ViT-B; 80,
+// open_clip's ViT-H-14; 128) runs the TMA + wgmma pair
+// attn_bwd_dq_wgmma<HD> / attn_bwd_dkdv_wgmma<HD> below. fp32 there, the
+// CLIs' default precision ("highest"), runs attn_bwd_dq_6pass<HD> /
+// attn_bwd_dkdv_6pass<HD>, the same pair with every product in the TPU's
 // native 6-pass form (below); fp32 under precision "high" (the 3-pass
-// mode) runs attn_bwd_dq_3pass_wgmma / attn_bwd_dkdv_3pass_wgmma, the same
-// pair on two planes. Head dim 16 (tiny-test) keeps the first port's
-// kernels: bf16 on the mma.sync pair (4 warps of 16 rows, tiles of 64
-// copied through registers), fp32 on FMA (32 rows per block, two threads
-// per row, each owning half its columns; no TF32), and the 3-pass mode on
-// the mma.sync pair attn_bwd_*_3pass from hi/lo tiles.
+// mode) runs attn_bwd_dq_3pass_wgmma<HD> / attn_bwd_dkdv_3pass_wgmma<HD>,
+// the same pair on two planes. Head dim 16 (tiny-test) keeps the first
+// port's kernels: bf16 on the mma.sync pair (4 warps of 16 rows, tiles of
+// 64 copied through registers), fp32 on FMA (32 rows per block, two
+// threads per row, each owning half its columns; no TF32), and the 3-pass
+// mode on the mma.sync pair attn_bwd_*_3pass from hi/lo tiles.
 //
 // The fp32 route at head dim 64. Under "highest" the TPU kernel's
 // _kdot (flash_attention.py:49-71) computes each product as six bf16
@@ -104,8 +105,49 @@
 // stored (a padded query row's lse is +inf, so its P is 0), keys >=
 // valid_len get P = 0, and key tiles wholly past valid_len store zero
 // gradients without loading anything.
+//
+// Head dims 80 and 128. One tile row of the TMA + wgmma kernels is 64 bf16
+// columns, one 128-byte swizzle row (hopper_common.cuh), so a head is read
+// as 64-column chunks (Head<HD>), each a TMA box of its own and a tile of
+// the same layout, as the forward reads it: one chunk at 64, two at 80 and
+// 128. At 80 the second box covers columns 64-127 of the head, of which the
+// products read 16 (the rest is the next head's, or zeros past the map's
+// edge, and never enters a product). S and dP run HD / 16 k-steps (five at
+// 80: four from the first chunk, one from the second); dQ, dK and dV one
+// product per chunk, m64n64 on a full chunk and m64n16 on the first 16
+// columns of the second chunk at 80, whose MN-major descriptor reads two of
+// each swizzled row's eight 16-byte chunks. So every route spends exactly
+// hd's own products at 80 and 128. The tile plans (BwdTiles; own rows per
+// block x rows per streamed tile x stages, threads, shared memory of
+// kernels A / B):
+//   bf16      hd 64, 80, 128: 128 x 64 x 3, 384 threads, 81 / 83 KB at
+//                        64, 161 / 163 KB at 80 and 128
+//   6-pass    hd 64:     128 x 64 x 2, 384 threads, 193 / 194 KB
+//             hd 80/128:  64 x 32 x 2, 160 threads, 193 / 194 KB
+//   3-pass    hd 64:     128 x 64 x 3, 384 threads, 161 / 163 KB
+//             hd 80/128:  64 x 32 x 2, 160 threads, 129 / 130 KB
+// The 384 threads are two consumer warpgroups and a producer warpgroup
+// that hands its registers over (setmaxnreg 40 / 232). The bf16 pair keeps
+// that plan at 80 and 128, dQ, dK and dV at 40 or 64 registers each, and
+// kernel A's overlapped walks (a 288-thread plan without the hand-off, two
+// consumers and one producer warp, spilled in kernel B: registers go per
+// SM quarter, and 9 warps put 3 in one, as 12 do). The plane pairs hold kP
+// planes of two chunks of the own rows: 128 rows of Q and dO would take
+// 2 x kP x 32 KB (192 KB on the 6-pass route) before any streamed tile,
+// so their blocks own 64 rows, one consumer warpgroup and one producer
+// warp (160 threads, which ptxas plans at up to 255 registers a thread:
+// kernel B's dK and dV alone are 128 at 128), and stream 32-row tiles
+// (m64n32 scores) in 2 stages. ptxas (CUDA 12.8, sm_90a), registers a
+// thread, as chip_smoke.py's phase 2 prints them: bf16 168 in every
+// instantiation; 6-pass dq / dkdv 144 / 216 at 80 and 190 / 244 at 128,
+// 3-pass 128 / 195 and 156 / 234; hd 64 168 each; no spill and no stack
+// frame anywhere. C75xx notes: C7519 (warpgroup.arrive injected) in
+// attn_bwd_dq_wgmma at 64, 80 and 128, and C7512 (wgmma serialized for
+// want of registers) at 128.
 
 #include <math.h>
+
+#include <type_traits>
 
 #include "hopper_common.cuh"
 #include "launch_count.cuh"
@@ -542,49 +584,125 @@ attn_bwd_dkdv_f32(const float* __restrict__ qkv,
   }
 }
 
-// ------------------------------------------------ bf16, hd 64: TMA + wgmma
+// ------------------------------------------ TMA + wgmma: hd 64, 80, 128
 
-constexpr int kTmaHeadDim = 64;  // the bf16 head dim on the wgmma pair
-constexpr int kWgRows = 64;      // rows per consumer warpgroup
-constexpr int kBlockRows = 2 * kWgRows;  // the block's own rows (Q or K/V)
-constexpr int kWalkRows = 64;    // rows per streamed tile (K/V or Q/dO)
-constexpr int kBwdStages = 3;    // streamed tile pairs in flight
-constexpr int kBwdThreads = 384;  // two consumer warpgroups + the producer
-constexpr int kHalfBytes = kWgRows * kRowBytes;     // 8 KB: one TMA box
-constexpr int kWalkBytes = kWalkRows * kRowBytes;   // one streamed tile
-constexpr int kDqSmem = kSwizzleAtom + 2 * kBlockRows * kRowBytes +
-                        2 * kBwdStages * kWalkBytes + 8 * (1 + 2 * kBwdStages);
-constexpr int kDkdvSmem = kSwizzleAtom + 2 * kBlockRows * kRowBytes +
-                          2 * kBwdStages * kWalkBytes +
-                          kBwdStages * 2 * kWalkRows * 4 +
-                          8 * (1 + 2 * kBwdStages);
-static_assert(kTmaHeadDim == kTileCols, "one tile row is one head");
-static_assert(kWalkRows == kWgRows, "every TMA box is 64 rows");
+constexpr int kWgRows = 64;  // rows per consumer warpgroup
 
-// The block's own 128 rows as two 64-row boxes (one per warpgroup).
-__device__ __forceinline__ void load_block_rows(uint8_t* dst,
-                                                const CUtensorMap* map,
-                                                uint64_t* bar, int col,
-                                                int row0, int depth) {
-  tma_load_3d(dst, map, bar, col, row0, depth);
-  tma_load_3d(dst + kHalfBytes, map, bar, col, row0 + kWgRows, depth);
+// The head dims of the TMA + wgmma pairs (every route: bf16, 6-pass,
+// 3-pass); the retained kernels take head dim 16.
+constexpr bool tma_head_dim(int hd) {
+  return hd == 64 || hd == 80 || hd == 128;
 }
 
-// Issue S and dP of one warpgroup's 64 rows against one streamed 64-row
-// tile as one wgmma group: s = A . B^T and dp = dA . dB^T, all four
-// operands K-major in shared memory. The caller waits for the group.
-__device__ __forceinline__ void issue_scores_and_dp(float (&s)[32],
-                                                    float (&dp)[32],
-                                                    uint64_t a, uint64_t da,
-                                                    uint64_t bt,
-                                                    uint64_t dbt) {
+// A head of HD columns as 64-column chunks, each a TMA box of its own at
+// column 64 c of the head and one 128-byte-swizzled tile, as the forward
+// reads it (attention_packed.cu, Head): one chunk at 64, two at 80 (64 +
+// 16 columns used) and 128. A product over the head (S, dP) runs HD / 16
+// k-steps, k-step ks 32 * (ks % 4) bytes into chunk ks / 4; a product into
+// the head (dQ, dK, dV) runs one product per chunk, m64n64 on a full chunk
+// and m64n16 on the first 16 columns of the second chunk at 80.
+template <int HD>
+struct Head {
+  static_assert(HD == 64 || HD == 80 || HD == 128,
+                "the TMA + wgmma pairs take head dims 64, 80 and 128");
+  static constexpr int kChunks = (HD + kTileCols - 1) / kTileCols;
+  static constexpr int kKSteps = HD / 16;  // k-steps of a product over it
+  static constexpr int kRegs = HD / 2;     // a gradient's accumulators
+  // the columns of chunk c: 64, or 16 for the last one at head dim 80
+  __host__ __device__ static constexpr int cols(int c) {
+    return c + 1 < kChunks ? kTileCols : HD - kTileCols * c;
+  }
+};
+
+// The tile plan of a pair on P bf16 planes (1: the bf16 route; 3: 6-pass;
+// 2: 3-pass) at head dim HD: consumer warpgroups (each 64 of the block's
+// own rows), rows per streamed tile (the TMA box's rows, in which the own
+// rows are loaded too), stages in flight, threads (384 with the register
+// hand-off for two consumers, else one consumer and one producer warp),
+// and the bytes of one chunk of one plane of an own operand and of a
+// streamed tile. The header's table gives the plan of each instantiation.
+template <int P, int HD>
+struct BwdTiles {
+  static constexpr int kP = P;
+  static constexpr bool kWide = HD != 64;
+  static constexpr int kC = Head<HD>::kChunks;
+  static constexpr int kWgs = P == 1 || !kWide ? 2 : 1;
+  static constexpr int kRows = kWgs * kWgRows;  // the block's own rows
+  static constexpr int kWalk = P == 1 || !kWide ? 64 : 32;
+  static constexpr int kStages = P == 1 ? 3 : P == kPlanes || kWide ? 2
+                                                          : 3;
+  static constexpr int kThreads = kWgs == 2 ? 384 : 160;
+  static constexpr int kOwnChunk = kRows * kRowBytes;
+  static constexpr int kOwnPlane = kC * kOwnChunk;
+  static constexpr int kOwn = 2 * P * kOwnPlane;  // both own operands
+  static constexpr int kBox = kWalk * kRowBytes;
+  static constexpr int kWalkPlane = kC * kBox;
+  static constexpr int kStageBytes = 2 * P * kWalkPlane;
+  static constexpr int kDqSmem = kSwizzleAtom + kOwn + kStages * kStageBytes +
+                                 8 * (1 + 2 * kStages);
+  // kernel B also stages each streamed tile's lse and dsum
+  static constexpr int kDkdvSmem = kDqSmem + kStages * 2 * kWalk * 4;
+};
+
+// The register hand-off of the 384-thread plans (hopper_common.cuh): the
+// producer warpgroup drops to kProducerRegs, the consumers take what it
+// frees. The 160-thread plans have one producer warp and no hand-off.
+template <class T>
+__device__ __forceinline__ void producer_regs() {
+  if constexpr (T::kWgs == 2) setmaxnreg_dec<kProducerRegs>();
+}
+
+template <class T>
+__device__ __forceinline__ void consumer_regs() {
+  if constexpr (T::kWgs == 2) setmaxnreg_inc<kConsumerRegs>();
+}
+
+// Every plane and chunk of the block's own T::kRows rows of one operand,
+// in boxes of T::kWalk rows (plane p at depth `depth` + p * pz).
+template <class T>
+__device__ __forceinline__ void load_own(uint8_t* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int col, int row0,
+                                         int depth, int pz) {
+  for (int p = 0; p < T::kP; ++p)
+    for (int c = 0; c < T::kC; ++c)
+      for (int r = 0; r < T::kRows; r += T::kWalk)
+        tma_load_3d(dst + p * T::kOwnPlane + c * T::kOwnChunk + r * kRowBytes,
+                    map, bar, col + c * kTileCols, row0 + r, depth + p * pz);
+}
+
+// One stage: every plane and chunk of a streamed T::kWalk-row tile of two
+// operands (K and V, or Q and dO), the second's planes after the first's.
+template <class T>
+__device__ __forceinline__ void load_walk(uint8_t* dst, const CUtensorMap* a,
+                                          const CUtensorMap* b, uint64_t* bar,
+                                          int col, int row0, int depth,
+                                          int pz) {
+  for (int p = 0; p < T::kP; ++p)
+    for (int c = 0; c < T::kC; ++c) {
+      tma_load_3d(dst + p * T::kWalkPlane + c * T::kBox, a, bar,
+                  col + c * kTileCols, row0, depth + p * pz);
+      tma_load_3d(dst + (T::kP + p) * T::kWalkPlane + c * T::kBox, b, bar,
+                  col + c * kTileCols, row0, depth + p * pz);
+    }
+}
+
+// Issue S and dP of one warpgroup's 64 rows against one streamed tile of
+// kN rows as one wgmma group: s = A . B^T and dp = dA . dB^T over a head of
+// HD columns, all four operands K-major in shared memory (A's chunks
+// a_chunk bytes apart, B's b_chunk). The caller waits for the group.
+template <int HD, int kN>
+__device__ __forceinline__ void issue_scores_and_dp(
+    float (&s)[kN / 2], float (&dp)[kN / 2], uint64_t a, uint64_t da,
+    int a_chunk, uint64_t bt, uint64_t dbt, int b_chunk) {
   wgmma_fence();
 #pragma unroll
-  for (int ks = 0; ks < kTmaHeadDim / 16; ++ks)
-    wgmma_ss_n64(s, desc_plus(a, 32 * ks), desc_plus(bt, 32 * ks), ks);
+  for (int ks = 0; ks < Head<HD>::kKSteps; ++ks)
+    wgmma_ss<kN>(s, desc_plus(a, (ks / 4) * a_chunk + 32 * (ks % 4)),
+                 desc_plus(bt, (ks / 4) * b_chunk + 32 * (ks % 4)), ks);
 #pragma unroll
-  for (int ks = 0; ks < kTmaHeadDim / 16; ++ks)
-    wgmma_ss_n64(dp, desc_plus(da, 32 * ks), desc_plus(dbt, 32 * ks), ks);
+  for (int ks = 0; ks < Head<HD>::kKSteps; ++ks)
+    wgmma_ss<kN>(dp, desc_plus(da, (ks / 4) * a_chunk + 32 * (ks % 4)),
+                 desc_plus(dbt, (ks / 4) * b_chunk + 32 * (ks % 4)), ks);
   wgmma_commit();
 }
 
@@ -592,8 +710,8 @@ __device__ __forceinline__ void issue_scores_and_dp(float (&s)[32],
 // checked when kMask, get P = 0). The two users below read the scores and
 // write other registers: a score register written while a wgmma is in
 // flight would serialize the products.
-template <bool kMask>
-__device__ __forceinline__ float prob_a(const float (&s)[32], int j, int i,
+template <bool kMask, int N>
+__device__ __forceinline__ float prob_a(const float (&s)[N], int j, int i,
                                         int k0, int valid_len, float scale,
                                         const float (&lse_r)[2], int t) {
   const bool keep = !kMask || k0 + j * 8 + t * 2 + (i & 1) < valid_len;
@@ -602,14 +720,14 @@ __device__ __forceinline__ float prob_a(const float (&s)[32], int j, int i,
 }
 
 // Walk 1 of kernel A: ds_row += rowsum(dP * P) over one tile.
-template <bool kMask>
-__device__ __forceinline__ void dsum_tile(const float (&s)[32],
-                                          const float (&dp)[32],
+template <bool kMask, int N>
+__device__ __forceinline__ void dsum_tile(const float (&s)[N],
+                                          const float (&dp)[N],
                                           float (&ds_row)[2], int k0,
                                           int valid_len, float scale,
                                           const float (&lse_r)[2], int t) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < N / 4; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i)
       ds_row[i >> 1] +=
@@ -619,15 +737,15 @@ __device__ __forceinline__ void dsum_tile(const float (&s)[32],
 
 // Walk 2 of kernel A: bf16(dS) = round(P * (dP - dsum) * scale) of one
 // tile as the A fragments f of dQ += dS K.
-template <bool kMask>
-__device__ __forceinline__ void ds_tile(const float (&s)[32],
-                                        const float (&dp)[32],
-                                        uint32_t (&f)[4][4],
+template <bool kMask, int N>
+__device__ __forceinline__ void ds_tile(const float (&s)[N],
+                                        const float (&dp)[N],
+                                        uint32_t (&f)[N / 8][4],
                                         const float (&ds_row)[2], int k0,
                                         int valid_len, float scale,
                                         const float (&lse_r)[2], int t) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < N / 4; ++j) {
     float v[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -638,46 +756,73 @@ __device__ __forceinline__ void ds_tile(const float (&s)[32],
   }
 }
 
-// bf16 A fragments of a 64-column accumulator: two adjacent 8-column
+// bf16 A fragments of an accumulator of 2N columns: two adjacent 8-column
 // groups form one 16-deep k-step.
-__device__ __forceinline__ void pack_frags(uint32_t (&f)[4][4],
-                                           const float (&v)[32]) {
+template <int N>
+__device__ __forceinline__ void pack_frags(uint32_t (&f)[N / 8][4],
+                                           const float (&v)[N]) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < N / 4; ++j) {
     f[j >> 1][(j & 1) * 2 + 0] = pack_f32(v[4 * j + 0], v[4 * j + 1]);
     f[j >> 1][(j & 1) * 2 + 1] = pack_f32(v[4 * j + 2], v[4 * j + 3]);
   }
 }
 
-// acc += A . B over a 64-deep reduction: A from the fragments f, B a
-// [64 x 64] tile read MN-major (its rows are the reduction).
-__device__ __forceinline__ void mma_rows(float (&acc)[32],
-                                         const uint32_t (&f)[4][4],
-                                         uint64_t b) {
+// acc += A . B into a head of HD columns: A the fragments f (kKK k-steps of
+// 16 rows of the streamed tile), B the tile read MN-major (its rows are the
+// reduction), one product per chunk (chunks b_chunk bytes apart).
+template <int HD, int kKK>
+__device__ __forceinline__ void mma_rows(float (&acc)[HD / 2],
+                                         const uint32_t (&f)[kKK][4],
+                                         uint64_t b, int b_chunk) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    wgmma_rs_n64_mn(acc, f[kk], desc_plus(b, 16 * kRowBytes * kk));
-}
-
-// Rows row_a and row_a + 8 (when < S) of a [64 x 64] accumulator into
-// dst (row stride ld), cast to bf16.
-__device__ __forceinline__ void store_acc(__nv_bfloat16* dst, int64_t ld,
-                                          const float (&acc)[32], int row_a,
-                                          int S, int t) {
+  for (int kk = 0; kk < kKK; ++kk)
+    wgmma_rs_mn<kTileCols>(acc, f[kk], desc_plus(b, 16 * kRowBytes * kk));
+  if constexpr (Head<HD>::kChunks == 2) {
 #pragma unroll
-  for (int nd = 0; nd < 8; ++nd) {
-    if (row_a < S)
-      *reinterpret_cast<uint32_t*>(dst + (int64_t)row_a * ld + nd * 8 +
-                                   t * 2) =
-          pack_f32(acc[4 * nd + 0], acc[4 * nd + 1]);
-    if (row_a + 8 < S)
-      *reinterpret_cast<uint32_t*>(dst + (int64_t)(row_a + 8) * ld + nd * 8 +
-                                   t * 2) =
-          pack_f32(acc[4 * nd + 2], acc[4 * nd + 3]);
+    for (int kk = 0; kk < kKK; ++kk)
+      wgmma_rs_mn<Head<HD>::cols(1)>(
+          acc + 32, f[kk], desc_plus(b, b_chunk + 16 * kRowBytes * kk));
   }
 }
 
-__global__ void __launch_bounds__(kBwdThreads, 1)
+__device__ __forceinline__ void put_pair(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<uint32_t*>(p) = pack_f32(x, y);
+}
+
+__device__ __forceinline__ void put_pair(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+
+// Rows row_a and row_a + 8 (when < S) of kN accumulator columns into dst
+// (row stride ld), as bf16 or fp32 pairs.
+template <int kN, typename TO>
+__device__ __forceinline__ void store_cols(TO* dst, int64_t ld,
+                                           const float* acc, int row_a, int S,
+                                           int t) {
+#pragma unroll
+  for (int nd = 0; nd < kN / 8; ++nd) {
+    if (row_a < S)
+      put_pair(dst + (int64_t)row_a * ld + nd * 8 + t * 2, acc[4 * nd + 0],
+               acc[4 * nd + 1]);
+    if (row_a + 8 < S)
+      put_pair(dst + (int64_t)(row_a + 8) * ld + nd * 8 + t * 2,
+               acc[4 * nd + 2], acc[4 * nd + 3]);
+  }
+}
+
+// A gradient of a head of HD columns: store_cols on each chunk.
+template <int HD, typename TO>
+__device__ __forceinline__ void store_head(TO* dst, int64_t ld,
+                                           const float (&acc)[HD / 2],
+                                           int row_a, int S, int t) {
+  store_cols<kTileCols>(dst, ld, acc, row_a, S, t);
+  if constexpr (Head<HD>::kChunks == 2)
+    store_cols<Head<HD>::cols(1)>(dst + kTileCols, ld, acc + 32, row_a, S, t);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(BwdTiles<1, HD>::kThreads, 1)
 attn_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
                   const __grid_constant__ CUtensorMap tk,
                   const __grid_constant__ CUtensorMap tv,
@@ -685,49 +830,50 @@ attn_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
                   const float* __restrict__ lse, float* __restrict__ dsum,
                   __nv_bfloat16* __restrict__ dqkv, int S, int valid_len,
                   int64_t ld, int q_off, float scale) {
+  using T = BwdTiles<1, HD>;
+  constexpr int kN = T::kWalk, kKK = kN / 16;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* sQ = align_atom(smem_raw);                 // [128 rows][64]
-  uint8_t* sdO = sQ + kBlockRows * kRowBytes;         // [128 rows][64]
-  uint8_t* sK = sdO + kBlockRows * kRowBytes;         // [stage][64][64]
-  uint8_t* sV = sK + kBwdStages * kWalkBytes;         // [stage][64][64]
-  uint64_t* bars = reinterpret_cast<uint64_t*>(sV + kBwdStages * kWalkBytes);
+  uint8_t* sQ = align_atom(smem_raw);  // [chunk][own rows][64]
+  uint8_t* sdO = sQ + T::kOwnPlane;    // [chunk][own rows][64]
+  uint8_t* sKV = sdO + T::kOwnPlane;   // [stage]: K's chunks, then V's
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(sKV + T::kStages * T::kStageBytes);
   uint64_t* own_full = bars;
   uint64_t* full = bars + 1;
-  uint64_t* empty = full + kBwdStages;
+  uint64_t* empty = full + T::kStages;
 
-  const int q0 = blockIdx.x * kBlockRows;
+  const int q0 = blockIdx.x * T::kRows;
   const int h = blockIdx.y, b = blockIdx.z;
-  const int col = h * kTmaHeadDim;
-  const int n = (valid_len + kWalkRows - 1) / kWalkRows;
+  const int col = h * HD;
+  const int n = (valid_len + kN - 1) / kN;
   if (threadIdx.x == 0) {
     mbar_init(own_full, 1);
-    for (int s = 0; s < kBwdStages; ++s) {
+    for (int s = 0; s < T::kStages; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 2 * 128);
+      mbar_init(&empty[s], T::kWgs * 128);
     }
     mbar_fence_init();
   }
   __syncthreads();
 
   const int wg = threadIdx.x / 128;
-  if (wg == 2) {  // producer: Q and dO once, then K/V tiles for both walks
-    setmaxnreg_dec<kProducerRegs>();
-    if (threadIdx.x == 2 * 128) {
-      mbar_arrive_expect_tx(own_full, 2 * kBlockRows * kRowBytes);
-      load_block_rows(sQ, &tq, own_full, col, q0, b);
-      load_block_rows(sdO, &tdo, own_full, col, q0, b);
+  if (wg == T::kWgs) {  // producer: Q and dO once, then K/V tiles twice
+    producer_regs<T>();
+    if (threadIdx.x == T::kWgs * 128) {
+      mbar_arrive_expect_tx(own_full, T::kOwn);
+      load_own<T>(sQ, &tq, own_full, col, q0, b, 0);
+      load_own<T>(sdO, &tdo, own_full, col, q0, b, 0);
       for (int it = 0; it < 2 * n; ++it) {
-        const int st = it % kBwdStages;
-        if (it >= kBwdStages)
-          mbar_wait(&empty[st], (it / kBwdStages - 1) & 1);
-        const int k0 = (it % n) * kWalkRows;
-        mbar_arrive_expect_tx(&full[st], 2 * kWalkBytes);
-        tma_load_3d(sK + st * kWalkBytes, &tk, &full[st], col, k0, b);
-        tma_load_3d(sV + st * kWalkBytes, &tv, &full[st], col, k0, b);
+        const int st = it % T::kStages;
+        if (it >= T::kStages)
+          mbar_wait(&empty[st], (it / T::kStages - 1) & 1);
+        mbar_arrive_expect_tx(&full[st], T::kStageBytes);
+        load_walk<T>(sKV + st * T::kStageBytes, &tk, &tv, &full[st], col,
+                     (it % n) * kN, b, 0);
       }
     }
   } else {
-    setmaxnreg_inc<kConsumerRegs>();
+    consumer_regs<T>();
     const int warp = (threadIdx.x % 128) / 32;
     const int g = (threadIdx.x & 31) >> 2;
     const int t = threadIdx.x & 3;
@@ -735,23 +881,24 @@ attn_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
     const int64_t lrow = ((int64_t)b * gridDim.y + h) * S;
     const float lse_r[2] = {row_a < S ? lse[lrow + row_a] : INFINITY,
                             row_a + 8 < S ? lse[lrow + row_a + 8] : INFINITY};
-    const uint64_t dq_desc = sw128_desc(sQ + wg * kHalfBytes);
-    const uint64_t ddo_desc = sw128_desc(sdO + wg * kHalfBytes);
+    const uint64_t dq_desc = sw128_desc(sQ + wg * kWgRows * kRowBytes);
+    const uint64_t ddo_desc = sw128_desc(sdO + wg * kWgRows * kRowBytes);
     mbar_wait(own_full, 0);
 
     // walk 1: dsum = rowsum(dP * P). Tile it + 1's S and dP are issued
     // before tile it's elementwise work, into the other of two register
     // sets (sa/da, sb/db), so the tensor cores run them meanwhile.
     float ds_row[2] = {0.f, 0.f};
-    auto issue = [&](float (&s)[32], float (&dp)[32], int it) {
-      const int st = it % kBwdStages;
-      mbar_wait(&full[st], (it / kBwdStages) & 1);
-      issue_scores_and_dp(s, dp, dq_desc, ddo_desc,
-                          sw128_desc(sK + st * kWalkBytes),
-                          sw128_desc(sV + st * kWalkBytes));
+    auto issue = [&](float (&s)[kN / 2], float (&dp)[kN / 2], int it) {
+      const int st = it % T::kStages;
+      const uint8_t* stage = sKV + st * T::kStageBytes;
+      mbar_wait(&full[st], (it / T::kStages) & 1);
+      issue_scores_and_dp<HD, kN>(s, dp, dq_desc, ddo_desc, T::kOwnChunk,
+                                  sw128_desc(stage),
+                                  sw128_desc(stage + T::kWalkPlane), T::kBox);
     };
-    auto walk1 = [&](float (&s)[32], float (&dp)[32], float (&sn)[32],
-                     float (&dpn)[32], int it) {
+    auto walk1 = [&](float (&s)[kN / 2], float (&dp)[kN / 2],
+                     float (&sn)[kN / 2], float (&dpn)[kN / 2], int it) {
       if (it + 1 < n) {
         issue(sn, dpn, it + 1);
         wgmma_wait<1>();
@@ -760,14 +907,14 @@ attn_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
       }
       fence_operand(s);
       fence_operand(dp);
-      mbar_arrive(&empty[it % kBwdStages]);
-      const int k0 = it * kWalkRows;
-      if (k0 + kWalkRows <= valid_len)
+      mbar_arrive(&empty[it % T::kStages]);
+      const int k0 = it * kN;
+      if (k0 + kN <= valid_len)
         dsum_tile<false>(s, dp, ds_row, k0, valid_len, scale, lse_r, t);
       else
         dsum_tile<true>(s, dp, ds_row, k0, valid_len, scale, lse_r, t);
     };
-    float s[32], dp[32], sb[32], db[32];
+    float s[kN / 2], dp[kN / 2], sb[kN / 2], db[kN / 2];
     issue(s, dp, 0);
     for (int it = 0; it < n; it += 2) {
       walk1(s, dp, sb, db, it);
@@ -786,19 +933,16 @@ attn_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
     // walk 2: dQ = dS K. Tile it's S and dP are issued together with the
     // previous tile's dQ product, whose dS fragments (dsf) the elementwise
     // work of tile it does not touch: it writes the next ones (dsn).
-    float dq[32];
+    float dq[Head<HD>::kRegs];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) dq[i] = 0.f;
-    uint32_t dsf[4][4], dsn[4][4];
+    for (int i = 0; i < Head<HD>::kRegs; ++i) dq[i] = 0.f;
+    uint32_t dsf[kKK][4], dsn[kKK][4];
     for (int it = n; it < 2 * n; ++it) {
-      const int st = it % kBwdStages;
-      const int prev = (it - 1) % kBwdStages;
-      mbar_wait(&full[st], (it / kBwdStages) & 1);
-      issue_scores_and_dp(s, dp, dq_desc, ddo_desc,
-                          sw128_desc(sK + st * kWalkBytes),
-                          sw128_desc(sV + st * kWalkBytes));
+      const int prev = (it - 1) % T::kStages;
+      issue(s, dp, it);
       if (it > n) {
-        mma_rows(dq, dsf, sw128_desc(sK + prev * kWalkBytes));
+        mma_rows<HD>(dq, dsf, sw128_desc(sKV + prev * T::kStageBytes),
+                     T::kBox);
         wgmma_commit();
         wgmma_wait<1>();
       } else {
@@ -806,8 +950,8 @@ attn_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
       }
       fence_operand(s);
       fence_operand(dp);
-      const int k0 = (it - n) * kWalkRows;
-      if (k0 + kWalkRows <= valid_len)
+      const int k0 = (it - n) * kN;
+      if (k0 + kN <= valid_len)
         ds_tile<false>(s, dp, dsn, ds_row, k0, valid_len, scale, lse_r, t);
       else
         ds_tile<true>(s, dp, dsn, ds_row, k0, valid_len, scale, lse_r, t);
@@ -816,25 +960,27 @@ attn_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
       fence_frags(dsf);
       if (it > n) mbar_arrive(&empty[prev]);
 #pragma unroll
-      for (int k = 0; k < 4; ++k)
+      for (int k = 0; k < kKK; ++k)
 #pragma unroll
         for (int r = 0; r < 4; ++r) dsf[k][r] = dsn[k][r];
     }
     {  // the last tile's dQ product
-      const int st = (2 * n - 1) % kBwdStages;
+      const int st = (2 * n - 1) % T::kStages;
       wgmma_fence();
-      mma_rows(dq, dsf, sw128_desc(sK + st * kWalkBytes));
+      mma_rows<HD>(dq, dsf, sw128_desc(sKV + st * T::kStageBytes), T::kBox);
       wgmma_commit();
       wgmma_wait<0>();
       fence_operand(dq);
       fence_frags(dsf);
       mbar_arrive(&empty[st]);
     }
-    store_acc(dqkv + (int64_t)b * S * ld + q_off + col, ld, dq, row_a, S, t);
+    store_head<HD>(dqkv + (int64_t)b * S * ld + q_off + col, ld, dq, row_a,
+                   S, t);
   }
 }
 
-__global__ void __launch_bounds__(kBwdThreads, 1)
+template <int HD>
+__global__ void __launch_bounds__(BwdTiles<1, HD>::kThreads, 1)
 attn_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv,
@@ -843,97 +989,97 @@ attn_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
                     const float* __restrict__ dsum,
                     __nv_bfloat16* __restrict__ dqkv, int S, int valid_len,
                     int64_t ld, int k_off, int v_off, float scale) {
+  using T = BwdTiles<1, HD>;
+  constexpr int kN = T::kWalk, kKK = kN / 16;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* sK = align_atom(smem_raw);                 // [128 keys][64]
-  uint8_t* sV = sK + kBlockRows * kRowBytes;          // [128 keys][64]
-  uint8_t* sQ = sV + kBlockRows * kRowBytes;          // [stage][64][64]
-  uint8_t* sdO = sQ + kBwdStages * kWalkBytes;        // [stage][64][64]
-  float* sRow = reinterpret_cast<float*>(sdO + kBwdStages * kWalkBytes);
-  // sRow[stage][0][64]: lse of the tile's queries; [stage][1][64]: dsum
-  uint64_t* bars = reinterpret_cast<uint64_t*>(sRow + kBwdStages * 2 *
-                                               kWalkRows);
+  uint8_t* sK = align_atom(smem_raw);  // [chunk][own keys][64]
+  uint8_t* sV = sK + T::kOwnPlane;     // [chunk][own keys][64]
+  uint8_t* sQdO = sV + T::kOwnPlane;   // [stage]: Q's chunks, then dO's
+  float* sRow = reinterpret_cast<float*>(sQdO + T::kStages * T::kStageBytes);
+  // sRow[stage][0][kN]: lse of the tile's queries; [stage][1][kN]: dsum
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sRow + T::kStages * 2 * kN);
   uint64_t* own_full = bars;
   uint64_t* full = bars + 1;
-  uint64_t* empty = full + kBwdStages;
+  uint64_t* empty = full + T::kStages;
 
-  const int kv0 = blockIdx.x * kBlockRows;
+  const int kv0 = blockIdx.x * T::kRows;
   const int h = blockIdx.y, b = blockIdx.z;
-  const int col = h * kTmaHeadDim;
-  const int nq = (S + kWalkRows - 1) / kWalkRows;
+  const int col = h * HD;
+  const int nq = (S + kN - 1) / kN;
   const bool active = kv0 < valid_len;  // else zero gradients, no loads
   const int64_t lrow = ((int64_t)b * gridDim.y + h) * S;
   if (threadIdx.x == 0) {
     mbar_init(own_full, 1);
-    for (int s = 0; s < kBwdStages; ++s) {
+    for (int s = 0; s < T::kStages; ++s) {
       mbar_init(&full[s], 32);  // the producer warp
-      mbar_init(&empty[s], 2 * 128);
+      mbar_init(&empty[s], T::kWgs * 128);
     }
     mbar_fence_init();
   }
   __syncthreads();
 
   const int wg = threadIdx.x / 128;
-  if (wg == 2) {  // producer warp: K and V once, then Q/dO tiles
-    setmaxnreg_dec<kProducerRegs>();
-    const int lane = threadIdx.x - 2 * 128;
+  if (wg == T::kWgs) {  // producer warp: K and V once, then Q/dO tiles
+    producer_regs<T>();
+    const int lane = threadIdx.x - T::kWgs * 128;
     if (lane < 32 && active) {
       if (lane == 0) {
-        mbar_arrive_expect_tx(own_full, 2 * kBlockRows * kRowBytes);
-        load_block_rows(sK, &tk, own_full, col, kv0, b);
-        load_block_rows(sV, &tv, own_full, col, kv0, b);
+        mbar_arrive_expect_tx(own_full, T::kOwn);
+        load_own<T>(sK, &tk, own_full, col, kv0, b, 0);
+        load_own<T>(sV, &tv, own_full, col, kv0, b, 0);
       }
       for (int it = 0; it < nq; ++it) {
-        const int st = it % kBwdStages;
-        if (it >= kBwdStages)
-          mbar_wait(&empty[st], (it / kBwdStages - 1) & 1);
-        float* rows = sRow + st * 2 * kWalkRows;
-        for (int i = lane; i < kWalkRows; i += 32) {
-          const int qr = it * kWalkRows + i;
+        const int st = it % T::kStages;
+        if (it >= T::kStages)
+          mbar_wait(&empty[st], (it / T::kStages - 1) & 1);
+        float* rows = sRow + st * 2 * kN;
+        for (int i = lane; i < kN; i += 32) {
+          const int qr = it * kN + i;
           rows[i] = qr < S ? lse[lrow + qr] : INFINITY;
-          rows[kWalkRows + i] = qr < S ? dsum[lrow + qr] : 0.f;
+          rows[kN + i] = qr < S ? dsum[lrow + qr] : 0.f;
         }
         if (lane == 0) {
-          mbar_arrive_expect_tx(&full[st], 2 * kWalkBytes);
-          tma_load_3d(sQ + st * kWalkBytes, &tq, &full[st], col,
-                      it * kWalkRows, b);
-          tma_load_3d(sdO + st * kWalkBytes, &tdo, &full[st], col,
-                      it * kWalkRows, b);
+          mbar_arrive_expect_tx(&full[st], T::kStageBytes);
+          load_walk<T>(sQdO + st * T::kStageBytes, &tq, &tdo, &full[st], col,
+                       it * kN, b, 0);
         } else {
           mbar_arrive(&full[st]);
         }
       }
     }
   } else {
-    setmaxnreg_inc<kConsumerRegs>();
+    consumer_regs<T>();
     const int warp = (threadIdx.x % 128) / 32;
     const int g = (threadIdx.x & 31) >> 2;
     const int t = threadIdx.x & 3;
     const int row_a = kv0 + wg * kWgRows + warp * 16 + g;
-    float dk[32], dv[32];
+    float dk[Head<HD>::kRegs], dv[Head<HD>::kRegs];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+    for (int i = 0; i < Head<HD>::kRegs; ++i) dk[i] = dv[i] = 0.f;
     if (active) {
       const bool keep_r[2] = {row_a < valid_len, row_a + 8 < valid_len};
-      const uint64_t dk_desc = sw128_desc(sK + wg * kHalfBytes);
-      const uint64_t dv_desc = sw128_desc(sV + wg * kHalfBytes);
+      const uint64_t dk_desc = sw128_desc(sK + wg * kWgRows * kRowBytes);
+      const uint64_t dv_desc = sw128_desc(sV + wg * kWgRows * kRowBytes);
       mbar_wait(own_full, 0);
       // (Issuing tile it's S^T and dP^T together with tile it-1's dV and
       // dK, as kernel A's walk 2 does, ran slower here on an H100: the two
       // extra fragment sets leave little of the register budget.)
-      float s[32], dp[32];  // S^T and dP^T: [64 keys x 64 queries]
-      uint32_t pf[4][4], dsf[4][4];
+      float s[kN / 2], dp[kN / 2];  // S^T and dP^T: [64 keys x kN queries]
+      uint32_t pf[kKK][4], dsf[kKK][4];
       for (int it = 0; it < nq; ++it) {
-        const int st = it % kBwdStages;
-        mbar_wait(&full[st], (it / kBwdStages) & 1);
-        const uint64_t q_desc = sw128_desc(sQ + st * kWalkBytes);
-        const uint64_t do_desc = sw128_desc(sdO + st * kWalkBytes);
-        issue_scores_and_dp(s, dp, dk_desc, dv_desc, q_desc, do_desc);
+        const int st = it % T::kStages;
+        mbar_wait(&full[st], (it / T::kStages) & 1);
+        const uint8_t* stage = sQdO + st * T::kStageBytes;
+        const uint64_t q_desc = sw128_desc(stage);
+        const uint64_t do_desc = sw128_desc(stage + T::kWalkPlane);
+        issue_scores_and_dp<HD, kN>(s, dp, dk_desc, dv_desc, T::kOwnChunk,
+                                    q_desc, do_desc, T::kBox);
         wgmma_wait<0>();
         fence_operand(s);
         fence_operand(dp);
-        const float* rows = sRow + st * 2 * kWalkRows;
+        const float* rows = sRow + st * 2 * kN;
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < kN / 8; ++j)
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             const int c = j * 8 + t * 2 + (i & 1);
@@ -944,17 +1090,17 @@ attn_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
           }
         pack_frags(pf, s);  // bf16(P)^T
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < kN / 8; ++j)
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             const int c = j * 8 + t * 2 + (i & 1);
-            dp[4 * j + i] = s[4 * j + i] *
-                            (dp[4 * j + i] - rows[kWalkRows + c]) * scale;
+            dp[4 * j + i] =
+                s[4 * j + i] * (dp[4 * j + i] - rows[kN + c]) * scale;
           }
         pack_frags(dsf, dp);  // round(dS)^T
         wgmma_fence();
-        mma_rows(dv, pf, do_desc);
-        mma_rows(dk, dsf, q_desc);
+        mma_rows<HD>(dv, pf, do_desc, T::kBox);
+        mma_rows<HD>(dk, dsf, q_desc, T::kBox);
         wgmma_commit();
         wgmma_wait<0>();
         fence_operand(dv);
@@ -965,107 +1111,99 @@ attn_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
       }
     }
     __nv_bfloat16* out = dqkv + (int64_t)b * S * ld + col;
-    store_acc(out + k_off, ld, dk, row_a, S, t);
-    store_acc(out + v_off, ld, dv, row_a, S, t);
+    store_head<HD>(out + k_off, ld, dk, row_a, S, t);
+    store_head<HD>(out + v_off, ld, dv, row_a, S, t);
   }
 }
 
+// The tensor maps of q, k, v and dO over T::kP planes (plane p of image b
+// at depth b + p * batch; planes batch * seq * ld and batch * seq * do_ld
+// elements apart), in boxes of T::kWalk rows; every row of each covers the
+// heads x HD columns of its section.
+template <class T, int HD>
+int bwd_maps(CUtensorMap (&maps)[4], const void* qkv, const void* dout,
+             int batch, int seq, int heads, int64_t ld, int q_off, int k_off,
+             int v_off, int64_t do_ld) {
+  const char* base = static_cast<const char*>(qkv);
+  const int64_t cols = (int64_t)heads * HD;
+  const void* bases[4] = {base + 2 * (int64_t)q_off, base + 2 * (int64_t)k_off,
+                          base + 2 * (int64_t)v_off, dout};
+  for (int i = 0; i < 4; ++i) {
+    const int64_t row = i < 3 ? ld : do_ld;
+    const cudaError_t err =
+        make_tile_map(&maps[i], bases[i], cols, seq, T::kP * batch, 2 * row,
+                      2 * seq * row, T::kWalk);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}
+
+// fn(std::integral_constant<int, hd>) for a TMA head dim hd;
+// cudaErrorInvalidValue for another.
+template <typename F>
+int by_head_dim(int hd, F&& fn) {
+  switch (hd) {
+    case 64: return fn(std::integral_constant<int, 64>{});
+    case 80: return fn(std::integral_constant<int, 80>{});
+    case 128: return fn(std::integral_constant<int, 128>{});
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int HD>
 int launch_wgmma(int batch, int seq, int heads, cudaStream_t st,
                  const void* qkv, const void* dout, const float* lse,
                  float* dsum, void* dqkv, int valid_len, int64_t ld,
                  int q_off, int k_off, int v_off, int64_t do_ld,
                  float scale) {
-  const char* base = static_cast<const char*>(qkv);
-  const int64_t cols = (int64_t)heads * kTmaHeadDim;
-  CUtensorMap maps[4];  // q, k, v, dO: 64-row boxes
-  const void* bases[4] = {base + 2 * (int64_t)q_off, base + 2 * (int64_t)k_off,
-                          base + 2 * (int64_t)v_off, dout};
-  for (int i = 0; i < 4; ++i) {
-    const int64_t row = i < 3 ? ld : do_ld;
-    const cudaError_t err = make_tile_map(&maps[i], bases[i], cols, seq,
-                                          batch, 2 * row, 2 * seq * row,
-                                          kWalkRows);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  using T = BwdTiles<1, HD>;
+  CUtensorMap maps[4];  // q, k, v, dO
+  if (const int err = bwd_maps<T, HD>(maps, qkv, dout, batch, seq, heads, ld,
+                                      q_off, k_off, v_off, do_ld))
+    return err;
   cudaError_t err = smem_attribute_once(
-      reinterpret_cast<const void*>(attn_bwd_dq_wgmma), kDqSmem);
+      reinterpret_cast<const void*>(attn_bwd_dq_wgmma<HD>), T::kDqSmem);
   if (err == cudaSuccess)
     err = smem_attribute_once(
-        reinterpret_cast<const void*>(attn_bwd_dkdv_wgmma), kDkdvSmem);
+        reinterpret_cast<const void*>(attn_bwd_dkdv_wgmma<HD>), T::kDkdvSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((seq + kBlockRows - 1) / kBlockRows, heads, batch);
-  using T = __nv_bfloat16;
-  attn_bwd_dq_wgmma<<<grid, kBwdThreads, kDqSmem, st>>>(
-      maps[0], maps[1], maps[2], maps[3], lse, dsum, static_cast<T*>(dqkv),
+  const dim3 grid((seq + T::kRows - 1) / T::kRows, heads, batch);
+  using B = __nv_bfloat16;
+  attn_bwd_dq_wgmma<HD><<<grid, T::kThreads, T::kDqSmem, st>>>(
+      maps[0], maps[1], maps[2], maps[3], lse, dsum, static_cast<B*>(dqkv),
       seq, valid_len, ld, q_off, scale);
   note_launch();
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  attn_bwd_dkdv_wgmma<<<grid, kBwdThreads, kDkdvSmem, st>>>(
-      maps[0], maps[1], maps[2], maps[3], lse, dsum, static_cast<T*>(dqkv),
+  attn_bwd_dkdv_wgmma<HD><<<grid, T::kThreads, T::kDkdvSmem, st>>>(
+      maps[0], maps[1], maps[2], maps[3], lse, dsum, static_cast<B*>(dqkv),
       seq, valid_len, ld, k_off, v_off, scale);
   note_launch();
   return static_cast<int>(cudaGetLastError());
 }
 
-// ------------------------------------------------ fp32, hd 64: 6-pass, 3-pass
+// ---------------------------------- fp32 at hd 64, 80, 128: 6-pass, 3-pass
 
-// The plane pairs: fp32 at head dim 64 on the bf16 planes of qkv and dO
-// (attention_packed.cu's split kernels), attn_bwd_{dq,dkdv}_6pass (kP 3,
-// precision "highest" or None) and attn_bwd_{dq,dkdv}_3pass_wgmma (kP 2,
+// The plane pairs: fp32 on the bf16 planes of qkv and dO (attention_packed.
+// cu's split kernels), attn_bwd_{dq,dkdv}_6pass<HD> (kP 3, precision
+// "highest" or None) and attn_bwd_{dq,dkdv}_3pass_wgmma<HD> (kP 2,
 // precision "high": _kdot's hi.hi + hi.lo + lo.hi on hi and lo = bf16(x -
 // hi), passes 3-5 of the 6-pass table). The layout of the wgmma pair with
-// kP planes of every tile, so each block's own 128 rows of two operands
-// take kP * 32 KB and a stage of two streamed 64-row tiles kP * 16 KB: two
-// stages fit at three planes, three at two. Every product is one wgmma
+// kP planes of every tile (BwdTiles<kP, HD>). Every product is one wgmma
 // chain per pass, smallest first (mma_planes_ss, mma_planes_rs;
 // hopper_common.cuh); P = exp(s - lse) and dS = P * (dP - dsum) * scale
 // stay fp32 and are split in registers into kP planes; dO is consumed in
 // fp32 (the TPU kernel's do.astype(v.dtype)). A gradient sums its tiles in
-// fp32 registers: each tile's product goes into its own accumulator first,
-// so the tensor cores' chains stay 4 k-steps per pass long. What bounds the
-// 3-pass pair: the TPU kernel's five products in three bf16 passes, 461.5
-// GFLOP at [8, 1370, 3072] (0.466 ms at 989 TFLOP/s); the pair's nine, 830.3
-// (0.840 ms).
-template <int kP>
-struct PlaneWalk {
-  static constexpr int kStages = kP == kPlanes ? 2 : 3;
-  static constexpr int kOwn = 2 * kP * kBlockRows * kRowBytes;  // own rows
-  static constexpr int kWalk = 2 * kP * kWalkBytes;  // one stage's tiles
-  static constexpr int kDqSmem =
-      kSwizzleAtom + kOwn + kStages * kWalk + 8 * (1 + 2 * kStages);
-  static constexpr int kDkdvSmem = kDqSmem + kStages * 2 * kWalkRows * 4;
-};
-constexpr int kBlockPlane = kBlockRows * kRowBytes;  // 16 KB: one plane
-
-// All kP planes of the block's own 128 rows of one operand (plane p at
-// depth `depth` + p * pz, kBlockPlane bytes apart).
-template <int kP>
-__device__ __forceinline__ void load_block_planes(uint8_t* dst,
-                                                  const CUtensorMap* map,
-                                                  uint64_t* bar, int col,
-                                                  int row0, int depth,
-                                                  int pz) {
-  for (int p = 0; p < kP; ++p)
-    load_block_rows(dst + p * kBlockPlane, map, bar, col, row0,
-                    depth + p * pz);
-}
-
-// All kP planes of one streamed 64-row tile (kWalkBytes apart).
-template <int kP>
-__device__ __forceinline__ void load_walk_planes(uint8_t* dst,
-                                                 const CUtensorMap* map,
-                                                 uint64_t* bar, int col,
-                                                 int row0, int depth,
-                                                 int pz) {
-  for (int p = 0; p < kP; ++p)
-    tma_load_3d(dst + p * kWalkBytes, map, bar, col, row0, depth + p * pz);
-}
+// fp32 registers: each tile's product into a head chunk goes into its own
+// accumulator first, so the tensor cores' chains stay one tile's k-steps
+// per pass long. What bounds the 3-pass pair at head dim 64: the TPU
+// kernel's five products in three bf16 passes, 461.5 GFLOP at [8, 1370,
+// 3072] (0.466 ms at 989 TFLOP/s); the pair's nine, 830.3 (0.840 ms).
 
 // fp32 P of score s[4j + i] from the logsumexp, as the FMA kernels take
 // it (precise expf); keys at or past valid_len get 0 when kMask.
-template <bool kMask>
-__device__ __forceinline__ float prob_f32(const float (&s)[32], int j, int i,
+template <bool kMask, int N>
+__device__ __forceinline__ float prob_f32(const float (&s)[N], int j, int i,
                                           int k0, int valid_len, float scale,
                                           const float (&lse_r)[2], int t) {
   const bool keep = !kMask || k0 + j * 8 + t * 2 + (i & 1) < valid_len;
@@ -1073,15 +1211,15 @@ __device__ __forceinline__ float prob_f32(const float (&s)[32], int j, int i,
 }
 
 // Walk 1 of the plane kernel A: ds_row += rowsum(dP * P) over one tile.
-template <bool kMask>
-__device__ __forceinline__ void dsum_tile_f32(const float (&s)[32],
-                                              const float (&dp)[32],
+template <bool kMask, int N>
+__device__ __forceinline__ void dsum_tile_f32(const float (&s)[N],
+                                              const float (&dp)[N],
                                               float (&ds_row)[2], int k0,
                                               int valid_len, float scale,
                                               const float (&lse_r)[2],
                                               int t) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < N / 4; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i)
       ds_row[i >> 1] += dp[4 * j + i] * prob_f32<kMask>(s, j, i, k0,
@@ -1092,17 +1230,17 @@ __device__ __forceinline__ void dsum_tile_f32(const float (&s)[32],
 // Walk 2 of the plane kernel A: dS = P * (dP - dsum) * scale of one tile
 // in fp32, written over the scores s (so dP's registers are free before
 // the fragments are built), then as the A fragments of its kP planes.
-template <bool kMask, int kP>
-__device__ __forceinline__ void ds_tile_planes(float (&s)[32],
-                                               const float (&dp)[32],
-                                               uint32_t (&f)[kP][4][4],
+template <bool kMask, int kP, int N>
+__device__ __forceinline__ void ds_tile_planes(float (&s)[N],
+                                               const float (&dp)[N],
+                                               uint32_t (&f)[kP][N / 8][4],
                                                const float (&ds_row)[2],
                                                int k0, int valid_len,
                                                float scale,
                                                const float (&lse_r)[2],
                                                int t) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < N / 4; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i)
       s[4 * j + i] =
@@ -1111,89 +1249,123 @@ __device__ __forceinline__ void ds_tile_planes(float (&s)[32],
   split_frags<kP>(f, s);
 }
 
-// Rows row_a and row_a + 8 (when < S) of a [64 x 64] fp32 accumulator
-// into dst (row stride ld).
-__device__ __forceinline__ void store_acc_f32(float* dst, int64_t ld,
-                                              const float (&acc)[32],
-                                              int row_a, int S, int t) {
+// d[0 .. kN / 2) += v: one chunk's product of a tile into a gradient.
+template <int kN>
+__device__ __forceinline__ void add_acc(float* d, const float (&v)[32]) {
 #pragma unroll
-  for (int nd = 0; nd < 8; ++nd) {
-    if (row_a < S)
-      *reinterpret_cast<float2*>(dst + (int64_t)row_a * ld + nd * 8 +
-                                 t * 2) =
-          make_float2(acc[4 * nd + 0], acc[4 * nd + 1]);
-    if (row_a + 8 < S)
-      *reinterpret_cast<float2*>(dst + (int64_t)(row_a + 8) * ld + nd * 8 +
-                                 t * 2) =
-          make_float2(acc[4 * nd + 2], acc[4 * nd + 3]);
-  }
+  for (int i = 0; i < kN / 2; ++i) d[i] += v[i];
 }
 
-__device__ __forceinline__ void add_acc(float (&d)[32], const float (&v)[32]) {
+// acc_head += A . B into a head of HD columns on kP planes, a chunk at a
+// time: each chunk's product of the tile into acc (mma_planes_rs, A the
+// fragments f of its planes, B the tile's planes read MN-major, b_plane
+// bytes apart, chunks b_chunk apart), waited for and added; the caller's
+// `release` runs once the last chunk's product has read f and the tile.
+template <int kP, int HD, int kKK, typename Release>
+__device__ __forceinline__ void planes_into_head(
+    float (&acc_head)[HD / 2], float (&acc)[32],
+    uint32_t (&f)[kP][kKK][4], uint64_t b, int b_plane, int b_chunk,
+    Release release) {
+  wgmma_fence();
+  mma_planes_rs<kP>(acc, f, b, b_plane);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_operand(acc);
+  if constexpr (Head<HD>::kChunks == 1) {
+    fence_planes<kP>(f);
+    release();
+  }
+  add_acc<kTileCols>(acc_head, acc);
+  if constexpr (Head<HD>::kChunks == 2) {
+    // a full second chunk reuses acc; the 16 columns at head dim 80 get an
+    // accumulator of their own: written into acc's first registers, they
+    // made ptxas serialize the 3-pass kernel A's products (C7511)
+    constexpr int kN1 = Head<HD>::cols(1);
+    if constexpr (kN1 == kTileCols) {
+      wgmma_fence();
+      mma_planes_rs<kP>(acc, f, desc_plus(b, b_chunk), b_plane);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operand(acc);
+      fence_planes<kP>(f);
+      release();
+      add_acc<kN1>(acc_head + 32, acc);
+    } else {
+      float acc16[kN1 / 2];
+      wgmma_fence();
+      mma_planes_rs<kP, kN1>(acc16, f, desc_plus(b, b_chunk), b_plane);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operand(acc16);
+      fence_planes<kP>(f);
+      release();
 #pragma unroll
-  for (int i = 0; i < 32; ++i) d[i] += v[i];
+      for (int i = 0; i < kN1 / 2; ++i) acc_head[32 + i] += acc16[i];
+    }
+  }
 }
 
 // Kernel A on kP planes: walk 1 sums dsum = rowsum(dP * P); walk 2
 // recomputes S and dP and accumulates dQ += dS K. Each consumer waits for
-// its own products, the other consumer's running meanwhile: issuing tile
-// it + 1's S and dP before tile it's rowsum, as the bf16 kernel does,
-// needs a second set of 64 accumulators, and ptxas then spilled and
-// serialized the 6-pass kernel's wgmma (C7512), which cost more time than
-// the overlap saved.
-template <int kP>
+// its own products, the other consumer's running meanwhile (at head dim
+// 64; at 80 and 128 a block has one consumer): issuing tile it + 1's S and
+// dP before tile it's rowsum, as the bf16 kernel does, needs a second set
+// of accumulators, and ptxas then spilled and serialized the 6-pass
+// kernel's wgmma at head dim 64 (C7512), which cost more time than the
+// overlap saved.
+template <int kP, int HD>
 __device__ __forceinline__ void bwd_dq_planes(
     const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
     const CUtensorMap& tdo, const float* __restrict__ lse,
     float* __restrict__ dsum, float* __restrict__ dqkv, int S, int valid_len,
     int64_t ld, int q_off, int pz, float scale) {
-  using W = PlaneWalk<kP>;
+  using T = BwdTiles<kP, HD>;
+  using H = Head<HD>;
+  constexpr int kN = T::kWalk, kKK = kN / 16;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* sQ = align_atom(smem_raw);          // [plane][128 rows][64]
-  uint8_t* sdO = sQ + kP * kBlockPlane;        // [plane][128 rows][64]
-  uint8_t* sKV = sdO + kP * kBlockPlane;
-  // stage st: K planes at sKV + st * W::kWalk + p * kWalkBytes, V planes
-  // kP tiles further
-  uint64_t* bars = reinterpret_cast<uint64_t*>(sKV + W::kStages * W::kWalk);
+  uint8_t* sQ = align_atom(smem_raw);  // [plane][chunk][own rows][64]
+  uint8_t* sdO = sQ + kP * T::kOwnPlane;
+  uint8_t* sKV = sdO + kP * T::kOwnPlane;
+  // stage st: K plane p, chunk c at sKV + st * T::kStageBytes + p *
+  // T::kWalkPlane + c * T::kBox, the V planes kP * T::kWalkPlane further
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(sKV + T::kStages * T::kStageBytes);
   uint64_t* own_full = bars;
   uint64_t* full = bars + 1;
-  uint64_t* empty = full + W::kStages;
+  uint64_t* empty = full + T::kStages;
 
-  const int q0 = blockIdx.x * kBlockRows;
+  const int q0 = blockIdx.x * T::kRows;
   const int h = blockIdx.y, b = blockIdx.z;
-  const int col = h * kTmaHeadDim;
-  const int n = (valid_len + kWalkRows - 1) / kWalkRows;
+  const int col = h * HD;
+  const int n = (valid_len + kN - 1) / kN;
   if (threadIdx.x == 0) {
     mbar_init(own_full, 1);
-    for (int s = 0; s < W::kStages; ++s) {
+    for (int s = 0; s < T::kStages; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 2 * 128);
+      mbar_init(&empty[s], T::kWgs * 128);
     }
     mbar_fence_init();
   }
   __syncthreads();
 
   const int wg = threadIdx.x / 128;
-  if (wg == 2) {  // producer: Q and dO once, then K/V tiles for both walks
-    setmaxnreg_dec<kProducerRegs>();
-    if (threadIdx.x == 2 * 128) {
-      mbar_arrive_expect_tx(own_full, W::kOwn);
-      load_block_planes<kP>(sQ, &tq, own_full, col, q0, b, pz);
-      load_block_planes<kP>(sdO, &tdo, own_full, col, q0, b, pz);
+  if (wg == T::kWgs) {  // producer: Q and dO once, then K/V tiles twice
+    producer_regs<T>();
+    if (threadIdx.x == T::kWgs * 128) {
+      mbar_arrive_expect_tx(own_full, T::kOwn);
+      load_own<T>(sQ, &tq, own_full, col, q0, b, pz);
+      load_own<T>(sdO, &tdo, own_full, col, q0, b, pz);
       for (int it = 0; it < 2 * n; ++it) {
-        const int st = it % W::kStages;
-        if (it >= W::kStages)
-          mbar_wait(&empty[st], (it / W::kStages - 1) & 1);
-        const int k0 = (it % n) * kWalkRows;
-        uint8_t* dst = sKV + st * W::kWalk;
-        mbar_arrive_expect_tx(&full[st], W::kWalk);
-        load_walk_planes<kP>(dst, &tk, &full[st], col, k0, b, pz);
-        load_walk_planes<kP>(dst + kP * kWalkBytes, &tv, &full[st], col, k0,
-                             b, pz);
+        const int st = it % T::kStages;
+        if (it >= T::kStages)
+          mbar_wait(&empty[st], (it / T::kStages - 1) & 1);
+        mbar_arrive_expect_tx(&full[st], T::kStageBytes);
+        load_walk<T>(sKV + st * T::kStageBytes, &tk, &tv, &full[st], col,
+                     (it % n) * kN, b, pz);
       }
     }
   } else {
-    setmaxnreg_inc<kConsumerRegs>();
+    consumer_regs<T>();
     const int warp = (threadIdx.x % 128) / 32;
     const int g = (threadIdx.x & 31) >> 2;
     const int t = threadIdx.x & 3;
@@ -1201,34 +1373,37 @@ __device__ __forceinline__ void bwd_dq_planes(
     const int64_t lrow = ((int64_t)b * gridDim.y + h) * S;
     const float lse_r[2] = {row_a < S ? lse[lrow + row_a] : INFINITY,
                             row_a + 8 < S ? lse[lrow + row_a + 8] : INFINITY};
-    const uint64_t dq_desc = sw128_desc(sQ + wg * kHalfBytes);
-    const uint64_t ddo_desc = sw128_desc(sdO + wg * kHalfBytes);
+    const uint64_t dq_desc = sw128_desc(sQ + wg * kWgRows * kRowBytes);
+    const uint64_t ddo_desc = sw128_desc(sdO + wg * kWgRows * kRowBytes);
     mbar_wait(own_full, 0);
 
     // S = Q K^T and dP = dO V^T of tile it, as one wgmma group
-    auto issue = [&](float (&s)[32], float (&dp)[32], int it) {
-      const int st = it % W::kStages;
-      mbar_wait(&full[st], (it / W::kStages) & 1);
-      const uint8_t* tile = sKV + st * W::kWalk;
+    auto issue = [&](float (&s)[kN / 2], float (&dp)[kN / 2], int it) {
+      const int st = it % T::kStages;
+      mbar_wait(&full[st], (it / T::kStages) & 1);
+      const uint8_t* tile = sKV + st * T::kStageBytes;
       wgmma_fence();
-      mma_planes_ss<kP>(s, dq_desc, kBlockPlane, sw128_desc(tile),
-                        kWalkBytes);
-      mma_planes_ss<kP>(dp, ddo_desc, kBlockPlane,
-                        sw128_desc(tile + kP * kWalkBytes), kWalkBytes);
+      mma_planes_ss<kP, H::kKSteps, kN>(s, dq_desc, T::kOwnPlane,
+                                        sw128_desc(tile), T::kWalkPlane,
+                                        T::kOwnChunk, T::kBox);
+      mma_planes_ss<kP, H::kKSteps, kN>(
+          dp, ddo_desc, T::kOwnPlane,
+          sw128_desc(tile + kP * T::kWalkPlane), T::kWalkPlane, T::kOwnChunk,
+          T::kBox);
       wgmma_commit();
     };
 
     // walk 1: dsum = rowsum(dP * P)
     float ds_row[2] = {0.f, 0.f};
-    float s[32], dp[32];
+    float s[kN / 2], dp[kN / 2];
     for (int it = 0; it < n; ++it) {
       issue(s, dp, it);
       wgmma_wait<0>();
       fence_operand(s);
       fence_operand(dp);
-      mbar_arrive(&empty[it % W::kStages]);
-      const int k0 = it * kWalkRows;
-      if (k0 + kWalkRows <= valid_len)
+      mbar_arrive(&empty[it % T::kStages]);
+      const int k0 = it * kN;
+      if (k0 + kN <= valid_len)
         dsum_tile_f32<false>(s, dp, ds_row, k0, valid_len, scale, lse_r, t);
       else
         dsum_tile_f32<true>(s, dp, ds_row, k0, valid_len, scale, lse_r, t);
@@ -1243,143 +1418,142 @@ __device__ __forceinline__ void bwd_dq_planes(
       if (row_a + 8 < S) dsum[lrow + row_a + 8] = ds_row[1];
     }
 
-    // walk 2: dQ = dS K, each tile's product in qt, summed into dq
-    float dq[32], qt[32];
+    // walk 2: dQ = dS K, each tile's product of a chunk in qt, summed into
+    // dq
+    float dq[H::kRegs], qt[32];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) dq[i] = 0.f;
-    uint32_t dsf[kP][4][4];
+    for (int i = 0; i < H::kRegs; ++i) dq[i] = 0.f;
+    uint32_t dsf[kP][kKK][4];
     for (int it = n; it < 2 * n; ++it) {
-      const int st = it % W::kStages;
+      const int st = it % T::kStages;
       issue(s, dp, it);
       wgmma_wait<0>();
       fence_operand(s);
       fence_operand(dp);
-      const int k0 = (it - n) * kWalkRows;
-      if (k0 + kWalkRows <= valid_len)
+      const int k0 = (it - n) * kN;
+      if (k0 + kN <= valid_len)
         ds_tile_planes<false, kP>(s, dp, dsf, ds_row, k0, valid_len, scale,
                                   lse_r, t);
       else
         ds_tile_planes<true, kP>(s, dp, dsf, ds_row, k0, valid_len, scale,
                                  lse_r, t);
-      wgmma_fence();
-      mma_planes_rs<kP>(qt, dsf, sw128_desc(sKV + st * W::kWalk),
-                        kWalkBytes);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_operand(qt);
-      fence_planes<kP>(dsf);
-      mbar_arrive(&empty[st]);
-      add_acc(dq, qt);
+      planes_into_head<kP, HD>(dq, qt, dsf,
+                               sw128_desc(sKV + st * T::kStageBytes),
+                               T::kWalkPlane, T::kBox,
+                               [&] { mbar_arrive(&empty[st]); });
     }
-    store_acc_f32(dqkv + (int64_t)b * S * ld + q_off + col, ld, dq, row_a, S,
-                  t);
+    store_head<HD>(dqkv + (int64_t)b * S * ld + q_off + col, ld, dq, row_a,
+                   S, t);
   }
 }
 
 // Kernel B on kP planes: the block's K and V rows against every Q/dO
 // tile; P^T and dS^T split in registers for dV += P^T dO and dK += dS^T Q,
-// each tile's product in one accumulator, summed into dv and dk.
-template <int kP>
+// each tile's product of a chunk in one accumulator, summed into dv and dk.
+template <int kP, int HD>
 __device__ __forceinline__ void bwd_dkdv_planes(
     const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
     const CUtensorMap& tdo, const float* __restrict__ lse,
     const float* __restrict__ dsum, float* __restrict__ dqkv, int S,
     int valid_len, int64_t ld, int k_off, int v_off, int pz, float scale) {
-  using W = PlaneWalk<kP>;
+  using T = BwdTiles<kP, HD>;
+  using H = Head<HD>;
+  constexpr int kN = T::kWalk, kKK = kN / 16;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* sK = align_atom(smem_raw);    // [plane][128 keys][64]
-  uint8_t* sV = sK + kP * kBlockPlane;   // [plane][128 keys][64]
-  uint8_t* sQdO = sV + kP * kBlockPlane;
-  // stage st: Q planes at sQdO + st * W::kWalk + p * kWalkBytes, dO planes
-  // kP tiles further
-  float* sRow = reinterpret_cast<float*>(sQdO + W::kStages * W::kWalk);
-  // sRow[stage][0][64]: lse of the tile's queries; [stage][1][64]: dsum
-  uint64_t* bars =
-      reinterpret_cast<uint64_t*>(sRow + W::kStages * 2 * kWalkRows);
+  uint8_t* sK = align_atom(smem_raw);  // [plane][chunk][own keys][64]
+  uint8_t* sV = sK + kP * T::kOwnPlane;
+  uint8_t* sQdO = sV + kP * T::kOwnPlane;
+  // stage st: Q plane p, chunk c at sQdO + st * T::kStageBytes + p *
+  // T::kWalkPlane + c * T::kBox, the dO planes kP * T::kWalkPlane further
+  float* sRow = reinterpret_cast<float*>(sQdO + T::kStages * T::kStageBytes);
+  // sRow[stage][0][kN]: lse of the tile's queries; [stage][1][kN]: dsum
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sRow + T::kStages * 2 * kN);
   uint64_t* own_full = bars;
   uint64_t* full = bars + 1;
-  uint64_t* empty = full + W::kStages;
+  uint64_t* empty = full + T::kStages;
 
-  const int kv0 = blockIdx.x * kBlockRows;
+  const int kv0 = blockIdx.x * T::kRows;
   const int h = blockIdx.y, b = blockIdx.z;
-  const int col = h * kTmaHeadDim;
-  const int nq = (S + kWalkRows - 1) / kWalkRows;
+  const int col = h * HD;
+  const int nq = (S + kN - 1) / kN;
   const bool active = kv0 < valid_len;  // else zero gradients, no loads
   const int64_t lrow = ((int64_t)b * gridDim.y + h) * S;
   if (threadIdx.x == 0) {
     mbar_init(own_full, 1);
-    for (int s = 0; s < W::kStages; ++s) {
+    for (int s = 0; s < T::kStages; ++s) {
       mbar_init(&full[s], 32);  // the producer warp
-      mbar_init(&empty[s], 2 * 128);
+      mbar_init(&empty[s], T::kWgs * 128);
     }
     mbar_fence_init();
   }
   __syncthreads();
 
   const int wg = threadIdx.x / 128;
-  if (wg == 2) {  // producer warp: K and V once, then Q/dO tiles
-    setmaxnreg_dec<kProducerRegs>();
-    const int lane = threadIdx.x - 2 * 128;
+  if (wg == T::kWgs) {  // producer warp: K and V once, then Q/dO tiles
+    producer_regs<T>();
+    const int lane = threadIdx.x - T::kWgs * 128;
     if (lane < 32 && active) {
       if (lane == 0) {
-        mbar_arrive_expect_tx(own_full, W::kOwn);
-        load_block_planes<kP>(sK, &tk, own_full, col, kv0, b, pz);
-        load_block_planes<kP>(sV, &tv, own_full, col, kv0, b, pz);
+        mbar_arrive_expect_tx(own_full, T::kOwn);
+        load_own<T>(sK, &tk, own_full, col, kv0, b, pz);
+        load_own<T>(sV, &tv, own_full, col, kv0, b, pz);
       }
       for (int it = 0; it < nq; ++it) {
-        const int st = it % W::kStages;
-        if (it >= W::kStages)
-          mbar_wait(&empty[st], (it / W::kStages - 1) & 1);
-        float* rows = sRow + st * 2 * kWalkRows;
-        for (int i = lane; i < kWalkRows; i += 32) {
-          const int qr = it * kWalkRows + i;
+        const int st = it % T::kStages;
+        if (it >= T::kStages)
+          mbar_wait(&empty[st], (it / T::kStages - 1) & 1);
+        float* rows = sRow + st * 2 * kN;
+        for (int i = lane; i < kN; i += 32) {
+          const int qr = it * kN + i;
           rows[i] = qr < S ? lse[lrow + qr] : INFINITY;
-          rows[kWalkRows + i] = qr < S ? dsum[lrow + qr] : 0.f;
+          rows[kN + i] = qr < S ? dsum[lrow + qr] : 0.f;
         }
         if (lane == 0) {
-          uint8_t* dst = sQdO + st * W::kWalk;
-          mbar_arrive_expect_tx(&full[st], W::kWalk);
-          load_walk_planes<kP>(dst, &tq, &full[st], col, it * kWalkRows, b,
-                               pz);
-          load_walk_planes<kP>(dst + kP * kWalkBytes, &tdo, &full[st], col,
-                               it * kWalkRows, b, pz);
+          mbar_arrive_expect_tx(&full[st], T::kStageBytes);
+          load_walk<T>(sQdO + st * T::kStageBytes, &tq, &tdo, &full[st], col,
+                       it * kN, b, pz);
         } else {
           mbar_arrive(&full[st]);
         }
       }
     }
   } else {
-    setmaxnreg_inc<kConsumerRegs>();
+    consumer_regs<T>();
     const int warp = (threadIdx.x % 128) / 32;
     const int g = (threadIdx.x & 31) >> 2;
     const int t = threadIdx.x & 3;
     const int row_a = kv0 + wg * kWgRows + warp * 16 + g;
-    float dk[32], dv[32];
+    float dk[H::kRegs], dv[H::kRegs];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+    for (int i = 0; i < H::kRegs; ++i) dk[i] = dv[i] = 0.f;
     if (active) {
       const bool keep_r[2] = {row_a < valid_len, row_a + 8 < valid_len};
-      const uint64_t dk_desc = sw128_desc(sK + wg * kHalfBytes);
-      const uint64_t dv_desc = sw128_desc(sV + wg * kHalfBytes);
+      const uint64_t dk_desc = sw128_desc(sK + wg * kWgRows * kRowBytes);
+      const uint64_t dv_desc = sw128_desc(sV + wg * kWgRows * kRowBytes);
       mbar_wait(own_full, 0);
-      float s[32], dp[32], acc[32];  // S^T, dP^T: [64 keys x 64 queries]
-      uint32_t f[kP][4][4];          // P^T's planes, then dS^T's
+      // S^T, dP^T: [64 keys x kN queries]; a chunk's product of the tile
+      float s[kN / 2], dp[kN / 2], acc[32];
+      uint32_t f[kP][kKK][4];  // P^T's planes, then dS^T's
       for (int it = 0; it < nq; ++it) {
-        const int st = it % W::kStages;
-        mbar_wait(&full[st], (it / W::kStages) & 1);
-        const uint8_t* tile = sQdO + st * W::kWalk;
+        const int st = it % T::kStages;
+        mbar_wait(&full[st], (it / T::kStages) & 1);
+        const uint8_t* tile = sQdO + st * T::kStageBytes;
         const uint64_t q_desc = sw128_desc(tile);
-        const uint64_t do_desc = sw128_desc(tile + kP * kWalkBytes);
+        const uint64_t do_desc = sw128_desc(tile + kP * T::kWalkPlane);
         wgmma_fence();
-        mma_planes_ss<kP>(s, dk_desc, kBlockPlane, q_desc, kWalkBytes);
-        mma_planes_ss<kP>(dp, dv_desc, kBlockPlane, do_desc, kWalkBytes);
+        mma_planes_ss<kP, H::kKSteps, kN>(s, dk_desc, T::kOwnPlane, q_desc,
+                                          T::kWalkPlane, T::kOwnChunk,
+                                          T::kBox);
+        mma_planes_ss<kP, H::kKSteps, kN>(dp, dv_desc, T::kOwnPlane, do_desc,
+                                          T::kWalkPlane, T::kOwnChunk,
+                                          T::kBox);
         wgmma_commit();
         wgmma_wait<0>();
         fence_operand(s);
         fence_operand(dp);
-        const float* rows = sRow + st * 2 * kWalkRows;
+        const float* rows = sRow + st * 2 * kN;
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < kN / 8; ++j)
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             const int c = j * 8 + t * 2 + (i & 1);
@@ -1388,34 +1562,24 @@ __device__ __forceinline__ void bwd_dkdv_planes(
                     ? expf(__fmul_rn(s[4 * j + i], scale) - rows[c])
                     : 0.f;
             s[4 * j + i] = p;
-            dp[4 * j + i] = p * (dp[4 * j + i] - rows[kWalkRows + c]) * scale;
+            dp[4 * j + i] = p * (dp[4 * j + i] - rows[kN + c]) * scale;
           }
         split_frags<kP>(f, s);  // P^T
-        wgmma_fence();
-        mma_planes_rs<kP>(acc, f, do_desc, kWalkBytes);
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_operand(acc);
-        fence_planes<kP>(f);
-        add_acc(dv, acc);
+        planes_into_head<kP, HD>(dv, acc, f, do_desc, T::kWalkPlane, T::kBox,
+                                 [] {});
         split_frags<kP>(f, dp);  // dS^T
-        wgmma_fence();
-        mma_planes_rs<kP>(acc, f, q_desc, kWalkBytes);
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_operand(acc);
-        fence_planes<kP>(f);
-        add_acc(dk, acc);
-        mbar_arrive(&empty[st]);
+        planes_into_head<kP, HD>(dk, acc, f, q_desc, T::kWalkPlane, T::kBox,
+                                 [&] { mbar_arrive(&empty[st]); });
       }
     }
     float* out = dqkv + (int64_t)b * S * ld + col;
-    store_acc_f32(out + k_off, ld, dk, row_a, S, t);
-    store_acc_f32(out + v_off, ld, dv, row_a, S, t);
+    store_head<HD>(out + k_off, ld, dk, row_a, S, t);
+    store_head<HD>(out + v_off, ld, dv, row_a, S, t);
   }
 }
 
-__global__ void __launch_bounds__(kBwdThreads, 1)
+template <int HD>
+__global__ void __launch_bounds__(BwdTiles<kPlanes, HD>::kThreads, 1)
 attn_bwd_dq_6pass(const __grid_constant__ CUtensorMap tq,
                   const __grid_constant__ CUtensorMap tk,
                   const __grid_constant__ CUtensorMap tv,
@@ -1423,11 +1587,12 @@ attn_bwd_dq_6pass(const __grid_constant__ CUtensorMap tq,
                   const float* __restrict__ lse, float* __restrict__ dsum,
                   float* __restrict__ dqkv, int S, int valid_len, int64_t ld,
                   int q_off, int pz, float scale) {
-  bwd_dq_planes<3>(tq, tk, tv, tdo, lse, dsum, dqkv, S, valid_len, ld, q_off,
-                   pz, scale);
+  bwd_dq_planes<kPlanes, HD>(tq, tk, tv, tdo, lse, dsum, dqkv, S, valid_len,
+                             ld, q_off, pz, scale);
 }
 
-__global__ void __launch_bounds__(kBwdThreads, 1)
+template <int HD>
+__global__ void __launch_bounds__(BwdTiles<kPlanes, HD>::kThreads, 1)
 attn_bwd_dkdv_6pass(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv,
@@ -1436,11 +1601,12 @@ attn_bwd_dkdv_6pass(const __grid_constant__ CUtensorMap tq,
                     const float* __restrict__ dsum,
                     float* __restrict__ dqkv, int S, int valid_len,
                     int64_t ld, int k_off, int v_off, int pz, float scale) {
-  bwd_dkdv_planes<3>(tq, tk, tv, tdo, lse, dsum, dqkv, S, valid_len, ld,
-                     k_off, v_off, pz, scale);
+  bwd_dkdv_planes<kPlanes, HD>(tq, tk, tv, tdo, lse, dsum, dqkv, S,
+                               valid_len, ld, k_off, v_off, pz, scale);
 }
 
-__global__ void __launch_bounds__(kBwdThreads, 1)
+template <int HD>
+__global__ void __launch_bounds__(BwdTiles<2, HD>::kThreads, 1)
 attn_bwd_dq_3pass_wgmma(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
                         const __grid_constant__ CUtensorMap tv,
@@ -1449,11 +1615,12 @@ attn_bwd_dq_3pass_wgmma(const __grid_constant__ CUtensorMap tq,
                         float* __restrict__ dsum, float* __restrict__ dqkv,
                         int S, int valid_len, int64_t ld, int q_off, int pz,
                         float scale) {
-  bwd_dq_planes<2>(tq, tk, tv, tdo, lse, dsum, dqkv, S, valid_len, ld, q_off,
-                   pz, scale);
+  bwd_dq_planes<2, HD>(tq, tk, tv, tdo, lse, dsum, dqkv, S, valid_len, ld,
+                       q_off, pz, scale);
 }
 
-__global__ void __launch_bounds__(kBwdThreads, 1)
+template <int HD>
+__global__ void __launch_bounds__(BwdTiles<2, HD>::kThreads, 1)
 attn_bwd_dkdv_3pass_wgmma(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
@@ -1463,51 +1630,43 @@ attn_bwd_dkdv_3pass_wgmma(const __grid_constant__ CUtensorMap tq,
                           float* __restrict__ dqkv, int S, int valid_len,
                           int64_t ld, int k_off, int v_off, int pz,
                           float scale) {
-  bwd_dkdv_planes<2>(tq, tk, tv, tdo, lse, dsum, dqkv, S, valid_len, ld,
-                     k_off, v_off, pz, scale);
+  bwd_dkdv_planes<2, HD>(tq, tk, tv, tdo, lse, dsum, dqkv, S, valid_len, ld,
+                         k_off, v_off, pz, scale);
 }
 
-// A plane pair on the kP bf16 planes of qkv and dO (plane strides batch *
-// seq * ld and batch * seq * do_ld elements), into fp32 dqkv;
-// cudaErrorInvalidValue for another head dim.
-template <int kP>
-int launch_planes(int head_dim, int batch, int seq, int heads,
-                  cudaStream_t st, const void* qkv, const void* dout,
-                  const float* lse, float* dsum, float* dqkv, int valid_len,
-                  int64_t ld, int q_off, int k_off, int v_off, int64_t do_ld,
+// A plane pair at head dim HD on the kP bf16 planes of qkv and dO (plane
+// strides batch * seq * ld and batch * seq * do_ld elements), into fp32
+// dqkv.
+template <int kP, int HD>
+int launch_planes(int batch, int seq, int heads, cudaStream_t st,
+                  const void* qkv, const void* dout, const float* lse,
+                  float* dsum, float* dqkv, int valid_len, int64_t ld,
+                  int q_off, int k_off, int v_off, int64_t do_ld,
                   float scale) {
-  if (head_dim != kTmaHeadDim) return static_cast<int>(cudaErrorInvalidValue);
-  using W = PlaneWalk<kP>;
-  const char* base = static_cast<const char*>(qkv);
-  const int64_t cols = (int64_t)heads * kTmaHeadDim;
-  CUtensorMap maps[4];  // q, k, v, dO: 64-row boxes over every plane
-  const void* bases[4] = {base + 2 * (int64_t)q_off, base + 2 * (int64_t)k_off,
-                          base + 2 * (int64_t)v_off, dout};
-  for (int i = 0; i < 4; ++i) {
-    const int64_t row = i < 3 ? ld : do_ld;
-    const cudaError_t err = make_tile_map(&maps[i], bases[i], cols, seq,
-                                          kP * batch, 2 * row,
-                                          2 * seq * row, kWalkRows);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  using T = BwdTiles<kP, HD>;
+  CUtensorMap maps[4];  // q, k, v, dO over every plane
+  if (const int err = bwd_maps<T, HD>(maps, qkv, dout, batch, seq, heads, ld,
+                                      q_off, k_off, v_off, do_ld))
+    return err;
   const void* dq_fn =
-      kP == kPlanes ? reinterpret_cast<const void*>(attn_bwd_dq_6pass)
-                    : reinterpret_cast<const void*>(attn_bwd_dq_3pass_wgmma);
+      kP == kPlanes ? reinterpret_cast<const void*>(attn_bwd_dq_6pass<HD>)
+                    : reinterpret_cast<const void*>(
+                          attn_bwd_dq_3pass_wgmma<HD>);
   const void* dkdv_fn =
       kP == kPlanes
-          ? reinterpret_cast<const void*>(attn_bwd_dkdv_6pass)
-          : reinterpret_cast<const void*>(attn_bwd_dkdv_3pass_wgmma);
-  cudaError_t err = smem_attribute_once(dq_fn, W::kDqSmem);
-  if (err == cudaSuccess) err = smem_attribute_once(dkdv_fn, W::kDkdvSmem);
+          ? reinterpret_cast<const void*>(attn_bwd_dkdv_6pass<HD>)
+          : reinterpret_cast<const void*>(attn_bwd_dkdv_3pass_wgmma<HD>);
+  cudaError_t err = smem_attribute_once(dq_fn, T::kDqSmem);
+  if (err == cudaSuccess) err = smem_attribute_once(dkdv_fn, T::kDkdvSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((seq + kBlockRows - 1) / kBlockRows, heads, batch);
+  const dim3 grid((seq + T::kRows - 1) / T::kRows, heads, batch);
   if constexpr (kP == kPlanes) {
-    attn_bwd_dq_6pass<<<grid, kBwdThreads, W::kDqSmem, st>>>(
+    attn_bwd_dq_6pass<HD><<<grid, T::kThreads, T::kDqSmem, st>>>(
         maps[0], maps[1], maps[2], maps[3], lse, dsum, dqkv, seq, valid_len,
         ld, q_off, batch, scale);
     note_launch();
   } else {
-    attn_bwd_dq_3pass_wgmma<<<grid, kBwdThreads, W::kDqSmem, st>>>(
+    attn_bwd_dq_3pass_wgmma<HD><<<grid, T::kThreads, T::kDqSmem, st>>>(
         maps[0], maps[1], maps[2], maps[3], lse, dsum, dqkv, seq, valid_len,
         ld, q_off, batch, scale);
     note_launch();
@@ -1515,12 +1674,12 @@ int launch_planes(int head_dim, int batch, int seq, int heads,
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   if constexpr (kP == kPlanes) {
-    attn_bwd_dkdv_6pass<<<grid, kBwdThreads, W::kDkdvSmem, st>>>(
+    attn_bwd_dkdv_6pass<HD><<<grid, T::kThreads, T::kDkdvSmem, st>>>(
         maps[0], maps[1], maps[2], maps[3], lse, dsum, dqkv, seq, valid_len,
         ld, k_off, v_off, batch, scale);
     note_launch();
   } else {
-    attn_bwd_dkdv_3pass_wgmma<<<grid, kBwdThreads, W::kDkdvSmem, st>>>(
+    attn_bwd_dkdv_3pass_wgmma<HD><<<grid, T::kThreads, T::kDkdvSmem, st>>>(
         maps[0], maps[1], maps[2], maps[3], lse, dsum, dqkv, seq, valid_len,
         ld, k_off, v_off, batch, scale);
     note_launch();
@@ -1862,26 +2021,45 @@ int launch_3pass(int batch, int seq, int heads, cudaStream_t st,
   return static_cast<int>(cudaGetLastError());
 }
 
+// A plane pair's entry at the TMA head dims; cudaErrorInvalidValue for
+// another head dim.
+template <int kP>
+int launch_planes_at(int head_dim, int batch, int seq, int heads,
+                     void* stream, const void* qkv_planes,
+                     const void* do_planes, const float* lse, float* dsum,
+                     float* d_qkv, int valid_len, long long ld, int q_off,
+                     int k_off, int v_off, long long do_ld, float scale) {
+  return by_head_dim(head_dim, [&](auto hd) {
+    return launch_planes<kP, decltype(hd)::value>(
+        batch, seq, heads, static_cast<cudaStream_t>(stream), qkv_planes,
+        do_planes, lse, dsum, d_qkv, valid_len, ld, q_off, k_off, v_off,
+        do_ld, scale);
+  });
+}
+
 }  // namespace
 
 // qkv and d_qkv: [batch, seq, ld] elements, the q/k/v sections of head h at
 // column {q,k,v}_off + h * head_dim; d_out: [batch, seq, do_ld]; lse and
-// the scratch dsum: [batch, heads, seq] fp32. bf16 at head dim kTmaHeadDim
-// takes the wgmma pair, whose tensor maps need qkv, each section's start,
-// d_out and the row strides ld * 2 and do_ld * 2 bytes to be multiples of
-// kTmaAlign; fp32 at kTmaHeadDim has its own entry
-// (aaclip_attention_packed_bwd_6pass). Returns the CUDA error of the
-// launches (0 on success); cudaErrorInvalidValue for a pair with no kernel
-// here or an operand TMA cannot take.
+// the scratch dsum: [batch, heads, seq] fp32. bf16 at a TMA head dim (64,
+// 80, 128) takes the wgmma pair attn_bwd_{dq,dkdv}_wgmma<HD>, whose tensor
+// maps need qkv, each section's start, d_out and the row strides ld * 2 and
+// do_ld * 2 bytes to be multiples of kTmaAlign; fp32 there has its own
+// entries (aaclip_attention_packed_bwd_6pass, _3pass_wgmma). Returns the
+// CUDA error of the launches (0 on success); cudaErrorInvalidValue for a
+// pair with no kernel here or an operand TMA cannot take.
 extern "C" int aaclip_attention_packed_bwd(
     const void* qkv, const void* d_out, const float* lse, float* dsum,
     void* d_qkv, int bf16, int head_dim, int batch, int seq, int valid_len,
     int heads, long long ld, int q_off, int k_off, int v_off, long long do_ld,
     float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16 && head_dim == kTmaHeadDim)
-    return launch_wgmma(batch, seq, heads, st, qkv, d_out, lse, dsum, d_qkv,
-                        valid_len, ld, q_off, k_off, v_off, do_ld, scale);
+  if (bf16 && tma_head_dim(head_dim))
+    return by_head_dim(head_dim, [&](auto hd) {
+      return launch_wgmma<decltype(hd)::value>(
+          batch, seq, heads, st, qkv, d_out, lse, dsum, d_qkv, valid_len, ld,
+          q_off, k_off, v_off, do_ld, scale);
+    });
   if (bf16 && head_dim == 16)
     return launch_retained<16, true>(batch, seq, heads, st, qkv, d_out, lse,
                                      dsum, d_qkv, valid_len, ld, q_off, k_off,
@@ -1896,8 +2074,8 @@ extern "C" int aaclip_attention_packed_bwd(
 // The 3-pass mode (fp32 under precision "high") of
 // aaclip_attention_packed_bwd at head dim 16: the same operands in fp32,
 // the lse of the forward's 3-pass mode, the mma.sync 3-pass pair;
-// cudaErrorInvalidValue for another head dim (64 has its own entry,
-// aaclip_attention_packed_bwd_3pass_wgmma).
+// cudaErrorInvalidValue for another head dim (the TMA head dims have their
+// own entry, aaclip_attention_packed_bwd_3pass_wgmma).
 extern "C" int aaclip_attention_packed_bwd_3pass(
     const float* qkv, const float* d_out, const float* lse, float* dsum,
     float* d_qkv, int head_dim, int batch, int seq, int valid_len, int heads,
@@ -1909,28 +2087,27 @@ extern "C" int aaclip_attention_packed_bwd_3pass(
                       k_off, v_off, do_ld, scale);
 }
 
-// The 6-pass route (fp32 at head dim kTmaHeadDim under precision
-// "highest" or None) of aaclip_attention_packed_bwd: qkv_planes and
-// do_planes hold the bf16 planes hi, mid and lo of the fp32 qkv [batch,
-// seq, ld] and dO [batch, seq, do_ld], one after the other
-// (attention_packed.cu's aaclip_split3); the tensor maps need each
-// section's start and the row strides ld * 2 and do_ld * 2 bytes to be
-// multiples of kTmaAlign. d_qkv, lse and dsum as aaclip_attention_packed_
-// bwd's, d_qkv in fp32. cudaErrorInvalidValue for another head dim.
+// The 6-pass route (fp32 at a TMA head dim under precision "highest" or
+// None) of aaclip_attention_packed_bwd: qkv_planes and do_planes hold the
+// bf16 planes hi, mid and lo of the fp32 qkv [batch, seq, ld] and dO
+// [batch, seq, do_ld], one after the other (attention_packed.cu's
+// aaclip_split3); the tensor maps need each section's start and the row
+// strides ld * 2 and do_ld * 2 bytes to be multiples of kTmaAlign. d_qkv,
+// lse and dsum as aaclip_attention_packed_bwd's, d_qkv in fp32.
+// cudaErrorInvalidValue for another head dim.
 extern "C" int aaclip_attention_packed_bwd_6pass(
     const void* qkv_planes, const void* do_planes, const float* lse,
     float* dsum, float* d_qkv, int head_dim, int batch, int seq,
     int valid_len, int heads, long long ld, int q_off, int k_off, int v_off,
     long long do_ld, float scale, void* stream) {
-  return launch_planes<kPlanes>(head_dim, batch, seq, heads,
-                                static_cast<cudaStream_t>(stream),
-                                qkv_planes, do_planes, lse, dsum, d_qkv,
-                                valid_len, ld, q_off, k_off, v_off, do_ld,
-                                scale);
+  return launch_planes_at<kPlanes>(head_dim, batch, seq, heads, stream,
+                                   qkv_planes, do_planes, lse, dsum, d_qkv,
+                                   valid_len, ld, q_off, k_off, v_off, do_ld,
+                                   scale);
 }
 
-// The 3-pass route (fp32 at head dim kTmaHeadDim under precision "high")
-// of aaclip_attention_packed_bwd: qkv_planes and do_planes hold the bf16
+// The 3-pass route (fp32 at a TMA head dim under precision "high") of
+// aaclip_attention_packed_bwd: qkv_planes and do_planes hold the bf16
 // planes hi and lo of qkv and dO (attention_packed.cu's aaclip_split2),
 // with the lse of the forward's 3-pass route; otherwise as the 6-pass
 // entry.
@@ -1939,8 +2116,7 @@ extern "C" int aaclip_attention_packed_bwd_3pass_wgmma(
     float* dsum, float* d_qkv, int head_dim, int batch, int seq,
     int valid_len, int heads, long long ld, int q_off, int k_off, int v_off,
     long long do_ld, float scale, void* stream) {
-  return launch_planes<2>(head_dim, batch, seq, heads,
-                          static_cast<cudaStream_t>(stream), qkv_planes,
-                          do_planes, lse, dsum, d_qkv, valid_len, ld, q_off,
-                          k_off, v_off, do_ld, scale);
+  return launch_planes_at<2>(head_dim, batch, seq, heads, stream, qkv_planes,
+                             do_planes, lse, dsum, d_qkv, valid_len, ld,
+                             q_off, k_off, v_off, do_ld, scale);
 }

@@ -169,14 +169,15 @@ __device__ __forceinline__ void split_frag(uint32_t (&f)[kP][KK][4], int k,
     split_pack(x0, x1, f[0][k][r], f[1][k][r]);
 }
 
-// The A fragments of the kP planes (f[plane][k-step]) of a [64 x 64] fp32
-// wgmma accumulator: two adjacent 8-column groups form one 16-deep k-step,
-// as in the bf16 kernels' pack_frags.
-template <int kP>
-__device__ __forceinline__ void split_frags(uint32_t (&f)[kP][4][4],
-                                            const float (&v)[32]) {
+// The A fragments of the kP planes (f[plane][k-step]) of a [64 x 2N] fp32
+// wgmma accumulator (N registers a thread: 32 for 64 columns, 16 for 32):
+// two adjacent 8-column groups form one 16-deep k-step, as in the bf16
+// kernels' pack_frags.
+template <int kP, int N>
+__device__ __forceinline__ void split_frags(uint32_t (&f)[kP][N / 8][4],
+                                            const float (&v)[N]) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < N / 4; ++j) {
     const int k = j >> 1, r = (j & 1) * 2;
     split_frag<kP>(f, k, r, v[4 * j + 0], v[4 * j + 1]);
     split_frag<kP>(f, k, r + 1, v[4 * j + 2], v[4 * j + 3]);

@@ -17,6 +17,14 @@ prints one summary line per K and ``FEW-SHOT SOAK OK``. A bank needs a
 normal image of every class: on this set the 1-shot draw holds none of
 ``bottle``, so ``--memory_bank`` takes shots such as 2 and 4.
 
+One departure from JAX's tool: under ``--memory_bank`` the port reads
+every K-shot file right after drawing them and exits, before any
+training, naming the first shot and class whose draw holds no normal
+(label 0) record. JAX's tool finds it only when that shot's banked
+evaluation raises (``eval/memory_bank.py``'s "no normal (label 0)
+records"), after the shot's whole training run. The draws are JAX's, so
+at every shot JAX's tool completes the port's tables are JAX's.
+
     python -u -m aaclip_tpu_torch.tools.few_shot_soak --shots 1 2 4 \
         --precision bf16 --workdir /tmp/fewshot_soak
 """
@@ -39,6 +47,19 @@ def last_average_row(log_path: str):
     if not rows:
         return None
     return [float(x) for x in rows[-1].split()[1:]]
+
+
+def classes_without_normals(dataset: str, shot: int) -> list:
+    """The classes of the ``{shot}-shot`` training metadata that hold no
+    normal (label 0) record: the classes whose memory bank
+    (``eval/memory_bank.py::support_records``) cannot be built."""
+    from aaclip_tpu_torch.data.datasets import metadata_path, read_jsonl
+    from aaclip_tpu_torch.data.registry import CLASS_NAMES
+
+    records = read_jsonl(metadata_path(dataset, shot))
+    present = {r.class_name for r in records}
+    normal = {r.class_name for r in records if r.label == 0}
+    return [c for c in CLASS_NAMES[dataset] if c in present - normal]
 
 
 def main(argv=None, *, device=None):
@@ -94,6 +115,16 @@ def main(argv=None, *, device=None):
     make_few_shot(["--dataset", "MVTec", "--seed", "111",
                    "--include_anomalous",
                    "--shots"] + [str(k) for k in args.shots])
+    if args.memory_bank:
+        for k in args.shots:
+            missing = classes_without_normals("MVTec", k)
+            if missing:
+                raise SystemExit(
+                    f"--memory_bank: the {k}-shot draw holds no normal "
+                    f"(label 0) record of class {missing[0]!r}, so its "
+                    f"memory bank cannot be built; take shots whose draws "
+                    f"hold a normal image of every class (2 and 4 here). "
+                    f"Nothing was trained.")
 
     common = [
         "--model_name", args.model_name, "--img_size", str(args.img_size),

@@ -141,7 +141,8 @@ Needs one CUDA card and nvcc. Phases, each of which fails the run:
     library and through numpy, raw AUROC/AP within 1e-10 and the rows
     equal, timed, and ``label_components`` against scipy on one class's
     masks; the bf16 CLI once more in a child process with
-    ``AACLIP_NO_NATIVE`` (the numpy metrics and decode), its table equal
+    ``AACLIP_NO_NATIVE`` (the numpy metrics and decode), run beside the
+    fp32 run's direct checks (its work is the host's), its table equal
     to the library run's, its maps/s and metrics seconds beside them.
 10. the training CLI (``python -m aaclip_tpu_torch.train`` through
     ``main``) from phase 9's checkpoint on a synthetic MVTec training set
@@ -219,16 +220,19 @@ Needs one CUDA card and nvcc. Phases, each of which fails the run:
     predicts; (b) int8, bf16 and int8_until 12 maps/s at batch 32 and one
     fc product's parts (``dyn_quant``, ``_int_mm`` with either weight
     layout, the dequant, the bf16 GEMM); (c) ``deploy.py``'s export from
-    phase 9's checkpoint, bf16 at buckets 1-8 and int8 at 8, each reloaded
-    artifact bit for bit against the live predictor at batch 8 (or within
-    1e-4 of the span, printed), ``aaclip::attention_packed`` in every
-    program and 24 B1 launches per artifact call, every ``.pt2`` under 5%
-    of ``params.npz``, export and load seconds; (d) the serving engine on
-    the bf16 artifact: start-up beside phase 12's, 8 concurrent requests
-    within 1.2e-3 of the span of a direct artifact predict, ``bench --mode
-    serve --artifact`` closed loop beside 12d's; (e) ``test --artifact``
-    on one synthetic class, its scores bit for bit a direct artifact
-    predict's, and ``test --precision int8`` on the same class.
+    phase 9's checkpoint, bf16 at buckets 1-8 and int8 at 8 (in a child,
+    ``chip_smoke.py --export-artifact``, beside the bf16 export), each
+    reloaded artifact bit for bit against the live predictor at batch 8
+    (or within 1e-4 of the span, printed), and the bf16 artifact's every
+    bucket against the live predictor at that batch,
+    ``aaclip::attention_packed`` in every program and 24 B1 launches per
+    artifact call, every ``.pt2`` under 5% of ``params.npz``, export and
+    load seconds; (d) the serving
+    engine on the bf16 artifact: start-up beside phase 12's, 8 concurrent
+    requests within 1.2e-3 of the span of a direct artifact predict,
+    ``bench --mode serve --artifact`` closed loop beside 12d's; (e) ``test
+    --artifact`` on one synthetic class, its scores bit for bit a direct
+    artifact predict's, and ``test --precision int8`` on the same class.
 14. data, tensor and sequence parallelism (``aaclip_tpu_torch/parallel``)
     at ViT-L/518: (a) rank 0 of a world of 1 on NCCL (torchrun's
     variables set here): the DP predict (bf16, B=32, maps/s beside the
@@ -286,15 +290,15 @@ Needs one CUDA card and nvcc. Phases, each of which fails the run:
     epoch each), B1 and B2 launched; (e) ``precision_ab`` at tiny-test,
     bf16 against int8, its verdict passed and its margins printed; (f)
     ``serve_smoke`` against the port's server in a child process on the
-    card.
-17. the packed-attention forward at head dims 80 and 128 and open_clip's
+    card, started first and run beside (a-e).
+17. the packed attention at head dims 80 and 128 and open_clip's
     ViT-H-14 @ 518: (a) B1 (and its logsumexp), B3 and B4 at head dim 80
     (16 heads, ViT-H-14's) and 128 (8 heads, a ViT-L width) on the bf16,
     6-pass and 3-pass routes, at S 1370 for batches 8 and 32 and at ragged
     S and valid_len, against their plain versions at phase 3's bars, B3
     and B4 bit for bit B1 on the same values, the fp32 routes within
-    SIX_FP64_MAX_REL and HIGH_FP64_MAX_REL of fp64, the NaN image (no
-    backward there), every launch counted on the route's TMA + wgmma
+    SIX_FP64_MAX_REL and HIGH_FP64_MAX_REL of fp64, the NaN image (the
+    backward too), every launch counted on the route's TMA + wgmma
     kernel (and its splits); each kernel's ms beside its plain version,
     SDPA and its bound; (b) ViT-H-14 from a JSON config that
     ``AACLIP_MODEL_CONFIGS`` names (random weights from seeds): the
@@ -307,8 +311,22 @@ Needs one CUDA card and nvcc. Phases, each of which fails the run:
     checkpoint on two synthetic classes, its table and maps/s printed and
     its scores bit for bit a direct predict's; the fused bf16 predict at
     ViT-L in 8 heads of 128 (the gate admits it) against the unfused one
-    at phase 8e's bars; (c) the backward at head dim 80 raises naming
-    ROADMAP B11.
+    at phase 8e's bars; (c) B2 at head dims 80 and 128 on the three
+    routes, at the step's batch 8 x S 1370 and at ragged S and valid_len,
+    against its plain version at phase 3's bars (phase 11's in the 3-pass
+    mode) and the fp32 routes against fp64, two runs bit-equal, every
+    launch on the route's pair and splits, its ms beside its plain
+    version, SDPA's backward and its bound; (d) ViT-H-14's stage-2 step at
+    batch 8 in bf16, fp32 and fp32_high under remat off, full and
+    selective (24 B1 launches, 47 under full remat, and 23 B2, all on the
+    precision's route) against the step on the plain attention at phase
+    5's bars, images/s each; the same bf16 step at ViT-L in 8 heads of
+    128; the training CLI at ViT-H-14 (one text and one image epoch on two
+    synthetic classes, bf16) and the evaluation CLI on what it trained;
+    the serving engine's answers against its own predict; the int8
+    predict against the plain attention's (phase 13's bars) and, printed,
+    the bf16 predict; the memory bank and banked predict (phase 12a's
+    bars); the DP step at world 1 against the single-process step.
 Phase 3 also holds the V-V mode of the forward kernel (B3) against its
 plain version, in bf16 and fp32, at [16, 1370, 1024], ragged S and head
 dim 16, and against the standard mode on the value section tripled.
@@ -838,15 +856,14 @@ def check_bwd_kernel(dtype_name: str) -> float:
 
 
 def check_tail_isolation(dtype_name: str, precision=None,
-                         case=TAIL_CASE, bwd: bool = True) -> None:
+                         case=TAIL_CASE) -> None:
     """At ``case`` (TAIL_CASE), image 1 NaN against image 1 zero: a kernel
     whose tail tile of one image read the next image's rows (on [B, H, S,
     hd], image 0's last head reading image 1's first) would carry the NaN
     into images 0 and 2 (a masked key's P = 0 times NaN is NaN). The
-    forward and its lse, the backward (unless ``bwd`` is False: head dims
-    80 and 128 have none), the V-V mode and B4 must give images 0 and 2
-    bit for bit the same in both runs, and finite; ``precision="high"``
-    checks the 3-pass mode."""
+    forward and its lse, the backward, the V-V mode and B4 must give
+    images 0 and 2 bit for bit the same in both runs, and finite;
+    ``precision="high"`` checks the 3-pass mode."""
     import torch
 
     from aaclip_tpu_torch.ops.attention import (attention_kernel,
@@ -861,9 +878,8 @@ def check_tail_isolation(dtype_name: str, precision=None,
     qkv = random_qkv(B, S, H, hd, dtype, gen)
     d_out = torch.randn(B, S, dm, generator=gen, device="cuda").to(dtype)
     runs = []
-    wrappers = ((attention_packed, attention_packed_bwd, attention_packed_vv,
-                 attention_kernel) if bwd else
-                (attention_packed, attention_packed_vv, attention_kernel))
+    wrappers = (attention_packed, attention_packed_bwd, attention_packed_vv,
+                attention_kernel)
     before = [w.launches_6pass for w in wrappers]
     for fill in (float("nan"), 0.0):
         x, g = qkv.clone(), d_out.clone()
@@ -873,8 +889,7 @@ def check_tail_isolation(dtype_name: str, precision=None,
         heads = [x[..., i * dm:(i + 1) * dm].reshape(B, S, H, hd)
                  .transpose(1, 2).contiguous() for i in range(3)]
         runs.append((out, lse,
-                     *((attention_packed_bwd(x, g, lse, H, valid, **kw),)
-                       if bwd else ()),
+                     attention_packed_bwd(x, g, lse, H, valid, **kw),
                      attention_packed_vv(x[..., 2 * dm:].contiguous(), H,
                                          valid, **kw),
                      attention_kernel(*heads, valid, **kw)))
@@ -882,8 +897,7 @@ def check_tail_isolation(dtype_name: str, precision=None,
     for w, b in zip(wrappers, before):
         expect_routed(w, b, 2, dtype_name, hd, f"tail {w.__name__}",
                       precision)
-    names = ("forward", "lse", *(("backward",) if bwd else ()), "V-V",
-             "attention_kernel")
+    names = ("forward", "lse", "backward", "V-V", "attention_kernel")
     for name, got, clean in zip(names, *runs):
         same = torch.equal(got[[0, 2]], clean[[0, 2]])
         finite = bool(torch.isfinite(got[[0, 2]]).all())
@@ -1427,6 +1441,27 @@ def expect_6pass(counted: tuple, what: str) -> None:
     SIX_PASS_CALLS[what] = (six, splits)
 
 
+def step_vs_plain(loss_k: float, g_k: dict, loss_p: float, g_p: dict,
+                  what: str) -> tuple:
+    """A kernel step's loss and adapter gradients against the plain
+    step's, at phase 5's bars (loss within STEP_LOSS_RTOL, every leaf's
+    cosine and norm within STEP_GRAD_*); returns (relative loss distance,
+    least cosine, largest |norm ratio - 1|)."""
+    import numpy as np
+    import torch
+
+    cos = min(torch.nn.functional.cosine_similarity(
+        g.flatten().double(), g_p[n].flatten().double(), dim=0).item()
+        for n, g in g_k.items())
+    norm = max(abs(g.norm().item() / g_p[n].norm().item() - 1.0)
+               for n, g in g_k.items())
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    expect(np.isfinite(loss_k) and rel <= STEP_LOSS_RTOL
+           and cos >= STEP_GRAD_COS and norm <= STEP_GRAD_NORM_RTOL,
+           f"{what} off: loss {rel}, cosine {cos}, norm {norm}")
+    return rel, cos, norm
+
+
 def check_step_vs_plain(vit, cfg, acfg, adapter, batch, table, policy,
                         what: str, check_counts) -> tuple:
     """Phase 5's comparison under ``policy``: one stage-2 step with remat,
@@ -1434,9 +1469,6 @@ def check_step_vs_plain(vit, cfg, acfg, adapter, batch, table, policy,
     within STEP_LOSS_RTOL, every adapter gradient's cosine and norm within
     STEP_GRAD_*). ``check_counts(counts())`` runs right after the kernel
     step; returns those (standard, V-V, backward) launches."""
-    import numpy as np
-    import torch
-
     zero_counts()
     loss_k, g_k, _, _, _ = train_step_once(
         vit, cfg, acfg, adapter, batch, table, policy=policy, remat=True)
@@ -1446,23 +1478,13 @@ def check_step_vs_plain(vit, cfg, acfg, adapter, batch, table, policy,
         vit, cfg, acfg, adapter, batch, table, policy=policy, remat=True,
         attn_fn=make_attn_fn_plain(cfg.vision.heads, policy,
                                    differentiable=True))
-    worst_cos, worst_norm = 1.0, 0.0
-    for name, gk in g_k.items():
-        cos = torch.nn.functional.cosine_similarity(
-            gk.flatten().double(), g_p[name].flatten().double(),
-            dim=0).item()
-        norm = abs(gk.norm().item() / g_p[name].norm().item() - 1.0)
-        worst_cos, worst_norm = min(worst_cos, cos), max(worst_norm, norm)
-    rel = abs(loss_k - loss_p) / abs(loss_p)
+    expect(fwd_p == bwd_p == 0, f"{what}: the plain step launched a kernel")
+    rel, worst_cos, worst_norm = step_vs_plain(loss_k, g_k, loss_p, g_p,
+                                               what)
     print(f"{what}: launches {launched}; plain step {fwd_p}, {bwd_p}; loss "
           f"{loss_k:.6f} vs plain {loss_p:.6f} ({rel:.3e} relative); "
           f"gradients over {len(g_k)} leaves: min cosine {worst_cos:.8f}, "
           f"max |norm ratio - 1| {worst_norm:.3e}")
-    expect(fwd_p == bwd_p == 0, f"{what}: the plain step launched a kernel")
-    expect(np.isfinite(loss_k) and rel <= STEP_LOSS_RTOL
-           and worst_cos >= STEP_GRAD_COS
-           and worst_norm <= STEP_GRAD_NORM_RTOL,
-           f"{what} off: loss {rel}, cosine {worst_cos}, norm {worst_norm}")
     return launched
 
 
@@ -3025,15 +3047,17 @@ def eval_log(log: str, name: str):
     return rate, host[0], mtimes
 
 
-def eval_cli_numpy_path(native_save, ckpt_path, adapters, B, native_rate,
-                        native_mtimes, card) -> None:
+def start_eval_cli_numpy_path(native_save, ckpt_path, adapters, B) -> dict:
     """The bf16 evaluation CLI again, in a child process with
-    ``AACLIP_NO_NATIVE`` set (the numpy metrics and decode): its log must
-    say so, its table must equal the native run's, and its maps/s and
-    metrics_eval seconds per class print beside the native run's."""
+    ``AACLIP_NO_NATIVE`` set (the numpy metrics and decode), started and
+    left running: phase 9's fp32 checks go on beside it (its work is on the
+    host: a numpy decode at ~9 maps/s). ``finish_eval_cli_numpy_path``
+    waits for it and checks it. Its output goes to files beside its save
+    path, so no pipe can fill."""
     import gc
     import os
     import subprocess
+    import threading
 
     import torch
 
@@ -3041,17 +3065,45 @@ def eval_cli_numpy_path(native_save, ckpt_path, adapters, B, native_rate,
     shutil.copytree(adapters, save)
     gc.collect()
     torch.cuda.empty_cache()
+    out = open(save + ".out", "w")
     t0 = time.perf_counter()
-    proc = subprocess.run(
+    proc = subprocess.Popen(
         [sys.executable, "-m", "aaclip_tpu_torch.test", "--clip_checkpoint",
          ckpt_path, "--save_path", save, "--precision", "bf16",
          "--batch_size", str(B), "--csv"],
         cwd=os.path.dirname(os.path.abspath(__file__)),
-        env={**os.environ, "AACLIP_NO_NATIVE": "1"}, capture_output=True,
-        text=True, timeout=1200)
-    wall = time.perf_counter() - t0
+        env={**os.environ, "AACLIP_NO_NATIVE": "1"}, stdout=out,
+        stderr=subprocess.STDOUT, text=True)
+    child = {"proc": proc, "save": save, "native_save": native_save,
+             "B": B, "out": out, "t0": t0, "ended": []}
+    # the process's own wall, whenever the parent comes to collect it
+    threading.Thread(target=lambda: (proc.wait(), child["ended"].append(
+        time.perf_counter())), daemon=True).start()
+    return child
+
+
+def finish_eval_cli_numpy_path(child, native_rate, native_mtimes,
+                               card) -> None:
+    """Waits for ``start_eval_cli_numpy_path``'s child: its log must say it
+    ran the numpy paths, its table must equal the native run's, and its
+    maps/s and metrics_eval seconds per class print beside the native
+    run's (read while the parent's fp32 checks ran)."""
+    import os
+    import subprocess
+
+    proc = child["proc"]
+    try:
+        proc.wait(timeout=1200)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    child["out"].close()
+    while not child["ended"]:
+        time.sleep(0.01)
+    wall = child["ended"][0] - child["t0"]
+    save, native_save = child["save"], child["native_save"]
     expect(proc.returncode == 0, f"eval CLI, numpy path: exit "
-           f"{proc.returncode}: {proc.stderr[-2000:]}")
+           f"{proc.returncode}: {open(save + '.out').read()[-2000:]}")
     rate, host_line, mtimes = eval_log(
         open(os.path.join(save, "test.log")).read(), "bf16 numpy")
     expect(host_line.startswith("metrics numpy")
@@ -3059,9 +3111,10 @@ def eval_cli_numpy_path(native_save, ckpt_path, adapters, B, native_rate,
            f"eval CLI, numpy path: {host_line}")
     same = read_csv(os.path.join(save, "results_1.csv")) == \
         read_csv(os.path.join(native_save, "results_1.csv"))
-    print(f"eval CLI bf16 B={B}, child process with AACLIP_NO_NATIVE: "
+    print(f"eval CLI bf16 B={child['B']}, child process with "
+          f"AACLIP_NO_NATIVE, beside the fp32 run's direct checks: "
           f"{host_line}; {rate:.2f} maps/s logged against {native_rate:.2f} "
-          f"on the host library; metrics_eval per class "
+          f"on the host library (run alone); metrics_eval per class "
           f"{', '.join(f'{t:.2f}' for t in mtimes)} s against "
           f"{', '.join(f'{t:.2f}' for t in native_mtimes)} s; tables equal "
           f"{same}; {wall:.1f} s for the process on {card}")
@@ -3119,6 +3172,7 @@ def phase_eval_cli(card, ckpt_path: str) -> None:
     tmp = tempfile.mkdtemp(prefix="aaclip_eval_cli_")
     env_before = {k: os.environ.get(k) for k in ("AACLIP_DATA",
                                                  "AACLIP_METADATA")}
+    numpy_child = None
     try:
         # the host libraries: the metrics one must build here; the image
         # one needs libjpeg and libpng headers, which the host may lack
@@ -3225,9 +3279,11 @@ def phase_eval_cli(card, ckpt_path: str) -> None:
                   f"throughput, the first class excluded); {wall:.2f} s "
                   f"for the whole main(); metrics_eval per class "
                   f"{', '.join(f'{t:.2f}' for t in mtimes)} s on {card}")
-            if name == "bf16":
-                eval_cli_numpy_path(save, ckpt_path, adapters, B, rate,
-                                    mtimes, card)
+            if name == "bf16":  # the numpy path's child, started below
+                native_run = (save, rate, mtimes, B)
+            else:
+                numpy_child = start_eval_cli_numpy_path(
+                    native_run[0], ckpt_path, adapters, native_run[3])
 
             # (b) the CLI's scores equal a direct predict, bit for bit
             uint8 = name == "bf16"
@@ -3355,7 +3411,8 @@ def phase_eval_cli(card, ckpt_path: str) -> None:
                   f"{', '.join(f'{t:.2f}' for t in host_s['loader'])} s, "
                   f"metrics_eval (pixel and image AUROC/AP) "
                   f"{', '.join(f'{t:.2f}' for t in host_s['metrics'])} s "
-                  f"on {card}")
+                  + ("" if name == "bf16" else "(the numpy path's child "
+                     "beside them) ") + f"on {card}")
             print(f"eval CLI {name}: the CLI's scores equal the direct "
                   f"predict's bit for bit; kernel vs plain attention: max|d "
                   f"map| {dpix_rel:.3e} of the span, max|d score| "
@@ -3418,6 +3475,8 @@ def phase_eval_cli(card, ckpt_path: str) -> None:
             del kernel, plain, library, exact, exact_attention
             gc.collect()
             torch.cuda.empty_cache()
+        finish_eval_cli_numpy_path(numpy_child, native_run[1],
+                                   native_run[2], card)
 
         # (d) the 3-pass M q Mᵀ against fp64
         gen = torch.Generator(device="cuda").manual_seed(9)
@@ -3435,6 +3494,9 @@ def phase_eval_cli(card, ckpt_path: str) -> None:
         expect(errs["high"] <= PP_3PASS_SPAN_FRAC,
                f"3-pass M q Mᵀ off by {errs['high']} of the span")
     finally:
+        if numpy_child is not None and numpy_child["proc"].poll() is None:
+            numpy_child["proc"].kill()
+            numpy_child["proc"].wait()
         for k, v in env_before.items():
             if v is None:
                 os.environ.pop(k, None)
@@ -4745,9 +4807,17 @@ SERVE_CLOSED_REQUESTS = 100  # per client: ~6 s at ~130 maps/s
 WARMUP_BUCKETS = 4  # 1, 2, 4, 8 at max_batch 8
 
 
-def phase_memory_bank(vit, adapter, cfg, acfg, anchors, M, card, gen):
-    """Phase 12a; returns the plain predict's maps/s at batch 8 and 32 and
-    the launches per features batch and per mb predict."""
+def check_memory_bank(vit, adapter, cfg, acfg, anchors, M, gen,
+                      what: str) -> dict:
+    """Phase 12a's checks, at any tower (launches counted by the blocks up
+    to the last tap, ``max(acfg.levels)``): MB_SUPPORT seeded support
+    images' bank, its shape and B1 launches a features batch; the banked
+    predict (MB_BATCH seeded images) at weight 0 bit for bit the predict,
+    at 0.5 against the plain attention's within MB_PIX_SPAN_FRAC of the
+    span and SCORE_ATOL_BF16 (the plain predictor launching nothing); the
+    support images against their own bank below MB_SELF_MAX. Returns the
+    predict, the 0.5 predictor, the images, the bank and the launches per
+    features batch and per banked predict."""
     import torch
 
     from aaclip_tpu_torch.core.config import DtypePolicy
@@ -4755,9 +4825,8 @@ def phase_memory_bank(vit, adapter, cfg, acfg, anchors, M, card, gen):
     from aaclip_tpu_torch.eval.predict import make_predict_fn
     from aaclip_tpu_torch.ops.attention import attention_packed
 
-    heads, img, n_layers = cfg.vision.heads, cfg.vision.image_size, \
-        cfg.vision.layers
-    L = cfg.vision.grid ** 2
+    heads, img = cfg.vision.heads, cfg.vision.image_size
+    depth, L = max(acfg.levels), cfg.vision.grid ** 2
     bf16 = DtypePolicy.bf16()
     kw = dict(policy=bf16, uint8_inputs=True)
     plain = make_predict_fn(vit, cfg, acfg, **kw)
@@ -4776,11 +4845,71 @@ def phase_memory_bank(vit, adapter, cfg, acfg, anchors, M, card, gen):
                            batch_size=MB_SUPPORT)
     torch.cuda.synchronize()
     feat_launches = attention_packed.launches
-    expect(feat_launches == n_layers,
-           f"bank features: {feat_launches} B1 launches, not {n_layers}")
+    expect(feat_launches == depth,
+           f"{what} bank features: {feat_launches} B1 launches, not {depth}")
     expect(tuple(bank.shape) == (len(acfg.levels), MB_SUPPORT * L,
                                  cfg.embed_dim),
-           f"bank shape {tuple(bank.shape)}")
+           f"{what} bank shape {tuple(bank.shape)}")
+
+    # 1. bank_weight 0: the plain predict's output, bit for bit
+    pix0, s0 = plain(adapter, test, anchors, M)
+    pix_w0, s_w0 = mb0(adapter, test, anchors, M, bank)
+    same = bool(torch.equal(pix0, pix_w0) and torch.equal(s0, s_w0))
+    print(f"{what} mb predict bank_weight 0 vs make_predict_fn B={MB_BATCH}:"
+          f" bit for bit {same} (max|d map| "
+          f"{(pix0 - pix_w0).abs().max().item():.3e})")
+    expect(same, f"{what} mb predict at bank_weight 0 differs from the "
+           f"predict")
+
+    # 2. bank_weight 0.5, kernel against the plain attention
+    zero_counts()
+    pix_k, s_k = mb5(adapter, test, anchors, M, bank)
+    torch.cuda.synchronize()
+    mb_launches = attention_packed.launches
+    expect(mb_launches == depth,
+           f"{what} mb predict: {mb_launches} B1 launches, not {depth}")
+    bank_p = mb.collect_bank(mb5_plain.features_fn, adapter, support,
+                             batch_size=MB_SUPPORT)
+    pix_p, s_p = mb5_plain(adapter, test, anchors, M, bank_p)
+    expect(attention_packed.launches == depth,
+           f"{what}: the plain-attention mb predictor launched the kernel")
+    expect(bool(torch.isfinite(pix_k).all() and torch.isfinite(s_k).all()),
+           f"{what} mb predict output not finite")
+    span = (pix_p.max() - pix_p.min()).item()
+    dpix = (pix_k - pix_p).abs().max().item()
+    dscore = (s_k - s_p).abs().max().item()
+    print(f"{what} mb predict bank_weight 0.5 B={MB_BATCH}, kernel vs plain "
+          f"attention: map span {span:.4f}, max|d map| {dpix:.3e} "
+          f"({dpix / span:.3e} of span, bar {MB_PIX_SPAN_FRAC}), "
+          f"max|d score| {dscore:.3e} (bar {SCORE_ATOL_BF16}); bank "
+          f"max|d| {(bank - bank_p).abs().max().item():.3e}")
+    expect(dpix <= MB_PIX_SPAN_FRAC * span, f"{what} mb map off: {dpix}")
+    expect(dscore <= SCORE_ATOL_BF16, f"{what} mb scores off: {dscore}")
+    del bank_p, pix_p, pix_w0, pix0, mb0, mb5_plain
+
+    # 3. the support images against their own bank
+    seg, _ = mb5.features_fn(adapter, support)
+    self_max = mb.bank_grid_scores(seg, bank).abs().max().item()
+    print(f"{what} memory bank: support images against their own bank, max "
+          f"score {self_max:.3e} (bar {MB_SELF_MAX})")
+    expect(self_max < MB_SELF_MAX, f"{what} self-support score {self_max}")
+    return {"plain": plain, "mb5": mb5, "support": support, "test": test,
+            "bank": bank, "feat": feat_launches, "mb": mb_launches}
+
+
+def phase_memory_bank(vit, adapter, cfg, acfg, anchors, M, card, gen):
+    """Phase 12a; returns the plain predict's maps/s at batch 8 and 32 and
+    the launches per features batch and per mb predict."""
+    import torch
+
+    from aaclip_tpu_torch.eval import memory_bank as mb
+
+    img = cfg.vision.image_size
+    r = check_memory_bank(vit, adapter, cfg, acfg, anchors, M, gen,
+                          "ViT-L")
+    plain, mb5, support, test, bank = (r[k] for k in (
+        "plain", "mb5", "support", "test", "bank"))
+    feat_launches, mb_launches = r["feat"], r["mb"]
     bank_s = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -4788,49 +4917,6 @@ def phase_memory_bank(vit, adapter, cfg, acfg, anchors, M, card, gen):
                         batch_size=MB_SUPPORT)
         torch.cuda.synchronize()
         bank_s.append(time.perf_counter() - t0)
-
-    # 1. bank_weight 0: the plain predict's output, bit for bit
-    pix0, s0 = plain(adapter, test, anchors, M)
-    pix_w0, s_w0 = mb0(adapter, test, anchors, M, bank)
-    same = bool(torch.equal(pix0, pix_w0) and torch.equal(s0, s_w0))
-    print(f"mb predict bank_weight 0 vs make_predict_fn B={MB_BATCH}: bit "
-          f"for bit {same} (max|d map| "
-          f"{(pix0 - pix_w0).abs().max().item():.3e})")
-    expect(same, "mb predict at bank_weight 0 differs from the predict")
-
-    # 2. bank_weight 0.5, kernel against the plain attention
-    zero_counts()
-    pix_k, s_k = mb5(adapter, test, anchors, M, bank)
-    torch.cuda.synchronize()
-    mb_launches = attention_packed.launches
-    expect(mb_launches == n_layers,
-           f"mb predict: {mb_launches} B1 launches, not {n_layers}")
-    bank_p = mb.collect_bank(mb5_plain.features_fn, adapter, support,
-                             batch_size=MB_SUPPORT)
-    pix_p, s_p = mb5_plain(adapter, test, anchors, M, bank_p)
-    expect(attention_packed.launches == n_layers,
-           "the plain-attention mb predictor launched the kernel")
-    expect(bool(torch.isfinite(pix_k).all() and torch.isfinite(s_k).all()),
-           "mb predict output not finite")
-    span = (pix_p.max() - pix_p.min()).item()
-    dpix = (pix_k - pix_p).abs().max().item()
-    dscore = (s_k - s_p).abs().max().item()
-    print(f"mb predict bank_weight 0.5 B={MB_BATCH}, kernel vs plain "
-          f"attention: map span {span:.4f}, max|d map| {dpix:.3e} "
-          f"({dpix / span:.3e} of span, bar {MB_PIX_SPAN_FRAC}), "
-          f"max|d score| {dscore:.3e} (bar {SCORE_ATOL_BF16}); bank "
-          f"max|d| {(bank - bank_p).abs().max().item():.3e}")
-    expect(dpix <= MB_PIX_SPAN_FRAC * span, f"mb map off: {dpix}")
-    expect(dscore <= SCORE_ATOL_BF16, f"mb scores off: {dscore}")
-    del bank_p, pix_p, pix_w0, pix0
-
-    # 3. the support images against their own bank
-    seg, _ = mb5.features_fn(adapter, support)
-    self_max = mb.bank_grid_scores(seg, bank).abs().max().item()
-    print(f"memory bank: support images against their own bank, max score "
-          f"{self_max:.3e} (bar {MB_SELF_MAX})")
-    expect(self_max < MB_SELF_MAX, f"self-support score {self_max}")
-    del seg
 
     # rates in one call: the plain predict at 8 and 32, the mb predict
     ms_plain = cuda_ms(lambda: plain(adapter, test, anchors, M), 10)
@@ -4855,7 +4941,7 @@ def phase_memory_bank(vit, adapter, cfg, acfg, anchors, M, card, gen):
           f"({ms_mb / ms_plain:.3f}x the time), predict "
           f"{rates['predict B=32']:.2f} maps/s at B=32; bank build "
           f"{', '.join(f'{t:.3f}' for t in bank_s)} s on {card}")
-    del plain, mb0, mb5, mb5_plain, bank, test32
+    del plain, mb5, bank, test32, r
     return rates, feat_launches, mb_launches
 
 
@@ -5284,12 +5370,15 @@ SERVE_READINGS = {}
 # rows (dyn_quant, _int_mm with the weight as the [in, out] column-major
 # view and as a contiguous [in, out] copy, the dequant, the bf16 GEMM).
 # (c) Export (deploy.py) from phase 9's checkpoint: bf16 at buckets 1, 2,
-# 4, 8 and int8 at 8; each reloaded artifact against the live predictor at
-# batch 8 (bf16 also 4), bit for bit, or, if an exported op's form moves
-# the bits on the card, within ART_SPAN_FRAC of the map's span, printed;
-# every program's graph holds aaclip::attention_packed and each artifact
-# call launches B1 24 times; every .pt2 under ART_GRAPH_FRAC of
-# params.npz; export seconds per program and the load seconds printed. (d)
+# 4, 8 and int8 at 8 (the int8 export in a child process beside the bf16
+# one: both are host work); each reloaded artifact against the live
+# predictor at batch 8, and the bf16 artifact at each bucket's batch
+# against the live predictor built here as deploy.py builds it, bit for
+# bit, or, if an exported op's form moves the bits on the card, within
+# ART_SPAN_FRAC of the map's span, printed; every program's graph holds
+# aaclip::attention_packed and each artifact call launches B1 24 times;
+# every .pt2 under ART_GRAPH_FRAC of params.npz; export seconds per
+# program and the load seconds printed. (d)
 # The serving engine from the bf16 artifact (max_batch 8): start-up
 # against phase 12's live engine, 8 concurrent requests against a direct
 # artifact predict of the same images within SERVE_ART_SPAN_FRAC of the
@@ -5310,58 +5399,98 @@ ART_BUCKETS = (1, 2, 4, 8)
 ART_EVAL_NORMAL, ART_EVAL_ANOMALOUS = 8, 16
 
 
-def phase_int8(vit, adapter, cfg, acfg, anchors, M, card, gen) -> dict:
-    """Phase 13a-b; returns the launches per int8 predict and the rates."""
-    import dataclasses
+def check_int8(vit, adapter, cfg, acfg, images, anchors, M,
+               what: str) -> tuple:
+    """Phase 13a's check, at any tower: the int8 predict (``uint8``
+    ``images``) against the same int8 trunk on the plain attention at
+    INT8_PIX_SPAN_FRAC of the span and SCORE_ATOL_BF16, finite; four int8
+    weights a block of the tower, B1 launches and four ``qdot`` calls a
+    block up to the last tap (``max(acfg.levels)``), none from the plain
+    predictor. Returns (the predictor, its maps and scores, launches,
+    qdot calls)."""
     import gc
 
-    import numpy as np
     import torch
 
     from aaclip_tpu_torch.core.config import DtypePolicy
     from aaclip_tpu_torch.eval.predict import make_predict_fn
     from aaclip_tpu_torch.ops.attention import attention_packed
-    from aaclip_tpu_torch.ops.quant import dyn_quant, qdot, quantize_weight
+    from aaclip_tpu_torch.ops.quant import qdot
 
-    heads, img, n_layers = cfg.vision.heads, cfg.vision.image_size, \
-        cfg.vision.layers
+    heads, depth = cfg.vision.heads, max(acfg.levels)
     int8 = DtypePolicy.int8()
-    int8_k = dataclasses.replace(int8, int8_until=INT8_UNTIL)
     kw = dict(uint8_inputs=True)
-    B = INT8_BATCH
-    images = torch.randint(0, 256, (B, 3, img, img), generator=gen,
-                           device="cuda", dtype=torch.uint8)
     p8 = make_predict_fn(vit, cfg, acfg, policy=int8, **kw)
     p8_plain = make_predict_fn(vit, cfg, acfg, policy=int8,
                                attn_fn=make_attn_fn_plain(heads, int8), **kw)
     n_q = sum(1 for v in p8.visual.values() if v.dtype == torch.int8)
-    expect(n_q == 4 * n_layers, f"int8 predictor: {n_q} int8 weights")
+    expect(n_q == 4 * cfg.vision.layers,
+           f"{what} int8 predictor: {n_q} int8 weights")
 
     zero_counts()
     qdot.launches = 0
     pix_k, s_k = p8(adapter, images, anchors, M)
     torch.cuda.synchronize()
     launches, q_calls = attention_packed.launches, qdot.launches
-    expect(launches == n_layers, f"int8 predict: {launches} B1 launches")
-    expect(q_calls == 4 * n_layers, f"int8 predict: {q_calls} qdot calls")
+    expect(launches == depth, f"{what} int8 predict: {launches} B1 launches")
+    expect(q_calls == 4 * depth, f"{what} int8 predict: {q_calls} qdot "
+           f"calls")
     pix_p, s_p = p8_plain(adapter, images, anchors, M)
-    expect(attention_packed.launches == n_layers,
-           "the plain-attention int8 predictor launched the kernel")
+    expect(attention_packed.launches == depth,
+           f"{what}: the plain-attention int8 predictor launched the kernel")
     expect(bool(torch.isfinite(pix_k).all() and torch.isfinite(s_k).all()),
-           "int8 predict output not finite")
+           f"{what} int8 predict output not finite")
     span = (pix_p.max() - pix_p.min()).item()
     dpix = (pix_k - pix_p).abs().max().item()
     dscore = (s_k - s_p).abs().max().item()
-    print(f"int8 predict B={B}, kernel vs plain attention: map span "
-          f"{span:.4f}, max|d map| {dpix:.3e} ({dpix / span:.3e} of span, "
-          f"bar {INT8_PIX_SPAN_FRAC}), max|d score| {dscore:.3e} (bar "
-          f"{SCORE_ATOL_BF16}); {launches} B1 launches, {q_calls} qdot "
-          f"calls per predict")
-    expect(dpix <= INT8_PIX_SPAN_FRAC * span, f"int8 map off: {dpix}")
-    expect(dscore <= SCORE_ATOL_BF16, f"int8 scores off: {dscore}")
+    print(f"{what} int8 predict B={images.shape[0]}, kernel vs plain "
+          f"attention: map span {span:.4f}, max|d map| {dpix:.3e} "
+          f"({dpix / span:.3e} of span, bar {INT8_PIX_SPAN_FRAC}), max|d "
+          f"score| {dscore:.3e} (bar {SCORE_ATOL_BF16}); {launches} B1 "
+          f"launches, {q_calls} qdot calls per predict")
+    expect(dpix <= INT8_PIX_SPAN_FRAC * span, f"{what} int8 map off: {dpix}")
+    expect(dscore <= SCORE_ATOL_BF16, f"{what} int8 scores off: {dscore}")
     del p8_plain, pix_p, s_p
     gc.collect()
     torch.cuda.empty_cache()
+    return p8, pix_k, s_k, launches, q_calls
+
+
+def int8_distances(pix_k, s_k, outs: dict) -> None:
+    """Prints the int8 predict's distance from each of ``outs`` ({name:
+    (maps, scores)} on the same images): map correlation, max |d map| of
+    the other's span, max |d score|; no bar (random weights are not a
+    task: the task gate is the CPU test's)."""
+    import torch
+
+    for name, (pix, s) in outs.items():
+        a, b = pix_k.double().flatten(), pix.double().flatten()
+        corr = torch.corrcoef(torch.stack([a, b]))[0, 1].item()
+        sp = (pix.max() - pix.min()).item()
+        print(f"int8 predict against {name}: map correlation {corr:.6f}, "
+              f"max|d map| {(pix_k - pix).abs().max().item() / sp:.3e} of "
+              f"its span, max|d score| {(s_k - s).abs().max().item():.3e}")
+
+
+def phase_int8(vit, adapter, cfg, acfg, anchors, M, card, gen) -> dict:
+    """Phase 13a-b; returns the launches per int8 predict and the rates."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from aaclip_tpu_torch.core.config import DtypePolicy
+    from aaclip_tpu_torch.eval.predict import make_predict_fn
+    from aaclip_tpu_torch.ops.quant import dyn_quant, qdot, quantize_weight
+
+    heads, img = cfg.vision.heads, cfg.vision.image_size
+    int8_k = dataclasses.replace(DtypePolicy.int8(), int8_until=INT8_UNTIL)
+    kw = dict(uint8_inputs=True)
+    B = INT8_BATCH
+    images = torch.randint(0, 256, (B, 3, img, img), generator=gen,
+                           device="cuda", dtype=torch.uint8)
+    p8, pix_k, s_k, launches, q_calls = check_int8(
+        vit, adapter, cfg, acfg, images, anchors, M, "ViT-L")
     # the bf16 predict's own kernel-vs-plain distance on these images
     bf16 = DtypePolicy.bf16()
     pb = make_predict_fn(vit, cfg, acfg, policy=bf16, **kw)
@@ -5396,13 +5525,7 @@ def phase_int8(vit, adapter, cfg, acfg, anchors, M, card, gen) -> dict:
         out["fp32"] = pf(adapter, images, anchors, M)
         del pf
         out["int8_until"] = pk(adapter, images, anchors, M)
-    for name, (pix, s) in out.items():
-        a, b = pix_k.double().flatten(), pix.double().flatten()
-        corr = torch.corrcoef(torch.stack([a, b]))[0, 1].item()
-        sp = (pix.max() - pix.min()).item()
-        print(f"int8 predict against {name}: map correlation {corr:.6f}, "
-              f"max|d map| {(pix_k - pix).abs().max().item() / sp:.3e} of "
-              f"its span, max|d score| {(s_k - s).abs().max().item():.3e}")
+    int8_distances(pix_k, s_k, out)
     del out
     gc.collect()
     torch.cuda.empty_cache()
@@ -5493,6 +5616,110 @@ def check_artifact(name: str, art, card) -> int:
     return calls
 
 
+def check_buckets_vs_live(art, ckpt_path: str, adapters: str) -> None:
+    """13c: the loaded bf16 artifact at each exported bucket's batch (the
+    engine pads nothing then) against the live predictor on the same
+    seeded images, built from the checkpoint and ``adapters`` as
+    ``deploy.export_serving_artifact`` builds it: bit for bit, or within
+    ART_SPAN_FRAC of the map's span."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from aaclip_tpu_torch.core.config import (AdapterConfig, DtypePolicy,
+                                              get_config)
+    from aaclip_tpu_torch.core.params import (adapter_from_jax,
+                                              adapter_to_jax,
+                                              create_clip_towers,
+                                              init_image_adapter)
+    from aaclip_tpu_torch.eval.predict import make_predict_fn
+    from aaclip_tpu_torch.train import checkpoint as ckpt
+
+    cfg = get_config("ViT-L-14-336", img_size=art.img_size)
+    acfg = AdapterConfig()
+    vit, _ = create_clip_towers(cfg, checkpoint=ckpt_path)
+    template = adapter_to_jax(init_image_adapter(cfg, acfg, device="cpu"))
+    tree, _, path, _ = ckpt.discover_serving_adapters(adapters, template,
+                                                      None)
+    expect(path is not None, f"13c: no image adapter under {adapters}")
+    image_adapter = adapter_from_jax(tree, cfg, acfg)
+    live = make_predict_fn(vit, cfg, acfg, policy=DtypePolicy.bf16(),
+                           uint8_inputs=True)
+    cls = sorted(art.anchors["MVTec"])[0]
+    M = torch.from_numpy(art.postproc["MVTec"]).cuda()
+    rng = np.random.default_rng(15)
+    readings = []
+    for b in art.batch_sizes:
+        imgs = rng.integers(0, 256, (b, 3, art.img_size, art.img_size),
+                            dtype=np.uint8)
+        maps, scores = art.predict_class(imgs, "MVTec", cls)
+        anc = np.broadcast_to(art.anchors["MVTec"][cls],
+                              (b,) + art.anchors["MVTec"][cls].shape)
+        with torch.inference_mode():
+            pix, score = live(image_adapter, torch.from_numpy(imgs).cuda(),
+                              torch.from_numpy(np.array(anc)).cuda(), M)
+        pix, score = pix.cpu().numpy(), score.cpu().numpy()
+        span = float(pix.max() - pix.min())
+        same = bool(np.array_equal(maps, pix)
+                    and np.array_equal(scores, score))
+        dm = float(np.abs(maps - pix).max())
+        readings.append(f"B={b} " + ("bit for bit" if same else
+                                     f"max|d map| {dm / span:.3e} of the "
+                                     f"span"))
+        expect(same or dm <= ART_SPAN_FRAC * span,
+               f"artifact bf16 bucket {b}: off the live predictor by {dm} "
+               f"of {span}")
+    print(f"artifact bf16 against the live predictor at each bucket's batch:"
+          f" {', '.join(readings)}")
+    del vit, image_adapter, live
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def start_export_child(path: str, precision: str, ckpt_path: str,
+                       adapters: str, buckets) -> dict:
+    """13c's export of one artifact in a child (``chip_smoke.py
+    --export-artifact``), started and left running: the other artifact's
+    export goes on here beside it (both are host work: torch.export's
+    tracing, the save, the digests, the reload). Its output goes to a
+    file."""
+    import os
+    import subprocess
+
+    out = open(path + ".out", "w")
+    spec = {"out_dir": path, "precision": precision,
+            "clip_checkpoint": ckpt_path, "save_path": adapters,
+            "datasets": ["MVTec"], "batch_sizes": list(buckets),
+            "verify": 8}
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--export-artifact",
+         json.dumps(spec)], cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=out, stderr=subprocess.STDOUT, text=True)
+    return {"proc": proc, "out": out}
+
+
+def finish_export_child(child) -> dict:
+    """Waits for ``start_export_child``'s child; returns the manifest's
+    parts it printed (``export_artifact_main``)."""
+    import subprocess
+
+    proc = child["proc"]
+    try:
+        proc.wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    child["out"].close()
+    with open(child["out"].name) as f:
+        log = f.read()
+    lines = [ln for ln in log.splitlines()
+             if ln.startswith("ARTIFACT_MANIFEST ")]
+    expect(proc.returncode == 0 and len(lines) == 1,
+           f"the export child: exit {proc.returncode}:\n{log[-3000:]}")
+    return json.loads(lines[0].split(" ", 1)[1])
+
+
 def phase_artifact(card, ckpt_path: str, serve_readings: dict,
                    keep_int8: str = None) -> dict:
     """Phase 13c-e; returns B1's launches per artifact call. With
@@ -5521,6 +5748,7 @@ def phase_artifact(card, ckpt_path: str, serve_readings: dict,
     tmp = tempfile.mkdtemp(prefix="aaclip_artifact_")
     env_before = {k: os.environ.get(k) for k in ("AACLIP_DATA",
                                                  "AACLIP_METADATA")}
+    child = None
     try:
         adapters = os.path.join(tmp, "adapters")
         ckpt.save_adapter_checkpoint(
@@ -5528,20 +5756,30 @@ def phase_artifact(card, ckpt_path: str, serve_readings: dict,
             adapter_to_jax(init_image_adapter(cfg, acfg, seed=9,
                                               device="cpu")))
         paths, calls = {}, {}
+        # the int8 export runs in a child beside the bf16 export here
+        paths["int8"] = os.path.join(tmp, "artifact_int8")
+        child = start_export_child(paths["int8"], "int8", ckpt_path,
+                                   adapters, (8,))
         for name, precision, buckets in (("bf16", "bf16", ART_BUCKETS),
                                          ("int8", "int8", (8,))):
             path = paths[name] = os.path.join(tmp, f"artifact_{name}")
-            t0 = time.perf_counter()
-            m = deploy.export_serving_artifact(
-                path, precision=precision, clip_checkpoint=ckpt_path,
-                save_path=adapters, datasets=("MVTec",),
-                batch_sizes=buckets, verify=8)
-            wall = time.perf_counter() - t0
+            if name == "int8":
+                m = finish_export_child(child)
+                wall = m["wall"]
+                where = " in a child, beside the bf16 export"
+            else:
+                t0 = time.perf_counter()
+                m = deploy.export_serving_artifact(
+                    path, precision=precision, clip_checkpoint=ckpt_path,
+                    save_path=adapters, datasets=("MVTec",),
+                    batch_sizes=buckets, verify=8)
+                wall, where = time.perf_counter() - t0, ""
             v = m["verify"]
             sizes = {f: os.path.getsize(os.path.join(path, f))
                      for f in os.listdir(path)}
             params = sizes["params.npz"]
-            print(f"artifact {name}: exported in {wall:.1f} s (programs "
+            print(f"artifact {name}: exported{where} in {wall:.1f} s "
+                  f"(programs "
                   + ", ".join(f"{k} {s:.1f} s" for k, s in
                               m["export_s"].items())
                   + f"; the towers, anchors, save and verify the rest), "
@@ -5580,6 +5818,7 @@ def phase_artifact(card, ckpt_path: str, serve_readings: dict,
             art = engine._artifact
             calls["artifact call (bf16, b=8)"] = check_artifact("bf16", art,
                                                                 card)
+            check_buckets_vs_live(art, ckpt_path, adapters)
             live = serve_readings["start_s"]
             print(f"serve from the artifact: up in {start_s:.2f} s ("
                   + ", ".join(f"{k} {v:.2f} s" for k, v in
@@ -5692,6 +5931,9 @@ def phase_artifact(card, ckpt_path: str, serve_readings: dict,
             shutil.move(paths["int8"], keep_int8)
         return calls
     finally:
+        if child is not None and child["proc"].poll() is None:
+            child["proc"].kill()
+            child["proc"].wait()
         for k, v in env_before.items():
             if v is None:
                 os.environ.pop(k, None)
@@ -5779,6 +6021,46 @@ def par_same(got, want, what: str) -> str:
     return f"within {worst:.1e} of the max"
 
 
+def dp_step_world1(vit, cfg, acfg, adapter, mesh, batch, table,
+                   what: str) -> tuple:
+    """14a's stage-2 step check at world size 1, at any tower: two bf16
+    steps (remat off) through ``mesh`` and two without it, each from a
+    copy of ``adapter``, the losses and the adapters after them bit for
+    bit (or within PAR_REL, printed), one B1 launch a block up to the last
+    tap and one B2 fewer a step. Returns the launches per step."""
+    import torch
+
+    from aaclip_tpu_torch.core.config import DtypePolicy
+    from aaclip_tpu_torch.train.optim import make_image_optimizer
+    from aaclip_tpu_torch.train.steps import make_stage2_step
+
+    depth = max(acfg.levels)
+    runs = {}
+    for name, m in (("dp", mesh), ("single", None)):
+        ad = copy.deepcopy(adapter)
+        step = make_stage2_step(vit, cfg, acfg,
+                                make_image_optimizer(ad.parameters()),
+                                table, policy=DtypePolicy.bf16(),
+                                remat=False, mesh=m)
+        zero_counts()
+        losses = [float(step(ad, *batch)) for _ in range(2)]
+        torch.cuda.synchronize()
+        runs[name] = (losses, [p.detach().clone()
+                               for p in ad.parameters()], counts())
+        del ad, step
+    per_step = tuple(c // 2 for c in runs["dp"][2])
+    how_l = [par_same(a, b, f"{what} loss")
+             for a, b in zip(runs["dp"][0], runs["single"][0])]
+    how_a = par_same(runs["dp"][1], runs["single"][1], f"{what} adapters")
+    print(f"{what} bf16 B={batch[0].shape[0]} remat off, two steps at world "
+          f"1: losses {runs['dp'][0]} ({', '.join(how_l)}), adapters "
+          f"{how_a} the single-process step's; launches per step "
+          f"{per_step}")
+    expect(per_step == (depth, 0, depth - 1),
+           f"{what} launches {per_step}")
+    return per_step
+
+
 def par_world1(vit, adapter, cfg, acfg, anchors, M, card, gen) -> dict:
     """14a: each parallel path at world size 1 on NCCL (rank 0 of 1 on
     cuda:0, torchrun's variables set here) against its single-process
@@ -5795,10 +6077,8 @@ def par_world1(vit, adapter, cfg, acfg, anchors, M, card, gen) -> dict:
     from aaclip_tpu_torch.eval.predict import make_predict_fn
     from aaclip_tpu_torch.parallel import sharding as sh
     from aaclip_tpu_torch.text.anchors import dataset_prompt_tokens
-    from aaclip_tpu_torch.train.optim import (make_image_optimizer,
-                                              make_text_optimizer)
+    from aaclip_tpu_torch.train.optim import make_text_optimizer
     from aaclip_tpu_torch.train.steps import (make_stage1_step,
-                                              make_stage2_step,
                                               stage1_features_fn)
 
     keys = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
@@ -5843,30 +6123,10 @@ def par_world1(vit, adapter, cfg, acfg, anchors, M, card, gen) -> dict:
         # the stage-2 step, bf16 at batch 8, remat off, two steps
         batch = train_batch(PAR_TRAIN_BATCH, img, gen)
         table = unit_table(cfg.embed_dim, gen)
-        runs = {}
-        for name, m in (("dp", mesh), ("single", None)):
-            ad = copy.deepcopy(adapter)
-            step = make_stage2_step(vit, cfg, acfg,
-                                    make_image_optimizer(ad.parameters()),
-                                    table, policy=bf16, remat=False, mesh=m)
-            zero_counts()
-            losses = [float(step(ad, *batch)) for _ in range(2)]
-            torch.cuda.synchronize()
-            runs[name] = (losses, [p.detach().clone()
-                                   for p in ad.parameters()], counts())
-            del ad, step
-        calls["DP stage-2 step (world 1), per step"] = tuple(
-            c // 2 for c in runs["dp"][2])
-        how_l = [par_same(a, b, "DP step loss")
-                 for a, b in zip(runs["dp"][0], runs["single"][0])]
-        how_a = par_same(runs["dp"][1], runs["single"][1], "DP step adapters")
-        print(f"14a DP stage-2 step bf16 B={PAR_TRAIN_BATCH} remat off, two "
-              f"steps at world 1: losses {runs['dp'][0]} ({', '.join(how_l)}"
-              f"), adapters {how_a} the single-process step's; launches "
-              f"per step {calls['DP stage-2 step (world 1), per step']}")
-        expect(calls["DP stage-2 step (world 1), per step"]
-               == (n_layers, 0, n_layers - 1), "DP step launches")
-        del runs, batch
+        calls["DP stage-2 step (world 1), per step"] = dp_step_world1(
+            vit, cfg, acfg, adapter, mesh, batch, table,
+            "14a DP stage-2 step")
+        del batch
 
         # stage 1 at batch 16: features in both V-V modes, then a step
         images, mask, cidx, valid = stage1_batch(PAR_S1_BATCH, img, gen)
@@ -7093,6 +7353,65 @@ def tool_output(fn, argv, what: str, **kw) -> str:
     return out
 
 
+def start_serve_smoke(tmp: str, ckpt_path: str) -> dict:
+    """16f's ``python -m aaclip_tpu_torch.tools.serve_smoke``, started and
+    left running (its server's start-up is host work; 16a-e run beside
+    it), in a session of its own so that a failure can stop the tool and
+    its server together; its output goes to a file."""
+    import os
+    import subprocess
+
+    out = open(os.path.join(tmp, "serve_smoke.out"), "w")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "aaclip_tpu_torch.tools.serve_smoke",
+         "--port", str(free_port()), "--startup_timeout", "300"],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        env={**os.environ, "AACLIP_CKPT": ckpt_path,
+             "AACLIP_ANCHOR_CACHE": os.path.join(tmp, "anchors")},
+        stdout=out, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True)
+    return {"proc": proc, "out": out, "t0": t0}
+
+
+def stop_serve_smoke(child) -> None:
+    """Stops ``start_serve_smoke``'s tool and its server, if still up."""
+    import os
+    import signal
+
+    proc = child["proc"]
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+    child["out"].close()
+
+
+def finish_serve_smoke(child, card) -> None:
+    """Waits for ``start_serve_smoke``'s tool: it exits 0 with SERVE HTTP
+    SMOKE OK last; its health, request and 4xx lines printed."""
+    import subprocess
+
+    proc = child["proc"]
+    try:
+        proc.wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        pass
+    wall = time.perf_counter() - child["t0"]
+    rc = proc.poll()
+    stop_serve_smoke(child)
+    with open(child["out"].name) as f:
+        smoke = f.read()
+    for line in smoke.splitlines():
+        if line.startswith(("healthz", "req", "unknown")):
+            print(f"16f serve_smoke: {line}")
+    print(f"16f serve_smoke: exit {rc}, "
+          f"{smoke.strip().splitlines()[-1] if smoke.strip() else ''}; "
+          f"{wall:.1f} s until collected (the child's start-up included; "
+          f"16a-e ran beside it) on {card}")
+    expect(rc == 0 and smoke.strip().endswith("SERVE HTTP SMOKE OK"),
+           f"16f serve_smoke did not pass; its output:\n{smoke[-3000:]}")
+
+
 def phase_tools(card, ckpt_path: str, int8_artifact: str) -> dict:
     """Phase 16; ``int8_artifact`` is phase 13's ViT-L int8 artifact.
     Returns {kernel: {path: launches}}."""
@@ -7123,7 +7442,7 @@ def phase_tools(card, ckpt_path: str, int8_artifact: str) -> dict:
     from aaclip_tpu_torch.ops.similarity import fused_postproc_matrix
     from aaclip_tpu_torch.text.anchors import encode_dataset_anchors
     from aaclip_tpu_torch.tools import (few_shot_soak, precision_ab,
-                                        predict_folder, serve_smoke)
+                                        predict_folder)
     from aaclip_tpu_torch.train import checkpoint as ckpt
 
     t_phase = time.perf_counter()
@@ -7136,7 +7455,11 @@ def phase_tools(card, ckpt_path: str, int8_artifact: str) -> dict:
             "AACLIP_ANCHOR_CACHE")
     env_before = {k: os.environ.get(k) for k in keys}
     calls = {"attention_packed": {}, "attention_packed_bwd": {}}
+    smoke = None
     try:
+        # -- 16f starts first, in a child: serve_smoke against the port's
+        # server in a child of its own, collected after 16e
+        smoke = start_serve_smoke(tmp, ckpt_path)
         # the folder: seeded PNGs of mixed sizes (smooth fields + noise)
         folder = os.path.join(tmp, "images")
         os.makedirs(folder)
@@ -7343,22 +7666,13 @@ def phase_tools(card, ckpt_path: str, int8_artifact: str) -> dict:
         calls["attention_packed_bwd"]["precision_ab (tiny-test)"] = \
             ab_launches[2]
 
-        # -- 16f. serve_smoke against the port's server in a child
-        os.environ["AACLIP_ANCHOR_CACHE"] = os.path.join(tmp, "anchors")
-        t0 = time.perf_counter()
-        smoke = tool_output(serve_smoke.main, [
-            "--port", str(free_port()), "--startup_timeout", "300"],
-            "16f serve_smoke")
-        for line in smoke.splitlines():
-            if line.startswith(("healthz", "req", "unknown")):
-                print(f"16f serve_smoke: {line}")
-        print(f"16f serve_smoke: {time.perf_counter() - t0:.1f} s (the "
-              f"child's start-up included) on {card}")
-        expect(smoke.strip().endswith("SERVE HTTP SMOKE OK"),
-               "16f serve_smoke did not pass")
+        # -- 16f. serve_smoke, started first
+        finish_serve_smoke(smoke, card)
         print(f"phase 16 (tools and examples) took "
               f"{time.perf_counter() - t_phase:.0f} s")
     finally:
+        if smoke is not None:
+            stop_serve_smoke(smoke)
         for k, v in env_before.items():
             if v is None:
                 os.environ.pop(k, None)
@@ -7541,8 +7855,7 @@ def hd_check(hd: int, H: int, route: str, dtype_name: str, precision,
                             ("attention_kernel", b4max)):
                 worst[name] = max(worst[name], e)
         del qkv, got, again, gv, g4, heads, v
-    check_tail_isolation(dtype_name, precision, case=(3, 200, H, hd, 200),
-                         bwd=False)
+    check_tail_isolation(dtype_name, precision, case=(3, 200, H, hd, 200))
     return worst
 
 
@@ -7778,14 +8091,40 @@ def vit_h_bench(card) -> dict:
     return rates
 
 
-def vit_h_eval_cli(cfg, acfg, card, tmp: str) -> int:
+def write_vit_h_checkpoint(tmp: str, card) -> str:
+    """A seeded ViT-H-14 saved as an OpenAI-layout state dict at its native
+    224 px (the loader resizes the positional embedding 16 -> 37) under
+    ``tmp``; returns its path."""
+    import os
+
+    import torch
+
+    from aaclip_tpu_torch.core.config import get_config
+    from aaclip_tpu_torch.core.params import (init_text_params,
+                                              init_vision_params)
+
+    native = get_config("ViT-H-14", img_size=224)
+    sd = openai_state_dict(init_vision_params(native, seed=7),
+                           init_text_params(native, seed=8))
+    expect(sd["visual.positional_embedding"].shape == (257, 1280),
+           "the ViT-H-14 checkpoint is not at its 16 x 16 grid")
+    ckpt_path = os.path.join(tmp, "ViT-H-14.pt")
+    t0 = time.perf_counter()
+    torch.save(sd, ckpt_path)
+    del sd
+    print(f"17b: ViT-H-14 checkpoint "
+          f"{os.path.getsize(ckpt_path) / 1e9:.3f} GB saved in "
+          f"{time.perf_counter() - t0:.2f} s on {card}")
+    return ckpt_path
+
+
+def vit_h_eval_cli(cfg, acfg, card, tmp: str, ckpt_path: str) -> int:
     """17b: ``python -m aaclip_tpu_torch.test --model_name ViT-H-14`` (bf16,
-    batch 32) from a seeded ViT-H-14 saved as an OpenAI-layout state dict
-    at its native 224 px (the loader resizes the positional embedding 16
-    -> 37), on two synthetic MVTec classes: its table and maps/s printed,
-    one B1 launch per block up to the last tap and batch, and its scores
-    bit for bit a direct predict's on the towers loaded as the CLI loads
-    them. Returns the B1 launches."""
+    batch 32) from the seeded ViT-H-14 checkpoint at ``ckpt_path``, on two
+    synthetic MVTec classes: its table and maps/s printed, one B1 launch
+    per block up to the last tap and batch, and its scores bit for bit a
+    direct predict's on the towers loaded as the CLI loads them. Returns
+    the B1 launches."""
     import gc
     import os
     import re
@@ -7793,13 +8132,11 @@ def vit_h_eval_cli(cfg, acfg, card, tmp: str) -> int:
     import torch
 
     from aaclip_tpu_torch import test as eval_cli
-    from aaclip_tpu_torch.core.config import DtypePolicy, get_config
+    from aaclip_tpu_torch.core.config import DtypePolicy
     from aaclip_tpu_torch.core.params import (adapter_from_jax,
                                               adapter_to_jax,
                                               create_clip_towers,
-                                              init_image_adapter,
-                                              init_text_params,
-                                              init_vision_params)
+                                              init_image_adapter)
     from aaclip_tpu_torch.data.datasets import BatchLoader, get_test_datasets
     from aaclip_tpu_torch.data.registry import CLASS_NAMES
     from aaclip_tpu_torch.data.synthetic import make_synthetic_dataset
@@ -7812,18 +8149,6 @@ def vit_h_eval_cli(cfg, acfg, card, tmp: str) -> int:
 
     img, B = cfg.vision.image_size, 32
     depth = max(acfg.levels)  # the blocks up to the last tap
-    native = get_config("ViT-H-14", img_size=224)
-    sd = openai_state_dict(init_vision_params(native, seed=7),
-                           init_text_params(native, seed=8))
-    expect(sd["visual.positional_embedding"].shape == (257, 1280),
-           "the ViT-H-14 checkpoint is not at its 16 x 16 grid")
-    ckpt_path = os.path.join(tmp, "ViT-H-14.pt")
-    t0 = time.perf_counter()
-    torch.save(sd, ckpt_path)
-    del sd
-    print(f"17b eval CLI: ViT-H-14 checkpoint "
-          f"{os.path.getsize(ckpt_path) / 1e9:.3f} GB saved in "
-          f"{time.perf_counter() - t0:.2f} s on {card}")
     classes = CLASS_NAMES["MVTec"][:VIT_H_EVAL_CLASSES]
     data_root, meta_root = make_synthetic_dataset(
         os.path.join(tmp, "eval_set"), class_names=classes,
@@ -7888,22 +8213,18 @@ def hd128_fused_predict(card) -> int:
     port's admit: the fused bf16 predict (``maybe_make_block_fn``) at
     batch 8 against the unfused one at phase 8e's bars, one launch of each
     fused kernel and of B1 per block. Returns B1's launches."""
-    import dataclasses
     import gc
 
     import torch
 
-    from aaclip_tpu_torch.core.config import (AdapterConfig, DtypePolicy,
-                                              get_config)
+    from aaclip_tpu_torch.core.config import AdapterConfig, DtypePolicy
     from aaclip_tpu_torch.core.params import (init_image_adapter,
                                               init_vision_params)
     from aaclip_tpu_torch.eval.predict import make_predict_fn
     from aaclip_tpu_torch.ops import fused_block as FB
     from aaclip_tpu_torch.ops.similarity import fused_postproc_matrix
 
-    base = get_config("ViT-L-14-336", img_size=518)
-    cfg = dataclasses.replace(base, vision=dataclasses.replace(
-        base.vision, heads=8))
+    cfg = vit_l_hd128_config()
     expect(cfg.vision.head_dim == 128 and FB.reference_gate(cfg),
            "17b: the head-dim-128 ViT-L geometry")
     acfg = AdapterConfig()
@@ -7949,29 +8270,575 @@ def hd128_fused_predict(card) -> int:
     return c[1]
 
 
-def backward_raises_b11() -> None:
-    """17c: the backward at head dim 80 raises, naming ROADMAP B11."""
+# 17c's 3-pass backward against fp64. The 3-pass form's own distance from
+# fp64 varies with the data around HIGH_FP64_MAX_REL, which one reading
+# at head dim 64 set: on this phase's inputs at 80 the plain 3-pass
+# backward itself read 2.467e-5 of a gradient's max, and the kernel
+# 2.474e-5 (NVIDIA H100 80GB HBM3, 700 W). So at 80 and 128 the 3-pass
+# pair may come no farther from fp64 than HIGH_FP64_MAX_REL or
+# HIGH_FP64_PLAIN_FACTOR times the plain version's own distance on the
+# same inputs, whichever is larger (kernel and plain version compute the
+# same 3-pass form and differ by their sums' order, within
+# HIGH_BWD_MAX_REL), and never farther than HIGH_FP64_CEILING, the CPU
+# tests' bar for the 3-pass backward against JAX's (5e-5 of each
+# gradient's max), which the plain version is held to as well: an error
+# that kernel and plain version shared could not widen the bar past it.
+HIGH_FP64_PLAIN_FACTOR = 1.5
+HIGH_FP64_CEILING = 5e-5
+# 17c: the backward (B2) at head dims 80 and 128 by route, its bar against
+# the plain version (phase 3's for bf16 and 6-pass, phase 11's for the
+# 3-pass mode) and the kernels a call launches: the pair, after two
+# splits (of qkv and of dO) on the fp32 routes
+HD_BWD_BARS = {"bf16": BWD_BF16_MAX_REL, "6-pass": BWD_FP32_MAX_REL,
+               "3-pass": HIGH_BWD_MAX_REL}
+HD_BWD_KERNELS = {"bf16": ("attn_bwd_{dq,dkdv}_wgmma", None),
+                  "6-pass": ("attn_bwd_{dq,dkdv}_6pass", "split3_kernel"),
+                  "3-pass": ("attn_bwd_{dq,dkdv}_3pass_wgmma",
+                             "split2_kernel")}
+# 17d: the training CLI's synthetic set at ViT-H-14 (two classes), its
+# images' side, and the precisions of the stage-2 step with their routes
+VIT_H_TRAIN_PER_KIND = 4
+VIT_H_STEP_ROUTES = (("bf16", "bf16"), ("fp32", "6-pass"),
+                     ("fp32_high", "3-pass"))
+
+
+def hd_bwd_check(hd: int, H: int, route: str, dtype_name: str, precision,
+                 gen) -> float:
+    """17c at one head dim and route: B2 against its plain version at the
+    step's batch 8 x S 1370 and at HD_RAGGED, each gradient's max |d|
+    within HD_BWD_BARS of its max |value| (and bf16's mean within
+    BWD_BF16_MEAN_REL); two runs bit-equal; finite; no dK or dV past
+    valid_len; the fp32 routes within SIX_FP64_MAX_REL of fp64 on two
+    images of batch 8 (the 3-pass route within HIGH_FP64_MAX_REL, or
+    HIGH_FP64_PLAIN_FACTOR times its plain version's own distance, at most
+    HIGH_FP64_CEILING); every launch on the route's pair, after its two
+    splits on the fp32 routes. Returns the largest max |d| at S 1370."""
     import torch
 
     from aaclip_tpu_torch.ops import attention as A
 
+    dtype = torch_dtype(dtype_name)
+    kw = dict(precision=precision)
+    bar = HD_BWD_BARS[route]
+    worst = 0.0
+    for B, S, valid in [(TRAIN_BATCH, 1370, 1370)] + list(HD_RAGGED):
+        what = f"17c hd {hd} {route} B={B} S={S} valid={valid}"
+        dm = H * hd
+        qkv = random_qkv(B, S, H, hd, dtype, gen)
+        d_out = torch.randn(B, S, dm, generator=gen, device="cuda").to(dtype)
+        _, lse = A.attention_packed(qkv, H, valid, return_lse=True, **kw)
+        before = hd_before(A.attention_packed_bwd)
+        got = A.attention_packed_bwd(qkv, d_out, lse, H, valid, **kw)
+        again = A.attention_packed_bwd(qkv, d_out, lse, H, valid, **kw)
+        torch.cuda.synchronize()
+        hd_route_counts(route, A.attention_packed_bwd, before, 2, 2, what)
+        want = chunked(A.attention_packed_bwd_plain, qkv, d_out, H, valid,
+                       **kw)
+        parts = []
+        for i, name in enumerate(("dq", "dk", "dv")):
+            g = got[..., i * dm:(i + 1) * dm].float()
+            w = want[..., i * dm:(i + 1) * dm].float()
+            scale = w.abs().max().item()
+            d = (g - w).abs()
+            mx, mean = d.max().item(), d.mean().item()
+            parts.append(f"{name} {mx / scale:.2e} (mean {mean / scale:.1e})")
+            expect(mx <= bar * scale, f"{what}: {name} max|d| {mx} of "
+                   f"{scale}")
+            if dtype_name == "bf16":
+                expect(mean <= BWD_BF16_MEAN_REL * scale,
+                       f"{what}: {name} mean|d| {mean} of {scale}")
+            if S == 1370:
+                worst = max(worst, mx)
+        same = torch.equal(got, again)
+        finite = bool(torch.isfinite(got).all())
+        expect(same and finite, f"{what}: two runs differ, or not finite")
+        if valid < S:  # keys past valid_len get no gradient
+            tail = got[:, valid:, dm:].float().abs().max().item()
+            expect(tail == 0.0, f"{what}: dk/dv past valid_len: {tail}")
+        fp64 = ""
+        if dtype_name == "fp32" and B == TRAIN_BATCH:
+            exact = attention_fp64(qkv[:2], H, valid, d_out[:2])
+
+            def from_fp64(t):
+                return max(((t[:2, :, i * dm:(i + 1) * dm].double()
+                             - exact[..., i * dm:(i + 1) * dm]).abs().max()
+                            / exact[..., i * dm:(i + 1) * dm].abs().max()
+                            ).item() for i in range(3))
+
+            rel, rel_plain = from_fp64(got), from_fp64(want)
+            fbar = SIX_FP64_MAX_REL if precision is None else min(
+                HIGH_FP64_CEILING, max(HIGH_FP64_MAX_REL,
+                                       HIGH_FP64_PLAIN_FACTOR * rel_plain))
+            fp64 = (f"; from fp64 {rel:.3e} of the max (the plain version "
+                    f"{rel_plain:.3e}; bar {fbar:.3e})")
+            expect(rel <= fbar, f"{what}: {rel} from fp64 (bar {fbar})")
+            expect(precision is None or rel_plain <= HIGH_FP64_CEILING,
+                   f"{what}: the plain 3-pass backward {rel_plain} from fp64"
+                   f" (ceiling {HIGH_FP64_CEILING})")
+            del exact
+        del want
+        print(f"{what}: B2 max|d| of each gradient's max {', '.join(parts)} "
+              f"(bar {bar}); two runs bit-equal {same}; finite {finite}"
+              + fp64)
+        del qkv, d_out, lse, got, again
+    return worst
+
+
+def hd_bwd_times(hd: int, H: int, route: str, dtype_name: str, precision,
+                 card, gen) -> tuple:
+    """17c's times at one head dim and route, at the step's [8, 1370, 3D]:
+    B2 (with its splits on the fp32 routes, as a call runs them) beside
+    its plain version, SDPA's backward on the same inputs and its bound
+    (the TPU kernel's five S^2 hd products in the route's bf16 passes at
+    989 TFLOP/s, or the bytes; the pair's nine beside); the kernels per
+    call counted at the launch sites of both libraries. Returns (ms, plain
+    ms, SDPA ms, bound ms, bound_by, kernels per call)."""
+    import torch
+
+    from aaclip_tpu_torch.kernels.build import kernels_launched
+    from aaclip_tpu_torch.ops import attention as A
+
+    dtype = torch_dtype(dtype_name)
+    kw = dict(precision=precision)
+    passes = {"bf16": 1, "6-pass": 6, "3-pass": 3}[route]
+    pair, split = HD_BWD_KERNELS[route]
+    B, S, dm = TRAIN_BATCH, 1370, H * hd
+    qkv = random_qkv(B, S, H, hd, dtype, gen)
+    d_out = torch.randn(B, S, dm, generator=gen, device="cuda").to(dtype)
+    _, lse = A.attention_packed(qkv, H, S, return_lse=True, **kw)
+
+    def call():
+        return A.attention_packed_bwd(qkv, d_out, lse, H, S, **kw)
+
+    ms = cuda_ms(call, 10)
+    ms_plain = cuda_ms(lambda: A.attention_packed_bwd_plain(
+        qkv, d_out, H, S, **kw), 2, warmup=1)
+    q, k, v = (t.detach().requires_grad_() for t in
+               qkv.view(B, S, 3, H, hd).permute(2, 0, 3, 1, 4).unbind(0))
+    out = torch.nn.functional.scaled_dot_product_attention(q, k, v)
+    g = d_out.view(B, S, H, hd).transpose(1, 2)
+    ms_lib = cuda_ms(lambda: torch.autograd.grad(out, (q, k, v), g,
+                                                 retain_graph=True), 10)
+    libs = ("attention_packed", "attention_packed_bwd")
+    before = sum(kernels_launched(n) for n in libs)
+    call()
+    torch.cuda.synchronize()
+    per_call = sum(kernels_launched(n) for n in libs) - before
+    want = 2 + (2 if split else 0)
+    expect(per_call == want, f"17c hd {hd} {route}: {per_call} kernels per "
+           f"call, not {want} ({pair}, {split})")
+    flops = passes * 10 * B * H * S * S * hd
+    nbytes = (2 * qkv.numel() + d_out.numel()) * qkv.element_size() + \
+        lse.numel() * 4
+    bound_ms, bound_by = bound(flops, nbytes)
+    print(f"time 17c attention_packed_bwd hd {hd} {route} B={B} ({H} heads):"
+          f" {ms:.4f} ms/call ({flops / ms / 1e9:.1f} TFLOP/s of the TPU "
+          f"kernel's five products in {passes} bf16 pass(es), "
+          f"{1.8 * flops / ms / 1e9:.1f} of the pair's nine; bound "
+          f"{bound_ms:.4f} ms by {bound_by}, nine products "
+          f"{1.8 * bound_ms:.4f}); plain {ms_plain:.4f}; SDPA backward "
+          f"{ms_lib:.4f}; {per_call} kernels per call on {card}")
+    del qkv, d_out, lse, q, k, v, out
+    return ms, ms_plain, ms_lib, bound_ms, bound_by, per_call
+
+
+def phase_head_dims_bwd(card) -> dict:
+    """17c; returns {("attention_packed_bwd", hd, route): (ms, plain ms,
+    SDPA ms, bound ms, bound_by, kernels per call, max |d|)}."""
+    import gc
+
+    import torch
+
+    t_phase = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(54)
-    for dtype_name in DTYPES:
-        qkv = random_qkv(2, 77, 16, 80, torch_dtype(dtype_name), gen)
-        _, lse = A.attention_packed(qkv, 16, 77, return_lse=True)
-        d_out = torch.zeros(2, 77, 1280, device="cuda", dtype=qkv.dtype)
-        try:
-            A.attention_packed_bwd(qkv, d_out, lse, 16, 77)
-        except NotImplementedError as e:
-            expect("ROADMAP B11" in str(e), f"17c: {e}")
-            print(f"17c backward {dtype_name} at head dim 80 raises: {e}")
-            continue
-        raise AssertionError("17c: the backward at head dim 80 ran")
+    rows = {}
+    for hd, H in HD_GEOMETRIES:
+        for route, dtype_name, precision in HD_ROUTES:
+            worst = hd_bwd_check(hd, H, route, dtype_name, precision, gen)
+            times = hd_bwd_times(hd, H, route, dtype_name, precision, card,
+                                 gen)
+            rows[("attention_packed_bwd", hd, route)] = (*times, worst)
+            gc.collect()
+            torch.cuda.empty_cache()
+    print(f"17c took {time.perf_counter() - t_phase:.0f} s")
+    return rows
+
+
+def step_launches() -> tuple:
+    """(B1, its 6-pass, its 3-pass, B2, its 6-pass, its 3-pass, split3,
+    split2) launches since the last ``zero_counts``."""
+    from aaclip_tpu_torch.ops import attention as A
+
+    f, b = A.attention_packed, A.attention_packed_bwd
+    return (f.launches, f.launches_6pass, f.launches_3pass, b.launches,
+            b.launches_6pass, b.launches_3pass, A.split3.launches,
+            A.split2.launches)
+
+
+def want_step_launches(route: str, fwd: int, bwd: int) -> tuple:
+    """``step_launches`` of ``fwd`` B1 and ``bwd`` B2 launches all on
+    ``route``, after one split per forward and two per backward on the
+    fp32 routes."""
+    split = fwd + 2 * bwd
+    return {"bf16": (fwd, 0, 0, bwd, 0, 0, 0, 0),
+            "6-pass": (fwd, fwd, 0, bwd, bwd, 0, split, 0),
+            "3-pass": (fwd, 0, fwd, bwd, 0, bwd, 0, split)}[route]
+
+
+def vit_h_steps(cfg, acfg, card) -> dict:
+    """17d: ViT-H-14 @ 518's stage-2 step at batch 8 (random towers from
+    seeds; the blocks up to the last tap, 24 of 32) in bf16, fp32 and
+    fp32_high (the steps run it unstaged), each with remat off, full and
+    selective: 24 B1 (47 under full remat) and 23 B2 launches a step, all
+    on the precision's route after its splits; each against the step on
+    the plain attention (remat off) from the same adapter at phase 5's
+    bars (loss, every adapter gradient's cosine and norm); images/s with
+    remat off. Returns {path: (B1, B2) launches}."""
+    import gc
+
+    import torch
+
+    from aaclip_tpu_torch.core.config import DtypePolicy
+    from aaclip_tpu_torch.core.params import (init_image_adapter,
+                                              init_vision_params)
+
+    heads, img = cfg.vision.heads, cfg.vision.image_size
+    depth = max(acfg.levels)
+    gen = torch.Generator(device="cuda").manual_seed(55)
+    vit = init_vision_params(cfg, seed=0)
+    adapter = init_image_adapter(cfg, acfg, seed=1)
+    table = unit_table(cfg.embed_dim, gen)
+    batch = train_batch(TRAIN_BATCH, img, gen)
+    calls = {}
+    for name, route in VIT_H_STEP_ROUTES:
+        policy = DtypePolicy.from_name(name)
+        loss_p, g_p, fwd_p, bwd_p, _ = train_step_once(
+            vit, cfg, acfg, adapter, batch, table, policy=policy,
+            attn_fn=make_attn_fn_plain(heads, policy, differentiable=True),
+            remat=False)
+        expect(fwd_p == bwd_p == 0, f"17d {name}: the plain step launched")
+        for remat in (False, True, "selective"):
+            what = (f"17d ViT-H-14 stage-2 step {name} B={TRAIN_BATCH} remat "
+                    f"{REMAT_NAMES[remat]}")
+            zero_counts()
+            loss_k, g_k, _, _, (ad, opt, sched, step) = train_step_once(
+                vit, cfg, acfg, adapter, batch, table, policy=policy,
+                remat=remat)
+            got = step_launches()
+            want = want_step_launches(
+                route, S2_FWD_PER_STEP_REMAT if remat is True else depth,
+                depth - 1)
+            expect(got == want, f"{what}: B1, 6-pass, 3-pass, B2, 6-pass, "
+                   f"3-pass, split3, split2 {got}, not {want}")
+            rel, cos, norm = step_vs_plain(loss_k, g_k, loss_p, g_p, what)
+            rate = ""
+            if remat is False:  # the other modes are checked, not timed
+                ms = cuda_ms(lambda: step(ad, *batch), 2, warmup=1)
+                rate = (f"; {ms:.2f} ms/step, {TRAIN_BATCH / ms * 1e3:.2f} "
+                        f"images/s on {card}")
+            print(f"{what}: launches {got}; loss {loss_k:.6f} vs plain "
+                  f"{loss_p:.6f} ({rel:.3e} relative); gradients over "
+                  f"{len(g_k)} leaves: min cosine {cos:.8f}, max |norm "
+                  f"ratio - 1| {norm:.3e}" + rate)
+            calls[f"ViT-H-14 stage-2 step {name}, remat "
+                  f"{REMAT_NAMES[remat]}"] = (got[0], got[3])
+            del ad, opt, sched, step, g_k
+            gc.collect()
+            torch.cuda.empty_cache()
+        del g_p
+    del vit, adapter, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return calls
+
+
+def vit_l_hd128_config():
+    """ViT-L-14-336 @ 518 with its 1024 columns in 8 heads of 128 (the
+    geometry JAX's gate and the port's fused gate admit)."""
+    import dataclasses
+
+    from aaclip_tpu_torch.core.config import get_config
+
+    base = get_config("ViT-L-14-336", img_size=518)
+    return dataclasses.replace(base, vision=dataclasses.replace(
+        base.vision, heads=8))
+
+
+def hd128_step(card) -> tuple:
+    """17d: the stage-2 step at ViT-L in 8 heads of 128, bf16, batch 8,
+    remat off, against the plain-attention step at phase 5's bars; 24 B1
+    and 23 B2 launches on the bf16 route. Returns (B1, B2) launches."""
+    import gc
+
+    import torch
+
+    from aaclip_tpu_torch.core.config import AdapterConfig, DtypePolicy
+    from aaclip_tpu_torch.core.params import (init_image_adapter,
+                                              init_vision_params)
+
+    cfg = vit_l_hd128_config()
+    acfg = AdapterConfig()
+    n_layers, img = cfg.vision.layers, cfg.vision.image_size
+    gen = torch.Generator(device="cuda").manual_seed(56)
+    vit = init_vision_params(cfg, seed=0)
+    adapter = init_image_adapter(cfg, acfg, seed=1)
+    table = unit_table(cfg.embed_dim, gen)
+    batch = train_batch(TRAIN_BATCH, img, gen)
+    bf16 = DtypePolicy.bf16()
+    loss_p, g_p, *_ = train_step_once(
+        vit, cfg, acfg, adapter, batch, table, policy=bf16,
+        attn_fn=make_attn_fn_plain(8, bf16, differentiable=True),
+        remat=False)
+    zero_counts()
+    loss_k, g_k, _, _, (ad, _, _, step) = train_step_once(
+        vit, cfg, acfg, adapter, batch, table, policy=bf16, remat=False)
+    got = step_launches()
+    what = (f"17d stage-2 step bf16 B={TRAIN_BATCH}, ViT-L in 8 heads of "
+            f"128, remat off")
+    expect(got == want_step_launches("bf16", n_layers, n_layers - 1),
+           f"{what}: launches {got}")
+    rel, cos, norm = step_vs_plain(loss_k, g_k, loss_p, g_p, what)
+    ms = cuda_ms(lambda: step(ad, *batch), 2, warmup=1)
+    print(f"{what}: launches {got}; loss {loss_k:.6f} vs plain "
+          f"{loss_p:.6f} ({rel:.3e} relative); min cosine {cos:.8f}, max "
+          f"|norm ratio - 1| {norm:.3e}; {TRAIN_BATCH / ms * 1e3:.2f} "
+          f"images/s on {card}")
+    del vit, adapter, ad, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got[0], got[3]
+
+
+def vit_h_train_cli(cfg, card, tmp: str, ckpt_path: str) -> dict:
+    """17d: ``python -m aaclip_tpu_torch.train --model_name ViT-H-14`` in
+    bf16 from the seeded ViT-H-14 checkpoint, one text and one image epoch
+    on two synthetic MVTec classes of VIT_H_TRAIN_PER_KIND normal and
+    anomalous images (batches 16 and 2, ``--remat auto``: selective):
+    32 B1 launches a features call, 24 B1 and 23 B2 a step, every loss
+    finite, each epoch's logged img/s; then the evaluation CLI on its
+    checkpoints, its table finite, in [0, 100] and printed, 24 B1 launches
+    a batch. Returns {path: (B1, B2) launches}."""
+    import gc
+    import os
+
+    import numpy as np
+    import torch
+
+    from aaclip_tpu_torch import test as eval_cli
+    from aaclip_tpu_torch.data.registry import CLASS_NAMES
+    from aaclip_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    n_layers, depth = cfg.vision.layers, 24
+    classes = CLASS_NAMES["MVTec"][:2]
+    data_root, meta_root = make_synthetic_dataset(
+        os.path.join(tmp, "train_set"), class_names=classes,
+        n_normal=VIT_H_TRAIN_PER_KIND, n_anomalous=VIT_H_TRAIN_PER_KIND,
+        img_px=VIT_H_EVAL_PX, hard=True)
+    os.environ.update(AACLIP_DATA=data_root, AACLIP_METADATA=meta_root)
+    n_img = 2 * 2 * VIT_H_TRAIN_PER_KIND
+    n_feat, n_step = -(-n_img // 16), -(-n_img // 2)
+    save = os.path.join(tmp, "train")
+    common = ["--model_name", "ViT-H-14", "--clip_checkpoint", ckpt_path,
+              "--dataset", "MVTec", "--precision", "bf16", "--save_path",
+              save]
+    zero_counts()
+    t0 = time.perf_counter()
+    losses = train_cli_losses(common + ["--training_mode", "full_shot",
+                                        "--text_epoch", "1",
+                                        "--image_epoch", "1"])
+    wall = time.perf_counter() - t0
+    got = counts()
+    want = (n_layers * n_feat + depth * n_step, 0, (depth - 1) * n_step)
+    with open(os.path.join(save, "train.log")) as f:
+        log = f.read()
+    reports = epoch_reports(log)
+    print(f"17d training CLI ViT-H-14 bf16: {n_feat} features call(s), "
+          f"{n_step} stage-2 steps: attention_packed, V-V, backward "
+          f"launches {got} (want {want}); epoch means "
+          f"{[round(float(np.mean(e)), 6) for e in losses]}; "
+          + "; ".join(f"{stage} epoch {epoch} {rate:.2f} img/s logged"
+                      for stage, epoch, rate, _ in reports)
+          + f"; {wall:.1f} s for main() on {card}")
+    expect(got == want, f"17d training CLI: launches {got}, not {want}")
+    expect([len(e) for e in losses] == [n_feat, n_step]
+           and all(np.isfinite(v).all() for v in losses),
+           f"17d training CLI: steps {[len(e) for e in losses]}, or a loss "
+           f"is not finite")
+    expect("stage 2 selective" in log, "17d training CLI: remat not "
+           "selective")
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero_counts()
+    eval_cli.main(common + ["--batch_size", "32", "--csv"])
+    rows = read_csv(os.path.join(save, "results_1.csv"))
+    cells = [float(x) for r in rows[1:] for x in r[1:]]
+    n_eval = 2 * -(-2 * VIT_H_TRAIN_PER_KIND // 32)
+    table = "\n".join(", ".join(r) for r in rows)
+    print(f"17d evaluation CLI ViT-H-14 bf16 on the trained checkpoints, "
+          f"{n_eval} batches, {counts()[0]} B1 launches; its table:\n{table}")
+    expect([r[0] for r in rows[1:]] == list(classes) + ["Average"]
+           and all(np.isfinite(cells)) and all(0 <= c <= 100
+                                               for c in cells),
+           f"17d evaluation CLI: table {rows}")
+    expect(counts() == (depth * n_eval, 0, 0),
+           f"17d evaluation CLI: launches {counts()}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"ViT-H-14 training CLI bf16": (got[0], got[2]),
+            "ViT-H-14 evaluation CLI on the trained checkpoints":
+                (counts()[0], 0)}
+
+
+def vit_h_engine(cfg, card) -> int:
+    """17d: the serving engine at ViT-H-14 @ 518 (bf16, seeded towers and
+    adapters, max_batch 8): eight concurrent ``submit`` calls against the
+    engine's own predict on the same images and anchors at phase 12's bars
+    (PIX_SPAN_FRAC_BF16 of the map's span, SCORE_ATOL_BF16), 24 B1
+    launches a served batch. Returns B1's launches per batch."""
+    import gc
+    import threading
+
+    import numpy as np
+    import torch
+
+    from aaclip_tpu_torch.ops.attention import attention_packed
+    from aaclip_tpu_torch.serve import server
+
+    img, depth = cfg.vision.image_size, 24
+    engine = server.InferenceEngine(model_name="ViT-H-14", img_size=img,
+                                    datasets=("MVTec",), precision="bf16",
+                                    max_batch=8, precompile=False)
+    try:
+        rng = np.random.default_rng(57)
+        imgs = rng.integers(0, 256, (8, 3, img, img), dtype=np.uint8)
+        classes = [SERVE_CLASSES[i % 3] for i in range(8)]
+        results = [None] * 8
+
+        def fire(i):
+            results[i] = engine.submit(imgs[i], "MVTec", classes[i])
+
+        zero_counts()
+        threads = [threading.Thread(target=fire, args=(i,))
+                   for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        batches = engine.stats()["batches"]
+        launches = attention_packed.launches
+        anch = np.stack([engine.anchors["MVTec"][c] for c in classes])
+        with torch.inference_mode():
+            pix, score = engine._predict(
+                engine.image_adapter, torch.from_numpy(imgs).cuda(),
+                torch.from_numpy(anch).cuda(), engine._postproc_dev["MVTec"])
+        pix, score = pix.cpu().numpy(), score.cpu().numpy()
+        span = float(pix.max() - pix.min())
+        dmap = max(float(np.abs(m - pix[i]).max())
+                   for i, (m, _) in enumerate(results))
+        dscore = max(abs(float(s) - float(score[i]))
+                     for i, (_, s) in enumerate(results))
+        print(f"17d serving engine ViT-H-14 bf16: 8 concurrent requests in "
+              f"{batches} batch(es), {launches} B1 launches; against the "
+              f"engine's predict at B=8: max|d map| {dmap / span:.3e} of the "
+              f"span (bar {PIX_SPAN_FRAC_BF16}), max|d score| {dscore:.3e} "
+              f"(bar {SCORE_ATOL_BF16}) on {card}")
+        expect(launches == depth * batches,
+               f"17d engine: {launches} B1 launches for {batches} batches")
+        expect(dmap <= PIX_SPAN_FRAC_BF16 * span
+               and dscore <= SCORE_ATOL_BF16,
+               f"17d engine: map {dmap} of {span}, scores {dscore}")
+        return launches // batches
+    finally:
+        engine.shutdown()
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def vit_h_int8_and_bank(cfg, acfg, card) -> dict:
+    """17d at ViT-H-14 @ 518 (random towers from seeds), through the
+    checks phases 12a, 13a and 14a hold at ViT-L: (a) the int8 predict at
+    batch 8 (``check_int8``), its distance from the bf16 predict printed as
+    phase 13 prints it; (b) the memory bank (``check_memory_bank``); (c)
+    the DP stage-2 step at world 1 (NCCL), two steps bf16 at batch 8
+    (``dp_step_world1``). Returns {path: (B1, B2) launches}."""
+    import gc
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from aaclip_tpu_torch.core.config import DtypePolicy
+    from aaclip_tpu_torch.core.params import (init_image_adapter,
+                                              init_vision_params)
+    from aaclip_tpu_torch.eval.predict import make_predict_fn
+    from aaclip_tpu_torch.ops.similarity import fused_postproc_matrix
+    from aaclip_tpu_torch.parallel import sharding as sh
+
+    img = cfg.vision.image_size
+    gen = torch.Generator(device="cuda").manual_seed(58)
+    vit = init_vision_params(cfg, seed=0)
+    adapter = init_image_adapter(cfg, acfg, seed=1)
+    anchors = torch.randn(cfg.embed_dim, 2, generator=gen, device="cuda")
+    anchors = anchors / anchors.norm(dim=0, keepdim=True)
+    M = torch.from_numpy(fused_postproc_matrix(cfg.vision.grid, img,
+                                               "Industrial")).cuda()
+    calls = {}
+    images = torch.randint(0, 256, (MB_BATCH, 3, img, img), generator=gen,
+                           device="cuda", dtype=torch.uint8)
+
+    # (a) int8
+    p8, pix_k, s_k, launched, _ = check_int8(
+        vit, adapter, cfg, acfg, images, anchors, M, "17d ViT-H-14")
+    pb = make_predict_fn(vit, cfg, acfg, policy=DtypePolicy.bf16(),
+                         uint8_inputs=True)
+    int8_distances(pix_k, s_k, {"bf16": pb(adapter, images, anchors, M)})
+    calls["ViT-H-14 int8 predict"] = (launched, 0)
+    del p8, pb, pix_k, s_k
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the memory bank
+    r = check_memory_bank(vit, adapter, cfg, acfg, anchors, M, gen,
+                          "17d ViT-H-14")
+    calls["ViT-H-14 memory-bank features batch"] = (r["feat"], 0)
+    calls["ViT-H-14 memory-bank predict"] = (r["mb"], 0)
+    del r
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the DP stage-2 step at world 1
+    keys = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+    env_before = {k: os.environ.get(k) for k in keys}
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()))
+    try:
+        expect(sh.initialize_multihost(), "17d: no process group")
+        per_step = dp_step_world1(
+            vit, cfg, acfg, adapter, sh.make_data_mesh(),
+            train_batch(TRAIN_BATCH, img, gen),
+            unit_table(cfg.embed_dim, gen),
+            "17d DP stage-2 step ViT-H-14 (NCCL)")
+        calls["ViT-H-14 DP stage-2 step (world 1), per step"] = (
+            per_step[0], per_step[2])
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in env_before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    del vit, adapter
+    gc.collect()
+    torch.cuda.empty_cache()
+    return calls
 
 
 def phase_head_dims(card) -> dict:
-    """Phase 17; returns {"kernels": 17a's rows, "calls": {kernel: {path:
-    launches}}, "rates": {...}}."""
+    """Phase 17; returns {"kernels": 17a's and 17c's rows, "calls": {path:
+    B1 launches} of 17b, "steps": {path: (B1, B2) launches} of 17d,
+    "rates": {precision: maps/s}}."""
     import os
     import shutil
     import tempfile
@@ -7981,7 +8848,7 @@ def phase_head_dims(card) -> dict:
 
     t_phase = time.perf_counter()
     rows = phase_head_dims_kernels(card)
-    backward_raises_b11()
+    rows.update(phase_head_dims_bwd(card))
     tmp = tempfile.mkdtemp(prefix="aaclip_vit_h_")
     env = {k: os.environ.get(k) for k in ("AACLIP_MODEL_CONFIGS",
                                           "AACLIP_DATA", "AACLIP_METADATA")}
@@ -8001,10 +8868,21 @@ def phase_head_dims(card) -> dict:
         print(f"[{time.perf_counter() - t_phase:.0f} s] 17b")
         calls = vit_h_predicts(cfg, acfg, card)
         rates = vit_h_bench(card)
-        calls["ViT-H-14 evaluation CLI bf16"] = vit_h_eval_cli(cfg, acfg,
-                                                               card, tmp)
+        ckpt_path = write_vit_h_checkpoint(tmp, card)
+        calls["ViT-H-14 evaluation CLI bf16"] = vit_h_eval_cli(
+            cfg, acfg, card, tmp, ckpt_path)
         calls["fused predict bf16, ViT-L in 8 heads of 128"] = \
             hd128_fused_predict(card)
+        t_d = time.perf_counter()
+        print(f"[{t_d - t_phase:.0f} s] 17d")
+        steps = vit_h_steps(cfg, acfg, card)
+        steps["stage-2 step bf16, ViT-L in 8 heads of 128"] = \
+            hd128_step(card)
+        steps.update(vit_h_train_cli(cfg, card, tmp, ckpt_path))
+        steps["ViT-H-14 serving engine, per batch"] = (
+            vit_h_engine(cfg, card), 0)
+        steps.update(vit_h_int8_and_bank(cfg, acfg, card))
+        print(f"17d took {time.perf_counter() - t_d:.0f} s")
     finally:
         for k, val in env.items():
             if val is None:
@@ -8015,7 +8893,104 @@ def phase_head_dims(card) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"phase 17 (head dims 80 and 128, ViT-H-14) took "
           f"{time.perf_counter() - t_phase:.0f} s")
-    return {"kernels": rows, "calls": calls, "rates": rates}
+    return {"kernels": rows, "calls": calls, "steps": steps, "rates": rates}
+
+
+def head_dim_rows(head_dims: dict) -> list:
+    """Phase 17's rows of the kernel line: each kernel at head dims 80
+    and 128 on each route, with its launches on the paths of that head
+    dim and route (B1: the ViT-H-14 predicts, 3-pass counting the staged
+    predict's 3-pass blocks, and at 128 the fused bf16 predict; 17d's
+    steps, CLIs, engine, int8 and bank paths; B3 bf16 at 80: the spatial
+    features; B2: 17d's steps and training CLI; none for B4 and the
+    fp32 V-V, which no phase-17 path runs), ``launches`` the first
+    path's."""
+    hc17, st17 = head_dims["calls"], head_dims["steps"]
+    h14 = "ViT-H-14 stage-2 step"
+    step_paths = {
+        (80, "bf16"): [f"{h14} bf16, remat {r}" for r in REMAT_NAMES.values()]
+        + ["ViT-H-14 training CLI bf16",
+           "ViT-H-14 DP stage-2 step (world 1), per step"],
+        (80, "6-pass"): [f"{h14} fp32, remat {r}"
+                         for r in REMAT_NAMES.values()],
+        (80, "3-pass"): [f"{h14} fp32_high, remat {r}"
+                         for r in REMAT_NAMES.values()],
+        (128, "bf16"): ["stage-2 step bf16, ViT-L in 8 heads of 128"]}
+    b1_paths = {
+        ("attention_packed", 80, "bf16"): (
+            "ViT-H-14 predict bf16", "ViT-H-14 evaluation CLI bf16"),
+        ("attention_packed", 80, "6-pass"): ("ViT-H-14 predict fp32",),
+        ("attention_packed", 80, "3-pass"): ("ViT-H-14 predict fp32_high",),
+        ("attention_packed_vv", 80, "bf16"): (
+            "ViT-H-14 stage-1 spatial features bf16",),
+        ("attention_packed", 128, "bf16"): (
+            "fused predict bf16, ViT-L in 8 heads of 128",)}
+    b1_steps = {(80, "bf16"): [
+        "ViT-H-14 evaluation CLI on the trained checkpoints",
+        "ViT-H-14 serving engine, per batch", "ViT-H-14 int8 predict",
+        "ViT-H-14 memory-bank features batch",
+        "ViT-H-14 memory-bank predict"]}
+    replaces17 = {"attention_packed": "aaclip_tpu/ops/flash_attention.py:190",
+                  "attention_packed_vv":
+                      "aaclip_tpu/ops/flash_attention.py:190",
+                  "attention_kernel": "aaclip_tpu/ops/flash_attention.py:94",
+                  "attention_packed_bwd":
+                      "aaclip_tpu/ops/flash_attention.py:302"}
+    hd_rows = []
+    for (name, hd, route), t in head_dims["kernels"].items():
+        if name == "attention_packed_bwd":
+            paths = {p: st17[p][1] for p in step_paths.get((hd, route), ())}
+        else:
+            paths = {p: hc17[p] for p in b1_paths.get((name, hd, route), ())}
+            if name == "attention_packed":
+                paths.update({p: st17[p][0] for p in
+                              step_paths.get((hd, route), [])
+                              + b1_steps.get((hd, route), [])})
+        source = ("attention_packed_bwd.cu" if name == "attention_packed_bwd"
+                  else "attention_packed.cu")
+        hd_rows.append({
+            "name": f"{name} (hd {hd}"
+                    + ("" if route == "bf16" else f", {route}") + ")",
+            "route": "cuda",
+            "source": f"aaclip_tpu_torch/kernels/csrc/{source}",
+            "replaces": replaces17[name],
+            "launches": next(iter(paths.values()), 0),
+            "calls": paths,
+            "kernels_per_call": t[5],
+            "max_abs_err": t[6],
+            "ms": t[0],
+            "plain_ms": t[1],
+            "bound_ms": t[3],
+            "bound_by": t[4],
+            "library_ms": t[2],
+        })
+    return hd_rows
+
+
+def export_artifact_main(spec: str) -> int:
+    """``chip_smoke.py --export-artifact JSON``:
+    ``deploy.export_serving_artifact`` with the keyword arguments ``JSON``
+    gives it (phase 13c's int8 export, beside the bf16 one), TF32 off as
+    in ``main``; prints the manifest's ``verify``, ``export_s``,
+    ``native_kernels`` and ``untrained``, and the export's seconds, as an
+    ``ARTIFACT_MANIFEST`` line."""
+    import torch
+
+    from aaclip_tpu_torch import deploy
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kw = json.loads(spec)
+    out_dir = kw.pop("out_dir")
+    kw["datasets"] = tuple(kw["datasets"])
+    kw["batch_sizes"] = tuple(kw["batch_sizes"])
+    t0 = time.perf_counter()
+    m = deploy.export_serving_artifact(out_dir, **kw)
+    wall = time.perf_counter() - t0
+    print("ARTIFACT_MANIFEST " + json.dumps(
+        {**{k: m[k] for k in ("verify", "export_s", "native_kernels",
+                              "untrained")}, "wall": wall}), flush=True)
+    return 0
 
 
 def cli_ranks_main(spec: str) -> int:
@@ -8297,44 +9272,7 @@ def main() -> int:
          hc["split2"]["fp32_high predict, bf16_until 6"], hc["split2"], 0.0,
          fp32_times["split2"]),
     ]
-    # phase 17's rows: each kernel at head dims 80 and 128 on each route,
-    # launches on the path of that head dim and route (B1: the ViT-H-14
-    # predicts, 3-pass counting the staged predict's 3-pass blocks, and at
-    # 128 the fused bf16 predict; B3 bf16 at 80: the spatial features;
-    # none for B4 and the fp32 V-V, which no phase-17 path runs)
-    hc17 = head_dims["calls"]
-    hd_paths = {
-        ("attention_packed", 80, "bf16"): (
-            "ViT-H-14 predict bf16", "ViT-H-14 evaluation CLI bf16"),
-        ("attention_packed", 80, "6-pass"): ("ViT-H-14 predict fp32",),
-        ("attention_packed", 80, "3-pass"): ("ViT-H-14 predict fp32_high",),
-        ("attention_packed_vv", 80, "bf16"): (
-            "ViT-H-14 stage-1 spatial features bf16",),
-        ("attention_packed", 128, "bf16"): (
-            "fused predict bf16, ViT-L in 8 heads of 128",)}
-    replaces17 = {"attention_packed": "aaclip_tpu/ops/flash_attention.py:190",
-                  "attention_packed_vv":
-                      "aaclip_tpu/ops/flash_attention.py:190",
-                  "attention_kernel": "aaclip_tpu/ops/flash_attention.py:94"}
-    hd_rows = []
-    for (name, hd, route), t in head_dims["kernels"].items():
-        paths = {p: hc17[p] for p in hd_paths.get((name, hd, route), ())}
-        hd_rows.append({
-            "name": f"{name} (hd {hd}"
-                    + ("" if route == "bf16" else f", {route}") + ")",
-            "route": "cuda",
-            "source": "aaclip_tpu_torch/kernels/csrc/attention_packed.cu",
-            "replaces": replaces17[name],
-            "launches": next(iter(paths.values()), 0),
-            "calls": paths,
-            "kernels_per_call": t[5],
-            "max_abs_err": t[6],
-            "ms": t[0],
-            "plain_ms": t[1],
-            "bound_ms": t[3],
-            "bound_by": t[4],
-            "library_ms": t[2],
-        })
+    hd_rows = head_dim_rows(head_dims)
     print(json.dumps({"kernels": [{
         "name": "attention_packed",
         "route": "cuda",
@@ -8473,4 +9411,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--parallel-clis"]:
         sys.exit(cli_ranks_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--export-artifact"]:
+        sys.exit(export_artifact_main(sys.argv[2]))
     sys.exit(main())

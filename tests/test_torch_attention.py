@@ -206,60 +206,70 @@ def _const(src: str, name: str) -> int:
 
 
 def test_tma_routes_match_the_kernel_sources():
-    """The route table is the sources' own: bf16 at the forward's TMA head
-    dims (``tma_head_dim``: 64, 80, 128) takes its TMA + wgmma kernels,
-    each head dim instantiated once per route (``by_head_dim``), and at
-    the backward's ``kTmaHeadDim`` (64) the backward's; fp32 there their
-    6-pass entry points (which refuse any other head dim), and every other
-    (dtype, head dim) the wrappers accept has a retained kernel in each."""
+    """The route table is the sources' own: bf16 at the TMA head dims
+    (``tma_head_dim`` of both sources: 64, 80, 128) takes their TMA + wgmma
+    kernels, each head dim instantiated once per route (``by_head_dim``);
+    fp32 there their 6-pass and 3-pass entry points (which refuse any other
+    head dim), and every other (dtype, head dim) the wrappers accept has a
+    retained kernel in each."""
     import re
 
     fwd = (build.CSRC / "attention_packed.cu").read_text()
     bwd = (build.CSRC / "attention_packed_bwd.cu").read_text()
-    body = re.search(r"constexpr bool tma_head_dim\(int hd\) \{([^}]*)\}",
-                     fwd).group(1)
-    dims = tuple(int(d) for d in re.findall(r"hd == (\d+)", body))
-    assert dims == A.TMA_HEAD_DIMS == (64, 80, 128)
+    for src in (fwd, bwd):
+        body = re.search(r"constexpr bool tma_head_dim\(int hd\) \{([^}]*)\}",
+                         src).group(1)
+        dims = tuple(int(d) for d in re.findall(r"hd == (\d+)", body))
+        assert dims == A.TMA_HEAD_DIMS == (64, 80, 128)
+        for hd in dims:
+            assert (f"case {hd}: return fn(std::integral_constant<int, {hd}>"
+                    in src)
+        assert "static_assert(HD == 64 || HD == 80 || HD == 128" in src
     assert TMA_ROUTES == {(dtype, hd) for dtype in (torch.bfloat16,
                                                     torch.float32)
                           for hd in dims}
     assert fwd.count("if (bf16 && tma_head_dim(head_dim))") == 2
-    for hd in dims:
-        assert (f"case {hd}: return fn(std::integral_constant<int, {hd}>"
-                in fwd)
-    assert "static_assert(HD == 64 || HD == 80 || HD == 128" in fwd
-    assert _const(bwd, "kTmaHeadDim") == 64 and 64 in A.BWD_HEAD_DIMS
-    assert "if (bf16 && head_dim == kTmaHeadDim)" in bwd
-    assert bwd.count("if (head_dim != kTmaHeadDim)") == 1
+    assert bwd.count("if (bf16 && tma_head_dim(head_dim))") == 1
+    # the backward's plane entries dispatch on the head dim alone
+    assert bwd.count("return launch_planes_at<") == 2
+    assert "kTmaHeadDim" not in bwd
     for hd in KERNEL_HEAD_DIMS:
         for dtype in (torch.bfloat16, torch.float32):
             if (dtype, hd) in TMA_ROUTES:
                 continue
             bf16 = dtype == torch.bfloat16
             assert f"if ({'' if bf16 else '!'}bf16 && head_dim == {hd})" in fwd
+            assert f"if ({'' if bf16 else '!'}bf16 && head_dim == {hd})" in bwd
     for bf16 in ("true", "false"):
         assert f"launch_retained<16, {bf16}>" in bwd
 
 
-def test_backward_head_dims_raise_naming_the_roadmap():
-    """The backward has kernels at ``BWD_HEAD_DIMS`` (16 and 64) only: on
-    the card any other head dim the forward takes (80, 128) raises before
-    a launch, naming ROADMAP B11; the CPU keeps its plain version at every
-    head dim."""
+def test_backward_head_dims_match_the_forward():
+    """The backward has kernels at every head dim the forward takes
+    (``BWD_HEAD_DIMS == KERNEL_HEAD_DIMS``): the source's head-dim
+    dispatch covers the TMA head dims and the retained 16, and no
+    "ROADMAP B11" raise is left in ``ops/attention.py``. The CPU keeps its
+    plain version at every head dim."""
     import inspect
+    import re
 
-    assert A.BWD_HEAD_DIMS == (16, 64)
-    assert set(KERNEL_HEAD_DIMS) - set(A.BWD_HEAD_DIMS) == {80, 128}
-    src = inspect.getsource(A.attention_packed_bwd)
-    assert "if hd not in BWD_HEAD_DIMS:" in src
-    assert "NotImplementedError" in src and "ROADMAP B11" in src
-    assert src.index("BWD_HEAD_DIMS:") < src.index("_planes(route, ")
-    qkv = torch.from_numpy(packed_qkv(1, 20, 2, 80, seed=4))
-    d_out = torch.from_numpy(np.random.default_rng(5).standard_normal(
-        (1, 20, 160)).astype(np.float32))
-    got = A.attention_packed_bwd(qkv, d_out, None, 2, 20)
-    torch.testing.assert_close(got, A.attention_packed_bwd_plain(
-        qkv, d_out, 2, 20), atol=0, rtol=0)
+    assert A.BWD_HEAD_DIMS == KERNEL_HEAD_DIMS == (16, 64, 80, 128)
+    bwd = (build.CSRC / "attention_packed_bwd.cu").read_text()
+    body = re.search(r"int by_head_dim\(int hd, F&& fn\) \{(.*?)\n\}", bwd,
+                     re.S).group(1)
+    dispatched = {int(d) for d in re.findall(r"case (\d+):", body)}
+    retained = {int(d) for d in re.findall(
+        r"if \(!?bf16 && head_dim == (\d+)\)", bwd)}
+    assert dispatched | retained == set(A.BWD_HEAD_DIMS)
+    src = inspect.getsource(A)
+    assert "ROADMAP B11" not in src and "NotImplementedError" not in src
+    for hd in (80, 128):
+        qkv = torch.from_numpy(packed_qkv(1, 20, 2, hd, seed=4))
+        d_out = torch.from_numpy(np.random.default_rng(5).standard_normal(
+            (1, 20, 2 * hd)).astype(np.float32))
+        got = A.attention_packed_bwd(qkv, d_out, None, 2, 20)
+        torch.testing.assert_close(got, A.attention_packed_bwd_plain(
+            qkv, d_out, 2, 20), atol=0, rtol=0)
 
 
 def test_tma_alignment_matches_the_kernel_header():

@@ -9,8 +9,8 @@ plain versions:
 * the kernels' arithmetic (two planes, the three products hi·lo, lo·hi,
   hi·hi summed in fp32 in that order, P and dS split rather than rounded,
   keys in tiles of 64 at head dim 64 and of 32 at 80 and 128, each tile's
-  product in its own accumulator) through the forward at head dims 64,
-  80 and 128 and the backward at 64, against the JAX package's Pallas
+  product in its own accumulator) through the forward and the backward at
+  head dims 64, 80 and 128, against the JAX package's Pallas
   kernels in interpret mode at "high", the only 3-pass reference on the
   CPU (jax on the CPU computes XLA "high" dots in true fp32): the plain
   versions' bars, atol and rtol 1e-5 forward and 5e-5 of each gradient's
@@ -48,6 +48,13 @@ TILE = 64  # keys (forward, kernel A) and queries (kernel B) per tile
 def fwd_tile(head_dim: int) -> int:
     """The forward plane kernels' keys per tile (``PlaneTiles::kKeys``):
     64 at head dim 64, 32 at 80 and 128."""
+    return TILE if head_dim == 64 else 32
+
+
+def bwd_tile(head_dim: int) -> int:
+    """The backward plane pairs' rows per streamed tile
+    (``BwdTiles::kWalk``): keys of kernel A, queries of kernel B; 64 at
+    head dim 64, 32 at 80 and 128."""
     return TILE if head_dim == 64 else 32
 
 
@@ -134,22 +141,23 @@ def _backward3(q, k, v, do, lse, valid: int, scale: float):
     """The 3-pass backward pair's arithmetic on [B, H, S, hd]: kernel A
     (query-outer) takes P = exp(s - lse) and dP, dsum = rowsum(dP·P),
     dS = P·(dP - dsum)·scale in fp32 (split, never rounded) and sums
-    dQ = dS·K over tiles of 64 keys, each tile's product in its own
-    accumulator; kernel B (key-outer) sums dV = Pᵀ·dO and dK = dSᵀ·Q over
-    tiles of 64 queries the same way."""
-    S = q.shape[-2]
+    dQ = dS·K over tiles of ``bwd_tile(hd)`` keys, each tile's product in
+    its own accumulator; kernel B (key-outer) sums dV = Pᵀ·dO and
+    dK = dSᵀ·Q over tiles of as many queries the same way."""
+    S, hd = q.shape[-2:]
+    tile = bwd_tile(hd)
     s = _kdot3(q, k.transpose(-1, -2)) * scale
     p = torch.exp(s - lse)
     p[..., valid:] = 0.0
     dp = _kdot3(do, v.transpose(-1, -2))
     ds = p * (dp - (dp * p).sum(-1, keepdim=True)) * scale
-    dq = sum(_kdot3(ds[..., k0:k0 + TILE], k[..., k0:k0 + TILE, :])
-             for k0 in range(0, valid, TILE))
+    dq = sum(_kdot3(ds[..., k0:k0 + tile], k[..., k0:k0 + tile, :])
+             for k0 in range(0, valid, tile))
     pt, dst = p.transpose(-1, -2), ds.transpose(-1, -2)
-    dv = sum(_kdot3(pt[..., q0:q0 + TILE], do[..., q0:q0 + TILE, :])
-             for q0 in range(0, S, TILE))
-    dk = sum(_kdot3(dst[..., q0:q0 + TILE], q[..., q0:q0 + TILE, :])
-             for q0 in range(0, S, TILE))
+    dv = sum(_kdot3(pt[..., q0:q0 + tile], do[..., q0:q0 + tile, :])
+             for q0 in range(0, S, tile))
+    dk = sum(_kdot3(dst[..., q0:q0 + tile], q[..., q0:q0 + tile, :])
+             for q0 in range(0, S, tile))
     return dq, dk, dv
 
 
@@ -169,14 +177,15 @@ def _attention3(qkv: torch.Tensor, heads: int, valid: int,
 
 @pytest.mark.parametrize("valid_len", [250, 201])
 @pytest.mark.parametrize("direction,head_dim", [
-    ("forward", 64), ("backward", 64), ("forward", 80), ("forward", 128)])
+    ("forward", 64), ("backward", 64), ("forward", 80), ("forward", 128),
+    ("backward", 80), ("backward", 128)])
 def test_three_pass_kernels_match_pallas_interpret(valid_len, direction,
                                                    head_dim):
     """The kernels' 3-pass arithmetic against the JAX package's kernels at
     "high" (interpret mode): the plain versions' bars, atol and rtol 1e-5
-    forward, 5e-5 of each gradient's max backward (dP - dsum cancels; the
-    backward's kernels are at head dim 64 alone)."""
+    forward, 5e-5 of each gradient's max backward (dP - dsum cancels)."""
     qkv = packed_qkv(2, 250, 2, head_dim, seed=11)
+    dm = 2 * head_dim
     if direction == "forward":
         want = np.asarray(j_attention(jnp.asarray(qkv), 2, valid_len,
                                       q_blk=64, precision="high",
@@ -184,7 +193,7 @@ def test_three_pass_kernels_match_pallas_interpret(valid_len, direction,
         got = _attention3(torch.from_numpy(qkv), 2, valid_len).numpy()
         np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
         return
-    d_out = (np.random.default_rng(12).standard_normal((2, 250, 128))
+    d_out = (np.random.default_rng(12).standard_normal((2, 250, dm))
              .astype(np.float32))
     _, vjp = jax.vjp(lambda x: j_diff(x, 2, valid_len, 64, "high", True),
                      jnp.asarray(qkv))
@@ -192,11 +201,11 @@ def test_three_pass_kernels_match_pallas_interpret(valid_len, direction,
     got = _attention3(torch.from_numpy(qkv), 2, valid_len,
                       torch.from_numpy(d_out)).numpy()
     for i in range(3):
-        sl = slice(i * 128, (i + 1) * 128)
+        sl = slice(i * dm, (i + 1) * dm)
         err = np.abs(got[..., sl] - want[..., sl]).max()
         assert err <= 5e-5 * np.abs(want[..., sl]).max(), ("qkv"[i], err)
     if valid_len < 250:
-        assert not got[:, valid_len:, 128:].any()  # keys past valid_len
+        assert not got[:, valid_len:, dm:].any()  # keys past valid_len
 
 
 def test_three_pass_kernels_match_the_plain_version():
@@ -317,9 +326,8 @@ def test_3pass_wgmma_entry_points_match_the_c_signatures(source, entry,
 
 def test_mma_sync_3pass_kernels_remain_at_head_dim_16_only():
     """The mma.sync 3-pass kernels are instantiated at head dim 16 alone:
-    at 64 (and 80 and 128 in the forward) the TMA + wgmma kernels took
-    their place, and the mma.sync entry points refuse them (no
-    fallback)."""
+    at 64, 80 and 128 the TMA + wgmma kernels took their place, and the
+    mma.sync entry points refuse them (no fallback)."""
     fwd = (build.CSRC / "attention_packed.cu").read_text()
     bwd = (build.CSRC / "attention_packed_bwd.cu").read_text()
     assert "attn_fwd_3pass<16><<<" in fwd
@@ -331,7 +339,8 @@ def test_mma_sync_3pass_kernels_remain_at_head_dim_16_only():
     assert bwd.count("if (head_dim != 16)") == 1
     for name in ("attn_fwd_3pass_wgmma<HD>", "split2_kernel"):
         assert f"{name}<<<" in fwd
-    for name in ("attn_bwd_dq_3pass_wgmma", "attn_bwd_dkdv_3pass_wgmma"):
+    for name in ("attn_bwd_dq_3pass_wgmma<HD>",
+                 "attn_bwd_dkdv_3pass_wgmma<HD>"):
         assert f"{name}<<<" in bwd
 
 

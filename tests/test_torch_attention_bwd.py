@@ -5,6 +5,14 @@ versions:
 * ``attention_packed_bwd_plain`` vs ``jax.vjp`` of the Pallas
   ``attention_packed_diff`` in interpret mode (2 images, 2 heads x 64,
   S 250, q_blk 64, valid_len 250 and 201, fp32 and bf16);
+* the same at head dims 80 and 128 (2 heads: JAX's gate runs its Pallas
+  backward at 128, and interpret mode tiles 80) against JAX's
+  ``_attention_packed_bwd_impl(..., interpret=True)`` itself, fp32 and
+  bf16, at the same bars; and at 80 in fp32 against ``jax.vjp`` of
+  ``models/layers.py::attention``, the XLA path JAX's gate sends hd 80 to
+  (a unit out-projection, keys past valid_len masked), through the input
+  projection: atol 1e-5 of the gradient's max, the fp32 bar with the
+  projections' sums in another order;
 * the autograd Function's CPU backward is the plain backward, exactly;
 * the differentiable ``attn_fn`` hook's gradients vs ``jax.vjp`` of the
   JAX hook at tiny-test's head dim 16;
@@ -28,6 +36,9 @@ import pytest
 import torch
 
 from aaclip_tpu.core.config import DtypePolicy as JPolicy
+from aaclip_tpu.models.layers import attention as j_xla_attention
+from aaclip_tpu.ops.flash_attention import \
+    _attention_packed_bwd_impl as j_bwd_impl
 from aaclip_tpu.ops.flash_attention import attention_packed_diff as j_diff
 from aaclip_tpu.ops.flash_attention import make_attn_fn as j_make_attn_fn
 from aaclip_tpu_torch.core.config import DtypePolicy, get_config
@@ -75,6 +86,68 @@ def test_plain_bwd_matches_pallas_interpret(dtype, valid_len):
             ulp = 2 ** -8 * np.abs(want[..., sl]).max()
             np.testing.assert_allclose(got[..., sl], want[..., sl], atol=ulp,
                                        rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("valid_len", [250, 201])
+@pytest.mark.parametrize("head_dim", [80, 128])
+def test_plain_bwd_matches_pallas_interpret_at_wide_head_dims(
+        head_dim, valid_len, dtype):
+    """Head dims 80 and 128 in 2 heads, ragged S 250 (q_blk 64), valid_len
+    250 and 201: the plain backward against JAX's backward kernel in
+    interpret mode, at the hd-64 test's bars."""
+    jd, td = DTYPES[dtype]
+    dm = 2 * head_dim
+    qkv = packed_qkv(2, 250, 2, head_dim, seed=23)
+    d_out = np.random.default_rng(24).standard_normal(
+        (2, 250, dm)).astype(np.float32)
+    want = np.asarray(j_bwd_impl(
+        jnp.asarray(qkv, jd), jnp.asarray(d_out, jd), 2, valid_len, 64,
+        "highest" if dtype == "fp32" else None, True), np.float32)
+    got = attention_packed_bwd_plain(torch.from_numpy(qkv).to(td),
+                                     torch.from_numpy(d_out).to(td), 2,
+                                     valid_len)
+    assert got.shape == (2, 250, 3 * dm) and got.dtype == td
+    got = got.float().numpy()
+    if valid_len < 250:
+        assert not got[:, valid_len:, dm:].any()
+    if dtype == "fp32":
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    else:
+        for i in range(3):
+            sl = slice(i * dm, (i + 1) * dm)
+            ulp = 2 ** -8 * np.abs(want[..., sl]).max()
+            np.testing.assert_allclose(got[..., sl], want[..., sl], atol=ulp,
+                                       rtol=0)
+
+
+@pytest.mark.parametrize("valid_len", [250, 201])
+def test_plain_bwd_matches_the_xla_path_at_head_dim_80(valid_len):
+    """fp32, 2 heads of 80, S 250: ``jax.vjp`` of JAX's XLA attention
+    (``layers.attention`` with a unit out-projection and keys past
+    valid_len masked) w.r.t. its input, against the port's plain backward
+    of the same packed projection carried back through it."""
+    B, S, H, hd = 2, 250, 2, 80
+    dm = H * hd
+    rng = np.random.default_rng(25)
+    x = rng.standard_normal((B, S, dm)).astype(np.float32)
+    w = (rng.standard_normal((dm, 3 * dm)) * dm ** -0.5).astype(np.float32)
+    b = rng.standard_normal(3 * dm).astype(np.float32)
+    g = rng.standard_normal((B, S, dm)).astype(np.float32)
+    p = {"w_qkv": jnp.asarray(w), "b_qkv": jnp.asarray(b),
+         "w_out": jnp.eye(dm, dtype=jnp.float32),
+         "b_out": jnp.zeros(dm, jnp.float32)}
+    mask = jnp.where(jnp.arange(S) < valid_len, 0.0, -jnp.inf)
+    _, vjp = jax.vjp(lambda v: j_xla_attention(v, p, H, mask=mask,
+                                               policy=JPolicy.fp32()),
+                     jnp.asarray(x))
+    want = np.asarray(vjp(jnp.asarray(g))[0], np.float32)
+    qkv = torch.from_numpy(x) @ torch.from_numpy(w) + torch.from_numpy(b)
+    d_qkv = attention_packed_bwd_plain(qkv, torch.from_numpy(g), H,
+                                       valid_len)
+    got = (d_qkv @ torch.from_numpy(w).T).numpy()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
 
 
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])

@@ -11,9 +11,9 @@ their plain versions:
   fp32, summed in fp32) lies within 2^-20 of each output's max from the
   fp64 product at the attention's reduction depths 64 and 1370: the error
   model the on-card check relies on;
-* the same six-product arithmetic through the attention forward (at head
-  dims 64, 80 and 128) and backward (at 64, the backward's one TMA head
-  dim; the kernels' products, P and dS split, not rounded) against
+* the same six-product arithmetic through the attention forward and
+  backward at head dims 64, 80 and 128 (the kernels' products, P and dS
+  split, not rounded) against
   the JAX package's Pallas kernels in interpret mode at "highest" (true
   fp32 on the CPU): atol 1e-5, rtol 1e-5 as the plain versions' fp32 bar,
   and within 4e-6 of each output's max from fp64, the on-card bar;
@@ -199,7 +199,8 @@ def _fp64(qkv: np.ndarray, heads: int, valid: int,
 
 @pytest.mark.parametrize("valid_len", [250, 201])
 @pytest.mark.parametrize("direction,head_dim", [
-    ("forward", 64), ("backward", 64), ("forward", 80), ("forward", 128)])
+    ("forward", 64), ("backward", 64), ("forward", 80), ("forward", 128),
+    ("backward", 80), ("backward", 128)])
 def test_six_pass_attention_matches_pallas_interpret(valid_len, direction,
                                                      head_dim):
     """The kernels' 6-pass arithmetic against the JAX package's kernels at
@@ -207,7 +208,8 @@ def test_six_pass_attention_matches_pallas_interpret(valid_len, direction,
     plain versions; and each output within 4e-6 of its max from fp64, the
     bar ``chip_smoke.py`` holds the card's kernels to."""
     qkv = packed_qkv(2, 250, 2, head_dim, seed=7)
-    d_out = (np.random.default_rng(8).standard_normal((2, 250, 128))
+    dm = 2 * head_dim
+    d_out = (np.random.default_rng(8).standard_normal((2, 250, dm))
              .astype(np.float32) if direction == "backward" else None)
     if d_out is None:
         want = np.asarray(j_attention(jnp.asarray(qkv), 2, valid_len,
@@ -223,7 +225,7 @@ def test_six_pass_attention_matches_pallas_interpret(valid_len, direction,
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
     exact = _fp64(qkv, 2, valid_len, d_out)
     for sl in ((slice(None),) if d_out is None else
-               [slice(i * 128, (i + 1) * 128) for i in range(3)]):
+               [slice(i * dm, (i + 1) * dm) for i in range(3)]):
         err = np.abs(got[..., sl] - exact[..., sl]).max()
         assert err <= 4e-6 * np.abs(exact[..., sl]).max()
 
@@ -306,9 +308,9 @@ def test_6pass_entry_points_match_the_c_signatures(source, entry, loader,
 
 
 def test_fma_kernels_remain_at_head_dim_16_only():
-    """The fp32 FMA kernels are instantiated at head dim 16 alone: at 64
-    (and 80 and 128 in the forward) the 6-pass kernels took their place,
-    and the retained entry points refuse fp32 there (no fallback)."""
+    """The fp32 FMA kernels are instantiated at head dim 16 alone: at 64,
+    80 and 128 the 6-pass kernels took their place, and the retained entry
+    points refuse fp32 there (no fallback)."""
     fwd = (build.CSRC / "attention_packed.cu").read_text()
     bwd = (build.CSRC / "attention_packed_bwd.cu").read_text()
     assert "attn_f32_kernel<16>" in fwd and "attn_f32_kernel<64>" not in fwd
@@ -317,7 +319,7 @@ def test_fma_kernels_remain_at_head_dim_16_only():
     assert "!bf16 && head_dim == 64" not in fwd + bwd
     for name in ("attn_fwd_6pass<HD>", "split3_kernel"):
         assert f"{name}<<<" in fwd
-    for name in ("attn_bwd_dq_6pass", "attn_bwd_dkdv_6pass"):
+    for name in ("attn_bwd_dq_6pass<HD>", "attn_bwd_dkdv_6pass<HD>"):
         assert f"{name}<<<" in bwd
 
 

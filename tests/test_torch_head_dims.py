@@ -15,6 +15,13 @@ the port against the JAX package on the CPU:
   (rtol 1e-5), against JAX's from the same numpy weights through the
   bridge; JAX runs XLA's attention there (its Pallas gate refuses 2 x 80
   columns), the port its kernel wrapper's plain version;
+* one fp32 stage-2 step's adapter gradients, leaf by leaf, against JAX's
+  (read from an optax transformation that keeps the gradient), at 2
+  blocks of NARROW_HD80 (JAX on XLA's attention, as its gate sends hd 80)
+  and of NARROW_HD128, 2 heads of 128 (JAX on its Pallas attention and
+  backward in interpret mode, as its gate runs hd 128): each leaf within
+  1e-5 of its max |gradient| (fp32 through two blocks and back, sums in
+  another order; read at 9.1e-7 and 9.0e-7), the losses to rtol 1e-5;
 * ViT-H-14's widths (1280 in 16 heads of 80, MLP 5120, seg/det 1280 ->
   1024) cut to 2 blocks at 28 px: the adapted forward in fp32 against
   JAX's, with no code of its own.
@@ -26,6 +33,7 @@ phase 17).
 import dataclasses
 import json
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
@@ -47,8 +55,9 @@ from aaclip_tpu_torch.train import optim
 from aaclip_tpu_torch.train.steps import make_stage2_step
 from chip_smoke import VIT_H_14
 from tests.test_torch_attention import NARROW_HD80
+from aaclip_tpu.ops.flash_attention import make_attn_fn as j_make_attn_fn
 from tests.test_torch_model import ATOL, RTOL, both_models, forward_pair
-from tests.test_torch_train import strict
+from tests.test_torch_train import grad_capture, grads_as_jax, strict
 
 # ViT-L-14-336 (the reference's JSON) with its 1024 columns in 8 heads of
 # 128, a geometry JAX's gate admits
@@ -58,6 +67,14 @@ VIT_L_HW128 = {
                    "head_width": 128, "patch_size": 14},
     "text_cfg": {"context_length": 77, "vocab_size": 49408, "width": 768,
                  "heads": 12, "layers": 12},
+}
+# a narrow tower in 2 heads of 128: JAX's gate runs its Pallas kernels
+NARROW_HD128 = {
+    "embed_dim": 64,
+    "vision_cfg": {"image_size": 70, "layers": 2, "width": 256,
+                   "head_width": 128, "patch_size": 14},
+    "text_cfg": {"context_length": 77, "vocab_size": 49408, "width": 64,
+                 "heads": 2, "layers": 2},
 }
 USER_CONFIGS = {"ViT-H-14": VIT_H_14, "narrow-hd80": NARROW_HD80,
                 "ViT-L-14-336-hw128": VIT_L_HW128}
@@ -120,9 +137,9 @@ def test_fused_gate_follows_jax(user_configs, monkeypatch, name):
     assert FB.maybe_make_block_fn(tcfg, fp32) is None
 
 
-def narrow_pair(layers: int):
-    """(JAX config, port config) of NARROW_HD80 at ``layers`` blocks."""
-    payload = json.loads(json.dumps(NARROW_HD80))
+def narrow_pair(layers: int, narrow=NARROW_HD80):
+    """(JAX config, port config) of ``narrow`` at ``layers`` blocks."""
+    payload = json.loads(json.dumps(narrow))
     payload["vision_cfg"]["layers"] = layers
     return jconfig.config_from_json(payload), tconfig.config_from_json(payload)
 
@@ -201,6 +218,49 @@ def test_narrow_head_dim_80_stage2_loss_matches_jax():
     loss = step(tad, *(torch.from_numpy(x) for x in batch))
     assert np.isfinite(float(jloss))
     np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+
+
+@pytest.mark.parametrize("head_dim", [80, 128])
+def test_narrow_stage2_gradients_match_jax(head_dim):
+    """One fp32 stage-2 step at 2 blocks from the same adapter, table and
+    batch: the port's adapter gradients (the plain backward at this head
+    dim) against JAX's, leaf by leaf, within 1e-5 of each leaf's max; JAX
+    takes the attention its gate gives the geometry (XLA's at 80, the
+    Pallas custom VJP in interpret mode at 128)."""
+    narrow = {80: NARROW_HD80, 128: NARROW_HD128}[head_dim]
+    levels = dict(levels=(1, 2), image_adapt_until=1)
+    jcfg, tcfg = narrow_pair(2, narrow)
+    assert tcfg.vision.head_dim == head_dim and tcfg.vision.heads == 2
+    visual, jad, vit, tad, jacfg, tacfg = both_models(jcfg, tcfg, levels)
+    jpol, tpol = POLICIES["fp32"]
+    rng = np.random.default_rng(9)
+    B = 3
+    table = rng.standard_normal((2, 64, 2)).astype(np.float32)
+    table /= np.linalg.norm(table, axis=1, keepdims=True)
+    batch = (rng.standard_normal((B, 3, 70, 70)).astype(np.float32),
+             (rng.random((B, 70, 70)) > 0.8).astype(np.float32),
+             rng.integers(0, 2, B).astype(np.int32),
+             rng.integers(0, 2, B).astype(np.int32),
+             np.ones(B, np.float32))
+    attn_fn = (j_make_attn_fn(2, jpol, differentiable=True, interpret=True)
+               if head_dim == 128 else None)
+    jstep = j_make_stage2_step({"visual": visual}, jcfg, jacfg,
+                               grad_capture(), table, policy=jpol,
+                               attn_fn=attn_fn)
+    state, jloss = strict(jstep.raw, init_state(jad, grad_capture()),
+                          jstep.visual, *(jnp.asarray(x) for x in batch))
+    opt = optim.make_image_optimizer(tad.parameters())
+    step = make_stage2_step(vit, tcfg, tacfg, opt, table, policy=tpol,
+                            device="cpu")
+    loss = step(tad, *(torch.from_numpy(x) for x in batch))
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+    got = jax.tree.leaves(grads_as_jax(tad))
+    want = [np.asarray(w) for w in jax.tree.leaves(state.opt_state)]
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and np.abs(w).max() > 0
+        np.testing.assert_allclose(g, w, rtol=0,
+                                   atol=1e-5 * np.abs(w).max())
 
 
 def test_vit_h_14_widths_adapted_forward_matches_jax(user_configs):

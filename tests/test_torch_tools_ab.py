@@ -326,6 +326,31 @@ def test_few_shot_soak_with_memory_bank(tmp_path, clip_env):
                                    atol=POINTS_ATOL + 1e-9, rtol=0)
 
 
+def test_few_shot_soak_memory_bank_at_one_shot_exits_before_training(
+        tmp_path, monkeypatch):
+    """``--shots 1 --memory_bank`` on the tool's synthetic set: its 1-shot
+    draw holds no normal ``bottle``, so the tool exits right after the
+    draw, naming the shot and the class, and trains nothing."""
+    from aaclip_tpu_torch.tools import few_shot_soak
+    from aaclip_tpu_torch.train import cli as train_cli
+
+    for k in ("AACLIP_DATA", "AACLIP_METADATA"):
+        monkeypatch.setenv(k, "")
+
+    def no_training(*a, **kw):
+        raise AssertionError("the training CLI ran")
+
+    monkeypatch.setattr(train_cli, "main", no_training)
+    work = str(tmp_path / "soak")
+    with pytest.raises(SystemExit,
+                       match=r"the 1-shot draw holds no normal \(label 0\) "
+                             r"record of class 'bottle'"):
+        few_shot_soak.main(["--shots", "1", "--memory_bank", "--workdir",
+                            work] + TINY, device="cpu")
+    assert few_shot_soak.classes_without_normals("MVTec", 1) == ["bottle"]
+    assert not glob.glob(os.path.join(work, "ckpt_*"))
+
+
 def test_few_shot_soak_refuses_more_shots_than_images():
     from aaclip_tpu_torch.tools import few_shot_soak
 
