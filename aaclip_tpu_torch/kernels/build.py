@@ -12,8 +12,8 @@ routes),
 ``mma_common.cuh`` (mma.sync helpers and the bf16 splits of the 3-pass
 and 6-pass modes), ``hopper_common.cuh`` (mbarriers, TMA, wgmma, the
 products over two or three bf16 planes, each kernel's shared-memory
-attribute set once per device, and the host-side tensor maps of the
-attention kernels' head-dim-64 routes) and ``launch_count.cuh`` (each library's count of its
+attribute set once per device, and the host-side tensor maps of the TMA
+kernels) and ``launch_count.cuh`` (each library's count of its
 kernel launches, ``kernels_launched``). Each library links only the CUDA
 runtime: the driver-API call that encodes a tensor map,
 ``cuTensorMapEncodeTiled``, is taken at run time through

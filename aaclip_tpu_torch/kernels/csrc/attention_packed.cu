@@ -19,14 +19,17 @@
 // byte, far above the card's ~295 bf16 FLOP per byte of HBM: it is bound
 // by the tensor cores (989 TFLOP/s), not by memory; 245.9 GFLOP at the
 // predict's batch 32 is 0.249 ms (at ViT-H-14's 16 heads of 80, 307.5
-// GFLOP, 0.311 ms; in 8 heads of 128, ViT-L's 0.249). At head dim 64 the
+// GFLOP, 0.311 ms; ViT-g-14's 16 of 88, 338.3 GFLOP, 0.342 ms;
+// ViT-bigG-14's 16 of 104, 399.8 GFLOP, 0.404 ms; in 8 heads of 128,
+// ViT-L's 0.249). At head dim 64 the
 // softmax's exponentials are a second bound of the same size: one per
 // score at 16 per SM and clock takes as long as the score's 4*64 product
 // FLOP at the tensor cores' ~4096 per SM and clock, so the design overlaps
 // the two.
 //
 // Routes. bf16 at a TMA head dim (tma_head_dim: 64, ViT-L and ViT-B; 80,
-// open_clip's ViT-H-14; 128) runs attn_fwd_wgmma<HD>, the design below.
+// open_clip's ViT-H-14; 88, its ViT-g-14; 104, its ViT-bigG-14; 128) runs
+// attn_fwd_wgmma<HD>, the design below.
 // fp32 there, the CLIs' default precision ("highest"), runs
 // attn_fwd_6pass<HD> on the same TMA + wgmma machinery (below); fp32 under
 // precision "high" (the 3-pass mode) runs attn_fwd_3pass_wgmma<HD>, the
@@ -58,40 +61,60 @@
 // is the 6-pass route's on two planes (split2_kernel writes hi and lo, the
 // products are passes 3-5 of the 6-pass table).
 //
-// Head dims 80 and 128. One tile row of the TMA + wgmma kernels is 64
-// bf16 columns, one 128-byte swizzle row (hopper_common.cuh), so a head is
-// loaded as 64-column chunks (Head<HD>), each a TMA box of its own at
-// column 64 c of the head and a tile of the same layout: one chunk at 64,
-// two at 80 and 128. At 80 the second box covers columns 64-127 of the
-// head, of which the products read 16 (the rest is the next head's, or
-// zeros past the map's edge, and never enters a product): Q K^T runs HD /
-// 16 k-steps, k-step ks 32 * (ks % 4) bytes into chunk ks / 4 (five at 80:
-// four from the first chunk, one from the second), and P V one product per
-// chunk, m64n64 on a full chunk and m64n16 on the first 16 columns of the
-// second chunk at 80 (the MN-major descriptor reading two of each swizzled
-// row's eight 16-byte chunks). So every route spends exactly hd's own
-// products at 80 and 128; what 80 pays for the 64-column boxes is in
-// shared memory and copies: 1.6x the bytes of its head moved from L2 into
-// shared memory, and 128's tile plan. The tile plans (rows x keys per
-// tile x stages; shared memory; registers a consumer thread holds for O,
-// S, P):
+// Head dims 80, 88, 104 and 128. One tile row of the TMA + wgmma kernels
+// is 64 bf16 columns, one 128-byte swizzle row (hopper_common.cuh), so a
+// head is loaded as 64-column chunks (Head<HD>), each a TMA box of its own
+// at column 64 c of the head and a tile of the same layout: one chunk at
+// 64, two at 80, 88, 104 and 128 (16, 24 or 40 of the second box's
+// columns used at 80, 88, 104). Q K^T runs ceil(HD / 16) k-steps, k-step
+// ks 32 * (ks % 4) bytes into chunk ks / 4 (five at 80, six at 88, seven
+// at 104: four from the first chunk, the rest from the second). At 88 and
+// 104 the head dim is no whole number of k-steps, and the last one reads 8
+// pad columns (88-95, 104-111) of both Q and K, which must add exact
+// zeros to every score. The pad must be zeros in both operands: zeros in
+// one alone would not do, as 0 * NaN is NaN, so a non-finite value in the
+// next head would reach this head's scores. So at 88 and 104 every
+// operand comes through a per-head tensor map
+// (hopper_common.cuh::make_head_map) whose innermost extent is one head:
+// a box's columns past the head dim arrive as zeros, never as the next
+// head's, for nothing; zeroing the pad in shared memory instead would
+// cost the consumers a pass over every K tile and a barrier before its
+// product. At 64, 80 and 128 the k-steps end at the head, and the
+// section-wide maps of the first kernels serve (at 80 the second box's
+// columns 80-127 are the next head's and never enter a product), so those
+// instantiations compile to the same code as before.
+// P V runs one product per chunk, m64n64 on a full chunk and m64nN on the
+// first N = HD - 64 columns of the second (16, 24, 40 at 80, 88, 104; the
+// MN-major descriptor reading N / 8 of each swizzled row's eight 16-byte
+// chunks), so V's pad never enters a product, and O's stores are as
+// compile-time per chunk as its products (a runtime bound on a chunk's
+// columns pushed O into local memory). So every route spends hd's own
+// products at 80 and 128, and at 88 and 104 one padded k-step of Q K^T
+// more (6 / 5.5 and 7 / 6.5 of Q K^T's work, which the bound does not
+// count). The tile plans (rows x keys per tile x stages; shared memory;
+// registers a consumer thread holds for O, S, P):
 //   bf16      hd 64:     128 x 128 x 3, 113 KB; O 32, S 64, P 32 + 32
-//             hd 80/128: 128 x 64 x 5, 193 KB; O 40/64, S 32, P 16 + 16
+//             hd 80-128: 128 x 64 x 5, 193 KB; O 40/44/52/64, S 32,
+//                        P 16 + 16
 //   6-pass    hd 64:     128 x 64 x 3, 193 KB; O 32 + 32, S 32, P 3 x 16
-//             hd 80/128: 128 x 32 x 2, 193 KB; O 40/64 + 32, S 16, P 3 x 8
+//             hd 80-128: 128 x 32 x 2, 193 KB; O 40/44/52/64 + 32, S 16,
+//                        P 3 x 8
 //   3-pass    hd 64:     128 x 64 x 4, 161 KB; O 32 + 32, S 32, P 2 x 16
-//             hd 80/128: 128 x 32 x 4, 193 KB; O 40/64 + 32, S 16, P 2 x 8
+//             hd 80-128: 128 x 32 x 4, 193 KB; O 40/44/52/64 + 32, S 16,
+//                        P 2 x 8
 // (fp32's O + 32: the running O and one chunk's P V accumulator, the
-// chunks' P V run one after the other.) At 80 and 128 the bf16 keys drop
-// to 64 a tile because O grows to 40 and 64 registers and ptxas plans the
-// 384-thread consumers at 168 (64 keys also halve S and P); the fp32 keys
-// drop to 32 because Q's planes alone take kP x 32 KB (96 KB on the 6-pass
-// route) and a 64-key stage 2 x kP x 16 KB. ptxas (CUDA 12.8, sm_90a):
-// every instantiation 168 registers, no stack and no spill; C7519
-// (warpgroup.arrive injected) in attn_fwd_wgmma at 64, 80 and 128, and
-// C7511 (wgmma serialized for want of registers) in
-// attn_fwd_3pass_wgmma<80>. The logsumexp keeps its meaning at every head
-// dim: m + log(l) per row of [B, H, S].
+// chunks' P V run one after the other; at 88 and 104 the last chunk's
+// product has an accumulator of its own, 12 or 20 registers.) Above 64
+// the bf16 keys drop to 64 a tile because O grows to 40-64 registers and
+// ptxas plans the 384-thread consumers at 168 (64 keys also halve S and
+// P); the fp32 keys drop to 32 because Q's planes alone take kP x 32 KB
+// (96 KB on the 6-pass route) and a 64-key stage 2 x kP x 16 KB. ptxas
+// (CUDA 12.8, sm_90a) at 64, 80 and 128: every instantiation 168
+// registers, no stack and no spill; C7519 (warpgroup.arrive injected) in
+// attn_fwd_wgmma at 64, 80 and 128, and C7511 (wgmma serialized for want
+// of registers) in attn_fwd_3pass_wgmma<80>; 88 and 104 as chip_smoke.py's
+// phase 2 prints them (PERF.md). The logsumexp keeps its meaning at every
+// head dim: m + log(l) per row of [B, H, S].
 //
 // Design of attn_fwd_wgmma. The TPU kernel holds a head's whole K and V
 // in VMEM (~360 KB at S 1408), more than a block's 227 KB of shared
@@ -120,7 +143,9 @@
 // section as (D columns, S rows, B images) with strides ld and S*ld, the
 // section offset in the base address, so rows past S in a tail tile read
 // as zeros from this image and never from the next; the [B, H, S, hd]
-// launch maps (hd, S, B*H). The ragged tail is masked as before: keys >=
+// launch maps (hd, S, B*H). At 88 and 104 the maps are 4-D, one head a
+// map row: (hd, H heads, S, B) with strides hd, ld, S*ld packed, (hd, 1,
+// S, B*H) on [B, H, S, hd]. The ragged tail is masked as before: keys >=
 // valid_len get -inf, key tiles wholly past valid_len are not loaded, rows
 // >= S are never stored. P is rounded to bf16 against the running max
 // before P.V and the row sum is taken over the fp32 P, as the TPU kernel
@@ -363,7 +388,7 @@ attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 
-// ------------------------------------------------ TMA + wgmma: hd 64, 80, 128
+// ------------------------------------- TMA + wgmma: hd 64, 80, 88, 104, 128
 
 constexpr int kWgRows = 64;      // query rows per consumer warpgroup
 constexpr int kFwdRows = 2 * kWgRows;  // query rows per block
@@ -372,35 +397,58 @@ constexpr int kFwdThreads = 384;  // two consumer warpgroups + the producer
 // The head dims of the TMA + wgmma kernels (every route: bf16, 6-pass,
 // 3-pass); the retained kernels take head dim 16.
 constexpr bool tma_head_dim(int hd) {
-  return hd == 64 || hd == 80 || hd == 128;
+  return hd == 64 || hd == 80 || hd == 88 || hd == 104 || hd == 128;
 }
 
 // A head of HD columns as 64-column chunks, each a TMA box of its own at
 // column 64 c of the head and one 128-byte-swizzled tile (the one layout
-// of hopper_common.cuh): one chunk at 64, two at 80 (64 + 16 columns
-// used) and 128. Q K^T runs HD / 16 k-steps, k-step ks 32 * (ks % 4)
-// bytes into chunk ks / 4; P V runs one product per chunk, m64n64 on a
-// full chunk and m64n16 on the first 16 columns of the last chunk at 80.
+// of hopper_common.cuh): one chunk at 64, two at 80, 88, 104 (64 + 16, 24,
+// 40 columns used) and 128. Q K^T runs ceil(HD / 16) k-steps, k-step ks
+// 32 * (ks % 4) bytes into chunk ks / 4; P V runs one product per chunk,
+// m64n64 on a full chunk and m64nN on the first N columns of the last
+// chunk below 128. kHeadMap: Q K^T's last k-step overruns the head (88,
+// 104: 8 columns), so the operands come through per-head maps
+// (make_head_map), whose columns end at the head and read as zeros past
+// it; at 64, 80 and 128 the k-steps end at the head and the operands come
+// through section-wide maps (make_tile_map), whose columns past the head
+// in a last chunk are the next head's and never enter a product.
 template <int HD>
 struct Head {
-  static_assert(HD == 64 || HD == 80 || HD == 128,
-                "the TMA + wgmma kernels take head dims 64, 80 and 128");
+  static_assert(HD == 64 || HD == 80 || HD == 88 || HD == 104 || HD == 128,
+                "the TMA + wgmma kernels take head dims 64, 80, 88, 104 and "
+                "128");
   static constexpr int kChunks = (HD + kTileCols - 1) / kTileCols;
-  static constexpr int kKSteps = HD / 16;  // k-steps of Q K^T
+  static constexpr int kKSteps = (HD + 15) / 16;  // k-steps of Q K^T
   static constexpr int kORegs = HD / 2;    // O's accumulators per thread
-  // the columns of chunk c: 64, or 16 for the last one at head dim 80
+  static constexpr bool kHeadMap = HD % 16 != 0;
+  // the columns of chunk c: 64, or 16, 24, 40 for the last one at head
+  // dims 80, 88, 104
   __host__ __device__ static constexpr int cols(int c) {
     return c + 1 < kChunks ? kTileCols : HD - kTileCols * c;
   }
 };
 
-// Tensor-map coordinates of head h of image b: column h * hcol, depth
-// b * bz + h * hz ((hd, 1, 0) packed; (0, H, 1) on [B, H, S, hd]); the
-// 6-pass route's bf16 plane p lies pz further in depth (0 on the bf16
-// route, which has one plane).
+// Tensor-map coordinates of head h of image b: h * hcol, the head's
+// column in a section-wide map (hd packed, 0 on [B, H, S, hd]) or its
+// coordinate in a per-head map (1 packed, 0 on [B, H, S, hd], whose map
+// has one head a row); depth b * bz + h * hz ((1, 0) packed, (H, 1) on
+// [B, H, S, hd]); the 6-pass route's bf16 plane p lies pz further in
+// depth (0 on the bf16 route, which has one plane).
 struct MapCoords {
   int hcol, bz, hz, pz;
 };
+
+// Chunk c of head dim HD's operand at row `row` and depth `depth` into
+// dst, its bytes completing on `bar`; `col` is h * hcol (MapCoords).
+template <int HD>
+__device__ __forceinline__ void tma_chunk(void* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int col, int c,
+                                          int row, int depth) {
+  if constexpr (Head<HD>::kHeadMap)
+    tma_load_4d(dst, map, bar, c * kTileCols, col, row, depth);
+  else
+    tma_load_3d(dst, map, bar, col + c * kTileCols, row, depth);
+}
 
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -434,7 +482,8 @@ __device__ __forceinline__ void pv_chunk(float* o,
     wgmma_rs_mn<kN>(o, pf[kk], desc_plus(dv, 16 * kRowBytes * kk));
 }
 
-// O += P V over a head of HD columns (V's chunks `v_chunk` bytes apart).
+// O += P V over a head of HD columns (V's chunks `v_chunk` bytes apart;
+// the last chunk's product on its HD - 64 columns alone below 128).
 template <int HD, int kKK>
 __device__ __forceinline__ void pv_head(float (&o)[HD / 2],
                                         const uint32_t (&pf)[kKK][4],
@@ -544,8 +593,8 @@ __device__ __forceinline__ void softmax_tile(const float (&s)[kKeys / 2],
 // The bf16 kernel's tile plan at head dim HD: Q's 128 rows as its chunks,
 // a ring of kStages K/V tile pairs of kKeys keys (every chunk of each).
 // Head dim 64: 128 keys, 3 stages (S is 64 registers a thread, P's two
-// fragment sets 32 each, O 32: ptxas's 168 with no spill). 80 and 128:
-// O grows to 40 and 64 registers, so the keys drop to 64 per tile (S 32,
+// fragment sets 32 each, O 32: ptxas's 168 with no spill). 80 to 128:
+// O grows to 40-64 registers, so the keys drop to 64 per tile (S 32,
 // P 16 + 16) and the ring to 5 stages of two chunks (Q 32 KB + 5 x 32 KB).
 template <int HD>
 struct FwdTiles {
@@ -601,18 +650,18 @@ attn_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
       mbar_arrive_expect_tx(q_full, kC * T::kQChunk);
       for (int c = 0; c < kC; ++c)
         for (int r = 0; r < kFwdRows; r += kKeys)
-          tma_load_3d(sQ + c * T::kQChunk + r * kRowBytes, &tq, q_full,
-                      col + c * kTileCols, q0 + r, depth);
+          tma_chunk<HD>(sQ + c * T::kQChunk + r * kRowBytes, &tq, q_full,
+                        col, c, q0 + r, depth);
       for (int kt = 0; kt < n_tiles; ++kt) {
         const int st = kt % T::kStages;
         if (kt >= T::kStages)
           mbar_wait(&empty[st], (kt / T::kStages - 1) & 1);
         mbar_arrive_expect_tx(&full[st], T::kStageBytes);
         for (int c = 0; c < kC; ++c) {
-          tma_load_3d(sK + (st * kC + c) * T::kTile, &tk, &full[st],
-                      col + c * kTileCols, kt * kKeys, depth);
-          tma_load_3d(sV + (st * kC + c) * T::kTile, &tv, &full[st],
-                      col + c * kTileCols, kt * kKeys, depth);
+          tma_chunk<HD>(sK + (st * kC + c) * T::kTile, &tk, &full[st], col,
+                        c, kt * kKeys, depth);
+          tma_chunk<HD>(sV + (st * kC + c) * T::kTile, &tv, &full[st], col,
+                        c, kt * kKeys, depth);
         }
       }
     }
@@ -703,12 +752,12 @@ attn_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// A bf16 operand of the TMA + wgmma kernels: its base, the columns the
-// map spans, the rows per depth step, the depth, and the row and depth
-// strides in elements.
+// A bf16 operand of the TMA + wgmma kernels: its base, the head dim, the
+// heads a row holds, the rows per depth step, the depth, and the head, row
+// and depth strides in elements (make_head_map).
 struct MapOperand {
   const void* base;
-  int64_t cols, rows, depth, row, step;
+  int64_t hd, heads, rows, depth, head, row, step;
 };
 
 // fn(std::integral_constant<int, hd>) for a TMA head dim hd;
@@ -718,19 +767,35 @@ int by_head_dim(int hd, F&& fn) {
   switch (hd) {
     case 64: return fn(std::integral_constant<int, 64>{});
     case 80: return fn(std::integral_constant<int, 80>{});
+    case 88: return fn(std::integral_constant<int, 88>{});
+    case 104: return fn(std::integral_constant<int, 104>{});
     case 128: return fn(std::integral_constant<int, 128>{});
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The tensor maps of q, k and v, in boxes of kTileCols x box_rows.
+// MapCoords::hcol of a packed launch at head dim HD: the head's column
+// in a section-wide map, its coordinate in a per-head one.
+template <int HD>
+constexpr int head_col() {
+  return Head<HD>::kHeadMap ? 1 : HD;
+}
+
+// The tensor maps of q, k and v at head dim HD: per-head maps in boxes of
+// kTileCols x 1 x box_rows x 1 (Head<HD>::kHeadMap), else section-wide
+// ones (all `heads` heads of a row) in boxes of kTileCols x box_rows x 1.
+template <int HD>
 int make_maps(CUtensorMap (&maps)[3], const MapOperand (&qkv)[3],
               uint32_t box_rows) {
   for (int i = 0; i < 3; ++i) {
     const MapOperand& a = qkv[i];
-    const cudaError_t err = make_tile_map(
-        &maps[i], a.base, a.cols, a.rows, a.depth, a.row * 2, a.step * 2,
-        box_rows);
+    const cudaError_t err =
+        Head<HD>::kHeadMap
+            ? make_head_map(&maps[i], a.base, a.hd, a.heads, a.rows,
+                            a.depth, a.head * 2, a.row * 2, a.step * 2,
+                            box_rows)
+            : make_tile_map(&maps[i], a.base, a.heads * a.hd, a.rows,
+                            a.depth, a.row * 2, a.step * 2, box_rows);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
@@ -742,7 +807,7 @@ int launch_wgmma(const MapOperand (&qkv)[3], MapCoords mc, int batch,
                  Layout ol, float scale, cudaStream_t st) {
   using T = FwdTiles<HD>;
   CUtensorMap maps[3];
-  if (const int err = make_maps(maps, qkv, T::kKeys)) return err;
+  if (const int err = make_maps<HD>(maps, qkv, T::kKeys)) return err;
   const cudaError_t err = smem_attribute_once(
       reinterpret_cast<const void*>(attn_fwd_wgmma<HD>), T::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -761,7 +826,7 @@ int launch_wgmma(const MapOperand (&qkv)[3], MapCoords mc, int batch,
 // too), K/V tile pairs in flight, one chunk of one plane of a K or V
 // tile, one plane of Q, one stage's K and V planes, the dynamic shared
 // memory. Head dim 64: 64 keys, 3 stages of three planes and 4 of two.
-// 80 and 128 hold two chunks a plane, so Q alone takes kP x 32 KB (96 KB
+// 80 to 128 hold two chunks a plane, so Q alone takes kP x 32 KB (96 KB
 // on the 6-pass route) and a 64-key stage 2 x kP x 16 KB: the keys drop
 // to 32 a tile, 2 stages of three planes (96 + 2 x 48 KB) and 4 of two
 // (64 + 4 x 32 KB). 32 keys also keep the registers in ptxas's 168: O
@@ -880,8 +945,8 @@ __device__ __forceinline__ void softmax_tile_planes(
 }
 
 // O = O * alpha + the tile's P V, on kN columns.
-template <int kN>
-__device__ __forceinline__ void fold(float* o, const float (&ot)[32],
+template <int kN, int M>
+__device__ __forceinline__ void fold(float* o, const float (&ot)[M],
                                      const float (&alpha)[2]) {
 #pragma unroll
   for (int nd = 0; nd < kN / 8; ++nd) {
@@ -890,6 +955,25 @@ __device__ __forceinline__ void fold(float* o, const float (&ot)[32],
     o[4 * nd + 2] = fmaf(o[4 * nd + 2], alpha[1], ot[4 * nd + 2]);
     o[4 * nd + 3] = fmaf(o[4 * nd + 3], alpha[1], ot[4 * nd + 3]);
   }
+}
+
+// The plane kernels' product of a tile's P with the last chunk of V (kN1
+// columns, planes `b_plane` bytes apart) into `acc`, added into O's last
+// chunk (o + 32); then the stage's slot is released.
+template <int kP, int kN1, int M, int KK>
+__device__ __forceinline__ void tail_chunk(float* o, float (&acc)[M],
+                                           uint32_t (&pf)[kP][KK][4],
+                                           uint64_t dv, int b_plane,
+                                           const float (&alpha)[2],
+                                           uint64_t* empty) {
+  wgmma_fence();
+  mma_planes_rs<kP, kN1>(acc, pf, dv, b_plane);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_operand(acc);
+  fence_planes<kP>(pf);
+  mbar_arrive(empty);
+  fold<kN1>(o + 32, acc, alpha);
 }
 
 // The plane kernels: fp32 on the bf16 planes a split kernel wrote,
@@ -959,10 +1043,9 @@ __device__ __forceinline__ void fwd_planes(const CUtensorMap& tq,
       for (int p = 0; p < kP; ++p)
         for (int c = 0; c < kC; ++c)
           for (int r = 0; r < kFwdRows; r += kKeys)
-            tma_load_3d(sQ + p * T::kQPlane + c * T::kQChunk +
-                            r * kRowBytes,
-                        &tq, q_full, col + c * kTileCols, q0 + r,
-                        depth + p * mc.pz);
+            tma_chunk<HD>(sQ + p * T::kQPlane + c * T::kQChunk +
+                              r * kRowBytes,
+                          &tq, q_full, col, c, q0 + r, depth + p * mc.pz);
       for (int kt = 0; kt < n_tiles; ++kt) {
         const int st = kt % T::kStages;
         if (kt >= T::kStages)
@@ -971,11 +1054,10 @@ __device__ __forceinline__ void fwd_planes(const CUtensorMap& tq,
         mbar_arrive_expect_tx(&full[st], T::kStageBytes);
         for (int p = 0; p < kP; ++p)
           for (int c = 0; c < kC; ++c) {
-            tma_load_3d(dst + p * T::kKVPlane + c * T::kBox, &tk, &full[st],
-                        col + c * kTileCols, kt * kKeys, depth + p * mc.pz);
-            tma_load_3d(dst + (kP + p) * T::kKVPlane + c * T::kBox, &tv,
-                        &full[st], col + c * kTileCols, kt * kKeys,
-                        depth + p * mc.pz);
+            tma_chunk<HD>(dst + p * T::kKVPlane + c * T::kBox, &tk,
+                          &full[st], col, c, kt * kKeys, depth + p * mc.pz);
+            tma_chunk<HD>(dst + (kP + p) * T::kKVPlane + c * T::kBox, &tv,
+                          &full[st], col, c, kt * kKeys, depth + p * mc.pz);
           }
       }
     }
@@ -1025,17 +1107,20 @@ __device__ __forceinline__ void fwd_planes(const CUtensorMap& tq,
         mbar_arrive(&empty[st]);
       }
       fold<kTileCols>(o, ot, alpha);
-      if constexpr (kC == 2) {  // the second chunk, into the same ot
+      if constexpr (kC == 2) {  // the second chunk
         constexpr int kN1 = H::cols(1);
-        wgmma_fence();
-        mma_planes_rs<kP, kN1>(ot, pf, desc_plus(dv, T::kBox),
-                               T::kKVPlane);
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_operand(ot);
-        fence_planes<kP>(pf);
-        mbar_arrive(&empty[st]);
-        fold<kN1>(o + 32, ot, alpha);
+        // at 88 and 104 into an accumulator of its own: into ot, the
+        // 6-pass kernel at 104 ran 1.30x and the 3-pass one at 88 1.26x
+        // slower (a first build of them had ptxas serialize the 6-pass
+        // kernels' wgmma, C7511)
+        if constexpr (H::kHeadMap) {
+          float ot1[kN1 / 2];
+          tail_chunk<kP, kN1>(o, ot1, pf, desc_plus(dv, T::kBox),
+                              T::kKVPlane, alpha, &empty[st]);
+        } else {  // into the same ot
+          tail_chunk<kP, kN1>(o, ot, pf, desc_plus(dv, T::kBox),
+                              T::kKVPlane, alpha, &empty[st]);
+        }
       }
     }
 
@@ -1084,7 +1169,7 @@ int launch_planes(const MapOperand (&qkv)[3], MapCoords mc, int batch,
                   Layout ol, float scale, cudaStream_t st) {
   using T = PlaneTiles<kP, HD>;
   CUtensorMap maps[3];
-  if (const int err = make_maps(maps, qkv, T::kKeys)) return err;
+  if (const int err = make_maps<HD>(maps, qkv, T::kKeys)) return err;
   constexpr int smem = T::kSmem;
   const dim3 grid((seq + kFwdRows - 1) / kFwdRows, heads, batch);
   if constexpr (kP == kPlanes) {
@@ -1115,20 +1200,20 @@ int launch_planes_packed(const void* planes, float* out, float* lse,
                          int v_off, long long out_ld, float scale,
                          void* stream) {
   const char* base = static_cast<const char*>(planes);
-  const int64_t cols = (int64_t)heads * head_dim;
   const int64_t depth = (int64_t)kP * batch;
   const int64_t step = (int64_t)seq * ld;
-  const MapOperand ops[3] = {{base + 2 * (int64_t)q_off, cols, seq, depth,
-                              ld, step},
-                             {base + 2 * (int64_t)k_off, cols, seq, depth,
-                              ld, step},
-                             {base + 2 * (int64_t)v_off, cols, seq, depth,
-                              ld, step}};
+  const MapOperand ops[3] = {{base + 2 * (int64_t)q_off, head_dim, heads,
+                              seq, depth, head_dim, ld, step},
+                             {base + 2 * (int64_t)k_off, head_dim, heads,
+                              seq, depth, head_dim, ld, step},
+                             {base + 2 * (int64_t)v_off, head_dim, heads,
+                              seq, depth, head_dim, ld, step}};
   const Layout ol{(int64_t)seq * out_ld, head_dim, out_ld};
   return by_head_dim(head_dim, [&](auto hd) {
-    return launch_planes<kP, decltype(hd)::value>(
-        ops, MapCoords{head_dim, 1, 0, batch}, batch, seq, valid_len, heads,
-        out, lse, ol, scale, static_cast<cudaStream_t>(stream));
+    constexpr int HD = decltype(hd)::value;
+    return launch_planes<kP, HD>(
+        ops, MapCoords{head_col<HD>(), 1, 0, batch}, batch, seq, valid_len,
+        heads, out, lse, ol, scale, static_cast<cudaStream_t>(stream));
   });
 }
 
@@ -1140,9 +1225,10 @@ int launch_planes_bhsd(const void* q, const void* k, const void* v,
                        int valid_len, int heads, float scale, void* stream) {
   const int64_t hs = (int64_t)seq * head_dim;
   const int64_t depth = (int64_t)kP * batch * heads;
-  const MapOperand ops[3] = {{q, head_dim, seq, depth, head_dim, hs},
-                             {k, head_dim, seq, depth, head_dim, hs},
-                             {v, head_dim, seq, depth, head_dim, hs}};
+  const MapOperand ops[3] = {
+      {q, head_dim, 1, seq, depth, head_dim, head_dim, hs},
+      {k, head_dim, 1, seq, depth, head_dim, head_dim, hs},
+      {v, head_dim, 1, seq, depth, head_dim, head_dim, hs}};
   const Layout l{heads * hs, hs, head_dim};
   return by_head_dim(head_dim, [&](auto hd) {
     return launch_planes<kP, decltype(hd)::value>(
@@ -1365,12 +1451,12 @@ int launch_3pass(int head_dim, int batch, int seq, int valid_len, int heads,
 // qkv: [batch, seq, ld] elements, out: [batch, seq, out_ld]; the q/k/v
 // sections of head h start at column {q,k,v}_off + h * head_dim. lse:
 // [batch, heads, seq] fp32, or null to skip it. bf16 at a TMA head dim
-// (tma_head_dim: 64, 80, 128) takes attn_fwd_wgmma, whose tensor maps need
-// qkv, each section's start and ld * 2 bytes to be multiples of
-// kTmaAlign; fp32 there has its own entries (aaclip_attention_packed_6pass
-// and _3pass_wgmma). Returns
-// the CUDA error of the launch (0 on success); cudaErrorInvalidValue for a
-// pair with no kernel here or an operand TMA cannot take.
+// (tma_head_dim: 64, 80, 88, 104, 128) takes attn_fwd_wgmma, whose tensor
+// maps need qkv, each section's start, head_dim * 2 and ld * 2 bytes to be
+// multiples of kTmaAlign; fp32 there has its own entries
+// (aaclip_attention_packed_6pass and _3pass_wgmma). Returns the CUDA error
+// of the launch (0 on success); cudaErrorInvalidValue for a pair with no
+// kernel here or an operand TMA cannot take.
 extern "C" int aaclip_attention_packed(const void* qkv, void* out,
                                        float* lse, int bf16,
                                        int head_dim, int batch, int seq,
@@ -1383,15 +1469,19 @@ extern "C" int aaclip_attention_packed(const void* qkv, void* out,
   const Layout ol{(int64_t)seq * out_ld, head_dim, out_ld};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16 && tma_head_dim(head_dim)) {
-    const int64_t cols = (int64_t)heads * head_dim;
+    const int64_t step = (int64_t)seq * ld;
     const MapOperand ops[3] = {
-        {base + q_off * esize, cols, seq, batch, ld, (int64_t)seq * ld},
-        {base + k_off * esize, cols, seq, batch, ld, (int64_t)seq * ld},
-        {base + v_off * esize, cols, seq, batch, ld, (int64_t)seq * ld}};
+        {base + q_off * esize, head_dim, heads, seq, batch, head_dim, ld,
+         step},
+        {base + k_off * esize, head_dim, heads, seq, batch, head_dim, ld,
+         step},
+        {base + v_off * esize, head_dim, heads, seq, batch, head_dim, ld,
+         step}};
     return by_head_dim(head_dim, [&](auto hd) {
-      return launch_wgmma<decltype(hd)::value>(
-          ops, MapCoords{head_dim, 1, 0, 0}, batch, seq, valid_len, heads,
-          out, lse, ol, scale, st);
+      constexpr int HD = decltype(hd)::value;
+      return launch_wgmma<HD>(ops, MapCoords{head_col<HD>(), 1, 0, 0}, batch,
+                              seq, valid_len, heads, out, lse, ol, scale,
+                              st);
     });
   }
   const Layout in{(int64_t)seq * ld, head_dim, ld};
@@ -1413,9 +1503,10 @@ extern "C" int aaclip_attention_bhsd(const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16 && tma_head_dim(head_dim)) {
     const int64_t depth = (int64_t)batch * heads;
-    const MapOperand ops[3] = {{q, head_dim, seq, depth, head_dim, hs},
-                               {k, head_dim, seq, depth, head_dim, hs},
-                               {v, head_dim, seq, depth, head_dim, hs}};
+    const MapOperand ops[3] = {
+        {q, head_dim, 1, seq, depth, head_dim, head_dim, hs},
+        {k, head_dim, 1, seq, depth, head_dim, head_dim, hs},
+        {v, head_dim, 1, seq, depth, head_dim, head_dim, hs}};
     return by_head_dim(head_dim, [&](auto hd) {
       return launch_wgmma<decltype(hd)::value>(
           ops, MapCoords{0, heads, 1, 0}, batch, seq, valid_len, heads, out,
@@ -1428,7 +1519,7 @@ extern "C" int aaclip_attention_bhsd(const void* q, const void* k,
 
 // The 3-pass mode (fp32 under precision "high") of aaclip_attention_packed
 // at head dim 16: the same operands in fp32, attn_fwd_3pass;
-// cudaErrorInvalidValue for another head dim (64, 80 and 128 have their
+// cudaErrorInvalidValue for another head dim (64 to 128 have their
 // own entry, aaclip_attention_packed_3pass_wgmma).
 extern "C" int aaclip_attention_packed_3pass(
     const float* qkv, float* out, float* lse, int head_dim, int batch,
@@ -1459,10 +1550,10 @@ extern "C" int aaclip_attention_bhsd_3pass(const float* q, const float* k,
 // or None) of aaclip_attention_packed: `planes` holds the bf16 planes hi,
 // mid and lo of the fp32 qkv [batch, seq, ld], one after the other
 // (aaclip_split3 with stride batch * seq * ld), and attn_fwd_6pass reads
-// them through tensor maps, which need each section's start and ld * 2
-// bytes to be multiples of kTmaAlign. out [batch, seq, out_ld] and lse as
-// aaclip_attention_packed's, in fp32. cudaErrorInvalidValue for another
-// head dim.
+// them through tensor maps, which need each section's start, head_dim *
+// 2 and ld * 2 bytes to be multiples of kTmaAlign. out [batch, seq,
+// out_ld] and lse as aaclip_attention_packed's, in fp32.
+// cudaErrorInvalidValue for another head dim.
 extern "C" int aaclip_attention_packed_6pass(
     const void* planes, float* out, float* lse, int head_dim, int batch,
     int seq, int valid_len, int heads, long long ld, int q_off, int k_off,

@@ -5,7 +5,8 @@
 // warpgroup products (and the fp32 kernels' 6-pass and 3-pass products
 // over bf16 planes), A fragments by ldmatrix, each kernel's shared-memory
 // attribute set once per device, register hand-off between warpgroups,
-// and the host-side tensor map of a bf16 [depth, rows, cols] array.
+// and the host-side tensor maps of a bf16 [depth, rows, cols] array and of
+// the attention forward's heads (one head per map row, a 4-D map).
 //
 // The swizzle pairing, in one place. A tile row is 64 bf16 = 128 bytes.
 // TMA with CU_TENSOR_MAP_SWIZZLE_128B writes row r of a tile at byte
@@ -124,6 +125,21 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col),
       "r"(row), "r"(depth)
+      : "memory");
+}
+
+// One box of the 4-D tensor map at (col, head, row, depth): the attention
+// forward's per-head maps (make_head_map), whose columns end at the head,
+// so a box's columns past the head dim arrive as zeros, as rows past the
+// map's extent do.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int col, int head,
+                                            int row, int depth) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col),
+      "r"(head), "r"(row), "r"(depth)
       : "memory");
 }
 
@@ -269,6 +285,43 @@ __device__ __forceinline__ void wgmma_rs_n16_mn(float (&d)[8],
       "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d[64 x 24] (+)= A . B, A from registers, B from shared memory MN-major:
+// the first 24 columns of a 64-column tile (three of each swizzled row's
+// eight 16-byte chunks), the last chunk of head dim 88.
+__device__ __forceinline__ void wgmma_rs_n24_mn(float (&d)[12],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db,
+                                                int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11"
+      "}, {%12, %13, %14, %15}, %16, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d[64 x 40] (+)= A . B, A from registers, B from shared memory MN-major:
+// the first 40 columns of a 64-column tile (five 16-byte chunks of each
+// swizzled row), the last chunk of head dim 104.
+__device__ __forceinline__ void wgmma_rs_n40_mn(float (&d)[20],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db,
+                                                int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19"
+      "}, {%20, %21, %22, %23}, %24, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+        "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
@@ -440,14 +493,19 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[kN / 2], uint64_t da,
 }
 
 // d (+)= A . B, A register fragments, B MN-major from shared memory, kN
-// output columns (64, or 16); d points at kN / 2 accumulators.
+// output columns (64, or the first 16, 24 or 40 of a tile: the last chunk
+// of head dims 80, 88 and 104); d points at kN / 2 accumulators.
 template <int kN>
 __device__ __forceinline__ void wgmma_rs_mn(float* d, const uint32_t (&a)[4],
                                             uint64_t db, int scale_d = 1) {
   if constexpr (kN == 64) {
     wgmma_rs_n64_mn(*reinterpret_cast<float(*)[32]>(d), a, db, scale_d);
+  } else if constexpr (kN == 40) {
+    wgmma_rs_n40_mn(*reinterpret_cast<float(*)[20]>(d), a, db, scale_d);
+  } else if constexpr (kN == 24) {
+    wgmma_rs_n24_mn(*reinterpret_cast<float(*)[12]>(d), a, db, scale_d);
   } else {
-    static_assert(kN == 16, "MN-major products of 64 or 16 columns");
+    static_assert(kN == 16, "MN-major products of 64, 40, 24 or 16 columns");
     wgmma_rs_n16_mn(*reinterpret_cast<float(*)[8]>(d), a, db, scale_d);
   }
 }
@@ -488,9 +546,9 @@ __host__ __device__ constexpr int first_pass() {
 // d = A . B^T in the passes of kP planes, over kKSteps k-steps of 16
 // columns: one 64-column (128-byte) tile row at the default 4, and beyond
 // it the next chunk's rows, `a_chunk` and `b_chunk` bytes on, every fourth
-// step (the forward's head dims 80 and 128). A and B both K-major from
-// shared memory, A's planes `a_plane` bytes apart, B's `b_plane`; B has
-// kN rows.
+// step (the forward's head dims 80, 88, 104 and 128). A and B both K-major
+// from shared memory, A's planes `a_plane` bytes apart, B's `b_plane`; B
+// has kN rows.
 template <int kP, int kKSteps = kTileCols / 16, int kN = 64>
 __device__ __forceinline__ void mma_planes_ss(float (&d)[kN / 2], uint64_t a,
                                               int a_plane, uint64_t b,
@@ -512,7 +570,7 @@ __device__ __forceinline__ void mma_planes_ss(float (&d)[kN / 2], uint64_t a,
 // d = A . B in the passes of kP planes over kKK k-steps of 16 rows: A the
 // register fragments f[plane][k-step] of its planes, B a tile read
 // MN-major (its rows are the reduction) into kN output columns (64, or
-// the first 16), planes `b_plane` bytes apart; d points at kN / 2
+// the first 16, 24 or 40), planes `b_plane` bytes apart; d points at kN / 2
 // accumulators.
 template <int kP, int kN = 64, int kKK>
 __device__ __forceinline__ void mma_planes_rs(float* d,
@@ -641,6 +699,39 @@ inline cudaError_t make_tile_map(CUtensorMap* map, const void* base,
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The attention forward's per-head tensor map of a bf16 array: `depth`
+// blocks of `rows` rows, each row holding `heads` heads of `hd` elements
+// (heads `head_bytes` apart, rows `row_bytes`, blocks `depth_bytes`), read
+// in boxes of kTileCols x 1 x box_rows x 1 with the 128-byte swizzle. The
+// innermost extent is one head, so a box's columns past the head dim read
+// as zeros and never as the next head's (a 64-column chunk of a head dim
+// that is no multiple of 64), as rows past `rows` do. A [B, H, S, hd]
+// operand is heads = 1, rows S, depth B * H. cudaErrorInvalidValue for an
+// address or stride TMA cannot take (the wrappers refuse those first).
+inline cudaError_t make_head_map(CUtensorMap* map, const void* base,
+                                 uint64_t hd, uint64_t heads, uint64_t rows,
+                                 uint64_t depth, uint64_t head_bytes,
+                                 uint64_t row_bytes, uint64_t depth_bytes,
+                                 uint32_t box_rows) {
+  const EncodeTiledFn encode = encode_tiled_fn();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  if (reinterpret_cast<uintptr_t>(base) % kTmaAlign ||
+      head_bytes % kTmaAlign || row_bytes % kTmaAlign ||
+      depth_bytes % kTmaAlign)
+    return cudaErrorInvalidValue;
+  const cuuint64_t dims[4] = {hd, heads, rows, depth};
+  const cuuint64_t strides[3] = {head_bytes, row_bytes, depth_bytes};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(kTileCols), 1, box_rows,
+                             1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
       strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -20,11 +20,12 @@ that layout's strides.
 The wrappers run the plain versions only for tensors on the CPU (the
 tests). On a CUDA tensor they launch the kernel or raise. Which kernel
 runs is ``kernel_route`` over the route table ``TMA_ROUTES``: at head dims
-64, 80 and 128 (``TMA_HEAD_DIMS``, the forward's and the backward's) bf16
+64, 80, 88, 104 and 128 (``TMA_HEAD_DIMS``; the backward's are 64, 80 and
+128, and at 88 and 104 it raises naming ROADMAP B11) bf16
 takes the TMA + wgmma kernels, and fp32 the
 6-pass kernels on the same machinery (tiles fed by tensor maps, whose base
-addresses and row strides must be multiples of ``TMA_ALIGN`` bytes: the
-wrappers refuse what a map cannot take); head dim 16 keeps the first
+addresses, head and row strides must be multiples of ``TMA_ALIGN`` bytes:
+the wrappers refuse what a map cannot take); head dim 16 keeps the first
 port's mma.sync (bf16) and FMA (fp32) kernels in the same sources.
 
 Precision. Every wrapper and plain version takes the JAX package's
@@ -60,10 +61,12 @@ from aaclip_tpu_torch.models.layers import (_split_bf16, enter, linear,
                                             local_heads, qkv_params,
                                             row_linear)
 
-KERNEL_HEAD_DIMS = (16, 64, 80, 128)  # head dims the forward is built for
+# head dims the forward is built for: tiny-test's 16, ViT-L's 64,
+# open_clip's ViT-H-14 (80), ViT-g-14 (88) and ViT-bigG-14 (104), and 128
+KERNEL_HEAD_DIMS = (16, 64, 80, 88, 104, 128)
 # the head dims of the forward's TMA + wgmma kernels (tma_head_dim of
 # attention_packed.cu)
-TMA_HEAD_DIMS = (64, 80, 128)
+TMA_HEAD_DIMS = (64, 80, 88, 104, 128)
 # (dtype, head dim) pairs on the forward's TMA + wgmma kernels: bf16
 # directly, fp32 on its bf16 planes (three on the 6-pass route, two on the
 # 3-pass one); every other pair of (bf16, fp32) x KERNEL_HEAD_DIMS runs a
@@ -71,10 +74,10 @@ TMA_HEAD_DIMS = (64, 80, 128)
 TMA_ROUTES = frozenset((dtype, hd) for dtype in (torch.bfloat16,
                                                  torch.float32)
                        for hd in TMA_HEAD_DIMS)
-# the backward's head dims, the forward's: the retained kernels' 16 and
-# the TMA + wgmma pairs' 64, 80 and 128 (tma_head_dim of
-# attention_packed_bwd.cu)
-BWD_HEAD_DIMS = KERNEL_HEAD_DIMS
+# the backward's head dims: the retained kernels' 16 and the TMA + wgmma
+# pairs' 64, 80 and 128 (tma_head_dim of attention_packed_bwd.cu); at the
+# forward's others, 88 and 104, it raises on the card (ROADMAP B11)
+BWD_HEAD_DIMS = (16, 64, 80, 128)
 TMA_ALIGN = 16  # bytes: a tensor map's base address and strides (kTmaAlign)
 
 
@@ -350,12 +353,13 @@ def _check_cuda(name: str, x: torch.Tensor, num_heads: int,
     route = kernel_route(x.dtype, hd, precision)
     # the tensor maps read bf16: x itself on the wgmma route, its split
     # planes on the plane routes (a new tensor, whose planes are aligned
-    # when the row stride is)
+    # when the row stride is); at 88 and 104 one head is a map row
     base = x.data_ptr() if route == "wgmma" else 0
     if route in MAP_ROUTES and _tma_misaligned(
-            x.shape[-1] * 2, *(base + o * 2 for o in split[-1])):
-        raise ValueError(f"{name}: a section start or the row stride is not "
-                         f"a multiple of {TMA_ALIGN} bytes (TMA)")
+            x.shape[-1] * 2, hd * 2, *(base + o * 2 for o in split[-1])):
+        raise ValueError(f"{name}: a section start, the head or the row "
+                         f"stride is not a multiple of {TMA_ALIGN} bytes "
+                         f"(TMA)")
     return split, route
 
 
@@ -675,19 +679,27 @@ def attention_packed_bwd(qkv: torch.Tensor, d_out: torch.Tensor,
     cotangent ``d_out`` [B, S, D] and the forward's ``lse`` [B, H, S].
 
     CPU tensors take ``attention_packed_bwd_plain`` (``lse`` unused). On
-    CUDA tensors at a head dim of ``BWD_HEAD_DIMS`` the backward kernel of
-    ``kernel_route`` (the 3-pass mode, fp32 under "high", takes the
-    3-pass forward's ``lse``; the 6-pass route launches ``split3`` on qkv
-    and on d_out first, the 3-pass route at ``TMA_HEAD_DIMS`` ``split2``)
-    is launched on the current stream and ``attention_packed_bwd.launches``
-    (and ``launches_3pass``, ``launches_6pass``) count each call (one call
-    launches the kernel's two passes)."""
+    CUDA tensors at a head dim of ``KERNEL_HEAD_DIMS`` outside
+    ``BWD_HEAD_DIMS`` (88, 104) it raises ``NotImplementedError``: the
+    backward there is ROADMAP B11's next item. At ``BWD_HEAD_DIMS`` the
+    backward kernel of ``kernel_route`` (the 3-pass mode, fp32 under
+    "high", takes the 3-pass forward's ``lse``; the 6-pass route launches
+    ``split3`` on qkv and on d_out first, the 3-pass route at
+    ``TMA_HEAD_DIMS`` ``split2``) is launched on the current stream and
+    ``attention_packed_bwd.launches`` (and ``launches_3pass``,
+    ``launches_6pass``) count each call (one call launches the kernel's
+    two passes)."""
     if qkv.device.type == "cpu":
         return attention_packed_bwd_plain(qkv, d_out, num_heads, valid_len,
                                           precision=precision)
     (B, S, dm, hd, scale, (q_off, k_off, v_off)), route = _check_cuda(
         "attention_packed_bwd", qkv, num_heads, valid_len,
         precision=precision)
+    if hd not in BWD_HEAD_DIMS:
+        raise NotImplementedError(
+            f"attention_packed_bwd: head dim {hd} has no backward kernel yet "
+            f"(have {BWD_HEAD_DIMS}); the forward takes it, the backward at "
+            f"88 and 104 is ROADMAP B11")
     d_out = d_out.to(qkv.dtype).contiguous()
     if d_out.shape != (B, S, dm) or d_out.device != qkv.device:
         raise ValueError(f"attention_packed_bwd: d_out {tuple(d_out.shape)} "

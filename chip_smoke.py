@@ -123,7 +123,7 @@ Needs one CUDA card and nvcc. Phases, each of which fails the run:
     through ``main``): a seeded ViT-L-14-336 at its native 336 px saved as
     an OpenAI-layout state dict (the loader resizes the positional
     embedding 24 -> 37), an npz image adapter and a reference ``.pth``
-    text adapter, a synthetic MVTec set (2 classes, 50 normal and 100
+    text adapter, a synthetic MVTec set (2 classes, 16 normal and 32
     anomalous 1024 px images each); the CLI at bf16 batch 32 and at fp32
     batch 8 with ``--csv --dump_scores``, each held to (a) 24 forward
     kernel launches per predict batch and no other kernel (fp32's on the
@@ -146,7 +146,7 @@ Needs one CUDA card and nvcc. Phases, each of which fails the run:
     to the library run's, its maps/s and metrics seconds beside them.
 10. the training CLI (``python -m aaclip_tpu_torch.train`` through
     ``main``) from phase 9's checkpoint on a synthetic MVTec training set
-    (2 classes of 24 images at 1024 px), bf16, at the CLI's batches (16
+    (2 classes of 16 images at 1024 px), bf16, at the CLI's batches (16
     text, 2 image), remat auto (selective on the card): the host path (1
     text and 2 image epochs) held to (a) 24 forward launches per stage-1
     features call, 24 forward and 23 backward per stage-2 step and no
@@ -327,6 +327,23 @@ Needs one CUDA card and nvcc. Phases, each of which fails the run:
     predict against the plain attention's (phase 13's bars) and, printed,
     the bf16 predict; the memory bank and banked predict (phase 12a's
     bars); the DP step at world 1 against the single-process step.
+18. the packed attention at head dims 88 and 104 and open_clip's
+    ViT-g-14 and ViT-bigG-14 @ 518: (a) 17a's checks at head dims 88 and
+    104 (16 heads each), with NaN and Inf in the odd heads' Q, K and V
+    columns leaving each even head's output and logsumexp bit for bit
+    (Q K^T's last k-step there reads 8 columns past the head, which must
+    be zeros; 17a runs it too), SDPA's backend named; (b) both towers
+    from their published JSON configs (random weights from seeds): the
+    architecture read, the fused gate None, the predict in bf16 at batch
+    32 (the kernel's map against the plain attention's at phase 4's bar,
+    or past it within VS_SDPA_MEAN / VS_SDPA_MAX of SDPA's distance, as
+    phase 9 holds the evaluation CLI's; the fp32 map's distance printed),
+    fp32 and fp32_high at 8 (phases 4 and 11's bars), 24 B1 launches a
+    call; ``bench --model_name`` at each in bf16; at ViT-g-14 the spatial
+    stage-1 features and the evaluation CLI from a seeded fp16 checkpoint,
+    its scores bit for bit a direct predict's; at ViT-bigG-14 the serving
+    engine's answers against its own predict; the backward at head dim 88
+    raising ``NotImplementedError`` naming ROADMAP B11.
 Phase 3 also holds the V-V mode of the forward kernel (B3) against its
 plain version, in bf16 and fp32, at [16, 1370, 1024], ragged S and head
 dim 16, and against the standard mode on the value section tripled.
@@ -647,7 +664,8 @@ def expect_routed(wrapper, before: int, calls: int, dtype_name: str,
                   hd: int, what: str, precision=None) -> None:
     """The ``calls`` launches of ``wrapper`` since its ``launches_6pass``
     read ``before`` all took the 6-pass route if fp32 at a TMA head dim
-    (64, 80, 128) under "highest" or None, and none did otherwise."""
+    (64, 80, 88, 104, 128) under "highest" or None, and none did
+    otherwise."""
     from aaclip_tpu_torch.ops.attention import TMA_HEAD_DIMS
 
     six = (dtype_name == "fp32" and hd in TMA_HEAD_DIMS
@@ -861,12 +879,13 @@ def check_tail_isolation(dtype_name: str, precision=None,
     whose tail tile of one image read the next image's rows (on [B, H, S,
     hd], image 0's last head reading image 1's first) would carry the NaN
     into images 0 and 2 (a masked key's P = 0 times NaN is NaN). The
-    forward and its lse, the backward, the V-V mode and B4 must give
-    images 0 and 2 bit for bit the same in both runs, and finite;
-    ``precision="high"`` checks the 3-pass mode."""
+    forward and its lse, the backward (at its head dims, BWD_HEAD_DIMS),
+    the V-V mode and B4 must give images 0 and 2 bit for bit the same in
+    both runs, and finite; ``precision="high"`` checks the 3-pass mode."""
     import torch
 
-    from aaclip_tpu_torch.ops.attention import (attention_kernel,
+    from aaclip_tpu_torch.ops.attention import (BWD_HEAD_DIMS,
+                                                attention_kernel,
                                                 attention_packed,
                                                 attention_packed_bwd,
                                                 attention_packed_vv)
@@ -875,11 +894,12 @@ def check_tail_isolation(dtype_name: str, precision=None,
     gen = torch.Generator(device="cuda").manual_seed(4)
     B, S, H, hd, valid = case
     dm = H * hd
+    bwd = hd in BWD_HEAD_DIMS
     qkv = random_qkv(B, S, H, hd, dtype, gen)
     d_out = torch.randn(B, S, dm, generator=gen, device="cuda").to(dtype)
     runs = []
-    wrappers = (attention_packed, attention_packed_bwd, attention_packed_vv,
-                attention_kernel)
+    wrappers = (attention_packed, attention_packed_vv, attention_kernel) + (
+        (attention_packed_bwd,) if bwd else ())
     before = [w.launches_6pass for w in wrappers]
     for fill in (float("nan"), 0.0):
         x, g = qkv.clone(), d_out.clone()
@@ -889,15 +909,16 @@ def check_tail_isolation(dtype_name: str, precision=None,
         heads = [x[..., i * dm:(i + 1) * dm].reshape(B, S, H, hd)
                  .transpose(1, 2).contiguous() for i in range(3)]
         runs.append((out, lse,
-                     attention_packed_bwd(x, g, lse, H, valid, **kw),
                      attention_packed_vv(x[..., 2 * dm:].contiguous(), H,
                                          valid, **kw),
-                     attention_kernel(*heads, valid, **kw)))
+                     attention_kernel(*heads, valid, **kw)) + (
+            (attention_packed_bwd(x, g, lse, H, valid, **kw),) if bwd
+            else ()))
     torch.cuda.synchronize()
     for w, b in zip(wrappers, before):
         expect_routed(w, b, 2, dtype_name, hd, f"tail {w.__name__}",
                       precision)
-    names = ("forward", "lse", "backward", "V-V", "attention_kernel")
+    names = ("forward", "lse", "V-V", "attention_kernel", "backward")
     for name, got, clean in zip(names, *runs):
         same = torch.equal(got[[0, 2]], clean[[0, 2]])
         finite = bool(torch.isfinite(got[[0, 2]]).all())
@@ -2764,25 +2785,26 @@ def time_fused_fp32(cfg, card) -> dict:
 
 
 # Phase 9, the evaluation CLI from checkpoints, on a synthetic MVTec set
-# whose classes are sized like the real ones: two classes of 150 test
-# images (50 normal, 100 anomalous) at 1024 px (MVTec AD's classes hold
-# 42-167 test images of 700-1024 px; cut from three classes for the
-# script's time, phase 9 being its longest, ~100 s a class on the card's
-# host), so the CLI's logged rate, which leaves out the first class,
-# covers 150 maps. (b) the CLI against a direct predict on the same
-# loaded towers and batches: bit for bit (the same kernels and products at
-# the same shapes). (c) the kernel run against the same loop on the plain
-# attention: phase 4's bars on the scores, at fp32 on the maps too. The
-# fp32 table is held within 0.01 points (a rounding may flip) of the table
-# the same loop gives with the attention in fp64 (the exact attention
+# whose classes are sized like the small real ones: two classes of 48
+# test images (16 normal, 32 anomalous) at 1024 px (MVTec AD's classes
+# hold 42-167 test images of 700-1024 px; cut from three classes of 150
+# for the script's time, phase 9 being its longest, ~100 s a class on the
+# card's host, then to 48 a class when phase 18 came), so the CLI's
+# logged rate, which leaves out the first class, covers 48 maps. (b) the
+# CLI against a direct predict on the same loaded towers and batches:
+# bit for bit (the same kernels and products at the same shapes). (c) the
+# kernel run against the same loop on the plain attention: phase 4's
+# bars on the scores, at fp32 on the maps too. The fp32 table is held
+# within 0.01 points (a rounding may flip) of the table the same loop
+# gives with the attention in fp64 (the exact attention
 # through the same fp32 trunk), and the plain fp32 attention's table is
 # printed beside it: the image AUROC/AP rank each class's images by half
 # the min-max-normalised map maximum plus half the score, and two fp32
 # attentions can order a near-tied normal/anomalous pair differently; on
-# this set the plain fp32 attention's rounding does so for one carpet
-# pair, so its table's carpet image AUROC lies 0.02 points (one of 5000
-# pairs) from both the exact attention's and the 6-pass kernel's, which
-# agree (read on an NVIDIA H100 80GB HBM3, 700 W). The bf16
+# the 150-image set the plain fp32 attention's rounding did so for one
+# carpet pair, so its table's carpet image AUROC lay 0.02 points (one of
+# 5000 pairs) from both the exact attention's and the 6-pass kernel's,
+# which agreed (read on an NVIDIA H100 80GB HBM3, 700 W). The bf16
 # map and table are held against a second bf16 attention, the
 # library's (SDPA through the same projections): phase 4's bar (kernel
 # within 1e-2 of the plain map's span) is below what any two bf16
@@ -2796,8 +2818,9 @@ def time_fused_fp32(cfg, card) -> dict:
 # SDPA's (read: 1.165x; a max over 40M pixels scatters more) or phase
 # 4's bar. The bf16 table: each cell within 1.0 point of the plain table
 # beyond SDPA's distance from it in the same cell. The image AUROC/AP
-# rank 150 near-tied images by half their map's maximum, which that
-# scatter moves, so one cell can jump by a point: read, the kernel's
+# rank a class's near-tied images by half their map's maximum, which that
+# scatter moves, so one cell can jump by a point: read (150 images a
+# class), the kernel's
 # table lies up to 1.06 points from plain (cable's image AP, where SDPA
 # lies 0.46 from plain), SDPA's up to 0.54, the two up to 0.60 apart.
 # (d) the 3-pass M q Mᵀ (JAX's precision "high") against fp64: 1e-5 of the
@@ -2806,9 +2829,9 @@ def time_fused_fp32(cfg, card) -> dict:
 EVAL_TABLE_ATOL = {"fp32": 0.01, "bf16": 1.0}
 VS_SDPA_MEAN, VS_SDPA_MAX = 1.1, 1.5
 PP_3PASS_SPAN_FRAC = 1e-5
-EVAL_CLASSES, EVAL_NORMAL, EVAL_ANOMALOUS, EVAL_PX = 2, 50, 100, 1024
+EVAL_CLASSES, EVAL_NORMAL, EVAL_ANOMALOUS, EVAL_PX = 2, 16, 32, 1024
 EVAL_RUNS = (("bf16", 32), ("fp32", 8))
-DECODE_SAMPLE = 16  # images and masks timed one at a time on the host
+DECODE_SAMPLE = 8  # images and masks timed one at a time on the host
 # the host library's AUROC/AP against numpy's on the same arrays: another
 # summation order of the same float64 sums (tests/test_metrics.py's bar)
 METRICS_RAW_ATOL = 1e-10
@@ -3507,8 +3530,8 @@ def phase_eval_cli(card, ckpt_path: str) -> None:
 
 # Phase 10, the training CLI (``python -m aaclip_tpu_torch.train`` through
 # ``main``) at ViT-L-14-336 @ 518 from phase 9's checkpoint, on a
-# synthetic MVTec training set of 2 classes of 24 images at 1024 px (12
-# normal, 12 anomalous: a real class's pixel size, MVTec AD's training
+# synthetic MVTec training set of 2 classes of 16 images at 1024 px (8
+# normal, 8 anomalous: a real class's pixel size, MVTec AD's training
 # classes hold 60-391 images), bf16, at the CLI's own batch sizes (16 text,
 # 2 image), remat auto (selective on the card for both stages, and the log
 # says so), full shot. (a) Launch counts: B1 24 per stage-1 features call
@@ -3539,8 +3562,10 @@ def phase_eval_cli(card, ckpt_path: str) -> None:
 # 88-124 s on an NVIDIA H100 80GB HBM3, 700 W (phase 9: 317-326 s).
 # (12 normal and 12 anomalous a class, from 24 when phase 17 was added:
 # on a host 25% slower than usual the whole script ran 1348 s with this
-# phase at 215 s, past a 1200 s limit for the run.)
-TRAIN_CLI_CLASSES, TRAIN_CLI_PER_KIND, TRAIN_CLI_PX = 2, 12, 1024
+# phase at 215 s, past a 1200 s limit for the run; 8 and 8 since phase 18
+# came, when a host ~1.3x slower ran the whole script 1198 s with this
+# phase at 129 s.)
+TRAIN_CLI_CLASSES, TRAIN_CLI_PER_KIND, TRAIN_CLI_PX = 2, 8, 1024
 TRAIN_CLI_SEED = 111  # the CLI's default --seed
 # forward launches per stage-2 step under full remat: 24, and the 23
 # blocks whose input carries a gradient again in the backward
@@ -4497,7 +4522,7 @@ def time_kernels_fp32(card) -> dict:
 # the plain-attention step: phase 5's bars. (c) spatial stage-1 features
 # at batch 2 against both attentions plain: phase 7's bars. (d) the
 # evaluation CLI's scores bit for bit against a direct predict, on one
-# class of phase 9's set (150 images at 1024 px) and phase 9's checkpoint,
+# class of phase 9's set (48 images at 1024 px) and phase 9's checkpoint,
 # (e) the training CLI's step-1 losses against the plain attention on
 # phase 10's set: phase 10's bars.
 
@@ -5273,11 +5298,11 @@ def phase_serve(card, ckpt_path: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def bench_serve_line(argv) -> dict:
+def bench_serve_line(argv, requests: int = SERVE_CLOSED_REQUESTS) -> dict:
     """One in-process ``python -m aaclip_tpu_torch.bench --mode serve``
-    run's JSON line: the closed loop (``--clients``) SERVE_CLOSED_REQUESTS
-    requests per client, all of them served, the open loop
-    (``--open_loop``) SERVE_SECONDS of arrivals; no request may fail."""
+    run's JSON line: the closed loop (``--clients``) ``requests`` requests
+    per client, all of them served, the open loop (``--open_loop``)
+    SERVE_SECONDS of arrivals; no request may fail."""
     import contextlib
     import gc
     import io
@@ -5287,7 +5312,7 @@ def bench_serve_line(argv) -> dict:
     from aaclip_tpu_torch import bench
 
     closed = "--open_loop" not in argv
-    steps = SERVE_CLOSED_REQUESTS if closed else SERVE_SECONDS
+    steps = requests if closed else SERVE_SECONDS
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         bench.main(["--mode", "serve", "--steps", str(steps)] + argv)
@@ -5383,10 +5408,11 @@ SERVE_READINGS = {}
 # against phase 12's live engine, 8 concurrent requests against a direct
 # artifact predict of the same images within SERVE_ART_SPAN_FRAC of the
 # span (phase 12's reading for one batch composition against another),
-# and ``bench --mode serve --artifact`` closed loop, 8 clients, 10 s,
-# beside phase 12d's live reading. (e) The evaluation CLI with --artifact
-# (the int8 artifact: one program, whose load takes seconds where the bf16
-# artifact's four take ~20) on one synthetic MVTec class, its scores bit
+# and ``bench --mode serve --artifact`` closed loop, 8 clients of
+# ART_SERVE_REQUESTS requests, beside phase 12d's live reading. (e) The
+# evaluation CLI with --artifact (the int8 artifact: one program, whose
+# load takes seconds where the bf16 artifact's four take ~20) on one
+# synthetic MVTec class, its scores bit
 # for bit against a direct artifact predict of the same batches, and with
 # --precision int8 from phase 9's checkpoint on the same class: it runs
 # and prints its table.
@@ -5396,7 +5422,10 @@ ART_GRAPH_FRAC = 0.05
 SERVE_ART_SPAN_FRAC = 1.2e-3
 INT8_BATCH, INT8_UNTIL = 32, 12
 ART_BUCKETS = (1, 2, 4, 8)
-ART_EVAL_NORMAL, ART_EVAL_ANOMALOUS = 8, 16
+# 13d's closed-loop serve bench on the bf16 artifact: requests per client
+# (8 clients; 12d's live bench serves SERVE_CLOSED_REQUESTS each)
+ART_SERVE_REQUESTS = 25
+ART_EVAL_NORMAL, ART_EVAL_ANOMALOUS = 4, 12
 
 
 def check_int8(vit, adapter, cfg, acfg, images, anchors, M,
@@ -5878,7 +5907,7 @@ def phase_artifact(card, ckpt_path: str, serve_readings: dict,
             gc.collect()
             torch.cuda.empty_cache()
         closed = bench_serve_line(["--clients", "8", "--artifact",
-                                   paths["bf16"]])
+                                   paths["bf16"]], ART_SERVE_REQUESTS)
         lat = closed["latency_ms"]
         print(f"bench --mode serve --artifact closed, 8 clients: "
               f"{closed['value']} maps/s, p50 {lat['p50']} ms, p95 "
@@ -7718,7 +7747,7 @@ HD_KERNELS = {"bf16": ("attn_fwd_wgmma", None),
 # 17b: the evaluation CLI's two synthetic classes at ViT-H-14 (a class
 # must follow the first for the CLI to log its maps/s) and the bench's
 # timed calls
-VIT_H_EVAL_CLASSES, VIT_H_EVAL_NORMAL, VIT_H_EVAL_ANOMALOUS = 2, 16, 48
+VIT_H_EVAL_CLASSES, VIT_H_EVAL_NORMAL, VIT_H_EVAL_ANOMALOUS = 2, 8, 24
 VIT_H_EVAL_PX, VIT_H_BENCH_STEPS = 512, 5
 
 
@@ -7758,15 +7787,21 @@ def hd_before(wrapper) -> tuple:
             A.split3.launches, A.split2.launches)
 
 
+def hd_phase(hd: int) -> str:
+    """The phase that checks the kernels at head dim ``hd``: 17a at 80 and
+    128, 18a at 88 and 104."""
+    return "17a" if hd in (80, 128) else "18a"
+
+
 def hd_check(hd: int, H: int, route: str, dtype_name: str, precision,
              gen) -> dict:
-    """17a at one head dim and route: B1 (and its logsumexp), B3 (and bit
-    for bit B1 on [v, v, v]) and B4 (and bit for bit B1 on the same values
-    packed) against their plain versions at HD_BATCHES x S 1370 and
-    HD_RAGGED, with phase 3's bars; the fp32 routes' distance from fp64 on
-    two images of batch 8 (SIX_FP64_MAX_REL, HIGH_FP64_MAX_REL); every
-    launch counted on the route's kernel. Returns {kernel: the largest max
-    |d| at S 1370}."""
+    """17a and 18a at one head dim and route: B1 (and its logsumexp), B3
+    (and bit for bit B1 on [v, v, v]) and B4 (and bit for bit B1 on the
+    same values packed) against their plain versions at HD_BATCHES x S
+    1370 and HD_RAGGED, with phase 3's bars; the fp32 routes' distance
+    from fp64 on two images of batch 8 (SIX_FP64_MAX_REL,
+    HIGH_FP64_MAX_REL); every launch counted on the route's kernel.
+    Returns {kernel: the largest max |d| at S 1370}."""
     import torch
 
     from aaclip_tpu_torch.ops import attention as A
@@ -7777,7 +7812,7 @@ def hd_check(hd: int, H: int, route: str, dtype_name: str, precision,
              "attention_kernel": 0.0}
     cases = [(B, 1370, 1370) for B in HD_BATCHES] + list(HD_RAGGED)
     for B, S, valid in cases:
-        what = f"17a hd {hd} {route} B={B} S={S} valid={valid}"
+        what = f"{hd_phase(hd)} hd {hd} {route} B={B} S={S} valid={valid}"
         dm = H * hd
         qkv = random_qkv(B, S, H, hd, dtype, gen)
         before = hd_before(A.attention_packed)
@@ -7859,15 +7894,42 @@ def hd_check(hd: int, H: int, route: str, dtype_name: str, precision,
     return worst
 
 
+def sdpa_backend(q, k, v) -> str:
+    """Which of PyTorch's SDPA backends the default call on ``q, k, v``
+    ran: the first one that, forced alone, gives the default call's output
+    bit for bit (each backend's forward is deterministic)."""
+    import warnings
+
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    want = sdpa(q, k, v)
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            # a backend that does not take the inputs warns, then raises
+            with sdpa_kernel(backend), warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                got = sdpa(q, k, v)
+        except RuntimeError:
+            continue
+        if torch.equal(got, want):
+            return backend.name.lower()
+    return "unknown"
+
+
 def hd_times(hd: int, H: int, route: str, dtype_name: str, precision,
              card, gen) -> dict:
-    """17a's times at one head dim and route: each of B1, B3 and B4 (with
-    its splits on the fp32 routes, as a call runs them) at the predict's
-    batch (32 bf16, 8 fp32; B3 at the stage-1 batch 16) beside its plain
-    version, SDPA on the same inputs and its bound (the route's bf16
-    passes at 989 TFLOP/s, or the bytes); the kernels per call counted at
-    the launch sites. Returns {kernel: (ms, plain ms, SDPA ms, bound ms,
-    bound_by, kernels per call)}."""
+    """17a's and 18a's times at one head dim and route: each of B1, B3 and
+    B4 (with its splits on the fp32 routes, as a call runs them) at the
+    predict's batch (32 bf16, 8 fp32; B3 at the stage-1 batch 16) beside
+    its plain version, SDPA on the same inputs (its backend named) and its
+    bound (the route's bf16 passes at 989 TFLOP/s, or the bytes); the
+    kernels per call counted at the launch sites. Returns {kernel: (ms,
+    plain ms, SDPA ms, bound ms, bound_by, kernels per call, SDPA
+    backend)}."""
     import torch
 
     from aaclip_tpu_torch.kernels.build import kernels_launched
@@ -7882,25 +7944,28 @@ def hd_times(hd: int, H: int, route: str, dtype_name: str, precision,
     S, dm = 1370, H * hd
     out = {}
 
-    def row(name, B, call, plain, library, n_out, n_splits):
+    def row(name, B, call, plain, library, n_out, n_splits, sdpa_in):
         ms = cuda_ms(call, 10)
         ms_plain = cuda_ms(plain, 2, warmup=1)
         ms_lib = cuda_ms(library, 10)
+        backend = sdpa_backend(*sdpa_in)
         before = kernels_launched("attention_packed")
         call()
         torch.cuda.synchronize()
         per_call = kernels_launched("attention_packed") - before
         want = 1 + (n_splits if split else 0)
-        expect(per_call == want, f"17a {name} hd {hd} {route}: {per_call} "
-               f"kernels per call, not {want} ({kernel}, {split})")
+        expect(per_call == want, f"{hd_phase(hd)} {name} hd {hd} {route}: "
+               f"{per_call} kernels per call, not {want} ({kernel}, "
+               f"{split})")
         flops = passes * 4 * B * H * S * S * hd
         bound_ms, bound_by = bound(flops, (n_out + 1) * B * S * dm * esize)
-        out[name] = (ms, ms_plain, ms_lib, bound_ms, bound_by, per_call)
-        print(f"time 17a {name} hd {hd} {route} B={B} ({H} heads): "
+        out[name] = (ms, ms_plain, ms_lib, bound_ms, bound_by, per_call,
+                     backend)
+        print(f"time {hd_phase(hd)} {name} hd {hd} {route} B={B} ({H} heads): "
               f"{ms:.4f} ms/call ({flops / ms / 1e9:.1f} TFLOP/s of the "
               f"{passes} bf16 pass(es); bound {bound_ms:.4f} ms by "
-              f"{bound_by}); plain {ms_plain:.4f}; SDPA {ms_lib:.4f}; "
-              f"{per_call} kernel(s) per call on {card}")
+              f"{bound_by}); plain {ms_plain:.4f}; SDPA ({backend}) "
+              f"{ms_lib:.4f}; {per_call} kernel(s) per call on {card}")
 
     B = 32 if dtype_name == "bf16" else TRAIN_BATCH
     qkv = random_qkv(B, S, H, hd, dtype, gen)
@@ -7909,11 +7974,11 @@ def hd_times(hd: int, H: int, route: str, dtype_name: str, precision,
     row("attention_packed", B,
         lambda: A.attention_packed(qkv, H, S, **kw),
         lambda: A.attention_packed_plain(qkv, H, S, **kw),
-        lambda: sdpa(q, k, v), 3, 1)
+        lambda: sdpa(q, k, v), 3, 1, (q, k, v))
     row("attention_kernel", B,
         lambda: A.attention_kernel(q, k, v, S, **kw),
         lambda: A.attention_kernel_plain(q, k, v, S, **kw),
-        lambda: sdpa(q, k, v), 3, 3)
+        lambda: sdpa(q, k, v), 3, 3, (q, k, v))
     del qkv, q, k, v
     B = STAGE1_BATCH
     vv = torch.randn(B, S, dm, generator=gen, device="cuda").to(dtype)
@@ -7921,14 +7986,73 @@ def hd_times(hd: int, H: int, route: str, dtype_name: str, precision,
     row("attention_packed_vv", B,
         lambda: A.attention_packed_vv(vv, H, S, **kw),
         lambda: chunked(A.attention_packed_vv_plain, vv, H, S, **kw),
-        lambda: sdpa(qv, qv, qv), 1, 1)
+        lambda: sdpa(qv, qv, qv), 1, 1, (qv, qv, qv))
     del vv, qv
     return out
 
 
-def phase_head_dims_kernels(card) -> dict:
-    """17a; returns {(kernel, hd, route): (ms, plain ms, SDPA ms, bound ms,
-    bound_by, kernels per call, max |d|)}."""
+def check_neighbour_heads(hd: int, H: int, route: str, dtype_name: str,
+                          precision) -> None:
+    """17a and 18a: NaN and Inf written into the odd heads' columns of Q, K
+    and V (every row: NaN in even rows, +Inf and -Inf in odd ones) leave
+    each even head's output and logsumexp bit for bit as with those heads
+    clean, for B1, B3 (on the value section) and B4 (on [B, H, S, hd]).
+    The per-head tensor maps give a 64-column chunk's columns past the head
+    dim as zeros: at 88 and 104 Q K^T's last k-step multiplies 8 of them
+    in Q and in K, and a kernel that read the next head's columns there
+    would carry its NaN into this head (0 * NaN is NaN)."""
+    import torch
+
+    from aaclip_tpu_torch.ops import attention as A
+
+    dtype = torch_dtype(dtype_name)
+    gen = torch.Generator(device="cuda").manual_seed(59)
+    B, S, valid = 2, 200, 150
+    dm = H * hd
+    kw = dict(precision=precision)
+    clean = random_qkv(B, S, H, hd, dtype, gen)
+    poisoned = clean.clone()
+    odd = poisoned.view(B, S, 3, H, hd)[:, :, :, 1::2]
+    odd[:, 0::2] = float("nan")
+    odd[:, 1::2, ..., :hd // 2] = float("inf")
+    odd[:, 1::2, ..., hd // 2:] = float("-inf")
+
+    what = f"{hd_phase(hd)} hd {hd} {route} neighbour heads"
+
+    def counted(wrapper, splits, *args, **kwargs):
+        before = hd_before(wrapper)
+        out = wrapper(*args, **kwargs)
+        hd_route_counts(route, wrapper, before, 1, splits,
+                        f"{what} {wrapper.__name__}")
+        return out
+
+    def runs(x):
+        out, lse = counted(A.attention_packed, 1, x, H, valid,
+                           return_lse=True, **kw)
+        vv = counted(A.attention_packed_vv, 1,
+                     x[..., 2 * dm:].contiguous(), H, S, **kw)
+        heads = [x[..., i * dm:(i + 1) * dm].reshape(B, S, H, hd)
+                 .transpose(1, 2).contiguous() for i in range(3)]
+        b4 = counted(A.attention_kernel, 3, *heads, valid, **kw)
+        even = (lambda t: t.view(B, S, H, hd)[:, :, 0::2])
+        return {"B1": even(out), "B1 lse": lse[:, 0::2], "B3": even(vv),
+                "B4": b4[:, 0::2]}
+
+    got, want = runs(poisoned), runs(clean)
+    torch.cuda.synchronize()
+    same = {k: torch.equal(got[k], want[k]) for k in want}
+    finite = all(bool(torch.isfinite(t).all()) for t in got.values())
+    print(f"{what}: NaN / +-Inf in the odd heads' Q, K and V columns; each "
+          f"even head bit for bit as clean {same}, finite {finite}")
+    expect(all(same.values()) and finite,
+           f"{what}: a head read its neighbour's columns: {same}")
+
+
+def phase_head_dims_kernels(card, geometries=HD_GEOMETRIES,
+                            phase: str = "17a") -> dict:
+    """17a (18a at ``WIDE_GEOMETRIES``); returns {(kernel, hd, route): (ms,
+    plain ms, SDPA ms, bound ms, bound_by, kernels per call, max |d|, SDPA
+    backend)}."""
     import gc
 
     import torch
@@ -7936,27 +8060,73 @@ def phase_head_dims_kernels(card) -> dict:
     t_phase = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(51)
     rows = {}
-    for hd, H in HD_GEOMETRIES:
+    for hd, H in geometries:
         for route, dtype_name, precision in HD_ROUTES:
             worst = hd_check(hd, H, route, dtype_name, precision, gen)
+            check_neighbour_heads(hd, H, route, dtype_name, precision)
             times = hd_times(hd, H, route, dtype_name, precision, card, gen)
             for name, t in times.items():
-                rows[(name, hd, route)] = (*t, worst[name])
+                rows[(name, hd, route)] = (*t[:6], worst[name], t[6])
             gc.collect()
             torch.cuda.empty_cache()
-    print(f"17a took {time.perf_counter() - t_phase:.0f} s")
+    print(f"{phase} took {time.perf_counter() - t_phase:.0f} s")
     return rows
 
 
-def vit_h_predicts(cfg, acfg, card) -> dict:
-    """17b's predicts at ViT-H-14 @ 518 (random towers from seeds): bf16
-    uint8 at batch 32, fp32 and fp32_high (staged, ``bf16_until`` 6) at
-    batch 8, each against the same predictor on the plain attention at
-    phase 4's bars (fp32_high: phase 11's), one B1 launch per block up to
-    the last tap (24 of 32) on its route; spatial stage-1 features at
-    batch 2 against both attentions plain (phase 7's bars, B3's
-    launches); maps/s of each predict on both attentions. Returns {path:
-    B1 (or B3) launches}."""
+def bf16_yardstick(vit, cfg, acfg, adapter, images, anchors, M, pix_k,
+                   pix_p) -> dict:
+    """18b's reading of a bf16 map ``pix_k`` (the kernels) beside the
+    plain-attention map ``pix_p`` on the same uint8 ``images``: the same
+    predict on SDPA's attention and in fp32, and each map's max and mean
+    distance as fractions of the plain map's (or the fp32 map's) span."""
+    import gc
+
+    import torch
+
+    from aaclip_tpu_torch.core.config import DtypePolicy
+    from aaclip_tpu_torch.eval.predict import make_predict_fn
+    from aaclip_tpu_torch.ops import attention as A
+
+    bf16, heads = DtypePolicy.bf16(), cfg.vision.heads
+    library = make_predict_fn(vit, cfg, acfg, policy=bf16, uint8_inputs=True,
+                              attn_fn=A.make_attn_fn(heads, bf16,
+                                                     attention=sdpa_packed))
+    pix_l = library(adapter, images, anchors, M)[0]
+    del library
+    exact = make_predict_fn(vit, cfg, acfg, policy=DtypePolicy.fp32(),
+                            uint8_inputs=True)
+    pix_f = exact(adapter, images, anchors, M)[0]
+    del exact
+    gc.collect()
+    torch.cuda.empty_cache()
+    span = (pix_p.max() - pix_p.min()).item()
+    span32 = (pix_f.max() - pix_f.min()).item()
+    r = {"kernel-plain": (pix_k - pix_p).abs().max().item() / span,
+         "sdpa-plain": (pix_l - pix_p).abs().max().item() / span,
+         "kernel-plain mean": (pix_k - pix_p).abs().mean().item() / span,
+         "sdpa-plain mean": (pix_l - pix_p).abs().mean().item() / span}
+    for k, m in (("kernel", pix_k), ("plain", pix_p), ("sdpa", pix_l)):
+        r[f"{k}-fp32"] = (m - pix_f).abs().max().item() / span32
+    return r
+
+
+def tower_predicts(phase: str, name: str, cfg, acfg, card,
+                   features: bool = True,
+                   sdpa_yardstick: bool = False) -> dict:
+    """The predicts of phase 17b (ViT-H-14) and 18b (ViT-g-14, ViT-bigG-14)
+    at 518 px (random towers from seeds): bf16 uint8 at batch 32, fp32 and
+    fp32_high (staged, ``bf16_until`` 6) at batch 8, each against the same
+    predictor on the plain attention at phase 4's bars (fp32_high: phase
+    11's), one B1 launch per block up to the last tap (24 of the tower's
+    32, 40 or 48) on its route; with ``features``, spatial stage-1 features
+    at batch 2 against both attentions plain (phase 7's bars, B3's
+    launches); maps/s of each predict on both attentions. With
+    ``sdpa_yardstick`` (18b) the bf16 map is also read against a second
+    bf16 attention, the library's (SDPA through the same projections), and
+    against the fp32 predict: where it lies past phase 4's 1e-2 of the
+    span from the plain map, it is held as phase 9 holds the evaluation
+    CLI's map, its mean distance at most VS_SDPA_MEAN and its max at most
+    VS_SDPA_MAX times SDPA's. Returns {path: B1 (or B3) launches}."""
     import gc
 
     import torch
@@ -7971,7 +8141,8 @@ def vit_h_predicts(cfg, acfg, card) -> dict:
     heads, img, n_layers = (cfg.vision.heads, cfg.vision.image_size,
                             cfg.vision.layers)
     # the predict runs the blocks up to its last tap: 24 of ViT-H-14's 32
-    # at the default levels (6, 12, 18, 24), as JAX's does
+    # (ViT-g-14's 40, ViT-bigG-14's 48) at the default levels (6, 12, 18,
+    # 24), as JAX's does
     depth = max(acfg.levels)
     gen = torch.Generator(device="cuda").manual_seed(52)
     vit = init_vision_params(cfg, seed=0)
@@ -7982,10 +8153,10 @@ def vit_h_predicts(cfg, acfg, card) -> dict:
                                                "Industrial")).cuda()
     calls = {}
     high = DtypePolicy.fp32_high()
-    for name, policy, B in (("bf16", DtypePolicy.bf16(), 32),
+    for prec, policy, B in (("bf16", DtypePolicy.bf16(), 32),
                             ("fp32", DtypePolicy.fp32(), TRAIN_BATCH),
                             ("fp32_high", high, TRAIN_BATCH)):
-        u8 = name == "bf16"
+        u8 = prec == "bf16"
         kernel = make_predict_fn(vit, cfg, acfg, policy=policy,
                                  uint8_inputs=u8)
         plain = make_predict_fn(vit, cfg, acfg, policy=policy,
@@ -8003,12 +8174,12 @@ def vit_h_predicts(cfg, acfg, card) -> dict:
         got = (A.attention_packed.launches, A.attention_packed.launches_6pass,
                A.attention_packed.launches_3pass, A.split3.launches,
                A.split2.launches)
-        staged = high.bf16_until if name == "fp32_high" else 0
+        staged = high.bf16_until if prec == "fp32_high" else 0
         n = depth - staged
         want = {"bf16": (depth, 0, 0, 0, 0),
                 "fp32": (depth, depth, 0, depth, 0),
-                "fp32_high": (depth, 0, n, 0, n)}[name]
-        what = f"17b ViT-H-14 predict {name} B={B}"
+                "fp32_high": (depth, 0, n, 0, n)}[prec]
+        what = f"{phase} {name} predict {prec} B={B}"
         expect(got == want, f"{what}: B1 launches, 6-pass, 3-pass, split3, "
                f"split2 {got}, not {want}")
         zero_counts()
@@ -8033,7 +8204,25 @@ def vit_h_predicts(cfg, acfg, card) -> dict:
               f"score| {dscore:.3e}; {B / ms_k * 1e3:.2f} maps/s "
               f"({ms_k:.2f} ms/call), plain attention {B / ms_p * 1e3:.2f} "
               f"maps/s on {card}")
-        if name == "bf16":
+        if prec == "bf16" and sdpa_yardstick:
+            r = bf16_yardstick(vit, cfg, acfg, adapter, images, anchors, M,
+                               pix_k, pix_p)
+            print(f"{what}: max|d map| of the span: kernel vs plain "
+                  f"{r['kernel-plain']:.3e} (phase 4's bar "
+                  f"{PIX_SPAN_FRAC_BF16}), SDPA vs plain "
+                  f"{r['sdpa-plain']:.3e}; mean: kernel vs plain "
+                  f"{r['kernel-plain mean']:.3e}, SDPA vs plain "
+                  f"{r['sdpa-plain mean']:.3e}; vs the fp32 map: kernel "
+                  f"{r['kernel-fp32']:.3e}, plain {r['plain-fp32']:.3e}, "
+                  f"SDPA {r['sdpa-fp32']:.3e}")
+            expect(dscore <= SCORE_ATOL_BF16
+                   and (r["kernel-plain"] <= PIX_SPAN_FRAC_BF16
+                        or (r["kernel-plain mean"]
+                            <= VS_SDPA_MEAN * r["sdpa-plain mean"]
+                            and r["kernel-plain"]
+                            <= VS_SDPA_MAX * r["sdpa-plain"])),
+                   f"{what}: map {r}, scores {dscore}")
+        elif prec == "bf16":
             expect(dpix <= PIX_SPAN_FRAC_BF16 * span
                    and dscore <= SCORE_ATOL_BF16,
                    f"{what}: map {dpix} of {span}, scores {dscore}")
@@ -8042,28 +8231,32 @@ def vit_h_predicts(cfg, acfg, card) -> dict:
                                        rtol=PIX_RTOL_FP32)
             torch.testing.assert_close(score_k, score_p,
                                        atol=SCORE_ATOL_FP32, rtol=0)
-        calls[f"ViT-H-14 predict {name}"] = got[0] - staged \
-            if name == "fp32_high" else got[0]
+        calls[f"{name} predict {prec}"] = got[0] - staged \
+            if prec == "fp32_high" else got[0]
         del kernel, plain, images, pix_k, pix_p
         gc.collect()
         torch.cuda.empty_cache()
-    what = "17b ViT-H-14 stage-1 spatial features bf16 B=2"
-    launched = check_features_vs_plain(
-        vit, cfg, DtypePolicy.bf16(), stage1_batch(2, img, gen)[0], what,
-        lambda c: None)
-    expect(launched == (n_layers, STAGE1_SURGERY_UNTIL - 1, 0),
-           f"{what}: launches {launched}")
-    calls["ViT-H-14 stage-1 spatial features bf16"] = launched[1]
+    if features:
+        what = f"{phase} {name} stage-1 spatial features bf16 B=2"
+        launched = check_features_vs_plain(
+            vit, cfg, DtypePolicy.bf16(), stage1_batch(2, img, gen)[0], what,
+            lambda c: None)
+        expect(launched == (n_layers, STAGE1_SURGERY_UNTIL - 1, 0),
+               f"{what}: launches {launched}")
+        calls[f"{name} stage-1 spatial features bf16"] = launched[1]
     del vit, adapter
     gc.collect()
     torch.cuda.empty_cache()
     return calls
 
 
-def vit_h_bench(card) -> dict:
-    """17b: ``python -m aaclip_tpu_torch.bench --model_name ViT-H-14`` in
-    process, bf16 at batch 32, fp32 at 8, fp32_high (staged) at 8; returns
-    {precision: maps/s}."""
+def model_bench(phase: str, name: str, card,
+                runs=(("bf16", 32), ("fp32", TRAIN_BATCH),
+                      ("fp32_high", TRAIN_BATCH))) -> dict:
+    """``python -m aaclip_tpu_torch.bench --model_name <name>`` in process
+    at each (precision, batch) of ``runs`` (17b: ViT-H-14, bf16 at batch
+    32, fp32 and fp32_high (staged) at 8; 18b: ViT-g-14 and ViT-bigG-14 in
+    bf16 at 32); returns {precision: maps/s}."""
     import contextlib
     import gc
     import io
@@ -8073,28 +8266,30 @@ def vit_h_bench(card) -> dict:
     from aaclip_tpu_torch import bench
 
     rates = {}
-    for precision, B in (("bf16", 32), ("fp32", TRAIN_BATCH),
-                         ("fp32_high", TRAIN_BATCH)):
+    for precision, B in runs:
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
-            bench.main(["--model_name", "ViT-H-14", "--precision", precision,
+            bench.main(["--model_name", name, "--precision", precision,
                         "--batch_size", str(B), "--steps",
                         str(VIT_H_BENCH_STEPS), "--warmup", "2"])
         line = json.loads(buf.getvalue().strip().splitlines()[-1])
-        print(f"17b bench --model_name ViT-H-14 --precision {precision} "
+        print(f"{phase} bench --model_name {name} --precision {precision} "
               f"--batch_size {B}: {json.dumps(line)}")
-        expect(line["value"] > 0 and "ViT-H-14" in line["unit"],
-               f"bench ViT-H-14 {precision}: {line}")
+        expect(line["value"] > 0 and name in line["unit"],
+               f"bench {name} {precision}: {line}")
         rates[precision] = line["value"]
         gc.collect()
         torch.cuda.empty_cache()
     return rates
 
 
-def write_vit_h_checkpoint(tmp: str, card) -> str:
-    """A seeded ViT-H-14 saved as an OpenAI-layout state dict at its native
-    224 px (the loader resizes the positional embedding 16 -> 37) under
-    ``tmp``; returns its path."""
+def write_model_checkpoint(phase: str, name: str, tmp: str, card,
+                           half: bool = False) -> str:
+    """A seeded ``name`` (ViT-H-14, ViT-g-14) saved as an OpenAI-layout
+    state dict at its native 224 px (the loader resizes the positional
+    embedding 16 -> 37) under ``tmp``, in fp16 with ``half`` (as OpenAI
+    publishes its checkpoints; the loader reads them as fp32); returns its
+    path."""
     import os
 
     import torch
@@ -8103,28 +8298,33 @@ def write_vit_h_checkpoint(tmp: str, card) -> str:
     from aaclip_tpu_torch.core.params import (init_text_params,
                                               init_vision_params)
 
-    native = get_config("ViT-H-14", img_size=224)
+    native = get_config(name, img_size=224)
     sd = openai_state_dict(init_vision_params(native, seed=7),
                            init_text_params(native, seed=8))
-    expect(sd["visual.positional_embedding"].shape == (257, 1280),
-           "the ViT-H-14 checkpoint is not at its 16 x 16 grid")
-    ckpt_path = os.path.join(tmp, "ViT-H-14.pt")
+    if half:
+        sd = {k: v.half() for k, v in sd.items()}
+    expect(sd["visual.positional_embedding"].shape
+           == (257, native.vision.width),
+           f"the {name} checkpoint is not at its 16 x 16 grid")
+    ckpt_path = os.path.join(tmp, f"{name}.pt")
     t0 = time.perf_counter()
     torch.save(sd, ckpt_path)
     del sd
-    print(f"17b: ViT-H-14 checkpoint "
-          f"{os.path.getsize(ckpt_path) / 1e9:.3f} GB saved in "
+    print(f"{phase}: {name} checkpoint "
+          f"{os.path.getsize(ckpt_path) / 1e9:.3f} GB "
+          f"({'fp16' if half else 'fp32'}) saved in "
           f"{time.perf_counter() - t0:.2f} s on {card}")
     return ckpt_path
 
 
-def vit_h_eval_cli(cfg, acfg, card, tmp: str, ckpt_path: str) -> int:
-    """17b: ``python -m aaclip_tpu_torch.test --model_name ViT-H-14`` (bf16,
-    batch 32) from the seeded ViT-H-14 checkpoint at ``ckpt_path``, on two
-    synthetic MVTec classes: its table and maps/s printed, one B1 launch
-    per block up to the last tap and batch, and its scores bit for bit a
-    direct predict's on the towers loaded as the CLI loads them. Returns
-    the B1 launches."""
+def model_eval_cli(phase: str, name: str, cfg, acfg, card, tmp: str,
+                   ckpt_path: str) -> int:
+    """17b (ViT-H-14), 18b (ViT-g-14): ``python -m aaclip_tpu_torch.test
+    --model_name <name>`` (bf16, batch 32) from the seeded checkpoint at
+    ``ckpt_path``, on VIT_H_EVAL_CLASSES synthetic MVTec classes: its table
+    and maps/s printed, one B1 launch per block up to the last tap and
+    batch, and its scores bit for bit a direct predict's on the towers
+    loaded as the CLI loads them. Returns the B1 launches."""
     import gc
     import os
     import re
@@ -8151,18 +8351,18 @@ def vit_h_eval_cli(cfg, acfg, card, tmp: str, ckpt_path: str) -> int:
     depth = max(acfg.levels)  # the blocks up to the last tap
     classes = CLASS_NAMES["MVTec"][:VIT_H_EVAL_CLASSES]
     data_root, meta_root = make_synthetic_dataset(
-        os.path.join(tmp, "eval_set"), class_names=classes,
+        os.path.join(tmp, f"eval_set_{name}"), class_names=classes,
         n_normal=VIT_H_EVAL_NORMAL, n_anomalous=VIT_H_EVAL_ANOMALOUS,
         img_px=VIT_H_EVAL_PX, hard=True)
     os.environ.update(AACLIP_DATA=data_root, AACLIP_METADATA=meta_root)
     ad_tree = adapter_to_jax(init_image_adapter(cfg, acfg, seed=9,
                                                 device="cpu"))
-    save = os.path.join(tmp, "eval")
+    save = os.path.join(tmp, f"eval_{name}")
     ckpt.save_adapter_checkpoint(os.path.join(save, "image_adapter_1.npz"),
                                  1, ad_tree)
     zero_fused_counts()
     t0 = time.perf_counter()
-    eval_cli.main(["--model_name", "ViT-H-14", "--clip_checkpoint",
+    eval_cli.main(["--model_name", name, "--clip_checkpoint",
                    ckpt_path, "--save_path", save, "--precision", "bf16",
                    "--batch_size", str(B), "--dump_scores"])
     wall = time.perf_counter() - t0
@@ -8171,13 +8371,15 @@ def vit_h_eval_cli(cfg, acfg, card, tmp: str, ckpt_path: str) -> int:
     launched = counts()
     expect(launched == (depth * n_batches, 0, 0)
            and A.attention_kernel.launches == 0,
-           f"17b eval CLI: launches {launched}, not {depth} x {n_batches}")
+           f"{phase} eval CLI: launches {launched}, not {depth} x "
+           f"{n_batches}")
     log = open(os.path.join(save, "test.log")).read()
     rate = float(re.search(r"eval throughput: ([\d.]+) maps/s",
                            log).group(1))
     table = log[log.rindex("class name"):] if "class name" in log else ""
-    expect(table.count("Average") == 1, "17b eval CLI: no table in test.log")
-    print(f"17b eval CLI ViT-H-14 bf16 B={B}: {n_batches} batches, "
+    expect(table.count("Average") == 1,
+           f"{phase} eval CLI: no table in test.log")
+    print(f"{phase} eval CLI {name} bf16 B={B}: {n_batches} batches, "
           f"{launched[0]} B1 launches; {rate:.2f} maps/s logged (the first "
           f"class excluded), {wall:.2f} s for the whole main() on {card}; "
           f"its table:\n{table.rstrip()}")
@@ -8199,9 +8401,10 @@ def vit_h_eval_cli(cfg, acfg, card, tmp: str, ckpt_path: str) -> int:
         mine = [r for r in rows if r[0] == cls]
         expect([r[1] for r in mine] == got[4]
                and [float(r[3]) for r in mine] == [float(x) for x in got[3]],
-               f"17b eval CLI {cls}: scores differ from the direct predict")
-    print("17b eval CLI ViT-H-14: every score bit for bit the direct "
-          "predict's")
+               f"{phase} eval CLI {cls}: scores differ from the direct "
+               f"predict")
+    print(f"{phase} eval CLI {name}: every score bit for bit the direct "
+          f"predict's")
     del vit, text, direct
     gc.collect()
     torch.cuda.empty_cache()
@@ -8689,12 +8892,13 @@ def vit_h_train_cli(cfg, card, tmp: str, ckpt_path: str) -> dict:
                 (counts()[0], 0)}
 
 
-def vit_h_engine(cfg, card) -> int:
-    """17d: the serving engine at ViT-H-14 @ 518 (bf16, seeded towers and
-    adapters, max_batch 8): eight concurrent ``submit`` calls against the
-    engine's own predict on the same images and anchors at phase 12's bars
-    (PIX_SPAN_FRAC_BF16 of the map's span, SCORE_ATOL_BF16), 24 B1
-    launches a served batch. Returns B1's launches per batch."""
+def model_engine(phase: str, name: str, cfg, card) -> int:
+    """17d (ViT-H-14), 18b (ViT-bigG-14): the serving engine at ``name`` @
+    518 (bf16, seeded towers and adapters, max_batch 8): eight concurrent
+    ``submit`` calls against the engine's own predict on the same images
+    and anchors at phase 12's bars (PIX_SPAN_FRAC_BF16 of the map's span,
+    SCORE_ATOL_BF16), 24 B1 launches a served batch. Returns B1's launches
+    per batch."""
     import gc
     import threading
 
@@ -8705,7 +8909,7 @@ def vit_h_engine(cfg, card) -> int:
     from aaclip_tpu_torch.serve import server
 
     img, depth = cfg.vision.image_size, 24
-    engine = server.InferenceEngine(model_name="ViT-H-14", img_size=img,
+    engine = server.InferenceEngine(model_name=name, img_size=img,
                                     datasets=("MVTec",), precision="bf16",
                                     max_batch=8, precompile=False)
     try:
@@ -8737,16 +8941,17 @@ def vit_h_engine(cfg, card) -> int:
                    for i, (m, _) in enumerate(results))
         dscore = max(abs(float(s) - float(score[i]))
                      for i, (_, s) in enumerate(results))
-        print(f"17d serving engine ViT-H-14 bf16: 8 concurrent requests in "
+        print(f"{phase} serving engine {name} bf16: 8 concurrent requests in "
               f"{batches} batch(es), {launches} B1 launches; against the "
               f"engine's predict at B=8: max|d map| {dmap / span:.3e} of the "
               f"span (bar {PIX_SPAN_FRAC_BF16}), max|d score| {dscore:.3e} "
               f"(bar {SCORE_ATOL_BF16}) on {card}")
         expect(launches == depth * batches,
-               f"17d engine: {launches} B1 launches for {batches} batches")
+               f"{phase} engine: {launches} B1 launches for {batches} "
+               f"batches")
         expect(dmap <= PIX_SPAN_FRAC_BF16 * span
                and dscore <= SCORE_ATOL_BF16,
-               f"17d engine: map {dmap} of {span}, scores {dscore}")
+               f"{phase} engine: map {dmap} of {span}, scores {dscore}")
         return launches // batches
     finally:
         engine.shutdown()
@@ -8866,11 +9071,11 @@ def phase_head_dims(card) -> dict:
                f"17b: ViT-H-14 read as {v}")
         acfg = AdapterConfig()
         print(f"[{time.perf_counter() - t_phase:.0f} s] 17b")
-        calls = vit_h_predicts(cfg, acfg, card)
-        rates = vit_h_bench(card)
-        ckpt_path = write_vit_h_checkpoint(tmp, card)
-        calls["ViT-H-14 evaluation CLI bf16"] = vit_h_eval_cli(
-            cfg, acfg, card, tmp, ckpt_path)
+        calls = tower_predicts("17b", "ViT-H-14", cfg, acfg, card)
+        rates = model_bench("17b", "ViT-H-14", card)
+        ckpt_path = write_model_checkpoint("17b", "ViT-H-14", tmp, card)
+        calls["ViT-H-14 evaluation CLI bf16"] = model_eval_cli(
+            "17b", "ViT-H-14", cfg, acfg, card, tmp, ckpt_path)
         calls["fused predict bf16, ViT-L in 8 heads of 128"] = \
             hd128_fused_predict(card)
         t_d = time.perf_counter()
@@ -8880,7 +9085,7 @@ def phase_head_dims(card) -> dict:
             hd128_step(card)
         steps.update(vit_h_train_cli(cfg, card, tmp, ckpt_path))
         steps["ViT-H-14 serving engine, per batch"] = (
-            vit_h_engine(cfg, card), 0)
+            model_engine("17d", "ViT-H-14", cfg, card), 0)
         steps.update(vit_h_int8_and_bank(cfg, acfg, card))
         print(f"17d took {time.perf_counter() - t_d:.0f} s")
     finally:
@@ -8896,16 +9101,159 @@ def phase_head_dims(card) -> dict:
     return {"kernels": rows, "calls": calls, "steps": steps, "rates": rates}
 
 
-def head_dim_rows(head_dims: dict) -> list:
-    """Phase 17's rows of the kernel line: each kernel at head dims 80
-    and 128 on each route, with its launches on the paths of that head
-    dim and route (B1: the ViT-H-14 predicts, 3-pass counting the staged
-    predict's 3-pass blocks, and at 128 the fused bf16 predict; 17d's
-    steps, CLIs, engine, int8 and bank paths; B3 bf16 at 80: the spatial
-    features; B2: 17d's steps and training CLI; none for B4 and the
-    fp32 V-V, which no phase-17 path runs), ``launches`` the first
-    path's."""
-    hc17, st17 = head_dims["calls"], head_dims["steps"]
+# ---------------------------------------------------------------------------
+# Phase 18: the packed-attention forward at head dims 88 and 104 (B1, B3
+# and B4 on the bf16, 6-pass and 3-pass routes) and open_clip's ViT-g-14
+# and ViT-bigG-14 @ 518 through the predict, the evaluation CLI, the
+# serving engine and stage-1's spatial features
+
+# open_clip's published ViT-g-14 and ViT-bigG-14 (its
+# model_configs/ViT-g-14.json and ViT-bigG-14.json), written at run time
+# into a temporary directory that AACLIP_MODEL_CONFIGS names. ViT-g-14: 40
+# vision blocks of width 1408 in 16 heads of 88, MLP 6144 (mlp_ratio
+# 4.3637); text width 1024, 16 heads, 24 blocks; embed 1024. ViT-bigG-14:
+# 48 blocks of 1664 in 16 heads of 104, MLP 8192 (4.9231); text 1280, 20
+# heads, 32 blocks; embed 1280. Patch 14; random weights from seeds, the
+# vision towers seeded on the card; at 518 px S 1370.
+VIT_G_14 = {
+    "embed_dim": 1024,
+    "vision_cfg": {"image_size": 224, "layers": 40, "width": 1408,
+                   "head_width": 88, "mlp_ratio": 4.3637, "patch_size": 14},
+    "text_cfg": {"context_length": 77, "vocab_size": 49408, "width": 1024,
+                 "heads": 16, "layers": 24},
+}
+VIT_BIGG_14 = {
+    "embed_dim": 1280,
+    "vision_cfg": {"image_size": 224, "layers": 48, "width": 1664,
+                   "head_width": 104, "mlp_ratio": 4.9231, "patch_size": 14},
+    "text_cfg": {"context_length": 77, "vocab_size": 49408, "width": 1280,
+                 "heads": 20, "layers": 32},
+}
+WIDE_CONFIGS = {"ViT-g-14": VIT_G_14, "ViT-bigG-14": VIT_BIGG_14}
+# (layers, width, heads, head dim, MLP width, S at 518, embed) each must
+# read as
+WIDE_ARCH = {"ViT-g-14": (40, 1408, 16, 88, 6144, 1370, 1024),
+             "ViT-bigG-14": (48, 1664, 16, 104, 8192, 1370, 1280)}
+# 18a: (head dim, heads) of the two towers
+WIDE_GEOMETRIES = ((88, 16), (104, 16))
+
+
+def wide_b2_refusal(card) -> str:
+    """18b: one training call through the differentiable attention at head
+    dim 88 on the card raises NotImplementedError naming ROADMAP B11 (the
+    backward there is the next slice), so nothing trains at these dims by
+    accident; the forward it ran is counted on its kernel."""
+    import torch
+
+    from aaclip_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(60)
+    qkv = random_qkv(2, 77, 2, 88, torch.bfloat16, gen).requires_grad_()
+    zero_counts()
+    out = A.attention_packed_diff(qkv, 2, 77)
+    try:
+        out.float().sum().backward()
+        raised = None
+    except NotImplementedError as e:
+        raised = str(e)
+    torch.cuda.synchronize()
+    launched = counts()
+    print(f"18b B2 at head dim 88 on {card}: the forward launched "
+          f"{launched} (standard, V-V, backward); the backward raised: "
+          f"{raised}")
+    expect(raised is not None and "ROADMAP B11" in raised
+           and launched == (1, 0, 0),
+           f"18b: the backward at head dim 88 did not refuse ({raised}, "
+           f"{launched})")
+    return raised
+
+
+def phase_wide_head_dims(card) -> dict:
+    """Phase 18 (18a, 18b above); returns {"kernels": 18a's rows,
+    "calls": {path: B1 (or B3) launches}, "rates": {model: bf16 maps/s}}."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from aaclip_tpu_torch.core import config as C
+    from aaclip_tpu_torch.core.config import (AdapterConfig, DtypePolicy,
+                                              get_config)
+    from aaclip_tpu_torch.ops import fused_block as FB
+
+    t_phase = time.perf_counter()
+    rows = phase_head_dims_kernels(card, WIDE_GEOMETRIES, "18a")
+    tmp = tempfile.mkdtemp(prefix="aaclip_wide_")
+    env = {k: os.environ.get(k) for k in ("AACLIP_MODEL_CONFIGS",
+                                          "AACLIP_DATA", "AACLIP_METADATA")}
+    calls, rates = {}, {}
+    try:
+        configs = os.path.join(tmp, "configs")
+        os.makedirs(configs)
+        for name, payload in WIDE_CONFIGS.items():
+            with open(os.path.join(configs, f"{name}.json"), "w") as f:
+                json.dump(payload, f)
+        os.environ["AACLIP_MODEL_CONFIGS"] = configs
+        C._scan_json_configs()
+        t_b = time.perf_counter()
+        print(f"[{t_b - t_phase:.0f} s] 18b")
+        acfg = AdapterConfig()
+        cfgs = {}
+        for name in WIDE_CONFIGS:
+            cfg = cfgs[name] = get_config(name, img_size=518)
+            v = cfg.vision
+            arch = (v.layers, v.width, v.heads, v.head_dim,
+                    int(v.width * v.mlp_ratio), v.seq_len, cfg.embed_dim)
+            expect(arch == WIDE_ARCH[name], f"18b: {name} read as {arch}")
+            block = FB.maybe_make_block_fn(cfg, DtypePolicy.bf16())
+            print(f"18b {name}: (layers, width, heads, head dim, MLP, S, "
+                  f"embed) {arch}; text {cfg.text.layers} x "
+                  f"{cfg.text.width} in {cfg.text.heads} heads; the fused "
+                  f"block's gate gives {block} (JAX's gate refuses 2 x "
+                  f"{v.head_dim} columns)")
+            expect(block is None and not FB.reference_gate(cfg),
+                   f"18b {name}: the fused-block gate gave {block}")
+            calls.update(tower_predicts("18b", name, cfg, acfg, card,
+                                        features=name == "ViT-g-14",
+                                        sdpa_yardstick=True))
+            rates.update({f"{name} {k}": r for k, r in model_bench(
+                "18b", name, card, runs=(("bf16", 32),)).items()})
+        ckpt_path = write_model_checkpoint("18b", "ViT-g-14", tmp, card,
+                                           half=True)
+        calls["ViT-g-14 evaluation CLI bf16"] = model_eval_cli(
+            "18b", "ViT-g-14", cfgs["ViT-g-14"], acfg, card, tmp, ckpt_path)
+        os.remove(ckpt_path)
+        calls["ViT-bigG-14 serving engine, per batch"] = model_engine(
+            "18b", "ViT-bigG-14", cfgs["ViT-bigG-14"], card)
+        wide_b2_refusal(card)
+        print(f"18b took {time.perf_counter() - t_b:.0f} s")
+    finally:
+        for k, val in env.items():
+            if val is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = val
+        for name in WIDE_CONFIGS:
+            C.MODEL_CONFIGS.pop(name, None)
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    print(f"phase 18 (head dims 88 and 104, ViT-g-14 and ViT-bigG-14) took "
+          f"{time.perf_counter() - t_phase:.0f} s")
+    return {"kernels": rows, "calls": calls, "rates": rates}
+
+
+def head_dim_rows(head_dims: dict, wide: dict) -> list:
+    """Phase 17's and 18's rows of the kernel line: each kernel at head
+    dims 80 and 128 (``head_dims``, phase 17) and 88 and 104 (``wide``,
+    phase 18) on each route, with its launches on the paths of that head
+    dim and route (B1: the ViT-H-14, ViT-g-14 and ViT-bigG-14 predicts,
+    3-pass counting the staged predict's 3-pass blocks, and at 128 the
+    fused bf16 predict; the evaluation CLIs, engines, 17d's steps, int8
+    and bank paths; B3 bf16 at 80 and 88: the spatial features; B2: 17d's
+    steps and training CLI; none for B4 and the fp32 V-V, which no path
+    of these phases runs), ``launches`` the first path's."""
+    hc17, st17 = {**head_dims["calls"], **wide["calls"]}, head_dims["steps"]
     h14 = "ViT-H-14 stage-2 step"
     step_paths = {
         (80, "bf16"): [f"{h14} bf16, remat {r}" for r in REMAT_NAMES.values()]
@@ -8924,7 +9272,19 @@ def head_dim_rows(head_dims: dict) -> list:
         ("attention_packed_vv", 80, "bf16"): (
             "ViT-H-14 stage-1 spatial features bf16",),
         ("attention_packed", 128, "bf16"): (
-            "fused predict bf16, ViT-L in 8 heads of 128",)}
+            "fused predict bf16, ViT-L in 8 heads of 128",),
+        ("attention_packed", 88, "bf16"): (
+            "ViT-g-14 predict bf16", "ViT-g-14 evaluation CLI bf16"),
+        ("attention_packed", 88, "6-pass"): ("ViT-g-14 predict fp32",),
+        ("attention_packed", 88, "3-pass"): ("ViT-g-14 predict fp32_high",),
+        ("attention_packed_vv", 88, "bf16"): (
+            "ViT-g-14 stage-1 spatial features bf16",),
+        ("attention_packed", 104, "bf16"): (
+            "ViT-bigG-14 predict bf16",
+            "ViT-bigG-14 serving engine, per batch"),
+        ("attention_packed", 104, "6-pass"): ("ViT-bigG-14 predict fp32",),
+        ("attention_packed", 104, "3-pass"): (
+            "ViT-bigG-14 predict fp32_high",)}
     b1_steps = {(80, "bf16"): [
         "ViT-H-14 evaluation CLI on the trained checkpoints",
         "ViT-H-14 serving engine, per batch", "ViT-H-14 int8 predict",
@@ -8937,7 +9297,8 @@ def head_dim_rows(head_dims: dict) -> list:
                   "attention_packed_bwd":
                       "aaclip_tpu/ops/flash_attention.py:302"}
     hd_rows = []
-    for (name, hd, route), t in head_dims["kernels"].items():
+    for (name, hd, route), t in {**head_dims["kernels"],
+                                 **wide["kernels"]}.items():
         if name == "attention_packed_bwd":
             paths = {p: st17[p][1] for p in step_paths.get((hd, route), ())}
         else:
@@ -8963,6 +9324,8 @@ def head_dim_rows(head_dims: dict) -> list:
             "bound_ms": t[3],
             "bound_by": t[4],
             "library_ms": t[2],
+            "library": (f"SDPA ({t[7]})" if len(t) > 7
+                        else "SDPA backward"),
         })
     return hd_rows
 
@@ -9181,6 +9544,9 @@ def main() -> int:
     # -- 17. the forward at head dims 80 and 128, ViT-H-14
     print(f"[{time.perf_counter() - t0:.0f} s] head dims 80 and 128")
     head_dims = phase_head_dims(card)
+    # -- 18. the forward at head dims 88 and 104, ViT-g-14 and ViT-bigG-14
+    print(f"[{time.perf_counter() - t0:.0f} s] head dims 88 and 104")
+    wide = phase_wide_head_dims(card)
 
     print(f"[{time.perf_counter() - t0:.0f} s] done: the whole script took "
           f"{time.perf_counter() - t_start:.0f} s")
@@ -9272,7 +9638,7 @@ def main() -> int:
          hc["split2"]["fp32_high predict, bf16_until 6"], hc["split2"], 0.0,
          fp32_times["split2"]),
     ]
-    hd_rows = head_dim_rows(head_dims)
+    hd_rows = head_dim_rows(head_dims, wide)
     print(json.dumps({"kernels": [{
         "name": "attention_packed",
         "route": "cuda",

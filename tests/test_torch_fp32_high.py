@@ -524,9 +524,9 @@ def test_fp32_high_entry_points_match_the_c_signatures(source, entry,
                                                        loader, n_params):
     """``_kernels_3pass`` declares one ctypes argument per parameter of
     each 3-pass C entry point, and each entry takes head dim 16 in fp32 on
-    its mma.sync kernels; ``KERNEL_HEAD_DIMS``' others, 64 (and 80 and
-    128 in the forward), have an entry of their own (``<entry>_wgmma``,
-    TMA + wgmma on the split planes)."""
+    its mma.sync kernels; ``KERNEL_HEAD_DIMS``' others, 64 (and 80, 88,
+    104 and 128 in the forward), have an entry of their own
+    (``<entry>_wgmma``, TMA + wgmma on the split planes)."""
     import inspect
     import re
 
@@ -539,7 +539,7 @@ def test_fp32_high_entry_points_match_the_c_signatures(source, entry,
     argtypes = re.search(rf"{loader}\.argtypes = \[([^\]]*)\]",
                          code).group(1)
     assert len(argtypes.split(",")) == len(sig.split(",")) == n_params
-    assert A.KERNEL_HEAD_DIMS == (16, 64, 80, 128)
+    assert A.KERNEL_HEAD_DIMS == (16, 64, 80, 88, 104, 128)
     assert "<16><<<" in src and "<64><<<" not in src
     assert f'extern "C" int {entry}_wgmma(' in src
 
