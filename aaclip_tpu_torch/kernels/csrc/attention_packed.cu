@@ -400,34 +400,6 @@ constexpr bool tma_head_dim(int hd) {
   return hd == 64 || hd == 80 || hd == 88 || hd == 104 || hd == 128;
 }
 
-// A head of HD columns as 64-column chunks, each a TMA box of its own at
-// column 64 c of the head and one 128-byte-swizzled tile (the one layout
-// of hopper_common.cuh): one chunk at 64, two at 80, 88, 104 (64 + 16, 24,
-// 40 columns used) and 128. Q K^T runs ceil(HD / 16) k-steps, k-step ks
-// 32 * (ks % 4) bytes into chunk ks / 4; P V runs one product per chunk,
-// m64n64 on a full chunk and m64nN on the first N columns of the last
-// chunk below 128. kHeadMap: Q K^T's last k-step overruns the head (88,
-// 104: 8 columns), so the operands come through per-head maps
-// (make_head_map), whose columns end at the head and read as zeros past
-// it; at 64, 80 and 128 the k-steps end at the head and the operands come
-// through section-wide maps (make_tile_map), whose columns past the head
-// in a last chunk are the next head's and never enter a product.
-template <int HD>
-struct Head {
-  static_assert(HD == 64 || HD == 80 || HD == 88 || HD == 104 || HD == 128,
-                "the TMA + wgmma kernels take head dims 64, 80, 88, 104 and "
-                "128");
-  static constexpr int kChunks = (HD + kTileCols - 1) / kTileCols;
-  static constexpr int kKSteps = (HD + 15) / 16;  // k-steps of Q K^T
-  static constexpr int kORegs = HD / 2;    // O's accumulators per thread
-  static constexpr bool kHeadMap = HD % 16 != 0;
-  // the columns of chunk c: 64, or 16, 24, 40 for the last one at head
-  // dims 80, 88, 104
-  __host__ __device__ static constexpr int cols(int c) {
-    return c + 1 < kChunks ? kTileCols : HD - kTileCols * c;
-  }
-};
-
 // Tensor-map coordinates of head h of image b: h * hcol, the head's
 // column in a section-wide map (hd packed, 0 on [B, H, S, hd]) or its
 // coordinate in a per-head map (1 packed, 0 on [B, H, S, hd], whose map
@@ -437,18 +409,6 @@ struct Head {
 struct MapCoords {
   int hcol, bz, hz, pz;
 };
-
-// Chunk c of head dim HD's operand at row `row` and depth `depth` into
-// dst, its bytes completing on `bar`; `col` is h * hcol (MapCoords).
-template <int HD>
-__device__ __forceinline__ void tma_chunk(void* dst, const CUtensorMap* map,
-                                          uint64_t* bar, int col, int c,
-                                          int row, int depth) {
-  if constexpr (Head<HD>::kHeadMap)
-    tma_load_4d(dst, map, bar, c * kTileCols, col, row, depth);
-  else
-    tma_load_3d(dst, map, bar, col + c * kTileCols, row, depth);
-}
 
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -675,9 +635,9 @@ attn_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     // scores are kept raw (unscaled); c takes them to the exp2 domain, so
     // each probability is one FFMA and one ex2: exp(s*scale - m*scale)
     const float c = scale * kLog2e;
-    float o[H::kORegs];
+    float o[H::kRegs];
 #pragma unroll
-    for (int i = 0; i < H::kORegs; ++i) o[i] = 0.f;
+    for (int i = 0; i < H::kRegs; ++i) o[i] = 0.f;
     float m[2] = {-INFINITY, -INFINITY};  // running raw max of rows g, g+8
     float l[2] = {0.f, 0.f};              // this thread's share of the sums
     float s[kKeys / 2];              // S = Q K^T: [64 rows x kKeys keys]
@@ -772,13 +732,6 @@ int by_head_dim(int hd, F&& fn) {
     case 128: return fn(std::integral_constant<int, 128>{});
   }
   return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// MapCoords::hcol of a packed launch at head dim HD: the head's column
-// in a section-wide map, its coordinate in a per-head one.
-template <int HD>
-constexpr int head_col() {
-  return Head<HD>::kHeadMap ? 1 : HD;
 }
 
 // The tensor maps of q, k and v at head dim HD: per-head maps in boxes of
@@ -1067,9 +1020,9 @@ __device__ __forceinline__ void fwd_planes(const CUtensorMap& tq,
     const int g = (threadIdx.x & 31) >> 2;
     const int t = threadIdx.x & 3;
     const uint64_t dq = sw128_desc(sQ + wg * kWgRows * kRowBytes);
-    float o[H::kORegs], ot[32];  // running O; a chunk's P V of the tile
+    float o[H::kRegs], ot[32];  // running O; a chunk's P V of the tile
 #pragma unroll
-    for (int i = 0; i < H::kORegs; ++i) o[i] = 0.f;
+    for (int i = 0; i < H::kRegs; ++i) o[i] = 0.f;
     float m[2] = {-INFINITY, -INFINITY};  // running max of rows g, g + 8
     float l[2] = {0.f, 0.f};              // this thread's share of the sums
     uint32_t pf[kP][kKK][4];              // P's planes as A fragments

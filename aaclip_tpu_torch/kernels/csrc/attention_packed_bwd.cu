@@ -44,7 +44,8 @@
 // deterministic; this design takes neither.
 //
 // Routes. bf16 at a TMA head dim (tma_head_dim: 64, ViT-L and ViT-B; 80,
-// open_clip's ViT-H-14; 128) runs the TMA + wgmma pair
+// open_clip's ViT-H-14; 88, its ViT-g-14; 104, its ViT-bigG-14; 128) runs
+// the TMA + wgmma pair
 // attn_bwd_dq_wgmma<HD> / attn_bwd_dkdv_wgmma<HD> below. fp32 there, the
 // CLIs' default precision ("highest"), runs attn_bwd_dq_6pass<HD> /
 // attn_bwd_dkdv_6pass<HD>, the same pair with every product in the TPU's
@@ -106,29 +107,43 @@
 // valid_len get P = 0, and key tiles wholly past valid_len store zero
 // gradients without loading anything.
 //
-// Head dims 80 and 128. One tile row of the TMA + wgmma kernels is 64 bf16
-// columns, one 128-byte swizzle row (hopper_common.cuh), so a head is read
-// as 64-column chunks (Head<HD>), each a TMA box of its own and a tile of
-// the same layout, as the forward reads it: one chunk at 64, two at 80 and
-// 128. At 80 the second box covers columns 64-127 of the head, of which the
-// products read 16 (the rest is the next head's, or zeros past the map's
-// edge, and never enters a product). S and dP run HD / 16 k-steps (five at
-// 80: four from the first chunk, one from the second); dQ, dK and dV one
-// product per chunk, m64n64 on a full chunk and m64n16 on the first 16
-// columns of the second chunk at 80, whose MN-major descriptor reads two of
-// each swizzled row's eight 16-byte chunks. So every route spends exactly
-// hd's own products at 80 and 128. The tile plans (BwdTiles; own rows per
-// block x rows per streamed tile x stages, threads, shared memory of
-// kernels A / B):
-//   bf16      hd 64, 80, 128: 128 x 64 x 3, 384 threads, 81 / 83 KB at
-//                        64, 161 / 163 KB at 80 and 128
+// Head dims 80, 88, 104 and 128. One tile row of the TMA + wgmma kernels
+// is 64 bf16 columns, one 128-byte swizzle row (hopper_common.cuh), so a
+// head is read as 64-column chunks (Head<HD>), each a TMA box of its own
+// and a tile of the same layout, as the forward reads it: one chunk at 64,
+// two at 80, 88, 104 and 128. At 80 the second box covers columns 64-127
+// of the head, of which the products read 16 (the rest is the next head's,
+// or zeros past the map's edge, and never enters a product). S and dP (S^T
+// and dP^T in kernel B) run ceil(HD / 16) k-steps (five at 80, six at 88,
+// seven at 104: four from the first chunk, the rest from the second); dQ,
+// dK and dV one product per chunk, m64n64 on a full chunk and m64nN on the
+// first N = HD - 64 columns of the second chunk below 128 (16, 24, 40),
+// whose MN-major descriptor reads N / 8 of each swizzled row's eight
+// 16-byte chunks. At 88 and 104 the head dim is no whole number of k-steps:
+// the last k-step of S, dP, S^T and dP^T reads 8 pad columns (88-95,
+// 104-111) of both its operands (Q, K, dO, V), which must add exact zeros,
+// and zeros in one operand alone would not do, as 0 * NaN is NaN. So at 88
+// and 104 every operand comes through a per-head tensor map
+// (hopper_common.cuh::make_head_map, one head a map row) whose columns past
+// the head arrive as zeros, never as the next head's, as the forward reads
+// them; at 64, 80 and 128 the section-wide maps serve (per-head maps at
+// 80 serialized the forward's 6-pass wgmma, C7511). Each gradient's
+// stores are as compile-time per chunk as its products and write exactly
+// the head's HD columns (a write of a pad column would land in the next
+// head's gradient). So every route spends exactly hd's own products into the
+// head, and at 88 and 104 one padded k-step more in each product over it
+// (6 / 5.5 and 7 / 6.5 of S's and dP's work, which the bound does not
+// count). The tile plans (BwdTiles; own rows per block x rows per streamed
+// tile x stages, threads, shared memory of kernels A / B):
+//   bf16      hd 64-128: 128 x 64 x 3, 384 threads, 81 / 83 KB at 64,
+//                        161 / 163 KB at 80, 88, 104 and 128
 //   6-pass    hd 64:     128 x 64 x 2, 384 threads, 193 / 194 KB
-//             hd 80/128:  64 x 32 x 2, 160 threads, 193 / 194 KB
+//             hd 80-128:  64 x 32 x 2, 160 threads, 193 / 194 KB
 //   3-pass    hd 64:     128 x 64 x 3, 384 threads, 161 / 163 KB
-//             hd 80/128:  64 x 32 x 2, 160 threads, 129 / 130 KB
+//             hd 80-128:  64 x 32 x 2, 160 threads, 129 / 130 KB
 // The 384 threads are two consumer warpgroups and a producer warpgroup
 // that hands its registers over (setmaxnreg 40 / 232). The bf16 pair keeps
-// that plan at 80 and 128, dQ, dK and dV at 40 or 64 registers each, and
+// that plan above 64, dQ, dK and dV at 40, 44, 52 or 64 registers each, and
 // kernel A's overlapped walks (a 288-thread plan without the hand-off, two
 // consumers and one producer warp, spilled in kernel B: registers go per
 // SM quarter, and 9 warps put 3 in one, as 12 do). The plane pairs hold kP
@@ -136,14 +151,16 @@
 // 2 x kP x 32 KB (192 KB on the 6-pass route) before any streamed tile,
 // so their blocks own 64 rows, one consumer warpgroup and one producer
 // warp (160 threads, which ptxas plans at up to 255 registers a thread:
-// kernel B's dK and dV alone are 128 at 128), and stream 32-row tiles
-// (m64n32 scores) in 2 stages. ptxas (CUDA 12.8, sm_90a), registers a
+// kernel B's dK and dV alone are 128 at 128, 104 at 104), and stream
+// 32-row tiles (m64n32 scores) in 2 stages; at 88 and 104 the second
+// chunk's product of a tile goes into an accumulator of its own (12 or 20
+// registers), as in the forward. ptxas (CUDA 12.8, sm_90a), registers a
 // thread, as chip_smoke.py's phase 2 prints them: bf16 168 in every
 // instantiation; 6-pass dq / dkdv 144 / 216 at 80 and 190 / 244 at 128,
 // 3-pass 128 / 195 and 156 / 234; hd 64 168 each; no spill and no stack
 // frame anywhere. C75xx notes: C7519 (warpgroup.arrive injected) in
 // attn_bwd_dq_wgmma at 64, 80 and 128, and C7512 (wgmma serialized for
-// want of registers) at 128.
+// want of registers) at 128. 88 and 104 as phase 2 prints them (PERF.md).
 
 #include <math.h>
 
@@ -584,35 +601,15 @@ attn_bwd_dkdv_f32(const float* __restrict__ qkv,
   }
 }
 
-// ------------------------------------------ TMA + wgmma: hd 64, 80, 128
+// ------------------------------ TMA + wgmma: hd 64, 80, 88, 104, 128
 
 constexpr int kWgRows = 64;  // rows per consumer warpgroup
 
 // The head dims of the TMA + wgmma pairs (every route: bf16, 6-pass,
 // 3-pass); the retained kernels take head dim 16.
 constexpr bool tma_head_dim(int hd) {
-  return hd == 64 || hd == 80 || hd == 128;
+  return hd == 64 || hd == 80 || hd == 88 || hd == 104 || hd == 128;
 }
-
-// A head of HD columns as 64-column chunks, each a TMA box of its own at
-// column 64 c of the head and one 128-byte-swizzled tile, as the forward
-// reads it (attention_packed.cu, Head): one chunk at 64, two at 80 (64 +
-// 16 columns used) and 128. A product over the head (S, dP) runs HD / 16
-// k-steps, k-step ks 32 * (ks % 4) bytes into chunk ks / 4; a product into
-// the head (dQ, dK, dV) runs one product per chunk, m64n64 on a full chunk
-// and m64n16 on the first 16 columns of the second chunk at 80.
-template <int HD>
-struct Head {
-  static_assert(HD == 64 || HD == 80 || HD == 128,
-                "the TMA + wgmma pairs take head dims 64, 80 and 128");
-  static constexpr int kChunks = (HD + kTileCols - 1) / kTileCols;
-  static constexpr int kKSteps = HD / 16;  // k-steps of a product over it
-  static constexpr int kRegs = HD / 2;     // a gradient's accumulators
-  // the columns of chunk c: 64, or 16 for the last one at head dim 80
-  __host__ __device__ static constexpr int cols(int c) {
-    return c + 1 < kChunks ? kTileCols : HD - kTileCols * c;
-  }
-};
 
 // The tile plan of a pair on P bf16 planes (1: the bf16 route; 3: 6-pass;
 // 2: 3-pass) at head dim HD: consumer warpgroups (each 64 of the block's
@@ -624,6 +621,7 @@ struct Head {
 template <int P, int HD>
 struct BwdTiles {
   static constexpr int kP = P;
+  static constexpr int kHD = HD;
   static constexpr bool kWide = HD != 64;
   static constexpr int kC = Head<HD>::kChunks;
   static constexpr int kWgs = P == 1 || !kWide ? 2 : 1;
@@ -658,7 +656,8 @@ __device__ __forceinline__ void consumer_regs() {
 }
 
 // Every plane and chunk of the block's own T::kRows rows of one operand,
-// in boxes of T::kWalk rows (plane p at depth `depth` + p * pz).
+// in boxes of T::kWalk rows (plane p at depth `depth` + p * pz; `col` is
+// h * head_col<HD>(), hopper_common.cuh).
 template <class T>
 __device__ __forceinline__ void load_own(uint8_t* dst, const CUtensorMap* map,
                                          uint64_t* bar, int col, int row0,
@@ -666,8 +665,9 @@ __device__ __forceinline__ void load_own(uint8_t* dst, const CUtensorMap* map,
   for (int p = 0; p < T::kP; ++p)
     for (int c = 0; c < T::kC; ++c)
       for (int r = 0; r < T::kRows; r += T::kWalk)
-        tma_load_3d(dst + p * T::kOwnPlane + c * T::kOwnChunk + r * kRowBytes,
-                    map, bar, col + c * kTileCols, row0 + r, depth + p * pz);
+        tma_chunk<T::kHD>(
+            dst + p * T::kOwnPlane + c * T::kOwnChunk + r * kRowBytes, map,
+            bar, col, c, row0 + r, depth + p * pz);
 }
 
 // One stage: every plane and chunk of a streamed T::kWalk-row tile of two
@@ -679,10 +679,10 @@ __device__ __forceinline__ void load_walk(uint8_t* dst, const CUtensorMap* a,
                                           int pz) {
   for (int p = 0; p < T::kP; ++p)
     for (int c = 0; c < T::kC; ++c) {
-      tma_load_3d(dst + p * T::kWalkPlane + c * T::kBox, a, bar,
-                  col + c * kTileCols, row0, depth + p * pz);
-      tma_load_3d(dst + (T::kP + p) * T::kWalkPlane + c * T::kBox, b, bar,
-                  col + c * kTileCols, row0, depth + p * pz);
+      tma_chunk<T::kHD>(dst + p * T::kWalkPlane + c * T::kBox, a, bar, col, c,
+                        row0, depth + p * pz);
+      tma_chunk<T::kHD>(dst + (T::kP + p) * T::kWalkPlane + c * T::kBox, b,
+                        bar, col, c, row0, depth + p * pz);
     }
 }
 
@@ -861,15 +861,15 @@ attn_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
     producer_regs<T>();
     if (threadIdx.x == T::kWgs * 128) {
       mbar_arrive_expect_tx(own_full, T::kOwn);
-      load_own<T>(sQ, &tq, own_full, col, q0, b, 0);
-      load_own<T>(sdO, &tdo, own_full, col, q0, b, 0);
+      load_own<T>(sQ, &tq, own_full, h * head_col<HD>(), q0, b, 0);
+      load_own<T>(sdO, &tdo, own_full, h * head_col<HD>(), q0, b, 0);
       for (int it = 0; it < 2 * n; ++it) {
         const int st = it % T::kStages;
         if (it >= T::kStages)
           mbar_wait(&empty[st], (it / T::kStages - 1) & 1);
         mbar_arrive_expect_tx(&full[st], T::kStageBytes);
-        load_walk<T>(sKV + st * T::kStageBytes, &tk, &tv, &full[st], col,
-                     (it % n) * kN, b, 0);
+        load_walk<T>(sKV + st * T::kStageBytes, &tk, &tv, &full[st],
+                     h * head_col<HD>(), (it % n) * kN, b, 0);
       }
     }
   } else {
@@ -1025,8 +1025,8 @@ attn_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
     if (lane < 32 && active) {
       if (lane == 0) {
         mbar_arrive_expect_tx(own_full, T::kOwn);
-        load_own<T>(sK, &tk, own_full, col, kv0, b, 0);
-        load_own<T>(sV, &tv, own_full, col, kv0, b, 0);
+        load_own<T>(sK, &tk, own_full, h * head_col<HD>(), kv0, b, 0);
+        load_own<T>(sV, &tv, own_full, h * head_col<HD>(), kv0, b, 0);
       }
       for (int it = 0; it < nq; ++it) {
         const int st = it % T::kStages;
@@ -1040,8 +1040,8 @@ attn_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
         }
         if (lane == 0) {
           mbar_arrive_expect_tx(&full[st], T::kStageBytes);
-          load_walk<T>(sQdO + st * T::kStageBytes, &tq, &tdo, &full[st], col,
-                       it * kN, b, 0);
+          load_walk<T>(sQdO + st * T::kStageBytes, &tq, &tdo, &full[st],
+                       h * head_col<HD>(), it * kN, b, 0);
         } else {
           mbar_arrive(&full[st]);
         }
@@ -1118,8 +1118,10 @@ attn_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
 
 // The tensor maps of q, k, v and dO over T::kP planes (plane p of image b
 // at depth b + p * batch; planes batch * seq * ld and batch * seq * do_ld
-// elements apart), in boxes of T::kWalk rows; every row of each covers the
-// heads x HD columns of its section.
+// elements apart), in boxes of T::kWalk rows: at 88 and 104
+// (Head<HD>::kHeadMap) per-head maps, one head of HD columns a map row, so
+// a chunk's columns past the head read as zeros; else every row of each
+// covers the heads x HD columns of its section.
 template <class T, int HD>
 int bwd_maps(CUtensorMap (&maps)[4], const void* qkv, const void* dout,
              int batch, int seq, int heads, int64_t ld, int q_off, int k_off,
@@ -1131,8 +1133,11 @@ int bwd_maps(CUtensorMap (&maps)[4], const void* qkv, const void* dout,
   for (int i = 0; i < 4; ++i) {
     const int64_t row = i < 3 ? ld : do_ld;
     const cudaError_t err =
-        make_tile_map(&maps[i], bases[i], cols, seq, T::kP * batch, 2 * row,
-                      2 * seq * row, T::kWalk);
+        Head<HD>::kHeadMap
+            ? make_head_map(&maps[i], bases[i], HD, heads, seq, T::kP * batch,
+                            2 * HD, 2 * row, 2 * seq * row, T::kWalk)
+            : make_tile_map(&maps[i], bases[i], cols, seq, T::kP * batch,
+                            2 * row, 2 * seq * row, T::kWalk);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
@@ -1145,6 +1150,8 @@ int by_head_dim(int hd, F&& fn) {
   switch (hd) {
     case 64: return fn(std::integral_constant<int, 64>{});
     case 80: return fn(std::integral_constant<int, 80>{});
+    case 88: return fn(std::integral_constant<int, 88>{});
+    case 104: return fn(std::integral_constant<int, 104>{});
     case 128: return fn(std::integral_constant<int, 128>{});
   }
   return static_cast<int>(cudaErrorInvalidValue);
@@ -1182,7 +1189,7 @@ int launch_wgmma(int batch, int seq, int heads, cudaStream_t st,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---------------------------------- fp32 at hd 64, 80, 128: 6-pass, 3-pass
+// ------------------------ fp32 at hd 64, 80, 88, 104, 128: 6-pass, 3-pass
 
 // The plane pairs: fp32 on the bf16 planes of qkv and dO (attention_packed.
 // cu's split kernels), attn_bwd_{dq,dkdv}_6pass<HD> (kP 3, precision
@@ -1277,9 +1284,11 @@ __device__ __forceinline__ void planes_into_head(
   }
   add_acc<kTileCols>(acc_head, acc);
   if constexpr (Head<HD>::kChunks == 2) {
-    // a full second chunk reuses acc; the 16 columns at head dim 80 get an
-    // accumulator of their own: written into acc's first registers, they
-    // made ptxas serialize the 3-pass kernel A's products (C7511)
+    // a full second chunk reuses acc; the 16, 24 or 40 columns at head
+    // dims 80, 88, 104 get an accumulator of their own: written into acc's
+    // first registers, the 16 at 80 made ptxas serialize the 3-pass kernel
+    // A's products (C7511), and in the forward a shared one ran the 6-pass
+    // kernel 1.30x slower at 104
     constexpr int kN1 = Head<HD>::cols(1);
     if constexpr (kN1 == kTileCols) {
       wgmma_fence();
@@ -1308,7 +1317,7 @@ __device__ __forceinline__ void planes_into_head(
 // Kernel A on kP planes: walk 1 sums dsum = rowsum(dP * P); walk 2
 // recomputes S and dP and accumulates dQ += dS K. Each consumer waits for
 // its own products, the other consumer's running meanwhile (at head dim
-// 64; at 80 and 128 a block has one consumer): issuing tile it + 1's S and
+// 64; above 64 a block has one consumer): issuing tile it + 1's S and
 // dP before tile it's rowsum, as the bf16 kernel does, needs a second set
 // of accumulators, and ptxas then spilled and serialized the 6-pass
 // kernel's wgmma at head dim 64 (C7512), which cost more time than the
@@ -1353,15 +1362,15 @@ __device__ __forceinline__ void bwd_dq_planes(
     producer_regs<T>();
     if (threadIdx.x == T::kWgs * 128) {
       mbar_arrive_expect_tx(own_full, T::kOwn);
-      load_own<T>(sQ, &tq, own_full, col, q0, b, pz);
-      load_own<T>(sdO, &tdo, own_full, col, q0, b, pz);
+      load_own<T>(sQ, &tq, own_full, h * head_col<HD>(), q0, b, pz);
+      load_own<T>(sdO, &tdo, own_full, h * head_col<HD>(), q0, b, pz);
       for (int it = 0; it < 2 * n; ++it) {
         const int st = it % T::kStages;
         if (it >= T::kStages)
           mbar_wait(&empty[st], (it / T::kStages - 1) & 1);
         mbar_arrive_expect_tx(&full[st], T::kStageBytes);
-        load_walk<T>(sKV + st * T::kStageBytes, &tk, &tv, &full[st], col,
-                     (it % n) * kN, b, pz);
+        load_walk<T>(sKV + st * T::kStageBytes, &tk, &tv, &full[st],
+                     h * head_col<HD>(), (it % n) * kN, b, pz);
       }
     }
   } else {
@@ -1495,8 +1504,8 @@ __device__ __forceinline__ void bwd_dkdv_planes(
     if (lane < 32 && active) {
       if (lane == 0) {
         mbar_arrive_expect_tx(own_full, T::kOwn);
-        load_own<T>(sK, &tk, own_full, col, kv0, b, pz);
-        load_own<T>(sV, &tv, own_full, col, kv0, b, pz);
+        load_own<T>(sK, &tk, own_full, h * head_col<HD>(), kv0, b, pz);
+        load_own<T>(sV, &tv, own_full, h * head_col<HD>(), kv0, b, pz);
       }
       for (int it = 0; it < nq; ++it) {
         const int st = it % T::kStages;
@@ -1510,8 +1519,8 @@ __device__ __forceinline__ void bwd_dkdv_planes(
         }
         if (lane == 0) {
           mbar_arrive_expect_tx(&full[st], T::kStageBytes);
-          load_walk<T>(sQdO + st * T::kStageBytes, &tq, &tdo, &full[st], col,
-                       it * kN, b, pz);
+          load_walk<T>(sQdO + st * T::kStageBytes, &tq, &tdo, &full[st],
+                       h * head_col<HD>(), it * kN, b, pz);
         } else {
           mbar_arrive(&full[st]);
         }
@@ -2042,9 +2051,10 @@ int launch_planes_at(int head_dim, int batch, int seq, int heads,
 // qkv and d_qkv: [batch, seq, ld] elements, the q/k/v sections of head h at
 // column {q,k,v}_off + h * head_dim; d_out: [batch, seq, do_ld]; lse and
 // the scratch dsum: [batch, heads, seq] fp32. bf16 at a TMA head dim (64,
-// 80, 128) takes the wgmma pair attn_bwd_{dq,dkdv}_wgmma<HD>, whose tensor
-// maps need qkv, each section's start, d_out and the row strides ld * 2 and
-// do_ld * 2 bytes to be multiples of kTmaAlign; fp32 there has its own
+// 80, 88, 104, 128) takes the wgmma pair attn_bwd_{dq,dkdv}_wgmma<HD>, whose
+// tensor maps need qkv, each section's start, d_out, the row strides ld * 2
+// and do_ld * 2 bytes and (at 88 and 104) the head's head_dim * 2 bytes to
+// be multiples of kTmaAlign; fp32 there has its own
 // entries (aaclip_attention_packed_bwd_6pass, _3pass_wgmma). Returns the
 // CUDA error of the launches (0 on success); cudaErrorInvalidValue for a
 // pair with no kernel here or an operand TMA cannot take.

@@ -143,6 +143,60 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// ---------------------------------------------------------------- heads
+
+// The attention kernels' head of HD columns (attention_packed.cu and
+// attention_packed_bwd.cu, every TMA + wgmma route) as 64-column chunks,
+// each a TMA box of its own at column 64 c of the head and one
+// 128-byte-swizzled tile: one chunk at 64, two at 80, 88, 104 (64 + 16,
+// 24, 40 columns used) and 128. A product over the head (Q K^T; the
+// backward's S, dP and their transposes) runs ceil(HD / 16) k-steps,
+// k-step ks 32 * (ks % 4) bytes into chunk ks / 4; a product into the
+// head (P V; dQ, dK, dV) runs one product per chunk, m64n64 on a full
+// chunk and m64nN on the first N columns of the last chunk below 128.
+// kHeadMap: at 88 and 104 the last k-step overruns the head by 8 columns
+// in both operands, so every operand comes through a per-head map
+// (make_head_map), whose columns end at the head and read as zeros past
+// it; at 64, 80 and 128 the k-steps end at the head and the operands come
+// through section-wide maps (make_tile_map), whose columns past the head
+// in a last chunk are the next head's and never enter a product.
+template <int HD>
+struct Head {
+  static_assert(HD == 64 || HD == 80 || HD == 88 || HD == 104 || HD == 128,
+                "the TMA + wgmma kernels take head dims 64, 80, 88, 104 and "
+                "128");
+  static constexpr int kChunks = (HD + kTileCols - 1) / kTileCols;
+  static constexpr int kKSteps = (HD + 15) / 16;  // of a product over it
+  static constexpr int kRegs = HD / 2;  // a chunked accumulator's registers
+  static constexpr bool kHeadMap = HD % 16 != 0;
+  // the columns of chunk c: 64, or 16, 24, 40 for the last one at head
+  // dims 80, 88, 104
+  __host__ __device__ static constexpr int cols(int c) {
+    return c + 1 < kChunks ? kTileCols : HD - kTileCols * c;
+  }
+};
+
+// A head's column step in its operands' tensor maps: head h's first
+// column in a section-wide map is h * HD, its coordinate in a per-head
+// one h.
+template <int HD>
+__host__ __device__ constexpr int head_col() {
+  return Head<HD>::kHeadMap ? 1 : HD;
+}
+
+// Chunk c of head dim HD's operand at row `row` and depth `depth` into
+// dst, its bytes completing on `bar`; `col` is h * head_col<HD>() (or 0
+// where the map holds one head a row at depth h).
+template <int HD>
+__device__ __forceinline__ void tma_chunk(void* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int col, int c,
+                                          int row, int depth) {
+  if constexpr (Head<HD>::kHeadMap)
+    tma_load_4d(dst, map, bar, c * kTileCols, col, row, depth);
+  else
+    tma_load_3d(dst, map, bar, col + c * kTileCols, row, depth);
+}
+
 // ---------------------------------------------------------------- wgmma
 
 // Descriptor of a 128-byte-swizzled tile at `tile` (1024-byte aligned, or

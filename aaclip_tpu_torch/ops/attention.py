@@ -20,9 +20,8 @@ that layout's strides.
 The wrappers run the plain versions only for tensors on the CPU (the
 tests). On a CUDA tensor they launch the kernel or raise. Which kernel
 runs is ``kernel_route`` over the route table ``TMA_ROUTES``: at head dims
-64, 80, 88, 104 and 128 (``TMA_HEAD_DIMS``; the backward's are 64, 80 and
-128, and at 88 and 104 it raises naming ROADMAP B11) bf16
-takes the TMA + wgmma kernels, and fp32 the
+64, 80, 88, 104 and 128 (``TMA_HEAD_DIMS``, the forward's and the
+backward's alike) bf16 takes the TMA + wgmma kernels, and fp32 the
 6-pass kernels on the same machinery (tiles fed by tensor maps, whose base
 addresses, head and row strides must be multiples of ``TMA_ALIGN`` bytes:
 the wrappers refuse what a map cannot take); head dim 16 keeps the first
@@ -74,10 +73,10 @@ TMA_HEAD_DIMS = (64, 80, 88, 104, 128)
 TMA_ROUTES = frozenset((dtype, hd) for dtype in (torch.bfloat16,
                                                  torch.float32)
                        for hd in TMA_HEAD_DIMS)
-# the backward's head dims: the retained kernels' 16 and the TMA + wgmma
-# pairs' 64, 80 and 128 (tma_head_dim of attention_packed_bwd.cu); at the
-# forward's others, 88 and 104, it raises on the card (ROADMAP B11)
-BWD_HEAD_DIMS = (16, 64, 80, 128)
+# the backward's head dims, the forward's: the retained kernels' 16 and the
+# TMA + wgmma pairs' 64, 80, 88, 104 and 128 (tma_head_dim of
+# attention_packed_bwd.cu)
+BWD_HEAD_DIMS = KERNEL_HEAD_DIMS
 TMA_ALIGN = 16  # bytes: a tensor map's base address and strides (kTmaAlign)
 
 
@@ -679,10 +678,8 @@ def attention_packed_bwd(qkv: torch.Tensor, d_out: torch.Tensor,
     cotangent ``d_out`` [B, S, D] and the forward's ``lse`` [B, H, S].
 
     CPU tensors take ``attention_packed_bwd_plain`` (``lse`` unused). On
-    CUDA tensors at a head dim of ``KERNEL_HEAD_DIMS`` outside
-    ``BWD_HEAD_DIMS`` (88, 104) it raises ``NotImplementedError``: the
-    backward there is ROADMAP B11's next item. At ``BWD_HEAD_DIMS`` the
-    backward kernel of ``kernel_route`` (the 3-pass mode, fp32 under
+    CUDA tensors with a head dim in ``BWD_HEAD_DIMS`` (``KERNEL_HEAD_DIMS``)
+    the backward kernel of ``kernel_route`` (the 3-pass mode, fp32 under
     "high", takes the 3-pass forward's ``lse``; the 6-pass route launches
     ``split3`` on qkv and on d_out first, the 3-pass route at
     ``TMA_HEAD_DIMS`` ``split2``) is launched on the current stream and
@@ -695,11 +692,6 @@ def attention_packed_bwd(qkv: torch.Tensor, d_out: torch.Tensor,
     (B, S, dm, hd, scale, (q_off, k_off, v_off)), route = _check_cuda(
         "attention_packed_bwd", qkv, num_heads, valid_len,
         precision=precision)
-    if hd not in BWD_HEAD_DIMS:
-        raise NotImplementedError(
-            f"attention_packed_bwd: head dim {hd} has no backward kernel yet "
-            f"(have {BWD_HEAD_DIMS}); the forward takes it, the backward at "
-            f"88 and 104 is ROADMAP B11")
     d_out = d_out.to(qkv.dtype).contiguous()
     if d_out.shape != (B, S, dm) or d_out.device != qkv.device:
         raise ValueError(f"attention_packed_bwd: d_out {tuple(d_out.shape)} "

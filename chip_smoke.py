@@ -244,8 +244,9 @@ Needs one CUDA card and nvcc. Phases, each of which fails the run:
     B=8) on the bf16, 6-pass and 3-pass routes, against their plain
     versions at phases 3-4's bars, ms per call beside 16 heads; (c) two
     ranks on the one card, gloo on CUDA tensors: the TP = 2 predict with
-    and without SP (bf16, B=8) against the single-process predict at
-    phase 4's bars and a TP = 2 stage-2 step (B=8) at phase 5's; (d) under
+    and without SP (bf16 and fp32, B=4) against the single-process predict
+    at phase 4's bars (fp32's) and a TP = 2 stage-2 step (B=4; fp32 with
+    and without SP) at phase 5's; (d) under
     ``python -m torch.distributed.run --nproc_per_node 1`` (one child
     running ``chip_smoke.py --parallel-clis``): ``test --data_parallel``
     on a 16-image class, its table and scores bit for bit the
@@ -307,9 +308,7 @@ Needs one CUDA card and nvcc. Phases, each of which fails the run:
     B1 launches a call (the blocks up to the last tap), maps/s; the
     spatial stage-1 features at batch 2 (phase 7's bars, 19 B3 launches);
     ``bench --model_name ViT-H-14`` in
-    the three precisions; the evaluation CLI from a seeded ViT-H-14
-    checkpoint on two synthetic classes, its table and maps/s printed and
-    its scores bit for bit a direct predict's; the fused bf16 predict at
+    the three precisions; the fused bf16 predict at
     ViT-L in 8 heads of 128 (the gate admits it) against the unfused one
     at phase 8e's bars; (c) B2 at head dims 80 and 128 on the three
     routes, at the step's batch 8 x S 1370 and at ragged S and valid_len,
@@ -322,7 +321,10 @@ Needs one CUDA card and nvcc. Phases, each of which fails the run:
     precision's route) against the step on the plain attention at phase
     5's bars, images/s each; the same bf16 step at ViT-L in 8 heads of
     128; the training CLI at ViT-H-14 (one text and one image epoch on two
-    synthetic classes, bf16) and the evaluation CLI on what it trained;
+    synthetic classes, bf16, from a seeded ViT-H-14 checkpoint) and the
+    evaluation CLI on what it trained (a synthetic evaluation set of the
+    same two classes), its table and maps/s printed and its scores bit for
+    bit a direct predict's with the trained adapters;
     the serving engine's answers against its own predict; the int8
     predict against the plain attention's (phase 13's bars) and, printed,
     the bf16 predict; the memory bank and banked predict (phase 12a's
@@ -340,10 +342,20 @@ Needs one CUDA card and nvcc. Phases, each of which fails the run:
     phase 9 holds the evaluation CLI's; the fp32 map's distance printed),
     fp32 and fp32_high at 8 (phases 4 and 11's bars), 24 B1 launches a
     call; ``bench --model_name`` at each in bf16; at ViT-g-14 the spatial
-    stage-1 features and the evaluation CLI from a seeded fp16 checkpoint,
-    its scores bit for bit a direct predict's; at ViT-bigG-14 the serving
-    engine's answers against its own predict; the backward at head dim 88
-    raising ``NotImplementedError`` naming ROADMAP B11.
+    stage-1 features; at ViT-bigG-14 the serving
+    engine's answers against its own predict; (c) 17c's checks of the
+    backward at 88 and 104 on the three routes, and NaN and Inf in the odd
+    heads' Q, K, V columns (NaN in their dO columns) leaving each even
+    head's dQ, dK and dV bit for bit (the last k-step of S, dP, S^T and
+    dP^T reads 8 columns past the head, and each gradient's last chunk
+    ends at the head dim); (d) both towers' stage-2 step at batch 8 in
+    bf16, fp32 and fp32_high (remat off; 24 B1 and 23 B2 launches a step
+    on the precision's route) against the step on the plain attention at
+    phase 5's bars, images/s and peak memory each; the DP step at world 1
+    at ViT-bigG-14; the training CLI at ViT-g-14 (one text and one image
+    epoch from a seeded fp16 checkpoint) and the evaluation CLI on what it
+    trained, its scores bit for bit a direct predict's with the trained
+    adapters.
 Phase 3 also holds the V-V mode of the forward kernel (B3) against its
 plain version, in bf16 and fp32, at [16, 1370, 1024], ragged S and head
 dim 16, and against the standard mode on the value section tripled.
@@ -879,13 +891,12 @@ def check_tail_isolation(dtype_name: str, precision=None,
     whose tail tile of one image read the next image's rows (on [B, H, S,
     hd], image 0's last head reading image 1's first) would carry the NaN
     into images 0 and 2 (a masked key's P = 0 times NaN is NaN). The
-    forward and its lse, the backward (at its head dims, BWD_HEAD_DIMS),
-    the V-V mode and B4 must give images 0 and 2 bit for bit the same in
-    both runs, and finite; ``precision="high"`` checks the 3-pass mode."""
+    forward and its lse, the backward, the V-V mode and B4 must give
+    images 0 and 2 bit for bit the same in both runs, and finite;
+    ``precision="high"`` checks the 3-pass mode."""
     import torch
 
-    from aaclip_tpu_torch.ops.attention import (BWD_HEAD_DIMS,
-                                                attention_kernel,
+    from aaclip_tpu_torch.ops.attention import (attention_kernel,
                                                 attention_packed,
                                                 attention_packed_bwd,
                                                 attention_packed_vv)
@@ -894,12 +905,11 @@ def check_tail_isolation(dtype_name: str, precision=None,
     gen = torch.Generator(device="cuda").manual_seed(4)
     B, S, H, hd, valid = case
     dm = H * hd
-    bwd = hd in BWD_HEAD_DIMS
     qkv = random_qkv(B, S, H, hd, dtype, gen)
     d_out = torch.randn(B, S, dm, generator=gen, device="cuda").to(dtype)
     runs = []
-    wrappers = (attention_packed, attention_packed_vv, attention_kernel) + (
-        (attention_packed_bwd,) if bwd else ())
+    wrappers = (attention_packed, attention_packed_vv, attention_kernel,
+                attention_packed_bwd)
     before = [w.launches_6pass for w in wrappers]
     for fill in (float("nan"), 0.0):
         x, g = qkv.clone(), d_out.clone()
@@ -911,9 +921,8 @@ def check_tail_isolation(dtype_name: str, precision=None,
         runs.append((out, lse,
                      attention_packed_vv(x[..., 2 * dm:].contiguous(), H,
                                          valid, **kw),
-                     attention_kernel(*heads, valid, **kw)) + (
-            (attention_packed_bwd(x, g, lse, H, valid, **kw),) if bwd
-            else ()))
+                     attention_kernel(*heads, valid, **kw),
+                     attention_packed_bwd(x, g, lse, H, valid, **kw)))
     torch.cuda.synchronize()
     for w, b in zip(wrappers, before):
         expect_routed(w, b, 2, dtype_name, hd, f"tail {w.__name__}",
@@ -5394,9 +5403,11 @@ SERVE_READINGS = {}
 # 12 predicts at batch 32, and of one fc product's parts at the predict's
 # rows (dyn_quant, _int_mm with the weight as the [in, out] column-major
 # view and as a contiguous [in, out] copy, the dequant, the bf16 GEMM).
-# (c) Export (deploy.py) from phase 9's checkpoint: bf16 at buckets 1, 2,
-# 4, 8 and int8 at 8 (the int8 export in a child process beside the bf16
-# one: both are host work); each reloaded artifact against the live
+# (c) Export (deploy.py) from phase 9's checkpoint: bf16 at buckets 1 and
+# 8 (the smallest and the engine's max_batch: each program more adds ~5 s
+# of torch.export.load to every load of the artifact, and 13 loads it four
+# times) and int8 at 8 (the int8 export in a child process beside the
+# bf16 one: both are host work); each reloaded artifact against the live
 # predictor at batch 8, and the bf16 artifact at each bucket's batch
 # against the live predictor built here as deploy.py builds it, bit for
 # bit, or, if an exported op's form moves the bits on the card, within
@@ -5411,7 +5422,7 @@ SERVE_READINGS = {}
 # and ``bench --mode serve --artifact`` closed loop, 8 clients of
 # ART_SERVE_REQUESTS requests, beside phase 12d's live reading. (e) The
 # evaluation CLI with --artifact (the int8 artifact: one program, whose
-# load takes seconds where the bf16 artifact's four take ~20) on one
+# load takes seconds where the bf16 artifact's take ~10-20) on one
 # synthetic MVTec class, its scores bit
 # for bit against a direct artifact predict of the same batches, and with
 # --precision int8 from phase 9's checkpoint on the same class: it runs
@@ -5421,7 +5432,7 @@ ART_SPAN_FRAC = 1e-4
 ART_GRAPH_FRAC = 0.05
 SERVE_ART_SPAN_FRAC = 1.2e-3
 INT8_BATCH, INT8_UNTIL = 32, 12
-ART_BUCKETS = (1, 2, 4, 8)
+ART_BUCKETS = (1, 8)
 # 13d's closed-loop serve bench on the bf16 artifact: requests per client
 # (8 clients; 12d's live bench serves SERVE_CLOSED_REQUESTS each)
 ART_SERVE_REQUESTS = 25
@@ -6011,9 +6022,10 @@ PAR_TP, PAR_KERNEL_BATCH = (1, 2, 4), 8
 # summation order alone), which 14c reads beside the ranks' distance
 # (~1e-4, PERF.md). Against each gradient's max |value| that floor
 # reads several 1e-4 on the deep layer adapters, whose gradients are
-# sums that largely cancel, so the max is not the bar.
-PAR_TP_PREDICT_BATCH, PAR_TP_STEP_BATCH = 8, TRAIN_BATCH
-PAR_TP_FP32_STEP_BATCH = 4
+# sums that largely cancel, so the max is not the bar. Batch 4 for the
+# predicts and the steps: gloo carries each of the ranks' all-reduces of
+# the [B, 1370, 1024] stream through the host, so 14c's time goes with B.
+PAR_TP_PREDICT_BATCH, PAR_TP_STEP_BATCH = 4, 4
 PAR_TP_FP32_SPAN_FRAC, PAR_TP_FP32_GRAD_NORM_REL = 1e-4, 1e-3
 # 14d: the CLIs' small synthetic set (one class) and batches
 PAR_CLI_NORMAL, PAR_CLI_ANOMALOUS, PAR_CLI_PX, PAR_CLI_BATCH = 8, 8, 256, 8
@@ -6359,8 +6371,6 @@ def _tp_rank(rank: int, port: int, payload: dict, out) -> None:
                 res[f"{name} predict sp={sp}"] = (
                     pix.cpu().numpy(), score.cpu().numpy(), counts())
                 del fn, pix, score
-            rows = PAR_TP_STEP_BATCH if name == "bf16" else \
-                PAR_TP_FP32_STEP_BATCH
             for sp in ((False,) if name == "bf16" else (False, True)):
                 ad = copy.deepcopy(adapter)
                 step = make_stage2_step(
@@ -6368,7 +6378,7 @@ def _tp_rank(rank: int, port: int, payload: dict, out) -> None:
                     t["table"], policy=policy, remat=False, mesh=mesh,
                     sequence_parallel=sp)
                 zero_counts()
-                loss = float(step(ad, *(x[:rows] for x in batch)))
+                loss = float(step(ad, *batch))
                 res[f"{name} step sp={sp}"] = (
                     loss, {n: p.grad.cpu().numpy() for n, p in
                            ad.named_parameters()}, counts())
@@ -6465,21 +6475,19 @@ def par_two_ranks(vit, adapter, cfg, acfg, anchors, M, card, gen) -> dict:
                    f"14c {key} off")
             expect(c == (cfg.vision.layers, 0, 0), f"14c {key} launches {c}")
             calls[f"TP=2{' SP' if sp else ''} predict {name}, per rank"] = c
-        rows = PAR_TP_STEP_BATCH if name == "bf16" else \
-            PAR_TP_FP32_STEP_BATCH
-        sub = tuple(x[:rows] for x in batch)
         loss_1, g_1, _, _, _ = train_step_once(
-            vit, cfg, acfg, adapter, sub, table, policy=policy, remat=False)
+            vit, cfg, acfg, adapter, batch, table, policy=policy, remat=False)
         if name == "fp32":
             # the floor: the same step in one process on the plain
             # attention, another summation order alone
             loss_p, g_p, _, _, _ = train_step_once(
-                vit, cfg, acfg, adapter, sub, table, policy=policy,
+                vit, cfg, acfg, adapter, batch, table, policy=policy,
                 remat=False, attn_fn=make_attn_fn_plain(
                     cfg.vision.heads, policy, differentiable=True))
             floor = grad_distance(g_p, g_1)
-            print(f"14c fp32 floor, the single-process step B={rows} on the "
-                  f"plain attention against the kernels: loss "
+            print(f"14c fp32 floor, the single-process step "
+                  f"B={PAR_TP_STEP_BATCH} on the plain attention against "
+                  f"the kernels: loss "
                   f"{abs(loss_p - loss_1) / abs(loss_1):.3e} relative, "
                   f"gradient |d| / |g| {floor[0]:.3e} ({floor[1]}), max "
                   f"|d| {floor[2]:.3e} of its max, on {card}")
@@ -6490,7 +6498,8 @@ def par_two_ranks(vit, adapter, cfg, acfg, anchors, M, card, gen) -> dict:
             grads = {n: torch.from_numpy(g) for n, g in grads.items()}
             rel = abs(loss - loss_1) / abs(loss_1)
             what = (f"14c TP=2{' + SP' if sp else ''} stage-2 step {name} "
-                    f"B={rows} remat off on two gloo ranks: loss {rel:.3e} "
+                    f"B={PAR_TP_STEP_BATCH} remat off on two gloo ranks: "
+                    f"loss {rel:.3e} "
                     f"relative")
             if name == "bf16":
                 cos = min(torch.nn.functional.cosine_similarity(
@@ -7341,7 +7350,7 @@ def phase_pipeline(vit, adapter, cfg, acfg, anchors, M, card, gen,
 # (start-up included: the towers, the anchors, the decode, the heatmaps).
 # (b) predict_folder --artifact on phase 13's ViT-L int8 artifact (bucket
 # 8, seeded adapters; one program, so each of its two loads here takes
-# ~8 s where the bf16 artifact's four programs take ~24): every row bit
+# ~8 s, less than the bf16 artifact's): every row bit
 # for bit the artifact's predict_class on the same batch, 24 B1 launches
 # per call. (c) zero_shot at ViT-L @ 518 on one image: its printed score
 # equals the direct predict's, formatted alike. (d) few_shot_soak at
@@ -7744,9 +7753,9 @@ HD_ROUTES = (("bf16", "bf16", None), ("6-pass", "fp32", None),
 HD_KERNELS = {"bf16": ("attn_fwd_wgmma", None),
               "6-pass": ("attn_fwd_6pass", "split3_kernel"),
               "3-pass": ("attn_fwd_3pass_wgmma", "split2_kernel")}
-# 17b: the evaluation CLI's two synthetic classes at ViT-H-14 (a class
-# must follow the first for the CLI to log its maps/s) and the bench's
-# timed calls
+# 17d and 18d: the evaluation CLI's two synthetic classes at ViT-H-14 and
+# ViT-g-14 (a class must follow the first for the CLI to log its maps/s);
+# 17b and 18b: the bench's timed calls
 VIT_H_EVAL_CLASSES, VIT_H_EVAL_NORMAL, VIT_H_EVAL_ANOMALOUS = 2, 8, 24
 VIT_H_EVAL_PX, VIT_H_BENCH_STEPS = 512, 5
 
@@ -7787,10 +7796,11 @@ def hd_before(wrapper) -> tuple:
             A.split3.launches, A.split2.launches)
 
 
-def hd_phase(hd: int) -> str:
-    """The phase that checks the kernels at head dim ``hd``: 17a at 80 and
-    128, 18a at 88 and 104."""
-    return "17a" if hd in (80, 128) else "18a"
+def hd_phase(hd: int, part: str = "a") -> str:
+    """The phase that checks the kernels at head dim ``hd``: 17a (the
+    forward; ``part`` "c", the backward: 17c) at 80 and 128, 18a (18c) at
+    88 and 104."""
+    return ("17" if hd in (80, 128) else "18") + part
 
 
 def hd_check(hd: int, H: int, route: str, dtype_name: str, precision,
@@ -8318,17 +8328,21 @@ def write_model_checkpoint(phase: str, name: str, tmp: str, card,
 
 
 def model_eval_cli(phase: str, name: str, cfg, acfg, card, tmp: str,
-                   ckpt_path: str) -> int:
-    """17b (ViT-H-14), 18b (ViT-g-14): ``python -m aaclip_tpu_torch.test
+                   ckpt_path: str, save: str) -> int:
+    """17d (ViT-H-14), 18d (ViT-g-14): ``python -m aaclip_tpu_torch.test
     --model_name <name>`` (bf16, batch 32) from the seeded checkpoint at
-    ``ckpt_path``, on VIT_H_EVAL_CLASSES synthetic MVTec classes: its table
-    and maps/s printed, one B1 launch per block up to the last tap and
-    batch, and its scores bit for bit a direct predict's on the towers
-    loaded as the CLI loads them. Returns the B1 launches."""
+    ``ckpt_path`` and the adapters ``model_train_cli`` trained into
+    ``save`` (its image snapshot and its text adapter), on
+    VIT_H_EVAL_CLASSES synthetic MVTec classes: its table printed, finite
+    and in [0, 100], its maps/s printed, one B1 launch per block up to the
+    last tap and batch, and its scores bit for bit a direct predict's on
+    the towers and adapters loaded as the CLI loads them (the anchors
+    encoded with the trained text adapter). Returns the B1 launches."""
     import gc
     import os
     import re
 
+    import numpy as np
     import torch
 
     from aaclip_tpu_torch import test as eval_cli
@@ -8336,7 +8350,10 @@ def model_eval_cli(phase: str, name: str, cfg, acfg, card, tmp: str,
     from aaclip_tpu_torch.core.params import (adapter_from_jax,
                                               adapter_to_jax,
                                               create_clip_towers,
-                                              init_image_adapter)
+                                              init_image_adapter,
+                                              init_text_adapter,
+                                              text_adapter_from_jax,
+                                              text_adapter_to_jax)
     from aaclip_tpu_torch.data.datasets import BatchLoader, get_test_datasets
     from aaclip_tpu_torch.data.registry import CLASS_NAMES
     from aaclip_tpu_torch.data.synthetic import make_synthetic_dataset
@@ -8355,16 +8372,20 @@ def model_eval_cli(phase: str, name: str, cfg, acfg, card, tmp: str,
         n_normal=VIT_H_EVAL_NORMAL, n_anomalous=VIT_H_EVAL_ANOMALOUS,
         img_px=VIT_H_EVAL_PX, hard=True)
     os.environ.update(AACLIP_DATA=data_root, AACLIP_METADATA=meta_root)
-    ad_tree = adapter_to_jax(init_image_adapter(cfg, acfg, seed=9,
-                                                device="cpu"))
-    save = os.path.join(tmp, f"eval_{name}")
-    ckpt.save_adapter_checkpoint(os.path.join(save, "image_adapter_1.npz"),
-                                 1, ad_tree)
+    ad_tree, text_tree, image_path, text_path = \
+        ckpt.discover_serving_adapters(
+            save, adapter_to_jax(init_image_adapter(cfg, acfg,
+                                                    device="cpu")),
+            text_adapter_to_jax(init_text_adapter(cfg, acfg, device="cpu")))
+    expect(image_path is not None and text_path is not None
+           and image_path.endswith("image_adapter_1.npz"),
+           f"{phase} eval CLI: adapters under {save}: {image_path}, "
+           f"{text_path}")
     zero_fused_counts()
     t0 = time.perf_counter()
     eval_cli.main(["--model_name", name, "--clip_checkpoint",
                    ckpt_path, "--save_path", save, "--precision", "bf16",
-                   "--batch_size", str(B), "--dump_scores"])
+                   "--batch_size", str(B), "--dump_scores", "--csv"])
     wall = time.perf_counter() - t0
     per_class = VIT_H_EVAL_NORMAL + VIT_H_EVAL_ANOMALOUS
     n_batches = VIT_H_EVAL_CLASSES * -(-per_class // B)
@@ -8379,6 +8400,12 @@ def model_eval_cli(phase: str, name: str, cfg, acfg, card, tmp: str,
     table = log[log.rindex("class name"):] if "class name" in log else ""
     expect(table.count("Average") == 1,
            f"{phase} eval CLI: no table in test.log")
+    rows = read_csv(os.path.join(save, "results_1.csv"))
+    cells = [float(x) for r in rows[1:] for x in r[1:]]
+    expect([r[0] for r in rows[1:]] == list(classes) + ["Average"]
+           and all(np.isfinite(cells)) and all(0 <= c <= 100
+                                               for c in cells),
+           f"{phase} eval CLI: table {rows}")
     print(f"{phase} eval CLI {name} bf16 B={B}: {n_batches} batches, "
           f"{launched[0]} B1 launches; {rate:.2f} maps/s logged (the first "
           f"class excluded), {wall:.2f} s for the whole main() on {card}; "
@@ -8389,7 +8416,8 @@ def model_eval_cli(phase: str, name: str, cfg, acfg, card, tmp: str,
     # the patch embedding
     direct = make_predict_fn(vit, cfg, acfg, policy=bf16, uint8_inputs=True)
     anchors = encode_dataset_anchors(make_anchor_encoder(
-        text, cfg, acfg, policy=bf16), "MVTec")
+        text, cfg, acfg, text_adapter_from_jax(text_tree, cfg, acfg),
+        policy=bf16), "MVTec")
     rows = read_csv(os.path.join(save, "scores_1.csv"))[1:]
     for cls, ds in get_test_datasets("MVTec", img, uint8=True).items():
         if len(ds) == 0:  # the classes the synthetic set does not hold
@@ -8488,10 +8516,11 @@ def hd128_fused_predict(card) -> int:
 # that kernel and plain version shared could not widen the bar past it.
 HIGH_FP64_PLAIN_FACTOR = 1.5
 HIGH_FP64_CEILING = 5e-5
-# 17c: the backward (B2) at head dims 80 and 128 by route, its bar against
-# the plain version (phase 3's for bf16 and 6-pass, phase 11's for the
-# 3-pass mode) and the kernels a call launches: the pair, after two
-# splits (of qkv and of dO) on the fp32 routes
+# 17c and 18c: the backward (B2) at head dims 80 and 128 (88 and 104) by
+# route, its bar against the plain version (phase 3's for bf16 and
+# 6-pass, phase 11's for the 3-pass mode) and the kernels a call
+# launches: the pair, after two splits (of qkv and of dO) on the fp32
+# routes
 HD_BWD_BARS = {"bf16": BWD_BF16_MAX_REL, "6-pass": BWD_FP32_MAX_REL,
                "3-pass": HIGH_BWD_MAX_REL}
 HD_BWD_KERNELS = {"bf16": ("attn_bwd_{dq,dkdv}_wgmma", None),
@@ -8507,9 +8536,10 @@ VIT_H_STEP_ROUTES = (("bf16", "bf16"), ("fp32", "6-pass"),
 
 def hd_bwd_check(hd: int, H: int, route: str, dtype_name: str, precision,
                  gen) -> float:
-    """17c at one head dim and route: B2 against its plain version at the
-    step's batch 8 x S 1370 and at HD_RAGGED, each gradient's max |d|
-    within HD_BWD_BARS of its max |value| (and bf16's mean within
+    """17c (18c at 88 and 104) at one head dim and route: B2 against its
+    plain version at the step's batch 8 x S 1370 and at HD_RAGGED, each
+    gradient's max |d| within HD_BWD_BARS of its max |value| (and bf16's
+    mean within
     BWD_BF16_MEAN_REL); two runs bit-equal; finite; no dK or dV past
     valid_len; the fp32 routes within SIX_FP64_MAX_REL of fp64 on two
     images of batch 8 (the 3-pass route within HIGH_FP64_MAX_REL, or
@@ -8525,7 +8555,7 @@ def hd_bwd_check(hd: int, H: int, route: str, dtype_name: str, precision,
     bar = HD_BWD_BARS[route]
     worst = 0.0
     for B, S, valid in [(TRAIN_BATCH, 1370, 1370)] + list(HD_RAGGED):
-        what = f"17c hd {hd} {route} B={B} S={S} valid={valid}"
+        what = f"{hd_phase(hd, 'c')} hd {hd} {route} B={B} S={S} valid={valid}"
         dm = H * hd
         qkv = random_qkv(B, S, H, hd, dtype, gen)
         d_out = torch.randn(B, S, dm, generator=gen, device="cuda").to(dtype)
@@ -8589,13 +8619,15 @@ def hd_bwd_check(hd: int, H: int, route: str, dtype_name: str, precision,
 
 def hd_bwd_times(hd: int, H: int, route: str, dtype_name: str, precision,
                  card, gen) -> tuple:
-    """17c's times at one head dim and route, at the step's [8, 1370, 3D]:
+    """17c's (18c's) times at one head dim and route, at the step's [8,
+    1370, 3D]:
     B2 (with its splits on the fp32 routes, as a call runs them) beside
     its plain version, SDPA's backward on the same inputs and its bound
     (the TPU kernel's five S^2 hd products in the route's bf16 passes at
     989 TFLOP/s, or the bytes; the pair's nine beside); the kernels per
     call counted at the launch sites of both libraries. Returns (ms, plain
-    ms, SDPA ms, bound ms, bound_by, kernels per call)."""
+    ms, SDPA ms, bound ms, bound_by, kernels per call, SDPA's backend: its
+    forward's, whose backward autograd runs)."""
     import torch
 
     from aaclip_tpu_torch.kernels.build import kernels_launched
@@ -8622,32 +8654,85 @@ def hd_bwd_times(hd: int, H: int, route: str, dtype_name: str, precision,
     g = d_out.view(B, S, H, hd).transpose(1, 2)
     ms_lib = cuda_ms(lambda: torch.autograd.grad(out, (q, k, v), g,
                                                  retain_graph=True), 10)
+    with torch.no_grad():
+        backend = sdpa_backend(q, k, v)
     libs = ("attention_packed", "attention_packed_bwd")
     before = sum(kernels_launched(n) for n in libs)
     call()
     torch.cuda.synchronize()
     per_call = sum(kernels_launched(n) for n in libs) - before
     want = 2 + (2 if split else 0)
-    expect(per_call == want, f"17c hd {hd} {route}: {per_call} kernels per "
-           f"call, not {want} ({pair}, {split})")
+    expect(per_call == want, f"{hd_phase(hd, 'c')} hd {hd} {route}: "
+           f"{per_call} kernels per call, not {want} ({pair}, {split})")
     flops = passes * 10 * B * H * S * S * hd
     nbytes = (2 * qkv.numel() + d_out.numel()) * qkv.element_size() + \
         lse.numel() * 4
     bound_ms, bound_by = bound(flops, nbytes)
-    print(f"time 17c attention_packed_bwd hd {hd} {route} B={B} ({H} heads):"
-          f" {ms:.4f} ms/call ({flops / ms / 1e9:.1f} TFLOP/s of the TPU "
-          f"kernel's five products in {passes} bf16 pass(es), "
-          f"{1.8 * flops / ms / 1e9:.1f} of the pair's nine; bound "
-          f"{bound_ms:.4f} ms by {bound_by}, nine products "
+    print(f"time {hd_phase(hd, 'c')} attention_packed_bwd hd {hd} {route} "
+          f"B={B} ({H} heads): {ms:.4f} ms/call ({flops / ms / 1e9:.1f} "
+          f"TFLOP/s of the TPU kernel's five products in {passes} bf16 "
+          f"pass(es), {1.8 * flops / ms / 1e9:.1f} of the pair's nine; "
+          f"bound {bound_ms:.4f} ms by {bound_by}, nine products "
           f"{1.8 * bound_ms:.4f}); plain {ms_plain:.4f}; SDPA backward "
-          f"{ms_lib:.4f}; {per_call} kernels per call on {card}")
+          f"({backend}) {ms_lib:.4f}; {per_call} kernels per call on {card}")
     del qkv, d_out, lse, q, k, v, out
-    return ms, ms_plain, ms_lib, bound_ms, bound_by, per_call
+    return ms, ms_plain, ms_lib, bound_ms, bound_by, per_call, backend
 
 
-def phase_head_dims_bwd(card) -> dict:
-    """17c; returns {("attention_packed_bwd", hd, route): (ms, plain ms,
-    SDPA ms, bound ms, bound_by, kernels per call, max |d|)}."""
+def check_neighbour_heads_bwd(hd: int, H: int, route: str, dtype_name: str,
+                              precision) -> None:
+    """18c: NaN and Inf written into the odd heads' columns of Q, K, V
+    (as check_neighbour_heads writes them) and NaN into their columns of
+    dO leave each even head's dQ, dK and dV finite and bit for bit as with
+    those heads clean. At 88 and 104 the last k-step of S, dP, S^T and dP^T
+    multiplies 8 columns past the head in both operands, which the
+    per-head tensor maps give as zeros, and each gradient's last chunk is
+    stored up to the head dim and not past it: a kernel that read the next
+    head's columns there, or wrote into them, would show here."""
+    import torch
+
+    from aaclip_tpu_torch.ops import attention as A
+
+    dtype = torch_dtype(dtype_name)
+    gen = torch.Generator(device="cuda").manual_seed(61)
+    B, S, valid = 2, 200, 150
+    dm = H * hd
+    kw = dict(precision=precision)
+    clean = random_qkv(B, S, H, hd, dtype, gen)
+    d_clean = torch.randn(B, S, dm, generator=gen, device="cuda").to(dtype)
+    poisoned, d_poisoned = clean.clone(), d_clean.clone()
+    odd = poisoned.view(B, S, 3, H, hd)[:, :, :, 1::2]
+    odd[:, 0::2] = float("nan")
+    odd[:, 1::2, ..., :hd // 2] = float("inf")
+    odd[:, 1::2, ..., hd // 2:] = float("-inf")
+    d_poisoned.view(B, S, H, hd)[:, :, 1::2] = float("nan")
+    what = f"{hd_phase(hd, 'c')} hd {hd} {route} neighbour heads"
+
+    def even_grads(x, d):
+        _, lse = A.attention_packed(x, H, valid, return_lse=True, **kw)
+        before = hd_before(A.attention_packed_bwd)
+        g = A.attention_packed_bwd(x, d, lse, H, valid, **kw)
+        hd_route_counts(route, A.attention_packed_bwd, before, 1, 2, what)
+        return g.view(B, S, 3, H, hd)[:, :, :, 0::2]
+
+    got = even_grads(poisoned, d_poisoned)
+    want = even_grads(clean, d_clean)
+    torch.cuda.synchronize()
+    same = [torch.equal(got[:, :, i], want[:, :, i]) for i in range(3)]
+    finite = bool(torch.isfinite(got).all())
+    print(f"{what}: NaN / +-Inf in the odd heads' Q, K, V columns and NaN "
+          f"in their dO columns; each even head's dQ, dK, dV bit for bit as "
+          f"clean {same}, finite {finite}")
+    expect(all(same) and finite,
+           f"{what}: a head's gradients read or wrote its neighbour's "
+           f"columns: {same}, finite {finite}")
+
+
+def phase_head_dims_bwd(card, geometries=HD_GEOMETRIES,
+                        phase: str = "17c") -> dict:
+    """17c (18c at ``WIDE_GEOMETRIES``, with the neighbour-head check);
+    returns {("attention_packed_bwd", hd, route): (ms, plain ms, SDPA ms,
+    bound ms, bound_by, kernels per call, max |d|, SDPA's backend)}."""
     import gc
 
     import torch
@@ -8655,15 +8740,19 @@ def phase_head_dims_bwd(card) -> dict:
     t_phase = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(54)
     rows = {}
-    for hd, H in HD_GEOMETRIES:
+    for hd, H in geometries:
         for route, dtype_name, precision in HD_ROUTES:
             worst = hd_bwd_check(hd, H, route, dtype_name, precision, gen)
+            if hd % 16:  # the per-head maps' padded k-step
+                check_neighbour_heads_bwd(hd, H, route, dtype_name,
+                                          precision)
             times = hd_bwd_times(hd, H, route, dtype_name, precision, card,
                                  gen)
-            rows[("attention_packed_bwd", hd, route)] = (*times, worst)
+            rows[("attention_packed_bwd", hd, route)] = (*times[:6], worst,
+                                                         times[6])
             gc.collect()
             torch.cuda.empty_cache()
-    print(f"17c took {time.perf_counter() - t_phase:.0f} s")
+    print(f"{phase} took {time.perf_counter() - t_phase:.0f} s")
     return rows
 
 
@@ -8688,15 +8777,20 @@ def want_step_launches(route: str, fwd: int, bwd: int) -> tuple:
             "3-pass": (fwd, 0, fwd, bwd, 0, bwd, 0, split)}[route]
 
 
-def vit_h_steps(cfg, acfg, card) -> dict:
-    """17d: ViT-H-14 @ 518's stage-2 step at batch 8 (random towers from
-    seeds; the blocks up to the last tap, 24 of 32) in bf16, fp32 and
-    fp32_high (the steps run it unstaged), each with remat off, full and
-    selective: 24 B1 (47 under full remat) and 23 B2 launches a step, all
+def tower_steps(phase: str, model: str, cfg, acfg, card,
+                remats=(False, True, "selective"),
+                dp: bool = False) -> dict:
+    """17d (ViT-H-14, every remat mode) and 18d (ViT-g-14, ViT-bigG-14,
+    remat off): ``model`` @ 518's stage-2 step at batch 8 (random towers
+    from seeds; the blocks up to the last tap, 24) in bf16, fp32 and
+    fp32_high (the steps run it unstaged), each with every remat mode of
+    ``remats``: 24 B1 (47 under full remat) and 23 B2 launches a step, all
     on the precision's route after its splits; each against the step on
     the plain attention (remat off) from the same adapter at phase 5's
-    bars (loss, every adapter gradient's cosine and norm); images/s with
-    remat off. Returns {path: (B1, B2) launches}."""
+    bars (loss, every adapter gradient's cosine and norm); with remat off
+    images/s and the kernel step's ``torch.cuda.max_memory_allocated``.
+    With ``dp`` also the DP stage-2 step at world 1 (``dp_world1``) on the
+    same tower. Returns {path: (B1, B2) launches}."""
     import gc
 
     import torch
@@ -8719,14 +8813,17 @@ def vit_h_steps(cfg, acfg, card) -> dict:
             vit, cfg, acfg, adapter, batch, table, policy=policy,
             attn_fn=make_attn_fn_plain(heads, policy, differentiable=True),
             remat=False)
-        expect(fwd_p == bwd_p == 0, f"17d {name}: the plain step launched")
-        for remat in (False, True, "selective"):
-            what = (f"17d ViT-H-14 stage-2 step {name} B={TRAIN_BATCH} remat "
-                    f"{REMAT_NAMES[remat]}")
+        expect(fwd_p == bwd_p == 0, f"{phase} {name}: the plain step "
+               f"launched")
+        for remat in remats:
+            what = (f"{phase} {model} stage-2 step {name} B={TRAIN_BATCH} "
+                    f"remat {REMAT_NAMES[remat]}")
             zero_counts()
+            torch.cuda.reset_peak_memory_stats()
             loss_k, g_k, _, _, (ad, opt, sched, step) = train_step_once(
                 vit, cfg, acfg, adapter, batch, table, policy=policy,
                 remat=remat)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
             got = step_launches()
             want = want_step_launches(
                 route, S2_FWD_PER_STEP_REMAT if remat is True else depth,
@@ -8738,17 +8835,21 @@ def vit_h_steps(cfg, acfg, card) -> dict:
             if remat is False:  # the other modes are checked, not timed
                 ms = cuda_ms(lambda: step(ad, *batch), 2, warmup=1)
                 rate = (f"; {ms:.2f} ms/step, {TRAIN_BATCH / ms * 1e3:.2f} "
-                        f"images/s on {card}")
+                        f"images/s, the kernel step's peak "
+                        f"{peak:.2f} GiB allocated on {card}")
             print(f"{what}: launches {got}; loss {loss_k:.6f} vs plain "
                   f"{loss_p:.6f} ({rel:.3e} relative); gradients over "
                   f"{len(g_k)} leaves: min cosine {cos:.8f}, max |norm "
                   f"ratio - 1| {norm:.3e}" + rate)
-            calls[f"ViT-H-14 stage-2 step {name}, remat "
+            calls[f"{model} stage-2 step {name}, remat "
                   f"{REMAT_NAMES[remat]}"] = (got[0], got[3])
             del ad, opt, sched, step, g_k
             gc.collect()
             torch.cuda.empty_cache()
         del g_p
+    if dp:
+        per_step = dp_world1(phase, model, vit, cfg, acfg, adapter, gen)
+        calls[f"{model} DP stage-2 step (world 1), per step"] = per_step
     del vit, adapter, batch
     gc.collect()
     torch.cuda.empty_cache()
@@ -8812,22 +8913,22 @@ def hd128_step(card) -> tuple:
     return got[0], got[3]
 
 
-def vit_h_train_cli(cfg, card, tmp: str, ckpt_path: str) -> dict:
-    """17d: ``python -m aaclip_tpu_torch.train --model_name ViT-H-14`` in
-    bf16 from the seeded ViT-H-14 checkpoint, one text and one image epoch
-    on two synthetic MVTec classes of VIT_H_TRAIN_PER_KIND normal and
-    anomalous images (batches 16 and 2, ``--remat auto``: selective):
-    32 B1 launches a features call, 24 B1 and 23 B2 a step, every loss
-    finite, each epoch's logged img/s; then the evaluation CLI on its
-    checkpoints, its table finite, in [0, 100] and printed, 24 B1 launches
-    a batch. Returns {path: (B1, B2) launches}."""
+def model_train_cli(phase: str, model: str, cfg, card, tmp: str,
+                    ckpt_path: str) -> tuple:
+    """17d (ViT-H-14), 18d (ViT-g-14): ``python -m aaclip_tpu_torch.train
+    --model_name <model>`` in bf16 from the seeded checkpoint, one text
+    and one image epoch on two synthetic MVTec classes of
+    VIT_H_TRAIN_PER_KIND normal and anomalous images (batches 16 and 2,
+    ``--remat auto``: selective): one B1 launch a block in a features
+    call, 24 B1 and 23 B2 a step, every loss finite, each epoch's logged
+    img/s. Returns (its save path, whose checkpoints ``model_eval_cli``
+    evaluates, and {path: (B1, B2) launches})."""
     import gc
     import os
 
     import numpy as np
     import torch
 
-    from aaclip_tpu_torch import test as eval_cli
     from aaclip_tpu_torch.data.registry import CLASS_NAMES
     from aaclip_tpu_torch.data.synthetic import make_synthetic_dataset
 
@@ -8840,8 +8941,8 @@ def vit_h_train_cli(cfg, card, tmp: str, ckpt_path: str) -> dict:
     os.environ.update(AACLIP_DATA=data_root, AACLIP_METADATA=meta_root)
     n_img = 2 * 2 * VIT_H_TRAIN_PER_KIND
     n_feat, n_step = -(-n_img // 16), -(-n_img // 2)
-    save = os.path.join(tmp, "train")
-    common = ["--model_name", "ViT-H-14", "--clip_checkpoint", ckpt_path,
+    save = os.path.join(tmp, f"train_{model}")
+    common = ["--model_name", model, "--clip_checkpoint", ckpt_path,
               "--dataset", "MVTec", "--precision", "bf16", "--save_path",
               save]
     zero_counts()
@@ -8855,41 +8956,23 @@ def vit_h_train_cli(cfg, card, tmp: str, ckpt_path: str) -> dict:
     with open(os.path.join(save, "train.log")) as f:
         log = f.read()
     reports = epoch_reports(log)
-    print(f"17d training CLI ViT-H-14 bf16: {n_feat} features call(s), "
+    print(f"{phase} training CLI {model} bf16: {n_feat} features call(s), "
           f"{n_step} stage-2 steps: attention_packed, V-V, backward "
           f"launches {got} (want {want}); epoch means "
           f"{[round(float(np.mean(e)), 6) for e in losses]}; "
           + "; ".join(f"{stage} epoch {epoch} {rate:.2f} img/s logged"
                       for stage, epoch, rate, _ in reports)
           + f"; {wall:.1f} s for main() on {card}")
-    expect(got == want, f"17d training CLI: launches {got}, not {want}")
+    expect(got == want, f"{phase} training CLI: launches {got}, not {want}")
     expect([len(e) for e in losses] == [n_feat, n_step]
            and all(np.isfinite(v).all() for v in losses),
-           f"17d training CLI: steps {[len(e) for e in losses]}, or a loss "
-           f"is not finite")
-    expect("stage 2 selective" in log, "17d training CLI: remat not "
+           f"{phase} training CLI: steps {[len(e) for e in losses]}, or a "
+           f"loss is not finite")
+    expect("stage 2 selective" in log, f"{phase} training CLI: remat not "
            "selective")
     gc.collect()
     torch.cuda.empty_cache()
-    zero_counts()
-    eval_cli.main(common + ["--batch_size", "32", "--csv"])
-    rows = read_csv(os.path.join(save, "results_1.csv"))
-    cells = [float(x) for r in rows[1:] for x in r[1:]]
-    n_eval = 2 * -(-2 * VIT_H_TRAIN_PER_KIND // 32)
-    table = "\n".join(", ".join(r) for r in rows)
-    print(f"17d evaluation CLI ViT-H-14 bf16 on the trained checkpoints, "
-          f"{n_eval} batches, {counts()[0]} B1 launches; its table:\n{table}")
-    expect([r[0] for r in rows[1:]] == list(classes) + ["Average"]
-           and all(np.isfinite(cells)) and all(0 <= c <= 100
-                                               for c in cells),
-           f"17d evaluation CLI: table {rows}")
-    expect(counts() == (depth * n_eval, 0, 0),
-           f"17d evaluation CLI: launches {counts()}")
-    gc.collect()
-    torch.cuda.empty_cache()
-    return {"ViT-H-14 training CLI bf16": (got[0], got[2]),
-            "ViT-H-14 evaluation CLI on the trained checkpoints":
-                (counts()[0], 0)}
+    return save, {f"{model} training CLI bf16": (got[0], got[2])}
 
 
 def model_engine(phase: str, name: str, cfg, card) -> int:
@@ -8960,25 +9043,57 @@ def model_engine(phase: str, name: str, cfg, card) -> int:
         torch.cuda.empty_cache()
 
 
+def dp_world1(phase: str, model: str, vit, cfg, acfg, adapter,
+              gen) -> tuple:
+    """17d (ViT-H-14), 18d (ViT-bigG-14): the DP stage-2 step at world 1
+    (NCCL), two steps bf16 at batch 8 (``dp_step_world1``), in a process
+    group of one this process starts and ends. Returns the (B1, B2)
+    launches per step."""
+    import os
+
+    import torch.distributed as dist
+
+    from aaclip_tpu_torch.parallel import sharding as sh
+
+    img = cfg.vision.image_size
+    keys = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+    env_before = {k: os.environ.get(k) for k in keys}
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()))
+    try:
+        expect(sh.initialize_multihost(), f"{phase}: no process group")
+        per_step = dp_step_world1(
+            vit, cfg, acfg, adapter, sh.make_data_mesh(),
+            train_batch(TRAIN_BATCH, img, gen),
+            unit_table(cfg.embed_dim, gen),
+            f"{phase} DP stage-2 step {model} (NCCL)")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in env_before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return per_step[0], per_step[2]
+
+
 def vit_h_int8_and_bank(cfg, acfg, card) -> dict:
     """17d at ViT-H-14 @ 518 (random towers from seeds), through the
     checks phases 12a, 13a and 14a hold at ViT-L: (a) the int8 predict at
     batch 8 (``check_int8``), its distance from the bf16 predict printed as
     phase 13 prints it; (b) the memory bank (``check_memory_bank``); (c)
-    the DP stage-2 step at world 1 (NCCL), two steps bf16 at batch 8
-    (``dp_step_world1``). Returns {path: (B1, B2) launches}."""
+    the DP stage-2 step at world 1 (``dp_world1``). Returns {path: (B1,
+    B2) launches}."""
     import gc
-    import os
 
     import torch
-    import torch.distributed as dist
 
     from aaclip_tpu_torch.core.config import DtypePolicy
     from aaclip_tpu_torch.core.params import (init_image_adapter,
                                               init_vision_params)
     from aaclip_tpu_torch.eval.predict import make_predict_fn
     from aaclip_tpu_torch.ops.similarity import fused_postproc_matrix
-    from aaclip_tpu_torch.parallel import sharding as sh
 
     img = cfg.vision.image_size
     gen = torch.Generator(device="cuda").manual_seed(58)
@@ -9013,27 +9128,8 @@ def vit_h_int8_and_bank(cfg, acfg, card) -> dict:
     torch.cuda.empty_cache()
 
     # (c) the DP stage-2 step at world 1
-    keys = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
-    env_before = {k: os.environ.get(k) for k in keys}
-    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
-                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()))
-    try:
-        expect(sh.initialize_multihost(), "17d: no process group")
-        per_step = dp_step_world1(
-            vit, cfg, acfg, adapter, sh.make_data_mesh(),
-            train_batch(TRAIN_BATCH, img, gen),
-            unit_table(cfg.embed_dim, gen),
-            "17d DP stage-2 step ViT-H-14 (NCCL)")
-        calls["ViT-H-14 DP stage-2 step (world 1), per step"] = (
-            per_step[0], per_step[2])
-    finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
-        for k, v in env_before.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
+    calls["ViT-H-14 DP stage-2 step (world 1), per step"] = dp_world1(
+        "17d", "ViT-H-14", vit, cfg, acfg, adapter, gen)
     del vit, adapter
     gc.collect()
     torch.cuda.empty_cache()
@@ -9042,8 +9138,8 @@ def vit_h_int8_and_bank(cfg, acfg, card) -> dict:
 
 def phase_head_dims(card) -> dict:
     """Phase 17; returns {"kernels": 17a's and 17c's rows, "calls": {path:
-    B1 launches} of 17b, "steps": {path: (B1, B2) launches} of 17d,
-    "rates": {precision: maps/s}}."""
+    B1 launches} of 17b and 17d's evaluation CLI, "steps": {path: (B1, B2)
+    launches} of 17d, "rates": {precision: maps/s}}."""
     import os
     import shutil
     import tempfile
@@ -9073,17 +9169,19 @@ def phase_head_dims(card) -> dict:
         print(f"[{time.perf_counter() - t_phase:.0f} s] 17b")
         calls = tower_predicts("17b", "ViT-H-14", cfg, acfg, card)
         rates = model_bench("17b", "ViT-H-14", card)
-        ckpt_path = write_model_checkpoint("17b", "ViT-H-14", tmp, card)
-        calls["ViT-H-14 evaluation CLI bf16"] = model_eval_cli(
-            "17b", "ViT-H-14", cfg, acfg, card, tmp, ckpt_path)
         calls["fused predict bf16, ViT-L in 8 heads of 128"] = \
             hd128_fused_predict(card)
         t_d = time.perf_counter()
         print(f"[{t_d - t_phase:.0f} s] 17d")
-        steps = vit_h_steps(cfg, acfg, card)
+        steps = tower_steps("17d", "ViT-H-14", cfg, acfg, card)
         steps["stage-2 step bf16, ViT-L in 8 heads of 128"] = \
             hd128_step(card)
-        steps.update(vit_h_train_cli(cfg, card, tmp, ckpt_path))
+        ckpt_path = write_model_checkpoint("17d", "ViT-H-14", tmp, card)
+        save, trained = model_train_cli("17d", "ViT-H-14", cfg, card, tmp,
+                                        ckpt_path)
+        steps.update(trained)
+        calls["ViT-H-14 evaluation CLI bf16"] = model_eval_cli(
+            "17d", "ViT-H-14", cfg, acfg, card, tmp, ckpt_path, save)
         steps["ViT-H-14 serving engine, per batch"] = (
             model_engine("17d", "ViT-H-14", cfg, card), 0)
         steps.update(vit_h_int8_and_bank(cfg, acfg, card))
@@ -9102,10 +9200,11 @@ def phase_head_dims(card) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 18: the packed-attention forward at head dims 88 and 104 (B1, B3
-# and B4 on the bf16, 6-pass and 3-pass routes) and open_clip's ViT-g-14
-# and ViT-bigG-14 @ 518 through the predict, the evaluation CLI, the
-# serving engine and stage-1's spatial features
+# Phase 18: the packed attention at head dims 88 and 104 (the forward B1,
+# B3 and B4, and the backward B2, on the bf16, 6-pass and 3-pass routes)
+# and open_clip's ViT-g-14 and ViT-bigG-14 @ 518 through the predict, the
+# evaluation CLI, the serving engine, stage-1's spatial features, the
+# stage-2 step, the training CLI and the DP step
 
 # open_clip's published ViT-g-14 and ViT-bigG-14 (its
 # model_configs/ViT-g-14.json and ViT-bigG-14.json), written at run time
@@ -9138,39 +9237,17 @@ WIDE_ARCH = {"ViT-g-14": (40, 1408, 16, 88, 6144, 1370, 1024),
 WIDE_GEOMETRIES = ((88, 16), (104, 16))
 
 
-def wide_b2_refusal(card) -> str:
-    """18b: one training call through the differentiable attention at head
-    dim 88 on the card raises NotImplementedError naming ROADMAP B11 (the
-    backward there is the next slice), so nothing trains at these dims by
-    accident; the forward it ran is counted on its kernel."""
-    import torch
-
-    from aaclip_tpu_torch.ops import attention as A
-
-    gen = torch.Generator(device="cuda").manual_seed(60)
-    qkv = random_qkv(2, 77, 2, 88, torch.bfloat16, gen).requires_grad_()
-    zero_counts()
-    out = A.attention_packed_diff(qkv, 2, 77)
-    try:
-        out.float().sum().backward()
-        raised = None
-    except NotImplementedError as e:
-        raised = str(e)
-    torch.cuda.synchronize()
-    launched = counts()
-    print(f"18b B2 at head dim 88 on {card}: the forward launched "
-          f"{launched} (standard, V-V, backward); the backward raised: "
-          f"{raised}")
-    expect(raised is not None and "ROADMAP B11" in raised
-           and launched == (1, 0, 0),
-           f"18b: the backward at head dim 88 did not refuse ({raised}, "
-           f"{launched})")
-    return raised
-
-
 def phase_wide_head_dims(card) -> dict:
-    """Phase 18 (18a, 18b above); returns {"kernels": 18a's rows,
-    "calls": {path: B1 (or B3) launches}, "rates": {model: bf16 maps/s}}."""
+    """Phase 18: 18a (the forward kernels at 88 and 104), 18c (the
+    backward's), 18b (both towers' predicts, bench, the engine at
+    ViT-bigG-14, ViT-g-14's spatial features, the gate) and 18d (both
+    towers' stage-2 steps in bf16, fp32 and fp32_high at batch 8, remat
+    off; the DP step at world 1 at ViT-bigG-14; the training CLI at
+    ViT-g-14 from a seeded fp16 checkpoint, then the evaluation CLI on its
+    checkpoints, its scores bit for bit a direct predict's). Returns
+    {"kernels": 18a's and 18c's rows, "calls": {path: B1 (or B3)
+    launches} of 18b and the evaluation CLI, "steps": {path: (B1, B2)
+    launches} of 18d, "rates": {model: bf16 maps/s}}."""
     import os
     import shutil
     import tempfile
@@ -9184,6 +9261,7 @@ def phase_wide_head_dims(card) -> dict:
 
     t_phase = time.perf_counter()
     rows = phase_head_dims_kernels(card, WIDE_GEOMETRIES, "18a")
+    rows.update(phase_head_dims_bwd(card, WIDE_GEOMETRIES, "18c"))
     tmp = tempfile.mkdtemp(prefix="aaclip_wide_")
     env = {k: os.environ.get(k) for k in ("AACLIP_MODEL_CONFIGS",
                                           "AACLIP_DATA", "AACLIP_METADATA")}
@@ -9219,15 +9297,25 @@ def phase_wide_head_dims(card) -> dict:
                                         sdpa_yardstick=True))
             rates.update({f"{name} {k}": r for k, r in model_bench(
                 "18b", name, card, runs=(("bf16", 32),)).items()})
-        ckpt_path = write_model_checkpoint("18b", "ViT-g-14", tmp, card,
-                                           half=True)
-        calls["ViT-g-14 evaluation CLI bf16"] = model_eval_cli(
-            "18b", "ViT-g-14", cfgs["ViT-g-14"], acfg, card, tmp, ckpt_path)
-        os.remove(ckpt_path)
         calls["ViT-bigG-14 serving engine, per batch"] = model_engine(
             "18b", "ViT-bigG-14", cfgs["ViT-bigG-14"], card)
-        wide_b2_refusal(card)
-        print(f"18b took {time.perf_counter() - t_b:.0f} s")
+        t_d = time.perf_counter()
+        print(f"18b took {t_d - t_b:.0f} s")
+        print(f"[{t_d - t_phase:.0f} s] 18d")
+        steps = tower_steps("18d", "ViT-g-14", cfgs["ViT-g-14"], acfg, card,
+                            remats=(False,))
+        steps.update(tower_steps("18d", "ViT-bigG-14", cfgs["ViT-bigG-14"],
+                                 acfg, card, remats=(False,), dp=True))
+        ckpt_path = write_model_checkpoint("18d", "ViT-g-14", tmp, card,
+                                           half=True)
+        save, trained = model_train_cli("18d", "ViT-g-14", cfgs["ViT-g-14"],
+                                        card, tmp, ckpt_path)
+        steps.update(trained)
+        calls["ViT-g-14 evaluation CLI bf16"] = model_eval_cli(
+            "18d", "ViT-g-14", cfgs["ViT-g-14"], acfg, card, tmp, ckpt_path,
+            save)
+        os.remove(ckpt_path)
+        print(f"18d took {time.perf_counter() - t_d:.0f} s")
     finally:
         for k, val in env.items():
             if val is None:
@@ -9240,7 +9328,7 @@ def phase_wide_head_dims(card) -> dict:
         torch.cuda.empty_cache()
     print(f"phase 18 (head dims 88 and 104, ViT-g-14 and ViT-bigG-14) took "
           f"{time.perf_counter() - t_phase:.0f} s")
-    return {"kernels": rows, "calls": calls, "rates": rates}
+    return {"kernels": rows, "calls": calls, "steps": steps, "rates": rates}
 
 
 def head_dim_rows(head_dims: dict, wide: dict) -> list:
@@ -9249,12 +9337,15 @@ def head_dim_rows(head_dims: dict, wide: dict) -> list:
     phase 18) on each route, with its launches on the paths of that head
     dim and route (B1: the ViT-H-14, ViT-g-14 and ViT-bigG-14 predicts,
     3-pass counting the staged predict's 3-pass blocks, and at 128 the
-    fused bf16 predict; the evaluation CLIs, engines, 17d's steps, int8
-    and bank paths; B3 bf16 at 80 and 88: the spatial features; B2: 17d's
-    steps and training CLI; none for B4 and the fp32 V-V, which no path
-    of these phases runs), ``launches`` the first path's."""
-    hc17, st17 = {**head_dims["calls"], **wide["calls"]}, head_dims["steps"]
+    fused bf16 predict; the evaluation CLIs, engines, 17d's and 18d's
+    steps, int8 and bank paths; B3 bf16 at 80 and 88: the spatial
+    features; B2: 17d's and 18d's steps, training CLIs and DP steps; none
+    for B4 and the fp32 V-V, which no path of these phases runs),
+    ``launches`` the first path's."""
+    hc17 = {**head_dims["calls"], **wide["calls"]}
+    st17 = {**head_dims["steps"], **wide["steps"]}
     h14 = "ViT-H-14 stage-2 step"
+    g14, bigg = "ViT-g-14 stage-2 step", "ViT-bigG-14 stage-2 step"
     step_paths = {
         (80, "bf16"): [f"{h14} bf16, remat {r}" for r in REMAT_NAMES.values()]
         + ["ViT-H-14 training CLI bf16",
@@ -9263,7 +9354,14 @@ def head_dim_rows(head_dims: dict, wide: dict) -> list:
                          for r in REMAT_NAMES.values()],
         (80, "3-pass"): [f"{h14} fp32_high, remat {r}"
                          for r in REMAT_NAMES.values()],
-        (128, "bf16"): ["stage-2 step bf16, ViT-L in 8 heads of 128"]}
+        (128, "bf16"): ["stage-2 step bf16, ViT-L in 8 heads of 128"],
+        (88, "bf16"): [f"{g14} bf16, remat off", "ViT-g-14 training CLI bf16"],
+        (88, "6-pass"): [f"{g14} fp32, remat off"],
+        (88, "3-pass"): [f"{g14} fp32_high, remat off"],
+        (104, "bf16"): [f"{bigg} bf16, remat off",
+                        "ViT-bigG-14 DP stage-2 step (world 1), per step"],
+        (104, "6-pass"): [f"{bigg} fp32, remat off"],
+        (104, "3-pass"): [f"{bigg} fp32_high, remat off"]}
     b1_paths = {
         ("attention_packed", 80, "bf16"): (
             "ViT-H-14 predict bf16", "ViT-H-14 evaluation CLI bf16"),
@@ -9286,7 +9384,6 @@ def head_dim_rows(head_dims: dict, wide: dict) -> list:
         ("attention_packed", 104, "3-pass"): (
             "ViT-bigG-14 predict fp32_high",)}
     b1_steps = {(80, "bf16"): [
-        "ViT-H-14 evaluation CLI on the trained checkpoints",
         "ViT-H-14 serving engine, per batch", "ViT-H-14 int8 predict",
         "ViT-H-14 memory-bank features batch",
         "ViT-H-14 memory-bank predict"]}
@@ -9324,8 +9421,8 @@ def head_dim_rows(head_dims: dict, wide: dict) -> list:
             "bound_ms": t[3],
             "bound_by": t[4],
             "library_ms": t[2],
-            "library": (f"SDPA ({t[7]})" if len(t) > 7
-                        else "SDPA backward"),
+            "library": ("SDPA backward" if name == "attention_packed_bwd"
+                        else "SDPA") + f" ({t[7]})",
         })
     return hd_rows
 

@@ -207,30 +207,32 @@ def _const(src: str, name: str) -> int:
 
 def test_tma_routes_match_the_kernel_sources():
     """The route table is the sources' own: bf16 at the TMA head dims
-    (``tma_head_dim``: the forward's 64, 80, 88, 104, 128, the backward's
-    64, 80, 128) takes their TMA + wgmma kernels, each head dim
-    instantiated once per route (``by_head_dim``); fp32 there their 6-pass
-    and 3-pass entry points (which refuse any other head dim), and every
-    other (dtype, head dim) the wrappers accept has a retained kernel in
-    each."""
+    (``tma_head_dim``: 64, 80, 88, 104, 128 in the forward and the
+    backward alike) takes their TMA + wgmma kernels, each head dim
+    instantiated once per route (``by_head_dim``) on the one ``Head<HD>``
+    of ``hopper_common.cuh``, whose ``static_assert`` admits the same
+    dims; fp32 there their 6-pass and 3-pass entry points (which refuse
+    any other head dim), and every other (dtype, head dim) the wrappers
+    accept has a retained kernel in each."""
     import re
 
     fwd = (build.CSRC / "attention_packed.cu").read_text()
     bwd = (build.CSRC / "attention_packed_bwd.cu").read_text()
-    want = {fwd: (A.TMA_HEAD_DIMS, (64, 80, 88, 104, 128),
-                  "HD == 64 || HD == 80 || HD == 88 || HD == 104 || "
-                  "HD == 128"),
-            bwd: (tuple(d for d in A.BWD_HEAD_DIMS if d != 16),
-                  (64, 80, 128), "HD == 64 || HD == 80 || HD == 128")}
-    for src, (table, listed, asserted) in want.items():
+    common = (build.CSRC / "hopper_common.cuh").read_text()
+    want = {fwd: A.TMA_HEAD_DIMS,
+            bwd: tuple(d for d in A.BWD_HEAD_DIMS if d != 16)}
+    for src, table in want.items():
         body = re.search(r"constexpr bool tma_head_dim\(int hd\) \{([^}]*)\}",
                          src).group(1)
         dims = tuple(int(d) for d in re.findall(r"hd == (\d+)", body))
-        assert dims == table == listed
+        assert dims == table == (64, 80, 88, 104, 128)
         for hd in dims:
             assert (f"case {hd}: return fn(std::integral_constant<int, {hd}>"
                     in src)
-        assert f"static_assert({asserted}," in src
+        assert "struct Head {" not in src
+    assert common.count("struct Head {") == 1
+    assert ("static_assert(HD == 64 || HD == 80 || HD == 88 || HD == 104 "
+            "|| HD == 128," in common)
     assert TMA_ROUTES == {(dtype, hd) for dtype in (torch.bfloat16,
                                                     torch.float32)
                           for hd in A.TMA_HEAD_DIMS}
@@ -251,32 +253,33 @@ def test_tma_routes_match_the_kernel_sources():
 
 
 def test_backward_head_dims_match_the_forward():
-    """The backward has kernels at every head dim the forward takes but
-    88 and 104 (``BWD_HEAD_DIMS``): the source's head-dim dispatch covers
-    the TMA head dims 64, 80, 128 and the retained 16, and the wrapper's
-    one "ROADMAP B11" raise (``NotImplementedError``) refuses exactly the
-    forward's others on the card. The CPU keeps its plain version at every
-    head dim."""
+    """The backward has kernels at every head dim the forward takes
+    (``BWD_HEAD_DIMS`` is ``KERNEL_HEAD_DIMS``): the source's head-dim
+    dispatch covers the TMA head dims 64, 80, 88, 104, 128 and the
+    retained 16, and the wrapper refuses none of them with a
+    ``NotImplementedError`` naming a ROADMAP item. The CPU keeps its plain
+    version at every head dim."""
     import inspect
     import re
 
     assert KERNEL_HEAD_DIMS == (16, 64, 80, 88, 104, 128)
-    assert A.BWD_HEAD_DIMS == tuple(
-        d for d in KERNEL_HEAD_DIMS if d not in (88, 104)) == (16, 64, 80,
-                                                              128)
+    assert A.BWD_HEAD_DIMS == KERNEL_HEAD_DIMS
     bwd = (build.CSRC / "attention_packed_bwd.cu").read_text()
     body = re.search(r"int by_head_dim\(int hd, F&& fn\) \{(.*?)\n\}", bwd,
                      re.S).group(1)
     dispatched = {int(d) for d in re.findall(r"case (\d+):", body)}
     retained = {int(d) for d in re.findall(
         r"if \(!?bf16 && head_dim == (\d+)\)", bwd)}
+    assert dispatched == {64, 80, 88, 104, 128} and retained == {16}
+    # 88 and 104 read every operand through per-head tensor maps, so the
+    # padded last k-step reads zeros, not the next head's columns
+    assert "Head<HD>::kHeadMap\n            ? make_head_map(" in bwd
+    assert "static constexpr int kKSteps = (HD + 15) / 16;" in (
+        build.CSRC / "hopper_common.cuh").read_text()
     assert dispatched | retained == set(A.BWD_HEAD_DIMS)
     src = inspect.getsource(A)
-    assert src.count("raise NotImplementedError(") == 1
-    raise_at = src.index("    if hd not in BWD_HEAD_DIMS:\n        raise "
-                         "NotImplementedError(")
-    assert "ROADMAP B11" in src[raise_at:src.index("\n\n", raise_at)]
-    assert raise_at > src.index("def attention_packed_bwd(")
+    assert "NotImplementedError" not in src and "B11" not in src
+    assert "if hd not in BWD_HEAD_DIMS" not in src
     for hd in (80, 88, 104, 128):
         qkv = torch.from_numpy(packed_qkv(1, 20, 2, hd, seed=4))
         d_out = torch.from_numpy(np.random.default_rng(5).standard_normal(

@@ -5,14 +5,14 @@ versions:
 * ``attention_packed_bwd_plain`` vs ``jax.vjp`` of the Pallas
   ``attention_packed_diff`` in interpret mode (2 images, 2 heads x 64,
   S 250, q_blk 64, valid_len 250 and 201, fp32 and bf16);
-* the same at head dims 80 and 128 (2 heads: JAX's gate runs its Pallas
-  backward at 128, and interpret mode tiles 80) against JAX's
-  ``_attention_packed_bwd_impl(..., interpret=True)`` itself, fp32 and
-  bf16, at the same bars; and at 80 in fp32 against ``jax.vjp`` of
-  ``models/layers.py::attention``, the XLA path JAX's gate sends hd 80 to
-  (a unit out-projection, keys past valid_len masked), through the input
-  projection: atol 1e-5 of the gradient's max, the fp32 bar with the
-  projections' sums in another order;
+* the same at head dims 80, 88, 104 and 128 (2 heads: JAX's gate runs
+  its Pallas backward at 128, and interpret mode tiles the others) against
+  JAX's ``_attention_packed_bwd_impl(..., interpret=True)`` itself, fp32
+  and bf16, at the same bars; and at 80, 88 and 104 in fp32 against
+  ``jax.vjp`` of ``models/layers.py::attention``, the XLA path JAX's gate
+  sends those head dims to (a unit out-projection, keys past valid_len
+  masked), through the input projection: atol 1e-5 of the gradient's max,
+  the fp32 bar with the projections' sums in another order;
 * the autograd Function's CPU backward is the plain backward, exactly;
 * the differentiable ``attn_fn`` hook's gradients vs ``jax.vjp`` of the
   JAX hook at tiny-test's head dim 16;
@@ -90,12 +90,12 @@ def test_plain_bwd_matches_pallas_interpret(dtype, valid_len):
 
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 @pytest.mark.parametrize("valid_len", [250, 201])
-@pytest.mark.parametrize("head_dim", [80, 128])
+@pytest.mark.parametrize("head_dim", [80, 88, 104, 128])
 def test_plain_bwd_matches_pallas_interpret_at_wide_head_dims(
         head_dim, valid_len, dtype):
-    """Head dims 80 and 128 in 2 heads, ragged S 250 (q_blk 64), valid_len
-    250 and 201: the plain backward against JAX's backward kernel in
-    interpret mode, at the hd-64 test's bars."""
+    """Head dims 80, 88, 104 and 128 in 2 heads, ragged S 250 (q_blk 64),
+    valid_len 250 and 201: the plain backward against JAX's backward kernel
+    in interpret mode, at the hd-64 test's bars."""
     jd, td = DTYPES[dtype]
     dm = 2 * head_dim
     qkv = packed_qkv(2, 250, 2, head_dim, seed=23)
@@ -122,12 +122,15 @@ def test_plain_bwd_matches_pallas_interpret_at_wide_head_dims(
 
 
 @pytest.mark.parametrize("valid_len", [250, 201])
-def test_plain_bwd_matches_the_xla_path_at_head_dim_80(valid_len):
-    """fp32, 2 heads of 80, S 250: ``jax.vjp`` of JAX's XLA attention
-    (``layers.attention`` with a unit out-projection and keys past
-    valid_len masked) w.r.t. its input, against the port's plain backward
-    of the same packed projection carried back through it."""
-    B, S, H, hd = 2, 250, 2, 80
+@pytest.mark.parametrize("head_dim", [80, 88, 104])
+def test_plain_bwd_matches_the_xla_path_at_wide_head_dims(head_dim,
+                                                          valid_len):
+    """fp32, 2 heads of 80, 88 or 104 (JAX's gate sends all three to
+    XLA), S 250: ``jax.vjp`` of JAX's XLA attention (``layers.attention``
+    with a unit out-projection and keys past valid_len masked) w.r.t. its
+    input, against the port's plain backward of the same packed projection
+    carried back through it."""
+    B, S, H, hd = 2, 250, 2, head_dim
     dm = H * hd
     rng = np.random.default_rng(25)
     x = rng.standard_normal((B, S, dm)).astype(np.float32)

@@ -33,19 +33,32 @@ heads of 88, and ViT-bigG-14, 16 heads of 104, under
   heads of 88 and 104, MLP 6144 and 8192, seg/det to 1024 and 1280) cut
   to 2 vision and 2 text blocks at 28 px: the adapted forward in fp32
   against JAX's, with no code of its own;
+* stage 2 (the port's backward at 88 and 104 is the plain version on the
+  CPU): one fp32 step of the narrow towers at 2 blocks, the loss (rtol
+  1e-5) and every adapter gradient (within 1e-5 of each leaf's max)
+  against JAX's step on XLA's attention, where its gate sends these head
+  dims (``tests/test_torch_head_dims.py``'s bars at 80); one bf16 step's
+  loss within 5e-4 relative and each adapter gradient's cosine above
+  0.9999 against JAX's step on its Pallas attention and backward in
+  interpret mode, compiled with XLA's excess precision off (``strict``):
+  the kernel path's roundings on both sides (``tests/test_torch_train.py``'s
+  bf16 bars); and one fp32 step at the published widths cut to 2 blocks at
+  28 px, at the fp32 bars;
 * ``kernel_route`` at 88 and 104 on every route (the TMA + wgmma kernels
   and their plane routes), and the wrappers' CUDA checks: the forward's
-  geometry check admits both head dims, the backward refuses them with a
-  ``NotImplementedError`` naming ROADMAP B11.
+  geometry check and the backward's argument checks admit both head dims,
+  and the backward hands the launch to its route's entry point.
 
 The kernels at these head dims run only on the card (``chip_smoke.py``
 phase 18).
 """
 
+import contextlib
 import dataclasses
 import json
 import types
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -60,6 +73,8 @@ from aaclip_tpu.ops.flash_attention import attention_kernel as \
 from aaclip_tpu.ops.flash_attention import attention_packed as j_attention
 from aaclip_tpu.ops.flash_attention import make_attn_fn as j_make_attn_fn
 from aaclip_tpu.ops.similarity import fused_postproc_matrix
+from aaclip_tpu.train.steps import init_state
+from aaclip_tpu.train.steps import make_stage2_step as j_make_stage2_step
 from aaclip_tpu.train.steps import stage1_features_fn as j_features_fn
 from aaclip_tpu_torch.core import config as tconfig
 from aaclip_tpu_torch.core.config import DtypePolicy
@@ -67,10 +82,12 @@ from aaclip_tpu_torch.core.params import params_from_jax
 from aaclip_tpu_torch.eval.predict import make_predict_fn
 from aaclip_tpu_torch.ops import attention as A
 from aaclip_tpu_torch.ops import fused_block as FB
-from aaclip_tpu_torch.train.steps import stage1_features_fn
+from aaclip_tpu_torch.train import optim
+from aaclip_tpu_torch.train.steps import make_stage2_step, stage1_features_fn
 from chip_smoke import VIT_BIGG_14, VIT_G_14, WIDE_ARCH
 from tests.test_torch_layers import perturbed_clip_tree
 from tests.test_torch_model import ATOL, RTOL, both_models, forward_pair
+from tests.test_torch_train import grad_capture, grads_as_jax, strict
 
 WIDE = {"ViT-g-14": VIT_G_14, "ViT-bigG-14": VIT_BIGG_14}
 HEAD_DIMS = (88, 104)
@@ -260,18 +277,21 @@ def test_narrow_wide_spatial_features_match_jax(hd):
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
 
 
+def _cut(cfg):
+    """A published config cut to 2 vision and 2 text blocks at 28 px (2 x
+    2 patches)."""
+    cfg = cfg.with_image_size(28)
+    return dataclasses.replace(
+        cfg, vision=dataclasses.replace(cfg.vision, layers=2),
+        text=dataclasses.replace(cfg.text, layers=2))
+
+
 @pytest.mark.parametrize("name", list(WIDE))
 def test_wide_widths_adapted_forward_matches_jax(wide_configs, name):
-    """The published widths cut to 2 vision and 2 text blocks at 28 px
-    (2 x 2 patches), fp32: the taps and projections need no code of
-    their own at 1408 and 1664."""
-    def cut(cfg):
-        cfg = cfg.with_image_size(28)
-        return dataclasses.replace(
-            cfg, vision=dataclasses.replace(cfg.vision, layers=2),
-            text=dataclasses.replace(cfg.text, layers=2))
-
-    jcfg, tcfg = (cut(mod.get_config(name)) for mod in (jconfig, tconfig))
+    """The published widths cut to 2 vision and 2 text blocks at 28 px,
+    fp32: the taps and projections need no code of their own at 1408 and
+    1664."""
+    jcfg, tcfg = (_cut(mod.get_config(name)) for mod in (jconfig, tconfig))
     assert (tcfg.vision.head_dim, tcfg.text.layers) == (WIDE_ARCH[name][3],
                                                         2)
     levels = dict(levels=(1, 2), image_adapt_until=2)
@@ -285,13 +305,96 @@ def test_wide_widths_adapted_forward_matches_jax(wide_configs, name):
                                atol=ATOL, rtol=RTOL)
 
 
+def _stage2_pair(jcfg, tcfg, policy: str, levels: dict, *, batch: int = 3,
+                 seed: int = 9):
+    """One stage-2 step of both packages from the same numpy weights,
+    adapter, table and batch (images of the configs' size); JAX compiled
+    with excess precision off (``strict``), on XLA's attention in fp32
+    (its gate's choice at 88 and 104) and on its Pallas attention and
+    backward in interpret mode in bf16 (the kernel path's roundings, which
+    the port's plain versions take); its gradients read from
+    ``grad_capture``. Returns (port loss, JAX loss, port gradients, JAX
+    gradients), the gradients as leaves of the JAX adapter tree."""
+    visual, jad, vit, tad, jacfg, tacfg = both_models(jcfg, tcfg, levels)
+    jpol, tpol = POLICIES[policy]
+    img, embed = tcfg.vision.image_size, tcfg.embed_dim
+    rng = np.random.default_rng(seed)
+    table = rng.standard_normal((2, embed, 2)).astype(np.float32)
+    table /= np.linalg.norm(table, axis=1, keepdims=True)
+    data = (rng.standard_normal((batch, 3, img, img)).astype(np.float32),
+            (rng.random((batch, img, img)) > 0.8).astype(np.float32),
+            rng.integers(0, 2, batch).astype(np.int32),
+            rng.integers(0, 2, batch).astype(np.int32),
+            np.ones(batch, np.float32))
+    attn_fn = (j_make_attn_fn(tcfg.vision.heads, jpol, differentiable=True,
+                              interpret=True) if policy == "bf16" else None)
+    jstep = j_make_stage2_step({"visual": visual}, jcfg, jacfg,
+                               grad_capture(), table, policy=jpol,
+                               attn_fn=attn_fn)
+    state, jloss = strict(jstep.raw, init_state(jad, grad_capture()),
+                          jstep.visual, *(jnp.asarray(x) for x in data))
+    opt = optim.make_image_optimizer(tad.parameters())
+    step = make_stage2_step(vit, tcfg, tacfg, opt, table, policy=tpol,
+                            device="cpu")
+    loss = step(tad, *(torch.from_numpy(x) for x in data))
+    got = jax.tree.leaves(grads_as_jax(tad))
+    want = [np.asarray(w, np.float32) for w in
+            jax.tree.leaves(state.opt_state)]
+    assert len(got) == len(want) > 0 and np.isfinite(float(jloss))
+    return float(loss), float(jloss), got, want
+
+
+def _fp32_close(loss, jloss, got, want) -> None:
+    np.testing.assert_allclose(loss, jloss, rtol=1e-5)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and np.abs(w).max() > 0
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-5 * np.abs(w).max())
+
+
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+def test_narrow_wide_stage2_gradients_match_jax(hd):
+    """One fp32 stage-2 step at 2 blocks of 2 heads of ``hd``: the loss
+    and every adapter gradient against JAX's step on XLA's attention."""
+    jcfg, tcfg = _narrow_pair(hd)
+    _fp32_close(*_stage2_pair(jcfg, tcfg, "fp32",
+                              dict(levels=(1, 2), image_adapt_until=1)))
+
+
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+def test_narrow_wide_bf16_stage2_loss_matches_jax(hd):
+    """One bf16 stage-2 step at 2 blocks of 2 heads of ``hd``: the loss
+    within 5e-4 relative and every adapter gradient's cosine above 0.9999
+    against JAX's step on its interpret-mode Pallas attention with XLA's
+    excess precision off."""
+    jcfg, tcfg = _narrow_pair(hd)
+    loss, jloss, got, want = _stage2_pair(
+        jcfg, tcfg, "bf16", dict(levels=(1, 2), image_adapt_until=1))
+    np.testing.assert_allclose(loss, jloss, rtol=5e-4)
+    for g, w in zip(got, want):
+        g, w = g.astype(np.float64).ravel(), w.astype(np.float64).ravel()
+        cos = g @ w / np.linalg.norm(g) / np.linalg.norm(w)
+        assert cos > 0.9999, cos
+
+
+@pytest.mark.parametrize("name", list(WIDE))
+def test_wide_widths_stage2_step_matches_jax(wide_configs, name):
+    """One fp32 stage-2 step at the published widths cut to 2 blocks at
+    28 px (batch 2): the loss and every adapter gradient, the adapters
+    1408 or 1664 wide into seg/det of 1024 or 1280, at the fp32 bars."""
+    jcfg, tcfg = (_cut(mod.get_config(name)) for mod in (jconfig, tconfig))
+    assert tcfg.vision.head_dim == WIDE_ARCH[name][3]
+    _fp32_close(*_stage2_pair(jcfg, tcfg, "fp32",
+                              dict(levels=(1, 2), image_adapt_until=2),
+                              batch=2))
+
+
 @pytest.mark.parametrize("hd", HEAD_DIMS)
 def test_kernel_route_at_wide_head_dims(hd):
-    """88 and 104 are forward TMA head dims on every route: bf16 on the
-    TMA + wgmma kernel, fp32 on its 6-pass planes ("highest", None) or
-    3-pass planes ("high"); the backward has no kernel there yet."""
+    """88 and 104 are TMA head dims of the forward and the backward on
+    every route: bf16 on the TMA + wgmma kernels, fp32 on their 6-pass
+    planes ("highest", None) or 3-pass planes ("high")."""
     assert hd in A.KERNEL_HEAD_DIMS and hd in A.TMA_HEAD_DIMS
-    assert hd not in A.BWD_HEAD_DIMS
+    assert hd in A.BWD_HEAD_DIMS
     assert A.kernel_route(torch.bfloat16, hd, None) == "wgmma"
     assert A.kernel_route(torch.bfloat16, hd, "high") == "wgmma"
     assert A.kernel_route(torch.float32, hd, None) == "6pass"
@@ -320,19 +423,66 @@ class _OnTheCard:
     def element_size(self):
         return torch.tensor([], dtype=self.dtype).element_size()
 
+    def to(self, dtype):
+        return _OnTheCard(self.shape, dtype)
+
+    def contiguous(self):
+        return self
+
 
 @pytest.mark.parametrize("hd", HEAD_DIMS)
-def test_cuda_checks_admit_the_forward_and_refuse_the_backward(hd):
-    for dtype, route in ((torch.bfloat16, "wgmma"), (torch.float32, "6pass")):
+def test_cuda_checks_admit_the_forward_and_the_backward(hd, monkeypatch):
+    """On every route: the forward's geometry check admits ``hd`` in the
+    packed and V-V layouts, and ``attention_packed_bwd``'s argument checks
+    admit it and hand the launch to the route's C entry point (recorded in
+    place of the library) with the head dim, the shape, the row strides
+    and the section offsets of the packed layout."""
+    launched = []
+
+    def entry(route):
+        def call(*args):
+            launched.append((route, args))
+            return 0
+        return call
+
+    monkeypatch.setattr(A, "_bwd_kernel", lambda: entry("wgmma"))
+    monkeypatch.setattr(A, "_kernels_6pass",
+                        lambda: (None, None, entry("6pass")))
+    monkeypatch.setattr(A, "_kernels_3pass_wgmma",
+                        lambda: (None, None, entry("3pass_wgmma")))
+    monkeypatch.setattr(A, "_planes", lambda route, x: _OnTheCard(
+        (3 if route == "6pass" else 2, *x.shape), torch.bfloat16))
+    monkeypatch.setattr(A.torch, "empty_like",
+                        lambda t: _OnTheCard(t.shape, t.dtype))
+    monkeypatch.setattr(A.torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(A.torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    for counter in ("launches", "launches_6pass", "launches_3pass"):
+        monkeypatch.setattr(A.attention_packed_bwd, counter, 0)
+    dm = 16 * hd
+    for dtype, precision, route in ((torch.bfloat16, None, "wgmma"),
+                                    (torch.float32, None, "6pass"),
+                                    (torch.float32, "high", "3pass_wgmma")):
         for sections in (3, 1):
-            x = _OnTheCard((2, 1370, sections * 16 * hd), dtype)
-            (B, S, dm, got_hd, scale, offs), got = A._check_cuda(
-                "attention_packed", x, 16, 1370, sections)
-            assert (B, S, dm, got_hd, got) == (2, 1370, 16 * hd, hd, route)
+            x = _OnTheCard((2, 1370, sections * dm), dtype)
+            (B, S, got_dm, got_hd, scale, offs), got = A._check_cuda(
+                "attention_packed", x, 16, 1370, sections, precision)
+            assert (B, S, got_dm, got_hd, got) == (2, 1370, dm, hd, route)
             assert scale == hd ** -0.5
-        qkv = _OnTheCard((2, 1370, 3 * 16 * hd), dtype)
-        with pytest.raises(NotImplementedError, match="ROADMAP B11"):
-            A.attention_packed_bwd(qkv, None, None, 16, 1370)
+        qkv = _OnTheCard((2, 1370, 3 * dm), dtype)
+        lse = _OnTheCard((2, 16, 1370), torch.float32)
+        A.attention_packed_bwd(qkv, _OnTheCard((2, 1370, dm), dtype), lse,
+                               16, 1201, precision=precision)
+        got_route, args = launched.pop()
+        # (..., head_dim, batch, seq, valid_len, heads, ld, q_off, k_off,
+        # v_off, do_ld, scale, stream)
+        assert got_route == route and not launched
+        assert args[-12:-1] == (hd, 2, 1370, 1201, 16, 3 * dm, 0, dm,
+                                2 * dm, dm, hd ** -0.5)
+    assert (A.attention_packed_bwd.launches,
+            A.attention_packed_bwd.launches_6pass,
+            A.attention_packed_bwd.launches_3pass) == (3, 1, 1)
     # a head dim the forward has no kernel for is a ValueError, not B11's
     with pytest.raises(ValueError, match="no kernel instantiation"):
         A._check_cuda("attention_packed",
