@@ -21,32 +21,68 @@
 // 989 TFLOP/s), against ~158 MB moved (qkv and d(qkv) 67.3 MB each, dO
 // 22.4 MB, lse 0.7 MB: 0.047 ms at 3.35 TB/s). Operations bound it.
 //
-// Why nine products, not five. On the TPU the q grid axis runs in order
-// and dK/dV accumulate in VMEM across q blocks, so one walk does S, dP,
-// dV, dQ and dK. Blocks on Hopper run in no order, and dQ sums over keys
-// while dK and dV sum over queries; without atomics (which would make the
-// result depend on the order blocks finish) the work is split into two
-// kernels, deterministic, each output element written once:
-//  (A) attn_bwd_dq_*, query-outer: one block per (query tile, head,
-//      image). Walk 1 over the K/V tiles recomputes S = Q K^T and
-//      dP = dO V^T (2 products) and sums dsum = rowsum(dP * P), stored to
-//      `dsum` [B, H, S] for kernel B; dsum must be complete before any dS,
-//      so walk 2 recomputes S and dP and accumulates dQ += dS K
-//      (3 products).
-//  (B) attn_bwd_dkdv_*, key-outer: one block per (key tile, head, image)
-//      walks the query tiles, recomputes S^T = K Q^T and dP^T = V dO^T and
-//      accumulates dV += bf16(P)^T dO and dK += dS^T Q (4 products).
-// That is 9 S^2*hd products (18*B*H*S^2*hd FLOP, 276.8 GFLOP at the shape
-// above, 0.280 ms at peak). The first port did the same 9 on mma.sync (its
-// header said 11; it was 9). Five would need either FlashAttention-2's
-// dsum = rowsum(dO * O), which departs from the TPU kernel's arithmetic,
-// or dQ summed across key-outer blocks with atomics, which is not
-// deterministic; this design takes neither.
+// Seven products at hd 88 and 104 in bf16, nine elsewhere, not five. On
+// the TPU the q grid axis runs in order and dK/dV accumulate in VMEM
+// across q blocks, so one walk does S, dP, dV, dQ and dK. Blocks on Hopper
+// run in no order, and dQ sums over keys while dK and dV sum over queries.
+// dsum must be complete before any dS, so it costs a walk of its own (S
+// and dP: 2 products): FlashAttention-2's dsum = rowsum(dO * O) would need
+// the forward's output and departs from the TPU kernel's arithmetic. Every
+// route below is deterministic (two calls give the same bits), with no
+// atomic whose order depends on which block finishes first.
+//  - bf16 at hd 88 and 104 (key_outer_head_dim): attn_bwd_dsum_wgmma, the
+//    dsum pre-pass (kernel A's walk 1: 2 products), then
+//    attn_bwd_kv_wgmma, key-outer: S^T, dP^T, dV, dK and each streamed
+//    query tile's dQ partial dS K over the block's keys (5 products), the
+//    partials summed over the key blocks in a fixed order (below). That is
+//    7 S^2*hd products, 14*B*H*S^2*hd FLOP (0.354 ms at 989 TFLOP/s at B 8,
+//    H 16, S 1370, hd 104; 0.299 at 88).
+//  - every other head dim and route: two kernels, each output element
+//    written once. (A) attn_bwd_dq_*, query-outer: one block per (query
+//    tile, head, image). Walk 1 over the K/V tiles recomputes S = Q K^T
+//    and dP = dO V^T (2 products) and sums dsum = rowsum(dP * P), stored
+//    to `dsum` [B, H, S] for kernel B; walk 2 recomputes S and dP and
+//    accumulates dQ += dS K (3 products). (B) attn_bwd_dkdv_*, key-outer:
+//    one block per (key tile, head, image) walks the query tiles,
+//    recomputes S^T = K Q^T and dP^T = V dO^T and accumulates dV +=
+//    bf16(P)^T dO and dK += dS^T Q (4 products). That is 9 S^2*hd
+//    products (18*B*H*S^2*hd FLOP, 276.8 GFLOP at hd 64, 0.280 ms at
+//    peak). The first port did the same 9 on mma.sync (its header said
+//    11; it was 9).
+//
+// The key-outer kernel's order (hd 88 and 104, bf16). dQ's partials meet
+// in the wrapper's fp32 workspace dq_acc [B, H, nq * 64, HD] (nq = ceil(S
+// / 64) query tiles); counters[(b * H + h) * nq + m], zeroed by the
+// dsum pre-pass on every call, names the key block whose turn it is to add to
+// query tile m. Key block n of (b, h), its partial of tile m in shared
+// memory, waits until the counter reads n (ld.acquire.gpu), adds the
+// partial with one bulk reduce (cp.reduce.async.bulk .add.f32; block 0
+// writes it with a bulk copy instead, so dq_acc needs no memset), frees
+// the shared buffer once the copy has read it (wait_group.read), waits
+// until the writes are done (cp.async.bulk.wait_group 0, not .read),
+// fences the async proxy and counts the counter on to n + 1
+// (red.release.gpu). The last key block below valid_len reads the sum
+// instead, adds its own partial in fp32 (the addition the bulk reduce
+// would make) and stores dQ in bf16. So dQ = ((p_0 + p_1) + p_2) + ... in
+// key-block order whatever order blocks run in; key blocks wholly past
+// valid_len are not in the chain. The kernel takes its work (image,
+// head, key block) from an atomic ticket (the counter after the chains')
+// on a persistent grid of one block per SM, in groups of 16 (image, head)
+// pairs, key block major within a group (KvTiles::kHeadGroup): key block
+// n of a head takes its ticket 16 tickets after block n - 1, which is
+// then a few tiles ahead, so its turns have mostly come (with one head's
+// key blocks on consecutive tickets each waited on the one before, and
+// the call ran slower on an H100; so did groups of 32 or more). A block
+// waits only on a key block of its own head with a smaller ticket, which
+// a running block has already taken, so no block waits on one that has
+// not started, on any grid; a group's accumulators (16 x 1370 x 104 x 4
+// B = 9.1 MB) stay in L2.
 //
 // Routes. bf16 at a TMA head dim (tma_head_dim: 64, ViT-L and ViT-B; 80,
 // open_clip's ViT-H-14; 88, its ViT-g-14; 104, its ViT-bigG-14; 128) runs
-// the TMA + wgmma pair
-// attn_bwd_dq_wgmma<HD> / attn_bwd_dkdv_wgmma<HD> below. fp32 there, the
+// on TMA + wgmma: at 64, 80 and 128 the pair attn_bwd_dq_wgmma<HD> /
+// attn_bwd_dkdv_wgmma<HD>, at 88 and 104 attn_bwd_dsum_wgmma<HD> /
+// attn_bwd_kv_wgmma<HD> (above, and below the pair). fp32 there, the
 // CLIs' default precision ("highest"), runs attn_bwd_dq_6pass<HD> /
 // attn_bwd_dkdv_6pass<HD>, the same pair with every product in the TPU's
 // native 6-pass form (below); fp32 under precision "high" (the 3-pass
@@ -102,6 +138,25 @@
 //      shared memory; bf16(P^T) and bf16(dS^T) are the register A
 //      operands of dV += P^T dO and dK += dS^T Q with dO and Q read
 //      MN-major; dK and dV stay in fp32 registers.
+// The key-outer kernel at 88 and 104 is kernel B's plan with a dQ
+// warpgroup beside its two consumers: each consumer also writes its
+// bf16(dS^T) rows into a 128-byte-swizzled shared buffer (put_ds, the
+// layout TMA writes), while its dV and dK products run; the dQ warpgroup
+// takes each tile's partial dQ[64 queries x HD] = dS K over the block's
+// 128 keys from that buffer (A, MN-major) and the own K rows (B,
+// MN-major), a chunk at a time (m64n64, then m64n24 / m64n40: 32
+// accumulator registers), and hands it to the producer's writer warps
+// through two fp32 buffers; the writer keeps the order above. So the
+// consumers' loop is kernel B's plus one shared store, and dQ's
+// accumulator never sits beside dK, dV, S^T and dP^T. (Split between the
+// two consumers by columns, dQ made each consumer wait on the other's
+// dS^T and on the writer every tile, and ran slower than the pair at 88
+// and 104 on an H100.) The two consumers take turns issuing a tile's S^T
+// and dP^T (turn_wait / turn_pass, named barriers 2 and 3): started
+// together from the same stage, both waited on their products at once and
+// then left the tensor cores to the dQ warpgroup during their elementwise
+// work; in turns, one's exponentials run beside the other's products
+// (1.05x faster at 88 on an H100, the same bits).
 // Ragged tail as in the forward: rows >= S read as zeros and are never
 // stored (a padded query row's lse is +inf, so its P is 0), keys >=
 // valid_len get P = 0, and key tiles wholly past valid_len store zero
@@ -133,10 +188,14 @@
 // head's gradient). So every route spends exactly hd's own products into the
 // head, and at 88 and 104 one padded k-step more in each product over it
 // (6 / 5.5 and 7 / 6.5 of S's and dP's work, which the bound does not
-// count). The tile plans (BwdTiles; own rows per block x rows per streamed
-// tile x stages, threads, shared memory of kernels A / B):
-//   bf16      hd 64-128: 128 x 64 x 3, 384 threads, 81 / 83 KB at 64,
-//                        161 / 163 KB at 80, 88, 104 and 128
+// count). The tile plans (BwdTiles, KvTiles; own rows per block x rows
+// per streamed tile x stages, threads, shared memory of kernels A / B):
+//   bf16      hd 64, 80, 128: 128 x 64 x 3, 384 threads, 81 / 83 KB at 64,
+//                        161 / 163 KB at 80 and 128
+//             hd 88, 104: the dsum pre-pass 128 x 64 x 3, 384 threads,
+//                        161 KB; the key-outer kernel 128 x 64 x 2, 512
+//                        threads, 206 / 214 KB (two dS^T and two fp32 dQ
+//                        buffers besides)
 //   6-pass    hd 64:     128 x 64 x 2, 384 threads, 193 / 194 KB
 //             hd 80-128:  64 x 32 x 2, 160 threads, 193 / 194 KB
 //   3-pass    hd 64:     128 x 64 x 3, 384 threads, 161 / 163 KB
@@ -146,7 +205,9 @@
 // that plan above 64, dQ, dK and dV at 40, 44, 52 or 64 registers each, and
 // kernel A's overlapped walks (a 288-thread plan without the hand-off, two
 // consumers and one producer warp, spilled in kernel B: registers go per
-// SM quarter, and 9 warps put 3 in one, as 12 do). The plane pairs hold kP
+// SM quarter, and 9 warps put 3 in one, as 12 do). The key-outer kernel's
+// 512 threads hand registers over as 200 (consumers) / 72 (dQ) / 40
+// (producer). The plane pairs hold kP
 // planes of two chunks of the own rows: 128 rows of Q and dO would take
 // 2 x kP x 32 KB (192 KB on the 6-pass route) before any streamed tile,
 // so their blocks own 64 rows, one consumer warpgroup and one producer
@@ -160,7 +221,11 @@
 // 3-pass 128 / 195 and 156 / 234; hd 64 168 each; no spill and no stack
 // frame anywhere. C75xx notes: C7519 (warpgroup.arrive injected) in
 // attn_bwd_dq_wgmma at 64, 80 and 128, and C7512 (wgmma serialized for
-// want of registers) at 128. 88 and 104 as phase 2 prints them (PERF.md).
+// want of registers) at 128. At 88 / 104: the pre-pass 168 registers, no
+// spill, C7517 (warpgroup.wait injected); the key-outer kernel 128 at
+// launch (200 / 72 / 40 after the hand-off), 28 / 36 bytes spilled;
+// 6-pass dq / dkdv 152 / 228 and 170 / 246, 3-pass 132 / 207 and 150 /
+// 232.
 
 #include <math.h>
 
@@ -821,17 +886,17 @@ __device__ __forceinline__ void store_head(TO* dst, int64_t ld,
     store_cols<Head<HD>::cols(1)>(dst + kTileCols, ld, acc + 32, row_a, S, t);
 }
 
-template <int HD>
-__global__ void __launch_bounds__(BwdTiles<1, HD>::kThreads, 1)
-attn_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
-                  const __grid_constant__ CUtensorMap tk,
-                  const __grid_constant__ CUtensorMap tv,
-                  const __grid_constant__ CUtensorMap tdo,
-                  const float* __restrict__ lse, float* __restrict__ dsum,
-                  __nv_bfloat16* __restrict__ dqkv, int S, int valid_len,
-                  int64_t ld, int q_off, float scale) {
+// Kernel A's body: walk 1 (dsum) and, with kDq, walk 2 (dQ into d(qkv)'s
+// Q columns); without it, the key-outer plan's dsum pre-pass.
+template <int HD, bool kDq>
+__device__ __forceinline__ void query_outer(
+    const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+    const CUtensorMap& tdo, const float* __restrict__ lse,
+    float* __restrict__ dsum, __nv_bfloat16* __restrict__ dqkv, int S,
+    int valid_len, int64_t ld, int q_off, float scale) {
   using T = BwdTiles<1, HD>;
   constexpr int kN = T::kWalk, kKK = kN / 16;
+  constexpr int kWalks = kDq ? 2 : 1;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sQ = align_atom(smem_raw);  // [chunk][own rows][64]
   uint8_t* sdO = sQ + T::kOwnPlane;    // [chunk][own rows][64]
@@ -844,7 +909,7 @@ attn_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
 
   const int q0 = blockIdx.x * T::kRows;
   const int h = blockIdx.y, b = blockIdx.z;
-  const int col = h * HD;
+  [[maybe_unused]] const int col = h * HD;  // walk 2's
   const int n = (valid_len + kN - 1) / kN;
   if (threadIdx.x == 0) {
     mbar_init(own_full, 1);
@@ -857,13 +922,13 @@ attn_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
   __syncthreads();
 
   const int wg = threadIdx.x / 128;
-  if (wg == T::kWgs) {  // producer: Q and dO once, then K/V tiles twice
+  if (wg == T::kWgs) {  // producer: Q and dO once, then K/V tiles per walk
     producer_regs<T>();
     if (threadIdx.x == T::kWgs * 128) {
       mbar_arrive_expect_tx(own_full, T::kOwn);
       load_own<T>(sQ, &tq, own_full, h * head_col<HD>(), q0, b, 0);
       load_own<T>(sdO, &tdo, own_full, h * head_col<HD>(), q0, b, 0);
-      for (int it = 0; it < 2 * n; ++it) {
+      for (int it = 0; it < kWalks * n; ++it) {
         const int st = it % T::kStages;
         if (it >= T::kStages)
           mbar_wait(&empty[st], (it / T::kStages - 1) & 1);
@@ -929,6 +994,7 @@ attn_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
       if (row_a < S) dsum[lrow + row_a] = ds_row[0];
       if (row_a + 8 < S) dsum[lrow + row_a + 8] = ds_row[1];
     }
+    if constexpr (!kDq) return;
 
     // walk 2: dQ = dS K. Tile it's S and dP are issued together with the
     // previous tile's dQ product, whose dS fragments (dsf) the elementwise
@@ -977,6 +1043,57 @@ attn_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
     store_head<HD>(dqkv + (int64_t)b * S * ld + q_off + col, ld, dq, row_a,
                    S, t);
   }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(BwdTiles<1, HD>::kThreads, 1)
+attn_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  const __grid_constant__ CUtensorMap tdo,
+                  const float* __restrict__ lse, float* __restrict__ dsum,
+                  __nv_bfloat16* __restrict__ dqkv, int S, int valid_len,
+                  int64_t ld, int q_off, float scale) {
+  query_outer<HD, true>(tq, tk, tv, tdo, lse, dsum, dqkv, S, valid_len, ld,
+                        q_off, scale);
+}
+
+// One streamed tile of kernel B's consumers (and the key-outer kernel's):
+// from S^T and dP^T (s, dp: [64 keys x kWalk queries], fp32) and the
+// tile's lse and dsum rows, bf16(P^T) into pf and round(dS^T) into dsf,
+// then dV += P^T dO and dK += dS^T Q issued and committed; the caller
+// waits. keep_r: whether each of the thread's two key rows is below
+// valid_len.
+template <class T>
+__device__ __forceinline__ void dkdv_tile(
+    float (&s)[T::kWalk / 2], float (&dp)[T::kWalk / 2],
+    uint32_t (&pf)[T::kWalk / 16][4], uint32_t (&dsf)[T::kWalk / 16][4],
+    float (&dk)[T::kHD / 2], float (&dv)[T::kHD / 2],
+    const float* rows, const bool (&keep_r)[2], int t, float scale,
+    uint64_t q_desc, uint64_t do_desc) {
+  constexpr int kN = T::kWalk;
+#pragma unroll
+  for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = j * 8 + t * 2 + (i & 1);
+      s[4 * j + i] = keep_r[i >> 1]
+                         ? __expf(__fmul_rn(s[4 * j + i], scale) - rows[c])
+                         : 0.f;
+    }
+  pack_frags(pf, s);  // bf16(P)^T
+#pragma unroll
+  for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = j * 8 + t * 2 + (i & 1);
+      dp[4 * j + i] = s[4 * j + i] * (dp[4 * j + i] - rows[kN + c]) * scale;
+    }
+  pack_frags(dsf, dp);  // round(dS)^T
+  wgmma_fence();
+  mma_rows<T::kHD>(dv, pf, do_desc, T::kBox);
+  mma_rows<T::kHD>(dk, dsf, q_desc, T::kBox);
+  wgmma_commit();
 }
 
 template <int HD>
@@ -1077,31 +1194,8 @@ attn_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
         wgmma_wait<0>();
         fence_operand(s);
         fence_operand(dp);
-        const float* rows = sRow + st * 2 * kN;
-#pragma unroll
-        for (int j = 0; j < kN / 8; ++j)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int c = j * 8 + t * 2 + (i & 1);
-            s[4 * j + i] =
-                keep_r[i >> 1]
-                    ? __expf(__fmul_rn(s[4 * j + i], scale) - rows[c])
-                    : 0.f;
-          }
-        pack_frags(pf, s);  // bf16(P)^T
-#pragma unroll
-        for (int j = 0; j < kN / 8; ++j)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int c = j * 8 + t * 2 + (i & 1);
-            dp[4 * j + i] =
-                s[4 * j + i] * (dp[4 * j + i] - rows[kN + c]) * scale;
-          }
-        pack_frags(dsf, dp);  // round(dS)^T
-        wgmma_fence();
-        mma_rows<HD>(dv, pf, do_desc, T::kBox);
-        mma_rows<HD>(dk, dsf, q_desc, T::kBox);
-        wgmma_commit();
+        dkdv_tile<T>(s, dp, pf, dsf, dk, dv, sRow + st * 2 * kN, keep_r, t,
+                     scale, q_desc, do_desc);
         wgmma_wait<0>();
         fence_operand(dv);
         fence_operand(dk);
@@ -1185,6 +1279,644 @@ int launch_wgmma(int batch, int seq, int heads, cudaStream_t st,
   attn_bwd_dkdv_wgmma<HD><<<grid, T::kThreads, T::kDkdvSmem, st>>>(
       maps[0], maps[1], maps[2], maps[3], lse, dsum, static_cast<B*>(dqkv),
       seq, valid_len, ld, k_off, v_off, scale);
+  note_launch();
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------ bf16 at hd 88 and 104: seven products
+
+// The head dims whose bf16 backward is the dsum pre-pass and the key-outer
+// kernel below; every other head dim's bf16 backward is the pair above.
+constexpr bool key_outer_head_dim(int hd) { return hd == 88 || hd == 104; }
+
+// The dsum pre-pass: kernel A's walk 1 alone, on kernel A's plan (128 own
+// query rows, 64-key tiles through the ring, the producer's register
+// hand-off): dsum = rowsum(dP * P) of S = Q K^T and dP = dO V^T in fp32,
+// into `dsum` [B, H, S]. Two S^2*hd products. It also zeroes the
+// key-outer kernel's counters for this call, which runs after it on the
+// stream: each block those of its own query tiles (its image and head's,
+// nq = ceil(S / 64) of them), block (0, 0, 0) the ticket after them.
+template <int HD>
+__global__ void __launch_bounds__(BwdTiles<1, HD>::kThreads, 1)
+attn_bwd_dsum_wgmma(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo,
+                    const float* __restrict__ lse, float* __restrict__ dsum,
+                    int* __restrict__ counters, int S, int valid_len,
+                    float scale) {
+  using T = BwdTiles<1, HD>;
+  constexpr int kTiles = T::kRows / T::kWalk;  // query tiles per block
+  const int nq = (S + T::kWalk - 1) / T::kWalk;
+  const int64_t bh = (int64_t)blockIdx.z * gridDim.y + blockIdx.y;
+  if (threadIdx.x < kTiles && blockIdx.x * kTiles + threadIdx.x < nq)
+    counters[bh * nq + blockIdx.x * kTiles + threadIdx.x] = 0;
+  if (threadIdx.x == 0 && blockIdx.x == 0 && bh == 0)
+    counters[(int64_t)gridDim.z * gridDim.y * nq] = 0;
+  query_outer<HD, false>(tq, tk, tv, tdo, lse, dsum, nullptr, S, valid_len,
+                         0, 0, scale);
+}
+
+// The products of dQ's partial, d[64 x N] (+)= A . B with A and B from
+// shared memory, both MN-major (the operand's rows are the reduction):
+// m64nNk16 on a head's chunks, 64 columns or the last chunk's 24 or 40.
+__device__ __forceinline__ void wgmma_ss_n24_mn(float (&d)[12], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %14, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11"
+      "}, %12, %13, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_n40_mn(float (&d)[20], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %22, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19"
+      "}, %20, %21, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_n64_mn(float (&d)[32], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (+)= A . B, both MN-major from shared memory, N columns; d points at
+// N / 2 accumulators.
+template <int N>
+__device__ __forceinline__ void wgmma_ss_mn(float* d, uint64_t da,
+                                            uint64_t db, int scale_d) {
+  if constexpr (N == 64) {
+    wgmma_ss_n64_mn(*reinterpret_cast<float(*)[32]>(d), da, db, scale_d);
+  } else if constexpr (N == 40) {
+    wgmma_ss_n40_mn(*reinterpret_cast<float(*)[20]>(d), da, db, scale_d);
+  } else {
+    static_assert(N == 24, "MN-major products of 64, 40 or 24 columns");
+    wgmma_ss_n24_mn(*reinterpret_cast<float(*)[12]>(d), da, db, scale_d);
+  }
+}
+
+// The key-outer kernel's plan: BwdTiles<1, HD>'s own rows (128 keys, K and
+// V) and streamed tiles (64 queries, Q and dO) in a ring of kStages, two
+// buffers of a tile's dS^T (bf16, 128 keys x 64 queries, 128-byte
+// swizzled) and kDqBufs of its dQ partial (fp32, 64 queries x HD, the
+// workspace's layout), then the mbarriers, the stages' lse and dsum rows,
+// the partials' headers (item, query tile) and two item slots. Four
+// warpgroups: two consumers (64 keys each: S^T, dP^T, dV, dK), the dQ
+// warpgroup and the producer (the loader warp and three writer warps),
+// registers handed over as kRegs* give them (2 * 200 + 72 + 40 = 512 =
+// 4 * 128, the launch's share).
+template <int HD>
+struct KvTiles {
+  using T = BwdTiles<1, HD>;
+  static constexpr int kThreads = 512;
+  static constexpr int kRegsConsumer = 200, kRegsDq = 72, kRegsProducer = 40;
+  static constexpr int kStages = 2, kDqBufs = 2;
+  // tickets interleave this many (image, head) pairs, key block major
+  // within a group: key block n of a head starts kHeadGroup tickets after
+  // block n - 1, whose adds it waits for
+  static constexpr int kHeadGroup = 16;
+  static constexpr int kDs = T::kRows * kRowBytes;
+  static constexpr int kDq = T::kWalk * HD * 4;
+  // own full / empty; the ring's full / empty; item and dS full / empty,
+  // two each; dQ full / empty
+  static constexpr int kBars = 2 + 2 * kStages + 8 + 2 * kDqBufs;
+  static constexpr int kSmem = kSwizzleAtom + T::kOwn +
+                               kStages * T::kStageBytes + 2 * kDs +
+                               kDqBufs * kDq + 8 * kBars +
+                               kStages * 2 * T::kWalk * 4 +
+                               (2 * kDqBufs + 2) * 4;
+};
+
+// Chunk C of a tile's dQ partial, dQ[64 queries x the chunk's columns] =
+// dS . K over the block's 128 keys: A the tile's dS^T buffer `ds`, B chunk
+// C of the own K rows `sk` ([chunk][128 keys][64]), both MN-major, eight
+// k-steps of 16 keys (m64n64, or m64n24 / m64n40 on the last chunk). The
+// caller commits and waits.
+template <int HD, int C>
+__device__ __forceinline__ void dq_partial(
+    float (&dq)[Head<HD>::cols(C) / 2], const uint8_t* ds,
+    const uint8_t* sk) {
+  const uint64_t a = sw128_desc(ds),
+                 b = sw128_desc(sk + C * BwdTiles<1, HD>::kOwnChunk);
+#pragma unroll
+  for (int kk = 0; kk < BwdTiles<1, HD>::kRows / 16; ++kk) {
+    const int k = 16 * kRowBytes * kk;
+    wgmma_ss_mn<Head<HD>::cols(C)>(dq, desc_plus(a, k), desc_plus(b, k), kk);
+  }
+}
+
+// A consumer's bf16(dS^T) fragments (rows `row` and row + 8 of the block's
+// 128 keys, the tile's 64 queries) into the 128-byte-swizzled buffer
+// `buf`: element (r, c) at r * 128 + ((c / 8) ^ (r % 8)) * 16 + (c % 8) * 2,
+// as TMA would have written it.
+__device__ __forceinline__ void put_ds(uint8_t* buf, const uint32_t (&f)[4][4],
+                                       int row, int t) {
+  uint8_t* r0 = buf + row * kRowBytes;
+  const int g = row & 7;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int c = ((j ^ g) << 4) + 4 * t;
+    *reinterpret_cast<uint32_t*>(r0 + c) = f[j >> 1][(j & 1) * 2];
+    *reinterpret_cast<uint32_t*>(r0 + 8 * kRowBytes + c) =
+        f[j >> 1][(j & 1) * 2 + 1];
+  }
+}
+
+// Generic-proxy writes to shared memory made visible to the async proxy
+// (wgmma's shared-memory operands, the bulk copies), before the barrier
+// that hands them over.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The workspace's global accesses ordered between the async proxy (the
+// bulk copies) and the generic proxy (the counters' acquire and release,
+// the last block's loads).
+__device__ __forceinline__ void fence_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// Wait until the counter at p reads `want` (acquire, GPU scope); traps
+// after kHangNs without it, as mbar_wait does.
+__device__ __forceinline__ void wait_counter(const int* p, int want) {
+  uint64_t t0 = 0;
+  for (int i = 0;; ++i) {
+    int v;
+    asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n"
+                 : "=r"(v)
+                 : "l"(p)
+                 : "memory");
+    if (v == want) return;
+    uint64_t now;
+    asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
+    if (i == 0)
+      t0 = now;
+    else if (now - t0 > kHangNs)
+      __trap();
+  }
+}
+
+// The next key block's turn: the counter at p one more (release, GPU
+// scope).
+__device__ __forceinline__ void release_counter(int* p) {
+  asm volatile("red.release.gpu.global.add.s32 [%0], 1;\n" ::"l"(p)
+               : "memory");
+}
+
+// `bytes` of shared memory at src into global dst, written (kAdd false) or
+// added as fp32 (kAdd true); `freed` hears once src is read, and the call
+// returns once the writes are done.
+template <bool kAdd>
+__device__ __forceinline__ void bulk_to_global(float* dst, const float* src,
+                                               int bytes, uint64_t* freed) {
+  if constexpr (kAdd)
+    asm volatile(
+        "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], "
+        "[%1], %2;\n" ::"l"(dst),
+        "r"(smem_u32(src)), "r"(bytes)
+        : "memory");
+  else
+    asm volatile(
+        "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+            dst),
+        "r"(smem_u32(src)), "r"(bytes)
+        : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  mbar_arrive(freed);
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void writer_sync() {  // the three writer warps
+  asm volatile("bar.sync 1, 96;\n" ::: "memory");
+}
+
+// The consumers' turns at the tensor cores: consumer wg issues a tile's
+// S^T and dP^T after the other has issued its own (barrier 2 + wg, 128
+// threads waiting and the other's 128 arriving), so one consumer's
+// elementwise work runs beside the other's products.
+__device__ __forceinline__ void turn_wait(int wg) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(2 + wg) : "memory");
+}
+
+__device__ __forceinline__ void turn_pass(int wg) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(3 - wg) : "memory");
+}
+
+// The shared memory and arguments the key-outer kernel's roles share.
+struct KvShared {
+  uint8_t *sK, *sV, *sQdO, *sDs;
+  float *sDq, *sRow;
+  uint64_t *own_full, *own_empty, *full, *empty, *item_full, *item_empty,
+      *ds_full, *ds_empty, *dq_full, *dq_empty;
+  int *hdr, *slot;
+  int S, valid_len, heads, nk, nq;
+};
+
+// Consumer warpgroup wg (0 or 1) of the key-outer kernel: per item (image,
+// head, key block of 128 keys) its 64 keys' dK and dV over every streamed
+// query tile, as kernel B computes them, and each tile's bf16(dS^T) rows
+// into the dS^T buffer the dQ warpgroup reads.
+template <int HD>
+__device__ __forceinline__ void kv_consumer(const KvShared& m, int wg,
+                                            __nv_bfloat16* __restrict__ dqkv,
+                                            int64_t ld, int k_off, int v_off,
+                                            float scale) {
+  using T = BwdTiles<1, HD>;
+  using K = KvTiles<HD>;
+  constexpr int kN = T::kWalk, kKK = kN / 16;
+  const int warp = (threadIdx.x % 128) / 32;
+  const int g = (threadIdx.x & 31) >> 2;
+  const int t = threadIdx.x & 3;
+  const int own = wg * kWgRows + warp * 16 + g;  // row of the block's keys
+  const uint64_t dk_desc = sw128_desc(m.sK + wg * kWgRows * kRowBytes);
+  const uint64_t dv_desc = sw128_desc(m.sV + wg * kWgRows * kRowBytes);
+  int active = 0, tile = 0;  // active items and tiles so far
+  if (wg == 1) turn_pass(wg);  // consumer 0 goes first
+  for (int k = 0;; ++k) {
+    mbar_wait(&m.item_full[k % 2], (k / 2) & 1);
+    const int item = m.slot[k % 2];
+    mbar_arrive(&m.item_empty[k % 2]);
+    if (item < 0) {
+      if (wg == 0) turn_wait(wg);  // consumer 1's last pass
+      break;
+    }
+    const int bh = item / m.nk, kv0 = (item % m.nk) * T::kRows;
+    const int b = bh / m.heads, h = bh % m.heads;
+    const int row_a = kv0 + own;
+    float dk[Head<HD>::kRegs], dv[Head<HD>::kRegs];
+#pragma unroll
+    for (int i = 0; i < Head<HD>::kRegs; ++i) dk[i] = dv[i] = 0.f;
+    if (kv0 < m.valid_len) {  // else zero gradients, nothing loaded
+      const bool keep_r[2] = {row_a < m.valid_len, row_a + 8 < m.valid_len};
+      mbar_wait(m.own_full, active & 1);
+      ++active;
+      float s[kN / 2], dp[kN / 2];  // S^T and dP^T: [64 keys x 64 queries]
+      uint32_t pf[kKK][4], dsf[kKK][4];
+      for (int it = 0; it < m.nq; ++it, ++tile) {
+        const int st = tile % K::kStages;
+        mbar_wait(&m.full[st], (tile / K::kStages) & 1);
+        const uint8_t* stage = m.sQdO + st * T::kStageBytes;
+        const uint64_t q_desc = sw128_desc(stage);
+        const uint64_t do_desc = sw128_desc(stage + T::kWalkPlane);
+        turn_wait(wg);
+        issue_scores_and_dp<HD, kN>(s, dp, dk_desc, dv_desc, T::kOwnChunk,
+                                    q_desc, do_desc, T::kBox);
+        turn_pass(wg);
+        wgmma_wait<0>();
+        fence_operand(s);
+        fence_operand(dp);
+        dkdv_tile<T>(s, dp, pf, dsf, dk, dv, m.sRow + st * 2 * kN, keep_r, t,
+                     scale, q_desc, do_desc);
+        // while dV and dK run: this tile's dS^T for the dQ warpgroup
+        const int db = tile % 2;
+        if (tile >= 2) mbar_wait(&m.ds_empty[db], (tile / 2 - 1) & 1);
+        put_ds(m.sDs + db * K::kDs, dsf, own, t);
+        fence_async_smem();
+        mbar_arrive(&m.ds_full[db]);
+        wgmma_wait<0>();
+        fence_operand(dv);
+        fence_operand(dk);
+        fence_frags(pf);
+        fence_frags(dsf);
+        mbar_arrive(&m.empty[st]);
+      }
+      mbar_arrive(m.own_empty);  // K and V are read for the last time
+    }
+    __nv_bfloat16* out = dqkv + (int64_t)b * m.S * ld + h * HD;
+    store_head<HD>(out + k_off, ld, dk, row_a, m.S, t);
+    store_head<HD>(out + v_off, ld, dv, row_a, m.S, t);
+  }
+}
+
+// The dQ warpgroup of the key-outer kernel: per streamed tile of an active
+// item, its dQ partial over the block's 128 keys (dq_partial, from the
+// consumers' dS^T buffer and the own K rows) a chunk at a time, so its
+// accumulator is 32 registers, into a dQ buffer the writer warps take
+// with its header; after the last item, a header that ends the writer.
+template <int HD>
+__device__ __forceinline__ void kv_dq(const KvShared& m) {
+  using T = BwdTiles<1, HD>;
+  using K = KvTiles<HD>;
+  constexpr int kB = K::kDqBufs;
+  const int row = (threadIdx.x % 128) / 32 * 16 + ((threadIdx.x & 31) >> 2);
+  const int t = threadIdx.x & 3;
+  const bool lead = threadIdx.x % 128 == 0;
+  int tile = 0;
+  for (int k = 0;; ++k) {
+    mbar_wait(&m.item_full[k % 2], (k / 2) & 1);
+    const int item = m.slot[k % 2];
+    mbar_arrive(&m.item_empty[k % 2]);
+    if (item < 0) break;
+    if ((item % m.nk) * T::kRows >= m.valid_len) continue;
+    for (int it = 0; it < m.nq; ++it, ++tile) {
+      const int db = tile % 2, qb = tile % kB;
+      float* dst = m.sDq + qb * (K::kDq / 4);
+      mbar_wait(&m.ds_full[db], (tile / 2) & 1);
+      if (tile >= kB) mbar_wait(&m.dq_empty[qb], (tile / kB - 1) & 1);
+      float d0[Head<HD>::cols(0) / 2], d1[Head<HD>::cols(1) / 2];
+      wgmma_fence();
+      dq_partial<HD, 0>(d0, m.sDs + db * K::kDs, m.sK);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operand(d0);
+      store_cols<kTileCols>(dst, HD, d0, row, T::kWalk, t);
+      wgmma_fence();
+      dq_partial<HD, 1>(d1, m.sDs + db * K::kDs, m.sK);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operand(d1);
+      mbar_arrive(&m.ds_empty[db]);
+      if (it + 1 == m.nq) mbar_arrive(m.own_empty);
+      store_cols<Head<HD>::cols(1)>(dst + kTileCols, HD, d1, row, T::kWalk,
+                                    t);
+      if (lead) {
+        m.hdr[2 * qb] = item;
+        m.hdr[2 * qb + 1] = it;
+      }
+      fence_async_smem();
+      mbar_arrive(&m.dq_full[qb]);
+    }
+  }
+  const int qb = tile % kB;
+  if (tile >= kB) mbar_wait(&m.dq_empty[qb], (tile / kB - 1) & 1);
+  if (lead) m.hdr[2 * qb] = -1;  // no more partials
+  mbar_arrive(&m.dq_full[qb]);
+}
+
+// The key-outer kernel: dK, dV and dQ of every (image, head, key block of
+// 128 keys), an item each, taken in order from the atomic ticket at
+// counters[B * H * nq] by a persistent grid of one block per SM. Per item
+// the block's K and V rows stay in shared memory and the 64-query Q/dO
+// tiles stream through the ring with their lse and dsum slices, as in
+// kernel B; each tile's S^T and dP^T give bf16(P^T) for dV += P^T dO and
+// bf16(dS^T) for dK += dS^T Q and for the tile's dQ partial dS K over the
+// block's 128 keys: five S^2*hd products in all. The warpgroups (KvTiles):
+// two consumers (S^T, dP^T, dV, dK; dS^T into shared memory), the dQ
+// warpgroup (the partials) and the producer: the loader (warp 0: the
+// tickets, then each active item's K and V and its Q/dO tiles) and the
+// writer (warps 1-3), which sums the partials over the key blocks in their
+// order in the fp32 workspace dq_acc [B, H, nq * 64, HD]: key block n of a
+// head adds its partial of query tile m once the counter of (image, head,
+// m) reads n, then counts it on to n + 1. Block 0 writes in place of
+// adding; the last block below valid_len reads the sum, adds its own, and
+// stores bf16 dQ (the head's HD columns, rows below S). Blocks wholly past
+// valid_len store zero dK and dV, load nothing and are not in the chain.
+template <int HD>
+__global__ void __launch_bounds__(KvTiles<HD>::kThreads, 1)
+attn_bwd_kv_wgmma(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  const __grid_constant__ CUtensorMap tdo,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ dsum,
+                  __nv_bfloat16* __restrict__ dqkv, float* __restrict__ dq_acc,
+                  int* __restrict__ counters, int S, int valid_len,
+                  int heads, int batch, int64_t ld, int q_off, int k_off,
+                  int v_off, float scale) {
+  using T = BwdTiles<1, HD>;
+  using K = KvTiles<HD>;
+  constexpr int kN = T::kWalk;
+  constexpr int kConsumers = 2 * 128, kReaders = kConsumers + 128;
+  extern __shared__ uint8_t smem_raw[];
+  KvShared m;
+  m.sK = align_atom(smem_raw);  // [chunk][own keys][64]
+  m.sV = m.sK + T::kOwnPlane;
+  m.sQdO = m.sV + T::kOwnPlane;  // [stage]: Q's chunks, then dO's
+  m.sDs = m.sQdO + K::kStages * T::kStageBytes;
+  m.sDq = reinterpret_cast<float*>(m.sDs + 2 * K::kDs);
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(m.sDq + K::kDqBufs * (K::kDq / 4));
+  m.own_full = bars;
+  m.own_empty = bars + 1;
+  m.full = bars + 2;
+  m.empty = m.full + K::kStages;
+  m.item_full = m.empty + K::kStages;
+  m.item_empty = m.item_full + 2;
+  m.ds_full = m.item_empty + 2;
+  m.ds_empty = m.ds_full + 2;
+  m.dq_full = m.ds_empty + 2;
+  m.dq_empty = m.dq_full + K::kDqBufs;
+  // sRow[stage][0][kN]: lse of the tile's queries; [stage][1][kN]: dsum
+  m.sRow = reinterpret_cast<float*>(bars + K::kBars);
+  m.hdr = reinterpret_cast<int*>(m.sRow + K::kStages * 2 * kN);
+  m.slot = m.hdr + 2 * K::kDqBufs;
+  m.S = S;
+  m.valid_len = valid_len;
+  m.heads = heads;
+  m.nk = (S + T::kRows - 1) / T::kRows;
+  m.nq = (S + kN - 1) / kN;
+  const int n_items = batch * heads * m.nk;
+  if (threadIdx.x == 0) {
+    mbar_init(m.own_full, 1);
+    mbar_init(m.own_empty, kReaders);  // the consumers and the dQ warpgroup
+    for (int s = 0; s < K::kStages; ++s) {
+      mbar_init(&m.full[s], 32);  // the loader warp
+      mbar_init(&m.empty[s], kConsumers);
+    }
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&m.item_full[s], 1);
+      mbar_init(&m.item_empty[s], kReaders);
+      mbar_init(&m.ds_full[s], kConsumers);
+      mbar_init(&m.ds_empty[s], 128);
+    }
+    for (int s = 0; s < K::kDqBufs; ++s) {
+      mbar_init(&m.dq_full[s], 128);  // the dQ warpgroup
+      mbar_init(&m.dq_empty[s], 1);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 3) {
+    setmaxnreg_dec<K::kRegsProducer>();
+    const int pw = (threadIdx.x - 3 * 128) / 32;
+    const int lane = threadIdx.x & 31;
+    if (pw == 0) {  // the loader
+      int* ticket = counters + (int64_t)batch * heads * m.nq;
+      const int bhs = batch * heads;
+      int active = 0, tile = 0;
+      for (int k = 0;; ++k) {
+        int item = 0;
+        if (lane == 0) item = atomicAdd(ticket, 1);
+        item = __shfl_sync(0xffffffffu, item, 0);
+        const bool done = item >= n_items;
+        if (!done) {  // ticket -> (image * heads + head) * nk + key block
+          const int g = item / (K::kHeadGroup * m.nk);
+          const int r = item - g * K::kHeadGroup * m.nk;
+          const int ge = min(K::kHeadGroup, bhs - g * K::kHeadGroup);
+          item = (g * K::kHeadGroup + r % ge) * m.nk + r / ge;
+        }
+        if (lane == 0) {
+          if (k >= 2) mbar_wait(&m.item_empty[k % 2], (k / 2 - 1) & 1);
+          m.slot[k % 2] = done ? -1 : item;
+          mbar_arrive(&m.item_full[k % 2]);
+        }
+        if (done) break;
+        const int bh = item / m.nk, kv0 = (item % m.nk) * T::kRows;
+        const int b = bh / heads, h = bh % heads;
+        if (kv0 >= valid_len) continue;
+        const int64_t lrow = (int64_t)bh * S;
+        auto load_tile = [&](int it) {
+          const int st = tile % K::kStages;
+          if (tile >= K::kStages)
+            mbar_wait(&m.empty[st], (tile / K::kStages - 1) & 1);
+          float* rows = m.sRow + st * 2 * kN;
+          for (int i = lane; i < kN; i += 32) {
+            const int qr = it * kN + i;
+            rows[i] = qr < S ? lse[lrow + qr] : INFINITY;
+            rows[kN + i] = qr < S ? dsum[lrow + qr] : 0.f;
+          }
+          if (lane == 0) {
+            mbar_arrive_expect_tx(&m.full[st], T::kStageBytes);
+            load_walk<T>(m.sQdO + st * T::kStageBytes, &tq, &tdo, &m.full[st],
+                         h * head_col<HD>(), it * kN, b, 0);
+          } else {
+            mbar_arrive(&m.full[st]);
+          }
+          ++tile;
+        };
+        // the item's first tiles go out before its K and V, which wait
+        // for the previous item's last products
+        const int pre = m.nq < K::kStages ? m.nq : K::kStages;
+        for (int it = 0; it < pre; ++it) load_tile(it);
+        if (lane == 0) {
+          if (active > 0) mbar_wait(m.own_empty, (active - 1) & 1);
+          mbar_arrive_expect_tx(m.own_full, T::kOwn);
+          load_own<T>(m.sK, &tk, m.own_full, h * head_col<HD>(), kv0, b, 0);
+          load_own<T>(m.sV, &tv, m.own_full, h * head_col<HD>(), kv0, b, 0);
+        }
+        ++active;
+        for (int it = pre; it < m.nq; ++it) load_tile(it);
+      }
+    } else {  // the writer: the dQ partials in their order
+      const int wt = threadIdx.x - (3 * 128 + 32);  // 0 .. 95
+      const int n_act = (valid_len + T::kRows - 1) / T::kRows;
+      constexpr int kVec = kN * HD / 4;  // float4s of a partial
+      for (int s = 0;; ++s) {
+        const int qb = s % K::kDqBufs;
+        mbar_wait(&m.dq_full[qb], (s / K::kDqBufs) & 1);
+        const int item = m.hdr[2 * qb], mq = m.hdr[2 * qb + 1];
+        if (item < 0) break;
+        const int bh = item / m.nk, n = item % m.nk;
+        const bool first = n == 0, last = n == n_act - 1;
+        int* cnt = counters + (int64_t)bh * m.nq + mq;
+        float* acc = dq_acc + ((int64_t)bh * m.nq + mq) * (kN * HD);
+        const float* src = m.sDq + qb * (K::kDq / 4);
+        if (!first && wt == 0) {
+          wait_counter(cnt, n);
+          fence_async_global();
+        }
+        writer_sync();
+        if (last) {  // the sum in bf16 into d(qkv)'s Q columns
+          const int b = bh / heads, h = bh % heads;
+          __nv_bfloat16* dst =
+              dqkv + ((int64_t)b * S + mq * kN) * ld + q_off + h * HD;
+          for (int i = wt; i < kVec; i += 96) {
+            const int r = 4 * i / HD, c = 4 * i % HD;
+            if (mq * kN + r >= S) continue;
+            float4 v = reinterpret_cast<const float4*>(src)[i];
+            if (!first) {
+              const float4 a =
+                  __ldcg(reinterpret_cast<const float4*>(acc) + i);
+              v = make_float4(a.x + v.x, a.y + v.y, a.z + v.z, a.w + v.w);
+            }
+            uint2 o;
+            o.x = pack_f32(v.x, v.y);
+            o.y = pack_f32(v.z, v.w);
+            *reinterpret_cast<uint2*>(dst + (int64_t)r * ld + c) = o;
+          }
+          writer_sync();
+          if (wt == 0) mbar_arrive(&m.dq_empty[qb]);
+        } else if (wt == 0) {
+          if (first)
+            bulk_to_global<false>(acc, src, K::kDq, &m.dq_empty[qb]);
+          else
+            bulk_to_global<true>(acc, src, K::kDq, &m.dq_empty[qb]);
+          fence_async_global();
+          release_counter(cnt);
+        }
+      }
+    }
+  } else if (wg == 2) {
+    setmaxnreg_dec<K::kRegsDq>();
+    kv_dq<HD>(m);
+  } else {
+    setmaxnreg_inc<K::kRegsConsumer>();
+    kv_consumer<HD>(m, wg, dqkv, ld, k_off, v_off, scale);
+  }
+}
+
+// bf16 at head dim 88 or 104: the dsum pre-pass, then the key-outer kernel
+// on a persistent grid; dq_acc and counters are the wrapper's workspace
+// (aaclip_attention_packed_bwd_workspace), any contents: the pre-pass
+// zeroes the counters (the chains', then the ticket).
+template <int HD>
+int launch_key_outer(int batch, int seq, int heads, cudaStream_t st,
+                     const void* qkv, const void* dout, const float* lse,
+                     float* dsum, void* dqkv, float* dq_acc, int* counters,
+                     int valid_len, int64_t ld, int q_off, int k_off,
+                     int v_off, int64_t do_ld, float scale) {
+  using T = BwdTiles<1, HD>;
+  using K = KvTiles<HD>;
+  CUtensorMap maps[4];  // q, k, v, dO
+  if (const int err = bwd_maps<T, HD>(maps, qkv, dout, batch, seq, heads, ld,
+                                      q_off, k_off, v_off, do_ld))
+    return err;
+  if (dq_acc == nullptr || counters == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = smem_attribute_once(
+      reinterpret_cast<const void*>(attn_bwd_dsum_wgmma<HD>), T::kDqSmem);
+  if (err == cudaSuccess)
+    err = smem_attribute_once(
+        reinterpret_cast<const void*>(attn_bwd_kv_wgmma<HD>), K::kSmem);
+  int sms = 0;
+  if (err == cudaSuccess) err = sm_count(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((seq + T::kRows - 1) / T::kRows, heads, batch);
+  attn_bwd_dsum_wgmma<HD><<<grid, T::kThreads, T::kDqSmem, st>>>(
+      maps[0], maps[1], maps[2], maps[3], lse, dsum, counters, seq,
+      valid_len, scale);
+  note_launch();
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int items = batch * heads * ((seq + T::kRows - 1) / T::kRows);
+  const int blocks = items < sms ? items : sms;  // persistent: one per SM
+  attn_bwd_kv_wgmma<HD><<<blocks, K::kThreads, K::kSmem, st>>>(
+      maps[0], maps[1], maps[2], maps[3], lse, dsum,
+      static_cast<__nv_bfloat16*>(dqkv), dq_acc, counters, seq, valid_len,
+      heads, batch, ld, q_off, k_off, v_off, scale);
   note_launch();
   return static_cast<int>(cudaGetLastError());
 }
@@ -2051,24 +2783,33 @@ int launch_planes_at(int head_dim, int batch, int seq, int heads,
 // qkv and d_qkv: [batch, seq, ld] elements, the q/k/v sections of head h at
 // column {q,k,v}_off + h * head_dim; d_out: [batch, seq, do_ld]; lse and
 // the scratch dsum: [batch, heads, seq] fp32. bf16 at a TMA head dim (64,
-// 80, 88, 104, 128) takes the wgmma pair attn_bwd_{dq,dkdv}_wgmma<HD>, whose
-// tensor maps need qkv, each section's start, d_out, the row strides ld * 2
-// and do_ld * 2 bytes and (at 88 and 104) the head's head_dim * 2 bytes to
-// be multiples of kTmaAlign; fp32 there has its own
-// entries (aaclip_attention_packed_bwd_6pass, _3pass_wgmma). Returns the
-// CUDA error of the launches (0 on success); cudaErrorInvalidValue for a
-// pair with no kernel here or an operand TMA cannot take.
+// 80, 128) takes the wgmma pair attn_bwd_{dq,dkdv}_wgmma<HD>, at 88 and 104
+// attn_bwd_dsum_wgmma<HD> and attn_bwd_kv_wgmma<HD>, whose workspace
+// aaclip_attention_packed_bwd_workspace sizes: dq_acc and counters, any
+// contents (null elsewhere: no other kernel reads them). The tensor maps need qkv, each
+// section's start, d_out, the row strides ld * 2 and do_ld * 2 bytes and
+// (at 88 and 104) the head's head_dim * 2 bytes to be multiples of
+// kTmaAlign; fp32 there has its own entries
+// (aaclip_attention_packed_bwd_6pass, _3pass_wgmma). Returns the CUDA error
+// of the launches (0 on success); cudaErrorInvalidValue for a pair with no
+// kernel here, an operand TMA cannot take or a missing workspace.
 extern "C" int aaclip_attention_packed_bwd(
     const void* qkv, const void* d_out, const float* lse, float* dsum,
-    void* d_qkv, int bf16, int head_dim, int batch, int seq, int valid_len,
-    int heads, long long ld, int q_off, int k_off, int v_off, long long do_ld,
-    float scale, void* stream) {
+    void* d_qkv, float* dq_acc, int* counters, int bf16, int head_dim,
+    int batch, int seq, int valid_len, int heads, long long ld, int q_off,
+    int k_off, int v_off, long long do_ld, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16 && tma_head_dim(head_dim))
     return by_head_dim(head_dim, [&](auto hd) {
-      return launch_wgmma<decltype(hd)::value>(
-          batch, seq, heads, st, qkv, d_out, lse, dsum, d_qkv, valid_len, ld,
-          q_off, k_off, v_off, do_ld, scale);
+      constexpr int HD = decltype(hd)::value;
+      if constexpr (key_outer_head_dim(HD))
+        return launch_key_outer<HD>(batch, seq, heads, st, qkv, d_out, lse,
+                                    dsum, d_qkv, dq_acc, counters, valid_len,
+                                    ld, q_off, k_off, v_off, do_ld, scale);
+      else
+        return launch_wgmma<HD>(batch, seq, heads, st, qkv, d_out, lse, dsum,
+                                d_qkv, valid_len, ld, q_off, k_off, v_off,
+                                do_ld, scale);
     });
   if (bf16 && head_dim == 16)
     return launch_retained<16, true>(batch, seq, heads, st, qkv, d_out, lse,
@@ -2079,6 +2820,22 @@ extern "C" int aaclip_attention_packed_bwd(
                                       dsum, d_qkv, valid_len, ld, q_off,
                                       k_off, v_off, do_ld, scale);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The workspace aaclip_attention_packed_bwd takes for bf16 (bf16 != 0) or
+// fp32 operands at head_dim and seq: where the call runs the dsum pre-pass
+// and the key-outer kernel (bf16 at key_outer_head_dim), the number nq of
+// 64-row query tiles, ceil(seq / 64), for dq_acc [batch, heads, nq * 64,
+// head_dim] fp32 and counters [batch * heads * nq + 1] int32; 0 where the
+// call's kernels read no workspace (pass null pointers). The launch and
+// this answer take the plan from the same key_outer_head_dim.
+extern "C" int aaclip_attention_packed_bwd_workspace(int bf16, int head_dim,
+                                                     int seq) {
+  if (!bf16 || !key_outer_head_dim(head_dim)) return 0;
+  return by_head_dim(head_dim, [&](auto hd) {
+    constexpr int kN = BwdTiles<1, decltype(hd)::value>::kWalk;
+    return (seq + kN - 1) / kN;
+  });
 }
 
 // The 3-pass mode (fp32 under precision "high") of

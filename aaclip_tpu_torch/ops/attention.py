@@ -115,6 +115,21 @@ def kernel_route(dtype: torch.dtype, head_dim: int, precision) -> str:
 MAP_ROUTES = ("wgmma", "6pass", "3pass_wgmma")
 
 
+def _bwd_workspace(tiles: int, batch: int, heads: int, head_dim: int,
+                   device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The key-outer kernel's workspace for ``tiles`` 64-row query tiles
+    (``_bwd_workspace_tiles``): ``dq_acc``, dQ's fp32 sum over the key
+    blocks so far, ``[B, H, tiles * 64, hd]`` (each chain's first key
+    block writes it), and ``counters``, int32, one per (image, head, query
+    tile) (the key block whose turn it is to add), then the persistent
+    grid's ticket; both ``torch.empty``: the dsum pre-pass zeroes the
+    counters. Allocated per call, so no call finds another's counts."""
+    return (torch.empty(batch, heads, tiles * 64, head_dim,
+                        dtype=torch.float32, device=device),
+            torch.empty(batch * heads * tiles + 1, dtype=torch.int32,
+                        device=device))
+
+
 def split3_plain(x: torch.Tensor) -> torch.Tensor:
     """fp32 ``x`` as its three bf16 planes ``[3, *x.shape]``: hi = bf16(x),
     mid = bf16(x - hi), lo = bf16(x - hi - mid), each difference exact in
@@ -407,11 +422,27 @@ def _bwd_kernel():
 
     fn = load("attention_packed_bwd").aaclip_attention_packed_bwd
     i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
-    # qkv, d_out, lse, dsum, d_qkv, bf16, head_dim, batch, seq, valid_len,
-    # heads, ld, q_off, k_off, v_off, do_ld, scale, stream
-    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, ll, i, i, i, ll,
+    # qkv, d_out, lse, dsum, d_qkv, dq_acc, counters, bf16, head_dim, batch,
+    # seq, valid_len, heads, ld, q_off, k_off, v_off, do_ld, scale, stream
+    fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, ll, i, i, i, ll,
                    ctypes.c_float, p]
     fn.restype = i
+    return fn
+
+
+@functools.cache
+def _bwd_workspace_tiles():
+    """``aaclip_attention_packed_bwd_workspace(bf16, head_dim, seq)`` of
+    ``csrc/attention_packed_bwd.cu``: the query tiles of the workspace the
+    bf16 entry point takes for such a call (the key-outer plan's), 0 where
+    its kernels read none. The source alone picks the plan."""
+    import ctypes
+
+    from aaclip_tpu_torch.kernels.build import load
+
+    fn = load("attention_packed_bwd").aaclip_attention_packed_bwd_workspace
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
     return fn
 
 
@@ -684,8 +715,14 @@ def attention_packed_bwd(qkv: torch.Tensor, d_out: torch.Tensor,
     ``split3`` on qkv and on d_out first, the 3-pass route at
     ``TMA_HEAD_DIMS`` ``split2``) is launched on the current stream and
     ``attention_packed_bwd.launches`` (and ``launches_3pass``,
-    ``launches_6pass``) count each call (one call launches the kernel's
-    two passes)."""
+    ``launches_6pass``) count each call. A call launches two kernels: bf16
+    at head dims 88 and 104 the dsum pre-pass and the key-outer kernel,
+    which sums dQ over key blocks in a fixed order in a workspace
+    allocated here as the source sizes it (``_bwd_workspace_tiles``);
+    every other route the query-outer kernel (dsum, then dQ) and the
+    key-outer one (dK, dV).
+    Every route is deterministic: two calls on the same inputs agree bit
+    for bit."""
     if qkv.device.type == "cpu":
         return attention_packed_bwd_plain(qkv, d_out, num_heads, valid_len,
                                           precision=precision)
@@ -725,8 +762,14 @@ def attention_packed_bwd(qkv: torch.Tensor, d_out: torch.Tensor,
             rc = _kernels_3pass()[2](qkv.data_ptr(), d_out.data_ptr(), *rest,
                                      *args)
         else:
-            rc = _bwd_kernel()(qkv.data_ptr(), d_out.data_ptr(), *rest,
-                               int(qkv.dtype == torch.bfloat16), *args)
+            bf16 = int(qkv.dtype == torch.bfloat16)
+            # held until the launch is queued; null where no kernel reads it
+            tiles = _bwd_workspace_tiles()(bf16, hd, S)
+            work = (_bwd_workspace(tiles, B, num_heads, hd, qkv.device)
+                    if tiles else None)
+            ptrs = [t.data_ptr() for t in work] if work else [None, None]
+            rc = _bwd_kernel()(qkv.data_ptr(), d_out.data_ptr(), *rest, *ptrs,
+                               bf16, *args)
     if rc != 0:
         raise RuntimeError(f"attention_packed_bwd kernel launch failed: "
                            f"CUDA error {rc}")

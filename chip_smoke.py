@@ -550,6 +550,10 @@ def device_ops(fn, calls: int = 1) -> dict:
 
 # (fn, want, what) of every kernels_per_call, for check_device_ops
 DEVICE_OPS_CHECKS = []
+# {what: {kernel: device microseconds per call}} of every row
+# check_device_ops confirmed, for the phases that read them later (17c,
+# 18c: which kernels a backward call launched)
+DEVICE_OPS_SEEN = {}
 # torch.profiler on the card's machine can return a trace with some or all
 # of its device operations missing: torch's own elementwise kernels as well
 # as the ctypes libraries' kernels, whether those link the CUDA runtime
@@ -619,6 +623,7 @@ def check_device_ops() -> None:
         expect(set(seen) == set(want),
                f"{what}: the profiler saw {sorted(seen)} of {sorted(want)} "
                f"in {traces} traces")
+        DEVICE_OPS_SEEN[what] = per_call
     DEVICE_OPS_CHECKS.clear()
 
 
@@ -8518,15 +8523,75 @@ HIGH_FP64_PLAIN_FACTOR = 1.5
 HIGH_FP64_CEILING = 5e-5
 # 17c and 18c: the backward (B2) at head dims 80 and 128 (88 and 104) by
 # route, its bar against the plain version (phase 3's for bf16 and
-# 6-pass, phase 11's for the 3-pass mode) and the kernels a call
-# launches: the pair, after two splits (of qkv and of dO) on the fp32
-# routes
+# 6-pass, phase 11's for the 3-pass mode) and, by route and head dim, the
+# two kernels a call must launch (after two splits, of qkv and of dO, on
+# the fp32 routes): the query-outer / key-outer pair, and at 88 and 104 in
+# bf16 the dsum pre-pass and the key-outer kernel. queue_hd_bwd_plans
+# holds the profiler's names to it; BWD_PRODUCTS counts the S^2 hd
+# products of the kernels the profiler saw
 HD_BWD_BARS = {"bf16": BWD_BF16_MAX_REL, "6-pass": BWD_FP32_MAX_REL,
                "3-pass": HIGH_BWD_MAX_REL}
-HD_BWD_KERNELS = {"bf16": ("attn_bwd_{dq,dkdv}_wgmma", None),
-                  "6-pass": ("attn_bwd_{dq,dkdv}_6pass", "split3_kernel"),
-                  "3-pass": ("attn_bwd_{dq,dkdv}_3pass_wgmma",
-                             "split2_kernel")}
+HD_BWD_KERNELS = {
+    **{("bf16", hd): (("attn_bwd_dq_wgmma", "attn_bwd_dkdv_wgmma"), None)
+       for hd in (80, 128)},
+    **{("bf16", hd): (("attn_bwd_dsum_wgmma", "attn_bwd_kv_wgmma"), None)
+       for hd in (88, 104)},
+    **{("6-pass", hd): (("attn_bwd_dq_6pass", "attn_bwd_dkdv_6pass"),
+                        "split3_kernel") for hd in (80, 88, 104, 128)},
+    **{("3-pass", hd): (("attn_bwd_dq_3pass_wgmma",
+                         "attn_bwd_dkdv_3pass_wgmma"), "split2_kernel")
+       for hd in (80, 88, 104, 128)}}
+# S^2 hd products per kernel, by the start of its name: the pair's query-
+# outer kernel 5 (S and dP for dsum, then S, dP and dQ), its key-outer one
+# 4 (S^T, dP^T, dV, dK); the dsum pre-pass 2, the key-outer kernel 5 (its
+# fifth, each query tile's dQ partial)
+BWD_PRODUCTS = {"attn_bwd_dq_": 5, "attn_bwd_dkdv_": 4,
+                "attn_bwd_dsum_": 2, "attn_bwd_kv_": 5}
+
+
+def bwd_products(kernels) -> int:
+    """The S^2 hd products of the backward kernels named ``kernels`` (the
+    splits do none)."""
+    return sum(n for name in kernels for start, n in BWD_PRODUCTS.items()
+               if name.startswith(start))
+
+
+def hd_bwd_plan(hd: int, route: str) -> str:
+    """The name of 17c's (18c's) traced B2 row at ``hd`` on ``route``."""
+    return f"{hd_phase(hd, 'c')} attention_packed_bwd hd {hd} {route}"
+
+
+def queue_hd_bwd_plans() -> None:
+    """17c and 18c, traced early: B2 at the step's [8, 1370, 3D] at every
+    head dim of HD_GEOMETRIES and WIDE_GEOMETRIES on every route, queued
+    for check_device_ops with the kernels HD_BWD_KERNELS names (and two
+    splits on the fp32 routes). check_device_ops then fails unless the
+    profiler sees each of them, and nothing else, and keeps each kernel's
+    device time per call (DEVICE_OPS_SEEN), which hd_bwd_times reads: the
+    launch counter counts launches, not which kernel ran, and phases 17 and
+    18 run after the CLIs, when the profiler may return empty traces."""
+    import torch
+
+    from aaclip_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(57)
+    for hd, H in HD_GEOMETRIES + WIDE_GEOMETRIES:
+        for route, dtype_name, precision in HD_ROUTES:
+            pair, split = HD_BWD_KERNELS[route, hd]
+            dtype = torch_dtype(dtype_name)
+            qkv = random_qkv(TRAIN_BATCH, 1370, H, hd, dtype, gen)
+            d_out = torch.randn(TRAIN_BATCH, 1370, H * hd, generator=gen,
+                                device="cuda").to(dtype)
+            _, lse = A.attention_packed(qkv, H, 1370, return_lse=True,
+                                        precision=precision)
+            kernels_per_call(
+                functools.partial(A.attention_packed_bwd, qkv, d_out, lse, H,
+                                  1370, precision=precision),
+                ("attention_packed", "attention_packed_bwd"),
+                {**dict.fromkeys(pair, 1), **({split: 2} if split else {})},
+                hd_bwd_plan(hd, route))
+
+
 # 17d: the training CLI's synthetic set at ViT-H-14 (two classes), its
 # images' side, and the precisions of the stage-2 step with their routes
 VIT_H_TRAIN_PER_KIND = 4
@@ -8540,7 +8605,9 @@ def hd_bwd_check(hd: int, H: int, route: str, dtype_name: str, precision,
     plain version at the step's batch 8 x S 1370 and at HD_RAGGED, each
     gradient's max |d| within HD_BWD_BARS of its max |value| (and bf16's
     mean within
-    BWD_BF16_MEAN_REL); two runs bit-equal; finite; no dK or dV past
+    BWD_BF16_MEAN_REL); three runs bit-equal, the third after a call at
+    another shape (the key-outer plan's counters are the call's own: a
+    count left from another call would show); finite; no dK or dV past
     valid_len; the fp32 routes within SIX_FP64_MAX_REL of fp64 on two
     images of batch 8 (the 3-pass route within HIGH_FP64_MAX_REL, or
     HIGH_FP64_PLAIN_FACTOR times its plain version's own distance, at most
@@ -8554,6 +8621,10 @@ def hd_bwd_check(hd: int, H: int, route: str, dtype_name: str, precision,
     kw = dict(precision=precision)
     bar = HD_BWD_BARS[route]
     worst = 0.0
+    # the call at another shape between the second and the third run
+    o_qkv = random_qkv(1, 77, H, hd, dtype, gen)
+    o_d = torch.randn(1, 77, H * hd, generator=gen, device="cuda").to(dtype)
+    _, o_lse = A.attention_packed(o_qkv, H, 60, return_lse=True, **kw)
     for B, S, valid in [(TRAIN_BATCH, 1370, 1370)] + list(HD_RAGGED):
         what = f"{hd_phase(hd, 'c')} hd {hd} {route} B={B} S={S} valid={valid}"
         dm = H * hd
@@ -8563,8 +8634,10 @@ def hd_bwd_check(hd: int, H: int, route: str, dtype_name: str, precision,
         before = hd_before(A.attention_packed_bwd)
         got = A.attention_packed_bwd(qkv, d_out, lse, H, valid, **kw)
         again = A.attention_packed_bwd(qkv, d_out, lse, H, valid, **kw)
+        A.attention_packed_bwd(o_qkv, o_d, o_lse, H, 60, **kw)
+        third = A.attention_packed_bwd(qkv, d_out, lse, H, valid, **kw)
         torch.cuda.synchronize()
-        hd_route_counts(route, A.attention_packed_bwd, before, 2, 2, what)
+        hd_route_counts(route, A.attention_packed_bwd, before, 4, 2, what)
         want = chunked(A.attention_packed_bwd_plain, qkv, d_out, H, valid,
                        **kw)
         parts = []
@@ -8582,9 +8655,9 @@ def hd_bwd_check(hd: int, H: int, route: str, dtype_name: str, precision,
                        f"{what}: {name} mean|d| {mean} of {scale}")
             if S == 1370:
                 worst = max(worst, mx)
-        same = torch.equal(got, again)
+        same = torch.equal(got, again) and torch.equal(got, third)
         finite = bool(torch.isfinite(got).all())
-        expect(same and finite, f"{what}: two runs differ, or not finite")
+        expect(same and finite, f"{what}: three runs differ, or not finite")
         if valid < S:  # keys past valid_len get no gradient
             tail = got[:, valid:, dm:].float().abs().max().item()
             expect(tail == 0.0, f"{what}: dk/dv past valid_len: {tail}")
@@ -8611,9 +8684,9 @@ def hd_bwd_check(hd: int, H: int, route: str, dtype_name: str, precision,
             del exact
         del want
         print(f"{what}: B2 max|d| of each gradient's max {', '.join(parts)} "
-              f"(bar {bar}); two runs bit-equal {same}; finite {finite}"
-              + fp64)
-        del qkv, d_out, lse, got, again
+              f"(bar {bar}); three runs bit-equal (the third after a call "
+              f"at [1, 77]) {same}; finite {finite}" + fp64)
+        del qkv, d_out, lse, got, again, third
     return worst
 
 
@@ -8624,10 +8697,15 @@ def hd_bwd_times(hd: int, H: int, route: str, dtype_name: str, precision,
     B2 (with its splits on the fp32 routes, as a call runs them) beside
     its plain version, SDPA's backward on the same inputs and its bound
     (the TPU kernel's five S^2 hd products in the route's bf16 passes at
-    989 TFLOP/s, or the bytes; the pair's nine beside); the kernels per
-    call counted at the launch sites of both libraries. Returns (ms, plain
-    ms, SDPA ms, bound ms, bound_by, kernels per call, SDPA's backend: its
-    forward's, whose backward autograd runs)."""
+    989 TFLOP/s, or the bytes; beside it the products of the kernels the
+    profiler saw a call launch, queue_hd_bwd_plans' trace: nine for the
+    pair, seven for the dsum pre-pass and the key-outer kernel); the
+    kernels per call counted at the launch sites of both libraries; each
+    kernel's device time per call from that trace; on bf16, the source's
+    workspace query agreeing with the traced plan. Returns (ms, plain ms,
+    SDPA ms, bound ms, bound_by, kernels per call, SDPA's backend: its
+    forward's, whose backward autograd runs, the traced kernels' own
+    products' bound ms, {traced kernel: device ms per call})."""
     import torch
 
     from aaclip_tpu_torch.kernels.build import kernels_launched
@@ -8636,8 +8714,21 @@ def hd_bwd_times(hd: int, H: int, route: str, dtype_name: str, precision,
     dtype = torch_dtype(dtype_name)
     kw = dict(precision=precision)
     passes = {"bf16": 1, "6-pass": 6, "3-pass": 3}[route]
-    pair, split = HD_BWD_KERNELS[route]
+    pair, split = HD_BWD_KERNELS[route, hd]
+    # the kernels the profiler saw (check_device_ops held them to pair and
+    # split), each with its device ms per call
+    traced = {k: us / 1e3 for k, us in
+              DEVICE_OPS_SEEN[hd_bwd_plan(hd, route)].items()
+              if k.startswith("attn_bwd_")}
+    expect(all(t > 0 for t in traced.values()),
+           f"{hd_phase(hd, 'c')} hd {hd} {route}: device time {traced}")
+    own = bwd_products(traced)
     B, S, dm = TRAIN_BATCH, 1370, H * hd
+    if route == "bf16":  # the workspace query takes the traced plan
+        tiles = A._bwd_workspace_tiles()(1, hd, S)
+        expect((tiles > 0) == ("attn_bwd_kv_wgmma" in traced),
+               f"{hd_phase(hd, 'c')} hd {hd}: workspace {tiles} query "
+               f"tiles for kernels {sorted(traced)}")
     qkv = random_qkv(B, S, H, hd, dtype, gen)
     d_out = torch.randn(B, S, dm, generator=gen, device="cuda").to(dtype)
     _, lse = A.attention_packed(qkv, H, S, return_lse=True, **kw)
@@ -8668,15 +8759,20 @@ def hd_bwd_times(hd: int, H: int, route: str, dtype_name: str, precision,
     nbytes = (2 * qkv.numel() + d_out.numel()) * qkv.element_size() + \
         lse.numel() * 4
     bound_ms, bound_by = bound(flops, nbytes)
+    own_ms = own / 5 * flops / H100_BF16_FLOPS * 1e3
     print(f"time {hd_phase(hd, 'c')} attention_packed_bwd hd {hd} {route} "
           f"B={B} ({H} heads): {ms:.4f} ms/call ({flops / ms / 1e9:.1f} "
           f"TFLOP/s of the TPU kernel's five products in {passes} bf16 "
-          f"pass(es), {1.8 * flops / ms / 1e9:.1f} of the pair's nine; "
-          f"bound {bound_ms:.4f} ms by {bound_by}, nine products "
-          f"{1.8 * bound_ms:.4f}); plain {ms_plain:.4f}; SDPA backward "
-          f"({backend}) {ms_lib:.4f}; {per_call} kernels per call on {card}")
+          f"pass(es), {own / 5 * flops / ms / 1e9:.1f} of the traced "
+          f"kernels' own {own}; bound {bound_ms:.4f} ms by {bound_by}, "
+          f"{own} products {own_ms:.4f}); plain {ms_plain:.4f}; SDPA "
+          f"backward ({backend}) {ms_lib:.4f}; {per_call} kernels per call; "
+          f"device ms per call (profiler, traced before phase 9) "
+          + ", ".join(f"{k} {t:.4f}" for k, t in traced.items())
+          + f" on {card}")
     del qkv, d_out, lse, q, k, v, out
-    return ms, ms_plain, ms_lib, bound_ms, bound_by, per_call, backend
+    return (ms, ms_plain, ms_lib, bound_ms, bound_by, per_call, backend,
+            own_ms, traced)
 
 
 def check_neighbour_heads_bwd(hd: int, H: int, route: str, dtype_name: str,
@@ -8732,7 +8828,9 @@ def phase_head_dims_bwd(card, geometries=HD_GEOMETRIES,
                         phase: str = "17c") -> dict:
     """17c (18c at ``WIDE_GEOMETRIES``, with the neighbour-head check);
     returns {("attention_packed_bwd", hd, route): (ms, plain ms, SDPA ms,
-    bound ms, bound_by, kernels per call, max |d|, SDPA's backend)}."""
+    bound ms, bound_by, kernels per call, max |d|, SDPA's backend, the
+    bound of the traced kernels' own products in ms, {traced kernel:
+    device ms per call})}."""
     import gc
 
     import torch
@@ -8749,7 +8847,7 @@ def phase_head_dims_bwd(card, geometries=HD_GEOMETRIES,
             times = hd_bwd_times(hd, H, route, dtype_name, precision, card,
                                  gen)
             rows[("attention_packed_bwd", hd, route)] = (*times[:6], worst,
-                                                         times[6])
+                                                         *times[6:])
             gc.collect()
             torch.cuda.empty_cache()
     print(f"{phase} took {time.perf_counter() - t_phase:.0f} s")
@@ -9424,6 +9522,9 @@ def head_dim_rows(head_dims: dict, wide: dict) -> list:
             "library": ("SDPA backward" if name == "attention_packed_bwd"
                         else "SDPA") + f" ({t[7]})",
         })
+        if name == "attention_packed_bwd":  # the traced kernels
+            hd_rows[-1].update(kernels=t[9], own_products=bwd_products(t[9]),
+                               own_bound_ms=t[8])
     return hd_rows
 
 
@@ -9597,6 +9698,7 @@ def main() -> int:
     # -- 11f. the fp32 kernels' times, then every traced check while the
     # profiler still returns whole traces
     fp32_times = time_kernels_fp32(card)
+    queue_hd_bwd_plans()
     check_device_ops()
 
     # -- 9, 10. the evaluation and training CLIs from one saved checkpoint

@@ -13,6 +13,16 @@ versions:
   sends those head dims to (a unit out-projection, keys past valid_len
   masked), through the input projection: atol 1e-5 of the gradient's max,
   the fp32 bar with the projections' sums in another order;
+* the schedule of the bf16 backward at head dims 88 and 104 on the card
+  (``_key_outer_schedule``, test code: dsum first, then per 128-key block
+  dS, dV, dK and a dQ partial, dQ summed over the blocks in their order in
+  fp32 and cast at the end), at fp32 and in bf16 roundings, against
+  ``attention_packed_bwd_plain`` and JAX's ``_attention_packed_bwd_impl``
+  in interpret mode, at ragged S and valid_len < S (a key block wholly
+  past valid_len included), at the bars below;
+* which (dtype, head dim) takes that plan: the wrapper's route to the
+  bf16 entry point and the source's ``key_outer_head_dim``, which both its
+  dispatch and its workspace query (``_bwd_workspace_tiles``) read;
 * the autograd Function's CPU backward is the plain backward, exactly;
 * the differentiable ``attn_fn`` hook's gradients vs ``jax.vjp`` of the
   JAX hook at tiny-test's head dim 16;
@@ -44,6 +54,7 @@ from aaclip_tpu.ops.flash_attention import make_attn_fn as j_make_attn_fn
 from aaclip_tpu_torch.core.config import DtypePolicy, get_config
 from aaclip_tpu_torch.core.params import params_from_jax
 from aaclip_tpu_torch.kernels import build
+from aaclip_tpu_torch.ops import attention as A
 from aaclip_tpu_torch.ops.attention import (attention_packed,
                                             attention_packed_bwd,
                                             attention_packed_bwd_plain,
@@ -119,6 +130,145 @@ def test_plain_bwd_matches_pallas_interpret_at_wide_head_dims(
             ulp = 2 ** -8 * np.abs(want[..., sl]).max()
             np.testing.assert_allclose(got[..., sl], want[..., sl], atol=ulp,
                                        rtol=0)
+
+
+def _key_outer_schedule(qkv, d_out, heads, valid_len, block=128):
+    """d(qkv) as the card's bf16 backward at head dims 88 and 104 orders it
+    (test code, not the port's): dsum = rowsum(dP * P) over all keys
+    first (P = exp(s - lse), fp32), then per key block of ``block`` keys
+    below valid_len dS = P * (dP - dsum) * scale rounded to the input
+    dtype, dV = round(P)^T dO, dK = dS^T Q and the block's dQ partial dS K,
+    each in fp32; dQ is the partials summed in fp32 in the blocks' order,
+    cast at the end, and key blocks wholly past valid_len get zero dK and
+    dV. In fp32 the roundings are no-ops."""
+    B, S, three_dm = qkv.shape
+    dm = three_dm // 3
+    hd = dm // heads
+    dt = qkv.dtype
+    scale = hd ** -0.5
+
+    def split(t):
+        return t.reshape(B, S, heads, hd).transpose(1, 2).float()
+
+    q, k, v = (split(qkv[..., i * dm:(i + 1) * dm]) for i in range(3))
+    do = split(d_out.to(dt))
+    s = q @ k.transpose(-1, -2) * scale
+    s[..., valid_len:] = float("-inf")
+    p = torch.exp(s - torch.logsumexp(s, -1, keepdim=True))
+    dp = do @ v.transpose(-1, -2)
+    dsum = (dp * p).sum(-1, keepdim=True)
+    dq = torch.zeros_like(q)
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for k0 in range(0, valid_len, block):
+        keys = slice(k0, min(k0 + block, S))
+        pb = p[..., keys]
+        ds = (pb * (dp[..., keys] - dsum) * scale).to(dt).float()
+        dv[..., keys, :] = pb.to(dt).float().transpose(-1, -2) @ do
+        dk[..., keys, :] = ds.transpose(-1, -2) @ q
+        dq = dq + ds @ k[..., keys, :]
+    return torch.cat([g.to(dt).transpose(1, 2).reshape(B, S, dm)
+                      for g in (dq, dk, dv)], dim=-1)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("S,valid_len", [(77, 77), (200, 200), (200, 150),
+                                         (200, 100)])
+@pytest.mark.parametrize("head_dim", [88, 104])
+def test_key_outer_schedule_matches_plain_and_pallas_interpret(
+        head_dim, S, valid_len, dtype):
+    """The card's bf16 plan at 88 and 104 (dsum pre-pass, then 128-key
+    blocks each adding its dQ partial in order) computes the reference's
+    function: against ``attention_packed_bwd_plain`` and JAX's backward
+    kernel in interpret mode (q_blk 64), 2 heads, ragged S 77 (one partial
+    block) and 200, valid_len 200, 150 (the second block partly masked) and
+    100 (the second block wholly past valid_len: zero dK and dV, no
+    partial). Bars: fp32 atol 1e-5, rtol 1e-5 (the same arithmetic, dQ
+    summed over blocks in another order); bf16 one bf16 ulp of each
+    gradient's max (2^-8 relative), as the plain backward is held to
+    JAX's: both round P, dS and the outputs at the same points, and the
+    fp32 sums before the last rounding differ only in their order."""
+    jd, td = DTYPES[dtype]
+    dm = 2 * head_dim
+    qkv = packed_qkv(2, S, 2, head_dim, seed=31)
+    d_out = np.random.default_rng(32).standard_normal(
+        (2, S, dm)).astype(np.float32)
+    x, g = torch.from_numpy(qkv).to(td), torch.from_numpy(d_out).to(td)
+    got = _key_outer_schedule(x, g, 2, valid_len)
+    assert got.shape == (2, S, 3 * dm) and got.dtype == td
+    plain = attention_packed_bwd_plain(x, g, 2, valid_len).float().numpy()
+    want = np.asarray(j_bwd_impl(
+        jnp.asarray(qkv, jd), jnp.asarray(d_out, jd), 2, valid_len, 64,
+        "highest" if dtype == "fp32" else None, True), np.float32)
+    got = got.float().numpy()
+    if valid_len < S:  # keys past valid_len get no dK or dV
+        assert not got[:, valid_len:, dm:].any()
+    for ref in (plain, want):
+        if dtype == "fp32":
+            np.testing.assert_allclose(got, ref, atol=1e-5, rtol=1e-5)
+            continue
+        for i in range(3):
+            sl = slice(i * dm, (i + 1) * dm)
+            ulp = 2 ** -8 * np.abs(ref[..., sl]).max()
+            np.testing.assert_allclose(got[..., sl], ref[..., sl], atol=ulp,
+                                       rtol=0)
+
+
+def _source_key_outer_head_dims() -> tuple:
+    """The head dims of ``key_outer_head_dim`` in attention_packed_bwd.cu."""
+    bwd = (build.CSRC / "attention_packed_bwd.cu").read_text()
+    body = re.search(r"constexpr bool key_outer_head_dim\(int hd\) "
+                     r"\{([^}]*)\}", bwd).group(1)
+    return tuple(int(d) for d in re.findall(r"hd == (\d+)", body))
+
+
+@pytest.mark.parametrize("head_dim", A.KERNEL_HEAD_DIMS)
+@pytest.mark.parametrize("dtype,precision", [
+    (torch.bfloat16, None), (torch.bfloat16, "high"),
+    (torch.float32, None), (torch.float32, "highest"),
+    (torch.float32, "high")])
+def test_key_outer_plan_is_bf16_at_88_and_104(dtype, precision, head_dim):
+    """bf16 at 88 and 104 takes the dsum pre-pass and the key-outer kernel
+    (whatever the precision: bf16 ignores it); every other (dtype, head
+    dim) keeps its route's pair. The wrapper hands bf16 on the "wgmma"
+    route to the bf16 entry point with ``bf16`` 1 (the fp32 routes have
+    entries of their own, which take no workspace), and the source sends
+    ``key_outer_head_dim`` there to the key-outer plan."""
+    want = dtype == torch.bfloat16 and head_dim in (88, 104)
+    route = A.kernel_route(dtype, head_dim, precision)
+    got = route == "wgmma" and head_dim in _source_key_outer_head_dims()
+    assert got is want
+
+
+def test_workspace_query_and_dispatch_share_key_outer_head_dim():
+    """One predicate picks the plan: the entry point dispatches
+    ``key_outer_head_dim`` to ``launch_key_outer`` (the pre-pass and the
+    key-outer kernel) and nothing else to it, and the workspace query
+    answers 0 unless bf16 at ``key_outer_head_dim``; the pre-pass zeroes
+    the counters, so the wrapper allocates them uninitialised."""
+    assert _source_key_outer_head_dims() == (88, 104)
+    bwd = (build.CSRC / "attention_packed_bwd.cu").read_text()
+    assert "if constexpr (key_outer_head_dim(HD))" in bwd
+    assert bwd.count("launch_key_outer<HD>(") == 1
+    for name in ("attn_bwd_dsum_wgmma", "attn_bwd_kv_wgmma"):
+        assert f"{name}<HD><<<" in bwd
+    query = bwd[bwd.index('int aaclip_attention_packed_bwd_workspace('):]
+    query = query[:query.index("\n}\n")]
+    assert "if (!bf16 || !key_outer_head_dim(head_dim)) return 0;" in query
+    dsum = bwd[bwd.index("attn_bwd_dsum_wgmma(const"):]
+    assert "] = 0;" in dsum[:dsum.index("query_outer<HD, false>")]
+
+
+def test_bwd_workspace_is_one_tile_row_per_query_tile():
+    """The key-outer kernel's workspace for the query tiles the source
+    asks for: dQ's fp32 sums over every 64-row query tile of each (image,
+    head), and one int32 counter per (image, head, query tile) plus the
+    ticket."""
+    acc, counters = A._bwd_workspace(3, 2, 3, 88, "cpu")
+    assert acc.shape == (2, 3, 192, 88) and acc.dtype == torch.float32
+    assert counters.shape == (2 * 3 * 3 + 1,)
+    assert counters.dtype == torch.int32
+    acc, counters = A._bwd_workspace(22, 8, 16, 104, "cpu")
+    assert acc.shape == (8, 16, 1408, 104) and counters.numel() == 2817
 
 
 @pytest.mark.parametrize("valid_len", [250, 201])
@@ -252,7 +402,15 @@ def test_bwd_entry_point_matches_the_c_signature():
     code = (build.CSRC.parent.parent / "ops" / "attention.py").read_text()
     bwd = code[code.index("def _bwd_kernel"):]
     argtypes = re.search(r"fn\.argtypes = \[([^\]]*)\]", bwd).group(1)
-    assert len(argtypes.split(",")) == len(sig.split(",")) == 18
+    assert len(argtypes.split(",")) == len(sig.split(",")) == 20
+    # the key-outer kernel's workspace, between d_qkv and bf16
+    assert "void* d_qkv, float* dq_acc, int* counters, int bf16," in sig
+    # its size: (bf16, head_dim, seq) -> query tiles, three ints
+    query = re.search(r'extern "C" int aaclip_attention_packed_bwd_workspace'
+                      r'\(([^)]*)\)', src).group(1)
+    assert [a.split()[0] for a in query.split(",")] == ["int"] * 3
+    tiles = code[code.index("def _bwd_workspace_tiles"):]
+    assert "fn.argtypes = [ctypes.c_int] * 3" in tiles
 
 
 def test_every_kernel_source_is_built():

@@ -436,7 +436,9 @@ def test_cuda_checks_admit_the_forward_and_the_backward(hd, monkeypatch):
     packed and V-V layouts, and ``attention_packed_bwd``'s argument checks
     admit it and hand the launch to the route's C entry point (recorded in
     place of the library) with the head dim, the shape, the row strides
-    and the section offsets of the packed layout."""
+    and the section offsets of the packed layout, and on the bf16 route
+    the key-outer kernel's workspace (its dQ sums and counters) in the
+    query tiles the source's workspace query answers."""
     launched = []
 
     def entry(route):
@@ -454,6 +456,17 @@ def test_cuda_checks_admit_the_forward_and_the_backward(hd, monkeypatch):
         (3 if route == "6pass" else 2, *x.shape), torch.bfloat16))
     monkeypatch.setattr(A.torch, "empty_like",
                         lambda t: _OnTheCard(t.shape, t.dtype))
+    queried = []
+
+    def tiles(bf16, head_dim, seq):  # the source's answer at 88 and 104
+        queried.append((bf16, head_dim, seq))
+        return -(-seq // 64) if bf16 else 0
+
+    monkeypatch.setattr(A, "_bwd_workspace_tiles", lambda: tiles)
+    work = (_OnTheCard((2, 16, 1408, hd), torch.float32),
+            _OnTheCard((2 * 16 * 22 + 1,), torch.int32))
+    monkeypatch.setattr(A, "_bwd_workspace",
+                        lambda *a: work if a[:4] == (22, 2, 16, hd) else None)
     monkeypatch.setattr(A.torch.cuda, "device",
                         lambda d: contextlib.nullcontext())
     monkeypatch.setattr(A.torch.cuda, "current_stream",
@@ -480,6 +493,9 @@ def test_cuda_checks_admit_the_forward_and_the_backward(hd, monkeypatch):
         assert got_route == route and not launched
         assert args[-12:-1] == (hd, 2, 1370, 1201, 16, 3 * dm, 0, dm,
                                 2 * dm, dm, hd ** -0.5)
+        if route == "wgmma":  # bf16: the key-outer kernel's workspace
+            assert queried.pop() == (1, hd, 1370) and not queried
+            assert args[5:8] == (1 << 20, 1 << 20, 1)
     assert (A.attention_packed_bwd.launches,
             A.attention_packed_bwd.launches_6pass,
             A.attention_packed_bwd.launches_3pass) == (3, 1, 1)
